@@ -1,0 +1,229 @@
+// Stride-1, zero-pad-1, 3x3x3 convolution forward for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels of cbim_tpu/ops/pallas/conv3d.py:
+//   _conv_kernel / _conv3d_same_pallas / conv3d_same      (NDHWC),
+//   _conv_kernel_cw / conv3d_same_cw                     (NDHCW twin),
+//   _conv_kernel_cw2 / conv3d_same_cw2                   (NDHCW twin).
+// The NDHCW twins exist for TPU lane density only; their math is this one
+// NDHWC kernel.  The tap packing of the TPU kernel (K = 3*C, N = 9*F) existed
+// to fill 128-lane MXU tiles at C = 32 and is not carried over.
+//
+//   y[b, d, h, w, f] = sum_{kd, kh, kw, c} x[b, d+kd-1, h+kh-1, w+kw-1, c]
+//                                        * wp[kd, kh, kw, c, f]
+// x: [B, D, H, W, C], wp: [3, 3, 3, C, F] (the wrapper packs torch's
+// [F, C, 3, 3, 3]), y: [B, D, H, W, F]; fp32 or bf16 storage, fp32 sums.
+//
+// What bounds it on the H100: arithmetic.  The full-resolution convolutions
+// of MedFormer-3D are 2*27*C*F FLOPs per voxel, about 2 TFLOP per 128^3
+// window, against 67 TFLOP/s of fp32 FMA outside the tensor cores.
+//
+// What the design does about it: an implicit GEMM on CUDA cores.  M is the
+// output voxels, N the output channels, K = 27 taps x C.  A block owns a
+// 128-voxel x BN-channel tile; for each tap and each 16-channel slice it
+// stages the shifted input rows (zeros outside the volume, so ragged D/H/W
+// need no padding copy) and the weight slice in shared memory, and each of
+// its 128 threads accumulates an 8 x BN/8 register tile, 64 FMAs per pair
+// of shared-memory vector loads at BN = 64.  The weights never sit whole in
+// shared memory: 27*C*F*4 bytes is 1.3 MB at C = 192, F = 64.
+// The taps re-read neighbouring input rows, which L1 and the 50 MB L2 serve.
+// Tensor cores (mma/wgmma in bf16) and TMA staging are the next steps.
+//
+// The extern "C" entry launches on the caller's stream, allocates nothing,
+// and returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBM = 128;       // output voxels per block
+constexpr int kBK = 16;        // input channels per staged slice
+constexpr int kThreads = 128;  // 16 row groups x 8 column groups
+constexpr int kTM = kBM / 16;  // voxels per thread
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T v);
+template <>
+__device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// VEC consecutive channels as fp32; VEC = 4 needs an aligned address.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* p, float v[VEC]);
+template <>
+__device__ __forceinline__ void load_vec<float, 1>(const float* p, float v[1]) {
+  v[0] = p[0];
+}
+template <>
+__device__ __forceinline__ void load_vec<float, 4>(const float* p, float v[4]) {
+  const float4 r = *reinterpret_cast<const float4*>(p);
+  v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
+}
+template <>
+__device__ __forceinline__ void load_vec<__nv_bfloat16, 1>(
+    const __nv_bfloat16* p, float v[1]) {
+  v[0] = __bfloat162float(p[0]);
+}
+template <>
+__device__ __forceinline__ void load_vec<__nv_bfloat16, 4>(
+    const __nv_bfloat16* p, float v[4]) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&r.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&r.y);
+  v[0] = __low2float(lo); v[1] = __high2float(lo);
+  v[2] = __low2float(hi); v[3] = __high2float(hi);
+}
+
+template <typename T, int BN, int VEC>
+__global__ void __launch_bounds__(kThreads)
+conv3d_same_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wp,
+                       T* __restrict__ y, int D, int H, int W, int C, int F,
+                       long long M) {
+  constexpr int TN = BN / 8;  // output channels per thread
+  __shared__ __align__(16) float As[kBK][kBM];
+  __shared__ __align__(16) float Bs[kBK][BN];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 8;
+  const int ty = tid / 8;
+  const long long m0 = (long long)blockIdx.x * kBM;
+  const int n0 = blockIdx.y * BN;
+
+  // The A row this thread stages is output voxel m0 + tid.
+  const long long m_load = m0 + tid;
+  const bool row_ok = m_load < M;
+  int w0 = 0, h0 = 0, d0 = 0;
+  long long b0 = 0;
+  if (row_ok) {
+    long long r = m_load;
+    w0 = (int)(r % W); r /= W;
+    h0 = (int)(r % H); r /= H;
+    d0 = (int)(r % D);
+    b0 = r / D;
+  }
+
+  float acc[kTM][TN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  for (int t = 0; t < 27; ++t) {
+    const int sd = d0 + t / 9 - 1;
+    const int sh = h0 + (t / 3) % 3 - 1;
+    const int sw = w0 + t % 3 - 1;
+    const bool valid = row_ok && sd >= 0 && sd < D && sh >= 0 && sh < H &&
+                       sw >= 0 && sw < W;
+    const long long src_off =
+        valid ? (((b0 * D + sd) * H + sh) * (long long)W + sw) * C : 0;
+    const T* src = x + src_off;
+    const T* wt = wp + (long long)t * C * F;
+
+    for (int c0 = 0; c0 < C; c0 += kBK) {
+#pragma unroll
+      for (int j = 0; j < kBK / VEC; ++j) {
+        const int c = c0 + j * VEC;
+        float v[VEC];
+        if (valid && c < C) {
+          load_vec<T, VEC>(src + c, v);
+        } else {
+#pragma unroll
+          for (int q = 0; q < VEC; ++q) v[q] = 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) As[j * VEC + q][tid] = v[q];
+      }
+#pragma unroll
+      for (int j = 0; j < kBK * BN / kThreads; ++j) {
+        const int e = tid + j * kThreads;
+        const int n = e % BN;
+        const int k = e / BN;
+        const int c = c0 + k;
+        const int f = n0 + n;
+        Bs[k][n] = (c < C && f < F) ? to_f32(wt[(long long)c * F + f]) : 0.f;
+      }
+      __syncthreads();
+
+#pragma unroll
+      for (int k = 0; k < kBK; ++k) {
+        float a[kTM], bv[TN];
+#pragma unroll
+        for (int i = 0; i < kTM; ++i) a[i] = As[k][ty * kTM + i];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) bv[j] = Bs[k][tx * TN + j];
+#pragma unroll
+        for (int i = 0; i < kTM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const long long m = m0 + ty * kTM + i;
+    if (m >= M) continue;
+    T* yr = y + m * F;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int f = n0 + tx * TN + j;
+      if (f < F) yr[f] = from_f32<T>(acc[i][j]);
+    }
+  }
+}
+
+template <typename T, int BN>
+void launch(const void* x, const void* w, void* y, int B, int D, int H, int W,
+            int C, int F, cudaStream_t stream) {
+  const long long M = (long long)B * D * H * W;
+  const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)((F + BN - 1) / BN));
+  const bool vec = C % 4 == 0 && (uintptr_t)x % (4 * sizeof(T)) == 0;
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  T* yt = static_cast<T*>(y);
+  if (vec)
+    conv3d_same_fwd_kernel<T, BN, 4><<<grid, kThreads, 0, stream>>>(
+        xt, wt, yt, D, H, W, C, F, M);
+  else
+    conv3d_same_fwd_kernel<T, BN, 1><<<grid, kThreads, 0, stream>>>(
+        xt, wt, yt, D, H, W, C, F, M);
+}
+
+template <typename T>
+void launch_dtype(const void* x, const void* w, void* y, int B, int D, int H,
+                  int W, int C, int F, cudaStream_t stream) {
+  if (F <= 32)
+    launch<T, 32>(x, w, y, B, D, H, W, C, F, stream);
+  else
+    launch<T, 64>(x, w, y, B, D, H, W, C, F, stream);
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16.  w is packed [3, 3, 3, C, F] in x's dtype.
+extern "C" int conv3d_same_fwd(const void* x, const void* w, void* y,
+                               int dtype, int B, int D, int H, int W, int C,
+                               int F, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    launch_dtype<float>(x, w, y, B, D, H, W, C, F, st);
+  else if (dtype == 1)
+    launch_dtype<__nv_bfloat16>(x, w, y, B, D, H, W, C, F, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,158 @@
+"""Inference engines, whole-image and 3D sliding-window (counterpart of
+``cbim_tpu/inference/engines.py``).
+
+Same window geometry and uniform fusion as ``cbim_tpu`` (and the
+reference's inference3d.py): stride half a window, edge windows clamped
+flush to the border (``split_idx``), repeated starts run once and weighted by their
+multiplicity (``_dedup_starts``), softmax probabilities summed and divided
+by the visit count; inputs smaller than the window are zero-padded on the
+high side and cropped back.
+
+PyTorch runs eagerly, so the sweep is a Python loop over window groups under
+``torch.inference_mode()`` instead of a compiled scan; a short last group
+runs as it is (no padded forwards).  The probability accumulator is an fp32
+buffer on the device, updated in place; the count map is pure window
+geometry, built on the host once per padded shape and cached on the device.
+
+The public functions take and return ``cbim_tpu``'s layout (B, *spatial, C);
+``apply_fn`` takes and returns NCDHW.  The sharded and 2D-slice variants
+and gaussian fusion are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def split_idx(half_win: int, size: int, i: int):
+    """Exact port of reference inference/utils.py:29-43."""
+    start = half_win * i
+    end = start + half_win * 2
+    if end > size:
+        start = size - half_win * 2
+        end = size
+    return start, end
+
+
+def _grid_starts(spatial, window):
+    """All window start coordinates for a volume (reference's triple loop)."""
+    halves = [w // 2 for w in window]
+    axes = []
+    for size, half in zip(spatial, halves):
+        axes.append([split_idx(half, size, i)[0] for i in range(size // half)])
+    starts = np.stack(np.meshgrid(*axes, indexing="ij"),
+                      axis=-1).reshape(-1, len(window))
+    return starts.astype(np.int32)
+
+
+def _dedup_starts(starts: np.ndarray):
+    """Collapse repeated window starts into (unique_starts, multiplicity);
+    np.unique's sorted order keeps the reference's visit order."""
+    uniq, mult = np.unique(starts, axis=0, return_counts=True)
+    return uniq.astype(np.int32), mult.astype(np.float32)
+
+
+def _auto_window_batch(n_windows: int, cap: int = 6) -> int:
+    """Largest window_batch <= cap that divides the unique-window count
+    (2 when nothing in [2, cap] does)."""
+    for wb in range(cap, 1, -1):
+        if n_windows % wb == 0:
+            return wb
+    return 2
+
+
+def _softmax_fp32(logits: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(logits.float(), dim=1)
+
+
+def _window(start, window) -> tuple:
+    """Index of one window in an NCDHW tensor."""
+    return (slice(None), slice(None),
+            *(slice(int(o), int(o) + w) for o, w in zip(start, window)))
+
+
+class InferenceEngine:
+    """Sliding-window and whole-image inference around ``apply_fn``.
+
+    ``apply_fn(x) -> logits``: NCDHW in, NCDHW out (deep-supervision heads
+    already reduced to head 0 by the caller)."""
+
+    def __init__(self, apply_fn, num_classes: int, window_size=None,
+                 window_batch: int | str | None = 1):
+        self.apply_fn = apply_fn
+        self.num_classes = num_classes
+        self.window_size = tuple(window_size) if window_size else None
+        # None/"auto": pick per volume shape
+        self.window_batch = (None if window_batch in (None, "auto")
+                             else max(1, int(window_batch)))
+        self._cnt_cache = {}
+
+    def _count_map(self, padded_spatial, starts, mult):
+        """The fusion denominator, (1, 1, *padded_spatial): each voxel's
+        window visits, pure geometry, built on the host."""
+        cnt = np.zeros((1, 1, *padded_spatial), np.float32)
+        for s, m in zip(starts, mult):
+            cnt[_window(s, self.window_size)] += m
+        return cnt
+
+    # -- whole image --------------------------------------------------------
+    def whole_image(self, img: torch.Tensor) -> torch.Tensor:
+        """img: (B, *spatial, C) -> softmax probs (B, *spatial, classes)."""
+        with torch.inference_mode():
+            probs = _softmax_fp32(self.apply_fn(img.movedim(-1, 1)))
+        return probs.movedim(1, -1)
+
+    # -- sliding window -------------------------------------------------------
+    def sliding_window(self, img: torch.Tensor) -> torch.Tensor:
+        """img: (1, *spatial, C) -> softmax probs (1, *spatial, classes)."""
+        window = self.window_size
+        nd = len(window)
+        spatial = tuple(img.shape[1:1 + nd])
+        x = img.movedim(-1, 1)                             # (1, C, *spatial)
+        pads = [max(0, w - s) for s, w in zip(spatial, window)]
+        if any(pads):
+            # F.pad orders its pairs from the last axis backwards
+            x = F.pad(x, [p for pad in reversed(pads) for p in (0, pad)])
+        padded = tuple(x.shape[2:])
+
+        starts, mult = _dedup_starts(_grid_starts(padded, window))
+        wb = self.window_batch or _auto_window_batch(len(starts))
+        cnt = self._cnt_cache.get((padded, x.device))
+        if cnt is None:
+            cnt = torch.from_numpy(self._count_map(padded, starts, mult))
+            cnt = self._cnt_cache[(padded, x.device)] = cnt.to(x.device)
+
+        with torch.inference_mode():
+            acc = torch.zeros((1, self.num_classes, *padded),
+                              dtype=torch.float32, device=x.device)
+            for g in range(0, len(starts), wb):
+                grp = starts[g:g + wb]
+                wins = torch.cat([x[_window(s, window)] for s in grp])
+                probs = _softmax_fp32(self.apply_fn(wins))
+                for i, s in enumerate(grp):
+                    acc[_window(s, window)] += probs[i] * float(mult[g + i])
+            acc /= cnt
+        crop = (slice(None), slice(None), *(slice(0, s) for s in spatial))
+        return acc[crop].movedim(1, -1)
+
+
+def make_engine(model, cfg, window_batch: int | str | None = None
+                ) -> InferenceEngine:
+    """Wrap a model into an InferenceEngine: inputs cast to the model's
+    dtype, head 0 of deep-supervision models (reference
+    inference3d.py:22-24)."""
+    dtype = next(model.parameters()).dtype
+
+    def apply_fn(x):
+        out = model(x.to(dtype).contiguous(memory_format=torch.channels_last_3d))
+        return out[0] if isinstance(out, (tuple, list)) else out
+
+    if cfg.get("window_fusion", "uniform") != "uniform":
+        raise NotImplementedError(
+            "only uniform window fusion is ported yet (see ROADMAP.md)")
+    wb = window_batch if window_batch is not None \
+        else cfg.get("window_batch", "auto")
+    return InferenceEngine(apply_fn, cfg.classes,
+                           window_size=cfg.get("window_size"), window_batch=wb)

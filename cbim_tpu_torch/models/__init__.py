@@ -1,0 +1,90 @@
+"""Model factory (counterpart of ``cbim_tpu/models/__init__.py``).
+
+Only MedFormer-3D is ported; every other (model, dimension) raises
+``NotImplementedError`` (the rest of the zoo is queued in ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..config import compute_dtype, set_float32_precision
+
+#: the full-width MedFormer-3D stage widths (``cbim_tpu``'s default)
+DEFAULT_CHAN_NUM = [64, 128, 256, 320, 256, 128, 64, 32]
+
+
+def _norm_scales(v, n):
+    """Normalize scalar / flat-list / nested-list axis specs to n per-level
+    lists (same rule as ``cbim_tpu.models._norm_scales``)."""
+    if isinstance(v, int):
+        return [[v] * 3] * n
+    v = list(v)
+    if all(isinstance(t, int) for t in v):
+        if len(v) == n:
+            return [[t] * 3 for t in v]
+        return [list(v)] * n
+    assert len(v) == n, (v, n)
+    return [list(t) for t in v]
+
+
+def get_model(cfg, device=None, generator: torch.Generator | None = None
+              ) -> nn.Module:
+    """Build the model selected by (cfg.dimension, cfg.model) in eval mode,
+    in cfg's compute dtype, in channels_last_3d memory, on ``device``.
+
+    ``generator``: re-draw every parameter from it with torch's default
+    initialisation (seeded random weights)."""
+    dim, name = cfg.dimension, cfg.model
+    if not (dim == "3d" and name == "medformer"):
+        raise NotImplementedError(
+            f"model {name!r} ({dim}) is not ported yet; the PyTorch port "
+            f"covers MedFormer-3D (see ROADMAP.md)")
+    from .medformer import MedFormer3D
+    model = MedFormer3D(
+        in_chan=cfg.in_chan, num_classes=cfg.classes, base_ch=cfg.base_chan,
+        map_size=tuple(cfg.map_size), conv_block=cfg.conv_block,
+        conv_num=tuple(cfg.conv_num), trans_num=tuple(cfg.trans_num),
+        chan_num=tuple(cfg.get("chan_num") or DEFAULT_CHAN_NUM),
+        num_heads=tuple(cfg.num_heads), fusion_depth=cfg.fusion_depth,
+        fusion_dim=cfg.fusion_dim, fusion_heads=cfg.fusion_heads,
+        expansion=cfg.expansion, proj_type=cfg.proj_type, norm=cfg.norm,
+        act=cfg.act,
+        kernel_size=tuple(map(tuple, _norm_scales(cfg.kernel_size, 5))),
+        scale=tuple(map(tuple, _norm_scales(cfg.down_scale, 4))),
+        aux_loss=cfg.aux_loss)
+    if generator is not None:
+        init_weights(model, generator)
+    set_float32_precision(cfg)
+    model = model.to(device=device, dtype=compute_dtype(cfg),
+                     memory_format=torch.channels_last_3d)
+    for m in model.modules():
+        # grouped convs run in contiguous memory (layers.convs.grouped_conv);
+        # load_state_dict copies into the parameter and keeps this layout.
+        # Not .contiguous(): a depthwise weight [C, 1, 3, 3, 3] passes
+        # is_contiguous() with channels_last_3d strides, which steer the
+        # conv to the slow layout all the same.
+        if isinstance(m, nn.Conv3d) and m.groups > 1:
+            m.weight.data = m.weight.data.clone(
+                memory_format=torch.contiguous_format)
+    return model.eval()
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """torch's default init drawn from ``generator``: conv/linear weights
+    and biases U(+-1/sqrt(fan_in)) (kaiming_uniform(a=sqrt(5))), LayerNorm
+    weight 1 and bias 0."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv3d, nn.Linear)):
+            fan_in = m.weight.shape[1] * math.prod(m.weight.shape[2:])
+            bound = 1.0 / math.sqrt(fan_in)
+            m.weight.uniform_(-bound, bound, generator=generator)
+            if m.bias is not None:
+                m.bias.uniform_(-bound, bound, generator=generator)
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.fill_(0.0)

@@ -1,0 +1,73 @@
+"""Transformer primitives (counterpart of
+``cbim_tpu/models/layers/transformers.py``), with the reference's
+trans_layers.py parameter names.  Attention logits and softmax run in fp32
+under bf16 compute, as in ``cbim_tpu``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...ops.activations import get_act
+
+
+class Mlp(nn.Module):
+    """trans_layers.py:16-33."""
+
+    def __init__(self, in_dim, hid_dim=None, out_dim=None, act="gelu"):
+        super().__init__()
+        self.fc1 = nn.Linear(in_dim, hid_dim or in_dim)
+        self.fc2 = nn.Linear(hid_dim or in_dim, out_dim or in_dim)
+        self.act = get_act(act)
+
+    def forward(self, x):
+        return self.fc2(self.act(self.fc1(x)))
+
+
+class Attention(nn.Module):
+    """trans_layers.py:45-98 — multi-head self-attention on (B, L, C)."""
+
+    def __init__(self, dim, heads, dim_head, qkv_bias=False):
+        super().__init__()
+        self.heads = heads
+        self.dim_head = dim_head
+        inner = heads * dim_head
+        self.to_qkv = nn.Linear(dim, inner * 3, bias=qkv_bias)
+        self.to_out = nn.Linear(inner, dim)
+
+    def forward(self, x):
+        b, l, _ = x.shape
+        q, k, v = (t.reshape(b, l, self.heads, self.dim_head).transpose(1, 2)
+                   for t in self.to_qkv(x).chunk(3, dim=-1))
+        attn = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        attn = (attn * self.dim_head ** -0.5).softmax(dim=-1).to(q.dtype)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, l, -1)
+        return self.to_out(out)
+
+
+class PreNorm(nn.Module):
+    def __init__(self, dim, fn):
+        super().__init__()
+        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        self.fn = fn
+
+    def forward(self, x):
+        return self.fn(self.norm(x))
+
+
+class TransformerBlock(nn.Module):
+    """trans_layers.py:101-118 — depth x (PreNorm MHSA + PreNorm MLP)."""
+
+    def __init__(self, dim, depth, heads, dim_head, mlp_dim):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            nn.ModuleList([PreNorm(dim, Attention(dim, heads, dim_head)),
+                           PreNorm(dim, Mlp(dim, mlp_dim, dim))])
+            for _ in range(depth))
+
+    def forward(self, x):
+        for attn, ff in self.layers:
+            x = attn(x) + x
+            x = ff(x) + x
+        return x

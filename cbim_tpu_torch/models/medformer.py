@@ -1,0 +1,349 @@
+"""MedFormer-3D (arXiv:2203.00131), counterpart of
+``cbim_tpu/models/medformer.py`` (3D only), for inference.
+
+Modules and parameter names follow the reference's model/dim3/medformer.py
+and medformer_utils.py, so ``cbim_tpu.utils.torch_import.import_medformer3d``
+maps this model's state_dict onto the Flax tree.
+
+The B-MHA splits its inner channels the reference's way, dim-head-major:
+channel c = d * heads + h (medformer_utils.py rearrange, ``view(b,
+dim_head, heads, -1)``).  ``cbim_tpu`` splits head-major and
+``import_medformer3d`` permutes the weights for exactly that difference
+(``_bmha_perm``), so copying the Flax split here would keep the names and
+change the numbers.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ..ops.interpolate import resize_linear
+from .layers.convs import (ConvNormAct, DepthwiseSeparableConv, MBConv, Norm,
+                           _tuple, from_channels_last, get_block_cls,
+                           to_channels_last)
+from .layers.transformers import TransformerBlock
+
+
+def _conv1x1(in_ch, out_ch, bias=False):
+    return nn.Conv3d(in_ch, out_ch, 1, bias=bias)
+
+
+class BidirectionAttention(nn.Module):
+    """Feature <-> semantic-map cross attention, both directions."""
+
+    def __init__(self, feat_dim, map_dim, out_dim, heads=4, dim_head=64,
+                 kernel_size=3, no_map_out=False):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads = heads
+        self.dim_head = dim_head
+        self.feat_qv = DepthwiseSeparableConv(feat_dim, inner * 2, kernel_size)
+        self.map_qv = _conv1x1(map_dim, inner * 2)
+        self.feat_out = DepthwiseSeparableConv(inner, out_dim, kernel_size)
+        self.map_out = None if no_map_out else _conv1x1(inner, map_dim)
+
+    def _to_heads(self, t):
+        """(B, inner, *spatial), channel d*heads + h -> (B, heads, N, d)."""
+        return t.reshape(t.shape[0], self.dim_head, self.heads,
+                         -1).permute(0, 2, 3, 1)
+
+    def _from_heads(self, t, spatial):
+        """(B, heads, N, d) -> (B, inner, *spatial), channel d*heads + h."""
+        b = t.shape[0]
+        return t.permute(0, 3, 1, 2).reshape(b, -1, *spatial)
+
+    def forward(self, feat, semantic_map):
+        fq, fv = (self._to_heads(t) for t in self.feat_qv(feat).chunk(2, 1))
+        mq, mv = (self._to_heads(t)
+                  for t in self.map_qv(semantic_map).chunk(2, 1))
+        attn = torch.matmul(fq.float(), mq.float().transpose(-1, -2))
+        attn = attn * self.dim_head ** -0.5                # (B, h, N, M)
+        feat_map_attn = attn.softmax(dim=-1).to(fq.dtype)
+        map_feat_attn = attn.softmax(dim=-2).to(fq.dtype)
+        feat_out = torch.matmul(feat_map_attn, mv)         # (B, h, N, d)
+        feat_out = self.feat_out(self._from_heads(feat_out, feat.shape[2:]))
+        if self.map_out is None:
+            return feat_out, None
+        map_out = torch.matmul(map_feat_attn.transpose(-1, -2), fv)
+        return feat_out, self.map_out(
+            self._from_heads(map_out, semantic_map.shape[2:]))
+
+
+class BidirectionAttentionBlock(nn.Module):
+    """norm -> B-MHA -> shortcut -> MBConv feedforward; map residual."""
+
+    def __init__(self, feat_dim, map_dim, out_dim, heads, dim_head, norm="in",
+                 act="relu", expansion=4, kernel_size=3, no_map_out=False):
+        super().__init__()
+        # the reference builds these norms with torch's default eps 1e-5
+        self.norm1 = Norm(norm, eps=1e-5)
+        self.norm2 = Norm(norm, eps=1e-5)
+        self.attn = BidirectionAttention(feat_dim, map_dim, out_dim, heads,
+                                         dim_head, kernel_size, no_map_out)
+        self.shortcut = (ConvNormAct(feat_dim, out_dim, 1, norm=norm,
+                                     act=act, preact=True)
+                         if feat_dim != out_dim else None)
+        self.feedforward = MBConv(out_dim, out_dim, expansion=expansion,
+                                  kernel_size=kernel_size, norm=norm, act=act)
+
+    def forward(self, x, semantic_map):
+        out, map_out = self.attn(self.norm1(x), self.norm2(semantic_map))
+        out = out + (x if self.shortcut is None else self.shortcut(x))
+        out = self.feedforward(out)
+        if map_out is None:
+            return out, None
+        return out, map_out + semantic_map
+
+
+class PatchMerging(nn.Module):
+    """Space-to-depth downsample + norm + depthwise-separable reduction."""
+
+    def __init__(self, in_ch, out_ch, down_scale=2, kernel_size=3, norm="in"):
+        super().__init__()
+        self.scale = _tuple(down_scale, 3)
+        # torch-default eps (reference PatchMerging norm)
+        self.norm = Norm(norm, eps=1e-5)
+        self.reduction = DepthwiseSeparableConv(
+            in_ch * math.prod(self.scale), out_ch, kernel_size)
+
+    def forward(self, x):
+        # out channel = ((i * s1 + j) * s2 + k) * C + c, the reference's
+        # nested concat order (cbim_tpu/models/medformer.py:180-191)
+        s0, s1, s2 = self.scale
+        t = to_channels_last(x)
+        B, D, H, W, C = t.shape
+        t = t.reshape(B, D // s0, s0, H // s1, s1, W // s2, s2, C)
+        t = t.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(
+            B, D // s0, H // s1, W // s2, s0 * s1 * s2 * C)
+        return self.reduction(self.norm(from_channels_last(t)))
+
+
+class BasicLayer(nn.Module):
+    """``num_blocks`` B-MHA blocks of one stage."""
+
+    def __init__(self, feat_dim, map_dim, out_dim, num_blocks, heads=4,
+                 dim_head=64, expansion=4, norm="in", act="relu",
+                 kernel_size=3, no_map_out=False):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            BidirectionAttentionBlock(
+                feat_dim if i == 0 else out_dim, map_dim, out_dim, heads,
+                dim_head, norm=norm, act=act, expansion=expansion,
+                kernel_size=kernel_size,
+                no_map_out=no_map_out and i == num_blocks - 1)
+            for i in range(num_blocks))
+
+    def forward(self, x, semantic_map):
+        for blk in self.blocks:
+            x, semantic_map = blk(x, semantic_map)
+        return x, semantic_map
+
+
+class SemanticMapGeneration(nn.Module):
+    """Spatial-softmax pooled semantic map (medformer_utils.py:203-228)."""
+
+    def __init__(self, feat_dim, map_dim, map_size):
+        super().__init__()
+        self.map_size = tuple(map_size)
+        self.base_proj = nn.Conv3d(feat_dim, map_dim, 3, padding=1, bias=False)
+        self.semantic_proj = nn.Conv3d(feat_dim, math.prod(self.map_size), 3,
+                                       padding=1, bias=False)
+
+    def forward(self, x):
+        b = x.shape[0]
+        feat = self.base_proj(x).reshape(b, -1, math.prod(x.shape[2:]))
+        weight = self.semantic_proj(x).reshape(b, -1, feat.shape[-1])
+        weight = weight.float().softmax(dim=-1).to(feat.dtype)  # over space
+        smap = torch.bmm(feat, weight.transpose(1, 2))          # (B, C, K)
+        return smap.reshape(b, -1, *self.map_size)
+
+
+class SemanticMapFusion(nn.Module):
+    """Cross-scale transformer over the concatenated maps
+    (medformer_utils.py:231-261)."""
+
+    def __init__(self, in_dims, dim, heads, depth=1):
+        super().__init__()
+        self.depth = depth
+        self.in_proj = nn.ModuleList(_conv1x1(d, dim) for d in in_dims)
+        self.fusion = TransformerBlock(dim, depth, heads, dim // heads, dim)
+        self.out_proj = nn.ModuleList(_conv1x1(dim, d) for d in in_dims)
+
+    def forward(self, map_list):
+        if self.depth == 0:
+            return map_list
+        spatial = map_list[0].shape[2:]
+        seq = torch.cat([proj(m).flatten(2).transpose(1, 2)
+                         for proj, m in zip(self.in_proj, map_list)], dim=1)
+        seq = self.fusion(seq)
+        outs = seq.chunk(len(map_list), dim=1)
+        return [proj(o.transpose(1, 2).reshape(o.shape[0], -1, *spatial))
+                for proj, o in zip(self.out_proj, outs)]
+
+
+class InConvMF(nn.Module):
+    """conv + block (medformer_utils.py:264-277)."""
+
+    def __init__(self, in_ch, out_ch, conv_block, kernel_size=3, norm="in",
+                 act="relu"):
+        super().__init__()
+        k = _tuple(kernel_size, 3)
+        self.conv1 = nn.Conv3d(in_ch, out_ch, k,
+                               padding=tuple(ki // 2 for ki in k), bias=False)
+        self.conv2 = get_block_cls(conv_block)(out_ch, out_ch,
+                                               kernel_size=kernel_size,
+                                               norm=norm, act=act)
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x))
+
+
+class DownBlockMF(nn.Module):
+    """PatchMerging -> conv blocks -> (map generation) -> B-MHA blocks."""
+
+    def __init__(self, in_ch, out_ch, conv_num, trans_num,
+                 conv_block="BasicBlock", kernel_size=3, down_scale=2,
+                 heads=4, dim_head=64, expansion=4, map_size=(4, 4, 4),
+                 norm="in", act="relu", map_generate=False):
+        super().__init__()
+        self.patch_merging = PatchMerging(in_ch, out_ch, down_scale,
+                                          kernel_size, norm)
+        blk = get_block_cls(conv_block)
+        self.conv_blocks = nn.Sequential(*(
+            blk(out_ch, out_ch, kernel_size=kernel_size, norm=norm, act=act)
+            for _ in range(conv_num)))
+        self.map_gen = (SemanticMapGeneration(out_ch, out_ch, map_size)
+                        if map_generate else None)
+        self.trans_blocks = (
+            BasicLayer(out_ch, out_ch, out_ch, trans_num, heads, dim_head,
+                       expansion, norm, act, kernel_size)
+            if trans_num > 0 else None)
+
+    def forward(self, x):
+        x = self.conv_blocks(self.patch_merging(x))
+        semantic_map = self.map_gen(x) if self.map_gen is not None else None
+        if self.trans_blocks is not None:
+            x, semantic_map = self.trans_blocks(x, semantic_map)
+        return x, semantic_map
+
+
+class UpBlockMF3D(nn.Module):
+    """dim3 medformer_utils.py:320-370: resize + concat feed the stage."""
+
+    def __init__(self, in_ch, skip_ch, out_ch, conv_num, trans_num,
+                 conv_block="BasicBlock", kernel_size=3, heads=4, dim_head=64,
+                 expansion=4, norm="in", act="relu", map_in_dim=None,
+                 no_map_out=False):
+        super().__init__()
+        # map_in_dim: channels of the concatenated map shortcut, if any
+        self.map_reduction = (_conv1x1(map_in_dim, out_ch)
+                              if map_in_dim is not None else None)
+        feat_dim = in_ch + skip_ch
+        self.trans_blocks = (
+            BasicLayer(feat_dim, out_ch, out_ch, trans_num, heads, dim_head,
+                       expansion, norm, act, kernel_size,
+                       no_map_out=no_map_out)
+            if trans_num > 0 else None)
+        blk = get_block_cls(conv_block)
+        first = out_ch if trans_num > 0 else feat_dim
+        self.conv_blocks = nn.Sequential(*(
+            blk(first if j == 0 else out_ch, out_ch, kernel_size=kernel_size,
+                norm=norm, act=act)
+            for j in range(conv_num)))
+
+    def forward(self, x_low, x_skip, map1, map2=None):
+        x_low = resize_linear(x_low, x_skip.shape[2:])
+        if self.map_reduction is not None and map2 is not None:
+            semantic_map = self.map_reduction(torch.cat([map1, map2], dim=1))
+        else:
+            semantic_map = map1
+        out = torch.cat([x_low, x_skip], dim=1)
+        if self.trans_blocks is not None:
+            out, semantic_map = self.trans_blocks(out, semantic_map)
+        return self.conv_blocks(out), semantic_map
+
+
+class MedFormer3D(nn.Module):
+    """Reference model/dim3/medformer.py:11 (inference: no remat, no
+    dropout).  forward: x (B, in_chan, D, H, W) -> logits (B, classes, D, H,
+    W) in fp32, or [logits, aux] with ``aux_loss``."""
+
+    def __init__(self, in_chan: int, num_classes: int, base_ch: int = 32,
+                 map_size: Sequence[int] = (4, 8, 8),
+                 conv_block: str = "BasicBlock",
+                 conv_num: Sequence[int] = (2, 1, 0, 0, 0, 1, 2, 2),
+                 trans_num: Sequence[int] = (0, 1, 2, 2, 2, 1, 0, 0),
+                 chan_num: Sequence[int] = (64, 128, 256, 320, 256, 128, 64,
+                                            32),
+                 num_heads: Sequence[int] = (1, 4, 8, 16, 8, 4, 1, 1),
+                 fusion_depth: int = 2, fusion_dim: int = 320,
+                 fusion_heads: int = 4, expansion: int = 4,
+                 proj_type: str = "depthwise", norm="in", act="gelu",
+                 kernel_size: Sequence = ((3, 3, 3),) * 5,
+                 scale: Sequence = ((2, 2, 2),) * 4, aux_loss: bool = False):
+        super().__init__()
+        if proj_type != "depthwise":
+            raise NotImplementedError(
+                f"proj_type {proj_type!r} is not ported yet (see ROADMAP.md)")
+        cn = list(chan_num)
+        dim_head = [cn[i] // num_heads[i] for i in range(8)]
+        ks = list(kernel_size)
+        common = dict(conv_block=conv_block, expansion=expansion,
+                      norm=norm, act=act)
+
+        self.inc = InConvMF(in_chan, base_ch, conv_block, ks[0], norm, act)
+        self.down1 = DownBlockMF(base_ch, cn[0], conv_num[0], trans_num[0],
+                                 kernel_size=ks[1], down_scale=scale[0],
+                                 map_size=map_size, **common)
+        downs = []
+        for i in (1, 2, 3):
+            downs.append(DownBlockMF(
+                cn[i - 1], cn[i], conv_num[i], trans_num[i],
+                kernel_size=ks[i + 1], down_scale=scale[i],
+                heads=num_heads[i], dim_head=dim_head[i], map_size=map_size,
+                map_generate=True, **common))
+        self.down2, self.down3, self.down4 = downs
+
+        self.map_fusion = SemanticMapFusion(cn[1:4], fusion_dim, fusion_heads,
+                                            fusion_depth)
+
+        self.up1 = UpBlockMF3D(cn[3], cn[2], cn[4], conv_num[4], trans_num[4],
+                               kernel_size=ks[3], heads=num_heads[4],
+                               dim_head=dim_head[4],
+                               map_in_dim=cn[3] + cn[2], **common)
+        self.up2 = UpBlockMF3D(cn[4], cn[1], cn[5], conv_num[5], trans_num[5],
+                               kernel_size=ks[2], heads=num_heads[5],
+                               dim_head=dim_head[5],
+                               map_in_dim=cn[4] + cn[1], no_map_out=True,
+                               **common)
+        self.up3 = UpBlockMF3D(cn[5], cn[0], cn[6], conv_num[6], trans_num[6],
+                               kernel_size=ks[1], **common)
+        self.up4 = UpBlockMF3D(cn[6], base_ch, cn[7], conv_num[7],
+                               trans_num[7], kernel_size=ks[0], **common)
+
+        self.aux_out = _conv1x1(cn[5], num_classes, bias=True) \
+            if aux_loss else None
+        self.outc = _conv1x1(cn[7], num_classes, bias=True)
+
+    def forward(self, x):
+        x0 = self.inc(x)
+        x1, _ = self.down1(x0)
+        x2, map2 = self.down2(x1)
+        x3, map3 = self.down3(x2)
+        x4, map4 = self.down4(x3)
+
+        map_list = self.map_fusion([map2, map3, map4])
+
+        out, smap = self.up1(x4, x3, map_list[2], map_list[1])
+        out, smap = self.up2(out, x2, smap, map_list[0])
+        aux = (resize_linear(self.aux_out(out), x.shape[2:]).float()
+               if self.aux_out is not None else None)
+
+        out, smap = self.up3(out, x1, smap, None)
+        out, smap = self.up4(out, x0, smap, None)
+        out = self.outc(out).float()
+        return out if aux is None else [out, aux]

@@ -1,0 +1,122 @@
+"""Build the CUDA kernels of ``cbim_tpu_torch/csrc`` and bind them.
+
+On first use, nvcc compiles every ``csrc/*.cu`` into one shared library with
+a plain C interface (no PyTorch headers, so the build takes seconds), under
+``build/kernels/`` at the repository root (listed in ``.gitignore``).  The
+file name carries a digest of the sources and flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.  The library is loaded
+with ctypes; pointers and the stream travel as ``c_void_p``.
+
+Every entry returns ``cudaGetLastError()``; :func:`call` raises when that is
+not 0.  Nothing here runs at import time: the CPU tests import every module
+of the package on a machine without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+#: argtypes of every C entry (restype int: a cudaError_t)
+SIGNATURES = {
+    # x, dtype, B, S, C, rows_per_chunk, n_chunks, eps, partial, mean, rstd,
+    # stream
+    "inorm_stats": [_P, _I, _LL, _LL, _I, _LL, _I, _F, _P, _P, _P, _P],
+    # x, y, mean, rstd, dtype, act, B, S, C, stream
+    "inorm_apply": [_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _P],
+    # x, w, y, dtype, B, D, H, W, C, F, stream
+    "conv3d_same_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+#: what the last build printed (ptxas register and shared-memory report)
+build_log = ""
+#: seconds the last build took (0.0 when the library was already built)
+build_seconds = 0.0
+
+
+def nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME") and
+                 os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def sources() -> list[Path]:
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def build_command(out: Path, nvcc_path: str = "nvcc") -> list[str]:
+    return [nvcc_path, *NVCC_FLAGS, "-o", str(out),
+            *(str(s) for s in sources())]
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in sources():
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return BUILD_DIR / f"libcbim_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless this digest is built already; a failed
+    build raises with the compiler's output."""
+    global build_log, build_seconds
+    path = library_path()
+    if path.exists():
+        build_seconds = 0.0
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+    t0 = time.perf_counter()
+    proc = subprocess.run(build_command(tmp, nvcc()), capture_output=True,
+                          text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, path)
+    return path
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.cbim_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cbim_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def call(name: str, *args) -> None:
+    """Run one C entry; raise if it reports a CUDA error."""
+    lib = library()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        msg = lib.cbim_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
