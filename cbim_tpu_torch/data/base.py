@@ -1,0 +1,86 @@
+"""Dataset base machinery (counterpart of ``cbim_tpu/data/base.py``):
+k-fold splits and the host RAM cache of preprocessed volumes.
+
+A small re-implementation, not an import: ``cbim_tpu.data.base`` imports
+PyYAML at module top, and the port must run where PyYAML is not installed.
+``tests/test_torch_train.py`` holds the two equal.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import random
+
+import numpy as np
+
+
+def kfold_split(names: list, k_fold: int, k: int, seed: int, mode: str) -> list:
+    """Seeded-shuffle k-fold split (reference dataset_acdc.py:29-38): test
+    is the contiguous slice k of the shuffled list, train the rest (in
+    shuffled order)."""
+    names = list(names)
+    random.Random(seed).shuffle(names)
+    n = len(names)
+    test = names[k * (n // k_fold):(k + 1) * (n // k_fold)]
+    if mode == "train":
+        test_set = set(test)
+        return [x for x in names if x not in test_set]
+    return test
+
+
+class VolumeDataset:
+    """Base for 3D datasets: every case of the split, preprocessed, in host
+    RAM (images float32, labels int8, spacings float64)."""
+
+    dimension = "3d"
+
+    def __init__(self, cfg, mode: str = "train", k_fold: int = 5, k: int = 0,
+                 seed: int = 0):
+        assert mode in ("train", "test")
+        self.cfg = cfg
+        self.mode = mode
+        names = self.name_list(cfg, mode, k_fold, k, seed)
+        logging.info("Start loading %s data (%d cases)", mode, len(names))
+        self.images: list[np.ndarray] = []
+        self.labels: list[np.ndarray] = []
+        self.spacings: list[np.ndarray] = []
+        for name in names:
+            for img, lab, spacing in self.load_case(cfg, name):
+                img, lab = self.preprocess(img, lab)
+                self.images.append(np.ascontiguousarray(img, dtype=np.float32))
+                self.labels.append(np.ascontiguousarray(lab, dtype=np.int8))
+                self.spacings.append(np.asarray(spacing, dtype=np.float64))
+        logging.info("Load done, length of dataset: %d", len(self.images))
+
+    def name_list(self, cfg, mode, k_fold, k, seed):
+        raise NotImplementedError
+
+    def load_case(self, cfg, name):
+        raise NotImplementedError
+
+    def preprocess(self, img, lab):
+        raise NotImplementedError
+
+    def recipe(self):
+        raise NotImplementedError
+
+    def pad_to_training_size(self, img, lab, plus2: tuple = (0, 2, 2)):
+        """The reference's per-axis pad when smaller than training_size:
+        y/x to training_size + 2, z to training_size, ceil-half per side
+        (dataset_lits.py:81-93)."""
+        ts = self.cfg.training_size
+        pads = []
+        for ax in range(3):
+            if img.shape[ax] < ts[ax]:
+                diff = int(math.ceil((ts[ax] + plus2[ax] - img.shape[ax]) / 2))
+                pads.append((diff, diff))
+            else:
+                pads.append((0, 0))
+        if any(p != (0, 0) for p in pads):
+            img = np.pad(img, pads)
+            lab = np.pad(lab, pads)
+        return img, lab
+
+    def __len__(self):
+        return len(self.images)

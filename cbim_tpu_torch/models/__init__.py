@@ -31,10 +31,15 @@ def _norm_scales(v, n):
     return [list(t) for t in v]
 
 
-def get_model(cfg, device=None, generator: torch.Generator | None = None
-              ) -> nn.Module:
-    """Build the model selected by (cfg.dimension, cfg.model) in eval mode,
-    in cfg's compute dtype, in channels_last_3d memory, on ``device``.
+def get_model(cfg, device=None, generator: torch.Generator | None = None,
+              train: bool = False) -> nn.Module:
+    """Build the model selected by (cfg.dimension, cfg.model) in
+    channels_last_3d memory on ``device``.
+
+    ``train=False`` (serving): eval mode, parameters in cfg's compute dtype.
+    ``train=True``: train mode with fp32 parameters; the trainer computes in
+    bf16 under ``torch.autocast`` when cfg asks for amp, as the JAX package
+    keeps fp32 params and optimizer state around bf16 compute.
 
     ``generator``: re-draw every parameter from it with torch's default
     initialisation (seeded random weights)."""
@@ -55,11 +60,14 @@ def get_model(cfg, device=None, generator: torch.Generator | None = None
         act=cfg.act,
         kernel_size=tuple(map(tuple, _norm_scales(cfg.kernel_size, 5))),
         scale=tuple(map(tuple, _norm_scales(cfg.down_scale, 4))),
-        aux_loss=cfg.aux_loss)
+        aux_loss=cfg.aux_loss, remat=cfg.get("remat", False),
+        attn_drop=cfg.get("attn_drop", 0.0),
+        proj_drop=cfg.get("proj_drop", 0.0))
     if generator is not None:
         init_weights(model, generator)
     set_float32_precision(cfg)
-    model = model.to(device=device, dtype=compute_dtype(cfg),
+    dtype = torch.float32 if train else compute_dtype(cfg)
+    model = model.to(device=device, dtype=dtype,
                      memory_format=torch.channels_last_3d)
     for m in model.modules():
         # grouped convs run in contiguous memory (layers.convs.grouped_conv);
@@ -70,7 +78,7 @@ def get_model(cfg, device=None, generator: torch.Generator | None = None
         if isinstance(m, nn.Conv3d) and m.groups > 1:
             m.weight.data = m.weight.data.clone(
                 memory_format=torch.contiguous_format)
-    return model.eval()
+    return model.train(train)
 
 
 @torch.no_grad()

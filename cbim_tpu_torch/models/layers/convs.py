@@ -6,17 +6,19 @@ Parameter names follow the reference's torch modules (``conv``, ``norm``,
 ``expand_proj``, ``se.excitation``), so a state_dict maps onto the Flax tree
 through ``cbim_tpu.utils.torch_import`` unchanged.
 
-Kernel dispatch, one rule per kernel:
-- every InstanceNorm(+act) goes through ``instance_norm_act`` (fused kernel
+Kernel dispatch, one rule per kernel family; both train through their
+``torch.autograd.Function`` (backward kernels on CUDA):
+- every InstanceNorm(+act) goes through ``InstanceNormAct`` (fused kernels
   on CUDA, any C);
 - a ``ConvNormAct`` conv that is 3^3 and not grouped, with C_in <= 192
   and C_out <= 128 (the envelope of the TPU dispatch,
-  ``_pallas_conv_usable``), goes through ``conv3d_same``.
+  ``_pallas_conv_usable``), goes through ``Conv3dSame``.
 The TPU's NDHCW stage layout (``_stage_cw_ok``, ``to_cw``/``from_cw``) has
 no counterpart: the one NDHWC kernel computes the same thing.
 
-This package serves inference: there is no dropout or stochastic depth,
-and every block here is stride 1 (what MedFormer-3D uses).
+These blocks carry no dropout or stochastic depth (MedFormer-3D's recipes
+train without them), and every block here is stride 1 (what MedFormer-3D
+uses).
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.activations import Act, get_act
-from ...ops.kernels.conv3d import conv3d_same
-from ...ops.kernels.fused_norm import instance_norm_act
+from ...ops.kernels.conv3d import Conv3dSame
+from ...ops.kernels.fused_norm import InstanceNormAct
 
 KernelArg = Union[int, Sequence[int]]
 
@@ -72,8 +74,8 @@ def norm_act(x: torch.Tensor, kind, eps: float, act=None) -> torch.Tensor:
     if kind == "in":
         # torch InstanceNorm defaults: affine=False, no running stats,
         # biased variance over the spatial axes
-        return from_channels_last(instance_norm_act(to_channels_last(x),
-                                                    eps=eps, act=act))
+        return from_channels_last(
+            InstanceNormAct.apply(to_channels_last(x), eps, act))
     raise NotImplementedError(
         f"norm {kind!r} is not ported yet (see ROADMAP.md)")
 
@@ -111,8 +113,8 @@ class ConvNormAct(nn.Module):
         if self.conv.groups > 1:
             return grouped_conv(self.conv, x)
         if self.use_kernel:
-            return from_channels_last(conv3d_same(to_channels_last(x),
-                                                  self.conv.weight))
+            return from_channels_last(
+                Conv3dSame.apply(to_channels_last(x), self.conv.weight))
         return self.conv(x)
 
     def forward(self, x):

@@ -1,7 +1,8 @@
 """Transformer primitives (counterpart of
 ``cbim_tpu/models/layers/transformers.py``), with the reference's
 trans_layers.py parameter names.  Attention logits and softmax run in fp32
-under bf16 compute, as in ``cbim_tpu``.
+under bf16 compute, as in ``cbim_tpu``.  Dropout is not ported:
+:func:`check_no_dropout` refuses a config that asks for it.
 """
 
 from __future__ import annotations
@@ -10,6 +11,15 @@ import torch
 from torch import nn
 
 from ...ops.activations import get_act
+
+
+def check_no_dropout(attn_drop: float = 0.0, proj_drop: float = 0.0) -> None:
+    """Dropout is not ported; a config that sets it must not train without
+    it unannounced."""
+    if attn_drop or proj_drop:
+        raise NotImplementedError(
+            f"attn_drop={attn_drop}, proj_drop={proj_drop}: dropout is not "
+            f"ported yet (see ROADMAP.md); set both to 0")
 
 
 class Mlp(nn.Module):

@@ -1,5 +1,5 @@
 """MedFormer-3D (arXiv:2203.00131), counterpart of
-``cbim_tpu/models/medformer.py`` (3D only), for inference.
+``cbim_tpu/models/medformer.py`` (3D only), for serving and training.
 
 Modules and parameter names follow the reference's model/dim3/medformer.py
 and medformer_utils.py, so ``cbim_tpu.utils.torch_import.import_medformer3d``
@@ -16,16 +16,27 @@ change the numbers.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Any, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.interpolate import resize_linear
 from .layers.convs import (ConvNormAct, DepthwiseSeparableConv, MBConv, Norm,
                            _tuple, from_channels_last, get_block_cls,
                            to_channels_last)
-from .layers.transformers import TransformerBlock
+from .layers.transformers import TransformerBlock, check_no_dropout
+
+#: per-stage remat modes (``cbim_tpu/models/medformer.py:573-603``): which
+#: stages recompute their activations in the backward pass
+REMAT_MODES = {           # inc, down1, down2-4, up3, up4, up1-2
+    "all":           dict(inc=1, down1=1, low_d=1, up3=1, up4=1, low_u=1),
+    "highres":       dict(inc=1, down1=1, low_d=0, up3=1, up4=1, low_u=0),
+    "store-up4":     dict(inc=1, down1=1, low_d=1, up3=1, up4=0, low_u=1),
+    "store-decoder": dict(inc=1, down1=1, low_d=1, up3=0, up4=0, low_u=0),
+    "none":          dict(inc=0, down1=0, low_d=0, up3=0, up4=0, low_u=0),
+}
 
 
 def _conv1x1(in_ch, out_ch, bias=False):
@@ -268,9 +279,15 @@ class UpBlockMF3D(nn.Module):
 
 
 class MedFormer3D(nn.Module):
-    """Reference model/dim3/medformer.py:11 (inference: no remat, no
-    dropout).  forward: x (B, in_chan, D, H, W) -> logits (B, classes, D, H,
-    W) in fp32, or [logits, aux] with ``aux_loss``."""
+    """Reference model/dim3/medformer.py:11.  forward: x (B, in_chan, D, H,
+    W) -> logits (B, classes, D, H, W) in fp32, or [logits, aux] with
+    ``aux_loss``.
+
+    ``remat`` (False | True/'all' | 'highres' | 'store-up4' |
+    'store-decoder' | 'none') checkpoints the stages that
+    :data:`REMAT_MODES` names, in ``train()`` mode only; their forward runs
+    again in the backward pass.  Dropout is not ported: nonzero
+    ``attn_drop``/``proj_drop`` raise."""
 
     def __init__(self, in_chan: int, num_classes: int, base_ch: int = 32,
                  map_size: Sequence[int] = (4, 8, 8),
@@ -284,8 +301,15 @@ class MedFormer3D(nn.Module):
                  fusion_heads: int = 4, expansion: int = 4,
                  proj_type: str = "depthwise", norm="in", act="gelu",
                  kernel_size: Sequence = ((3, 3, 3),) * 5,
-                 scale: Sequence = ((2, 2, 2),) * 4, aux_loss: bool = False):
+                 scale: Sequence = ((2, 2, 2),) * 4, aux_loss: bool = False,
+                 remat: Any = False, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
+        check_no_dropout(attn_drop, proj_drop)
+        mode = "all" if remat is True else (remat or "none")
+        if mode not in REMAT_MODES:
+            raise ValueError(f"unknown remat mode {remat!r}")
+        self.remat = REMAT_MODES[mode]
         if proj_type != "depthwise":
             raise NotImplementedError(
                 f"proj_type {proj_type!r} is not ported yet (see ROADMAP.md)")
@@ -329,21 +353,29 @@ class MedFormer3D(nn.Module):
             if aux_loss else None
         self.outc = _conv1x1(cn[7], num_classes, bias=True)
 
+    def _stage(self, key: str, module: nn.Module, *args):
+        """``module(*args)``, recomputed in the backward pass when training
+        with ``key``'s stages under remat."""
+        if self.training and self.remat[key]:
+            return checkpoint(module, *args, use_reentrant=False)
+        return module(*args)
+
     def forward(self, x):
-        x0 = self.inc(x)
-        x1, _ = self.down1(x0)
-        x2, map2 = self.down2(x1)
-        x3, map3 = self.down3(x2)
-        x4, map4 = self.down4(x3)
+        x0 = self._stage("inc", self.inc, x)
+        x1, _ = self._stage("down1", self.down1, x0)
+        x2, map2 = self._stage("low_d", self.down2, x1)
+        x3, map3 = self._stage("low_d", self.down3, x2)
+        x4, map4 = self._stage("low_d", self.down4, x3)
 
         map_list = self.map_fusion([map2, map3, map4])
 
-        out, smap = self.up1(x4, x3, map_list[2], map_list[1])
-        out, smap = self.up2(out, x2, smap, map_list[0])
+        out, smap = self._stage("low_u", self.up1, x4, x3, map_list[2],
+                                map_list[1])
+        out, smap = self._stage("low_u", self.up2, out, x2, smap, map_list[0])
         aux = (resize_linear(self.aux_out(out), x.shape[2:]).float()
                if self.aux_out is not None else None)
 
-        out, smap = self.up3(out, x1, smap, None)
-        out, smap = self.up4(out, x0, smap, None)
+        out, smap = self._stage("up3", self.up3, out, x1, smap, None)
+        out, smap = self._stage("up4", self.up4, out, x0, smap, None)
         out = self.outc(out).float()
         return out if aux is None else [out, aux]

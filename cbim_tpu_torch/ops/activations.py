@@ -19,6 +19,13 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")
 
 
+def gelu_grad(n: torch.Tensor) -> torch.Tensor:
+    """d gelu(n) / dn = Phi(n) + n * phi(n), exact erf (the plain backward
+    of the fused norm; ``_act_grad_fn`` of the JAX package)."""
+    return (0.5 * (1.0 + torch.erf(n * 0.7071067811865476))
+            + n * 0.3989422804014327 * torch.exp(-0.5 * n * n))
+
+
 def get_act(name) -> Callable:
     """Activation function by config name (None/False: identity)."""
     if name in (None, False, "none"):

@@ -6,7 +6,9 @@ from . import conv3d, fused_norm
 
 
 def launch_counts() -> dict:
-    """Launches of every kernel since the last reset, by C entry name."""
+    """Launches of every kernel since the last reset, by C entry name
+    (``conv3d_dgrad``: the forward kernel's input-gradient launches).  Under
+    activation checkpointing the recomputed forward counts too."""
     return {**fused_norm.launches, **conv3d.launches}
 
 

@@ -1,11 +1,13 @@
 """Build the CUDA kernels of ``cbim_tpu_torch/csrc`` and bind them.
 
-On first use, nvcc compiles every ``csrc/*.cu`` into one shared library with
-a plain C interface (no PyTorch headers, so the build takes seconds), under
-``build/kernels/`` at the repository root (listed in ``.gitignore``).  The
-file name carries a digest of the sources and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  The library is loaded
-with ctypes; pointers and the stream travel as ``c_void_p``.
+On first use, nvcc compiles every ``csrc/*.cu`` into an object, one nvcc
+process per source, all started together, and links the objects into one
+shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds), under ``build/kernels/`` at the repository root (listed in
+``.gitignore``).  The file name carries a digest of the sources and flags,
+so an edited source is rebuilt and an unchanged one is loaded as it is.  The
+library is loaded with ctypes; pointers and the stream travel as
+``c_void_p``.
 
 Every entry returns ``cudaGetLastError()``; :func:`call` raises when that is
 not 0.  Nothing here runs at import time: the CPU tests import every module
@@ -27,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
@@ -38,8 +40,17 @@ SIGNATURES = {
     "inorm_stats": [_P, _I, _LL, _LL, _I, _LL, _I, _F, _P, _P, _P, _P],
     # x, y, mean, rstd, dtype, act, B, S, C, stream
     "inorm_apply": [_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _P],
+    # x, dy, mean, rstd, dtype, act, B, S, C, rows_per_chunk, n_chunks,
+    # partial, red, stream
+    "inorm_bwd_stats": [_P, _P, _P, _P, _I, _I, _LL, _LL, _I, _LL, _I, _P,
+                        _P, _P],
+    # x, dy, dx, mean, rstd, red, dtype, act, B, S, C, stream
+    "inorm_bwd_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _LL, _I, _P],
     # x, w, y, dtype, B, D, H, W, C, F, stream
     "conv3d_same_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, g, partial, dw, dtype, B, D, H, W, C, F, rows_per_chunk, n_chunks,
+    # stream
+    "conv3d_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -65,9 +76,17 @@ def sources() -> list[Path]:
     return srcs
 
 
-def build_command(out: Path, nvcc_path: str = "nvcc") -> list[str]:
-    return [nvcc_path, *NVCC_FLAGS, "-o", str(out),
-            *(str(s) for s in sources())]
+def compile_commands(obj_dir: Path, nvcc_path: str = "nvcc"
+                     ) -> list[list[str]]:
+    """One ``nvcc -c`` per source, each writing ``obj_dir/<stem>.o``."""
+    return [[nvcc_path, *NVCC_FLAGS, "-c", "-o", str(obj_dir / f"{s.stem}.o"),
+             str(s)] for s in sources()]
+
+
+def link_command(out: Path, obj_dir: Path, nvcc_path: str = "nvcc"
+                 ) -> list[str]:
+    return [nvcc_path, "-shared", "-o", str(out),
+            *(str(obj_dir / f"{s.stem}.o") for s in sources())]
 
 
 def library_path() -> Path:
@@ -86,15 +105,27 @@ def build() -> Path:
     if path.exists():
         build_seconds = 0.0
         return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+    obj_dir = BUILD_DIR / f"{path.stem}.{os.getpid()}.obj"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    nvcc_path = nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(build_command(tmp, nvcc()), capture_output=True,
-                          text=True)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in compile_commands(obj_dir, nvcc_path)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    if not failed:
+        link = subprocess.run(link_command(tmp, obj_dir, nvcc_path),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        logs.append(link.stdout)
+        failed = [link.returncode] if link.returncode != 0 else []
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    build_log = "".join(logs)
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed}):\n{build_log}")
     os.replace(tmp, path)
     return path
 

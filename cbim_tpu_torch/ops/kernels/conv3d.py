@@ -1,14 +1,25 @@
-"""Stride-1 SAME 3^3 convolution forward: CUDA kernel and plain version.
+"""Stride-1 SAME 3^3 convolution, forward and backward: CUDA kernels, their
+plain versions, and the ``torch.autograd.Function`` that trains through them.
 
-Port of the forward of ``cbim_tpu/ops/pallas/conv3d.py`` (``conv3d_same``
-and its NDHCW twins ``conv3d_same_cw``/``conv3d_same_cw2``, which compute
-the same thing in another layout).  One kernel, ``conv3d_same_fwd`` in
-``csrc/conv3d.cu``: x[B, D, H, W, C] (x) w[F, C, 3, 3, 3] -> y[B, D, H, W, F]
-with fp32 sums, any D/H/W (the kernel masks its own edges).
+Port of ``cbim_tpu/ops/pallas/conv3d.py``: ``conv3d_same`` (and its NDHCW
+twins ``conv3d_same_cw``/``conv3d_same_cw2``, which compute the same thing
+in another layout), the custom VJP ``conv3d_same_t``, and ``conv3d_wgrad``
+(and ``_cw``/``_cw2``).  Two kernels in ``csrc/conv3d.cu``:
 
-The weight takes torch's layout; the wrapper packs it to [3, 3, 3, C, F]
-(a copy of 27*C*F values) so the kernel reads rows of output channels.
-CPU tensors take the plain version, ``F.conv3d`` with padding 1.
+- ``conv3d_same_fwd``: x[B, D, H, W, C] (x) w[F, C, 3, 3, 3] ->
+  y[B, D, H, W, F] with fp32 sums, any D/H/W (the kernel masks its own
+  edges).  It also computes the input gradient: the SAME correlation of the
+  upstream gradient with flip-swapped weights (``_flip_swap``).  Those
+  launches count under ``conv3d_dgrad``.
+- ``conv3d_wgrad``: dW[3, 3, 3, C, F] = sum over voxels of shifted x times
+  g, a split-K reduction with fp32 partials per chunk of voxels, folded in a
+  fixed order (no atomics).
+
+The weight takes torch's layout; the forward wrapper packs it to
+[3, 3, 3, C, F] (a copy of 27*C*F values) so the kernel reads rows of output
+channels, and the wgrad wrapper gives back torch's [F, C, 3, 3, 3].
+CPU tensors take the plain versions: ``F.conv3d`` with padding 1 and
+``torch.nn.grad.conv3d_weight``.
 """
 
 from __future__ import annotations
@@ -19,8 +30,15 @@ import torch.nn.functional as F
 from .. import _backend
 from . import _build
 
-#: launches of the kernel since the last reset (plain calls do not count)
-launches = {"conv3d_same_fwd": 0}
+#: launches of each kernel since the last reset (plain calls do not count);
+#: ``conv3d_dgrad`` counts the forward kernel's input-gradient launches
+launches = {"conv3d_same_fwd": 0, "conv3d_dgrad": 0, "conv3d_wgrad": 0}
+
+#: blocks the wgrad pass aims for (several waves over 132 SMs), the fewest
+#: voxels a chunk takes, and the most bytes its fp32 partials may take
+_WGRAD_TARGET_BLOCKS = 2048
+_WGRAD_MIN_ROWS = 512
+_WGRAD_MAX_PARTIAL_BYTES = 256 << 20
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -34,6 +52,21 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("x and w must share dtype and device")
 
 
+def _check_wgrad(x: torch.Tensor, g: torch.Tensor) -> None:
+    if x.dim() != 5 or g.dim() != 5 or x.shape[:-1] != g.shape[:-1]:
+        raise ValueError(f"expected x[B, D, H, W, C] and g[B, D, H, W, F], "
+                         f"got {tuple(x.shape)} and {tuple(g.shape)}")
+    _backend.dtype_code(x)
+    if g.dtype != x.dtype or g.device != x.device:
+        raise ValueError("x and g must share dtype and device")
+
+
+def flip_swap(w: torch.Tensor) -> torch.Tensor:
+    """dgrad weights: spatial flip + in/out channel swap, [F, C, 3, 3, 3] ->
+    [C, F, 3, 3, 3] (``_flip_swap`` of the JAX package in torch's layout)."""
+    return w.flip(2, 3, 4).transpose(0, 1)
+
+
 def conv3d_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version: ``F.conv3d`` with padding 1, channels-last in and out."""
     _check(x, w)
@@ -41,16 +74,7 @@ def conv3d_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
-def conv3d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Stride-1, zero-pad-1 3^3 correlation: x[B, D, H, W, C] with torch
-    weights w[F, C, 3, 3, 3] -> y[B, D, H, W, F] in x.dtype.
-
-    The counterpart of ``cbim_tpu.ops.pallas.conv3d.conv3d_same`` (which
-    takes w as [3, 3, 3, C, F]).  CUDA tensors launch the kernel, CPU
-    tensors run the plain version."""
-    _check(x, w)
-    if not _backend.uses_kernels(x):
-        return conv3d_same_plain(x, w)
+def _launch_fwd(x: torch.Tensor, w: torch.Tensor, key: str) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError("kernel needs a contiguous x[B, D, H, W, C]")
     B, D, H, W, C = x.shape
@@ -61,5 +85,106 @@ def conv3d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         _build.call("conv3d_same_fwd", x.data_ptr(), wp.data_ptr(),
                     y.data_ptr(), _backend.dtype_code(x), B, D, H, W, C, Fo,
                     torch.cuda.current_stream().cuda_stream)
-    launches["conv3d_same_fwd"] += 1
+    launches[key] += 1
     return y
+
+
+def conv3d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Stride-1, zero-pad-1 3^3 correlation: x[B, D, H, W, C] with torch
+    weights w[F, C, 3, 3, 3] -> y[B, D, H, W, F] in x.dtype.
+
+    The counterpart of ``cbim_tpu.ops.pallas.conv3d.conv3d_same`` (which
+    takes w as [3, 3, 3, C, F]).  CUDA tensors launch the kernel, CPU
+    tensors run the plain version.  No autograd: see :class:`Conv3dSame`."""
+    _check(x, w)
+    if not _backend.uses_kernels(x):
+        return conv3d_same_plain(x, w)
+    return _launch_fwd(x, w, "conv3d_same_fwd")
+
+
+def conv3d_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Input gradient of :func:`conv3d_same`: the forward kernel on the
+    upstream gradient g[B, D, H, W, F] with ``flip_swap(w)``."""
+    ws = flip_swap(w)
+    _check(g, ws)
+    if not _backend.uses_kernels(g):
+        return conv3d_same_plain(g, ws)
+    return _launch_fwd(g, ws, "conv3d_dgrad")
+
+
+def conv3d_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`conv3d_wgrad`: ``torch.nn.grad.conv3d_weight``
+    in fp32, torch's [F, C, 3, 3, 3]."""
+    _check_wgrad(x, g)
+    return torch.nn.grad.conv3d_weight(
+        x.float().permute(0, 4, 1, 2, 3), (g.shape[-1], x.shape[-1], 3, 3, 3),
+        g.float().permute(0, 4, 1, 2, 3), padding=1)
+
+
+def _wgrad_chunking(M: int, C: int, F: int) -> tuple[int, int]:
+    """(rows_per_chunk, n_chunks) for the split reduction over M voxels."""
+    tiles = 9 * -(-C // 64) * -(-F // 64)
+    cap = max(1, _WGRAD_MAX_PARTIAL_BYTES // (27 * C * F * 4))
+    n_chunks = max(1, min(_WGRAD_TARGET_BLOCKS // tiles, cap, 65535,
+                          M // _WGRAD_MIN_ROWS))
+    rows = -(-M // n_chunks)
+    return rows, -(-M // rows)
+
+
+def conv3d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of :func:`conv3d_same`: x[B, D, H, W, C],
+    g[B, D, H, W, F] -> dW[F, C, 3, 3, 3] float32 (torch's layout).
+
+    The counterpart of ``cbim_tpu.ops.pallas.conv3d.conv3d_wgrad`` (which
+    returns [3, 3, 3, C, F]).  CUDA tensors launch the kernel, CPU tensors
+    run the plain version."""
+    _check_wgrad(x, g)
+    if not _backend.uses_kernels(x):
+        return conv3d_wgrad_plain(x, g)
+    if not (x.is_contiguous() and g.is_contiguous()):
+        raise ValueError("kernel needs contiguous x and g")
+    B, D, H, W, C = x.shape
+    Fo = g.shape[-1]
+    M = B * D * H * W
+    if M >= 2 ** 31:
+        raise ValueError(f"conv3d_wgrad takes fewer than 2^31 voxels, got {M}")
+    rows, n_chunks = _wgrad_chunking(M, C, Fo)
+    partial = torch.empty(n_chunks * 27 * C * Fo, dtype=torch.float32,
+                          device=x.device)
+    dw = torch.empty((3, 3, 3, C, Fo), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _build.call("conv3d_wgrad", x.data_ptr(), g.data_ptr(),
+                    partial.data_ptr(), dw.data_ptr(), _backend.dtype_code(x),
+                    B, D, H, W, C, Fo, rows, n_chunks,
+                    torch.cuda.current_stream().cuda_stream)
+    launches["conv3d_wgrad"] += 1
+    return dw.permute(4, 3, 0, 1, 2)
+
+
+class Conv3dSame(torch.autograd.Function):
+    """Trainable :func:`conv3d_same` (the counterpart of ``conv3d_same_t``).
+
+    Forward: the forward kernel.  Backward: dx by :func:`conv3d_dgrad`, dW
+    by :func:`conv3d_wgrad` (fp32, cast to w's dtype), each only when
+    needed.  Under CUDA autocast, x and w meet in bf16, as in the Flax
+    modules' ``dtype=bfloat16``.  On the CPU the same formulas run through
+    the plain versions.  The forward is pure, so recomputing it under
+    activation checkpointing is safe."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return conv3d_same(x, w)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3d_dgrad(g, w)
+        if ctx.needs_input_grad[1]:
+            dw = conv3d_wgrad(x, g).to(w.dtype)
+        return dx, dw

@@ -1,18 +1,24 @@
-"""Fused InstanceNorm(+activation) forward: CUDA kernels and plain version.
+"""Fused InstanceNorm(+activation), forward and backward: CUDA kernels,
+their plain versions, and the ``torch.autograd.Function`` that trains
+through them.
 
-Port of the forward of ``cbim_tpu/ops/pallas/fused_norm.py``
-(``instance_norm_act`` -> ``_compute_stats`` + ``_forward``).  Two kernels,
-``csrc/fused_norm.cu``:
+Port of ``cbim_tpu/ops/pallas/fused_norm.py`` (``instance_norm_act`` ->
+``_compute_stats`` + ``_forward``, and the custom VJP's ``_backward``).
+Four kernels, ``csrc/fused_norm.cu``:
 
 - ``inorm_stats``: per-(b, c) mean and rstd over the S rows of x[B, S, C]
   (fp64 partial sums per chunk of rows, folded in a fixed order);
 - ``inorm_apply``: y = act((x - mean) * rstd), act in {none, relu, gelu},
-  output in x.dtype.
+  output in x.dtype;
+- ``inorm_bwd_stats``: per-(b, c) a = mean(dy') and b = mean(dy' * x_hat),
+  with x_hat = (x - mean) * rstd and dy' = dy * act'(x_hat) (the same split
+  reduction as ``inorm_stats``);
+- ``inorm_bwd_apply``: dx = rstd * (dy' - a - x_hat * b) in x.dtype.
 
-Both run for CUDA tensors; the plain PyTorch versions beside them (two-pass
-fp32 mean/variance, the activation in fp32, one cast) run for CPU tensors.
-Unlike the TPU gate (``fused_norm.usable``: lane-dense C only), the kernels
-take every C: the C % 128 rule was a TPU lane-padding artifact.
+All run for CUDA tensors; the plain PyTorch versions beside them (fp32
+math, one cast) run for CPU tensors.  Unlike the TPU gate
+(``fused_norm.usable``: lane-dense C only), the kernels take every C: the
+C % 128 rule was a TPU lane-padding artifact.
 """
 
 from __future__ import annotations
@@ -22,11 +28,12 @@ import math
 import torch
 
 from .. import _backend
-from ..activations import get_act
+from ..activations import gelu_grad, get_act
 from . import _build
 
 #: launches of each kernel since the last reset (plain calls do not count)
-launches = {"inorm_stats": 0, "inorm_apply": 0}
+launches = {"inorm_stats": 0, "inorm_apply": 0, "inorm_bwd_stats": 0,
+            "inorm_bwd_apply": 0}
 
 _ACT_CODES = {None: 0, False: 0, "none": 0, "relu": 1, "gelu": 2}
 
@@ -95,12 +102,8 @@ def inorm_apply(x3: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
                 act=None) -> torch.Tensor:
     """Kernel: y = act((x3 - mean) * rstd) in x3.dtype."""
     _check_cuda(x3)
+    _check_stats(x3, mean, rstd)
     B, S, C = x3.shape
-    for t in (mean, rstd):
-        if (t.shape != (B, C) or t.dtype != torch.float32
-                or t.device != x3.device or not t.is_contiguous()):
-            raise ValueError("mean/rstd must be contiguous float32 [B, C] "
-                             "on x's device")
     code = _act_code(act)
     y = torch.empty_like(x3)
     with torch.cuda.device(x3.device):
@@ -120,11 +123,148 @@ def inorm_apply_plain(x3: torch.Tensor, mean: torch.Tensor,
     return get_act(act)(n).to(x3.dtype)
 
 
-def instance_norm_act_plain(x: torch.Tensor, eps: float = 1e-4,
-                            act=None) -> torch.Tensor:
-    x3 = x.reshape(x.shape[0], -1, x.shape[-1])
-    mean, rstd = inorm_stats_plain(x3, eps)
-    return inorm_apply_plain(x3, mean, rstd, act).reshape(x.shape)
+def _check_stats(x3: torch.Tensor, *stats: torch.Tensor) -> None:
+    B, _, C = x3.shape
+    for t in stats:
+        if (t.shape != (B, C) or t.dtype != torch.float32
+                or t.device != x3.device or not t.is_contiguous()):
+            raise ValueError("mean/rstd must be contiguous float32 [B, C] "
+                             "on x's device")
+
+
+def _check_dy(x3: torch.Tensor, dy3: torch.Tensor) -> None:
+    if dy3.shape != x3.shape or dy3.dtype != x3.dtype \
+            or dy3.device != x3.device or not dy3.is_contiguous():
+        raise ValueError("dy must be contiguous, of x's shape, dtype and "
+                         "device")
+
+
+def _act_grad(act):
+    """d act(n) / dn, from the pre-activation n (fp32)."""
+    if act in (None, False, "none"):
+        return torch.ones_like
+    if act == "relu":
+        return lambda n: (n > 0).to(n.dtype)
+    return gelu_grad
+
+
+def inorm_bwd_stats(x3: torch.Tensor, dy3: torch.Tensor, mean: torch.Tensor,
+                    rstd: torch.Tensor, act=None) -> torch.Tensor:
+    """Kernel: red[B, 2, C] float32, red[:, 0] = mean(dy'), red[:, 1] =
+    mean(dy' * x_hat) over the S rows."""
+    _check_cuda(x3)
+    _check_dy(x3, dy3)
+    _check_stats(x3, mean, rstd)
+    code = _act_code(act)
+    B, S, C = x3.shape
+    rows, n_chunks = _chunking(B, S, C)
+    partial = torch.empty(B * n_chunks * 2 * C, dtype=torch.float64,
+                          device=x3.device)
+    red = torch.empty(B, 2, C, dtype=torch.float32, device=x3.device)
+    with torch.cuda.device(x3.device):
+        _build.call("inorm_bwd_stats", x3.data_ptr(), dy3.data_ptr(),
+                    mean.data_ptr(), rstd.data_ptr(), _backend.dtype_code(x3),
+                    code, B, S, C, rows, n_chunks, partial.data_ptr(),
+                    red.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    launches["inorm_bwd_stats"] += 1
+    return red
+
+
+def inorm_bwd_stats_plain(x3: torch.Tensor, dy3: torch.Tensor,
+                          mean: torch.Tensor, rstd: torch.Tensor,
+                          act=None) -> torch.Tensor:
+    """Plain version of :func:`inorm_bwd_stats` (fp32)."""
+    _check_rows(x3)
+    _act_code(act)
+    xhat = (x3.float() - mean[:, None]) * rstd[:, None]
+    dyp = dy3.float() * _act_grad(act)(xhat)
+    return torch.stack([dyp.mean(dim=1), (dyp * xhat).mean(dim=1)], dim=1)
+
+
+def inorm_bwd_apply(x3: torch.Tensor, dy3: torch.Tensor, mean: torch.Tensor,
+                    rstd: torch.Tensor, red: torch.Tensor,
+                    act=None) -> torch.Tensor:
+    """Kernel: dx = rstd * (dy' - red[:, 0] - x_hat * red[:, 1]) in x3's
+    dtype."""
+    _check_cuda(x3)
+    _check_dy(x3, dy3)
+    _check_stats(x3, mean, rstd)
+    B, S, C = x3.shape
+    if (red.shape != (B, 2, C) or red.dtype != torch.float32
+            or red.device != x3.device or not red.is_contiguous()):
+        raise ValueError("red must be a contiguous float32 [B, 2, C] on x's "
+                         "device")
+    code = _act_code(act)
+    dx = torch.empty_like(x3)
+    with torch.cuda.device(x3.device):
+        _build.call("inorm_bwd_apply", x3.data_ptr(), dy3.data_ptr(),
+                    dx.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                    red.data_ptr(), _backend.dtype_code(x3), code, B, S, C,
+                    torch.cuda.current_stream().cuda_stream)
+    launches["inorm_bwd_apply"] += 1
+    return dx
+
+
+def inorm_bwd_apply_plain(x3: torch.Tensor, dy3: torch.Tensor,
+                          mean: torch.Tensor, rstd: torch.Tensor,
+                          red: torch.Tensor, act=None) -> torch.Tensor:
+    """Plain version of :func:`inorm_bwd_apply` (fp32, one cast)."""
+    _check_rows(x3)
+    _act_code(act)
+    xhat = (x3.float() - mean[:, None]) * rstd[:, None]
+    dyp = dy3.float() * _act_grad(act)(xhat)
+    dx = rstd[:, None] * (dyp - red[:, 0:1] - xhat * red[:, 1:2])
+    return dx.to(x3.dtype)
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """Channels-last x (B, *spatial, C) as x3[B, S, C]; the kernels need it
+    contiguous."""
+    if x.dim() < 3:
+        raise ValueError(f"expected (B, *spatial, C), got {tuple(x.shape)}")
+    if _backend.uses_kernels(x) and not x.is_contiguous():
+        raise ValueError("kernel needs a contiguous channels-last x")
+    return x.reshape(x.shape[0], math.prod(x.shape[1:-1]), x.shape[-1])
+
+
+class InstanceNormAct(torch.autograd.Function):
+    """Trainable :func:`instance_norm_act` (the counterpart of
+    ``_instance_norm_act3``'s custom VJP): ``InstanceNormAct.apply(x, eps,
+    act)`` over a channels-last x (B, *spatial, C).
+
+    Forward: ``inorm_stats`` + ``inorm_apply``, saving x, mean and rstd (as
+    ``_inorm_fwd``).  Backward: ``inorm_bwd_stats`` + ``inorm_bwd_apply``;
+    eps and act take no gradient.  Under CUDA autocast, x is cast to bf16.
+    CPU tensors run the plain versions of all four.  Pure, so safe to
+    recompute under activation checkpointing."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, x, eps, act):
+        _act_code(act)
+        x3 = _rows(x)
+        if _backend.uses_kernels(x3):
+            mean, rstd = inorm_stats(x3, eps)
+            y = inorm_apply(x3, mean, rstd, act)
+        else:
+            mean, rstd = inorm_stats_plain(x3, eps)
+            y = inorm_apply_plain(x3, mean, rstd, act)
+        ctx.save_for_backward(x3, mean, rstd)
+        ctx.act = act
+        return y.view(x.shape)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dy):
+        x3, mean, rstd = ctx.saved_tensors
+        dy3 = dy.to(x3.dtype).contiguous().view(x3.shape)
+        if _backend.uses_kernels(x3):
+            red = inorm_bwd_stats(x3, dy3, mean, rstd, ctx.act)
+            dx = inorm_bwd_apply(x3, dy3, mean, rstd, red, ctx.act)
+        else:
+            red = inorm_bwd_stats_plain(x3, dy3, mean, rstd, ctx.act)
+            dx = inorm_bwd_apply_plain(x3, dy3, mean, rstd, red, ctx.act)
+        return dx.view(dy.shape), None, None
 
 
 def instance_norm_act(x: torch.Tensor, eps: float = 1e-4,
@@ -133,16 +273,6 @@ def instance_norm_act(x: torch.Tensor, eps: float = 1e-4,
     followed by ``act``, over a channels-last x (B, *spatial, C).
 
     The counterpart of ``cbim_tpu.ops.pallas.fused_norm.instance_norm_act``.
-    CUDA tensors go through the two kernels, CPU tensors through the plain
-    version."""
-    if x.dim() < 3:
-        raise ValueError(f"expected (B, *spatial, C), got {tuple(x.shape)}")
-    _act_code(act)
-    if not _backend.uses_kernels(x):
-        return instance_norm_act_plain(x, eps, act)
-    if not x.is_contiguous():
-        raise ValueError("kernel needs a contiguous channels-last x")
-    B, C = x.shape[0], x.shape[-1]
-    x3 = x.view(B, math.prod(x.shape[1:-1]), C)
-    mean, rstd = inorm_stats(x3, eps)
-    return inorm_apply(x3, mean, rstd, act).view(x.shape)
+    CUDA tensors go through the kernels, CPU tensors through the plain
+    versions; both train through :class:`InstanceNormAct`."""
+    return InstanceNormAct.apply(x, eps, act)

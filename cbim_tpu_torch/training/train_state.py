@@ -1,0 +1,91 @@
+"""Train state and the train step (counterpart of
+``cbim_tpu/training/train_state.py``).
+
+One step: forward under ``torch.autocast`` (bf16 when cfg asks for amp, on
+CUDA), CE + Dice with deep supervision, backward, the optimizer step, and
+the per-step EMA update (reference training/utils.py:98-105).  Parameters,
+gradients and optimizer state stay fp32, as in the JAX package; bf16 needs
+no GradScaler.  Unlike the JAX step, which returns a new state, this one
+updates the model, the optimizer state and the EMA copy in place.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import torch
+from torch import nn
+
+from ..config import compute_dtype
+from ..ops.losses import deep_supervision_loss
+from .optim import get_optimizer, set_lr
+
+
+class TrainState:
+    """The live model, its optimizer, the EMA copy (None without EMA) and
+    the number of steps taken."""
+
+    def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
+                 ema: nn.Module | None = None, step: int = 0):
+        self.model = model
+        self.optimizer = optimizer
+        self.ema = ema
+        self.step = step
+
+
+def create_train_state(model: nn.Module, cfg) -> TrainState:
+    """Optimizer over every parameter, and an EMA copy when ``cfg.ema``."""
+    opt = get_optimizer(cfg, model.parameters())
+    ema = None
+    if cfg.get("ema", False):
+        ema = copy.deepcopy(model).requires_grad_(False)
+    return TrainState(model, opt, ema)
+
+
+def make_train_step(model: nn.Module, opt: torch.optim.Optimizer, cfg):
+    """``train_step(state, img, lab, lr) -> loss`` for img (B, *spatial, C)
+    float and lab (B, *spatial) int on the model's device.  The returned
+    loss is a detached device scalar: reading it synchronises."""
+    params = list(model.parameters())
+    class_weights = None
+    if cfg.get("weight"):
+        # on the device once: building it per step would copy (and sync)
+        class_weights = torch.tensor(cfg.weight, dtype=torch.float32,
+                                     device=params[0].device)
+    aux_weight = list(cfg.aux_weight) if cfg.aux_loss else [1.0]
+    rlt = float(cfg.rlt)
+    ema_alpha = float(cfg.ema_alpha)
+    amp = compute_dtype(cfg) == torch.bfloat16
+
+    def train_step(state: TrainState, img, lab, lr) -> torch.Tensor:
+        set_lr(opt, lr)
+        opt.zero_grad(set_to_none=True)
+        x = img.movedim(-1, 1)
+        with torch.autocast("cuda", dtype=torch.bfloat16,
+                            enabled=amp and x.is_cuda):
+            out = model(x)
+            outs = out if isinstance(out, (list, tuple)) else [out]
+            loss = deep_supervision_loss(outs, lab, aux_weight,
+                                         class_weights, rlt)
+        loss.backward()
+        opt.step()
+        if state.ema is not None:
+            # alpha = min(1 - 1/(step+1), ema_alpha), step before the
+            # increment (cbim_tpu train_state.py:107-114)
+            alpha = min(1.0 - 1.0 / (state.step + 1), ema_alpha)
+            with torch.no_grad():
+                ema_params = list(state.ema.parameters())
+                torch._foreach_mul_(ema_params, alpha)
+                torch._foreach_add_(ema_params, params, alpha=1.0 - alpha)
+        state.step += 1
+        return loss.detach()
+
+    return train_step
+
+
+def eval_variables(state: TrainState, use_ema: bool) -> nn.Module:
+    """The module to evaluate: the EMA copy when enabled (reference
+    train.py:101), else the live model."""
+    if use_ema and state.ema is not None:
+        return state.ema
+    return state.model

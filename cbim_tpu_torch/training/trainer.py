@@ -1,0 +1,154 @@
+"""The training runtime (counterpart of ``cbim_tpu/training/trainer.py``;
+reference train.py:51-135 train_net / train_epoch), on one device.
+
+One fold: dataset, input pipeline, model, optimizer; the epoch loop with
+the per-epoch LR, the train step, the next batch prepared while the step
+runs, a loss fetch every ``print_freq`` steps, the volumes/s meter, and the
+latest checkpoint.  Validation (and with it the best checkpoint) is not
+ported yet: a run whose epochs would validate raises before its first step.
+Data parallelism is not ported either (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..data.factory import get_dataset
+from ..data.pipeline import TrainPipeline
+from ..models import get_model
+from ..utils.logging import AverageMeter, MetricWriter, ProgressMeter
+from .checkpoint import load_checkpoint, save_checkpoint
+from .schedules import exp_lr_scheduler_with_warmup
+from .train_state import create_train_state, make_train_step
+
+
+def check_no_validation(start_epoch: int, epochs: int, val_freq: int) -> None:
+    """Raise if any epoch in [start_epoch, epochs) would validate."""
+    due = [e for e in range(start_epoch, epochs) if (e + 1) % val_freq == 0]
+    if due:
+        raise NotImplementedError(
+            f"validation is not ported yet (see ROADMAP.md), and epochs "
+            f"{[e + 1 for e in due]} would validate (val_freq {val_freq}); "
+            f"set val_freq above epochs")
+
+
+def load_pretrained(cfg, state) -> None:
+    """Initialise the model (and its EMA copy) from ``cfg.init_model``: a
+    this-port MedFormer ``.pth`` state_dict, loaded strictly."""
+    path = str(cfg.init_model)
+    if not path.endswith(".pth"):
+        raise NotImplementedError(
+            f"{path}: only .pth state_dicts of the port's models load; the "
+            f".npz and swin backbone loaders are not ported yet "
+            f"(see ROADMAP.md)")
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    state.model.load_state_dict(sd)
+    if state.ema is not None:
+        state.ema.load_state_dict(sd)
+
+
+def train_net(cfg, fold_idx: int = 0, device=None):
+    """Train one fold on ``device``; returns (best_dice, best_hd, best_asd)
+    arrays, which stay at their initial values until validation is
+    ported."""
+    device = torch.device(device or "cpu")
+    check_no_validation(cfg.start_epoch, cfg.epochs, cfg.val_freq)
+    trainset = get_dataset(cfg, mode="train", fold_idx=fold_idx)
+    pipeline = TrainPipeline(trainset, cfg, seed=cfg.split_seed + fold_idx,
+                             device=device)
+    logging.info("Created Dataset and Pipeline")
+
+    model = get_model(cfg, device=device, train=True,
+                      generator=torch.Generator().manual_seed(
+                          cfg.split_seed + 1000 * fold_idx))
+    state = create_train_state(model, cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    logging.info("Created Model (%s, %.2fM params)", cfg.model, n_params / 1e6)
+    train_step = make_train_step(model, state.optimizer, cfg)
+
+    ckpt_dir = os.path.join(cfg.cp_path, cfg.dataset, cfg.unique_name)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    writer = MetricWriter(os.path.join(cfg.log_path, cfg.dataset,
+                                       cfg.unique_name, f"fold_{fold_idx}"))
+
+    start_epoch = cfg.start_epoch
+    if cfg.resume and cfg.load:
+        state, start_epoch = load_checkpoint(cfg.load, state)
+        logging.info("Resumed from %s at epoch %d", cfg.load, start_epoch)
+        check_no_validation(start_epoch, cfg.epochs, cfg.val_freq)
+    elif cfg.pretrain and cfg.get("init_model"):
+        load_pretrained(cfg, state)
+        logging.info("Initialized from checkpoint %s", cfg.init_model)
+
+    iters = cfg.iter_per_epoch
+    best_dice = np.zeros(cfg.classes)
+    best_hd = np.ones(cfg.classes) * 1000
+    best_asd = np.ones(cfg.classes) * 1000
+
+    for epoch in range(start_epoch, cfg.epochs):
+        lr = exp_lr_scheduler_with_warmup(cfg.base_lr, epoch, warmup_epoch=5,
+                                          max_epoch=cfg.epochs)
+        logging.info("Starting epoch %d/%d (lr %.4e)", epoch + 1, cfg.epochs, lr)
+        batch_time = AverageMeter("Time", ":6.2f")
+        epoch_loss = AverageMeter("Loss", ":.2f")
+        progress = ProgressMeter(iters, [batch_time, epoch_loss],
+                                 prefix=f"Epoch: [{epoch + 1}]")
+
+        tic = time.time()
+        img, lab = pipeline.next_batch(cfg.batch_size)
+        for it in range(iters):
+            loss = train_step(state, img, lab, lr)
+            if it + 1 < iters:
+                # the next batch's host work and copy overlap the queued step
+                img, lab = pipeline.next_batch(cfg.batch_size)
+            if it % cfg.print_freq == 0:
+                # the loss fetch synchronises; pay it only when printing
+                loss_value = float(loss)
+                seconds = time.time() - tic
+                epoch_loss.update(loss_value, cfg.batch_size)
+                batch_time.update(seconds)
+                progress.display(it)
+                writer.add_scalar("Train/StepLoss", loss_value, state.step)
+                writer.add_scalar("Perf/StepSeconds", seconds, state.step)
+            tic = time.time()
+
+        if batch_time.count:
+            writer.add_scalar("Perf/volumes_per_sec_per_chip",
+                              cfg.batch_size / max(batch_time.avg, 1e-9),
+                              epoch + 1)
+        writer.add_scalar("Train/Loss", epoch_loss.avg, epoch + 1)
+        writer.add_scalar("LR", lr, epoch + 1)
+        if cfg.get("save_ckpt", True):
+            save_checkpoint(os.path.join(ckpt_dir,
+                                         f"fold_{fold_idx}_latest.ckpt"),
+                            state, epoch + 1)
+
+    writer.close()
+    return best_dice, best_hd, best_asd
+
+
+def write_cross_validation(cfg, dice_list, hd_list, asd_list):
+    """cross_validation.txt aggregation (reference train.py:347-383)."""
+    total_dice = np.vstack(dice_list)
+    total_hd = np.vstack(hd_list)
+    total_asd = np.vstack(asd_list)
+    out_dir = os.path.join(cfg.cp_path, cfg.dataset, cfg.unique_name)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "cross_validation.txt"), "w") as f:
+        np.set_printoptions(precision=4, suppress=True)
+        for name, per_fold, total in [("Dice", dice_list, total_dice),
+                                      ("HD", hd_list, total_hd),
+                                      ("ASD", asd_list, total_asd)]:
+            f.write(f"{name}\n")
+            for i, row in enumerate(per_fold):
+                f.write(f"Fold {i}: {row}\n")
+            f.write(f"Each Class {name} Avg: {np.mean(total, axis=0)}\n")
+            f.write(f"Each Class {name} Std: {np.std(total, axis=0)}\n")
+            f.write(f"All classes {name} Avg: {total.mean()}\n")
+            f.write(f"All classes {name} Std: {np.mean(total, axis=1).std()}\n")
+            f.write("\n")

@@ -5,15 +5,26 @@ Phases, each printing its result; any failure raises and exits non-zero:
 
 1. device: a CUDA card of compute capability 9.0; its name and power limit
    as ``nvidia-smi`` reports them;
-2. build: the CUDA kernels from ``cbim_tpu_torch/csrc`` (nvcc, sm_90a);
-3. kernels vs their plain PyTorch versions on the card, at the serving
-   path's shapes, fp32 and bf16: max error against stated tolerances, and
-   each kernel's time beside its plain version's;
+2. build: the CUDA kernels from ``cbim_tpu_torch/csrc`` (one nvcc per
+   source, all started together; sm_90a);
+3. kernels vs their plain PyTorch versions on the card, at the serving and
+   training paths' shapes, fp32 and bf16, forward and backward: max error
+   against stated tolerances, and each kernel's time beside its plain
+   version's;
 4. a small MedFormer-3D on a 64^3 input, same seeded weights, on the card
    (kernels) and on the CPU (plain versions): softmax outputs compared;
-5. the slice: the full-width AMOS-CT MedFormer-3D with seeded random weights
+4b. one train step of that small model, card vs CPU, fp32 with TF32 off:
+   the loss and every parameter's gradient compared;
+5. serving: the full-width AMOS-CT MedFormer-3D with seeded random weights
    serves two synthetic NIfTI requests through
-   ``cbim_tpu_torch.prediction.main``; every kernel must have launched.
+   ``cbim_tpu_torch.prediction.main``; every forward kernel must have
+   launched;
+6. training: the flagship recipe (``bench.py``: full-width MedFormer-3D,
+   GELU, 128^3 crops, batch 2, bf16 autocast, remat of every stage, AdamW,
+   EMA) trains a few steps on the synthetic corpus through
+   ``cbim_tpu_torch.train.main``; every kernel, backward ones included,
+   must have launched, and every loss must be finite.  Launch counts
+   include the forward that remat recomputes in the backward pass.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -27,6 +38,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -43,14 +55,24 @@ KERNELS = {
                     "cbim_tpu/ops/pallas/fused_norm.py:241"),
     "conv3d_same_fwd": ("cbim_tpu_torch/csrc/conv3d.cu",
                         "cbim_tpu/ops/pallas/conv3d.py:299"),
+    "conv3d_wgrad": ("cbim_tpu_torch/csrc/conv3d.cu",
+                     "cbim_tpu/ops/pallas/conv3d.py:582"),
+    "inorm_bwd_stats": ("cbim_tpu_torch/csrc/fused_norm.cu",
+                        "cbim_tpu/ops/pallas/fused_norm.py:257"),
+    "inorm_bwd_apply": ("cbim_tpu_torch/csrc/fused_norm.cu",
+                        "cbim_tpu/ops/pallas/fused_norm.py:257"),
 }
+#: the forward kernels, which serving launches
+FORWARD_KERNELS = ("inorm_stats", "inorm_apply", "conv3d_same_fwd")
 
 #: 3^3 conv shapes of the serving path (B, D, H, W, C, F): inc/up4 at
 #: 128^3, down1/up3 at 64^3, down2/up2 at 32^3, plus a ragged shape
 CONV_CASES = [(2, 128, 128, 128, 32, 32), (2, 128, 128, 128, 96, 32),
               (2, 64, 64, 64, 64, 64), (2, 64, 64, 64, 192, 64),
               (2, 32, 32, 32, 128, 128), (2, 17, 23, 30, 24, 40)]
-#: the conv case whose times go into the JSON record (up4's widest conv)
+#: the conv case whose times go into the JSON record (up4's widest conv);
+#: its dgrad (the forward kernel on flip-swapped weights) runs 32 -> 96,
+#: and the dgrad of (2, 64^3, 192 -> 64) runs 64 -> 192
 CONV_RECORD = (2, 128, 128, 128, 96, 32)
 
 #: InstanceNorm sites (B, spatial, C, act, eps): full-res ConvNormAct,
@@ -76,10 +98,32 @@ NORM_RECORD = (2, (128, 128, 128), 32, "relu", 1e-4)
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=2 ** -7, atol=2 ** -7)}
 # The conv's error is held against its largest output instead: a sum of
-# 27*C products has errors of the sum's scale, not of each output's.
+# 27*C products has errors of the sum's scale, not of each output's.  The
+# dgrad is the same kernel and takes the same tolerance.
 CONV_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
+# wgrad sums 27 taps' worth of products over every voxel (4.2 M at 2 x
+# 128^3) into an fp32 dW in both versions, from the same inputs (bf16 ones
+# are widened exactly); the sums run in other orders, so each entry is held
+# against the largest |dW| (the sum's scale) at 1e-4 in both dtypes.
+WGRAD_TOL = 1e-4
+# The norm backward's statistics (means of dy' and dy' * x_hat over S) are
+# fp32 outputs of fp64 sums (kernel) vs fp32 sums (plain): TOL["float32"].
+# dx: TOL[dtype] as the forward apply.
 #: phase 4, probabilities of two fp32 forwards (card vs CPU)
 MODEL_PROB_ATOL = 1e-4
+#: phase 4b, one fp32 train step card vs CPU.  The loss to 1e-5 relative.
+#: The gradients of this random network are ill-conditioned in fp32 on
+#: either device: against an fp64 CPU run, the CPU's fp32 gradient is off by
+#: 3.2e-3 in global relative L2 (2 x 32^3), and single tensors by up to
+#: 1.1e-2 (CPU) and 1.2e-2 (card, kernels or plain versions alike) of their
+#: largest |grad| at 2 x 64^3, one near-zero bias by 2x.  So the whole
+#: gradient is held to 2e-2 in relative L2, and each tensor to 5e-2 of (its
+#: largest |grad| + 2e-2 of the model's); a wrong index, flip or layout errs
+#: by O(1) of the gradient's scale.
+STEP_LOSS_RTOL = 1e-5
+STEP_GRAD_L2 = 2e-2
+STEP_GRAD_RTOL = 5e-2
+STEP_GRAD_FLOOR = 2e-2
 
 #: a narrow MedFormer-3D with the AMOS recipe's structure (phase 4)
 SMALL = dict(
@@ -91,6 +135,31 @@ SMALL = dict(
     fusion_heads=4, expansion=4, proj_type="depthwise", norm="in",
     act="relu", kernel_size=[[3, 3, 3]] * 5, down_scale=[[2, 2, 2]] * 4,
     aux_loss=True)
+
+#: the flagship training recipe of bench.py:70-89 (16 classes, GELU, 128^3
+#: crops, bf16 with remat of every stage, AdamW, EMA) on its synthetic
+#: corpus of three 192^3 volumes; one epoch of a few steps, validation off
+#: (val_freq above epochs: it is not ported yet)
+FLAGSHIP = dict(
+    dataset="synthetic", model="medformer", dimension="3d", classes=16,
+    in_chan=1, base_chan=32, conv_block="BasicBlock",
+    down_scale=[[2, 2, 2]] * 4, kernel_size=[[3, 3, 3]] * 5, norm="in",
+    act="gelu", map_size=[4, 4, 4], conv_num=[2, 1, 0, 0, 0, 1, 2, 2],
+    trans_num=[0, 1, 4, 6, 4, 1, 0, 0], num_heads=[1, 4, 8, 10, 8, 4, 1, 1],
+    expansion=4, fusion_depth=2, fusion_dim=320, fusion_heads=5,
+    attn_drop=0.0, proj_drop=0.0, proj_type="depthwise", aux_loss=True,
+    aux_weight=[0.5, 0.5], training_size=[128, 128, 128],
+    affine_pad_size=[30, 30, 30], scale=[0.3, 0.3, 0.3],
+    rotate=[30, 30, 30], translate=[0, 0, 0], gaussian_noise_std=0.02,
+    additive_brightness_std=0.5, gamma_range=[0.7, 1.5],
+    weight=[0.5] + [1.0] * 15, rlt=1, optimizer="adamw", base_lr=1e-3,
+    betas=[0.9, 0.999], weight_decay=0.05, ema=True, ema_alpha=0.99,
+    remat=True, synthetic_cases=3, synthetic_shape=[192, 192, 192],
+    epochs=1, iter_per_epoch=6, print_freq=1, val_freq=2)
+TRAIN_BATCH = 2
+#: steps left out of the step-time median (first use of every kernel and
+#: of cuDNN's algorithm search)
+WARMUP_STEPS = 2
 
 #: the model and inference keys of configs/amos_ct/medformer_3d.yaml
 AMOS = dict(
@@ -230,6 +299,95 @@ def phase_kernels(device, conv_cases, norm_cases, record: dict) -> None:
     torch.cuda.synchronize()
 
 
+def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None:
+    """Phase 3, backward: dgrad, wgrad and the norm backward against their
+    plain versions on ``device``."""
+    import torch
+    from cbim_tpu_torch.ops.kernels import conv3d, fused_norm
+    gen = torch.Generator(device=device).manual_seed(1)
+    errs = record["errors"]
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        for case in conv_cases:
+            B, D, H, W, C, Fo = case
+            x = torch.randn(B, D, H, W, C, generator=gen, device=device)
+            g = torch.randn(B, D, H, W, Fo, generator=gen, device=device)
+            w = torch.randn(Fo, C, 3, 3, 3, generator=gen, device=device)
+            x, g = x.to(dtype), g.to(dtype)
+            w = (w / math.sqrt(27 * Fo)).to(dtype)
+            dx = conv3d.conv3d_dgrad(g, w)
+            ref_dx = conv3d.conv3d_same_plain(g, conv3d.flip_swap(w))
+            dw = conv3d.conv3d_wgrad(x, g)
+            ref_dw = conv3d.conv3d_wgrad_plain(x, g)
+            torch.cuda.synchronize()
+            sx = float(ref_dx.float().abs().max())
+            ex = float((dx.float() - ref_dx.float()).abs().max())
+            sw = float(ref_dw.abs().max())
+            ew = float((dw - ref_dw).abs().max())
+            flops = 2 * 27 * C * Fo * B * D * H * W
+            n = iters_for(flops, 1e10)
+            dx_ms = cuda_ms(lambda: conv3d.conv3d_dgrad(g, w), n)
+            dx_plain = cuda_ms(
+                lambda: conv3d.conv3d_same_plain(g, conv3d.flip_swap(w)), n)
+            dw_ms = cuda_ms(lambda: conv3d.conv3d_wgrad(x, g), n)
+            dw_plain = cuda_ms(lambda: conv3d.conv3d_wgrad_plain(x, g), n)
+            say(f"  conv3d_dgrad    {dt:8s} {case}: max_abs_err {ex:.3e} "
+                f"max_rel_err {ex / sx:.3e} (tol {CONV_TOL[dt]:.1e}) "
+                f"kernel {dx_ms:.3f} ms ({flops / dx_ms / 1e9:.1f} TFLOP/s) "
+                f"plain {dx_plain:.3f} ms")
+            say(f"  conv3d_wgrad    {dt:8s} {case}: max_abs_err {ew:.3e} "
+                f"max_rel_err {ew / sw:.3e} of max|dW| {sw:.1f} "
+                f"(tol {WGRAD_TOL:.1e}) kernel {dw_ms:.3f} ms "
+                f"({flops / dw_ms / 1e9:.1f} TFLOP/s) plain {dw_plain:.3f} ms")
+            assert ex <= CONV_TOL[dt] * sx, f"conv3d_dgrad {dt} {case}: {ex:.3e}"
+            assert ew <= WGRAD_TOL * sw, f"conv3d_wgrad {dt} {case}: {ew:.3e}"
+            errs["conv3d_same_fwd"] = max(errs["conv3d_same_fwd"], ex)
+            errs["conv3d_wgrad"] = max(errs["conv3d_wgrad"], ew)
+            if dt == "float32" and case == CONV_RECORD:
+                record["conv3d_wgrad"] = (dw_ms, dw_plain)
+                record["conv3d_dgrad"] = (dx_ms, dx_plain)
+            del x, g, w, dx, ref_dx, dw, ref_dw
+        for case in norm_cases:
+            B, spatial, C, act, eps = case
+            S = math.prod(spatial)
+            x = torch.randn(B, S, C, generator=gen, device=device) * 3 + 1.5
+            dy = torch.randn(B, S, C, generator=gen, device=device)
+            x, dy = x.to(dtype), dy.to(dtype)
+            mean, rstd = fused_norm.inorm_stats_plain(x, eps)
+            red = fused_norm.inorm_bwd_stats(x, dy, mean, rstd, act)
+            pred = fused_norm.inorm_bwd_stats_plain(x, dy, mean, rstd, act)
+            dx = fused_norm.inorm_bwd_apply(x, dy, mean, rstd, pred, act)
+            pdx = fused_norm.inorm_bwd_apply_plain(x, dy, mean, rstd, pred, act)
+            torch.cuda.synchronize()
+            e_red = check_close(f"inorm_bwd_stats {dt} {case}", red, pred,
+                                TOL["float32"])
+            e_dx = check_close(f"inorm_bwd_apply {dt} {case}", dx, pdx, TOL[dt])
+            nbytes = x.numel() * x.element_size()
+            n = iters_for(nbytes, 1e9)
+            st_ms = cuda_ms(
+                lambda: fused_norm.inorm_bwd_stats(x, dy, mean, rstd, act), n)
+            st_plain = cuda_ms(
+                lambda: fused_norm.inorm_bwd_stats_plain(x, dy, mean, rstd,
+                                                         act), n)
+            ap_ms = cuda_ms(lambda: fused_norm.inorm_bwd_apply(
+                x, dy, mean, rstd, pred, act), n)
+            ap_plain = cuda_ms(lambda: fused_norm.inorm_bwd_apply_plain(
+                x, dy, mean, rstd, pred, act), n)
+            say(f"  inorm bwd {dt:8s} B={B} S={S} C={C} act={act}: "
+                f"stats err abs {e_red[0]:.3e} rel {e_red[1]:.3e} "
+                f"kernel {st_ms:.3f} ms ({2 * nbytes / st_ms / 1e6:.0f} GB/s) "
+                f"plain {st_plain:.3f} ms | apply err abs {e_dx[0]:.3e} "
+                f"rel {e_dx[1]:.3e} kernel {ap_ms:.3f} ms "
+                f"({3 * nbytes / ap_ms / 1e6:.0f} GB/s) plain {ap_plain:.3f} ms")
+            errs["inorm_bwd_stats"] = max(errs["inorm_bwd_stats"], e_red[0])
+            errs["inorm_bwd_apply"] = max(errs["inorm_bwd_apply"], e_dx[0])
+            if dt == "float32" and case == NORM_RECORD:
+                record["inorm_bwd_stats"] = (st_ms, st_plain)
+                record["inorm_bwd_apply"] = (ap_ms, ap_plain)
+            del x, dy, dx, pdx
+    torch.cuda.synchronize()
+
+
 def phase_small_model(device, size: int) -> float:
     """Phase 4: the small model on ``device`` vs the CPU, same weights."""
     import torch
@@ -248,6 +406,54 @@ def phase_small_model(device, size: int) -> float:
     assert out.shape == (1, SMALL["classes"], size, size, size)
     assert torch.isfinite(out).all() and err <= MODEL_PROB_ATOL, err
     return err
+
+
+def phase_small_train_step(device, size: int) -> tuple[float, float, float]:
+    """Phase 4b: one fp32 train step of the small model on ``device`` and
+    on the CPU, same weights and batch.  Returns (loss relative error,
+    the gradient's relative L2 error, the worst tensor's error against its
+    tolerance scale)."""
+    import torch
+    from cbim_tpu_torch.config import config_from_dict
+    from cbim_tpu_torch.models import get_model
+    from cbim_tpu_torch.ops.losses import deep_supervision_loss
+    cfg = config_from_dict(dict(SMALL, remat=True))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu_model = get_model(cfg, train=True,
+                          generator=torch.Generator().manual_seed(3))
+    dev_model = get_model(cfg, device=device, train=True)
+    dev_model.load_state_dict(cpu_model.state_dict())
+    gen = torch.Generator().manual_seed(4)
+    img = torch.randn(2, 1, size, size, size, generator=gen)
+    lab = torch.randint(0, SMALL["classes"], (2, size, size, size),
+                        generator=gen)
+    weight = [0.5] + [1.0] * (SMALL["classes"] - 1)
+    results = []
+    for model, dev in ((cpu_model, torch.device("cpu")), (dev_model, device)):
+        loss = deep_supervision_loss(model(img.to(dev)), lab.to(dev),
+                                     [0.5, 0.5], weight)
+        loss.backward()
+        results.append((float(loss.detach()), {k: p.grad.cpu() for k, p in
+                                      model.named_parameters()}))
+    (ref_loss, ref_grads), (loss, grads) = results
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    assert math.isfinite(loss) and loss_err <= STEP_LOSS_RTOL, loss_err
+    l2_err = math.sqrt(sum(float((grads[k] - r).square().sum())
+                           for k, r in ref_grads.items())
+                       / sum(float(r.square().sum()) for r in ref_grads.values()))
+    assert l2_err <= STEP_GRAD_L2, f"gradient relative L2 error {l2_err:.3e}"
+    top = max(float(r.abs().max()) for r in ref_grads.values())
+    worst = 0.0
+    for k, ref in ref_grads.items():
+        # every parameter gets a finite gradient through the card's graph
+        assert torch.isfinite(grads[k]).all(), k
+        assert float(grads[k].abs().max()) > 0 or float(ref.abs().max()) == 0, k
+        scale = float(ref.abs().max()) + STEP_GRAD_FLOOR * top
+        err = float((grads[k] - ref).abs().max())
+        assert err <= STEP_GRAD_RTOL * scale, f"{k}: {err:.3e} of {scale:.3e}"
+        worst = max(worst, err / scale)
+    return loss_err, l2_err, worst
 
 
 def write_requests(in_dir: str, requests, seed: int = 0) -> None:
@@ -299,9 +505,50 @@ def phase_slice(device, cfg_dict, requests, target_spacing) -> dict:
     result = {"seconds": seconds, "launches": counts}
     if device.type == "cuda":
         result["peak_bytes"] = torch.cuda.max_memory_allocated(device)
-        missing = [k for k, v in counts.items() if v == 0]
+        missing = [k for k in FORWARD_KERNELS if counts[k] == 0]
         assert not missing, f"kernels never launched on the path: {missing}"
     return result
+
+
+def phase_train(device, cfg_dict) -> dict:
+    """Phase 6: train the flagship recipe a few steps through
+    ``cbim_tpu_torch.train.main``; per-step losses and seconds come from the
+    run's scalars.jsonl (one loss fetch per step)."""
+    import torch
+    from cbim_tpu_torch import train
+    from cbim_tpu_torch.config import config_from_dict
+    from cbim_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    cfg = config_from_dict(cfg_dict)
+    run = os.path.join(WORK, "train")
+    argv = ["--dataset", cfg.dataset, "--model", "medformer", "--dimension",
+            "3d", "--batch_size", str(TRAIN_BATCH), "--amp",
+            "--cp_path", os.path.join(run, "exp"),
+            "--log_path", os.path.join(run, "log"), "--unique_name",
+            "flagship", "--folds", "1", "--device", str(device)]
+
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    train.main(argv, cfg=cfg)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+
+    rows = [json.loads(ln) for ln in open(os.path.join(
+        run, "log", cfg.dataset, "flagship", "fold_0", "scalars.jsonl"))]
+    step_loss = [r["value"] for r in rows if r["tag"] == "Train/StepLoss"]
+    step_s = [r["value"] for r in rows if r["tag"] == "Perf/StepSeconds"]
+    assert len(step_loss) == cfg.iter_per_epoch, rows
+    assert all(math.isfinite(v) for v in step_loss), step_loss
+    assert os.path.exists(os.path.join(run, "exp", cfg.dataset, "flagship",
+                                       "fold_0_latest.ckpt"))
+    missing = [k for k in (*KERNELS, "conv3d_dgrad") if counts[k] == 0]
+    assert not missing, f"kernels never launched on the path: {missing}"
+    median = statistics.median(step_s[WARMUP_STEPS:])
+    return {"losses": step_loss, "step_seconds": step_s, "median": median,
+            "vols_per_s": TRAIN_BATCH / median, "seconds": seconds,
+            "peak_bytes": torch.cuda.max_memory_allocated(device),
+            "launches": counts}
 
 
 def main() -> int:
@@ -339,10 +586,18 @@ def main() -> int:
     record: dict = {}
     say("[phase 3] kernels vs plain versions")
     phase_kernels(device, CONV_CASES, NORM_CASES, record)
+    phase_backward_kernels(device, CONV_CASES, NORM_CASES, record)
 
     say("[phase 4] small MedFormer-3D, card vs CPU")
     err = phase_small_model(device, 64)
     say(f"  64^3 softmax max abs err {err:.3e} (tol {MODEL_PROB_ATOL})")
+
+    say("[phase 4b] one train step of the small MedFormer-3D, card vs CPU")
+    loss_err, l2_err, grad_err = phase_small_train_step(device, 64)
+    say(f"  2 x 64^3 fp32: loss rel err {loss_err:.3e} "
+        f"(tol {STEP_LOSS_RTOL:.0e}); gradient rel L2 err {l2_err:.3e} "
+        f"(tol {STEP_GRAD_L2:.0e}); worst tensor err {grad_err:.3e} of its "
+        f"scale (tol {STEP_GRAD_RTOL:.0e})")
 
     say("[phase 5] AMOS-CT MedFormer-3D serving 2 NIfTI requests")
     res = phase_slice(device, AMOS, REQUESTS, TARGET_SPACING)
@@ -351,10 +606,22 @@ def main() -> int:
         f"({', '.join(f'{k} {v:.3f}' for k, v in sorted(secs.items()))})"
         f"; peak device memory {res['peak_bytes'] / 2 ** 30:.2f} GiB; "
         f"launches {res['launches']}")
-    record["launches"] = res["launches"]
+
+    say("[phase 6] flagship MedFormer-3D training, bf16, remat all, "
+        f"batch {TRAIN_BATCH}, {FLAGSHIP['iter_per_epoch']} steps")
+    tr = phase_train(device, FLAGSHIP)
+    say(f"  losses {', '.join(f'{v:.4f}' for v in tr['losses'])}")
+    say(f"  step seconds {', '.join(f'{v:.3f}' for v in tr['step_seconds'])}"
+        f"; median after {WARMUP_STEPS} steps {tr['median']:.3f} s/step, "
+        f"{tr['vols_per_s']:.3f} volumes/s; peak device memory "
+        f"{tr['peak_bytes'] / 2 ** 30:.2f} GiB; train.main {tr['seconds']:.1f} s")
+    say(f"  launches (the recomputed forward included) {tr['launches']}")
+    record["launches"] = tr["launches"]
     jax_mods = [m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax")]
     assert not jax_mods, f"the port loaded JAX modules: {jax_mods[:5]}"
+    say(f"  dgrad of conv3d_same_fwd at {CONV_RECORD}, fp32: kernel "
+        f"{record['conv3d_dgrad'][0]:.3f} ms, plain {record['conv3d_dgrad'][1]:.3f} ms")
 
     say(f"  total {time.perf_counter() - t_start:.1f} s")
     say(card_line())

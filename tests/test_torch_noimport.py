@@ -17,6 +17,9 @@ MODULES = [
     "cbim_tpu_torch.ops._backend",
     "cbim_tpu_torch.ops.activations",
     "cbim_tpu_torch.ops.interpolate",
+    "cbim_tpu_torch.ops.losses",
+    "cbim_tpu_torch.ops.augment",
+    "cbim_tpu_torch.ops.resample",
     "cbim_tpu_torch.ops.kernels",
     "cbim_tpu_torch.ops.kernels._build",
     "cbim_tpu_torch.ops.kernels.conv3d",
@@ -29,6 +32,18 @@ MODULES = [
     "cbim_tpu_torch.prediction",
     "cbim_tpu_torch.utils.jax_import",
     "cbim_tpu_torch.data.nifti",
+    "cbim_tpu_torch.data.base",
+    "cbim_tpu_torch.data.datasets",
+    "cbim_tpu_torch.data.factory",
+    "cbim_tpu_torch.data.pipeline",
+    "cbim_tpu_torch.training",
+    "cbim_tpu_torch.training.schedules",
+    "cbim_tpu_torch.training.optim",
+    "cbim_tpu_torch.training.train_state",
+    "cbim_tpu_torch.training.checkpoint",
+    "cbim_tpu_torch.training.trainer",
+    "cbim_tpu_torch.train",
+    "cbim_tpu_torch.utils.logging",
 ]
 
 #: what the port may load of cbim_tpu: the two host modules and their parents
@@ -74,6 +89,32 @@ def test_prediction_main_loads_only_the_allowed_host_modules():
              "assert 'cbim_tpu.data.conversion.utils' in sys.modules")
     proc = _probe("cbim_tpu_torch.prediction", extra)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_train_main_runs_without_jax(tmp_path):
+    """``train.main`` imports its modules inside the call; run a tiny
+    config to its end on the CPU with jax blocked."""
+    cfg = dict(dataset="synthetic", model="medformer", dimension="3d",
+               classes=2, base_chan=4, chan_num=[8, 8, 16, 16, 16, 8, 8, 4],
+               map_size=[1, 1, 1], conv_block="BasicBlock",
+               conv_num=[1, 0, 0, 0, 0, 0, 1, 1],
+               trans_num=[0, 1, 1, 1, 1, 1, 0, 0],
+               num_heads=[1, 2, 2, 2, 2, 2, 1, 1], fusion_depth=1,
+               fusion_dim=16, fusion_heads=2, expansion=2,
+               proj_type="depthwise", norm="in", act="gelu",
+               kernel_size=[[3, 3, 3]] * 5, down_scale=[[2, 2, 2]] * 4,
+               aux_loss=True, aux_weight=[0.5, 0.5], training_size=[16] * 3,
+               synthetic_cases=2, synthetic_shape=[20] * 3,
+               affine_pad_size=[4] * 3, optimizer="adamw", base_lr=1e-3,
+               epochs=1, iter_per_epoch=1, val_freq=5, ema=True)
+    extra = ("from cbim_tpu_torch import train\n"
+             "from cbim_tpu_torch.config import config_from_dict\n"
+             f"train.main(['--batch_size', '1', '--cp_path', {str(tmp_path)!r},"
+             f" '--log_path', {str(tmp_path)!r}, '--folds', '1',"
+             f" '--device', 'cpu'], cfg=config_from_dict({cfg!r}))")
+    proc = _probe("cbim_tpu_torch.train", extra)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), \
+        proc.stderr[-2000:]
 
 
 def test_chip_smoke_needs_a_card_and_imports_no_jax():
