@@ -1,5 +1,6 @@
 """Dataset base machinery (counterpart of ``cbim_tpu/data/base.py``):
-k-fold splits and the host RAM cache of preprocessed volumes.
+k-fold splits and the host RAM cache of preprocessed volumes (3D) or of
+their slices (2D).
 
 A small re-implementation, not an import: ``cbim_tpu.data.base`` imports
 PyYAML at module top, and the port must run where PyYAML is not installed.
@@ -84,3 +85,19 @@ class VolumeDataset:
 
     def __len__(self):
         return len(self.images)
+
+
+class SliceDataset(VolumeDataset):
+    """Base for 2D datasets: the volumes load as in 3D, and in train mode
+    each is split into its z slices, the samples the 2D pipeline draws
+    (reference training/dataset/dim2/dataset_acdc.py:66-90)."""
+
+    dimension = "2d"
+
+    def __init__(self, cfg, mode="train", k_fold=5, k=0, seed=0):
+        super().__init__(cfg, mode, k_fold, k, seed)
+        if mode == "train":
+            self.images = [np.ascontiguousarray(s) for img in self.images
+                           for s in img]
+            self.labels = [np.ascontiguousarray(s) for lab in self.labels
+                           for s in lab]

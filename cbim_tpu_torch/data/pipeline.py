@@ -11,8 +11,14 @@ the JAX package, so the host batches are identical.  The device part draws
 from ``torch.Generator``s seeded from the same seed; its streams differ from
 the JAX package's PRNG, so augmented batches match in distribution only.
 
+2D (slice) training draws its samples from a per-epoch permutation without
+replacement, as the JAX package does (reference DataLoader semantics); a
+batch that reaches the end of one permutation is filled from the next, so
+the n % batch tail of an epoch's slices opens the next epoch's first batch
+(ROADMAP C3).  3D draws i.i.d.
+
 Not ported (ROADMAP.md): the HBM-resident device cache, ``full_volume``
-recipes, 2D, the native threaded batch assembler, and every op but
+recipes, the native threaded batch assembler, and every op but
 ``gaussian_noise`` and ``brightness_multiply``.
 """
 
@@ -25,7 +31,7 @@ import numpy as np
 import torch
 
 from ..ops import augment as A
-from ..ops.resample import affine_sample_3d_batch
+from ..ops.resample import affine_sample_2d_batch, affine_sample_3d_batch
 
 
 @dataclass(frozen=True)
@@ -75,9 +81,11 @@ def _apply_op(name: str, prob: float, params: dict, imgs: torch.Tensor,
 
 
 def build_batch_aug(recipe: AugRecipe, crop_size):
-    """Batched 3D augmentation ``fn(imgs, labs, gen_host, gen_dev) ->
+    """Batched augmentation ``fn(imgs, labs, gen_host, gen_dev) ->
     (imgs, labs)``: imgs (B, *buffer, C) float, labs (B, *buffer) int on the
-    device -> (B, *crop_size, C), (B, *crop_size)."""
+    device -> (B, *crop_size, C), (B, *crop_size); 3D or 2D by the length
+    of ``crop_size``.  The 2D affine is ``random_theta_2d`` (no shear
+    ranges of its own: the 2D reference draws shears from the scales)."""
     if recipe.full_volume:
         raise NotImplementedError("full_volume recipes are not ported yet "
                                   "(see ROADMAP.md)")
@@ -89,18 +97,29 @@ def build_batch_aug(recipe: AugRecipe, crop_size):
                 f"augmentation op {name!r} {params} is not ported yet "
                 f"(see ROADMAP.md)")
 
+    nd = len(crop_size)
+    if nd == 3:
+        def draw_thetas(gen_host, B):
+            return A.random_theta_3d(gen_host, B, recipe.scale, recipe.rotate,
+                                     recipe.translate, recipe.shear)
+        sample = affine_sample_3d_batch
+    else:
+        def draw_thetas(gen_host, B):
+            return A.random_theta_2d(gen_host, B, recipe.scale, recipe.rotate,
+                                     recipe.translate)
+        sample = affine_sample_2d_batch
+
     def fn(imgs, labs, gen_host, gen_dev):
         B = imgs.shape[0]
         for name, prob, params in recipe.pre_ops:
             imgs = _apply_op(name, prob, params, imgs, gen_host, gen_dev)
-        thetas = A.random_theta_3d(gen_host, B, recipe.scale, recipe.rotate,
-                                   recipe.translate, recipe.shear)
+        thetas = draw_thetas(gen_host, B)
         if recipe.affine_prob < 1.0:
             take = torch.rand(B, generator=gen_host) < recipe.affine_prob
-            eye = torch.eye(3, 4).expand(B, 3, 4)
+            eye = torch.eye(nd, nd + 1).expand(B, nd, nd + 1)
             thetas = torch.where(take.view(B, 1, 1), thetas, eye)
-        imgs, labs = affine_sample_3d_batch(
-            imgs, labs, _to_device(thetas, imgs.device), out_shape=crop_size)
+        imgs, labs = sample(imgs, labs, _to_device(thetas, imgs.device),
+                            out_shape=crop_size)
         for name, prob, params in recipe.post_ops:
             imgs = _apply_op(name, prob, params, imgs, gen_host, gen_dev)
         return imgs, labs
@@ -109,7 +128,7 @@ def build_batch_aug(recipe: AugRecipe, crop_size):
 
 
 class TrainPipeline:
-    """Host window sampler + batched device augmentation.
+    """Host window sampler + batched device augmentation, 3D or 2D.
 
     ``next_batch`` copies the batch's precrop windows into pinned host
     memory (on CUDA), moves them with a non-blocking copy and augments them
@@ -117,11 +136,9 @@ class TrainPipeline:
     overlaps that step."""
 
     def __init__(self, dataset, cfg, seed: int = 0, device=None):
-        if cfg.dimension != "3d":
-            raise NotImplementedError("2D training is not ported yet "
-                                      "(see ROADMAP.md)")
         self.ds = dataset
-        self.crop_size = tuple(cfg.training_size[:3])
+        self.ndim = 3 if cfg.dimension == "3d" else 2
+        self.crop_size = tuple(cfg.training_size[:self.ndim])
         self.recipe = dataset.recipe()
         self.buffer_shape = tuple(
             t + p for t, p in zip(self.crop_size, self.recipe.affine_pad))
@@ -130,6 +147,8 @@ class TrainPipeline:
         self._gen_host = torch.Generator().manual_seed(seed)
         self._gen_dev = torch.Generator(device=self.device).manual_seed(seed)
         self._aug = build_batch_aug(self.recipe, self.crop_size)
+        self._epoch_perm = None
+        self._perm_pos = 0
 
     # -- host side (the JAX package's rng calls, in its order) --------------
 
@@ -154,6 +173,26 @@ class TrainPipeline:
             offs.append(src0 - v)
         return starts, sizes, offs
 
+    def _draw_indices(self, batch_size: int) -> np.ndarray:
+        """Sample indices: i.i.d. uniform (3D), or the next ``batch_size`` of
+        a per-epoch permutation without replacement (2D), drawing a new
+        permutation whenever one runs out, mid-batch included."""
+        n = len(self.ds.images)
+        if self.ndim == 3:
+            return self._rng.integers(0, n, size=batch_size)
+        out = np.empty(batch_size, np.int64)
+        filled = 0
+        while filled < batch_size:
+            if self._epoch_perm is None or self._perm_pos >= n:
+                self._epoch_perm = self._rng.permutation(n)
+                self._perm_pos = 0
+            take = min(batch_size - filled, n - self._perm_pos)
+            out[filled:filled + take] = \
+                self._epoch_perm[self._perm_pos:self._perm_pos + take]
+            filled += take
+            self._perm_pos += take
+        return out
+
     def _host_tensors(self, batch_size: int):
         """(imgs (B, *buffer, 1) float32, labs (B, *buffer) int8) as CPU
         tensors, pinned when the pipeline feeds a CUDA device."""
@@ -163,7 +202,7 @@ class TrainPipeline:
         labs = torch.zeros((batch_size, *self.buffer_shape), dtype=torch.int8,
                            pin_memory=pin)
         np_imgs, np_labs = imgs.numpy(), labs.numpy()
-        idxs = self._rng.integers(0, len(self.ds.images), size=batch_size)
+        idxs = self._draw_indices(batch_size)
         for i, idx in enumerate(idxs):
             img, lab = self.ds.images[idx], self.ds.labels[idx]
             starts, sizes, offs = self._window_coords(img.shape)

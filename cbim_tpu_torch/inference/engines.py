@@ -1,5 +1,5 @@
-"""Inference engines, whole-image and 3D sliding-window (counterpart of
-``cbim_tpu/inference/engines.py``).
+"""Inference engines: whole-image, 3D sliding-window and the 2D slice-batch
+sliding window (counterpart of ``cbim_tpu/inference/engines.py``).
 
 Same window geometry and uniform fusion as ``cbim_tpu`` (and the
 reference's inference3d.py): stride half a window, edge windows clamped
@@ -14,9 +14,15 @@ runs as it is (no padded forwards).  The probability accumulator is an fp32
 buffer on the device, updated in place; the count map is pure window
 geometry, built on the host once per padded shape and cached on the device.
 
+The 2D sweep (``sliding_window_slices``) runs every slice of a volume as
+the batch at each window position, with the same window grid, dedup,
+count map and pad/crop rules.  It keeps the JAX package's semantics: the
+whole volume is one batch, never split behind the caller's back, so a
+volume too large for the card raises the allocator's out-of-memory error.
+
 The public functions take and return ``cbim_tpu``'s layout (B, *spatial, C);
-``apply_fn`` takes and returns NCDHW.  The sharded and 2D-slice variants
-and gaussian fusion are not ported yet (ROADMAP.md).
+``apply_fn`` takes and returns NC(D)HW.  The sharded variants and gaussian
+fusion are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..models.layers.convs import CHANNELS_LAST
 
 
 def split_idx(half_win: int, size: int, i: int):
@@ -89,6 +97,24 @@ class InferenceEngine:
                              else max(1, int(window_batch)))
         self._cnt_cache = {}
 
+    def _pad_and_grid(self, x: torch.Tensor):
+        """x (B, C, *spatial) zero-padded on the high side up to the window
+        (reference inference3d.py:44-54); returns (x, padded spatial,
+        unique window starts, their multiplicity, the count map on x's
+        device)."""
+        window = self.window_size
+        pads = [max(0, w - s) for s, w in zip(x.shape[2:], window)]
+        if any(pads):
+            # F.pad orders its pairs from the last axis backwards
+            x = F.pad(x, [p for pad in reversed(pads) for p in (0, pad)])
+        padded = tuple(x.shape[2:])
+        starts, mult = _dedup_starts(_grid_starts(padded, window))
+        cnt = self._cnt_cache.get((padded, x.device))
+        if cnt is None:
+            cnt = torch.from_numpy(self._count_map(padded, starts, mult))
+            cnt = self._cnt_cache[(padded, x.device)] = cnt.to(x.device)
+        return x, padded, starts, mult, cnt
+
     def _count_map(self, padded_spatial, starts, mult):
         """The fusion denominator, (1, 1, *padded_spatial): each voxel's
         window visits, pure geometry, built on the host."""
@@ -108,21 +134,9 @@ class InferenceEngine:
     def sliding_window(self, img: torch.Tensor) -> torch.Tensor:
         """img: (1, *spatial, C) -> softmax probs (1, *spatial, classes)."""
         window = self.window_size
-        nd = len(window)
-        spatial = tuple(img.shape[1:1 + nd])
-        x = img.movedim(-1, 1)                             # (1, C, *spatial)
-        pads = [max(0, w - s) for s, w in zip(spatial, window)]
-        if any(pads):
-            # F.pad orders its pairs from the last axis backwards
-            x = F.pad(x, [p for pad in reversed(pads) for p in (0, pad)])
-        padded = tuple(x.shape[2:])
-
-        starts, mult = _dedup_starts(_grid_starts(padded, window))
+        spatial = tuple(img.shape[1:1 + len(window)])
+        x, padded, starts, mult, cnt = self._pad_and_grid(img.movedim(-1, 1))
         wb = self.window_batch or _auto_window_batch(len(starts))
-        cnt = self._cnt_cache.get((padded, x.device))
-        if cnt is None:
-            cnt = torch.from_numpy(self._count_map(padded, starts, mult))
-            cnt = self._cnt_cache[(padded, x.device)] = cnt.to(x.device)
 
         with torch.inference_mode():
             acc = torch.zeros((1, self.num_classes, *padded),
@@ -137,16 +151,42 @@ class InferenceEngine:
         crop = (slice(None), slice(None), *(slice(0, s) for s in spatial))
         return acc[crop].movedim(1, -1)
 
+    # -- sliding window, 2D slice-batch form ----------------------------------
+    def sliding_window_slices(self, img: torch.Tensor) -> torch.Tensor:
+        """2D sliding window over a slice batch: img (B, H, W, C_in) ->
+        probs (B, H, W, classes).
+
+        Reference inference/inference2d.py:27-71: all B slices of the volume
+        ride as the batch through the net at each window position.  Inputs
+        smaller than the window are zero-padded and cropped back, as the JAX
+        package does (the reference would fail on them)."""
+        window = self.window_size
+        if window is None or len(window) != 2:
+            raise ValueError(f"sliding_window_slices needs a 2D window, "
+                             f"got {window}")
+        spatial = tuple(img.shape[1:3])
+        x, padded, starts, mult, cnt = self._pad_and_grid(img.movedim(-1, 1))
+
+        with torch.inference_mode():
+            acc = torch.zeros((x.shape[0], self.num_classes, *padded),
+                              dtype=torch.float32, device=x.device)
+            for s, m in zip(starts, mult):
+                probs = _softmax_fp32(self.apply_fn(x[_window(s, window)]))
+                acc[_window(s, window)] += probs * float(m)
+            acc /= cnt
+        return acc[:, :, :spatial[0], :spatial[1]].movedim(1, -1)
+
 
 def make_engine(model, cfg, window_batch: int | str | None = None
                 ) -> InferenceEngine:
     """Wrap a model into an InferenceEngine: inputs cast to the model's
-    dtype, head 0 of deep-supervision models (reference
-    inference3d.py:22-24)."""
+    dtype in the model's channels-last memory format, head 0 of
+    deep-supervision models (reference inference3d.py:22-24)."""
     dtype = next(model.parameters()).dtype
+    memory_format = CHANNELS_LAST[2 if cfg.dimension == "2d" else 3]
 
     def apply_fn(x):
-        out = model(x.to(dtype).contiguous(memory_format=torch.channels_last_3d))
+        out = model(x.to(dtype).contiguous(memory_format=memory_format))
         return out[0] if isinstance(out, (tuple, list)) else out
 
     if cfg.get("window_fusion", "uniform") != "uniform":

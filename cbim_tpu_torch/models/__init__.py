@@ -1,7 +1,8 @@
 """Model factory (counterpart of ``cbim_tpu/models/__init__.py``).
 
-Only MedFormer-3D is ported; every other (model, dimension) raises
-``NotImplementedError`` (the rest of the zoo is queued in ROADMAP.md).
+MedFormer-3D and MedFormer-2D are ported; every other (model, dimension)
+raises ``NotImplementedError`` (the rest of the zoo is queued in
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 from torch import nn
 
 from ..config import compute_dtype, set_float32_precision
+from .layers.convs import CHANNELS_LAST
 
 #: the full-width MedFormer-3D stage widths (``cbim_tpu``'s default)
 DEFAULT_CHAN_NUM = [64, 128, 256, 320, 256, 128, 64, 32]
@@ -34,9 +36,10 @@ def _norm_scales(v, n):
 def get_model(cfg, device=None, generator: torch.Generator | None = None,
               train: bool = False) -> nn.Module:
     """Build the model selected by (cfg.dimension, cfg.model) in
-    channels_last_3d memory on ``device``.
+    channels-last memory (channels_last_3d for 3D) on ``device``.
 
-    ``train=False`` (serving): eval mode, parameters in cfg's compute dtype.
+    ``train=False`` (serving): eval mode (BatchNorm reads its running
+    statistics), parameters in cfg's compute dtype.
     ``train=True``: train mode with fp32 parameters; the trainer computes in
     bf16 under ``torch.autocast`` when cfg asks for amp, as the JAX package
     keeps fp32 params and optimizer state around bf16 compute.
@@ -44,12 +47,47 @@ def get_model(cfg, device=None, generator: torch.Generator | None = None,
     ``generator``: re-draw every parameter from it with torch's default
     initialisation (seeded random weights)."""
     dim, name = cfg.dimension, cfg.model
-    if not (dim == "3d" and name == "medformer"):
+    if name != "medformer" or dim not in ("2d", "3d"):
         raise NotImplementedError(
             f"model {name!r} ({dim}) is not ported yet; the PyTorch port "
-            f"covers MedFormer-3D (see ROADMAP.md)")
+            f"covers MedFormer-3D and MedFormer-2D (see ROADMAP.md)")
+    model = (_medformer2d if dim == "2d" else _medformer3d)(cfg)
+    if generator is not None:
+        init_weights(model, generator)
+    set_float32_precision(cfg)
+    dtype = torch.float32 if train else compute_dtype(cfg)
+    model = model.to(device=device, dtype=dtype,
+                     memory_format=CHANNELS_LAST[2 if dim == "2d" else 3])
+    for m in model.modules():
+        # grouped 3D convs run in contiguous memory (layers.convs.
+        # grouped_conv); load_state_dict copies into the parameter and keeps
+        # this layout.  Not .contiguous(): a depthwise weight [C, 1, 3, 3, 3]
+        # passes is_contiguous() with channels_last_3d strides, which steer
+        # the conv to the slow layout all the same.
+        if isinstance(m, nn.Conv3d) and m.groups > 1:
+            m.weight.data = m.weight.data.clone(
+                memory_format=torch.contiguous_format)
+    return model.train(train)
+
+
+def _medformer2d(cfg) -> nn.Module:
+    """The JAX factory's MedFormer2D: no norm or act from the config (the
+    model's BatchNorm + ReLU defaults), no remat."""
+    from .medformer import MedFormer2D
+    return MedFormer2D(
+        in_chan=cfg.in_chan, num_classes=cfg.classes, base_ch=cfg.base_chan,
+        map_size=cfg.map_size, conv_block=cfg.conv_block,
+        conv_num=tuple(cfg.conv_num), trans_num=tuple(cfg.trans_num),
+        num_heads=tuple(cfg.num_heads), fusion_depth=cfg.fusion_depth,
+        fusion_dim=cfg.fusion_dim, fusion_heads=cfg.fusion_heads,
+        expansion=cfg.expansion, proj_type=cfg.proj_type,
+        aux_loss=cfg.aux_loss, attn_drop=cfg.get("attn_drop", 0.0),
+        proj_drop=cfg.get("proj_drop", 0.0))
+
+
+def _medformer3d(cfg) -> nn.Module:
     from .medformer import MedFormer3D
-    model = MedFormer3D(
+    return MedFormer3D(
         in_chan=cfg.in_chan, num_classes=cfg.classes, base_ch=cfg.base_chan,
         map_size=tuple(cfg.map_size), conv_block=cfg.conv_block,
         conv_num=tuple(cfg.conv_num), trans_num=tuple(cfg.trans_num),
@@ -63,31 +101,15 @@ def get_model(cfg, device=None, generator: torch.Generator | None = None,
         aux_loss=cfg.aux_loss, remat=cfg.get("remat", False),
         attn_drop=cfg.get("attn_drop", 0.0),
         proj_drop=cfg.get("proj_drop", 0.0))
-    if generator is not None:
-        init_weights(model, generator)
-    set_float32_precision(cfg)
-    dtype = torch.float32 if train else compute_dtype(cfg)
-    model = model.to(device=device, dtype=dtype,
-                     memory_format=torch.channels_last_3d)
-    for m in model.modules():
-        # grouped convs run in contiguous memory (layers.convs.grouped_conv);
-        # load_state_dict copies into the parameter and keeps this layout.
-        # Not .contiguous(): a depthwise weight [C, 1, 3, 3, 3] passes
-        # is_contiguous() with channels_last_3d strides, which steer the
-        # conv to the slow layout all the same.
-        if isinstance(m, nn.Conv3d) and m.groups > 1:
-            m.weight.data = m.weight.data.clone(
-                memory_format=torch.contiguous_format)
-    return model.train(train)
 
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """torch's default init drawn from ``generator``: conv/linear weights
     and biases U(+-1/sqrt(fan_in)) (kaiming_uniform(a=sqrt(5))), LayerNorm
-    weight 1 and bias 0."""
+    weight 1 and bias 0 (BatchNorm keeps its own: weight 1, bias 0)."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv3d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
             fan_in = m.weight.shape[1] * math.prod(m.weight.shape[2:])
             bound = 1.0 / math.sqrt(fan_in)
             m.weight.uniform_(-bound, bound, generator=generator)

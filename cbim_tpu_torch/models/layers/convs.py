@@ -1,24 +1,29 @@
 """Convolutional building blocks (counterpart of
-``cbim_tpu/models/layers/convs.py``), as ``nn.Module``s over NCDHW tensors.
+``cbim_tpu/models/layers/convs.py``), as ``nn.Module``s over NCHW / NCDHW
+tensors, one implementation for both ranks (``nd`` = 2 or 3).
 
 Parameter names follow the reference's torch modules (``conv``, ``norm``,
 ``conv1``/``conv2``/``shortcut``, ``depthwise``/``pointwise``,
-``expand_proj``, ``se.excitation``), so a state_dict maps onto the Flax tree
-through ``cbim_tpu.utils.torch_import`` unchanged.
+``expand_proj``, ``se.excitation``, and ``se_block.excitation`` in the dim2
+MBConv), so a state_dict maps onto the Flax tree through
+``cbim_tpu.utils.torch_import`` unchanged.
 
-Kernel dispatch, one rule per kernel family; both train through their
+Kernel dispatch, one rule per kernel family; each trains through its
 ``torch.autograd.Function`` (backward kernels on CUDA):
 - every InstanceNorm(+act) goes through ``InstanceNormAct`` (fused kernels
   on CUDA, any C);
 - a ``ConvNormAct`` conv that is 3^3 and not grouped, with C_in <= 192
   and C_out <= 128 (the envelope of the TPU dispatch,
-  ``_pallas_conv_usable``), goes through ``Conv3dSame``.
-The TPU's NDHCW stage layout (``_stage_cw_ok``, ``to_cw``/``from_cw``) has
-no counterpart: the one NDHWC kernel computes the same thing.
+  ``_pallas_conv_usable``), goes through ``Conv3dSame``;
+- a ``ConvNormAct`` conv that is 3x3 and not grouped, with C_in <= 192 and
+  C_out <= 192 (``_pallas_conv2d_usable``'s channel envelope), goes through
+  ``Conv2dSame`` at any H, W.
+BatchNorm stays ``F.batch_norm`` (``torch.native_batch_norm`` when
+training), as XLA carried Flax's.  The TPU's NDHCW stage layout has no
+counterpart: the one NDHWC kernel computes the same thing.
 
-These blocks carry no dropout or stochastic depth (MedFormer-3D's recipes
-train without them), and every block here is stride 1 (what MedFormer-3D
-uses).
+These blocks carry no dropout or stochastic depth (the MedFormer recipes
+train without them), and every block here is stride 1.
 """
 
 from __future__ import annotations
@@ -30,10 +35,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.activations import Act, get_act
+from ...ops.kernels.conv2d import Conv2dSame
 from ...ops.kernels.conv3d import Conv3dSame
 from ...ops.kernels.fused_norm import InstanceNormAct
 
 KernelArg = Union[int, Sequence[int]]
+
+#: conv module and channels-last memory format of each spatial rank
+CONV = {2: nn.Conv2d, 3: nn.Conv3d}
+CHANNELS_LAST = {2: torch.channels_last, 3: torch.channels_last_3d}
+
+#: the batch-statistics momentum of Flax's BatchNorm(momentum=0.9):
+#: running = 0.9 * running + 0.1 * batch
+BN_MOMENTUM = 0.1
 
 
 def _tuple(v: KernelArg, n: int) -> tuple:
@@ -43,79 +57,119 @@ def _tuple(v: KernelArg, n: int) -> tuple:
 
 
 def to_channels_last(x: torch.Tensor) -> torch.Tensor:
-    """NCDHW (any memory format) -> a contiguous NDHWC view."""
-    return x.contiguous(memory_format=torch.channels_last_3d).movedim(1, -1)
+    """NC(D)HW (any memory format) -> a contiguous N(D)HWC view."""
+    return x.contiguous(memory_format=CHANNELS_LAST[x.dim() - 2]).movedim(1, -1)
 
 
 def from_channels_last(t: torch.Tensor) -> torch.Tensor:
-    """NDHWC -> NCDHW view in channels_last_3d memory."""
+    """N(D)HWC -> NC(D)HW view in channels-last memory."""
     return t.movedim(-1, 1)
 
 
 def grouped_conv(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
-    """``conv`` (groups > 1) in contiguous NCDHW memory, weight included.
+    """A grouped 3D ``conv`` in contiguous NCDHW memory, weight included.
 
     With the input or the weight in channels_last_3d memory, cuDNN runs a
     grouped 3D conv one channel group at a time: 10-20x slower at the
     MBConv and B-MHA depthwise shapes on an H100 than the same conv in
     contiguous memory, even counting the two layout copies.  (The JAX
     package sidesteps XLA's grouped conv the same way, ``_DepthwiseTapConv``.)
-    ``get_model`` keeps grouped weights contiguous.  Returns channels_last_3d
-    memory like the other layers."""
+    ``get_model`` keeps grouped 3D weights contiguous.  Returns
+    channels_last_3d memory like the other layers.  Grouped 2D convs stay in
+    channels_last: there cuDNN's depthwise path is the faster one at the
+    MedFormer-2D shapes (``chip_smoke.py`` phase 3, PERF.md)."""
     y = F.conv3d(x.contiguous(), conv.weight, conv.bias,
                  padding=conv.padding, groups=conv.groups)
     return y.contiguous(memory_format=torch.channels_last_3d)
 
 
-def norm_act(x: torch.Tensor, kind, eps: float, act=None) -> torch.Tensor:
-    """Norm ``kind`` then ``act`` over x (B, C, *spatial)."""
-    if kind in (None, False):
-        return get_act(act)(x)
-    if kind == "in":
-        # torch InstanceNorm defaults: affine=False, no running stats,
-        # biased variance over the spatial axes
-        return from_channels_last(
-            InstanceNormAct.apply(to_channels_last(x), eps, act))
-    raise NotImplementedError(
-        f"norm {kind!r} is not ported yet (see ROADMAP.md)")
+def _conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(conv, nn.Conv3d) and conv.groups > 1:
+        return grouped_conv(conv, x)
+    return conv(x)
 
 
 class Norm(nn.Module):
-    """Config-selected normalization (parameter-free InstanceNorm here)."""
+    """Config-selected normalization over x (B, C, *spatial):
 
-    def __init__(self, kind="in", eps: float = 1e-4):
+    - ``"in"``: parameter-free InstanceNorm (torch's default affine=False,
+      biased variance over the spatial axes), fused with ``act``;
+    - ``"bn"``: BatchNorm with affine weight/bias and running statistics
+      (the reference's ``nn.BatchNorm*d`` names, so ``load_state_dict``
+      takes its state_dicts).  It follows Flax's ``BatchNorm(momentum=0.9)``
+      rather than torch's: the running variance takes the *biased* batch
+      variance, and the statistics stay fp32 under bf16 autocast;
+    - ``None``/``False``: identity."""
+
+    def __init__(self, kind="in", eps: float = 1e-4, channels: int | None = None):
         super().__init__()
         self.kind = kind
         self.eps = eps
+        if kind == "bn":
+            self.weight = nn.Parameter(torch.ones(channels))
+            self.bias = nn.Parameter(torch.zeros(channels))
+            self.register_buffer("running_mean", torch.zeros(channels))
+            self.register_buffer("running_var", torch.ones(channels))
+            self.register_buffer("num_batches_tracked",
+                                 torch.tensor(0, dtype=torch.long))
+        elif kind not in ("in", None, False):
+            raise NotImplementedError(
+                f"norm {kind!r} is not ported yet (see ROADMAP.md)")
+
+    def _batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, BN_MOMENTUM, self.eps)
+        with torch.no_grad():
+            # the biased variance the batch was normalised with, fp32
+            var = invstd.float().pow(-2) - self.eps
+            self.running_mean.mul_(1 - BN_MOMENTUM).add_(
+                mean.float(), alpha=BN_MOMENTUM)
+            self.running_var.mul_(1 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
+            self.num_batches_tracked += 1
+        return y
 
     def forward(self, x, act=None):
-        return norm_act(x, self.kind, self.eps, act)
+        if self.kind == "in":
+            return from_channels_last(
+                InstanceNormAct.apply(to_channels_last(x), self.eps, act))
+        if self.kind == "bn":
+            x = self._batch_norm(x)
+        return get_act(act)(x)
 
 
 class ConvNormAct(nn.Module):
     """conv + norm + act, pre- or post-activated (conv_layers.py:16-53);
-    stride 1, padding k // 2."""
+    stride 1, padding k // 2.  The reference's dim3 ConvNormAct passes
+    eps=1e-4, its dim2 twin torch's default 1e-5 (``cbim_tpu`` convs.py:
+    415-417)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: KernelArg = 3,
-                 groups: int = 1, norm="bn", act="relu", preact: bool = False):
+                 groups: int = 1, norm="bn", act="relu", preact: bool = False,
+                 nd: int = 3):
         super().__init__()
-        k = _tuple(kernel_size, 3)
-        self.conv = nn.Conv3d(in_ch, out_ch, k, padding=tuple(ki // 2 for ki in k),
-                              groups=groups, bias=False)
-        # the reference's dim3 ConvNormAct passes eps=1e-4 (convs.py:415-417)
-        self.norm = Norm(norm, eps=1e-4)
+        k = _tuple(kernel_size, nd)
+        self.conv = CONV[nd](in_ch, out_ch, k,
+                             padding=tuple(ki // 2 for ki in k),
+                             groups=groups, bias=False)
+        self.norm = Norm(norm, eps=1e-4 if nd == 3 else 1e-5,
+                         channels=in_ch if preact else out_ch)
         self.act = act
         self.preact = preact
-        self.use_kernel = (k == (3, 3, 3) and groups == 1 and in_ch <= 192
-                           and out_ch <= 128)
+        self.kernel = None
+        if k == (3,) * nd and groups == 1 and in_ch <= 192:
+            if nd == 3 and out_ch <= 128:
+                self.kernel = Conv3dSame
+            elif nd == 2 and out_ch <= 192:
+                self.kernel = Conv2dSame
 
     def _conv(self, x):
-        if self.conv.groups > 1:
-            return grouped_conv(self.conv, x)
-        if self.use_kernel:
+        if self.kernel is not None:
             return from_channels_last(
-                Conv3dSame.apply(to_channels_last(x), self.conv.weight))
-        return self.conv(x)
+                self.kernel.apply(to_channels_last(x), self.conv.weight))
+        return _conv(self.conv, x)
 
     def forward(self, x):
         if self.preact:
@@ -126,9 +180,11 @@ class ConvNormAct(nn.Module):
 class SingleConv(nn.Module):
     """conv_layers.py:56-68 — one post-activated ConvNormAct."""
 
-    def __init__(self, in_ch, out_ch, kernel_size=3, norm="bn", act="relu"):
+    def __init__(self, in_ch, out_ch, kernel_size=3, norm="bn", act="relu",
+                 nd: int = 3):
         super().__init__()
-        self.conv = ConvNormAct(in_ch, out_ch, kernel_size, norm=norm, act=act)
+        self.conv = ConvNormAct(in_ch, out_ch, kernel_size, norm=norm, act=act,
+                                nd=nd)
 
     def forward(self, x):
         return self.conv(x)
@@ -137,9 +193,10 @@ class SingleConv(nn.Module):
 class BasicBlock(nn.Module):
     """conv_layers.py:71-94 — preact residual block (2 convs + shortcut)."""
 
-    def __init__(self, in_ch, out_ch, kernel_size=3, norm="bn", act="relu"):
+    def __init__(self, in_ch, out_ch, kernel_size=3, norm="bn", act="relu",
+                 nd: int = 3):
         super().__init__()
-        kw = dict(norm=norm, act=act, preact=True)
+        kw = dict(norm=norm, act=act, preact=True, nd=nd)
         self.conv1 = ConvNormAct(in_ch, out_ch, kernel_size, **kw)
         self.conv2 = ConvNormAct(out_ch, out_ch, kernel_size, **kw)
         self.shortcut = (ConvNormAct(in_ch, out_ch, kernel_size, **kw)
@@ -153,56 +210,61 @@ class BasicBlock(nn.Module):
 class DepthwiseSeparableConv(nn.Module):
     """conv_layers.py:126-157 — depthwise conv + pointwise conv."""
 
-    def __init__(self, in_ch, out_ch, kernel_size=3):
+    def __init__(self, in_ch, out_ch, kernel_size=3, nd: int = 3):
         super().__init__()
-        k = _tuple(kernel_size, 3)
-        self.depthwise = nn.Conv3d(in_ch, in_ch, k,
-                                   padding=tuple(ki // 2 for ki in k),
-                                   groups=in_ch, bias=False)
-        self.pointwise = nn.Conv3d(in_ch, out_ch, 1, bias=False)
+        k = _tuple(kernel_size, nd)
+        self.depthwise = CONV[nd](in_ch, in_ch, k,
+                                  padding=tuple(ki // 2 for ki in k),
+                                  groups=in_ch, bias=False)
+        self.pointwise = CONV[nd](in_ch, out_ch, 1, bias=False)
 
     def forward(self, x):
-        return self.pointwise(grouped_conv(self.depthwise, x))
+        return self.pointwise(_conv(self.depthwise, x))
 
 
 class SEBlock(nn.Module):
     """conv_layers.py:159-174 — squeeze-and-excitation, ratio 4."""
 
-    def __init__(self, in_ch, act="relu"):
+    def __init__(self, in_ch, act="relu", nd: int = 3):
         super().__init__()
         self.excitation = nn.Sequential(
-            nn.Conv3d(in_ch, in_ch // 4, 1), Act(act),
-            nn.Conv3d(in_ch // 4, in_ch, 1))
+            CONV[nd](in_ch, in_ch // 4, 1), Act(act),
+            CONV[nd](in_ch // 4, in_ch, 1))
 
     def forward(self, x):
-        s = x.mean(dim=(2, 3, 4), keepdim=True)
+        s = x.mean(dim=tuple(range(2, x.dim())), keepdim=True)
         return x * torch.sigmoid(self.excitation(s))
 
 
 class MBConv(nn.Module):
-    """conv_layers.py:197-238 — inverted residual, depthwise conv + SE."""
+    """conv_layers.py:197-238 — inverted residual, depthwise conv + SE.  The
+    dim2 reference names its SE module ``se_block``, the dim3 one ``se``."""
 
     def __init__(self, in_ch, out_ch, expansion=4, kernel_size=3, norm="bn",
-                 act="relu"):
+                 act="relu", nd: int = 3):
         super().__init__()
         expanded = expansion * in_ch
+        kw = dict(norm=norm, nd=nd)
         self.expand_proj = (
-            ConvNormAct(in_ch, expanded, 1, norm=norm, act=act, preact=True)
+            ConvNormAct(in_ch, expanded, 1, act=act, preact=True, **kw)
             if expansion != 1 else None)
         self.depthwise = ConvNormAct(expanded, expanded, kernel_size,
-                                     groups=expanded, norm=norm, act=act,
-                                     preact=True)
-        self.se = SEBlock(expanded, act=act)
-        self.pointwise = ConvNormAct(expanded, out_ch, 1, norm=norm, act=False,
-                                     preact=True)
+                                     groups=expanded, act=act, preact=True,
+                                     **kw)
+        self.se_name = "se_block" if nd == 2 else "se"
+        self.add_module(self.se_name, SEBlock(expanded, act=act, nd=nd))
+        self.pointwise = ConvNormAct(expanded, out_ch, 1, act=False,
+                                     preact=True, **kw)
         self.shortcut = (ConvNormAct(in_ch, out_ch, kernel_size, norm=False,
-                                     act=False) if in_ch != out_ch else None)
+                                     act=False, nd=nd)
+                         if in_ch != out_ch else None)
 
     def forward(self, x):
         residual = x if self.shortcut is None else self.shortcut(x)
         if self.expand_proj is not None:
             x = self.expand_proj(x)
-        return self.pointwise(self.se(self.depthwise(x))) + residual
+        se = getattr(self, self.se_name)
+        return self.pointwise(se(self.depthwise(x))) + residual
 
 
 def get_block_cls(name: str):

@@ -3,6 +3,11 @@
 trans_layers.py parameter names.  Attention logits and softmax run in fp32
 under bf16 compute, as in ``cbim_tpu``.  Dropout is not ported:
 :func:`check_no_dropout` refuses a config that asks for it.
+
+The reference's dim3 attention merges its heads head-major on the way out,
+its dim2 twin dim-head-major (einops ``b heads l dim_head -> b l (dim_head
+heads)``, which ``import_medformer2d`` undoes with a column permutation of
+``to_out``); ``dim_head_major`` selects the dim2 order.
 """
 
 from __future__ import annotations
@@ -38,10 +43,12 @@ class Mlp(nn.Module):
 class Attention(nn.Module):
     """trans_layers.py:45-98 — multi-head self-attention on (B, L, C)."""
 
-    def __init__(self, dim, heads, dim_head, qkv_bias=False):
+    def __init__(self, dim, heads, dim_head, qkv_bias=False,
+                 dim_head_major=False):
         super().__init__()
         self.heads = heads
         self.dim_head = dim_head
+        self.dim_head_major = dim_head_major
         inner = heads * dim_head
         self.to_qkv = nn.Linear(dim, inner * 3, bias=qkv_bias)
         self.to_out = nn.Linear(inner, dim)
@@ -52,8 +59,10 @@ class Attention(nn.Module):
                    for t in self.to_qkv(x).chunk(3, dim=-1))
         attn = torch.matmul(q.float(), k.float().transpose(-1, -2))
         attn = (attn * self.dim_head ** -0.5).softmax(dim=-1).to(q.dtype)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, l, -1)
-        return self.to_out(out)
+        out = torch.matmul(attn, v)                     # (b, heads, l, d)
+        out = out.permute(0, 2, 3, 1) if self.dim_head_major \
+            else out.transpose(1, 2)
+        return self.to_out(out.reshape(b, l, -1))
 
 
 class PreNorm(nn.Module):
@@ -69,10 +78,13 @@ class PreNorm(nn.Module):
 class TransformerBlock(nn.Module):
     """trans_layers.py:101-118 — depth x (PreNorm MHSA + PreNorm MLP)."""
 
-    def __init__(self, dim, depth, heads, dim_head, mlp_dim):
+    def __init__(self, dim, depth, heads, dim_head, mlp_dim,
+                 dim_head_major=False):
         super().__init__()
         self.layers = nn.ModuleList(
-            nn.ModuleList([PreNorm(dim, Attention(dim, heads, dim_head)),
+            nn.ModuleList([PreNorm(dim, Attention(
+                              dim, heads, dim_head,
+                              dim_head_major=dim_head_major)),
                            PreNorm(dim, Mlp(dim, mlp_dim, dim))])
             for _ in range(depth))
 

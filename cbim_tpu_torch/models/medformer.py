@@ -1,16 +1,25 @@
-"""MedFormer-3D (arXiv:2203.00131), counterpart of
-``cbim_tpu/models/medformer.py`` (3D only), for serving and training.
+"""MedFormer (arXiv:2203.00131), counterpart of ``cbim_tpu/models/medformer.py``:
+MedFormer-3D and MedFormer-2D, for serving and training.
 
-Modules and parameter names follow the reference's model/dim3/medformer.py
-and medformer_utils.py, so ``cbim_tpu.utils.torch_import.import_medformer3d``
-maps this model's state_dict onto the Flax tree.
+Modules and parameter names follow the reference's model/dim3 and
+model/dim2 medformer.py and medformer_utils.py, so
+``cbim_tpu.utils.torch_import.import_medformer3d``/``import_medformer2d``
+map this model's state_dict onto the Flax tree.  The shared blocks take
+``nd``, the spatial rank.
 
 The B-MHA splits its inner channels the reference's way, dim-head-major:
 channel c = d * heads + h (medformer_utils.py rearrange, ``view(b,
-dim_head, heads, -1)``).  ``cbim_tpu`` splits head-major and
-``import_medformer3d`` permutes the weights for exactly that difference
-(``_bmha_perm``), so copying the Flax split here would keep the names and
-change the numbers.
+dim_head, heads, -1)``).  ``cbim_tpu`` splits head-major and the importers
+permute the weights for exactly that difference (``_bmha_perm``), so
+copying the Flax split here would keep the names and change the numbers.
+
+What differs between the ranks, as in the reference:
+- the 2D model normalises with BatchNorm and ReLU everywhere, at torch's
+  default eps 1e-5 (the 3D recipes use InstanceNorm);
+- 2D ``PatchMerging`` orders its space-to-depth channels j-major;
+- ``UpBlockMF2D`` applies norm + 1x1 reduction to the concatenation before
+  its stage, and reduces the semantic map in every up block;
+- the 2D map fusion merges its attention heads dim-head-major.
 """
 
 from __future__ import annotations
@@ -23,8 +32,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.interpolate import resize_linear
-from .layers.convs import (ConvNormAct, DepthwiseSeparableConv, MBConv, Norm,
-                           _tuple, from_channels_last, get_block_cls,
+from .layers.convs import (CONV, ConvNormAct, DepthwiseSeparableConv, MBConv,
+                           Norm, _tuple, from_channels_last, get_block_cls,
                            to_channels_last)
 from .layers.transformers import TransformerBlock, check_no_dropout
 
@@ -39,23 +48,25 @@ REMAT_MODES = {           # inc, down1, down2-4, up3, up4, up1-2
 }
 
 
-def _conv1x1(in_ch, out_ch, bias=False):
-    return nn.Conv3d(in_ch, out_ch, 1, bias=bias)
+def _conv1x1(in_ch, out_ch, bias=False, nd: int = 3):
+    return CONV[nd](in_ch, out_ch, 1, bias=bias)
 
 
 class BidirectionAttention(nn.Module):
     """Feature <-> semantic-map cross attention, both directions."""
 
     def __init__(self, feat_dim, map_dim, out_dim, heads=4, dim_head=64,
-                 kernel_size=3, no_map_out=False):
+                 kernel_size=3, no_map_out=False, nd: int = 3):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
         self.dim_head = dim_head
-        self.feat_qv = DepthwiseSeparableConv(feat_dim, inner * 2, kernel_size)
-        self.map_qv = _conv1x1(map_dim, inner * 2)
-        self.feat_out = DepthwiseSeparableConv(inner, out_dim, kernel_size)
-        self.map_out = None if no_map_out else _conv1x1(inner, map_dim)
+        self.feat_qv = DepthwiseSeparableConv(feat_dim, inner * 2, kernel_size,
+                                              nd=nd)
+        self.map_qv = _conv1x1(map_dim, inner * 2, nd=nd)
+        self.feat_out = DepthwiseSeparableConv(inner, out_dim, kernel_size,
+                                               nd=nd)
+        self.map_out = None if no_map_out else _conv1x1(inner, map_dim, nd=nd)
 
     def _to_heads(self, t):
         """(B, inner, *spatial), channel d*heads + h -> (B, heads, N, d)."""
@@ -88,18 +99,21 @@ class BidirectionAttentionBlock(nn.Module):
     """norm -> B-MHA -> shortcut -> MBConv feedforward; map residual."""
 
     def __init__(self, feat_dim, map_dim, out_dim, heads, dim_head, norm="in",
-                 act="relu", expansion=4, kernel_size=3, no_map_out=False):
+                 act="relu", expansion=4, kernel_size=3, no_map_out=False,
+                 nd: int = 3):
         super().__init__()
         # the reference builds these norms with torch's default eps 1e-5
-        self.norm1 = Norm(norm, eps=1e-5)
-        self.norm2 = Norm(norm, eps=1e-5)
+        self.norm1 = Norm(norm, eps=1e-5, channels=feat_dim)
+        self.norm2 = Norm(norm, eps=1e-5, channels=map_dim)
         self.attn = BidirectionAttention(feat_dim, map_dim, out_dim, heads,
-                                         dim_head, kernel_size, no_map_out)
+                                         dim_head, kernel_size, no_map_out,
+                                         nd=nd)
         self.shortcut = (ConvNormAct(feat_dim, out_dim, 1, norm=norm,
-                                     act=act, preact=True)
+                                     act=act, preact=True, nd=nd)
                          if feat_dim != out_dim else None)
         self.feedforward = MBConv(out_dim, out_dim, expansion=expansion,
-                                  kernel_size=kernel_size, norm=norm, act=act)
+                                  kernel_size=kernel_size, norm=norm, act=act,
+                                  nd=nd)
 
     def forward(self, x, semantic_map):
         out, map_out = self.attn(self.norm1(x), self.norm2(semantic_map))
@@ -113,23 +127,34 @@ class BidirectionAttentionBlock(nn.Module):
 class PatchMerging(nn.Module):
     """Space-to-depth downsample + norm + depthwise-separable reduction."""
 
-    def __init__(self, in_ch, out_ch, down_scale=2, kernel_size=3, norm="in"):
+    def __init__(self, in_ch, out_ch, down_scale=2, kernel_size=3, norm="in",
+                 nd: int = 3):
         super().__init__()
-        self.scale = _tuple(down_scale, 3)
+        self.scale = _tuple(down_scale, nd)
+        merged = in_ch * math.prod(self.scale)
         # torch-default eps (reference PatchMerging norm)
-        self.norm = Norm(norm, eps=1e-5)
-        self.reduction = DepthwiseSeparableConv(
-            in_ch * math.prod(self.scale), out_ch, kernel_size)
+        self.norm = Norm(norm, eps=1e-5, channels=merged)
+        self.reduction = DepthwiseSeparableConv(merged, out_ch, kernel_size,
+                                                nd=nd)
 
     def forward(self, x):
-        # out channel = ((i * s1 + j) * s2 + k) * C + c, the reference's
-        # nested concat order (cbim_tpu/models/medformer.py:180-191)
-        s0, s1, s2 = self.scale
         t = to_channels_last(x)
-        B, D, H, W, C = t.shape
-        t = t.reshape(B, D // s0, s0, H // s1, s1, W // s2, s2, C)
-        t = t.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(
-            B, D // s0, H // s1, W // s2, s0 * s1 * s2 * C)
+        if t.dim() == 5:
+            # out channel = ((i * s1 + j) * s2 + k) * C + c, the reference's
+            # nested concat order (cbim_tpu/models/medformer.py:180-191)
+            s0, s1, s2 = self.scale
+            B, D, H, W, C = t.shape
+            t = t.reshape(B, D // s0, s0, H // s1, s1, W // s2, s2, C)
+            t = t.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(
+                B, D // s0, H // s1, W // s2, s0 * s1 * s2 * C)
+        else:
+            # dim2 order (0,0), (1,0), (0,1), (1,1): j-major,
+            # out channel = (j * s0 + i) * C + c (medformer.py:192-198)
+            s0, s1 = self.scale
+            B, H, W, C = t.shape
+            t = t.reshape(B, H // s0, s0, W // s1, s1, C)
+            t = t.permute(0, 1, 3, 4, 2, 5).reshape(
+                B, H // s0, W // s1, s0 * s1 * C)
         return self.reduction(self.norm(from_channels_last(t)))
 
 
@@ -138,14 +163,14 @@ class BasicLayer(nn.Module):
 
     def __init__(self, feat_dim, map_dim, out_dim, num_blocks, heads=4,
                  dim_head=64, expansion=4, norm="in", act="relu",
-                 kernel_size=3, no_map_out=False):
+                 kernel_size=3, no_map_out=False, nd: int = 3):
         super().__init__()
         self.blocks = nn.ModuleList(
             BidirectionAttentionBlock(
                 feat_dim if i == 0 else out_dim, map_dim, out_dim, heads,
                 dim_head, norm=norm, act=act, expansion=expansion,
                 kernel_size=kernel_size,
-                no_map_out=no_map_out and i == num_blocks - 1)
+                no_map_out=no_map_out and i == num_blocks - 1, nd=nd)
             for i in range(num_blocks))
 
     def forward(self, x, semantic_map):
@@ -160,9 +185,10 @@ class SemanticMapGeneration(nn.Module):
     def __init__(self, feat_dim, map_dim, map_size):
         super().__init__()
         self.map_size = tuple(map_size)
-        self.base_proj = nn.Conv3d(feat_dim, map_dim, 3, padding=1, bias=False)
-        self.semantic_proj = nn.Conv3d(feat_dim, math.prod(self.map_size), 3,
-                                       padding=1, bias=False)
+        conv = CONV[len(self.map_size)]
+        self.base_proj = conv(feat_dim, map_dim, 3, padding=1, bias=False)
+        self.semantic_proj = conv(feat_dim, math.prod(self.map_size), 3,
+                                  padding=1, bias=False)
 
     def forward(self, x):
         b = x.shape[0]
@@ -177,12 +203,13 @@ class SemanticMapFusion(nn.Module):
     """Cross-scale transformer over the concatenated maps
     (medformer_utils.py:231-261)."""
 
-    def __init__(self, in_dims, dim, heads, depth=1):
+    def __init__(self, in_dims, dim, heads, depth=1, nd: int = 3):
         super().__init__()
         self.depth = depth
-        self.in_proj = nn.ModuleList(_conv1x1(d, dim) for d in in_dims)
-        self.fusion = TransformerBlock(dim, depth, heads, dim // heads, dim)
-        self.out_proj = nn.ModuleList(_conv1x1(dim, d) for d in in_dims)
+        self.in_proj = nn.ModuleList(_conv1x1(d, dim, nd=nd) for d in in_dims)
+        self.fusion = TransformerBlock(dim, depth, heads, dim // heads, dim,
+                                       dim_head_major=nd == 2)
+        self.out_proj = nn.ModuleList(_conv1x1(dim, d, nd=nd) for d in in_dims)
 
     def forward(self, map_list):
         if self.depth == 0:
@@ -200,14 +227,14 @@ class InConvMF(nn.Module):
     """conv + block (medformer_utils.py:264-277)."""
 
     def __init__(self, in_ch, out_ch, conv_block, kernel_size=3, norm="in",
-                 act="relu"):
+                 act="relu", nd: int = 3):
         super().__init__()
-        k = _tuple(kernel_size, 3)
-        self.conv1 = nn.Conv3d(in_ch, out_ch, k,
-                               padding=tuple(ki // 2 for ki in k), bias=False)
+        k = _tuple(kernel_size, nd)
+        self.conv1 = CONV[nd](in_ch, out_ch, k,
+                              padding=tuple(ki // 2 for ki in k), bias=False)
         self.conv2 = get_block_cls(conv_block)(out_ch, out_ch,
                                                kernel_size=kernel_size,
-                                               norm=norm, act=act)
+                                               norm=norm, act=act, nd=nd)
 
     def forward(self, x):
         return self.conv2(self.conv1(x))
@@ -219,19 +246,20 @@ class DownBlockMF(nn.Module):
     def __init__(self, in_ch, out_ch, conv_num, trans_num,
                  conv_block="BasicBlock", kernel_size=3, down_scale=2,
                  heads=4, dim_head=64, expansion=4, map_size=(4, 4, 4),
-                 norm="in", act="relu", map_generate=False):
+                 norm="in", act="relu", map_generate=False, nd: int = 3):
         super().__init__()
         self.patch_merging = PatchMerging(in_ch, out_ch, down_scale,
-                                          kernel_size, norm)
+                                          kernel_size, norm, nd=nd)
         blk = get_block_cls(conv_block)
         self.conv_blocks = nn.Sequential(*(
-            blk(out_ch, out_ch, kernel_size=kernel_size, norm=norm, act=act)
+            blk(out_ch, out_ch, kernel_size=kernel_size, norm=norm, act=act,
+                nd=nd)
             for _ in range(conv_num)))
         self.map_gen = (SemanticMapGeneration(out_ch, out_ch, map_size)
                         if map_generate else None)
         self.trans_blocks = (
             BasicLayer(out_ch, out_ch, out_ch, trans_num, heads, dim_head,
-                       expansion, norm, act, kernel_size)
+                       expansion, norm, act, kernel_size, nd=nd)
             if trans_num > 0 else None)
 
     def forward(self, x):
@@ -278,6 +306,39 @@ class UpBlockMF3D(nn.Module):
         return self.conv_blocks(out), semantic_map
 
 
+class UpBlockMF2D(nn.Module):
+    """dim2 medformer_utils.py:298-349: resize + concat, then norm + 1x1
+    ``reduction`` to ``out_ch`` before the stage; the semantic map (with
+    the map shortcut concatenated, if any) goes through a 1x1
+    ``map_reduction`` in every up block."""
+
+    def __init__(self, in_ch, skip_ch, out_ch, conv_num, trans_num,
+                 map_in_dim, conv_block="BasicBlock", heads=4, dim_head=64,
+                 expansion=4, norm="bn", act="relu"):
+        super().__init__()
+        # reference up_block norm(in_ch + out_ch), torch-default eps
+        self.norm = Norm(norm, eps=1e-5, channels=in_ch + skip_ch)
+        self.reduction = _conv1x1(in_ch + skip_ch, out_ch, nd=2)
+        self.map_reduction = _conv1x1(map_in_dim, out_ch, nd=2)
+        self.trans_blocks = (
+            BasicLayer(out_ch, out_ch, out_ch, trans_num, heads, dim_head,
+                       expansion, norm, act, nd=2)
+            if trans_num > 0 else None)
+        blk = get_block_cls(conv_block)
+        self.conv_blocks = nn.Sequential(*(
+            blk(out_ch, out_ch, norm=norm, act=act, nd=2)
+            for _ in range(conv_num)))
+
+    def forward(self, x_low, x_skip, map1, map2=None):
+        x_low = resize_linear(x_low, x_skip.shape[2:])
+        out = self.reduction(self.norm(torch.cat([x_low, x_skip], dim=1)))
+        semantic_map = map1 if map2 is None else torch.cat([map1, map2], 1)
+        semantic_map = self.map_reduction(semantic_map)
+        if self.trans_blocks is not None:
+            out, semantic_map = self.trans_blocks(out, semantic_map)
+        return self.conv_blocks(out), semantic_map
+
+
 class MedFormer3D(nn.Module):
     """Reference model/dim3/medformer.py:11.  forward: x (B, in_chan, D, H,
     W) -> logits (B, classes, D, H, W) in fp32, or [logits, aux] with
@@ -310,9 +371,7 @@ class MedFormer3D(nn.Module):
         if mode not in REMAT_MODES:
             raise ValueError(f"unknown remat mode {remat!r}")
         self.remat = REMAT_MODES[mode]
-        if proj_type != "depthwise":
-            raise NotImplementedError(
-                f"proj_type {proj_type!r} is not ported yet (see ROADMAP.md)")
+        _check_proj_type(proj_type)
         cn = list(chan_num)
         dim_head = [cn[i] // num_heads[i] for i in range(8)]
         ks = list(kernel_size)
@@ -377,5 +436,91 @@ class MedFormer3D(nn.Module):
 
         out, smap = self._stage("up3", self.up3, out, x1, smap, None)
         out, smap = self._stage("up4", self.up4, out, x0, smap, None)
+        out = self.outc(out).float()
+        return out if aux is None else [out, aux]
+
+
+def _check_proj_type(proj_type: str) -> None:
+    if proj_type != "depthwise":
+        raise NotImplementedError(
+            f"proj_type {proj_type!r} is not ported yet (see ROADMAP.md)")
+
+
+class MedFormer2D(nn.Module):
+    """Reference model/dim2/medformer.py:10 (``cbim_tpu``'s MedFormer2D).
+    forward: x (B, in_chan, H, W) -> logits (B, classes, H, W) in fp32, or
+    [logits, aux] with ``aux_loss``.
+
+    Stage widths follow ``base_ch``: [2, 4, 8, 16, 8, 4, 2, 1] x base_ch;
+    3x3 kernels and 2x2 downsampling throughout; BatchNorm + ReLU by
+    default, no remat (the JAX model has none).  Dropout is not ported:
+    nonzero ``attn_drop``/``proj_drop`` raise."""
+
+    def __init__(self, in_chan: int, num_classes: int, base_ch: int = 32,
+                 map_size: Any = 8, conv_block: str = "BasicBlock",
+                 conv_num: Sequence[int] = (2, 1, 0, 0, 0, 1, 2, 2),
+                 trans_num: Sequence[int] = (0, 1, 2, 2, 2, 1, 0, 0),
+                 num_heads: Sequence[int] = (1, 4, 8, 16, 8, 4, 1, 1),
+                 fusion_depth: int = 2, fusion_dim: int = 512,
+                 fusion_heads: int = 16, expansion: int = 4,
+                 proj_type: str = "depthwise", norm="bn", act="relu",
+                 aux_loss: bool = False, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
+        super().__init__()
+        check_no_dropout(attn_drop, proj_drop)
+        _check_proj_type(proj_type)
+        b = base_ch
+        cn = [2 * b, 4 * b, 8 * b, 16 * b, 8 * b, 4 * b, 2 * b, b]
+        dim_head = [cn[i] // num_heads[i] for i in range(8)]
+        map_size = ((map_size,) * 2 if isinstance(map_size, int)
+                    else tuple(map_size))
+        common = dict(conv_block=conv_block, expansion=expansion, norm=norm,
+                      act=act)
+
+        self.inc = InConvMF(in_chan, b, conv_block, 3, norm, act, nd=2)
+        self.down1 = DownBlockMF(b, cn[0], conv_num[0], trans_num[0],
+                                 map_size=map_size, nd=2, **common)
+        downs = []
+        for i in (1, 2, 3):
+            downs.append(DownBlockMF(
+                cn[i - 1], cn[i], conv_num[i], trans_num[i],
+                heads=num_heads[i], dim_head=dim_head[i], map_size=map_size,
+                map_generate=True, nd=2, **common))
+        self.down2, self.down3, self.down4 = downs
+
+        self.map_fusion = SemanticMapFusion(cn[1:4], fusion_dim, fusion_heads,
+                                            fusion_depth, nd=2)
+
+        self.up1 = UpBlockMF2D(cn[3], cn[2], cn[4], conv_num[4], trans_num[4],
+                               map_in_dim=cn[3] + cn[2], heads=num_heads[4],
+                               dim_head=dim_head[4], **common)
+        self.up2 = UpBlockMF2D(cn[4], cn[1], cn[5], conv_num[5], trans_num[5],
+                               map_in_dim=cn[4] + cn[1], heads=num_heads[5],
+                               dim_head=dim_head[5], **common)
+        self.up3 = UpBlockMF2D(cn[5], cn[0], cn[6], conv_num[6], trans_num[6],
+                               map_in_dim=cn[5], **common)
+        self.up4 = UpBlockMF2D(cn[6], b, cn[7], conv_num[7], trans_num[7],
+                               map_in_dim=cn[6], **common)
+
+        self.aux_out = (_conv1x1(cn[5], num_classes, bias=True, nd=2)
+                        if aux_loss else None)
+        self.outc = _conv1x1(cn[7], num_classes, bias=True, nd=2)
+
+    def forward(self, x):
+        x0 = self.inc(x)
+        x1, _ = self.down1(x0)
+        x2, map2 = self.down2(x1)
+        x3, map3 = self.down3(x2)
+        x4, map4 = self.down4(x3)
+
+        map_list = self.map_fusion([map2, map3, map4])
+
+        out, smap = self.up1(x4, x3, map_list[2], map_list[1])
+        out, smap = self.up2(out, x2, smap, map_list[0])
+        aux = (resize_linear(self.aux_out(out), x.shape[2:]).float()
+               if self.aux_out is not None else None)
+
+        out, smap = self.up3(out, x1, smap)
+        out, smap = self.up4(out, x0, smap)
         out = self.outc(out).float()
         return out if aux is None else [out, aux]

@@ -1,15 +1,16 @@
 """Batched on-device augmentation ops (counterpart of
-``cbim_tpu/ops/augment.py``), the ops of the synthetic recipe:
-``gaussian_noise``, ``brightness_multiply`` and ``random_theta_3d``.  The
-other ten ops of the JAX package (additive brightness, gamma, contrast,
-blur, mirror, elastic, ...) are queued in ROADMAP.md.
+``cbim_tpu/ops/augment.py``), the ops of the synthetic recipes:
+``gaussian_noise``, ``brightness_multiply``, ``random_theta_3d`` and
+``random_theta_2d``.  The other ten ops of the JAX package (additive
+brightness, gamma, contrast, blur, mirror, elastic, ...) are queued in
+ROADMAP.md.
 
 Every op acts on a batch, img (B, *spatial, C), and draws from an explicit
 ``torch.Generator``: per-voxel noise from one on the image's device, the
 per-sample scalars from one on the CPU (no device sync).  The JAX package's
 PRNG streams differ, so the draws match in distribution only;
-:func:`theta_3d_from_draws` builds the affine from given numbers so a test
-can feed it the JAX draws.
+:func:`theta_3d_from_draws` and :func:`theta_2d_from_draws` build the
+affines from given numbers so a test can feed them the JAX draws.
 """
 
 from __future__ import annotations
@@ -98,3 +99,42 @@ def random_theta_3d(gen: torch.Generator, n: int, scale=0.3, rotate=45,
         torch.randint(-int(r), max(int(r), 1), (n,), generator=gen).float()
         for r in rotate], dim=1)
     return theta_3d_from_draws(scales, shears, translates, degrees)
+
+
+def theta_2d_from_draws(scales, shears, translates, degrees) -> torch.Tensor:
+    """The (B, 2, 3) affine of ``random_theta_2d`` from its drawn numbers:
+    scales (B, 2) = (sx, sy), shears (B, 2) = (shx, shy), translates (B, 2),
+    degrees (B,) integer rotations.  theta = S @ R in fp32, rows (x, y) as
+    ``F.affine_grid`` reads them: the 2D reference scales after rotating,
+    unlike the 3D one (augmentation.py, random_scale_rotate_translate_2d)."""
+    scales, shears, translates, degrees = (
+        torch.as_tensor(t, dtype=torch.float32)
+        for t in (scales, shears, translates, degrees))
+    B = scales.shape[0]
+    s = torch.zeros(B, 3, 3)
+    s[:, 0, 0], s[:, 0, 1], s[:, 0, 2] = scales[:, 0], shears[:, 0], translates[:, 0]
+    s[:, 1, 0], s[:, 1, 1], s[:, 1, 2] = shears[:, 1], scales[:, 1], translates[:, 1]
+    s[:, 2, 2] = 1.0
+    ang = degrees / 180.0 * math.pi
+    c, sn = torch.cos(ang), torch.sin(ang)
+    r = torch.zeros(B, 3, 3)
+    r[:, 0, 0], r[:, 0, 1], r[:, 1, 0], r[:, 1, 1] = c, -sn, sn, c
+    r[:, 2, 2] = 1.0
+    return (s @ r)[:, :2, :]
+
+
+def random_theta_2d(gen: torch.Generator, n: int, scale=0.3, rotate=180,
+                    translate=0.0) -> torch.Tensor:
+    """n random 2D affines (n, 2, 3) from ``gen`` (CPU), the distributions
+    of the JAX package's ``random_theta_2d``: scales U(1-s, 1+s), shears
+    drawn from the scale ranges U(-s, s), translations U(-t, t), and an
+    integer-degree rotation drawn from [-r, max(r, 1))."""
+    scale, translate = _aslist(scale, 2), _aslist(translate, 2)
+    scales = torch.stack([draw_uniform(gen, n, 1 - s, 1 + s) for s in scale],
+                         dim=1)
+    shears = torch.stack([draw_uniform(gen, n, -s, s) for s in scale], dim=1)
+    translates = torch.stack([draw_uniform(gen, n, -t, t) for t in translate],
+                             dim=1)
+    degrees = torch.randint(-int(rotate), max(int(rotate), 1), (n,),
+                            generator=gen).float()
+    return theta_2d_from_draws(scales, shears, translates, degrees)

@@ -2,17 +2,20 @@
 
 from __future__ import annotations
 
-from . import conv3d, fused_norm
+from . import conv2d, conv3d, fused_norm
+
+_COUNTS = (fused_norm.launches, conv3d.launches, conv2d.launches)
 
 
 def launch_counts() -> dict:
     """Launches of every kernel since the last reset, by C entry name
-    (``conv3d_dgrad``: the forward kernel's input-gradient launches).  Under
-    activation checkpointing the recomputed forward counts too."""
-    return {**fused_norm.launches, **conv3d.launches}
+    (``conv3d_dgrad``/``conv2d_dgrad``: the forward kernels' input-gradient
+    launches).  Under activation checkpointing the recomputed forward counts
+    too."""
+    return {k: v for counts in _COUNTS for k, v in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (fused_norm.launches, conv3d.launches):
+    for counts in _COUNTS:
         for k in counts:
             counts[k] = 0

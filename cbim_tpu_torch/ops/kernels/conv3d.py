@@ -34,8 +34,9 @@ from . import _build
 #: ``conv3d_dgrad`` counts the forward kernel's input-gradient launches
 launches = {"conv3d_same_fwd": 0, "conv3d_dgrad": 0, "conv3d_wgrad": 0}
 
-#: blocks the wgrad pass aims for (several waves over 132 SMs), the fewest
-#: voxels a chunk takes, and the most bytes its fp32 partials may take
+#: blocks a wgrad pass aims for (several waves over 132 SMs), the fewest
+#: pixels or voxels a chunk takes, and the most bytes its fp32 partials may
+#: take (both wgrad kernels, 3^3 and 3x3)
 _WGRAD_TARGET_BLOCKS = 2048
 _WGRAD_MIN_ROWS = 512
 _WGRAD_MAX_PARTIAL_BYTES = 256 << 20
@@ -121,10 +122,13 @@ def conv3d_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         g.float().permute(0, 4, 1, 2, 3), padding=1)
 
 
-def _wgrad_chunking(M: int, C: int, F: int) -> tuple[int, int]:
-    """(rows_per_chunk, n_chunks) for the split reduction over M voxels."""
-    tiles = 9 * -(-C // 64) * -(-F // 64)
-    cap = max(1, _WGRAD_MAX_PARTIAL_BYTES // (27 * C * F * 4))
+def wgrad_chunking(M: int, C: int, F: int, taps: int = 27
+                   ) -> tuple[int, int]:
+    """(rows_per_chunk, n_chunks) for a wgrad kernel's split reduction over
+    M voxels (or pixels): a block owns a chunk and one (taps / 3 outer
+    taps, c-tile, f-tile); the kw taps share it."""
+    tiles = taps // 3 * -(-C // 64) * -(-F // 64)
+    cap = max(1, _WGRAD_MAX_PARTIAL_BYTES // (taps * C * F * 4))
     n_chunks = max(1, min(_WGRAD_TARGET_BLOCKS // tiles, cap, 65535,
                           M // _WGRAD_MIN_ROWS))
     rows = -(-M // n_chunks)
@@ -148,7 +152,7 @@ def conv3d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     M = B * D * H * W
     if M >= 2 ** 31:
         raise ValueError(f"conv3d_wgrad takes fewer than 2^31 voxels, got {M}")
-    rows, n_chunks = _wgrad_chunking(M, C, Fo)
+    rows, n_chunks = wgrad_chunking(M, C, Fo)
     partial = torch.empty(n_chunks * 27 * C * Fo, dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((3, 3, 3, C, Fo), dtype=torch.float32, device=x.device)

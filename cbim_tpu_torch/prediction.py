@@ -1,15 +1,20 @@
 """Prediction / deployment CLI of the port (counterpart of the root
 ``prediction.py``).
 
-Per image: read NIfTI -> resample to the target spacing (cubic spline) ->
-dataset normalization -> pad to the training size -> for each checkpoint a
-sliding-window softmax, summed on the device -> argmax -> unpad ->
+Per image: read NIfTI -> resample to the target spacing (cubic spline;
+in 2D the slice spacing stays and only y/x are resampled) -> dataset
+normalization -> pad to the training size (2D: y/x only) -> for each
+checkpoint a sliding-window softmax (2D: every slice of the volume is the
+batch at each window position), summed on the device -> argmax -> unpad ->
 nearest-resample back to the original grid -> write NIfTI.
 
 Usage:
     python -m cbim_tpu_torch.prediction --dataset amos_ct --model medformer \\
         --dimension 3d --load w1.pth,w2.pth --img_path in_dir \\
         --save_path out_dir --target_spacing 1.5,1.5,1.5 [--device cuda]
+    python -m cbim_tpu_torch.prediction --dataset acdc --model medformer \\
+        --dimension 2d --load w.pth --img_path in_dir --save_path out_dir \\
+        --target_spacing 1.5625,1.5625
 
 Checkpoints are this port's ``.pth`` state_dicts.  Loading the JAX
 package's Flax ``.ckpt`` is not ported yet (ROADMAP.md).
@@ -44,7 +49,7 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--save_path", type=str, default="./result/")
     parser.add_argument("--target_spacing", type=parse_spacing_list,
                         default="1.0,1.0,1.0",
-                        help="training spacing, x,y,z order")
+                        help="training spacing, x,y,z order (2d: x,y)")
     parser.add_argument("--normalize", type=str, default=None,
                         help="normalization preset (defaults to --dataset)")
     parser.add_argument("--config_root", type=str, default=None)
@@ -81,14 +86,16 @@ def _mr_norm(x):
 
 
 def pad_to_training_size(np_img, cfg):
-    """reference prediction.py:65-122 (records unpad indices)."""
+    """reference prediction.py:65-122 (records unpad indices); 2D pads y/x
+    only."""
     ts = cfg.training_size
+    axes = [0, 1, 2] if cfg.dimension == "3d" else [1, 2]
     idx = []
     pads = [(0, 0)] * 3
-    for ax in range(3):
+    for i, ax in enumerate(axes):
         size = np_img.shape[ax]
-        if size < ts[ax]:
-            diff = (ts[ax] + 2 - size) // 2
+        if size < ts[i]:
+            diff = (ts[i] + 2 - size) // 2
             pads[ax] = (diff, diff)
             idx += [diff, diff + size]
         else:
@@ -98,9 +105,12 @@ def pad_to_training_size(np_img, cfg):
     return np_img, idx
 
 
-def unpad(np_pred, idx):
-    z0, z1, y0, y1, x0, x1 = idx
-    return np_pred[z0:z1, y0:y1, x0:x1]
+def unpad(np_pred, idx, cfg):
+    if cfg.dimension == "3d":
+        z0, z1, y0, y1, x0, x1 = idx
+        return np_pred[z0:z1, y0:y1, x0:x1]
+    y0, y1, x0, x1 = idx
+    return np_pred[:, y0:y1, x0:x1]
 
 
 def load_state_dict(path: str) -> dict:
@@ -117,20 +127,16 @@ def main(argv=None, cfg=None) -> dict:
     from reading it to writing its prediction}."""
     args = get_parser().parse_args(argv)
 
-    # the JAX package's numpy/scipy host modules; they import nothing of JAX
-    from cbim_tpu.data.conversion.utils import (resample_label_to_shape,
-                                                resample_to_spacing)
-
     from .config import load_config
+    from .data.conversion import resample_label_to_shape, resample_to_spacing
     from .data.nifti import read_nifti, write_nifti
     from .inference.engines import make_engine
     from .models import get_model
     from .ops._backend import get_device
 
     device = get_device(args.device)
-    if args.dimension != "3d":
-        raise NotImplementedError(
-            "2D prediction is not ported yet (see ROADMAP.md)")
+    if args.dimension not in ("2d", "3d"):
+        raise ValueError(f"--dimension must be 2d or 3d, got {args.dimension!r}")
     if cfg is None:
         cfg = load_config(args.dataset, args.model, args.dimension,
                           config_root=args.config_root)
@@ -158,21 +164,25 @@ def main(argv=None, cfg=None) -> dict:
         nii = read_nifti(os.path.join(args.img_path, img_name))
         orig_shape = nii.data.shape
         data = nii.data.astype(np.float32)
-        if tuple(np.round(nii.spacing, 5)) != tuple(np.round(target_spacing_zyx, 5)):
-            data = resample_to_spacing(data, nii.spacing, target_spacing_zyx,
-                                       order=3)
+        tspc = (target_spacing_zyx if cfg.dimension == "3d"
+                else (nii.spacing[0], *target_spacing_zyx[-2:]))
+        if tuple(np.round(nii.spacing, 5)) != tuple(np.round(tspc, 5)):
+            data = resample_to_spacing(data, nii.spacing, tspc, order=3)
         data = normalize(data)
         data, idx = pad_to_training_size(data, cfg)
 
         inputs = torch.from_numpy(np.ascontiguousarray(data, np.float32))
-        inputs = inputs.to(device)[None, ..., None]
+        inputs = inputs.to(device)[..., None]
         prob_sum = None
         for e in engines:
-            probs = e.sliding_window(inputs)[0]
+            if cfg.dimension == "2d":        # the slices are the batch
+                probs = e.sliding_window_slices(inputs)
+            else:
+                probs = e.sliding_window(inputs[None])[0]
             prob_sum = probs if prob_sum is None else prob_sum + probs
         pred = prob_sum.argmax(-1).to(torch.uint8).cpu().numpy()
 
-        pred = unpad(pred, idx)
+        pred = unpad(pred, idx, cfg)
         if pred.shape != orig_shape:
             pred = resample_label_to_shape(pred, orig_shape)
         write_nifti(os.path.join(args.save_path, img_name),

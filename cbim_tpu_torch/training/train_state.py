@@ -3,7 +3,12 @@
 
 One step: forward under ``torch.autocast`` (bf16 when cfg asks for amp, on
 CUDA), CE + Dice with deep supervision, backward, the optimizer step, and
-the per-step EMA update (reference training/utils.py:98-105).  Parameters,
+the per-step EMA update (reference training/utils.py:98-105): the EMA
+averages the parameters and copies the buffers (BatchNorm's running
+statistics), as the JAX step copies ``batch_stats`` into its EMA state.  The
+live model trains in train mode (BatchNorm normalises with batch
+statistics and updates its running ones); the EMA copy stays in eval mode,
+the mode it is evaluated in.  Parameters,
 gradients and optimizer state stay fp32, as in the JAX package; bf16 needs
 no GradScaler.  Unlike the JAX step, which returns a new state, this one
 updates the model, the optimizer state and the EMA copy in place.
@@ -34,11 +39,12 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, cfg) -> TrainState:
-    """Optimizer over every parameter, and an EMA copy when ``cfg.ema``."""
+    """Optimizer over every parameter, and an EMA copy (eval mode) when
+    ``cfg.ema``."""
     opt = get_optimizer(cfg, model.parameters())
     ema = None
     if cfg.get("ema", False):
-        ema = copy.deepcopy(model).requires_grad_(False)
+        ema = copy.deepcopy(model).requires_grad_(False).eval()
     return TrainState(model, opt, ema)
 
 
@@ -77,6 +83,9 @@ def make_train_step(model: nn.Module, opt: torch.optim.Optimizer, cfg):
                 ema_params = list(state.ema.parameters())
                 torch._foreach_mul_(ema_params, alpha)
                 torch._foreach_add_(ema_params, params, alpha=1.0 - alpha)
+                # buffers copied (cbim_tpu train_state.py:114)
+                for e, b in zip(state.ema.buffers(), model.buffers()):
+                    e.copy_(b)
         state.step += 1
         return loss.detach()
 

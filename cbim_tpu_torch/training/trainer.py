@@ -4,7 +4,10 @@ reference train.py:51-135 train_net / train_epoch), on one device.
 One fold: dataset, input pipeline, model, optimizer; the epoch loop with
 the per-epoch LR, the train step, the next batch prepared while the step
 runs, a loss fetch every ``print_freq`` steps, the volumes/s meter, and the
-latest checkpoint.  Validation (and with it the best checkpoint) is not
+latest checkpoint.  A 3D epoch is ``iter_per_epoch`` steps, a 2D epoch the
+slice count // batch.  With ``cfg.profile_dir`` the first epoch's steps
+after its first two (first use of every kernel, cuDNN's algorithm search)
+are traced (``utils.profiling``).  Validation (and with it the best checkpoint) is not
 ported yet: a run whose epochs would validate raises before its first step.
 Data parallelism is not ported either (ROADMAP.md).
 """
@@ -22,6 +25,7 @@ from ..data.factory import get_dataset
 from ..data.pipeline import TrainPipeline
 from ..models import get_model
 from ..utils.logging import AverageMeter, MetricWriter, ProgressMeter
+from ..utils.profiling import StepProfiler
 from .checkpoint import load_checkpoint, save_checkpoint
 from .schedules import exp_lr_scheduler_with_warmup
 from .train_state import create_train_state, make_train_step
@@ -85,7 +89,12 @@ def train_net(cfg, fold_idx: int = 0, device=None):
         load_pretrained(cfg, state)
         logging.info("Initialized from checkpoint %s", cfg.init_model)
 
-    iters = cfg.iter_per_epoch
+    if cfg.dimension == "2d":
+        # an epoch is the reference DataLoader's: slice count // batch
+        # (the pipeline draws each epoch's slices without replacement)
+        iters = max(1, len(trainset.images) // cfg.batch_size)
+    else:
+        iters = cfg.iter_per_epoch
     best_dice = np.zeros(cfg.classes)
     best_hd = np.ones(cfg.classes) * 1000
     best_asd = np.ones(cfg.classes) * 1000
@@ -99,9 +108,15 @@ def train_net(cfg, fold_idx: int = 0, device=None):
         progress = ProgressMeter(iters, [batch_time, epoch_loss],
                                  prefix=f"Epoch: [{epoch + 1}]")
 
+        profiler = None
+        if cfg.get("profile_dir") and epoch == start_epoch:
+            profiler = StepProfiler(cfg.profile_dir, device)
         tic = time.time()
         img, lab = pipeline.next_batch(cfg.batch_size)
+        first_traced = min(2, iters - 1)
         for it in range(iters):
+            if profiler is not None and it == first_traced:
+                profiler.start()
             loss = train_step(state, img, lab, lr)
             if it + 1 < iters:
                 # the next batch's host work and copy overlap the queued step
@@ -116,6 +131,12 @@ def train_net(cfg, fold_idx: int = 0, device=None):
                 writer.add_scalar("Train/StepLoss", loss_value, state.step)
                 writer.add_scalar("Perf/StepSeconds", seconds, state.step)
             tic = time.time()
+        if profiler is not None:
+            summary = profiler.stop(steps=iters - first_traced)
+            logging.info("Profiled %d steps: %.3f s wall, device busy %.1f %%; "
+                         "written to %s", summary["steps"],
+                         summary["wall_seconds"],
+                         100 * summary["device_busy_share"], cfg.profile_dir)
 
         if batch_time.count:
             writer.add_scalar("Perf/volumes_per_sec_per_chip",

@@ -1,20 +1,26 @@
-"""Flax MedFormer-3D params -> this port's state_dict.
+"""Flax MedFormer variables -> this port's state_dict.
 
-The exact inverse of ``cbim_tpu.utils.torch_import.import_medformer3d``:
-the same walk over the tree, with each layout transform undone
+The exact inverses of ``cbim_tpu.utils.torch_import.import_medformer3d``
+and ``import_medformer2d``: the same walks over the tree, with each layout
+transform undone
 
     conv:   (*k, I, O) -> (O, I, *k)
     linear: (I, O)     -> (O, I)
 
-and each B-MHA channel permutation (``_bmha_perm``: Flax splits the inner
-channels head-major, the reference dim-head-major) inverted.  Like the
-forward mapping it assumes conv_block=BasicBlock, proj_type=depthwise,
-norm='in' and aux_loss on (``Conv_0`` is the aux head, ``Conv_1`` outc).
-One difference: a decoder conv block gets a shortcut only where the model
-has one (see the decoder loop).
+and each channel permutation inverted: the B-MHA's (``_bmha_perm``: Flax
+splits the inner channels head-major, the reference dim-head-major) and,
+in 2D, the map fusion's ``to_out`` columns (the dim2 reference merges its
+heads dim-head-major).  Both assume conv_block=BasicBlock,
+proj_type=depthwise and aux_loss on (``Conv_0`` is the aux head, ``Conv_1``
+outc).  The 3D walk assumes norm='in' (no norm parameters); the 2D walk
+carries every BatchNorm's scale/bias and, from ``batch_stats``, its running
+mean and variance (``num_batches_tracked`` is 0), so ``load_state_dict``
+takes the result strictly.  One difference from ``import_medformer3d``: a
+3D decoder conv block gets a shortcut only where the model has one (see
+the decoder loop).
 
-The input is the Flax params tree as nested dicts of numpy arrays; nothing
-here imports jax.
+The input is the Flax tree as nested dicts of numpy arrays; nothing here
+imports jax.
 """
 
 from __future__ import annotations
@@ -40,37 +46,62 @@ def conv_from_flax(w) -> np.ndarray:
     return np.transpose(w, (nd - 1, nd - 2, *range(nd - 2)))
 
 
-def medformer3d_state_dict_from_jax(params, cfg) -> dict:
-    """Flax MedFormer3D params (nested dicts of arrays) -> state_dict."""
-    chan_num = list(cfg.get("chan_num") or DEFAULT_CHAN_NUM)
-    conv_num, trans_num = cfg.conv_num, cfg.trans_num
-    num_heads = cfg.num_heads
-    dim_head = [chan_num[i] // num_heads[i] for i in range(8)]
-    sd: dict[str, np.ndarray] = {}
+class _Walk:
+    """Collects state_dict entries from a Flax params tree (and, for
+    BatchNorm, its ``batch_stats`` tree)."""
 
-    def node(path):
-        n = params
+    def __init__(self, params, batch_stats=None):
+        self.params = params
+        self.batch_stats = batch_stats or {}
+        self.sd: dict[str, np.ndarray] = {}
+
+    @staticmethod
+    def _get(tree, path):
         for part in path:
-            n = n[part]
-        return n
+            tree = tree[part]
+        return tree
 
-    def conv(path, key, transform=None):
-        w = conv_from_flax(node(path))
-        sd[key] = transform(w) if transform is not None else w
+    def has(self, path) -> bool:
+        try:
+            self._get(self.params, path)
+        except KeyError:
+            return False
+        return True
 
-    def raw(path, key):
-        sd[key] = np.asarray(node(path))
+    def conv(self, path, key, transform=None):
+        w = conv_from_flax(self._get(self.params, path))
+        self.sd[key] = transform(w) if transform is not None else w
 
-    def basic_block(prefix, tkey, has_shortcut):
-        conv((*prefix, "ConvNormAct_0", "Conv_0", "kernel"),
-             f"{tkey}.conv1.conv.weight")
-        conv((*prefix, "ConvNormAct_1", "Conv_0", "kernel"),
-             f"{tkey}.conv2.conv.weight")
+    def raw(self, path, key):
+        self.sd[key] = np.asarray(self._get(self.params, path))
+
+    def linear(self, path, key, transform=None):
+        w = np.asarray(self._get(self.params, path)).T
+        self.sd[key] = transform(w) if transform is not None else w
+
+    def bn(self, path, tkey):
+        """``path``/BatchNorm_0 -> ``tkey``.{weight, bias, running_*}."""
+        bn = (*path, "BatchNorm_0")
+        self.raw((*bn, "scale"), f"{tkey}.weight")
+        self.raw((*bn, "bias"), f"{tkey}.bias")
+        stats = self._get(self.batch_stats, bn)
+        self.sd[f"{tkey}.running_mean"] = np.asarray(stats["mean"])
+        self.sd[f"{tkey}.running_var"] = np.asarray(stats["var"])
+        self.sd[f"{tkey}.num_batches_tracked"] = np.zeros((), np.int64)
+
+    def cna(self, path, tkey):
+        """One ConvNormAct: Conv_0 and, where it has parameters, Norm_0."""
+        self.conv((*path, "Conv_0", "kernel"), f"{tkey}.conv.weight")
+        if self.has((*path, "Norm_0")):
+            self.bn((*path, "Norm_0"), f"{tkey}.norm")
+
+    def basic_block(self, prefix, tkey, has_shortcut):
+        self.cna((*prefix, "ConvNormAct_0"), f"{tkey}.conv1")
+        self.cna((*prefix, "ConvNormAct_1"), f"{tkey}.conv2")
         if has_shortcut:
-            conv((*prefix, "ConvNormAct_2", "Conv_0", "kernel"),
-                 f"{tkey}.shortcut.conv.weight")
+            self.cna((*prefix, "ConvNormAct_2"), f"{tkey}.shortcut")
 
-    def dwsep(prefix, tkey, out_perm=None, in_perm=None):
+    def dwsep(self, prefix, tkey, out_perm=None, in_perm=None):
         inv_out = None if out_perm is None else np.argsort(out_perm)
         inv_in = None if in_perm is None else np.argsort(in_perm)
 
@@ -82,109 +113,193 @@ def medformer3d_state_dict_from_jax(params, cfg) -> dict:
                 w = w[:, inv_in]
             return w if inv_out is None else w[inv_out]
 
-        conv((*prefix, "Conv_0", "kernel"), f"{tkey}.depthwise.weight", dw)
-        conv((*prefix, "Conv_1", "kernel"), f"{tkey}.pointwise.weight", pw)
+        self.conv((*prefix, "Conv_0", "kernel"), f"{tkey}.depthwise.weight",
+                  dw)
+        self.conv((*prefix, "Conv_1", "kernel"), f"{tkey}.pointwise.weight",
+                  pw)
 
-    def mbconv(prefix, tkey):
-        conv((*prefix, "ConvNormAct_0", "Conv_0", "kernel"),
-             f"{tkey}.expand_proj.conv.weight")
-        conv((*prefix, "ConvNormAct_1", "Conv_0", "kernel"),
-             f"{tkey}.depthwise.conv.weight")
-        conv((*prefix, "SEBlock_0", "Conv_0", "kernel"),
-             f"{tkey}.se.excitation.0.weight")
-        raw((*prefix, "SEBlock_0", "Conv_0", "bias"),
-            f"{tkey}.se.excitation.0.bias")
-        conv((*prefix, "SEBlock_0", "Conv_1", "kernel"),
-             f"{tkey}.se.excitation.2.weight")
-        raw((*prefix, "SEBlock_0", "Conv_1", "bias"),
-            f"{tkey}.se.excitation.2.bias")
-        conv((*prefix, "ConvNormAct_2", "Conv_0", "kernel"),
-             f"{tkey}.pointwise.conv.weight")
+    def mbconv(self, prefix, tkey, se_name):
+        names = ["depthwise", "pointwise"]
+        if self.has((*prefix, "ConvNormAct_2")):     # expansion != 1
+            names.insert(0, "expand_proj")
+        for i, name in enumerate(names):
+            self.cna((*prefix, f"ConvNormAct_{i}"), f"{tkey}.{name}")
+        se = (*prefix, "SEBlock_0")
+        for i, j in ((0, 0), (1, 2)):
+            self.conv((*se, f"Conv_{i}", "kernel"),
+                      f"{tkey}.{se_name}.excitation.{j}.weight")
+            self.raw((*se, f"Conv_{i}", "bias"),
+                     f"{tkey}.{se_name}.excitation.{j}.bias")
 
-    def bmha_block(prefix, tkey, heads, dh, has_shortcut, no_map_out=False):
+    def bmha_block(self, prefix, tkey, heads, dh, has_shortcut,
+                   no_map_out=False, se_name="se"):
         inner = heads * dh
         perm = _bmha_perm(heads, dh)
         qv_perm = np.concatenate([perm, inner + perm])
         inv_qv = np.argsort(qv_perm)
         inv = np.argsort(perm)
+        if self.has((*prefix, "Norm_0")):
+            self.bn((*prefix, "Norm_0"), f"{tkey}.norm1")
+            self.bn((*prefix, "Norm_1"), f"{tkey}.norm2")
         attn = (*prefix, "BidirectionAttention_0")
-        dwsep((*attn, "DepthwiseSeparableConv_0"), f"{tkey}.attn.feat_qv",
-              out_perm=qv_perm)
-        conv((*attn, "Conv_0", "kernel"), f"{tkey}.attn.map_qv.weight",
-             lambda w: w[inv_qv])
-        dwsep((*attn, "DepthwiseSeparableConv_1"), f"{tkey}.attn.feat_out",
-              in_perm=perm)
+        self.dwsep((*attn, "DepthwiseSeparableConv_0"), f"{tkey}.attn.feat_qv",
+                   out_perm=qv_perm)
+        self.conv((*attn, "Conv_0", "kernel"), f"{tkey}.attn.map_qv.weight",
+                  lambda w: w[inv_qv])
+        self.dwsep((*attn, "DepthwiseSeparableConv_1"),
+                   f"{tkey}.attn.feat_out", in_perm=perm)
         if not no_map_out:
-            conv((*attn, "Conv_1", "kernel"), f"{tkey}.attn.map_out.weight",
-                 lambda w: w[:, inv])
+            self.conv((*attn, "Conv_1", "kernel"),
+                      f"{tkey}.attn.map_out.weight", lambda w: w[:, inv])
         if has_shortcut:
-            conv((*prefix, "ConvNormAct_0", "Conv_0", "kernel"),
-                 f"{tkey}.shortcut.conv.weight")
-        mbconv((*prefix, "MBConv_0"), f"{tkey}.feedforward")
+            self.cna((*prefix, "ConvNormAct_0"), f"{tkey}.shortcut")
+        self.mbconv((*prefix, "MBConv_0"), f"{tkey}.feedforward", se_name)
+
+    def map_fusion(self, depth, out_perm=None):
+        """SemanticMapFusion_0 -> map_fusion.*; ``out_perm`` permutes the
+        columns of each ``to_out`` (the dim2 head merge)."""
+        mf = "SemanticMapFusion_0"
+        for i in range(3):
+            self.conv((mf, f"Conv_{i}", "kernel"),
+                      f"map_fusion.in_proj.{i}.weight")
+            self.conv((mf, f"Conv_{i + 3}", "kernel"),
+                      f"map_fusion.out_proj.{i}.weight")
+        tb = (mf, "TransformerBlock_0")
+        inv_out = None if out_perm is None else np.argsort(out_perm)
+        for d in range(depth):
+            base = f"map_fusion.fusion.layers.{d}"
+            for j, ln in enumerate((f"LayerNorm_{2 * d}",
+                                    f"LayerNorm_{2 * d + 1}")):
+                self.raw((*tb, ln, "scale"), f"{base}.{j}.norm.weight")
+                self.raw((*tb, ln, "bias"), f"{base}.{j}.norm.bias")
+            att = (*tb, f"Attention_{d}")
+            self.linear((*att, "Dense_0", "kernel"), f"{base}.0.fn.to_qkv.weight")
+            self.linear((*att, "Dense_1", "kernel"), f"{base}.0.fn.to_out.weight",
+                        None if inv_out is None else (lambda w: w[:, inv_out]))
+            self.raw((*att, "Dense_1", "bias"), f"{base}.0.fn.to_out.bias")
+            for k, fc in enumerate(("fc1", "fc2")):
+                mlp = (*tb, f"Mlp_{d}", f"Dense_{k}")
+                self.linear((*mlp, "kernel"), f"{base}.1.fn.{fc}.weight")
+                self.raw((*mlp, "bias"), f"{base}.1.fn.{fc}.bias")
+
+    def heads(self):
+        """aux + out heads (created in that order -> Conv_0, Conv_1)."""
+        self.conv(("Conv_0", "kernel"), "aux_out.weight")
+        self.raw(("Conv_0", "bias"), "aux_out.bias")
+        self.conv(("Conv_1", "kernel"), "outc.weight")
+        self.raw(("Conv_1", "bias"), "outc.bias")
+
+    def state_dict(self) -> dict:
+        return {k: torch.tensor(v) if v.dtype == np.int64
+                else torch.tensor(v, dtype=torch.float32)
+                for k, v in self.sd.items()}
+
+
+def medformer3d_state_dict_from_jax(params, cfg) -> dict:
+    """Flax MedFormer3D params (nested dicts of arrays) -> state_dict."""
+    chan_num = list(cfg.get("chan_num") or DEFAULT_CHAN_NUM)
+    conv_num, trans_num = cfg.conv_num, cfg.trans_num
+    num_heads = cfg.num_heads
+    dim_head = [chan_num[i] // num_heads[i] for i in range(8)]
+    t = _Walk(params)
 
     # --- encoder -----------------------------------------------------------
-    conv(("inc", "Conv_0", "kernel"), "inc.conv1.weight")
-    basic_block(("inc", "BasicBlock_0"), "inc.conv2", False)
+    t.conv(("inc", "Conv_0", "kernel"), "inc.conv1.weight")
+    t.basic_block(("inc", "BasicBlock_0"), "inc.conv2", False)
     for i in range(4):
         name = f"down{i + 1}"
-        dwsep((name, "PatchMerging_0", "DepthwiseSeparableConv_0"),
-              f"{name}.patch_merging.reduction")
+        t.dwsep((name, "PatchMerging_0", "DepthwiseSeparableConv_0"),
+                f"{name}.patch_merging.reduction")
         for j in range(conv_num[i]):
-            basic_block((name, f"BasicBlock_{j}"), f"{name}.conv_blocks.{j}",
-                        False)
+            t.basic_block((name, f"BasicBlock_{j}"), f"{name}.conv_blocks.{j}",
+                          False)
         if i > 0:
-            conv((name, "SemanticMapGeneration_0", "Conv_0", "kernel"),
-                 f"{name}.map_gen.base_proj.weight")
-            conv((name, "SemanticMapGeneration_0", "Conv_1", "kernel"),
-                 f"{name}.map_gen.semantic_proj.weight")
+            t.conv((name, "SemanticMapGeneration_0", "Conv_0", "kernel"),
+                   f"{name}.map_gen.base_proj.weight")
+            t.conv((name, "SemanticMapGeneration_0", "Conv_1", "kernel"),
+                   f"{name}.map_gen.semantic_proj.weight")
         for j in range(trans_num[i]):
-            bmha_block((name, "BasicLayer_0", f"BidirectionAttentionBlock_{j}"),
-                       f"{name}.trans_blocks.blocks.{j}", num_heads[i],
-                       dim_head[i], has_shortcut=False)
+            t.bmha_block((name, "BasicLayer_0", f"BidirectionAttentionBlock_{j}"),
+                         f"{name}.trans_blocks.blocks.{j}", num_heads[i],
+                         dim_head[i], has_shortcut=False)
 
-    # --- map fusion ----------------------------------------------------------
-    mf = "SemanticMapFusion_0"
-    for i in range(3):
-        conv((mf, f"Conv_{i}", "kernel"), f"map_fusion.in_proj.{i}.weight")
-        conv((mf, f"Conv_{i + 3}", "kernel"), f"map_fusion.out_proj.{i}.weight")
-    tb = (mf, "TransformerBlock_0")
-    for d in range(cfg.fusion_depth):
-        base = f"map_fusion.fusion.layers.{d}"
-        for j, ln in enumerate((f"LayerNorm_{2 * d}", f"LayerNorm_{2 * d + 1}")):
-            raw((*tb, ln, "scale"), f"{base}.{j}.norm.weight")
-            raw((*tb, ln, "bias"), f"{base}.{j}.norm.bias")
-        sd[f"{base}.0.fn.to_qkv.weight"] = np.asarray(
-            node((*tb, f"Attention_{d}", "Dense_0", "kernel"))).T
-        sd[f"{base}.0.fn.to_out.weight"] = np.asarray(
-            node((*tb, f"Attention_{d}", "Dense_1", "kernel"))).T
-        raw((*tb, f"Attention_{d}", "Dense_1", "bias"), f"{base}.0.fn.to_out.bias")
-        for k, fc in enumerate(("fc1", "fc2")):
-            sd[f"{base}.1.fn.{fc}.weight"] = np.asarray(
-                node((*tb, f"Mlp_{d}", f"Dense_{k}", "kernel"))).T
-            raw((*tb, f"Mlp_{d}", f"Dense_{k}", "bias"), f"{base}.1.fn.{fc}.bias")
+    t.map_fusion(cfg.fusion_depth)
 
     # --- decoder -------------------------------------------------------------
     for u in range(4):
         name = f"up{u + 1}"
         stage = 4 + u
         if u < 2:   # map shortcut
-            conv((name, "Conv_0", "kernel"), f"{name}.map_reduction.weight")
+            t.conv((name, "Conv_0", "kernel"), f"{name}.map_reduction.weight")
         for j in range(trans_num[stage]):
             no_mo = u == 1 and j == trans_num[stage] - 1   # up2 last block
-            bmha_block((name, "BasicLayer_0", f"BidirectionAttentionBlock_{j}"),
-                       f"{name}.trans_blocks.blocks.{j}", num_heads[stage],
-                       dim_head[stage], has_shortcut=(j == 0), no_map_out=no_mo)
+            t.bmha_block((name, "BasicLayer_0", f"BidirectionAttentionBlock_{j}"),
+                         f"{name}.trans_blocks.blocks.{j}", num_heads[stage],
+                         dim_head[stage], has_shortcut=(j == 0),
+                         no_map_out=no_mo)
         for j in range(conv_num[stage]):
             # the first conv block widens the concat only when no B-MHA
             # block came before it (import_medformer3d assumes it always
             # does, and raises KeyError for a stage with both, e.g. the
             # AMOS config's up2)
-            basic_block((name, f"BasicBlock_{j}"), f"{name}.conv_blocks.{j}",
-                        has_shortcut=(j == 0 and trans_num[stage] == 0))
+            t.basic_block((name, f"BasicBlock_{j}"), f"{name}.conv_blocks.{j}",
+                          has_shortcut=(j == 0 and trans_num[stage] == 0))
+    t.heads()
+    return t.state_dict()
 
-    # aux + out heads (created in that order -> Conv_0, Conv_1)
-    conv(("Conv_0", "kernel"), "aux_out.weight")
-    raw(("Conv_0", "bias"), "aux_out.bias")
-    conv(("Conv_1", "kernel"), "outc.weight")
-    raw(("Conv_1", "bias"), "outc.bias")
-    return {k: torch.tensor(v, dtype=torch.float32) for k, v in sd.items()}
+
+def medformer2d_state_dict_from_jax(variables, cfg) -> dict:
+    """Flax MedFormer2D variables {"params", "batch_stats"} (nested dicts of
+    arrays) -> state_dict with every BatchNorm's running statistics."""
+    b = cfg.base_chan
+    chan_num = [2 * b, 4 * b, 8 * b, 16 * b, 8 * b, 4 * b, 2 * b, b]
+    conv_num, trans_num = cfg.conv_num, cfg.trans_num
+    num_heads = cfg.num_heads
+    dim_head = [chan_num[i] // num_heads[i] for i in range(8)]
+    t = _Walk(variables["params"], variables["batch_stats"])
+
+    def blocks(prefix, tkey, n):
+        for j in range(n):
+            blk = (*prefix, f"BasicBlock_{j}")
+            t.basic_block(blk, f"{tkey}.conv_blocks.{j}",
+                          t.has((*blk, "ConvNormAct_2")))
+
+    def bmha(prefix, tkey, stage):
+        for j in range(trans_num[stage]):
+            t.bmha_block((*prefix, "BasicLayer_0",
+                          f"BidirectionAttentionBlock_{j}"),
+                         f"{tkey}.trans_blocks.blocks.{j}", num_heads[stage],
+                         dim_head[stage], has_shortcut=False,
+                         se_name="se_block")
+
+    # --- encoder -----------------------------------------------------------
+    t.conv(("InConvMF_0", "Conv_0", "kernel"), "inc.conv1.weight")
+    t.basic_block(("InConvMF_0", "BasicBlock_0"), "inc.conv2",
+                  t.has(("InConvMF_0", "BasicBlock_0", "ConvNormAct_2")))
+    for i in range(4):
+        f, name = f"DownBlockMF_{i}", f"down{i + 1}"
+        t.bn((f, "PatchMerging_0", "Norm_0"), f"{name}.patch_merging.norm")
+        t.dwsep((f, "PatchMerging_0", "DepthwiseSeparableConv_0"),
+                f"{name}.patch_merging.reduction")
+        blocks((f,), name, conv_num[i])
+        if i > 0:
+            t.conv((f, "SemanticMapGeneration_0", "Conv_0", "kernel"),
+                   f"{name}.map_gen.base_proj.weight")
+            t.conv((f, "SemanticMapGeneration_0", "Conv_1", "kernel"),
+                   f"{name}.map_gen.semantic_proj.weight")
+        bmha((f,), name, i)
+
+    # dim2 attention merges its heads dim-head-major on the way out
+    t.map_fusion(cfg.fusion_depth, out_perm=_bmha_perm(
+        cfg.fusion_heads, cfg.fusion_dim // cfg.fusion_heads))
+
+    # --- decoder -------------------------------------------------------------
+    for u in range(4):
+        f, name = f"UpBlockMF2D_{u}", f"up{u + 1}"
+        t.bn((f, "Norm_0"), f"{name}.norm")
+        t.conv((f, "Conv_0", "kernel"), f"{name}.reduction.weight")
+        t.conv((f, "Conv_1", "kernel"), f"{name}.map_reduction.weight")
+        bmha((f,), name, 4 + u)
+        blocks((f,), name, conv_num[4 + u])
+    t.heads()
+    return t.state_dict()

@@ -8,13 +8,18 @@ Phases, each printing its result; any failure raises and exits non-zero:
 2. build: the CUDA kernels from ``cbim_tpu_torch/csrc`` (one nvcc per
    source, all started together; sm_90a);
 3. kernels vs their plain PyTorch versions on the card, at the serving and
-   training paths' shapes, fp32 and bf16, forward and backward: max error
-   against stated tolerances, and each kernel's time beside its plain
-   version's;
+   training paths' shapes, fp32 and bf16, forward and backward, the 3^3
+   and the 3x3 conv families: max error against stated tolerances, and
+   each kernel's time beside its plain version's and the one PyTorch call
+   that computes the same function (cuDNN's conv or weight gradient); and
+   cuDNN's depthwise 3x3 conv in both memory formats, the layout choice of
+   MedFormer-2D's grouped convs;
 4. a small MedFormer-3D on a 64^3 input, same seeded weights, on the card
    (kernels) and on the CPU (plain versions): softmax outputs compared;
 4b. one train step of that small model, card vs CPU, fp32 with TF32 off:
    the loss and every parameter's gradient compared;
+4c. the same two checks for a small MedFormer-2D (BatchNorm, 128^2 slices):
+   eval-mode softmax, then one train-mode fp32 step;
 5. serving: the full-width AMOS-CT MedFormer-3D with seeded random weights
    serves two synthetic NIfTI requests through
    ``cbim_tpu_torch.prediction.main``; every forward kernel must have
@@ -24,16 +29,34 @@ Phases, each printing its result; any failure raises and exits non-zero:
    EMA) trains a few steps on the synthetic corpus through
    ``cbim_tpu_torch.train.main``; every kernel, backward ones included,
    must have launched, and every loss must be finite.  Launch counts
-   include the forward that remat recomputes in the backward pass.
+   include the forward that remat recomputes in the backward pass;
+7. 2D serving: the full-width ACDC MedFormer-2D with seeded random weights
+   serves two synthetic cine-MR NIfTI requests through
+   ``cbim_tpu_torch.prediction.main --dimension 2d`` (every slice of a
+   volume is the batch at each window position); the 3x3 conv kernel must
+   have launched;
+8. 2D training: the ACDC recipe (``configs/acdc/medformer_2d.yaml``)
+   trains an epoch of batch-32 steps on ``Synthetic2D`` through
+   ``cbim_tpu_torch.train.main --dimension 2d --amp``; the 3x3 conv's
+   forward, dgrad and wgrad kernels must have launched, and every loss must
+   be finite.
 
-The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.
+Each of phases 5-8 sets the launch counters to 0 just before it and reads
+them just after.  The last three lines are the card's name and power limit,
+the kernels' JSON record (launches by phase, errors, times, the bound from
+the recorded shape's FLOPs and bytes) and ``{"ok": true, "device":
+{...}}``.
 
-Usage: python3 chip_smoke.py
+Usage: python3 chip_smoke.py [--profile DIR]
+
+``--profile DIR`` also traces the steady steps of phases 6 and 8 with the
+trainer's profiler hook (``profile_dir``): DIR/<phase>/kernels.txt and
+summary.json, and the top kernels by device time are printed.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -61,7 +84,13 @@ KERNELS = {
                         "cbim_tpu/ops/pallas/fused_norm.py:257"),
     "inorm_bwd_apply": ("cbim_tpu_torch/csrc/fused_norm.cu",
                         "cbim_tpu/ops/pallas/fused_norm.py:257"),
+    "conv2d_same_fwd": ("cbim_tpu_torch/csrc/conv2d.cu",
+                        "cbim_tpu/ops/pallas/conv2d.py:115"),
+    "conv2d_wgrad": ("cbim_tpu_torch/csrc/conv2d.cu",
+                     "cbim_tpu/ops/pallas/conv2d.py:238"),
 }
+#: the launch counter of each forward kernel's input-gradient launches
+DGRAD = {"conv3d_same_fwd": "conv3d_dgrad", "conv2d_same_fwd": "conv2d_dgrad"}
 #: the forward kernels, which serving launches
 FORWARD_KERNELS = ("inorm_stats", "inorm_apply", "conv3d_same_fwd")
 
@@ -70,10 +99,28 @@ FORWARD_KERNELS = ("inorm_stats", "inorm_apply", "conv3d_same_fwd")
 CONV_CASES = [(2, 128, 128, 128, 32, 32), (2, 128, 128, 128, 96, 32),
               (2, 64, 64, 64, 64, 64), (2, 64, 64, 64, 192, 64),
               (2, 32, 32, 32, 128, 128), (2, 17, 23, 30, 24, 40)]
-#: the conv case whose times go into the JSON record (up4's widest conv);
-#: its dgrad (the forward kernel on flip-swapped weights) runs 32 -> 96,
-#: and the dgrad of (2, 64^3, 192 -> 64) runs 64 -> 192
+#: the conv case whose times go into the JSON record (up4's widest conv),
+#: fp32; its dgrad (the forward kernel on flip-swapped weights) runs
+#: 32 -> 96, and the dgrad of (2, 64^3, 192 -> 64) runs 64 -> 192
 CONV_RECORD = (2, 128, 128, 128, 96, 32)
+
+#: 3x3 conv shapes (B, H, W, C, F) of the 2D paths at the ACDC recipe:
+#: inc/up4 and down1/up3 at training batch 32, a 12-slice serving batch,
+#: the channel envelope of the kernel dispatch, and a ragged shape
+CONV2D_CASES = [(32, 256, 256, 32, 32), (32, 128, 128, 64, 64),
+                (12, 256, 256, 32, 32), (4, 64, 64, 192, 160),
+                (3, 37, 50, 24, 40)]
+#: the 3x3 case and dtype of the JSON record: inc/up4 in the training step
+CONV2D_RECORD = ((32, 256, 256, 32, 32), "bfloat16")
+#: depthwise 3x3 convs of MedFormer-2D's training step (B, H, W, C): the
+#: B-MHA projections and MBConvs of down2/up2, down3/up1 and down4
+DEPTHWISE2D_CASES = [(32, 64, 64, 128), (32, 64, 64, 256), (32, 32, 32, 512),
+                     (32, 16, 16, 1024)]
+
+#: the bound of a recorded kernel: published dense peaks of one H100 SXM
+#: (float32 outside the tensor cores; bf16 on them) and its HBM rate
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+HBM_BYTES_PER_S = 3.35e12
 
 #: InstanceNorm sites (B, spatial, C, act, eps): full-res ConvNormAct,
 #: PatchMerging norms (eps 1e-5), B-MHA block norms, MBConv norms, and the
@@ -109,7 +156,7 @@ WGRAD_TOL = 1e-4
 # The norm backward's statistics (means of dy' and dy' * x_hat over S) are
 # fp32 outputs of fp64 sums (kernel) vs fp32 sums (plain): TOL["float32"].
 # dx: TOL[dtype] as the forward apply.
-#: phase 4, probabilities of two fp32 forwards (card vs CPU)
+#: phases 4 and 4c, probabilities of two fp32 forwards (card vs CPU)
 MODEL_PROB_ATOL = 1e-4
 #: phase 4b, one fp32 train step card vs CPU.  The loss to 1e-5 relative.
 #: The gradients of this random network are ill-conditioned in fp32 on
@@ -180,6 +227,45 @@ REQUESTS = [((160, 256, 256), (1.5, 1.5, 1.5)),
             ((96, 200, 200), (2.5, 1.9, 1.9))]
 TARGET_SPACING = "1.5,1.5,1.5"
 
+#: a narrow MedFormer-2D with the ACDC recipe's structure plus the JAX
+#: default's conv blocks in down2/up2 (phase 4c)
+SMALL2D = dict(
+    dataset="synthetic", model="medformer", dimension="2d", classes=4,
+    in_chan=1, base_chan=16, map_size=2, conv_block="BasicBlock",
+    conv_num=[2, 1, 0, 0, 0, 1, 2, 2], trans_num=[0, 1, 1, 1, 1, 1, 0, 0],
+    num_heads=[1, 4, 4, 4, 4, 4, 1, 1], expansion=2, fusion_depth=2,
+    fusion_dim=64, fusion_heads=4, proj_type="depthwise", aux_loss=True)
+
+#: the model and inference keys of configs/acdc/medformer_2d.yaml
+ACDC = dict(
+    dataset="acdc", model="medformer", dimension="2d", classes=4, in_chan=1,
+    base_chan=32, conv_block="BasicBlock", map_size=3,
+    conv_num=[2, 0, 0, 0, 0, 0, 2, 2], trans_num=[0, 2, 2, 2, 2, 2, 0, 0],
+    num_heads=[1, 4, 8, 16, 8, 4, 1, 1], expansion=2, fusion_depth=2,
+    fusion_dim=512, fusion_heads=16, attn_drop=0.0, proj_drop=0.0,
+    proj_type="depthwise", aux_loss=True, training_size=[256, 256])
+#: two cine-MR requests (z, y, x shape, z, y, x spacing) at the target
+#: in-plane spacing 1.5625 mm: one on it (224 x 240, padded to 258^2: four
+#: overlapping 256^2 windows), one resampled from 1.25 mm to 16 x 304 x 336
+#: (four windows)
+REQUESTS_2D = [((10, 224, 240), (10.0, 1.5625, 1.5625)),
+               ((16, 380, 420), (10.0, 1.25, 1.25))]
+TARGET_SPACING_2D = "1.5625,1.5625"
+
+#: the ACDC training recipe (configs/acdc/medformer_2d.yaml: 4 classes,
+#: 256^2 crops, affine pad 32, AdamW 5e-4 wd 0.05, EMA 0.99, aux loss
+#: [0.5, 0.5], class weights [0.5, 1, 1, 1]) on Synthetic2D: 40 cases of
+#: 6 x 320^2, of which fold 0 trains on 32, 192 slices: one epoch of 6
+#: steps at batch 32; validation off (not ported)
+ACDC_TRAIN = dict(
+    ACDC, dataset="synthetic", aux_weight=[0.5, 0.5],
+    weight=[0.5, 1.0, 1.0, 1.0], rlt=1, optimizer="adamw", base_lr=5e-4,
+    betas=[0.9, 0.999], weight_decay=0.05, ema=True, ema_alpha=0.99,
+    scale=0.3, rotate=180, translate=0, affine_pad_size=[32, 32],
+    gaussian_noise_std=0.02, synthetic_cases=40, k_fold=5, split_seed=0,
+    epochs=1, print_freq=1, val_freq=2)
+TRAIN2D_BATCH = 32
+
 
 def say(msg: str) -> None:
     print(msg, flush=True)
@@ -212,6 +298,23 @@ def iters_for(flops_or_bytes: float, per_ms: float) -> int:
     return max(3, min(200, int(50 * per_ms / max(flops_or_bytes, 1.0))))
 
 
+def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
+    """(least ms, what bounds it): the larger of the FLOPs over the card's
+    peak for ``dtype`` and the bytes (each input read once, each output
+    written once) over its HBM rate."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def entry(ms, plain_ms, library_ms, flops, nbytes, dtype, shape) -> dict:
+    """One kernel's timed record, with its bound."""
+    b_ms, b_by = bound(flops, nbytes, dtype)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "dtype": dtype,
+            "shape": list(shape)}
+
+
 def check_close(name, out, ref, tol) -> tuple[float, float]:
     """(max abs err, max rel err); raises if an element is off."""
     diff = (out.float() - ref.float()).abs()
@@ -227,6 +330,7 @@ def check_close(name, out, ref, tol) -> tuple[float, float]:
 def phase_kernels(device, conv_cases, norm_cases, record: dict) -> None:
     """Phase 3: each kernel against its plain version on ``device``."""
     import torch
+    import torch.nn.functional as F
     from cbim_tpu_torch.ops.kernels import conv3d, fused_norm
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -257,7 +361,12 @@ def phase_kernels(device, conv_cases, norm_cases, record: dict) -> None:
             assert ok, f"conv3d_same_fwd {dt} {case}: max abs err {err:.3e}"
             errs["conv3d_same_fwd"] = max(errs["conv3d_same_fwd"], err)
             if dt == "float32" and case == CONV_RECORD:
-                record["conv3d_same_fwd"] = (ms, plain_ms)
+                xc = x.permute(0, 4, 1, 2, 3)          # NCDHW view, no copy
+                lib_ms = cuda_ms(lambda: F.conv3d(xc, w, padding=1), n)
+                say(f"  library F.conv3d {dt} {case}: {lib_ms:.3f} ms")
+                nbytes = (x.numel() + w.numel() + ref.numel()) * x.element_size()
+                record["conv3d_same_fwd"] = entry(ms, plain_ms, lib_ms, flops,
+                                                  nbytes, dt, case)
             del x, w, ref, out
         for case in norm_cases:
             B, spatial, C, act, eps = case
@@ -292,8 +401,20 @@ def phase_kernels(device, conv_cases, norm_cases, record: dict) -> None:
             errs["inorm_stats"] = max(errs["inorm_stats"], e_stats[0])
             errs["inorm_apply"] = max(errs["inorm_apply"], e_apply[0])
             if dt == "float32" and case == NORM_RECORD:
-                record["inorm_stats"] = (st_ms, st_plain)
-                record["inorm_apply"] = (ap_ms, ap_plain)
+                # no single PyTorch call computes the stats or the apply
+                # with an activation alone; F.instance_norm computes both
+                # without one, timed for reference
+                xc = x.transpose(1, 2)
+                in_ms = cuda_ms(lambda: F.instance_norm(xc, eps=eps), n)
+                say(f"  F.instance_norm (stats + apply, no act) {dt} "
+                    f"B={B} S={S} C={C}: {in_ms:.3f} ms")
+                n_el = x.numel()
+                record["inorm_stats"] = entry(
+                    st_ms, st_plain, None, 3 * n_el, nbytes + 2 * B * C * 4,
+                    dt, (B, S, C))
+                record["inorm_apply"] = entry(
+                    ap_ms, ap_plain, None, 3 * n_el,
+                    2 * nbytes + 2 * B * C * 4, dt, (B, S, C))
             del x, y, py
     record["errors"] = errs
     torch.cuda.synchronize()
@@ -344,7 +465,15 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
             errs["conv3d_same_fwd"] = max(errs["conv3d_same_fwd"], ex)
             errs["conv3d_wgrad"] = max(errs["conv3d_wgrad"], ew)
             if dt == "float32" and case == CONV_RECORD:
-                record["conv3d_wgrad"] = (dw_ms, dw_plain)
+                xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+                lib_ms = cuda_ms(lambda: torch.nn.grad.conv3d_weight(
+                    xc, w.shape, gc, padding=1), n)
+                say(f"  library torch.nn.grad.conv3d_weight {dt} {case}: "
+                    f"{lib_ms:.3f} ms")
+                nbytes = (x.numel() + g.numel()) * x.element_size() \
+                    + 27 * C * Fo * 4
+                record["conv3d_wgrad"] = entry(dw_ms, dw_plain, lib_ms, flops,
+                                               nbytes, dt, case)
                 record["conv3d_dgrad"] = (dx_ms, dx_plain)
             del x, g, w, dx, ref_dx, dw, ref_dw
         for case in norm_cases:
@@ -382,60 +511,200 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
             errs["inorm_bwd_stats"] = max(errs["inorm_bwd_stats"], e_red[0])
             errs["inorm_bwd_apply"] = max(errs["inorm_bwd_apply"], e_dx[0])
             if dt == "float32" and case == NORM_RECORD:
-                record["inorm_bwd_stats"] = (st_ms, st_plain)
-                record["inorm_bwd_apply"] = (ap_ms, ap_plain)
+                n_el, stat_bytes = x.numel(), 2 * B * C * 4
+                record["inorm_bwd_stats"] = entry(
+                    st_ms, st_plain, None, 6 * n_el,
+                    2 * nbytes + 2 * stat_bytes, dt, (B, S, C))
+                record["inorm_bwd_apply"] = entry(
+                    ap_ms, ap_plain, None, 8 * n_el,
+                    3 * nbytes + 2 * stat_bytes, dt, (B, S, C))
             del x, dy, dx, pdx
     torch.cuda.synchronize()
 
 
-def phase_small_model(device, size: int) -> float:
-    """Phase 4: the small model on ``device`` vs the CPU, same weights."""
+def phase_conv2d_kernels(device, cases, record: dict) -> None:
+    """Phase 3, the 3x3 family: ``conv2d_same_fwd`` (forward and dgrad) and
+    ``conv2d_wgrad`` against their plain versions on ``device``, with the
+    cuDNN call beside each (``F.conv2d``, ``torch.nn.grad.conv2d_weight``,
+    in the inputs' dtype)."""
+    import torch
+    import torch.nn.functional as F
+    from cbim_tpu_torch.ops.kernels import conv2d
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(2)
+    errs = record["errors"]
+    errs.update(conv2d_same_fwd=0.0, conv2d_wgrad=0.0)
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        for case in cases:
+            B, H, W, C, Fo = case
+            x = torch.randn(B, H, W, C, generator=gen, device=device)
+            g = torch.randn(B, H, W, Fo, generator=gen, device=device)
+            w = torch.randn(Fo, C, 3, 3, generator=gen, device=device)
+            x, g, w = x.to(dtype), g.to(dtype), (w / math.sqrt(9 * C)).to(dtype)
+            ws = conv2d.flip_swap(w)
+            y, ref_y = conv2d.conv2d_same(x, w), conv2d.conv2d_same_plain(x, w)
+            dx = conv2d.conv2d_dgrad(g, w)
+            ref_dx = conv2d.conv2d_same_plain(g, ws)
+            dw, ref_dw = conv2d.conv2d_wgrad(x, g), conv2d.conv2d_wgrad_plain(x, g)
+            # the weight gradient sums over every pixel (0.5-2.1 M here):
+            # cuDNN's fp32 sums err by up to 1e-4 of max|dW| at some of
+            # these shapes on an H100 (PERF.md), so both are held against
+            # the plain formula evaluated in fp64
+            dw64 = torch.nn.grad.conv2d_weight(
+                x.double().permute(0, 3, 1, 2), w.shape,
+                g.double().permute(0, 3, 1, 2), padding=1)
+            torch.cuda.synchronize()
+            errors = {}
+            for key, out, ref in (("fwd", y, ref_y), ("dgrad", dx, ref_dx),
+                                  ("wgrad", dw, dw64)):
+                scale = float(ref.float().abs().max())
+                errors[key] = (float((out.double() - ref.double()).abs().max()),
+                               scale)
+            plain_w_err = float((ref_dw.double() - dw64).abs().max())
+            flops = 2 * 9 * C * Fo * B * H * W
+            n = iters_for(flops, 1e10)
+            xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)  # NCHW views
+            t = {
+                "fwd": (cuda_ms(lambda: conv2d.conv2d_same(x, w), n),
+                        cuda_ms(lambda: conv2d.conv2d_same_plain(x, w), n),
+                        cuda_ms(lambda: F.conv2d(xc, w, padding=1), n)),
+                "dgrad": (cuda_ms(lambda: conv2d.conv2d_dgrad(g, w), n),
+                          cuda_ms(lambda: conv2d.conv2d_same_plain(g, ws), n),
+                          cuda_ms(lambda: F.conv2d(gc, ws, padding=1), n)),
+                "wgrad": (cuda_ms(lambda: conv2d.conv2d_wgrad(x, g), n),
+                          cuda_ms(lambda: conv2d.conv2d_wgrad_plain(x, g), n),
+                          cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+                              xc, w.shape, gc, padding=1), n))}
+            for key, (ms, plain_ms, lib_ms) in t.items():
+                err, scale = errors[key]
+                tol = WGRAD_TOL if key == "wgrad" else CONV_TOL[dt]
+                vs = (f"vs fp64 (the fp32 plain version's: "
+                      f"{plain_w_err / scale:.3e})" if key == "wgrad"
+                      else "vs plain")
+                say(f"  conv2d {key:5s} {dt:8s} {case}: max_abs_err {err:.3e} "
+                    f"max_rel_err {err / scale:.3e} of max|ref| {scale:.3f} "
+                    f"{vs} (tol {tol:.1e}) kernel {ms:.3f} ms "
+                    f"({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.3f} ms "
+                    f"cuDNN {lib_ms:.3f} ms")
+                assert err <= tol * scale, f"conv2d {key} {dt} {case}: {err:.3e}"
+            errs["conv2d_same_fwd"] = max(errs["conv2d_same_fwd"],
+                                          errors["fwd"][0], errors["dgrad"][0])
+            errs["conv2d_wgrad"] = max(errs["conv2d_wgrad"], errors["wgrad"][0])
+            if (case, dt) == CONV2D_RECORD:
+                size = x.element_size()
+                record["conv2d_same_fwd"] = entry(
+                    *t["fwd"], flops,
+                    (x.numel() + w.numel() + y.numel()) * size, dt, case)
+                record["conv2d_wgrad"] = entry(
+                    *t["wgrad"], flops,
+                    (x.numel() + g.numel()) * size + dw.numel() * 4, dt, case)
+                record["conv2d_dgrad"] = t["dgrad"]
+            del x, g, w, ws, y, ref_y, dx, ref_dx, dw, ref_dw, dw64
+    torch.cuda.synchronize()
+
+
+def seeded_model(cfg, seed: int, train: bool = False):
+    """A CPU model with seeded weights; BatchNorm running statistics drawn
+    from the seed too (their initial 0 and 1 would leave eval-mode
+    normalisation untested)."""
+    import torch
+    from cbim_tpu_torch.models import get_model
+    gen = torch.Generator().manual_seed(seed)
+    model = get_model(cfg, train=train, generator=gen)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.normal_(0.0, 0.1, generator=gen)
+            elif name.endswith("running_var"):
+                buf.uniform_(0.5, 2.0, generator=gen)
+    return model
+
+
+def phase_depthwise_layouts(device, cases) -> None:
+    """Phase 3, the choice of memory format for MedFormer-2D's grouped
+    convs (``models/layers/convs.py``): cuDNN's depthwise 3x3 conv in bf16,
+    forward and forward + backward, in contiguous NCHW and channels_last
+    memory (input and weight alike).  Printed, not asserted."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=device).manual_seed(3)
+    for B, H, W, C in cases:
+        times = {}
+        for fmt in ("contiguous_format", "channels_last"):
+            mf = getattr(torch, fmt)
+            x = torch.randn(B, C, H, W, generator=gen, device=device,
+                            dtype=torch.bfloat16).contiguous(memory_format=mf)
+            w = torch.randn(C, 1, 3, 3, generator=gen, device=device,
+                            dtype=torch.bfloat16).contiguous(memory_format=mf)
+            x.requires_grad_()
+            w.requires_grad_()
+            g = torch.randn_like(x)
+
+            def fwd():
+                return F.conv2d(x, w, padding=1, groups=C)
+
+            n = iters_for(B * C * H * W * 2, 1e9)
+            times[fmt] = (cuda_ms(fwd, n),
+                          cuda_ms(lambda: fwd().backward(g), n))
+            del x, w, g
+        (c_f, c_fb), (l_f, l_fb) = times.values()
+        say(f"  depthwise 3x3 bf16 (B, H, W, C) {(B, H, W, C)}: contiguous "
+            f"fwd {c_f:.3f} ms fwd+bwd {c_fb:.3f} ms | channels_last fwd "
+            f"{l_f:.3f} ms fwd+bwd {l_fb:.3f} ms")
+
+
+def phase_small_model(device, cfg_dict, shape) -> float:
+    """Phases 4 and 4c: the small model on ``device`` vs the CPU, same
+    weights, on an input of ``shape`` (B, C, *spatial), eval mode."""
     import torch
     from cbim_tpu_torch.config import config_from_dict
     from cbim_tpu_torch.models import get_model
-    cfg = config_from_dict(SMALL)
-    cpu_model = get_model(cfg, generator=torch.Generator().manual_seed(1))
+    cfg = config_from_dict(cfg_dict)
+    cpu_model = seeded_model(cfg, 1)
     dev_model = get_model(cfg, device=device)
     dev_model.load_state_dict(cpu_model.state_dict())
-    x = torch.randn(1, 1, size, size, size,
-                    generator=torch.Generator().manual_seed(2))
+    x = torch.randn(*shape, generator=torch.Generator().manual_seed(2))
     with torch.inference_mode():
         ref = torch.softmax(cpu_model(x)[0], dim=1)
         out = torch.softmax(dev_model(x.to(device))[0], dim=1).cpu()
     err = float((out - ref).abs().max())
-    assert out.shape == (1, SMALL["classes"], size, size, size)
+    assert out.shape == (shape[0], cfg.classes, *shape[2:])
     assert torch.isfinite(out).all() and err <= MODEL_PROB_ATOL, err
     return err
 
 
-def phase_small_train_step(device, size: int) -> tuple[float, float, float]:
-    """Phase 4b: one fp32 train step of the small model on ``device`` and
-    on the CPU, same weights and batch.  Returns (loss relative error,
-    the gradient's relative L2 error, the worst tensor's error against its
-    tolerance scale)."""
+def phase_small_train_step(device, cfg_dict, shape
+                           ) -> tuple[float, float, float]:
+    """Phases 4b and 4c: one fp32 train-mode step of the small model on
+    ``device`` and on the CPU, same weights and batch of ``shape`` (B, C,
+    *spatial).  Returns (loss relative error, the gradient's relative L2
+    error, the worst tensor's error against its tolerance scale)."""
     import torch
     from cbim_tpu_torch.config import config_from_dict
     from cbim_tpu_torch.models import get_model
     from cbim_tpu_torch.ops.losses import deep_supervision_loss
-    cfg = config_from_dict(dict(SMALL, remat=True))
+    cfg = config_from_dict(cfg_dict)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cpu_model = get_model(cfg, train=True,
-                          generator=torch.Generator().manual_seed(3))
+    cpu_model = seeded_model(cfg, 3, train=True)
     dev_model = get_model(cfg, device=device, train=True)
     dev_model.load_state_dict(cpu_model.state_dict())
     gen = torch.Generator().manual_seed(4)
-    img = torch.randn(2, 1, size, size, size, generator=gen)
-    lab = torch.randint(0, SMALL["classes"], (2, size, size, size),
-                        generator=gen)
-    weight = [0.5] + [1.0] * (SMALL["classes"] - 1)
+    img = torch.randn(*shape, generator=gen)
+    lab = torch.randint(0, cfg.classes, (shape[0], *shape[2:]), generator=gen)
+    weight = [0.5] + [1.0] * (cfg.classes - 1)
     results = []
     for model, dev in ((cpu_model, torch.device("cpu")), (dev_model, device)):
         loss = deep_supervision_loss(model(img.to(dev)), lab.to(dev),
                                      [0.5, 0.5], weight)
         loss.backward()
-        results.append((float(loss.detach()), {k: p.grad.cpu() for k, p in
-                                      model.named_parameters()}))
+        # a parameter whose output the loss never reads (MedFormer-2D's
+        # last semantic-map reductions) gets no grad: zeros, as in JAX
+        results.append((float(loss.detach()), {
+            k: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+            for k, p in model.named_parameters()}))
     (ref_loss, ref_grads), (loss, grads) = results
     loss_err = abs(loss - ref_loss) / abs(ref_loss)
     assert math.isfinite(loss) and loss_err <= STEP_LOSS_RTOL, loss_err
@@ -456,21 +725,26 @@ def phase_small_train_step(device, size: int) -> tuple[float, float, float]:
     return loss_err, l2_err, worst
 
 
-def write_requests(in_dir: str, requests, seed: int = 0) -> None:
-    """Synthetic CT-like volumes (HU) from numpy, seeded."""
+def write_requests(in_dir: str, requests, seed: int = 0,
+                   mr: bool = False) -> None:
+    """Synthetic volumes from numpy, seeded: CT-like (HU, int16) or, with
+    ``mr``, non-negative MR-like magnitudes."""
     import numpy as np
     from cbim_tpu_torch.data.nifti import write_nifti
     rng = np.random.default_rng(seed)
     os.makedirs(in_dir, exist_ok=True)
     for i, (shape, spacing) in enumerate(requests):
         vol = rng.normal(0.0, 400.0, size=shape).astype(np.float32)
+        vol = np.abs(vol) if mr else np.clip(vol, -1024, 3000)
         write_nifti(os.path.join(in_dir, f"req{i}.nii.gz"),
-                    np.clip(vol, -1024, 3000).astype(np.int16),
-                    spacing=spacing)
+                    vol.astype(np.int16), spacing=spacing)
 
 
-def phase_slice(device, cfg_dict, requests, target_spacing) -> dict:
-    """Phase 5: serve ``requests`` with seeded weights through prediction."""
+def phase_slice(device, cfg_dict, requests, target_spacing, name: str,
+                required) -> dict:
+    """Phases 5 and 7: serve ``requests`` with seeded weights through
+    prediction; the launch counters are zeroed just before and read just
+    after, and every kernel in ``required`` must have launched."""
     import numpy as np
     import torch
     from cbim_tpu_torch import prediction
@@ -479,53 +753,54 @@ def phase_slice(device, cfg_dict, requests, target_spacing) -> dict:
     from cbim_tpu_torch.models import get_model
     from cbim_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    in_dir, out_dir = os.path.join(WORK, "in"), os.path.join(WORK, "out")
+    in_dir = os.path.join(WORK, name, "in")
+    out_dir = os.path.join(WORK, name, "out")
     cfg = config_from_dict(cfg_dict)
-    weights = os.path.join(WORK, "medformer_seed0.pth")
+    weights = os.path.join(WORK, name, "medformer_seed0.pth")
+    os.makedirs(os.path.dirname(weights), exist_ok=True)
     torch.save(get_model(cfg, generator=torch.Generator().manual_seed(0))
                .state_dict(), weights)
-    write_requests(in_dir, requests)
+    write_requests(in_dir, requests, mr=cfg.dimension == "2d")
     argv = ["--dataset", cfg.dataset, "--model", "medformer",
-            "--dimension", "3d", "--load", weights, "--img_path", in_dir,
-            "--save_path", out_dir, "--target_spacing", target_spacing,
-            "--device", str(device)]
+            "--dimension", cfg.dimension, "--load", weights, "--img_path",
+            in_dir, "--save_path", out_dir, "--target_spacing",
+            target_spacing, "--device", str(device)]
 
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.reset_peak_memory_stats(device)
     reset_launch_counts()
     seconds = prediction.main(argv, cfg=cfg)
     counts = launch_counts()
 
     assert len(seconds) == len(requests), seconds
-    for name in sorted(seconds):
-        src = read_nifti(os.path.join(in_dir, name))
-        pred = read_nifti(os.path.join(out_dir, name)).data
-        assert pred.shape == src.data.shape, (name, pred.shape)
+    for req in sorted(seconds):
+        src = read_nifti(os.path.join(in_dir, req))
+        pred = read_nifti(os.path.join(out_dir, req)).data
+        assert pred.shape == src.data.shape, (req, pred.shape)
         assert pred.dtype == np.uint8 and int(pred.max()) < cfg.classes
-    result = {"seconds": seconds, "launches": counts}
-    if device.type == "cuda":
-        result["peak_bytes"] = torch.cuda.max_memory_allocated(device)
-        missing = [k for k in FORWARD_KERNELS if counts[k] == 0]
-        assert not missing, f"kernels never launched on the path: {missing}"
-    return result
+    missing = [k for k in required if counts[k] == 0]
+    assert not missing, f"kernels never launched on the path: {missing}"
+    return {"seconds": seconds, "launches": counts,
+            "peak_bytes": torch.cuda.max_memory_allocated(device)}
 
 
-def phase_train(device, cfg_dict) -> dict:
-    """Phase 6: train the flagship recipe a few steps through
-    ``cbim_tpu_torch.train.main``; per-step losses and seconds come from the
-    run's scalars.jsonl (one loss fetch per step)."""
+def phase_train(device, cfg_dict, batch: int, name: str, required) -> dict:
+    """Phases 6 and 8: train a recipe for one epoch through
+    ``cbim_tpu_torch.train.main`` with bf16 autocast; per-step losses and
+    seconds come from the run's scalars.jsonl (one loss fetch per step).
+    The launch counters are zeroed just before and read just after, and
+    every kernel in ``required`` must have launched."""
     import torch
     from cbim_tpu_torch import train
     from cbim_tpu_torch.config import config_from_dict
     from cbim_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
     cfg = config_from_dict(cfg_dict)
-    run = os.path.join(WORK, "train")
+    run = os.path.join(WORK, name)
     argv = ["--dataset", cfg.dataset, "--model", "medformer", "--dimension",
-            "3d", "--batch_size", str(TRAIN_BATCH), "--amp",
+            cfg.dimension, "--batch_size", str(batch), "--amp",
             "--cp_path", os.path.join(run, "exp"),
-            "--log_path", os.path.join(run, "log"), "--unique_name",
-            "flagship", "--folds", "1", "--device", str(device)]
+            "--log_path", os.path.join(run, "log"), "--unique_name", name,
+            "--folds", "1", "--device", str(device)]
 
     torch.cuda.reset_peak_memory_stats(device)
     reset_launch_counts()
@@ -535,24 +810,66 @@ def phase_train(device, cfg_dict) -> dict:
     counts = launch_counts()
 
     rows = [json.loads(ln) for ln in open(os.path.join(
-        run, "log", cfg.dataset, "flagship", "fold_0", "scalars.jsonl"))]
+        run, "log", cfg.dataset, name, "fold_0", "scalars.jsonl"))]
     step_loss = [r["value"] for r in rows if r["tag"] == "Train/StepLoss"]
     step_s = [r["value"] for r in rows if r["tag"] == "Perf/StepSeconds"]
-    assert len(step_loss) == cfg.iter_per_epoch, rows
+    assert len(step_loss) >= WARMUP_STEPS + 3, rows
     assert all(math.isfinite(v) for v in step_loss), step_loss
-    assert os.path.exists(os.path.join(run, "exp", cfg.dataset, "flagship",
+    assert os.path.exists(os.path.join(run, "exp", cfg.dataset, name,
                                        "fold_0_latest.ckpt"))
-    missing = [k for k in (*KERNELS, "conv3d_dgrad") if counts[k] == 0]
+    missing = [k for k in required if counts[k] == 0]
     assert not missing, f"kernels never launched on the path: {missing}"
     median = statistics.median(step_s[WARMUP_STEPS:])
     return {"losses": step_loss, "step_seconds": step_s, "median": median,
-            "vols_per_s": TRAIN_BATCH / median, "seconds": seconds,
+            "per_s": batch / median, "seconds": seconds,
             "peak_bytes": torch.cuda.max_memory_allocated(device),
             "launches": counts}
 
 
-def main() -> int:
+def say_profile(profile_dir: str) -> None:
+    """The profiled window's busy share and its top kernels per step."""
+    with open(os.path.join(profile_dir, "summary.json")) as f:
+        prof = json.load(f)
+    n = prof["steps"]
+    say(f"  profiled {n} steps: {prof['wall_seconds'] / n * 1e3:.1f} ms/step "
+        f"wall, {prof['device_kernel_seconds'] / n * 1e3:.1f} ms/step of "
+        f"kernels, device busy {100 * prof['device_busy_share']:.1f} %")
+    total = prof["device_kernel_seconds"] / n * 1e3
+    for fam, ms in prof["families_ms_per_step"].items():
+        say(f"    {ms:8.3f} ms/step {100 * ms / total:5.1f} %  {fam}")
+    for name, ms, count in prof["kernels_ms"][:25]:
+        say(f"    {ms / n:8.3f} ms/step {count // n:5d}/step  {name[:110]}")
+
+
+def say_train(tr: dict, unit: str) -> None:
+    say(f"  losses {', '.join(f'{v:.4f}' for v in tr['losses'])}")
+    say(f"  step seconds {', '.join(f'{v:.3f}' for v in tr['step_seconds'])}"
+        f"; median after {WARMUP_STEPS} steps {tr['median']:.3f} s/step, "
+        f"{tr['per_s']:.3f} {unit}/s; peak device memory "
+        f"{tr['peak_bytes'] / 2 ** 30:.2f} GiB; train.main {tr['seconds']:.1f} s")
+    say(f"  launches {tr['launches']}")
+
+
+def say_serving(res: dict) -> None:
+    secs = res["seconds"]
+    say(f"  sec/volume {sum(secs.values()) / len(secs):.3f} "
+        f"({', '.join(f'{k} {v:.3f}' for k, v in sorted(secs.items()))})"
+        f"; peak device memory {res['peak_bytes'] / 2 ** 30:.2f} GiB; "
+        f"launches {res['launches']}")
+
+
+def main(argv=None) -> int:
     t_start = time.perf_counter()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="trace phases 6 and 8's steady steps into DIR")
+    args = parser.parse_args(argv)
+
+    def profiled(cfg_dict, name):
+        if args.profile is None:
+            return cfg_dict
+        return dict(cfg_dict, profile_dir=os.path.abspath(
+            os.path.join(args.profile, name)))
 
     import torch
     say("[phase 1] device")
@@ -587,50 +904,90 @@ def main() -> int:
     say("[phase 3] kernels vs plain versions")
     phase_kernels(device, CONV_CASES, NORM_CASES, record)
     phase_backward_kernels(device, CONV_CASES, NORM_CASES, record)
+    phase_conv2d_kernels(device, CONV2D_CASES, record)
+    phase_depthwise_layouts(device, DEPTHWISE2D_CASES)
 
     say("[phase 4] small MedFormer-3D, card vs CPU")
-    err = phase_small_model(device, 64)
+    err = phase_small_model(device, SMALL, (1, 1, 64, 64, 64))
     say(f"  64^3 softmax max abs err {err:.3e} (tol {MODEL_PROB_ATOL})")
 
     say("[phase 4b] one train step of the small MedFormer-3D, card vs CPU")
-    loss_err, l2_err, grad_err = phase_small_train_step(device, 64)
+    loss_err, l2_err, grad_err = phase_small_train_step(
+        device, dict(SMALL, remat=True), (2, 1, 64, 64, 64))
     say(f"  2 x 64^3 fp32: loss rel err {loss_err:.3e} "
         f"(tol {STEP_LOSS_RTOL:.0e}); gradient rel L2 err {l2_err:.3e} "
         f"(tol {STEP_GRAD_L2:.0e}); worst tensor err {grad_err:.3e} of its "
         f"scale (tol {STEP_GRAD_RTOL:.0e})")
 
+    say("[phase 4c] small MedFormer-2D (BatchNorm), card vs CPU")
+    err = phase_small_model(device, SMALL2D, (6, 1, 128, 128))
+    say(f"  eval, 6 x 128^2 softmax max abs err {err:.3e} "
+        f"(tol {MODEL_PROB_ATOL})")
+    loss_err, l2_err, grad_err = phase_small_train_step(
+        device, SMALL2D, (4, 1, 128, 128))
+    say(f"  train step, 4 x 128^2 fp32: loss rel err {loss_err:.3e} "
+        f"(tol {STEP_LOSS_RTOL:.0e}); gradient rel L2 err {l2_err:.3e} "
+        f"(tol {STEP_GRAD_L2:.0e}); worst tensor err {grad_err:.3e} of its "
+        f"scale (tol {STEP_GRAD_RTOL:.0e})")
+
+    launches = {}
     say("[phase 5] AMOS-CT MedFormer-3D serving 2 NIfTI requests")
-    res = phase_slice(device, AMOS, REQUESTS, TARGET_SPACING)
-    secs = res["seconds"]
-    say(f"  sec/volume {sum(secs.values()) / len(secs):.3f} "
-        f"({', '.join(f'{k} {v:.3f}' for k, v in sorted(secs.items()))})"
-        f"; peak device memory {res['peak_bytes'] / 2 ** 30:.2f} GiB; "
-        f"launches {res['launches']}")
+    res = phase_slice(device, AMOS, REQUESTS, TARGET_SPACING, "serve3d",
+                      FORWARD_KERNELS)
+    say_serving(res)
+    launches["5"] = res["launches"]
 
     say("[phase 6] flagship MedFormer-3D training, bf16, remat all, "
         f"batch {TRAIN_BATCH}, {FLAGSHIP['iter_per_epoch']} steps")
-    tr = phase_train(device, FLAGSHIP)
-    say(f"  losses {', '.join(f'{v:.4f}' for v in tr['losses'])}")
-    say(f"  step seconds {', '.join(f'{v:.3f}' for v in tr['step_seconds'])}"
-        f"; median after {WARMUP_STEPS} steps {tr['median']:.3f} s/step, "
-        f"{tr['vols_per_s']:.3f} volumes/s; peak device memory "
-        f"{tr['peak_bytes'] / 2 ** 30:.2f} GiB; train.main {tr['seconds']:.1f} s")
-    say(f"  launches (the recomputed forward included) {tr['launches']}")
-    record["launches"] = tr["launches"]
-    jax_mods = [m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax")]
-    assert not jax_mods, f"the port loaded JAX modules: {jax_mods[:5]}"
+    tr = phase_train(device, profiled(FLAGSHIP, "flagship"), TRAIN_BATCH,
+                     "flagship",
+                     ("inorm_stats", "inorm_apply", "inorm_bwd_stats",
+                      "inorm_bwd_apply", "conv3d_same_fwd", "conv3d_dgrad",
+                      "conv3d_wgrad"))
+    say_train(tr, "volumes")
+    say("  (the launches include the forward that remat recomputes)")
+    if args.profile:
+        say_profile(os.path.join(args.profile, "flagship"))
+    launches["6"] = tr["launches"]
     say(f"  dgrad of conv3d_same_fwd at {CONV_RECORD}, fp32: kernel "
         f"{record['conv3d_dgrad'][0]:.3f} ms, plain {record['conv3d_dgrad'][1]:.3f} ms")
 
+    say("[phase 7] ACDC MedFormer-2D serving 2 NIfTI requests (slice batch)")
+    res = phase_slice(device, ACDC, REQUESTS_2D, TARGET_SPACING_2D, "serve2d",
+                      ("conv2d_same_fwd",))
+    say_serving(res)
+    launches["7"] = res["launches"]
+
+    say(f"[phase 8] ACDC MedFormer-2D training, bf16, batch {TRAIN2D_BATCH}, "
+        "one epoch of Synthetic2D")
+    tr = phase_train(device, profiled(ACDC_TRAIN, "acdc2d"), TRAIN2D_BATCH,
+                     "acdc2d",
+                     ("conv2d_same_fwd", "conv2d_dgrad", "conv2d_wgrad"))
+    say_train(tr, "slices")
+    if args.profile:
+        say_profile(os.path.join(args.profile, "acdc2d"))
+    launches["8"] = tr["launches"]
+    rec2d = record["conv2d_dgrad"]
+    say(f"  dgrad of conv2d_same_fwd at {CONV2D_RECORD}: kernel "
+        f"{rec2d[0]:.3f} ms, plain {rec2d[1]:.3f} ms, cuDNN {rec2d[2]:.3f} ms")
+
+    jax_mods = [m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "cbim_tpu")]
+    assert not jax_mods, f"the port loaded JAX modules: {jax_mods[:5]}"
+
+    kernels = []
+    for name, (src, rep) in KERNELS.items():
+        keys = (name, DGRAD[name]) if name in DGRAD else (name,)
+        by_phase = {ph: {k: counts[k] for k in keys}
+                    for ph, counts in launches.items()}
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": sum(sum(c.values()) for c in by_phase.values()),
+            "launches_by_phase": by_phase,
+            "max_abs_err": record["errors"][name], **record[name]})
     say(f"  total {time.perf_counter() - t_start:.1f} s")
     say(card_line())
-    say(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": record["launches"][name],
-         "max_abs_err": record["errors"][name],
-         "ms": record[name][0], "plain_ms": record[name][1]}
-        for name, (src, rep) in KERNELS.items()]}))
+    say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

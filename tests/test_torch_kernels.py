@@ -18,7 +18,7 @@ from cbim_tpu.ops.pallas.conv3d import conv3d_same_t as jax_conv3d_same_t
 from cbim_tpu.ops.pallas.conv3d import conv3d_wgrad as jax_conv3d_wgrad
 from cbim_tpu.ops.pallas.fused_norm import instance_norm_act as jax_inorm
 from cbim_tpu_torch.ops import _backend
-from cbim_tpu_torch.ops.kernels import (_build, conv3d, fused_norm,
+from cbim_tpu_torch.ops.kernels import (_build, conv2d, conv3d, fused_norm,
                                         launch_counts, reset_launch_counts)
 
 
@@ -85,11 +85,16 @@ def test_cpu_calls_leave_launch_counters_at_zero():
     w = torch.randn(8, 8, 3, 3, 3, requires_grad=True)
     y = conv3d.Conv3dSame.apply(x, w)
     fused_norm.instance_norm_act(y, act="relu").sum().backward()
+    x2 = torch.randn(2, 5, 6, 8, requires_grad=True)
+    w2 = torch.randn(4, 8, 3, 3, requires_grad=True)
+    conv2d.Conv2dSame.apply(x2, w2).square().sum().backward()
     assert x.grad is not None and w.grad is not None
+    assert x2.grad is not None and w2.grad is not None
     assert launch_counts() == {
         "inorm_stats": 0, "inorm_apply": 0, "inorm_bwd_stats": 0,
         "inorm_bwd_apply": 0, "conv3d_same_fwd": 0, "conv3d_dgrad": 0,
-        "conv3d_wgrad": 0}
+        "conv3d_wgrad": 0, "conv2d_same_fwd": 0, "conv2d_dgrad": 0,
+        "conv2d_wgrad": 0}
 
 
 def test_plain_stats_and_apply_compose_to_instance_norm_act():
@@ -145,11 +150,11 @@ def test_build_command_targets_sm90a_from_repo_sources():
     assert "-shared" in link
     assert sum(a.endswith(".o") for a in link) == len(cmds)
     srcs = {p.name for p in _build.sources()}
-    assert {"conv3d.cu", "fused_norm.cu"} <= srcs
+    assert {"conv2d.cu", "conv3d.cu", "fused_norm.cu"} <= srcs
     assert all(_build.CSRC in p.parents for p in _build.sources())
     assert set(_build.SIGNATURES) == {
         "inorm_stats", "inorm_apply", "inorm_bwd_stats", "inorm_bwd_apply",
-        "conv3d_same_fwd", "conv3d_wgrad"}
+        "conv3d_same_fwd", "conv3d_wgrad", "conv2d_same_fwd", "conv2d_wgrad"}
 
 
 # ---------------------------------------------------------------- backward

@@ -160,4 +160,4 @@ def test_get_model_raises_for_unported_models():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(config_from_dict(dict(TINY, model="unet")))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(config_from_dict(dict(TINY, dimension="2d")))
+        get_model(config_from_dict(dict(TINY, model="unet", dimension="2d")))

@@ -1,7 +1,6 @@
 """The port runs without JAX: every module imports with ``jax`` and
-``flax`` blocked, and of the JAX package ``cbim_tpu`` it pulls in only the
-numpy/scipy host modules ``data.nifti`` and ``data.conversion.utils`` (and
-the packages above them)."""
+``flax`` blocked, and it loads no module of the JAX package ``cbim_tpu``,
+not even one that imports nothing of JAX: the port keeps its own copies."""
 
 import os
 import subprocess
@@ -22,6 +21,7 @@ MODULES = [
     "cbim_tpu_torch.ops.resample",
     "cbim_tpu_torch.ops.kernels",
     "cbim_tpu_torch.ops.kernels._build",
+    "cbim_tpu_torch.ops.kernels.conv2d",
     "cbim_tpu_torch.ops.kernels.conv3d",
     "cbim_tpu_torch.ops.kernels.fused_norm",
     "cbim_tpu_torch.models",
@@ -32,6 +32,7 @@ MODULES = [
     "cbim_tpu_torch.prediction",
     "cbim_tpu_torch.utils.jax_import",
     "cbim_tpu_torch.data.nifti",
+    "cbim_tpu_torch.data.conversion",
     "cbim_tpu_torch.data.base",
     "cbim_tpu_torch.data.datasets",
     "cbim_tpu_torch.data.factory",
@@ -44,12 +45,11 @@ MODULES = [
     "cbim_tpu_torch.training.trainer",
     "cbim_tpu_torch.train",
     "cbim_tpu_torch.utils.logging",
+    "cbim_tpu_torch.utils.profiling",
 ]
 
-#: what the port may load of cbim_tpu: the two host modules and their parents
-ALLOWED = ["cbim_tpu", "cbim_tpu.data", "cbim_tpu.data.factory",
-           "cbim_tpu.data.nifti", "cbim_tpu.data.conversion",
-           "cbim_tpu.data.conversion.utils"]
+#: what the port may load of cbim_tpu: nothing
+ALLOWED = []
 
 _PROBE = """
 import importlib, sys
@@ -77,18 +77,36 @@ def test_module_imports_without_jax(mod):
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
-def test_prediction_main_loads_only_the_allowed_host_modules():
-    """``prediction.main`` imports its host modules inside the call; parse
-    its arguments up to the point where those imports have run."""
-    extra = ("from cbim_tpu_torch import prediction\n"
-             "try:\n"
-             "    prediction.main(['--img_path', '.', '--device', 'cpu',\n"
-             "                     '--dimension', '2d'])\n"
-             "except NotImplementedError:\n"
-             "    pass\n"
-             "assert 'cbim_tpu.data.conversion.utils' in sys.modules")
+def test_prediction_main_loads_only_the_allowed_host_modules(tmp_path):
+    """``prediction.main`` imports its host modules (NIfTI I/O, resampling)
+    inside the call; serve one off-spacing 2D request with a tiny model to
+    its end on the CPU with jax blocked: it loads no ``cbim_tpu`` module."""
+    cfg = dict(dataset="synthetic", model="medformer", dimension="2d",
+               classes=2, in_chan=1, base_chan=4, map_size=1,
+               conv_block="BasicBlock", conv_num=[1, 0, 0, 0, 0, 0, 1, 1],
+               trans_num=[0, 1, 1, 1, 1, 1, 0, 0],
+               num_heads=[1, 2, 2, 2, 2, 2, 1, 1], expansion=2,
+               fusion_depth=1, fusion_dim=16, fusion_heads=2,
+               proj_type="depthwise", aux_loss=True, training_size=[16, 16])
+    extra = (
+        "import numpy as np, torch\n"
+        "from cbim_tpu_torch.config import config_from_dict\n"
+        "from cbim_tpu_torch.data.nifti import write_nifti\n"
+        "from cbim_tpu_torch.models import get_model\n"
+        f"cfg = config_from_dict({cfg!r})\n"
+        f"w = {str(tmp_path / 'w.pth')!r}\n"
+        "torch.save(get_model(cfg).state_dict(), w)\n"
+        f"write_nifti({str(tmp_path / 'a.nii.gz')!r}, np.ones((2, 12, 20),"
+        " np.float32), spacing=(4.0, 0.9, 0.9))\n"
+        "sec = prediction.main(['--dataset', 'synthetic', '--dimension', '2d',"
+        f" '--model', 'medformer', '--load', w, '--img_path', {str(tmp_path)!r},"
+        f" '--save_path', {str(tmp_path / 'out')!r}, '--target_spacing',"
+        " '1.0,1.0', '--device', 'cpu'], cfg=cfg)\n"
+        "assert list(sec) == ['a.nii.gz'], sec")
+    extra = "from cbim_tpu_torch import prediction\n" + extra
     proc = _probe("cbim_tpu_torch.prediction", extra)
-    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), \
+        proc.stderr[-2000:]
 
 
 def test_train_main_runs_without_jax(tmp_path):

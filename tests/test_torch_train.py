@@ -391,4 +391,5 @@ def test_unported_datasets_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_dataset(config_from_dict(dict(TRAIN, dataset="amos_ct")))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_dataset(config_from_dict(dict(TRAIN, dimension="2d")))
+        get_dataset(config_from_dict(dict(TRAIN, dataset="acdc",
+                                          dimension="2d")))
