@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..ops import augment as A
+from ..ops._backend import get_device
 from ..ops.resample import affine_sample_2d_batch, affine_sample_3d_batch
 
 
@@ -133,16 +134,17 @@ class TrainPipeline:
     ``next_batch`` copies the batch's precrop windows into pinned host
     memory (on CUDA), moves them with a non-blocking copy and augments them
     on the device.  Called after the previous step is queued, the host work
-    overlaps that step."""
+    overlaps that step.  ``device``: the card unless the caller asks for the
+    CPU."""
 
-    def __init__(self, dataset, cfg, seed: int = 0, device=None):
+    def __init__(self, dataset, cfg, seed: int = 0, device="cuda"):
         self.ds = dataset
         self.ndim = 3 if cfg.dimension == "3d" else 2
         self.crop_size = tuple(cfg.training_size[:self.ndim])
         self.recipe = dataset.recipe()
         self.buffer_shape = tuple(
             t + p for t, p in zip(self.crop_size, self.recipe.affine_pad))
-        self.device = torch.device(device or "cpu")
+        self.device = get_device(device)
         self._rng = np.random.default_rng(seed)
         self._gen_host = torch.Generator().manual_seed(seed)
         self._gen_dev = torch.Generator(device=self.device).manual_seed(seed)

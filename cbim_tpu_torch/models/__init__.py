@@ -1,8 +1,8 @@
 """Model factory (counterpart of ``cbim_tpu/models/__init__.py``).
 
-MedFormer-3D and MedFormer-2D are ported; every other (model, dimension)
-raises ``NotImplementedError`` (the rest of the zoo is queued in
-ROADMAP.md).
+MedFormer-3D, MedFormer-2D and SwinUNETR (serving only) are ported; every
+other (model, dimension) raises ``NotImplementedError`` (the rest of the zoo
+is queued in ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -13,7 +13,9 @@ import torch
 from torch import nn
 
 from ..config import compute_dtype, set_float32_precision
+from ..ops._backend import get_device
 from .layers.convs import CHANNELS_LAST
+from .unetr import InstanceNormAffine
 
 #: the full-width MedFormer-3D stage widths (``cbim_tpu``'s default)
 DEFAULT_CHAN_NUM = [64, 128, 256, 320, 256, 128, 64, 32]
@@ -33,10 +35,16 @@ def _norm_scales(v, n):
     return [list(t) for t in v]
 
 
-def get_model(cfg, device=None, generator: torch.Generator | None = None,
+#: the (dimension, model) pairs the port builds
+PORTED = (("3d", "medformer"), ("2d", "medformer"), ("3d", "swin_unetr"))
+
+
+def get_model(cfg, device="cuda", generator: torch.Generator | None = None,
               train: bool = False) -> nn.Module:
     """Build the model selected by (cfg.dimension, cfg.model) in
-    channels-last memory (channels_last_3d for 3D) on ``device``.
+    channels-last memory (channels_last_3d for 3D) on ``device``: the card
+    unless the caller asks for the CPU ('cuda' without a usable sm_90 card
+    raises).
 
     ``train=False`` (serving): eval mode (BatchNorm reads its running
     statistics), parameters in cfg's compute dtype.
@@ -47,11 +55,21 @@ def get_model(cfg, device=None, generator: torch.Generator | None = None,
     ``generator``: re-draw every parameter from it with torch's default
     initialisation (seeded random weights)."""
     dim, name = cfg.dimension, cfg.model
-    if name != "medformer" or dim not in ("2d", "3d"):
+    if (dim, name) not in PORTED:
         raise NotImplementedError(
             f"model {name!r} ({dim}) is not ported yet; the PyTorch port "
-            f"covers MedFormer-3D and MedFormer-2D (see ROADMAP.md)")
-    model = (_medformer2d if dim == "2d" else _medformer3d)(cfg)
+            f"covers MedFormer-3D, MedFormer-2D and SwinUNETR serving (see "
+            f"ROADMAP.md)")
+    if name == "swin_unetr" and train:
+        raise NotImplementedError(
+            "SwinUNETR training is not ported yet (ROADMAP.md, queue A: "
+            "SwinUNETR training; the window-attention kernel has no "
+            "backward)")
+    device = get_device(device)
+    if name == "swin_unetr":
+        model = _swin_unetr(cfg)
+    else:
+        model = (_medformer2d if dim == "2d" else _medformer3d)(cfg)
     if generator is not None:
         init_weights(model, generator)
     set_float32_precision(cfg)
@@ -85,6 +103,15 @@ def _medformer2d(cfg) -> nn.Module:
         proj_drop=cfg.get("proj_drop", 0.0))
 
 
+def _swin_unetr(cfg) -> nn.Module:
+    """The JAX factory's SwinUNETR: img_size = the window, feature_size =
+    base_chan, the model's defaults for the rest."""
+    from .swin_unetr import SwinUNETR
+    return SwinUNETR(in_chan=cfg.in_chan, num_classes=cfg.classes,
+                     img_size=tuple(cfg.window_size or cfg.training_size),
+                     feature_size=cfg.base_chan)
+
+
 def _medformer3d(cfg) -> nn.Module:
     from .medformer import MedFormer3D
     return MedFormer3D(
@@ -105,11 +132,21 @@ def _medformer3d(cfg) -> nn.Module:
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """torch's default init drawn from ``generator``: conv/linear weights
-    and biases U(+-1/sqrt(fan_in)) (kaiming_uniform(a=sqrt(5))), LayerNorm
-    weight 1 and bias 0 (BatchNorm keeps its own: weight 1, bias 0)."""
+    """torch's default init drawn from ``generator``: conv, transposed-conv
+    and linear weights and biases U(+-1/sqrt(fan_in)) (kaiming_uniform(a=
+    sqrt(5)); a transposed conv's fan_in is its dim 1 times its kernel),
+    LayerNorm weight 1 and bias 0 (BatchNorm keeps its own: weight 1, bias
+    0).  The Swin family's parameters that torch's default leaves constant
+    are drawn too, so that seeded weights exercise them: the relative
+    position bias tables trunc_normal(std 0.02) as the reference inits
+    them, the affine instance norms' weight U(0.5, 1.5) and bias
+    U(-0.5, 0.5)."""
+    for name, p in model.named_parameters():
+        if name.endswith("relative_position_bias_table"):
+            nn.init.trunc_normal_(p, std=0.02, generator=generator)
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d,
+                          nn.Linear)):
             fan_in = m.weight.shape[1] * math.prod(m.weight.shape[2:])
             bound = 1.0 / math.sqrt(fan_in)
             m.weight.uniform_(-bound, bound, generator=generator)
@@ -118,3 +155,6 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.fill_(0.0)
+        elif isinstance(m, InstanceNormAffine):
+            m.weight.uniform_(0.5, 1.5, generator=generator)
+            m.bias.uniform_(-0.5, 0.5, generator=generator)

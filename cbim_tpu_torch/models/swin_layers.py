@@ -1,0 +1,251 @@
+"""Shifted-window attention machinery of the Swin family (counterpart of
+``cbim_tpu/models/swin_layers.py``), with MONAI's parameter names.
+
+Token stages work channels-last, (B, *spatial, C): the models hand them
+``x.permute(0, 2, 3, 4, 1)`` of an NCDHW tensor in ``channels_last_3d``
+memory, a view that copies nothing.  Window partitioning is reshape and
+permute; the relative-position index and the shifted-window region ids are
+numpy, built on the host once per padded shape and cached on the device.
+
+Every window attention goes through ``ops.kernels.window_attention`` (the
+CUDA kernel on the card, its plain version on the CPU).  The kernel takes
+the shift mask as region ids: :func:`compute_attn_mask` (the JAX package's
+-100 matrix) is kept for the tests, which hold the two against each other.
+
+Ported: ``window_partition``/``window_reverse``, ``get_window_size``,
+``relative_position_index``, ``compute_attn_mask``, ``WindowAttention``,
+``SwinBlock`` and ``PatchMergingLegacy``.  ``PatchMergingV2`` (SwinUnet)
+is not ported yet (ROADMAP.md).  Dropout and stochastic depth are not
+ported: the serving path runs without them.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.activations import gelu
+from ..ops.kernels.window_attention import region_mask, window_attention
+
+
+def window_partition(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
+    """(B, *spatial, C) -> (num_windows * B, prod(window), C), batch-major."""
+    nd = x.dim() - 2
+    B, C = x.shape[0], x.shape[-1]
+    shape = [B]
+    for i in range(nd):
+        shape += [x.shape[1 + i] // window[i], window[i]]
+    x = x.reshape(*shape, C)
+    perm = [0, *range(1, 2 * nd, 2), *range(2, 2 * nd + 1, 2), x.dim() - 1]
+    return x.permute(*perm).reshape(-1, math.prod(window), C)
+
+
+def window_reverse(windows: torch.Tensor, window: Sequence[int],
+                   spatial: Sequence[int]) -> torch.Tensor:
+    """Inverse of :func:`window_partition`."""
+    nd = len(window)
+    C = windows.shape[-1]
+    grid = [s // w for s, w in zip(spatial, window)]
+    x = windows.reshape(-1, *grid, *window, C)
+    perm = [0]
+    for i in range(nd):
+        perm += [1 + i, 1 + nd + i]
+    return x.permute(*perm, x.dim() - 1).reshape(-1, *spatial, C)
+
+
+def get_window_size(x_size, window_size, shift_size=None):
+    """Shrink windows to the input extent; no shift along a shrunk axis."""
+    use_w = list(window_size)
+    use_s = list(shift_size) if shift_size is not None else None
+    for i in range(len(x_size)):
+        if x_size[i] <= window_size[i]:
+            use_w[i] = x_size[i]
+            if use_s is not None:
+                use_s[i] = 0
+    if shift_size is None:
+        return tuple(use_w)
+    return tuple(use_w), tuple(use_s)
+
+
+def relative_position_index(window: Sequence[int]) -> np.ndarray:
+    """(N, N) index of each (query, key) pair's relative offset into the
+    bias table of ``prod(2w - 1)`` rows."""
+    coords = np.stack(np.meshgrid(*[np.arange(w) for w in window],
+                                  indexing="ij"))
+    flat = coords.reshape(len(window), -1)
+    rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0)
+    for i, w in enumerate(window):
+        rel[:, :, i] += w - 1
+    mult = 1
+    idx = np.zeros(rel.shape[:2], np.int64)
+    for i in reversed(range(len(window))):
+        idx += rel[:, :, i] * mult
+        mult *= 2 * window[i] - 1
+    return idx
+
+
+def compute_region_ids(spatial, window, shift) -> np.ndarray | None:
+    """The region of every token of each window under a cyclic shift,
+    int32 (num_windows, prod(window)); None when no axis is shifted.
+
+    The labelling of the reference's shifted-window mask: each axis splits
+    into [0, -w), [-w, -s), [-s, end) (one region where s = 0), and regions
+    are numbered over the product of the splits."""
+    if not any(s > 0 for s in shift):
+        return None
+    img = np.zeros(tuple(spatial), np.int32)
+    ranges = []
+    for w, s in zip(window, shift):
+        # s == 0: slice(-w, 0) is empty and slice(None) the whole axis
+        ranges.append((slice(-w),
+                       slice(-w, -s) if s > 0 else slice(-w, 0),
+                       slice(-s, None) if s > 0 else slice(None)))
+    for cnt, idxs in enumerate(itertools.product(*ranges)):
+        img[idxs] = cnt
+    nd = len(spatial)
+    shape, perm_a, perm_b = [], [], []
+    for i in range(nd):
+        shape += [spatial[i] // window[i], window[i]]
+        perm_a.append(2 * i)
+        perm_b.append(2 * i + 1)
+    ids = img.reshape(shape).transpose(*perm_a, *perm_b)
+    return np.ascontiguousarray(ids.reshape(-1, math.prod(window)))
+
+
+def compute_attn_mask(spatial, window, shift) -> np.ndarray | None:
+    """The shifted-window mask, (num_windows, N, N) float32 of 0 / -100, or
+    None when no axis is shifted (``cbim_tpu``'s, from the region ids)."""
+    ids = compute_region_ids(spatial, window, shift)
+    if ids is None:
+        return None
+    return region_mask(torch.from_numpy(ids)).numpy()
+
+
+class WindowAttention(nn.Module):
+    """W-MSA with relative position bias (MONAI names ``qkv``, ``proj``,
+    ``relative_position_bias_table``).
+
+    ``table_window``: the nominal window the bias table is sized for.  When
+    the runtime window shrinks to the input extent, the index is sliced
+    ``[:N, :N]``, as the reference does.  The index is a non-persistent
+    buffer: the reference's state_dicts carry it, but it is deterministic,
+    and ``import_swin_unetr`` does not read it."""
+
+    def __init__(self, dim: int, num_heads: int, table_window: Sequence[int]):
+        super().__init__()
+        self.num_heads = num_heads
+        table_size = math.prod(2 * w - 1 for w in table_window)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros(table_size, num_heads))
+        self.register_buffer(
+            "relative_position_index",
+            torch.from_numpy(relative_position_index(table_window)),
+            persistent=False)
+        self.qkv = nn.Linear(dim, dim * 3)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor,
+                region: torch.Tensor | None = None) -> torch.Tensor:
+        """x: (windows, N, C); region: int32 (num_windows, N) or None."""
+        b, n, c = x.shape
+        h = self.num_heads
+        # (b, n, 3, h, hd) -> three (b, h, n, hd) views of one tensor
+        q, k, v = self.qkv(x).view(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
+        idx = self.relative_position_index[:n, :n].reshape(-1)
+        bias = self.relative_position_bias_table[idx].view(n, n, h)
+        out = window_attention(q, k, v, bias.permute(2, 0, 1), region)
+        return self.proj(out.transpose(1, 2).reshape(b, n, c))
+
+
+class Mlp(nn.Module):
+    """MONAI's MLPBlock, 4x wide: ``linear1``, exact GELU, ``linear2``."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.linear1 = nn.Linear(dim, 4 * dim)
+        self.linear2 = nn.Linear(4 * dim, dim)
+
+    def forward(self, x):
+        return self.linear2(gelu(self.linear1(x)))
+
+
+class SwinBlock(nn.Module):
+    """One (shifted-)window transformer block on (B, *spatial, C):
+    ``norm1``, ``attn``, ``norm2``, ``mlp``.
+
+    Zero padding to whole windows comes after ``norm1``, and the padded
+    tokens are attended to (not masked), as in the reference."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: Sequence[int],
+                 shift_size: Sequence[int]):
+        super().__init__()
+        self.window_size = tuple(window_size)
+        self.shift_size = tuple(shift_size)
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn = WindowAttention(dim, num_heads, self.window_size)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.mlp = Mlp(dim)
+        self._regions: dict = {}
+
+    def _region(self, padded, window, shift, device):
+        """The region ids of this padded shape on ``device`` (cached)."""
+        key = (padded, window, shift, device)
+        if key not in self._regions:
+            ids = compute_region_ids(padded, window, shift)
+            self._regions[key] = (None if ids is None
+                                  else torch.from_numpy(ids).to(device))
+        return self._regions[key]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        nd = x.dim() - 2
+        spatial = tuple(x.shape[1:-1])
+        window, shift = get_window_size(spatial, self.window_size,
+                                        self.shift_size)
+        dims = tuple(range(1, 1 + nd))
+        h = self.norm1(x)
+        pads = [(-s) % w for s, w in zip(spatial, window)]
+        if any(pads):
+            # F.pad orders its pairs from the last axis (C) backwards
+            h = F.pad(h, [0, 0, *(p for pad in reversed(pads)
+                                  for p in (0, pad))])
+        padded = tuple(h.shape[1:-1])
+        if any(shift):
+            h = torch.roll(h, [-s for s in shift], dims=dims)
+        region = self._region(padded, window, shift, x.device)
+        wins = self.attn(window_partition(h, window), region)
+        h = window_reverse(wins, window, padded)
+        if any(shift):
+            h = torch.roll(h, list(shift), dims=dims)
+        if any(pads):
+            h = h[(slice(None), *(slice(0, s) for s in spatial))]
+        x = x + h
+        return x + self.mlp(self.norm2(x))
+
+
+class PatchMergingLegacy(nn.Module):
+    """MONAI v0.9.0 'merging' on (B, D, H, W, C): ``norm``, ``reduction``,
+    with its duplicate-slice quirk (the 5th and 6th slices repeat the 2nd and
+    3rd; (1, 1, 0) and (0, 1, 1) are skipped).  Odd extents are zero-padded
+    by one."""
+
+    OFFSETS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1),
+               (1, 0, 1), (0, 1, 0), (0, 0, 1), (1, 1, 1))
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = nn.LayerNorm(8 * dim, eps=1e-5)
+        self.reduction = nn.Linear(8 * dim, 2 * dim, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        D, H, W = x.shape[1:4]
+        if D % 2 or H % 2 or W % 2:
+            x = F.pad(x, [0, 0, 0, W % 2, 0, H % 2, 0, D % 2])
+        x = torch.cat([x[:, i::2, j::2, k::2, :] for i, j, k in self.OFFSETS],
+                      dim=-1)
+        return self.reduction(self.norm(x))

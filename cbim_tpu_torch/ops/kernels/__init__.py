@@ -2,9 +2,10 @@
 
 from __future__ import annotations
 
-from . import conv2d, conv3d, fused_norm
+from . import conv2d, conv3d, fused_norm, window_attention
 
-_COUNTS = (fused_norm.launches, conv3d.launches, conv2d.launches)
+_COUNTS = (fused_norm.launches, conv3d.launches, conv2d.launches,
+           window_attention.launches)
 
 
 def launch_counts() -> dict:

@@ -56,6 +56,10 @@ SIGNATURES = {
     # x, g, partial, dw, dtype, B, H, W, C, F, rows_per_chunk, n_chunks,
     # stream
     "conv2d_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, bias_t, region, o, dtype, B, H, N, D, nW, sb, sh, sn, osb,
+    # osh, osn, stream
+    "window_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _LL, _LL, _LL, _LL, _LL, _LL, _P],
 }
 
 _lib = None

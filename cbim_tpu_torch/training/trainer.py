@@ -24,6 +24,7 @@ import torch
 from ..data.factory import get_dataset
 from ..data.pipeline import TrainPipeline
 from ..models import get_model
+from ..ops._backend import get_device
 from ..utils.logging import AverageMeter, MetricWriter, ProgressMeter
 from ..utils.profiling import StepProfiler
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -56,11 +57,11 @@ def load_pretrained(cfg, state) -> None:
         state.ema.load_state_dict(sd)
 
 
-def train_net(cfg, fold_idx: int = 0, device=None):
-    """Train one fold on ``device``; returns (best_dice, best_hd, best_asd)
-    arrays, which stay at their initial values until validation is
-    ported."""
-    device = torch.device(device or "cpu")
+def train_net(cfg, fold_idx: int = 0, device="cuda"):
+    """Train one fold on ``device`` (the card unless the caller asks for the
+    CPU); returns (best_dice, best_hd, best_asd) arrays, which stay at their
+    initial values until validation is ported."""
+    device = get_device(device)
     check_no_validation(cfg.start_epoch, cfg.epochs, cfg.val_freq)
     trainset = get_dataset(cfg, mode="train", fold_idx=fold_idx)
     pipeline = TrainPipeline(trainset, cfg, seed=cfg.split_seed + fold_idx,

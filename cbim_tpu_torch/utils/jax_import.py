@@ -1,11 +1,12 @@
-"""Flax MedFormer variables -> this port's state_dict.
+"""Flax MedFormer and SwinUNETR variables -> this port's state_dict.
 
-The exact inverses of ``cbim_tpu.utils.torch_import.import_medformer3d``
-and ``import_medformer2d``: the same walks over the tree, with each layout
-transform undone
+The exact inverses of ``cbim_tpu.utils.torch_import.import_medformer3d``,
+``import_medformer2d`` and ``import_swin_unetr``: the same walks over the
+tree, with each layout transform undone
 
-    conv:   (*k, I, O) -> (O, I, *k)
-    linear: (I, O)     -> (O, I)
+    conv:           (*k, I, O) -> (O, I, *k)
+    linear:         (I, O)     -> (O, I)
+    transposed conv (*k, I, O), spatially flipped -> (I, O, *k) unflipped
 
 and each channel permutation inverted: the B-MHA's (``_bmha_perm``: Flax
 splits the inner channels head-major, the reference dim-head-major) and,
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from ..models import DEFAULT_CHAN_NUM
+from ..models.swin_unetr import DEPTHS as SWIN_DEPTHS
 
 
 def _bmha_perm(heads: int, dim_head: int) -> np.ndarray:
@@ -44,6 +46,16 @@ def conv_from_flax(w) -> np.ndarray:
     w = np.asarray(w)
     nd = w.ndim
     return np.transpose(w, (nd - 1, nd - 2, *range(nd - 2)))
+
+
+def convtranspose_from_flax(w) -> np.ndarray:
+    """Inverse of ``convtranspose_to_flax``: undo its spatial flip, then
+    (*k, I, O) -> torch's ConvTranspose (I, O, *k)."""
+    w = np.asarray(w)
+    nd = w.ndim
+    w = w[(slice(None, None, -1),) * (nd - 2)]
+    return np.ascontiguousarray(np.transpose(w, (nd - 2, nd - 1,
+                                                 *range(nd - 2))))
 
 
 class _Walk:
@@ -74,6 +86,9 @@ class _Walk:
 
     def raw(self, path, key):
         self.sd[key] = np.asarray(self._get(self.params, path))
+
+    def conv_transpose(self, path, key):
+        self.sd[key] = convtranspose_from_flax(self._get(self.params, path))
 
     def linear(self, path, key, transform=None):
         w = np.asarray(self._get(self.params, path)).T
@@ -181,6 +196,40 @@ class _Walk:
                 mlp = (*tb, f"Mlp_{d}", f"Dense_{k}")
                 self.linear((*mlp, "kernel"), f"{base}.1.fn.{fc}.weight")
                 self.raw((*mlp, "bias"), f"{base}.1.fn.{fc}.bias")
+
+    def layer_norm(self, path, tkey):
+        self.raw((*path, "scale"), f"{tkey}.weight")
+        self.raw((*path, "bias"), f"{tkey}.bias")
+
+    def dense(self, path, tkey, bias=True):
+        self.linear((*path, "kernel"), f"{tkey}.weight")
+        if bias:
+            self.raw((*path, "bias"), f"{tkey}.bias")
+
+    def swin_block(self, path, tkey):
+        """A SwinBlock: LayerNorm_0, WindowAttention_0, LayerNorm_1 and the
+        MLP's Dense_0/Dense_1 -> ``tkey``.{norm1, attn.*, norm2, mlp.*}."""
+        attn = (*path, "WindowAttention_0")
+        self.layer_norm((*path, "LayerNorm_0"), f"{tkey}.norm1")
+        self.dense((*attn, "Dense_0"), f"{tkey}.attn.qkv")
+        self.raw((*attn, "relative_position_bias_table"),
+                 f"{tkey}.attn.relative_position_bias_table")
+        self.dense((*attn, "Dense_1"), f"{tkey}.attn.proj")
+        self.layer_norm((*path, "LayerNorm_1"), f"{tkey}.norm2")
+        self.dense((*path, "Dense_0"), f"{tkey}.mlp.linear1")
+        self.dense((*path, "Dense_1"), f"{tkey}.mlp.linear2")
+
+    def patch_merging(self, path, tkey):
+        self.layer_norm((*path, "LayerNorm_0"), f"{tkey}.norm")
+        self.dense((*path, "Dense_0"), f"{tkey}.reduction", bias=False)
+
+    def unet_res_block(self, path, tkey):
+        """unetr.UnetResBlock -> MONAI's conv{1,2,3}/norm{1,2,3} (the third
+        pair where the block has a projected residual)."""
+        for i in range(3 if self.has((*path, "Conv_2")) else 2):
+            self.conv((*path, f"Conv_{i}", "kernel"),
+                      f"{tkey}.conv{i + 1}.weight")
+            self.layer_norm((*path, f"_INorm_{i}"), f"{tkey}.norm{i + 1}")
 
     def heads(self):
         """aux + out heads (created in that order -> Conv_0, Conv_1)."""
@@ -302,4 +351,32 @@ def medformer2d_state_dict_from_jax(variables, cfg) -> dict:
         bmha((f,), name, 4 + u)
         blocks((f,), name, conv_num[4 + u])
     t.heads()
+    return t.state_dict()
+
+
+def swin_unetr_state_dict_from_jax(params) -> dict:
+    """Flax SwinUNETR params (nested dicts of arrays) -> state_dict, with the
+    reference's names (the keys ``import_swin_unetr`` reads)."""
+    t = _Walk(params)
+    sw = ("SwinTransformer3D_0",)
+    t.conv((*sw, "Conv_0", "kernel"), "swinViT.patch_embed.proj.weight")
+    t.raw((*sw, "Conv_0", "bias"), "swinViT.patch_embed.proj.bias")
+    blk = 0
+    for stage, depth in enumerate(SWIN_DEPTHS):
+        tkey = f"swinViT.layers{stage + 1}.0"
+        for b in range(depth):
+            t.swin_block((*sw, f"SwinBlock_{blk}"), f"{tkey}.blocks.{b}")
+            blk += 1
+        t.patch_merging((*sw, f"PatchMergingLegacy_{stage}"),
+                        f"{tkey}.downsample")
+    for i, name in enumerate(("encoder1", "encoder2", "encoder3", "encoder4",
+                              "encoder10")):
+        t.unet_res_block((f"UnetResBlock_{i}",), f"{name}.layer")
+    for i, name in enumerate(("decoder5", "decoder4", "decoder3", "decoder2",
+                              "decoder1")):
+        t.conv_transpose((f"_TranspConv_{i}", "ConvTranspose_0", "kernel"),
+                         f"{name}.transp_conv.weight")
+        t.unet_res_block((f"UnetResBlock_{i + 5}",), f"{name}.conv_block")
+    t.conv(("Conv_0", "kernel"), "out.conv.weight")
+    t.raw(("Conv_0", "bias"), "out.conv.bias")
     return t.state_dict()

@@ -1,5 +1,6 @@
 """The trainer's profiler hook (counterpart of the JAX trainer's
-``profile_dir`` trace), on ``torch.profiler``.
+``profile_dir`` trace), on ``torch.profiler``; ``chip_smoke.py --profile``
+also traces a serving run with it, a volume to a step.
 
 One window of train steps is traced; on stop, ``profile_dir`` gets
 ``kernels.txt`` (``key_averages`` sorted by device time) and
@@ -23,6 +24,7 @@ import torch
 #: kernel families, the first whose pattern is in a kernel's name; the rest
 #: count as "other elementwise"
 FAMILIES = [
+    ("window attention kernel", "window_attention_kernel"),
     ("conv fwd/dgrad kernels", "same_fwd_kernel"),
     ("conv wgrad kernels", "_wgrad_"),
     ("InstanceNorm kernels", "inorm_"),
@@ -30,6 +32,8 @@ FAMILIES = [
     ("depthwise 3D convs", "depthwise"),
     ("cuDNN convs", "conv"),
     ("cuDNN convs", "grad2d"),
+    ("cuDNN convs", "fprop"),
+    ("cuDNN convs", "dgrad"),
     ("upsample", "upsample"),
     ("softmax", "SoftMax"),
     ("layout copies and casts", "copy"),

@@ -13,13 +13,17 @@ Phases, each printing its result; any failure raises and exits non-zero:
    each kernel's time beside its plain version's and the one PyTorch call
    that computes the same function (cuDNN's conv or weight gradient); and
    cuDNN's depthwise 3x3 conv in both memory formats, the layout choice of
-   MedFormer-2D's grouped convs;
+   MedFormer-2D's grouped convs; the window-attention kernel at the Swin
+   zoo's seven shapes, with and without a shifted-window mask, beside
+   ``F.scaled_dot_product_attention`` on the same bias;
 4. a small MedFormer-3D on a 64^3 input, same seeded weights, on the card
    (kernels) and on the CPU (plain versions): softmax outputs compared;
 4b. one train step of that small model, card vs CPU, fp32 with TF32 off:
    the loss and every parameter's gradient compared;
 4c. the same two checks for a small MedFormer-2D (BatchNorm, 128^2 slices):
    eval-mode softmax, then one train-mode fp32 step;
+4d. a small SwinUNETR (feature size 48, on 2 x 64^3 and 1 x 32^3), card
+   (window-attention kernel) vs CPU (plain version): softmax outputs;
 5. serving: the full-width AMOS-CT MedFormer-3D with seeded random weights
    serves two synthetic NIfTI requests through
    ``cbim_tpu_torch.prediction.main``; every forward kernel must have
@@ -39,9 +43,15 @@ Phases, each printing its result; any failure raises and exits non-zero:
    trains an epoch of batch-32 steps on ``Synthetic2D`` through
    ``cbim_tpu_torch.train.main --dimension 2d --amp``; the 3x3 conv's
    forward, dgrad and wgrad kernels must have launched, and every loss must
-   be finite.
+   be finite;
+9. Swin serving: the full-width BCV SwinUNETR (``configs/bcv/
+   swin_unetr_3d.yaml``: 14 classes, feature size 48, 128^3 window, fp32)
+   with seeded random weights serves phase 5's two requests through
+   ``cbim_tpu_torch.prediction.main --model swin_unetr``; the window-
+   attention kernel must have launched once per Swin block of every
+   forward, 6 per forward.
 
-Each of phases 5-8 sets the launch counters to 0 just before it and reads
+Each of phases 5-9 sets the launch counters to 0 just before it and reads
 them just after.  The last three lines are the card's name and power limit,
 the kernels' JSON record (launches by phase, errors, times, the bound from
 the recorded shape's FLOPs and bytes) and ``{"ok": true, "device":
@@ -50,8 +60,9 @@ the recorded shape's FLOPs and bytes) and ``{"ok": true, "device":
 Usage: python3 chip_smoke.py [--profile DIR]
 
 ``--profile DIR`` also traces the steady steps of phases 6 and 8 with the
-trainer's profiler hook (``profile_dir``): DIR/<phase>/kernels.txt and
-summary.json, and the top kernels by device time are printed.
+trainer's profiler hook (``profile_dir``), and phase 9's requests served a
+second time, after the timed run: DIR/<phase>/kernels.txt and summary.json,
+and the top kernels by device time are printed.
 """
 
 from __future__ import annotations
@@ -88,6 +99,8 @@ KERNELS = {
                         "cbim_tpu/ops/pallas/conv2d.py:115"),
     "conv2d_wgrad": ("cbim_tpu_torch/csrc/conv2d.cu",
                      "cbim_tpu/ops/pallas/conv2d.py:238"),
+    "window_attention": ("cbim_tpu_torch/csrc/window_attention.cu",
+                         "cbim_tpu/ops/pallas/window_attention.py:78"),
 }
 #: the launch counter of each forward kernel's input-gradient launches
 DGRAD = {"conv3d_same_fwd": "conv3d_dgrad", "conv2d_same_fwd": "conv2d_dgrad"}
@@ -116,6 +129,28 @@ CONV2D_RECORD = ((32, 256, 256, 32, 32), "bfloat16")
 #: B-MHA projections and MBConvs of down2/up2, down3/up1 and down4
 DEPTHWISE2D_CASES = [(32, 64, 64, 128), (32, 64, 64, 256), (32, 32, 32, 512),
                      (32, 16, 16, 1024)]
+
+#: window-attention shapes (B, H, N, D) of the Swin zoo (the JAX kernel's
+#: header, window_attention.py:21-28): SwinUNETR's three stages of one
+#: 128^3 window, VT-UNet's two, nnFormer's two; each with a padded token
+#: grid and window whose half-window shift gives its region mask (nW
+#: windows, nW dividing B)
+WA_CASES = [((1000, 3, 343, 16), (70, 70, 70), (7, 7, 7)),
+            ((125, 6, 343, 16), (35, 35, 35), (7, 7, 7)),
+            ((27, 12, 343, 16), (21, 21, 21), (7, 7, 7)),
+            ((343, 3, 343, 32), (49, 49, 49), (7, 7, 7)),
+            ((64, 6, 343, 32), (28, 28, 28), (7, 7, 7)),
+            ((200, 6, 64, 16), (20, 20, 32), (4, 4, 4)),
+            ((16, 24, 512, 16), (16, 16, 32), (8, 8, 8))]
+#: the case of the JSON record: SwinUNETR's first stage, shifted, fp32
+WA_RECORD = ((1000, 3, 343, 16), True, "float32")
+#: the window attention's error, held against max|o| (the scale of every
+#: row's weighted mean of v): fp32, both sides sum N products per entry in
+#: fp32 in other orders and exponentiate differently (exp2 of scaled
+#: logits vs exp); bf16, both compute in fp32 and round once to bf16, one
+#: ulp (2^-8 relative) where they straddle a rounding boundary.  A wrong
+#: window, head, mask or tail errs by O(1) of max|o|.
+WA_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
 
 #: the bound of a recorded kernel: published dense peaks of one H100 SXM
 #: (float32 outside the tensor cores; bf16 on them) and its HBM rate
@@ -235,6 +270,24 @@ SMALL2D = dict(
     conv_num=[2, 1, 0, 0, 0, 1, 2, 2], trans_num=[0, 1, 1, 1, 1, 1, 0, 0],
     num_heads=[1, 4, 4, 4, 4, 4, 1, 1], expansion=2, fusion_depth=2,
     fusion_dim=64, fusion_heads=4, proj_type="depthwise", aux_loss=True)
+
+#: a SwinUNETR at the BCV width (feature size 48: head dim 16 at every
+#: stage), cut in input size (phase 4d)
+SMALL_SWIN = dict(dataset="synthetic", model="swin_unetr", dimension="3d",
+                  classes=14, in_chan=1, base_chan=48,
+                  training_size=[64, 64, 64])
+#: its inputs: 64^3 (padded windows, shifted masks at every stage, batch 2
+#: so the mask's window index wraps at b % nW) and 32^3 (the last stage's
+#: window shrinks to 4^3 and its bias-table index to [:64, :64])
+SMALL_SWIN_SHAPES = [(2, 1, 64, 64, 64), (1, 1, 32, 32, 32)]
+
+#: the model and inference keys of configs/bcv/swin_unetr_3d.yaml (phase 9)
+BCV = dict(dataset="bcv", model="swin_unetr", dimension="3d", classes=14,
+           in_chan=1, base_chan=48, training_size=[128, 128, 128],
+           sliding_window=True, window_size=[128, 128, 128])
+#: window-attention launches per SwinUNETR forward: one per Swin block,
+#: depths (2, 2, 2, 0)
+SWIN_BLOCKS = 6
 
 #: the model and inference keys of configs/acdc/medformer_2d.yaml
 ACDC = dict(
@@ -605,6 +658,82 @@ def phase_conv2d_kernels(device, cases, record: dict) -> None:
     torch.cuda.synchronize()
 
 
+def phase_window_attention(device, cases, record: dict) -> None:
+    """Phase 3, the window attention: the kernel against its plain version
+    at each shape, fp32 and bf16, with no mask and with the shifted-window
+    region mask, beside ``F.scaled_dot_product_attention`` on the same
+    additive bias (rel_bias plus the -100 mask, pre-broadcast to (B, H, N,
+    N) in the inputs' dtype).  Also: on the card the wrapper raises where
+    autograd would need a gradient."""
+    import torch
+    import torch.nn.functional as F
+    from cbim_tpu_torch.models.swin_layers import compute_region_ids
+    from cbim_tpu_torch.ops.kernels import window_attention as wa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(5)
+    errs = record["errors"]
+    errs["window_attention"] = 0.0
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        for (B, H, N, D), spatial, window in cases:
+            q, k, v = (torch.randn(B, H, N, D, generator=gen, device=device)
+                       .to(dtype) for _ in range(3))
+            rel_bias = torch.randn(H, N, N, generator=gen, device=device)
+            ids = compute_region_ids(spatial, window,
+                                     tuple(w // 2 for w in window))
+            for region in (None, torch.from_numpy(ids).to(device)):
+                ref = wa.window_attention_plain(q, k, v, rel_bias, region)
+                out = wa.window_attention(q, k, v, rel_bias, region)
+                bias = rel_bias.expand(B, H, N, N)
+                if region is not None:
+                    nW = region.shape[0]
+                    bias = (bias.reshape(B // nW, nW, H, N, N)
+                            + wa.region_mask(region)[None, :, None])
+                bias = bias.reshape(B, H, N, N).to(dtype).contiguous()
+                lib = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+                torch.cuda.synchronize()
+                scale = float(ref.float().abs().max())
+                err = float((out.float() - ref.float()).abs().max())
+                lib_err = float((lib.float() - ref.float()).abs().max())
+                flops = 4 * B * H * N * N * D
+                n = iters_for(flops, 1e10)
+                ms = cuda_ms(lambda: wa.window_attention(q, k, v, rel_bias,
+                                                         region), n)
+                plain_ms = cuda_ms(lambda: wa.window_attention_plain(
+                    q, k, v, rel_bias, region), n)
+                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias), n)
+                masked = region is not None
+                nbytes = (4 * q.numel() * q.element_size()
+                          + rel_bias.numel() * 4
+                          + (region.numel() * 4 if masked else 0))
+                b_ms, b_by = bound(flops, nbytes, dt)
+                say(f"  window_attention {dt:8s} {(B, H, N, D)} "
+                    f"mask={str(masked):5s}: max_abs_err {err:.3e} "
+                    f"max_rel_err {err / scale:.3e} of max|o| {scale:.3f} "
+                    f"(tol {WA_TOL[dt]:.1e}) kernel {ms:.3f} ms "
+                    f"({flops / ms / 1e9:.1f} TFLOP/s) bound {b_ms:.3f} ms "
+                    f"({b_by}) plain {plain_ms:.3f} ms SDPA {lib_ms:.3f} ms "
+                    f"(its err {lib_err:.1e})")
+                assert err <= WA_TOL[dt] * scale, \
+                    f"window_attention {dt} {(B, H, N, D)} mask={masked}"
+                errs["window_attention"] = max(errs["window_attention"], err)
+                if ((B, H, N, D), masked, dt) == WA_RECORD:
+                    record["window_attention"] = entry(
+                        ms, plain_ms, lib_ms, flops, nbytes, dt, (B, H, N, D))
+                del ref, out, bias, lib
+            del q, k, v, rel_bias
+    qg = torch.randn(2, 3, 49, 16, device=device, requires_grad=True)
+    try:
+        wa.window_attention(qg, qg, qg, torch.zeros(3, 49, 49, device=device))
+    except RuntimeError as e:
+        assert "no backward" in str(e), e
+    else:
+        raise AssertionError("window_attention ran where autograd needs a "
+                             "gradient")
+    torch.cuda.synchronize()
+
+
 def seeded_model(cfg, seed: int, train: bool = False):
     """A CPU model with seeded weights; BatchNorm running statistics drawn
     from the seed too (their initial 0 and 1 would leave eval-mode
@@ -612,7 +741,7 @@ def seeded_model(cfg, seed: int, train: bool = False):
     import torch
     from cbim_tpu_torch.models import get_model
     gen = torch.Generator().manual_seed(seed)
-    model = get_model(cfg, train=train, generator=gen)
+    model = get_model(cfg, device="cpu", train=train, generator=gen)
     with torch.no_grad():
         for name, buf in model.named_buffers():
             if name.endswith("running_mean"):
@@ -655,8 +784,13 @@ def phase_depthwise_layouts(device, cases) -> None:
             f"{l_f:.3f} ms fwd+bwd {l_fb:.3f} ms")
 
 
+def head0(out):
+    """The logits of a model's output (head 0 of deep supervision)."""
+    return out[0] if isinstance(out, (tuple, list)) else out
+
+
 def phase_small_model(device, cfg_dict, shape) -> float:
-    """Phases 4 and 4c: the small model on ``device`` vs the CPU, same
+    """Phases 4, 4c and 4d: the small model on ``device`` vs the CPU, same
     weights, on an input of ``shape`` (B, C, *spatial), eval mode."""
     import torch
     from cbim_tpu_torch.config import config_from_dict
@@ -667,8 +801,8 @@ def phase_small_model(device, cfg_dict, shape) -> float:
     dev_model.load_state_dict(cpu_model.state_dict())
     x = torch.randn(*shape, generator=torch.Generator().manual_seed(2))
     with torch.inference_mode():
-        ref = torch.softmax(cpu_model(x)[0], dim=1)
-        out = torch.softmax(dev_model(x.to(device))[0], dim=1).cpu()
+        ref = torch.softmax(head0(cpu_model(x)), dim=1)
+        out = torch.softmax(head0(dev_model(x.to(device))), dim=1).cpu()
     err = float((out - ref).abs().max())
     assert out.shape == (shape[0], cfg.classes, *shape[2:])
     assert torch.isfinite(out).all() and err <= MODEL_PROB_ATOL, err
@@ -741,10 +875,12 @@ def write_requests(in_dir: str, requests, seed: int = 0,
 
 
 def phase_slice(device, cfg_dict, requests, target_spacing, name: str,
-                required) -> dict:
-    """Phases 5 and 7: serve ``requests`` with seeded weights through
-    prediction; the launch counters are zeroed just before and read just
-    after, and every kernel in ``required`` must have launched."""
+                required, profile_dir: str | None = None) -> dict:
+    """Phases 5, 7 and 9: serve ``requests`` with seeded weights through
+    prediction; the launch counters and a count of the model's forwards are
+    zeroed just before and read just after, and every kernel in
+    ``required`` must have launched.  With ``profile_dir``, the requests
+    are served once more under the profiler hook, a volume to a step."""
     import numpy as np
     import torch
     from cbim_tpu_torch import prediction
@@ -756,19 +892,33 @@ def phase_slice(device, cfg_dict, requests, target_spacing, name: str,
     in_dir = os.path.join(WORK, name, "in")
     out_dir = os.path.join(WORK, name, "out")
     cfg = config_from_dict(cfg_dict)
-    weights = os.path.join(WORK, name, "medformer_seed0.pth")
+    weights = os.path.join(WORK, name, f"{cfg.model}_seed0.pth")
     os.makedirs(os.path.dirname(weights), exist_ok=True)
-    torch.save(get_model(cfg, generator=torch.Generator().manual_seed(0))
-               .state_dict(), weights)
+    model = get_model(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), weights)
+    model_cls = type(model)
+    del model
     write_requests(in_dir, requests, mr=cfg.dimension == "2d")
-    argv = ["--dataset", cfg.dataset, "--model", "medformer",
+    argv = ["--dataset", cfg.dataset, "--model", cfg.model,
             "--dimension", cfg.dimension, "--load", weights, "--img_path",
             in_dir, "--save_path", out_dir, "--target_spacing",
             target_spacing, "--device", str(device)]
 
+    forwards = []
+
+    def count_forward(module, args, out):
+        if isinstance(module, model_cls):
+            forwards.append(1)
+
+    hook = torch.nn.modules.module.register_module_forward_hook(
+        count_forward)
     torch.cuda.reset_peak_memory_stats(device)
     reset_launch_counts()
-    seconds = prediction.main(argv, cfg=cfg)
+    try:
+        seconds = prediction.main(argv, cfg=cfg)
+    finally:
+        hook.remove()
     counts = launch_counts()
 
     assert len(seconds) == len(requests), seconds
@@ -779,8 +929,15 @@ def phase_slice(device, cfg_dict, requests, target_spacing, name: str,
         assert pred.dtype == np.uint8 and int(pred.max()) < cfg.classes
     missing = [k for k in required if counts[k] == 0]
     assert not missing, f"kernels never launched on the path: {missing}"
-    return {"seconds": seconds, "launches": counts,
-            "peak_bytes": torch.cuda.max_memory_allocated(device)}
+    peak = torch.cuda.max_memory_allocated(device)
+    if profile_dir is not None:
+        from cbim_tpu_torch.utils.profiling import StepProfiler
+        prof = StepProfiler(profile_dir, device)
+        prof.start()
+        prediction.main(argv, cfg=cfg)
+        prof.stop(len(requests))
+    return {"seconds": seconds, "launches": counts, "forwards": len(forwards),
+            "peak_bytes": peak}
 
 
 def phase_train(device, cfg_dict, batch: int, name: str, required) -> dict:
@@ -826,19 +983,22 @@ def phase_train(device, cfg_dict, batch: int, name: str, required) -> dict:
             "launches": counts}
 
 
-def say_profile(profile_dir: str) -> None:
-    """The profiled window's busy share and its top kernels per step."""
+def say_profile(profile_dir: str, unit: str = "step") -> None:
+    """The profiled window's busy share and its top kernels per step (or
+    per ``unit``)."""
     with open(os.path.join(profile_dir, "summary.json")) as f:
         prof = json.load(f)
     n = prof["steps"]
-    say(f"  profiled {n} steps: {prof['wall_seconds'] / n * 1e3:.1f} ms/step "
-        f"wall, {prof['device_kernel_seconds'] / n * 1e3:.1f} ms/step of "
-        f"kernels, device busy {100 * prof['device_busy_share']:.1f} %")
+    say(f"  profiled {n} {unit}s: {prof['wall_seconds'] / n * 1e3:.1f} "
+        f"ms/{unit} wall, {prof['device_kernel_seconds'] / n * 1e3:.1f} "
+        f"ms/{unit} of kernels, device busy "
+        f"{100 * prof['device_busy_share']:.1f} %")
     total = prof["device_kernel_seconds"] / n * 1e3
     for fam, ms in prof["families_ms_per_step"].items():
-        say(f"    {ms:8.3f} ms/step {100 * ms / total:5.1f} %  {fam}")
+        say(f"    {ms:8.3f} ms/{unit} {100 * ms / total:5.1f} %  {fam}")
     for name, ms, count in prof["kernels_ms"][:25]:
-        say(f"    {ms / n:8.3f} ms/step {count // n:5d}/step  {name[:110]}")
+        say(f"    {ms / n:8.3f} ms/{unit} {count // n:5d}/{unit}  "
+            f"{name[:110]}")
 
 
 def say_train(tr: dict, unit: str) -> None:
@@ -855,14 +1015,15 @@ def say_serving(res: dict) -> None:
     say(f"  sec/volume {sum(secs.values()) / len(secs):.3f} "
         f"({', '.join(f'{k} {v:.3f}' for k, v in sorted(secs.items()))})"
         f"; peak device memory {res['peak_bytes'] / 2 ** 30:.2f} GiB; "
-        f"launches {res['launches']}")
+        f"{res['forwards']} forwards; launches {res['launches']}")
 
 
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="trace phases 6 and 8's steady steps into DIR")
+                        help="trace phases 6 and 8's steady steps, and "
+                             "phase 9's requests served again, into DIR")
     args = parser.parse_args(argv)
 
     def profiled(cfg_dict, name):
@@ -906,6 +1067,7 @@ def main(argv=None) -> int:
     phase_backward_kernels(device, CONV_CASES, NORM_CASES, record)
     phase_conv2d_kernels(device, CONV2D_CASES, record)
     phase_depthwise_layouts(device, DEPTHWISE2D_CASES)
+    phase_window_attention(device, WA_CASES, record)
 
     say("[phase 4] small MedFormer-3D, card vs CPU")
     err = phase_small_model(device, SMALL, (1, 1, 64, 64, 64))
@@ -929,6 +1091,12 @@ def main(argv=None) -> int:
         f"(tol {STEP_LOSS_RTOL:.0e}); gradient rel L2 err {l2_err:.3e} "
         f"(tol {STEP_GRAD_L2:.0e}); worst tensor err {grad_err:.3e} of its "
         f"scale (tol {STEP_GRAD_RTOL:.0e})")
+
+    say("[phase 4d] small SwinUNETR, card vs CPU")
+    for shape in SMALL_SWIN_SHAPES:
+        err = phase_small_model(device, SMALL_SWIN, shape)
+        say(f"  {shape} softmax max abs err {err:.3e} "
+            f"(tol {MODEL_PROB_ATOL})")
 
     launches = {}
     say("[phase 5] AMOS-CT MedFormer-3D serving 2 NIfTI requests")
@@ -970,6 +1138,19 @@ def main(argv=None) -> int:
     rec2d = record["conv2d_dgrad"]
     say(f"  dgrad of conv2d_same_fwd at {CONV2D_RECORD}: kernel "
         f"{rec2d[0]:.3f} ms, plain {rec2d[1]:.3f} ms, cuDNN {rec2d[2]:.3f} ms")
+
+    say("[phase 9] BCV SwinUNETR serving 2 NIfTI requests")
+    swin_prof = (None if args.profile is None
+                 else os.path.abspath(os.path.join(args.profile, "swin")))
+    res = phase_slice(device, BCV, REQUESTS, TARGET_SPACING, "serve_swin",
+                      ("window_attention",), swin_prof)
+    say_serving(res)
+    if swin_prof is not None:
+        say_profile(swin_prof, "volume")
+    n_attn = res["launches"]["window_attention"]
+    assert res["forwards"] > 0 and n_attn == SWIN_BLOCKS * res["forwards"], \
+        f"{n_attn} window-attention launches in {res['forwards']} forwards"
+    launches["9"] = res["launches"]
 
     jax_mods = [m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "cbim_tpu")]

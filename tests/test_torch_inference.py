@@ -99,7 +99,7 @@ def test_sliding_window_matches_jax_on_tiny_medformer():
     jm = jax_medformer(d)
     params = jax_params(jm, (1, 32, 32, 32, 1), seed=4)
     cfg = config_from_dict(d)
-    model = get_model(cfg)
+    model = get_model(cfg, device="cpu")
     model.load_state_dict(medformer3d_state_dict_from_jax(params, cfg))
     # 48x64x40 under a 32^3 window: clamped edges and repeated starts on
     # every axis (24 visits, 12 unique windows, 2 groups of 6)
@@ -125,7 +125,7 @@ def test_prediction_cli_end_to_end(tmp_path):
         yaml.safe_dump({k: v for k, v in cfg.items()
                         if k not in ("dataset", "model", "dimension")}, f)
     weights = tmp_path / "w.pth"
-    torch.save(get_model(config_from_dict(cfg),
+    torch.save(get_model(config_from_dict(cfg), device="cpu",
                          generator=torch.Generator().manual_seed(0))
                .state_dict(), weights)
     in_dir, out_dir = tmp_path / "in", tmp_path / "out"

@@ -94,7 +94,7 @@ def test_cpu_calls_leave_launch_counters_at_zero():
         "inorm_stats": 0, "inorm_apply": 0, "inorm_bwd_stats": 0,
         "inorm_bwd_apply": 0, "conv3d_same_fwd": 0, "conv3d_dgrad": 0,
         "conv3d_wgrad": 0, "conv2d_same_fwd": 0, "conv2d_dgrad": 0,
-        "conv2d_wgrad": 0}
+        "conv2d_wgrad": 0, "window_attention": 0}
 
 
 def test_plain_stats_and_apply_compose_to_instance_norm_act():
@@ -150,11 +150,13 @@ def test_build_command_targets_sm90a_from_repo_sources():
     assert "-shared" in link
     assert sum(a.endswith(".o") for a in link) == len(cmds)
     srcs = {p.name for p in _build.sources()}
-    assert {"conv2d.cu", "conv3d.cu", "fused_norm.cu"} <= srcs
+    assert {"conv2d.cu", "conv3d.cu", "fused_norm.cu",
+            "window_attention.cu"} <= srcs
     assert all(_build.CSRC in p.parents for p in _build.sources())
     assert set(_build.SIGNATURES) == {
         "inorm_stats", "inorm_apply", "inorm_bwd_stats", "inorm_bwd_apply",
-        "conv3d_same_fwd", "conv3d_wgrad", "conv2d_same_fwd", "conv2d_wgrad"}
+        "conv3d_same_fwd", "conv3d_wgrad", "conv2d_same_fwd", "conv2d_wgrad",
+        "window_attention"}
 
 
 # ---------------------------------------------------------------- backward

@@ -6,6 +6,8 @@ the same input (numpy, seeded).  On the CPU the port's kernel sites run
 their plain versions and the JAX model its XLA path.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -78,7 +80,7 @@ def test_tiny_forward_matches_jax():
     jm = jax_medformer(TINY)
     params = jax_params(jm, (1, 32, 32, 32, 1))
     cfg = config_from_dict(TINY)
-    model = get_model(cfg)
+    model = get_model(cfg, device="cpu")
     model.load_state_dict(medformer3d_state_dict_from_jax(params, cfg))
 
     x = np.random.default_rng(0).normal(size=(1, 32, 32, 32, 1)).astype(np.float32)
@@ -100,7 +102,8 @@ def test_state_dict_round_trip_through_import_medformer3d():
     # stage with both B-MHA and conv blocks
     d = dict(TINY, conv_num=[2, 1, 0, 0, 0, 0, 2, 2])
     cfg = config_from_dict(d)
-    sd = get_model(cfg, generator=torch.Generator().manual_seed(3)).state_dict()
+    sd = get_model(cfg, device="cpu",
+                   generator=torch.Generator().manual_seed(3)).state_dict()
     flax = import_medformer3d(sd, zero_params(jax_medformer(d), (1, 32, 32, 32, 1)),
                               d["conv_num"], d["trans_num"], d["num_heads"],
                               d["chan_num"], d["fusion_depth"])
@@ -118,7 +121,8 @@ def test_import_medformer3d_fails_on_amos_layout():
     the identity round trip on TINY, as
     ``test_state_dict_round_trip_through_import_medformer3d``."""
     cfg = config_from_dict(TINY)
-    sd = get_model(cfg, generator=torch.Generator().manual_seed(3)).state_dict()
+    sd = get_model(cfg, device="cpu",
+                   generator=torch.Generator().manual_seed(3)).state_dict()
     assert "up2.conv_blocks.0.shortcut.conv.weight" not in sd
     with pytest.raises(KeyError, match="ConvNormAct_2"):
         import_medformer3d(sd, zero_params(jax_medformer(TINY), (1, 32, 32, 32, 1)),
@@ -132,7 +136,7 @@ def test_full_width_amos_params_match_flax_tree():
     cfg = config_from_dict(AMOS)
     tree = zero_params(jax_get_model(cfg), (1, 32, 32, 32, 1))
     sd = medformer3d_state_dict_from_jax(tree, cfg)
-    model = get_model(cfg)
+    model = get_model(cfg, device="cpu")
     model.load_state_dict(sd)           # strict: same names and shapes
     n_flax = sum(a.size for a in jax.tree_util.tree_leaves(tree))
     assert sum(p.numel() for p in model.parameters()) == n_flax
@@ -144,9 +148,10 @@ def test_grouped_conv_weights_stay_contiguous_through_load():
     are compared, not is_contiguous(): a [C, 1, 3, 3, 3] weight passes
     is_contiguous() in either layout."""
     cfg = config_from_dict(TINY)
-    model = get_model(cfg)
+    model = get_model(cfg, device="cpu")
     model.load_state_dict(
-        get_model(cfg, generator=torch.Generator().manual_seed(4)).state_dict())
+        get_model(cfg, device="cpu",
+                  generator=torch.Generator().manual_seed(4)).state_dict())
     convs = [m for m in model.modules() if isinstance(m, torch.nn.Conv3d)]
     assert any(m.groups > 1 for m in convs)
     for m in convs:
@@ -156,8 +161,18 @@ def test_grouped_conv_weights_stay_contiguous_through_load():
         assert m.weight.stride() == want, m
 
 
+def test_get_model_defaults_to_the_card():
+    """Device 'cuda' unless the caller asks for the CPU; without a usable
+    card the default raises."""
+    assert inspect.signature(get_model).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            get_model(config_from_dict(TINY))
+
+
 def test_get_model_raises_for_unported_models():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(config_from_dict(dict(TINY, model="unet")))
+        get_model(config_from_dict(dict(TINY, model="unet")), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(config_from_dict(dict(TINY, model="unet", dimension="2d")))
+        get_model(config_from_dict(dict(TINY, model="unet", dimension="2d")),
+                  device="cpu")

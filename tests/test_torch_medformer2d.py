@@ -96,7 +96,7 @@ def zero_variables(d, hw=32):
 
 def port_model(d, variables):
     cfg = config_from_dict(d)
-    model = get_model(cfg)
+    model = get_model(cfg, device="cpu")
     model.load_state_dict(medformer2d_state_dict_from_jax(variables, cfg))
     return cfg, model
 
@@ -123,7 +123,8 @@ def test_state_dict_round_trip_through_import_medformer2d():
     """``import_medformer2d`` of the port's state_dict gives the tree that
     ``medformer2d_state_dict_from_jax`` maps back to the same state_dict."""
     cfg = config_from_dict(TINY2D)
-    model = get_model(cfg, generator=torch.Generator().manual_seed(3))
+    model = get_model(cfg, device="cpu",
+                      generator=torch.Generator().manual_seed(3))
     gen = torch.Generator().manual_seed(4)
     for m in model.modules():            # non-trivial BN state
         if hasattr(m, "running_var"):
@@ -149,7 +150,7 @@ def test_full_width_acdc_params_match_flax_tree():
     has its Flax counterpart of the same size, and nothing is left over."""
     tree = zero_variables(ACDC, hw=64)
     cfg = config_from_dict(ACDC)
-    model = get_model(cfg)
+    model = get_model(cfg, device="cpu")
     model.load_state_dict(medformer2d_state_dict_from_jax(tree, cfg))
     n_flax = sum(a.size for a in jax.tree_util.tree_leaves(tree["params"]))
     assert sum(p.numel() for p in model.parameters()) == n_flax
@@ -162,7 +163,7 @@ def test_acdc_kernel_sites_are_the_stride1_3x3_convs():
     """At the ACDC recipe the 2D kernel carries 14 ConvNormAct convs: 2 in
     inc's block, 4 in down1, 4 each in up3 and up4, every one with C_in,
     C_out <= 192.  inc's first conv is a plain conv in both packages."""
-    model = get_model(config_from_dict(ACDC))
+    model = get_model(config_from_dict(ACDC), device="cpu")
     sites = [n for n, m in model.named_modules()
              if isinstance(m, ConvNormAct) and m.kernel is Conv2dSame]
     assert len(sites) == 14
@@ -209,7 +210,7 @@ def test_prediction_main_2d_on_the_cpu(tmp_path):
     cfg = dict(TINY2D, training_size=[32, 32], window_size=[32, 32],
                sliding_window=True)
     weights = tmp_path / "w.pth"
-    torch.save(get_model(config_from_dict(cfg),
+    torch.save(get_model(config_from_dict(cfg), device="cpu",
                          generator=torch.Generator().manual_seed(0))
                .state_dict(), weights)
     in_dir, out_dir = tmp_path / "in", tmp_path / "out"

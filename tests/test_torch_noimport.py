@@ -24,10 +24,14 @@ MODULES = [
     "cbim_tpu_torch.ops.kernels.conv2d",
     "cbim_tpu_torch.ops.kernels.conv3d",
     "cbim_tpu_torch.ops.kernels.fused_norm",
+    "cbim_tpu_torch.ops.kernels.window_attention",
     "cbim_tpu_torch.models",
     "cbim_tpu_torch.models.layers.convs",
     "cbim_tpu_torch.models.layers.transformers",
     "cbim_tpu_torch.models.medformer",
+    "cbim_tpu_torch.models.swin_layers",
+    "cbim_tpu_torch.models.unetr",
+    "cbim_tpu_torch.models.swin_unetr",
     "cbim_tpu_torch.inference.engines",
     "cbim_tpu_torch.prediction",
     "cbim_tpu_torch.utils.jax_import",
@@ -95,7 +99,7 @@ def test_prediction_main_loads_only_the_allowed_host_modules(tmp_path):
         "from cbim_tpu_torch.models import get_model\n"
         f"cfg = config_from_dict({cfg!r})\n"
         f"w = {str(tmp_path / 'w.pth')!r}\n"
-        "torch.save(get_model(cfg).state_dict(), w)\n"
+        "torch.save(get_model(cfg, device='cpu').state_dict(), w)\n"
         f"write_nifti({str(tmp_path / 'a.nii.gz')!r}, np.ones((2, 12, 20),"
         " np.float32), spacing=(4.0, 0.9, 0.9))\n"
         "sec = prediction.main(['--dataset', 'synthetic', '--dimension', '2d',"

@@ -9,6 +9,7 @@ training, refuse what it has not ported, checkpoint and resume, and run
 with a seed.
 """
 
+import inspect
 import json
 
 import jax
@@ -161,7 +162,7 @@ def test_host_batch_windows_match_jax_pipeline(monkeypatch):
     monkeypatch.setattr(jax_native, "available", lambda: False)
     jc, tc = jax_config(TRAIN), config_from_dict(TRAIN)
     j_pipe = JaxTrainPipeline(JaxSynthetic3D(jc), jc, seed=5)
-    t_pipe = TrainPipeline(Synthetic3D(tc), tc, seed=5)
+    t_pipe = TrainPipeline(Synthetic3D(tc), tc, seed=5, device="cpu")
     assert t_pipe.buffer_shape == j_pipe.buffer_shape == (38, 38, 38)
     for _ in range(3):
         (ti, tl), (ji, jl) = t_pipe.host_batch(2), j_pipe.host_batch(2)
@@ -172,7 +173,7 @@ def test_host_batch_windows_match_jax_pipeline(monkeypatch):
 
 def test_next_batch_shapes_and_labels():
     cfg = config_from_dict(TRAIN)
-    pipe = TrainPipeline(Synthetic3D(cfg), cfg, seed=0)
+    pipe = TrainPipeline(Synthetic3D(cfg), cfg, seed=0, device="cpu")
     img, lab = pipe.next_batch(2)
     assert img.shape == (2, 32, 32, 32, 1) and img.dtype == torch.float32
     assert lab.shape == (2, 32, 32, 32) and lab.dtype == torch.int64
@@ -211,7 +212,7 @@ def test_three_step_trajectory_matches_make_train_step():
         state, loss = j_step(state, jnp.asarray(img), jnp.asarray(lab), lr)
         j_losses.append(float(loss))
 
-    model = get_model(tc, train=True)
+    model = get_model(tc, device="cpu", train=True)
     model.load_state_dict(medformer3d_state_dict_from_jax(params0, tc))
     t_state = create_train_state(model, tc)
     step = make_train_step(model, t_state.optimizer, tc)
@@ -257,7 +258,7 @@ def test_kernel_functions_keep_the_graph_and_every_parameter_learns():
     assert conv3d.Conv3dSame.apply(x, torch.randn(8, 8, 3, 3, 3)).grad_fn
     assert fused_norm.instance_norm_act(x, 1e-4, "gelu").grad_fn is not None
     cfg = config_from_dict(TRAIN)
-    model = get_model(cfg, train=True,
+    model = get_model(cfg, device="cpu", train=True,
                       generator=torch.Generator().manual_seed(0))
     img = torch.randn(1, 1, 32, 32, 32, generator=torch.Generator().manual_seed(1))
     lab = torch.randint(0, 3, (1, 32, 32, 32),
@@ -272,10 +273,10 @@ def test_get_model_keeps_fp32_parameters_for_training():
     model keeps fp32 master weights in train mode."""
     cfg = config_from_dict(dict(TRAIN, amp=True))
     assert cfg.compute_dtype == "bfloat16"
-    train_model = get_model(cfg, train=True)
+    train_model = get_model(cfg, device="cpu", train=True)
     assert train_model.training
     assert all(p.dtype == torch.float32 for p in train_model.parameters())
-    serve_model = get_model(cfg)
+    serve_model = get_model(cfg, device="cpu")
     assert not serve_model.training
     assert all(p.dtype == torch.bfloat16 for p in serve_model.parameters())
 
@@ -285,7 +286,8 @@ def test_dropout_is_refused(key):
     """Fault 3: dropout is not ported; a config that asks for it raises
     instead of training without it."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(config_from_dict(dict(TRAIN, **{key: 0.1})), train=True)
+        get_model(config_from_dict(dict(TRAIN, **{key: 0.1})), device="cpu",
+                  train=True)
 
 
 def test_train_net_refuses_validation_before_the_first_step(tmp_path):
@@ -293,8 +295,31 @@ def test_train_net_refuses_validation_before_the_first_step(tmp_path):
                                 cp_path=str(tmp_path / "exp"),
                                 log_path=str(tmp_path / "log")))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_net(cfg)
+        train_net(cfg, device="cpu")
     assert not (tmp_path / "exp").exists()     # nothing ran
+
+
+def _defaults_to_the_card(fn, call):
+    """``fn`` defaults to device 'cuda', and ``call()`` (no device given)
+    raises where torch sees no usable card: the CPU runs only when asked."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+
+
+def test_train_net_defaults_to_the_card(tmp_path):
+    cfg = config_from_dict(dict(TRAIN, epochs=1, val_freq=5,
+                                cp_path=str(tmp_path / "exp"),
+                                log_path=str(tmp_path / "log")))
+    _defaults_to_the_card(train_net, lambda: train_net(cfg))
+    assert not (tmp_path / "exp").exists()     # it raised before starting
+
+
+def test_train_pipeline_defaults_to_the_card():
+    cfg = config_from_dict(TRAIN)
+    _defaults_to_the_card(TrainPipeline,
+                          lambda: TrainPipeline(Synthetic3D(cfg), cfg))
 
 
 def test_remat_recomputes_the_same_gradients():
@@ -306,7 +331,8 @@ def test_remat_recomputes_the_same_gradients():
                       generator=torch.Generator().manual_seed(1))
     for remat in (False, True):
         model = get_model(config_from_dict(dict(TRAIN, remat=remat)),
-                          train=True, generator=torch.Generator().manual_seed(0))
+                          device="cpu", train=True,
+                          generator=torch.Generator().manual_seed(0))
         calls = []
         model.up4.register_forward_pre_hook(lambda *a: calls.append(1))
         model(img)[0].square().mean().backward()
@@ -319,13 +345,15 @@ def test_remat_recomputes_the_same_gradients():
     model(img)[0].square().mean().backward()
     assert len(calls) == 3                          # no recompute in eval
     with pytest.raises(ValueError):
-        get_model(config_from_dict(dict(TRAIN, remat="some")), train=True)
+        get_model(config_from_dict(dict(TRAIN, remat="some")), device="cpu",
+                  train=True)
 
 
 def test_checkpoint_round_trip_restores_the_state(tmp_path):
     cfg = config_from_dict(TRAIN)
     gen = torch.Generator().manual_seed(0)
-    state = create_train_state(get_model(cfg, train=True, generator=gen), cfg)
+    state = create_train_state(
+        get_model(cfg, device="cpu", train=True, generator=gen), cfg)
     step = make_train_step(state.model, state.optimizer, cfg)
     img = torch.randn(1, 32, 32, 32, 1)
     lab = torch.randint(0, 3, (1, 32, 32, 32))
@@ -333,7 +361,7 @@ def test_checkpoint_round_trip_restores_the_state(tmp_path):
     path = str(tmp_path / "fold_0_latest.ckpt")
     save_checkpoint(path, state, epoch=3)
 
-    fresh = create_train_state(get_model(cfg, train=True), cfg)
+    fresh = create_train_state(get_model(cfg, device="cpu", train=True), cfg)
     fresh, epoch = load_checkpoint(path, fresh)
     assert epoch == 3 and fresh.step == 1
     for a, b in ((fresh.model, state.model), (fresh.ema, state.ema)):
@@ -371,7 +399,7 @@ def test_train_cli_runs_on_the_cpu(tmp_path):
 
     # --pretrain with a .pth loads strictly; a resume continues the epochs
     weights = tmp_path / "w.pth"
-    torch.save(get_model(cfg, train=True).state_dict(), weights)
+    torch.save(get_model(cfg, device="cpu", train=True).state_dict(), weights)
     train_cli.main(_cli_args(tmp_path, "--pretrain", "--init_model",
                              str(weights), "--unique_name", "p"), cfg=cfg)
     ckpt = str(run / "fold_0_latest.ckpt")

@@ -63,7 +63,7 @@ def test_batchnorm_running_stats_after_a_train_forward_match_flax():
     variance) against the port's ``Norm("bn")``."""
     jm, v = jax_variables(TINY2D, seed=7)
     cfg = config_from_dict(TINY2D)
-    model = get_model(cfg, train=True)
+    model = get_model(cfg, device="cpu", train=True)
     model.load_state_dict(medformer2d_state_dict_from_jax(v, cfg))
     x = np.random.default_rng(4).normal(size=(3, 32, 32, 1)).astype(np.float32)
     (j_out, _), upd = jax.jit(lambda v, x: jm.apply(
@@ -129,7 +129,7 @@ def test_three_step_2d_trajectory_matches_make_train_step():
                                       "batch_stats": state.batch_stats}),
             tc)))
 
-    model = get_model(tc, train=True)
+    model = get_model(tc, device="cpu", train=True)
     model.load_state_dict(medformer2d_state_dict_from_jax(v0, tc))
     t_state = create_train_state(model, tc)
     assert model.training and not t_state.ema.training
@@ -163,7 +163,8 @@ def test_ema_copies_buffers_and_averages_parameters():
     ``ema_batch_stats = new_stats``), the parameters' running average."""
     cfg = config_from_dict(TRAIN2D)
     state = create_train_state(
-        get_model(cfg, train=True, generator=torch.Generator().manual_seed(0)),
+        get_model(cfg, device="cpu", train=True,
+                  generator=torch.Generator().manual_seed(0)),
         cfg)
     step = make_train_step(state.model, state.optimizer, cfg)
     gen = torch.Generator().manual_seed(1)
@@ -197,7 +198,7 @@ def test_2d_draws_are_epochs_without_replacement_like_jax(batch):
     18 draws and the host windows equal the JAX package's."""
     jc, tc = jax_config(TRAIN2D), config_from_dict(TRAIN2D)
     j_pipe = JaxTrainPipeline(JaxSynthetic2D(jc), jc, seed=5)
-    t_pipe = TrainPipeline(Synthetic2D(tc), tc, seed=5)
+    t_pipe = TrainPipeline(Synthetic2D(tc), tc, seed=5, device="cpu")
     assert t_pipe.buffer_shape == j_pipe.buffer_shape == (40, 40)
     drawn = []
     for _ in range(8):
@@ -207,7 +208,7 @@ def test_2d_draws_are_epochs_without_replacement_like_jax(batch):
         np.testing.assert_array_equal(tl, jl)
         drawn += t_pipe._epoch_perm.tolist() if not drawn else []
     # the same windows: the index stream itself, epoch by epoch
-    t_pipe2 = TrainPipeline(Synthetic2D(tc), tc, seed=9)
+    t_pipe2 = TrainPipeline(Synthetic2D(tc), tc, seed=9, device="cpu")
     idx = np.concatenate([t_pipe2._draw_indices(batch) for _ in range(9)])
     for e in range(len(idx) // 18):
         assert sorted(idx[18 * e:18 * (e + 1)]) == list(range(18))
