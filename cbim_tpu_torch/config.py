@@ -72,6 +72,7 @@ YAML_DEFAULTS = dict(
     additive_brightness_std=0.0,
     gamma_range=[1.0, 1.0],
     compute_dtype="float32",   # 'bfloat16' when amp is requested
+    conv_na=False,             # MedFormer-3D's fused preact conv (CBIM_CONV_NA)
 )
 
 

@@ -1,6 +1,8 @@
 // Stride-1, zero-pad-1, 3x3x3 convolution for Hopper (sm_90a): the forward
 // (which also computes the input gradient, on flip-swapped weights) and the
-// weight gradient (conv3d_wgrad, further below).
+// weight gradient (conv3d_wgrad, further below), each also with a fused
+// InstanceNorm+act prologue (conv3d_same_na_fwd, conv3d_wgrad_na: the
+// preact conv(act(IN(x))), see "Norm-act prologue" below).
 //
 // Replaces the Pallas TPU kernels of cbim_tpu/ops/pallas/conv3d.py:
 //   _conv_kernel / _conv3d_same_pallas / conv3d_same      (NDHWC),
@@ -29,8 +31,15 @@
 // shared memory: 27*C*F*4 bytes is 1.3 MB at C = 192, F = 64.
 // The taps re-read neighbouring input rows, which L1 and the 50 MB L2 serve.
 // Tensor cores (mma/wgmma in bf16) and TMA staging are the next steps.
+// With the norm-act prologue (conv3d_same_na_fwd) each input value is
+// normalised where it is staged: once per tap and F-tile, 27x per input
+// value at F <= 64.  With the exact-erf GELU that costs about as many
+// instructions as the FMAs it feeds at BN = 32; a block of 128 voxels along
+// W that staged its normalised halo rows once would still normalise each
+// value 9x (once in each of the 9 blocks whose (d, h) rows read it), so
+// cutting it to about once takes 3D output tiles (ROADMAP B7).
 //
-// The extern "C" entry launches on the caller's stream, allocates nothing,
+// Each extern "C" entry launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -89,11 +98,57 @@ __device__ __forceinline__ void load_vec<__nv_bfloat16, 4>(
   v[2] = __low2float(hi); v[3] = __high2float(hi);
 }
 
-template <typename T, int BN, int VEC>
+// ---------------------------------------------------------------------------
+// Norm-act prologue (conv3d_same_na_fwd, conv3d_wgrad_na)
+//
+// Replaces the norm+act that cbim_tpu/ops/pallas/conv3d.py applies to the raw
+// input tile in VMEM (_na_apply, _conv_kernel_cw_na, _wgrad_kernel_cw2_na):
+// each staged input value becomes act((x - mean[b, c]) * rstd[b, c]) in fp32,
+// rounded to the storage type (as _na_apply casts back to the compute dtype,
+// and as the unfused inorm_apply stores it), before it meets the weights or
+// the gradient.  The normalised tensor never exists in device memory.
+// - SAME padding applies to the normalised input: taps outside the volume
+//   stay 0 (they are never loaded, so never normalised), not act(-mean*rstd).
+// - mean and rstd ([B, C] fp32, as inorm_stats returns them) are indexed by
+//   each staged row's own sample: a 128-voxel block straddles two samples
+//   whenever D*H*W is not a multiple of 128.
+// NA = kNoNorm leaves the plain conv; else the act code of fused_norm.cu
+// (0 none, 1 relu, 2 exact-erf gelu).
+// ---------------------------------------------------------------------------
+
+constexpr int kNoNorm = -1;
+constexpr int kActNone = 0, kActRelu = 1, kActGelu = 2;
+
+template <typename T, int NA>
+__device__ __forceinline__ float norm_act(float v, float mean, float rstd) {
+  float n = (v - mean) * rstd;
+  if constexpr (NA == kActRelu) n = n > 0.f ? n : 0.f;
+  if constexpr (NA == kActGelu)
+    n = 0.5f * n * (1.f + erff(n * 0.70710678118654752f));
+  return to_f32<T>(from_f32<T>(n));
+}
+
+// VEC channels of x at p, then the prologue with the statistics at ms/rs
+// (the same channels of the row's sample); VEC = 4 needs aligned addresses.
+template <typename T, int VEC, int NA>
+__device__ __forceinline__ void load_na(const T* p, const float* ms,
+                                        const float* rs, float v[VEC]) {
+  load_vec<T, VEC>(p, v);
+  if constexpr (NA != kNoNorm) {
+    float m[VEC], r[VEC];
+    load_vec<float, VEC>(ms, m);
+    load_vec<float, VEC>(rs, r);
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) v[q] = norm_act<T, NA>(v[q], m[q], r[q]);
+  }
+}
+
+template <typename T, int BN, int VEC, int NA>
 __global__ void __launch_bounds__(kThreads)
 conv3d_same_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wp,
-                       T* __restrict__ y, int D, int H, int W, int C, int F,
-                       long long M) {
+                       T* __restrict__ y, const float* __restrict__ mean,
+                       const float* __restrict__ rstd, int D, int H, int W,
+                       int C, int F, long long M) {
   constexpr int TN = BN / 8;  // output channels per thread
   __shared__ __align__(16) float As[kBK][kBM];
   __shared__ __align__(16) float Bs[kBK][BN];
@@ -116,6 +171,10 @@ conv3d_same_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wp,
     d0 = (int)(r % D);
     b0 = r / D;
   }
+  // this row's sample's statistics (NA only)
+  const long long st = NA == kNoNorm ? 0 : b0 * C;
+  const float* ms = mean + st;
+  const float* rs = rstd + st;
 
   float acc[kTM][TN];
 #pragma unroll
@@ -140,7 +199,7 @@ conv3d_same_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wp,
         const int c = c0 + j * VEC;
         float v[VEC];
         if (valid && c < C) {
-          load_vec<T, VEC>(src + c, v);
+          load_na<T, VEC, NA>(src + c, ms + c, rs + c, v);
         } else {
 #pragma unroll
           for (int q = 0; q < VEC; ++q) v[q] = 0.f;
@@ -188,30 +247,52 @@ conv3d_same_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wp,
   }
 }
 
-template <typename T, int BN>
-void launch(const void* x, const void* w, void* y, int B, int D, int H, int W,
-            int C, int F, cudaStream_t stream) {
+template <typename T, int BN, int NA>
+void launch(const void* x, const void* w, void* y, const float* mean,
+            const float* rstd, int B, int D, int H, int W, int C, int F,
+            cudaStream_t stream) {
   const long long M = (long long)B * D * H * W;
   const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)((F + BN - 1) / BN));
-  const bool vec = C % 4 == 0 && (uintptr_t)x % (4 * sizeof(T)) == 0;
+  const bool vec = C % 4 == 0 && (uintptr_t)x % (4 * sizeof(T)) == 0 &&
+                   (uintptr_t)mean % 16 == 0 && (uintptr_t)rstd % 16 == 0;
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   T* yt = static_cast<T*>(y);
   if (vec)
-    conv3d_same_fwd_kernel<T, BN, 4><<<grid, kThreads, 0, stream>>>(
-        xt, wt, yt, D, H, W, C, F, M);
+    conv3d_same_fwd_kernel<T, BN, 4, NA><<<grid, kThreads, 0, stream>>>(
+        xt, wt, yt, mean, rstd, D, H, W, C, F, M);
   else
-    conv3d_same_fwd_kernel<T, BN, 1><<<grid, kThreads, 0, stream>>>(
-        xt, wt, yt, D, H, W, C, F, M);
+    conv3d_same_fwd_kernel<T, BN, 1, NA><<<grid, kThreads, 0, stream>>>(
+        xt, wt, yt, mean, rstd, D, H, W, C, F, M);
 }
 
-template <typename T>
-void launch_dtype(const void* x, const void* w, void* y, int B, int D, int H,
-                  int W, int C, int F, cudaStream_t stream) {
+template <typename T, int NA>
+void launch_dtype(const void* x, const void* w, void* y, const float* mean,
+                  const float* rstd, int B, int D, int H, int W, int C, int F,
+                  cudaStream_t stream) {
   if (F <= 32)
-    launch<T, 32>(x, w, y, B, D, H, W, C, F, stream);
+    launch<T, 32, NA>(x, w, y, mean, rstd, B, D, H, W, C, F, stream);
   else
-    launch<T, 64>(x, w, y, B, D, H, W, C, F, stream);
+    launch<T, 64, NA>(x, w, y, mean, rstd, B, D, H, W, C, F, stream);
+}
+
+// The forward with prologue ``na`` (kNoNorm or an act code); false for a
+// bad code.
+template <typename T>
+bool launch_fwd(int na, const void* x, const void* w, void* y,
+                const float* mean, const float* rstd, int B, int D, int H,
+                int W, int C, int F, cudaStream_t stream) {
+  if (na == kNoNorm)
+    launch_dtype<T, kNoNorm>(x, w, y, mean, rstd, B, D, H, W, C, F, stream);
+  else if (na == kActNone)
+    launch_dtype<T, kActNone>(x, w, y, mean, rstd, B, D, H, W, C, F, stream);
+  else if (na == kActRelu)
+    launch_dtype<T, kActRelu>(x, w, y, mean, rstd, B, D, H, W, C, F, stream);
+  else if (na == kActGelu)
+    launch_dtype<T, kActGelu>(x, w, y, mean, rstd, B, D, H, W, C, F, stream);
+  else
+    return false;
+  return true;
 }
 
 // ---------------------------------------------------------------------------
@@ -235,7 +316,11 @@ void launch_dtype(const void* x, const void* w, void* y, int B, int D, int H,
 // shared-memory loads per thread), and the shifted input rows are staged
 // with zeros outside the volume, so ragged D/H/W need no padded copy.  The
 // TPU kernel's tap packing (_build_g9, _pack_weights_grouped) filled MXU
-// lanes and has no counterpart here.
+// lanes and has no counterpart here.  conv3d_wgrad_na runs the same kernel
+// with the norm-act prologue on its staged input rows (dW against
+// act(norm(x)), recomputed per tile, as conv3d_wgrad_cw2_na): 3 prologue
+// applications per staged value (one per kw tap), about a dozen per thread
+// against 768 FMAs a staged step at 64 x 64 tiles, two dozen at 32 x 32.
 // ---------------------------------------------------------------------------
 
 constexpr int kWgBK = 16;  // voxels per staged step
@@ -253,9 +338,11 @@ __device__ __forceinline__ void store_vec(float* p, const float v[VEC]) {
 // partial[chunk, kd, kh, kw, c, f]; grid.x = (kd, kh, c-tile, f-tile),
 // grid.y = chunk of voxels.  Each thread holds a 4 (c) x 4 (f) tile for each
 // of the three kw taps.
-template <typename T, int BC, int BF, int VEC>
+template <typename T, int BC, int BF, int VEC, int NA>
 __global__ void __launch_bounds__(BC * BF / 16)
 conv3d_wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                            const float* __restrict__ mean,
+                            const float* __restrict__ rstd,
                             float* __restrict__ partial, int D, int H, int W,
                             int C, int F, int M, int rows_per_chunk) {
   constexpr int kThreads = BC * BF / 16;
@@ -306,12 +393,14 @@ conv3d_wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
       const int sd = dq + kd - 1, sh = hq + kh - 1;
       ok = ok && sd >= 0 && sd < D && sh >= 0 && sh < H;
       const long long row = (((long long)bq * D + sd) * H + sh) * (long long)W;
+      // this row's sample's statistics (NA only)
+      const long long st = NA == kNoNorm ? 0 : (long long)bq * C + c;
 #pragma unroll
       for (int kw = 0; kw < 3; ++kw) {
         const int sw = wq + kw - 1;
         float v[VEC];
         if (ok && sw >= 0 && sw < W) {
-          load_vec<T, VEC>(x + (row + sw) * C + c, v);
+          load_na<T, VEC, NA>(x + (row + sw) * C + c, mean + st, rstd + st, v);
         } else {
 #pragma unroll
           for (int q = 0; q < VEC; ++q) v[q] = 0.f;
@@ -383,45 +472,113 @@ conv3d_wgrad_fold_kernel(const float* __restrict__ partial,
   }
 }
 
-template <typename T, int BC, int BF>
-void launch_wgrad(const void* x, const void* g, float* partial, int B, int D,
-                  int H, int W, int C, int F, int rows_per_chunk, int n_chunks,
+template <typename T, int BC, int BF, int NA>
+void launch_wgrad(const void* x, const void* g, const float* mean,
+                  const float* rstd, float* partial, int B, int D, int H,
+                  int W, int C, int F, int rows_per_chunk, int n_chunks,
                   cudaStream_t stream) {
   const int M = B * D * H * W;
   const int tiles = 9 * ((C + BC - 1) / BC) * ((F + BF - 1) / BF);
   const dim3 grid((unsigned)tiles, (unsigned)n_chunks);
   const bool vec = C % 4 == 0 && F % 4 == 0 &&
                    (uintptr_t)x % (4 * sizeof(T)) == 0 &&
-                   (uintptr_t)g % (4 * sizeof(T)) == 0;
+                   (uintptr_t)g % (4 * sizeof(T)) == 0 &&
+                   (uintptr_t)mean % 16 == 0 && (uintptr_t)rstd % 16 == 0;
   const T* xt = static_cast<const T*>(x);
   const T* gt = static_cast<const T*>(g);
   if (vec)
-    conv3d_wgrad_partial_kernel<T, BC, BF, 4><<<grid, BC * BF / 16, 0, stream>>>(
-        xt, gt, partial, D, H, W, C, F, M, rows_per_chunk);
+    conv3d_wgrad_partial_kernel<T, BC, BF, 4, NA>
+        <<<grid, BC * BF / 16, 0, stream>>>(xt, gt, mean, rstd, partial, D, H,
+                                           W, C, F, M, rows_per_chunk);
   else
-    conv3d_wgrad_partial_kernel<T, BC, BF, 1><<<grid, BC * BF / 16, 0, stream>>>(
-        xt, gt, partial, D, H, W, C, F, M, rows_per_chunk);
+    conv3d_wgrad_partial_kernel<T, BC, BF, 1, NA>
+        <<<grid, BC * BF / 16, 0, stream>>>(xt, gt, mean, rstd, partial, D, H,
+                                           W, C, F, M, rows_per_chunk);
 }
 
 // A 64-wide tile where the channel count is a multiple of 64, else 32 (no
 // half-empty tiles at C = 96 or the ragged widths).
-template <typename T>
-void launch_wgrad_tiles(const void* x, const void* g, float* partial, int B,
-                        int D, int H, int W, int C, int F, int rows_per_chunk,
-                        int n_chunks, cudaStream_t stream) {
+template <typename T, int NA>
+void launch_wgrad_tiles(const void* x, const void* g, const float* mean,
+                        const float* rstd, float* partial, int B, int D, int H,
+                        int W, int C, int F, int rows_per_chunk, int n_chunks,
+                        cudaStream_t stream) {
   const bool wide_c = C % 64 == 0, wide_f = F % 64 == 0;
   if (wide_c && wide_f)
-    launch_wgrad<T, 64, 64>(x, g, partial, B, D, H, W, C, F, rows_per_chunk,
-                            n_chunks, stream);
+    launch_wgrad<T, 64, 64, NA>(x, g, mean, rstd, partial, B, D, H, W, C, F,
+                                rows_per_chunk, n_chunks, stream);
   else if (wide_c)
-    launch_wgrad<T, 64, 32>(x, g, partial, B, D, H, W, C, F, rows_per_chunk,
-                            n_chunks, stream);
+    launch_wgrad<T, 64, 32, NA>(x, g, mean, rstd, partial, B, D, H, W, C, F,
+                                rows_per_chunk, n_chunks, stream);
   else if (wide_f)
-    launch_wgrad<T, 32, 64>(x, g, partial, B, D, H, W, C, F, rows_per_chunk,
-                            n_chunks, stream);
+    launch_wgrad<T, 32, 64, NA>(x, g, mean, rstd, partial, B, D, H, W, C, F,
+                                rows_per_chunk, n_chunks, stream);
   else
-    launch_wgrad<T, 32, 32>(x, g, partial, B, D, H, W, C, F, rows_per_chunk,
-                            n_chunks, stream);
+    launch_wgrad<T, 32, 32, NA>(x, g, mean, rstd, partial, B, D, H, W, C, F,
+                                rows_per_chunk, n_chunks, stream);
+}
+
+// The partial pass with prologue ``na`` (kNoNorm or an act code), then the
+// fold.
+template <typename T>
+int wgrad_passes(int na, const void* x, const void* g, const float* mean,
+                 const float* rstd, float* partial, float* dw, int B, int D,
+                 int H, int W, int C, int F, int rows_per_chunk, int n_chunks,
+                 cudaStream_t st) {
+  if (na == kNoNorm)
+    launch_wgrad_tiles<T, kNoNorm>(x, g, mean, rstd, partial, B, D, H, W, C,
+                                   F, rows_per_chunk, n_chunks, st);
+  else if (na == kActNone)
+    launch_wgrad_tiles<T, kActNone>(x, g, mean, rstd, partial, B, D, H, W, C,
+                                    F, rows_per_chunk, n_chunks, st);
+  else if (na == kActRelu)
+    launch_wgrad_tiles<T, kActRelu>(x, g, mean, rstd, partial, B, D, H, W, C,
+                                    F, rows_per_chunk, n_chunks, st);
+  else if (na == kActGelu)
+    launch_wgrad_tiles<T, kActGelu>(x, g, mean, rstd, partial, B, D, H, W, C,
+                                    F, rows_per_chunk, n_chunks, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long n = 27LL * C * F;
+  long long blocks = (n + 255) / 256;
+  if (blocks > 132 * 8) blocks = 132 * 8;
+  conv3d_wgrad_fold_kernel<<<(unsigned)blocks, 256, 0, st>>>(partial, dw, n,
+                                                            n_chunks);
+  return (int)cudaGetLastError();
+}
+
+int wgrad_entry(int na, const void* x, const void* g, const void* mean,
+                const void* rstd, void* partial, void* dw, int dtype, int B,
+                int D, int H, int W, int C, int F, int rows_per_chunk,
+                int n_chunks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mean);
+  const float* r = static_cast<const float*>(rstd);
+  float* part = static_cast<float*>(partial);
+  float* out = static_cast<float*>(dw);
+  if (dtype == 0)
+    return wgrad_passes<float>(na, x, g, m, r, part, out, B, D, H, W, C, F,
+                               rows_per_chunk, n_chunks, st);
+  if (dtype == 1)
+    return wgrad_passes<__nv_bfloat16>(na, x, g, m, r, part, out, B, D, H, W,
+                                       C, F, rows_per_chunk, n_chunks, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+int fwd_entry(int na, const void* x, const void* w, void* y, const void* mean,
+              const void* rstd, int dtype, int B, int D, int H, int W, int C,
+              int F, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mean);
+  const float* r = static_cast<const float*>(rstd);
+  bool ok = false;
+  if (dtype == 0)
+    ok = launch_fwd<float>(na, x, w, y, m, r, B, D, H, W, C, F, st);
+  else if (dtype == 1)
+    ok = launch_fwd<__nv_bfloat16>(na, x, w, y, m, r, B, D, H, W, C, F, st);
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -433,36 +590,36 @@ extern "C" int conv3d_wgrad(const void* x, const void* g, void* partial,
                             void* dw, int dtype, int B, int D, int H, int W,
                             int C, int F, int rows_per_chunk, int n_chunks,
                             void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(partial);
-  if (dtype == 0)
-    launch_wgrad_tiles<float>(x, g, part, B, D, H, W, C, F, rows_per_chunk,
-                              n_chunks, st);
-  else if (dtype == 1)
-    launch_wgrad_tiles<__nv_bfloat16>(x, g, part, B, D, H, W, C, F,
-                                      rows_per_chunk, n_chunks, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long n = 27LL * C * F;
-  long long blocks = (n + 255) / 256;
-  if (blocks > 132 * 8) blocks = 132 * 8;
-  conv3d_wgrad_fold_kernel<<<(unsigned)blocks, 256, 0, st>>>(
-      part, static_cast<float*>(dw), n, n_chunks);
-  return (int)cudaGetLastError();
+  return wgrad_entry(kNoNorm, x, g, nullptr, nullptr, partial, dw, dtype, B,
+                     D, H, W, C, F, rows_per_chunk, n_chunks, stream);
+}
+
+// conv3d_wgrad against act((x - mean) * rstd): mean, rstd fp32 [B, C]; act
+// 0 none, 1 relu, 2 gelu.
+extern "C" int conv3d_wgrad_na(const void* x, const void* g, const void* mean,
+                               const void* rstd, void* partial, void* dw,
+                               int dtype, int act, int B, int D, int H, int W,
+                               int C, int F, int rows_per_chunk, int n_chunks,
+                               void* stream) {
+  if (act == kNoNorm) return (int)cudaErrorInvalidValue;
+  return wgrad_entry(act, x, g, mean, rstd, partial, dw, dtype, B, D, H, W, C,
+                     F, rows_per_chunk, n_chunks, stream);
 }
 
 // dtype: 0 float32, 1 bfloat16.  w is packed [3, 3, 3, C, F] in x's dtype.
 extern "C" int conv3d_same_fwd(const void* x, const void* w, void* y,
                                int dtype, int B, int D, int H, int W, int C,
                                int F, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    launch_dtype<float>(x, w, y, B, D, H, W, C, F, st);
-  else if (dtype == 1)
-    launch_dtype<__nv_bfloat16>(x, w, y, B, D, H, W, C, F, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return fwd_entry(kNoNorm, x, w, y, nullptr, nullptr, dtype, B, D, H, W, C,
+                   F, stream);
+}
+
+// conv3d_same_fwd of act((x - mean) * rstd): mean, rstd fp32 [B, C]; act 0
+// none, 1 relu, 2 gelu.
+extern "C" int conv3d_same_na_fwd(const void* x, const void* w, void* y,
+                                  const void* mean, const void* rstd,
+                                  int dtype, int act, int B, int D, int H,
+                                  int W, int C, int F, void* stream) {
+  if (act == kNoNorm) return (int)cudaErrorInvalidValue;
+  return fwd_entry(act, x, w, y, mean, rstd, dtype, B, D, H, W, C, F, stream);
 }

@@ -127,7 +127,8 @@ def _medformer3d(cfg) -> nn.Module:
         scale=tuple(map(tuple, _norm_scales(cfg.down_scale, 4))),
         aux_loss=cfg.aux_loss, remat=cfg.get("remat", False),
         attn_drop=cfg.get("attn_drop", 0.0),
-        proj_drop=cfg.get("proj_drop", 0.0))
+        proj_drop=cfg.get("proj_drop", 0.0),
+        conv_na=cfg.get("conv_na", False))
 
 
 @torch.no_grad()

@@ -17,7 +17,11 @@ Kernel dispatch, one rule per kernel family; each trains through its
   ``_pallas_conv_usable``), goes through ``Conv3dSame``;
 - a ``ConvNormAct`` conv that is 3x3 and not grouped, with C_in <= 192 and
   C_out <= 192 (``_pallas_conv2d_usable``'s channel envelope), goes through
-  ``Conv2dSame`` at any H, W.
+  ``Conv2dSame`` at any H, W;
+- with ``conv_na``, a preact InstanceNorm ``ConvNormAct`` whose conv takes
+  ``Conv3dSame`` and whose act the norm kernels fuse goes through
+  ``ConvInormAct3d`` instead, norm and conv as one: the JAX package's
+  opt-in ``CBIM_CONV_NA=1`` route (``_PallasConvCWNA``).
 BatchNorm stays ``F.batch_norm`` (``torch.native_batch_norm`` when
 training), as XLA carried Flax's.  The TPU's NDHCW stage layout has no
 counterpart: the one NDHWC kernel computes the same thing.
@@ -36,8 +40,8 @@ from torch import nn
 
 from ...ops.activations import Act, get_act
 from ...ops.kernels.conv2d import Conv2dSame
-from ...ops.kernels.conv3d import Conv3dSame
-from ...ops.kernels.fused_norm import InstanceNormAct
+from ...ops.kernels.conv3d import Conv3dSame, ConvInormAct3d
+from ...ops.kernels.fused_norm import InstanceNormAct, supported_act
 
 KernelArg = Union[int, Sequence[int]]
 
@@ -144,11 +148,15 @@ class ConvNormAct(nn.Module):
     """conv + norm + act, pre- or post-activated (conv_layers.py:16-53);
     stride 1, padding k // 2.  The reference's dim3 ConvNormAct passes
     eps=1e-4, its dim2 twin torch's default 1e-5 (``cbim_tpu`` convs.py:
-    415-417)."""
+    415-417).
+
+    ``conv_na``: compute a preact InstanceNorm 3^3 conv as the fused
+    ``ConvInormAct3d`` where it applies (``fused``); the parameters are the
+    same either way (the InstanceNorm is affine-free)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: KernelArg = 3,
                  groups: int = 1, norm="bn", act="relu", preact: bool = False,
-                 nd: int = 3):
+                 nd: int = 3, conv_na: bool = False):
         super().__init__()
         k = _tuple(kernel_size, nd)
         self.conv = CONV[nd](in_ch, out_ch, k,
@@ -164,6 +172,8 @@ class ConvNormAct(nn.Module):
                 self.kernel = Conv3dSame
             elif nd == 2 and out_ch <= 192:
                 self.kernel = Conv2dSame
+        self.fused = (conv_na and preact and norm == "in"
+                      and self.kernel is Conv3dSame and supported_act(act))
 
     def _conv(self, x):
         if self.kernel is not None:
@@ -172,19 +182,24 @@ class ConvNormAct(nn.Module):
         return _conv(self.conv, x)
 
     def forward(self, x):
+        if self.fused:
+            return from_channels_last(ConvInormAct3d.apply(
+                to_channels_last(x), self.conv.weight, self.norm.eps,
+                self.act))
         if self.preact:
             return self._conv(self.norm(x, self.act))
         return self.norm(self._conv(x), self.act)
 
 
 class SingleConv(nn.Module):
-    """conv_layers.py:56-68 — one post-activated ConvNormAct."""
+    """conv_layers.py:56-68 — one post-activated ConvNormAct (``conv_na``
+    passes through; it fuses only preact convs)."""
 
     def __init__(self, in_ch, out_ch, kernel_size=3, norm="bn", act="relu",
-                 nd: int = 3):
+                 nd: int = 3, conv_na: bool = False):
         super().__init__()
         self.conv = ConvNormAct(in_ch, out_ch, kernel_size, norm=norm, act=act,
-                                nd=nd)
+                                nd=nd, conv_na=conv_na)
 
     def forward(self, x):
         return self.conv(x)
@@ -194,9 +209,9 @@ class BasicBlock(nn.Module):
     """conv_layers.py:71-94 — preact residual block (2 convs + shortcut)."""
 
     def __init__(self, in_ch, out_ch, kernel_size=3, norm="bn", act="relu",
-                 nd: int = 3):
+                 nd: int = 3, conv_na: bool = False):
         super().__init__()
-        kw = dict(norm=norm, act=act, preact=True, nd=nd)
+        kw = dict(norm=norm, act=act, preact=True, nd=nd, conv_na=conv_na)
         self.conv1 = ConvNormAct(in_ch, out_ch, kernel_size, **kw)
         self.conv2 = ConvNormAct(out_ch, out_ch, kernel_size, **kw)
         self.shortcut = (ConvNormAct(in_ch, out_ch, kernel_size, **kw)
@@ -238,13 +253,15 @@ class SEBlock(nn.Module):
 
 class MBConv(nn.Module):
     """conv_layers.py:197-238 — inverted residual, depthwise conv + SE.  The
-    dim2 reference names its SE module ``se_block``, the dim3 one ``se``."""
+    dim2 reference names its SE module ``se_block``, the dim3 one ``se``.
+    ``conv_na`` passes through (none of its convs is a fused one: 1x1,
+    grouped, or without a norm)."""
 
     def __init__(self, in_ch, out_ch, expansion=4, kernel_size=3, norm="bn",
-                 act="relu", nd: int = 3):
+                 act="relu", nd: int = 3, conv_na: bool = False):
         super().__init__()
         expanded = expansion * in_ch
-        kw = dict(norm=norm, nd=nd)
+        kw = dict(norm=norm, nd=nd, conv_na=conv_na)
         self.expand_proj = (
             ConvNormAct(in_ch, expanded, 1, act=act, preact=True, **kw)
             if expansion != 1 else None)
@@ -256,7 +273,7 @@ class MBConv(nn.Module):
         self.pointwise = ConvNormAct(expanded, out_ch, 1, act=False,
                                      preact=True, **kw)
         self.shortcut = (ConvNormAct(in_ch, out_ch, kernel_size, norm=False,
-                                     act=False, nd=nd)
+                                     act=False, nd=nd, conv_na=conv_na)
                          if in_ch != out_ch else None)
 
     def forward(self, x):

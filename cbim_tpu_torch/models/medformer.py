@@ -227,14 +227,15 @@ class InConvMF(nn.Module):
     """conv + block (medformer_utils.py:264-277)."""
 
     def __init__(self, in_ch, out_ch, conv_block, kernel_size=3, norm="in",
-                 act="relu", nd: int = 3):
+                 act="relu", nd: int = 3, conv_na: bool = False):
         super().__init__()
         k = _tuple(kernel_size, nd)
         self.conv1 = CONV[nd](in_ch, out_ch, k,
                               padding=tuple(ki // 2 for ki in k), bias=False)
         self.conv2 = get_block_cls(conv_block)(out_ch, out_ch,
                                                kernel_size=kernel_size,
-                                               norm=norm, act=act, nd=nd)
+                                               norm=norm, act=act, nd=nd,
+                                               conv_na=conv_na)
 
     def forward(self, x):
         return self.conv2(self.conv1(x))
@@ -246,14 +247,15 @@ class DownBlockMF(nn.Module):
     def __init__(self, in_ch, out_ch, conv_num, trans_num,
                  conv_block="BasicBlock", kernel_size=3, down_scale=2,
                  heads=4, dim_head=64, expansion=4, map_size=(4, 4, 4),
-                 norm="in", act="relu", map_generate=False, nd: int = 3):
+                 norm="in", act="relu", map_generate=False, nd: int = 3,
+                 conv_na: bool = False):
         super().__init__()
         self.patch_merging = PatchMerging(in_ch, out_ch, down_scale,
                                           kernel_size, norm, nd=nd)
         blk = get_block_cls(conv_block)
         self.conv_blocks = nn.Sequential(*(
             blk(out_ch, out_ch, kernel_size=kernel_size, norm=norm, act=act,
-                nd=nd)
+                nd=nd, conv_na=conv_na)
             for _ in range(conv_num)))
         self.map_gen = (SemanticMapGeneration(out_ch, out_ch, map_size)
                         if map_generate else None)
@@ -276,7 +278,7 @@ class UpBlockMF3D(nn.Module):
     def __init__(self, in_ch, skip_ch, out_ch, conv_num, trans_num,
                  conv_block="BasicBlock", kernel_size=3, heads=4, dim_head=64,
                  expansion=4, norm="in", act="relu", map_in_dim=None,
-                 no_map_out=False):
+                 no_map_out=False, conv_na: bool = False):
         super().__init__()
         # map_in_dim: channels of the concatenated map shortcut, if any
         self.map_reduction = (_conv1x1(map_in_dim, out_ch)
@@ -291,7 +293,7 @@ class UpBlockMF3D(nn.Module):
         first = out_ch if trans_num > 0 else feat_dim
         self.conv_blocks = nn.Sequential(*(
             blk(first if j == 0 else out_ch, out_ch, kernel_size=kernel_size,
-                norm=norm, act=act)
+                norm=norm, act=act, conv_na=conv_na)
             for j in range(conv_num)))
 
     def forward(self, x_low, x_skip, map1, map2=None):
@@ -347,7 +349,10 @@ class MedFormer3D(nn.Module):
     ``remat`` (False | True/'all' | 'highres' | 'store-up4' |
     'store-decoder' | 'none') checkpoints the stages that
     :data:`REMAT_MODES` names, in ``train()`` mode only; their forward runs
-    again in the backward pass.  Dropout is not ported: nonzero
+    again in the backward pass.  ``conv_na`` computes every preact
+    InstanceNorm 3^3 conv of the conv blocks as one fused
+    ``ConvInormAct3d`` (the JAX package's opt-in ``CBIM_CONV_NA=1``); the
+    parameters are the same either way.  Dropout is not ported: nonzero
     ``attn_drop``/``proj_drop`` raise."""
 
     def __init__(self, in_chan: int, num_classes: int, base_ch: int = 32,
@@ -364,7 +369,7 @@ class MedFormer3D(nn.Module):
                  kernel_size: Sequence = ((3, 3, 3),) * 5,
                  scale: Sequence = ((2, 2, 2),) * 4, aux_loss: bool = False,
                  remat: Any = False, attn_drop: float = 0.0,
-                 proj_drop: float = 0.0):
+                 proj_drop: float = 0.0, conv_na: bool = False):
         super().__init__()
         check_no_dropout(attn_drop, proj_drop)
         mode = "all" if remat is True else (remat or "none")
@@ -376,9 +381,10 @@ class MedFormer3D(nn.Module):
         dim_head = [cn[i] // num_heads[i] for i in range(8)]
         ks = list(kernel_size)
         common = dict(conv_block=conv_block, expansion=expansion,
-                      norm=norm, act=act)
+                      norm=norm, act=act, conv_na=conv_na)
 
-        self.inc = InConvMF(in_chan, base_ch, conv_block, ks[0], norm, act)
+        self.inc = InConvMF(in_chan, base_ch, conv_block, ks[0], norm, act,
+                            conv_na=conv_na)
         self.down1 = DownBlockMF(base_ch, cn[0], conv_num[0], trans_num[0],
                                  kernel_size=ks[1], down_scale=scale[0],
                                  map_size=map_size, **common)

@@ -51,6 +51,13 @@ SIGNATURES = {
     # x, g, partial, dw, dtype, B, D, H, W, C, F, rows_per_chunk, n_chunks,
     # stream
     "conv3d_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, y, mean, rstd, dtype, act, B, D, H, W, C, F, stream
+    "conv3d_same_na_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P],
+    # x, g, mean, rstd, partial, dw, dtype, act, B, D, H, W, C, F,
+    # rows_per_chunk, n_chunks, stream
+    "conv3d_wgrad_na": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _P],
     # x, w, y, dtype, B, H, W, C, F, stream
     "conv2d_same_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, g, partial, dw, dtype, B, H, W, C, F, rows_per_chunk, n_chunks,

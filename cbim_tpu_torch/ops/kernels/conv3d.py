@@ -15,11 +15,21 @@ in another layout), the custom VJP ``conv3d_same_t``, and ``conv3d_wgrad``
   g, a split-K reduction with fp32 partials per chunk of voxels, folded in a
   fixed order (no atomics).
 
+The fused preact conv, conv(act(InstanceNorm(x))), is the port of
+``conv3d_same_cw_na``, ``conv3d_wgrad_cw2_na`` and ``_cw_stats`` and of their
+custom VJP ``conv_inorm_act_cw_t``: the same two kernels with a norm-act
+prologue on their staged input rows, ``conv3d_same_na_fwd`` and
+``conv3d_wgrad_na``, so the normalised tensor never exists in device memory.
+The statistics are ``fused_norm.inorm_stats`` (``_cw_stats`` computes the
+same per-(b, c) mean and rstd in the TPU layout).  :class:`ConvInormAct3d`
+trains through them.
+
 The weight takes torch's layout; the forward wrapper packs it to
 [3, 3, 3, C, F] (a copy of 27*C*F values) so the kernel reads rows of output
 channels, and the wgrad wrapper gives back torch's [F, C, 3, 3, 3].
 CPU tensors take the plain versions: ``F.conv3d`` with padding 1 and
-``torch.nn.grad.conv3d_weight``.
+``torch.nn.grad.conv3d_weight`` (on ``inorm_apply_plain``'s output for the
+fused pair).
 """
 
 from __future__ import annotations
@@ -28,11 +38,12 @@ import torch
 import torch.nn.functional as F
 
 from .. import _backend
-from . import _build
+from . import _build, fused_norm
 
 #: launches of each kernel since the last reset (plain calls do not count);
 #: ``conv3d_dgrad`` counts the forward kernel's input-gradient launches
-launches = {"conv3d_same_fwd": 0, "conv3d_dgrad": 0, "conv3d_wgrad": 0}
+launches = {"conv3d_same_fwd": 0, "conv3d_dgrad": 0, "conv3d_wgrad": 0,
+            "conv3d_same_na_fwd": 0, "conv3d_wgrad_na": 0}
 
 #: blocks a wgrad pass aims for (several waves over 132 SMs), the fewest
 #: pixels or voxels a chunk takes, and the most bytes its fp32 partials may
@@ -75,7 +86,10 @@ def conv3d_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
-def _launch_fwd(x: torch.Tensor, w: torch.Tensor, key: str) -> torch.Tensor:
+def _launch_fwd(x: torch.Tensor, w: torch.Tensor, key: str,
+                na=None) -> torch.Tensor:
+    """The forward kernel, counted under ``key``; ``na`` = (mean, rstd, act)
+    selects ``conv3d_same_na_fwd``."""
     if not x.is_contiguous():
         raise ValueError("kernel needs a contiguous x[B, D, H, W, C]")
     B, D, H, W, C = x.shape
@@ -83,9 +97,16 @@ def _launch_fwd(x: torch.Tensor, w: torch.Tensor, key: str) -> torch.Tensor:
     wp = w.permute(2, 3, 4, 1, 0).contiguous()
     y = torch.empty((B, D, H, W, Fo), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        _build.call("conv3d_same_fwd", x.data_ptr(), wp.data_ptr(),
-                    y.data_ptr(), _backend.dtype_code(x), B, D, H, W, C, Fo,
-                    torch.cuda.current_stream().cuda_stream)
+        shape = (B, D, H, W, C, Fo, torch.cuda.current_stream().cuda_stream)
+        if na is None:
+            _build.call("conv3d_same_fwd", x.data_ptr(), wp.data_ptr(),
+                        y.data_ptr(), _backend.dtype_code(x), *shape)
+        else:
+            mean, rstd, act = na
+            _build.call("conv3d_same_na_fwd", x.data_ptr(), wp.data_ptr(),
+                        y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                        _backend.dtype_code(x), fused_norm._act_code(act),
+                        *shape)
     launches[key] += 1
     return y
 
@@ -135,16 +156,9 @@ def wgrad_chunking(M: int, C: int, F: int, taps: int = 27
     return rows, -(-M // rows)
 
 
-def conv3d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Weight gradient of :func:`conv3d_same`: x[B, D, H, W, C],
-    g[B, D, H, W, F] -> dW[F, C, 3, 3, 3] float32 (torch's layout).
-
-    The counterpart of ``cbim_tpu.ops.pallas.conv3d.conv3d_wgrad`` (which
-    returns [3, 3, 3, C, F]).  CUDA tensors launch the kernel, CPU tensors
-    run the plain version."""
-    _check_wgrad(x, g)
-    if not _backend.uses_kernels(x):
-        return conv3d_wgrad_plain(x, g)
+def _launch_wgrad(x: torch.Tensor, g: torch.Tensor, na=None) -> torch.Tensor:
+    """The wgrad kernel; ``na`` = (mean, rstd, act) selects
+    ``conv3d_wgrad_na``."""
     if not (x.is_contiguous() and g.is_contiguous()):
         raise ValueError("kernel needs contiguous x and g")
     B, D, H, W, C = x.shape
@@ -157,12 +171,101 @@ def conv3d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                           device=x.device)
     dw = torch.empty((3, 3, 3, C, Fo), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        _build.call("conv3d_wgrad", x.data_ptr(), g.data_ptr(),
-                    partial.data_ptr(), dw.data_ptr(), _backend.dtype_code(x),
-                    B, D, H, W, C, Fo, rows, n_chunks,
-                    torch.cuda.current_stream().cuda_stream)
-    launches["conv3d_wgrad"] += 1
+        shape = (B, D, H, W, C, Fo, rows, n_chunks,
+                 torch.cuda.current_stream().cuda_stream)
+        if na is None:
+            _build.call("conv3d_wgrad", x.data_ptr(), g.data_ptr(),
+                        partial.data_ptr(), dw.data_ptr(),
+                        _backend.dtype_code(x), *shape)
+        else:
+            mean, rstd, act = na
+            _build.call("conv3d_wgrad_na", x.data_ptr(), g.data_ptr(),
+                        mean.data_ptr(), rstd.data_ptr(), partial.data_ptr(),
+                        dw.data_ptr(), _backend.dtype_code(x),
+                        fused_norm._act_code(act), *shape)
+    launches["conv3d_wgrad" if na is None else "conv3d_wgrad_na"] += 1
     return dw.permute(4, 3, 0, 1, 2)
+
+
+def conv3d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of :func:`conv3d_same`: x[B, D, H, W, C],
+    g[B, D, H, W, F] -> dW[F, C, 3, 3, 3] float32 (torch's layout).
+
+    The counterpart of ``cbim_tpu.ops.pallas.conv3d.conv3d_wgrad`` (which
+    returns [3, 3, 3, C, F]).  CUDA tensors launch the kernel, CPU tensors
+    run the plain version."""
+    _check_wgrad(x, g)
+    if not _backend.uses_kernels(x):
+        return conv3d_wgrad_plain(x, g)
+    return _launch_wgrad(x, g)
+
+
+# ------------------------------------------------ fused preact conv (na)
+
+def _check_na(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+              act) -> None:
+    fused_norm._act_code(act)
+    fused_norm._check_stats(x, mean, rstd)
+
+
+def _normed(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+            act) -> torch.Tensor:
+    """act((x - mean) * rstd) in x.dtype, x[B, D, H, W, C]: the tensor the
+    fused kernels never write."""
+    x3 = x.reshape(x.shape[0], -1, x.shape[-1])
+    return fused_norm.inorm_apply_plain(x3, mean, rstd, act).view(x.shape)
+
+
+def conv3d_same_na_plain(x: torch.Tensor, mean: torch.Tensor,
+                         rstd: torch.Tensor, w: torch.Tensor,
+                         act=None) -> torch.Tensor:
+    """Plain version of :func:`conv3d_same_na`: ``inorm_apply_plain`` then
+    ``conv3d_same_plain``."""
+    _check(x, w)
+    _check_na(x, mean, rstd, act)
+    return conv3d_same_plain(_normed(x, mean, rstd, act), w)
+
+
+def conv3d_same_na(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                   w: torch.Tensor, act=None) -> torch.Tensor:
+    """The SAME 3^3 conv of act((x - mean) * rstd): x[B, D, H, W, C], mean
+    and rstd float32 [B, C], torch weights w[F, C, 3, 3, 3] -> y[B, D, H,
+    W, F] in x.dtype.  Zero padding applies to the normalised input.
+
+    The counterpart of ``cbim_tpu.ops.pallas.conv3d.conv3d_same_cw_na``
+    (NDHCW, stat [B, 2, C, 1], w [3, 3, 3, C, F]).  CUDA tensors launch
+    ``conv3d_same_na_fwd``, CPU tensors run the plain version."""
+    _check(x, w)
+    _check_na(x, mean, rstd, act)
+    if not _backend.uses_kernels(x):
+        return conv3d_same_na_plain(x, mean, rstd, w, act)
+    return _launch_fwd(x, w, "conv3d_same_na_fwd", (mean, rstd, act))
+
+
+def conv3d_wgrad_na_plain(x: torch.Tensor, mean: torch.Tensor,
+                          rstd: torch.Tensor, g: torch.Tensor,
+                          act=None) -> torch.Tensor:
+    """Plain version of :func:`conv3d_wgrad_na`: ``conv3d_wgrad_plain`` on
+    ``inorm_apply_plain``'s output."""
+    _check_wgrad(x, g)
+    _check_na(x, mean, rstd, act)
+    return conv3d_wgrad_plain(_normed(x, mean, rstd, act), g)
+
+
+def conv3d_wgrad_na(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                    g: torch.Tensor, act=None) -> torch.Tensor:
+    """Weight gradient of :func:`conv3d_same_na`: g[B, D, H, W, F] against
+    act((x - mean) * rstd), recomputed where the kernel stages it ->
+    dW[F, C, 3, 3, 3] float32.
+
+    The counterpart of ``cbim_tpu.ops.pallas.conv3d.conv3d_wgrad_cw2_na``.
+    CUDA tensors launch ``conv3d_wgrad_na``, CPU tensors run the plain
+    version."""
+    _check_wgrad(x, g)
+    _check_na(x, mean, rstd, act)
+    if not _backend.uses_kernels(x):
+        return conv3d_wgrad_na_plain(x, mean, rstd, g, act)
+    return _launch_wgrad(x, g, (mean, rstd, act))
 
 
 class Conv3dSame(torch.autograd.Function):
@@ -192,3 +295,44 @@ class Conv3dSame(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = conv3d_wgrad(x, g).to(w.dtype)
         return dx, dw
+
+
+class ConvInormAct3d(torch.autograd.Function):
+    """The fused preact conv, ``ConvInormAct3d.apply(x, w, eps, act)`` =
+    conv3x3x3_same(act(instance_norm(x, eps))) over a channels-last
+    x[B, D, H, W, C] with torch weights w[F, C, 3, 3, 3] (the counterpart of
+    ``conv_inorm_act_cw_t``).
+
+    Forward: ``inorm_stats`` (the port of ``_cw_stats``) and
+    :func:`conv3d_same_na`; it saves x, w, mean and rstd, never the
+    normalised tensor.  Backward, as ``_conv_na_bwd``: the gradient of the
+    normalised input dxn = :func:`conv3d_dgrad` (g, w); dW =
+    :func:`conv3d_wgrad_na`; dx = ``inorm_bwd_stats`` + ``inorm_bwd_apply``
+    on (x, dxn), which fold the statistics' own dependence on x.  Each
+    gradient only when needed; eps and act take none.  Under CUDA autocast,
+    x and w meet in bf16, as in :class:`Conv3dSame`.  CPU tensors run the
+    plain versions.  Pure, so safe to recompute under activation
+    checkpointing."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, x, w, eps, act):
+        _check(x, w)
+        mean, rstd = fused_norm._stats(fused_norm._rows(x), eps)
+        ctx.save_for_backward(x, w, mean, rstd)
+        ctx.act = act
+        return conv3d_same_na(x, mean, rstd, w, act)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g):
+        x, w, mean, rstd = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dxn3 = fused_norm._rows(conv3d_dgrad(g, w))
+            dx = fused_norm._backward(fused_norm._rows(x), dxn3, mean, rstd,
+                                      ctx.act).view(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = conv3d_wgrad_na(x, mean, rstd, g, ctx.act).to(w.dtype)
+        return dx, dw, None, None

@@ -42,8 +42,14 @@ _TARGET_BLOCKS = 2048
 _MIN_ROWS_PER_CHUNK = 256
 
 
+def supported_act(act) -> bool:
+    """Whether the kernels fuse ``act`` (``fused_norm.supported_act`` of the
+    JAX package): none, relu or exact-erf gelu."""
+    return act in _ACT_CODES
+
+
 def _act_code(act) -> int:
-    if act not in _ACT_CODES:
+    if not supported_act(act):
         raise ValueError(f"fused_norm: unsupported act {act!r}")
     return _ACT_CODES[act]
 
@@ -124,7 +130,9 @@ def inorm_apply_plain(x3: torch.Tensor, mean: torch.Tensor,
 
 
 def _check_stats(x3: torch.Tensor, *stats: torch.Tensor) -> None:
-    B, _, C = x3.shape
+    """Each of ``stats`` a contiguous float32 [B, C] on the device of x3
+    [B, ..., C]."""
+    B, C = x3.shape[0], x3.shape[-1]
     for t in stats:
         if (t.shape != (B, C) or t.dtype != torch.float32
                 or t.device != x3.device or not t.is_contiguous()):
@@ -227,6 +235,25 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], math.prod(x.shape[1:-1]), x.shape[-1])
 
 
+def _stats(x3: torch.Tensor, eps: float):
+    """(mean, rstd) of x3[B, S, C]: the kernel for a CUDA tensor, the plain
+    version for a CPU one."""
+    if _backend.uses_kernels(x3):
+        return inorm_stats(x3, eps)
+    return inorm_stats_plain(x3, eps)
+
+
+def _backward(x3: torch.Tensor, dy3: torch.Tensor, mean: torch.Tensor,
+              rstd: torch.Tensor, act) -> torch.Tensor:
+    """dx of act(instance_norm(x3)) from dy3 (both [B, S, C]): the two
+    backward kernels for CUDA tensors, their plain versions for CPU ones."""
+    if _backend.uses_kernels(x3):
+        red = inorm_bwd_stats(x3, dy3, mean, rstd, act)
+        return inorm_bwd_apply(x3, dy3, mean, rstd, red, act)
+    red = inorm_bwd_stats_plain(x3, dy3, mean, rstd, act)
+    return inorm_bwd_apply_plain(x3, dy3, mean, rstd, red, act)
+
+
 class InstanceNormAct(torch.autograd.Function):
     """Trainable :func:`instance_norm_act` (the counterpart of
     ``_instance_norm_act3``'s custom VJP): ``InstanceNormAct.apply(x, eps,
@@ -243,11 +270,10 @@ class InstanceNormAct(torch.autograd.Function):
     def forward(ctx, x, eps, act):
         _act_code(act)
         x3 = _rows(x)
+        mean, rstd = _stats(x3, eps)
         if _backend.uses_kernels(x3):
-            mean, rstd = inorm_stats(x3, eps)
             y = inorm_apply(x3, mean, rstd, act)
         else:
-            mean, rstd = inorm_stats_plain(x3, eps)
             y = inorm_apply_plain(x3, mean, rstd, act)
         ctx.save_for_backward(x3, mean, rstd)
         ctx.act = act
@@ -258,12 +284,7 @@ class InstanceNormAct(torch.autograd.Function):
     def backward(ctx, dy):
         x3, mean, rstd = ctx.saved_tensors
         dy3 = dy.to(x3.dtype).contiguous().view(x3.shape)
-        if _backend.uses_kernels(x3):
-            red = inorm_bwd_stats(x3, dy3, mean, rstd, ctx.act)
-            dx = inorm_bwd_apply(x3, dy3, mean, rstd, red, ctx.act)
-        else:
-            red = inorm_bwd_stats_plain(x3, dy3, mean, rstd, ctx.act)
-            dx = inorm_bwd_apply_plain(x3, dy3, mean, rstd, red, ctx.act)
+        dx = _backward(x3, dy3, mean, rstd, ctx.act)
         return dx.view(dy.shape), None, None
 
 

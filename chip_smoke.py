@@ -15,11 +15,16 @@ Phases, each printing its result; any failure raises and exits non-zero:
    cuDNN's depthwise 3x3 conv in both memory formats, the layout choice of
    MedFormer-2D's grouped convs; the window-attention kernel at the Swin
    zoo's seven shapes, with and without a shifted-window mask, beside
-   ``F.scaled_dot_product_attention`` on the same bias;
+   ``F.scaled_dot_product_attention`` on the same bias; the fused preact
+   conv's two kernels (``conv3d_same_na_fwd``, ``conv3d_wgrad_na``) at the
+   3^3 conv shapes, relu and gelu, beside the unfused pair of kernels each
+   replaces (no single PyTorch call computes either);
 4. a small MedFormer-3D on a 64^3 input, same seeded weights, on the card
    (kernels) and on the CPU (plain versions): softmax outputs compared;
+   then again with ``conv_na`` (the fused preact conv);
 4b. one train step of that small model, card vs CPU, fp32 with TF32 off:
-   the loss and every parameter's gradient compared;
+   the loss and every parameter's gradient compared; again with
+   ``conv_na``;
 4c. the same two checks for a small MedFormer-2D (BatchNorm, 128^2 slices):
    eval-mode softmax, then one train-mode fp32 step;
 4d. a small SwinUNETR (feature size 48, on 2 x 64^3 and 1 x 32^3), card
@@ -28,12 +33,19 @@ Phases, each printing its result; any failure raises and exits non-zero:
    serves two synthetic NIfTI requests through
    ``cbim_tpu_torch.prediction.main``; every forward kernel must have
    launched;
+5b. the same requests with ``conv_na: true``: every conv of the BasicBlocks
+   is one ``conv3d_same_na_fwd`` launch, 20 a forward, and
+   ``conv3d_same_fwd`` never launches; the label maps agree with phase 5's;
 6. training: the flagship recipe (``bench.py``: full-width MedFormer-3D,
    GELU, 128^3 crops, batch 2, bf16 autocast, remat of every stage, AdamW,
    EMA) trains a few steps on the synthetic corpus through
    ``cbim_tpu_torch.train.main``; every kernel, backward ones included,
    must have launched, and every loss must be finite.  Launch counts
    include the forward that remat recomputes in the backward pass;
+6b. the same recipe with ``conv_na: true``: per step 40
+   ``conv3d_same_na_fwd`` (remat incl.), 20 ``conv3d_wgrad_na`` and 20
+   dgrad launches, no ``conv3d_same_fwd`` forward and no ``conv3d_wgrad``;
+   sec/step and peak memory beside phase 6's;
 7. 2D serving: the full-width ACDC MedFormer-2D with seeded random weights
    serves two synthetic cine-MR NIfTI requests through
    ``cbim_tpu_torch.prediction.main --dimension 2d`` (every slice of a
@@ -51,16 +63,16 @@ Phases, each printing its result; any failure raises and exits non-zero:
    attention kernel must have launched once per Swin block of every
    forward, 6 per forward.
 
-Each of phases 5-9 sets the launch counters to 0 just before it and reads
-them just after.  The last three lines are the card's name and power limit,
-the kernels' JSON record (launches by phase, errors, times, the bound from
-the recorded shape's FLOPs and bytes) and ``{"ok": true, "device":
-{...}}``.
+Each of phases 5-9 (5b and 6b included) sets the launch counters to 0
+just before it and reads them just after.  The last three lines are the
+card's name and power limit, the kernels' JSON record (launches by phase,
+errors, times, the bound from the recorded shape's FLOPs and bytes) and
+``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--profile DIR]
 
-``--profile DIR`` also traces the steady steps of phases 6 and 8 with the
-trainer's profiler hook (``profile_dir``), and phase 9's requests served a
+``--profile DIR`` also traces the steady steps of phases 6, 6b and 8 with
+the trainer's profiler hook (``profile_dir``), and phase 9's requests served a
 second time, after the timed run: DIR/<phase>/kernels.txt and summary.json,
 and the top kernels by device time are printed.
 """
@@ -83,8 +95,11 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 #: TPU kernels each CUDA kernel replaces (file:line of the function that
 #: reaches pl.pallas_call)
 KERNELS = {
+    # and the fused preact conv's statistics (_cw_stats: the same mean and
+    # rstd in the TPU layout)
     "inorm_stats": ("cbim_tpu_torch/csrc/fused_norm.cu",
-                    "cbim_tpu/ops/pallas/fused_norm.py:223"),
+                    "cbim_tpu/ops/pallas/fused_norm.py:223, "
+                    "cbim_tpu/ops/pallas/conv3d.py:1570"),
     "inorm_apply": ("cbim_tpu_torch/csrc/fused_norm.cu",
                     "cbim_tpu/ops/pallas/fused_norm.py:241"),
     "conv3d_same_fwd": ("cbim_tpu_torch/csrc/conv3d.cu",
@@ -101,11 +116,19 @@ KERNELS = {
                      "cbim_tpu/ops/pallas/conv2d.py:238"),
     "window_attention": ("cbim_tpu_torch/csrc/window_attention.cu",
                          "cbim_tpu/ops/pallas/window_attention.py:78"),
+    "conv3d_same_na_fwd": ("cbim_tpu_torch/csrc/conv3d.cu",
+                           "cbim_tpu/ops/pallas/conv3d.py:1387"),
+    "conv3d_wgrad_na": ("cbim_tpu_torch/csrc/conv3d.cu",
+                        "cbim_tpu/ops/pallas/conv3d.py:1518"),
 }
 #: the launch counter of each forward kernel's input-gradient launches
 DGRAD = {"conv3d_same_fwd": "conv3d_dgrad", "conv2d_same_fwd": "conv2d_dgrad"}
 #: the forward kernels, which serving launches
 FORWARD_KERNELS = ("inorm_stats", "inorm_apply", "conv3d_same_fwd")
+#: with ``conv_na``: the 20 preact InstanceNorm 3^3 convs of MedFormer-3D's
+#: BasicBlocks (every conv that takes the 3^3 kernel) become fused ones
+NA_FORWARD_KERNELS = ("inorm_stats", "inorm_apply", "conv3d_same_na_fwd")
+NA_CONVS = 20
 
 #: 3^3 conv shapes of the serving path (B, D, H, W, C, F): inc/up4 at
 #: 128^3, down1/up3 at 64^3, down2/up2 at 32^3, plus a ragged shape
@@ -116,6 +139,10 @@ CONV_CASES = [(2, 128, 128, 128, 32, 32), (2, 128, 128, 128, 96, 32),
 #: fp32; its dgrad (the forward kernel on flip-swapped weights) runs
 #: 32 -> 96, and the dgrad of (2, 64^3, 192 -> 64) runs 64 -> 192
 CONV_RECORD = (2, 128, 128, 128, 96, 32)
+#: the fused preact conv's acts (AMOS serving: relu; the flagship: gelu),
+#: and its JSON record: CONV_RECORD, fp32, relu
+NA_ACTS = ("relu", "gelu")
+NA_RECORD = (CONV_RECORD, "float32", "relu")
 
 #: 3x3 conv shapes (B, H, W, C, F) of the 2D paths at the ACDC recipe:
 #: inc/up4 and down1/up3 at training batch 32, a 12-slice serving batch,
@@ -191,8 +218,16 @@ WGRAD_TOL = 1e-4
 # The norm backward's statistics (means of dy' and dy' * x_hat over S) are
 # fp32 outputs of fp64 sums (kernel) vs fp32 sums (plain): TOL["float32"].
 # dx: TOL[dtype] as the forward apply.
+# The fused preact conv's kernels take the conv's and the wgrad's
+# tolerances: both versions round the normalised input to the storage type
+# before it meets the weights or the gradient, so they differ only in the
+# order of their fp32 sums.
 #: phases 4 and 4c, probabilities of two fp32 forwards (card vs CPU)
 MODEL_PROB_ATOL = 1e-4
+#: phase 5b, the least share of voxels labelled alike by the fused and the
+#: unfused fp32 route (same weights): they differ in the order of fp32 sums
+#: only, so only near-ties of two classes' logits may flip
+LABEL_AGREEMENT = 0.999
 #: phase 4b, one fp32 train step card vs CPU.  The loss to 1e-5 relative.
 #: The gradients of this random network are ill-conditioned in fp32 on
 #: either device: against an fp64 CPU run, the CPU's fp32 gradient is off by
@@ -572,6 +607,85 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
                     ap_ms, ap_plain, None, 8 * n_el,
                     3 * nbytes + 2 * stat_bytes, dt, (B, S, C))
             del x, dy, dx, pdx
+    torch.cuda.synchronize()
+
+
+def phase_na_kernels(device, conv_cases, record: dict) -> None:
+    """Phase 3, the fused preact conv: ``conv3d_same_na_fwd`` and
+    ``conv3d_wgrad_na`` against their plain versions (``inorm_apply_plain``
+    then the plain conv or weight gradient), on inputs of mean 1.5 so that
+    a padding normalised to act(-mean * rstd) instead of 0 fails.  Each is
+    timed beside the unfused pair of kernels it replaces (``inorm_apply`` +
+    ``conv3d_same_fwd``, ``inorm_apply`` + ``conv3d_wgrad``); no single
+    PyTorch call computes either function."""
+    import torch
+    from cbim_tpu_torch.ops.kernels import conv3d, fused_norm
+    gen = torch.Generator(device=device).manual_seed(6)
+    errs = record["errors"]
+    errs.update(conv3d_same_na_fwd=0.0, conv3d_wgrad_na=0.0)
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        for case in conv_cases:
+            B, D, H, W, C, Fo = case
+            x = torch.randn(B, D, H, W, C, generator=gen, device=device)
+            g = torch.randn(B, D, H, W, Fo, generator=gen, device=device)
+            w = torch.randn(Fo, C, 3, 3, 3, generator=gen, device=device)
+            x, g = (x * 2 + 1.5).to(dtype), g.to(dtype)
+            w = (w / math.sqrt(27 * C)).to(dtype)
+            x3 = x.view(B, -1, C)
+            mean, rstd = fused_norm.inorm_stats_plain(x3, 1e-4)
+            # the prologue's subtract, multiply and act once per input
+            flops = 2 * 27 * C * Fo * B * D * H * W + 3 * x.numel()
+            n = iters_for(flops, 1e10)
+            for act in NA_ACTS:
+                def normed():
+                    return fused_norm.inorm_apply(x3, mean, rstd,
+                                                  act).view(x.shape)
+
+                y = conv3d.conv3d_same_na(x, mean, rstd, w, act)
+                ref_y = conv3d.conv3d_same_na_plain(x, mean, rstd, w, act)
+                dw = conv3d.conv3d_wgrad_na(x, mean, rstd, g, act)
+                ref_dw = conv3d.conv3d_wgrad_na_plain(x, mean, rstd, g, act)
+                torch.cuda.synchronize()
+                sy = float(ref_y.float().abs().max())
+                ey = float((y.float() - ref_y.float()).abs().max())
+                sw = float(ref_dw.abs().max())
+                ew = float((dw - ref_dw).abs().max())
+                t_fwd = (
+                    cuda_ms(lambda: conv3d.conv3d_same_na(x, mean, rstd, w,
+                                                          act), n),
+                    cuda_ms(lambda: conv3d.conv3d_same(normed(), w), n),
+                    cuda_ms(lambda: conv3d.conv3d_same_na_plain(
+                        x, mean, rstd, w, act), n))
+                t_wg = (
+                    cuda_ms(lambda: conv3d.conv3d_wgrad_na(x, mean, rstd, g,
+                                                           act), n),
+                    cuda_ms(lambda: conv3d.conv3d_wgrad(normed(), g), n),
+                    cuda_ms(lambda: conv3d.conv3d_wgrad_na_plain(
+                        x, mean, rstd, g, act), n))
+                for key, (ms, pair_ms, plain_ms), err, scale, tol in (
+                        ("conv3d_same_na_fwd", t_fwd, ey, sy, CONV_TOL[dt]),
+                        ("conv3d_wgrad_na", t_wg, ew, sw, WGRAD_TOL)):
+                    say(f"  {key:18s} {dt:8s} {case} {act}: max_abs_err "
+                        f"{err:.3e} max_rel_err {err / scale:.3e} of max|ref| "
+                        f"{scale:.3f} (tol {tol:.1e}) kernel {ms:.3f} ms "
+                        f"({flops / ms / 1e9:.1f} TFLOP/s) unfused pair "
+                        f"{pair_ms:.3f} ms ({ms / pair_ms:.2f}x) plain "
+                        f"{plain_ms:.3f} ms")
+                    assert err <= tol * scale, f"{key} {dt} {case} {act}"
+                    errs[key] = max(errs[key], err)
+                if (case, dt, act) == NA_RECORD:
+                    size, stat_bytes = x.element_size(), 2 * B * C * 4
+                    record["conv3d_same_na_fwd"] = dict(entry(
+                        t_fwd[0], t_fwd[2], None, flops,
+                        (x.numel() + w.numel() + y.numel()) * size
+                        + stat_bytes, dt, case), act=act, unfused_ms=t_fwd[1])
+                    record["conv3d_wgrad_na"] = dict(entry(
+                        t_wg[0], t_wg[2], None, flops,
+                        (x.numel() + g.numel()) * size + dw.numel() * 4
+                        + stat_bytes, dt, case), act=act, unfused_ms=t_wg[1])
+                del y, ref_y, dw, ref_dw
+            del x, g, w, x3
     torch.cuda.synchronize()
 
 
@@ -1010,9 +1124,29 @@ def say_train(tr: dict, unit: str) -> None:
     say(f"  launches {tr['launches']}")
 
 
+def mean_seconds(res: dict) -> float:
+    """A serving phase's mean seconds per volume."""
+    return sum(res["seconds"].values()) / len(res["seconds"])
+
+
+def label_agreement(dir_a: str, dir_b: str) -> float:
+    """The share of voxels whose label is the same in the label maps of two
+    serving runs (same request names)."""
+    import numpy as np
+    from cbim_tpu_torch.data.nifti import read_nifti
+    same = total = 0
+    for req in sorted(os.listdir(dir_a)):
+        a = read_nifti(os.path.join(dir_a, req)).data
+        b = read_nifti(os.path.join(dir_b, req)).data
+        assert a.shape == b.shape, (req, a.shape, b.shape)
+        same += int(np.count_nonzero(a == b))
+        total += a.size
+    return same / total
+
+
 def say_serving(res: dict) -> None:
     secs = res["seconds"]
-    say(f"  sec/volume {sum(secs.values()) / len(secs):.3f} "
+    say(f"  sec/volume {mean_seconds(res):.3f} "
         f"({', '.join(f'{k} {v:.3f}' for k, v in sorted(secs.items()))})"
         f"; peak device memory {res['peak_bytes'] / 2 ** 30:.2f} GiB; "
         f"{res['forwards']} forwards; launches {res['launches']}")
@@ -1022,7 +1156,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="trace phases 6 and 8's steady steps, and "
+                        help="trace phases 6, 6b and 8's steady steps, and "
                              "phase 9's requests served again, into DIR")
     args = parser.parse_args(argv)
 
@@ -1065,21 +1199,35 @@ def main(argv=None) -> int:
     say("[phase 3] kernels vs plain versions")
     phase_kernels(device, CONV_CASES, NORM_CASES, record)
     phase_backward_kernels(device, CONV_CASES, NORM_CASES, record)
+    phase_na_kernels(device, CONV_CASES, record)
     phase_conv2d_kernels(device, CONV2D_CASES, record)
     phase_depthwise_layouts(device, DEPTHWISE2D_CASES)
     phase_window_attention(device, WA_CASES, record)
 
+    from cbim_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     say("[phase 4] small MedFormer-3D, card vs CPU")
-    err = phase_small_model(device, SMALL, (1, 1, 64, 64, 64))
-    say(f"  64^3 softmax max abs err {err:.3e} (tol {MODEL_PROB_ATOL})")
+    for conv_na in (False, True):
+        reset_launch_counts()
+        err = phase_small_model(device, dict(SMALL, conv_na=conv_na),
+                                (1, 1, 64, 64, 64))
+        n_na = launch_counts()["conv3d_same_na_fwd"]
+        say(f"  conv_na={conv_na}: 64^3 softmax max abs err {err:.3e} "
+            f"(tol {MODEL_PROB_ATOL}); {n_na} conv3d_same_na_fwd launches")
+        assert n_na == (NA_CONVS if conv_na else 0), n_na
 
     say("[phase 4b] one train step of the small MedFormer-3D, card vs CPU")
-    loss_err, l2_err, grad_err = phase_small_train_step(
-        device, dict(SMALL, remat=True), (2, 1, 64, 64, 64))
-    say(f"  2 x 64^3 fp32: loss rel err {loss_err:.3e} "
-        f"(tol {STEP_LOSS_RTOL:.0e}); gradient rel L2 err {l2_err:.3e} "
-        f"(tol {STEP_GRAD_L2:.0e}); worst tensor err {grad_err:.3e} of its "
-        f"scale (tol {STEP_GRAD_RTOL:.0e})")
+    for conv_na in (False, True):
+        reset_launch_counts()
+        loss_err, l2_err, grad_err = phase_small_train_step(
+            device, dict(SMALL, remat=True, conv_na=conv_na),
+            (2, 1, 64, 64, 64))
+        n_na = launch_counts()["conv3d_wgrad_na"]
+        say(f"  conv_na={conv_na}: 2 x 64^3 fp32: loss rel err "
+            f"{loss_err:.3e} (tol {STEP_LOSS_RTOL:.0e}); gradient rel L2 err "
+            f"{l2_err:.3e} (tol {STEP_GRAD_L2:.0e}); worst tensor err "
+            f"{grad_err:.3e} of its scale (tol {STEP_GRAD_RTOL:.0e}); "
+            f"{n_na} conv3d_wgrad_na launches")
+        assert n_na == (NA_CONVS if conv_na else 0), n_na
 
     say("[phase 4c] small MedFormer-2D (BatchNorm), card vs CPU")
     err = phase_small_model(device, SMALL2D, (6, 1, 128, 128))
@@ -1105,6 +1253,24 @@ def main(argv=None) -> int:
     say_serving(res)
     launches["5"] = res["launches"]
 
+    say("[phase 5b] the same requests with conv_na: the fused preact conv")
+    res_na = phase_slice(device, dict(AMOS, conv_na=True), REQUESTS,
+                         TARGET_SPACING, "serve3d_na", NA_FORWARD_KERNELS)
+    say_serving(res_na)
+    counts = res_na["launches"]
+    assert res_na["forwards"] > 0 and counts["conv3d_same_na_fwd"] == \
+        NA_CONVS * res_na["forwards"] and counts["conv3d_same_fwd"] == 0, \
+        f"{counts} in {res_na['forwards']} forwards"
+    agree = label_agreement(os.path.join(WORK, "serve3d", "out"),
+                            os.path.join(WORK, "serve3d_na", "out"))
+    say(f"  fused vs unfused (phase 5): {mean_seconds(res_na):.3f} vs "
+        f"{mean_seconds(res):.3f} sec/volume, peak "
+        f"{res_na['peak_bytes'] / 2 ** 30:.2f} vs "
+        f"{res['peak_bytes'] / 2 ** 30:.2f} GiB; label maps agree on "
+        f"{100 * agree:.4f} % of voxels (min {100 * LABEL_AGREEMENT} %)")
+    assert agree >= LABEL_AGREEMENT, agree
+    launches["5b"] = counts
+
     say("[phase 6] flagship MedFormer-3D training, bf16, remat all, "
         f"batch {TRAIN_BATCH}, {FLAGSHIP['iter_per_epoch']} steps")
     tr = phase_train(device, profiled(FLAGSHIP, "flagship"), TRAIN_BATCH,
@@ -1117,6 +1283,27 @@ def main(argv=None) -> int:
     if args.profile:
         say_profile(os.path.join(args.profile, "flagship"))
     launches["6"] = tr["launches"]
+
+    say("[phase 6b] the flagship recipe with conv_na: the fused preact conv")
+    tr_na = phase_train(device, profiled(dict(FLAGSHIP, conv_na=True),
+                                         "flagship_na"), TRAIN_BATCH,
+                        "flagship_na",
+                        ("inorm_stats", "inorm_apply", "inorm_bwd_stats",
+                         "inorm_bwd_apply", "conv3d_same_na_fwd",
+                         "conv3d_dgrad", "conv3d_wgrad_na"))
+    say_train(tr_na, "volumes")
+    counts, steps = tr_na["launches"], len(tr_na["step_seconds"])
+    want = dict(conv3d_same_na_fwd=2 * NA_CONVS * steps,
+                conv3d_wgrad_na=NA_CONVS * steps,
+                conv3d_dgrad=NA_CONVS * steps, conv3d_same_fwd=0,
+                conv3d_wgrad=0)
+    assert all(counts[k] == v for k, v in want.items()), (counts, want)
+    say(f"  fused vs unfused (phase 6): {tr_na['median']:.3f} vs "
+        f"{tr['median']:.3f} s/step, peak {tr_na['peak_bytes'] / 2 ** 30:.2f}"
+        f" vs {tr['peak_bytes'] / 2 ** 30:.2f} GiB")
+    if args.profile:
+        say_profile(os.path.join(args.profile, "flagship_na"))
+    launches["6b"] = counts
     say(f"  dgrad of conv3d_same_fwd at {CONV_RECORD}, fp32: kernel "
         f"{record['conv3d_dgrad'][0]:.3f} ms, plain {record['conv3d_dgrad'][1]:.3f} ms")
 

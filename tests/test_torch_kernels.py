@@ -88,13 +88,17 @@ def test_cpu_calls_leave_launch_counters_at_zero():
     x2 = torch.randn(2, 5, 6, 8, requires_grad=True)
     w2 = torch.randn(4, 8, 3, 3, requires_grad=True)
     conv2d.Conv2dSame.apply(x2, w2).square().sum().backward()
+    x3 = torch.randn(1, 4, 4, 4, 8, requires_grad=True)
+    conv3d.ConvInormAct3d.apply(x3, w, 1e-4, "gelu").square().sum().backward()
     assert x.grad is not None and w.grad is not None
     assert x2.grad is not None and w2.grad is not None
+    assert x3.grad is not None
     assert launch_counts() == {
         "inorm_stats": 0, "inorm_apply": 0, "inorm_bwd_stats": 0,
         "inorm_bwd_apply": 0, "conv3d_same_fwd": 0, "conv3d_dgrad": 0,
-        "conv3d_wgrad": 0, "conv2d_same_fwd": 0, "conv2d_dgrad": 0,
-        "conv2d_wgrad": 0, "window_attention": 0}
+        "conv3d_wgrad": 0, "conv3d_same_na_fwd": 0, "conv3d_wgrad_na": 0,
+        "conv2d_same_fwd": 0, "conv2d_dgrad": 0, "conv2d_wgrad": 0,
+        "window_attention": 0}
 
 
 def test_plain_stats_and_apply_compose_to_instance_norm_act():
@@ -155,7 +159,8 @@ def test_build_command_targets_sm90a_from_repo_sources():
     assert all(_build.CSRC in p.parents for p in _build.sources())
     assert set(_build.SIGNATURES) == {
         "inorm_stats", "inorm_apply", "inorm_bwd_stats", "inorm_bwd_apply",
-        "conv3d_same_fwd", "conv3d_wgrad", "conv2d_same_fwd", "conv2d_wgrad",
+        "conv3d_same_fwd", "conv3d_wgrad", "conv3d_same_na_fwd",
+        "conv3d_wgrad_na", "conv2d_same_fwd", "conv2d_wgrad",
         "window_attention"}
 
 

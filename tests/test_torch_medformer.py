@@ -19,6 +19,8 @@ from cbim_tpu.models.medformer import MedFormer3D as JaxMedFormer3D
 from cbim_tpu.utils.torch_import import import_medformer3d
 from cbim_tpu_torch.config import config_from_dict
 from cbim_tpu_torch.models import get_model
+from cbim_tpu_torch.models.layers import convs
+from cbim_tpu_torch.ops.kernels.conv3d import ConvInormAct3d
 from cbim_tpu_torch.utils.jax_import import medformer3d_state_dict_from_jax
 
 #: a narrow MedFormer-3D with the AMOS recipe's structure: 3^3 kernels,
@@ -76,10 +78,12 @@ def zero_params(model, shape):
                                   shapes["params"])
 
 
-def test_tiny_forward_matches_jax():
-    jm = jax_medformer(TINY)
+def _check_tiny_forward(d):
+    """The port's forward of ``d`` (TINY, or TINY with options) vs the JAX
+    model's, with the same weights; returns the port's model."""
+    jm = jax_medformer(d)
     params = jax_params(jm, (1, 32, 32, 32, 1))
-    cfg = config_from_dict(TINY)
+    cfg = config_from_dict(d)
     model = get_model(cfg, device="cpu")
     model.load_state_dict(medformer3d_state_dict_from_jax(params, cfg))
 
@@ -94,6 +98,34 @@ def test_tiny_forward_matches_jax():
     for t, j in ((t_out, j_out), (t_aux, j_aux)):
         np.testing.assert_allclose(t.movedim(1, -1).numpy(), np.asarray(j),
                                    rtol=1e-4, atol=1e-4)
+    return model
+
+
+def test_tiny_forward_matches_jax():
+    _check_tiny_forward(TINY)
+
+
+def test_tiny_forward_with_conv_na_matches_jax(monkeypatch):
+    """``conv_na``: every conv of the BasicBlocks (a preact InstanceNorm 3^3
+    conv) runs as one fused ``ConvInormAct3d``, the counterpart of the JAX
+    package's ``CBIM_CONV_NA=1`` route, which computes the same function as
+    the unfused chain the JAX model runs on the CPU: the same tolerance."""
+    calls = []
+
+    class Counting:
+        @staticmethod
+        def apply(*args):
+            calls.append(1)
+            return ConvInormAct3d.apply(*args)
+
+    monkeypatch.setattr(convs, "ConvInormAct3d", Counting)
+    model = _check_tiny_forward(dict(TINY, conv_na=True))
+    blocks = [m for b in model.modules() if isinstance(b, convs.BasicBlock)
+              for m in b.modules() if isinstance(m, convs.ConvNormAct)]
+    assert blocks and all(m.fused for m in blocks)
+    fused = [m for m in model.modules()
+             if isinstance(m, convs.ConvNormAct) and m.fused]
+    assert len(fused) == len(blocks) == len(calls)
 
 
 def test_state_dict_round_trip_through_import_medformer3d():

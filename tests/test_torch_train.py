@@ -9,6 +9,7 @@ training, refuse what it has not ported, checkpoint and resume, and run
 with a seed.
 """
 
+import functools
 import inspect
 import json
 
@@ -183,17 +184,21 @@ def test_next_batch_shapes_and_labels():
 
 # ------------------------------------------------------- train trajectory
 
-def test_three_step_trajectory_matches_make_train_step():
-    """fp32, AdamW + EMA, dropout off, three fixed batches, weights carried
-    by ``medformer3d_state_dict_from_jax``: the losses and the step-0
-    gradients, then the params and EMA params after three steps."""
-    S, lr = 32, 1e-3
+TRAJ_SIZE, TRAJ_LR = 32, 1e-3
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_trajectory():
+    """Three fixed batches through ``make_train_step`` (fp32, AdamW + EMA):
+    the batches, the initial params, the step-0 gradients, the losses, and
+    the params and EMA params after three steps."""
+    S = TRAJ_SIZE
     rng = np.random.default_rng(0)
     imgs = [rng.normal(size=(2, S, S, S, 1)).astype(np.float32)
             for _ in range(3)]
     labs = [rng.integers(0, 3, size=(2, S, S, S)).astype(np.int32)
             for _ in range(3)]
-    jc, tc = jax_config(TRAIN), config_from_dict(TRAIN)
+    jc = jax_config(TRAIN)
     jm = jax_medformer(TRAIN)
     state, tx = jax_create(jm, jc, jax.random.PRNGKey(0),
                            jnp.zeros((1, S, S, S, 1)))
@@ -209,9 +214,20 @@ def test_three_step_trajectory_matches_make_train_step():
     j_step = jax.jit(jax_make_step(jm, tx, jc))
     j_losses = []
     for img, lab in zip(imgs, labs):
-        state, loss = j_step(state, jnp.asarray(img), jnp.asarray(lab), lr)
+        state, loss = j_step(state, jnp.asarray(img), jnp.asarray(lab),
+                             TRAJ_LR)
         j_losses.append(float(loss))
+    return (imgs, labs, params0, jax.tree.map(np.asarray, j_grads), j_losses,
+            jax.tree.map(np.asarray, state.params),
+            jax.tree.map(np.asarray, state.ema_params))
 
+
+def _check_trajectory(d):
+    """The port's model of config ``d`` (TRAIN, or TRAIN with options that
+    keep its function) against :func:`_jax_trajectory`."""
+    imgs, labs, params0, j_grads, j_losses, j_params, j_ema = \
+        _jax_trajectory()
+    tc = config_from_dict(d)
     model = get_model(tc, device="cpu", train=True)
     model.load_state_dict(medformer3d_state_dict_from_jax(params0, tc))
     t_state = create_train_state(model, tc)
@@ -220,15 +236,14 @@ def test_three_step_trajectory_matches_make_train_step():
     out = model(torch.from_numpy(imgs[0]).movedim(-1, 1))
     losses.deep_supervision_loss(out, torch.from_numpy(labs[0]), [0.5, 0.5],
                                  TRAIN["weight"], 1.0).backward()
-    j_grad_sd = medformer3d_state_dict_from_jax(
-        jax.tree.map(np.asarray, j_grads), tc)
+    j_grad_sd = medformer3d_state_dict_from_jax(j_grads, tc)
     for k, p in model.named_parameters():
         # fp32 both sides, sums in another order; |grad| <= 0.14 here
         np.testing.assert_allclose(p.grad.numpy(), j_grad_sd[k], rtol=1e-4,
                                    atol=5e-6, err_msg=k)
 
     t_losses = [float(step(t_state, torch.from_numpy(img),
-                           torch.from_numpy(lab), lr))
+                           torch.from_numpy(lab), TRAJ_LR))
                 for img, lab in zip(imgs, labs)]
     np.testing.assert_allclose(t_losses, j_losses, rtol=1e-5)
     assert t_state.step == 3
@@ -237,15 +252,38 @@ def test_three_step_trajectory_matches_make_train_step():
     # the gradient is at most lr / eps = 100, so gradients that agree to
     # 5e-6 move a parameter apart by at most 5e-4 a step: 1.5e-3 in three.
     # The EMA is a convex mix of those parameters.
-    j_params = medformer3d_state_dict_from_jax(
-        jax.tree.map(np.asarray, state.params), tc)
-    j_ema = medformer3d_state_dict_from_jax(
-        jax.tree.map(np.asarray, state.ema_params), tc)
+    j_params = medformer3d_state_dict_from_jax(j_params, tc)
+    j_ema = medformer3d_state_dict_from_jax(j_ema, tc)
     for sd, ref in ((model.state_dict(), j_params),
                     (eval_variables(t_state, True).state_dict(), j_ema)):
         for k in sd:
             np.testing.assert_allclose(sd[k].numpy(), ref[k], rtol=0,
                                        atol=1.5e-3, err_msg=k)
+
+
+def test_three_step_trajectory_matches_make_train_step():
+    """fp32, AdamW + EMA, dropout off, three fixed batches, weights carried
+    by ``medformer3d_state_dict_from_jax``: the losses and the step-0
+    gradients, then the params and EMA params after three steps."""
+    _check_trajectory(TRAIN)
+
+
+def test_three_step_trajectory_with_conv_na_matches_make_train_step(
+        monkeypatch):
+    """The same trajectory with ``conv_na``: the BasicBlocks' convs train
+    through ``ConvInormAct3d`` (dgrad, the na wgrad and the InstanceNorm
+    backward) and follow the JAX model's unfused chain, which computes the
+    same function, at the same tolerances."""
+    calls = []
+    fused_apply = conv3d.ConvInormAct3d.apply
+
+    def counting(*args):
+        calls.append(1)
+        return fused_apply(*args)
+
+    monkeypatch.setattr(conv3d.ConvInormAct3d, "apply", counting)
+    _check_trajectory(dict(TRAIN, conv_na=True))
+    assert calls
 
 
 # ------------------------------------------ what the port does on its own
