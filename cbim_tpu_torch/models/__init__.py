@@ -90,7 +90,8 @@ def get_model(cfg, device="cuda", generator: torch.Generator | None = None,
 
 def _medformer2d(cfg) -> nn.Module:
     """The JAX factory's MedFormer2D: no norm or act from the config (the
-    model's BatchNorm + ReLU defaults), no remat."""
+    model's BatchNorm + ReLU defaults), no remat; the 3x3 kernel route only
+    with ``conv2d_kernel`` (default off, as JAX's ``CBIM_PLCONV2D``)."""
     from .medformer import MedFormer2D
     return MedFormer2D(
         in_chan=cfg.in_chan, num_classes=cfg.classes, base_ch=cfg.base_chan,
@@ -100,7 +101,8 @@ def _medformer2d(cfg) -> nn.Module:
         fusion_dim=cfg.fusion_dim, fusion_heads=cfg.fusion_heads,
         expansion=cfg.expansion, proj_type=cfg.proj_type,
         aux_loss=cfg.aux_loss, attn_drop=cfg.get("attn_drop", 0.0),
-        proj_drop=cfg.get("proj_drop", 0.0))
+        proj_drop=cfg.get("proj_drop", 0.0),
+        conv2d_kernel=cfg.get("conv2d_kernel", False))
 
 
 def _swin_unetr(cfg) -> nn.Module:
@@ -113,6 +115,9 @@ def _swin_unetr(cfg) -> nn.Module:
 
 
 def _medformer3d(cfg) -> nn.Module:
+    """The JAX factory's MedFormer3D; remat of every stage unless the
+    config says otherwise (its mode strings, 'highres' among them, pass as
+    they are)."""
     from .medformer import MedFormer3D
     return MedFormer3D(
         in_chan=cfg.in_chan, num_classes=cfg.classes, base_ch=cfg.base_chan,
@@ -125,7 +130,7 @@ def _medformer3d(cfg) -> nn.Module:
         act=cfg.act,
         kernel_size=tuple(map(tuple, _norm_scales(cfg.kernel_size, 5))),
         scale=tuple(map(tuple, _norm_scales(cfg.down_scale, 4))),
-        aux_loss=cfg.aux_loss, remat=cfg.get("remat", False),
+        aux_loss=cfg.aux_loss, remat=cfg.get("remat", True),
         attn_drop=cfg.get("attn_drop", 0.0),
         proj_drop=cfg.get("proj_drop", 0.0),
         conv_na=cfg.get("conv_na", False))

@@ -15,9 +15,11 @@ Kernel dispatch, one rule per kernel family; each trains through its
 - a ``ConvNormAct`` conv that is 3^3 and not grouped, with C_in <= 192
   and C_out <= 128 (the envelope of the TPU dispatch,
   ``_pallas_conv_usable``), goes through ``Conv3dSame``;
-- a ``ConvNormAct`` conv that is 3x3 and not grouped, with C_in <= 192 and
-  C_out <= 192 (``_pallas_conv2d_usable``'s channel envelope), goes through
-  ``Conv2dSame`` at any H, W;
+- with ``conv2d_kernel``, a ``ConvNormAct`` conv that is 3x3 and not
+  grouped, with C_in <= 192 and C_out <= 192 (``_pallas_conv2d_usable``'s
+  channel envelope), goes through ``Conv2dSame`` at any H, W: the JAX
+  package's opt-in ``CBIM_PLCONV2D=1`` route.  Without it (the default, as
+  in JAX) the 3x3 convs are ``F.conv2d`` (cuDNN);
 - with ``conv_na``, a preact InstanceNorm ``ConvNormAct`` whose conv takes
   ``Conv3dSame`` and whose act the norm kernels fuse goes through
   ``ConvInormAct3d`` instead, norm and conv as one: the JAX package's
@@ -152,11 +154,14 @@ class ConvNormAct(nn.Module):
 
     ``conv_na``: compute a preact InstanceNorm 3^3 conv as the fused
     ``ConvInormAct3d`` where it applies (``fused``); the parameters are the
-    same either way (the InstanceNorm is affine-free)."""
+    same either way (the InstanceNorm is affine-free).  ``conv2d_kernel``:
+    route an eligible 3x3 conv through ``Conv2dSame`` (``kernel``); the
+    route is chosen here, when the module is built."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: KernelArg = 3,
                  groups: int = 1, norm="bn", act="relu", preact: bool = False,
-                 nd: int = 3, conv_na: bool = False):
+                 nd: int = 3, conv_na: bool = False,
+                 conv2d_kernel: bool = False):
         super().__init__()
         k = _tuple(kernel_size, nd)
         self.conv = CONV[nd](in_ch, out_ch, k,
@@ -170,7 +175,7 @@ class ConvNormAct(nn.Module):
         if k == (3,) * nd and groups == 1 and in_ch <= 192:
             if nd == 3 and out_ch <= 128:
                 self.kernel = Conv3dSame
-            elif nd == 2 and out_ch <= 192:
+            elif nd == 2 and out_ch <= 192 and conv2d_kernel:
                 self.kernel = Conv2dSame
         self.fused = (conv_na and preact and norm == "in"
                       and self.kernel is Conv3dSame and supported_act(act))
@@ -196,10 +201,12 @@ class SingleConv(nn.Module):
     passes through; it fuses only preact convs)."""
 
     def __init__(self, in_ch, out_ch, kernel_size=3, norm="bn", act="relu",
-                 nd: int = 3, conv_na: bool = False):
+                 nd: int = 3, conv_na: bool = False,
+                 conv2d_kernel: bool = False):
         super().__init__()
         self.conv = ConvNormAct(in_ch, out_ch, kernel_size, norm=norm, act=act,
-                                nd=nd, conv_na=conv_na)
+                                nd=nd, conv_na=conv_na,
+                                conv2d_kernel=conv2d_kernel)
 
     def forward(self, x):
         return self.conv(x)
@@ -209,9 +216,11 @@ class BasicBlock(nn.Module):
     """conv_layers.py:71-94 — preact residual block (2 convs + shortcut)."""
 
     def __init__(self, in_ch, out_ch, kernel_size=3, norm="bn", act="relu",
-                 nd: int = 3, conv_na: bool = False):
+                 nd: int = 3, conv_na: bool = False,
+                 conv2d_kernel: bool = False):
         super().__init__()
-        kw = dict(norm=norm, act=act, preact=True, nd=nd, conv_na=conv_na)
+        kw = dict(norm=norm, act=act, preact=True, nd=nd, conv_na=conv_na,
+                  conv2d_kernel=conv2d_kernel)
         self.conv1 = ConvNormAct(in_ch, out_ch, kernel_size, **kw)
         self.conv2 = ConvNormAct(out_ch, out_ch, kernel_size, **kw)
         self.shortcut = (ConvNormAct(in_ch, out_ch, kernel_size, **kw)
@@ -255,13 +264,16 @@ class MBConv(nn.Module):
     """conv_layers.py:197-238 — inverted residual, depthwise conv + SE.  The
     dim2 reference names its SE module ``se_block``, the dim3 one ``se``.
     ``conv_na`` passes through (none of its convs is a fused one: 1x1,
-    grouped, or without a norm)."""
+    grouped, or without a norm), and so does ``conv2d_kernel`` (the 3x3
+    shortcut may take it)."""
 
     def __init__(self, in_ch, out_ch, expansion=4, kernel_size=3, norm="bn",
-                 act="relu", nd: int = 3, conv_na: bool = False):
+                 act="relu", nd: int = 3, conv_na: bool = False,
+                 conv2d_kernel: bool = False):
         super().__init__()
         expanded = expansion * in_ch
-        kw = dict(norm=norm, nd=nd, conv_na=conv_na)
+        kw = dict(norm=norm, nd=nd, conv_na=conv_na,
+                  conv2d_kernel=conv2d_kernel)
         self.expand_proj = (
             ConvNormAct(in_ch, expanded, 1, act=act, preact=True, **kw)
             if expansion != 1 else None)
@@ -272,8 +284,8 @@ class MBConv(nn.Module):
         self.add_module(self.se_name, SEBlock(expanded, act=act, nd=nd))
         self.pointwise = ConvNormAct(expanded, out_ch, 1, act=False,
                                      preact=True, **kw)
-        self.shortcut = (ConvNormAct(in_ch, out_ch, kernel_size, norm=False,
-                                     act=False, nd=nd, conv_na=conv_na)
+        self.shortcut = (ConvNormAct(in_ch, out_ch, kernel_size, act=False,
+                                     **dict(kw, norm=False))
                          if in_ch != out_ch else None)
 
     def forward(self, x):

@@ -227,7 +227,8 @@ class InConvMF(nn.Module):
     """conv + block (medformer_utils.py:264-277)."""
 
     def __init__(self, in_ch, out_ch, conv_block, kernel_size=3, norm="in",
-                 act="relu", nd: int = 3, conv_na: bool = False):
+                 act="relu", nd: int = 3, conv_na: bool = False,
+                 conv2d_kernel: bool = False):
         super().__init__()
         k = _tuple(kernel_size, nd)
         self.conv1 = CONV[nd](in_ch, out_ch, k,
@@ -235,7 +236,8 @@ class InConvMF(nn.Module):
         self.conv2 = get_block_cls(conv_block)(out_ch, out_ch,
                                                kernel_size=kernel_size,
                                                norm=norm, act=act, nd=nd,
-                                               conv_na=conv_na)
+                                               conv_na=conv_na,
+                                               conv2d_kernel=conv2d_kernel)
 
     def forward(self, x):
         return self.conv2(self.conv1(x))
@@ -248,14 +250,14 @@ class DownBlockMF(nn.Module):
                  conv_block="BasicBlock", kernel_size=3, down_scale=2,
                  heads=4, dim_head=64, expansion=4, map_size=(4, 4, 4),
                  norm="in", act="relu", map_generate=False, nd: int = 3,
-                 conv_na: bool = False):
+                 conv_na: bool = False, conv2d_kernel: bool = False):
         super().__init__()
         self.patch_merging = PatchMerging(in_ch, out_ch, down_scale,
                                           kernel_size, norm, nd=nd)
         blk = get_block_cls(conv_block)
         self.conv_blocks = nn.Sequential(*(
             blk(out_ch, out_ch, kernel_size=kernel_size, norm=norm, act=act,
-                nd=nd, conv_na=conv_na)
+                nd=nd, conv_na=conv_na, conv2d_kernel=conv2d_kernel)
             for _ in range(conv_num)))
         self.map_gen = (SemanticMapGeneration(out_ch, out_ch, map_size)
                         if map_generate else None)
@@ -316,7 +318,8 @@ class UpBlockMF2D(nn.Module):
 
     def __init__(self, in_ch, skip_ch, out_ch, conv_num, trans_num,
                  map_in_dim, conv_block="BasicBlock", heads=4, dim_head=64,
-                 expansion=4, norm="bn", act="relu"):
+                 expansion=4, norm="bn", act="relu",
+                 conv2d_kernel: bool = False):
         super().__init__()
         # reference up_block norm(in_ch + out_ch), torch-default eps
         self.norm = Norm(norm, eps=1e-5, channels=in_ch + skip_ch)
@@ -328,7 +331,8 @@ class UpBlockMF2D(nn.Module):
             if trans_num > 0 else None)
         blk = get_block_cls(conv_block)
         self.conv_blocks = nn.Sequential(*(
-            blk(out_ch, out_ch, norm=norm, act=act, nd=2)
+            blk(out_ch, out_ch, norm=norm, act=act, nd=2,
+                conv2d_kernel=conv2d_kernel)
             for _ in range(conv_num)))
 
     def forward(self, x_low, x_skip, map1, map2=None):
@@ -459,8 +463,11 @@ class MedFormer2D(nn.Module):
 
     Stage widths follow ``base_ch``: [2, 4, 8, 16, 8, 4, 2, 1] x base_ch;
     3x3 kernels and 2x2 downsampling throughout; BatchNorm + ReLU by
-    default, no remat (the JAX model has none).  Dropout is not ported:
-    nonzero ``attn_drop``/``proj_drop`` raise."""
+    default, no remat (the JAX model has none).  ``conv2d_kernel`` sends
+    the conv blocks' eligible 3x3 convs through ``Conv2dSame`` (the JAX
+    package's opt-in ``CBIM_PLCONV2D=1``); off, they are cuDNN's.  The
+    parameters are the same either way.  Dropout is not ported: nonzero
+    ``attn_drop``/``proj_drop`` raise."""
 
     def __init__(self, in_chan: int, num_classes: int, base_ch: int = 32,
                  map_size: Any = 8, conv_block: str = "BasicBlock",
@@ -471,7 +478,7 @@ class MedFormer2D(nn.Module):
                  fusion_heads: int = 16, expansion: int = 4,
                  proj_type: str = "depthwise", norm="bn", act="relu",
                  aux_loss: bool = False, attn_drop: float = 0.0,
-                 proj_drop: float = 0.0):
+                 proj_drop: float = 0.0, conv2d_kernel: bool = False):
         super().__init__()
         check_no_dropout(attn_drop, proj_drop)
         _check_proj_type(proj_type)
@@ -481,9 +488,10 @@ class MedFormer2D(nn.Module):
         map_size = ((map_size,) * 2 if isinstance(map_size, int)
                     else tuple(map_size))
         common = dict(conv_block=conv_block, expansion=expansion, norm=norm,
-                      act=act)
+                      act=act, conv2d_kernel=conv2d_kernel)
 
-        self.inc = InConvMF(in_chan, b, conv_block, 3, norm, act, nd=2)
+        self.inc = InConvMF(in_chan, b, conv_block, 3, norm, act, nd=2,
+                            conv2d_kernel=conv2d_kernel)
         self.down1 = DownBlockMF(b, cn[0], conv_num[0], trans_num[0],
                                  map_size=map_size, nd=2, **common)
         downs = []

@@ -1,11 +1,12 @@
-"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions."""
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions
+(``probes``: the instruments that port the JAX package's TPU probes)."""
 
 from __future__ import annotations
 
-from . import conv2d, conv3d, fused_norm, window_attention
+from . import conv2d, conv3d, fused_norm, probes, window_attention
 
 _COUNTS = (fused_norm.launches, conv3d.launches, conv2d.launches,
-           window_attention.launches)
+           window_attention.launches, probes.launches)
 
 
 def launch_counts() -> dict:

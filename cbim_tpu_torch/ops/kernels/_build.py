@@ -1,13 +1,14 @@
 """Build the CUDA kernels of ``cbim_tpu_torch/csrc`` and bind them.
 
 On first use, nvcc compiles every ``csrc/*.cu`` into an object, one nvcc
-process per source, all started together, and links the objects into one
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds), under ``build/kernels/`` at the repository root (listed in
-``.gitignore``).  The file name carries a digest of the sources and flags,
-so an edited source is rebuilt and an unchanged one is loaded as it is.  The
-library is loaded with ctypes; pointers and the stream travel as
-``c_void_p``.
+process per source, all started together (the longest source sets the
+build's time, so the 3^3 conv's forward and weight gradient are two), and
+links the objects into one shared library with a plain C interface (no
+PyTorch headers), under ``build/kernels/`` at the repository root (listed
+in ``.gitignore``).  The file name carries a digest of the sources, the
+headers and the flags, so an edited file is rebuilt and an unchanged
+library is loaded as it is.  The library is loaded with ctypes; pointers
+and the stream travel as ``c_void_p``.
 
 Every entry returns ``cudaGetLastError()``; :func:`call` raises when that is
 not 0.  Nothing here runs at import time: the CPU tests import every module
@@ -67,13 +68,25 @@ SIGNATURES = {
     # osh, osn, stream
     "window_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _LL, _LL, _LL, _LL, _LL, _LL, _P],
+    # the probes (csrc/probes.cu, and the ladder in conv3d.cu)
+    # x, y, n, vec, block, stream
+    "probe_copy_scale": [_P, _P, _LL, _I, _I, _P],
+    # a, w, out, T, K, N, L, slabs, stream
+    "probe_dot_t": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # a, b, out, T, M, N, K, stream
+    "probe_gemm": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, y, dtype, B, D, H, W, C, F, phase, bn, stream
+    "conv3d_same_fwd_ladder": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P],
 }
 
 _lib = None
 #: what the last build printed (ptxas register and shared-memory report)
 build_log = ""
-#: seconds the last build took (0.0 when the library was already built)
+#: seconds the last build took (0.0 when the library was already built),
+#: and each source's nvcc run within it (they run side by side)
 build_seconds = 0.0
+build_seconds_by_source: dict = {}
 
 
 def nvcc() -> str:
@@ -106,8 +119,10 @@ def link_command(out: Path, obj_dir: Path, nvcc_path: str = "nvcc"
 
 
 def library_path() -> Path:
+    """The library's path, named by a digest of the flags, the sources and
+    the headers they include (``csrc/*.cuh``)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources():
+    for s in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return BUILD_DIR / f"libcbim_kernels_{h.hexdigest()[:16]}.so"
@@ -116,20 +131,32 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the sources unless this digest is built already; a failed
     build raises with the compiler's output."""
-    global build_log, build_seconds
+    global build_log, build_seconds, build_seconds_by_source
     path = library_path()
     if path.exists():
-        build_seconds = 0.0
+        build_seconds, build_seconds_by_source = 0.0, {}
         return path
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
     obj_dir = BUILD_DIR / f"{path.stem}.{os.getpid()}.obj"
     obj_dir.mkdir(parents=True, exist_ok=True)
     nvcc_path = nvcc()
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for cmd in compile_commands(obj_dir, nvcc_path)]
-    logs = [p.communicate()[0] for p in procs]
+    # each nvcc writes its log to a file, so none blocks on a full pipe
+    # while the loop below waits for the others
+    logs_out = [obj_dir / f"{s.stem}.log" for s in sources()]
+    files = [open(log, "w") for log in logs_out]
+    procs = [subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+             for cmd, f in zip(compile_commands(obj_dir, nvcc_path), files)]
+    ended = {}
+    while len(ended) < len(procs):
+        for src, p in zip(sources(), procs):
+            if src.name not in ended and p.poll() is not None:
+                ended[src.name] = round(time.perf_counter() - t0, 1)
+        time.sleep(0.05)
+    for f in files:
+        f.close()
+    build_seconds_by_source = ended
+    logs = [log.read_text() for log in logs_out]
     failed = [p.returncode for p in procs if p.returncode != 0]
     if not failed:
         link = subprocess.run(link_command(tmp, obj_dir, nvcc_path),

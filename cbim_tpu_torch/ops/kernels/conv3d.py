@@ -4,7 +4,8 @@ plain versions, and the ``torch.autograd.Function`` that trains through them.
 Port of ``cbim_tpu/ops/pallas/conv3d.py``: ``conv3d_same`` (and its NDHCW
 twins ``conv3d_same_cw``/``conv3d_same_cw2``, which compute the same thing
 in another layout), the custom VJP ``conv3d_same_t``, and ``conv3d_wgrad``
-(and ``_cw``/``_cw2``).  Two kernels in ``csrc/conv3d.cu``:
+(and ``_cw``/``_cw2``).  Two kernels, in ``csrc/conv3d.cu`` and
+``csrc/conv3d_wgrad.cu``:
 
 - ``conv3d_same_fwd``: x[B, D, H, W, C] (x) w[F, C, 3, 3, 3] ->
   y[B, D, H, W, F] with fp32 sums, any D/H/W (the kernel masks its own

@@ -16,8 +16,12 @@ Usage:
         --dimension 2d --load w.pth --img_path in_dir --save_path out_dir \\
         --target_spacing 1.5625,1.5625
 
-Checkpoints are this port's ``.pth`` state_dicts.  Loading the JAX
-package's Flax ``.ckpt`` is not ported yet (ROADMAP.md).
+``--load`` takes the port trainer's ``.ckpt`` (its EMA weights when the
+config sets ``ema``, else its ``model``), the reference trainer's
+{model_state_dict, ema_model_state_dict} wrapper (EMA first) and bare
+``.pth`` state_dicts, through ``training.checkpoint.load_weights``.
+Loading the JAX package's Flax msgpack ``.ckpt`` is not ported yet
+(ROADMAP.md, A5).
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--model", type=str, default="unet")
     parser.add_argument("--dimension", type=str, default="3d")
     parser.add_argument("--load", type=parse_model_list, default=False,
-                        help="comma-separated .pth state_dicts for ensembling")
+                        help="comma-separated .ckpt/.pth weights for "
+                             "ensembling")
     parser.add_argument("--img_path", type=str, required=True)
     parser.add_argument("--save_path", type=str, default="./result/")
     parser.add_argument("--target_spacing", type=parse_spacing_list,
@@ -113,14 +118,6 @@ def unpad(np_pred, idx, cfg):
     return np_pred[:, y0:y1, x0:x1]
 
 
-def load_state_dict(path: str) -> dict:
-    if not path.endswith(".pth"):
-        raise NotImplementedError(
-            f"{path}: only this port's .pth state_dicts load; the Flax "
-            f".ckpt loader is not ported yet (see ROADMAP.md)")
-    return torch.load(path, map_location="cpu", weights_only=True)
-
-
 def main(argv=None, cfg=None) -> dict:
     """Run the CLI on ``argv`` (default: sys.argv).  ``cfg`` replaces the
     YAML lookup with an already-built config.  Returns {image name: seconds
@@ -133,6 +130,7 @@ def main(argv=None, cfg=None) -> dict:
     from .inference.engines import make_engine
     from .models import get_model
     from .ops._backend import get_device
+    from .training.checkpoint import load_weights
 
     device = get_device(args.device)
     if args.dimension not in ("2d", "3d"):
@@ -149,7 +147,7 @@ def main(argv=None, cfg=None) -> dict:
     engines = []
     for ckpt in (args.load or []):
         model = get_model(cfg, device=device)
-        model.load_state_dict(load_state_dict(ckpt))
+        load_weights(ckpt, model, prefer_ema=bool(cfg.get("ema", False)))
         engines.append(make_engine(model, cfg, window_batch=args.window_batch))
         print(f"Model loaded from {ckpt}")
 

@@ -27,7 +27,7 @@ from ..models import get_model
 from ..ops._backend import get_device
 from ..utils.logging import AverageMeter, MetricWriter, ProgressMeter
 from ..utils.profiling import StepProfiler
-from .checkpoint import load_checkpoint, save_checkpoint
+from .checkpoint import load_checkpoint, load_weights, save_checkpoint
 from .schedules import exp_lr_scheduler_with_warmup
 from .train_state import create_train_state, make_train_step
 
@@ -43,18 +43,14 @@ def check_no_validation(start_epoch: int, epochs: int, val_freq: int) -> None:
 
 
 def load_pretrained(cfg, state) -> None:
-    """Initialise the model (and its EMA copy) from ``cfg.init_model``: a
-    this-port MedFormer ``.pth`` state_dict, loaded strictly."""
-    path = str(cfg.init_model)
-    if not path.endswith(".pth"):
-        raise NotImplementedError(
-            f"{path}: only .pth state_dicts of the port's models load; the "
-            f".npz and swin backbone loaders are not ported yet "
-            f"(see ROADMAP.md)")
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    state.model.load_state_dict(sd)
+    """Initialise the model (and its EMA copy) from ``cfg.init_model``
+    through ``checkpoint.load_weights``, the prediction CLI's loader: a
+    port ``.ckpt`` or a reference wrapper gives its EMA weights (the eval
+    convention of ``cbim_tpu``'s torch import), a ``.pth`` state_dict
+    itself."""
+    load_weights(str(cfg.init_model), state.model, prefer_ema=True)
     if state.ema is not None:
-        state.ema.load_state_dict(sd)
+        state.ema.load_state_dict(state.model.state_dict())
 
 
 def train_net(cfg, fold_idx: int = 0, device="cuda"):

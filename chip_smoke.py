@@ -26,7 +26,9 @@ Phases, each printing its result; any failure raises and exits non-zero:
    the loss and every parameter's gradient compared; again with
    ``conv_na``;
 4c. the same two checks for a small MedFormer-2D (BatchNorm, 128^2 slices):
-   eval-mode softmax, then one train-mode fp32 step;
+   eval-mode softmax, then one train-mode fp32 step; with ``conv2d_kernel``
+   on, as phases 7 and 8 (the 3x3 kernel route is opt-in, as the JAX
+   package's ``CBIM_PLCONV2D=1``);
 4d. a small SwinUNETR (feature size 48, on 2 x 64^3 and 1 x 32^3), card
    (window-attention kernel) vs CPU (plain version): softmax outputs;
 5. serving: the full-width AMOS-CT MedFormer-3D with seeded random weights
@@ -56,14 +58,25 @@ Phases, each printing its result; any failure raises and exits non-zero:
    ``cbim_tpu_torch.train.main --dimension 2d --amp``; the 3x3 conv's
    forward, dgrad and wgrad kernels must have launched, and every loss must
    be finite;
+8b. the same recipe with ``conv2d_kernel`` off, the default: the 3x3 convs
+   are cuDNN's and no 3x3 kernel launches; sec/step, slices/s and peak
+   memory beside phase 8's;
 9. Swin serving: the full-width BCV SwinUNETR (``configs/bcv/
    swin_unetr_3d.yaml``: 14 classes, feature size 48, 128^3 window, fp32)
    with seeded random weights serves phase 5's two requests through
    ``cbim_tpu_torch.prediction.main --model swin_unetr``; the window-
    attention kernel must have launched once per Swin block of every
-   forward, 6 per forward.
+   forward, 6 per forward;
+10. the probes (``cbim_tpu_torch.tools``, the port of the JAX package's TPU
+   probes in ``tools/``): ``probe_bandwidth``, ``probe_lhst_dot`` and
+   ``probe_conv_dissect`` run at their full sizes, each of the four probe
+   kernels (``probe_copy_scale``, ``probe_dot_t``, ``probe_gemm``, the
+   ``conv3d_same_fwd`` ladder) must have launched; then each is held against
+   its plain version (the copy-scale exactly, the bf16 dots within 2^-7 of
+   max|ref|, the ladder's ``full`` rung equal to ``conv3d_same`` and within
+   the conv's tolerance), with its time, bound, plain and library times.
 
-Each of phases 5-9 (5b and 6b included) sets the launch counters to 0
+Each of phases 5-10 (5b, 6b and 8b included) sets the launch counters to 0
 just before it and reads them just after.  The last three lines are the
 card's name and power limit, the kernels' JSON record (launches by phase,
 errors, times, the bound from the recorded shape's FLOPs and bytes) and
@@ -71,10 +84,10 @@ errors, times, the bound from the recorded shape's FLOPs and bytes) and
 
 Usage: python3 chip_smoke.py [--profile DIR]
 
-``--profile DIR`` also traces the steady steps of phases 6, 6b and 8 with
-the trainer's profiler hook (``profile_dir``), and phase 9's requests served a
-second time, after the timed run: DIR/<phase>/kernels.txt and summary.json,
-and the top kernels by device time are printed.
+``--profile DIR`` also traces the steady steps of phases 6, 6b, 8 and 8b
+with the trainer's profiler hook (``profile_dir``), and phase 9's requests
+served a second time, after the timed run: DIR/<phase>/kernels.txt and
+summary.json, and the top kernels by device time are printed.
 """
 
 from __future__ import annotations
@@ -88,6 +101,9 @@ import statistics
 import subprocess
 import sys
 import time
+
+# the timing and the bound (published H100 peaks) that the probes use too
+from cbim_tpu_torch.tools import HBM_BYTES_PER_S, bound_ms, cuda_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -104,7 +120,7 @@ KERNELS = {
                     "cbim_tpu/ops/pallas/fused_norm.py:241"),
     "conv3d_same_fwd": ("cbim_tpu_torch/csrc/conv3d.cu",
                         "cbim_tpu/ops/pallas/conv3d.py:299"),
-    "conv3d_wgrad": ("cbim_tpu_torch/csrc/conv3d.cu",
+    "conv3d_wgrad": ("cbim_tpu_torch/csrc/conv3d_wgrad.cu",
                      "cbim_tpu/ops/pallas/conv3d.py:582"),
     "inorm_bwd_stats": ("cbim_tpu_torch/csrc/fused_norm.cu",
                         "cbim_tpu/ops/pallas/fused_norm.py:257"),
@@ -118,8 +134,17 @@ KERNELS = {
                          "cbim_tpu/ops/pallas/window_attention.py:78"),
     "conv3d_same_na_fwd": ("cbim_tpu_torch/csrc/conv3d.cu",
                            "cbim_tpu/ops/pallas/conv3d.py:1387"),
-    "conv3d_wgrad_na": ("cbim_tpu_torch/csrc/conv3d.cu",
+    "conv3d_wgrad_na": ("cbim_tpu_torch/csrc/conv3d_wgrad.cu",
                         "cbim_tpu/ops/pallas/conv3d.py:1518"),
+    # the probes, which lie on no path but their own entry points (phase 10)
+    "probe_copy_scale": ("cbim_tpu_torch/csrc/probes.cu",
+                         "tools/probe_bandwidth.py:23"),
+    "probe_dot_t": ("cbim_tpu_torch/csrc/probes.cu",
+                    "tools/probe_lhst_dot.py:28"),
+    "probe_gemm": ("cbim_tpu_torch/csrc/probes.cu",
+                   "tools/probe_lhst_dot.py:96"),
+    "conv3d_same_fwd_ladder": ("cbim_tpu_torch/csrc/conv3d.cu",
+                               "tools/probe_cw_dissect.py:164"),
 }
 #: the launch counter of each forward kernel's input-gradient launches
 DGRAD = {"conv3d_same_fwd": "conv3d_dgrad", "conv2d_same_fwd": "conv2d_dgrad"}
@@ -178,11 +203,6 @@ WA_RECORD = ((1000, 3, 343, 16), True, "float32")
 #: ulp (2^-8 relative) where they straddle a rounding boundary.  A wrong
 #: window, head, mask or tail errs by O(1) of max|o|.
 WA_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
-
-#: the bound of a recorded kernel: published dense peaks of one H100 SXM
-#: (float32 outside the tensor cores; bf16 on them) and its HBM rate
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-HBM_BYTES_PER_S = 3.35e12
 
 #: InstanceNorm sites (B, spatial, C, act, eps): full-res ConvNormAct,
 #: PatchMerging norms (eps 1e-5), B-MHA block norms, MBConv norms, and the
@@ -298,13 +318,14 @@ REQUESTS = [((160, 256, 256), (1.5, 1.5, 1.5)),
 TARGET_SPACING = "1.5,1.5,1.5"
 
 #: a narrow MedFormer-2D with the ACDC recipe's structure plus the JAX
-#: default's conv blocks in down2/up2 (phase 4c)
+#: default's conv blocks in down2/up2 (phase 4c), on the 3x3 kernel route
 SMALL2D = dict(
     dataset="synthetic", model="medformer", dimension="2d", classes=4,
     in_chan=1, base_chan=16, map_size=2, conv_block="BasicBlock",
     conv_num=[2, 1, 0, 0, 0, 1, 2, 2], trans_num=[0, 1, 1, 1, 1, 1, 0, 0],
     num_heads=[1, 4, 4, 4, 4, 4, 1, 1], expansion=2, fusion_depth=2,
-    fusion_dim=64, fusion_heads=4, proj_type="depthwise", aux_loss=True)
+    fusion_dim=64, fusion_heads=4, proj_type="depthwise", aux_loss=True,
+    conv2d_kernel=True)
 
 #: a SwinUNETR at the BCV width (feature size 48: head dim 16 at every
 #: stage), cut in input size (phase 4d)
@@ -324,14 +345,17 @@ BCV = dict(dataset="bcv", model="swin_unetr", dimension="3d", classes=14,
 #: depths (2, 2, 2, 0)
 SWIN_BLOCKS = 6
 
-#: the model and inference keys of configs/acdc/medformer_2d.yaml
+#: the model and inference keys of configs/acdc/medformer_2d.yaml, on the
+#: 3x3 kernel route (``conv2d_kernel``; phases 7 and 8; phase 8b turns it
+#: off, the default)
 ACDC = dict(
     dataset="acdc", model="medformer", dimension="2d", classes=4, in_chan=1,
     base_chan=32, conv_block="BasicBlock", map_size=3,
     conv_num=[2, 0, 0, 0, 0, 0, 2, 2], trans_num=[0, 2, 2, 2, 2, 2, 0, 0],
     num_heads=[1, 4, 8, 16, 8, 4, 1, 1], expansion=2, fusion_depth=2,
     fusion_dim=512, fusion_heads=16, attn_drop=0.0, proj_drop=0.0,
-    proj_type="depthwise", aux_loss=True, training_size=[256, 256])
+    proj_type="depthwise", aux_loss=True, training_size=[256, 256],
+    conv2d_kernel=True)
 #: two cine-MR requests (z, y, x shape, z, y, x spacing) at the target
 #: in-plane spacing 1.5625 mm: one on it (224 x 240, padded to 258^2: four
 #: overlapping 256^2 windows), one resampled from 1.25 mm to 16 x 304 x 336
@@ -354,6 +378,20 @@ ACDC_TRAIN = dict(
     epochs=1, print_freq=1, val_freq=2)
 TRAIN2D_BATCH = 32
 
+#: phase 10's JSON records: the copy-scale's 16-byte, 2048-element case
+#: (its library call: ``x * 2`` on the 128-wide view), the weight-stationary
+#: dot (cuBLAS beside it), the square dot, and the ladder's full rung at the
+#: production tile on bf16 (2, 128^3, 96 -> 32) (cuDNN beside it)
+COPY_RECORD, DOT_RECORD, LADDER_RECORD = "vec2k", "stationary", "bf16_96"
+#: the probe dots' bf16 outputs against their fp32 plain versions cast to
+#: bf16: both sum in fp32 in other orders and round once, so they differ by
+#: at most one bf16 ulp of an output, 2^-7 of its magnitude (of max|ref| at
+#: most: 3.1e-2 at 6.25, an output in [4, 8)); a wrong fragment or tile
+#: errs by O(1).  ``probe_dot_t``'s plain version runs on DOT_CHECK_TILES
+#: tiles, the first and last halves (its whole fp32 output is 6 GB)
+PROBE_TOL = 2 ** -7
+DOT_CHECK_TILES = 64
+
 
 def say(msg: str) -> None:
     print(msg, flush=True)
@@ -367,37 +405,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, after one warm-up."""
-    import torch
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def iters_for(flops_or_bytes: float, per_ms: float) -> int:
     """Enough calls for ~50 ms of work, at least 3."""
     return max(3, min(200, int(50 * per_ms / max(flops_or_bytes, 1.0))))
 
 
-def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
-    """(least ms, what bounds it): the larger of the FLOPs over the card's
-    peak for ``dtype`` and the bytes (each input read once, each output
-    written once) over its HBM rate."""
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def entry(ms, plain_ms, library_ms, flops, nbytes, dtype, shape) -> dict:
     """One kernel's timed record, with its bound."""
-    b_ms, b_by = bound(flops, nbytes, dtype)
+    b_ms, b_by = bound_ms(flops, nbytes, dtype)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": b_by, "dtype": dtype,
             "shape": list(shape)}
@@ -448,13 +463,17 @@ def phase_kernels(device, conv_cases, norm_cases, record: dict) -> None:
                 f"plain {plain_ms:.3f} ms")
             assert ok, f"conv3d_same_fwd {dt} {case}: max abs err {err:.3e}"
             errs["conv3d_same_fwd"] = max(errs["conv3d_same_fwd"], err)
-            if dt == "float32" and case == CONV_RECORD:
+            if case == CONV_RECORD:
                 xc = x.permute(0, 4, 1, 2, 3)          # NCDHW view, no copy
                 lib_ms = cuda_ms(lambda: F.conv3d(xc, w, padding=1), n)
                 say(f"  library F.conv3d {dt} {case}: {lib_ms:.3f} ms")
                 nbytes = (x.numel() + w.numel() + ref.numel()) * x.element_size()
-                record["conv3d_same_fwd"] = entry(ms, plain_ms, lib_ms, flops,
-                                                  nbytes, dt, case)
+                if dt == "float32":
+                    record["conv3d_same_fwd"] = entry(ms, plain_ms, lib_ms,
+                                                      flops, nbytes, dt, case)
+                else:
+                    record["conv3d_same_fwd"][dt] = entry(
+                        ms, plain_ms, lib_ms, flops, nbytes, dt, case)
             del x, w, ref, out
         for case in norm_cases:
             B, spatial, C, act, eps = case
@@ -552,17 +571,23 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
             assert ew <= WGRAD_TOL * sw, f"conv3d_wgrad {dt} {case}: {ew:.3e}"
             errs["conv3d_same_fwd"] = max(errs["conv3d_same_fwd"], ex)
             errs["conv3d_wgrad"] = max(errs["conv3d_wgrad"], ew)
-            if dt == "float32" and case == CONV_RECORD:
+            if case == CONV_RECORD:
                 xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
                 lib_ms = cuda_ms(lambda: torch.nn.grad.conv3d_weight(
                     xc, w.shape, gc, padding=1), n)
+                # the dgrad's library call: cuDNN's conv on the flip-swapped
+                # weights, the plain version itself
                 say(f"  library torch.nn.grad.conv3d_weight {dt} {case}: "
-                    f"{lib_ms:.3f} ms")
+                    f"{lib_ms:.3f} ms; dgrad's F.conv3d {dx_plain:.3f} ms")
                 nbytes = (x.numel() + g.numel()) * x.element_size() \
                     + 27 * C * Fo * 4
-                record["conv3d_wgrad"] = entry(dw_ms, dw_plain, lib_ms, flops,
-                                               nbytes, dt, case)
-                record["conv3d_dgrad"] = (dx_ms, dx_plain)
+                wg = entry(dw_ms, dw_plain, lib_ms, flops, nbytes, dt, case)
+                if dt == "float32":
+                    record["conv3d_wgrad"] = wg
+                    record["conv3d_dgrad"] = (dx_ms, dx_plain)
+                else:
+                    record["conv3d_wgrad"][dt] = wg
+                    record["conv3d_dgrad_" + dt] = (dx_ms, dx_plain)
             del x, g, w, dx, ref_dx, dw, ref_dw
         for case in norm_cases:
             B, spatial, C, act, eps = case
@@ -821,7 +846,7 @@ def phase_window_attention(device, cases, record: dict) -> None:
                 nbytes = (4 * q.numel() * q.element_size()
                           + rel_bias.numel() * 4
                           + (region.numel() * 4 if masked else 0))
-                b_ms, b_by = bound(flops, nbytes, dt)
+                b_ms, b_by = bound_ms(flops, nbytes, dt)
                 say(f"  window_attention {dt:8s} {(B, H, N, D)} "
                     f"mask={str(masked):5s}: max_abs_err {err:.3e} "
                     f"max_rel_err {err / scale:.3e} of max|o| {scale:.3f} "
@@ -1152,12 +1177,164 @@ def say_serving(res: dict) -> None:
         f"{res['forwards']} forwards; launches {res['launches']}")
 
 
+def phase_probes(device, record: dict) -> dict:
+    """Phase 10: drive the three probe entry points at their full sizes
+    with the launch counters zeroed just before and read just after; every
+    probe kernel must have launched.  Then hold each probe kernel against
+    its plain version (those launches are not counted) and time the plain
+    version; the library time is the entry point's own case (``x * 2``,
+    cuBLAS, cuDNN).  Returns the drive's launch counts."""
+    import torch
+    from cbim_tpu_torch.ops.kernels import (conv3d, launch_counts, probes,
+                                            reset_launch_counts)
+    from cbim_tpu_torch.tools import probe_bandwidth as pb
+    from cbim_tpu_torch.tools import probe_conv_dissect as pc
+    from cbim_tpu_torch.tools import probe_lhst_dot as pd
+
+    reset_launch_counts()
+    bw = pb.run(device)
+    dots = pd.run(device)
+    ladder = pc.run(device)
+    counts = launch_counts()
+    missing = [k for k in probes.launches if counts[k] == 0]
+    assert not missing, f"probe kernels never launched: {missing}"
+    errs = record["errors"]
+
+    # copy-scale: exact (y = 2x is exact in bf16), every variant
+    x = pb.make_input(device)
+    ref = probes.copy_scale_plain(x)
+    for name, (vec, block) in pb.KERNEL_CASES.items():
+        assert torch.equal(probes.copy_scale(x, vec, block), ref), name
+    flat = x.view(-1)
+    for bad in (flat[1:], flat[:-1]):          # misaligned, or n % 8 != 0
+        try:
+            probes.copy_scale(bad, vec=True)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("the 16-byte copy-scale took a bad buffer")
+    plain_ms = cuda_ms(lambda: probes.copy_scale_plain(x), 20)
+    for name, r in bw.items():
+        say(f"  probe_bandwidth {name:9s} {r['ms']:8.3f} ms "
+            f"{r['gb_s']:6.0f} GB/s")
+    b_ms, b_by = bound_ms(x.numel(), pb.nbytes(), "bfloat16")
+    say(f"  probe_copy_scale: max_abs_err 0 (exact) in all "
+        f"{len(pb.KERNEL_CASES)} variants; bound {b_ms:.3f} ms ({b_by}); "
+        f"plain {plain_ms:.3f} ms; library (x * 2) "
+        f"{bw['torch128']['ms']:.3f} ms")
+    errs["probe_copy_scale"] = 0.0
+    record["probe_copy_scale"] = entry(
+        bw[COPY_RECORD]["ms"], plain_ms, bw["torch128"]["ms"], x.numel(),
+        pb.nbytes(), "bfloat16", (pb.B, pb.S, pb.C))
+    del x, ref, flat
+
+    # the conv-shaped dot: a slice of tiles against the fp32 plain version
+    a, w = pd.dot_inputs(device)
+    half = DOT_CHECK_TILES // 2
+    idx = torch.cat([torch.arange(half), torch.arange(pd.TILES - half,
+                                                      pd.TILES)]).to(device)
+    ref = probes.dot_t_plain(a[idx], w).float()
+    scale = float(ref.abs().max())
+    err = 0.0
+    for stationary in (True, False):
+        out = probes.dot_t(a, w, stationary)[idx].float()
+        err = max(err, float((out - ref).abs().max()))
+        del out
+    assert err <= PROBE_TOL * scale, f"probe_dot_t: {err:.3e} of {scale:.3f}"
+    plain_ms = cuda_ms(lambda: probes.dot_t_plain(a, w), 2)
+    errs["probe_dot_t"] = err
+    record["probe_dot_t"] = entry(
+        dots[DOT_RECORD]["ms"], plain_ms, dots["cublas"]["ms"],
+        *pd.dot_work(), "bfloat16", (pd.TILES, pd.K, pd.N, pd.L))
+    for name in pd.DOT_CASES:
+        r = dots[name]
+        say(f"  probe_lhst_dot {name:10s} {r['ms']:8.3f} ms "
+            f"{r['tflops']:6.1f} TFLOP/s {r['gb_s']:6.0f} GB/s")
+    b_ms, b_by = bound_ms(*pd.dot_work(), "bfloat16")
+    say(f"  probe_dot_t: max_abs_err {err:.3e} max_rel_err {err / scale:.3e} "
+        f"of max|ref| {scale:.3f} on {DOT_CHECK_TILES} tiles (tol "
+        f"{PROBE_TOL:.1e}); bound {b_ms:.3f} ms ({b_by}); plain "
+        f"{plain_ms:.3f} ms; stationary/cuBLAS "
+        f"{dots['stationary']['ms'] / dots['cublas']['ms']:.2f}x, "
+        f"slab/cuBLAS {dots['slab']['ms'] / dots['cublas']['ms']:.2f}x")
+    del a, w, idx, ref
+
+    # the square calibration, whole
+    a, b = pd.square_inputs(device)
+    out, ref = probes.gemm(a, b).float(), probes.gemm_plain(a, b).float()
+    scale = float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    assert err <= PROBE_TOL * scale, f"probe_gemm: {err:.3e} of {scale:.3f}"
+    plain_ms = cuda_ms(lambda: probes.gemm_plain(a, b), 5)
+    errs["probe_gemm"] = err
+    record["probe_gemm"] = entry(
+        dots["square1k"]["ms"], plain_ms, dots["cublas1k"]["ms"],
+        *pd.square_work(), "bfloat16", (pd.SQ_TILES, pd.SQ, pd.SQ, pd.SQ))
+    for name in pd.SQUARE_CASES:
+        r = dots[name]
+        say(f"  probe_lhst_dot {name:10s} {r['ms']:8.3f} ms "
+            f"{r['tflops']:6.1f} TFLOP/s")
+    b_ms, b_by = bound_ms(*pd.square_work(), "bfloat16")
+    say(f"  probe_gemm: max_abs_err {err:.3e} max_rel_err {err / scale:.3e} "
+        f"(tol {PROBE_TOL:.1e}); bound {b_ms:.3f} ms ({b_by}); plain "
+        f"{plain_ms:.3f} ms; kernel/cuBLAS "
+        f"{dots['square1k']['ms'] / dots['cublas1k']['ms']:.2f}x")
+    del a, b, out, ref
+
+    # the ladder: the full rung is the production kernel, within the conv's
+    # tolerance of F.conv3d in fp32 at both tile widths
+    errs["conv3d_same_fwd_ladder"] = 0.0
+    for name, (case, dt) in pc.SHAPES.items():
+        x, w = pc.conv_inputs(case, dt, device)
+        r = ladder[name]
+        ref = probes.conv3d_same_fwd_ladder_plain(x, w).float()
+        scale = float(ref.abs().max())
+        full = probes.conv3d_same_fwd_ladder(x, w, "full")
+        assert torch.equal(full, conv3d.conv3d_same(x, w)), \
+            f"ladder full rung != conv3d_same at {case} {dt}"
+        err = float((full.float() - ref).abs().max())
+        for bn in probes.LADDER_BN:
+            out = probes.conv3d_same_fwd_ladder(x, w, "full", bn).float()
+            err = max(err, float((out - ref).abs().max()))
+            del out
+        assert err <= CONV_TOL[dt] * scale, f"ladder {case} {dt}: {err:.3e}"
+        errs["conv3d_same_fwd_ladder"] = max(errs["conv3d_same_fwd_ladder"],
+                                             err)
+        plain_ms = cuda_ms(lambda: probes.conv3d_same_fwd_ladder_plain(x, w),
+                           3)
+        B, D, H, W, C, Fo = case
+        flops = 2 * 27 * C * Fo * B * D * H * W
+        nbytes = (x.numel() + w.numel() + full.numel()) * x.element_size()
+        b_ms, b_by = bound_ms(flops, nbytes, dt)
+        load_ms = x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        say(f"  ladder {dt} {case}: max_abs_err {err:.3e} max_rel_err "
+            f"{err / scale:.3e} (tol {CONV_TOL[dt]:.1e}); bound {b_ms:.3f} "
+            f"ms ({b_by}); x's bytes once {load_ms:.3f} ms; plain (F.conv3d "
+            f"fp32) {plain_ms:.3f} ms; cuDNN {r['cudnn_ms']:.3f} ms; "
+            f"conv3d_same (BN={r['production_bn']}) "
+            f"{r['production_ms']:.3f} ms")
+        for bn, rungs in r["rungs"].items():
+            prev, steps = 0.0, []
+            for phase, ms in rungs.items():
+                steps.append(f"{phase} {ms:.3f} (+{ms - prev:.3f})")
+                prev = ms
+            say(f"    BN={bn}: " + ", ".join(steps) + " ms")
+        if name == LADDER_RECORD:
+            record["conv3d_same_fwd_ladder"] = dict(entry(
+                r["rungs"][r["production_bn"]]["full"], plain_ms,
+                r["cudnn_ms"], flops, nbytes, dt, case),
+                rungs_ms=r["rungs"])
+        del x, w, ref, full
+    torch.cuda.synchronize()
+    return counts
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="trace phases 6, 6b and 8's steady steps, and "
-                             "phase 9's requests served again, into DIR")
+                        help="trace phases 6, 6b, 8 and 8b's steady steps, "
+                             "and phase 9's requests served again, into DIR")
     args = parser.parse_args(argv)
 
     def profiled(cfg_dict, name):
@@ -1193,7 +1370,9 @@ def main(argv=None) -> int:
     regs = [ln.split(":", 1)[1].strip() for ln in _build.build_log.splitlines()
             if "registers" in ln]
     say(f"  built {_build.library_path().name} in "
-        f"{_build.build_seconds:.1f} s; ptxas per kernel: {'; '.join(regs)}")
+        f"{_build.build_seconds:.1f} s (nvcc by source, side by side: "
+        f"{_build.build_seconds_by_source} s); ptxas per kernel: "
+        f"{'; '.join(regs)}")
 
     record: dict = {}
     say("[phase 3] kernels vs plain versions")
@@ -1326,6 +1505,25 @@ def main(argv=None) -> int:
     say(f"  dgrad of conv2d_same_fwd at {CONV2D_RECORD}: kernel "
         f"{rec2d[0]:.3f} ms, plain {rec2d[1]:.3f} ms, cuDNN {rec2d[2]:.3f} ms")
 
+    say("[phase 8b] the ACDC recipe with conv2d_kernel off (the default: "
+        "cuDNN's 3x3 convs)")
+    tr_off = phase_train(device, profiled(dict(ACDC_TRAIN,
+                                               conv2d_kernel=False),
+                                          "acdc2d_cudnn"),
+                         TRAIN2D_BATCH, "acdc2d_cudnn", ())
+    say_train(tr_off, "slices")
+    if args.profile:
+        say_profile(os.path.join(args.profile, "acdc2d_cudnn"))
+    counts = tr_off["launches"]
+    assert not any(counts[k] for k in ("conv2d_same_fwd", "conv2d_dgrad",
+                                       "conv2d_wgrad")), counts
+    say(f"  cuDNN (default) vs kernel route (phase 8): "
+        f"{tr_off['median']:.3f} vs {tr['median']:.3f} s/step, "
+        f"{tr_off['per_s']:.1f} vs {tr['per_s']:.1f} slices/s, peak "
+        f"{tr_off['peak_bytes'] / 2 ** 30:.2f} vs "
+        f"{tr['peak_bytes'] / 2 ** 30:.2f} GiB")
+    launches["8b"] = counts
+
     say("[phase 9] BCV SwinUNETR serving 2 NIfTI requests")
     swin_prof = (None if args.profile is None
                  else os.path.abspath(os.path.join(args.profile, "swin")))
@@ -1338,6 +1536,13 @@ def main(argv=None) -> int:
     assert res["forwards"] > 0 and n_attn == SWIN_BLOCKS * res["forwards"], \
         f"{n_attn} window-attention launches in {res['forwards']} forwards"
     launches["9"] = res["launches"]
+
+    say("[phase 10] the probes: copy-scale, tensor-core dots, the conv's "
+        "phase ladder")
+    t_probes = time.perf_counter()
+    launches["10"] = phase_probes(device, record)
+    say(f"  phase 10 took {time.perf_counter() - t_probes:.1f} s; launches "
+        f"{ {k: launches['10'][k] for k in KERNELS if launches['10'][k]} }")
 
     jax_mods = [m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "cbim_tpu")]

@@ -153,8 +153,14 @@ def test_prediction_refuses_what_is_not_ported(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             prediction.main(["--img_path", str(tmp_path), "--device", "cuda"])
+    flax_ckpt = tmp_path / "model.ckpt"
+    flax_ckpt.write_bytes(b"\x83\xa5epoch\x01")   # msgpack, not a zip
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prediction.load_state_dict("model.ckpt")
+        prediction.main(["--img_path", str(tmp_path), "--load",
+                         str(flax_ckpt), "--device", "cpu", "--dataset",
+                         "synthetic", "--model", "medformer"],
+                        cfg=config_from_dict(dict(TINY,
+                                                  training_size=[32] * 3)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engines.make_engine(torch.nn.Conv3d(1, 2, 1), config_from_dict(
             dict(TINY, window_fusion="gaussian")))

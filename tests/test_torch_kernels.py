@@ -98,7 +98,8 @@ def test_cpu_calls_leave_launch_counters_at_zero():
         "inorm_bwd_apply": 0, "conv3d_same_fwd": 0, "conv3d_dgrad": 0,
         "conv3d_wgrad": 0, "conv3d_same_na_fwd": 0, "conv3d_wgrad_na": 0,
         "conv2d_same_fwd": 0, "conv2d_dgrad": 0, "conv2d_wgrad": 0,
-        "window_attention": 0}
+        "window_attention": 0, "probe_copy_scale": 0, "probe_dot_t": 0,
+        "probe_gemm": 0, "conv3d_same_fwd_ladder": 0}
 
 
 def test_plain_stats_and_apply_compose_to_instance_norm_act():
@@ -154,14 +155,15 @@ def test_build_command_targets_sm90a_from_repo_sources():
     assert "-shared" in link
     assert sum(a.endswith(".o") for a in link) == len(cmds)
     srcs = {p.name for p in _build.sources()}
-    assert {"conv2d.cu", "conv3d.cu", "fused_norm.cu",
+    assert {"conv2d.cu", "conv3d.cu", "fused_norm.cu", "probes.cu",
             "window_attention.cu"} <= srcs
     assert all(_build.CSRC in p.parents for p in _build.sources())
     assert set(_build.SIGNATURES) == {
         "inorm_stats", "inorm_apply", "inorm_bwd_stats", "inorm_bwd_apply",
         "conv3d_same_fwd", "conv3d_wgrad", "conv3d_same_na_fwd",
         "conv3d_wgrad_na", "conv2d_same_fwd", "conv2d_wgrad",
-        "window_attention"}
+        "window_attention", "probe_copy_scale", "probe_dot_t", "probe_gemm",
+        "conv3d_same_fwd_ladder"}
 
 
 # ---------------------------------------------------------------- backward

@@ -160,10 +160,13 @@ def test_full_width_acdc_params_match_flax_tree():
 
 
 def test_acdc_kernel_sites_are_the_stride1_3x3_convs():
-    """At the ACDC recipe the 2D kernel carries 14 ConvNormAct convs: 2 in
-    inc's block, 4 in down1, 4 each in up3 and up4, every one with C_in,
-    C_out <= 192.  inc's first conv is a plain conv in both packages."""
-    model = get_model(config_from_dict(ACDC), device="cpu")
+    """At the ACDC recipe with ``conv2d_kernel`` on (the route is opt-in, as
+    JAX's ``CBIM_PLCONV2D=1``) the 2D kernel carries 14 ConvNormAct convs:
+    2 in inc's block, 4 in down1, 4 each in up3 and up4, every one with
+    C_in, C_out <= 192.  inc's first conv is a plain conv in both
+    packages."""
+    model = get_model(config_from_dict(dict(ACDC, conv2d_kernel=True)),
+                      device="cpu")
     sites = [n for n, m in model.named_modules()
              if isinstance(m, ConvNormAct) and m.kernel is Conv2dSame]
     assert len(sites) == 14

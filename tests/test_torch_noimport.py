@@ -24,6 +24,7 @@ MODULES = [
     "cbim_tpu_torch.ops.kernels.conv2d",
     "cbim_tpu_torch.ops.kernels.conv3d",
     "cbim_tpu_torch.ops.kernels.fused_norm",
+    "cbim_tpu_torch.ops.kernels.probes",
     "cbim_tpu_torch.ops.kernels.window_attention",
     "cbim_tpu_torch.models",
     "cbim_tpu_torch.models.layers.convs",
@@ -50,6 +51,10 @@ MODULES = [
     "cbim_tpu_torch.train",
     "cbim_tpu_torch.utils.logging",
     "cbim_tpu_torch.utils.profiling",
+    "cbim_tpu_torch.tools",
+    "cbim_tpu_torch.tools.probe_bandwidth",
+    "cbim_tpu_torch.tools.probe_lhst_dot",
+    "cbim_tpu_torch.tools.probe_conv_dissect",
 ]
 
 #: what the port may load of cbim_tpu: nothing
