@@ -1,0 +1,183 @@
+// PTX helpers shared by the tensor-core kernels (probes.cu, conv3d_tc.cu,
+// conv3d_wgrad_tc.cu): ldmatrix, mma.sync bf16, mbarriers, TMA and bulk
+// copies into shared memory, and the host-side encoding of a TMA tensor
+// map (cuTensorMapEncodeTiled, looked up through the CUDA runtime: the
+// library links no libcuda).
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// ------------------------------------------------------------ device side
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8, and receives, of each matrix, row l / 4, columns 2 (l % 4) + {0, 1}
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned r[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// the same, transposed: of each matrix, column l / 4, rows 2 (l % 4) + {0, 1}
+__device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned r[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x16, row) . b (16x8, col), bf16 in, fp32 sums
+__device__ __forceinline__ void mma_bf16(float d[4], const unsigned a[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An mbarrier that one thread arms with the bytes its copies will bring.
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// wait until the barrier's phase of parity ``parity`` has completed; a
+// copy that never lands (a bad tensor map) traps after about 4 s instead
+// of hanging the card (a real wait lasts microseconds)
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  unsigned long long t0 = 0;
+  for (unsigned polls = 1; !done; ++polls) {
+    if (polls % 1024 == 0) {
+      const unsigned long long now = global_ns();
+      if (t0 == 0)
+        t0 = now;
+      else if (now - t0 > 4000000000ull)
+        __trap();
+    }
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// order this thread's earlier shared-memory accesses before later
+// asynchronous-proxy (TMA) writes to the same buffer
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// TMA: the box of ``map`` at coordinates (c0..c4), innermost first, into
+// shared memory at ``dst``; out-of-bounds elements arrive as zeros
+__device__ __forceinline__ void tma_load_5d(unsigned dst, const CUtensorMap* map,
+                                            unsigned bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4), "r"(bar)
+      : "memory");
+}
+
+// a contiguous copy of ``bytes`` (a multiple of 16, both ends 16-byte
+// aligned) into shared memory
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Byte offset of 16-byte chunk ``j`` (0..3) of 64-byte row ``r`` in a
+// buffer that TMA filled with CU_TENSOR_MAP_SWIZZLE_64B (address bits 4-5
+// XOR bits 7-8; the buffer is 1024-byte aligned): eight consecutive rows
+// read at one chunk fall on eight distinct bank groups.
+__device__ __forceinline__ unsigned swz64(unsigned r, unsigned j) {
+  return r * 64 + ((j ^ ((r >> 1) & 3)) << 4);
+}
+
+// -------------------------------------------------------------- host side
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 5D bf16 tiled map over t[n4][n3][n2][n1][n0] (n0 innermost, n0 % 8 ==
+// 0 so every stride is a multiple of 16 bytes), box (b0, .., b4), 64-byte
+// swizzle (b0 = 32), zeros out of bounds.  False if it cannot be encoded.
+inline bool encode_box_map(CUtensorMap* map, const void* base,
+                           const long long n[5], const unsigned box[5]) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[5], strides[4];
+  cuuint32_t boxd[5], estr[5];
+  unsigned long long stride = 2;  // bytes of one bf16
+  for (int i = 0; i < 5; ++i) {
+    dims[i] = (cuuint64_t)n[i];
+    boxd[i] = box[i];
+    estr[i] = 1;
+    stride *= (unsigned long long)n[i];
+    if (i < 4) strides[i] = stride;
+  }
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base),
+            dims, strides, boxd, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace

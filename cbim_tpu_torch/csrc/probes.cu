@@ -17,9 +17,10 @@
 // 8192 elements per block (the TPU probe's small vs big blocks).
 //
 // probe_dot_t / probe_gemm: one hand-written bf16 tensor-core GEMM with
-// fp32 sums, mma.sync.aligned.m16n8k16 (no cuBLAS, no CUTLASS; wgmma and TMA
-// are the tensor-core conv redesign's work).  C[t] (M x N) = opA[t] (M x K)
-// . B[t] (K x N), row-major bf16 C, B stored [K][N].
+// fp32 sums, mma.sync.aligned.m16n8k16 (no cuBLAS, no CUTLASS; the PTX
+// helpers are mma_common.cuh's, shared with the tensor-core 3^3 conv).
+// C[t] (M x N) = opA[t] (M x K) . B[t] (K x N), row-major bf16 C, B stored
+// [K][N].
 // - probe_dot_t stores opA as [K][M] (W [96, 288]): both operands contract
 //   their dim 0, so both reach mma in the "wrong" major order.  Both are
 //   staged in shared memory as they lie in device memory and transposed on
@@ -44,9 +45,7 @@
 // and returns cudaGetLastError() (cudaErrorInvalidValue for a shape it does
 // not take).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_common.cuh"
 
 namespace {
 
@@ -97,38 +96,6 @@ void launch_copy(const bf16* x, bf16* y, long long n, cudaStream_t st) {
 constexpr int kMmaThreads = 256;  // 8 warps: 2 (m) x 4 (n)
 constexpr int kBN = 128;          // output columns per block tile
 constexpr int kPad = 8;           // bf16 of padding per shared-memory row
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8, and receives, of each matrix, row l / 4, columns 2 (l % 4) + {0, 1}
-__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned r[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// the same, transposed: of each matrix, column l / 4, rows 2 (l % 4) + {0, 1}
-__device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned r[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a (16x16, row) . b (16x8, col), bf16 in, fp32 sums
-__device__ __forceinline__ void mma_bf16(float d[4], const unsigned a[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // C[t] = opA[t] . B[t]; A_KM: opA stored [K][M], else [M][K].  a_bs, b_bs:
 // batch strides in elements (0: shared by every t).  grid (N / (128 *

@@ -4,8 +4,19 @@ plain versions, and the ``torch.autograd.Function`` that trains through them.
 Port of ``cbim_tpu/ops/pallas/conv3d.py``: ``conv3d_same`` (and its NDHCW
 twins ``conv3d_same_cw``/``conv3d_same_cw2``, which compute the same thing
 in another layout), the custom VJP ``conv3d_same_t``, and ``conv3d_wgrad``
-(and ``_cw``/``_cw2``).  Two kernels, in ``csrc/conv3d.cu`` and
-``csrc/conv3d_wgrad.cu``:
+(and ``_cw``/``_cw2``).  Two routes, chosen by :func:`conv3d_route` from the
+dtype and the channel counts before any launch:
+
+- bf16 with C and F multiples of 8: the tensor-core kernels
+  ``conv3d_same_fwd_tc`` (``csrc/conv3d_tc.cu``; also the dgrad, counted
+  under ``conv3d_dgrad_tc``) and ``conv3d_wgrad_tc``
+  (``csrc/conv3d_wgrad_tc.cu``).  The forward's entry packs the weights
+  in a first small kernel into the layout of :func:`pack_weights_tc` (its
+  plain version); the wgrad splits its voxel tiles into chunks by
+  :func:`wgrad_tc_chunking`.
+- everything else (fp32, other widths, the fused norm-act pair, the
+  probes' ladder): the CUDA-core kernels of ``csrc/conv3d.cu`` and
+  ``csrc/conv3d_wgrad.cu``:
 
 - ``conv3d_same_fwd``: x[B, D, H, W, C] (x) w[F, C, 3, 3, 3] ->
   y[B, D, H, W, F] with fp32 sums, any D/H/W (the kernel masks its own
@@ -25,9 +36,10 @@ The statistics are ``fused_norm.inorm_stats`` (``_cw_stats`` computes the
 same per-(b, c) mean and rstd in the TPU layout).  :class:`ConvInormAct3d`
 trains through them.
 
-The weight takes torch's layout; the forward wrapper packs it to
-[3, 3, 3, C, F] (a copy of 27*C*F values) so the kernel reads rows of output
-channels, and the wgrad wrapper gives back torch's [F, C, 3, 3, 3].
+The weight takes torch's layout; the CUDA-core forward's wrapper packs it
+to [3, 3, 3, C, F] (a copy of 27*C*F values) so the kernel reads rows of
+output channels (the tensor-core entry packs its own), and the wgrad
+wrappers give back torch's [F, C, 3, 3, 3].
 CPU tensors take the plain versions: ``F.conv3d`` with padding 1 and
 ``torch.nn.grad.conv3d_weight`` (on ``inorm_apply_plain``'s output for the
 fused pair).
@@ -44,7 +56,21 @@ from . import _build, fused_norm
 #: launches of each kernel since the last reset (plain calls do not count);
 #: ``conv3d_dgrad`` counts the forward kernel's input-gradient launches
 launches = {"conv3d_same_fwd": 0, "conv3d_dgrad": 0, "conv3d_wgrad": 0,
-            "conv3d_same_na_fwd": 0, "conv3d_wgrad_na": 0}
+            "conv3d_same_na_fwd": 0, "conv3d_wgrad_na": 0,
+            "conv3d_same_fwd_tc": 0, "conv3d_dgrad_tc": 0,
+            "conv3d_wgrad_tc": 0}
+
+#: the routes of :func:`conv3d_route`
+TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
+#: the tensor-core kernels: channels a staged chunk carries, the widest
+#: output-channel tile of the forward, the wgrad's (c, f) tile and its
+#: voxel tile (d, h, w), and the blocks a wgrad pass aims for (4 waves of
+#: one block on each of 132 SMs)
+TC_CHUNK = 32
+TC_MAX_BN = 128
+TC_WGRAD_TILE = 32
+TC_VOXEL_TILE = (4, 8, 8)
+_TC_WGRAD_TARGET_BLOCKS = 528
 
 #: blocks a wgrad pass aims for (several waves over 132 SMs), the fewest
 #: pixels or voxels a chunk takes, and the most bytes its fp32 partials may
@@ -80,6 +106,69 @@ def flip_swap(w: torch.Tensor) -> torch.Tensor:
     return w.flip(2, 3, 4).transpose(0, 1)
 
 
+def conv3d_route(dtype: torch.dtype, C: int, F: int) -> str:
+    """Which kernel family a CUDA call of :func:`conv3d_same`,
+    :func:`conv3d_dgrad` or :func:`conv3d_wgrad` with C input and F output
+    channels launches: :data:`TENSOR_CORE` for bf16 with C % 8 == 0 and
+    F % 8 == 0 (TMA's 16-byte strides), else :data:`CUDA_CORE`.  The rule
+    is symmetric in C and F, so the dgrad (F -> C) takes its forward's
+    route.  The fused norm-act pair has CUDA-core kernels only."""
+    if dtype != torch.bfloat16 or C % 8 or F % 8:
+        return CUDA_CORE
+    return TENSOR_CORE
+
+
+def tc_tile_n(F: int) -> tuple[int, int]:
+    """(BN, n_tiles): the tensor-core forward's output-channel tile, a
+    multiple of 32 up to :data:`TC_MAX_BN`, and how many cover F (192 -> two
+    of 96, 40 -> one of 64)."""
+    n_tiles = -(-F // TC_MAX_BN)
+    per = -(-F // n_tiles)
+    return -(-per // 32) * 32, n_tiles
+
+
+def pack_weights_tc(w: torch.Tensor) -> torch.Tensor:
+    """torch weights w[F, C, 3, 3, 3] -> the tensor-core forward's layout
+    [n_tiles, C chunks, kd, kh, kw, 32, BN + 8]: for each (output tile,
+    32-channel chunk, kd, kh) step one contiguous block of 3 kw taps x 32
+    channels x BN output channels, rows padded by 8 values (16 bytes) so
+    the kernel's ldmatrix rows fall on distinct banks.  Zeros past C, F
+    and in the padding.  The plain version of the packing kernel that
+    ``conv3d_same_fwd_tc`` runs first (one launch where these torch ops
+    take several, the wrapper's host time at small shapes)."""
+    Fo, C = w.shape[:2]
+    bn, n_tiles = tc_tile_n(Fo)
+    n_chunks = -(-C // TC_CHUNK)
+    if (Fo, C) != (n_tiles * bn, n_chunks * TC_CHUNK):
+        w = F.pad(w, (0, 0, 0, 0, 0, 0, 0, n_chunks * TC_CHUNK - C,
+                      0, n_tiles * bn - Fo))
+    wp = w.new_zeros((n_tiles, n_chunks, 3, 3, 3, TC_CHUNK, bn + 8))
+    wp[..., :bn] = w.view(n_tiles, bn, n_chunks, TC_CHUNK, 3, 3, 3).permute(
+        0, 2, 4, 5, 6, 3, 1)
+    return wp
+
+
+def conv3d_same_packed_plain(x: torch.Tensor, wp: torch.Tensor,
+                             F_out: int) -> torch.Tensor:
+    """The tensor-core forward's arithmetic in plain PyTorch, from the
+    packed weights of :func:`pack_weights_tc`: the sum over the 27 taps of
+    the shifted, zero-padded x times that tap's [C, F] matrix, in fp32,
+    cast once to x's dtype."""
+    B, D, H, W, C = x.shape
+    n_tiles, n_chunks = wp.shape[:2]
+    bn = wp.shape[-1] - 8
+    taps = wp[..., :bn].permute(2, 3, 4, 1, 5, 0, 6).reshape(
+        3, 3, 3, n_chunks * TC_CHUNK, n_tiles * bn)[:, :, :, :C, :F_out]
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
+    y = x.new_zeros((B, D, H, W, F_out), dtype=torch.float32)
+    for kd in range(3):
+        for kh in range(3):
+            for kw in range(3):
+                y += xp[:, kd:kd + D, kh:kh + H, kw:kw + W] @ \
+                    taps[kd, kh, kw].float()
+    return y.to(x.dtype)
+
+
 def conv3d_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version: ``F.conv3d`` with padding 1, channels-last in and out."""
     _check(x, w)
@@ -112,26 +201,56 @@ def _launch_fwd(x: torch.Tensor, w: torch.Tensor, key: str,
     return y
 
 
+def _launch_fwd_tc(x: torch.Tensor, w: torch.Tensor, key: str,
+                   flip: bool = False) -> torch.Tensor:
+    """The tensor-core forward ``conv3d_same_fwd_tc`` on torch weights
+    w[F, C, 3, 3, 3] or, with ``flip``, on ``flip_swap(w)`` (the input
+    gradient; the entry's packing kernel applies the flip), counted under
+    ``key``.  The entry packs the weights as :func:`pack_weights_tc` does
+    into scratch the wrapper allocates."""
+    if not x.is_contiguous():
+        raise ValueError("kernel needs a contiguous x[B, D, H, W, C]")
+    B, D, H, W, C = x.shape
+    Fo = w.shape[1] if flip else w.shape[0]
+    bn, n_tiles = tc_tile_n(Fo)
+    w = w.contiguous()
+    wp = torch.empty(n_tiles * -(-C // TC_CHUNK) * 27 * TC_CHUNK * (bn + 8),
+                     dtype=x.dtype, device=x.device)
+    y = torch.empty((B, D, H, W, Fo), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        _build.call("conv3d_same_fwd_tc", x.data_ptr(), w.data_ptr(),
+                    wp.data_ptr(), y.data_ptr(), B, D, H, W, C, Fo, bn,
+                    int(flip), torch.cuda.current_stream().cuda_stream)
+    launches[key] += 1
+    return y
+
+
 def conv3d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Stride-1, zero-pad-1 3^3 correlation: x[B, D, H, W, C] with torch
     weights w[F, C, 3, 3, 3] -> y[B, D, H, W, F] in x.dtype.
 
     The counterpart of ``cbim_tpu.ops.pallas.conv3d.conv3d_same`` (which
-    takes w as [3, 3, 3, C, F]).  CUDA tensors launch the kernel, CPU
-    tensors run the plain version.  No autograd: see :class:`Conv3dSame`."""
+    takes w as [3, 3, 3, C, F]).  CUDA tensors launch the kernel of
+    :func:`conv3d_route`, CPU tensors run the plain version.  No autograd:
+    see :class:`Conv3dSame`."""
     _check(x, w)
     if not _backend.uses_kernels(x):
         return conv3d_same_plain(x, w)
+    if conv3d_route(x.dtype, x.shape[-1], w.shape[0]) == TENSOR_CORE:
+        return _launch_fwd_tc(x, w, "conv3d_same_fwd_tc")
     return _launch_fwd(x, w, "conv3d_same_fwd")
 
 
 def conv3d_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Input gradient of :func:`conv3d_same`: the forward kernel on the
-    upstream gradient g[B, D, H, W, F] with ``flip_swap(w)``."""
+    """Input gradient of :func:`conv3d_same`: the forward kernel of the
+    same route on the upstream gradient g[B, D, H, W, F] with
+    ``flip_swap(w)``."""
     ws = flip_swap(w)
     _check(g, ws)
     if not _backend.uses_kernels(g):
         return conv3d_same_plain(g, ws)
+    if conv3d_route(g.dtype, g.shape[-1], ws.shape[0]) == TENSOR_CORE:
+        return _launch_fwd_tc(g, w, "conv3d_dgrad_tc", flip=True)
     return _launch_fwd(g, ws, "conv3d_dgrad")
 
 
@@ -155,6 +274,45 @@ def wgrad_chunking(M: int, C: int, F: int, taps: int = 27
                           M // _WGRAD_MIN_ROWS))
     rows = -(-M // n_chunks)
     return rows, -(-M // rows)
+
+
+def voxel_tiles(B: int, D: int, H: int, W: int) -> int:
+    """The tensor-core wgrad's voxel tiles: (4, 8, 8) boxes covering each
+    sample, ragged ones included."""
+    td, th, tw = TC_VOXEL_TILE
+    return B * -(-D // td) * -(-H // th) * -(-W // tw)
+
+
+def wgrad_tc_chunking(n_tiles: int, C: int, F: int) -> tuple[int, int]:
+    """(tiles_per_chunk, n_chunks) for ``conv3d_wgrad_tc``'s split
+    reduction over ``n_tiles`` voxel tiles: a block owns a chunk of tiles
+    and one (32-channel c, 32-channel f) tile of dW for all 27 taps; every
+    chunk holds at least one tile and the fp32 partials stay within
+    ``_WGRAD_MAX_PARTIAL_BYTES``."""
+    tiles = -(-C // TC_WGRAD_TILE) * -(-F // TC_WGRAD_TILE)
+    cap = max(1, _WGRAD_MAX_PARTIAL_BYTES // (27 * C * F * 4))
+    n_chunks = max(1, min(_TC_WGRAD_TARGET_BLOCKS // tiles, cap, 65535,
+                          n_tiles))
+    per = -(-n_tiles // n_chunks)
+    return per, -(-n_tiles // per)
+
+
+def _launch_wgrad_tc(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The tensor-core wgrad ``conv3d_wgrad_tc`` and its fold."""
+    if not (x.is_contiguous() and g.is_contiguous()):
+        raise ValueError("kernel needs contiguous x and g")
+    B, D, H, W, C = x.shape
+    Fo = g.shape[-1]
+    per, n_chunks = wgrad_tc_chunking(voxel_tiles(B, D, H, W), C, Fo)
+    partial = torch.empty(n_chunks * 27 * C * Fo, dtype=torch.float32,
+                          device=x.device)
+    dw = torch.empty((3, 3, 3, C, Fo), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _build.call("conv3d_wgrad_tc", x.data_ptr(), g.data_ptr(),
+                    partial.data_ptr(), dw.data_ptr(), B, D, H, W, C, Fo,
+                    per, n_chunks, torch.cuda.current_stream().cuda_stream)
+    launches["conv3d_wgrad_tc"] += 1
+    return dw.permute(4, 3, 0, 1, 2)
 
 
 def _launch_wgrad(x: torch.Tensor, g: torch.Tensor, na=None) -> torch.Tensor:
@@ -193,11 +351,13 @@ def conv3d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     g[B, D, H, W, F] -> dW[F, C, 3, 3, 3] float32 (torch's layout).
 
     The counterpart of ``cbim_tpu.ops.pallas.conv3d.conv3d_wgrad`` (which
-    returns [3, 3, 3, C, F]).  CUDA tensors launch the kernel, CPU tensors
-    run the plain version."""
+    returns [3, 3, 3, C, F]).  CUDA tensors launch the kernel of
+    :func:`conv3d_route`, CPU tensors run the plain version."""
     _check_wgrad(x, g)
     if not _backend.uses_kernels(x):
         return conv3d_wgrad_plain(x, g)
+    if conv3d_route(x.dtype, x.shape[-1], g.shape[-1]) == TENSOR_CORE:
+        return _launch_wgrad_tc(x, g)
     return _launch_wgrad(x, g)
 
 

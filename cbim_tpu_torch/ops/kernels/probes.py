@@ -183,7 +183,9 @@ def conv3d_same_fwd_ladder(x: torch.Tensor, w: torch.Tensor,
     """``conv3d_same_fwd`` on x[B, D, H, W, C] with torch weights w[F, C,
     3, 3, 3], cut after ``phase`` (:data:`PHASES`) at tile width ``bn``
     (32 or 64; default the production one).  ``full`` at the production
-    width launches the very kernel ``conv3d.conv3d_same`` does; a cut rung
+    width launches the very kernel ``conv3d.conv3d_same`` does on the
+    CUDA-core route (fp32; bf16 at widths of multiples of 8 takes the
+    tensor-core kernel, ``conv3d.conv3d_route``); a cut rung
     returns a tensor of which only one value per thread was written.  The
     16-byte staging path only (C % 4 == 0).  A CPU tensor runs the plain
     version of ``full`` and refuses a cut rung."""

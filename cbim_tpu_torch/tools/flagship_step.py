@@ -1,0 +1,82 @@
+"""Time the flagship bf16 training step of a checkout of this repository.
+
+Runs ``chip_smoke.py``'s phase 6 (the flagship recipe of ``bench.py``:
+full-width MedFormer-3D, GELU, 128^3 crops, batch 2, bf16 autocast, remat,
+AdamW, EMA, six steps on the synthetic corpus) from the checkout at
+``--root``, with that checkout's own kernels and code, and prints its step
+seconds, the median after the warm-up steps, volumes/s and peak device
+memory; with ``--profile DIR`` also the device's busy share and kernel time
+by family (the trainer's profiler hook).  The last line is one JSON object.
+
+To compare two commits on one card, unpack the other one into a directory
+that ``.gitignore`` lists and alternate the runs in one command, e.g.
+``git archive <parent> | tar -x -C build/parent``, then
+
+    python -m cbim_tpu_torch.tools.flagship_step --root build/parent
+    python -m cbim_tpu_torch.tools.flagship_step
+    python -m cbim_tpu_torch.tools.flagship_step
+    python -m cbim_tpu_torch.tools.flagship_step --root build/parent
+
+Each run is its own process (its own CUDA context and kernel build) and its
+own run directory, so the step times of one run never mix with another's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import os
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--root", default=REPO,
+                        help="the checkout whose chip_smoke.py and kernels run "
+                             "(default: this one)")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="trace the steady steps into DIR")
+    args = parser.parse_args(argv)
+    root = os.path.abspath(args.root)
+    # the checkout's own package and script, ahead of this one's
+    sys.path.insert(0, root)
+    for name in [m for m in sys.modules if m.split(".")[0] == "cbim_tpu_torch"]:
+        del sys.modules[name]
+    import torch
+    smoke = importlib.import_module("chip_smoke")
+    from cbim_tpu_torch.ops.kernels import _build
+    from cbim_tpu_torch.tools import card
+
+    device = card("cuda")
+    torch.zeros(1, device=device)                 # create the context
+    _build.library()
+    os.makedirs(smoke.WORK, exist_ok=True)
+    name = f"flagship_step_{os.getpid()}_{int(time.time())}"
+    cfg = dict(smoke.FLAGSHIP)
+    if args.profile:
+        cfg["profile_dir"] = os.path.abspath(args.profile)
+    tr = smoke.phase_train(device, cfg, smoke.TRAIN_BATCH, name, ())
+    print(f"{root}: {smoke.card_line()}", flush=True)
+    smoke.say_train(tr, "volumes")
+    rec = {"root": root, "step_seconds": tr["step_seconds"],
+           "median_s": tr["median"], "volumes_per_s": tr["per_s"],
+           "peak_gib": tr["peak_bytes"] / 2 ** 30}
+    if args.profile:
+        smoke.say_profile(args.profile)
+        with open(os.path.join(args.profile, "summary.json")) as f:
+            prof = json.load(f)
+        rec.update(device_busy_share=prof["device_busy_share"],
+                   kernel_ms_per_step=prof["device_kernel_seconds"]
+                   / prof["steps"] * 1e3,
+                   families_ms_per_step=prof["families_ms_per_step"])
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -7,12 +7,13 @@ between consecutive rungs is that phase's cost:
     load   the shifted input rows and weight slices read, nothing staged
     stage  + the shared-memory stores and barriers
     fma    + the register-tile FMAs
-    full   + the epilogue's store: the real op, the very kernel
-           ``conv3d_same`` launches at its tile width
+    full   + the epilogue's store: the real op, the very CUDA-core
+           kernel ``conv3d_same`` launches at its tile width in fp32
 
 at both tile widths the kernel has (BN = 32 and 64 output channels a block,
 in place of the TPU probe's (d_blk, h_blk) sweep), beside the production
-wrapper and cuDNN's ``F.conv3d`` on the same inputs.  Shapes are the TPU
+wrapper (in bf16 at these widths the tensor-core kernel, see
+``conv3d.conv3d_route``) and cuDNN's ``F.conv3d`` on the same inputs.  Shapes are the TPU
 probe's, bf16 (2, 128^3, 32 -> 32) and (2, 128^3, 96 -> 32), plus fp32 at
 96 -> 32.  Inputs are drawn from a seeded ``torch.Generator``.  Every rung
 but ``full`` writes one value a thread and is wrong by design.
@@ -58,7 +59,8 @@ def flops(case) -> float:
 
 def run(device="cuda", shapes=tuple(SHAPES), iters: int = 3) -> dict:
     """Time each shape's ladder on the card: {shape: {"rungs": {bn: {phase:
-    ms}}, "production_ms", "cudnn_ms", "production_bn"}}."""
+    ms}}, "production_ms" (``conv3d_same``), "route" (its
+    ``conv3d_route``), "cudnn_ms", "production_bn"}}."""
     from ..ops.kernels import conv3d, probes
     device = card(device)
     # cuDNN's fp32 conv in full fp32, not TF32: the kernel's own precision
@@ -76,6 +78,7 @@ def run(device="cuda", shapes=tuple(SHAPES), iters: int = 3) -> dict:
         out[name] = {
             "rungs": rungs,
             "production_bn": probes.production_bn(w.shape[0]),
+            "route": conv3d.conv3d_route(x.dtype, x.shape[-1], w.shape[0]),
             "production_ms": cuda_ms(lambda: conv3d.conv3d_same(x, w), iters),
             "cudnn_ms": cuda_ms(lambda: F.conv3d(xc, w, padding=1), iters)}
         del x, w, xc
@@ -101,7 +104,7 @@ def main(argv=None) -> int:
                 print(f"  BN={bn} {phase:5s} {ms:8.3f} ms  (+{ms - prev:7.3f})"
                       f"  {flops(case) / ms / 1e9:6.1f} TFLOP/s", flush=True)
                 prev = ms
-        print(f"  conv3d_same (BN={r['production_bn']}) "
+        print(f"  conv3d_same ({r['route']}) "
               f"{r['production_ms']:8.3f} ms; cuDNN F.conv3d "
               f"{r['cudnn_ms']:8.3f} ms", flush=True)
     return 0
