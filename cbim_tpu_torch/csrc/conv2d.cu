@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgrad_fold.cuh"
+
 namespace {
 
 constexpr int kTaps = 9;
@@ -361,18 +363,6 @@ conv2d_wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-// dw[i] = sum over chunks of partial[chunk, i], in chunk order.
-__global__ void __launch_bounds__(256)
-conv2d_wgrad_fold_kernel(const float* __restrict__ partial,
-                         float* __restrict__ dw, long long n, int n_chunks) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < n_chunks; ++k) s += partial[(long long)k * n + i];
-    dw[i] = s;
-  }
-}
-
 template <typename T, int BC, int BF>
 void launch_wgrad(const void* x, const void* g, float* partial, int B, int H,
                   int W, int C, int F, int rows_per_chunk, int n_chunks,
@@ -449,10 +439,6 @@ extern "C" int conv2d_wgrad(const void* x, const void* g, void* partial,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)kTaps * C * F;
-  long long blocks = (n + 255) / 256;
-  if (blocks > 132 * 8) blocks = 132 * 8;
-  conv2d_wgrad_fold_kernel<<<(unsigned)blocks, 256, 0, st>>>(
-      part, static_cast<float*>(dw), n, n_chunks);
-  return (int)cudaGetLastError();
+  return launch_wgrad_fold(part, static_cast<float*>(dw),
+                           (long long)kTaps * C * F, n_chunks, st);
 }

@@ -234,7 +234,7 @@ int launch_fwd_tc(const void* x, const void* wpk, void* y, int B, int D,
   CUtensorMap map;
   const long long n[5] = {C, W, H, D, B};
   const unsigned box[5] = {kCc, Bx::HW, Bx::HH, Bx::HD, 1};
-  if (!encode_box_map(&map, x, n, box)) return (int)cudaErrorInvalidValue;
+  if (!encode_map(&map, x, 5, n, box)) return (int)cudaErrorInvalidValue;
   constexpr int smem = smem_bytes<BN, MT>();
   auto kernel = conv3d_tc_same_fwd_kernel<BN, MT>;
   cudaError_t err = cudaFuncSetAttribute(

@@ -30,6 +30,7 @@
 // and returns cudaGetLastError().
 
 #include "conv3d_common.cuh"
+#include "wgrad_fold.cuh"
 
 namespace {
 
@@ -170,18 +171,6 @@ conv3d_wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-// dw[i] = sum over chunks of partial[chunk, i], in chunk order.
-__global__ void __launch_bounds__(256)
-conv3d_wgrad_fold_kernel(const float* __restrict__ partial,
-                         float* __restrict__ dw, long long n, int n_chunks) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < n_chunks; ++k) s += partial[(long long)k * n + i];
-    dw[i] = s;
-  }
-}
-
 template <typename T, int BC, int BF, int NA>
 void launch_wgrad(const void* x, const void* g, const float* mean,
                   const float* rstd, float* partial, int B, int D, int H,
@@ -251,12 +240,7 @@ int wgrad_passes(int na, const void* x, const void* g, const float* mean,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long n = 27LL * C * F;
-  long long blocks = (n + 255) / 256;
-  if (blocks > 132 * 8) blocks = 132 * 8;
-  conv3d_wgrad_fold_kernel<<<(unsigned)blocks, 256, 0, st>>>(partial, dw, n,
-                                                            n_chunks);
-  return (int)cudaGetLastError();
+  return launch_wgrad_fold(partial, dw, 27LL * C * F, n_chunks, st);
 }
 
 int wgrad_entry(int na, const void* x, const void* g, const void* mean,

@@ -38,6 +38,7 @@
 // take).
 
 #include "mma_common.cuh"
+#include "wgrad_fold.cuh"
 
 namespace {
 
@@ -179,19 +180,6 @@ conv3d_wgrad_tc_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-// dw[i] = sum over chunks of partial[chunk, i], in chunk order.
-__global__ void __launch_bounds__(256)
-conv3d_wgrad_tc_fold_kernel(const float* __restrict__ partial,
-                            float* __restrict__ dw, long long n,
-                            int n_chunks) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int k = 0; k < n_chunks; ++k) s += partial[(long long)k * n + i];
-    dw[i] = s;
-  }
-}
-
 }  // namespace
 
 // x [B, D, H, W, C] and g [B, D, H, W, F] bf16; partial fp32 scratch of
@@ -216,7 +204,7 @@ extern "C" int conv3d_wgrad_tc(const void* x, const void* g, void* partial,
   const long long nx[5] = {C, W, H, D, B}, ng[5] = {F, W, H, D, B};
   const unsigned xbox[5] = {kTile, kHW, kHH, kHD, 1};
   const unsigned gbox[5] = {kTile, kTW, kTH, kTD, 1};
-  if (!encode_box_map(&xmap, x, nx, xbox) || !encode_box_map(&gmap, g, ng, gbox))
+  if (!encode_map(&xmap, x, 5, nx, xbox) || !encode_map(&gmap, g, 5, ng, gbox))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       conv3d_wgrad_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -229,11 +217,7 @@ extern "C" int conv3d_wgrad_tc(const void* x, const void* g, void* partial,
       tiles_w, (int)n_tiles, tiles_per_chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long n = 27LL * C * F;
-  long long blocks = (n + 255) / 256;
-  if (blocks > 132 * 8) blocks = 132 * 8;
-  conv3d_wgrad_tc_fold_kernel<<<(unsigned)blocks, 256, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dw), n,
-      n_chunks);
-  return (int)cudaGetLastError();
+  return launch_wgrad_fold(static_cast<const float*>(partial),
+                           static_cast<float*>(dw), 27LL * C * F, n_chunks,
+                           st);
 }

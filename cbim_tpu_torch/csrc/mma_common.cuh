@@ -1,8 +1,9 @@
 // PTX helpers shared by the tensor-core kernels (probes.cu, conv3d_tc.cu,
-// conv3d_wgrad_tc.cu): ldmatrix, mma.sync bf16, mbarriers, TMA and bulk
-// copies into shared memory, and the host-side encoding of a TMA tensor
-// map (cuTensorMapEncodeTiled, looked up through the CUDA runtime: the
-// library links no libcuda).
+// conv3d_wgrad_tc.cu, conv2d_tc.cu, conv2d_wgrad_tc.cu): ldmatrix, mma.sync
+// bf16, mbarriers, TMA and bulk copies into shared memory, TMA stores out
+// of it, and the host-side encoding of a TMA tensor map
+// (cuTensorMapEncodeTiled, looked up through the CUDA runtime: the library
+// links no libcuda).
 
 #pragma once
 
@@ -65,6 +66,13 @@ __device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
       : "memory");
 }
 
+// one arrival (count 1) on a barrier, with release semantics: this
+// thread's earlier shared-memory reads are done before the phase completes
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
 __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
@@ -116,6 +124,50 @@ __device__ __forceinline__ void tma_load_5d(unsigned dst, const CUtensorMap* map
       : "memory");
 }
 
+// the same for a 4D map, coordinates (c0..c3)
+__device__ __forceinline__ void tma_load_4d(unsigned dst, const CUtensorMap* map,
+                                            unsigned bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// TMA store: the box of ``map`` at (c0..c3) from shared memory at ``src``
+// (laid out as a load of the same map would leave it); elements out of
+// bounds are not written.  Completes asynchronously: commit the group, and
+// wait for it (bulk_wait_read) before ``src`` is written again.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             unsigned src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%1, %2, %3, %4}], [%5];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's committed bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// this thread's committed bulk stores are complete
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared_u32(unsigned addr, unsigned v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
 // a contiguous copy of ``bytes`` (a multiple of 16, both ends 16-byte
 // aligned) into shared memory
 __device__ __forceinline__ void bulk_load(unsigned dst, const void* src,
@@ -157,26 +209,28 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A 5D bf16 tiled map over t[n4][n3][n2][n1][n0] (n0 innermost, n0 % 8 ==
-// 0 so every stride is a multiple of 16 bytes), box (b0, .., b4), 64-byte
-// swizzle (b0 = 32), zeros out of bounds.  False if it cannot be encoded.
-inline bool encode_box_map(CUtensorMap* map, const void* base,
-                           const long long n[5], const unsigned box[5]) {
+// A bf16 tiled map of ``rank`` (at most 5) dimensions over
+// t[n_{rank-1}]..[n1][n0] (n0 innermost, n0 % 8 == 0 so every stride is a
+// multiple of 16 bytes), box (b0, ..), 64-byte swizzle (b0 = 32), zeros
+// out of bounds.  False if it cannot be encoded.
+inline bool encode_map(CUtensorMap* map, const void* base, int rank,
+                       const long long* n, const unsigned* box) {
   EncodeTiledFn fn = encode_tiled_fn();
-  if (fn == nullptr) return false;
+  if (fn == nullptr || rank < 1 || rank > 5) return false;
   cuuint64_t dims[5], strides[4];
   cuuint32_t boxd[5], estr[5];
   unsigned long long stride = 2;  // bytes of one bf16
-  for (int i = 0; i < 5; ++i) {
+  for (int i = 0; i < rank; ++i) {
     dims[i] = (cuuint64_t)n[i];
     boxd[i] = box[i];
     estr[i] = 1;
     stride *= (unsigned long long)n[i];
-    if (i < 4) strides[i] = stride;
+    if (i < rank - 1) strides[i] = stride;
   }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base),
-            dims, strides, boxd, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+            const_cast<void*>(base), dims, strides, boxd, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -69,6 +69,10 @@ SIGNATURES = {
     # x, g, partial, dw, dtype, B, H, W, C, F, rows_per_chunk, n_chunks,
     # stream
     "conv2d_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, wpk, y, B, H, W, C, F, bn, flip, stream (bf16, tensor cores)
+    "conv2d_same_fwd_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, g, partial, dw, B, H, W, C, F, tiles_per_chunk, n_chunks, stream
+    "conv2d_wgrad_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, bias_t, region, o, dtype, B, H, N, D, nW, sb, sh, sn, osb,
     # osh, osn, stream
     "window_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -192,10 +196,14 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def call(name: str, *args) -> None:
-    """Run one C entry; raise if it reports a CUDA error."""
+def call(name: str, *args, device) -> None:
+    """Run one C entry in the context of ``device`` (a CUDA device), with
+    that card's current stream as its last argument; raise if it reports a
+    CUDA error."""
+    import torch
     lib = library()
-    err = getattr(lib, name)(*args)
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         msg = lib.cbim_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

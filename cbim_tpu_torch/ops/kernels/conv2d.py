@@ -3,7 +3,18 @@ plain versions, and the ``torch.autograd.Function`` that trains through them.
 
 Port of ``cbim_tpu/ops/pallas/conv2d.py``: ``conv2d_same``, the custom VJP
 ``conv2d_same_t`` (dgrad: the forward on ``_flip_swap2`` weights) and
-``conv2d_wgrad``.  Two kernels in ``csrc/conv2d.cu``:
+``conv2d_wgrad``.  Two routes, chosen by :func:`conv2d_route` from the
+dtype and the channel counts before any launch:
+
+- bf16 with C and F multiples of 8: the tensor-core kernels
+  ``conv2d_same_fwd_tc`` (``csrc/conv2d_tc.cu``; also the dgrad, counted
+  under ``conv2d_dgrad_tc``) and ``conv2d_wgrad_tc``
+  (``csrc/conv2d_wgrad_tc.cu``).  The forward's entry packs the weights in
+  a first small kernel into the layout of :func:`pack_weights_tc2d` (its
+  plain version, which also applies the dgrad's flip-swap); the wgrad
+  splits its pixel tiles into chunks by :func:`wgrad_tc2d_chunking`.
+- everything else (fp32, other widths): the CUDA-core kernels of
+  ``csrc/conv2d.cu``:
 
 - ``conv2d_same_fwd``: x[B, H, W, C] (x) w[F, C, 3, 3] -> y[B, H, W, F]
   with fp32 sums, any B/H/W (the kernel masks its own edges).  It also
@@ -14,11 +25,11 @@ Port of ``cbim_tpu/ops/pallas/conv2d.py``: ``conv2d_same``, the custom VJP
   a split-K reduction with fp32 partials per chunk of pixels, folded in a
   fixed order (no atomics).
 
-The weight takes torch's layout; the forward wrapper packs it to
-[3, 3, C, F] (a copy of 9*C*F values) so the kernel reads rows of output
-channels, and the wgrad wrapper gives back torch's [F, C, 3, 3].  CPU
-tensors take the plain versions: ``F.conv2d`` with padding 1 and
-``torch.nn.grad.conv2d_weight``.
+The weight takes torch's layout; the CUDA-core forward's wrapper packs it
+to [3, 3, C, F] (a copy of 9*C*F values) so the kernel reads rows of output
+channels (the tensor-core entry packs its own), and the wgrad wrappers give
+back torch's [F, C, 3, 3].  CPU tensors take the plain versions:
+``F.conv2d`` with padding 1 and ``torch.nn.grad.conv2d_weight``.
 """
 
 from __future__ import annotations
@@ -28,11 +39,24 @@ import torch.nn.functional as F
 
 from .. import _backend
 from . import _build
-from .conv3d import wgrad_chunking
+from .conv3d import (CUDA_CORE, TC_CHUNK, TENSOR_CORE, conv3d_route,
+                     tc_tile_n, wgrad_chunking)
 
 #: launches of each kernel since the last reset (plain calls do not count);
-#: ``conv2d_dgrad`` counts the forward kernel's input-gradient launches
-launches = {"conv2d_same_fwd": 0, "conv2d_dgrad": 0, "conv2d_wgrad": 0}
+#: ``conv2d_dgrad`` and ``conv2d_dgrad_tc`` count the forward kernels'
+#: input-gradient launches
+launches = {"conv2d_same_fwd": 0, "conv2d_dgrad": 0, "conv2d_wgrad": 0,
+            "conv2d_same_fwd_tc": 0, "conv2d_dgrad_tc": 0,
+            "conv2d_wgrad_tc": 0}
+
+#: the tensor-core kernels: the widest output-channel tile of the forward
+#: (its staging buffer and a streamed weight chunk must fit beside two
+#: halo stages), the wgrad's pixel-tile width, its widest (c, f) tile, and
+#: the blocks a wgrad pass aims for (one on each of 132 SMs)
+TC2D_MAX_BN = 96
+TC2D_TILE_W = 32
+TC2D_WGRAD_MAX_TILE = 64
+_TC2D_WGRAD_TARGET_BLOCKS = 132
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -61,6 +85,64 @@ def flip_swap(w: torch.Tensor) -> torch.Tensor:
     return w.flip(2, 3).transpose(0, 1)
 
 
+def conv2d_route(dtype: torch.dtype, C: int, F: int) -> str:
+    """Which kernel family a CUDA call of :func:`conv2d_same`,
+    :func:`conv2d_dgrad` or :func:`conv2d_wgrad` with C input and F output
+    channels launches: the 3^3 conv's rule (``conv3d_route``),
+    :data:`TENSOR_CORE` for bf16 with C % 8 == 0 and F % 8 == 0 (TMA's
+    16-byte strides), else :data:`CUDA_CORE`.  Symmetric in C and F, so
+    the dgrad (F -> C) takes its forward's route."""
+    return conv3d_route(dtype, C, F)
+
+
+def tc2d_tile_n(F: int) -> tuple[int, int]:
+    """(BN, n_tiles) of the tensor-core forward: ``tc_tile_n`` up to
+    :data:`TC2D_MAX_BN` (160 -> two of 96, 40 -> one of 64)."""
+    return tc_tile_n(F, TC2D_MAX_BN)
+
+
+def pack_weights_tc2d(w: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """torch weights w[F, C, 3, 3] -> the tensor-core forward's layout
+    [n_tiles, C chunks, kh, kw, 32, BN + 8]: for each (output tile,
+    32-channel chunk) one contiguous block of 9 taps x 32 channels x BN
+    output channels, rows padded by 8 values (16 bytes) so the kernel's
+    ldmatrix rows fall on distinct banks.  Zeros past C, F and in the
+    padding.  With ``flip``, the packing of ``flip_swap(w)`` (the dgrad's
+    weights, [C, F] swapped).  The plain version of the packing kernel
+    that ``conv2d_same_fwd_tc`` runs first."""
+    if flip:
+        w = flip_swap(w)
+    Fo, C = w.shape[:2]
+    bn, n_tiles = tc2d_tile_n(Fo)
+    n_chunks = -(-C // TC_CHUNK)
+    if (Fo, C) != (n_tiles * bn, n_chunks * TC_CHUNK):
+        w = F.pad(w, (0, 0, 0, 0, 0, n_chunks * TC_CHUNK - C,
+                      0, n_tiles * bn - Fo))
+    wp = w.new_zeros((n_tiles, n_chunks, 3, 3, TC_CHUNK, bn + 8))
+    wp[..., :bn] = w.reshape(n_tiles, bn, n_chunks, TC_CHUNK, 3, 3).permute(
+        0, 2, 4, 5, 3, 1)
+    return wp
+
+
+def conv2d_same_packed_plain(x: torch.Tensor, wp: torch.Tensor,
+                             F_out: int) -> torch.Tensor:
+    """The tensor-core forward's arithmetic in plain PyTorch, from the
+    packed weights of :func:`pack_weights_tc2d`: the sum over the 9 taps of
+    the shifted, zero-padded x times that tap's [C, F] matrix, in fp32,
+    cast once to x's dtype."""
+    B, H, W, C = x.shape
+    n_tiles, n_chunks = wp.shape[:2]
+    bn = wp.shape[-1] - 8
+    taps = wp[..., :bn].permute(2, 3, 1, 4, 0, 5).reshape(
+        3, 3, n_chunks * TC_CHUNK, n_tiles * bn)[:, :, :C, :F_out]
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    y = x.new_zeros((B, H, W, F_out), dtype=torch.float32)
+    for kh in range(3):
+        for kw in range(3):
+            y += xp[:, kh:kh + H, kw:kw + W] @ taps[kh, kw].float()
+    return y.to(x.dtype)
+
+
 def conv2d_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version: ``F.conv2d`` with padding 1, channels-last in and out."""
     _check(x, w)
@@ -69,16 +151,38 @@ def conv2d_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_fwd(x: torch.Tensor, w: torch.Tensor, key: str) -> torch.Tensor:
+    """The CUDA-core forward ``conv2d_same_fwd``, counted under ``key``."""
     if not x.is_contiguous():
         raise ValueError("kernel needs a contiguous x[B, H, W, C]")
     B, H, W, C = x.shape
     Fo = w.shape[0]
     wp = w.permute(2, 3, 1, 0).contiguous()
     y = torch.empty((B, H, W, Fo), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        _build.call("conv2d_same_fwd", x.data_ptr(), wp.data_ptr(),
-                    y.data_ptr(), _backend.dtype_code(x), B, H, W, C, Fo,
-                    torch.cuda.current_stream().cuda_stream)
+    _build.call("conv2d_same_fwd", x.data_ptr(), wp.data_ptr(), y.data_ptr(),
+                _backend.dtype_code(x), B, H, W, C, Fo, device=x.device)
+    launches[key] += 1
+    return y
+
+
+def _launch_fwd_tc(x: torch.Tensor, w: torch.Tensor, key: str,
+                   flip: bool = False) -> torch.Tensor:
+    """The tensor-core forward ``conv2d_same_fwd_tc`` on torch weights
+    w[F, C, 3, 3] or, with ``flip``, on ``flip_swap(w)`` (the input
+    gradient; the entry's packing kernel applies the flip), counted under
+    ``key``.  The entry packs the weights as :func:`pack_weights_tc2d`
+    does into scratch the wrapper allocates."""
+    if not x.is_contiguous():
+        raise ValueError("kernel needs a contiguous x[B, H, W, C]")
+    B, H, W, C = x.shape
+    Fo = w.shape[1] if flip else w.shape[0]
+    bn, n_tiles = tc2d_tile_n(Fo)
+    w = w.contiguous()
+    wp = torch.empty(n_tiles * -(-C // TC_CHUNK) * 9 * TC_CHUNK * (bn + 8),
+                     dtype=x.dtype, device=x.device)
+    y = torch.empty((B, H, W, Fo), dtype=x.dtype, device=x.device)
+    _build.call("conv2d_same_fwd_tc", x.data_ptr(), w.data_ptr(),
+                wp.data_ptr(), y.data_ptr(), B, H, W, C, Fo, bn, int(flip),
+                device=x.device)
     launches[key] += 1
     return y
 
@@ -88,21 +192,27 @@ def conv2d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     weights w[F, C, 3, 3] -> y[B, H, W, F] in x.dtype.
 
     The counterpart of ``cbim_tpu.ops.pallas.conv2d.conv2d_same`` (which
-    takes w as [3, 3, C, F]).  CUDA tensors launch the kernel, CPU tensors
-    run the plain version.  No autograd: see :class:`Conv2dSame`."""
+    takes w as [3, 3, C, F]).  CUDA tensors launch the kernel of
+    :func:`conv2d_route`, CPU tensors run the plain version.  No autograd:
+    see :class:`Conv2dSame`."""
     _check(x, w)
     if not _backend.uses_kernels(x):
         return conv2d_same_plain(x, w)
+    if conv2d_route(x.dtype, x.shape[-1], w.shape[0]) == TENSOR_CORE:
+        return _launch_fwd_tc(x, w, "conv2d_same_fwd_tc")
     return _launch_fwd(x, w, "conv2d_same_fwd")
 
 
 def conv2d_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Input gradient of :func:`conv2d_same`: the forward kernel on the
-    upstream gradient g[B, H, W, F] with ``flip_swap(w)``."""
+    """Input gradient of :func:`conv2d_same`: the forward kernel of the
+    same route on the upstream gradient g[B, H, W, F] with
+    ``flip_swap(w)``."""
     ws = flip_swap(w)
     _check(g, ws)
     if not _backend.uses_kernels(g):
         return conv2d_same_plain(g, ws)
+    if conv2d_route(g.dtype, g.shape[-1], ws.shape[0]) == TENSOR_CORE:
+        return _launch_fwd_tc(g, w, "conv2d_dgrad_tc", flip=True)
     return _launch_fwd(g, ws, "conv2d_dgrad")
 
 
@@ -115,16 +225,57 @@ def conv2d_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         g.float().permute(0, 3, 1, 2), padding=1)
 
 
-def conv2d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Weight gradient of :func:`conv2d_same`: x[B, H, W, C], g[B, H, W, F]
-    -> dW[F, C, 3, 3] float32 (torch's layout).
+def wgrad_tc2d_tiles(C: int, F: int) -> tuple[int, int, int]:
+    """(TC, TF, TH) of ``conv2d_wgrad_tc``: the (c, f) tile of dW a block
+    owns, 32 where the width is at most 32 else 64 (all of C and F at the
+    ACDC widths), and the rows of its (TH, 32) pixel tiles: 8 at a 32 x 32
+    tile, 4 where a 64-wide tile doubles the staged bytes."""
+    tc = 32 if C <= 32 else TC2D_WGRAD_MAX_TILE
+    tf = 32 if F <= 32 else TC2D_WGRAD_MAX_TILE
+    return tc, tf, 8 if tc == tf == 32 else 4
 
-    The counterpart of ``cbim_tpu.ops.pallas.conv2d.conv2d_wgrad`` (which
-    returns [3, 3, C, F]).  CUDA tensors launch the kernel, CPU tensors run
-    the plain version."""
-    _check_wgrad(x, g)
-    if not _backend.uses_kernels(x):
-        return conv2d_wgrad_plain(x, g)
+
+def pixel_tiles_tc2d(B: int, H: int, W: int, C: int, F: int) -> int:
+    """The tensor-core wgrad's pixel tiles: (TH, 32) boxes covering each
+    sample, ragged ones included."""
+    th = wgrad_tc2d_tiles(C, F)[2]
+    return B * -(-H // th) * -(-W // TC2D_TILE_W)
+
+
+def wgrad_tc2d_chunking(n_tiles: int, C: int, F: int) -> tuple[int, int]:
+    """(tiles_per_chunk, n_chunks) for ``conv2d_wgrad_tc``'s split
+    reduction over ``n_tiles`` pixel tiles: a block owns a chunk of tiles
+    and one (c, f) tile of dW for all 9 taps, about one block an SM, and
+    every chunk holds at least one tile.  So the fp32 partials take at most
+    132 x 9 x 64 x 64 x 4 bytes (19.5 MB), or one dW where dW has more
+    tiles than the card SMs: within ``_WGRAD_MAX_PARTIAL_BYTES``."""
+    tc, tf, _ = wgrad_tc2d_tiles(C, F)
+    tiles = -(-C // tc) * -(-F // tf)
+    n_chunks = max(1, min(_TC2D_WGRAD_TARGET_BLOCKS // tiles, n_tiles))
+    per = -(-n_tiles // n_chunks)
+    return per, -(-n_tiles // per)
+
+
+def _launch_wgrad_tc(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The tensor-core wgrad ``conv2d_wgrad_tc`` and its fold."""
+    if not (x.is_contiguous() and g.is_contiguous()):
+        raise ValueError("kernel needs contiguous x and g")
+    B, H, W, C = x.shape
+    Fo = g.shape[-1]
+    per, n_chunks = wgrad_tc2d_chunking(pixel_tiles_tc2d(B, H, W, C, Fo), C,
+                                        Fo)
+    partial = torch.empty(n_chunks * 9 * C * Fo, dtype=torch.float32,
+                          device=x.device)
+    dw = torch.empty((3, 3, C, Fo), dtype=torch.float32, device=x.device)
+    _build.call("conv2d_wgrad_tc", x.data_ptr(), g.data_ptr(),
+                partial.data_ptr(), dw.data_ptr(), B, H, W, C, Fo, per,
+                n_chunks, device=x.device)
+    launches["conv2d_wgrad_tc"] += 1
+    return dw.permute(3, 2, 0, 1)
+
+
+def _launch_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The CUDA-core wgrad ``conv2d_wgrad`` and its fold."""
     if not (x.is_contiguous() and g.is_contiguous()):
         raise ValueError("kernel needs contiguous x and g")
     B, H, W, C = x.shape
@@ -136,13 +287,26 @@ def conv2d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     partial = torch.empty(n_chunks * 9 * C * Fo, dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((3, 3, C, Fo), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _build.call("conv2d_wgrad", x.data_ptr(), g.data_ptr(),
-                    partial.data_ptr(), dw.data_ptr(), _backend.dtype_code(x),
-                    B, H, W, C, Fo, rows, n_chunks,
-                    torch.cuda.current_stream().cuda_stream)
+    _build.call("conv2d_wgrad", x.data_ptr(), g.data_ptr(),
+                partial.data_ptr(), dw.data_ptr(), _backend.dtype_code(x),
+                B, H, W, C, Fo, rows, n_chunks, device=x.device)
     launches["conv2d_wgrad"] += 1
     return dw.permute(3, 2, 0, 1)
+
+
+def conv2d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Weight gradient of :func:`conv2d_same`: x[B, H, W, C], g[B, H, W, F]
+    -> dW[F, C, 3, 3] float32 (torch's layout).
+
+    The counterpart of ``cbim_tpu.ops.pallas.conv2d.conv2d_wgrad`` (which
+    returns [3, 3, C, F]).  CUDA tensors launch the kernel of
+    :func:`conv2d_route`, CPU tensors run the plain version."""
+    _check_wgrad(x, g)
+    if not _backend.uses_kernels(x):
+        return conv2d_wgrad_plain(x, g)
+    if conv2d_route(x.dtype, x.shape[-1], g.shape[-1]) == TENSOR_CORE:
+        return _launch_wgrad_tc(x, g)
+    return _launch_wgrad(x, g)
 
 
 class Conv2dSame(torch.autograd.Function):

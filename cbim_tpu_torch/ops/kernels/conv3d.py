@@ -118,11 +118,11 @@ def conv3d_route(dtype: torch.dtype, C: int, F: int) -> str:
     return TENSOR_CORE
 
 
-def tc_tile_n(F: int) -> tuple[int, int]:
-    """(BN, n_tiles): the tensor-core forward's output-channel tile, a
-    multiple of 32 up to :data:`TC_MAX_BN`, and how many cover F (192 -> two
-    of 96, 40 -> one of 64)."""
-    n_tiles = -(-F // TC_MAX_BN)
+def tc_tile_n(F: int, max_bn: int = TC_MAX_BN) -> tuple[int, int]:
+    """(BN, n_tiles): a tensor-core forward's output-channel tile, a
+    multiple of 32 up to ``max_bn`` (:data:`TC_MAX_BN` for the 3^3 conv),
+    and how many cover F (192 -> two of 96, 40 -> one of 64)."""
+    n_tiles = -(-F // max_bn)
     per = -(-F // n_tiles)
     return -(-per // 32) * 32, n_tiles
 
@@ -186,17 +186,17 @@ def _launch_fwd(x: torch.Tensor, w: torch.Tensor, key: str,
     Fo = w.shape[0]
     wp = w.permute(2, 3, 4, 1, 0).contiguous()
     y = torch.empty((B, D, H, W, Fo), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        shape = (B, D, H, W, C, Fo, torch.cuda.current_stream().cuda_stream)
-        if na is None:
-            _build.call("conv3d_same_fwd", x.data_ptr(), wp.data_ptr(),
-                        y.data_ptr(), _backend.dtype_code(x), *shape)
-        else:
-            mean, rstd, act = na
-            _build.call("conv3d_same_na_fwd", x.data_ptr(), wp.data_ptr(),
-                        y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                        _backend.dtype_code(x), fused_norm._act_code(act),
-                        *shape)
+    shape = (B, D, H, W, C, Fo)
+    if na is None:
+        _build.call("conv3d_same_fwd", x.data_ptr(), wp.data_ptr(),
+                    y.data_ptr(), _backend.dtype_code(x), *shape,
+                    device=x.device)
+    else:
+        mean, rstd, act = na
+        _build.call("conv3d_same_na_fwd", x.data_ptr(), wp.data_ptr(),
+                    y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                    _backend.dtype_code(x), fused_norm._act_code(act),
+                    *shape, device=x.device)
     launches[key] += 1
     return y
 
@@ -217,10 +217,9 @@ def _launch_fwd_tc(x: torch.Tensor, w: torch.Tensor, key: str,
     wp = torch.empty(n_tiles * -(-C // TC_CHUNK) * 27 * TC_CHUNK * (bn + 8),
                      dtype=x.dtype, device=x.device)
     y = torch.empty((B, D, H, W, Fo), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        _build.call("conv3d_same_fwd_tc", x.data_ptr(), w.data_ptr(),
-                    wp.data_ptr(), y.data_ptr(), B, D, H, W, C, Fo, bn,
-                    int(flip), torch.cuda.current_stream().cuda_stream)
+    _build.call("conv3d_same_fwd_tc", x.data_ptr(), w.data_ptr(),
+                wp.data_ptr(), y.data_ptr(), B, D, H, W, C, Fo, bn, int(flip),
+                device=x.device)
     launches[key] += 1
     return y
 
@@ -307,10 +306,9 @@ def _launch_wgrad_tc(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     partial = torch.empty(n_chunks * 27 * C * Fo, dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((3, 3, 3, C, Fo), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _build.call("conv3d_wgrad_tc", x.data_ptr(), g.data_ptr(),
-                    partial.data_ptr(), dw.data_ptr(), B, D, H, W, C, Fo,
-                    per, n_chunks, torch.cuda.current_stream().cuda_stream)
+    _build.call("conv3d_wgrad_tc", x.data_ptr(), g.data_ptr(),
+                partial.data_ptr(), dw.data_ptr(), B, D, H, W, C, Fo, per,
+                n_chunks, device=x.device)
     launches["conv3d_wgrad_tc"] += 1
     return dw.permute(4, 3, 0, 1, 2)
 
@@ -329,19 +327,17 @@ def _launch_wgrad(x: torch.Tensor, g: torch.Tensor, na=None) -> torch.Tensor:
     partial = torch.empty(n_chunks * 27 * C * Fo, dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((3, 3, 3, C, Fo), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        shape = (B, D, H, W, C, Fo, rows, n_chunks,
-                 torch.cuda.current_stream().cuda_stream)
-        if na is None:
-            _build.call("conv3d_wgrad", x.data_ptr(), g.data_ptr(),
-                        partial.data_ptr(), dw.data_ptr(),
-                        _backend.dtype_code(x), *shape)
-        else:
-            mean, rstd, act = na
-            _build.call("conv3d_wgrad_na", x.data_ptr(), g.data_ptr(),
-                        mean.data_ptr(), rstd.data_ptr(), partial.data_ptr(),
-                        dw.data_ptr(), _backend.dtype_code(x),
-                        fused_norm._act_code(act), *shape)
+    shape = (B, D, H, W, C, Fo, rows, n_chunks)
+    if na is None:
+        _build.call("conv3d_wgrad", x.data_ptr(), g.data_ptr(),
+                    partial.data_ptr(), dw.data_ptr(), _backend.dtype_code(x),
+                    *shape, device=x.device)
+    else:
+        mean, rstd, act = na
+        _build.call("conv3d_wgrad_na", x.data_ptr(), g.data_ptr(),
+                    mean.data_ptr(), rstd.data_ptr(), partial.data_ptr(),
+                    dw.data_ptr(), _backend.dtype_code(x),
+                    fused_norm._act_code(act), *shape, device=x.device)
     launches["conv3d_wgrad" if na is None else "conv3d_wgrad_na"] += 1
     return dw.permute(4, 3, 0, 1, 2)
 

@@ -86,11 +86,9 @@ def inorm_stats(x3: torch.Tensor, eps: float):
                           device=x3.device)
     mean = torch.empty(B, C, dtype=torch.float32, device=x3.device)
     rstd = torch.empty_like(mean)
-    with torch.cuda.device(x3.device):
-        _build.call("inorm_stats", x3.data_ptr(), _backend.dtype_code(x3),
-                    B, S, C, rows, n_chunks, float(eps), partial.data_ptr(),
-                    mean.data_ptr(), rstd.data_ptr(),
-                    torch.cuda.current_stream().cuda_stream)
+    _build.call("inorm_stats", x3.data_ptr(), _backend.dtype_code(x3), B, S,
+                C, rows, n_chunks, float(eps), partial.data_ptr(),
+                mean.data_ptr(), rstd.data_ptr(), device=x3.device)
     launches["inorm_stats"] += 1
     return mean, rstd
 
@@ -112,10 +110,9 @@ def inorm_apply(x3: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
     B, S, C = x3.shape
     code = _act_code(act)
     y = torch.empty_like(x3)
-    with torch.cuda.device(x3.device):
-        _build.call("inorm_apply", x3.data_ptr(), y.data_ptr(),
-                    mean.data_ptr(), rstd.data_ptr(), _backend.dtype_code(x3),
-                    code, B, S, C, torch.cuda.current_stream().cuda_stream)
+    _build.call("inorm_apply", x3.data_ptr(), y.data_ptr(), mean.data_ptr(),
+                rstd.data_ptr(), _backend.dtype_code(x3), code, B, S, C,
+                device=x3.device)
     launches["inorm_apply"] += 1
     return y
 
@@ -169,11 +166,10 @@ def inorm_bwd_stats(x3: torch.Tensor, dy3: torch.Tensor, mean: torch.Tensor,
     partial = torch.empty(B * n_chunks * 2 * C, dtype=torch.float64,
                           device=x3.device)
     red = torch.empty(B, 2, C, dtype=torch.float32, device=x3.device)
-    with torch.cuda.device(x3.device):
-        _build.call("inorm_bwd_stats", x3.data_ptr(), dy3.data_ptr(),
-                    mean.data_ptr(), rstd.data_ptr(), _backend.dtype_code(x3),
-                    code, B, S, C, rows, n_chunks, partial.data_ptr(),
-                    red.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.call("inorm_bwd_stats", x3.data_ptr(), dy3.data_ptr(),
+                mean.data_ptr(), rstd.data_ptr(), _backend.dtype_code(x3),
+                code, B, S, C, rows, n_chunks, partial.data_ptr(),
+                red.data_ptr(), device=x3.device)
     launches["inorm_bwd_stats"] += 1
     return red
 
@@ -204,11 +200,10 @@ def inorm_bwd_apply(x3: torch.Tensor, dy3: torch.Tensor, mean: torch.Tensor,
                          "device")
     code = _act_code(act)
     dx = torch.empty_like(x3)
-    with torch.cuda.device(x3.device):
-        _build.call("inorm_bwd_apply", x3.data_ptr(), dy3.data_ptr(),
-                    dx.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                    red.data_ptr(), _backend.dtype_code(x3), code, B, S, C,
-                    torch.cuda.current_stream().cuda_stream)
+    _build.call("inorm_bwd_apply", x3.data_ptr(), dy3.data_ptr(),
+                dx.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                red.data_ptr(), _backend.dtype_code(x3), code, B, S, C,
+                device=x3.device)
     launches["inorm_bwd_apply"] += 1
     return dx
 

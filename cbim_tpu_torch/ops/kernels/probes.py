@@ -50,10 +50,6 @@ PHASES = ("load", "stage", "fma", "full")
 LADDER_BN = (32, 64)
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 # ---------------------------------------------------------------- copy-scale
 
 def _check_copy(x: torch.Tensor, vec: bool, block: int) -> None:
@@ -84,9 +80,8 @@ def copy_scale(x: torch.Tensor, vec: bool = True,
     if not _backend.uses_kernels(x):
         return copy_scale_plain(x)
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _build.call("probe_copy_scale", x.data_ptr(), y.data_ptr(),
-                    x.numel(), int(vec), block, _stream())
+    _build.call("probe_copy_scale", x.data_ptr(), y.data_ptr(), x.numel(),
+                int(vec), block, device=x.device)
     launches["probe_copy_scale"] += 1
     return y
 
@@ -126,9 +121,8 @@ def dot_t(a: torch.Tensor, w: torch.Tensor,
                          f"K={K} L={L}")
     a, w = a.contiguous(), w.contiguous()
     out = torch.empty((T, N, L), dtype=torch.bfloat16, device=a.device)
-    with torch.cuda.device(a.device):
-        _build.call("probe_dot_t", a.data_ptr(), w.data_ptr(), out.data_ptr(),
-                    T, K, N, L, L // SLAB if stationary else 1, _stream())
+    _build.call("probe_dot_t", a.data_ptr(), w.data_ptr(), out.data_ptr(), T,
+                K, N, L, L // SLAB if stationary else 1, device=a.device)
     launches["probe_dot_t"] += 1
     return out
 
@@ -156,9 +150,8 @@ def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          f"K={K}")
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty((T, M, N), dtype=torch.bfloat16, device=a.device)
-    with torch.cuda.device(a.device):
-        _build.call("probe_gemm", a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                    T, M, N, K, _stream())
+    _build.call("probe_gemm", a.data_ptr(), b.data_ptr(), out.data_ptr(), T,
+                M, N, K, device=a.device)
     launches["probe_gemm"] += 1
     return out
 
@@ -207,9 +200,8 @@ def conv3d_same_fwd_ladder(x: torch.Tensor, w: torch.Tensor,
                          "(the 16-byte staging path)")
     wp = w.permute(2, 3, 4, 1, 0).contiguous()
     y = torch.empty((B, D, H, W, Fo), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        _build.call("conv3d_same_fwd_ladder", x.data_ptr(), wp.data_ptr(),
-                    y.data_ptr(), _backend.dtype_code(x), B, D, H, W, C, Fo,
-                    PHASES.index(phase), bn, _stream())
+    _build.call("conv3d_same_fwd_ladder", x.data_ptr(), wp.data_ptr(),
+                y.data_ptr(), _backend.dtype_code(x), B, D, H, W, C, Fo,
+                PHASES.index(phase), bn, device=x.device)
     launches["conv3d_same_fwd_ladder"] += 1
     return y

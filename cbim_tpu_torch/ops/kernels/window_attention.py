@@ -123,12 +123,10 @@ def window_attention(q, k, v, rel_bias, region=None) -> torch.Tensor:
     o = torch.empty((B, N, H, D), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
     nW = 1 if region is None else region.shape[0]
-    with torch.cuda.device(q.device):
-        _build.call("window_attention", q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), bias_t.data_ptr(),
-                    None if region is None else region.data_ptr(),
-                    o.data_ptr(), _backend.dtype_code(q), B, H, N, D, nW,
-                    *q.stride()[:3], *o.stride()[:3],
-                    torch.cuda.current_stream().cuda_stream)
+    _build.call("window_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                bias_t.data_ptr(),
+                None if region is None else region.data_ptr(), o.data_ptr(),
+                _backend.dtype_code(q), B, H, N, D, nW, *q.stride()[:3],
+                *o.stride()[:3], device=q.device)
     launches["window_attention"] += 1
     return o

@@ -1,12 +1,21 @@
-"""Time the flagship bf16 training step of a checkout of this repository.
+"""Time a bf16 training step of a checkout of this repository.
 
-Runs ``chip_smoke.py``'s phase 6 (the flagship recipe of ``bench.py``:
-full-width MedFormer-3D, GELU, 128^3 crops, batch 2, bf16 autocast, remat,
-AdamW, EMA, six steps on the synthetic corpus) from the checkout at
-``--root``, with that checkout's own kernels and code, and prints its step
-seconds, the median after the warm-up steps, volumes/s and peak device
-memory; with ``--profile DIR`` also the device's busy share and kernel time
-by family (the trainer's profiler hook).  The last line is one JSON object.
+Runs one of ``chip_smoke.py``'s training phases from the checkout at
+``--root``, with that checkout's own kernels and code:
+
+- ``--phase 6`` (the default): the flagship recipe of ``bench.py``
+  (full-width MedFormer-3D, GELU, 128^3 crops, batch 2, bf16 autocast,
+  remat, AdamW, EMA, six steps on the synthetic corpus);
+- ``--phase 8``: the ACDC MedFormer-2D recipe (256^2 crops, batch 32, bf16
+  autocast, six steps on ``Synthetic2D``) with ``conv2d_kernel`` on, the
+  3x3 kernel route;
+- ``--phase 8b``: the same recipe with ``conv2d_kernel`` off (cuDNN's 3x3
+  convs, the default).
+
+It prints the step seconds, the median after the warm-up steps,
+volumes/s (slices/s in 2D) and peak device memory; with ``--profile DIR``
+also the device's busy share and kernel time by family (the trainer's
+profiler hook).  The last line is one JSON object.
 
 To compare two commits on one card, unpack the other one into a directory
 that ``.gitignore`` lists and alternate the runs in one command, e.g.
@@ -16,6 +25,8 @@ that ``.gitignore`` lists and alternate the runs in one command, e.g.
     python -m cbim_tpu_torch.tools.flagship_step
     python -m cbim_tpu_torch.tools.flagship_step
     python -m cbim_tpu_torch.tools.flagship_step --root build/parent
+
+(each with the same ``--phase``).
 
 Each run is its own process (its own CUDA context and kernel build) and its
 own run directory, so the step times of one run never mix with another's.
@@ -39,6 +50,10 @@ def main(argv=None) -> int:
     parser.add_argument("--root", default=REPO,
                         help="the checkout whose chip_smoke.py and kernels run "
                              "(default: this one)")
+    parser.add_argument("--phase", default="6", choices=("6", "8", "8b"),
+                        help="6: the flagship 3D recipe; 8: the ACDC 2D "
+                             "recipe on the 3x3 kernel route; 8b: the same "
+                             "on cuDNN's 3x3 convs (default: 6)")
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="trace the steady steps into DIR")
     args = parser.parse_args(argv)
@@ -56,16 +71,22 @@ def main(argv=None) -> int:
     torch.zeros(1, device=device)                 # create the context
     _build.library()
     os.makedirs(smoke.WORK, exist_ok=True)
-    name = f"flagship_step_{os.getpid()}_{int(time.time())}"
-    cfg = dict(smoke.FLAGSHIP)
+    name = f"step{args.phase}_{os.getpid()}_{int(time.time())}"
+    if args.phase == "6":
+        cfg, batch, unit = dict(smoke.FLAGSHIP), smoke.TRAIN_BATCH, "volumes"
+    else:
+        cfg = dict(smoke.ACDC_TRAIN, conv2d_kernel=args.phase == "8")
+        batch, unit = smoke.TRAIN2D_BATCH, "slices"
     if args.profile:
         cfg["profile_dir"] = os.path.abspath(args.profile)
-    tr = smoke.phase_train(device, cfg, smoke.TRAIN_BATCH, name, ())
-    print(f"{root}: {smoke.card_line()}", flush=True)
-    smoke.say_train(tr, "volumes")
-    rec = {"root": root, "step_seconds": tr["step_seconds"],
-           "median_s": tr["median"], "volumes_per_s": tr["per_s"],
-           "peak_gib": tr["peak_bytes"] / 2 ** 30}
+    tr = smoke.phase_train(device, cfg, batch, name, ())
+    print(f"{root} phase {args.phase}: {smoke.card_line()}", flush=True)
+    smoke.say_train(tr, unit)
+    rec = {"root": root, "phase": args.phase,
+           "step_seconds": tr["step_seconds"], "median_s": tr["median"],
+           f"{unit}_per_s": tr["per_s"],
+           "peak_gib": tr["peak_bytes"] / 2 ** 30,
+           "launches": {k: v for k, v in tr["launches"].items() if v}}
     if args.profile:
         smoke.say_profile(args.profile)
         with open(os.path.join(args.profile, "summary.json")) as f:

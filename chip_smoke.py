@@ -15,7 +15,10 @@ Phases, each printing its result; any failure raises and exits non-zero:
    3^3 conv cases assert their route (``conv3d_route``: bf16 at widths of
    multiples of 8 takes the tensor-core kernels ``conv3d_same_fwd_tc`` and
    ``conv3d_wgrad_tc``, the rest the CUDA-core ones, which are held and
-   timed beside the tensor-core ones too); and
+   timed beside the tensor-core ones too), and so do the 3x3 cases
+   (``conv2d_route``: ``conv2d_same_fwd_tc`` and ``conv2d_wgrad_tc`` in
+   bf16 at widths of multiples of 8, the CUDA-core ``conv2d_same_fwd`` and
+   ``conv2d_wgrad`` beside them and for the rest); and
    cuDNN's depthwise 3x3 conv in both memory formats, the layout choice of
    MedFormer-2D's grouped convs; the window-attention kernel at the Swin
    zoo's seven shapes, with and without a shifted-window mask, beside
@@ -60,15 +63,16 @@ Phases, each printing its result; any failure raises and exits non-zero:
    serves two synthetic cine-MR NIfTI requests through
    ``cbim_tpu_torch.prediction.main --dimension 2d`` (every slice of a
    volume is the batch at each window position); the 3x3 conv kernel must
-   have launched;
+   have launched, fp32: the CUDA-core 3x3 forward only;
 8. 2D training: the ACDC recipe (``configs/acdc/medformer_2d.yaml``)
    trains an epoch of batch-32 steps on ``Synthetic2D`` through
-   ``cbim_tpu_torch.train.main --dimension 2d --amp``; the 3x3 conv's
-   forward, dgrad and wgrad kernels must have launched, and every loss must
-   be finite;
+   ``cbim_tpu_torch.train.main --dimension 2d --amp``; every loss must be
+   finite, and per step the 14 3x3 kernel convs make 14
+   ``conv2d_same_fwd_tc``, 14 ``conv2d_dgrad_tc`` and 14
+   ``conv2d_wgrad_tc`` launches, and no CUDA-core 3x3 launch;
 8b. the same recipe with ``conv2d_kernel`` off, the default: the 3x3 convs
-   are cuDNN's and no 3x3 kernel launches; sec/step, slices/s and peak
-   memory beside phase 8's;
+   are cuDNN's and no 3x3 kernel of either route launches; sec/step,
+   slices/s and peak memory beside phase 8's;
 9. Swin serving: the full-width BCV SwinUNETR (``configs/bcv/
    swin_unetr_3d.yaml``: 14 classes, feature size 48, 128^3 window, fp32)
    with seeded random weights serves phase 5's two requests through
@@ -149,6 +153,11 @@ KERNELS = {
                            "cbim_tpu/ops/pallas/conv3d.py:299"),
     "conv3d_wgrad_tc": ("cbim_tpu_torch/csrc/conv3d_wgrad_tc.cu",
                         "cbim_tpu/ops/pallas/conv3d.py:582"),
+    # the bf16 3x3 route at widths of multiples of 8 (conv2d.conv2d_route)
+    "conv2d_same_fwd_tc": ("cbim_tpu_torch/csrc/conv2d_tc.cu",
+                           "cbim_tpu/ops/pallas/conv2d.py:115"),
+    "conv2d_wgrad_tc": ("cbim_tpu_torch/csrc/conv2d_wgrad_tc.cu",
+                        "cbim_tpu/ops/pallas/conv2d.py:238"),
     "conv3d_wgrad_na": ("cbim_tpu_torch/csrc/conv3d_wgrad.cu",
                         "cbim_tpu/ops/pallas/conv3d.py:1518"),
     # the probes, which lie on no path but their own entry points (phase 10)
@@ -163,7 +172,8 @@ KERNELS = {
 }
 #: the launch counter of each forward kernel's input-gradient launches
 DGRAD = {"conv3d_same_fwd": "conv3d_dgrad", "conv2d_same_fwd": "conv2d_dgrad",
-         "conv3d_same_fwd_tc": "conv3d_dgrad_tc"}
+         "conv3d_same_fwd_tc": "conv3d_dgrad_tc",
+         "conv2d_same_fwd_tc": "conv2d_dgrad_tc"}
 #: the forward kernels, which fp32 serving launches
 FORWARD_KERNELS = ("inorm_stats", "inorm_apply", "conv3d_same_fwd")
 #: the 3^3 kernels of each route (tensor-core: bf16 at widths of multiples
@@ -194,12 +204,22 @@ NA_RECORD = (CONV_RECORD, "float32", "relu")
 
 #: 3x3 conv shapes (B, H, W, C, F) of the 2D paths at the ACDC recipe:
 #: inc/up4 and down1/up3 at training batch 32, a 12-slice serving batch,
-#: the channel envelope of the kernel dispatch, and a ragged shape
+#: the channel envelope of the kernel dispatch, a ragged shape, and one of
+#: widths that are no multiples of 8 (bf16 takes the CUDA-core route there)
 CONV2D_CASES = [(32, 256, 256, 32, 32), (32, 128, 128, 64, 64),
                 (12, 256, 256, 32, 32), (4, 64, 64, 192, 160),
-                (3, 37, 50, 24, 40)]
+                (3, 37, 50, 24, 40), (3, 37, 50, 20, 36)]
 #: the 3x3 case and dtype of the JSON record: inc/up4 in the training step
+#: (the tensor-core kernels, and the CUDA-core ones they replace)
 CONV2D_RECORD = ((32, 256, 256, 32, 32), "bfloat16")
+#: the 3x3 kernels of each route (tensor-core: bf16 at widths of multiples
+#: of 8; CUDA-core: the rest), forward, dgrad and wgrad
+TC2D_KERNELS = ("conv2d_same_fwd_tc", "conv2d_dgrad_tc", "conv2d_wgrad_tc")
+CORE2D_KERNELS = ("conv2d_same_fwd", "conv2d_dgrad", "conv2d_wgrad")
+#: the 3x3 convs of the ACDC MedFormer-2D on ``conv2d_kernel``: 2 in inc's
+#: block, 4 in down1, 4 each in up3 and up4 (one forward, one dgrad and one
+#: wgrad each a training step: no remat in 2D)
+ACDC_CONVS = 14
 #: depthwise 3x3 convs of MedFormer-2D's training step (B, H, W, C): the
 #: B-MHA projections and MBConvs of down2/up2, down3/up1 and down4
 DEPTHWISE2D_CASES = [(32, 64, 64, 128), (32, 64, 64, 256), (32, 32, 32, 512),
@@ -834,10 +854,14 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
 
 
 def phase_conv2d_kernels(device, cases, record: dict) -> None:
-    """Phase 3, the 3x3 family: ``conv2d_same_fwd`` (forward and dgrad) and
-    ``conv2d_wgrad`` against their plain versions on ``device``, with the
-    cuDNN call beside each (``F.conv2d``, ``torch.nn.grad.conv2d_weight``,
-    in the inputs' dtype)."""
+    """Phase 3, the 3x3 family: each case asserts the route
+    ``conv2d_route`` gives it (the launch counters that moved) and holds
+    its forward, dgrad and wgrad kernels against their plain versions on
+    ``device``, with the cuDNN call beside each (``F.conv2d``,
+    ``torch.nn.grad.conv2d_weight``, in the inputs' dtype); where bf16
+    takes the tensor-core route (``conv2d_same_fwd_tc``,
+    ``conv2d_wgrad_tc``) the CUDA-core kernels it replaces are held and
+    timed too."""
     import torch
     import torch.nn.functional as F
     from cbim_tpu_torch.ops.kernels import conv2d
@@ -845,7 +869,8 @@ def phase_conv2d_kernels(device, cases, record: dict) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=device).manual_seed(2)
     errs = record["errors"]
-    errs.update(conv2d_same_fwd=0.0, conv2d_wgrad=0.0)
+    errs.update({k: 0.0 for k in ("conv2d_same_fwd", "conv2d_wgrad",
+                                  "conv2d_same_fwd_tc", "conv2d_wgrad_tc")})
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
         for case in cases:
@@ -855,10 +880,16 @@ def phase_conv2d_kernels(device, cases, record: dict) -> None:
             w = torch.randn(Fo, C, 3, 3, generator=gen, device=device)
             x, g, w = x.to(dtype), g.to(dtype), (w / math.sqrt(9 * C)).to(dtype)
             ws = conv2d.flip_swap(w)
+            tc = conv2d.conv2d_route(dtype, C, Fo) == conv2d.TENSOR_CORE
+            keys = TC2D_KERNELS if tc else CORE2D_KERNELS
+            before = [conv2d.launches[k] for k in keys]
             y, ref_y = conv2d.conv2d_same(x, w), conv2d.conv2d_same_plain(x, w)
             dx = conv2d.conv2d_dgrad(g, w)
             ref_dx = conv2d.conv2d_same_plain(g, ws)
             dw, ref_dw = conv2d.conv2d_wgrad(x, g), conv2d.conv2d_wgrad_plain(x, g)
+            torch.cuda.synchronize()
+            assert [conv2d.launches[k] for k in keys] == \
+                [n + 1 for n in before], f"{dt} {case} did not take {keys}"
             # the weight gradient sums over every pixel (0.5-2.1 M here):
             # cuDNN's fp32 sums err by up to 1e-4 of max|dW| at some of
             # these shapes on an H100 (PERF.md), so both are held against
@@ -866,13 +897,22 @@ def phase_conv2d_kernels(device, cases, record: dict) -> None:
             dw64 = torch.nn.grad.conv2d_weight(
                 x.double().permute(0, 3, 1, 2), w.shape,
                 g.double().permute(0, 3, 1, 2), padding=1)
-            torch.cuda.synchronize()
-            errors = {}
-            for key, out, ref in (("fwd", y, ref_y), ("dgrad", dx, ref_dx),
-                                  ("wgrad", dw, dw64)):
+            outs = {"fwd": y, "dgrad": dx, "wgrad": dw}
+            if tc:
+                # the CUDA-core kernels the tensor-core ones replace
+                core = {"fwd": conv2d._launch_fwd(x, w, "conv2d_same_fwd"),
+                        "dgrad": conv2d._launch_fwd(g, ws, "conv2d_dgrad"),
+                        "wgrad": conv2d._launch_wgrad(x, g)}
+                torch.cuda.synchronize()
+            refs = {"fwd": ref_y, "dgrad": ref_dx, "wgrad": dw64}
+            errors, core_err = {}, {}
+            for key, ref in refs.items():
                 scale = float(ref.float().abs().max())
-                errors[key] = (float((out.double() - ref.double()).abs().max()),
-                               scale)
+                errors[key] = (float((outs[key].double() - ref.double())
+                                     .abs().max()), scale)
+                if tc:
+                    core_err[key] = float((core[key].double() - ref.double())
+                                          .abs().max())
             plain_w_err = float((ref_dw.double() - dw64).abs().max())
             flops = 2 * 9 * C * Fo * B * H * W
             n = iters_for(flops, 1e10)
@@ -888,31 +928,62 @@ def phase_conv2d_kernels(device, cases, record: dict) -> None:
                           cuda_ms(lambda: conv2d.conv2d_wgrad_plain(x, g), n),
                           cuda_ms(lambda: torch.nn.grad.conv2d_weight(
                               xc, w.shape, gc, padding=1), n))}
-            for key, (ms, plain_ms, lib_ms) in t.items():
+            core_ms = {}
+            if tc:
+                core_ms = {
+                    "fwd": cuda_ms(lambda: conv2d._launch_fwd(
+                        x, w, "conv2d_same_fwd"), n),
+                    "dgrad": cuda_ms(lambda: conv2d._launch_fwd(
+                        g, ws, "conv2d_dgrad"), n),
+                    "wgrad": cuda_ms(lambda: conv2d._launch_wgrad(x, g), n)}
+            for (key, (ms, plain_ms, lib_ms)), name in zip(t.items(), keys):
                 err, scale = errors[key]
                 tol = WGRAD_TOL if key == "wgrad" else CONV_TOL[dt]
                 vs = (f"vs fp64 (the fp32 plain version's: "
                       f"{plain_w_err / scale:.3e})" if key == "wgrad"
                       else "vs plain")
-                say(f"  conv2d {key:5s} {dt:8s} {case}: max_abs_err {err:.3e} "
-                    f"max_rel_err {err / scale:.3e} of max|ref| {scale:.3f} "
-                    f"{vs} (tol {tol:.1e}) kernel {ms:.3f} ms "
-                    f"({flops / ms / 1e9:.1f} TFLOP/s) plain {plain_ms:.3f} ms "
-                    f"cuDNN {lib_ms:.3f} ms")
-                assert err <= tol * scale, f"conv2d {key} {dt} {case}: {err:.3e}"
-            errs["conv2d_same_fwd"] = max(errs["conv2d_same_fwd"],
-                                          errors["fwd"][0], errors["dgrad"][0])
-            errs["conv2d_wgrad"] = max(errs["conv2d_wgrad"], errors["wgrad"][0])
+                line = (f"  {name:18s} {dt:8s} {case}: max_abs_err {err:.3e} "
+                        f"max_rel_err {err / scale:.3e} of max|ref| "
+                        f"{scale:.3f} {vs} (tol {tol:.1e}) kernel {ms:.3f} ms "
+                        f"({flops / ms / 1e9:.1f} TFLOP/s) plain "
+                        f"{plain_ms:.3f} ms cuDNN {lib_ms:.3f} ms "
+                        f"({ms / lib_ms:.2f}x)")
+                if tc:
+                    line += (f" CUDA-core {core_ms[key]:.3f} ms "
+                             f"({core_ms[key] / ms:.2f}x) err "
+                             f"{core_err[key] / scale:.3e}")
+                say(line)
+                assert err <= tol * scale, f"{name} {dt} {case}: {err:.3e}"
+                if tc:
+                    assert core_err[key] <= tol * scale, \
+                        f"CUDA-core {key} {dt} {case}: {core_err[key]:.3e}"
+            kf, kw = (("conv2d_same_fwd_tc", "conv2d_wgrad_tc") if tc else
+                      ("conv2d_same_fwd", "conv2d_wgrad"))
+            errs[kf] = max(errs[kf], errors["fwd"][0], errors["dgrad"][0])
+            errs[kw] = max(errs[kw], errors["wgrad"][0])
+            if tc:
+                errs["conv2d_same_fwd"] = max(errs["conv2d_same_fwd"],
+                                              core_err["fwd"],
+                                              core_err["dgrad"])
+                errs["conv2d_wgrad"] = max(errs["conv2d_wgrad"],
+                                           core_err["wgrad"])
             if (case, dt) == CONV2D_RECORD:
+                # a tensor-core case: both routes' kernels, same inputs
                 size = x.element_size()
-                record["conv2d_same_fwd"] = entry(
-                    *t["fwd"], flops,
-                    (x.numel() + w.numel() + y.numel()) * size, dt, case)
-                record["conv2d_wgrad"] = entry(
-                    *t["wgrad"], flops,
-                    (x.numel() + g.numel()) * size + dw.numel() * 4, dt, case)
-                record["conv2d_dgrad"] = t["dgrad"]
-            del x, g, w, ws, y, ref_y, dx, ref_dx, dw, ref_dw, dw64
+                fwd_bytes = (x.numel() + w.numel() + y.numel()) * size
+                wg_bytes = (x.numel() + g.numel()) * size + dw.numel() * 4
+                for sfx, ms in (("", core_ms),
+                                ("_tc", {k: v[0] for k, v in t.items()})):
+                    record["conv2d_same_fwd" + sfx] = entry(
+                        ms["fwd"], *t["fwd"][1:], flops, fwd_bytes, dt, case)
+                    record["conv2d_wgrad" + sfx] = entry(
+                        ms["wgrad"], *t["wgrad"][1:], flops, wg_bytes, dt,
+                        case)
+                    record["conv2d_dgrad" + sfx] = (ms["dgrad"],
+                                                    *t["dgrad"][1:])
+            del x, g, w, ws, y, ref_y, dx, ref_dx, dw, ref_dw, dw64, outs
+            if tc:
+                del core
     torch.cuda.synchronize()
 
 
@@ -1520,6 +1591,7 @@ def main(argv=None) -> int:
     phase_window_attention(device, WA_CASES, record)
 
     from cbim_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    launches = {}
     say("[phase 4] small MedFormer-3D, card vs CPU")
     for conv_na in (False, True):
         reset_launch_counts()
@@ -1536,7 +1608,12 @@ def main(argv=None) -> int:
         loss_err, l2_err, grad_err = phase_small_train_step(
             device, dict(SMALL, remat=True, conv_na=conv_na),
             (2, 1, 64, 64, 64))
-        n_na = launch_counts()["conv3d_wgrad_na"]
+        counts = launch_counts()
+        if not conv_na:
+            # the fp32 step: the CUDA-core 3^3 kernels, backward included
+            assert all(counts[k] > 0 for k in CORE_CONV_KERNELS) and \
+                not any(counts[k] for k in TC_CONV_KERNELS), counts
+        n_na = counts["conv3d_wgrad_na"]
         say(f"  conv_na={conv_na}: 2 x 64^3 fp32: loss rel err "
             f"{loss_err:.3e} (tol {STEP_LOSS_RTOL:.0e}); gradient rel L2 err "
             f"{l2_err:.3e} (tol {STEP_GRAD_L2:.0e}); worst tensor err "
@@ -1568,6 +1645,7 @@ def main(argv=None) -> int:
         f"{core_loss:.3e}; gradient rel L2 err {core_l2:.3e}")
 
     say("[phase 4c] small MedFormer-2D (BatchNorm), card vs CPU")
+    reset_launch_counts()
     err = phase_small_model(device, SMALL2D, (6, 1, 128, 128))
     say(f"  eval, 6 x 128^2 softmax max abs err {err:.3e} "
         f"(tol {MODEL_PROB_ATOL})")
@@ -1577,6 +1655,10 @@ def main(argv=None) -> int:
         f"(tol {STEP_LOSS_RTOL:.0e}); gradient rel L2 err {l2_err:.3e} "
         f"(tol {STEP_GRAD_L2:.0e}); worst tensor err {grad_err:.3e} of its "
         f"scale (tol {STEP_GRAD_RTOL:.0e})")
+    # fp32: the CUDA-core 3x3 kernels, backward included
+    counts = launch_counts()
+    assert all(counts[k] > 0 for k in CORE2D_KERNELS) and \
+        not any(counts[k] for k in TC2D_KERNELS), counts
 
     say("[phase 4d] small SwinUNETR, card vs CPU")
     for shape in SMALL_SWIN_SHAPES:
@@ -1584,7 +1666,6 @@ def main(argv=None) -> int:
         say(f"  {shape} softmax max abs err {err:.3e} "
             f"(tol {MODEL_PROB_ATOL})")
 
-    launches = {}
     say("[phase 5] AMOS-CT MedFormer-3D serving 2 NIfTI requests")
     res = phase_slice(device, AMOS, REQUESTS, TARGET_SPACING, "serve3d",
                       FORWARD_KERNELS)
@@ -1663,20 +1744,29 @@ def main(argv=None) -> int:
     res = phase_slice(device, ACDC, REQUESTS_2D, TARGET_SPACING_2D, "serve2d",
                       ("conv2d_same_fwd",))
     say_serving(res)
+    # fp32 serving: the CUDA-core 3x3 forward only
+    assert not any(res["launches"][k] for k in TC2D_KERNELS), res["launches"]
     launches["7"] = res["launches"]
 
     say(f"[phase 8] ACDC MedFormer-2D training, bf16, batch {TRAIN2D_BATCH}, "
         "one epoch of Synthetic2D")
     tr = phase_train(device, profiled(ACDC_TRAIN, "acdc2d"), TRAIN2D_BATCH,
-                     "acdc2d",
-                     ("conv2d_same_fwd", "conv2d_dgrad", "conv2d_wgrad"))
+                     "acdc2d", TC2D_KERNELS)
     say_train(tr, "slices")
+    # every 3x3 conv of the bf16 step on the tensor-core route: per step 14
+    # forwards, 14 dgrads, 14 wgrads, and no CUDA-core 3x3 launch
+    steps = len(tr["step_seconds"])
+    want = dict({k: ACDC_CONVS * steps for k in TC2D_KERNELS},
+                **{k: 0 for k in CORE2D_KERNELS})
+    assert all(tr["launches"][k] == v for k, v in want.items()), \
+        (tr["launches"], want)
     if args.profile:
         say_profile(os.path.join(args.profile, "acdc2d"))
     launches["8"] = tr["launches"]
-    rec2d = record["conv2d_dgrad"]
-    say(f"  dgrad of conv2d_same_fwd at {CONV2D_RECORD}: kernel "
-        f"{rec2d[0]:.3f} ms, plain {rec2d[1]:.3f} ms, cuDNN {rec2d[2]:.3f} ms")
+    for key in ("conv2d_dgrad", "conv2d_dgrad_tc"):
+        ms, plain_ms, lib_ms = record[key]
+        say(f"  {key} at {CONV2D_RECORD}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, cuDNN {lib_ms:.3f} ms")
 
     say("[phase 8b] the ACDC recipe with conv2d_kernel off (the default: "
         "cuDNN's 3x3 convs)")
@@ -1688,8 +1778,7 @@ def main(argv=None) -> int:
     if args.profile:
         say_profile(os.path.join(args.profile, "acdc2d_cudnn"))
     counts = tr_off["launches"]
-    assert not any(counts[k] for k in ("conv2d_same_fwd", "conv2d_dgrad",
-                                       "conv2d_wgrad")), counts
+    assert not any(counts[k] for k in TC2D_KERNELS + CORE2D_KERNELS), counts
     say(f"  cuDNN (default) vs kernel route (phase 8): "
         f"{tr_off['median']:.3f} vs {tr['median']:.3f} s/step, "
         f"{tr_off['per_s']:.1f} vs {tr['per_s']:.1f} slices/s, peak "
