@@ -1,8 +1,10 @@
 // Stride-1, zero-pad-1, 3x3x3 convolution on Hopper's bf16 tensor cores
 // (sm_90a): the forward, which also computes the input gradient on
 // flip-swapped weights (conv3d_same_fwd_tc).  The weight gradient is
-// conv3d_wgrad_tc.cu; the CUDA-core kernels (fp32, widths that are not
-// multiples of 8, the norm-act prologue) stay in conv3d.cu.
+// conv3d_wgrad_tc.cu, the fused preact conv's forward conv3d_na_tc.cu; the
+// CUDA-core kernels (fp32, widths that are not multiples of 8) stay in
+// conv3d.cu.  The box, weight layout and packing kernel are shared with
+// conv3d_na_tc.cu (conv3d_tc_common.cuh).
 //
 // Replaces the Pallas TPU kernels of cbim_tpu/ops/pallas/conv3d.py
 // conv3d_same / _conv3d_same_pallas and the dgrad of its VJP conv3d_same_t
@@ -48,39 +50,9 @@
 // and returns cudaGetLastError() (cudaErrorInvalidValue for what it does not
 // take).
 
-#include "mma_common.cuh"
+#include "conv3d_tc_common.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kCc = 32;          // channels of a staged chunk (64-byte rows)
-constexpr int kTD = 4, kTH = 8;  // output box (d, h); its w is 4 * MT
-constexpr int kHaloStages = 2, kWStages = 3;
-constexpr int kSMs = 132;        // H100 SXM
-
-template <int MT>
-struct Box {
-  static constexpr int TW = 4 * MT;
-  static constexpr int HD = kTD + 2, HH = kTH + 2, HW = TW + 2;
-  static constexpr int bytes = HD * HH * HW * kCc * 2;
-  static constexpr int stage = (bytes + 1023) / 1024 * 1024;
-};
-
-template <int BN>
-struct WTile {
-  static constexpr int pitch = BN + 8;           // bf16 a row
-  static constexpr int elems = 3 * kCc * pitch;  // one (kd, kh): 3 kw taps
-  static constexpr int bytes = elems * 2;
-};
-
-template <int BN, int MT>
-constexpr int smem_bytes() {
-  return kHaloStages * Box<MT>::stage + kWStages * WTile<BN>::bytes +
-         8 * (kHaloStages + kWStages) + 1024;
-}
 
 template <int BN, int MT>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -248,47 +220,6 @@ int launch_fwd_tc(const void* x, const void* wpk, void* y, int B, int D,
                                        static_cast<bf16*>(y), D, H, W, F,
                                        (C + kCc - 1) / kCc, tiles_d, tiles_h,
                                        tiles_w);
-  return (int)cudaGetLastError();
-}
-
-// The weights in the kernel's layout: wpk[n tile][chunk][tap][k][n] (bn +
-// 8 values a row) from torch's w[F][C][27]; with ``flip`` w is the forward's
-// [C][F][27] and the packing is flip_swap's (the dgrad's weights: taps
-// reversed, in and out swapped).  Zeros past C, F and bn.
-__global__ void __launch_bounds__(256)
-conv3d_tc_pack_kernel(const bf16* __restrict__ w, bf16* __restrict__ wpk,
-                      int C, int F, int bn, int n_chunks, int flip,
-                      long long total) {
-  const int pitch = bn + 8;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
-    long long r = e;
-    const int n = (int)(r % pitch);
-    r /= pitch;
-    const int k = (int)(r % kCc);
-    r /= kCc;
-    const int tap = (int)(r % 27);
-    r /= 27;
-    const int c = (int)(r % n_chunks) * kCc + k;
-    const int f = (int)(r / n_chunks) * bn + n;
-    bf16 v = __float2bfloat16_rn(0.f);
-    if (n < bn && c < C && f < F)
-      v = flip ? w[((long long)c * F + f) * 27 + 26 - tap]
-               : w[((long long)f * C + c) * 27 + tap];
-    wpk[e] = v;
-  }
-}
-
-int pack_weights(const void* w, void* wpk, int C, int F, int bn, int flip,
-                 cudaStream_t st) {
-  const int n_chunks = (C + kCc - 1) / kCc;
-  const long long total =
-      (long long)((F + bn - 1) / bn) * n_chunks * 27 * kCc * (bn + 8);
-  long long blocks = (total + 255) / 256;
-  if (blocks > kSMs * 8) blocks = kSMs * 8;
-  conv3d_tc_pack_kernel<<<(unsigned)blocks, 256, 0, st>>>(
-      static_cast<const bf16*>(w), static_cast<bf16*>(wpk), C, F, bn,
-      n_chunks, flip, total);
   return (int)cudaGetLastError();
 }
 

@@ -10,13 +10,14 @@ dtype and the channel counts before any launch:
 - bf16 with C and F multiples of 8: the tensor-core kernels
   ``conv3d_same_fwd_tc`` (``csrc/conv3d_tc.cu``; also the dgrad, counted
   under ``conv3d_dgrad_tc``) and ``conv3d_wgrad_tc``
-  (``csrc/conv3d_wgrad_tc.cu``).  The forward's entry packs the weights
-  in a first small kernel into the layout of :func:`pack_weights_tc` (its
-  plain version); the wgrad splits its voxel tiles into chunks by
-  :func:`wgrad_tc_chunking`.
-- everything else (fp32, other widths, the fused norm-act pair, the
-  probes' ladder): the CUDA-core kernels of ``csrc/conv3d.cu`` and
-  ``csrc/conv3d_wgrad.cu``:
+  (``csrc/conv3d_wgrad_tc.cu``), and for the fused norm-act pair
+  ``conv3d_same_na_fwd_tc`` (``csrc/conv3d_na_tc.cu``) and
+  ``conv3d_wgrad_na_tc`` (``csrc/conv3d_wgrad_na_tc.cu``).  The forwards'
+  entries pack the weights in a first small kernel into the layout of
+  :func:`pack_weights_tc` (its plain version); the wgrads split their voxel
+  tiles into chunks by :func:`wgrad_tc_chunking`.
+- everything else (fp32, other widths, the probes' ladder): the CUDA-core
+  kernels of ``csrc/conv3d.cu`` and ``csrc/conv3d_wgrad.cu``:
 
 - ``conv3d_same_fwd``: x[B, D, H, W, C] (x) w[F, C, 3, 3, 3] ->
   y[B, D, H, W, F] with fp32 sums, any D/H/W (the kernel masks its own
@@ -29,9 +30,13 @@ dtype and the channel counts before any launch:
 
 The fused preact conv, conv(act(InstanceNorm(x))), is the port of
 ``conv3d_same_cw_na``, ``conv3d_wgrad_cw2_na`` and ``_cw_stats`` and of their
-custom VJP ``conv_inorm_act_cw_t``: the same two kernels with a norm-act
-prologue on their staged input rows, ``conv3d_same_na_fwd`` and
-``conv3d_wgrad_na``, so the normalised tensor never exists in device memory.
+custom VJP ``conv_inorm_act_cw_t``: on the CUDA-core route the same two
+kernels with a norm-act prologue on their staged input rows,
+``conv3d_same_na_fwd`` and ``conv3d_wgrad_na``; on the tensor-core route
+``conv3d_same_na_fwd_tc`` and ``conv3d_wgrad_na_tc``, which normalise each
+staged halo value once in shared memory (:func:`conv3d_same_na_tiled_plain`
+and :func:`conv3d_wgrad_na_tiled_plain` are their decompositions in plain
+PyTorch).  So the normalised tensor never exists in device memory.
 The statistics are ``fused_norm.inorm_stats`` (``_cw_stats`` computes the
 same per-(b, c) mean and rstd in the TPU layout).  :class:`ConvInormAct3d`
 trains through them.
@@ -58,7 +63,8 @@ from . import _build, fused_norm
 launches = {"conv3d_same_fwd": 0, "conv3d_dgrad": 0, "conv3d_wgrad": 0,
             "conv3d_same_na_fwd": 0, "conv3d_wgrad_na": 0,
             "conv3d_same_fwd_tc": 0, "conv3d_dgrad_tc": 0,
-            "conv3d_wgrad_tc": 0}
+            "conv3d_wgrad_tc": 0, "conv3d_same_na_fwd_tc": 0,
+            "conv3d_wgrad_na_tc": 0}
 
 #: the routes of :func:`conv3d_route`
 TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
@@ -108,11 +114,11 @@ def flip_swap(w: torch.Tensor) -> torch.Tensor:
 
 def conv3d_route(dtype: torch.dtype, C: int, F: int) -> str:
     """Which kernel family a CUDA call of :func:`conv3d_same`,
-    :func:`conv3d_dgrad` or :func:`conv3d_wgrad` with C input and F output
-    channels launches: :data:`TENSOR_CORE` for bf16 with C % 8 == 0 and
-    F % 8 == 0 (TMA's 16-byte strides), else :data:`CUDA_CORE`.  The rule
-    is symmetric in C and F, so the dgrad (F -> C) takes its forward's
-    route.  The fused norm-act pair has CUDA-core kernels only."""
+    :func:`conv3d_dgrad`, :func:`conv3d_wgrad`, :func:`conv3d_same_na` or
+    :func:`conv3d_wgrad_na` with C input and F output channels launches:
+    :data:`TENSOR_CORE` for bf16 with C % 8 == 0 and F % 8 == 0 (TMA's
+    16-byte strides), else :data:`CUDA_CORE`.  The rule is symmetric in C
+    and F, so the dgrad (F -> C) takes its forward's route."""
     if dtype != torch.bfloat16 or C % 8 or F % 8:
         return CUDA_CORE
     return TENSOR_CORE
@@ -202,12 +208,13 @@ def _launch_fwd(x: torch.Tensor, w: torch.Tensor, key: str,
 
 
 def _launch_fwd_tc(x: torch.Tensor, w: torch.Tensor, key: str,
-                   flip: bool = False) -> torch.Tensor:
+                   flip: bool = False, na=None) -> torch.Tensor:
     """The tensor-core forward ``conv3d_same_fwd_tc`` on torch weights
     w[F, C, 3, 3, 3] or, with ``flip``, on ``flip_swap(w)`` (the input
     gradient; the entry's packing kernel applies the flip), counted under
-    ``key``.  The entry packs the weights as :func:`pack_weights_tc` does
-    into scratch the wrapper allocates."""
+    ``key``; ``na`` = (mean, rstd, act) selects ``conv3d_same_na_fwd_tc``.
+    The entry packs the weights as :func:`pack_weights_tc` does into
+    scratch the wrapper allocates."""
     if not x.is_contiguous():
         raise ValueError("kernel needs a contiguous x[B, D, H, W, C]")
     B, D, H, W, C = x.shape
@@ -217,9 +224,17 @@ def _launch_fwd_tc(x: torch.Tensor, w: torch.Tensor, key: str,
     wp = torch.empty(n_tiles * -(-C // TC_CHUNK) * 27 * TC_CHUNK * (bn + 8),
                      dtype=x.dtype, device=x.device)
     y = torch.empty((B, D, H, W, Fo), dtype=x.dtype, device=x.device)
-    _build.call("conv3d_same_fwd_tc", x.data_ptr(), w.data_ptr(),
-                wp.data_ptr(), y.data_ptr(), B, D, H, W, C, Fo, bn, int(flip),
-                device=x.device)
+    shape = (B, D, H, W, C, Fo, bn)
+    if na is None:
+        _build.call("conv3d_same_fwd_tc", x.data_ptr(), w.data_ptr(),
+                    wp.data_ptr(), y.data_ptr(), *shape, int(flip),
+                    device=x.device)
+    else:
+        mean, rstd, act = na
+        _build.call("conv3d_same_na_fwd_tc", x.data_ptr(), w.data_ptr(),
+                    wp.data_ptr(), y.data_ptr(), mean.data_ptr(),
+                    rstd.data_ptr(), fused_norm._act_code(act), *shape,
+                    device=x.device)
     launches[key] += 1
     return y
 
@@ -296,8 +311,10 @@ def wgrad_tc_chunking(n_tiles: int, C: int, F: int) -> tuple[int, int]:
     return per, -(-n_tiles // per)
 
 
-def _launch_wgrad_tc(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """The tensor-core wgrad ``conv3d_wgrad_tc`` and its fold."""
+def _launch_wgrad_tc(x: torch.Tensor, g: torch.Tensor,
+                     na=None) -> torch.Tensor:
+    """The tensor-core wgrad ``conv3d_wgrad_tc`` and its fold; ``na`` =
+    (mean, rstd, act) selects ``conv3d_wgrad_na_tc``."""
     if not (x.is_contiguous() and g.is_contiguous()):
         raise ValueError("kernel needs contiguous x and g")
     B, D, H, W, C = x.shape
@@ -306,10 +323,18 @@ def _launch_wgrad_tc(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     partial = torch.empty(n_chunks * 27 * C * Fo, dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((3, 3, 3, C, Fo), dtype=torch.float32, device=x.device)
-    _build.call("conv3d_wgrad_tc", x.data_ptr(), g.data_ptr(),
-                partial.data_ptr(), dw.data_ptr(), B, D, H, W, C, Fo, per,
-                n_chunks, device=x.device)
-    launches["conv3d_wgrad_tc"] += 1
+    shape = (B, D, H, W, C, Fo, per, n_chunks)
+    if na is None:
+        _build.call("conv3d_wgrad_tc", x.data_ptr(), g.data_ptr(),
+                    partial.data_ptr(), dw.data_ptr(), *shape,
+                    device=x.device)
+    else:
+        mean, rstd, act = na
+        _build.call("conv3d_wgrad_na_tc", x.data_ptr(), g.data_ptr(),
+                    mean.data_ptr(), rstd.data_ptr(), partial.data_ptr(),
+                    dw.data_ptr(), fused_norm._act_code(act), *shape,
+                    device=x.device)
+    launches["conv3d_wgrad_tc" if na is None else "conv3d_wgrad_na_tc"] += 1
     return dw.permute(4, 3, 0, 1, 2)
 
 
@@ -391,11 +416,15 @@ def conv3d_same_na(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
 
     The counterpart of ``cbim_tpu.ops.pallas.conv3d.conv3d_same_cw_na``
     (NDHCW, stat [B, 2, C, 1], w [3, 3, 3, C, F]).  CUDA tensors launch
-    ``conv3d_same_na_fwd``, CPU tensors run the plain version."""
+    the kernel of :func:`conv3d_route` (``conv3d_same_na_fwd_tc`` or
+    ``conv3d_same_na_fwd``), CPU tensors run the plain version."""
     _check(x, w)
     _check_na(x, mean, rstd, act)
     if not _backend.uses_kernels(x):
         return conv3d_same_na_plain(x, mean, rstd, w, act)
+    if conv3d_route(x.dtype, x.shape[-1], w.shape[0]) == TENSOR_CORE:
+        return _launch_fwd_tc(x, w, "conv3d_same_na_fwd_tc",
+                              na=(mean, rstd, act))
     return _launch_fwd(x, w, "conv3d_same_na_fwd", (mean, rstd, act))
 
 
@@ -416,13 +445,132 @@ def conv3d_wgrad_na(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
     dW[F, C, 3, 3, 3] float32.
 
     The counterpart of ``cbim_tpu.ops.pallas.conv3d.conv3d_wgrad_cw2_na``.
-    CUDA tensors launch ``conv3d_wgrad_na``, CPU tensors run the plain
-    version."""
+    CUDA tensors launch the kernel of :func:`conv3d_route`
+    (``conv3d_wgrad_na_tc`` or ``conv3d_wgrad_na``), CPU tensors run the
+    plain version."""
     _check_wgrad(x, g)
     _check_na(x, mean, rstd, act)
     if not _backend.uses_kernels(x):
         return conv3d_wgrad_na_plain(x, mean, rstd, g, act)
+    if conv3d_route(x.dtype, x.shape[-1], g.shape[-1]) == TENSOR_CORE:
+        return _launch_wgrad_tc(x, g, (mean, rstd, act))
     return _launch_wgrad(x, g, (mean, rstd, act))
+
+
+def na_tc_box(F: int) -> tuple[int, int, int]:
+    """``conv3d_same_na_fwd_tc``'s output box (d, h, w) for F output
+    channels: 512 voxels at F tiles of up to 64 channels, 256 at 96 or
+    128."""
+    return (4, 8, 16) if tc_tile_n(F)[0] <= 64 else (4, 8, 8)
+
+
+def _na_halo(x, inside, mean, rstd, act, box, at) -> torch.Tensor:
+    """A staged halo of the fused tensor-core kernels in plain PyTorch: the
+    box (d, h, w) + 2 at voxel ``at`` of x (padded as TMA sees it: zeros
+    past the volume and past C), the norm-act in x's dtype on the rows
+    ``inside`` the volume and the channels whose ``mean`` and ``rstd`` are
+    given (zero padded past C), zeros elsewhere; fp32."""
+    (z0, y0, x0), (td, th, tw) = at, box
+    halo = x[:, z0:z0 + td + 2, y0:y0 + th + 2, x0:x0 + tw + 2]
+    keep = inside[z0:z0 + td + 2, y0:y0 + th + 2, x0:x0 + tw + 2, None]
+    hn = fused_norm.inorm_apply_plain(halo.reshape(halo.shape[0], -1,
+                                                   halo.shape[-1]),
+                                      mean, rstd, act).view(halo.shape)
+    return torch.where(keep, hn.float(), 0.0)
+
+
+def _na_padded(x, mean, rstd, box):
+    """(x, inside, mean, rstd) for :func:`_na_halo`: x with one voxel of
+    zeros before the volume, zeros after it up to whole boxes plus one, and
+    channels up to a multiple of 32; ``inside`` the volume's mask in that
+    frame; the statistics zero past C."""
+    B, D, H, W, C = x.shape
+    (td, th, tw), cp = box, -(-C // TC_CHUNK) * TC_CHUNK
+    pad = (1, -(-W // tw) * tw + 1 - W, 1, -(-H // th) * th + 1 - H,
+           1, -(-D // td) * td + 1 - D)
+    inside = F.pad(torch.ones((D, H, W), dtype=torch.bool, device=x.device),
+                   pad)
+    return (F.pad(x, (0, cp - C) + pad), inside, F.pad(mean, (0, cp - C)),
+            F.pad(rstd, (0, cp - C)))
+
+
+def conv3d_same_na_tiled_plain(x: torch.Tensor, mean: torch.Tensor,
+                               rstd: torch.Tensor, w: torch.Tensor,
+                               act=None) -> torch.Tensor:
+    """``conv3d_same_na_fwd_tc``'s decomposition in plain PyTorch: for each
+    output box of :func:`na_tc_box`, the halo box as TMA stages it (raw x,
+    zeros outside the volume and past C), the norm-act on the rows inside
+    the volume only, rounded to x's dtype, then the 27 taps of the packed
+    weights (:func:`pack_weights_tc`) in fp32; y rounded once to x's
+    dtype."""
+    _check(x, w)
+    _check_na(x, mean, rstd, act)
+    B, D, H, W, C = x.shape
+    Fo = w.shape[0]
+    box = td, th, tw = na_tc_box(Fo)
+    wp = pack_weights_tc(w)
+    n_tiles, n_chunks = wp.shape[:2]
+    bn = wp.shape[-1] - 8
+    taps = wp[..., :bn].permute(2, 3, 4, 1, 5, 0, 6).reshape(
+        3, 3, 3, n_chunks * TC_CHUNK, n_tiles * bn)[..., :Fo].float()
+    xp, inside, mp, rp = _na_padded(x, mean, rstd, box)
+    y = torch.zeros((B, *(s - 2 for s in xp.shape[1:4]), Fo),
+                    device=x.device)
+    for z0 in range(0, y.shape[1], td):
+        for y0 in range(0, y.shape[2], th):
+            for x0 in range(0, y.shape[3], tw):
+                hn = _na_halo(xp, inside, mp, rp, act, box, (z0, y0, x0))
+                out = y[:, z0:z0 + td, y0:y0 + th, x0:x0 + tw]
+                for kd in range(3):
+                    for kh in range(3):
+                        for kw in range(3):
+                            out += hn[:, kd:kd + td, kh:kh + th,
+                                      kw:kw + tw] @ taps[kd, kh, kw]
+    return y[:, :D, :H, :W].to(x.dtype)
+
+
+def conv3d_wgrad_na_tiled_plain(x: torch.Tensor, mean: torch.Tensor,
+                                rstd: torch.Tensor, g: torch.Tensor,
+                                act=None) -> torch.Tensor:
+    """``conv3d_wgrad_na_tc``'s decomposition in plain PyTorch: the voxel
+    tiles of :data:`TC_VOXEL_TILE` in (b, d, h, w) order, cut into the
+    chunks of :func:`wgrad_tc_chunking`; per tile the x halo as the forward
+    stages it (:func:`conv3d_same_na_tiled_plain`) and the g tile (zeros
+    past the volume); per chunk the fp32 partial sums of the 27 taps'
+    X_t^T G, folded in chunk order -> dW[F, C, 3, 3, 3]."""
+    _check_wgrad(x, g)
+    _check_na(x, mean, rstd, act)
+    B, D, H, W, C = x.shape
+    Fo = g.shape[-1]
+    box = td, th, tw = TC_VOXEL_TILE
+    xp, inside, mp, rp = _na_padded(x, mean, rstd, box)
+    gp = F.pad(g, (0, 0, 0, xp.shape[3] - 2 - W, 0, xp.shape[2] - 2 - H,
+                   0, xp.shape[1] - 2 - D))
+    per, _ = wgrad_tc_chunking(voxel_tiles(B, D, H, W), C, Fo)
+    cp = xp.shape[-1]
+    dw = torch.zeros((3, 3, 3, cp, Fo), device=x.device)
+    part = torch.zeros_like(dw)
+    n = 0
+    for b in range(B):
+        for z0 in range(0, gp.shape[1], td):
+            for y0 in range(0, gp.shape[2], th):
+                for x0 in range(0, gp.shape[3], tw):
+                    hn = _na_halo(xp[b:b + 1], inside, mp[b:b + 1],
+                                  rp[b:b + 1], act, box, (z0, y0, x0))[0]
+                    gt = gp[b, z0:z0 + td, y0:y0 + th, x0:x0 + tw].float()
+                    gt = gt.reshape(-1, Fo)
+                    for kd in range(3):
+                        for kh in range(3):
+                            for kw in range(3):
+                                part[kd, kh, kw] += hn[
+                                    kd:kd + td, kh:kh + th,
+                                    kw:kw + tw].reshape(-1, cp).T @ gt
+                    n += 1
+                    if n % per == 0:
+                        dw += part
+                        part.zero_()
+    dw += part
+    return dw[:, :, :, :C].permute(4, 3, 0, 1, 2)
 
 
 class Conv3dSame(torch.autograd.Function):

@@ -6,6 +6,8 @@ Runs one of ``chip_smoke.py``'s training phases from the checkout at
 - ``--phase 6`` (the default): the flagship recipe of ``bench.py``
   (full-width MedFormer-3D, GELU, 128^3 crops, batch 2, bf16 autocast,
   remat, AdamW, EMA, six steps on the synthetic corpus);
+- ``--phase 6b``: the same recipe with ``conv_na`` on, the fused preact
+  conv conv(act(IN(x))) for every BasicBlock conv;
 - ``--phase 8``: the ACDC MedFormer-2D recipe (256^2 crops, batch 32, bf16
   autocast, six steps on ``Synthetic2D``) with ``conv2d_kernel`` on, the
   3x3 kernel route;
@@ -50,10 +52,12 @@ def main(argv=None) -> int:
     parser.add_argument("--root", default=REPO,
                         help="the checkout whose chip_smoke.py and kernels run "
                              "(default: this one)")
-    parser.add_argument("--phase", default="6", choices=("6", "8", "8b"),
-                        help="6: the flagship 3D recipe; 8: the ACDC 2D "
-                             "recipe on the 3x3 kernel route; 8b: the same "
-                             "on cuDNN's 3x3 convs (default: 6)")
+    parser.add_argument("--phase", default="6",
+                        choices=("6", "6b", "8", "8b"),
+                        help="6: the flagship 3D recipe; 6b: the same with "
+                             "conv_na (the fused preact conv); 8: the ACDC "
+                             "2D recipe on the 3x3 kernel route; 8b: the "
+                             "same on cuDNN's 3x3 convs (default: 6)")
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="trace the steady steps into DIR")
     args = parser.parse_args(argv)
@@ -72,8 +76,9 @@ def main(argv=None) -> int:
     _build.library()
     os.makedirs(smoke.WORK, exist_ok=True)
     name = f"step{args.phase}_{os.getpid()}_{int(time.time())}"
-    if args.phase == "6":
-        cfg, batch, unit = dict(smoke.FLAGSHIP), smoke.TRAIN_BATCH, "volumes"
+    if args.phase in ("6", "6b"):
+        cfg = dict(smoke.FLAGSHIP, conv_na=args.phase == "6b")
+        batch, unit = smoke.TRAIN_BATCH, "volumes"
     else:
         cfg = dict(smoke.ACDC_TRAIN, conv2d_kernel=args.phase == "8")
         batch, unit = smoke.TRAIN2D_BATCH, "slices"

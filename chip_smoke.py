@@ -23,17 +23,22 @@ Phases, each printing its result; any failure raises and exits non-zero:
    MedFormer-2D's grouped convs; the window-attention kernel at the Swin
    zoo's seven shapes, with and without a shifted-window mask, beside
    ``F.scaled_dot_product_attention`` on the same bias; the fused preact
-   conv's two kernels (``conv3d_same_na_fwd``, ``conv3d_wgrad_na``) at the
-   3^3 conv shapes, relu and gelu, beside the unfused pair of kernels each
-   replaces (no single PyTorch call computes either);
+   conv's kernels at the 3^3 conv shapes, relu and gelu, on the route of
+   ``conv3d_route`` (bf16 at widths of multiples of 8:
+   ``conv3d_same_na_fwd_tc`` and ``conv3d_wgrad_na_tc``, with the CUDA-core
+   ``conv3d_same_na_fwd`` and ``conv3d_wgrad_na`` they replace held and
+   timed beside them; the rest: the CUDA-core pair), each beside the
+   unfused pair of kernels it replaces (no single PyTorch call computes
+   either);
 4. a small MedFormer-3D on a 64^3 input, same seeded weights, on the card
    (kernels) and on the CPU (plain versions): softmax outputs compared;
    then again with ``conv_na`` (the fused preact conv);
 4b. one train step of that small model, card vs CPU, fp32 with TF32 off:
    the loss and every parameter's gradient compared; again with
    ``conv_na``; then a bf16-autocast step on the card (the tensor-core
-   kernels only) against the fp32 CPU step, and the same step on the
-   CUDA-core kernels beside it (bf16's own error on this network);
+   kernels only) against the fp32 CPU step, again with ``conv_na`` (the
+   tensor-core fused pair), and the same step on the CUDA-core kernels
+   beside them (bf16's own error on this network);
 4c. the same two checks for a small MedFormer-2D (BatchNorm, 128^2 slices):
    eval-mode softmax, then one train-mode fp32 step; with ``conv2d_kernel``
    on, as phases 7 and 8 (the 3x3 kernel route is opt-in, as the JAX
@@ -56,9 +61,9 @@ Phases, each printing its result; any failure raises and exits non-zero:
    step 40 ``conv3d_same_fwd_tc``, 20 ``conv3d_dgrad_tc`` and 20
    ``conv3d_wgrad_tc``, and no CUDA-core 3^3 launch;
 6b. the same recipe with ``conv_na: true``: per step 40
-   ``conv3d_same_na_fwd`` (remat incl.), 20 ``conv3d_wgrad_na`` and 20
-   ``conv3d_dgrad_tc`` launches, no other 3^3 launch;
-   sec/step and peak memory beside phase 6's;
+   ``conv3d_same_na_fwd_tc`` (remat incl.), 20 ``conv3d_wgrad_na_tc`` and
+   20 ``conv3d_dgrad_tc`` launches, no other 3^3 launch (the CUDA-core
+   fused pair none); sec/step and peak memory beside phase 6's;
 7. 2D serving: the full-width ACDC MedFormer-2D with seeded random weights
    serves two synthetic cine-MR NIfTI requests through
    ``cbim_tpu_torch.prediction.main --dimension 2d`` (every slice of a
@@ -160,6 +165,11 @@ KERNELS = {
                         "cbim_tpu/ops/pallas/conv2d.py:238"),
     "conv3d_wgrad_na": ("cbim_tpu_torch/csrc/conv3d_wgrad.cu",
                         "cbim_tpu/ops/pallas/conv3d.py:1518"),
+    # the fused pair's bf16 route at widths of multiples of 8
+    "conv3d_same_na_fwd_tc": ("cbim_tpu_torch/csrc/conv3d_na_tc.cu",
+                              "cbim_tpu/ops/pallas/conv3d.py:1387"),
+    "conv3d_wgrad_na_tc": ("cbim_tpu_torch/csrc/conv3d_wgrad_na_tc.cu",
+                           "cbim_tpu/ops/pallas/conv3d.py:1518"),
     # the probes, which lie on no path but their own entry points (phase 10)
     "probe_copy_scale": ("cbim_tpu_torch/csrc/probes.cu",
                          "tools/probe_bandwidth.py:23"),
@@ -181,8 +191,12 @@ FORWARD_KERNELS = ("inorm_stats", "inorm_apply", "conv3d_same_fwd")
 TC_CONV_KERNELS = ("conv3d_same_fwd_tc", "conv3d_dgrad_tc", "conv3d_wgrad_tc")
 CORE_CONV_KERNELS = ("conv3d_same_fwd", "conv3d_dgrad", "conv3d_wgrad")
 #: with ``conv_na``: the 20 preact InstanceNorm 3^3 convs of MedFormer-3D's
-#: BasicBlocks (every conv that takes the 3^3 kernel) become fused ones
+#: BasicBlocks (every conv that takes the 3^3 kernel) become fused ones;
+#: fp32 serving launches the CUDA-core fused forward, the bf16 step the
+#: tensor-core pair
 NA_FORWARD_KERNELS = ("inorm_stats", "inorm_apply", "conv3d_same_na_fwd")
+NA_TC_KERNELS = ("conv3d_same_na_fwd_tc", "conv3d_wgrad_na_tc")
+NA_CORE_KERNELS = ("conv3d_same_na_fwd", "conv3d_wgrad_na")
 NA_CONVS = 20
 
 #: 3^3 conv shapes of the serving path (B, D, H, W, C, F): inc/up4 at
@@ -198,9 +212,12 @@ CONV_CASES = [(2, 128, 128, 128, 32, 32), (2, 128, 128, 128, 96, 32),
 #: 32 -> 96, and the dgrad of (2, 64^3, 192 -> 64) runs 64 -> 192
 CONV_RECORD = (2, 128, 128, 128, 96, 32)
 #: the fused preact conv's acts (AMOS serving: relu; the flagship: gelu),
-#: and its JSON record: CONV_RECORD, fp32, relu
+#: and its JSON records: CONV_RECORD fp32 relu (AMOS serving's dtype and
+#: act: the CUDA-core pair) and bf16 gelu (the flagship step's: the
+#: tensor-core pair)
 NA_ACTS = ("relu", "gelu")
 NA_RECORD = (CONV_RECORD, "float32", "relu")
+NA_TC_RECORD = (CONV_RECORD, "bfloat16", "gelu")
 
 #: 3x3 conv shapes (B, H, W, C, F) of the 2D paths at the ACDC recipe:
 #: inc/up4 and down1/up3 at training batch 32, a 12-slice serving batch,
@@ -775,18 +792,22 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
 
 
 def phase_na_kernels(device, conv_cases, record: dict) -> None:
-    """Phase 3, the fused preact conv: ``conv3d_same_na_fwd`` and
-    ``conv3d_wgrad_na`` against their plain versions (``inorm_apply_plain``
-    then the plain conv or weight gradient), on inputs of mean 1.5 so that
-    a padding normalised to act(-mean * rstd) instead of 0 fails.  Each is
+    """Phase 3, the fused preact conv: the forward and weight-gradient
+    kernels of the route ``conv3d_route`` gives each case (the launch
+    counters that moved: ``conv3d_same_na_fwd_tc`` and ``conv3d_wgrad_na_tc``
+    in bf16 at widths of multiples of 8, else ``conv3d_same_na_fwd`` and
+    ``conv3d_wgrad_na``) against their plain versions (``inorm_apply_plain``
+    then the plain conv or weight gradient), on inputs of mean 1.5 so that a
+    padding normalised to act(-mean * rstd) instead of 0 fails.  Each is
     timed beside the unfused pair of kernels it replaces (``inorm_apply`` +
-    ``conv3d_same_fwd``, ``inorm_apply`` + ``conv3d_wgrad``); no single
-    PyTorch call computes either function."""
+    ``conv3d_same``, ``inorm_apply`` + ``conv3d_wgrad``, on the same route);
+    where bf16 takes the tensor-core route the CUDA-core fused kernels are
+    held and timed too.  No single PyTorch call computes either function."""
     import torch
     from cbim_tpu_torch.ops.kernels import conv3d, fused_norm
     gen = torch.Generator(device=device).manual_seed(6)
     errs = record["errors"]
-    errs.update(conv3d_same_na_fwd=0.0, conv3d_wgrad_na=0.0)
+    errs.update({k: 0.0 for k in NA_TC_KERNELS + NA_CORE_KERNELS})
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
         for case in conv_cases:
@@ -798,6 +819,8 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
             w = (w / math.sqrt(27 * C)).to(dtype)
             x3 = x.view(B, -1, C)
             mean, rstd = fused_norm.inorm_stats_plain(x3, 1e-4)
+            tc = conv3d.conv3d_route(dtype, C, Fo) == conv3d.TENSOR_CORE
+            kf, kw = NA_TC_KERNELS if tc else NA_CORE_KERNELS
             # the prologue's subtract, multiply and act once per input
             flops = 2 * 27 * C * Fo * B * D * H * W + 3 * x.numel()
             n = iters_for(flops, 1e10)
@@ -806,11 +829,16 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
                     return fused_norm.inorm_apply(x3, mean, rstd,
                                                   act).view(x.shape)
 
+                na = (mean, rstd, act)
+                before = (conv3d.launches[kf], conv3d.launches[kw])
                 y = conv3d.conv3d_same_na(x, mean, rstd, w, act)
-                ref_y = conv3d.conv3d_same_na_plain(x, mean, rstd, w, act)
                 dw = conv3d.conv3d_wgrad_na(x, mean, rstd, g, act)
-                ref_dw = conv3d.conv3d_wgrad_na_plain(x, mean, rstd, g, act)
                 torch.cuda.synchronize()
+                assert (conv3d.launches[kf], conv3d.launches[kw]) == \
+                    (before[0] + 1, before[1] + 1), \
+                    f"{dt} {case} {act}: not {kf}, {kw}"
+                ref_y = conv3d.conv3d_same_na_plain(x, mean, rstd, w, act)
+                ref_dw = conv3d.conv3d_wgrad_na_plain(x, mean, rstd, g, act)
                 sy = float(ref_y.float().abs().max())
                 ey = float((y.float() - ref_y.float()).abs().max())
                 sw = float(ref_dw.abs().max())
@@ -827,27 +855,54 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
                     cuda_ms(lambda: conv3d.conv3d_wgrad(normed(), g), n),
                     cuda_ms(lambda: conv3d.conv3d_wgrad_na_plain(
                         x, mean, rstd, g, act), n))
+                core = {}
+                if tc:
+                    # the CUDA-core fused kernels the tensor-core ones
+                    # replace
+                    cy = conv3d._launch_fwd(x, w, "conv3d_same_na_fwd", na)
+                    cw = conv3d._launch_wgrad(x, g, na)
+                    torch.cuda.synchronize()
+                    cey = float((cy.float() - ref_y.float()).abs().max())
+                    cew = float((cw - ref_dw).abs().max())
+                    assert cey <= CONV_TOL[dt] * sy, \
+                        f"conv3d_same_na_fwd {dt} {case} {act}: {cey:.3e}"
+                    assert cew <= WGRAD_TOL * sw, \
+                        f"conv3d_wgrad_na {dt} {case} {act}: {cew:.3e}"
+                    errs["conv3d_same_na_fwd"] = max(
+                        errs["conv3d_same_na_fwd"], cey)
+                    errs["conv3d_wgrad_na"] = max(errs["conv3d_wgrad_na"],
+                                                  cew)
+                    core = {kf: cuda_ms(lambda: conv3d._launch_fwd(
+                                x, w, "conv3d_same_na_fwd", na), n),
+                            kw: cuda_ms(lambda: conv3d._launch_wgrad(
+                                x, g, na), n)}
+                    del cy, cw
                 for key, (ms, pair_ms, plain_ms), err, scale, tol in (
-                        ("conv3d_same_na_fwd", t_fwd, ey, sy, CONV_TOL[dt]),
-                        ("conv3d_wgrad_na", t_wg, ew, sw, WGRAD_TOL)):
-                    say(f"  {key:18s} {dt:8s} {case} {act}: max_abs_err "
+                        (kf, t_fwd, ey, sy, CONV_TOL[dt]),
+                        (kw, t_wg, ew, sw, WGRAD_TOL)):
+                    extra = (f" CUDA-core {core[key]:.3f} ms "
+                             f"({core[key] / ms:.2f}x)" if key in core else "")
+                    say(f"  {key:21s} {dt:8s} {case} {act}: max_abs_err "
                         f"{err:.3e} max_rel_err {err / scale:.3e} of max|ref| "
                         f"{scale:.3f} (tol {tol:.1e}) kernel {ms:.3f} ms "
                         f"({flops / ms / 1e9:.1f} TFLOP/s) unfused pair "
                         f"{pair_ms:.3f} ms ({ms / pair_ms:.2f}x) plain "
-                        f"{plain_ms:.3f} ms")
+                        f"{plain_ms:.3f} ms{extra}")
                     assert err <= tol * scale, f"{key} {dt} {case} {act}"
                     errs[key] = max(errs[key], err)
-                if (case, dt, act) == NA_RECORD:
+                if (case, dt, act) in (NA_RECORD, NA_TC_RECORD):
                     size, stat_bytes = x.element_size(), 2 * B * C * 4
-                    record["conv3d_same_na_fwd"] = dict(entry(
-                        t_fwd[0], t_fwd[2], None, flops,
-                        (x.numel() + w.numel() + y.numel()) * size
-                        + stat_bytes, dt, case), act=act, unfused_ms=t_fwd[1])
-                    record["conv3d_wgrad_na"] = dict(entry(
-                        t_wg[0], t_wg[2], None, flops,
-                        (x.numel() + g.numel()) * size + dw.numel() * 4
-                        + stat_bytes, dt, case), act=act, unfused_ms=t_wg[1])
+                    fwd = entry(t_fwd[0], t_fwd[2], None, flops,
+                                (x.numel() + w.numel() + y.numel()) * size
+                                + stat_bytes, dt, case)
+                    wg = entry(t_wg[0], t_wg[2], None, flops,
+                               (x.numel() + g.numel()) * size
+                               + dw.numel() * 4 + stat_bytes, dt, case)
+                    record[kf] = dict(fwd, act=act, unfused_ms=t_fwd[1])
+                    record[kw] = dict(wg, act=act, unfused_ms=t_wg[1])
+                    if tc:
+                        record[kf]["cuda_core_ms"] = core[kf]
+                        record[kw]["cuda_core_ms"] = core[kw]
                 del y, ref_y, dw, ref_dw
             del x, g, w, x3
     torch.cuda.synchronize()
@@ -1620,17 +1675,29 @@ def main(argv=None) -> int:
             f"{grad_err:.3e} of its scale (tol {STEP_GRAD_RTOL:.0e}); "
             f"{n_na} conv3d_wgrad_na launches")
         assert n_na == (NA_CONVS if conv_na else 0), n_na
-    reset_launch_counts()
-    loss_err, l2_err, grad_err = phase_small_train_step(
-        device, dict(SMALL, remat=True), (2, 1, 64, 64, 64), amp=True)
-    counts = launch_counts()
-    say(f"  bf16 autocast on the card vs fp32 on the CPU: loss rel err "
-        f"{loss_err:.3e} (tol {STEP_BF16_LOSS_RTOL:.0e}); gradient rel L2 "
-        f"err {l2_err:.3e} (tol {STEP_BF16_GRAD_L2:.0e}); worst tensor err "
-        f"{grad_err:.3e} of its scale; 3^3 launches "
-        f"{ {k: counts[k] for k in TC_CONV_KERNELS + CORE_CONV_KERNELS} }")
-    assert all(counts[k] > 0 for k in TC_CONV_KERNELS) and \
-        not any(counts[k] for k in CORE_CONV_KERNELS), counts
+    for conv_na in (False, True):
+        reset_launch_counts()
+        loss_err, l2_err, grad_err = phase_small_train_step(
+            device, dict(SMALL, remat=True, conv_na=conv_na),
+            (2, 1, 64, 64, 64), amp=True)
+        counts = launch_counts()
+        keys = TC_CONV_KERNELS + CORE_CONV_KERNELS + NA_TC_KERNELS + \
+            NA_CORE_KERNELS
+        say(f"  bf16 autocast on the card vs fp32 on the CPU, conv_na="
+            f"{conv_na}: loss rel err {loss_err:.3e} (tol "
+            f"{STEP_BF16_LOSS_RTOL:.0e}); gradient rel L2 err {l2_err:.3e} "
+            f"(tol {STEP_BF16_GRAD_L2:.0e}); worst tensor err "
+            f"{grad_err:.3e} of its scale; 3^3 launches "
+            f"{ {k: counts[k] for k in keys if counts[k]} }")
+        # bf16 at these widths: the tensor-core kernels only, the fused
+        # pair's too with conv_na (20 fused convs, remat: 40 forwards)
+        used = ("conv3d_dgrad_tc",) if conv_na else TC_CONV_KERNELS
+        assert all(counts[k] > 0 for k in used) and \
+            not any(counts[k] for k in CORE_CONV_KERNELS + NA_CORE_KERNELS), \
+            counts
+        assert (counts["conv3d_same_na_fwd_tc"],
+                counts["conv3d_wgrad_na_tc"]) == \
+            ((2 * NA_CONVS, NA_CONVS) if conv_na else (0, 0)), counts
     # the same bf16 step with every 3^3 conv on the CUDA-core kernels (the
     # route forced for this reference run only): bf16's own error here
     from cbim_tpu_torch.ops.kernels import conv3d
@@ -1719,15 +1786,17 @@ def main(argv=None) -> int:
                                          "flagship_na"), TRAIN_BATCH,
                         "flagship_na",
                         ("inorm_stats", "inorm_apply", "inorm_bwd_stats",
-                         "inorm_bwd_apply", "conv3d_same_na_fwd",
-                         "conv3d_dgrad_tc", "conv3d_wgrad_na"))
+                         "inorm_bwd_apply", "conv3d_dgrad_tc")
+                        + NA_TC_KERNELS)
     say_train(tr_na, "volumes")
     counts, steps = tr_na["launches"], len(tr_na["step_seconds"])
-    # the fused pair stays CUDA-core; its dgrad is the tensor-core one
-    want = dict(conv3d_same_na_fwd=2 * NA_CONVS * steps,
-                conv3d_wgrad_na=NA_CONVS * steps,
+    # every fused conv on the tensor-core pair (40 forwards with remat, 20
+    # wgrads), its dgrad the tensor-core one; no CUDA-core 3^3 launch
+    want = dict(conv3d_same_na_fwd_tc=2 * NA_CONVS * steps,
+                conv3d_wgrad_na_tc=NA_CONVS * steps,
                 conv3d_dgrad_tc=NA_CONVS * steps, conv3d_same_fwd_tc=0,
-                conv3d_wgrad_tc=0, **{k: 0 for k in CORE_CONV_KERNELS})
+                conv3d_wgrad_tc=0,
+                **{k: 0 for k in CORE_CONV_KERNELS + NA_CORE_KERNELS})
     assert all(counts[k] == v for k, v in want.items()), (counts, want)
     say(f"  fused vs unfused (phase 6): {tr_na['median']:.3f} vs "
         f"{tr['median']:.3f} s/step, peak {tr_na['peak_bytes'] / 2 ** 30:.2f}"

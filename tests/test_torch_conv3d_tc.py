@@ -93,8 +93,9 @@ def test_conv3d_route(dtype, C, F, route):
 def test_wrappers_launch_the_kernels_of_their_route(monkeypatch, dtype, C, F):
     """With the launches recorded in place of the card: conv3d_same,
     conv3d_dgrad and conv3d_wgrad launch the entries conv3d_route names
-    (the dgrad with the forward's weights and the flip), and the fused
-    norm-act pair keeps its CUDA-core kernels at every dtype and width."""
+    (the dgrad with the forward's weights and the flip), and so does the
+    fused norm-act pair: its tensor-core kernels in bf16 at widths of
+    multiples of 8, its CUDA-core ones otherwise."""
     calls = []
 
     def record(name):
@@ -124,8 +125,11 @@ def test_wrappers_launch_the_kernels_of_their_route(monkeypatch, dtype, C, F):
                          [("_launch_fwd", "conv3d_same_fwd", False),
                           ("_launch_fwd", "conv3d_dgrad", False),
                           ("_launch_wgrad", None, False)])
-    assert [c[0] for c in calls[3:]] == ["_launch_fwd", "_launch_wgrad"]
-    assert calls[3][1] == "conv3d_same_na_fwd"
+    assert [c[0] for c in calls[3:]] == (
+        ["_launch_fwd_tc", "_launch_wgrad_tc"] if tc else
+        ["_launch_fwd", "_launch_wgrad"])
+    assert calls[3][1] == ("conv3d_same_na_fwd_tc" if tc else
+                           "conv3d_same_na_fwd")
 
 
 def test_every_medformer_width_takes_the_tensor_core_route():
