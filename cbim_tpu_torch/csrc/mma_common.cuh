@@ -1,9 +1,9 @@
 // PTX helpers shared by the tensor-core kernels (probes.cu, conv3d_tc.cu,
-// conv3d_wgrad_tc.cu, conv2d_tc.cu, conv2d_wgrad_tc.cu): ldmatrix, mma.sync
-// bf16, mbarriers, TMA and bulk copies into shared memory, TMA stores out
-// of it, and the host-side encoding of a TMA tensor map
-// (cuTensorMapEncodeTiled, looked up through the CUDA runtime: the library
-// links no libcuda).
+// conv3d_wgrad_tc.cu, conv2d_tc.cu, conv2d_wgrad_tc.cu, conv3d_tf32.cu):
+// ldmatrix, mma.sync bf16, mbarriers, TMA and bulk copies into shared
+// memory, TMA stores out of it, and the host-side encoding of a TMA tensor
+// map (cuTensorMapEncodeTiled, looked up through the CUDA runtime: the
+// library links no libcuda).
 
 #pragma once
 
@@ -209,17 +209,22 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tiled map of ``rank`` (at most 5) dimensions over
-// t[n_{rank-1}]..[n1][n0] (n0 innermost, n0 % 8 == 0 so every stride is a
-// multiple of 16 bytes), box (b0, ..), 64-byte swizzle (b0 = 32), zeros
-// out of bounds.  False if it cannot be encoded.
-inline bool encode_map(CUtensorMap* map, const void* base, int rank,
-                       const long long* n, const unsigned* box) {
+// A tiled map of ``rank`` (at most 5) dimensions over
+// t[n_{rank-1}]..[n1][n0] of bf16 (or, with ``dtype``, fp32) values (n0
+// innermost, every stride a multiple of 16 bytes: n0 % 8 == 0 in bf16,
+// n0 % 4 == 0 in fp32), box (b0, ..), 64-byte swizzle (b0 values of 64
+// bytes: 32 bf16 or 16 fp32), zeros out of bounds.  False if it cannot be
+// encoded.
+inline bool encode_map(
+    CUtensorMap* map, const void* base, int rank, const long long* n,
+    const unsigned* box,
+    CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr || rank < 1 || rank > 5) return false;
   cuuint64_t dims[5], strides[4];
   cuuint32_t boxd[5], estr[5];
-  unsigned long long stride = 2;  // bytes of one bf16
+  // bytes of one value
+  unsigned long long stride = dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   for (int i = 0; i < rank; ++i) {
     dims[i] = (cuuint64_t)n[i];
     boxd[i] = box[i];
@@ -227,7 +232,7 @@ inline bool encode_map(CUtensorMap* map, const void* base, int rank,
     stride *= (unsigned long long)n[i];
     if (i < rank - 1) strides[i] = stride;
   }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+  return fn(map, dtype, (cuuint32_t)rank,
             const_cast<void*>(base), dims, strides, boxd, estr,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -1,16 +1,16 @@
 // The norm-act pass of the tensor-core fused preact conv (conv3d_na_tc.cu,
-// conv3d_wgrad_na_tc.cu): a staged x halo that TMA filled with raw x
+// conv3d_wgrad_na_tc.cu; in fp32 conv3d_tf32.cu): a staged x halo that TMA filled with raw x
 // becomes act((x - mean[b, c]) * rstd[b, c]) in place, in shared memory,
 // after it lands and before any ldmatrix reads it.  TMA cannot transform in
 // flight, so this is a pass over shared memory: each staged value is
 // normalised once per stage, where the CUDA-core kernels (conv3d.cu,
 // conv3d_wgrad.cu) normalise it once per tap.
 //
-// The stage is rows of 32 channels (64 bytes, 4 chunks of 16 bytes),
-// swizzled by CU_TENSOR_MAP_SWIZZLE_64B: logical chunk j of row r sits at
-// physical chunk j ^ ((r >> 1) & 3) (swz64).
-// - A thread owns one logical chunk j (8 channels, whose mean and rstd it
-//   holds in registers) and walks rows r0, r0 + R, ... with R a multiple
+// The stage is rows of 32 bf16 (or 16 fp32) channels (64 bytes, 4 chunks
+// of 16 bytes), swizzled by CU_TENSOR_MAP_SWIZZLE_64B: logical chunk j of
+// row r sits at physical chunk j ^ ((r >> 1) & 3) (swz64).
+// - A thread owns one logical chunk j (8 bf16 or 4 fp32 channels, whose
+//   mean and rstd it holds in registers) and walks rows r0, r0 + R, ... with R a multiple
 //   of 8, so its rows share one physical chunk; a warp's 16-byte accesses
 //   cover 512 contiguous bytes, without bank conflicts.
 // - SAME padding applies to the normalised input: TMA's zero fill of rows
@@ -18,8 +18,8 @@
 //   not act(-mean * rstd).  So the pass needs each row's (d, h, w).
 // - Channels past C keep TMA's zeros: C % 8 == 0, so a chunk lies wholly
 //   inside or past C, and mean and rstd are never read past C.
-// - Values round to bf16 once, as norm_act<bf16> and the unfused inorm_apply
-//   do.
+// - bf16 values round to bf16 once, as norm_act<bf16> and the unfused
+//   inorm_apply do; fp32 values stay fp32 (na_store_f32).
 // - Proxies: the pass writes through the generic proxy into memory that TMA
 //   (the async proxy) wrote and will refill.  Every thread that wrote a
 //   stage fences (fence_proxy_async) before the barrier that precedes its
@@ -119,6 +119,23 @@ __device__ __forceinline__ void na_store(const NaChunk& c, const float m[8],
   o.y = na_pair<ACT>(c.v.y, m[2], rs[2], m[3], rs[3]);
   o.z = na_pair<ACT>(c.v.z, m[4], rs[4], m[5], rs[5]);
   o.w = na_pair<ACT>(c.v.w, m[6], rs[6], m[7], rs[7]);
+  st_shared_v4_if(c.addr, o, c.ok);
+}
+
+// the same for a chunk of 4 fp32 values
+template <int ACT>
+__device__ __forceinline__ void na_store_f32(const NaChunk& c,
+                                             const float m[4],
+                                             const float rs[4]) {
+  uint4 o;
+  o.x = __float_as_uint(
+      norm_act<float, ACT>(__uint_as_float(c.v.x), m[0], rs[0]));
+  o.y = __float_as_uint(
+      norm_act<float, ACT>(__uint_as_float(c.v.y), m[1], rs[1]));
+  o.z = __float_as_uint(
+      norm_act<float, ACT>(__uint_as_float(c.v.z), m[2], rs[2]));
+  o.w = __float_as_uint(
+      norm_act<float, ACT>(__uint_as_float(c.v.w), m[3], rs[3]));
   st_shared_v4_if(c.addr, o, c.ok);
 }
 

@@ -88,11 +88,14 @@ def flip_swap(w: torch.Tensor) -> torch.Tensor:
 def conv2d_route(dtype: torch.dtype, C: int, F: int) -> str:
     """Which kernel family a CUDA call of :func:`conv2d_same`,
     :func:`conv2d_dgrad` or :func:`conv2d_wgrad` with C input and F output
-    channels launches: the 3^3 conv's rule (``conv3d_route``),
+    channels launches: the 3^3 conv's bf16 rule (``conv3d_route``),
     :data:`TENSOR_CORE` for bf16 with C % 8 == 0 and F % 8 == 0 (TMA's
-    16-byte strides), else :data:`CUDA_CORE`.  Symmetric in C and F, so
+    16-byte strides), else :data:`CUDA_CORE` (the 3x3 conv has no TF32
+    route: fp32 takes the CUDA-core kernels).  Symmetric in C and F, so
     the dgrad (F -> C) takes its forward's route."""
-    return conv3d_route(dtype, C, F)
+    if conv3d_route(dtype, C, F) == TENSOR_CORE:
+        return TENSOR_CORE
+    return CUDA_CORE
 
 
 def tc2d_tile_n(F: int) -> tuple[int, int]:

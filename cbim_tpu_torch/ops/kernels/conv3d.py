@@ -4,8 +4,8 @@ plain versions, and the ``torch.autograd.Function`` that trains through them.
 Port of ``cbim_tpu/ops/pallas/conv3d.py``: ``conv3d_same`` (and its NDHCW
 twins ``conv3d_same_cw``/``conv3d_same_cw2``, which compute the same thing
 in another layout), the custom VJP ``conv3d_same_t``, and ``conv3d_wgrad``
-(and ``_cw``/``_cw2``).  Two routes, chosen by :func:`conv3d_route` from the
-dtype and the channel counts before any launch:
+(and ``_cw``/``_cw2``).  Three routes, chosen by :func:`conv3d_route` from
+the dtype and the channel counts before any launch:
 
 - bf16 with C and F multiples of 8: the tensor-core kernels
   ``conv3d_same_fwd_tc`` (``csrc/conv3d_tc.cu``; also the dgrad, counted
@@ -16,7 +16,15 @@ dtype and the channel counts before any launch:
   entries pack the weights in a first small kernel into the layout of
   :func:`pack_weights_tc` (its plain version); the wgrads split their voxel
   tiles into chunks by :func:`wgrad_tc_chunking`.
-- everything else (fp32, other widths, the probes' ladder): the CUDA-core
+- fp32 with C and F multiples of 8: the error-compensated TF32 tensor-core
+  forwards of ``csrc/conv3d_tf32.cu`` (3xTF32: each operand split into a
+  TF32 hi and lo part, three TF32 products summed in fp32),
+  ``conv3d_same_fwd_tf32`` (also the dgrad, counted under
+  ``conv3d_dgrad_tf32``) and ``conv3d_same_na_fwd_tf32``; their entries
+  pack and split the weights as :func:`pack_weights_tf32` does, and
+  :func:`conv3d_same_tf32x3_plain` models their arithmetic.  The weight
+  gradients on this route are the CUDA-core ones.
+- everything else (other widths, the probes' ladder): the CUDA-core
   kernels of ``csrc/conv3d.cu`` and ``csrc/conv3d_wgrad.cu``:
 
 - ``conv3d_same_fwd``: x[B, D, H, W, C] (x) w[F, C, 3, 3, 3] ->
@@ -36,15 +44,17 @@ kernels with a norm-act prologue on their staged input rows,
 ``conv3d_same_na_fwd_tc`` and ``conv3d_wgrad_na_tc``, which normalise each
 staged halo value once in shared memory (:func:`conv3d_same_na_tiled_plain`
 and :func:`conv3d_wgrad_na_tiled_plain` are their decompositions in plain
-PyTorch).  So the normalised tensor never exists in device memory.
+PyTorch); on the TF32 route ``conv3d_same_na_fwd_tf32``, which does the
+same in fp32, and ``conv3d_wgrad_na``.  So the normalised tensor never
+exists in device memory.
 The statistics are ``fused_norm.inorm_stats`` (``_cw_stats`` computes the
 same per-(b, c) mean and rstd in the TPU layout).  :class:`ConvInormAct3d`
 trains through them.
 
 The weight takes torch's layout; the CUDA-core forward's wrapper packs it
 to [3, 3, 3, C, F] (a copy of 27*C*F values) so the kernel reads rows of
-output channels (the tensor-core entry packs its own), and the wgrad
-wrappers give back torch's [F, C, 3, 3, 3].
+output channels (the tensor-core and TF32 entries pack their own), and the
+wgrad wrappers give back torch's [F, C, 3, 3, 3].
 CPU tensors take the plain versions: ``F.conv3d`` with padding 1 and
 ``torch.nn.grad.conv3d_weight`` (on ``inorm_apply_plain``'s output for the
 fused pair).
@@ -64,10 +74,22 @@ launches = {"conv3d_same_fwd": 0, "conv3d_dgrad": 0, "conv3d_wgrad": 0,
             "conv3d_same_na_fwd": 0, "conv3d_wgrad_na": 0,
             "conv3d_same_fwd_tc": 0, "conv3d_dgrad_tc": 0,
             "conv3d_wgrad_tc": 0, "conv3d_same_na_fwd_tc": 0,
-            "conv3d_wgrad_na_tc": 0}
+            "conv3d_wgrad_na_tc": 0, "conv3d_same_fwd_tf32": 0,
+            "conv3d_dgrad_tf32": 0, "conv3d_same_na_fwd_tf32": 0}
 
-#: the routes of :func:`conv3d_route`
-TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
+#: the routes of :func:`conv3d_route`: bf16 tensor cores, fp32 as 3xTF32
+#: on the tensor cores, CUDA cores
+TENSOR_CORE, TF32X3, CUDA_CORE = "tensor_core", "tf32x3", "cuda_core"
+#: the launch counter of each route's forward, dgrad and fused forward
+#: (the wgrads: ``conv3d_wgrad_tc``/``conv3d_wgrad_na_tc`` on the bf16
+#: tensor-core route, ``conv3d_wgrad``/``conv3d_wgrad_na`` on the others)
+FORWARD_KEYS = {
+    TENSOR_CORE: ("conv3d_same_fwd_tc", "conv3d_dgrad_tc",
+                  "conv3d_same_na_fwd_tc"),
+    TF32X3: ("conv3d_same_fwd_tf32", "conv3d_dgrad_tf32",
+             "conv3d_same_na_fwd_tf32"),
+    CUDA_CORE: ("conv3d_same_fwd", "conv3d_dgrad", "conv3d_same_na_fwd"),
+}
 #: the tensor-core kernels: channels a staged chunk carries, the widest
 #: output-channel tile of the forward, the wgrad's (c, f) tile and its
 #: voxel tile (d, h, w), and the blocks a wgrad pass aims for (4 waves of
@@ -77,6 +99,10 @@ TC_MAX_BN = 128
 TC_WGRAD_TILE = 32
 TC_VOXEL_TILE = (4, 8, 8)
 _TC_WGRAD_TARGET_BLOCKS = 528
+#: the TF32 forwards: fp32 channels a staged chunk carries (64-byte rows)
+#: and the floats of a packed weight row (the chunk padded to 80 bytes)
+TF32_CHUNK = 16
+TF32_PITCH = 20
 
 #: blocks a wgrad pass aims for (several waves over 132 SMs), the fewest
 #: pixels or voxels a chunk takes, and the most bytes its fp32 partials may
@@ -116,12 +142,14 @@ def conv3d_route(dtype: torch.dtype, C: int, F: int) -> str:
     """Which kernel family a CUDA call of :func:`conv3d_same`,
     :func:`conv3d_dgrad`, :func:`conv3d_wgrad`, :func:`conv3d_same_na` or
     :func:`conv3d_wgrad_na` with C input and F output channels launches:
-    :data:`TENSOR_CORE` for bf16 with C % 8 == 0 and F % 8 == 0 (TMA's
-    16-byte strides), else :data:`CUDA_CORE`.  The rule is symmetric in C
-    and F, so the dgrad (F -> C) takes its forward's route."""
-    if dtype != torch.bfloat16 or C % 8 or F % 8:
+    with C % 8 == 0 and F % 8 == 0 (TMA's 16-byte strides in bf16)
+    :data:`TENSOR_CORE` for bf16 and :data:`TF32X3` for fp32 (whose
+    wgrads are the CUDA-core ones), else :data:`CUDA_CORE`.  The rule is
+    symmetric in C and F, so the dgrad (F -> C) takes its forward's
+    route."""
+    if C % 8 or F % 8 or dtype not in (torch.bfloat16, torch.float32):
         return CUDA_CORE
-    return TENSOR_CORE
+    return TENSOR_CORE if dtype == torch.bfloat16 else TF32X3
 
 
 def tc_tile_n(F: int, max_bn: int = TC_MAX_BN) -> tuple[int, int]:
@@ -182,6 +210,75 @@ def conv3d_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
+# ------------------------------------------------- the TF32 route (3xTF32)
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """fp32 values rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32``: on an int32 view, add half of the
+    13 dropped bits' range and clear them.  Finite inputs."""
+    b = t.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo): hi = tf32(t), lo = tf32(t - hi), the error-compensated
+    split of the TF32 kernels (t - hi is exact in fp32)."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t.float() - hi)
+
+
+def tf32_tile_n(F: int) -> tuple[int, int]:
+    """(BN, n_tiles): a TF32 forward's output-channel tile, 32 (with
+    512-voxel boxes) or 64 (256-voxel boxes), whichever covers F with
+    fewer padded channels (64 on a tie: fewer halo loads), and how many
+    tiles cover F (96 -> three of 32, 128 -> two of 64)."""
+    bn = 32 if -(-F // 32) * 32 < -(-F // 64) * 64 else 64
+    return bn, -(-F // bn)
+
+
+def pack_weights_tf32(w: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """torch weights w[F, C, 3, 3, 3] (with ``flip``: the forward's, packed
+    as ``flip_swap(w)``, the dgrad's) -> the TF32 forwards' layout
+    [n_tiles, C chunks, kd, kh, part, kw, BN, 20], part 0 the TF32 hi and 1
+    the lo of :func:`tf32_split`: for each (output tile, 16-channel chunk,
+    kd, kh) step one contiguous block of both parts' 3 kw taps x BN output
+    channels x 16 input channels, each row of 16 padded to 20 values (80
+    bytes) so the kernel's ldmatrix rows fall on distinct banks.  Zeros
+    past C, F and in the padding.  The plain version of the packing kernel
+    that the TF32 entries run first."""
+    if flip:
+        w = flip_swap(w)
+    Fo, C = w.shape[:2]
+    bn, n_tiles = tf32_tile_n(Fo)
+    n_chunks = -(-C // TF32_CHUNK)
+    w = F.pad(w.float(), (0, 0, 0, 0, 0, 0, 0, n_chunks * TF32_CHUNK - C,
+                          0, n_tiles * bn - Fo))
+    # [n_tiles, chunks, kd, kh, kw, bn, 16]
+    w = w.reshape(n_tiles, bn, n_chunks, TF32_CHUNK, 3, 3, 3).permute(
+        0, 2, 4, 5, 6, 1, 3)
+    wp = w.new_zeros((n_tiles, n_chunks, 3, 3, 2, 3, bn, TF32_PITCH))
+    wp[..., :TF32_CHUNK] = torch.stack(tf32_split(w), dim=4)
+    return wp
+
+
+def conv3d_same_tf32x3_plain(x: torch.Tensor, w: torch.Tensor,
+                             na=None) -> torch.Tensor:
+    """The TF32 kernels' arithmetic in plain PyTorch (3xTF32): x and w each
+    split into TF32 hi and lo parts (:func:`tf32_split`), then y = x_lo w_hi
+    + x_hi w_lo + x_hi w_hi, three SAME convs summed in fp32 (the dropped
+    x_lo w_lo is 2^-22 of x w).  ``na`` = (mean, rstd, act) splits the
+    fp32 norm-act of x instead (``conv3d_same_na_fwd_tf32``).  Not on the
+    card's path: the CPU tests hold it against fp64 and the Pallas
+    kernels."""
+    _check(x, w)
+    if na is not None:
+        _check_na(x, *na)
+        x = _normed(x, *na)
+    (xh, xl), (wh, wl) = tf32_split(x), tf32_split(w)
+    return (conv3d_same_plain(xl, wh) + conv3d_same_plain(xh, wl)
+            + conv3d_same_plain(xh, wh))
+
+
 def _launch_fwd(x: torch.Tensor, w: torch.Tensor, key: str,
                 na=None) -> torch.Tensor:
     """The forward kernel, counted under ``key``; ``na`` = (mean, rstd, act)
@@ -207,6 +304,33 @@ def _launch_fwd(x: torch.Tensor, w: torch.Tensor, key: str,
     return y
 
 
+def _launch_packed(x: torch.Tensor, w: torch.Tensor, key: str, flip, na,
+                   suffix: str, bn: int, wp_numel: int) -> torch.Tensor:
+    """A packing forward, ``conv3d_same_fwd_<suffix>`` (or with ``na``
+    ``conv3d_same_na_fwd_<suffix>``), at output tile ``bn``, with
+    ``wp_numel`` values of scratch for its packed weights."""
+    if not x.is_contiguous():
+        raise ValueError("kernel needs a contiguous x[B, D, H, W, C]")
+    B, D, H, W, C = x.shape
+    Fo = w.shape[1] if flip else w.shape[0]
+    w = w.contiguous()
+    wp = torch.empty(wp_numel, dtype=x.dtype, device=x.device)
+    y = torch.empty((B, D, H, W, Fo), dtype=x.dtype, device=x.device)
+    shape = (B, D, H, W, C, Fo, bn)
+    if na is None:
+        _build.call(f"conv3d_same_fwd_{suffix}", x.data_ptr(), w.data_ptr(),
+                    wp.data_ptr(), y.data_ptr(), *shape, int(flip),
+                    device=x.device)
+    else:
+        mean, rstd, act = na
+        _build.call(f"conv3d_same_na_fwd_{suffix}", x.data_ptr(),
+                    w.data_ptr(), wp.data_ptr(), y.data_ptr(),
+                    mean.data_ptr(), rstd.data_ptr(),
+                    fused_norm._act_code(act), *shape, device=x.device)
+    launches[key] += 1
+    return y
+
+
 def _launch_fwd_tc(x: torch.Tensor, w: torch.Tensor, key: str,
                    flip: bool = False, na=None) -> torch.Tensor:
     """The tensor-core forward ``conv3d_same_fwd_tc`` on torch weights
@@ -215,28 +339,36 @@ def _launch_fwd_tc(x: torch.Tensor, w: torch.Tensor, key: str,
     ``key``; ``na`` = (mean, rstd, act) selects ``conv3d_same_na_fwd_tc``.
     The entry packs the weights as :func:`pack_weights_tc` does into
     scratch the wrapper allocates."""
-    if not x.is_contiguous():
-        raise ValueError("kernel needs a contiguous x[B, D, H, W, C]")
-    B, D, H, W, C = x.shape
-    Fo = w.shape[1] if flip else w.shape[0]
-    bn, n_tiles = tc_tile_n(Fo)
-    w = w.contiguous()
-    wp = torch.empty(n_tiles * -(-C // TC_CHUNK) * 27 * TC_CHUNK * (bn + 8),
-                     dtype=x.dtype, device=x.device)
-    y = torch.empty((B, D, H, W, Fo), dtype=x.dtype, device=x.device)
-    shape = (B, D, H, W, C, Fo, bn)
-    if na is None:
-        _build.call("conv3d_same_fwd_tc", x.data_ptr(), w.data_ptr(),
-                    wp.data_ptr(), y.data_ptr(), *shape, int(flip),
-                    device=x.device)
-    else:
-        mean, rstd, act = na
-        _build.call("conv3d_same_na_fwd_tc", x.data_ptr(), w.data_ptr(),
-                    wp.data_ptr(), y.data_ptr(), mean.data_ptr(),
-                    rstd.data_ptr(), fused_norm._act_code(act), *shape,
-                    device=x.device)
-    launches[key] += 1
-    return y
+    C = x.shape[-1]
+    bn, n_tiles = tc_tile_n(w.shape[1] if flip else w.shape[0])
+    return _launch_packed(x, w, key, flip, na, "tc", bn,
+                          n_tiles * -(-C // TC_CHUNK) * 27 * TC_CHUNK
+                          * (bn + 8))
+
+
+def _launch_fwd_tf32(x: torch.Tensor, w: torch.Tensor, key: str,
+                     flip: bool = False, na=None) -> torch.Tensor:
+    """The TF32 forward ``conv3d_same_fwd_tf32`` (fp32), as
+    :func:`_launch_fwd_tc`; ``na`` selects ``conv3d_same_na_fwd_tf32``.
+    The entry packs and splits the weights as :func:`pack_weights_tf32`
+    does."""
+    C = x.shape[-1]
+    bn, n_tiles = tf32_tile_n(w.shape[1] if flip else w.shape[0])
+    return _launch_packed(x, w, key, flip, na, "tf32", bn,
+                          n_tiles * -(-C // TF32_CHUNK) * 9 * 2 * 3 * bn
+                          * TF32_PITCH)
+
+
+def _launch_route(route: str, x: torch.Tensor, w: torch.Tensor, key: str,
+                  flip: bool = False, na=None) -> torch.Tensor:
+    """The forward kernel of ``route`` on torch weights w (with ``flip``:
+    on ``flip_swap(w)``), counted under ``key``; ``na`` = (mean, rstd, act)
+    selects the route's fused forward."""
+    if route == TENSOR_CORE:
+        return _launch_fwd_tc(x, w, key, flip=flip, na=na)
+    if route == TF32X3:
+        return _launch_fwd_tf32(x, w, key, flip=flip, na=na)
+    return _launch_fwd(x, flip_swap(w) if flip else w, key, na)
 
 
 def conv3d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -250,9 +382,8 @@ def conv3d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(x, w)
     if not _backend.uses_kernels(x):
         return conv3d_same_plain(x, w)
-    if conv3d_route(x.dtype, x.shape[-1], w.shape[0]) == TENSOR_CORE:
-        return _launch_fwd_tc(x, w, "conv3d_same_fwd_tc")
-    return _launch_fwd(x, w, "conv3d_same_fwd")
+    route = conv3d_route(x.dtype, x.shape[-1], w.shape[0])
+    return _launch_route(route, x, w, FORWARD_KEYS[route][0])
 
 
 def conv3d_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -263,9 +394,8 @@ def conv3d_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(g, ws)
     if not _backend.uses_kernels(g):
         return conv3d_same_plain(g, ws)
-    if conv3d_route(g.dtype, g.shape[-1], ws.shape[0]) == TENSOR_CORE:
-        return _launch_fwd_tc(g, w, "conv3d_dgrad_tc", flip=True)
-    return _launch_fwd(g, ws, "conv3d_dgrad")
+    route = conv3d_route(g.dtype, g.shape[-1], ws.shape[0])
+    return _launch_route(route, g, w, FORWARD_KEYS[route][1], flip=True)
 
 
 def conv3d_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -373,7 +503,9 @@ def conv3d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
     The counterpart of ``cbim_tpu.ops.pallas.conv3d.conv3d_wgrad`` (which
     returns [3, 3, 3, C, F]).  CUDA tensors launch the kernel of
-    :func:`conv3d_route`, CPU tensors run the plain version."""
+    :func:`conv3d_route` (``conv3d_wgrad_tc`` on the bf16 tensor-core
+    route, ``conv3d_wgrad`` on the others), CPU tensors run the plain
+    version."""
     _check_wgrad(x, g)
     if not _backend.uses_kernels(x):
         return conv3d_wgrad_plain(x, g)
@@ -416,16 +548,16 @@ def conv3d_same_na(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
 
     The counterpart of ``cbim_tpu.ops.pallas.conv3d.conv3d_same_cw_na``
     (NDHCW, stat [B, 2, C, 1], w [3, 3, 3, C, F]).  CUDA tensors launch
-    the kernel of :func:`conv3d_route` (``conv3d_same_na_fwd_tc`` or
-    ``conv3d_same_na_fwd``), CPU tensors run the plain version."""
+    the kernel of :func:`conv3d_route` (``conv3d_same_na_fwd_tc``,
+    ``conv3d_same_na_fwd_tf32`` or ``conv3d_same_na_fwd``), CPU tensors
+    run the plain version."""
     _check(x, w)
     _check_na(x, mean, rstd, act)
     if not _backend.uses_kernels(x):
         return conv3d_same_na_plain(x, mean, rstd, w, act)
-    if conv3d_route(x.dtype, x.shape[-1], w.shape[0]) == TENSOR_CORE:
-        return _launch_fwd_tc(x, w, "conv3d_same_na_fwd_tc",
-                              na=(mean, rstd, act))
-    return _launch_fwd(x, w, "conv3d_same_na_fwd", (mean, rstd, act))
+    route = conv3d_route(x.dtype, x.shape[-1], w.shape[0])
+    return _launch_route(route, x, w, FORWARD_KEYS[route][2],
+                         na=(mean, rstd, act))
 
 
 def conv3d_wgrad_na_plain(x: torch.Tensor, mean: torch.Tensor,
@@ -446,8 +578,8 @@ def conv3d_wgrad_na(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
 
     The counterpart of ``cbim_tpu.ops.pallas.conv3d.conv3d_wgrad_cw2_na``.
     CUDA tensors launch the kernel of :func:`conv3d_route`
-    (``conv3d_wgrad_na_tc`` or ``conv3d_wgrad_na``), CPU tensors run the
-    plain version."""
+    (``conv3d_wgrad_na_tc`` on the bf16 tensor-core route, else
+    ``conv3d_wgrad_na``), CPU tensors run the plain version."""
     _check_wgrad(x, g)
     _check_na(x, mean, rstd, act)
     if not _backend.uses_kernels(x):

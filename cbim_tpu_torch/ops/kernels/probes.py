@@ -177,8 +177,9 @@ def conv3d_same_fwd_ladder(x: torch.Tensor, w: torch.Tensor,
     3, 3, 3], cut after ``phase`` (:data:`PHASES`) at tile width ``bn``
     (32 or 64; default the production one).  ``full`` at the production
     width launches the very kernel ``conv3d.conv3d_same`` does on the
-    CUDA-core route (fp32; bf16 at widths of multiples of 8 takes the
-    tensor-core kernel, ``conv3d.conv3d_route``); a cut rung
+    CUDA-core route (widths that are not multiples of 8; at multiples of 8
+    bf16 takes the tensor-core kernel and fp32 the TF32 one,
+    ``conv3d.conv3d_route``); a cut rung
     returns a tensor of which only one value per thread was written.  The
     16-byte staging path only (C % 4 == 0).  A CPU tensor runs the plain
     version of ``full`` and refuses a cut rung."""

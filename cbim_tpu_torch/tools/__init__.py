@@ -13,9 +13,9 @@ from __future__ import annotations
 
 import torch
 
-#: published dense peaks of one H100 SXM and its HBM rate (the bound of a
-#: probe's work)
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+#: published dense peaks of one H100 SXM (fp32 on the CUDA cores, bf16 and
+#: TF32 on the tensor cores) and its HBM rate (the bound of a probe's work)
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 HBM_BYTES_PER_S = 3.35e12
 
 

@@ -1,8 +1,13 @@
-"""Time a bf16 training step of a checkout of this repository.
+"""Time a bf16 training step, or fp32 serving, of a checkout of this
+repository.
 
-Runs one of ``chip_smoke.py``'s training phases from the checkout at
-``--root``, with that checkout's own kernels and code:
+Runs one of ``chip_smoke.py``'s training or 3D serving phases from the
+checkout at ``--root``, with that checkout's own kernels and code:
 
+- ``--phase 5``: AMOS-CT serving (the full-width MedFormer-3D, fp32, with
+  seeded weights) of the two synthetic NIfTI requests through
+  ``prediction.main``;
+- ``--phase 5b``: the same with ``conv_na`` on;
 - ``--phase 6`` (the default): the flagship recipe of ``bench.py``
   (full-width MedFormer-3D, GELU, 128^3 crops, batch 2, bf16 autocast,
   remat, AdamW, EMA, six steps on the synthetic corpus);
@@ -15,9 +20,11 @@ Runs one of ``chip_smoke.py``'s training phases from the checkout at
   convs, the default).
 
 It prints the step seconds, the median after the warm-up steps,
-volumes/s (slices/s in 2D) and peak device memory; with ``--profile DIR``
-also the device's busy share and kernel time by family (the trainer's
-profiler hook).  The last line is one JSON object.
+volumes/s (slices/s in 2D) and peak device memory (serving: seconds per
+volume and peak device memory); with ``--profile DIR`` also the device's
+busy share and kernel time by family (the trainer's profiler hook; in
+serving, the requests served again under it, a volume to a step).  The
+last line is one JSON object.
 
 To compare two commits on one card, unpack the other one into a directory
 that ``.gitignore`` lists and alternate the runs in one command, e.g.
@@ -53,8 +60,9 @@ def main(argv=None) -> int:
                         help="the checkout whose chip_smoke.py and kernels run "
                              "(default: this one)")
     parser.add_argument("--phase", default="6",
-                        choices=("6", "6b", "8", "8b"),
-                        help="6: the flagship 3D recipe; 6b: the same with "
+                        choices=("5", "5b", "6", "6b", "8", "8b"),
+                        help="5: AMOS-CT serving; 5b: the same with conv_na; "
+                             "6: the flagship 3D recipe; 6b: the same with "
                              "conv_na (the fused preact conv); 8: the ACDC "
                              "2D recipe on the 3x3 kernel route; 8b: the "
                              "same on cuDNN's 3x3 convs (default: 6)")
@@ -76,6 +84,8 @@ def main(argv=None) -> int:
     _build.library()
     os.makedirs(smoke.WORK, exist_ok=True)
     name = f"step{args.phase}_{os.getpid()}_{int(time.time())}"
+    if args.phase in ("5", "5b"):
+        return serve(smoke, device, args, root, name)
     if args.phase in ("6", "6b"):
         cfg = dict(smoke.FLAGSHIP, conv_na=args.phase == "6b")
         batch, unit = smoke.TRAIN_BATCH, "volumes"
@@ -100,6 +110,34 @@ def main(argv=None) -> int:
                    kernel_ms_per_step=prof["device_kernel_seconds"]
                    / prof["steps"] * 1e3,
                    families_ms_per_step=prof["families_ms_per_step"])
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+def serve(smoke, device, args, root: str, name: str) -> int:
+    """Phase 5 or 5b of the checkout's ``chip_smoke``: serve its requests
+    once (timed), and again under the profiler with ``--profile``."""
+    cfg = dict(smoke.AMOS, conv_na=args.phase == "5b")
+    prof = os.path.abspath(args.profile) if args.profile else None
+    res = smoke.phase_slice(device, cfg, smoke.REQUESTS, smoke.TARGET_SPACING,
+                            name, (), prof)
+    print(f"{root} phase {args.phase}: {smoke.card_line()}", flush=True)
+    smoke.say_serving(res)
+    rec = {"root": root, "phase": args.phase, "seconds": res["seconds"],
+           "sec_per_volume": smoke.mean_seconds(res),
+           "peak_gib": res["peak_bytes"] / 2 ** 30,
+           "forwards": res["forwards"],
+           "launches": {k: v for k, v in res["launches"].items() if v}}
+    if prof:
+        smoke.say_profile(prof, "volume")
+        for (fn, shape, f), n in sorted(res.get("conv_shapes", {}).items()):
+            print(f"    {n:5d} x {fn} {shape} -> {f}", flush=True)
+        with open(os.path.join(prof, "summary.json")) as f:
+            summary = json.load(f)
+        rec.update(device_busy_share=summary["device_busy_share"],
+                   kernel_ms_per_volume=summary["device_kernel_seconds"]
+                   / summary["steps"] * 1e3,
+                   families_ms_per_volume=summary["families_ms_per_step"])
     print(json.dumps(rec), flush=True)
     return 0
 

@@ -8,12 +8,14 @@ between consecutive rungs is that phase's cost:
     stage  + the shared-memory stores and barriers
     fma    + the register-tile FMAs
     full   + the epilogue's store: the real op, the very CUDA-core
-           kernel ``conv3d_same`` launches at its tile width in fp32
+           kernel ``conv3d_same`` launches at its tile width where its
+           route is the CUDA-core one
 
 at both tile widths the kernel has (BN = 32 and 64 output channels a block,
 in place of the TPU probe's (d_blk, h_blk) sweep), beside the production
-wrapper (in bf16 at these widths the tensor-core kernel, see
-``conv3d.conv3d_route``) and cuDNN's ``F.conv3d`` on the same inputs.  Shapes are the TPU
+wrapper (at these widths the tensor-core kernel in bf16 and the TF32 one in
+fp32, see ``conv3d.conv3d_route``) and cuDNN's ``F.conv3d`` on the same
+inputs.  Shapes are the TPU
 probe's, bf16 (2, 128^3, 32 -> 32) and (2, 128^3, 96 -> 32), plus fp32 at
 96 -> 32.  Inputs are drawn from a seeded ``torch.Generator``.  Every rung
 but ``full`` writes one value a thread and is wrong by design.

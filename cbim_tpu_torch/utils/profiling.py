@@ -25,6 +25,7 @@ import torch
 #: count as "other elementwise"
 FAMILIES = [
     ("window attention kernel", "window_attention_kernel"),
+    ("conv fwd/dgrad kernels, fp32 3xTF32", "conv3d_tf32_"),
     ("conv fwd/dgrad kernels", "same_fwd_kernel"),
     ("conv wgrad kernels", "_wgrad_"),
     ("InstanceNorm kernels", "inorm_"),

@@ -12,10 +12,14 @@ Phases, each printing its result; any failure raises and exits non-zero:
    and the 3x3 conv families: max error against stated tolerances, and
    each kernel's time beside its plain version's and the one PyTorch call
    that computes the same function (cuDNN's conv or weight gradient); the
-   3^3 conv cases assert their route (``conv3d_route``: bf16 at widths of
-   multiples of 8 takes the tensor-core kernels ``conv3d_same_fwd_tc`` and
-   ``conv3d_wgrad_tc``, the rest the CUDA-core ones, which are held and
-   timed beside the tensor-core ones too), and so do the 3x3 cases
+   3^3 conv cases assert their route (``conv3d_route``: at widths of
+   multiples of 8 bf16 takes the tensor-core kernels ``conv3d_same_fwd_tc``
+   and ``conv3d_wgrad_tc`` and fp32 the 3xTF32 forward
+   ``conv3d_same_fwd_tf32`` (also the dgrad) beside the CUDA-core wgrad,
+   the rest the CUDA-core ones, which are held and timed beside the others
+   too; the TF32 kernels' and cuDNN fp32's errors against an fp64 conv are
+   printed, and the kernels' may be at most twice cuDNN's), and so do the
+   3x3 cases
    (``conv2d_route``: ``conv2d_same_fwd_tc`` and ``conv2d_wgrad_tc`` in
    bf16 at widths of multiples of 8, the CUDA-core ``conv2d_same_fwd`` and
    ``conv2d_wgrad`` beside them and for the rest); and
@@ -24,18 +28,20 @@ Phases, each printing its result; any failure raises and exits non-zero:
    zoo's seven shapes, with and without a shifted-window mask, beside
    ``F.scaled_dot_product_attention`` on the same bias; the fused preact
    conv's kernels at the 3^3 conv shapes, relu and gelu, on the route of
-   ``conv3d_route`` (bf16 at widths of multiples of 8:
-   ``conv3d_same_na_fwd_tc`` and ``conv3d_wgrad_na_tc``, with the CUDA-core
-   ``conv3d_same_na_fwd`` and ``conv3d_wgrad_na`` they replace held and
+   ``conv3d_route`` (at widths of multiples of 8 bf16:
+   ``conv3d_same_na_fwd_tc`` and ``conv3d_wgrad_na_tc``, fp32:
+   ``conv3d_same_na_fwd_tf32`` and the CUDA-core ``conv3d_wgrad_na``, with
+   the CUDA-core fused forward (and in bf16 wgrad) they replace held and
    timed beside them; the rest: the CUDA-core pair), each beside the
    unfused pair of kernels it replaces (no single PyTorch call computes
    either);
 4. a small MedFormer-3D on a 64^3 input, same seeded weights, on the card
    (kernels) and on the CPU (plain versions): softmax outputs compared;
    then again with ``conv_na`` (the fused preact conv);
-4b. one train step of that small model, card vs CPU, fp32 with TF32 off:
-   the loss and every parameter's gradient compared; again with
-   ``conv_na``; then a bf16-autocast step on the card (the tensor-core
+4b. one train step of that small model, card vs CPU, fp32 with TF32 off
+   (its 3^3 forwards and dgrads on the TF32 kernels, its wgrads on the
+   CUDA-core ones): the loss and every parameter's gradient compared; again
+   with ``conv_na``; then a bf16-autocast step on the card (the tensor-core
    kernels only) against the fp32 CPU step, again with ``conv_na`` (the
    tensor-core fused pair), and the same step on the CUDA-core kernels
    beside them (bf16's own error on this network);
@@ -48,10 +54,13 @@ Phases, each printing its result; any failure raises and exits non-zero:
 5. serving: the full-width AMOS-CT MedFormer-3D with seeded random weights
    serves two synthetic NIfTI requests through
    ``cbim_tpu_torch.prediction.main``; every forward kernel must have
-   launched, fp32: the CUDA-core 3^3 forward only;
+   launched, fp32: every 3^3 conv one ``conv3d_same_fwd_tf32`` launch, 20
+   a forward, and no other 3^3 kernel (the CUDA-core fp32 forward launches
+   on no full-width path: phase 3 holds it at every conv case and the
+   ragged 20 -> 36 takes it, phase 10's ladder is its code);
 5b. the same requests with ``conv_na: true``: every conv of the BasicBlocks
-   is one ``conv3d_same_na_fwd`` launch, 20 a forward, and
-   ``conv3d_same_fwd`` never launches; the label maps agree with phase 5's;
+   is one ``conv3d_same_na_fwd_tf32`` launch, 20 a forward, and no other
+   3^3 kernel launches; the label maps agree with phase 5's;
 6. training: the flagship recipe (``bench.py``: full-width MedFormer-3D,
    GELU, 128^3 crops, batch 2, bf16 autocast, remat of every stage, AdamW,
    EMA) trains a few steps on the synthetic corpus through
@@ -90,10 +99,11 @@ Phases, each printing its result; any failure raises and exits non-zero:
    kernels (``probe_copy_scale``, ``probe_dot_t``, ``probe_gemm``, the
    ``conv3d_same_fwd`` ladder) must have launched; then each is held against
    its plain version (the copy-scale exactly, the bf16 dots within 2^-7 of
-   max|ref|, the ladder's ``full`` rung within the conv's tolerance and
-   equal to ``conv3d_same`` in fp32; bf16 ``conv3d_same`` is the
-   tensor-core kernel, timed beside the rungs), with its time, bound, plain
-   and library times.
+   max|ref|, the ladder's ``full`` rung within the conv's tolerance and in
+   fp32 equal to the CUDA-core forward it cuts; ``conv3d_same`` of the
+   route, the tensor-core or TF32 kernel, within the conv's tolerance and
+   timed beside the rungs), with its time, bound, plain and library
+   times.
 
 Each of phases 5-10 (5b, 6b and 8b included) sets the launch counters to 0
 just before it and reads them just after.  The last three lines are the
@@ -104,14 +114,17 @@ errors, times, the bound from the recorded shape's FLOPs and bytes) and
 Usage: python3 chip_smoke.py [--profile DIR]
 
 ``--profile DIR`` also traces the steady steps of phases 6, 6b, 8 and 8b
-with the trainer's profiler hook (``profile_dir``), and phase 9's requests
-served a second time, after the timed run: DIR/<phase>/kernels.txt and
-summary.json, and the top kernels by device time are printed.
+with the trainer's profiler hook (``profile_dir``), and the requests of
+phases 5, 5b and 9 served a second time, after the timed run:
+DIR/<phase>/kernels.txt and summary.json, and the top kernels by device
+time are printed; for 5 and 5b also the 3^3 forwards' shapes and counts.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import math
 import os
@@ -170,6 +183,12 @@ KERNELS = {
                               "cbim_tpu/ops/pallas/conv3d.py:1387"),
     "conv3d_wgrad_na_tc": ("cbim_tpu_torch/csrc/conv3d_wgrad_na_tc.cu",
                            "cbim_tpu/ops/pallas/conv3d.py:1518"),
+    # the fp32 route at widths of multiples of 8 (3xTF32): the forward and
+    # dgrad, and the fused forward
+    "conv3d_same_fwd_tf32": ("cbim_tpu_torch/csrc/conv3d_tf32.cu",
+                             "cbim_tpu/ops/pallas/conv3d.py:299"),
+    "conv3d_same_na_fwd_tf32": ("cbim_tpu_torch/csrc/conv3d_tf32.cu",
+                                "cbim_tpu/ops/pallas/conv3d.py:1387"),
     # the probes, which lie on no path but their own entry points (phase 10)
     "probe_copy_scale": ("cbim_tpu_torch/csrc/probes.cu",
                          "tools/probe_bandwidth.py:23"),
@@ -183,21 +202,31 @@ KERNELS = {
 #: the launch counter of each forward kernel's input-gradient launches
 DGRAD = {"conv3d_same_fwd": "conv3d_dgrad", "conv2d_same_fwd": "conv2d_dgrad",
          "conv3d_same_fwd_tc": "conv3d_dgrad_tc",
-         "conv2d_same_fwd_tc": "conv2d_dgrad_tc"}
+         "conv2d_same_fwd_tc": "conv2d_dgrad_tc",
+         "conv3d_same_fwd_tf32": "conv3d_dgrad_tf32"}
 #: the forward kernels, which fp32 serving launches
-FORWARD_KERNELS = ("inorm_stats", "inorm_apply", "conv3d_same_fwd")
+FORWARD_KERNELS = ("inorm_stats", "inorm_apply", "conv3d_same_fwd_tf32")
 #: the 3^3 kernels of each route (tensor-core: bf16 at widths of multiples
-#: of 8; CUDA-core: the rest)
+#: of 8; TF32: fp32 there, whose wgrad is the CUDA-core one; CUDA-core: the
+#: rest)
 TC_CONV_KERNELS = ("conv3d_same_fwd_tc", "conv3d_dgrad_tc", "conv3d_wgrad_tc")
+TF32_CONV_KERNELS = ("conv3d_same_fwd_tf32", "conv3d_dgrad_tf32")
 CORE_CONV_KERNELS = ("conv3d_same_fwd", "conv3d_dgrad", "conv3d_wgrad")
 #: with ``conv_na``: the 20 preact InstanceNorm 3^3 convs of MedFormer-3D's
 #: BasicBlocks (every conv that takes the 3^3 kernel) become fused ones;
-#: fp32 serving launches the CUDA-core fused forward, the bf16 step the
+#: fp32 serving launches the TF32 fused forward, the bf16 step the
 #: tensor-core pair
-NA_FORWARD_KERNELS = ("inorm_stats", "inorm_apply", "conv3d_same_na_fwd")
+NA_FORWARD_KERNELS = ("inorm_stats", "inorm_apply", "conv3d_same_na_fwd_tf32")
 NA_TC_KERNELS = ("conv3d_same_na_fwd_tc", "conv3d_wgrad_na_tc")
 NA_CORE_KERNELS = ("conv3d_same_na_fwd", "conv3d_wgrad_na")
 NA_CONVS = 20
+#: every 3^3 kernel's launch counter
+CONV3D_KERNELS = (TC_CONV_KERNELS + TF32_CONV_KERNELS + CORE_CONV_KERNELS
+                  + NA_TC_KERNELS + NA_CORE_KERNELS
+                  + ("conv3d_same_na_fwd_tf32",))
+#: the TF32 kernels' largest error against an fp64 conv, at most this many
+#: times cuDNN fp32's (TF32 off) at the same shape
+F64_ERR_RATIO = 2.0
 
 #: 3^3 conv shapes of the serving path (B, D, H, W, C, F): inc/up4 at
 #: 128^3, down1/up3 at 64^3, down2/up2 at 32^3, plus a ragged shape, and
@@ -213,8 +242,8 @@ CONV_CASES = [(2, 128, 128, 128, 32, 32), (2, 128, 128, 128, 96, 32),
 CONV_RECORD = (2, 128, 128, 128, 96, 32)
 #: the fused preact conv's acts (AMOS serving: relu; the flagship: gelu),
 #: and its JSON records: CONV_RECORD fp32 relu (AMOS serving's dtype and
-#: act: the CUDA-core pair) and bf16 gelu (the flagship step's: the
-#: tensor-core pair)
+#: act: the TF32 forward, the CUDA-core ones beside it) and bf16 gelu (the
+#: flagship step's: the tensor-core pair)
 NA_ACTS = ("relu", "gelu")
 NA_RECORD = (CONV_RECORD, "float32", "relu")
 NA_TC_RECORD = (CONV_RECORD, "bfloat16", "gelu")
@@ -482,12 +511,20 @@ def iters_for(flops_or_bytes: float, per_ms: float) -> int:
     return max(3, min(200, int(50 * per_ms / max(flops_or_bytes, 1.0))))
 
 
-def entry(ms, plain_ms, library_ms, flops, nbytes, dtype, shape) -> dict:
-    """One kernel's timed record, with its bound."""
-    b_ms, b_by = bound_ms(flops, nbytes, dtype)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "dtype": dtype,
-            "shape": list(shape)}
+def entry(ms, plain_ms, library_ms, flops, nbytes, dtype, shape,
+          tf32x3: bool = False) -> dict:
+    """One kernel's timed record, with its bound; ``tf32x3``: an fp32
+    kernel whose bound is three TF32 tensor-core passes over ``flops``."""
+    if tf32x3:
+        b_ms, b_by = bound_ms(3 * flops, nbytes, "tf32")
+    else:
+        b_ms, b_by = bound_ms(flops, nbytes, dtype)
+    rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "dtype": dtype,
+           "shape": list(shape)}
+    if tf32x3:
+        rec["bound_as"] = "3 TF32 passes at the TF32 peak"
+    return rec
 
 
 def ptxas_report(log: str, key: str) -> dict:
@@ -502,7 +539,8 @@ def ptxas_report(log: str, key: str) -> dict:
             name = m.group(1)
             # the identifier after its length prefix
             short = re.search(r"\d(conv\w*?_kernel)", name)
-            args = re.findall(r"Li(\d+)E", name)
+            args = [a.replace("n", "-")
+                    for a in re.findall(r"Li(n?\d+)E", name)]
             name = (short.group(1) if short else name) + \
                 (f"<{','.join(args)}>" if args else "")
             continue
@@ -529,12 +567,33 @@ def check_close(name, out, ref, tol) -> tuple[float, float]:
     return err, rel
 
 
+def conv64(x, w):
+    """The SAME 3^3 conv of channels-last x in fp64 on x's device (the
+    reference of the TF32 kernels' and cuDNN fp32's errors)."""
+    import torch.nn.functional as F
+    y = F.conv3d(x.double().permute(0, 4, 1, 2, 3), w.double(), padding=1)
+    return y.permute(0, 2, 3, 4, 1)
+
+
+def f64_errors(name, out, ref32, ref64) -> str:
+    """Assert that a TF32 kernel's largest error against the fp64 conv is
+    at most F64_ERR_RATIO times cuDNN fp32's (``ref32``, TF32 off), and
+    describe both, relative to max|y|."""
+    scale = float(ref64.abs().max())
+    e_k = float((out.double() - ref64).abs().max()) / scale
+    e_c = float((ref32.double() - ref64).abs().max()) / scale
+    assert e_k <= F64_ERR_RATIO * e_c, \
+        f"{name}: {e_k:.3e} of max|y| from fp64, cuDNN fp32 {e_c:.3e}"
+    return f" vs fp64: kernel {e_k:.3e} cuDNN fp32 {e_c:.3e} of max|y|"
+
+
 def phase_kernels(device, conv_cases, norm_cases, record: dict) -> None:
     """Phase 3: each kernel against its plain version on ``device``.  Each
     3^3 conv case asserts the route ``conv3d_route`` gives it (the launch
-    counter that moved) and prints cuDNN's time; where bf16 takes the
-    tensor-core route the CUDA-core kernel it replaces is held and timed
-    too."""
+    counter that moved) and prints cuDNN's time; where a case takes the
+    tensor-core or TF32 route the CUDA-core kernel it replaces is held and
+    timed too, and the TF32 kernel's error against an fp64 conv is held
+    against cuDNN fp32's."""
     import torch
     import torch.nn.functional as F
     from cbim_tpu_torch.ops.kernels import conv3d, fused_norm
@@ -551,14 +610,17 @@ def phase_kernels(device, conv_cases, norm_cases, record: dict) -> None:
             x, w = x.to(dtype), (w / math.sqrt(27 * C)).to(dtype)
             ref = conv3d.conv3d_same_plain(x, w)
             scale = float(ref.float().abs().max())
-            tc = conv3d.conv3d_route(dtype, C, Fo) == conv3d.TENSOR_CORE
-            key = "conv3d_same_fwd_tc" if tc else "conv3d_same_fwd"
+            route = conv3d.conv3d_route(dtype, C, Fo)
+            key = conv3d.FORWARD_KEYS[route][0]
             before = conv3d.launches[key]
             out = conv3d.conv3d_same(x, w)
             torch.cuda.synchronize()
             assert conv3d.launches[key] == before + 1, \
                 f"{dt} {case} did not take the {key} route"
             err = float((out.float() - ref.float()).abs().max())
+            f64 = ""
+            if route == conv3d.TF32X3:
+                f64 = f64_errors(f"{key} {case}", out, ref, conv64(x, w))
             flops = 2 * 27 * C * Fo * B * D * H * W
             n = iters_for(flops, 1e10)
             ms = cuda_ms(lambda: conv3d.conv3d_same(x, w), n)
@@ -566,7 +628,7 @@ def phase_kernels(device, conv_cases, norm_cases, record: dict) -> None:
             xc = x.permute(0, 4, 1, 2, 3)              # NCDHW view, no copy
             lib_ms = cuda_ms(lambda: F.conv3d(xc, w, padding=1), n)
             core = ""
-            if tc:
+            if route != conv3d.CUDA_CORE:
                 # the CUDA-core kernel the tensor-core one replaces
                 core_out = conv3d._launch_fwd(x, w, "conv3d_same_fwd")
                 torch.cuda.synchronize()
@@ -579,9 +641,9 @@ def phase_kernels(device, conv_cases, norm_cases, record: dict) -> None:
                     lambda: conv3d._launch_fwd(x, w, "conv3d_same_fwd"), n)
                 core = f" CUDA-core {core_ms:.3f} ms ({core_ms / ms:.2f}x)"
                 del core_out
-            say(f"  {key:18s} {dt:8s} {case}: max_abs_err {err:.3e} "
+            say(f"  {key:20s} {dt:8s} {case}: max_abs_err {err:.3e} "
                 f"max_rel_err {err / scale:.3e} of max|ref| {scale:.3f} "
-                f"(tol {CONV_TOL[dt]:.1e}) "
+                f"(tol {CONV_TOL[dt]:.1e}){f64} "
                 f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s) "
                 f"plain {plain_ms:.3f} ms cuDNN {lib_ms:.3f} ms "
                 f"({ms / lib_ms:.2f}x){core}")
@@ -591,8 +653,12 @@ def phase_kernels(device, conv_cases, norm_cases, record: dict) -> None:
             if case == CONV_RECORD:
                 nbytes = (x.numel() + w.numel() + ref.numel()) * x.element_size()
                 if dt == "float32":
-                    record["conv3d_same_fwd"] = entry(ms, plain_ms, lib_ms,
-                                                      flops, nbytes, dt, case)
+                    record["conv3d_same_fwd"] = entry(core_ms, plain_ms,
+                                                      lib_ms, flops, nbytes,
+                                                      dt, case)
+                    record["conv3d_same_fwd_tf32"] = entry(
+                        ms, plain_ms, lib_ms, flops, nbytes, dt, case,
+                        tf32x3=True)
                 else:
                     record["conv3d_same_fwd"][dt] = entry(
                         core_ms, plain_ms, lib_ms, flops, nbytes, dt, case)
@@ -655,8 +721,10 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
     """Phase 3, backward: dgrad, wgrad and the norm backward against their
     plain versions on ``device``, with cuDNN's call beside each conv
     kernel (``F.conv3d`` on the flip-swapped weights, ``conv3d_weight``)
-    and, where bf16 takes the tensor-core route, the CUDA-core kernel it
-    replaces."""
+    and, where a case takes the tensor-core or TF32 route, the CUDA-core
+    kernel each replaces (the TF32 route's wgrad is the CUDA-core one);
+    the TF32 dgrad's error against an fp64 conv is held against cuDNN
+    fp32's."""
     import torch
     import torch.nn.functional as F
     from cbim_tpu_torch.ops.kernels import conv3d, fused_norm
@@ -672,8 +740,9 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
             x, g = x.to(dtype), g.to(dtype)
             w = (w / math.sqrt(27 * Fo)).to(dtype)
             ws = conv3d.flip_swap(w)
-            tc = conv3d.conv3d_route(dtype, C, Fo) == conv3d.TENSOR_CORE
-            kx = "conv3d_dgrad_tc" if tc else "conv3d_dgrad"
+            route = conv3d.conv3d_route(dtype, C, Fo)
+            tc = route == conv3d.TENSOR_CORE
+            kf, kx = conv3d.FORWARD_KEYS[route][:2]
             kw = "conv3d_wgrad_tc" if tc else "conv3d_wgrad"
             before = (conv3d.launches[kx], conv3d.launches[kw])
             dx = conv3d.conv3d_dgrad(g, w)
@@ -687,6 +756,9 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
             ex = float((dx.float() - ref_dx.float()).abs().max())
             sw = float(ref_dw.abs().max())
             ew = float((dw - ref_dw).abs().max())
+            f64 = ""
+            if route == conv3d.TF32X3:
+                f64 = f64_errors(f"{kx} {case}", dx, ref_dx, conv64(g, ws))
             flops = 2 * 27 * C * Fo * B * D * H * W
             n = iters_for(flops, 1e10)
             xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
@@ -698,36 +770,39 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
             dw_lib = cuda_ms(lambda: torch.nn.grad.conv3d_weight(
                 xc, w.shape, gc, padding=1), n)
             core_x = core_w = ""
-            if tc:
-                # the CUDA-core kernels the tensor-core ones replace
+            if route != conv3d.CUDA_CORE:
+                # the CUDA-core dgrad the tensor-core or TF32 one replaces
                 cx = conv3d._launch_fwd(g, ws, "conv3d_dgrad")
-                cw = conv3d._launch_wgrad(x, g)
                 torch.cuda.synchronize()
                 cex = float((cx.float() - ref_dx.float()).abs().max())
-                cew = float((cw - ref_dw).abs().max())
                 assert cex <= CONV_TOL[dt] * sx, f"conv3d_dgrad {dt} {case}"
-                assert cew <= WGRAD_TOL * sw, f"conv3d_wgrad {dt} {case}"
                 errs["conv3d_same_fwd"] = max(errs["conv3d_same_fwd"], cex)
-                errs["conv3d_wgrad"] = max(errs["conv3d_wgrad"], cew)
                 cx_ms = cuda_ms(
                     lambda: conv3d._launch_fwd(g, ws, "conv3d_dgrad"), n)
-                cw_ms = cuda_ms(lambda: conv3d._launch_wgrad(x, g), n)
                 core_x = f" CUDA-core {cx_ms:.3f} ms ({cx_ms / dx_ms:.2f}x)"
+                del cx
+            if tc:
+                # the CUDA-core wgrad the tensor-core one replaces
+                cw = conv3d._launch_wgrad(x, g)
+                torch.cuda.synchronize()
+                cew = float((cw - ref_dw).abs().max())
+                assert cew <= WGRAD_TOL * sw, f"conv3d_wgrad {dt} {case}"
+                errs["conv3d_wgrad"] = max(errs["conv3d_wgrad"], cew)
+                cw_ms = cuda_ms(lambda: conv3d._launch_wgrad(x, g), n)
                 core_w = f" CUDA-core {cw_ms:.3f} ms ({cw_ms / dw_ms:.2f}x)"
-                del cx, cw
-            say(f"  {kx:18s} {dt:8s} {case}: max_abs_err {ex:.3e} "
-                f"max_rel_err {ex / sx:.3e} (tol {CONV_TOL[dt]:.1e}) "
+                del cw
+            say(f"  {kx:20s} {dt:8s} {case}: max_abs_err {ex:.3e} "
+                f"max_rel_err {ex / sx:.3e} (tol {CONV_TOL[dt]:.1e}){f64} "
                 f"kernel {dx_ms:.3f} ms ({flops / dx_ms / 1e9:.1f} TFLOP/s) "
                 f"plain {dx_plain:.3f} ms cuDNN {dx_lib:.3f} ms "
                 f"({dx_ms / dx_lib:.2f}x){core_x}")
-            say(f"  {kw:18s} {dt:8s} {case}: max_abs_err {ew:.3e} "
+            say(f"  {kw:20s} {dt:8s} {case}: max_abs_err {ew:.3e} "
                 f"max_rel_err {ew / sw:.3e} of max|dW| {sw:.1f} "
                 f"(tol {WGRAD_TOL:.1e}) kernel {dw_ms:.3f} ms "
                 f"({flops / dw_ms / 1e9:.1f} TFLOP/s) plain {dw_plain:.3f} ms "
                 f"cuDNN {dw_lib:.3f} ms ({dw_ms / dw_lib:.2f}x){core_w}")
             assert ex <= CONV_TOL[dt] * sx, f"{kx} {dt} {case}: {ex:.3e}"
             assert ew <= WGRAD_TOL * sw, f"{kw} {dt} {case}: {ew:.3e}"
-            kf = "conv3d_same_fwd_tc" if tc else "conv3d_same_fwd"
             errs[kf] = max(errs[kf], ex)
             errs[kw] = max(errs[kw], ew)
             if case == CONV_RECORD:
@@ -736,7 +811,8 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
                 if dt == "float32":
                     record["conv3d_wgrad"] = entry(dw_ms, dw_plain, dw_lib,
                                                    flops, nbytes, dt, case)
-                    record["conv3d_dgrad"] = (dx_ms, dx_plain, dx_lib)
+                    record["conv3d_dgrad"] = (cx_ms, dx_plain, dx_lib)
+                    record["conv3d_dgrad_tf32"] = (dx_ms, dx_plain, dx_lib)
                 else:
                     record["conv3d_wgrad"][dt] = entry(
                         cw_ms, dw_plain, dw_lib, flops, nbytes, dt, case)
@@ -794,20 +870,26 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
 def phase_na_kernels(device, conv_cases, record: dict) -> None:
     """Phase 3, the fused preact conv: the forward and weight-gradient
     kernels of the route ``conv3d_route`` gives each case (the launch
-    counters that moved: ``conv3d_same_na_fwd_tc`` and ``conv3d_wgrad_na_tc``
-    in bf16 at widths of multiples of 8, else ``conv3d_same_na_fwd`` and
-    ``conv3d_wgrad_na``) against their plain versions (``inorm_apply_plain``
-    then the plain conv or weight gradient), on inputs of mean 1.5 so that a
-    padding normalised to act(-mean * rstd) instead of 0 fails.  Each is
-    timed beside the unfused pair of kernels it replaces (``inorm_apply`` +
-    ``conv3d_same``, ``inorm_apply`` + ``conv3d_wgrad``, on the same route);
-    where bf16 takes the tensor-core route the CUDA-core fused kernels are
-    held and timed too.  No single PyTorch call computes either function."""
+    counters that moved: at widths of multiples of 8 in bf16
+    ``conv3d_same_na_fwd_tc`` and ``conv3d_wgrad_na_tc``, in fp32
+    ``conv3d_same_na_fwd_tf32`` and ``conv3d_wgrad_na``, else
+    ``conv3d_same_na_fwd`` and ``conv3d_wgrad_na``) against their plain
+    versions (``inorm_apply_plain`` then the plain conv or weight gradient),
+    on inputs of mean 1.5 so that a padding normalised to act(-mean * rstd)
+    instead of 0 fails.  Each is timed beside the unfused pair of kernels it
+    replaces (``inorm_apply`` + ``conv3d_same``, ``inorm_apply`` +
+    ``conv3d_wgrad``, on the same route); where a case takes the
+    tensor-core or TF32 route the CUDA-core fused kernels it replaces (the
+    forward, and in bf16 the wgrad) are held and timed too, in fp32 with
+    the CUDA-core unfused pair, and the TF32 forward's error against an
+    fp64 conv is held against cuDNN fp32's.  No single PyTorch call
+    computes either function."""
     import torch
     from cbim_tpu_torch.ops.kernels import conv3d, fused_norm
     gen = torch.Generator(device=device).manual_seed(6)
     errs = record["errors"]
-    errs.update({k: 0.0 for k in NA_TC_KERNELS + NA_CORE_KERNELS})
+    errs.update({k: 0.0 for k in NA_TC_KERNELS + NA_CORE_KERNELS
+                 + ("conv3d_same_na_fwd_tf32",)})
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
         for case in conv_cases:
@@ -819,8 +901,10 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
             w = (w / math.sqrt(27 * C)).to(dtype)
             x3 = x.view(B, -1, C)
             mean, rstd = fused_norm.inorm_stats_plain(x3, 1e-4)
-            tc = conv3d.conv3d_route(dtype, C, Fo) == conv3d.TENSOR_CORE
-            kf, kw = NA_TC_KERNELS if tc else NA_CORE_KERNELS
+            route = conv3d.conv3d_route(dtype, C, Fo)
+            tc = route == conv3d.TENSOR_CORE
+            kf = conv3d.FORWARD_KEYS[route][2]
+            kw = "conv3d_wgrad_na_tc" if tc else "conv3d_wgrad_na"
             # the prologue's subtract, multiply and act once per input
             flops = 2 * 27 * C * Fo * B * D * H * W + 3 * x.numel()
             n = iters_for(flops, 1e10)
@@ -843,6 +927,12 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
                 ey = float((y.float() - ref_y.float()).abs().max())
                 sw = float(ref_dw.abs().max())
                 ew = float((dw - ref_dw).abs().max())
+                f64 = ""
+                if route == conv3d.TF32X3:
+                    xn = conv3d._normed(x, mean, rstd, act)
+                    f64 = f64_errors(f"{kf} {case} {act}", y, ref_y,
+                                     conv64(xn, w))
+                    del xn
                 t_fwd = (
                     cuda_ms(lambda: conv3d.conv3d_same_na(x, mean, rstd, w,
                                                           act), n),
@@ -856,35 +946,47 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
                     cuda_ms(lambda: conv3d.conv3d_wgrad_na_plain(
                         x, mean, rstd, g, act), n))
                 core = {}
-                if tc:
-                    # the CUDA-core fused kernels the tensor-core ones
-                    # replace
+                if route != conv3d.CUDA_CORE:
+                    # the CUDA-core fused forward the tensor-core or TF32
+                    # one replaces
                     cy = conv3d._launch_fwd(x, w, "conv3d_same_na_fwd", na)
-                    cw = conv3d._launch_wgrad(x, g, na)
                     torch.cuda.synchronize()
                     cey = float((cy.float() - ref_y.float()).abs().max())
-                    cew = float((cw - ref_dw).abs().max())
                     assert cey <= CONV_TOL[dt] * sy, \
                         f"conv3d_same_na_fwd {dt} {case} {act}: {cey:.3e}"
-                    assert cew <= WGRAD_TOL * sw, \
-                        f"conv3d_wgrad_na {dt} {case} {act}: {cew:.3e}"
                     errs["conv3d_same_na_fwd"] = max(
                         errs["conv3d_same_na_fwd"], cey)
+                    core[kf] = cuda_ms(lambda: conv3d._launch_fwd(
+                        x, w, "conv3d_same_na_fwd", na), n)
+                    del cy
+                if tc:
+                    # and the CUDA-core fused wgrad
+                    cw = conv3d._launch_wgrad(x, g, na)
+                    torch.cuda.synchronize()
+                    cew = float((cw - ref_dw).abs().max())
+                    assert cew <= WGRAD_TOL * sw, \
+                        f"conv3d_wgrad_na {dt} {case} {act}: {cew:.3e}"
                     errs["conv3d_wgrad_na"] = max(errs["conv3d_wgrad_na"],
                                                   cew)
-                    core = {kf: cuda_ms(lambda: conv3d._launch_fwd(
-                                x, w, "conv3d_same_na_fwd", na), n),
-                            kw: cuda_ms(lambda: conv3d._launch_wgrad(
-                                x, g, na), n)}
-                    del cy, cw
-                for key, (ms, pair_ms, plain_ms), err, scale, tol in (
-                        (kf, t_fwd, ey, sy, CONV_TOL[dt]),
-                        (kw, t_wg, ew, sw, WGRAD_TOL)):
+                    core[kw] = cuda_ms(lambda: conv3d._launch_wgrad(
+                        x, g, na), n)
+                    del cw
+                core_pair = ""
+                if route == conv3d.TF32X3:
+                    # the unfused pair on the CUDA-core conv, as served
+                    # before the TF32 route
+                    core["pair"] = cuda_ms(lambda: conv3d._launch_fwd(
+                        normed(), w, "conv3d_same_fwd"), n)
+                    core_pair = (f" CUDA-core unfused pair "
+                                 f"{core['pair']:.3f} ms")
+                for key, (ms, pair_ms, plain_ms), err, scale, tol, ef in (
+                        (kf, t_fwd, ey, sy, CONV_TOL[dt], f64 + core_pair),
+                        (kw, t_wg, ew, sw, WGRAD_TOL, "")):
                     extra = (f" CUDA-core {core[key]:.3f} ms "
                              f"({core[key] / ms:.2f}x)" if key in core else "")
-                    say(f"  {key:21s} {dt:8s} {case} {act}: max_abs_err "
+                    say(f"  {key:23s} {dt:8s} {case} {act}: max_abs_err "
                         f"{err:.3e} max_rel_err {err / scale:.3e} of max|ref| "
-                        f"{scale:.3f} (tol {tol:.1e}) kernel {ms:.3f} ms "
+                        f"{scale:.3f} (tol {tol:.1e}){ef} kernel {ms:.3f} ms "
                         f"({flops / ms / 1e9:.1f} TFLOP/s) unfused pair "
                         f"{pair_ms:.3f} ms ({ms / pair_ms:.2f}x) plain "
                         f"{plain_ms:.3f} ms{extra}")
@@ -892,17 +994,25 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
                     errs[key] = max(errs[key], err)
                 if (case, dt, act) in (NA_RECORD, NA_TC_RECORD):
                     size, stat_bytes = x.element_size(), 2 * B * C * 4
-                    fwd = entry(t_fwd[0], t_fwd[2], None, flops,
-                                (x.numel() + w.numel() + y.numel()) * size
-                                + stat_bytes, dt, case)
+                    fwd_bytes = (x.numel() + w.numel() + y.numel()) * size \
+                        + stat_bytes
+                    fwd = entry(t_fwd[0], t_fwd[2], None, flops, fwd_bytes,
+                                dt, case, tf32x3=route == conv3d.TF32X3)
                     wg = entry(t_wg[0], t_wg[2], None, flops,
                                (x.numel() + g.numel()) * size
                                + dw.numel() * 4 + stat_bytes, dt, case)
                     record[kf] = dict(fwd, act=act, unfused_ms=t_fwd[1])
                     record[kw] = dict(wg, act=act, unfused_ms=t_wg[1])
-                    if tc:
+                    if route != conv3d.CUDA_CORE:
                         record[kf]["cuda_core_ms"] = core[kf]
+                    if tc:
                         record[kw]["cuda_core_ms"] = core[kw]
+                    if route == conv3d.TF32X3:
+                        # the CUDA-core fused forward it replaces, and the
+                        # CUDA-core unfused pair
+                        record["conv3d_same_na_fwd"] = dict(entry(
+                            core[kf], t_fwd[2], None, flops, fwd_bytes, dt,
+                            case), act=act, unfused_ms=core["pair"])
                 del y, ref_y, dw, ref_dw
             del x, g, w, x3
     torch.cuda.synchronize()
@@ -1296,7 +1406,7 @@ def phase_slice(device, cfg_dict, requests, target_spacing, name: str,
             in_dir, "--save_path", out_dir, "--target_spacing",
             target_spacing, "--device", str(device)]
 
-    forwards = []
+    forwards, shapes = [], collections.Counter()
 
     def count_forward(module, args, out):
         if isinstance(module, model_cls):
@@ -1324,11 +1434,45 @@ def phase_slice(device, cfg_dict, requests, target_spacing, name: str,
     if profile_dir is not None:
         from cbim_tpu_torch.utils.profiling import StepProfiler
         prof = StepProfiler(profile_dir, device)
-        prof.start()
-        prediction.main(argv, cfg=cfg)
-        prof.stop(len(requests))
+        with conv_shapes(shapes):
+            prof.start()
+            prediction.main(argv, cfg=cfg)
+            prof.stop(len(requests))
     return {"seconds": seconds, "launches": counts, "forwards": len(forwards),
-            "peak_bytes": peak}
+            "peak_bytes": peak, "conv_shapes": shapes}
+
+
+@contextlib.contextmanager
+def conv_shapes(counter: collections.Counter):
+    """Count the 3^3 forwards by (function, x's shape [B, D, H, W, C], F)
+    while inside (the profiled serving runs)."""
+    from cbim_tpu_torch.ops.kernels import conv3d
+    same, same_na = conv3d.conv3d_same, conv3d.conv3d_same_na
+
+    def counted_same(x, w):
+        counter["conv3d_same", tuple(x.shape), w.shape[0]] += 1
+        return same(x, w)
+
+    def counted_same_na(x, mean, rstd, w, act=None):
+        counter["conv3d_same_na", tuple(x.shape), w.shape[0]] += 1
+        return same_na(x, mean, rstd, w, act)
+
+    conv3d.conv3d_same, conv3d.conv3d_same_na = counted_same, counted_same_na
+    try:
+        yield
+    finally:
+        conv3d.conv3d_same, conv3d.conv3d_same_na = same, same_na
+
+
+def say_served_profile(profile: str | None, name: str, res: dict) -> None:
+    """Under ``--profile``: a 3D serving phase's busy share and kernel time
+    per volume, and its 3^3 forwards by shape in the profiled run."""
+    if profile is None:
+        return
+    say_profile(os.path.join(profile, name), "volume")
+    say("  3^3 forwards of the profiled run, by (B, D, H, W, C) -> F:")
+    for (fn, shape, f), n in sorted(res["conv_shapes"].items()):
+        say(f"    {n:5d} x {fn} {shape} -> {f}")
 
 
 def phase_train(device, cfg_dict, batch: int, name: str, required) -> dict:
@@ -1533,10 +1677,10 @@ def phase_probes(device, record: dict) -> dict:
         f"{dots['square1k']['ms'] / dots['cublas1k']['ms']:.2f}x")
     del a, b, out, ref
 
-    # the ladder: the full rung is the CUDA-core production kernel, equal to
-    # conv3d_same in fp32 (bf16 at these widths takes the tensor-core
-    # route: held to the conv's tolerance instead), and within the conv's
-    # tolerance of F.conv3d in fp32 at both tile widths
+    # the ladder: the full rung is the CUDA-core forward, equal to it in
+    # fp32 (``conv3d_same`` at these widths takes the tensor-core route in
+    # bf16 and the TF32 one in fp32: held to the conv's tolerance), and
+    # within the conv's tolerance of F.conv3d in fp32 at both tile widths
     errs["conv3d_same_fwd_ladder"] = 0.0
     for name, (case, dt) in pc.SHAPES.items():
         x, w = pc.conv_inputs(case, dt, device)
@@ -1546,12 +1690,13 @@ def phase_probes(device, record: dict) -> dict:
         full = probes.conv3d_same_fwd_ladder(x, w, "full")
         prod = conv3d.conv3d_same(x, w)
         if dt == "float32":
-            assert torch.equal(full, prod), \
-                f"ladder full rung != conv3d_same at {case} {dt}"
-        else:
-            prod_err = float((prod.float() - ref).abs().max())
-            assert prod_err <= CONV_TOL[dt] * scale, \
-                f"conv3d_same ({r['route']}) at {case} {dt}: {prod_err:.3e}"
+            core = conv3d._launch_fwd(x, w, "conv3d_same_fwd")
+            assert torch.equal(full, core), \
+                f"ladder full rung != the CUDA-core forward at {case} {dt}"
+            del core
+        prod_err = float((prod.float() - ref).abs().max())
+        assert prod_err <= CONV_TOL[dt] * scale, \
+            f"conv3d_same ({r['route']}) at {case} {dt}: {prod_err:.3e}"
         err = float((full.float() - ref).abs().max())
         for bn in probes.LADDER_BN:
             out = probes.conv3d_same_fwd_ladder(x, w, "full", bn).float()
@@ -1593,14 +1738,19 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="trace phases 6, 6b, 8 and 8b's steady steps, "
-                             "and phase 9's requests served again, into DIR")
+                             "and the requests of phases 5, 5b and 9 served "
+                             "again, into DIR")
     args = parser.parse_args(argv)
+
+    def profile_dir(name):
+        if args.profile is None:
+            return None
+        return os.path.abspath(os.path.join(args.profile, name))
 
     def profiled(cfg_dict, name):
         if args.profile is None:
             return cfg_dict
-        return dict(cfg_dict, profile_dir=os.path.abspath(
-            os.path.join(args.profile, name)))
+        return dict(cfg_dict, profile_dir=profile_dir(name))
 
     import torch
     say("[phase 1] device")
@@ -1633,8 +1783,8 @@ def main(argv=None) -> int:
         f"{_build.build_seconds_by_source} s); ptxas per kernel: "
         f"{'; '.join(regs)}")
     say("  tensor-core kernels (registers, spill stores/loads bytes): "
-        + "; ".join(f"{k} {v}" for k, v in ptxas_report(
-            _build.build_log, "_tc_").items()))
+        + "; ".join(f"{k} {v}" for key in ("_tc_", "_tf32_")
+                    for k, v in ptxas_report(_build.build_log, key).items()))
 
     record: dict = {}
     say("[phase 3] kernels vs plain versions")
@@ -1652,10 +1802,17 @@ def main(argv=None) -> int:
         reset_launch_counts()
         err = phase_small_model(device, dict(SMALL, conv_na=conv_na),
                                 (1, 1, 64, 64, 64))
-        n_na = launch_counts()["conv3d_same_na_fwd"]
+        counts = launch_counts()
+        n_na = counts["conv3d_same_na_fwd_tf32"]
         say(f"  conv_na={conv_na}: 64^3 softmax max abs err {err:.3e} "
-            f"(tol {MODEL_PROB_ATOL}); {n_na} conv3d_same_na_fwd launches")
+            f"(tol {MODEL_PROB_ATOL}); {n_na} conv3d_same_na_fwd_tf32 "
+            f"launches")
+        # fp32 at widths of multiples of 8: the TF32 forwards only
         assert n_na == (NA_CONVS if conv_na else 0), n_na
+        assert counts["conv3d_same_fwd_tf32"] == (0 if conv_na else
+                                                  NA_CONVS), counts
+        assert not any(counts[k] for k in CONV3D_KERNELS
+                       if not k.endswith("_tf32")), counts
 
     say("[phase 4b] one train step of the small MedFormer-3D, card vs CPU")
     for conv_na in (False, True):
@@ -1664,10 +1821,14 @@ def main(argv=None) -> int:
             device, dict(SMALL, remat=True, conv_na=conv_na),
             (2, 1, 64, 64, 64))
         counts = launch_counts()
-        if not conv_na:
-            # the fp32 step: the CUDA-core 3^3 kernels, backward included
-            assert all(counts[k] > 0 for k in CORE_CONV_KERNELS) and \
-                not any(counts[k] for k in TC_CONV_KERNELS), counts
+        # the fp32 step: forwards and dgrads on the TF32 kernels, wgrads on
+        # the CUDA-core ones
+        used = (("conv3d_same_na_fwd_tf32", "conv3d_dgrad_tf32",
+                 "conv3d_wgrad_na") if conv_na else
+                TF32_CONV_KERNELS + ("conv3d_wgrad",))
+        assert all(counts[k] > 0 for k in used) and \
+            not any(counts[k] for k in CONV3D_KERNELS if k not in used), \
+            counts
         n_na = counts["conv3d_wgrad_na"]
         say(f"  conv_na={conv_na}: 2 x 64^3 fp32: loss rel err "
             f"{loss_err:.3e} (tol {STEP_LOSS_RTOL:.0e}); gradient rel L2 err "
@@ -1693,7 +1854,8 @@ def main(argv=None) -> int:
         # pair's too with conv_na (20 fused convs, remat: 40 forwards)
         used = ("conv3d_dgrad_tc",) if conv_na else TC_CONV_KERNELS
         assert all(counts[k] > 0 for k in used) and \
-            not any(counts[k] for k in CORE_CONV_KERNELS + NA_CORE_KERNELS), \
+            not any(counts[k] for k in CORE_CONV_KERNELS + NA_CORE_KERNELS
+                    + TF32_CONV_KERNELS + ("conv3d_same_na_fwd_tf32",)), \
             counts
         assert (counts["conv3d_same_na_fwd_tc"],
                 counts["conv3d_wgrad_na_tc"]) == \
@@ -1735,21 +1897,30 @@ def main(argv=None) -> int:
 
     say("[phase 5] AMOS-CT MedFormer-3D serving 2 NIfTI requests")
     res = phase_slice(device, AMOS, REQUESTS, TARGET_SPACING, "serve3d",
-                      FORWARD_KERNELS)
+                      FORWARD_KERNELS, profile_dir("serve3d"))
     say_serving(res)
-    # fp32 serving: the CUDA-core forward only
-    assert not any(res["launches"][k] for k in TC_CONV_KERNELS), \
-        res["launches"]
-    launches["5"] = res["launches"]
+    # fp32 serving: every 3^3 conv on the TF32 forward, 20 a forward
+    counts = res["launches"]
+    assert res["forwards"] > 0 and counts["conv3d_same_fwd_tf32"] == \
+        NA_CONVS * res["forwards"] and not any(
+            counts[k] for k in CONV3D_KERNELS
+            if k != "conv3d_same_fwd_tf32"), \
+        f"{counts} in {res['forwards']} forwards"
+    say_served_profile(args.profile, "serve3d", res)
+    launches["5"] = counts
 
     say("[phase 5b] the same requests with conv_na: the fused preact conv")
     res_na = phase_slice(device, dict(AMOS, conv_na=True), REQUESTS,
-                         TARGET_SPACING, "serve3d_na", NA_FORWARD_KERNELS)
+                         TARGET_SPACING, "serve3d_na", NA_FORWARD_KERNELS,
+                         profile_dir("serve3d_na"))
     say_serving(res_na)
     counts = res_na["launches"]
-    assert res_na["forwards"] > 0 and counts["conv3d_same_na_fwd"] == \
-        NA_CONVS * res_na["forwards"] and counts["conv3d_same_fwd"] == 0, \
+    assert res_na["forwards"] > 0 and counts["conv3d_same_na_fwd_tf32"] == \
+        NA_CONVS * res_na["forwards"] and not any(
+            counts[k] for k in CONV3D_KERNELS
+            if k != "conv3d_same_na_fwd_tf32"), \
         f"{counts} in {res_na['forwards']} forwards"
+    say_served_profile(args.profile, "serve3d_na", res_na)
     agree = label_agreement(os.path.join(WORK, "serve3d", "out"),
                             os.path.join(WORK, "serve3d_na", "out"))
     say(f"  fused vs unfused (phase 5): {mean_seconds(res_na):.3f} vs "
@@ -1804,7 +1975,8 @@ def main(argv=None) -> int:
     if args.profile:
         say_profile(os.path.join(args.profile, "flagship_na"))
     launches["6b"] = counts
-    for key in ("conv3d_dgrad", "conv3d_dgrad_bfloat16", "conv3d_dgrad_tc"):
+    for key in ("conv3d_dgrad", "conv3d_dgrad_tf32", "conv3d_dgrad_bfloat16",
+                "conv3d_dgrad_tc"):
         ms, plain_ms, lib_ms = record[key]
         say(f"  {key} at {CONV_RECORD}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, cuDNN {lib_ms:.3f} ms")
@@ -1856,13 +2028,11 @@ def main(argv=None) -> int:
     launches["8b"] = counts
 
     say("[phase 9] BCV SwinUNETR serving 2 NIfTI requests")
-    swin_prof = (None if args.profile is None
-                 else os.path.abspath(os.path.join(args.profile, "swin")))
     res = phase_slice(device, BCV, REQUESTS, TARGET_SPACING, "serve_swin",
-                      ("window_attention",), swin_prof)
+                      ("window_attention",), profile_dir("swin"))
     say_serving(res)
-    if swin_prof is not None:
-        say_profile(swin_prof, "volume")
+    if args.profile is not None:
+        say_profile(profile_dir("swin"), "volume")
     n_attn = res["launches"]["window_attention"]
     assert res["forwards"] > 0 and n_attn == SWIN_BLOCKS * res["forwards"], \
         f"{n_attn} window-attention launches in {res['forwards']} forwards"

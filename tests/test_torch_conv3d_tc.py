@@ -74,8 +74,9 @@ def _close(got, ref, tol):
     (torch.bfloat16, 128, 128, conv3d.TENSOR_CORE),
     (torch.bfloat16, 24, 40, conv3d.TENSOR_CORE),
     (torch.bfloat16, 8, 8, conv3d.TENSOR_CORE),
-    (torch.float32, 32, 32, conv3d.CUDA_CORE),
-    (torch.float32, 96, 32, conv3d.CUDA_CORE),
+    (torch.float32, 32, 32, conv3d.TF32X3),
+    (torch.float32, 96, 32, conv3d.TF32X3),
+    (torch.float32, 20, 36, conv3d.CUDA_CORE),
     (torch.bfloat16, 12, 32, conv3d.CUDA_CORE),
     (torch.bfloat16, 32, 20, conv3d.CUDA_CORE),
     (torch.bfloat16, 20, 36, conv3d.CUDA_CORE),
@@ -95,7 +96,8 @@ def test_wrappers_launch_the_kernels_of_their_route(monkeypatch, dtype, C, F):
     conv3d_dgrad and conv3d_wgrad launch the entries conv3d_route names
     (the dgrad with the forward's weights and the flip), and so does the
     fused norm-act pair: its tensor-core kernels in bf16 at widths of
-    multiples of 8, its CUDA-core ones otherwise."""
+    multiples of 8, in fp32 there the TF32 forwards beside the CUDA-core
+    wgrads, its CUDA-core ones otherwise."""
     calls = []
 
     def record(name):
@@ -105,8 +107,8 @@ def test_wrappers_launch_the_kernels_of_their_route(monkeypatch, dtype, C, F):
             return torch.empty(0)
         return launch
 
-    for fn in ("_launch_fwd", "_launch_fwd_tc", "_launch_wgrad",
-               "_launch_wgrad_tc"):
+    for fn in ("_launch_fwd", "_launch_fwd_tc", "_launch_fwd_tf32",
+               "_launch_wgrad", "_launch_wgrad_tc"):
         monkeypatch.setattr(conv3d, fn, record(fn))
     monkeypatch.setattr(conv3d._backend, "uses_kernels", lambda t: True)
     x = torch.zeros(1, 2, 3, 4, C, dtype=dtype)
@@ -118,27 +120,47 @@ def test_wrappers_launch_the_kernels_of_their_route(monkeypatch, dtype, C, F):
     conv3d.conv3d_wgrad(x, g)
     conv3d.conv3d_same_na(x, *stats, w, "relu")
     conv3d.conv3d_wgrad_na(x, *stats, g, "relu")
-    tc = conv3d.conv3d_route(dtype, C, F) == conv3d.TENSOR_CORE
-    assert calls[:3] == ([("_launch_fwd_tc", "conv3d_same_fwd_tc", False),
-                          ("_launch_fwd_tc", "conv3d_dgrad_tc", True),
-                          ("_launch_wgrad_tc", None, False)] if tc else
-                         [("_launch_fwd", "conv3d_same_fwd", False),
-                          ("_launch_fwd", "conv3d_dgrad", False),
-                          ("_launch_wgrad", None, False)])
-    assert [c[0] for c in calls[3:]] == (
-        ["_launch_fwd_tc", "_launch_wgrad_tc"] if tc else
-        ["_launch_fwd", "_launch_wgrad"])
-    assert calls[3][1] == ("conv3d_same_na_fwd_tc" if tc else
-                           "conv3d_same_na_fwd")
+    route = conv3d.conv3d_route(dtype, C, F)
+    assert calls[:3] == {
+        conv3d.TENSOR_CORE: [("_launch_fwd_tc", "conv3d_same_fwd_tc", False),
+                             ("_launch_fwd_tc", "conv3d_dgrad_tc", True),
+                             ("_launch_wgrad_tc", None, False)],
+        conv3d.TF32X3: [("_launch_fwd_tf32", "conv3d_same_fwd_tf32", False),
+                        ("_launch_fwd_tf32", "conv3d_dgrad_tf32", True),
+                        ("_launch_wgrad", None, False)],
+        conv3d.CUDA_CORE: [("_launch_fwd", "conv3d_same_fwd", False),
+                           ("_launch_fwd", "conv3d_dgrad", False),
+                           ("_launch_wgrad", None, False)]}[route]
+    assert [c[0] for c in calls[3:]] == {
+        conv3d.TENSOR_CORE: ["_launch_fwd_tc", "_launch_wgrad_tc"],
+        conv3d.TF32X3: ["_launch_fwd_tf32", "_launch_wgrad"],
+        conv3d.CUDA_CORE: ["_launch_fwd", "_launch_wgrad"]}[route]
+    assert calls[3][1] == conv3d.FORWARD_KEYS[route][2]
+
+
+#: the widths MedFormer-3D sends to the kernels (and the ragged 24 -> 40)
+MEDFORMER_WIDTHS = [(32, 32), (64, 64), (96, 32), (192, 64), (128, 128),
+                    (24, 40)]
 
 
 def test_every_medformer_width_takes_the_tensor_core_route():
     """The widths MedFormer-3D sends to the kernels, forward and dgrad."""
-    widths = [(32, 32), (64, 64), (96, 32), (192, 64), (128, 128), (24, 40)]
-    for C, F in widths:
+    for C, F in MEDFORMER_WIDTHS:
         for c, f in ((C, F), (F, C)):
             assert conv3d.conv3d_route(torch.bfloat16, c, f) == \
                 conv3d.TENSOR_CORE, (c, f)
+
+
+def test_every_fp32_medformer_width_takes_the_tf32_route():
+    """fp32 serving (AMOS-CT) and the fp32 step: every forward and dgrad
+    width on the TF32 kernels, whose fused forward takes them too."""
+    for C, F in MEDFORMER_WIDTHS:
+        for c, f in ((C, F), (F, C)):
+            route = conv3d.conv3d_route(torch.float32, c, f)
+            assert route == conv3d.TF32X3, (c, f)
+            assert conv3d.FORWARD_KEYS[route] == (
+                "conv3d_same_fwd_tf32", "conv3d_dgrad_tf32",
+                "conv3d_same_na_fwd_tf32")
 
 
 @pytest.mark.parametrize("F,bn,n_tiles", [

@@ -90,15 +90,16 @@ def _w_to_jax(w):
     (torch.bfloat16, 96, 32, conv3d.TENSOR_CORE),
     (torch.bfloat16, 192, 64, conv3d.TENSOR_CORE),
     (torch.bfloat16, 128, 128, conv3d.TENSOR_CORE),
-    (torch.float32, 32, 32, conv3d.CUDA_CORE),
-    (torch.float32, 96, 32, conv3d.CUDA_CORE),
+    (torch.float32, 32, 32, conv3d.TF32X3),
+    (torch.float32, 96, 32, conv3d.TF32X3),
     (torch.bfloat16, 20, 36, conv3d.CUDA_CORE),
     (torch.bfloat16, 1, 32, conv3d.CUDA_CORE),
 ])
 def test_fused_pair_route(dtype, C, F, route):
-    """The fused pair follows conv3d_route: bf16 at widths of multiples of 8
-    (every width MedFormer-3D fuses) on the tensor cores, the rest on the
-    CUDA cores."""
+    """The fused pair follows conv3d_route: at widths of multiples of 8
+    (every width MedFormer-3D fuses) bf16 on the tensor cores and fp32 on
+    the TF32 forward (its wgrad on the CUDA cores), the rest on the CUDA
+    cores."""
     assert conv3d.conv3d_route(dtype, C, F) == route
 
 
@@ -108,8 +109,9 @@ def test_fused_pair_route(dtype, C, F, route):
 def test_fused_pair_wrappers_launch_their_route(monkeypatch, dtype, C, F):
     """With the launches recorded in place of the card: conv3d_same_na and
     conv3d_wgrad_na pass their statistics and act to the tensor-core
-    launchers on that route, to the CUDA-core ones otherwise, and launch
-    nothing else."""
+    launchers on that route, on the TF32 route to the TF32 forward and the
+    CUDA-core wgrad, to the CUDA-core ones otherwise, and launch nothing
+    else."""
     calls = []
 
     def record(name):
@@ -122,8 +124,8 @@ def test_fused_pair_wrappers_launch_their_route(monkeypatch, dtype, C, F):
             return torch.empty(0)
         return launch
 
-    for fn in ("_launch_fwd", "_launch_fwd_tc", "_launch_wgrad",
-               "_launch_wgrad_tc"):
+    for fn in ("_launch_fwd", "_launch_fwd_tc", "_launch_fwd_tf32",
+               "_launch_wgrad", "_launch_wgrad_tc"):
         monkeypatch.setattr(conv3d, fn, record(fn))
     monkeypatch.setattr(conv3d._backend, "uses_kernels", lambda t: True)
     x = torch.zeros(1, 2, 3, 4, C, dtype=dtype)
@@ -132,11 +134,14 @@ def test_fused_pair_wrappers_launch_their_route(monkeypatch, dtype, C, F):
     mean, rstd = torch.zeros(1, C), torch.ones(1, C)
     conv3d.conv3d_same_na(x, mean, rstd, w, "gelu")
     conv3d.conv3d_wgrad_na(x, mean, rstd, g, "gelu")
-    tc = conv3d.conv3d_route(dtype, C, F) == conv3d.TENSOR_CORE
-    assert [c[:2] for c in calls] == (
-        [("_launch_fwd_tc", "conv3d_same_na_fwd_tc"),
-         ("_launch_wgrad_tc", None)] if tc else
-        [("_launch_fwd", "conv3d_same_na_fwd"), ("_launch_wgrad", None)])
+    assert [c[:2] for c in calls] == {
+        conv3d.TENSOR_CORE: [("_launch_fwd_tc", "conv3d_same_na_fwd_tc"),
+                             ("_launch_wgrad_tc", None)],
+        conv3d.TF32X3: [("_launch_fwd_tf32", "conv3d_same_na_fwd_tf32"),
+                        ("_launch_wgrad", None)],
+        conv3d.CUDA_CORE: [("_launch_fwd", "conv3d_same_na_fwd"),
+                           ("_launch_wgrad", None)],
+    }[conv3d.conv3d_route(dtype, C, F)]
     for _, _, na in calls:
         assert na[0] is mean and na[1] is rstd and na[2] == "gelu"
 
