@@ -86,10 +86,16 @@ class VolumeDataset:
     def __len__(self):
         return len(self.images)
 
+    def test_item(self, idx):
+        """(img, lab, spacing) of test volume ``idx``, the validation's
+        input."""
+        return self.images[idx], self.labels[idx], self.spacings[idx]
+
 
 class SliceDataset(VolumeDataset):
     """Base for 2D datasets: the volumes load as in 3D, and in train mode
-    each is split into its z slices, the samples the 2D pipeline draws
+    each is split into its z slices, the samples the 2D pipeline draws; in
+    test mode the volumes stay whole, for validation
     (reference training/dataset/dim2/dataset_acdc.py:66-90)."""
 
     dimension = "2d"
@@ -101,3 +107,15 @@ class SliceDataset(VolumeDataset):
                            for s in img]
             self.labels = [np.ascontiguousarray(s) for lab in self.labels
                            for s in lab]
+
+    def test_item(self, idx):
+        """Whole volume, centre-cropped in y/x to the training size where it
+        is at least that large (dim2 dataset_acdc.py:154-166)."""
+        img, lab = self.images[idx], self.labels[idx]
+        th, tw = self.cfg.training_size[:2]
+        y = (img.shape[1] - th) // 2
+        x = (img.shape[2] - tw) // 2
+        if y >= 0 and x >= 0:
+            img = img[:, y:y + th, x:x + tw]
+            lab = lab[:, y:y + th, x:x + tw]
+        return img, lab, self.spacings[idx]

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..config import compute_dtype
 from ..models.layers.convs import CHANNELS_LAST
 
 
@@ -181,12 +182,17 @@ def make_engine(model, cfg, window_batch: int | str | None = None
                 ) -> InferenceEngine:
     """Wrap a model into an InferenceEngine: inputs cast to the model's
     dtype in the model's channels-last memory format, head 0 of
-    deep-supervision models (reference inference3d.py:22-24)."""
+    deep-supervision models (reference inference3d.py:22-24).  A model
+    held in fp32 for training whose config computes in bf16 runs under bf16
+    autocast on CUDA, as its train step does (validation's forward)."""
     dtype = next(model.parameters()).dtype
     memory_format = CHANNELS_LAST[2 if cfg.dimension == "2d" else 3]
+    amp = dtype == torch.float32 and compute_dtype(cfg) == torch.bfloat16
 
     def apply_fn(x):
-        out = model(x.to(dtype).contiguous(memory_format=memory_format))
+        with torch.autocast("cuda", dtype=torch.bfloat16,
+                            enabled=amp and x.is_cuda):
+            out = model(x.to(dtype).contiguous(memory_format=memory_format))
         return out[0] if isinstance(out, (tuple, list)) else out
 
     if cfg.get("window_fusion", "uniform") != "uniform":

@@ -11,6 +11,8 @@ tensor cores would draw less power.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 #: published dense peaks of one H100 SXM (fp32 on the CUDA cores, bf16 and
@@ -40,6 +42,16 @@ def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` reports them (the first card)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def card(device: str = "cuda") -> torch.device:

@@ -7,9 +7,11 @@ runs, a loss fetch every ``print_freq`` steps, the volumes/s meter, and the
 latest checkpoint.  A 3D epoch is ``iter_per_epoch`` steps, a 2D epoch the
 slice count // batch.  With ``cfg.profile_dir`` the first epoch's steps
 after its first two (first use of every kernel, cuDNN's algorithm search)
-are traced (``utils.profiling``).  Validation (and with it the best checkpoint) is not
-ported yet: a run whose epochs would validate raises before its first step.
-Data parallelism is not ported either (ROADMAP.md).
+are traced (``utils.profiling``).  Every ``val_freq`` epochs the EMA model
+(the live one without EMA) is evaluated on the fold's test split
+(``validation.validate``: Dice, ASD, HD95), the scalars logged, and the best
+evaluation by mean Dice kept, with its checkpoint.  Data parallelism is not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -23,23 +25,16 @@ import torch
 
 from ..data.factory import get_dataset
 from ..data.pipeline import TrainPipeline
+from ..inference.engines import make_engine
 from ..models import get_model
 from ..ops._backend import get_device
-from ..utils.logging import AverageMeter, MetricWriter, ProgressMeter
+from ..utils.logging import (AverageMeter, MetricWriter, ProgressMeter,
+                             log_evaluation_result)
 from ..utils.profiling import StepProfiler
 from .checkpoint import load_checkpoint, load_weights, save_checkpoint
 from .schedules import exp_lr_scheduler_with_warmup
-from .train_state import create_train_state, make_train_step
-
-
-def check_no_validation(start_epoch: int, epochs: int, val_freq: int) -> None:
-    """Raise if any epoch in [start_epoch, epochs) would validate."""
-    due = [e for e in range(start_epoch, epochs) if (e + 1) % val_freq == 0]
-    if due:
-        raise NotImplementedError(
-            f"validation is not ported yet (see ROADMAP.md), and epochs "
-            f"{[e + 1 for e in due]} would validate (val_freq {val_freq}); "
-            f"set val_freq above epochs")
+from .train_state import create_train_state, eval_variables, make_train_step
+from .validation import filter_validation_results, validate
 
 
 def load_pretrained(cfg, state) -> None:
@@ -55,11 +50,12 @@ def load_pretrained(cfg, state) -> None:
 
 def train_net(cfg, fold_idx: int = 0, device="cuda"):
     """Train one fold on ``device`` (the card unless the caller asks for the
-    CPU); returns (best_dice, best_hd, best_asd) arrays, which stay at their
-    initial values until validation is ported."""
+    CPU); returns (best_dice, best_hd, best_asd): the arrays of the best
+    evaluation, or the initial zeros and 1000s when none ran or every one
+    was NaN (an empty test split)."""
     device = get_device(device)
-    check_no_validation(cfg.start_epoch, cfg.epochs, cfg.val_freq)
     trainset = get_dataset(cfg, mode="train", fold_idx=fold_idx)
+    testset = get_dataset(cfg, mode="test", fold_idx=fold_idx)
     pipeline = TrainPipeline(trainset, cfg, seed=cfg.split_seed + fold_idx,
                              device=device)
     logging.info("Created Dataset and Pipeline")
@@ -81,7 +77,6 @@ def train_net(cfg, fold_idx: int = 0, device="cuda"):
     if cfg.resume and cfg.load:
         state, start_epoch = load_checkpoint(cfg.load, state)
         logging.info("Resumed from %s at epoch %d", cfg.load, start_epoch)
-        check_no_validation(start_epoch, cfg.epochs, cfg.val_freq)
     elif cfg.pretrain and cfg.get("init_model"):
         load_pretrained(cfg, state)
         logging.info("Initialized from checkpoint %s", cfg.init_model)
@@ -95,6 +90,13 @@ def train_net(cfg, fold_idx: int = 0, device="cuda"):
     best_dice = np.zeros(cfg.classes)
     best_hd = np.ones(cfg.classes) * 1000
     best_asd = np.ones(cfg.classes) * 1000
+    # the reference's scalar rule (train.py:87,117): the initial best is
+    # mean(zeros) = 0, and >= makes the first evaluation win
+    best_mean = 0.0
+    # one engine for the fold: the module it wraps (the EMA copy) is
+    # updated in place by every step
+    eval_model = eval_variables(state, cfg.ema)
+    eval_engine = make_engine(eval_model, cfg)
 
     for epoch in range(start_epoch, cfg.epochs):
         lr = exp_lr_scheduler_with_warmup(cfg.base_lr, epoch, warmup_epoch=5,
@@ -141,10 +143,27 @@ def train_net(cfg, fold_idx: int = 0, device="cuda"):
                               epoch + 1)
         writer.add_scalar("Train/Loss", epoch_loss.avg, epoch + 1)
         writer.add_scalar("LR", lr, epoch + 1)
-        if cfg.get("save_ckpt", True):
+        save_ckpt = cfg.get("save_ckpt", True)
+        if save_ckpt:
             save_checkpoint(os.path.join(ckpt_dir,
                                          f"fold_{fold_idx}_latest.ckpt"),
                             state, epoch + 1)
+
+        if (epoch + 1) % cfg.val_freq == 0:
+            dice, asd, hd = validate(eval_model, testset, cfg,
+                                     engine=eval_engine)
+            dice, asd, hd = filter_validation_results(dice, asd, hd, cfg)
+            log_evaluation_result(writer, dice, asd, hd, "test", epoch)
+            if np.nanmean(dice) >= best_mean:
+                best_mean = float(np.nanmean(dice))
+                best_dice, best_hd, best_asd = dice, hd, asd
+                if save_ckpt:
+                    save_checkpoint(os.path.join(
+                        ckpt_dir, f"fold_{fold_idx}_best.ckpt"), state,
+                        epoch + 1)
+            logging.info("Evaluation Done")
+            logging.info("Dice: %.4f / Best Dice: %.4f", np.nanmean(dice),
+                         best_mean)
 
     writer.close()
     return best_dice, best_hd, best_asd

@@ -77,3 +77,13 @@ class MetricWriter:
 
     def close(self):
         self._f.close()
+
+
+def log_evaluation_result(writer: MetricWriter, dice, asd, hd, name: str,
+                          epoch: int) -> None:
+    """The per-class and mean Dice, ASD and HD scalars of one evaluation,
+    at step epoch + 1 (reference training/utils.py:17-28)."""
+    for kind, values in (("Dice", dice), ("ASD", asd), ("HD", hd)):
+        writer.add_scalar(f"{kind}/{name}_AVG", values.mean(), epoch + 1)
+        for i, v in enumerate(values):
+            writer.add_scalar(f"{kind}/{name}_{kind}{i + 1}", v, epoch + 1)

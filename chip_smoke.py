@@ -51,6 +51,11 @@ Phases, each printing its result; any failure raises and exits non-zero:
    package's ``CBIM_PLCONV2D=1``);
 4d. a small SwinUNETR (feature size 48, on 2 x 64^3 and 1 x 32^3), card
    (window-attention kernel) vs CPU (plain version): softmax outputs;
+4e. ``validate`` (``cbim_tpu_torch.training.validation``) of phase 4's
+   small MedFormer-3D, same seeded weights, on one 72 x 64 x 80
+   Synthetic3D test volume by 64^3 sliding window, card (fp32: the TF32
+   forwards) vs CPU: the label maps agree on at least 99.9 % of voxels and
+   each class's Dice within 1e-3;
 5. serving: the full-width AMOS-CT MedFormer-3D with seeded random weights
    serves two synthetic NIfTI requests through
    ``cbim_tpu_torch.prediction.main``; every forward kernel must have
@@ -73,6 +78,15 @@ Phases, each printing its result; any failure raises and exits non-zero:
    ``conv3d_same_na_fwd_tc`` (remat incl.), 20 ``conv3d_wgrad_na_tc`` and
    20 ``conv3d_dgrad_tc`` launches, no other 3^3 launch (the CUDA-core
    fused pair none); sec/step and peak memory beside phase 6's;
+6v. validation: the flagship recipe with ``val_freq`` 1 on five 160^3
+   volumes (fold 0 of 5: one test volume) trains two steps, then its
+   epoch ends in the EMA model's evaluation by 128^3 sliding window (8
+   windows, 2 forwards at the auto window batch of 4), in bf16 like the
+   step: 20 ``conv3d_same_fwd_tc`` launches per evaluation forward beside
+   the steps' (no fp32 3^3 launch); the returned Dice, HD95 and ASD have
+   15 finite entries and ``fold_0_best.ckpt`` exists; the window sweep's
+   and the host distances' seconds per volume and the sweep's peak
+   memory;
 7. 2D serving: the full-width ACDC MedFormer-2D with seeded random weights
    serves two synthetic cine-MR NIfTI requests through
    ``cbim_tpu_torch.prediction.main --dimension 2d`` (every slice of a
@@ -87,6 +101,11 @@ Phases, each printing its result; any failure raises and exits non-zero:
 8b. the same recipe with ``conv2d_kernel`` off, the default: the 3x3 convs
    are cuDNN's and no 3x3 kernel of either route launches; sec/step,
    slices/s and peak memory beside phase 8's;
+8v. 2D validation: the ACDC recipe with ``val_freq`` 1 on 10 cases trains
+   one step, then evaluates the EMA model on the 2 test volumes (every
+   slice of a volume the batch, centre-cropped to 256^2, whole image), in
+   bf16 on the 3x3 kernel route: 14 ``conv2d_same_fwd_tc`` launches per
+   evaluation forward; seconds per volume as in 6v;
 9. Swin serving: the full-width BCV SwinUNETR (``configs/bcv/
    swin_unetr_3d.yaml``: 14 classes, feature size 48, 128^3 window, fp32)
    with seeded random weights serves phase 5's two requests through
@@ -105,11 +124,11 @@ Phases, each printing its result; any failure raises and exits non-zero:
    timed beside the rungs), with its time, bound, plain and library
    times.
 
-Each of phases 5-10 (5b, 6b and 8b included) sets the launch counters to 0
-just before it and reads them just after.  The last three lines are the
-card's name and power limit, the kernels' JSON record (launches by phase,
-errors, times, the bound from the recorded shape's FLOPs and bytes) and
-``{"ok": true, "device": {...}}``.
+Each of phases 4e and 5-10 (5b, 6b, 6v, 8b and 8v included) sets the launch
+counters to 0 just before it and reads them just after.  The last three
+lines are the card's name and power limit, the kernels' JSON record
+(launches by phase, errors, times, the bound from the recorded shape's
+FLOPs and bytes) and ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--profile DIR]
 
@@ -130,12 +149,11 @@ import math
 import os
 import shutil
 import statistics
-import subprocess
 import sys
 import time
 
 # the timing and the bound (published H100 peaks) that the probes use too
-from cbim_tpu_torch.tools import HBM_BYTES_PER_S, bound_ms, cuda_ms
+from cbim_tpu_torch.tools import HBM_BYTES_PER_S, bound_ms, card_line, cuda_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -377,7 +395,7 @@ SMALL = dict(
 #: the flagship training recipe of bench.py:70-89 (16 classes, GELU, 128^3
 #: crops, bf16 with remat of every stage, AdamW, EMA) on its synthetic
 #: corpus of three 192^3 volumes; one epoch of a few steps, validation off
-#: (val_freq above epochs: it is not ported yet)
+#: (val_freq above epochs; phase 6v validates)
 FLAGSHIP = dict(
     dataset="synthetic", model="medformer", dimension="3d", classes=16,
     in_chan=1, base_chan=32, conv_block="BasicBlock",
@@ -395,6 +413,24 @@ FLAGSHIP = dict(
     remat=True, synthetic_cases=3, synthetic_shape=[192, 192, 192],
     epochs=1, iter_per_epoch=6, print_freq=1, val_freq=2)
 TRAIN_BATCH = 2
+#: phase 6v: the flagship recipe on five 160^3 volumes, fold 0 of 5 (one
+#: test volume), two steps, then the EMA model's evaluation by 128^3
+#: sliding window: 8 windows, 2 forwards at the auto window batch of 4
+FLAGSHIP_VAL = dict(
+    FLAGSHIP, synthetic_cases=5, k_fold=5, synthetic_shape=[160, 160, 160],
+    iter_per_epoch=2, epochs=1, val_freq=1, sliding_window=True,
+    window_size=[128, 128, 128])
+#: phase 4e: phase 4's small MedFormer-3D evaluated by a 64^3 sliding window
+#: on one 72 x 64 x 80 Synthetic3D test volume (4 windows, clamped edges:
+#: one forward at the auto window batch of 4)
+SMALL_VAL = dict(
+    SMALL, training_size=[64, 64, 64], sliding_window=True,
+    window_size=[64, 64, 64], synthetic_cases=5, k_fold=5,
+    synthetic_shape=[72, 64, 80])
+#: phase 4e: the least share of voxels labelled alike by the card's and the
+#: CPU's validation, and the largest difference of a class's Dice
+VAL_LABEL_AGREEMENT = 0.999
+VAL_DICE_ATOL = 1e-3
 #: steps left out of the step-time median (first use of every kernel and
 #: of cuDNN's algorithm search)
 WARMUP_STEPS = 2
@@ -469,7 +505,7 @@ TARGET_SPACING_2D = "1.5625,1.5625"
 #: 256^2 crops, affine pad 32, AdamW 5e-4 wd 0.05, EMA 0.99, aux loss
 #: [0.5, 0.5], class weights [0.5, 1, 1, 1]) on Synthetic2D: 40 cases of
 #: 6 x 320^2, of which fold 0 trains on 32, 192 slices: one epoch of 6
-#: steps at batch 32; validation off (not ported)
+#: steps at batch 32; validation off (phase 8v validates)
 ACDC_TRAIN = dict(
     ACDC, dataset="synthetic", aux_weight=[0.5, 0.5],
     weight=[0.5, 1.0, 1.0, 1.0], rlt=1, optimizer="adamw", base_lr=5e-4,
@@ -478,6 +514,10 @@ ACDC_TRAIN = dict(
     gaussian_noise_std=0.02, synthetic_cases=40, k_fold=5, split_seed=0,
     epochs=1, print_freq=1, val_freq=2)
 TRAIN2D_BATCH = 32
+#: phase 8v: the ACDC recipe on 10 cases, fold 0 of 5 (48 slices: one step
+#: at batch 32), then the EMA model's evaluation of the 2 test volumes (6
+#: slices each, centre-cropped to 256^2: one whole-image forward a volume)
+ACDC_VAL = dict(ACDC_TRAIN, synthetic_cases=10, val_freq=1)
 
 #: phase 10's JSON records: the copy-scale's 16-byte, 2048-element case
 #: (its library call: ``x * 2`` on the 128-wide view), the weight-stationary
@@ -496,14 +536,6 @@ DOT_CHECK_TILES = 64
 
 def say(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def iters_for(flops_or_bytes: float, per_ms: float) -> int:
@@ -1360,6 +1392,139 @@ def phase_small_train_step(device, cfg_dict, shape, amp: bool = False
     return loss_err, l2_err, worst
 
 
+def phase_small_validate(device, cfg_dict) -> dict:
+    """Phase 4e: ``validate`` of the small model on a Synthetic3D test
+    split, same seeded weights, on the CPU (plain versions) and then on
+    the card (kernels, launch counters zeroed just before); returns the
+    share of voxels both label maps agree on, the largest Dice difference,
+    both results and the card's launch counts."""
+    import torch
+    from cbim_tpu_torch.config import config_from_dict
+    from cbim_tpu_torch.data.datasets import Synthetic3D
+    from cbim_tpu_torch.models import get_model
+    from cbim_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from cbim_tpu_torch.training import validation
+    cfg = config_from_dict(cfg_dict)
+    cpu_model = seeded_model(cfg, 5)
+    dev_model = get_model(cfg, device=device)
+    dev_model.load_state_dict(cpu_model.state_dict())
+    testset = Synthetic3D(cfg, mode="test", k_fold=cfg.k_fold)
+    maps = []
+    calculate = validation.calculate_distance
+
+    def recorded(pred, lab, spacing, num_classes):
+        maps.append(pred)
+        return calculate(pred, lab, spacing, num_classes)
+
+    validation.calculate_distance = recorded
+    try:
+        ref = validation.validate(cpu_model, testset, cfg)
+        reset_launch_counts()
+        out = validation.validate(dev_model, testset, cfg)
+        counts = launch_counts()
+    finally:
+        validation.calculate_distance = calculate
+    n = len(testset)
+    assert len(maps) == 2 * n, len(maps)
+    same = sum(int((a == b).sum()) for a, b in zip(maps[:n], maps[n:]))
+    dice_err = max(abs(a - b) for a, b in zip(out[0], ref[0]))
+    return {"agreement": same / sum(m.size for m in maps[n:]),
+            "dice_err": float(dice_err), "cpu": ref, "card": out,
+            "launches": counts}
+
+
+def phase_train_validate(device, cfg_dict, batch: int, name: str) -> dict:
+    """Phases 6v and 8v: train a recipe with ``val_freq`` 1 through
+    ``cbim_tpu_torch.train.main`` with bf16 autocast, so that its epoch
+    ends in the EMA model's evaluation on the test split.  The launch
+    counters are zeroed just before and read just after; the evaluation's
+    model forwards are counted (the eval-mode calls of the model class),
+    and per test volume its window sweep (to the label map on the host)
+    and host distances are timed and the sweep's peak device memory read.
+    """
+    import torch
+    from cbim_tpu_torch import train
+    from cbim_tpu_torch.config import config_from_dict
+    from cbim_tpu_torch.models import medformer
+    from cbim_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from cbim_tpu_torch.training import validation
+
+    cfg = config_from_dict(cfg_dict)
+    model_cls = (medformer.MedFormer2D if cfg.dimension == "2d"
+                 else medformer.MedFormer3D)
+    run = os.path.join(WORK, name)
+    argv = ["--dataset", cfg.dataset, "--model", "medformer", "--dimension",
+            cfg.dimension, "--batch_size", str(batch), "--amp",
+            "--cp_path", os.path.join(run, "exp"),
+            "--log_path", os.path.join(run, "log"), "--unique_name", name,
+            "--folds", "1", "--device", str(device)]
+    sweep, distances, peaks, forwards = [], [], [], []
+    predict, calculate = validation.predict_labels, \
+        validation.calculate_distance
+
+    def timed_predict(engine, img, cfg, dev):
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        labels = predict(engine, img, cfg, dev)       # ends on the host
+        sweep.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated(device))
+        return labels
+
+    def timed_calculate(*args):
+        t0 = time.perf_counter()
+        out = calculate(*args)
+        distances.append(time.perf_counter() - t0)
+        return out
+
+    def count_forward(module, args, out):
+        if isinstance(module, model_cls) and not module.training:
+            forwards.append(1)
+
+    validation.predict_labels = timed_predict
+    validation.calculate_distance = timed_calculate
+    hook = torch.nn.modules.module.register_module_forward_hook(
+        count_forward)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        (dice, hd, asd), = train.main(argv, cfg=cfg)
+    finally:
+        hook.remove()
+        validation.predict_labels = predict
+        validation.calculate_distance = calculate
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+
+    rows = [json.loads(ln) for ln in open(os.path.join(
+        run, "log", cfg.dataset, name, "fold_0", "scalars.jsonl"))]
+    step_loss = [r["value"] for r in rows if r["tag"] == "Train/StepLoss"]
+    assert step_loss and all(math.isfinite(v) for v in step_loss), rows
+    assert any(r["tag"] == "Dice/test_AVG" for r in rows), rows
+    exp = os.path.join(run, "exp", cfg.dataset, name)
+    assert os.path.exists(os.path.join(exp, "fold_0_best.ckpt"))
+    for arr in (dice, hd, asd):
+        assert arr.shape == (cfg.classes - 1,) and \
+            all(math.isfinite(v) for v in arr), (dice, hd, asd)
+    assert sweep and len(sweep) == len(distances), (sweep, distances)
+    return {"dice": dice, "hd": hd, "asd": asd, "steps": len(step_loss),
+            "eval_forwards": len(forwards), "sweep": sweep,
+            "distances": distances, "peak_bytes": max(peaks),
+            "seconds": seconds, "launches": counts}
+
+
+def say_validation(res: dict) -> None:
+    n = len(res["sweep"])
+    sweep, dist = sum(res["sweep"]) / n, sum(res["distances"]) / n
+    say(f"  {res['steps']} steps, then {n} test volume(s) in "
+        f"{res['eval_forwards']} forwards: sec/volume {sweep + dist:.3f} "
+        f"(window sweep {sweep:.3f}, host distances {dist:.3f}); sweep "
+        f"peak device memory {res['peak_bytes'] / 2 ** 30:.2f} GiB; "
+        f"train.main {res['seconds']:.1f} s")
+    say(f"  mean Dice {res['dice'].mean():.4f}, HD95 {res['hd'].mean():.3f},"
+        f" ASD {res['asd'].mean():.3f}; launches {res['launches']}")
+
+
 def write_requests(in_dir: str, requests, seed: int = 0,
                    mr: bool = False) -> None:
     """Synthetic volumes from numpy, seeded: CT-like (HU, int16) or, with
@@ -1895,6 +2060,27 @@ def main(argv=None) -> int:
         say(f"  {shape} softmax max abs err {err:.3e} "
             f"(tol {MODEL_PROB_ATOL})")
 
+    say("[phase 4e] validate of the small MedFormer-3D on a Synthetic3D "
+        "test volume, card vs CPU")
+    val = phase_small_validate(device, SMALL_VAL)
+    counts = val["launches"]
+    say(f"  label maps agree on {100 * val['agreement']:.4f} % of voxels "
+        f"(min {100 * VAL_LABEL_AGREEMENT} %); Dice card "
+        f"{[round(float(v), 4) for v in val['card'][0]]} vs CPU "
+        f"{[round(float(v), 4) for v in val['cpu'][0]]}, max diff "
+        f"{val['dice_err']:.2e} (tol {VAL_DICE_ATOL}); HD95 card "
+        f"{[round(float(v), 3) for v in val['card'][2]]} vs CPU "
+        f"{[round(float(v), 3) for v in val['cpu'][2]]}")
+    assert val["agreement"] >= VAL_LABEL_AGREEMENT, val["agreement"]
+    assert val["dice_err"] <= VAL_DICE_ATOL, val["dice_err"]
+    # fp32 at widths of multiples of 8: the TF32 forward only, 20 a forward
+    assert counts["conv3d_same_fwd_tf32"] > 0 and \
+        counts["conv3d_same_fwd_tf32"] % NA_CONVS == 0 and not any(
+            counts[k] for k in CONV3D_KERNELS
+            if k != "conv3d_same_fwd_tf32"), counts
+    assert all(counts[k] > 0 for k in FORWARD_KERNELS), counts
+    launches["4e"] = counts
+
     say("[phase 5] AMOS-CT MedFormer-3D serving 2 NIfTI requests")
     res = phase_slice(device, AMOS, REQUESTS, TARGET_SPACING, "serve3d",
                       FORWARD_KERNELS, profile_dir("serve3d"))
@@ -1981,6 +2167,23 @@ def main(argv=None) -> int:
         say(f"  {key} at {CONV_RECORD}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, cuDNN {lib_ms:.3f} ms")
 
+    say("[phase 6v] the flagship recipe validating: 2 steps on five 160^3 "
+        "volumes, then the EMA model's 128^3 sliding-window evaluation")
+    tv = phase_train_validate(device, FLAGSHIP_VAL, TRAIN_BATCH,
+                              "flagship_val")
+    say_validation(tv)
+    counts, steps = tv["launches"], tv["steps"]
+    # bf16 evaluation on the tensor-core forward: 20 a forward (no remat
+    # in eval), beside the steps' 40 forwards, 20 dgrads and 20 wgrads
+    assert tv["eval_forwards"] == 2, tv["eval_forwards"]
+    want = dict(conv3d_same_fwd_tc=NA_CONVS * (2 * steps
+                                               + tv["eval_forwards"]),
+                conv3d_dgrad_tc=NA_CONVS * steps,
+                conv3d_wgrad_tc=NA_CONVS * steps,
+                **{k: 0 for k in CORE_CONV_KERNELS + TF32_CONV_KERNELS})
+    assert all(counts[k] == v for k, v in want.items()), (counts, want)
+    launches["6v"] = counts
+
     say("[phase 7] ACDC MedFormer-2D serving 2 NIfTI requests (slice batch)")
     res = phase_slice(device, ACDC, REQUESTS_2D, TARGET_SPACING_2D, "serve2d",
                       ("conv2d_same_fwd",))
@@ -2026,6 +2229,20 @@ def main(argv=None) -> int:
         f"{tr_off['peak_bytes'] / 2 ** 30:.2f} vs "
         f"{tr['peak_bytes'] / 2 ** 30:.2f} GiB")
     launches["8b"] = counts
+
+    say("[phase 8v] the ACDC recipe validating: one step, then the EMA "
+        "model's evaluation of 2 test volumes (slice batch, whole image)")
+    tv = phase_train_validate(device, ACDC_VAL, TRAIN2D_BATCH, "acdc2d_val")
+    say_validation(tv)
+    counts, steps = tv["launches"], tv["steps"]
+    # bf16 evaluation on the tensor-core 3x3 forward: 14 a forward
+    assert tv["eval_forwards"] == 2, tv["eval_forwards"]
+    want = dict(conv2d_same_fwd_tc=ACDC_CONVS * (steps + tv["eval_forwards"]),
+                conv2d_dgrad_tc=ACDC_CONVS * steps,
+                conv2d_wgrad_tc=ACDC_CONVS * steps,
+                **{k: 0 for k in CORE2D_KERNELS})
+    assert all(counts[k] == v for k, v in want.items()), (counts, want)
+    launches["8v"] = counts
 
     say("[phase 9] BCV SwinUNETR serving 2 NIfTI requests")
     res = phase_slice(device, BCV, REQUESTS, TARGET_SPACING, "serve_swin",

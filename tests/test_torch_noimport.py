@@ -19,6 +19,8 @@ MODULES = [
     "cbim_tpu_torch.ops.losses",
     "cbim_tpu_torch.ops.augment",
     "cbim_tpu_torch.ops.resample",
+    "cbim_tpu_torch.ops._surfel_tables",
+    "cbim_tpu_torch.ops.metrics",
     "cbim_tpu_torch.ops.kernels",
     "cbim_tpu_torch.ops.kernels._build",
     "cbim_tpu_torch.ops.kernels.conv2d",
@@ -48,6 +50,7 @@ MODULES = [
     "cbim_tpu_torch.training.train_state",
     "cbim_tpu_torch.training.checkpoint",
     "cbim_tpu_torch.training.trainer",
+    "cbim_tpu_torch.training.validation",
     "cbim_tpu_torch.train",
     "cbim_tpu_torch.utils.logging",
     "cbim_tpu_torch.utils.profiling",
@@ -55,6 +58,7 @@ MODULES = [
     "cbim_tpu_torch.tools.probe_bandwidth",
     "cbim_tpu_torch.tools.probe_lhst_dot",
     "cbim_tpu_torch.tools.probe_conv_dissect",
+    "cbim_tpu_torch.tools.converge",
 ]
 
 #: what the port may load of cbim_tpu: nothing
@@ -120,7 +124,8 @@ def test_prediction_main_loads_only_the_allowed_host_modules(tmp_path):
 
 def test_train_main_runs_without_jax(tmp_path):
     """``train.main`` imports its modules inside the call; run a tiny
-    config to its end on the CPU with jax blocked."""
+    config to its end on the CPU with jax blocked, its epoch ending in an
+    evaluation (metrics, distances) of its one test volume."""
     cfg = dict(dataset="synthetic", model="medformer", dimension="3d",
                classes=2, base_chan=4, chan_num=[8, 8, 16, 16, 16, 8, 8, 4],
                map_size=[1, 1, 1], conv_block="BasicBlock",
@@ -131,14 +136,18 @@ def test_train_main_runs_without_jax(tmp_path):
                proj_type="depthwise", norm="in", act="gelu",
                kernel_size=[[3, 3, 3]] * 5, down_scale=[[2, 2, 2]] * 4,
                aux_loss=True, aux_weight=[0.5, 0.5], training_size=[16] * 3,
-               synthetic_cases=2, synthetic_shape=[20] * 3,
+               synthetic_cases=2, synthetic_shape=[20] * 3, k_fold=2,
+               sliding_window=True, window_size=[16] * 3,
                affine_pad_size=[4] * 3, optimizer="adamw", base_lr=1e-3,
-               epochs=1, iter_per_epoch=1, val_freq=5, ema=True)
+               epochs=1, iter_per_epoch=1, val_freq=1, ema=True)
     extra = ("from cbim_tpu_torch import train\n"
              "from cbim_tpu_torch.config import config_from_dict\n"
              f"train.main(['--batch_size', '1', '--cp_path', {str(tmp_path)!r},"
              f" '--log_path', {str(tmp_path)!r}, '--folds', '1',"
-             f" '--device', 'cpu'], cfg=config_from_dict({cfg!r}))")
+             f" '--device', 'cpu'], cfg=config_from_dict({cfg!r}))\n"
+             "import os\n"
+             f"assert os.path.exists(os.path.join({str(tmp_path)!r},"
+             " 'synthetic', 'test', 'fold_0_best.ckpt'))")
     proc = _probe("cbim_tpu_torch.train", extra)
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), \
         proc.stderr[-2000:]

@@ -328,15 +328,6 @@ def test_dropout_is_refused(key):
                   train=True)
 
 
-def test_train_net_refuses_validation_before_the_first_step(tmp_path):
-    cfg = config_from_dict(dict(TRAIN, epochs=4, val_freq=2,
-                                cp_path=str(tmp_path / "exp"),
-                                log_path=str(tmp_path / "log")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_net(cfg, device="cpu")
-    assert not (tmp_path / "exp").exists()     # nothing ran
-
-
 def _defaults_to_the_card(fn, call):
     """``fn`` defaults to device 'cuda', and ``call()`` (no device given)
     raises where torch sees no usable card: the CPU runs only when asked."""
