@@ -2,15 +2,18 @@
 k-fold splits and the host RAM cache of preprocessed volumes (3D) or of
 their slices (2D).
 
-A small re-implementation, not an import: ``cbim_tpu.data.base`` imports
-PyYAML at module top, and the port must run where PyYAML is not installed.
-``tests/test_torch_train.py`` holds the two equal.
+A re-implementation, not an import: the port imports nothing of
+``cbim_tpu``.  PyYAML is imported inside :meth:`VolumeDataset.name_list`
+only (the converted layout's ``list/dataset.yaml``), so the synthetic
+datasets need no YAML parser.  ``tests/test_torch_train.py`` and
+``tests/test_torch_datasets.py`` hold the two packages equal.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
 import random
 
 import numpy as np
@@ -55,10 +58,21 @@ class VolumeDataset:
         logging.info("Load done, length of dataset: %d", len(self.images))
 
     def name_list(self, cfg, mode, k_fold, k, seed):
-        raise NotImplementedError
+        """The case names of ``list/dataset.yaml`` under ``data_root`` (the
+        layout ``data/conversion/convert.py`` writes), k-fold split."""
+        import yaml
+        with open(os.path.join(cfg.data_root, "list", "dataset.yaml")) as f:
+            names = yaml.safe_load(f)
+        return kfold_split(names, k_fold, k, seed, mode)
 
     def load_case(self, cfg, name):
-        raise NotImplementedError
+        """Yield (img_zyx, lab_zyx, spacing_zyx) of one case:
+        ``{name}.nii.gz`` and ``{name}_gt.nii.gz``."""
+        from .nifti import read_nifti
+        img = read_nifti(os.path.join(cfg.data_root, f"{name}.nii.gz"))
+        lab = read_nifti(os.path.join(cfg.data_root, f"{name}_gt.nii.gz"))
+        assert img.data.shape == lab.data.shape, name
+        yield img.data.astype(np.float32), lab.data.astype(np.uint8), img.spacing
 
     def preprocess(self, img, lab):
         raise NotImplementedError

@@ -1,30 +1,49 @@
-"""The training input pipeline (counterpart of ``cbim_tpu/data/pipeline.py``,
-its host-window path).
+"""The training input pipeline (counterpart of ``cbim_tpu/data/pipeline.py``).
 
-    host:   pick volumes -> random (training_size + affine_pad) windows
-            -> centred in a zero buffer -> one batch, copied to the device
-    device: [pre-intensity ops] -> affine resample fused with the centre
-            crop -> [post-intensity ops]
+Two ways to the device, chosen as the JAX package chooses them
+(``device_cache``: ``auto``, true or false; ``device_cache_bytes``, 4 GB):
+
+- the device cache (``auto`` when the padded corpus fits the byte limit):
+  every volume (3D) or slice (2D) is parked once on the device, zero-padded
+  to one shape with margins on every side a window can reach, in
+  ``cache_dtype`` (bfloat16 unless the config says float32); each step
+  sends only the window starts, and the windows are sliced on the device;
+- the host windows (otherwise): each step copies the batch's precrop
+  windows into pinned host memory and moves them with a non-blocking copy.
+
+Then, on the device:
+
+    [pre-intensity ops] -> affine resample fused with the centre crop
+        -> [post-intensity / mirror ops]
+
+``full_volume`` recipes (ACDC-3D's) on the device cache follow the
+reference exactly: the pre-ops run on each sample's full cache row in fp32,
+their statistics over the true volume (a mask), the row re-zeroed outside
+it; the affine grid spans the whole true volume and the random crop
+(start ``randint(0, max(S - ts, 1))``, volume coordinates) is fused into
+the resample (``affine_sample_3d_fullvol_batch``).  On the host-window
+path a ``full_volume`` recipe runs on the (training_size + pad) precrop
+instead, the JAX package's documented approximation.  The config key
+``full_volume`` overrides the recipe's choice, as in JAX.
 
 The window sampling makes the same ``np.random.default_rng(seed)`` calls as
-the JAX package, so the host batches are identical.  The device part draws
-from ``torch.Generator``s seeded from the same seed; its streams differ from
-the JAX package's PRNG, so augmented batches match in distribution only.
+the JAX package, in its order, so the host batches, the cache and the
+window starts are identical.  The augmentation draws from
+``torch.Generator``s seeded from the same seed (per-sample scalars on the
+CPU, per-voxel noise on the device); its streams differ from the JAX
+package's PRNG, so augmented batches match in distribution only (ROADMAP
+C5).
 
 2D (slice) training draws its samples from a per-epoch permutation without
 replacement, as the JAX package does (reference DataLoader semantics); a
 batch that reaches the end of one permutation is filled from the next, so
 the n % batch tail of an epoch's slices opens the next epoch's first batch
 (ROADMAP C3).  3D draws i.i.d.
-
-Not ported (ROADMAP.md): the HBM-resident device cache, ``full_volume``
-recipes, the native threaded batch assembler, and every op but
-``gaussian_noise`` and ``brightness_multiply``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Sequence
 
 import numpy as np
@@ -32,7 +51,8 @@ import torch
 
 from ..ops import augment as A
 from ..ops._backend import get_device
-from ..ops.resample import affine_sample_2d_batch, affine_sample_3d_batch
+from ..ops.resample import (affine_sample_2d_batch, affine_sample_3d_batch,
+                            affine_sample_3d_fullvol_batch)
 
 
 @dataclass(frozen=True)
@@ -40,8 +60,13 @@ class AugRecipe:
     """Declarative training-augmentation recipe, as the JAX package's.
 
     ops are (name, prob, params) triples; prob 1.0 means unconditional.
-    pre_ops run on the precrop window before the affine, post_ops after the
-    crop."""
+    pre_ops run before the affine (ACDC style, dataset_acdc.py:141-149): on
+    the full volume when ``full_volume`` is set and the device cache is
+    active, else on the precrop window; post_ops run after the crop (AMOS
+    style, dataset_amos_ct.py:141-153).  ``num_classes`` is the JAX
+    package's class-count hint for its TPU gather, which carries labels in
+    the image dtype; the port gathers labels as integers, so it is carried
+    for parity and bounds nothing."""
     affine_prob: float = 1.0
     affine_pad: Sequence[int] = (0, 0, 0)
     scale: Sequence = (0.3, 0.3, 0.3)
@@ -51,6 +76,18 @@ class AugRecipe:
     pre_ops: tuple = ()
     post_ops: tuple = ()
     full_volume: bool = False
+    num_classes: int | None = None
+
+
+#: pre_ops that stay exact on a zero-padded full-volume cache row: pointwise
+#: ops whose padding residue the re-zero removes, and gamma, which takes the
+#: mask for its statistics.  Ops with neighbourhood or unmasked-statistic
+#: semantics (blur, contrast, ...) would diverge, so a full_volume recipe is
+#: restricted to these (``cbim_tpu/data/pipeline.py:74-80``).
+_FULLVOL_SAFE_PRE = {"gaussian_noise", "brightness_additive", "gamma"}
+
+#: the cache's dtype names (the config's ``cache_dtype``)
+_CACHE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -61,24 +98,98 @@ def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def _apply_op(name: str, prob: float, params: dict, imgs: torch.Tensor,
-              gen_host: torch.Generator, gen_dev: torch.Generator):
-    """One op over the batch; samples whose U(0, 1) draw is >= prob keep
-    their input."""
-    B = imgs.shape[0]
-    if name == "gaussian_noise" and "std" in params:
-        out = A.gaussian_noise(imgs, gen_dev, params["std"])
-    elif name == "brightness_multiply":
+def _apply_op(name: str, params: dict, imgs: torch.Tensor, labs: torch.Tensor,
+              gen_host: torch.Generator, gen_dev: torch.Generator,
+              mask=None, count=None):
+    """One op over the batch, every sample's scalars drawn from
+    ``gen_host`` (per-voxel noise from ``gen_dev``); returns (imgs, labs).
+    ``mask``/``count`` (the full-volume path) restrict gamma's statistics to
+    the true volume."""
+    B, dev = imgs.shape[0], imgs.device
+
+    def draw(lo, hi):
+        return _to_device(A.draw_uniform(gen_host, B, lo, hi), dev)
+
+    if name == "gaussian_noise":
+        if "std_range" in params:
+            std = draw(*params["std_range"])
+            noise = torch.randn(imgs.shape, generator=gen_dev, device=dev,
+                                dtype=imgs.dtype)
+            return A.add_noise(imgs, noise, std), labs
+        return A.gaussian_noise(imgs, gen_dev, params["std"]), labs
+    if name == "brightness_additive":
+        shift = torch.randn(B, generator=gen_host) * params["std"]
+        return A.brightness_additive(imgs, _to_device(shift, dev)), labs
+    if name == "brightness_multiply":
+        return A.brightness_multiply(imgs, draw(*params["range"])), labs
+    if name == "gamma":
+        return A.gamma(imgs, draw(*params["range"]),
+                       params.get("retain_stats", True), mask=mask,
+                       count=count), labs
+    if name == "contrast":
+        return A.contrast(imgs, draw(*params["range"])), labs
+    if name == "gaussian_blur":
         lo, hi = params["range"]
-        factor = _to_device(A.draw_uniform(gen_host, B, lo, hi), imgs.device)
-        out = A.brightness_multiply(imgs, factor)
-    else:
-        raise NotImplementedError(
-            f"augmentation op {name!r} is not ported yet (see ROADMAP.md)")
+        return A.gaussian_blur(imgs, draw(lo, hi), hi), labs
+    if name == "mirror":
+        return A.mirror(imgs, labs, params["axis"])
+    if name == "elastic":
+        # opt-in extra (no reference counterpart: augmentation.py is
+        # affine-only); see ops/augment.py elastic_deform_{2d,3d}
+        nd = labs.dim() - 1
+        grid = tuple(params.get("grid", (4,) * nd))
+        magnitude = tuple(params.get("magnitude", (0.05,) * nd))
+        disp = torch.rand((B, nd, *grid), generator=gen_host) * 2.0 - 1.0
+        deform = A.elastic_deform_3d if nd == 3 else A.elastic_deform_2d
+        return deform(imgs, labs, _to_device(disp, dev), magnitude)
+    raise ValueError(f"unknown aug op {name!r}")
+
+
+def _draw_gate(gen_host: torch.Generator, n: int, prob: float) -> torch.Tensor:
+    """n per-sample Bernoulli(prob) draws (bool, CPU)."""
+    return torch.rand(n, generator=gen_host) < prob
+
+
+def _gated(name, prob, params, imgs, labs, gen_host, gen_dev, mask=None,
+           count=None):
+    """``_apply_op`` behind a per-sample Bernoulli(prob) gate, drawn first:
+    samples whose gate is off keep their input, their label too; the label
+    changes only where the op changes it (mirror, elastic)."""
     if prob >= 1.0:
-        return out
-    take = _to_device(torch.rand(B, generator=gen_host) < prob, imgs.device)
-    return torch.where(take.view(-1, *[1] * (imgs.dim() - 1)), out, imgs)
+        return _apply_op(name, params, imgs, labs, gen_host, gen_dev, mask,
+                         count)
+    take = _draw_gate(gen_host, imgs.shape[0], prob)
+    out_img, out_lab = _apply_op(name, params, imgs, labs, gen_host, gen_dev,
+                                 mask, count)
+    take = _to_device(take, imgs.device)
+    img = torch.where(take.view(-1, *[1] * (imgs.dim() - 1)), out_img, imgs)
+    if out_lab is labs:
+        return img, labs
+    return img, torch.where(take.view(-1, *[1] * (labs.dim() - 1)), out_lab,
+                            labs)
+
+
+def _draw_thetas(recipe: AugRecipe, nd: int, gen_host, B: int) -> torch.Tensor:
+    """The batch's affines, identity for the samples whose Bernoulli
+    (affine_prob) branch draw is off (the reference's crop trick)."""
+    if nd == 3:
+        thetas = A.random_theta_3d(gen_host, B, recipe.scale, recipe.rotate,
+                                   recipe.translate, recipe.shear)
+    else:
+        thetas = A.random_theta_2d(gen_host, B, recipe.scale, recipe.rotate,
+                                   recipe.translate)
+    if recipe.affine_prob < 1.0:
+        take = _draw_gate(gen_host, B, recipe.affine_prob)
+        eye = torch.eye(nd, nd + 1).expand(B, nd, nd + 1)
+        thetas = torch.where(take.view(B, 1, 1), thetas, eye)
+    return thetas
+
+
+def _run_ops(ops, imgs, labs, gen_host, gen_dev, mask=None, count=None):
+    for name, prob, params in ops:
+        imgs, labs = _gated(name, prob, params, imgs, labs, gen_host, gen_dev,
+                            mask, count)
+    return imgs, labs
 
 
 def build_batch_aug(recipe: AugRecipe, crop_size):
@@ -86,71 +197,191 @@ def build_batch_aug(recipe: AugRecipe, crop_size):
     (imgs, labs)``: imgs (B, *buffer, C) float, labs (B, *buffer) int on the
     device -> (B, *crop_size, C), (B, *crop_size); 3D or 2D by the length
     of ``crop_size``.  The 2D affine is ``random_theta_2d`` (no shear
-    ranges of its own: the 2D reference draws shears from the scales)."""
-    if recipe.full_volume:
-        raise NotImplementedError("full_volume recipes are not ported yet "
-                                  "(see ROADMAP.md)")
+    ranges of its own: the 2D reference draws shears from the scales).
+    An unknown op name raises ``ValueError`` when the batch reaches it, as
+    in the JAX package."""
     crop_size = tuple(int(t) for t in crop_size)
-    for name, _, params in recipe.pre_ops + recipe.post_ops:
-        if name not in ("gaussian_noise", "brightness_multiply") \
-                or "std_range" in params:
-            raise NotImplementedError(
-                f"augmentation op {name!r} {params} is not ported yet "
-                f"(see ROADMAP.md)")
-
     nd = len(crop_size)
-    if nd == 3:
-        def draw_thetas(gen_host, B):
-            return A.random_theta_3d(gen_host, B, recipe.scale, recipe.rotate,
-                                     recipe.translate, recipe.shear)
-        sample = affine_sample_3d_batch
-    else:
-        def draw_thetas(gen_host, B):
-            return A.random_theta_2d(gen_host, B, recipe.scale, recipe.rotate,
-                                     recipe.translate)
-        sample = affine_sample_2d_batch
+    sample = affine_sample_3d_batch if nd == 3 else affine_sample_2d_batch
 
     def fn(imgs, labs, gen_host, gen_dev):
-        B = imgs.shape[0]
-        for name, prob, params in recipe.pre_ops:
-            imgs = _apply_op(name, prob, params, imgs, gen_host, gen_dev)
-        thetas = draw_thetas(gen_host, B)
-        if recipe.affine_prob < 1.0:
-            take = torch.rand(B, generator=gen_host) < recipe.affine_prob
-            eye = torch.eye(nd, nd + 1).expand(B, nd, nd + 1)
-            thetas = torch.where(take.view(B, 1, 1), thetas, eye)
+        imgs, labs = _run_ops(recipe.pre_ops, imgs, labs, gen_host, gen_dev)
+        thetas = _draw_thetas(recipe, nd, gen_host, imgs.shape[0])
         imgs, labs = sample(imgs, labs, _to_device(thetas, imgs.device),
                             out_shape=crop_size)
-        for name, prob, params in recipe.post_ops:
-            imgs = _apply_op(name, prob, params, imgs, gen_host, gen_dev)
-        return imgs, labs
+        return _run_ops(recipe.post_ops, imgs, labs, gen_host, gen_dev)
+
+    return fn
+
+
+def build_sample_aug(recipe: AugRecipe, crop_size, ndim: int):
+    """Per-sample augmentation ``fn(img_buf, lab_buf, gen_host, gen_dev) ->
+    (img, lab)``: img_buf (*buffer, C) float, lab_buf (*buffer) int -> the
+    crop.  The batched function on a batch of one (the JAX package's
+    per-sample function, which its batched one vmaps)."""
+    assert len(crop_size) == ndim, (crop_size, ndim)
+    batch_fn = build_batch_aug(recipe, crop_size)
+
+    def fn(img, lab, gen_host, gen_dev):
+        out_img, out_lab = batch_fn(img[None], lab[None], gen_host, gen_dev)
+        return out_img[0], out_lab[0]
+
+    return fn
+
+
+def build_fullvol_aug(recipe: AugRecipe, crop_size, margin):
+    """The full-volume augmentation ``fn(rows_img, rows_lab, extents,
+    starts, gen_host, gen_dev) -> (imgs, labs)`` of ACDC-style recipes on
+    the device cache: rows (B, *cache, 1) and (B, *cache) of the cache,
+    extents (B, 3) the true volume shapes, starts (B, 3) the crop starts in
+    volume coordinates, ``margin`` (3,) the volumes' placement in a row.
+    The pre-ops run in fp32 on the whole row, gamma's statistics over the
+    true volume, and the row is re-zeroed outside it; the affine spans each
+    true volume and its crop box is the only part computed."""
+    bad = [nm for (nm, _, _) in recipe.pre_ops if nm not in _FULLVOL_SAFE_PRE]
+    if bad:
+        raise ValueError(f"full_volume recipe has mask-unsafe pre_ops {bad}; "
+                         f"supported: {sorted(_FULLVOL_SAFE_PRE)}")
+    crop_size = tuple(int(t) for t in crop_size)
+    margin = [int(m) for m in margin]
+
+    def fn(rows_img, rows_lab, extents, starts, gen_host, gen_dev):
+        dev, cache_dtype = rows_img.device, rows_img.dtype
+        B, cache = rows_img.shape[0], rows_img.shape[1:4]
+        axm = []
+        for a in range(3):
+            ar = torch.arange(cache[a], device=dev)
+            axm.append((ar >= margin[a])
+                       & (ar < margin[a] + extents[:, a:a + 1]))
+        mask = (axm[0][:, :, None, None] & axm[1][:, None, :, None]
+                & axm[2][:, None, None, :])[..., None]
+        count = extents.float().prod(1)
+        # f32 pre-ops: a single non-finite voxel inside the mask would
+        # poison the whole volume through gamma's retain_stats reduction
+        imgs, labs = _run_ops(recipe.pre_ops, rows_img.float(), rows_lab,
+                              gen_host, gen_dev, mask, count)
+        imgs = torch.where(mask, imgs, 0.0)
+        thetas = _draw_thetas(recipe, 3, gen_host, B)
+        imgs, labs = affine_sample_3d_fullvol_batch(
+            imgs.to(cache_dtype), labs, _to_device(thetas, dev), extents,
+            starts, margin, crop_size)
+        return _run_ops(recipe.post_ops, imgs, labs, gen_host, gen_dev)
 
     return fn
 
 
 class TrainPipeline:
-    """Host window sampler + batched device augmentation, 3D or 2D.
+    """Window sampler + batched device augmentation, 3D or 2D, on the
+    device cache or from host windows (module docstring).
 
-    ``next_batch`` copies the batch's precrop windows into pinned host
-    memory (on CUDA), moves them with a non-blocking copy and augments them
-    on the device.  Called after the previous step is queued, the host work
-    overlaps that step.  ``device``: the card unless the caller asks for the
-    CPU."""
+    ``next_batch`` is called after the previous step is queued: the host
+    work (the draws, the window copy on the host path) overlaps that step.
+    ``device``: the card unless the caller asks for the CPU."""
 
     def __init__(self, dataset, cfg, seed: int = 0, device="cuda"):
         self.ds = dataset
+        self.cfg = cfg
         self.ndim = 3 if cfg.dimension == "3d" else 2
         self.crop_size = tuple(cfg.training_size[:self.ndim])
-        self.recipe = dataset.recipe()
+        recipe = dataset.recipe()
+        if recipe.num_classes is None:
+            recipe = replace(recipe, num_classes=int(cfg.classes))
+        self.recipe = recipe
         self.buffer_shape = tuple(
-            t + p for t, p in zip(self.crop_size, self.recipe.affine_pad))
+            t + p for t, p in zip(self.crop_size, recipe.affine_pad))
         self.device = get_device(device)
         self._rng = np.random.default_rng(seed)
         self._gen_host = torch.Generator().manual_seed(seed)
         self._gen_dev = torch.Generator(device=self.device).manual_seed(seed)
-        self._aug = build_batch_aug(self.recipe, self.crop_size)
+        self._aug = build_batch_aug(recipe, self.crop_size)
         self._epoch_perm = None
         self._perm_pos = 0
+        self.fullvol = False          # set by _init_device_cache when taken
+        self.cache_img = None         # the device cache, when taken
+
+        mode = cfg.get("device_cache", "auto")
+        if mode in (True, "auto") and len(dataset.images) > 0:
+            limit = int(cfg.get("device_cache_bytes", 4 << 30))
+            cache_shape = tuple(
+                max(max(im.shape[ax] for im in dataset.images),
+                    self.buffer_shape[ax]) for ax in range(self.ndim))
+            total = len(dataset.images) * int(np.prod(cache_shape)) * 5
+            if mode is True or total <= limit:
+                self._init_device_cache(dataset, cache_shape)
+
+    # -- the device cache -----------------------------------------------------
+
+    def _init_device_cache(self, dataset, cache_shape):
+        """Pad every volume into one (n, *cache) array with the JAX
+        package's margins (so a window start is margin + virtual start, a
+        plain non-negative slice) and move it to the device once."""
+        margins, extents = [], []
+        for ax, b in enumerate(self.buffer_shape):
+            lo_need, hi_need = 0, 0
+            for im in dataset.images:
+                s = im.shape[ax]
+                if s <= b:
+                    v_min = v_max = -((b - s) // 2)     # centred placement
+                else:
+                    m = (b - self.crop_size[ax]) // 2
+                    v_min, v_max = -m, s - b + m
+                lo_need = max(lo_need, -v_min)
+                hi_need = max(hi_need, v_max + b)
+            margins.append(lo_need)
+            extents.append(lo_need + hi_need)
+        self.cache_margin = np.asarray(margins, np.int64)
+        cache_shape = tuple(max(c, e) for c, e in zip(cache_shape, extents))
+        n = len(dataset.images)
+        imgs = np.zeros((n, *cache_shape), np.float32)
+        labs = np.zeros((n, *cache_shape), np.int8)
+        for i, (im, lb) in enumerate(zip(dataset.images, dataset.labels)):
+            box = tuple(slice(lo, lo + s) for lo, s in zip(margins, im.shape))
+            imgs[(i, *box)] = im
+            labs[(i, *box)] = lb
+        name = str(self.cfg.get("cache_dtype", "bfloat16"))
+        if name not in _CACHE_DTYPES:
+            raise ValueError(f"cache_dtype {name!r}: one of "
+                             f"{sorted(_CACHE_DTYPES)}")
+        self.cache_img = torch.from_numpy(imgs).to(self.device,
+                                                   _CACHE_DTYPES[name])
+        self.cache_lab = torch.from_numpy(labs).to(self.device)
+        self._vol_shapes = np.array([im.shape for im in dataset.images],
+                                    np.int64)
+
+        fv_cfg = self.cfg.get("full_volume")
+        fv = self.recipe.full_volume if fv_cfg is None else bool(fv_cfg)
+        self.fullvol = bool(fv) and self.ndim == 3
+        if self.fullvol:
+            self._fullvol_aug = build_fullvol_aug(self.recipe, self.crop_size,
+                                                  self.cache_margin)
+            self._extents = torch.from_numpy(self._vol_shapes).to(self.device)
+
+    def _cache_starts(self, idxs) -> np.ndarray:
+        """Per sample and axis: the window's start in the cache (margin +
+        virtual start), or with ``full_volume`` the crop start in volume
+        coordinates, randint(0, max(S - ts, 1)) (high end exclusive, the
+        reference's crop_3d)."""
+        starts = np.zeros((len(idxs), self.ndim), np.int64)
+        for i, idx in enumerate(idxs):
+            shape = self._vol_shapes[idx]
+            for ax in range(self.ndim):
+                if self.fullvol:
+                    diff = int(shape[ax]) - self.crop_size[ax]
+                    starts[i, ax] = self._rng.integers(0, max(diff, 1))
+                else:
+                    starts[i, ax] = (self.cache_margin[ax]
+                                     + self._virtual_start(int(shape[ax]), ax))
+        return starts
+
+    def _cache_windows(self, idxs, starts):
+        """The batch's (training_size + pad) windows sliced from the cache:
+        (B, *buffer, 1) in the cache dtype, (B, *buffer) int8."""
+        imgs, labs = [], []
+        for idx, st in zip(idxs.tolist(), starts.tolist()):
+            box = tuple(slice(s, s + b) for s, b in zip(st, self.buffer_shape))
+            imgs.append(self.cache_img[(idx, *box)])
+            labs.append(self.cache_lab[(idx, *box)])
+        return torch.stack(imgs)[..., None], torch.stack(labs)
 
     # -- host side (the JAX package's rng calls, in its order) --------------
 
@@ -215,8 +446,8 @@ class TrainPipeline:
         return imgs, labs
 
     def host_batch(self, batch_size: int):
-        """The precrop windows as numpy arrays: images (B, *buffer, 1)
-        float32, labels (B, *buffer) int8."""
+        """The precrop windows of the host-window path as numpy arrays:
+        images (B, *buffer, 1) float32, labels (B, *buffer) int8."""
         imgs, labs = self._host_tensors(batch_size)
         return imgs.numpy(), labs.numpy()
 
@@ -224,6 +455,22 @@ class TrainPipeline:
 
     def next_batch(self, batch_size: int):
         """(img (B, *crop, 1) float32, lab (B, *crop) int64) on the device."""
+        if self.cache_img is not None:
+            idxs = self._draw_indices(batch_size)
+            starts = self._cache_starts(idxs)
+            if self.fullvol:
+                sel = _to_device(torch.from_numpy(idxs), self.device)
+                img, lab = self._fullvol_aug(
+                    self.cache_img.index_select(0, sel)[..., None],
+                    self.cache_lab.index_select(0, sel),
+                    self._extents.index_select(0, sel),
+                    _to_device(torch.from_numpy(starts), self.device),
+                    self._gen_host, self._gen_dev)
+            else:
+                imgs, labs = self._cache_windows(idxs, starts)
+                img, lab = self._aug(imgs, labs, self._gen_host,
+                                     self._gen_dev)
+            return img.float(), lab.long()
         imgs, labs = self._host_tensors(batch_size)
         imgs = imgs.to(self.device, non_blocking=True)
         labs = labs.to(self.device, non_blocking=True).long()

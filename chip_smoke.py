@@ -35,6 +35,14 @@ Phases, each printing its result; any failure raises and exits non-zero:
    timed beside them; the rest: the CUDA-core pair), each beside the
    unfused pair of kernels it replaces (no single PyTorch call computes
    either);
+3a. the augmentation ops (``cbim_tpu_torch.ops.augment``, the pipeline's
+   device part) on the card against the same ops on the CPU with the same
+   drawn scalars, at KiTS's post-crop batch (2 x 128^3) and ACDC-3D's
+   full-volume cache rows: gamma (plain and masked), contrast, the blur at
+   the range's lowest and highest sigma, mirror on every axis, additive
+   brightness, the ``std_range`` noise with its noise tensor given, elastic
+   with its control points given, and ``affine_sample_3d_fullvol_batch``;
+   the image within 1e-5 of max|ref|, the labels equal;
 4. a small MedFormer-3D on a 64^3 input, same seeded weights, on the card
    (kernels) and on the CPU (plain versions): softmax outputs compared;
    then again with ``conv_na`` (the fused preact conv);
@@ -87,6 +95,20 @@ Phases, each printing its result; any failure raises and exits non-zero:
    15 finite entries and ``fold_0_best.ckpt`` exists; the window sweep's
    and the host distances' seconds per volume and the sweep's peak
    memory;
+6k. the KiTS recipe as a user trains it: ``configs/kits/medformer_3d.yaml``
+   as shipped (MedFormer-3D, base 32, 3 classes, 128^3 crops, remat, the
+   KiTS augmentation with its 60-voxel affine pad), read by the port's
+   ``load_config``, trained through ``cbim_tpu_torch.train.main --dataset
+   kits`` in fp32 (the CLI's default: no ``--amp``) at batch 2 for 3 steps
+   on 5 HU-like int16 NIfTI cases the script writes (about 1.25x the crop,
+   fold 0 of 5, on the device cache); every loss finite, and per step 32
+   ``conv3d_same_fwd_tf32`` (remat incl.), 16 ``conv3d_dgrad_tf32`` and 16
+   CUDA-core ``conv3d_wgrad`` launches, no tensor-core launch; sec/step and
+   peak memory;
+6a. the ACDC-3D recipe (``configs/acdc/medformer_3d.yaml``: 16 x 192 x 192
+   crops, 4 classes, fp32, batch 2) for 2 steps on 6 written cases of two
+   frames: the pipeline took the device cache and its full-volume path (one
+   full-volume resample a step), every loss finite;
 7. 2D serving: the full-width ACDC MedFormer-2D with seeded random weights
    serves two synthetic cine-MR NIfTI requests through
    ``cbim_tpu_torch.prediction.main --dimension 2d`` (every slice of a
@@ -124,15 +146,16 @@ Phases, each printing its result; any failure raises and exits non-zero:
    timed beside the rungs), with its time, bound, plain and library
    times.
 
-Each of phases 4e and 5-10 (5b, 6b, 6v, 8b and 8v included) sets the launch
-counters to 0 just before it and reads them just after.  The last three
+Each of phases 4e and 5-10 (5b, 6b, 6v, 6k, 6a, 8b and 8v included) sets
+the launch counters to 0 just before it and reads them just after.  The
+last three
 lines are the card's name and power limit, the kernels' JSON record
 (launches by phase, errors, times, the bound from the recorded shape's
 FLOPs and bytes) and ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--profile DIR]
 
-``--profile DIR`` also traces the steady steps of phases 6, 6b, 8 and 8b
+``--profile DIR`` also traces the steady steps of phases 6, 6b, 6k, 8 and 8b
 with the trainer's profiler hook (``profile_dir``), and the requests of
 phases 5, 5b and 9 served a second time, after the timed run:
 DIR/<phase>/kernels.txt and summary.json, and the top kernels by device
@@ -518,6 +541,42 @@ TRAIN2D_BATCH = 32
 #: at batch 32), then the EMA model's evaluation of the 2 test volumes (6
 #: slices each, centre-cropped to 256^2: one whole-image forward a volume)
 ACDC_VAL = dict(ACDC_TRAIN, synthetic_cases=10, val_freq=1)
+
+#: phase 6k: configs/kits/medformer_3d.yaml as shipped (MedFormer-3D, base
+#: 32, ReLU, 3 classes, 128^3 crops, remat, the KiTS recipe with its 60-voxel
+#: affine pad), read by the port's ``load_config``, trained in fp32 (the
+#: CLI's default, no ``--amp``) at batch 2 for 3 steps on KITS_CASES written
+#: HU-like cases of about 1.25x the crop, fold 0 of 5; the yaml's val_freq
+#: (20) is above the one epoch, so validation stays off
+KITS_CASES = [((160, 160, 160), (0.78, 0.78, 0.78)),
+              ((150, 170, 160), (0.78, 0.78, 0.78)),
+              ((170, 150, 165), (0.78, 0.78, 0.78)),
+              ((160, 165, 150), (0.78, 0.78, 0.78)),
+              ((155, 160, 170), (0.78, 0.78, 0.78))]
+KITS_STEPS = 3
+#: the KiTS MedFormer-3D's 3^3 convs on the kernel route (ConvNormAct 3^3,
+#: C_in <= 192, C_out <= 128): 2 in inc, 4 in down1, 5 in up3, 5 in up4,
+#: every width a multiple of 8.  A fp32 step launches, per conv, two
+#: ``conv3d_same_fwd_tf32`` (the forward and remat's recompute), one
+#: ``conv3d_dgrad_tf32`` and one CUDA-core ``conv3d_wgrad``
+KITS_CONVS = 16
+#: phase 6a: configs/acdc/medformer_3d.yaml (16 x 192 x 192 crops, 4
+#: classes, its full_volume recipe), fp32, batch 2, 2 steps on 6 written
+#: cases of two cine-MR frames each (fold 0 of 5: 10 training volumes), on
+#: the device cache's full-volume path
+ACDC3D_CASES = [((10, 232, 216), (10.0, 1.5625, 1.5625)),
+                ((9, 208, 256), (10.0, 1.5625, 1.5625)),
+                ((12, 240, 240), (10.0, 1.5625, 1.5625)),
+                ((8, 224, 270), (10.0, 1.5625, 1.5625)),
+                ((11, 216, 200), (10.0, 1.5625, 1.5625)),
+                ((10, 256, 232), (10.0, 1.5625, 1.5625))]
+ACDC3D_STEPS = 2
+#: phase 3a: the augmentation ops on the card against the same ops on the
+#: CPU with the same drawn scalars: the image within AUG_TOL of max|ref|
+#: (both sum in fp32 in other orders; the blur's taps are explicit fp32
+#: sums, so a TF32 convolution would show here at about 1e-3), the labels
+#: equal
+AUG_TOL = 1e-5
 
 #: phase 10's JSON records: the copy-scale's 16-byte, 2048-element case
 #: (its library call: ``x * 2`` on the 128-wide view), the weight-stationary
@@ -1488,7 +1547,8 @@ def phase_train_validate(device, cfg_dict, batch: int, name: str) -> dict:
     reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        (dice, hd, asd), = train.main(argv, cfg=cfg)
+        with pipeline_recorder() as seen:
+            (dice, hd, asd), = train.main(argv, cfg=cfg)
     finally:
         hook.remove()
         validation.predict_labels = predict
@@ -1510,7 +1570,8 @@ def phase_train_validate(device, cfg_dict, batch: int, name: str) -> dict:
     return {"dice": dice, "hd": hd, "asd": asd, "steps": len(step_loss),
             "eval_forwards": len(forwards), "sweep": sweep,
             "distances": distances, "peak_bytes": max(peaks),
-            "seconds": seconds, "launches": counts}
+            "seconds": seconds, "launches": counts,
+            "path": pipeline_path(seen)}
 
 
 def say_validation(res: dict) -> None:
@@ -1520,7 +1581,7 @@ def say_validation(res: dict) -> None:
         f"{res['eval_forwards']} forwards: sec/volume {sweep + dist:.3f} "
         f"(window sweep {sweep:.3f}, host distances {dist:.3f}); sweep "
         f"peak device memory {res['peak_bytes'] / 2 ** 30:.2f} GiB; "
-        f"train.main {res['seconds']:.1f} s")
+        f"train.main {res['seconds']:.1f} s; pipeline: {res['path']}")
     say(f"  mean Dice {res['dice'].mean():.4f}, HD95 {res['hd'].mean():.3f},"
         f" ASD {res['asd'].mean():.3f}; launches {res['launches']}")
 
@@ -1640,29 +1701,35 @@ def say_served_profile(profile: str | None, name: str, res: dict) -> None:
         say(f"    {n:5d} x {fn} {shape} -> {f}")
 
 
-def phase_train(device, cfg_dict, batch: int, name: str, required) -> dict:
-    """Phases 6 and 8: train a recipe for one epoch through
-    ``cbim_tpu_torch.train.main`` with bf16 autocast; per-step losses and
-    seconds come from the run's scalars.jsonl (one loss fetch per step).
-    The launch counters are zeroed just before and read just after, and
-    every kernel in ``required`` must have launched."""
+def phase_train(device, cfg_dict, batch: int, name: str, required,
+                amp: bool = True, min_steps: int = WARMUP_STEPS + 3) -> dict:
+    """Phases 6, 6k, 6a and 8: train a recipe for one epoch through
+    ``cbim_tpu_torch.train.main``, with bf16 autocast (``--amp``) or in
+    fp32, the CLI's default; per-step losses and seconds come from the
+    run's scalars.jsonl (one loss fetch per step).  ``cfg_dict``: a dict,
+    or a config that ``load_config`` read from a shipped YAML.  The launch
+    counters are zeroed just before and read just after, and every kernel
+    in ``required`` must have launched."""
     import torch
     from cbim_tpu_torch import train
-    from cbim_tpu_torch.config import config_from_dict
+    from cbim_tpu_torch.config import Config, config_from_dict
     from cbim_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    cfg = config_from_dict(cfg_dict)
+    cfg = cfg_dict if isinstance(cfg_dict, Config) else \
+        config_from_dict(cfg_dict)
     run = os.path.join(WORK, name)
     argv = ["--dataset", cfg.dataset, "--model", "medformer", "--dimension",
-            cfg.dimension, "--batch_size", str(batch), "--amp",
+            cfg.dimension, "--batch_size", str(batch),
             "--cp_path", os.path.join(run, "exp"),
             "--log_path", os.path.join(run, "log"), "--unique_name", name,
-            "--folds", "1", "--device", str(device)]
+            "--folds", "1", "--device", str(device)] + \
+        (["--amp"] if amp else [])
 
     torch.cuda.reset_peak_memory_stats(device)
     reset_launch_counts()
     t0 = time.perf_counter()
-    train.main(argv, cfg=cfg)
+    with pipeline_recorder() as seen:
+        train.main(argv, cfg=cfg)
     seconds = time.perf_counter() - t0
     counts = launch_counts()
 
@@ -1670,14 +1737,16 @@ def phase_train(device, cfg_dict, batch: int, name: str, required) -> dict:
         run, "log", cfg.dataset, name, "fold_0", "scalars.jsonl"))]
     step_loss = [r["value"] for r in rows if r["tag"] == "Train/StepLoss"]
     step_s = [r["value"] for r in rows if r["tag"] == "Perf/StepSeconds"]
-    assert len(step_loss) >= WARMUP_STEPS + 3, rows
+    assert len(step_loss) >= min_steps, rows
     assert all(math.isfinite(v) for v in step_loss), step_loss
     assert os.path.exists(os.path.join(run, "exp", cfg.dataset, name,
                                        "fold_0_latest.ckpt"))
     missing = [k for k in required if counts[k] == 0]
     assert not missing, f"kernels never launched on the path: {missing}"
-    median = statistics.median(step_s[WARMUP_STEPS:])
+    warm = min(WARMUP_STEPS, len(step_s) - 1)
+    median = statistics.median(step_s[warm:])
     return {"losses": step_loss, "step_seconds": step_s, "median": median,
+            "warm": warm, "path": pipeline_path(seen), "seen": seen,
             "per_s": batch / median, "seconds": seconds,
             "peak_bytes": torch.cuda.max_memory_allocated(device),
             "launches": counts}
@@ -1704,10 +1773,10 @@ def say_profile(profile_dir: str, unit: str = "step") -> None:
 def say_train(tr: dict, unit: str) -> None:
     say(f"  losses {', '.join(f'{v:.4f}' for v in tr['losses'])}")
     say(f"  step seconds {', '.join(f'{v:.3f}' for v in tr['step_seconds'])}"
-        f"; median after {WARMUP_STEPS} steps {tr['median']:.3f} s/step, "
+        f"; median after {tr['warm']} steps {tr['median']:.3f} s/step, "
         f"{tr['per_s']:.3f} {unit}/s; peak device memory "
         f"{tr['peak_bytes'] / 2 ** 30:.2f} GiB; train.main {tr['seconds']:.1f} s")
-    say(f"  launches {tr['launches']}")
+    say(f"  pipeline: {tr['path']}; launches {tr['launches']}")
 
 
 def mean_seconds(res: dict) -> float:
@@ -1898,11 +1967,149 @@ def phase_probes(device, record: dict) -> dict:
     return counts
 
 
+def write_corpus(root: str, cases, names, seed: int, mr: bool = False,
+                 classes: int = 3, frames: int = 0) -> None:
+    """A converted-layout corpus (``{name}.nii.gz``, ``{name}_gt.nii.gz``
+    and ``list/dataset.yaml``, gzip level 1): CT-like HU in int16 or, with
+    ``mr``, non-negative MR-like magnitudes, random labels; ``frames`` > 0
+    writes ACDC's ``{name}_{frame}`` pairs."""
+    import numpy as np
+    from cbim_tpu_torch.data.conversion.convert import write_name_list
+    from cbim_tpu_torch.data.nifti import write_nifti
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    for name, (shape, spacing) in zip(names, cases):
+        for stem in ([f"{name}_{f}" for f in range(frames)] if frames
+                     else [str(name)]):
+            vol = rng.normal(40.0, 300.0, size=shape).astype(np.float32)
+            vol = np.abs(vol) if mr else np.clip(vol, -1024, 3000).astype(
+                np.int16)
+            write_nifti(os.path.join(root, f"{stem}.nii.gz"), vol, spacing)
+            write_nifti(os.path.join(root, f"{stem}_gt.nii.gz"),
+                        rng.integers(0, classes, size=shape).astype(np.uint8),
+                        spacing)
+    write_name_list(root, list(names))
+
+
+def phase_aug_ops(device) -> dict:
+    """Phase 3a: every augmentation op on the card against the same op on
+    the CPU, with the same drawn scalars (and the noise tensor and the
+    elastic control points given), at KiTS's post-crop batch (2 x 128^3)
+    and ACDC-3D's full-volume cache rows (2 x 20 x 256 x 272, crops 16 x
+    192 x 192).  Returns {op: (image error of max|ref|, labels equal)}."""
+    import torch
+    from cbim_tpu_torch.ops import augment as A
+    from cbim_tpu_torch.ops.resample import affine_sample_3d_fullvol_batch
+
+    gen = torch.Generator().manual_seed(0)
+    kits_img = torch.randn(2, 128, 128, 128, 1, generator=gen)
+    kits_lab = torch.randint(0, 3, (2, 128, 128, 128), generator=gen)
+    # ACDC rows: volumes at the cache margin, zeros around them
+    margin, cache = (1, 8, 8), (20, 256, 272)
+    exts = torch.tensor([[18, 232, 216], [18, 240, 256]])
+    rows = torch.zeros(2, *cache, 1)
+    rows_lab = torch.zeros(2, *cache, dtype=torch.int8)
+    mask = torch.zeros(2, *cache, 1, dtype=torch.bool)
+    for b in range(2):
+        box = tuple(slice(m, m + int(e)) for m, e in zip(margin, exts[b]))
+        rows[(b, *box)] = torch.rand(*exts[b].tolist(), 1, generator=gen)
+        rows_lab[(b, *box)] = torch.randint(0, 4, exts[b].tolist(),
+                                            generator=gen, dtype=torch.int8)
+        mask[(b, *box)] = True
+    count = exts.float().prod(1)
+    thetas = A.random_theta_3d(gen, 2, (0.1, 0.3, 0.3), (30, 0, 0),
+                               (0.0, 0.0, 0.0), (0.05, 0.05, 0.05))
+    starts = torch.tensor([[0, 17, 3], [1, 40, 60]])
+
+    def u(lo, hi):
+        return A.draw_uniform(gen, 2, lo, hi)
+
+    cases = {
+        "gamma": (A.gamma, (kits_img, u(0.7, 1.5))),
+        "gamma_masked": (lambda x, g, m, c: A.gamma(x, g, True, mask=m,
+                                                    count=c),
+                         (rows, u(0.5, 1.6), mask, count)),
+        "contrast": (A.contrast, (kits_img, u(0.65, 1.5))),
+        "blur_sigma_lo": (lambda x, s: A.gaussian_blur(x, s, 1.0),
+                          (kits_img, torch.full((2,), 0.5))),
+        "blur_sigma_hi": (lambda x, s: A.gaussian_blur(x, s, 1.0),
+                          (kits_img, torch.full((2,), 1.0))),
+        "brightness_additive": (A.brightness_additive,
+                                (kits_img, torch.randn(2, generator=gen) * 0.1)),
+        "std_range_noise": (A.add_noise,
+                            (kits_img, torch.randn(kits_img.shape,
+                                                   generator=gen),
+                             u(0.0, 0.1))),
+        "elastic": (lambda x, y, d: A.elastic_deform_3d(x, y, d,
+                                                        (0.05,) * 3),
+                    (kits_img, kits_lab,
+                     torch.rand(2, 3, 4, 4, 4, generator=gen) * 2 - 1)),
+        "fullvol_resample": (
+            lambda x, y, t, e, s: affine_sample_3d_fullvol_batch(
+                x, y, t, e, s, margin, (16, 192, 192)),
+            (rows, rows_lab, thetas, exts, starts)),
+    }
+    for axis in range(3):
+        cases[f"mirror_{axis}"] = (lambda x, y, a=axis: A.mirror(x, y, a),
+                                   (kits_img, kits_lab))
+    out = {}
+    for name, (fn, args) in cases.items():
+        ref = fn(*args)
+        got = fn(*[a.to(device) for a in args])
+        torch.cuda.synchronize(device)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        got = got if isinstance(got, tuple) else (got,)
+        r, g = ref[0].float(), got[0].float().cpu()
+        err = float((g - r).abs().max() / r.abs().max().clamp_min(1e-30))
+        labels = len(ref) == 1 or torch.equal(got[1].cpu(), ref[1])
+        out[name] = (err, labels)
+        assert bool(torch.isfinite(g).all()), name
+    return out
+
+
+@contextlib.contextmanager
+def pipeline_recorder():
+    """While inside: every ``TrainPipeline`` built (the trainer's) and the
+    number of full-volume resamples it ran.  Yields a dict."""
+    from cbim_tpu_torch.data import pipeline
+    seen = {"resamples": 0, "pipelines": []}
+    resample, init = pipeline.affine_sample_3d_fullvol_batch, \
+        pipeline.TrainPipeline.__init__
+
+    def counted(*args, **kw):
+        seen["resamples"] += 1
+        return resample(*args, **kw)
+
+    def recorded(self, *args, **kw):
+        init(self, *args, **kw)
+        seen["pipelines"].append(self)
+
+    pipeline.affine_sample_3d_fullvol_batch = counted
+    pipeline.TrainPipeline.__init__ = recorded
+    try:
+        yield seen
+    finally:
+        pipeline.affine_sample_3d_fullvol_batch = resample
+        pipeline.TrainPipeline.__init__ = init
+
+
+def pipeline_path(seen: dict) -> str:
+    """Which way the trainer's pipeline fed the device: the device cache
+    (its shape, dtype, full-volume or windows) or host windows."""
+    pipe, = seen["pipelines"]
+    if pipe.cache_img is None:
+        return "host windows"
+    return (f"device cache {tuple(pipe.cache_img.shape)} "
+            f"{str(pipe.cache_img.dtype).replace('torch.', '')}, "
+            f"{'full volume' if pipe.fullvol else 'windows'}")
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="trace phases 6, 6b, 8 and 8b's steady steps, "
+                        help="trace phases 6, 6b, 6k, 8 and 8b's steady "
+                             "steps, "
                              "and the requests of phases 5, 5b and 9 served "
                              "again, into DIR")
     args = parser.parse_args(argv)
@@ -1959,6 +2166,14 @@ def main(argv=None) -> int:
     phase_conv2d_kernels(device, CONV2D_CASES, record)
     phase_depthwise_layouts(device, DEPTHWISE2D_CASES)
     phase_window_attention(device, WA_CASES, record)
+
+    say("[phase 3a] augmentation ops on the card vs the CPU, same draws")
+    t_aug = time.perf_counter()
+    for name, (err, labels) in phase_aug_ops(device).items():
+        say(f"  {name}: max abs err {err:.3e} of max|ref| (tol {AUG_TOL:.0e})"
+            f"; labels {'equal' if labels else 'DIFFER'}")
+        assert err <= AUG_TOL and labels, (name, err, labels)
+    say(f"  phase 3a took {time.perf_counter() - t_aug:.1f} s")
 
     from cbim_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     launches = {}
@@ -2183,6 +2398,63 @@ def main(argv=None) -> int:
                 **{k: 0 for k in CORE_CONV_KERNELS + TF32_CONV_KERNELS})
     assert all(counts[k] == v for k, v in want.items()), (counts, want)
     launches["6v"] = counts
+
+    say("[phase 6k] the KiTS recipe as shipped (configs/kits/"
+        "medformer_3d.yaml), fp32, batch 2, on written NIfTI cases")
+    from cbim_tpu_torch.config import load_config
+    kits_root = os.path.join(WORK, "kits_data")
+    t_corpus = time.perf_counter()
+    write_corpus(kits_root, KITS_CASES, range(len(KITS_CASES)), seed=1)
+    say(f"  wrote {len(KITS_CASES)} cases in "
+        f"{time.perf_counter() - t_corpus:.1f} s")
+    kits = load_config("kits", "medformer", "3d", data_root=kits_root,
+                       epochs=1, iter_per_epoch=KITS_STEPS, print_freq=1)
+    if args.profile:
+        kits.profile_dir = profile_dir("kits")
+    tr = phase_train(device, kits, TRAIN_BATCH, "kits",
+                     ("inorm_stats", "inorm_apply", "inorm_bwd_stats",
+                      "inorm_bwd_apply", "conv3d_wgrad") + TF32_CONV_KERNELS,
+                     amp=False, min_steps=KITS_STEPS)
+    say_train(tr, "volumes")
+    counts, steps = tr["launches"], len(tr["step_seconds"])
+    # fp32 at widths of multiples of 8: the 3xTF32 forwards and dgrads and
+    # the CUDA-core wgrad, per conv and step 2 forwards (remat), 1 dgrad,
+    # 1 wgrad; no tensor-core and no CUDA-core forward launch
+    want = dict(conv3d_same_fwd_tf32=2 * KITS_CONVS * steps,
+                conv3d_dgrad_tf32=KITS_CONVS * steps,
+                conv3d_wgrad=KITS_CONVS * steps,
+                **{k: 0 for k in TC_CONV_KERNELS + NA_TC_KERNELS
+                   + ("conv3d_same_fwd", "conv3d_dgrad")})
+    assert steps == KITS_STEPS and all(counts[k] == v
+                                       for k, v in want.items()), \
+        (counts, want)
+    say(f"  conv3d_wgrad (CUDA-core) launches {counts['conv3d_wgrad']}, "
+        f"{KITS_CONVS} a step; steady step {tr['step_seconds'][-1]:.3f} s")
+    if args.profile:
+        say_profile(os.path.join(args.profile, "kits"))
+    launches["6k"] = counts
+
+    say("[phase 6a] the ACDC-3D recipe (configs/acdc/medformer_3d.yaml) on "
+        "the device cache's full-volume path, fp32, batch 2")
+    acdc_root = os.path.join(WORK, "acdc3d_data")
+    names = [f"patient{i:03d}" for i in range(1, len(ACDC3D_CASES) + 1)]
+    write_corpus(acdc_root, ACDC3D_CASES, names, seed=2, mr=True, classes=4,
+                 frames=2)
+    acdc3d = load_config("acdc", "medformer", "3d", data_root=acdc_root,
+                         epochs=1, iter_per_epoch=ACDC3D_STEPS, print_freq=1)
+    tr = phase_train(device, acdc3d, TRAIN_BATCH, "acdc3d",
+                     ("inorm_stats", "inorm_apply"), amp=False,
+                     min_steps=ACDC3D_STEPS)
+    say_train(tr, "volumes")
+    seen = tr["seen"]
+    pipe, = seen["pipelines"]
+    say(f"  cache margins {pipe.cache_margin.tolist()}; {seen['resamples']} "
+        f"full-volume resamples in {len(tr['step_seconds'])} steps")
+    # one batch a step, and the one prepared after the last step's dispatch
+    # is not drawn (the trainer prepares a batch only for a next step)
+    assert pipe.cache_img is not None and pipe.fullvol and \
+        seen["resamples"] == len(tr["step_seconds"]) == ACDC3D_STEPS, seen
+    launches["6a"] = tr["launches"]
 
     say("[phase 7] ACDC MedFormer-2D serving 2 NIfTI requests (slice batch)")
     res = phase_slice(device, ACDC, REQUESTS_2D, TARGET_SPACING_2D, "serve2d",

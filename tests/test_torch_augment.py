@@ -184,10 +184,16 @@ def test_batch_aug_synthetic_recipe_shapes_and_labels():
     assert torch.isfinite(out_img).all()
 
 
-def test_unported_ops_raise():
-    for ops in ((("gamma", 1.0, {"range": (0.7, 1.5)}),),
-                (("gaussian_noise", 0.2, {"std_range": (0.0, 0.2)}),)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_batch_aug(AugRecipe(post_ops=ops), (8, 8, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_batch_aug(AugRecipe(full_volume=True), (8, 8, 8))
+def test_unknown_op_raises():
+    """An op name the JAX package does not know raises ``ValueError`` when
+    the batch reaches it, as its ``_apply_op`` does; every name it knows
+    (and ``full_volume``) builds."""
+    img, lab = _volumes(2, (10, 10, 10), 1, 3, seed=5)
+    fn = build_batch_aug(AugRecipe(post_ops=(("sharpen", 1.0, {}),)),
+                         (8, 8, 8))
+    with pytest.raises(ValueError, match="unknown aug op 'sharpen'"):
+        fn(torch.from_numpy(img), torch.from_numpy(lab).long(),
+           torch.Generator(), torch.Generator())
+    build_batch_aug(AugRecipe(full_volume=True, pre_ops=(
+        ("gamma", 1.0, {"range": (0.7, 1.5)}),), post_ops=(
+        ("gaussian_noise", 0.2, {"std_range": (0.0, 0.2)}),)), (8, 8, 8))

@@ -40,6 +40,8 @@ MODULES = [
     "cbim_tpu_torch.utils.jax_import",
     "cbim_tpu_torch.data.nifti",
     "cbim_tpu_torch.data.conversion",
+    "cbim_tpu_torch.data.conversion.utils",
+    "cbim_tpu_torch.data.conversion.convert",
     "cbim_tpu_torch.data.base",
     "cbim_tpu_torch.data.datasets",
     "cbim_tpu_torch.data.factory",
