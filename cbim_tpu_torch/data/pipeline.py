@@ -63,10 +63,11 @@ class AugRecipe:
     pre_ops run before the affine (ACDC style, dataset_acdc.py:141-149): on
     the full volume when ``full_volume`` is set and the device cache is
     active, else on the precrop window; post_ops run after the crop (AMOS
-    style, dataset_amos_ct.py:141-153).  ``num_classes`` is the JAX
-    package's class-count hint for its TPU gather, which carries labels in
-    the image dtype; the port gathers labels as integers, so it is carried
-    for parity and bounds nothing."""
+    style, dataset_amos_ct.py:141-153).  ``num_classes`` (the config's
+    ``classes`` unless the recipe sets it) bounds the label ids: the JAX
+    package's TPU gather carries labels in the image dtype, the port's
+    cache and host windows in int8, so ``TrainPipeline`` refuses a recipe
+    whose ids would not fit."""
     affine_prob: float = 1.0
     affine_pad: Sequence[int] = (0, 0, 0)
     scale: Sequence = (0.3, 0.3, 0.3)
@@ -135,13 +136,12 @@ def _apply_op(name: str, params: dict, imgs: torch.Tensor, labs: torch.Tensor,
         return A.mirror(imgs, labs, params["axis"])
     if name == "elastic":
         # opt-in extra (no reference counterpart: augmentation.py is
-        # affine-only); see ops/augment.py elastic_deform_{2d,3d}
+        # affine-only); see ops/augment.py elastic_deform
         nd = labs.dim() - 1
         grid = tuple(params.get("grid", (4,) * nd))
         magnitude = tuple(params.get("magnitude", (0.05,) * nd))
         disp = torch.rand((B, nd, *grid), generator=gen_host) * 2.0 - 1.0
-        deform = A.elastic_deform_3d if nd == 3 else A.elastic_deform_2d
-        return deform(imgs, labs, _to_device(disp, dev), magnitude)
+        return A.elastic_deform(imgs, labs, _to_device(disp, dev), magnitude)
     raise ValueError(f"unknown aug op {name!r}")
 
 
@@ -286,6 +286,9 @@ class TrainPipeline:
         recipe = dataset.recipe()
         if recipe.num_classes is None:
             recipe = replace(recipe, num_classes=int(cfg.classes))
+        if recipe.num_classes - 1 > torch.iinfo(torch.int8).max:
+            raise ValueError(f"label ids up to {recipe.num_classes - 1} do "
+                             "not fit the int8 label cache and windows")
         self.recipe = recipe
         self.buffer_shape = tuple(
             t + p for t, p in zip(self.crop_size, recipe.affine_pad))

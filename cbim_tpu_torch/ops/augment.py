@@ -5,10 +5,15 @@ Intensity: ``gaussian_noise`` (and ``add_noise`` for a given noise tensor
 and per-sample std, the recipes' ``std_range`` noise),
 ``brightness_additive``, ``brightness_multiply``, ``gamma`` (with the
 masked statistics of the full-volume path), ``contrast`` and
-``gaussian_blur``.  Spatial: ``mirror``, ``elastic_deform_3d`` and
-``elastic_deform_2d``, the crops (``center_crop_3d/2d``,
-``random_crop_3d/2d``, ``crop_around_coordinate_3d``) and the affines
-(``random_theta_3d/2d``).
+``gaussian_blur``.  Spatial: ``mirror``, ``elastic_deform`` (3D or 2D by
+the label's rank: the JAX package's ``elastic_deform_3d/2d``), the crops
+(``center_crop``: its ``center_crop_3d/2d``; ``crop_at`` from
+``random_crop_starts``: its ``random_crop_3d/2d``;
+``crop_around_coordinate_3d``) and the affines (``random_theta_3d/2d``).
+Of the spatial ops the pipeline runs ``mirror``, ``elastic_deform`` (a
+recipe's opt-in ``elastic``) and the affines; the crops are the JAX
+module's surface, held against it by the tests, with no caller in the
+pipeline (its crop is fused into the resample).
 
 Every op acts on a batch, img (B, *spatial, C), lab (B, *spatial), where
 the JAX package vmaps a single-sample op: statistics (min, max, mean,
@@ -353,7 +358,15 @@ def _upsample_linear(x: torch.Tensor, dim: int, n_out: int) -> torch.Tensor:
             + x.index_select(dim, i1) * frac)
 
 
-def _elastic(img, lab, disp, magnitude, label_nearest):
+def elastic_deform(img: torch.Tensor, lab: torch.Tensor, disp: torch.Tensor,
+                   magnitude) -> tuple[torch.Tensor, torch.Tensor]:
+    """Random smooth elastic deformation of a batch, 3D or 2D: img (B,
+    *spatial, C), lab (B, *spatial), control points ``disp`` (B, nd,
+    *grid) in [-1, 1].  ``magnitude`` (nd,) is the largest control-point
+    displacement per axis in normalised half-extent units (0.05: up to
+    ``0.05 (size - 1) / 2`` voxels).  Sampling follows grid_sample's
+    conventions (zeros outside; the image (tri/bi)linear, labels nearest
+    with ties to even)."""
     vol = tuple(lab.shape[1:])
     field = elastic_field(disp, vol, magnitude)
     coords = []
@@ -362,32 +375,7 @@ def _elastic(img, lab, disp, magnitude, label_nearest):
         shape[a] = s
         base = torch.arange(s, dtype=torch.float32, device=img.device)
         coords.append(base.view(1, *shape) + field[:, a] * ((s - 1) / 2.0))
-    img_out = linear_gather(img, coords)
-    if label_nearest:
-        lab_out = nearest_gather(lab, coords)
-    else:
-        lab_out = linear_gather(lab[..., None].to(img.dtype), coords)[..., 0]
-    return img_out, lab_out
-
-
-def elastic_deform_3d(img: torch.Tensor, lab: torch.Tensor,
-                      disp: torch.Tensor, magnitude=(0.05, 0.05, 0.05),
-                      label_nearest: bool = True):
-    """Random smooth elastic deformation of a batch: img (B, D, H, W, C),
-    lab (B, D, H, W), control points ``disp`` (B, 3, *grid) in [-1, 1].
-    ``magnitude`` is the largest control-point displacement per axis in
-    normalised half-extent units (0.05: up to ``0.05 (size - 1) / 2``
-    voxels).  Sampling follows grid_sample's conventions (zeros outside;
-    the image trilinear, labels nearest with ties to even)."""
-    return _elastic(img, lab, disp, magnitude, label_nearest)
-
-
-def elastic_deform_2d(img: torch.Tensor, lab: torch.Tensor,
-                      disp: torch.Tensor, magnitude=(0.05, 0.05),
-                      label_nearest: bool = True):
-    """2D twin of :func:`elastic_deform_3d`: img (B, H, W, C), lab (B, H,
-    W), disp (B, 2, *grid)."""
-    return _elastic(img, lab, disp, magnitude, label_nearest)
+    return linear_gather(img, coords), nearest_gather(lab, coords)
 
 
 # ---------------------------------------------------------------------------
@@ -406,14 +394,10 @@ def crop_at(img: torch.Tensor, lab: torch.Tensor, starts, crop_size):
     return torch.stack(out_img), torch.stack(out_lab)
 
 
-def center_crop_3d(img, lab, crop_size):
-    """The centred box, start (size - crop) // 2 on each axis."""
-    starts = [(s - c) // 2 for s, c in zip(img.shape[1:4], crop_size)]
-    return crop_at(img, lab, [starts] * img.shape[0], crop_size)
-
-
-def center_crop_2d(img, lab, crop_size):
-    starts = [(s - c) // 2 for s, c in zip(img.shape[1:3], crop_size)]
+def center_crop(img, lab, crop_size):
+    """The centred box, start (size - crop) // 2 on each axis (3D or 2D by
+    the length of ``crop_size``)."""
+    starts = [(s - c) // 2 for s, c in zip(img.shape[1:], crop_size)]
     return crop_at(img, lab, [starts] * img.shape[0], crop_size)
 
 
@@ -423,15 +407,6 @@ def random_crop_starts(gen: torch.Generator, n: int, shape, crop_size):
     return torch.stack([
         torch.randint(0, max(s - c, 1), (n,), generator=gen)
         for s, c in zip(shape, crop_size)], dim=1)
-
-
-def random_crop_3d(img, lab, starts, crop_size):
-    """A random crop from given starts (B, 3) (:func:`random_crop_starts`)."""
-    return crop_at(img, lab, starts, crop_size)
-
-
-def random_crop_2d(img, lab, starts, crop_size):
-    return crop_at(img, lab, starts, crop_size)
 
 
 def coordinate_crop_starts(coordinate, shape, crop_size, u=None,

@@ -86,7 +86,7 @@ Phases, each printing its result; any failure raises and exits non-zero:
    ``conv3d_same_na_fwd_tc`` (remat incl.), 20 ``conv3d_wgrad_na_tc`` and
    20 ``conv3d_dgrad_tc`` launches, no other 3^3 launch (the CUDA-core
    fused pair none); sec/step and peak memory beside phase 6's;
-6v. validation: the flagship recipe with ``val_freq`` 1 on five 160^3
+6v. validation: the flagship recipe with ``val_freq`` 1 on five 136^3
    volumes (fold 0 of 5: one test volume) trains two steps, then its
    epoch ends in the EMA model's evaluation by 128^3 sliding window (8
    windows, 2 forwards at the auto window batch of 4), in bf16 like the
@@ -99,16 +99,19 @@ Phases, each printing its result; any failure raises and exits non-zero:
    as shipped (MedFormer-3D, base 32, 3 classes, 128^3 crops, remat, the
    KiTS augmentation with its 60-voxel affine pad), read by the port's
    ``load_config``, trained through ``cbim_tpu_torch.train.main --dataset
-   kits`` in fp32 (the CLI's default: no ``--amp``) at batch 2 for 3 steps
+   kits`` in fp32 (the CLI's default: no ``--amp``) at batch 2 for 6 steps
    on 5 HU-like int16 NIfTI cases the script writes (about 1.25x the crop,
-   fold 0 of 5, on the device cache); every loss finite, and per step 32
-   ``conv3d_same_fwd_tf32`` (remat incl.), 16 ``conv3d_dgrad_tf32`` and 16
-   CUDA-core ``conv3d_wgrad`` launches, no tensor-core launch; sec/step and
-   peak memory;
+   fold 0 of 5), fed from host windows in pinned memory
+   (``device_cache: false``: a real KiTS corpus is far over the cache's
+   4 GB); every loss finite, and per step 32 ``conv3d_same_fwd_tf32``
+   (remat incl.), 16 ``conv3d_dgrad_tf32`` and 16 CUDA-core
+   ``conv3d_wgrad`` launches, no tensor-core launch; sec/step (median of
+   the 4 steps after warm-up), peak memory and the batches' time alone;
 6a. the ACDC-3D recipe (``configs/acdc/medformer_3d.yaml``: 16 x 192 x 192
-   crops, 4 classes, fp32, batch 2) for 2 steps on 6 written cases of two
+   crops, 4 classes, fp32, batch 2) for 6 steps on 6 written cases of two
    frames: the pipeline took the device cache and its full-volume path (one
-   full-volume resample a step), every loss finite;
+   full-volume resample a step), every loss finite; sec/step (median of
+   4) and the batches' time alone;
 7. 2D serving: the full-width ACDC MedFormer-2D with seeded random weights
    serves two synthetic cine-MR NIfTI requests through
    ``cbim_tpu_torch.prediction.main --dimension 2d`` (every slice of a
@@ -155,8 +158,8 @@ FLOPs and bytes) and ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--profile DIR]
 
-``--profile DIR`` also traces the steady steps of phases 6, 6b, 6k, 8 and 8b
-with the trainer's profiler hook (``profile_dir``), and the requests of
+``--profile DIR`` also traces the steady steps of phases 6, 6b, 6k, 6a, 8
+and 8b with the trainer's profiler hook (``profile_dir``), and the requests of
 phases 5, 5b and 9 served a second time, after the timed run:
 DIR/<phase>/kernels.txt and summary.json, and the top kernels by device
 time are printed; for 5 and 5b also the 3^3 forwards' shapes and counts.
@@ -436,11 +439,13 @@ FLAGSHIP = dict(
     remat=True, synthetic_cases=3, synthetic_shape=[192, 192, 192],
     epochs=1, iter_per_epoch=6, print_freq=1, val_freq=2)
 TRAIN_BATCH = 2
-#: phase 6v: the flagship recipe on five 160^3 volumes, fold 0 of 5 (one
+#: phase 6v: the flagship recipe on five 136^3 volumes, fold 0 of 5 (one
 #: test volume), two steps, then the EMA model's evaluation by 128^3
-#: sliding window: 8 windows, 2 forwards at the auto window batch of 4
+#: sliding window: 8 windows (two a side: starts 0 and 8), 2 forwards at
+#: the auto window batch of 4; the host distances, most of the phase,
+#: scale with the volume (17-24 s of them at 160^3)
 FLAGSHIP_VAL = dict(
-    FLAGSHIP, synthetic_cases=5, k_fold=5, synthetic_shape=[160, 160, 160],
+    FLAGSHIP, synthetic_cases=5, k_fold=5, synthetic_shape=[136, 136, 136],
     iter_per_epoch=2, epochs=1, val_freq=1, sliding_window=True,
     window_size=[128, 128, 128])
 #: phase 4e: phase 4's small MedFormer-3D evaluated by a 64^3 sliding window
@@ -545,15 +550,18 @@ ACDC_VAL = dict(ACDC_TRAIN, synthetic_cases=10, val_freq=1)
 #: phase 6k: configs/kits/medformer_3d.yaml as shipped (MedFormer-3D, base
 #: 32, ReLU, 3 classes, 128^3 crops, remat, the KiTS recipe with its 60-voxel
 #: affine pad), read by the port's ``load_config``, trained in fp32 (the
-#: CLI's default, no ``--amp``) at batch 2 for 3 steps on KITS_CASES written
-#: HU-like cases of about 1.25x the crop, fold 0 of 5; the yaml's val_freq
-#: (20) is above the one epoch, so validation stays off
+#: CLI's default, no ``--amp``) at batch 2 for KITS_STEPS steps on
+#: KITS_CASES written HU-like cases of about 1.25x the crop, fold 0 of 5;
+#: the yaml's val_freq (20) is above the one epoch, so validation stays off.
+#: It feeds the card from host windows (``device_cache: false``): the 210
+#: KiTS cases at 0.78 mm are far above the cache's 4 GB, so that is the path
+#: a user's corpus takes under ``auto``, where these 5 cases would fit
 KITS_CASES = [((160, 160, 160), (0.78, 0.78, 0.78)),
               ((150, 170, 160), (0.78, 0.78, 0.78)),
               ((170, 150, 165), (0.78, 0.78, 0.78)),
               ((160, 165, 150), (0.78, 0.78, 0.78)),
               ((155, 160, 170), (0.78, 0.78, 0.78))]
-KITS_STEPS = 3
+KITS_STEPS = WARMUP_STEPS + 4
 #: the KiTS MedFormer-3D's 3^3 convs on the kernel route (ConvNormAct 3^3,
 #: C_in <= 192, C_out <= 128): 2 in inc, 4 in down1, 5 in up3, 5 in up4,
 #: every width a multiple of 8.  A fp32 step launches, per conv, two
@@ -561,16 +569,19 @@ KITS_STEPS = 3
 #: ``conv3d_dgrad_tf32`` and one CUDA-core ``conv3d_wgrad``
 KITS_CONVS = 16
 #: phase 6a: configs/acdc/medformer_3d.yaml (16 x 192 x 192 crops, 4
-#: classes, its full_volume recipe), fp32, batch 2, 2 steps on 6 written
-#: cases of two cine-MR frames each (fold 0 of 5: 10 training volumes), on
-#: the device cache's full-volume path
+#: classes, its full_volume recipe), fp32, batch 2, ACDC3D_STEPS steps on 6
+#: written cases of two cine-MR frames each (fold 0 of 5: 10 training
+#: volumes), on the device cache's full-volume path
 ACDC3D_CASES = [((10, 232, 216), (10.0, 1.5625, 1.5625)),
                 ((9, 208, 256), (10.0, 1.5625, 1.5625)),
                 ((12, 240, 240), (10.0, 1.5625, 1.5625)),
                 ((8, 224, 270), (10.0, 1.5625, 1.5625)),
                 ((11, 216, 200), (10.0, 1.5625, 1.5625)),
                 ((10, 256, 232), (10.0, 1.5625, 1.5625))]
-ACDC3D_STEPS = 2
+ACDC3D_STEPS = WARMUP_STEPS + 4
+#: phases 6k and 6a: batches timed alone after the run (the data path's
+#: cost a step, beside the step that the trainer overlaps it with)
+DATA_BATCHES = 3
 #: phase 3a: the augmentation ops on the card against the same ops on the
 #: CPU with the same drawn scalars: the image within AUG_TOL of max|ref|
 #: (both sum in fp32 in other orders; the blur's taps are explicit fp32
@@ -2040,8 +2051,7 @@ def phase_aug_ops(device) -> dict:
                             (kits_img, torch.randn(kits_img.shape,
                                                    generator=gen),
                              u(0.0, 0.1))),
-        "elastic": (lambda x, y, d: A.elastic_deform_3d(x, y, d,
-                                                        (0.05,) * 3),
+        "elastic": (lambda x, y, d: A.elastic_deform(x, y, d, (0.05,) * 3),
                     (kits_img, kits_lab,
                      torch.rand(2, 3, 4, 4, 4, generator=gen) * 2 - 1)),
         "fullvol_resample": (
@@ -2093,6 +2103,23 @@ def pipeline_recorder():
         pipeline.TrainPipeline.__init__ = init
 
 
+def time_batches(pipe, batch: int) -> list[float]:
+    """Seconds of DATA_BATCHES of the pipeline's batches on their own, each
+    from the call to the batch on the card (synchronised): the window
+    draws, the copy or the cache gather, and the recipe's ops.  In training
+    the host part overlaps the queued step and the card's part queues
+    behind it, so this bounds the data path's share of a step."""
+    import torch
+    out = []
+    for _ in range(DATA_BATCHES):
+        torch.cuda.synchronize(pipe.device)
+        t0 = time.perf_counter()
+        pipe.next_batch(batch)
+        torch.cuda.synchronize(pipe.device)
+        out.append(time.perf_counter() - t0)
+    return out
+
+
 def pipeline_path(seen: dict) -> str:
     """Which way the trainer's pipeline fed the device: the device cache
     (its shape, dtype, full-volume or windows) or host windows."""
@@ -2108,10 +2135,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="trace phases 6, 6b, 6k, 8 and 8b's steady "
-                             "steps, "
-                             "and the requests of phases 5, 5b and 9 served "
-                             "again, into DIR")
+                        help="trace phases 6, 6b, 6k, 6a, 8 and 8b's steady "
+                             "steps, and the requests of phases 5, 5b and 9 "
+                             "served again, into DIR")
     args = parser.parse_args(argv)
 
     def profile_dir(name):
@@ -2382,7 +2408,7 @@ def main(argv=None) -> int:
         say(f"  {key} at {CONV_RECORD}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, cuDNN {lib_ms:.3f} ms")
 
-    say("[phase 6v] the flagship recipe validating: 2 steps on five 160^3 "
+    say("[phase 6v] the flagship recipe validating: 2 steps on five 136^3 "
         "volumes, then the EMA model's 128^3 sliding-window evaluation")
     tv = phase_train_validate(device, FLAGSHIP_VAL, TRAIN_BATCH,
                               "flagship_val")
@@ -2408,7 +2434,8 @@ def main(argv=None) -> int:
     say(f"  wrote {len(KITS_CASES)} cases in "
         f"{time.perf_counter() - t_corpus:.1f} s")
     kits = load_config("kits", "medformer", "3d", data_root=kits_root,
-                       epochs=1, iter_per_epoch=KITS_STEPS, print_freq=1)
+                       epochs=1, iter_per_epoch=KITS_STEPS, print_freq=1,
+                       device_cache=False)
     if args.profile:
         kits.profile_dir = profile_dir("kits")
     tr = phase_train(device, kits, TRAIN_BATCH, "kits",
@@ -2428,8 +2455,12 @@ def main(argv=None) -> int:
     assert steps == KITS_STEPS and all(counts[k] == v
                                        for k, v in want.items()), \
         (counts, want)
+    assert tr["path"] == "host windows", tr["path"]
+    pipe, = tr["seen"]["pipelines"]
+    data_s = time_batches(pipe, TRAIN_BATCH)
     say(f"  conv3d_wgrad (CUDA-core) launches {counts['conv3d_wgrad']}, "
-        f"{KITS_CONVS} a step; steady step {tr['step_seconds'][-1]:.3f} s")
+        f"{KITS_CONVS} a step; host-window batches alone "
+        f"{', '.join(f'{1e3 * v:.1f}' for v in data_s)} ms")
     if args.profile:
         say_profile(os.path.join(args.profile, "kits"))
     launches["6k"] = counts
@@ -2442,6 +2473,8 @@ def main(argv=None) -> int:
                  frames=2)
     acdc3d = load_config("acdc", "medformer", "3d", data_root=acdc_root,
                          epochs=1, iter_per_epoch=ACDC3D_STEPS, print_freq=1)
+    if args.profile:
+        acdc3d.profile_dir = profile_dir("acdc3d")
     tr = phase_train(device, acdc3d, TRAIN_BATCH, "acdc3d",
                      ("inorm_stats", "inorm_apply"), amp=False,
                      min_steps=ACDC3D_STEPS)
@@ -2454,6 +2487,11 @@ def main(argv=None) -> int:
     # is not drawn (the trainer prepares a batch only for a next step)
     assert pipe.cache_img is not None and pipe.fullvol and \
         seen["resamples"] == len(tr["step_seconds"]) == ACDC3D_STEPS, seen
+    data_s = time_batches(pipe, TRAIN_BATCH)
+    say("  full-volume batches alone "
+        f"{', '.join(f'{1e3 * v:.1f}' for v in data_s)} ms")
+    if args.profile:
+        say_profile(os.path.join(args.profile, "acdc3d"))
     launches["6a"] = tr["launches"]
 
     say("[phase 7] ACDC MedFormer-2D serving 2 NIfTI requests (slice batch)")

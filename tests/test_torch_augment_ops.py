@@ -193,7 +193,7 @@ def test_elastic_3d_matches_jax(grid, mag):
         k, (3, *grid), jnp.float32, -1.0, 1.0))(KEYS))
     ref_i, ref_l = jax.vmap(lambda x, y, k: J.elastic_deform_3d(
         x, y, k, grid=grid, magnitude=mag))(img, lab, KEYS)
-    out_i, out_l = A.elastic_deform_3d(_t(img), _t(lab), _t(disp), mag)
+    out_i, out_l = A.elastic_deform(_t(img), _t(lab), _t(disp), mag)
     _close(out_i.numpy(), ref_i, rel=1e-5)
     np.testing.assert_array_equal(out_l.numpy(), np.asarray(ref_l))
 
@@ -216,7 +216,7 @@ def test_elastic_2d_matches_jax():
         k, (2, *grid), jnp.float32, -1.0, 1.0))(KEYS))
     ref_i, ref_l = jax.vmap(lambda x, y, k: J.elastic_deform_2d(
         x, y, k, grid=grid, magnitude=mag))(img, lab, KEYS)
-    out_i, out_l = A.elastic_deform_2d(_t(img), _t(lab), _t(disp), mag)
+    out_i, out_l = A.elastic_deform(_t(img), _t(lab), _t(disp), mag)
     _close(out_i.numpy(), ref_i, rel=1e-5)
     np.testing.assert_array_equal(out_l.numpy(), np.asarray(ref_l))
 
@@ -224,7 +224,7 @@ def test_elastic_2d_matches_jax():
 def test_zero_magnitude_elastic_is_the_identity():
     img, lab = _batch(shape=(5, 6, 7))
     disp = torch.rand(3, 3, 4, 4, 4) * 2 - 1
-    out_i, out_l = A.elastic_deform_3d(_t(img), _t(lab), disp, (0.0,) * 3)
+    out_i, out_l = A.elastic_deform(_t(img), _t(lab), disp, (0.0,) * 3)
     np.testing.assert_allclose(out_i.numpy(), img, rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(out_l.numpy(), lab)
 
@@ -234,7 +234,7 @@ def test_crops_match_jax():
     crop = (6, 7, 9)
     ref_i, ref_l = jax.vmap(lambda x, y: J.center_crop_3d(x, y, crop))(img,
                                                                      lab)
-    out_i, out_l = A.center_crop_3d(_t(img), _t(lab), crop)
+    out_i, out_l = A.center_crop(_t(img), _t(lab), crop)
     np.testing.assert_array_equal(out_i.numpy(), np.asarray(ref_i))
     np.testing.assert_array_equal(out_l.numpy(), np.asarray(ref_l))
 
@@ -246,14 +246,14 @@ def test_crops_match_jax():
     starts = np.asarray(jax.vmap(starts_of)(KEYS))
     ref_i, ref_l = jax.vmap(lambda x, y, k: J.random_crop_3d(x, y, k, crop))(
         img, lab, KEYS)
-    out_i, out_l = A.random_crop_3d(_t(img), _t(lab), _t(starts), crop)
+    out_i, out_l = A.crop_at(_t(img), _t(lab), _t(starts), crop)
     np.testing.assert_array_equal(out_i.numpy(), np.asarray(ref_i))
     np.testing.assert_array_equal(out_l.numpy(), np.asarray(ref_l))
 
     img2, lab2 = _batch(shape=(11, 13))
     ref_i, ref_l = jax.vmap(lambda x, y: J.center_crop_2d(x, y, (6, 8)))(
         img2, lab2)
-    out_i, out_l = A.center_crop_2d(_t(img2), _t(lab2), (6, 8))
+    out_i, out_l = A.center_crop(_t(img2), _t(lab2), (6, 8))
     np.testing.assert_array_equal(out_i.numpy(), np.asarray(ref_i))
     np.testing.assert_array_equal(out_l.numpy(), np.asarray(ref_l))
 
@@ -263,7 +263,7 @@ def test_crops_match_jax():
                           jax.random.randint(kx, (), 0, 13 - 8)])
     ref_i, ref_l = jax.vmap(lambda x, y, k: J.random_crop_2d(x, y, k, (6, 8)))(
         img2, lab2, KEYS)
-    out_i, out_l = A.random_crop_2d(_t(img2), _t(lab2),
+    out_i, out_l = A.crop_at(_t(img2), _t(lab2),
                                     _t(np.asarray(jax.vmap(starts2)(KEYS))),
                                     (6, 8))
     np.testing.assert_array_equal(out_i.numpy(), np.asarray(ref_i))

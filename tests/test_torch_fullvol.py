@@ -8,7 +8,9 @@ same seed (the same numpy calls in the same order); an identity recipe
 (affine_prob 0, no ops) gives the JAX pipeline's batches bit for bit (bf16
 cache, both paths); and each dataset recipe's per-sample gates fire at
 their probabilities within binomial bounds (the PRNG streams differ, ROADMAP
-C5, so the gates are held in distribution).
+C5, so the gates are held in distribution).  A gated op changes exactly the
+samples its gate takes, image and label together, and the recipe's class
+count bounds the int8 label cache.
 """
 
 from types import SimpleNamespace
@@ -276,3 +278,70 @@ def test_recipe_gates_fire_at_their_probabilities(cls, monkeypatch):
         assert all(q == p for q, _ in mine)
         k = int(sum(int(t.sum()) for _, t in mine))
         assert abs(k - n * p) <= 5 * np.sqrt(n * p * (1 - p)), (i, p, k, n)
+
+
+#: one gated op of each kind: the mirror on every axis (image and label),
+#: the intensity ops (image only) and the elastic (both, resampled)
+GATED_OPS = [("mirror", {"axis": 0}), ("mirror", {"axis": 1}),
+             ("mirror", {"axis": 2}), ("contrast", {"range": (0.65, 1.5)}),
+             ("gamma", {"range": (0.7, 1.5)}),
+             ("gaussian_blur", {"range": (0.5, 1.0)}),
+             ("brightness_additive", {"std": 0.5}),
+             ("gaussian_noise", {"std_range": (0.05, 0.1)}),
+             ("elastic", {"grid": (3, 3, 3), "magnitude": (0.3,) * 3})]
+
+
+@pytest.mark.parametrize("name,params", GATED_OPS,
+                         ids=[f"{n}{p.get('axis', '')}" for n, p in GATED_OPS])
+def test_gate_keeps_off_samples_and_moves_image_and_label_together(
+        name, params, monkeypatch):
+    """Behind a Bernoulli(0.5) gate an op leaves the gate-off samples'
+    image and label bit for bit, and gives the gate-on samples the ungated
+    op's output (same draws: the gate is drawn first), image and label of
+    the same samples: a gated mirror flips both, an intensity op keeps
+    every label."""
+    rng = np.random.default_rng(3)
+    B = 8
+    img = torch.from_numpy(rng.normal(size=(B, 6, 7, 8, 1)).astype(
+        np.float32))
+    lab = torch.from_numpy(rng.integers(0, 4, size=(B, 6, 7, 8)))
+    gates = []
+    real = TP._draw_gate
+
+    def record(gen, n, prob):
+        gates.append(real(gen, n, prob))
+        return gates[-1]
+
+    monkeypatch.setattr(TP, "_draw_gate", record)
+    out_i, out_l = TP._gated(name, 0.5, params, img, lab,
+                             torch.Generator().manual_seed(5),
+                             torch.Generator().manual_seed(5))
+    take, = gates
+    assert take.any() and not take.all(), take
+    gen_host = torch.Generator().manual_seed(5)
+    real(gen_host, B, 0.5)
+    ref_i, ref_l = TP._apply_op(name, params, img, lab, gen_host,
+                                torch.Generator().manual_seed(5))
+    off = ~take
+    assert torch.equal(out_i[off], img[off])
+    assert torch.equal(out_l[off], lab[off])
+    assert torch.equal(out_i[take], ref_i[take])
+    assert torch.equal(out_l[take], ref_l[take])
+    assert not torch.equal(out_i[take], img[take])
+    if name == "mirror":
+        axis = params["axis"] + 1
+        assert torch.equal(out_i[take], img[take].flip(axis))
+        assert torch.equal(out_l[take], lab[take].flip(axis))
+    elif name != "elastic":
+        assert torch.equal(out_l, lab)
+
+
+def test_label_ids_beyond_the_int8_cache_raise():
+    """``AugRecipe.num_classes`` (the config's ``classes`` by default)
+    bounds the label ids that the int8 cache and host windows hold."""
+    with pytest.raises(ValueError, match="int8"):
+        _pipes(_cfg(classes=129), dict(affine_pad=(4, 8, 8)))
+    _, t_pipe = _pipes(_cfg(classes=128), dict(affine_pad=(4, 8, 8)))
+    assert t_pipe.recipe.num_classes == 128
+    with pytest.raises(ValueError, match="int8"):
+        _pipes(_cfg(), dict(affine_pad=(4, 8, 8), num_classes=300))
