@@ -80,7 +80,7 @@ constexpr int kActNone = 0, kActRelu = 1, kActGelu = 2;
 template <typename T, int NA>
 __device__ __forceinline__ float norm_act(float v, float mean, float rstd) {
   float n = (v - mean) * rstd;
-  if constexpr (NA == kActRelu) n = n > 0.f ? n : 0.f;
+  if constexpr (NA == kActRelu) n = n < 0.f ? 0.f : n;  // a NaN stays
   if constexpr (NA == kActGelu)
     n = 0.5f * n * (1.f + erff(n * 0.70710678118654752f));
   return to_f32<T>(from_f32<T>(n));

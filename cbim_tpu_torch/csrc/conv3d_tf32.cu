@@ -3,9 +3,9 @@
 // conv3d_same_fwd_tf32 (the forward, and on flip-swapped weights the input
 // gradient) and conv3d_same_na_fwd_tf32 (the fused preact conv's forward,
 // y = conv3d_same(act((x - mean[b, c]) * rstd[b, c]))).  One kernel
-// template serves both; the weight gradients stay on the CUDA-core kernels
-// of conv3d_wgrad.cu, and widths that are not multiples of 8 on those of
-// conv3d.cu.
+// template serves both; the weight gradient is conv3d_wgrad_tf32.cu (the
+// fused conv's stays on the CUDA-core conv3d_wgrad.cu), and widths that
+// are not multiples of 8 take the CUDA-core kernels of conv3d.cu.
 //
 // Replaces, in fp32, the Pallas TPU kernels of
 // cbim_tpu/ops/pallas/conv3d.py conv3d_same / _conv3d_same_pallas
@@ -25,13 +25,14 @@
 //
 // What the design does about it:
 // - 3xTF32.  TF32 keeps 10 mantissa bits.  Each operand is split into
-//   hi = tf32(v) and lo = tf32(v - hi) (cvt.rna: round to nearest, ties
-//   away from zero) and y = x_lo w_hi + x_hi w_lo + x_hi w_hi, three
+//   hi = tf32(v) and lo = tf32(v - hi) (split_tf32: round to nearest,
+//   ties away from zero; a NaN stays in hi) and
+//   y = x_lo w_hi + x_hi w_lo + x_hi w_hi, three
 //   mma.sync.m16n8k8 TF32 products into fp32 accumulators (the dropped
 //   x_lo w_lo is 2^-22 of x w).  The weights are split once, by the
 //   packing kernel, into two planes; x is split in registers after each
-//   A-fragment ldmatrix (three instructions a value, reused across the BN/8
-//   n tiles): splitting it in shared memory would double the halo.
+//   A-fragment ldmatrix (seven integer and fp32 ops a value, reused across
+//   the BN/8 n tiles): splitting it in shared memory would double the halo.
 // - Accumulation.  The tensor cores add into their fp32 accumulators by
 //   truncation, which over a whole tile (27 C products, three passes)
 //   erred by more than twice cuDNN's fp32 sums on the H100.  So each
@@ -123,38 +124,6 @@ struct NaPlan {
   static_assert(rows_per_pass % 8 == 0, "pass plan");
 };
 
-// v rounded to TF32 (10 mantissa bits), to nearest, ties away from zero
-__device__ __forceinline__ unsigned tf32_rna(float v) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// the split of an fp32 value (its bits): hi = tf32(v), lo = tf32(v - hi)
-__device__ __forceinline__ void split_tf32(unsigned v, unsigned& hi,
-                                           unsigned& lo) {
-  hi = tf32_rna(__uint_as_float(v));
-  lo = tf32_rna(__uint_as_float(v) - __uint_as_float(hi));
-}
-
-// d += a (16x8, row) . b (8x8, col), tf32 in, fp32 sums; with ZERO,
-// d = a . b
-template <bool ZERO = false>
-__device__ __forceinline__ void mma_tf32(float d[4], const unsigned a[4],
-                                         unsigned b0, unsigned b1) {
-  if constexpr (ZERO)
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-          "f"(0.f));
-  else
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // The weights in the kernel's layout: wpk[n tile][chunk][kd, kh][part]
 // [kw][n][k] (kCk + 4 values a row; part 0 hi, 1 lo) from torch's
 // w[F][C][27]; with ``flip`` w is the forward's [C][F][27] and the packing
@@ -184,8 +153,9 @@ conv3d_tf32_pack_kernel(const float* __restrict__ w, float* __restrict__ wpk,
     if (k < kCk && c < C && f < F)
       v = flip ? w[((long long)c * F + f) * 27 + 26 - tap]
                : w[((long long)f * C + c) * 27 + tap];
-    const float hi = __uint_as_float(tf32_rna(v));
-    wpk[e] = part == 0 ? hi : __uint_as_float(tf32_rna(v - hi));
+    unsigned hi, lo;
+    split_tf32(__float_as_uint(v), hi, lo);
+    wpk[e] = __uint_as_float(part == 0 ? hi : lo);
   }
 }
 

@@ -143,7 +143,7 @@ enum Act { kActNone = 0, kActRelu = 1, kActGelu = 2 };
 
 template <int ACT>
 __device__ __forceinline__ float act_fn(float n) {
-  if (ACT == kActRelu) return n > 0.f ? n : 0.f;
+  if (ACT == kActRelu) return n < 0.f ? 0.f : n;  // a NaN stays, as in torch
   if (ACT == kActGelu) return 0.5f * n * (1.f + erff(n * 0.70710678118654752f));
   return n;
 }

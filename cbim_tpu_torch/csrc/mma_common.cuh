@@ -1,9 +1,10 @@
 // PTX helpers shared by the tensor-core kernels (probes.cu, conv3d_tc.cu,
-// conv3d_wgrad_tc.cu, conv2d_tc.cu, conv2d_wgrad_tc.cu, conv3d_tf32.cu):
-// ldmatrix, mma.sync bf16, mbarriers, TMA and bulk copies into shared
-// memory, TMA stores out of it, and the host-side encoding of a TMA tensor
-// map (cuTensorMapEncodeTiled, looked up through the CUDA runtime: the
-// library links no libcuda).
+// conv3d_wgrad_tc.cu, conv2d_tc.cu, conv2d_wgrad_tc.cu, conv3d_tf32.cu,
+// conv3d_wgrad_tf32.cu): ldmatrix, vector shared-memory loads, mma.sync
+// bf16 and TF32 (with the TF32 hi/lo split), mbarriers, TMA and bulk copies
+// into shared memory, TMA stores out of it, and the host-side encoding of a
+// TMA tensor map (cuTensorMapEncodeTiled, looked up through the CUDA
+// runtime: the library links no libcuda).
 
 #pragma once
 
@@ -46,6 +47,76 @@ __device__ __forceinline__ void mma_bf16(float d[4], const unsigned a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// one, two and four 32-bit values from shared memory (4-, 8- and 16-byte
+// aligned)
+__device__ __forceinline__ unsigned lds_u32(unsigned addr) {
+  unsigned r;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(r) : "r"(addr));
+  return r;
+}
+
+__device__ __forceinline__ void lds_v2(unsigned addr, unsigned r[2]) {
+  asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void lds_v4(unsigned addr, unsigned r[4]) {
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void sts_v4(unsigned addr, const unsigned r[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+// fp32 bits rounded to TF32 (10 mantissa bits), to nearest, ties away from
+// zero, as cvt.rna.tf32.f32 rounds finite values and infinities: an add of
+// half the 13 dropped bits' range and a mask (ptxas lowers cvt.rna to a
+// longer compare-and-select sequence).  The add carries a NaN with the top
+// mantissa bits set, such as the card's 0x7FFFFFFF, into the sign bit:
+// -0.0.
+__device__ __forceinline__ unsigned tf32_rna_bits(unsigned b) {
+  return (b + 0x1000u) & 0xFFFFE000u;
+}
+
+// v rounded to TF32 as above, a NaN to the quiet NaN 0x7FC00000
+__device__ __forceinline__ unsigned tf32_rna(float v) {
+  return isnan(v) ? 0x7FC00000u : tf32_rna_bits(__float_as_uint(v));
+}
+
+// the split of an fp32 value (its bits): hi = tf32(v), lo = tf32(v - hi).
+// hi carries a NaN or an infinity into its products; lo is then the card's
+// NaN rounded, -0.0, so it takes no NaN test (with one the 3xTF32 forward
+// took 41 % longer on the H100, with none on lo 6 %)
+__device__ __forceinline__ void split_tf32(unsigned v, unsigned& hi,
+                                           unsigned& lo) {
+  hi = tf32_rna(__uint_as_float(v));
+  lo = tf32_rna_bits(
+      __float_as_uint(__uint_as_float(v) - __uint_as_float(hi)));
+}
+
+// d += a (16x8, row) . b (8x8, col), tf32 in, fp32 sums; with ZERO,
+// d = a . b
+template <bool ZERO = false>
+__device__ __forceinline__ void mma_tf32(float d[4], const unsigned a[4],
+                                         unsigned b0, unsigned b1) {
+  if constexpr (ZERO)
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(0.f));
+  else
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // An mbarrier that one thread arms with the bytes its copies will bring.

@@ -2,7 +2,7 @@
 
 On first use, nvcc compiles every ``csrc/*.cu`` into an object, one nvcc
 process per source, all started together (the longest source sets the
-build's time, so the 3^3 conv's kernels are seven sources), and
+build's time, so the 3^3 conv's kernels are eight sources), and
 links the objects into one shared library with a plain C interface (no
 PyTorch headers), under ``build/kernels/`` at the repository root (listed
 in ``.gitignore``).  The file name carries a digest of the sources, the
@@ -65,6 +65,9 @@ SIGNATURES = {
                                 _I, _I, _I, _P],
     # x, g, partial, dw, B, D, H, W, C, F, tiles_per_chunk, n_chunks, stream
     "conv3d_wgrad_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # the same (fp32, TF32 tensor cores)
+    "conv3d_wgrad_tf32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _P],
     # x, w, wpk, y, mean, rstd, act, B, D, H, W, C, F, bn, stream (bf16,
     # tensor cores)
     "conv3d_same_na_fwd_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -23,7 +23,10 @@ the dtype and the channel counts before any launch:
   ``conv3d_dgrad_tf32``) and ``conv3d_same_na_fwd_tf32``; their entries
   pack and split the weights as :func:`pack_weights_tf32` does, and
   :func:`conv3d_same_tf32x3_plain` models their arithmetic.  The weight
-  gradients on this route are the CUDA-core ones.
+  gradient is ``conv3d_wgrad_tf32`` (``csrc/conv3d_wgrad_tf32.cu``, the
+  same split on the tensor cores; :func:`conv3d_wgrad_tf32x3_plain` models
+  it, :func:`wgrad_tc_chunking` splits its voxel tiles); the fused
+  pair's weight gradient stays the CUDA-core ``conv3d_wgrad_na``.
 - everything else (other widths, the probes' ladder): the CUDA-core
   kernels of ``csrc/conv3d.cu`` and ``csrc/conv3d_wgrad.cu``:
 
@@ -75,14 +78,16 @@ launches = {"conv3d_same_fwd": 0, "conv3d_dgrad": 0, "conv3d_wgrad": 0,
             "conv3d_same_fwd_tc": 0, "conv3d_dgrad_tc": 0,
             "conv3d_wgrad_tc": 0, "conv3d_same_na_fwd_tc": 0,
             "conv3d_wgrad_na_tc": 0, "conv3d_same_fwd_tf32": 0,
-            "conv3d_dgrad_tf32": 0, "conv3d_same_na_fwd_tf32": 0}
+            "conv3d_dgrad_tf32": 0, "conv3d_same_na_fwd_tf32": 0,
+            "conv3d_wgrad_tf32": 0}
 
 #: the routes of :func:`conv3d_route`: bf16 tensor cores, fp32 as 3xTF32
 #: on the tensor cores, CUDA cores
 TENSOR_CORE, TF32X3, CUDA_CORE = "tensor_core", "tf32x3", "cuda_core"
 #: the launch counter of each route's forward, dgrad and fused forward
 #: (the wgrads: ``conv3d_wgrad_tc``/``conv3d_wgrad_na_tc`` on the bf16
-#: tensor-core route, ``conv3d_wgrad``/``conv3d_wgrad_na`` on the others)
+#: tensor-core route, ``conv3d_wgrad_tf32``/``conv3d_wgrad_na`` on the TF32
+#: route, ``conv3d_wgrad``/``conv3d_wgrad_na`` on the CUDA-core one)
 FORWARD_KEYS = {
     TENSOR_CORE: ("conv3d_same_fwd_tc", "conv3d_dgrad_tc",
                   "conv3d_same_na_fwd_tc"),
@@ -96,13 +101,16 @@ FORWARD_KEYS = {
 #: one block on each of 132 SMs)
 TC_CHUNK = 32
 TC_MAX_BN = 128
-TC_WGRAD_TILE = 32
+TC_WGRAD_TILE = (32, 32)
 TC_VOXEL_TILE = (4, 8, 8)
 _TC_WGRAD_TARGET_BLOCKS = 528
 #: the TF32 forwards: fp32 channels a staged chunk carries (64-byte rows)
-#: and the floats of a packed weight row (the chunk padded to 80 bytes)
+#: and the floats of a packed weight row (the chunk padded to 80 bytes);
+#: the TF32 wgrad's (c, f) tile (one 64-byte x halo row, two g planes of
+#: 16 channels) over the voxel tiles of :data:`TC_VOXEL_TILE`
 TF32_CHUNK = 16
 TF32_PITCH = 20
+TF32_WGRAD_TILE = (16, 32)
 
 #: blocks a wgrad pass aims for (several waves over 132 SMs), the fewest
 #: pixels or voxels a chunk takes, and the most bytes its fp32 partials may
@@ -144,8 +152,8 @@ def conv3d_route(dtype: torch.dtype, C: int, F: int) -> str:
     :func:`conv3d_wgrad_na` with C input and F output channels launches:
     with C % 8 == 0 and F % 8 == 0 (TMA's 16-byte strides in bf16)
     :data:`TENSOR_CORE` for bf16 and :data:`TF32X3` for fp32 (whose
-    wgrads are the CUDA-core ones), else :data:`CUDA_CORE`.  The rule is
-    symmetric in C and F, so the dgrad (F -> C) takes its forward's
+    fused wgrad is the CUDA-core one), else :data:`CUDA_CORE`.  The rule
+    is symmetric in C and F, so the dgrad (F -> C) takes its forward's
     route."""
     if C % 8 or F % 8 or dtype not in (torch.bfloat16, torch.float32):
         return CUDA_CORE
@@ -214,17 +222,23 @@ def conv3d_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def tf32_round(t: torch.Tensor) -> torch.Tensor:
     """fp32 values rounded to TF32 (10 mantissa bits) to nearest, ties away
-    from zero, as ``cvt.rna.tf32.f32``: on an int32 view, add half of the
-    13 dropped bits' range and clear them.  Finite inputs."""
-    b = t.float().contiguous().view(torch.int32)
-    return ((b + 0x1000) & -0x2000).view(torch.float32)
+    from zero, as ``cvt.rna.tf32.f32`` and the kernels' ``tf32_rna``: on an
+    int32 view, add half of the 13 dropped bits' range and clear them
+    (infinities stay); a NaN becomes the quiet NaN 0x7FC00000, where the
+    add would carry 0x7FFFFFFF into the sign bit."""
+    t = t.float().contiguous()
+    r = ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return r.masked_fill(t.isnan(), float("nan"))
 
 
 def tf32_split(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(hi, lo): hi = tf32(t), lo = tf32(t - hi), the error-compensated
-    split of the TF32 kernels (t - hi is exact in fp32)."""
+    split of the TF32 kernels (t - hi is exact in fp32).  Where t is a NaN
+    or infinite, hi carries it and lo is 0, as the kernels' ``split_tf32``
+    rounds the NaN that t - hi is there."""
+    t = t.float()
     hi = tf32_round(t)
-    return hi, tf32_round(t.float() - hi)
+    return hi, tf32_round(t - hi).masked_fill(~t.isfinite(), 0.0)
 
 
 def tf32_tile_n(F: int) -> tuple[int, int]:
@@ -427,18 +441,53 @@ def voxel_tiles(B: int, D: int, H: int, W: int) -> int:
     return B * -(-D // td) * -(-H // th) * -(-W // tw)
 
 
-def wgrad_tc_chunking(n_tiles: int, C: int, F: int) -> tuple[int, int]:
-    """(tiles_per_chunk, n_chunks) for ``conv3d_wgrad_tc``'s split
+def wgrad_tc_chunking(n_tiles: int, C: int, F: int, tile: tuple[int, int]
+                      ) -> tuple[int, int]:
+    """(tiles_per_chunk, n_chunks) for a tensor-core wgrad's split
     reduction over ``n_tiles`` voxel tiles: a block owns a chunk of tiles
-    and one (32-channel c, 32-channel f) tile of dW for all 27 taps; every
-    chunk holds at least one tile and the fp32 partials stay within
+    and one (c, f) ``tile`` of dW for all 27 taps (:data:`TC_WGRAD_TILE`
+    for ``conv3d_wgrad_tc`` and ``conv3d_wgrad_na_tc``,
+    :data:`TF32_WGRAD_TILE` for ``conv3d_wgrad_tf32``); every chunk holds
+    at least one tile and the fp32 partials stay within
     ``_WGRAD_MAX_PARTIAL_BYTES``."""
-    tiles = -(-C // TC_WGRAD_TILE) * -(-F // TC_WGRAD_TILE)
+    tiles = -(-C // tile[0]) * -(-F // tile[1])
     cap = max(1, _WGRAD_MAX_PARTIAL_BYTES // (27 * C * F * 4))
     n_chunks = max(1, min(_TC_WGRAD_TARGET_BLOCKS // tiles, cap, 65535,
                           n_tiles))
     per = -(-n_tiles // n_chunks)
     return per, -(-n_tiles // per)
+
+
+def conv3d_wgrad_tf32x3_plain(x: torch.Tensor, g: torch.Tensor
+                              ) -> torch.Tensor:
+    """``conv3d_wgrad_tf32``'s arithmetic in plain PyTorch (3xTF32): x and
+    g each split into TF32 hi and lo parts (:func:`tf32_split`), then dW =
+    wgrad(x_lo, g_hi) + wgrad(x_hi, g_lo) + wgrad(x_hi, g_hi), three
+    weight gradients summed in fp32 (the dropped x_lo g_lo is 2^-22 of
+    x g), torch's [F, C, 3, 3, 3].  Not on the card's path: the CPU tests
+    hold it against fp64 and the Pallas kernel."""
+    _check_wgrad(x, g)
+    (xh, xl), (gh, gl) = tf32_split(x), tf32_split(g)
+    return (conv3d_wgrad_plain(xl, gh) + conv3d_wgrad_plain(xh, gl)
+            + conv3d_wgrad_plain(xh, gh))
+
+
+def _launch_wgrad_tf32(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The 3xTF32 wgrad ``conv3d_wgrad_tf32`` (fp32) and its fold."""
+    if not (x.is_contiguous() and g.is_contiguous()):
+        raise ValueError("kernel needs contiguous x and g")
+    B, D, H, W, C = x.shape
+    Fo = g.shape[-1]
+    per, n_chunks = wgrad_tc_chunking(voxel_tiles(B, D, H, W), C, Fo,
+                                      TF32_WGRAD_TILE)
+    partial = torch.empty(n_chunks * 27 * C * Fo, dtype=torch.float32,
+                          device=x.device)
+    dw = torch.empty((3, 3, 3, C, Fo), dtype=torch.float32, device=x.device)
+    _build.call("conv3d_wgrad_tf32", x.data_ptr(), g.data_ptr(),
+                partial.data_ptr(), dw.data_ptr(), B, D, H, W, C, Fo, per,
+                n_chunks, device=x.device)
+    launches["conv3d_wgrad_tf32"] += 1
+    return dw.permute(4, 3, 0, 1, 2)
 
 
 def _launch_wgrad_tc(x: torch.Tensor, g: torch.Tensor,
@@ -449,7 +498,8 @@ def _launch_wgrad_tc(x: torch.Tensor, g: torch.Tensor,
         raise ValueError("kernel needs contiguous x and g")
     B, D, H, W, C = x.shape
     Fo = g.shape[-1]
-    per, n_chunks = wgrad_tc_chunking(voxel_tiles(B, D, H, W), C, Fo)
+    per, n_chunks = wgrad_tc_chunking(voxel_tiles(B, D, H, W), C, Fo,
+                                      TC_WGRAD_TILE)
     partial = torch.empty(n_chunks * 27 * C * Fo, dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((3, 3, 3, C, Fo), dtype=torch.float32, device=x.device)
@@ -504,13 +554,16 @@ def conv3d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     The counterpart of ``cbim_tpu.ops.pallas.conv3d.conv3d_wgrad`` (which
     returns [3, 3, 3, C, F]).  CUDA tensors launch the kernel of
     :func:`conv3d_route` (``conv3d_wgrad_tc`` on the bf16 tensor-core
-    route, ``conv3d_wgrad`` on the others), CPU tensors run the plain
-    version."""
+    route, ``conv3d_wgrad_tf32`` on the fp32 TF32 route, ``conv3d_wgrad``
+    on the CUDA-core one), CPU tensors run the plain version."""
     _check_wgrad(x, g)
     if not _backend.uses_kernels(x):
         return conv3d_wgrad_plain(x, g)
-    if conv3d_route(x.dtype, x.shape[-1], g.shape[-1]) == TENSOR_CORE:
+    route = conv3d_route(x.dtype, x.shape[-1], g.shape[-1])
+    if route == TENSOR_CORE:
         return _launch_wgrad_tc(x, g)
+    if route == TF32X3:
+        return _launch_wgrad_tf32(x, g)
     return _launch_wgrad(x, g)
 
 
@@ -678,7 +731,7 @@ def conv3d_wgrad_na_tiled_plain(x: torch.Tensor, mean: torch.Tensor,
     xp, inside, mp, rp = _na_padded(x, mean, rstd, box)
     gp = F.pad(g, (0, 0, 0, xp.shape[3] - 2 - W, 0, xp.shape[2] - 2 - H,
                    0, xp.shape[1] - 2 - D))
-    per, _ = wgrad_tc_chunking(voxel_tiles(B, D, H, W), C, Fo)
+    per, _ = wgrad_tc_chunking(voxel_tiles(B, D, H, W), C, Fo, TC_WGRAD_TILE)
     cp = xp.shape[-1]
     dw = torch.zeros((3, 3, 3, cp, Fo), device=x.device)
     part = torch.zeros_like(dw)

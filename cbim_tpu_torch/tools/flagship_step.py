@@ -1,5 +1,5 @@
-"""Time a bf16 training step, or fp32 serving, of a checkout of this
-repository.
+"""Time a training step (bf16, or KiTS's fp32), or fp32 serving, of a
+checkout of this repository.
 
 Runs one of ``chip_smoke.py``'s training or 3D serving phases from the
 checkout at ``--root``, with that checkout's own kernels and code:
@@ -13,6 +13,10 @@ checkout at ``--root``, with that checkout's own kernels and code:
   remat, AdamW, EMA, six steps on the synthetic corpus);
 - ``--phase 6b``: the same recipe with ``conv_na`` on, the fused preact
   conv conv(act(IN(x))) for every BasicBlock conv;
+- ``--phase 6k``: the KiTS recipe as shipped (``configs/kits/
+  medformer_3d.yaml``, fp32, batch 2, host windows) on the NIfTI cases
+  that ``chip_smoke.py`` writes (a checkout whose ``chip_smoke.py`` has
+  ``kits_config``);
 - ``--phase 8``: the ACDC MedFormer-2D recipe (256^2 crops, batch 32, bf16
   autocast, six steps on ``Synthetic2D``) with ``conv2d_kernel`` on, the
   3x3 kernel route;
@@ -60,10 +64,11 @@ def main(argv=None) -> int:
                         help="the checkout whose chip_smoke.py and kernels run "
                              "(default: this one)")
     parser.add_argument("--phase", default="6",
-                        choices=("5", "5b", "6", "6b", "8", "8b"),
+                        choices=("5", "5b", "6", "6b", "6k", "8", "8b"),
                         help="5: AMOS-CT serving; 5b: the same with conv_na; "
                              "6: the flagship 3D recipe; 6b: the same with "
-                             "conv_na (the fused preact conv); 8: the ACDC "
+                             "conv_na (the fused preact conv); 6k: the KiTS "
+                             "recipe as shipped, fp32; 8: the ACDC "
                              "2D recipe on the 3x3 kernel route; 8b: the "
                              "same on cuDNN's 3x3 convs (default: 6)")
     parser.add_argument("--profile", default=None, metavar="DIR",
@@ -86,15 +91,22 @@ def main(argv=None) -> int:
     name = f"step{args.phase}_{os.getpid()}_{int(time.time())}"
     if args.phase in ("5", "5b"):
         return serve(smoke, device, args, root, name)
-    if args.phase in ("6", "6b"):
-        cfg = dict(smoke.FLAGSHIP, conv_na=args.phase == "6b")
+    profile = os.path.abspath(args.profile) if args.profile else None
+    kw = {}
+    if args.phase == "6k":
+        cfg = smoke.kits_config(os.path.join(smoke.WORK, f"{name}_data"),
+                                profile_dir=profile)
+        batch, unit = smoke.TRAIN_BATCH, "volumes"
+        kw = dict(amp=False, min_steps=smoke.KITS_STEPS)
+    elif args.phase in ("6", "6b"):
+        cfg = dict(smoke.FLAGSHIP, conv_na=args.phase == "6b",
+                   profile_dir=profile)
         batch, unit = smoke.TRAIN_BATCH, "volumes"
     else:
-        cfg = dict(smoke.ACDC_TRAIN, conv2d_kernel=args.phase == "8")
+        cfg = dict(smoke.ACDC_TRAIN, conv2d_kernel=args.phase == "8",
+                   profile_dir=profile)
         batch, unit = smoke.TRAIN2D_BATCH, "slices"
-    if args.profile:
-        cfg["profile_dir"] = os.path.abspath(args.profile)
-    tr = smoke.phase_train(device, cfg, batch, name, ())
+    tr = smoke.phase_train(device, cfg, batch, name, (), **kw)
     print(f"{root} phase {args.phase}: {smoke.card_line()}", flush=True)
     smoke.say_train(tr, unit)
     rec = {"root": root, "phase": args.phase,

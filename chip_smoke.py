@@ -14,12 +14,12 @@ Phases, each printing its result; any failure raises and exits non-zero:
    that computes the same function (cuDNN's conv or weight gradient); the
    3^3 conv cases assert their route (``conv3d_route``: at widths of
    multiples of 8 bf16 takes the tensor-core kernels ``conv3d_same_fwd_tc``
-   and ``conv3d_wgrad_tc`` and fp32 the 3xTF32 forward
-   ``conv3d_same_fwd_tf32`` (also the dgrad) beside the CUDA-core wgrad,
+   and ``conv3d_wgrad_tc`` and fp32 the 3xTF32 kernels
+   ``conv3d_same_fwd_tf32`` (also the dgrad) and ``conv3d_wgrad_tf32``,
    the rest the CUDA-core ones, which are held and timed beside the others
-   too; the TF32 kernels' and cuDNN fp32's errors against an fp64 conv are
-   printed, and the kernels' may be at most twice cuDNN's), and so do the
-   3x3 cases
+   too; the TF32 kernels' and cuDNN fp32's errors against an fp64 conv or
+   weight gradient are printed, and the kernels' may be at most twice
+   cuDNN's), and so do the 3x3 cases
    (``conv2d_route``: ``conv2d_same_fwd_tc`` and ``conv2d_wgrad_tc`` in
    bf16 at widths of multiples of 8, the CUDA-core ``conv2d_same_fwd`` and
    ``conv2d_wgrad`` beside them and for the rest); and
@@ -34,7 +34,9 @@ Phases, each printing its result; any failure raises and exits non-zero:
    the CUDA-core fused forward (and in bf16 wgrad) they replace held and
    timed beside them; the rest: the CUDA-core pair), each beside the
    unfused pair of kernels it replaces (no single PyTorch call computes
-   either);
+   either); and the card's NaN at one voxel of x and of g through the
+   TF32 forward, dgrad, fused forward and wgrad and ``inorm_apply``: NaN
+   exactly where it enters each output, finite elsewhere;
 3a. the augmentation ops (``cbim_tpu_torch.ops.augment``, the pipeline's
    device part) on the card against the same ops on the CPU with the same
    drawn scalars, at KiTS's post-crop batch (2 x 128^3) and ACDC-3D's
@@ -47,10 +49,11 @@ Phases, each printing its result; any failure raises and exits non-zero:
    (kernels) and on the CPU (plain versions): softmax outputs compared;
    then again with ``conv_na`` (the fused preact conv);
 4b. one train step of that small model, card vs CPU, fp32 with TF32 off
-   (its 3^3 forwards and dgrads on the TF32 kernels, its wgrads on the
-   CUDA-core ones): the loss and every parameter's gradient compared; again
-   with ``conv_na``; then a bf16-autocast step on the card (the tensor-core
-   kernels only) against the fp32 CPU step, again with ``conv_na`` (the
+   (its 3^3 forwards, dgrads and wgrads on the 3xTF32 kernels; with
+   ``conv_na`` the fused wgrad on the CUDA-core one): the loss and every
+   parameter's gradient compared; again with ``conv_na``; then a
+   bf16-autocast step on the card (the tensor-core kernels only) against
+   the fp32 CPU step, again with ``conv_na`` (the
    tensor-core fused pair), and the same step on the CUDA-core kernels
    beside them (bf16's own error on this network);
 4c. the same two checks for a small MedFormer-2D (BatchNorm, 128^2 slices):
@@ -104,8 +107,8 @@ Phases, each printing its result; any failure raises and exits non-zero:
    fold 0 of 5), fed from host windows in pinned memory
    (``device_cache: false``: a real KiTS corpus is far over the cache's
    4 GB); every loss finite, and per step 32 ``conv3d_same_fwd_tf32``
-   (remat incl.), 16 ``conv3d_dgrad_tf32`` and 16 CUDA-core
-   ``conv3d_wgrad`` launches, no tensor-core launch; sec/step (median of
+   (remat incl.), 16 ``conv3d_dgrad_tf32`` and 16 ``conv3d_wgrad_tf32``
+   launches, no tensor-core and no CUDA-core 3^3 launch; sec/step (median of
    the 4 steps after warm-up), peak memory and the batches' time alone;
 6a. the ACDC-3D recipe (``configs/acdc/medformer_3d.yaml``: 16 x 192 x 192
    crops, 4 classes, fp32, batch 2) for 6 steps on 6 written cases of two
@@ -233,6 +236,9 @@ KERNELS = {
                              "cbim_tpu/ops/pallas/conv3d.py:299"),
     "conv3d_same_na_fwd_tf32": ("cbim_tpu_torch/csrc/conv3d_tf32.cu",
                                 "cbim_tpu/ops/pallas/conv3d.py:1387"),
+    # and its weight gradient
+    "conv3d_wgrad_tf32": ("cbim_tpu_torch/csrc/conv3d_wgrad_tf32.cu",
+                          "cbim_tpu/ops/pallas/conv3d.py:582"),
     # the probes, which lie on no path but their own entry points (phase 10)
     "probe_copy_scale": ("cbim_tpu_torch/csrc/probes.cu",
                          "tools/probe_bandwidth.py:23"),
@@ -251,10 +257,10 @@ DGRAD = {"conv3d_same_fwd": "conv3d_dgrad", "conv2d_same_fwd": "conv2d_dgrad",
 #: the forward kernels, which fp32 serving launches
 FORWARD_KERNELS = ("inorm_stats", "inorm_apply", "conv3d_same_fwd_tf32")
 #: the 3^3 kernels of each route (tensor-core: bf16 at widths of multiples
-#: of 8; TF32: fp32 there, whose wgrad is the CUDA-core one; CUDA-core: the
-#: rest)
+#: of 8; TF32: fp32 there; CUDA-core: the rest)
 TC_CONV_KERNELS = ("conv3d_same_fwd_tc", "conv3d_dgrad_tc", "conv3d_wgrad_tc")
-TF32_CONV_KERNELS = ("conv3d_same_fwd_tf32", "conv3d_dgrad_tf32")
+TF32_CONV_KERNELS = ("conv3d_same_fwd_tf32", "conv3d_dgrad_tf32",
+                     "conv3d_wgrad_tf32")
 CORE_CONV_KERNELS = ("conv3d_same_fwd", "conv3d_dgrad", "conv3d_wgrad")
 #: with ``conv_na``: the 20 preact InstanceNorm 3^3 convs of MedFormer-3D's
 #: BasicBlocks (every conv that takes the 3^3 kernel) become fused ones;
@@ -284,6 +290,11 @@ CONV_CASES = [(2, 128, 128, 128, 32, 32), (2, 128, 128, 128, 96, 32),
 #: fp32; its dgrad (the forward kernel on flip-swapped weights) runs
 #: 32 -> 96, and the dgrad of (2, 64^3, 192 -> 64) runs 64 -> 192
 CONV_RECORD = (2, 128, 128, 128, 96, 32)
+#: phase 3's NaN check: the fp32 case of widths of multiples of 8 that is
+#: ragged in every dimension, and an interior voxel (b, d, h, w) of it, so
+#: no 3^3 window around it crosses the SAME padding
+NAN_CASE = (2, 17, 23, 30, 24, 40)
+NAN_AT = (1, 8, 11, 15)
 #: the fused preact conv's acts (AMOS serving: relu; the flagship: gelu),
 #: and its JSON records: CONV_RECORD fp32 relu (AMOS serving's dtype and
 #: act: the TF32 forward, the CUDA-core ones beside it) and bf16 gelu (the
@@ -566,7 +577,7 @@ KITS_STEPS = WARMUP_STEPS + 4
 #: C_in <= 192, C_out <= 128): 2 in inc, 4 in down1, 5 in up3, 5 in up4,
 #: every width a multiple of 8.  A fp32 step launches, per conv, two
 #: ``conv3d_same_fwd_tf32`` (the forward and remat's recompute), one
-#: ``conv3d_dgrad_tf32`` and one CUDA-core ``conv3d_wgrad``
+#: ``conv3d_dgrad_tf32`` and one ``conv3d_wgrad_tf32``
 KITS_CONVS = 16
 #: phase 6a: configs/acdc/medformer_3d.yaml (16 x 192 x 192 crops, 4
 #: classes, its full_volume recipe), fp32, batch 2, ACDC3D_STEPS steps on 6
@@ -677,16 +688,28 @@ def conv64(x, w):
     return y.permute(0, 2, 3, 4, 1)
 
 
-def f64_errors(name, out, ref32, ref64) -> str:
-    """Assert that a TF32 kernel's largest error against the fp64 conv is
+def wgrad64(x, g):
+    """The SAME 3^3 conv's weight gradient in fp64 on x's device, torch's
+    [F, C, 3, 3, 3] (the reference of the TF32 wgrad's and cuDNN fp32's
+    errors)."""
+    import torch
+    return torch.nn.grad.conv3d_weight(
+        x.double().permute(0, 4, 1, 2, 3), (g.shape[-1], x.shape[-1], 3, 3, 3),
+        g.double().permute(0, 4, 1, 2, 3), padding=1)
+
+
+def f64_errors(name, out, ref32, ref64, into: dict | None = None) -> str:
+    """Assert that a TF32 kernel's largest error against the fp64 result is
     at most F64_ERR_RATIO times cuDNN fp32's (``ref32``, TF32 off), and
-    describe both, relative to max|y|."""
+    describe both, relative to max|ref|; ``into`` takes both numbers."""
     scale = float(ref64.abs().max())
     e_k = float((out.double() - ref64).abs().max()) / scale
     e_c = float((ref32.double() - ref64).abs().max()) / scale
     assert e_k <= F64_ERR_RATIO * e_c, \
-        f"{name}: {e_k:.3e} of max|y| from fp64, cuDNN fp32 {e_c:.3e}"
-    return f" vs fp64: kernel {e_k:.3e} cuDNN fp32 {e_c:.3e} of max|y|"
+        f"{name}: {e_k:.3e} of max|ref| from fp64, cuDNN fp32 {e_c:.3e}"
+    if into is not None:
+        into.update(f64_err=e_k, cudnn_f64_err=e_c)
+    return f" vs fp64: kernel {e_k:.3e} cuDNN fp32 {e_c:.3e} of max|ref|"
 
 
 def phase_kernels(device, conv_cases, norm_cases, record: dict) -> None:
@@ -824,9 +847,10 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
     plain versions on ``device``, with cuDNN's call beside each conv
     kernel (``F.conv3d`` on the flip-swapped weights, ``conv3d_weight``)
     and, where a case takes the tensor-core or TF32 route, the CUDA-core
-    kernel each replaces (the TF32 route's wgrad is the CUDA-core one);
-    the TF32 dgrad's error against an fp64 conv is held against cuDNN
-    fp32's."""
+    kernel each replaces; the TF32 dgrad's and wgrad's errors against an
+    fp64 conv or weight gradient are held against cuDNN fp32's (TF32 off,
+    as phase_kernels set it: ``conv3d_wgrad_plain`` is cuDNN's fp32
+    ``conv3d_weight``)."""
     import torch
     import torch.nn.functional as F
     from cbim_tpu_torch.ops.kernels import conv3d, fused_norm
@@ -843,9 +867,10 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
             w = (w / math.sqrt(27 * Fo)).to(dtype)
             ws = conv3d.flip_swap(w)
             route = conv3d.conv3d_route(dtype, C, Fo)
-            tc = route == conv3d.TENSOR_CORE
             kf, kx = conv3d.FORWARD_KEYS[route][:2]
-            kw = "conv3d_wgrad_tc" if tc else "conv3d_wgrad"
+            kw = {conv3d.TENSOR_CORE: "conv3d_wgrad_tc",
+                  conv3d.TF32X3: "conv3d_wgrad_tf32"}.get(route,
+                                                          "conv3d_wgrad")
             before = (conv3d.launches[kx], conv3d.launches[kw])
             dx = conv3d.conv3d_dgrad(g, w)
             ref_dx = conv3d.conv3d_same_plain(g, ws)
@@ -858,9 +883,12 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
             ex = float((dx.float() - ref_dx.float()).abs().max())
             sw = float(ref_dw.abs().max())
             ew = float((dw - ref_dw).abs().max())
-            f64 = ""
+            f64 = f64_w = ""
+            f64_rec: dict = {}
             if route == conv3d.TF32X3:
                 f64 = f64_errors(f"{kx} {case}", dx, ref_dx, conv64(g, ws))
+                f64_w = f64_errors(f"{kw} {case}", dw, ref_dw,
+                                   wgrad64(x, g), f64_rec)
             flops = 2 * 27 * C * Fo * B * D * H * W
             n = iters_for(flops, 1e10)
             xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
@@ -883,8 +911,7 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
                     lambda: conv3d._launch_fwd(g, ws, "conv3d_dgrad"), n)
                 core_x = f" CUDA-core {cx_ms:.3f} ms ({cx_ms / dx_ms:.2f}x)"
                 del cx
-            if tc:
-                # the CUDA-core wgrad the tensor-core one replaces
+                # and the CUDA-core wgrad
                 cw = conv3d._launch_wgrad(x, g)
                 torch.cuda.synchronize()
                 cew = float((cw - ref_dw).abs().max())
@@ -900,7 +927,7 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
                 f"({dx_ms / dx_lib:.2f}x){core_x}")
             say(f"  {kw:20s} {dt:8s} {case}: max_abs_err {ew:.3e} "
                 f"max_rel_err {ew / sw:.3e} of max|dW| {sw:.1f} "
-                f"(tol {WGRAD_TOL:.1e}) kernel {dw_ms:.3f} ms "
+                f"(tol {WGRAD_TOL:.1e}){f64_w} kernel {dw_ms:.3f} ms "
                 f"({flops / dw_ms / 1e9:.1f} TFLOP/s) plain {dw_plain:.3f} ms "
                 f"cuDNN {dw_lib:.3f} ms ({dw_ms / dw_lib:.2f}x){core_w}")
             assert ex <= CONV_TOL[dt] * sx, f"{kx} {dt} {case}: {ex:.3e}"
@@ -911,8 +938,11 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
                 nbytes = (x.numel() + g.numel()) * x.element_size() \
                     + 27 * C * Fo * 4
                 if dt == "float32":
-                    record["conv3d_wgrad"] = entry(dw_ms, dw_plain, dw_lib,
+                    record["conv3d_wgrad"] = entry(cw_ms, dw_plain, dw_lib,
                                                    flops, nbytes, dt, case)
+                    record["conv3d_wgrad_tf32"] = dict(
+                        entry(dw_ms, dw_plain, dw_lib, flops, nbytes, dt,
+                              case, tf32x3=True), **f64_rec)
                     record["conv3d_dgrad"] = (cx_ms, dx_plain, dx_lib)
                     record["conv3d_dgrad_tf32"] = (dx_ms, dx_plain, dx_lib)
                 else:
@@ -1118,6 +1148,78 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
                 del y, ref_y, dw, ref_dw
             del x, g, w, x3
     torch.cuda.synchronize()
+
+
+def phase_nan(device) -> None:
+    """Phase 3, NaN: the card's NaN (0x7FFFFFFF, what its arithmetic makes)
+    in one channel of the voxel NAN_AT of x and of g, fp32 at NAN_CASE,
+    through the TF32 forward, dgrad, fused forward (ReLU) and wgrad and
+    ``inorm_apply`` (ReLU).  Each output must be NaN exactly where that
+    value enters it (torch's rule, which the plain versions follow) and
+    finite elsewhere: a conv's in every output channel of the 3^3 voxels
+    around the NaN; the wgrad's where the plain weight gradient of the
+    NaNs' indicators against ones is nonzero; the apply's at the NaN
+    alone.  The plain versions' own NaN counts are printed beside."""
+    import torch
+    import torch.nn.functional as F
+    from cbim_tpu_torch.ops.kernels import conv3d, fused_norm
+    gen = torch.Generator(device=device).manual_seed(9)
+    B, D, H, W, C, Fo = NAN_CASE
+    x = torch.randn(B, D, H, W, C, generator=gen, device=device)
+    g = torch.randn(B, D, H, W, Fo, generator=gen, device=device)
+    w = torch.randn(Fo, C, 3, 3, 3, generator=gen, device=device)
+    w = w / math.sqrt(27 * C)
+    mean, rstd = fused_norm.inorm_stats_plain(x.view(B, -1, C), 1e-5)
+    nan = torch.tensor(0x7FFFFFFF, dtype=torch.int32).view(torch.float32)
+    x[(*NAN_AT, C // 2)] = nan
+    g[(*NAN_AT, Fo // 2)] = nan
+
+    def around(t):
+        """every channel of the 3^3 voxels around t's NaNs"""
+        m = t.isnan().any(-1).float()[:, None]
+        return F.max_pool3d(m, 3, stride=1, padding=1)[:, 0, ..., None] > 0
+
+    def wgrad_mask(x, g):
+        """where x's or g's NaNs enter a product (> 0.5: cuDNN's sums of
+        ones and zeros need not be exact)"""
+        return conv3d.conv3d_wgrad_plain(x.isnan().float(), torch.ones_like(g)) \
+            + conv3d.conv3d_wgrad_plain(torch.ones_like(x),
+                                        g.isnan().float()) > 0.5
+
+    keys = ("conv3d_same_fwd_tf32", "conv3d_dgrad_tf32",
+            "conv3d_same_na_fwd_tf32", "conv3d_wgrad_tf32", "inorm_apply")
+    before = {k: {**conv3d.launches, **fused_norm.launches}[k] for k in keys}
+    outs = {
+        "conv3d_same_fwd_tf32": (conv3d.conv3d_same(x, w),
+                                 conv3d.conv3d_same_plain(x, w), around(x)),
+        "conv3d_dgrad_tf32": (conv3d.conv3d_dgrad(g, w),
+                              conv3d.conv3d_same_plain(g, conv3d.flip_swap(w)),
+                              around(g)),
+        "conv3d_same_na_fwd_tf32": (
+            conv3d.conv3d_same_na(x, mean, rstd, w, "relu"),
+            conv3d.conv3d_same_na_plain(x, mean, rstd, w, "relu"), around(x)),
+        "conv3d_wgrad_tf32": (conv3d.conv3d_wgrad(x, g),
+                              conv3d.conv3d_wgrad_plain(x, g),
+                              wgrad_mask(x, g)),
+        "inorm_apply": (
+            fused_norm.inorm_apply(x.view(B, -1, C), mean, rstd, "relu"),
+            fused_norm.inorm_apply_plain(x.view(B, -1, C), mean, rstd, "relu"),
+            x.view(B, -1, C).isnan()),
+    }
+    torch.cuda.synchronize()
+    after = {**conv3d.launches, **fused_norm.launches}
+    assert all(after[k] == before[k] + 1 for k in keys), \
+        f"NaN check: not every kernel launched once: {before} -> {after}"
+    for k, (out, plain, want) in outs.items():
+        want = want.expand_as(out)
+        got = out.isnan()
+        assert int(want.sum()) > 0 and torch.equal(got, want) \
+            and bool(out[~got].isfinite().all()), \
+            f"{k}: {int(got.sum())} NaNs where {int(want.sum())} belong"
+        say(f"  {k:24s} NaN in {NAN_CASE} at {NAN_AT}: "
+            f"{int(got.sum())} NaNs, as the indicator's {int(want.sum())} "
+            f"(plain version: {int(plain.isnan().sum())})")
+    del x, g, w, outs
 
 
 def phase_conv2d_kernels(device, cases, record: dict) -> None:
@@ -2002,6 +2104,18 @@ def write_corpus(root: str, cases, names, seed: int, mr: bool = False,
     write_name_list(root, list(names))
 
 
+def kits_config(data_root: str, **overrides):
+    """Phase 6k's config: ``configs/kits/medformer_3d.yaml`` as shipped,
+    read by the port's ``load_config`` with ``overrides``, for one epoch of
+    KITS_STEPS steps on host windows over KITS_CASES, which it writes into
+    ``data_root`` (seed 1)."""
+    from cbim_tpu_torch.config import load_config
+    write_corpus(data_root, KITS_CASES, range(len(KITS_CASES)), seed=1)
+    return load_config("kits", "medformer", "3d", data_root=data_root,
+                       epochs=1, iter_per_epoch=KITS_STEPS, print_freq=1,
+                       device_cache=False, **overrides)
+
+
 def phase_aug_ops(device) -> dict:
     """Phase 3a: every augmentation op on the card against the same op on
     the CPU, with the same drawn scalars (and the noise tensor and the
@@ -2189,6 +2303,7 @@ def main(argv=None) -> int:
     phase_kernels(device, CONV_CASES, NORM_CASES, record)
     phase_backward_kernels(device, CONV_CASES, NORM_CASES, record)
     phase_na_kernels(device, CONV_CASES, record)
+    phase_nan(device)
     phase_conv2d_kernels(device, CONV2D_CASES, record)
     phase_depthwise_layouts(device, DEPTHWISE2D_CASES)
     phase_window_attention(device, WA_CASES, record)
@@ -2227,11 +2342,10 @@ def main(argv=None) -> int:
             device, dict(SMALL, remat=True, conv_na=conv_na),
             (2, 1, 64, 64, 64))
         counts = launch_counts()
-        # the fp32 step: forwards and dgrads on the TF32 kernels, wgrads on
-        # the CUDA-core ones
+        # the fp32 step: forwards, dgrads and wgrads on the TF32 kernels;
+        # with conv_na the fused wgrad on the CUDA-core one
         used = (("conv3d_same_na_fwd_tf32", "conv3d_dgrad_tf32",
-                 "conv3d_wgrad_na") if conv_na else
-                TF32_CONV_KERNELS + ("conv3d_wgrad",))
+                 "conv3d_wgrad_na") if conv_na else TF32_CONV_KERNELS)
         assert all(counts[k] > 0 for k in used) and \
             not any(counts[k] for k in CONV3D_KERNELS if k not in used), \
             counts
@@ -2427,38 +2541,32 @@ def main(argv=None) -> int:
 
     say("[phase 6k] the KiTS recipe as shipped (configs/kits/"
         "medformer_3d.yaml), fp32, batch 2, on written NIfTI cases")
-    from cbim_tpu_torch.config import load_config
-    kits_root = os.path.join(WORK, "kits_data")
     t_corpus = time.perf_counter()
-    write_corpus(kits_root, KITS_CASES, range(len(KITS_CASES)), seed=1)
+    kits = kits_config(os.path.join(WORK, "kits_data"),
+                       profile_dir=profile_dir("kits"))
     say(f"  wrote {len(KITS_CASES)} cases in "
         f"{time.perf_counter() - t_corpus:.1f} s")
-    kits = load_config("kits", "medformer", "3d", data_root=kits_root,
-                       epochs=1, iter_per_epoch=KITS_STEPS, print_freq=1,
-                       device_cache=False)
-    if args.profile:
-        kits.profile_dir = profile_dir("kits")
     tr = phase_train(device, kits, TRAIN_BATCH, "kits",
                      ("inorm_stats", "inorm_apply", "inorm_bwd_stats",
-                      "inorm_bwd_apply", "conv3d_wgrad") + TF32_CONV_KERNELS,
+                      "inorm_bwd_apply") + TF32_CONV_KERNELS,
                      amp=False, min_steps=KITS_STEPS)
     say_train(tr, "volumes")
     counts, steps = tr["launches"], len(tr["step_seconds"])
-    # fp32 at widths of multiples of 8: the 3xTF32 forwards and dgrads and
-    # the CUDA-core wgrad, per conv and step 2 forwards (remat), 1 dgrad,
-    # 1 wgrad; no tensor-core and no CUDA-core forward launch
+    # fp32 at widths of multiples of 8: the 3xTF32 kernels, per conv and
+    # step 2 forwards (remat), 1 dgrad, 1 wgrad; no tensor-core and no
+    # CUDA-core 3^3 launch
     want = dict(conv3d_same_fwd_tf32=2 * KITS_CONVS * steps,
                 conv3d_dgrad_tf32=KITS_CONVS * steps,
-                conv3d_wgrad=KITS_CONVS * steps,
-                **{k: 0 for k in TC_CONV_KERNELS + NA_TC_KERNELS
-                   + ("conv3d_same_fwd", "conv3d_dgrad")})
+                conv3d_wgrad_tf32=KITS_CONVS * steps,
+                **{k: 0 for k in CONV3D_KERNELS
+                   if k not in TF32_CONV_KERNELS})
     assert steps == KITS_STEPS and all(counts[k] == v
                                        for k, v in want.items()), \
         (counts, want)
     assert tr["path"] == "host windows", tr["path"]
     pipe, = tr["seen"]["pipelines"]
     data_s = time_batches(pipe, TRAIN_BATCH)
-    say(f"  conv3d_wgrad (CUDA-core) launches {counts['conv3d_wgrad']}, "
+    say(f"  conv3d_wgrad_tf32 launches {counts['conv3d_wgrad_tf32']}, "
         f"{KITS_CONVS} a step; host-window batches alone "
         f"{', '.join(f'{1e3 * v:.1f}' for v in data_s)} ms")
     if args.profile:
@@ -2467,6 +2575,7 @@ def main(argv=None) -> int:
 
     say("[phase 6a] the ACDC-3D recipe (configs/acdc/medformer_3d.yaml) on "
         "the device cache's full-volume path, fp32, batch 2")
+    from cbim_tpu_torch.config import load_config
     acdc_root = os.path.join(WORK, "acdc3d_data")
     names = [f"patient{i:03d}" for i in range(1, len(ACDC3D_CASES) + 1)]
     write_corpus(acdc_root, ACDC3D_CASES, names, seed=2, mr=True, classes=4,

@@ -94,10 +94,11 @@ def test_conv3d_route(dtype, C, F, route):
 def test_wrappers_launch_the_kernels_of_their_route(monkeypatch, dtype, C, F):
     """With the launches recorded in place of the card: conv3d_same,
     conv3d_dgrad and conv3d_wgrad launch the entries conv3d_route names
-    (the dgrad with the forward's weights and the flip), and so does the
-    fused norm-act pair: its tensor-core kernels in bf16 at widths of
-    multiples of 8, in fp32 there the TF32 forwards beside the CUDA-core
-    wgrads, its CUDA-core ones otherwise."""
+    (the dgrad with the forward's weights and the flip; in fp32 at widths
+    of multiples of 8 the TF32 forwards and wgrad), and so does the fused
+    norm-act pair: its tensor-core kernels in bf16 at widths of multiples
+    of 8, in fp32 there the TF32 forward beside the CUDA-core wgrad, its
+    CUDA-core ones otherwise."""
     calls = []
 
     def record(name):
@@ -108,7 +109,7 @@ def test_wrappers_launch_the_kernels_of_their_route(monkeypatch, dtype, C, F):
         return launch
 
     for fn in ("_launch_fwd", "_launch_fwd_tc", "_launch_fwd_tf32",
-               "_launch_wgrad", "_launch_wgrad_tc"):
+               "_launch_wgrad", "_launch_wgrad_tc", "_launch_wgrad_tf32"):
         monkeypatch.setattr(conv3d, fn, record(fn))
     monkeypatch.setattr(conv3d._backend, "uses_kernels", lambda t: True)
     x = torch.zeros(1, 2, 3, 4, C, dtype=dtype)
@@ -127,7 +128,7 @@ def test_wrappers_launch_the_kernels_of_their_route(monkeypatch, dtype, C, F):
                              ("_launch_wgrad_tc", None, False)],
         conv3d.TF32X3: [("_launch_fwd_tf32", "conv3d_same_fwd_tf32", False),
                         ("_launch_fwd_tf32", "conv3d_dgrad_tf32", True),
-                        ("_launch_wgrad", None, False)],
+                        ("_launch_wgrad_tf32", None, False)],
         conv3d.CUDA_CORE: [("_launch_fwd", "conv3d_same_fwd", False),
                            ("_launch_fwd", "conv3d_dgrad", False),
                            ("_launch_wgrad", None, False)]}[route]
@@ -272,7 +273,8 @@ def test_wgrad_tc_chunking_covers_every_voxel_within_the_cap(shape, C, F):
     td, th, tw = conv3d.TC_VOXEL_TILE
     assert n_tiles * td * th * tw >= B * D * H * W
     assert n_tiles == B * -(-D // td) * -(-H // th) * -(-W // tw)
-    per, n_chunks = conv3d.wgrad_tc_chunking(n_tiles, C, F)
+    per, n_chunks = conv3d.wgrad_tc_chunking(n_tiles, C, F,
+                                             conv3d.TC_WGRAD_TILE)
     # every tile in exactly one chunk, no chunk empty
     assert per * n_chunks >= n_tiles > per * (n_chunks - 1)
     assert 1 <= n_chunks <= 65535
@@ -282,6 +284,7 @@ def test_wgrad_tc_chunking_covers_every_voxel_within_the_cap(shape, C, F):
 def test_wgrad_tc_chunking_respects_the_partial_cap():
     """A dW so wide that one chunk's partials pass a tenth of the cap."""
     C = F = 1024
-    per, n_chunks = conv3d.wgrad_tc_chunking(10 ** 6, C, F)
+    per, n_chunks = conv3d.wgrad_tc_chunking(10 ** 6, C, F,
+                                             conv3d.TC_WGRAD_TILE)
     assert n_chunks * 27 * C * F * 4 <= conv3d._WGRAD_MAX_PARTIAL_BYTES
     assert per * n_chunks >= 10 ** 6

@@ -98,6 +98,53 @@ def test_tf32_round_is_round_to_nearest_ties_away():
     assert torch.equal(conv3d.tf32_round(r), r)
 
 
+#: NaNs as fp32 bits: the card's own (0x7FFFFFFF, and negative), the
+#: quiet NaN, and one whose payload lies in the 13 bits TF32 drops
+NANS = [0x7FFFFFFF, 0xFFFFFFFF, 0x7FC00000, 0x7F800001]
+#: an interior voxel (b, d, h, w) of SHAPE, so no window crosses the pad
+NAN_AT = (1, 2, 3, 4)
+
+
+def _nan(bits):
+    return torch.from_numpy(np.array([bits], np.uint32).view(np.float32))
+
+
+@pytest.mark.parametrize("bits", NANS)
+def test_tf32_round_keeps_nan(bits):
+    """A NaN rounds to a NaN whose TF32 bits are a NaN (the add of half
+    the dropped range alone carries 0x7FFFFFFF into the sign bit, -0.0);
+    its split keeps it in hi, with lo 0, and so does an infinity's."""
+    v = _nan(bits)
+    assert bool(v.isnan().all())
+    r = conv3d.tf32_round(v)
+    assert bool(r.isnan().all()) and int(_low_bits(r).abs().max()) == 0
+    hi, lo = conv3d.tf32_split(v)
+    assert bool(hi.isnan().all()) and lo.tolist() == [0.0]
+    inf = torch.tensor([float("inf"), -float("inf")])
+    assert torch.equal(conv3d.tf32_round(inf), inf)
+    hi, lo = conv3d.tf32_split(inf)
+    assert torch.equal(hi, inf) and lo.tolist() == [0.0, 0.0]
+
+
+@pytest.mark.parametrize("C,F", WIDTHS)
+def test_tf32x3_plain_keeps_the_nan_mask(C, F):
+    """The card's NaN in one input channel of an interior voxel makes y
+    NaN in every output channel of the 3^3 voxels around it and nowhere
+    else, in the forward and, on the flip-swapped weights, the dgrad."""
+    x, w = _inputs(SHAPE, C, F, 5 * C + F)
+    g = _inputs(SHAPE, F, C, 5 * C + F + 1)[0]
+    for t in (x, g):
+        t[(*NAN_AT, t.shape[-1] // 2)] = _nan(0x7FFFFFFF).numpy()[0]
+    tw = torch.from_numpy(w)
+    for t, wt in ((x, tw), (g, conv3d.flip_swap(tw))):
+        t = torch.from_numpy(t)
+        around = nnf.max_pool3d(t.isnan().any(-1).float()[:, None], 3,
+                                stride=1, padding=1)[:, 0, ..., None] > 0
+        assert int(around.sum()) == 27
+        y = conv3d.conv3d_same_tf32x3_plain(t, wt)
+        assert torch.equal(y.isnan(), around.expand_as(y))
+
+
 def test_tf32_split_recovers_fp32_to_2_pow_22():
     """hi and lo are TF32 values; hi + lo is v within 2^-22 |v| (lo's own
     rounding), and |lo| <= 2^-11 |v|."""
