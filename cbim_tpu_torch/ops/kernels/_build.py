@@ -92,6 +92,12 @@ SIGNATURES = {
     "conv2d_same_fwd_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, g, partial, dw, B, H, W, C, F, tiles_per_chunk, n_chunks, stream
     "conv2d_wgrad_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, wpk, y, B, H, W, C, F, bn, flip, stream (fp32, TF32 tensor
+    # cores)
+    "conv2d_same_fwd_tf32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _P],
+    # the same as conv2d_wgrad_tc (fp32, TF32 tensor cores)
+    "conv2d_wgrad_tf32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, bias_t, region, o, dtype, B, H, N, D, nW, sb, sh, sn, osb,
     # osh, osn, stream
     "window_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -3,7 +3,7 @@ plain versions, and the ``torch.autograd.Function`` that trains through them.
 
 Port of ``cbim_tpu/ops/pallas/conv2d.py``: ``conv2d_same``, the custom VJP
 ``conv2d_same_t`` (dgrad: the forward on ``_flip_swap2`` weights) and
-``conv2d_wgrad``.  Two routes, chosen by :func:`conv2d_route` from the
+``conv2d_wgrad``.  Three routes, chosen by :func:`conv2d_route` from the
 dtype and the channel counts before any launch:
 
 - bf16 with C and F multiples of 8: the tensor-core kernels
@@ -13,8 +13,18 @@ dtype and the channel counts before any launch:
   a first small kernel into the layout of :func:`pack_weights_tc2d` (its
   plain version, which also applies the dgrad's flip-swap); the wgrad
   splits its pixel tiles into chunks by :func:`wgrad_tc2d_chunking`.
-- everything else (fp32, other widths): the CUDA-core kernels of
-  ``csrc/conv2d.cu``:
+- fp32 with C and F multiples of 8: the error-compensated TF32
+  tensor-core kernels (3xTF32: each operand split into a TF32 hi and lo
+  part, three TF32 products summed in fp32) ``conv2d_same_fwd_tf32``
+  (``csrc/conv2d_tf32.cu``; also the dgrad, counted under
+  ``conv2d_dgrad_tf32``) and ``conv2d_wgrad_tf32``
+  (``csrc/conv2d_wgrad_tf32.cu``).  The forward's entry packs and splits
+  the weights as :func:`pack_weights_tf32_2d` does;
+  :func:`conv2d_same_tf32x3_plain` and :func:`conv2d_wgrad_tf32x3_plain`
+  model the arithmetic, and ``wgrad_tc_chunking`` at 9 taps splits the
+  wgrad's pixel tiles (:func:`pixel_tiles_tf32_2d`).
+- everything else (other widths, such as a 1-channel input): the
+  CUDA-core kernels of ``csrc/conv2d.cu``:
 
 - ``conv2d_same_fwd``: x[B, H, W, C] (x) w[F, C, 3, 3] -> y[B, H, W, F]
   with fp32 sums, any B/H/W (the kernel masks its own edges).  It also
@@ -39,15 +49,22 @@ import torch.nn.functional as F
 
 from .. import _backend
 from . import _build
-from .conv3d import (CUDA_CORE, TC_CHUNK, TENSOR_CORE, conv3d_route,
-                     tc_tile_n, wgrad_chunking)
+from .conv3d import (CUDA_CORE, TC_CHUNK, TENSOR_CORE, TF32_CHUNK,
+                     TF32_PITCH, TF32_WGRAD_TILE, TF32X3, conv3d_route,
+                     tc_tile_n, tf32_split, tf32_tile_n, wgrad_chunking,
+                     wgrad_tc_chunking)
 
 #: launches of each kernel since the last reset (plain calls do not count);
-#: ``conv2d_dgrad`` and ``conv2d_dgrad_tc`` count the forward kernels'
-#: input-gradient launches
+#: ``conv2d_dgrad``, ``conv2d_dgrad_tc`` and ``conv2d_dgrad_tf32`` count the
+#: forward kernels' input-gradient launches
 launches = {"conv2d_same_fwd": 0, "conv2d_dgrad": 0, "conv2d_wgrad": 0,
             "conv2d_same_fwd_tc": 0, "conv2d_dgrad_tc": 0,
-            "conv2d_wgrad_tc": 0}
+            "conv2d_wgrad_tc": 0, "conv2d_same_fwd_tf32": 0,
+            "conv2d_dgrad_tf32": 0, "conv2d_wgrad_tf32": 0}
+#: the forward and dgrad launch counters of each route
+FORWARD_KEYS = {TENSOR_CORE: ("conv2d_same_fwd_tc", "conv2d_dgrad_tc"),
+                TF32X3: ("conv2d_same_fwd_tf32", "conv2d_dgrad_tf32"),
+                CUDA_CORE: ("conv2d_same_fwd", "conv2d_dgrad")}
 
 #: the tensor-core kernels: the widest output-channel tile of the forward
 #: (its staging buffer and a streamed weight chunk must fit beside two
@@ -57,6 +74,9 @@ TC2D_MAX_BN = 96
 TC2D_TILE_W = 32
 TC2D_WGRAD_MAX_TILE = 64
 _TC2D_WGRAD_TARGET_BLOCKS = 132
+#: the rows of the TF32 wgrad's (rows, 32) pixel tiles: two for each of
+#: its three row parts
+TF32_2D_TILE_H = 6
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -88,14 +108,11 @@ def flip_swap(w: torch.Tensor) -> torch.Tensor:
 def conv2d_route(dtype: torch.dtype, C: int, F: int) -> str:
     """Which kernel family a CUDA call of :func:`conv2d_same`,
     :func:`conv2d_dgrad` or :func:`conv2d_wgrad` with C input and F output
-    channels launches: the 3^3 conv's bf16 rule (``conv3d_route``),
-    :data:`TENSOR_CORE` for bf16 with C % 8 == 0 and F % 8 == 0 (TMA's
-    16-byte strides), else :data:`CUDA_CORE` (the 3x3 conv has no TF32
-    route: fp32 takes the CUDA-core kernels).  Symmetric in C and F, so
-    the dgrad (F -> C) takes its forward's route."""
-    if conv3d_route(dtype, C, F) == TENSOR_CORE:
-        return TENSOR_CORE
-    return CUDA_CORE
+    channels launches: the 3^3 conv's rule (``conv3d_route``), with C % 8
+    == 0 and F % 8 == 0 (TMA's 16-byte strides) :data:`TENSOR_CORE` for
+    bf16 and :data:`TF32X3` for fp32, else :data:`CUDA_CORE`.  Symmetric
+    in C and F, so the dgrad (F -> C) takes its forward's route."""
+    return conv3d_route(dtype, C, F)
 
 
 def tc2d_tile_n(F: int) -> tuple[int, int]:
@@ -153,6 +170,47 @@ def conv2d_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+# ------------------------------------------------- the TF32 route (3xTF32)
+
+def pack_weights_tf32_2d(w: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """torch weights w[F, C, 3, 3] (with ``flip``: the forward's, packed as
+    ``flip_swap(w)``, the dgrad's) -> the TF32 forward's layout [n_tiles,
+    C chunks, kh, part, kw, BN, 20], part 0 the TF32 hi and 1 the lo of
+    ``tf32_split``: for each (output tile, 16-channel chunk, kh) step one
+    contiguous block of both parts' 3 kw taps x BN output channels x 16
+    input channels, each row of 16 padded to 20 values (80 bytes) so the
+    kernel's ldmatrix rows fall on distinct banks (``pack_weights_tf32``'s
+    rows).  BN from ``tf32_tile_n``.  Zeros past C, F and in the padding.
+    The plain version of the packing kernel that ``conv2d_same_fwd_tf32``
+    runs first."""
+    if flip:
+        w = flip_swap(w)
+    Fo, C = w.shape[:2]
+    bn, n_tiles = tf32_tile_n(Fo)
+    n_chunks = -(-C // TF32_CHUNK)
+    w = F.pad(w.float(), (0, 0, 0, 0, 0, n_chunks * TF32_CHUNK - C,
+                          0, n_tiles * bn - Fo))
+    # [n_tiles, chunks, kh, kw, bn, 16]
+    w = w.reshape(n_tiles, bn, n_chunks, TF32_CHUNK, 3, 3).permute(
+        0, 2, 4, 5, 1, 3)
+    wp = w.new_zeros((n_tiles, n_chunks, 3, 2, 3, bn, TF32_PITCH))
+    wp[..., :TF32_CHUNK] = torch.stack(tf32_split(w), dim=3)
+    return wp
+
+
+def conv2d_same_tf32x3_plain(x: torch.Tensor, w: torch.Tensor
+                             ) -> torch.Tensor:
+    """``conv2d_same_fwd_tf32``'s arithmetic in plain PyTorch (3xTF32): x
+    and w each split into TF32 hi and lo parts (``tf32_split``), then y =
+    x_lo w_hi + x_hi w_lo + x_hi w_hi, three SAME convs summed in fp32 (the
+    dropped x_lo w_lo is 2^-22 of x w).  Not on the card's path: the CPU
+    tests hold it against fp64 and the Pallas kernel."""
+    _check(x, w)
+    (xh, xl), (wh, wl) = tf32_split(x), tf32_split(w)
+    return (conv2d_same_plain(xl, wh) + conv2d_same_plain(xh, wl)
+            + conv2d_same_plain(xh, wh))
+
+
 def _launch_fwd(x: torch.Tensor, w: torch.Tensor, key: str) -> torch.Tensor:
     """The CUDA-core forward ``conv2d_same_fwd``, counted under ``key``."""
     if not x.is_contiguous():
@@ -165,6 +223,41 @@ def _launch_fwd(x: torch.Tensor, w: torch.Tensor, key: str) -> torch.Tensor:
                 _backend.dtype_code(x), B, H, W, C, Fo, device=x.device)
     launches[key] += 1
     return y
+
+
+def _launch_fwd_tf32(x: torch.Tensor, w: torch.Tensor, key: str,
+                     flip: bool = False) -> torch.Tensor:
+    """The TF32 forward ``conv2d_same_fwd_tf32`` (fp32) on torch weights
+    w[F, C, 3, 3] or, with ``flip``, on ``flip_swap(w)`` (the input
+    gradient), counted under ``key``.  The entry packs and splits the
+    weights as :func:`pack_weights_tf32_2d` does into scratch the wrapper
+    allocates."""
+    if not x.is_contiguous():
+        raise ValueError("kernel needs a contiguous x[B, H, W, C]")
+    B, H, W, C = x.shape
+    Fo = w.shape[1] if flip else w.shape[0]
+    bn, n_tiles = tf32_tile_n(Fo)
+    w = w.contiguous()
+    wp = torch.empty(n_tiles * -(-C // TF32_CHUNK) * 3 * 2 * 3 * bn
+                     * TF32_PITCH, dtype=x.dtype, device=x.device)
+    y = torch.empty((B, H, W, Fo), dtype=x.dtype, device=x.device)
+    _build.call("conv2d_same_fwd_tf32", x.data_ptr(), w.data_ptr(),
+                wp.data_ptr(), y.data_ptr(), B, H, W, C, Fo, bn, int(flip),
+                device=x.device)
+    launches[key] += 1
+    return y
+
+
+def _launch_route(route: str, x: torch.Tensor, w: torch.Tensor,
+                  flip: bool = False) -> torch.Tensor:
+    """The forward kernel of ``route`` on torch weights w (with ``flip``:
+    on ``flip_swap(w)``, counted as a dgrad)."""
+    key = FORWARD_KEYS[route][int(flip)]
+    if route == TENSOR_CORE:
+        return _launch_fwd_tc(x, w, key, flip=flip)
+    if route == TF32X3:
+        return _launch_fwd_tf32(x, w, key, flip=flip)
+    return _launch_fwd(x, flip_swap(w) if flip else w, key)
 
 
 def _launch_fwd_tc(x: torch.Tensor, w: torch.Tensor, key: str,
@@ -201,9 +294,8 @@ def conv2d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(x, w)
     if not _backend.uses_kernels(x):
         return conv2d_same_plain(x, w)
-    if conv2d_route(x.dtype, x.shape[-1], w.shape[0]) == TENSOR_CORE:
-        return _launch_fwd_tc(x, w, "conv2d_same_fwd_tc")
-    return _launch_fwd(x, w, "conv2d_same_fwd")
+    return _launch_route(conv2d_route(x.dtype, x.shape[-1], w.shape[0]), x,
+                         w)
 
 
 def conv2d_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -214,9 +306,8 @@ def conv2d_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(g, ws)
     if not _backend.uses_kernels(g):
         return conv2d_same_plain(g, ws)
-    if conv2d_route(g.dtype, g.shape[-1], ws.shape[0]) == TENSOR_CORE:
-        return _launch_fwd_tc(g, w, "conv2d_dgrad_tc", flip=True)
-    return _launch_fwd(g, ws, "conv2d_dgrad")
+    return _launch_route(conv2d_route(g.dtype, g.shape[-1], ws.shape[0]), g,
+                         w, flip=True)
 
 
 def conv2d_wgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -277,6 +368,49 @@ def _launch_wgrad_tc(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dw.permute(3, 2, 0, 1)
 
 
+def conv2d_wgrad_tf32x3_plain(x: torch.Tensor, g: torch.Tensor
+                              ) -> torch.Tensor:
+    """``conv2d_wgrad_tf32``'s arithmetic in plain PyTorch (3xTF32): x and
+    g each split into TF32 hi and lo parts (``tf32_split``), then dW =
+    wgrad(x_lo, g_hi) + wgrad(x_hi, g_lo) + wgrad(x_hi, g_hi), three
+    weight gradients summed in fp32 (the dropped x_lo g_lo is 2^-22 of
+    x g), torch's [F, C, 3, 3].  Not on the card's path: the CPU tests hold
+    it against fp64 and the Pallas kernel."""
+    _check_wgrad(x, g)
+    (xh, xl), (gh, gl) = tf32_split(x), tf32_split(g)
+    return (conv2d_wgrad_plain(xl, gh) + conv2d_wgrad_plain(xh, gl)
+            + conv2d_wgrad_plain(xh, gh))
+
+
+def pixel_tiles_tf32_2d(B: int, H: int, W: int) -> int:
+    """The TF32 wgrad's pixel tiles: (:data:`TF32_2D_TILE_H`, 32) boxes
+    covering each sample, ragged ones included."""
+    return B * -(-H // TF32_2D_TILE_H) * -(-W // TC2D_TILE_W)
+
+
+def _launch_wgrad_tf32(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The 3xTF32 wgrad ``conv2d_wgrad_tf32`` (fp32) and its fold."""
+    if not (x.is_contiguous() and g.is_contiguous()):
+        raise ValueError("kernel needs contiguous x and g")
+    B, H, W, C = x.shape
+    Fo = g.shape[-1]
+    if B * H * W >= 2 ** 31:
+        raise ValueError(f"conv2d_wgrad takes fewer than 2^31 pixels, got "
+                         f"{B * H * W}")
+    # a block owns a chunk of pixel tiles and one (16, 32) (c, f) tile of
+    # dW for all 9 taps, as conv3d_wgrad_tf32 does for 27
+    per, n_chunks = wgrad_tc_chunking(pixel_tiles_tf32_2d(B, H, W), C, Fo,
+                                      TF32_WGRAD_TILE, taps=9)
+    partial = torch.empty(n_chunks * 9 * C * Fo, dtype=torch.float32,
+                          device=x.device)
+    dw = torch.empty((3, 3, C, Fo), dtype=torch.float32, device=x.device)
+    _build.call("conv2d_wgrad_tf32", x.data_ptr(), g.data_ptr(),
+                partial.data_ptr(), dw.data_ptr(), B, H, W, C, Fo, per,
+                n_chunks, device=x.device)
+    launches["conv2d_wgrad_tf32"] += 1
+    return dw.permute(3, 2, 0, 1)
+
+
 def _launch_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The CUDA-core wgrad ``conv2d_wgrad`` and its fold."""
     if not (x.is_contiguous() and g.is_contiguous()):
@@ -307,8 +441,11 @@ def conv2d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     _check_wgrad(x, g)
     if not _backend.uses_kernels(x):
         return conv2d_wgrad_plain(x, g)
-    if conv2d_route(x.dtype, x.shape[-1], g.shape[-1]) == TENSOR_CORE:
+    route = conv2d_route(x.dtype, x.shape[-1], g.shape[-1])
+    if route == TENSOR_CORE:
         return _launch_wgrad_tc(x, g)
+    if route == TF32X3:
+        return _launch_wgrad_tf32(x, g)
     return _launch_wgrad(x, g)
 
 

@@ -441,17 +441,18 @@ def voxel_tiles(B: int, D: int, H: int, W: int) -> int:
     return B * -(-D // td) * -(-H // th) * -(-W // tw)
 
 
-def wgrad_tc_chunking(n_tiles: int, C: int, F: int, tile: tuple[int, int]
-                      ) -> tuple[int, int]:
+def wgrad_tc_chunking(n_tiles: int, C: int, F: int, tile: tuple[int, int],
+                      taps: int = 27) -> tuple[int, int]:
     """(tiles_per_chunk, n_chunks) for a tensor-core wgrad's split
-    reduction over ``n_tiles`` voxel tiles: a block owns a chunk of tiles
-    and one (c, f) ``tile`` of dW for all 27 taps (:data:`TC_WGRAD_TILE`
-    for ``conv3d_wgrad_tc`` and ``conv3d_wgrad_na_tc``,
-    :data:`TF32_WGRAD_TILE` for ``conv3d_wgrad_tf32``); every chunk holds
-    at least one tile and the fp32 partials stay within
+    reduction over ``n_tiles`` voxel (or pixel) tiles: a block owns a chunk
+    of tiles and one (c, f) ``tile`` of dW for all ``taps`` taps
+    (:data:`TC_WGRAD_TILE` for ``conv3d_wgrad_tc`` and
+    ``conv3d_wgrad_na_tc``, :data:`TF32_WGRAD_TILE` for
+    ``conv3d_wgrad_tf32`` and, at 9 taps, the 3x3 ``conv2d_wgrad_tf32``);
+    every chunk holds at least one tile and the fp32 partials stay within
     ``_WGRAD_MAX_PARTIAL_BYTES``."""
     tiles = -(-C // tile[0]) * -(-F // tile[1])
-    cap = max(1, _WGRAD_MAX_PARTIAL_BYTES // (27 * C * F * 4))
+    cap = max(1, _WGRAD_MAX_PARTIAL_BYTES // (taps * C * F * 4))
     n_chunks = max(1, min(_TC_WGRAD_TARGET_BLOCKS // tiles, cap, 65535,
                           n_tiles))
     per = -(-n_tiles // n_chunks)

@@ -1,5 +1,5 @@
-"""Time a training step (bf16, or KiTS's fp32), or fp32 serving, of a
-checkout of this repository.
+"""Time a training step (bf16, or fp32: KiTS as shipped, the ACDC 2D
+recipe), or fp32 serving, of a checkout of this repository.
 
 Runs one of ``chip_smoke.py``'s training or 3D serving phases from the
 checkout at ``--root``, with that checkout's own kernels and code:
@@ -21,7 +21,10 @@ checkout at ``--root``, with that checkout's own kernels and code:
   autocast, six steps on ``Synthetic2D``) with ``conv2d_kernel`` on, the
   3x3 kernel route;
 - ``--phase 8b``: the same recipe with ``conv2d_kernel`` off (cuDNN's 3x3
-  convs, the default).
+  convs, the default);
+- ``--phase 8f``: the ACDC recipe in fp32 (the CLI's default, no
+  ``--amp``) with ``conv2d_kernel`` on: the fp32 3x3 kernels of the
+  checkout (3xTF32 at widths of multiples of 8).
 
 It prints the step seconds, the median after the warm-up steps,
 volumes/s (slices/s in 2D) and peak device memory (serving: seconds per
@@ -64,13 +67,15 @@ def main(argv=None) -> int:
                         help="the checkout whose chip_smoke.py and kernels run "
                              "(default: this one)")
     parser.add_argument("--phase", default="6",
-                        choices=("5", "5b", "6", "6b", "6k", "8", "8b"),
+                        choices=("5", "5b", "6", "6b", "6k", "8", "8b",
+                                 "8f"),
                         help="5: AMOS-CT serving; 5b: the same with conv_na; "
                              "6: the flagship 3D recipe; 6b: the same with "
                              "conv_na (the fused preact conv); 6k: the KiTS "
                              "recipe as shipped, fp32; 8: the ACDC "
                              "2D recipe on the 3x3 kernel route; 8b: the "
-                             "same on cuDNN's 3x3 convs (default: 6)")
+                             "same on cuDNN's 3x3 convs; 8f: the ACDC recipe "
+                             "in fp32 on the 3x3 kernel route (default: 6)")
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="trace the steady steps into DIR")
     args = parser.parse_args(argv)
@@ -103,9 +108,11 @@ def main(argv=None) -> int:
                    profile_dir=profile)
         batch, unit = smoke.TRAIN_BATCH, "volumes"
     else:
-        cfg = dict(smoke.ACDC_TRAIN, conv2d_kernel=args.phase == "8",
+        cfg = dict(smoke.ACDC_TRAIN, conv2d_kernel=args.phase != "8b",
                    profile_dir=profile)
         batch, unit = smoke.TRAIN2D_BATCH, "slices"
+        if args.phase == "8f":
+            kw = dict(amp=False)
     tr = smoke.phase_train(device, cfg, batch, name, (), **kw)
     print(f"{root} phase {args.phase}: {smoke.card_line()}", flush=True)
     smoke.say_train(tr, unit)

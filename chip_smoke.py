@@ -20,9 +20,12 @@ Phases, each printing its result; any failure raises and exits non-zero:
    too; the TF32 kernels' and cuDNN fp32's errors against an fp64 conv or
    weight gradient are printed, and the kernels' may be at most twice
    cuDNN's), and so do the 3x3 cases
-   (``conv2d_route``: ``conv2d_same_fwd_tc`` and ``conv2d_wgrad_tc`` in
-   bf16 at widths of multiples of 8, the CUDA-core ``conv2d_same_fwd`` and
-   ``conv2d_wgrad`` beside them and for the rest); and
+   (``conv2d_route``: at widths of multiples of 8 ``conv2d_same_fwd_tc``
+   and ``conv2d_wgrad_tc`` in bf16 and the 3xTF32 ``conv2d_same_fwd_tf32``
+   (also the dgrad) and ``conv2d_wgrad_tf32`` in fp32, their fp64 errors
+   held against cuDNN fp32's as the 3^3 ones are; the CUDA-core
+   ``conv2d_same_fwd`` and ``conv2d_wgrad`` beside them and for the
+   rest); and
    cuDNN's depthwise 3x3 conv in both memory formats, the layout choice of
    MedFormer-2D's grouped convs; the window-attention kernel at the Swin
    zoo's seven shapes, with and without a shifted-window mask, beside
@@ -35,7 +38,8 @@ Phases, each printing its result; any failure raises and exits non-zero:
    timed beside them; the rest: the CUDA-core pair), each beside the
    unfused pair of kernels it replaces (no single PyTorch call computes
    either); and the card's NaN at one voxel of x and of g through the
-   TF32 forward, dgrad, fused forward and wgrad and ``inorm_apply``: NaN
+   TF32 forward, dgrad, fused forward and wgrad and ``inorm_apply``, and
+   at one pixel through the 3x3 TF32 forward, dgrad and wgrad: NaN
    exactly where it enters each output, finite elsewhere;
 3a. the augmentation ops (``cbim_tpu_torch.ops.augment``, the pipeline's
    device part) on the card against the same ops on the CPU with the same
@@ -59,7 +63,7 @@ Phases, each printing its result; any failure raises and exits non-zero:
 4c. the same two checks for a small MedFormer-2D (BatchNorm, 128^2 slices):
    eval-mode softmax, then one train-mode fp32 step; with ``conv2d_kernel``
    on, as phases 7 and 8 (the 3x3 kernel route is opt-in, as the JAX
-   package's ``CBIM_PLCONV2D=1``);
+   package's ``CBIM_PLCONV2D=1``): fp32 on the 3xTF32 3x3 kernels only;
 4d. a small SwinUNETR (feature size 48, on 2 x 64^3 and 1 x 32^3), card
    (window-attention kernel) vs CPU (plain version): softmax outputs;
 4e. ``validate`` (``cbim_tpu_torch.training.validation``) of phase 4's
@@ -89,7 +93,7 @@ Phases, each printing its result; any failure raises and exits non-zero:
    ``conv3d_same_na_fwd_tc`` (remat incl.), 20 ``conv3d_wgrad_na_tc`` and
    20 ``conv3d_dgrad_tc`` launches, no other 3^3 launch (the CUDA-core
    fused pair none); sec/step and peak memory beside phase 6's;
-6v. validation: the flagship recipe with ``val_freq`` 1 on five 136^3
+6v. validation: the flagship recipe with ``val_freq`` 1 on five 130^3
    volumes (fold 0 of 5: one test volume) trains two steps, then its
    epoch ends in the EMA model's evaluation by 128^3 sliding window (8
    windows, 2 forwards at the auto window batch of 4), in bf16 like the
@@ -118,8 +122,10 @@ Phases, each printing its result; any failure raises and exits non-zero:
 7. 2D serving: the full-width ACDC MedFormer-2D with seeded random weights
    serves two synthetic cine-MR NIfTI requests through
    ``cbim_tpu_torch.prediction.main --dimension 2d`` (every slice of a
-   volume is the batch at each window position); the 3x3 conv kernel must
-   have launched, fp32: the CUDA-core 3x3 forward only;
+   volume is the batch at each window position); fp32: every 3x3 kernel
+   conv one ``conv2d_same_fwd_tf32`` launch, 14 a forward, and no other
+   3x3 kernel; then the same requests with ``conv2d_kernel`` off (cuDNN
+   fp32, TF32 off): the label maps agree on at least 99.9 % of pixels;
 8. 2D training: the ACDC recipe (``configs/acdc/medformer_2d.yaml``)
    trains an epoch of batch-32 steps on ``Synthetic2D`` through
    ``cbim_tpu_torch.train.main --dimension 2d --amp``; every loss must be
@@ -127,8 +133,13 @@ Phases, each printing its result; any failure raises and exits non-zero:
    ``conv2d_same_fwd_tc``, 14 ``conv2d_dgrad_tc`` and 14
    ``conv2d_wgrad_tc`` launches, and no CUDA-core 3x3 launch;
 8b. the same recipe with ``conv2d_kernel`` off, the default: the 3x3 convs
-   are cuDNN's and no 3x3 kernel of either route launches; sec/step,
+   are cuDNN's and no 3x3 kernel of any route launches; sec/step,
    slices/s and peak memory beside phase 8's;
+8f. the same recipe in fp32 (the CLI's default: no ``--amp``) with
+   ``conv2d_kernel`` on, 6 steps at batch 32: every loss finite, and per
+   step 14 ``conv2d_same_fwd_tf32``, 14 ``conv2d_dgrad_tf32`` and 14
+   ``conv2d_wgrad_tf32`` launches and no other 3x3 kernel; sec/step and
+   peak memory beside phase 8's;
 8v. 2D validation: the ACDC recipe with ``val_freq`` 1 on 10 cases trains
    one step, then evaluates the EMA model on the 2 test volumes (every
    slice of a volume the batch, centre-cropped to 256^2, whole image), in
@@ -152,7 +163,8 @@ Phases, each printing its result; any failure raises and exits non-zero:
    timed beside the rungs), with its time, bound, plain and library
    times.
 
-Each of phases 4e and 5-10 (5b, 6b, 6v, 6k, 6a, 8b and 8v included) sets
+Each of phases 4e and 5-10 (5b, 6b, 6v, 6k, 6a, 7b, 8b, 8f and 8v
+included) sets
 the launch counters to 0 just before it and reads them just after.  The
 last three
 lines are the card's name and power limit, the kernels' JSON record
@@ -161,8 +173,8 @@ FLOPs and bytes) and ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--profile DIR]
 
-``--profile DIR`` also traces the steady steps of phases 6, 6b, 6k, 6a, 8
-and 8b with the trainer's profiler hook (``profile_dir``), and the requests of
+``--profile DIR`` also traces the steady steps of phases 6, 6b, 6k, 6a, 8,
+8b and 8f with the trainer's profiler hook (``profile_dir``), and the requests of
 phases 5, 5b and 9 served a second time, after the timed run:
 DIR/<phase>/kernels.txt and summary.json, and the top kernels by device
 time are printed; for 5 and 5b also the 3^3 forwards' shapes and counts.
@@ -223,6 +235,12 @@ KERNELS = {
                            "cbim_tpu/ops/pallas/conv2d.py:115"),
     "conv2d_wgrad_tc": ("cbim_tpu_torch/csrc/conv2d_wgrad_tc.cu",
                         "cbim_tpu/ops/pallas/conv2d.py:238"),
+    # the fp32 3x3 route at widths of multiples of 8 (3xTF32): the forward
+    # and dgrad, and the weight gradient
+    "conv2d_same_fwd_tf32": ("cbim_tpu_torch/csrc/conv2d_tf32.cu",
+                             "cbim_tpu/ops/pallas/conv2d.py:115"),
+    "conv2d_wgrad_tf32": ("cbim_tpu_torch/csrc/conv2d_wgrad_tf32.cu",
+                          "cbim_tpu/ops/pallas/conv2d.py:238"),
     "conv3d_wgrad_na": ("cbim_tpu_torch/csrc/conv3d_wgrad.cu",
                         "cbim_tpu/ops/pallas/conv3d.py:1518"),
     # the fused pair's bf16 route at widths of multiples of 8
@@ -253,7 +271,8 @@ KERNELS = {
 DGRAD = {"conv3d_same_fwd": "conv3d_dgrad", "conv2d_same_fwd": "conv2d_dgrad",
          "conv3d_same_fwd_tc": "conv3d_dgrad_tc",
          "conv2d_same_fwd_tc": "conv2d_dgrad_tc",
-         "conv3d_same_fwd_tf32": "conv3d_dgrad_tf32"}
+         "conv3d_same_fwd_tf32": "conv3d_dgrad_tf32",
+         "conv2d_same_fwd_tf32": "conv2d_dgrad_tf32"}
 #: the forward kernels, which fp32 serving launches
 FORWARD_KERNELS = ("inorm_stats", "inorm_apply", "conv3d_same_fwd_tf32")
 #: the 3^3 kernels of each route (tensor-core: bf16 at widths of multiples
@@ -310,13 +329,21 @@ NA_TC_RECORD = (CONV_RECORD, "bfloat16", "gelu")
 CONV2D_CASES = [(32, 256, 256, 32, 32), (32, 128, 128, 64, 64),
                 (12, 256, 256, 32, 32), (4, 64, 64, 192, 160),
                 (3, 37, 50, 24, 40), (3, 37, 50, 20, 36)]
-#: the 3x3 case and dtype of the JSON record: inc/up4 in the training step
-#: (the tensor-core kernels, and the CUDA-core ones they replace)
-CONV2D_RECORD = ((32, 256, 256, 32, 32), "bfloat16")
+#: the 3x3 case of the JSON records: inc/up4 in the training step, in fp32
+#: (the TF32 kernels, and the CUDA-core ones they replace) and bf16 (the
+#: tensor-core kernels, and the CUDA-core ones beside them)
+CONV2D_RECORD = (32, 256, 256, 32, 32)
 #: the 3x3 kernels of each route (tensor-core: bf16 at widths of multiples
-#: of 8; CUDA-core: the rest), forward, dgrad and wgrad
+#: of 8; TF32: fp32 there; CUDA-core: the rest), forward, dgrad and wgrad
 TC2D_KERNELS = ("conv2d_same_fwd_tc", "conv2d_dgrad_tc", "conv2d_wgrad_tc")
+TF322D_KERNELS = ("conv2d_same_fwd_tf32", "conv2d_dgrad_tf32",
+                  "conv2d_wgrad_tf32")
 CORE2D_KERNELS = ("conv2d_same_fwd", "conv2d_dgrad", "conv2d_wgrad")
+CONV2D_KERNELS = TC2D_KERNELS + TF322D_KERNELS + CORE2D_KERNELS
+#: phase 3's 3x3 NaN check: a ragged fp32 case of widths of multiples of 8
+#: and an interior pixel (b, h, w) of it
+NAN2D_CASE = (2, 23, 30, 24, 40)
+NAN2D_AT = (1, 11, 15)
 #: the 3x3 convs of the ACDC MedFormer-2D on ``conv2d_kernel``: 2 in inc's
 #: block, 4 in down1, 4 each in up3 and up4 (one forward, one dgrad and one
 #: wgrad each a training step: no remat in 2D)
@@ -450,13 +477,13 @@ FLAGSHIP = dict(
     remat=True, synthetic_cases=3, synthetic_shape=[192, 192, 192],
     epochs=1, iter_per_epoch=6, print_freq=1, val_freq=2)
 TRAIN_BATCH = 2
-#: phase 6v: the flagship recipe on five 136^3 volumes, fold 0 of 5 (one
+#: phase 6v: the flagship recipe on five 130^3 volumes, fold 0 of 5 (one
 #: test volume), two steps, then the EMA model's evaluation by 128^3
-#: sliding window: 8 windows (two a side: starts 0 and 8), 2 forwards at
+#: sliding window: 8 windows (two a side: starts 0 and 2), 2 forwards at
 #: the auto window batch of 4; the host distances, most of the phase,
-#: scale with the volume (17-24 s of them at 160^3)
+#: scale with the volume (17-24 s of them at 160^3, 10.4 at 136^3)
 FLAGSHIP_VAL = dict(
-    FLAGSHIP, synthetic_cases=5, k_fold=5, synthetic_shape=[136, 136, 136],
+    FLAGSHIP, synthetic_cases=5, k_fold=5, synthetic_shape=[130, 130, 130],
     iter_per_epoch=2, epochs=1, val_freq=1, sliding_window=True,
     window_size=[128, 128, 128])
 #: phase 4e: phase 4's small MedFormer-3D evaluated by a 64^3 sliding window
@@ -681,9 +708,13 @@ def check_close(name, out, ref, tol) -> tuple[float, float]:
 
 
 def conv64(x, w):
-    """The SAME 3^3 conv of channels-last x in fp64 on x's device (the
-    reference of the TF32 kernels' and cuDNN fp32's errors)."""
+    """The SAME 3^3 (x[B, D, H, W, C]) or 3x3 (x[B, H, W, C]) conv of
+    channels-last x in fp64 on x's device (the reference of the TF32
+    kernels' and cuDNN fp32's errors)."""
     import torch.nn.functional as F
+    if x.dim() == 4:
+        y = F.conv2d(x.double().permute(0, 3, 1, 2), w.double(), padding=1)
+        return y.permute(0, 2, 3, 1)
     y = F.conv3d(x.double().permute(0, 4, 1, 2, 3), w.double(), padding=1)
     return y.permute(0, 2, 3, 4, 1)
 
@@ -1154,15 +1185,17 @@ def phase_nan(device) -> None:
     """Phase 3, NaN: the card's NaN (0x7FFFFFFF, what its arithmetic makes)
     in one channel of the voxel NAN_AT of x and of g, fp32 at NAN_CASE,
     through the TF32 forward, dgrad, fused forward (ReLU) and wgrad and
-    ``inorm_apply`` (ReLU).  Each output must be NaN exactly where that
-    value enters it (torch's rule, which the plain versions follow) and
-    finite elsewhere: a conv's in every output channel of the 3^3 voxels
-    around the NaN; the wgrad's where the plain weight gradient of the
-    NaNs' indicators against ones is nonzero; the apply's at the NaN
-    alone.  The plain versions' own NaN counts are printed beside."""
+    ``inorm_apply`` (ReLU); and at the pixel NAN2D_AT, fp32 at NAN2D_CASE,
+    through the 3x3 TF32 forward, dgrad and wgrad.  Each output must be NaN
+    exactly where that value enters it (torch's rule, which the plain
+    versions follow) and finite elsewhere: a conv's in every output channel
+    of the 3^3 voxels (3x3 pixels) around the NaN; the wgrad's where the
+    plain weight gradient of the NaNs' indicators against ones is nonzero;
+    the apply's at the NaN alone.  The plain versions' own NaN counts are
+    printed beside."""
     import torch
     import torch.nn.functional as F
-    from cbim_tpu_torch.ops.kernels import conv3d, fused_norm
+    from cbim_tpu_torch.ops.kernels import conv2d, conv3d, fused_norm
     gen = torch.Generator(device=device).manual_seed(9)
     B, D, H, W, C, Fo = NAN_CASE
     x = torch.randn(B, D, H, W, C, generator=gen, device=device)
@@ -1210,16 +1243,52 @@ def phase_nan(device) -> None:
     after = {**conv3d.launches, **fused_norm.launches}
     assert all(after[k] == before[k] + 1 for k in keys), \
         f"NaN check: not every kernel launched once: {before} -> {after}"
+    at = {k: (NAN_CASE, NAN_AT) for k in outs}
+
+    # the 3x3 TF32 kernels
+    B, H, W, C, Fo = NAN2D_CASE
+    x2 = torch.randn(B, H, W, C, generator=gen, device=device)
+    g2 = torch.randn(B, H, W, Fo, generator=gen, device=device)
+    w2 = torch.randn(Fo, C, 3, 3, generator=gen, device=device) / math.sqrt(
+        9 * C)
+    x2[(*NAN2D_AT, C // 2)] = nan
+    g2[(*NAN2D_AT, Fo // 2)] = nan
+
+    def around2d(t):
+        """every channel of the 3x3 pixels around t's NaNs"""
+        m = t.isnan().any(-1).float()[:, None]
+        return F.max_pool2d(m, 3, stride=1, padding=1)[:, 0, ..., None] > 0
+
+    keys2d = TF322D_KERNELS
+    before = {k: conv2d.launches[k] for k in keys2d}
+    outs2d = {
+        "conv2d_same_fwd_tf32": (conv2d.conv2d_same(x2, w2),
+                                 conv2d.conv2d_same_plain(x2, w2),
+                                 around2d(x2)),
+        "conv2d_dgrad_tf32": (conv2d.conv2d_dgrad(g2, w2),
+                              conv2d.conv2d_same_plain(
+                                  g2, conv2d.flip_swap(w2)), around2d(g2)),
+        "conv2d_wgrad_tf32": (
+            conv2d.conv2d_wgrad(x2, g2), conv2d.conv2d_wgrad_plain(x2, g2),
+            conv2d.conv2d_wgrad_plain(x2.isnan().float(), torch.ones_like(g2))
+            + conv2d.conv2d_wgrad_plain(torch.ones_like(x2),
+                                        g2.isnan().float()) > 0.5),
+    }
+    torch.cuda.synchronize()
+    assert all(conv2d.launches[k] == before[k] + 1 for k in keys2d), \
+        f"NaN check: not every 3x3 kernel launched once: {before}"
+    outs.update(outs2d)
+    at.update({k: (NAN2D_CASE, NAN2D_AT) for k in outs2d})
     for k, (out, plain, want) in outs.items():
         want = want.expand_as(out)
         got = out.isnan()
         assert int(want.sum()) > 0 and torch.equal(got, want) \
             and bool(out[~got].isfinite().all()), \
             f"{k}: {int(got.sum())} NaNs where {int(want.sum())} belong"
-        say(f"  {k:24s} NaN in {NAN_CASE} at {NAN_AT}: "
+        say(f"  {k:24s} NaN in {at[k][0]} at {at[k][1]}: "
             f"{int(got.sum())} NaNs, as the indicator's {int(want.sum())} "
             f"(plain version: {int(plain.isnan().sum())})")
-    del x, g, w, outs
+    del x, g, w, x2, g2, w2, outs
 
 
 def phase_conv2d_kernels(device, cases, record: dict) -> None:
@@ -1227,10 +1296,11 @@ def phase_conv2d_kernels(device, cases, record: dict) -> None:
     ``conv2d_route`` gives it (the launch counters that moved) and holds
     its forward, dgrad and wgrad kernels against their plain versions on
     ``device``, with the cuDNN call beside each (``F.conv2d``,
-    ``torch.nn.grad.conv2d_weight``, in the inputs' dtype); where bf16
-    takes the tensor-core route (``conv2d_same_fwd_tc``,
-    ``conv2d_wgrad_tc``) the CUDA-core kernels it replaces are held and
-    timed too."""
+    ``torch.nn.grad.conv2d_weight``, in the inputs' dtype); where a case
+    takes the tensor-core (bf16) or TF32 (fp32) route the CUDA-core
+    kernels it replaces are held and timed too, and the TF32 kernels'
+    errors against an fp64 conv or weight gradient are held against cuDNN
+    fp32's (TF32 off)."""
     import torch
     import torch.nn.functional as F
     from cbim_tpu_torch.ops.kernels import conv2d
@@ -1239,7 +1309,12 @@ def phase_conv2d_kernels(device, cases, record: dict) -> None:
     gen = torch.Generator(device=device).manual_seed(2)
     errs = record["errors"]
     errs.update({k: 0.0 for k in ("conv2d_same_fwd", "conv2d_wgrad",
-                                  "conv2d_same_fwd_tc", "conv2d_wgrad_tc")})
+                                  "conv2d_same_fwd_tc", "conv2d_wgrad_tc",
+                                  "conv2d_same_fwd_tf32",
+                                  "conv2d_wgrad_tf32")})
+    route_keys = {conv2d.TENSOR_CORE: TC2D_KERNELS,
+                  conv2d.TF32X3: TF322D_KERNELS,
+                  conv2d.CUDA_CORE: CORE2D_KERNELS}
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
         for case in cases:
@@ -1249,8 +1324,9 @@ def phase_conv2d_kernels(device, cases, record: dict) -> None:
             w = torch.randn(Fo, C, 3, 3, generator=gen, device=device)
             x, g, w = x.to(dtype), g.to(dtype), (w / math.sqrt(9 * C)).to(dtype)
             ws = conv2d.flip_swap(w)
-            tc = conv2d.conv2d_route(dtype, C, Fo) == conv2d.TENSOR_CORE
-            keys = TC2D_KERNELS if tc else CORE2D_KERNELS
+            route = conv2d.conv2d_route(dtype, C, Fo)
+            replaces = route != conv2d.CUDA_CORE
+            keys = route_keys[route]
             before = [conv2d.launches[k] for k in keys]
             y, ref_y = conv2d.conv2d_same(x, w), conv2d.conv2d_same_plain(x, w)
             dx = conv2d.conv2d_dgrad(g, w)
@@ -1267,8 +1343,8 @@ def phase_conv2d_kernels(device, cases, record: dict) -> None:
                 x.double().permute(0, 3, 1, 2), w.shape,
                 g.double().permute(0, 3, 1, 2), padding=1)
             outs = {"fwd": y, "dgrad": dx, "wgrad": dw}
-            if tc:
-                # the CUDA-core kernels the tensor-core ones replace
+            if replaces:
+                # the CUDA-core kernels the tensor-core or TF32 ones replace
                 core = {"fwd": conv2d._launch_fwd(x, w, "conv2d_same_fwd"),
                         "dgrad": conv2d._launch_fwd(g, ws, "conv2d_dgrad"),
                         "wgrad": conv2d._launch_wgrad(x, g)}
@@ -1279,9 +1355,17 @@ def phase_conv2d_kernels(device, cases, record: dict) -> None:
                 scale = float(ref.float().abs().max())
                 errors[key] = (float((outs[key].double() - ref.double())
                                      .abs().max()), scale)
-                if tc:
+                if replaces:
                     core_err[key] = float((core[key].double() - ref.double())
                                           .abs().max())
+            f64, f64_rec = {}, {}
+            if route == conv2d.TF32X3:
+                f64 = {"fwd": f64_errors(f"{keys[0]} {case}", y, ref_y,
+                                         conv64(x, w)),
+                       "dgrad": f64_errors(f"{keys[1]} {case}", dx, ref_dx,
+                                           conv64(g, ws)),
+                       "wgrad": f64_errors(f"{keys[2]} {case}", dw, ref_dw,
+                                           dw64, f64_rec)}
             plain_w_err = float((ref_dw.double() - dw64).abs().max())
             flops = 2 * 9 * C * Fo * B * H * W
             n = iters_for(flops, 1e10)
@@ -1298,7 +1382,7 @@ def phase_conv2d_kernels(device, cases, record: dict) -> None:
                           cuda_ms(lambda: torch.nn.grad.conv2d_weight(
                               xc, w.shape, gc, padding=1), n))}
             core_ms = {}
-            if tc:
+            if replaces:
                 core_ms = {
                     "fwd": cuda_ms(lambda: conv2d._launch_fwd(
                         x, w, "conv2d_same_fwd"), n),
@@ -1311,47 +1395,65 @@ def phase_conv2d_kernels(device, cases, record: dict) -> None:
                 vs = (f"vs fp64 (the fp32 plain version's: "
                       f"{plain_w_err / scale:.3e})" if key == "wgrad"
                       else "vs plain")
-                line = (f"  {name:18s} {dt:8s} {case}: max_abs_err {err:.3e} "
+                line = (f"  {name:20s} {dt:8s} {case}: max_abs_err {err:.3e} "
                         f"max_rel_err {err / scale:.3e} of max|ref| "
-                        f"{scale:.3f} {vs} (tol {tol:.1e}) kernel {ms:.3f} ms "
+                        f"{scale:.3f} {vs} (tol {tol:.1e}){f64.get(key, '')} "
+                        f"kernel {ms:.3f} ms "
                         f"({flops / ms / 1e9:.1f} TFLOP/s) plain "
                         f"{plain_ms:.3f} ms cuDNN {lib_ms:.3f} ms "
                         f"({ms / lib_ms:.2f}x)")
-                if tc:
+                if replaces:
                     line += (f" CUDA-core {core_ms[key]:.3f} ms "
                              f"({core_ms[key] / ms:.2f}x) err "
                              f"{core_err[key] / scale:.3e}")
                 say(line)
                 assert err <= tol * scale, f"{name} {dt} {case}: {err:.3e}"
-                if tc:
+                if replaces:
                     assert core_err[key] <= tol * scale, \
                         f"CUDA-core {key} {dt} {case}: {core_err[key]:.3e}"
-            kf, kw = (("conv2d_same_fwd_tc", "conv2d_wgrad_tc") if tc else
-                      ("conv2d_same_fwd", "conv2d_wgrad"))
+            kf, kw = keys[0], keys[2]
             errs[kf] = max(errs[kf], errors["fwd"][0], errors["dgrad"][0])
             errs[kw] = max(errs[kw], errors["wgrad"][0])
-            if tc:
+            if replaces:
                 errs["conv2d_same_fwd"] = max(errs["conv2d_same_fwd"],
                                               core_err["fwd"],
                                               core_err["dgrad"])
                 errs["conv2d_wgrad"] = max(errs["conv2d_wgrad"],
                                            core_err["wgrad"])
-            if (case, dt) == CONV2D_RECORD:
-                # a tensor-core case: both routes' kernels, same inputs
+            if case == CONV2D_RECORD:
+                # both dtypes take a replacing route here: its kernels and
+                # the CUDA-core ones, same inputs; the CUDA-core record is
+                # fp32's, with bf16's inside it
                 size = x.element_size()
                 fwd_bytes = (x.numel() + w.numel() + y.numel()) * size
                 wg_bytes = (x.numel() + g.numel()) * size + dw.numel() * 4
-                for sfx, ms in (("", core_ms),
-                                ("_tc", {k: v[0] for k, v in t.items()})):
-                    record["conv2d_same_fwd" + sfx] = entry(
-                        ms["fwd"], *t["fwd"][1:], flops, fwd_bytes, dt, case)
-                    record["conv2d_wgrad" + sfx] = entry(
-                        ms["wgrad"], *t["wgrad"][1:], flops, wg_bytes, dt,
-                        case)
-                    record["conv2d_dgrad" + sfx] = (ms["dgrad"],
+                tf32 = route == conv2d.TF32X3
+                kern = {k: v[0] for k, v in t.items()}
+                core_rec = (entry(core_ms["fwd"], *t["fwd"][1:], flops,
+                                  fwd_bytes, dt, case),
+                            entry(core_ms["wgrad"], *t["wgrad"][1:], flops,
+                                  wg_bytes, dt, case))
+                if dt == "float32":
+                    record["conv2d_same_fwd"], record["conv2d_wgrad"] = \
+                        core_rec
+                    record["conv2d_dgrad"] = (core_ms["dgrad"],
+                                              *t["dgrad"][1:])
+                else:
+                    record["conv2d_same_fwd"][dt], \
+                        record["conv2d_wgrad"][dt] = core_rec
+                    record["conv2d_dgrad_" + dt] = (core_ms["dgrad"],
                                                     *t["dgrad"][1:])
+                sfx = "_tf32" if tf32 else "_tc"
+                record["conv2d_same_fwd" + sfx] = entry(
+                    kern["fwd"], *t["fwd"][1:], flops, fwd_bytes, dt, case,
+                    tf32x3=tf32)
+                record["conv2d_wgrad" + sfx] = dict(entry(
+                    kern["wgrad"], *t["wgrad"][1:], flops, wg_bytes, dt,
+                    case, tf32x3=tf32), **f64_rec)
+                record["conv2d_dgrad" + sfx] = (kern["dgrad"],
+                                                *t["dgrad"][1:])
             del x, g, w, ws, y, ref_y, dx, ref_dx, dw, ref_dw, dw64, outs
-            if tc:
+            if replaces:
                 del core
     torch.cuda.synchronize()
 
@@ -1816,7 +1918,7 @@ def say_served_profile(profile: str | None, name: str, res: dict) -> None:
 
 def phase_train(device, cfg_dict, batch: int, name: str, required,
                 amp: bool = True, min_steps: int = WARMUP_STEPS + 3) -> dict:
-    """Phases 6, 6k, 6a and 8: train a recipe for one epoch through
+    """Phases 6, 6k, 6a, 8 and 8f: train a recipe for one epoch through
     ``cbim_tpu_torch.train.main``, with bf16 autocast (``--amp``) or in
     fp32, the CLI's default; per-step losses and seconds come from the
     run's scalars.jsonl (one loss fetch per step).  ``cfg_dict``: a dict,
@@ -2249,9 +2351,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="trace phases 6, 6b, 6k, 6a, 8 and 8b's steady "
-                             "steps, and the requests of phases 5, 5b and 9 "
-                             "served again, into DIR")
+                        help="trace phases 6, 6b, 6k, 6a, 8, 8b and 8f's "
+                             "steady steps, and the requests of phases 5, 5b "
+                             "and 9 served again, into DIR")
     args = parser.parse_args(argv)
 
     def profile_dir(name):
@@ -2404,10 +2506,11 @@ def main(argv=None) -> int:
         f"(tol {STEP_LOSS_RTOL:.0e}); gradient rel L2 err {l2_err:.3e} "
         f"(tol {STEP_GRAD_L2:.0e}); worst tensor err {grad_err:.3e} of its "
         f"scale (tol {STEP_GRAD_RTOL:.0e})")
-    # fp32: the CUDA-core 3x3 kernels, backward included
+    # fp32 at widths of multiples of 8: the TF32 3x3 kernels, backward
+    # included, and no other 3x3 kernel
     counts = launch_counts()
-    assert all(counts[k] > 0 for k in CORE2D_KERNELS) and \
-        not any(counts[k] for k in TC2D_KERNELS), counts
+    assert all(counts[k] > 0 for k in TF322D_KERNELS) and \
+        not any(counts[k] for k in TC2D_KERNELS + CORE2D_KERNELS), counts
 
     say("[phase 4d] small SwinUNETR, card vs CPU")
     for shape in SMALL_SWIN_SHAPES:
@@ -2522,7 +2625,7 @@ def main(argv=None) -> int:
         say(f"  {key} at {CONV_RECORD}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, cuDNN {lib_ms:.3f} ms")
 
-    say("[phase 6v] the flagship recipe validating: 2 steps on five 136^3 "
+    say("[phase 6v] the flagship recipe validating: 2 steps on five 130^3 "
         "volumes, then the EMA model's 128^3 sliding-window evaluation")
     tv = phase_train_validate(device, FLAGSHIP_VAL, TRAIN_BATCH,
                               "flagship_val")
@@ -2605,11 +2708,33 @@ def main(argv=None) -> int:
 
     say("[phase 7] ACDC MedFormer-2D serving 2 NIfTI requests (slice batch)")
     res = phase_slice(device, ACDC, REQUESTS_2D, TARGET_SPACING_2D, "serve2d",
-                      ("conv2d_same_fwd",))
+                      ("conv2d_same_fwd_tf32",))
     say_serving(res)
-    # fp32 serving: the CUDA-core 3x3 forward only
-    assert not any(res["launches"][k] for k in TC2D_KERNELS), res["launches"]
-    launches["7"] = res["launches"]
+    # fp32 serving: every 3x3 kernel conv on the TF32 forward, 14 a forward,
+    # and no other 3x3 kernel
+    counts = res["launches"]
+    assert res["forwards"] > 0 and counts["conv2d_same_fwd_tf32"] == \
+        ACDC_CONVS * res["forwards"] and not any(
+            counts[k] for k in CONV2D_KERNELS
+            if k != "conv2d_same_fwd_tf32"), \
+        f"{counts} in {res['forwards']} forwards"
+    launches["7"] = counts
+
+    say("[phase 7b] the same requests with conv2d_kernel off (cuDNN fp32)")
+    res_off = phase_slice(device, dict(ACDC, conv2d_kernel=False),
+                          REQUESTS_2D, TARGET_SPACING_2D, "serve2d_cudnn", ())
+    say_serving(res_off)
+    counts = res_off["launches"]
+    assert not any(counts[k] for k in CONV2D_KERNELS), counts
+    agree = label_agreement(os.path.join(WORK, "serve2d", "out"),
+                            os.path.join(WORK, "serve2d_cudnn", "out"))
+    say(f"  kernel route (phase 7) vs cuDNN: {mean_seconds(res):.3f} vs "
+        f"{mean_seconds(res_off):.3f} sec/volume, peak "
+        f"{res['peak_bytes'] / 2 ** 30:.2f} vs "
+        f"{res_off['peak_bytes'] / 2 ** 30:.2f} GiB; label maps agree on "
+        f"{100 * agree:.4f} % of pixels (min {100 * LABEL_AGREEMENT} %)")
+    assert agree >= LABEL_AGREEMENT, agree
+    launches["7b"] = counts
 
     say(f"[phase 8] ACDC MedFormer-2D training, bf16, batch {TRAIN2D_BATCH}, "
         "one epoch of Synthetic2D")
@@ -2626,7 +2751,8 @@ def main(argv=None) -> int:
     if args.profile:
         say_profile(os.path.join(args.profile, "acdc2d"))
     launches["8"] = tr["launches"]
-    for key in ("conv2d_dgrad", "conv2d_dgrad_tc"):
+    for key in ("conv2d_dgrad", "conv2d_dgrad_tf32", "conv2d_dgrad_bfloat16",
+                "conv2d_dgrad_tc"):
         ms, plain_ms, lib_ms = record[key]
         say(f"  {key} at {CONV2D_RECORD}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, cuDNN {lib_ms:.3f} ms")
@@ -2641,13 +2767,34 @@ def main(argv=None) -> int:
     if args.profile:
         say_profile(os.path.join(args.profile, "acdc2d_cudnn"))
     counts = tr_off["launches"]
-    assert not any(counts[k] for k in TC2D_KERNELS + CORE2D_KERNELS), counts
+    assert not any(counts[k] for k in CONV2D_KERNELS), counts
     say(f"  cuDNN (default) vs kernel route (phase 8): "
         f"{tr_off['median']:.3f} vs {tr['median']:.3f} s/step, "
         f"{tr_off['per_s']:.1f} vs {tr['per_s']:.1f} slices/s, peak "
         f"{tr_off['peak_bytes'] / 2 ** 30:.2f} vs "
         f"{tr['peak_bytes'] / 2 ** 30:.2f} GiB")
     launches["8b"] = counts
+
+    say(f"[phase 8f] the ACDC recipe in fp32 (the CLI's default), batch "
+        f"{TRAIN2D_BATCH}, on the TF32 3x3 kernels")
+    tr32 = phase_train(device, profiled(ACDC_TRAIN, "acdc2d_fp32"),
+                       TRAIN2D_BATCH, "acdc2d_fp32", TF322D_KERNELS,
+                       amp=False)
+    say_train(tr32, "slices")
+    if args.profile:
+        say_profile(os.path.join(args.profile, "acdc2d_fp32"))
+    # every 3x3 conv of the fp32 step on the TF32 route: per step 14
+    # forwards, 14 dgrads, 14 wgrads, and no other 3x3 kernel
+    counts, steps = tr32["launches"], len(tr32["step_seconds"])
+    want = dict({k: ACDC_CONVS * steps for k in TF322D_KERNELS},
+                **{k: 0 for k in TC2D_KERNELS + CORE2D_KERNELS})
+    assert all(counts[k] == v for k, v in want.items()), (counts, want)
+    say(f"  fp32 vs bf16 (phase 8): {tr32['median']:.3f} vs "
+        f"{tr['median']:.3f} s/step, {tr32['per_s']:.1f} vs "
+        f"{tr['per_s']:.1f} slices/s, peak "
+        f"{tr32['peak_bytes'] / 2 ** 30:.2f} vs "
+        f"{tr['peak_bytes'] / 2 ** 30:.2f} GiB")
+    launches["8f"] = counts
 
     say("[phase 8v] the ACDC recipe validating: one step, then the EMA "
         "model's evaluation of 2 test volumes (slice batch, whole image)")

@@ -89,8 +89,8 @@ def _close(got, ref, tol):
     (torch.bfloat16, 192, 160, conv2d.TENSOR_CORE),
     (torch.bfloat16, 24, 40, conv2d.TENSOR_CORE),
     (torch.bfloat16, 8, 8, conv2d.TENSOR_CORE),
-    (torch.float32, 32, 32, conv2d.CUDA_CORE),
-    (torch.float32, 64, 64, conv2d.CUDA_CORE),
+    (torch.float32, 32, 32, conv2d.TF32X3),
+    (torch.float32, 64, 64, conv2d.TF32X3),
     (torch.bfloat16, 20, 36, conv2d.CUDA_CORE),
     (torch.bfloat16, 12, 32, conv2d.CUDA_CORE),
     (torch.bfloat16, 32, 4, conv2d.CUDA_CORE),
@@ -110,7 +110,9 @@ def test_wrappers_launch_the_kernels_of_their_route(monkeypatch, dtype, C, F):
     conv2d_dgrad and conv2d_wgrad launch the entries conv2d_route names,
     once each, on the inputs' device, and count each launch under its
     kernel; the tensor-core dgrad passes the forward's weights with the
-    flip, and every tensor-core forward its output-channel tile."""
+    flip, and every tensor-core forward its output-channel tile (fp32
+    there takes the TF32 route: ``test_torch_conv2d_tf32.py`` records its
+    entries' arguments)."""
     calls = []
 
     def record(name, *args, device):
@@ -142,6 +144,13 @@ def test_wrappers_launch_the_kernels_of_their_route(monkeypatch, dtype, C, F):
         assert conv2d.launches == dict(
             dict.fromkeys(conv2d.launches, 0), conv2d_same_fwd_tc=1,
             conv2d_dgrad_tc=1, conv2d_wgrad_tc=1)
+    elif conv2d.conv2d_route(dtype, C, F) == conv2d.TF32X3:
+        assert [c[0] for c in calls] == ["conv2d_same_fwd_tf32",
+                                         "conv2d_same_fwd_tf32",
+                                         "conv2d_wgrad_tf32"]
+        assert conv2d.launches == dict(
+            dict.fromkeys(conv2d.launches, 0), conv2d_same_fwd_tf32=1,
+            conv2d_dgrad_tf32=1, conv2d_wgrad_tf32=1)
     else:
         assert [c[0] for c in calls] == ["conv2d_same_fwd",
                                          "conv2d_same_fwd", "conv2d_wgrad"]
@@ -159,7 +168,8 @@ def test_every_acdc_width_takes_the_tensor_core_route():
     """The ACDC MedFormer-2D with ``conv2d_kernel`` on: its 14 kernel convs
     see 256^2 32 -> 32 (6: inc's block and up4) and 128^2 64 -> 64 (8:
     down1 and up3) on a 256^2 slice, and every one of them, forward and
-    dgrad, takes the tensor-core route in bf16."""
+    dgrad, takes the tensor-core route in bf16 and the TF32 route in fp32
+    (no CUDA-core 3x3 launch in either dtype)."""
     model = get_model(config_from_dict(ACDC), device="cpu",
                       generator=torch.Generator().manual_seed(0)).eval()
     shapes = []
@@ -182,6 +192,8 @@ def test_every_acdc_width_takes_the_tensor_core_route():
         for c, f in ((C, F), (F, C)):
             assert conv2d.conv2d_route(torch.bfloat16, c, f) == \
                 conv2d.TENSOR_CORE, (c, f)
+            assert conv2d.conv2d_route(torch.float32, c, f) == \
+                conv2d.TF32X3, (c, f)
 
 
 @pytest.mark.parametrize("F,bn,n_tiles", [
