@@ -2,8 +2,9 @@
 // (which also computes the input gradient, on flip-swapped weights), also
 // with a fused InstanceNorm+act prologue (conv3d_same_na_fwd: the preact
 // conv(act(IN(x))), see "Norm-act prologue" in conv3d_common.cuh), and its
-// phase ladder.  The weight gradient is conv3d_wgrad.cu: two translation
-// units, so nvcc compiles the two kernel families side by side.
+// phase ladder.  The weight gradient is conv3d_wgrad.cuh, built by
+// conv3d_wgrad.cu and conv3d_wgrad_na.cu: separate translation units, so
+// nvcc compiles the kernel families side by side.
 //
 // Replaces the Pallas TPU kernels of cbim_tpu/ops/pallas/conv3d.py:
 //   _conv_kernel / _conv3d_same_pallas / conv3d_same      (NDHWC),

@@ -6,7 +6,7 @@
 // once to bf16; zero padding applies to the normalised input.  Its weight
 // gradient is conv3d_wgrad_na_tc.cu; the CUDA-core fused kernels (fp32,
 // widths that are not multiples of 8) stay in conv3d.cu and
-// conv3d_wgrad.cu.
+// conv3d_wgrad_na.cu.
 //
 // Replaces the Pallas TPU kernel conv3d_same_cw_na of
 // cbim_tpu/ops/pallas/conv3d.py (_conv_kernel_cw_na: the norm-act applied

@@ -3,8 +3,8 @@
 // conv3d_same_fwd_tf32 (the forward, and on flip-swapped weights the input
 // gradient) and conv3d_same_na_fwd_tf32 (the fused preact conv's forward,
 // y = conv3d_same(act((x - mean[b, c]) * rstd[b, c]))).  One kernel
-// template serves both; the weight gradient is conv3d_wgrad_tf32.cu (the
-// fused conv's stays on the CUDA-core conv3d_wgrad.cu), and widths that
+// template serves both; the weight gradients are conv3d_wgrad_tf32.cu and
+// conv3d_wgrad_na_tf32.cu, and widths that
 // are not multiples of 8 take the CUDA-core kernels of conv3d.cu.
 //
 // Replaces, in fp32, the Pallas TPU kernels of

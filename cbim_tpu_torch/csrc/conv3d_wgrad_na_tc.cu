@@ -5,8 +5,8 @@
 //   xn = act((x - mean[b, c]) * rstd[b, c]) rounded to bf16, zero outside
 // the volume; bf16 x and g, fp32 mean and rstd [B, C], fp32 sums, dW
 // [3, 3, 3, C, F] fp32.  The forward is conv3d_na_tc.cu; the CUDA-core
-// conv3d_wgrad_na (fp32, widths that are not multiples of 8) stays in
-// conv3d_wgrad.cu.
+// conv3d_wgrad_na (widths that are not multiples of 8) is
+// conv3d_wgrad_na.cu.
 //
 // Replaces the Pallas TPU kernel conv3d_wgrad_cw2_na of
 // cbim_tpu/ops/pallas/conv3d.py (_wgrad_kernel_cw2_na: the norm-act

@@ -1,6 +1,7 @@
 // PTX helpers shared by the tensor-core kernels (probes.cu, conv3d_tc.cu,
 // conv3d_wgrad_tc.cu, conv2d_tc.cu, conv2d_wgrad_tc.cu, conv3d_tf32.cu,
-// conv3d_wgrad_tf32.cu, conv2d_tf32.cu, conv2d_wgrad_tf32.cu): ldmatrix, vector shared-memory loads, mma.sync
+// conv3d_wgrad_tf32.cuh, conv2d_tf32.cu, conv2d_wgrad_tf32.cu,
+// window_attention.cu): ldmatrix, vector shared-memory loads, mma.sync
 // bf16 and TF32 (with the TF32 hi/lo split), mbarriers, TMA and bulk copies
 // into shared memory, TMA stores out of it, and the host-side encoding of a
 // TMA tensor map (cuTensorMapEncodeTiled, looked up through the CUDA

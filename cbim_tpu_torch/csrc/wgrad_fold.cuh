@@ -1,6 +1,6 @@
 // The second kernel of the split-K weight gradients (conv2d.cu,
 // conv3d_wgrad.cu, conv2d_wgrad_tc.cu, conv3d_wgrad_tc.cu,
-// conv3d_wgrad_tf32.cu, conv2d_wgrad_tf32.cu): each block of the first
+// conv3d_wgrad_tf32.cuh, conv2d_wgrad_tf32.cu): each block of the first
 // kernel writes fp32 partial sums of one pixel chunk, and this
 // fold adds them in chunk order.  No atomics, so results repeat bit for bit.
 

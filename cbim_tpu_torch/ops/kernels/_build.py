@@ -68,6 +68,9 @@ SIGNATURES = {
     # the same (fp32, TF32 tensor cores)
     "conv3d_wgrad_tf32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P],
+    # the same as conv3d_wgrad_na_tc (fp32, TF32 tensor cores)
+    "conv3d_wgrad_na_tf32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P],
     # x, w, wpk, y, mean, rstd, act, B, D, H, W, C, F, bn, stream (bf16,
     # tensor cores)
     "conv3d_same_na_fwd_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -98,10 +101,11 @@ SIGNATURES = {
                              _P],
     # the same as conv2d_wgrad_tc (fp32, TF32 tensor cores)
     "conv2d_wgrad_tf32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, bias_t, region, o, dtype, B, H, N, D, nW, sb, sh, sn, osb,
-    # osh, osn, stream
-    "window_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _LL, _LL, _LL, _LL, _LL, _LL, _P],
+    # q, k, v, rel_bias, region, bias2, o, dtype, B, H, N, Np, D, nW, sb,
+    # sh, sn, rsh, rsi, rsj, osb, osh, osn, stream
+    "window_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
+                         _P],
     # the probes (csrc/probes.cu, and the ladder in conv3d.cu)
     # x, y, n, vec, block, stream
     "probe_copy_scale": [_P, _P, _LL, _I, _I, _P],

@@ -25,10 +25,13 @@ the dtype and the channel counts before any launch:
   :func:`conv3d_same_tf32x3_plain` models their arithmetic.  The weight
   gradient is ``conv3d_wgrad_tf32`` (``csrc/conv3d_wgrad_tf32.cu``, the
   same split on the tensor cores; :func:`conv3d_wgrad_tf32x3_plain` models
-  it, :func:`wgrad_tc_chunking` splits its voxel tiles); the fused
-  pair's weight gradient stays the CUDA-core ``conv3d_wgrad_na``.
+  it, :func:`wgrad_tc_chunking` splits its voxel tiles), and the fused
+  pair's ``conv3d_wgrad_na_tf32`` (``csrc/conv3d_wgrad_na_tf32.cu``, the
+  same kernel normalising each x halo in its split;
+  :func:`conv3d_wgrad_na_tf32x3_plain` models it).
 - everything else (other widths, the probes' ladder): the CUDA-core
-  kernels of ``csrc/conv3d.cu`` and ``csrc/conv3d_wgrad.cu``:
+  kernels of ``csrc/conv3d.cu``, ``csrc/conv3d_wgrad.cu`` and
+  ``csrc/conv3d_wgrad_na.cu``:
 
 - ``conv3d_same_fwd``: x[B, D, H, W, C] (x) w[F, C, 3, 3, 3] ->
   y[B, D, H, W, F] with fp32 sums, any D/H/W (the kernel masks its own
@@ -48,8 +51,8 @@ kernels with a norm-act prologue on their staged input rows,
 staged halo value once in shared memory (:func:`conv3d_same_na_tiled_plain`
 and :func:`conv3d_wgrad_na_tiled_plain` are their decompositions in plain
 PyTorch); on the TF32 route ``conv3d_same_na_fwd_tf32``, which does the
-same in fp32, and ``conv3d_wgrad_na``.  So the normalised tensor never
-exists in device memory.
+same in fp32, and ``conv3d_wgrad_na_tf32``.  So the normalised tensor
+never exists in device memory.
 The statistics are ``fused_norm.inorm_stats`` (``_cw_stats`` computes the
 same per-(b, c) mean and rstd in the TPU layout).  :class:`ConvInormAct3d`
 trains through them.
@@ -79,15 +82,15 @@ launches = {"conv3d_same_fwd": 0, "conv3d_dgrad": 0, "conv3d_wgrad": 0,
             "conv3d_wgrad_tc": 0, "conv3d_same_na_fwd_tc": 0,
             "conv3d_wgrad_na_tc": 0, "conv3d_same_fwd_tf32": 0,
             "conv3d_dgrad_tf32": 0, "conv3d_same_na_fwd_tf32": 0,
-            "conv3d_wgrad_tf32": 0}
+            "conv3d_wgrad_tf32": 0, "conv3d_wgrad_na_tf32": 0}
 
 #: the routes of :func:`conv3d_route`: bf16 tensor cores, fp32 as 3xTF32
 #: on the tensor cores, CUDA cores
 TENSOR_CORE, TF32X3, CUDA_CORE = "tensor_core", "tf32x3", "cuda_core"
 #: the launch counter of each route's forward, dgrad and fused forward
 #: (the wgrads: ``conv3d_wgrad_tc``/``conv3d_wgrad_na_tc`` on the bf16
-#: tensor-core route, ``conv3d_wgrad_tf32``/``conv3d_wgrad_na`` on the TF32
-#: route, ``conv3d_wgrad``/``conv3d_wgrad_na`` on the CUDA-core one)
+#: tensor-core route, ``conv3d_wgrad_tf32``/``conv3d_wgrad_na_tf32`` on the
+#: TF32 route, ``conv3d_wgrad``/``conv3d_wgrad_na`` on the CUDA-core one)
 FORWARD_KEYS = {
     TENSOR_CORE: ("conv3d_same_fwd_tc", "conv3d_dgrad_tc",
                   "conv3d_same_na_fwd_tc"),
@@ -151,8 +154,8 @@ def conv3d_route(dtype: torch.dtype, C: int, F: int) -> str:
     :func:`conv3d_dgrad`, :func:`conv3d_wgrad`, :func:`conv3d_same_na` or
     :func:`conv3d_wgrad_na` with C input and F output channels launches:
     with C % 8 == 0 and F % 8 == 0 (TMA's 16-byte strides in bf16)
-    :data:`TENSOR_CORE` for bf16 and :data:`TF32X3` for fp32 (whose
-    fused wgrad is the CUDA-core one), else :data:`CUDA_CORE`.  The rule
+    :data:`TENSOR_CORE` for bf16 and :data:`TF32X3` for fp32, else
+    :data:`CUDA_CORE`.  The rule
     is symmetric in C and F, so the dgrad (F -> C) takes its forward's
     route."""
     if C % 8 or F % 8 or dtype not in (torch.bfloat16, torch.float32):
@@ -473,8 +476,23 @@ def conv3d_wgrad_tf32x3_plain(x: torch.Tensor, g: torch.Tensor
             + conv3d_wgrad_plain(xh, gh))
 
 
-def _launch_wgrad_tf32(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """The 3xTF32 wgrad ``conv3d_wgrad_tf32`` (fp32) and its fold."""
+def conv3d_wgrad_na_tf32x3_plain(x: torch.Tensor, mean: torch.Tensor,
+                                 rstd: torch.Tensor, g: torch.Tensor,
+                                 act=None) -> torch.Tensor:
+    """``conv3d_wgrad_na_tf32``'s arithmetic in plain PyTorch: the fp32
+    norm-act of x (``inorm_apply_plain``; SAME padding of the normalised
+    input), then :func:`conv3d_wgrad_tf32x3_plain` of it and g.  Not on the
+    card's path: the CPU tests hold it against fp64 and the Pallas
+    kernel."""
+    _check_wgrad(x, g)
+    _check_na(x, mean, rstd, act)
+    return conv3d_wgrad_tf32x3_plain(_normed(x, mean, rstd, act), g)
+
+
+def _launch_wgrad_tf32(x: torch.Tensor, g: torch.Tensor,
+                       na=None) -> torch.Tensor:
+    """The 3xTF32 wgrad ``conv3d_wgrad_tf32`` (fp32) and its fold; ``na``
+    = (mean, rstd, act) selects ``conv3d_wgrad_na_tf32``."""
     if not (x.is_contiguous() and g.is_contiguous()):
         raise ValueError("kernel needs contiguous x and g")
     B, D, H, W, C = x.shape
@@ -484,10 +502,19 @@ def _launch_wgrad_tf32(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     partial = torch.empty(n_chunks * 27 * C * Fo, dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((3, 3, 3, C, Fo), dtype=torch.float32, device=x.device)
-    _build.call("conv3d_wgrad_tf32", x.data_ptr(), g.data_ptr(),
-                partial.data_ptr(), dw.data_ptr(), B, D, H, W, C, Fo, per,
-                n_chunks, device=x.device)
-    launches["conv3d_wgrad_tf32"] += 1
+    shape = (B, D, H, W, C, Fo, per, n_chunks)
+    if na is None:
+        _build.call("conv3d_wgrad_tf32", x.data_ptr(), g.data_ptr(),
+                    partial.data_ptr(), dw.data_ptr(), *shape,
+                    device=x.device)
+    else:
+        mean, rstd, act = na
+        _build.call("conv3d_wgrad_na_tf32", x.data_ptr(), g.data_ptr(),
+                    mean.data_ptr(), rstd.data_ptr(), partial.data_ptr(),
+                    dw.data_ptr(), fused_norm._act_code(act), *shape,
+                    device=x.device)
+    launches["conv3d_wgrad_tf32" if na is None
+             else "conv3d_wgrad_na_tf32"] += 1
     return dw.permute(4, 3, 0, 1, 2)
 
 
@@ -632,14 +659,18 @@ def conv3d_wgrad_na(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
 
     The counterpart of ``cbim_tpu.ops.pallas.conv3d.conv3d_wgrad_cw2_na``.
     CUDA tensors launch the kernel of :func:`conv3d_route`
-    (``conv3d_wgrad_na_tc`` on the bf16 tensor-core route, else
-    ``conv3d_wgrad_na``), CPU tensors run the plain version."""
+    (``conv3d_wgrad_na_tc`` on the bf16 tensor-core route,
+    ``conv3d_wgrad_na_tf32`` on the fp32 TF32 route, ``conv3d_wgrad_na`` on
+    the CUDA-core one), CPU tensors run the plain version."""
     _check_wgrad(x, g)
     _check_na(x, mean, rstd, act)
     if not _backend.uses_kernels(x):
         return conv3d_wgrad_na_plain(x, mean, rstd, g, act)
-    if conv3d_route(x.dtype, x.shape[-1], g.shape[-1]) == TENSOR_CORE:
+    route = conv3d_route(x.dtype, x.shape[-1], g.shape[-1])
+    if route == TENSOR_CORE:
         return _launch_wgrad_tc(x, g, (mean, rstd, act))
+    if route == TF32X3:
+        return _launch_wgrad_tf32(x, g, (mean, rstd, act))
     return _launch_wgrad(x, g, (mean, rstd, act))
 
 

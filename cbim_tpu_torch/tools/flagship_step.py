@@ -8,6 +8,13 @@ checkout at ``--root``, with that checkout's own kernels and code:
   seeded weights) of the two synthetic NIfTI requests through
   ``prediction.main``;
 - ``--phase 5b``: the same with ``conv_na`` on;
+- ``--phase 9``: BCV SwinUNETR serving (the full-width model of
+  ``configs/bcv/swin_unetr_3d.yaml``, fp32, seeded weights) of the same
+  two requests: 6 window-attention launches a forward;
+- ``--phase wa``: the checkout's phase-3 window-attention check at
+  SwinUNETR's three stage shapes (its first three ``WA_CASES``), fp32 and
+  bf16, masked and not: the kernel held against its plain version and
+  timed beside SDPA;
 - ``--phase 6`` (the default): the flagship recipe of ``bench.py``
   (full-width MedFormer-3D, GELU, 128^3 crops, batch 2, bf16 autocast,
   remat, AdamW, EMA, six steps on the synthetic corpus);
@@ -17,6 +24,9 @@ checkout at ``--root``, with that checkout's own kernels and code:
   medformer_3d.yaml``, fp32, batch 2, host windows) on the NIfTI cases
   that ``chip_smoke.py`` writes (a checkout whose ``chip_smoke.py`` has
   ``kits_config``);
+- ``--phase 6kn``: the same KiTS recipe with ``conv_na: true``, every
+  kernel conv a fused preact conv (fp32: the checkout's fused forward and
+  weight gradient);
 - ``--phase 8``: the ACDC MedFormer-2D recipe (256^2 crops, batch 32, bf16
   autocast, six steps on ``Synthetic2D``) with ``conv2d_kernel`` on, the
   3x3 kernel route;
@@ -67,12 +77,15 @@ def main(argv=None) -> int:
                         help="the checkout whose chip_smoke.py and kernels run "
                              "(default: this one)")
     parser.add_argument("--phase", default="6",
-                        choices=("5", "5b", "6", "6b", "6k", "8", "8b",
-                                 "8f"),
+                        choices=("5", "5b", "9", "wa", "6", "6b", "6k",
+                                 "6kn", "8", "8b", "8f"),
                         help="5: AMOS-CT serving; 5b: the same with conv_na; "
+                             "9: BCV SwinUNETR serving; wa: the window "
+                             "attention at SwinUNETR's shapes; "
                              "6: the flagship 3D recipe; 6b: the same with "
                              "conv_na (the fused preact conv); 6k: the KiTS "
-                             "recipe as shipped, fp32; 8: the ACDC "
+                             "recipe as shipped, fp32; 6kn: the same with "
+                             "conv_na; 8: the ACDC "
                              "2D recipe on the 3x3 kernel route; 8b: the "
                              "same on cuDNN's 3x3 convs; 8f: the ACDC recipe "
                              "in fp32 on the 3x3 kernel route (default: 6)")
@@ -94,13 +107,21 @@ def main(argv=None) -> int:
     _build.library()
     os.makedirs(smoke.WORK, exist_ok=True)
     name = f"step{args.phase}_{os.getpid()}_{int(time.time())}"
-    if args.phase in ("5", "5b"):
+    if args.phase in ("5", "5b", "9"):
         return serve(smoke, device, args, root, name)
+    if args.phase == "wa":
+        print(f"{root} phase wa: {smoke.card_line()}", flush=True)
+        record = {"errors": {}}
+        smoke.phase_window_attention(device, smoke.WA_CASES[:3], record)
+        print(json.dumps({"root": root, "phase": "wa", "max_abs_err":
+                          record["errors"]["window_attention"]}), flush=True)
+        return 0
     profile = os.path.abspath(args.profile) if args.profile else None
     kw = {}
-    if args.phase == "6k":
+    if args.phase in ("6k", "6kn"):
+        na = dict(conv_na=True) if args.phase == "6kn" else {}
         cfg = smoke.kits_config(os.path.join(smoke.WORK, f"{name}_data"),
-                                profile_dir=profile)
+                                profile_dir=profile, **na)
         batch, unit = smoke.TRAIN_BATCH, "volumes"
         kw = dict(amp=False, min_steps=smoke.KITS_STEPS)
     elif args.phase in ("6", "6b"):
@@ -134,9 +155,11 @@ def main(argv=None) -> int:
 
 
 def serve(smoke, device, args, root: str, name: str) -> int:
-    """Phase 5 or 5b of the checkout's ``chip_smoke``: serve its requests
-    once (timed), and again under the profiler with ``--profile``."""
-    cfg = dict(smoke.AMOS, conv_na=args.phase == "5b")
+    """Phase 5, 5b or 9 of the checkout's ``chip_smoke``: serve its
+    requests once (timed), and again under the profiler with
+    ``--profile``."""
+    cfg = (dict(smoke.BCV) if args.phase == "9" else
+           dict(smoke.AMOS, conv_na=args.phase == "5b"))
     prof = os.path.abspath(args.profile) if args.profile else None
     res = smoke.phase_slice(device, cfg, smoke.REQUESTS, smoke.TARGET_SPACING,
                             name, (), prof)

@@ -24,7 +24,7 @@ import torch
 #: kernel families, the first whose pattern is in a kernel's name; the rest
 #: count as "other elementwise"
 FAMILIES = [
-    ("window attention kernel", "window_attention_kernel"),
+    ("window attention kernel", "window_attention_"),
     ("conv fwd/dgrad kernels, fp32 3xTF32", "conv3d_tf32_"),
     ("conv fwd/dgrad kernels", "same_fwd_kernel"),
     ("conv wgrad kernels", "_wgrad_"),

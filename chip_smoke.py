@@ -27,18 +27,22 @@ Phases, each printing its result; any failure raises and exits non-zero:
    ``conv2d_same_fwd`` and ``conv2d_wgrad`` beside them and for the
    rest); and
    cuDNN's depthwise 3x3 conv in both memory formats, the layout choice of
-   MedFormer-2D's grouped convs; the window-attention kernel at the Swin
-   zoo's seven shapes, with and without a shifted-window mask, beside
-   ``F.scaled_dot_product_attention`` on the same bias; the fused preact
-   conv's kernels at the 3^3 conv shapes, relu and gelu, on the route of
-   ``conv3d_route`` (at widths of multiples of 8 bf16:
-   ``conv3d_same_na_fwd_tc`` and ``conv3d_wgrad_na_tc``, fp32:
-   ``conv3d_same_na_fwd_tf32`` and the CUDA-core ``conv3d_wgrad_na``, with
-   the CUDA-core fused forward (and in bf16 wgrad) they replace held and
-   timed beside them; the rest: the CUDA-core pair), each beside the
+   MedFormer-2D's grouped convs; the window-attention kernel (tensor
+   cores: 3xTF32 in fp32, bf16 mma in bf16) at the Swin zoo's seven
+   shapes, with and without a shifted-window mask, beside
+   ``F.scaled_dot_product_attention`` on the same bias, in fp32 its error
+   against an fp64 evaluation at most twice SDPA fp32's, SwinUNETR's three
+   shapes timed; the fused preact conv's kernels at the 3^3 conv shapes,
+   relu and gelu, on the route of ``conv3d_route`` (at widths of
+   multiples of 8 bf16: ``conv3d_same_na_fwd_tc`` and
+   ``conv3d_wgrad_na_tc``, fp32: ``conv3d_same_na_fwd_tf32`` and
+   ``conv3d_wgrad_na_tf32``, with the CUDA-core fused pair they replace
+   held and timed beside them, and the fp32 ones' errors against fp64 at
+   most twice cuDNN fp32's; the rest: the CUDA-core pair), each beside the
    unfused pair of kernels it replaces (no single PyTorch call computes
    either); and the card's NaN at one voxel of x and of g through the
-   TF32 forward, dgrad, fused forward and wgrad and ``inorm_apply``, and
+   TF32 forward, dgrad, fused forward, wgrad and fused wgrad and
+   ``inorm_apply``, and
    at one pixel through the 3x3 TF32 forward, dgrad and wgrad: NaN
    exactly where it enters each output, finite elsewhere;
 3a. the augmentation ops (``cbim_tpu_torch.ops.augment``, the pipeline's
@@ -54,7 +58,7 @@ Phases, each printing its result; any failure raises and exits non-zero:
    then again with ``conv_na`` (the fused preact conv);
 4b. one train step of that small model, card vs CPU, fp32 with TF32 off
    (its 3^3 forwards, dgrads and wgrads on the 3xTF32 kernels; with
-   ``conv_na`` the fused wgrad on the CUDA-core one): the loss and every
+   ``conv_na`` the fused pair's too): the loss and every
    parameter's gradient compared; again with ``conv_na``; then a
    bf16-autocast step on the card (the tensor-core kernels only) against
    the fp32 CPU step, again with ``conv_na`` (the
@@ -114,6 +118,11 @@ Phases, each printing its result; any failure raises and exits non-zero:
    (remat incl.), 16 ``conv3d_dgrad_tf32`` and 16 ``conv3d_wgrad_tf32``
    launches, no tensor-core and no CUDA-core 3^3 launch; sec/step (median of
    the 4 steps after warm-up), peak memory and the batches' time alone;
+6kn. the same recipe with ``conv_na: true`` for 4 steps: every one of its
+   16 kernel convs fused, per step 32 ``conv3d_same_na_fwd_tf32`` (remat
+   incl.), 16 ``conv3d_dgrad_tf32`` and 16 ``conv3d_wgrad_na_tf32``
+   launches and no other 3^3 launch (the CUDA-core ``conv3d_wgrad_na``
+   none); sec/step beside phase 6k's;
 6a. the ACDC-3D recipe (``configs/acdc/medformer_3d.yaml``: 16 x 192 x 192
    crops, 4 classes, fp32, batch 2) for 6 steps on 6 written cases of two
    frames: the pipeline took the device cache and its full-volume path (one
@@ -163,7 +172,7 @@ Phases, each printing its result; any failure raises and exits non-zero:
    timed beside the rungs), with its time, bound, plain and library
    times.
 
-Each of phases 4e and 5-10 (5b, 6b, 6v, 6k, 6a, 7b, 8b, 8f and 8v
+Each of phases 4e and 5-10 (5b, 6b, 6v, 6k, 6kn, 6a, 7b, 8b, 8f and 8v
 included) sets
 the launch counters to 0 just before it and reads them just after.  The
 last three
@@ -173,9 +182,9 @@ FLOPs and bytes) and ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--profile DIR]
 
-``--profile DIR`` also traces the steady steps of phases 6, 6b, 6k, 6a, 8,
-8b and 8f with the trainer's profiler hook (``profile_dir``), and the requests of
-phases 5, 5b and 9 served a second time, after the timed run:
+``--profile DIR`` also traces the steady steps of phases 6, 6b, 6k, 6kn,
+6a, 8, 8b and 8f with the trainer's profiler hook (``profile_dir``), and the
+requests of phases 5, 5b and 9 served a second time, after the timed run:
 DIR/<phase>/kernels.txt and summary.json, and the top kernels by device
 time are printed; for 5 and 5b also the 3^3 forwards' shapes and counts.
 """
@@ -241,13 +250,16 @@ KERNELS = {
                              "cbim_tpu/ops/pallas/conv2d.py:115"),
     "conv2d_wgrad_tf32": ("cbim_tpu_torch/csrc/conv2d_wgrad_tf32.cu",
                           "cbim_tpu/ops/pallas/conv2d.py:238"),
-    "conv3d_wgrad_na": ("cbim_tpu_torch/csrc/conv3d_wgrad.cu",
+    "conv3d_wgrad_na": ("cbim_tpu_torch/csrc/conv3d_wgrad_na.cu",
                         "cbim_tpu/ops/pallas/conv3d.py:1518"),
     # the fused pair's bf16 route at widths of multiples of 8
     "conv3d_same_na_fwd_tc": ("cbim_tpu_torch/csrc/conv3d_na_tc.cu",
                               "cbim_tpu/ops/pallas/conv3d.py:1387"),
     "conv3d_wgrad_na_tc": ("cbim_tpu_torch/csrc/conv3d_wgrad_na_tc.cu",
                            "cbim_tpu/ops/pallas/conv3d.py:1518"),
+    # and its fp32 route (3xTF32)
+    "conv3d_wgrad_na_tf32": ("cbim_tpu_torch/csrc/conv3d_wgrad_na_tf32.cu",
+                             "cbim_tpu/ops/pallas/conv3d.py:1518"),
     # the fp32 route at widths of multiples of 8 (3xTF32): the forward and
     # dgrad, and the fused forward
     "conv3d_same_fwd_tf32": ("cbim_tpu_torch/csrc/conv3d_tf32.cu",
@@ -283,16 +295,16 @@ TF32_CONV_KERNELS = ("conv3d_same_fwd_tf32", "conv3d_dgrad_tf32",
 CORE_CONV_KERNELS = ("conv3d_same_fwd", "conv3d_dgrad", "conv3d_wgrad")
 #: with ``conv_na``: the 20 preact InstanceNorm 3^3 convs of MedFormer-3D's
 #: BasicBlocks (every conv that takes the 3^3 kernel) become fused ones;
-#: fp32 serving launches the TF32 fused forward, the bf16 step the
-#: tensor-core pair
+#: fp32 serving launches the TF32 fused forward, the fp32 step the TF32
+#: pair, the bf16 step the tensor-core pair
 NA_FORWARD_KERNELS = ("inorm_stats", "inorm_apply", "conv3d_same_na_fwd_tf32")
 NA_TC_KERNELS = ("conv3d_same_na_fwd_tc", "conv3d_wgrad_na_tc")
+NA_TF32_KERNELS = ("conv3d_same_na_fwd_tf32", "conv3d_wgrad_na_tf32")
 NA_CORE_KERNELS = ("conv3d_same_na_fwd", "conv3d_wgrad_na")
 NA_CONVS = 20
 #: every 3^3 kernel's launch counter
 CONV3D_KERNELS = (TC_CONV_KERNELS + TF32_CONV_KERNELS + CORE_CONV_KERNELS
-                  + NA_TC_KERNELS + NA_CORE_KERNELS
-                  + ("conv3d_same_na_fwd_tf32",))
+                  + NA_TC_KERNELS + NA_CORE_KERNELS + NA_TF32_KERNELS)
 #: the TF32 kernels' largest error against an fp64 conv, at most this many
 #: times cuDNN fp32's (TF32 off) at the same shape
 F64_ERR_RATIO = 2.0
@@ -367,6 +379,13 @@ WA_CASES = [((1000, 3, 343, 16), (70, 70, 70), (7, 7, 7)),
             ((16, 24, 512, 16), (16, 16, 32), (8, 8, 8))]
 #: the case of the JSON record: SwinUNETR's first stage, shifted, fp32
 WA_RECORD = ((1000, 3, 343, 16), True, "float32")
+#: the shapes whose kernel, SDPA and plain times phase 3 takes: SwinUNETR's
+#: three stages (its only path on the card; the other shapes are checked
+#: and not timed, which keeps the script within its budget)
+WA_TIMED = ((1000, 3, 343, 16), (125, 6, 343, 16), (27, 12, 343, 16))
+#: the exponentials' bound beside the window attention's: the SFU's 16 a
+#: clock on each of the 132 SMs at the H100 SXM's 1.98 GHz boost clock
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 #: the window attention's error, held against max|o| (the scale of every
 #: row's weighted mean of v): fp32, both sides sum N products per entry in
 #: fp32 in other orders and exponentiate differently (exp2 of scaled
@@ -600,6 +619,10 @@ KITS_CASES = [((160, 160, 160), (0.78, 0.78, 0.78)),
               ((160, 165, 150), (0.78, 0.78, 0.78)),
               ((155, 160, 170), (0.78, 0.78, 0.78))]
 KITS_STEPS = WARMUP_STEPS + 4
+#: phase 6kn: the same recipe with ``conv_na: true``, every one of its 16
+#: kernel convs a fused preact conv; fewer steps (the median of the 2
+#: after warm-up) to keep the script within its time
+KITS_NA_STEPS = WARMUP_STEPS + 2
 #: the KiTS MedFormer-3D's 3^3 convs on the kernel route (ConvNormAct 3^3,
 #: C_in <= 192, C_out <= 128): 2 in inc, 4 in down1, 5 in up3, 5 in up4,
 #: every width a multiple of 8.  A fp32 step launches, per conv, two
@@ -642,13 +665,26 @@ PROBE_TOL = 2 ** -7
 DOT_CHECK_TILES = 64
 
 
+#: the script's start (phase headers print the seconds since)
+T0 = time.perf_counter()
+
+
 def say(msg: str) -> None:
+    if msg.startswith("[phase"):
+        msg = f"{msg} (at {time.perf_counter() - T0:.1f} s)"
     print(msg, flush=True)
 
 
 def iters_for(flops_or_bytes: float, per_ms: float) -> int:
     """Enough calls for ~50 ms of work, at least 3."""
     return max(3, min(200, int(50 * per_ms / max(flops_or_bytes, 1.0))))
+
+
+def plain_iters(n: int) -> int:
+    """The repeats of a plain version timed beside a kernel timed ``n``
+    times: a quarter, at least 1 (the plain versions of the fused pair and
+    the window attention run 3-10x longer than their kernels)."""
+    return max(1, n // 4)
 
 
 def entry(ms, plain_ms, library_ms, flops, nbytes, dtype, shape,
@@ -1035,7 +1071,7 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
     kernels of the route ``conv3d_route`` gives each case (the launch
     counters that moved: at widths of multiples of 8 in bf16
     ``conv3d_same_na_fwd_tc`` and ``conv3d_wgrad_na_tc``, in fp32
-    ``conv3d_same_na_fwd_tf32`` and ``conv3d_wgrad_na``, else
+    ``conv3d_same_na_fwd_tf32`` and ``conv3d_wgrad_na_tf32``, else
     ``conv3d_same_na_fwd`` and ``conv3d_wgrad_na``) against their plain
     versions (``inorm_apply_plain`` then the plain conv or weight gradient),
     on inputs of mean 1.5 so that a padding normalised to act(-mean * rstd)
@@ -1043,16 +1079,16 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
     replaces (``inorm_apply`` + ``conv3d_same``, ``inorm_apply`` +
     ``conv3d_wgrad``, on the same route); where a case takes the
     tensor-core or TF32 route the CUDA-core fused kernels it replaces (the
-    forward, and in bf16 the wgrad) are held and timed too, in fp32 with
-    the CUDA-core unfused pair, and the TF32 forward's error against an
-    fp64 conv is held against cuDNN fp32's.  No single PyTorch call
-    computes either function."""
+    forward and the wgrad) are held and timed too, in fp32 with the
+    CUDA-core unfused forward pair, and the TF32 kernels' errors against an
+    fp64 conv and weight gradient are held against cuDNN fp32's.  No single
+    PyTorch call computes either function."""
     import torch
     from cbim_tpu_torch.ops.kernels import conv3d, fused_norm
     gen = torch.Generator(device=device).manual_seed(6)
     errs = record["errors"]
     errs.update({k: 0.0 for k in NA_TC_KERNELS + NA_CORE_KERNELS
-                 + ("conv3d_same_na_fwd_tf32",)})
+                 + NA_TF32_KERNELS})
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
         for case in conv_cases:
@@ -1067,7 +1103,9 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
             route = conv3d.conv3d_route(dtype, C, Fo)
             tc = route == conv3d.TENSOR_CORE
             kf = conv3d.FORWARD_KEYS[route][2]
-            kw = "conv3d_wgrad_na_tc" if tc else "conv3d_wgrad_na"
+            kw = {conv3d.TENSOR_CORE: "conv3d_wgrad_na_tc",
+                  conv3d.TF32X3: "conv3d_wgrad_na_tf32",
+                  conv3d.CUDA_CORE: "conv3d_wgrad_na"}[route]
             # the prologue's subtract, multiply and act once per input
             flops = 2 * 27 * C * Fo * B * D * H * W + 3 * x.numel()
             n = iters_for(flops, 1e10)
@@ -1090,50 +1128,48 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
                 ey = float((y.float() - ref_y.float()).abs().max())
                 sw = float(ref_dw.abs().max())
                 ew = float((dw - ref_dw).abs().max())
-                f64 = ""
+                f64, f64_wg, f64_rec = "", "", {}
                 if route == conv3d.TF32X3:
                     xn = conv3d._normed(x, mean, rstd, act)
                     f64 = f64_errors(f"{kf} {case} {act}", y, ref_y,
                                      conv64(xn, w))
+                    f64_wg = f64_errors(f"{kw} {case} {act}", dw, ref_dw,
+                                        wgrad64(xn, g), f64_rec)
                     del xn
                 t_fwd = (
                     cuda_ms(lambda: conv3d.conv3d_same_na(x, mean, rstd, w,
                                                           act), n),
                     cuda_ms(lambda: conv3d.conv3d_same(normed(), w), n),
                     cuda_ms(lambda: conv3d.conv3d_same_na_plain(
-                        x, mean, rstd, w, act), n))
+                        x, mean, rstd, w, act), plain_iters(n)))
                 t_wg = (
                     cuda_ms(lambda: conv3d.conv3d_wgrad_na(x, mean, rstd, g,
                                                            act), n),
                     cuda_ms(lambda: conv3d.conv3d_wgrad(normed(), g), n),
                     cuda_ms(lambda: conv3d.conv3d_wgrad_na_plain(
-                        x, mean, rstd, g, act), n))
+                        x, mean, rstd, g, act), plain_iters(n)))
                 core = {}
                 if route != conv3d.CUDA_CORE:
-                    # the CUDA-core fused forward the tensor-core or TF32
-                    # one replaces
+                    # the CUDA-core fused forward and wgrad the tensor-core
+                    # or TF32 ones replace
                     cy = conv3d._launch_fwd(x, w, "conv3d_same_na_fwd", na)
-                    torch.cuda.synchronize()
-                    cey = float((cy.float() - ref_y.float()).abs().max())
-                    assert cey <= CONV_TOL[dt] * sy, \
-                        f"conv3d_same_na_fwd {dt} {case} {act}: {cey:.3e}"
-                    errs["conv3d_same_na_fwd"] = max(
-                        errs["conv3d_same_na_fwd"], cey)
-                    core[kf] = cuda_ms(lambda: conv3d._launch_fwd(
-                        x, w, "conv3d_same_na_fwd", na), n)
-                    del cy
-                if tc:
-                    # and the CUDA-core fused wgrad
                     cw = conv3d._launch_wgrad(x, g, na)
                     torch.cuda.synchronize()
+                    cey = float((cy.float() - ref_y.float()).abs().max())
                     cew = float((cw - ref_dw).abs().max())
+                    assert cey <= CONV_TOL[dt] * sy, \
+                        f"conv3d_same_na_fwd {dt} {case} {act}: {cey:.3e}"
                     assert cew <= WGRAD_TOL * sw, \
                         f"conv3d_wgrad_na {dt} {case} {act}: {cew:.3e}"
+                    errs["conv3d_same_na_fwd"] = max(
+                        errs["conv3d_same_na_fwd"], cey)
                     errs["conv3d_wgrad_na"] = max(errs["conv3d_wgrad_na"],
                                                   cew)
+                    core[kf] = cuda_ms(lambda: conv3d._launch_fwd(
+                        x, w, "conv3d_same_na_fwd", na), n)
                     core[kw] = cuda_ms(lambda: conv3d._launch_wgrad(
                         x, g, na), n)
-                    del cw
+                    del cy, cw
                 core_pair = ""
                 if route == conv3d.TF32X3:
                     # the unfused pair on the CUDA-core conv, as served
@@ -1144,7 +1180,7 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
                                  f"{core['pair']:.3f} ms")
                 for key, (ms, pair_ms, plain_ms), err, scale, tol, ef in (
                         (kf, t_fwd, ey, sy, CONV_TOL[dt], f64 + core_pair),
-                        (kw, t_wg, ew, sw, WGRAD_TOL, "")):
+                        (kw, t_wg, ew, sw, WGRAD_TOL, f64_wg)):
                     extra = (f" CUDA-core {core[key]:.3f} ms "
                              f"({core[key] / ms:.2f}x)" if key in core else "")
                     say(f"  {key:23s} {dt:8s} {case} {act}: max_abs_err "
@@ -1161,21 +1197,25 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
                         + stat_bytes
                     fwd = entry(t_fwd[0], t_fwd[2], None, flops, fwd_bytes,
                                 dt, case, tf32x3=route == conv3d.TF32X3)
-                    wg = entry(t_wg[0], t_wg[2], None, flops,
-                               (x.numel() + g.numel()) * size
-                               + dw.numel() * 4 + stat_bytes, dt, case)
+                    wg_bytes = (x.numel() + g.numel()) * size \
+                        + dw.numel() * 4 + stat_bytes
+                    wg = entry(t_wg[0], t_wg[2], None, flops, wg_bytes, dt,
+                               case, tf32x3=route == conv3d.TF32X3)
                     record[kf] = dict(fwd, act=act, unfused_ms=t_fwd[1])
-                    record[kw] = dict(wg, act=act, unfused_ms=t_wg[1])
+                    record[kw] = dict(wg, act=act, unfused_ms=t_wg[1],
+                                      **f64_rec)
                     if route != conv3d.CUDA_CORE:
                         record[kf]["cuda_core_ms"] = core[kf]
-                    if tc:
                         record[kw]["cuda_core_ms"] = core[kw]
                     if route == conv3d.TF32X3:
-                        # the CUDA-core fused forward it replaces, and the
-                        # CUDA-core unfused pair
+                        # the CUDA-core fused pair it replaces, and the
+                        # CUDA-core unfused forward pair
                         record["conv3d_same_na_fwd"] = dict(entry(
                             core[kf], t_fwd[2], None, flops, fwd_bytes, dt,
                             case), act=act, unfused_ms=core["pair"])
+                        record["conv3d_wgrad_na"] = dict(entry(
+                            core[kw], t_wg[2], None, flops, wg_bytes, dt,
+                            case), act=act, unfused_ms=t_wg[1])
                 del y, ref_y, dw, ref_dw
             del x, g, w, x3
     torch.cuda.synchronize()
@@ -1184,9 +1224,9 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
 def phase_nan(device) -> None:
     """Phase 3, NaN: the card's NaN (0x7FFFFFFF, what its arithmetic makes)
     in one channel of the voxel NAN_AT of x and of g, fp32 at NAN_CASE,
-    through the TF32 forward, dgrad, fused forward (ReLU) and wgrad and
-    ``inorm_apply`` (ReLU); and at the pixel NAN2D_AT, fp32 at NAN2D_CASE,
-    through the 3x3 TF32 forward, dgrad and wgrad.  Each output must be NaN
+    through the TF32 forward, dgrad, fused forward (ReLU), wgrad and fused
+    wgrad (ReLU) and ``inorm_apply`` (ReLU); and at the pixel NAN2D_AT,
+    fp32 at NAN2D_CASE, through the 3x3 TF32 forward, dgrad and wgrad.  Each output must be NaN
     exactly where that value enters it (torch's rule, which the plain
     versions follow) and finite elsewhere: a conv's in every output channel
     of the 3^3 voxels (3x3 pixels) around the NaN; the wgrad's where the
@@ -1220,7 +1260,8 @@ def phase_nan(device) -> None:
                                         g.isnan().float()) > 0.5
 
     keys = ("conv3d_same_fwd_tf32", "conv3d_dgrad_tf32",
-            "conv3d_same_na_fwd_tf32", "conv3d_wgrad_tf32", "inorm_apply")
+            "conv3d_same_na_fwd_tf32", "conv3d_wgrad_tf32",
+            "conv3d_wgrad_na_tf32", "inorm_apply")
     before = {k: {**conv3d.launches, **fused_norm.launches}[k] for k in keys}
     outs = {
         "conv3d_same_fwd_tf32": (conv3d.conv3d_same(x, w),
@@ -1234,6 +1275,10 @@ def phase_nan(device) -> None:
         "conv3d_wgrad_tf32": (conv3d.conv3d_wgrad(x, g),
                               conv3d.conv3d_wgrad_plain(x, g),
                               wgrad_mask(x, g)),
+        "conv3d_wgrad_na_tf32": (
+            conv3d.conv3d_wgrad_na(x, mean, rstd, g, "relu"),
+            conv3d.conv3d_wgrad_na_plain(x, mean, rstd, g, "relu"),
+            wgrad_mask(x, g)),
         "inorm_apply": (
             fused_norm.inorm_apply(x.view(B, -1, C), mean, rstd, "relu"),
             fused_norm.inorm_apply_plain(x.view(B, -1, C), mean, rstd, "relu"),
@@ -1458,13 +1503,36 @@ def phase_conv2d_kernels(device, cases, record: dict) -> None:
     torch.cuda.synchronize()
 
 
+def attention64(q, k, v, rel_bias, region):
+    """The window attention in fp64 on q's device (the reference of the
+    fp32 kernel's and SDPA fp32's errors)."""
+    import torch
+    from cbim_tpu_torch.ops.kernels import window_attention as wa
+    B, H, N, D = q.shape
+    s = torch.einsum("bhnd,bhmd->bhnm", q.double() * D ** -0.5, k.double())
+    s = s + rel_bias.double()
+    if region is not None:
+        nW = region.shape[0]
+        s = (s.view(B // nW, nW, H, N, N)
+             + wa.region_mask(region).double()[None, :, None]
+             ).view(B, H, N, N)
+    return torch.einsum("bhnm,bhmd->bhnd", torch.softmax(s, -1), v.double())
+
+
 def phase_window_attention(device, cases, record: dict) -> None:
     """Phase 3, the window attention: the kernel against its plain version
     at each shape, fp32 and bf16, with no mask and with the shifted-window
-    region mask, beside ``F.scaled_dot_product_attention`` on the same
-    additive bias (rel_bias plus the -100 mask, pre-broadcast to (B, H, N,
-    N) in the inputs' dtype).  Also: on the card the wrapper raises where
-    autograd would need a gradient."""
+    region mask; q, k, v are the views of one packed (B, N, 3, H, D)
+    tensor, as SwinUNETR passes them.  Beside it
+    ``F.scaled_dot_product_attention`` on the same additive bias (rel_bias
+    plus the -100 mask, pre-broadcast to (B, H, N, N) in the inputs'
+    dtype).  In fp32 the kernel's error against an fp64 evaluation is at
+    most F64_ERR_RATIO times SDPA fp32's (TF32 off).  The WA_TIMED shapes
+    are timed (kernel, SDPA, plain), with the bound of three TF32 passes
+    in fp32; the exponentials at the SFU's rate and the bias's L2 bytes,
+    worked out from the shape, are printed and left out of the record.
+    Also: on the card the wrapper raises where autograd would need a
+    gradient."""
     import torch
     import torch.nn.functional as F
     from cbim_tpu_torch.models.swin_layers import compute_region_ids
@@ -1476,16 +1544,19 @@ def phase_window_attention(device, cases, record: dict) -> None:
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
         for (B, H, N, D), spatial, window in cases:
-            q, k, v = (torch.randn(B, H, N, D, generator=gen, device=device)
-                       .to(dtype) for _ in range(3))
+            qkv = torch.randn(B, N, 3, H, D, generator=gen,
+                              device=device).to(dtype)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
             rel_bias = torch.randn(H, N, N, generator=gen, device=device)
             ids = compute_region_ids(spatial, window,
                                      tuple(w // 2 for w in window))
+            timed = (B, H, N, D) in WA_TIMED
             for region in (None, torch.from_numpy(ids).to(device)):
+                masked = region is not None
                 ref = wa.window_attention_plain(q, k, v, rel_bias, region)
                 out = wa.window_attention(q, k, v, rel_bias, region)
                 bias = rel_bias.expand(B, H, N, N)
-                if region is not None:
+                if masked:
                     nW = region.shape[0]
                     bias = (bias.reshape(B // nW, nW, H, N, N)
                             + wa.region_mask(region)[None, :, None])
@@ -1494,35 +1565,59 @@ def phase_window_attention(device, cases, record: dict) -> None:
                 torch.cuda.synchronize()
                 scale = float(ref.float().abs().max())
                 err = float((out.float() - ref.float()).abs().max())
-                lib_err = float((lib.float() - ref.float()).abs().max())
-                flops = 4 * B * H * N * N * D
-                n = iters_for(flops, 1e10)
-                ms = cuda_ms(lambda: wa.window_attention(q, k, v, rel_bias,
-                                                         region), n)
-                plain_ms = cuda_ms(lambda: wa.window_attention_plain(
-                    q, k, v, rel_bias, region), n)
-                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=bias), n)
-                masked = region is not None
-                nbytes = (4 * q.numel() * q.element_size()
-                          + rel_bias.numel() * 4
-                          + (region.numel() * 4 if masked else 0))
-                b_ms, b_by = bound_ms(flops, nbytes, dt)
-                say(f"  window_attention {dt:8s} {(B, H, N, D)} "
-                    f"mask={str(masked):5s}: max_abs_err {err:.3e} "
-                    f"max_rel_err {err / scale:.3e} of max|o| {scale:.3f} "
-                    f"(tol {WA_TOL[dt]:.1e}) kernel {ms:.3f} ms "
-                    f"({flops / ms / 1e9:.1f} TFLOP/s) bound {b_ms:.3f} ms "
-                    f"({b_by}) plain {plain_ms:.3f} ms SDPA {lib_ms:.3f} ms "
-                    f"(its err {lib_err:.1e})")
+                line = (f"  window_attention {dt:8s} {(B, H, N, D)} "
+                        f"mask={str(masked):5s}: max_abs_err {err:.3e} "
+                        f"max_rel_err {err / scale:.3e} of max|o| "
+                        f"{scale:.3f} (tol {WA_TOL[dt]:.1e})")
+                f64 = {}
+                if dt == "float32":
+                    r64 = attention64(q, k, v, rel_bias, region)
+                    s64 = float(r64.abs().max())
+                    e_k = float((out.double() - r64).abs().max()) / s64
+                    e_l = float((lib.double() - r64).abs().max()) / s64
+                    line += (f" vs fp64: kernel {e_k:.3e} SDPA fp32 "
+                             f"{e_l:.3e} of max|o|")
+                    assert e_k <= F64_ERR_RATIO * e_l, \
+                        f"window_attention {(B, H, N, D)} mask={masked}: " \
+                        f"{e_k:.3e} from fp64, SDPA fp32 {e_l:.3e}"
+                    f64 = dict(f64_err=e_k, sdpa_f64_err=e_l)
+                    del r64
                 assert err <= WA_TOL[dt] * scale, \
                     f"window_attention {dt} {(B, H, N, D)} mask={masked}"
                 errs["window_attention"] = max(errs["window_attention"], err)
-                if ((B, H, N, D), masked, dt) == WA_RECORD:
-                    record["window_attention"] = entry(
-                        ms, plain_ms, lib_ms, flops, nbytes, dt, (B, H, N, D))
+                if timed:
+                    flops = 4 * B * H * N * N * D
+                    n = iters_for(flops, 1e10)
+                    ms = cuda_ms(lambda: wa.window_attention(
+                        q, k, v, rel_bias, region), n)
+                    plain_ms = cuda_ms(lambda: wa.window_attention_plain(
+                        q, k, v, rel_bias, region), plain_iters(n))
+                    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=bias), n)
+                    nbytes = (4 * q.numel() * q.element_size()
+                              + rel_bias.numel() * 4
+                              + (region.numel() * 4 if masked else 0))
+                    rec = dict(entry(ms, plain_ms, lib_ms, flops, nbytes,
+                                     dt, (B, H, N, D),
+                                     tf32x3=dt == "float32"), **f64)
+                    # worked out from the shape, not measured: printed
+                    # beside the bound, kept out of the record
+                    Mp, Np = -(-N // 16) * 16, wa.padded_keys(N)
+                    exp_ms = B * H * N * N / SFU_EXP_PER_S * 1e3
+                    bias_bytes = B * H * Mp * Np * 4
+                    line += (f" kernel {ms:.3f} ms "
+                             f"({flops / ms / 1e9:.1f} TFLOP/s) bound "
+                             f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}"
+                             f"{', 3 TF32 passes' if f64 else ''}), exps "
+                             f"{exp_ms:.3f} ms at the SFU's rate, "
+                             f"bias {bias_bytes / 1e9:.2f} GB "
+                             f"from L2; plain {plain_ms:.3f} ms SDPA "
+                             f"{lib_ms:.3f} ms")
+                    if ((B, H, N, D), masked, dt) == WA_RECORD:
+                        record["window_attention"] = rec
+                say(line)
                 del ref, out, bias, lib
-            del q, k, v, rel_bias
+            del qkv, q, k, v, rel_bias
     qg = torch.randn(2, 3, 49, 16, device=device, requires_grad=True)
     try:
         wa.window_attention(qg, qg, qg, torch.zeros(3, 49, 49, device=device))
@@ -1609,6 +1704,10 @@ def phase_small_model(device, cfg_dict, shape) -> float:
     return err
 
 
+#: phase_small_train_step's CPU results (loss, grads) by config and shape
+CPU_STEPS: dict = {}
+
+
 def phase_small_train_step(device, cfg_dict, shape, amp: bool = False
                            ) -> tuple[float, float, float]:
     """Phases 4b and 4c: one train-mode step of the small model on
@@ -1631,8 +1730,8 @@ def phase_small_train_step(device, cfg_dict, shape, amp: bool = False
     img = torch.randn(*shape, generator=gen)
     lab = torch.randint(0, cfg.classes, (shape[0], *shape[2:]), generator=gen)
     weight = [0.5] + [1.0] * (cfg.classes - 1)
-    results = []
-    for model, dev in ((cpu_model, torch.device("cpu")), (dev_model, device)):
+
+    def step(model, dev):
         with torch.autocast("cuda", dtype=torch.bfloat16,
                             enabled=amp and dev.type == "cuda"):
             loss = deep_supervision_loss(model(img.to(dev)), lab.to(dev),
@@ -1640,10 +1739,17 @@ def phase_small_train_step(device, cfg_dict, shape, amp: bool = False
         loss.backward()
         # a parameter whose output the loss never reads (MedFormer-2D's
         # last semantic-map reductions) gets no grad: zeros, as in JAX
-        results.append((float(loss.detach()), {
+        return float(loss.detach()), {
             k: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
-            for k, p in model.named_parameters()}))
-    (ref_loss, ref_grads), (loss, grads) = results
+            for k, p in model.named_parameters()}
+
+    # the CPU's fp32 step runs the plain versions whatever the card's route
+    # or autocast: one per config and shape serves every card step on it
+    key = (json.dumps(cfg_dict, sort_keys=True, default=str), tuple(shape))
+    if key not in CPU_STEPS:
+        CPU_STEPS[key] = step(cpu_model, torch.device("cpu"))
+    (ref_loss, ref_grads), (loss, grads) = CPU_STEPS[key], step(dev_model,
+                                                                device)
     loss_err = abs(loss - ref_loss) / abs(ref_loss)
     loss_tol = STEP_BF16_LOSS_RTOL if amp else STEP_LOSS_RTOL
     assert math.isfinite(loss) and loss_err <= loss_tol, loss_err
@@ -2206,16 +2312,19 @@ def write_corpus(root: str, cases, names, seed: int, mr: bool = False,
     write_name_list(root, list(names))
 
 
-def kits_config(data_root: str, **overrides):
+def kits_config(data_root: str, write: bool = True, **overrides):
     """Phase 6k's config: ``configs/kits/medformer_3d.yaml`` as shipped,
     read by the port's ``load_config`` with ``overrides``, for one epoch of
     KITS_STEPS steps on host windows over KITS_CASES, which it writes into
-    ``data_root`` (seed 1)."""
+    ``data_root`` (seed 1) unless ``write`` is false (phase 6kn reads phase
+    6k's)."""
     from cbim_tpu_torch.config import load_config
-    write_corpus(data_root, KITS_CASES, range(len(KITS_CASES)), seed=1)
-    return load_config("kits", "medformer", "3d", data_root=data_root,
-                       epochs=1, iter_per_epoch=KITS_STEPS, print_freq=1,
-                       device_cache=False, **overrides)
+    if write:
+        write_corpus(data_root, KITS_CASES, range(len(KITS_CASES)), seed=1)
+    kw = dict(epochs=1, iter_per_epoch=KITS_STEPS, print_freq=1,
+              device_cache=False)
+    kw.update(overrides)
+    return load_config("kits", "medformer", "3d", data_root=data_root, **kw)
 
 
 def phase_aug_ops(device) -> dict:
@@ -2351,7 +2460,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="trace phases 6, 6b, 6k, 6a, 8, 8b and 8f's "
+                        help="trace phases 6, 6b, 6k, 6kn, 6a, 8, 8b and 8f's "
                              "steady steps, and the requests of phases 5, 5b "
                              "and 9 served again, into DIR")
     args = parser.parse_args(argv)
@@ -2402,13 +2511,21 @@ def main(argv=None) -> int:
 
     record: dict = {}
     say("[phase 3] kernels vs plain versions")
-    phase_kernels(device, CONV_CASES, NORM_CASES, record)
-    phase_backward_kernels(device, CONV_CASES, NORM_CASES, record)
-    phase_na_kernels(device, CONV_CASES, record)
-    phase_nan(device)
-    phase_conv2d_kernels(device, CONV2D_CASES, record)
-    phase_depthwise_layouts(device, DEPTHWISE2D_CASES)
-    phase_window_attention(device, WA_CASES, record)
+    took = {}
+    for part, fn, fn_args in (
+            ("forward", phase_kernels, (CONV_CASES, NORM_CASES, record)),
+            ("backward", phase_backward_kernels,
+             (CONV_CASES, NORM_CASES, record)),
+            ("fused pair", phase_na_kernels, (CONV_CASES, record)),
+            ("NaN", phase_nan, ()),
+            ("conv2d", phase_conv2d_kernels, (CONV2D_CASES, record)),
+            ("depthwise", phase_depthwise_layouts, (DEPTHWISE2D_CASES,)),
+            ("window attention", phase_window_attention,
+             (WA_CASES, record))):
+        t_part = time.perf_counter()
+        fn(device, *fn_args)
+        took[part] = round(time.perf_counter() - t_part, 1)
+    say(f"  phase 3 took, by part: {took} s")
 
     say("[phase 3a] augmentation ops on the card vs the CPU, same draws")
     t_aug = time.perf_counter()
@@ -2444,19 +2561,19 @@ def main(argv=None) -> int:
             device, dict(SMALL, remat=True, conv_na=conv_na),
             (2, 1, 64, 64, 64))
         counts = launch_counts()
-        # the fp32 step: forwards, dgrads and wgrads on the TF32 kernels;
-        # with conv_na the fused wgrad on the CUDA-core one
-        used = (("conv3d_same_na_fwd_tf32", "conv3d_dgrad_tf32",
-                 "conv3d_wgrad_na") if conv_na else TF32_CONV_KERNELS)
+        # the fp32 step: forwards, dgrads and wgrads on the TF32 kernels,
+        # with conv_na the fused pair's too
+        used = (NA_TF32_KERNELS + ("conv3d_dgrad_tf32",) if conv_na
+                else TF32_CONV_KERNELS)
         assert all(counts[k] > 0 for k in used) and \
             not any(counts[k] for k in CONV3D_KERNELS if k not in used), \
             counts
-        n_na = counts["conv3d_wgrad_na"]
+        n_na = counts["conv3d_wgrad_na_tf32"]
         say(f"  conv_na={conv_na}: 2 x 64^3 fp32: loss rel err "
             f"{loss_err:.3e} (tol {STEP_LOSS_RTOL:.0e}); gradient rel L2 err "
             f"{l2_err:.3e} (tol {STEP_GRAD_L2:.0e}); worst tensor err "
             f"{grad_err:.3e} of its scale (tol {STEP_GRAD_RTOL:.0e}); "
-            f"{n_na} conv3d_wgrad_na launches")
+            f"{n_na} conv3d_wgrad_na_tf32 launches")
         assert n_na == (NA_CONVS if conv_na else 0), n_na
     for conv_na in (False, True):
         reset_launch_counts()
@@ -2477,8 +2594,7 @@ def main(argv=None) -> int:
         used = ("conv3d_dgrad_tc",) if conv_na else TC_CONV_KERNELS
         assert all(counts[k] > 0 for k in used) and \
             not any(counts[k] for k in CORE_CONV_KERNELS + NA_CORE_KERNELS
-                    + TF32_CONV_KERNELS + ("conv3d_same_na_fwd_tf32",)), \
-            counts
+                    + TF32_CONV_KERNELS + NA_TF32_KERNELS), counts
         assert (counts["conv3d_same_na_fwd_tc"],
                 counts["conv3d_wgrad_na_tc"]) == \
             ((2 * NA_CONVS, NA_CONVS) if conv_na else (0, 0)), counts
@@ -2675,6 +2791,38 @@ def main(argv=None) -> int:
     if args.profile:
         say_profile(os.path.join(args.profile, "kits"))
     launches["6k"] = counts
+    kits_median = tr["median"]
+
+    say("[phase 6kn] the KiTS recipe as shipped with conv_na: true, fp32: "
+        "the fused preact conv on the TF32 pair")
+    kits_na = kits_config(os.path.join(WORK, "kits_data"), write=False,
+                          conv_na=True, iter_per_epoch=KITS_NA_STEPS,
+                          profile_dir=profile_dir("kits_na"))
+    tr = phase_train(device, kits_na, TRAIN_BATCH, "kits_na",
+                     ("inorm_stats", "inorm_bwd_stats", "inorm_bwd_apply",
+                      "conv3d_dgrad_tf32") + NA_TF32_KERNELS,
+                     amp=False, min_steps=KITS_NA_STEPS)
+    say_train(tr, "volumes")
+    counts, steps = tr["launches"], len(tr["step_seconds"])
+    # every kernel conv fused (16, all preact InstanceNorm BasicBlock
+    # convs): per step 32 fused forwards (remat), 16 dgrads and 16 fused
+    # wgrads on the TF32 kernels; no other 3^3 launch, the CUDA-core fused
+    # wgrad none
+    want = dict(conv3d_same_na_fwd_tf32=2 * KITS_CONVS * steps,
+                conv3d_dgrad_tf32=KITS_CONVS * steps,
+                conv3d_wgrad_na_tf32=KITS_CONVS * steps,
+                **{k: 0 for k in CONV3D_KERNELS
+                   if k not in NA_TF32_KERNELS + ("conv3d_dgrad_tf32",)})
+    assert steps == KITS_NA_STEPS and all(counts[k] == v
+                                          for k, v in want.items()), \
+        (counts, want)
+    say(f"  fused vs unfused (phase 6k): {tr['median']:.3f} vs "
+        f"{kits_median:.3f} s/step; conv3d_wgrad_na_tf32 launches "
+        f"{counts['conv3d_wgrad_na_tf32']}, conv3d_wgrad_na "
+        f"{counts['conv3d_wgrad_na']}")
+    if args.profile:
+        say_profile(os.path.join(args.profile, "kits_na"))
+    launches["6kn"] = counts
 
     say("[phase 6a] the ACDC-3D recipe (configs/acdc/medformer_3d.yaml) on "
         "the device cache's full-volume path, fp32, batch 2")

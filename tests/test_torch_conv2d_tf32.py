@@ -273,7 +273,7 @@ def test_tf32_wrappers_pass_their_entries(monkeypatch, shape, C, F):
     (6, 32) pixel tiles; it counts each
     launch under its own counter, gives back torch's layouts and never
     calls another entry."""
-    calls, made = [], {}
+    calls, made, alive = [], {}, []
     monkeypatch.setattr(conv2d._build, "call",
                         lambda name, *args, device: calls.append(
                             (name, args, device)))
@@ -284,6 +284,8 @@ def test_tf32_wrappers_pass_their_entries(monkeypatch, shape, C, F):
     def recorded_empty(*size, **kw):
         t = empty(*size, **kw)
         made[t.data_ptr()] = (tuple(t.shape), t.dtype)
+        # kept alive, so that no later tensor is given its address
+        alive.append(t)
         return t
 
     monkeypatch.setattr(conv2d.torch, "empty", recorded_empty)

@@ -97,8 +97,8 @@ def test_wrappers_launch_the_kernels_of_their_route(monkeypatch, dtype, C, F):
     (the dgrad with the forward's weights and the flip; in fp32 at widths
     of multiples of 8 the TF32 forwards and wgrad), and so does the fused
     norm-act pair: its tensor-core kernels in bf16 at widths of multiples
-    of 8, in fp32 there the TF32 forward beside the CUDA-core wgrad, its
-    CUDA-core ones otherwise."""
+    of 8, in fp32 there the TF32 forward and wgrad, its CUDA-core ones
+    otherwise."""
     calls = []
 
     def record(name):
@@ -134,7 +134,7 @@ def test_wrappers_launch_the_kernels_of_their_route(monkeypatch, dtype, C, F):
                            ("_launch_wgrad", None, False)]}[route]
     assert [c[0] for c in calls[3:]] == {
         conv3d.TENSOR_CORE: ["_launch_fwd_tc", "_launch_wgrad_tc"],
-        conv3d.TF32X3: ["_launch_fwd_tf32", "_launch_wgrad"],
+        conv3d.TF32X3: ["_launch_fwd_tf32", "_launch_wgrad_tf32"],
         conv3d.CUDA_CORE: ["_launch_fwd", "_launch_wgrad"]}[route]
     assert calls[3][1] == conv3d.FORWARD_KEYS[route][2]
 

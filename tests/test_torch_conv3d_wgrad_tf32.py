@@ -148,7 +148,7 @@ def test_wgrad_tf32_launch_passes_its_entry_the_chunking(monkeypatch, shape,
     the shape and the chunking of ``wgrad_tc_chunking`` for its tile;
     counts it under its own counter and gives back torch's [F, C, 3, 3,
     3]."""
-    calls, made = [], {}
+    calls, made, alive = [], {}, []
     monkeypatch.setattr(conv3d._build, "call",
                         lambda name, *args, device: calls.append(
                             (name, args)))
@@ -158,6 +158,8 @@ def test_wgrad_tf32_launch_passes_its_entry_the_chunking(monkeypatch, shape,
     def recorded_empty(*size, **kw):
         t = empty(*size, **kw)
         made[t.data_ptr()] = (tuple(t.shape), t.dtype)
+        # kept alive, so that no later tensor is given its address
+        alive.append(t)
         return t
 
     monkeypatch.setattr(conv3d.torch, "empty", recorded_empty)

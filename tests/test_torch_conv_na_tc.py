@@ -98,8 +98,7 @@ def _w_to_jax(w):
 def test_fused_pair_route(dtype, C, F, route):
     """The fused pair follows conv3d_route: at widths of multiples of 8
     (every width MedFormer-3D fuses) bf16 on the tensor cores and fp32 on
-    the TF32 forward (its wgrad on the CUDA cores), the rest on the CUDA
-    cores."""
+    the TF32 pair, the rest on the CUDA cores."""
     assert conv3d.conv3d_route(dtype, C, F) == route
 
 
@@ -109,9 +108,8 @@ def test_fused_pair_route(dtype, C, F, route):
 def test_fused_pair_wrappers_launch_their_route(monkeypatch, dtype, C, F):
     """With the launches recorded in place of the card: conv3d_same_na and
     conv3d_wgrad_na pass their statistics and act to the tensor-core
-    launchers on that route, on the TF32 route to the TF32 forward and the
-    CUDA-core wgrad, to the CUDA-core ones otherwise, and launch nothing
-    else."""
+    launchers on that route, on the TF32 route to the TF32 forward and
+    wgrad, to the CUDA-core ones otherwise, and launch nothing else."""
     calls = []
 
     def record(name):
@@ -125,7 +123,7 @@ def test_fused_pair_wrappers_launch_their_route(monkeypatch, dtype, C, F):
         return launch
 
     for fn in ("_launch_fwd", "_launch_fwd_tc", "_launch_fwd_tf32",
-               "_launch_wgrad", "_launch_wgrad_tc"):
+               "_launch_wgrad", "_launch_wgrad_tc", "_launch_wgrad_tf32"):
         monkeypatch.setattr(conv3d, fn, record(fn))
     monkeypatch.setattr(conv3d._backend, "uses_kernels", lambda t: True)
     x = torch.zeros(1, 2, 3, 4, C, dtype=dtype)
@@ -138,7 +136,7 @@ def test_fused_pair_wrappers_launch_their_route(monkeypatch, dtype, C, F):
         conv3d.TENSOR_CORE: [("_launch_fwd_tc", "conv3d_same_na_fwd_tc"),
                              ("_launch_wgrad_tc", None)],
         conv3d.TF32X3: [("_launch_fwd_tf32", "conv3d_same_na_fwd_tf32"),
-                        ("_launch_wgrad", None)],
+                        ("_launch_wgrad_tf32", None)],
         conv3d.CUDA_CORE: [("_launch_fwd", "conv3d_same_na_fwd"),
                            ("_launch_wgrad", None)],
     }[conv3d.conv3d_route(dtype, C, F)]

@@ -101,7 +101,7 @@ def test_cpu_calls_leave_launch_counters_at_zero():
         "conv3d_same_na_fwd_tc": 0, "conv3d_wgrad_na_tc": 0,
         "conv3d_same_fwd_tf32": 0, "conv3d_dgrad_tf32": 0,
         "conv3d_same_na_fwd_tf32": 0, "conv3d_wgrad_tf32": 0,
-        "conv2d_same_fwd": 0, "conv2d_dgrad": 0, "conv2d_wgrad": 0,
+        "conv3d_wgrad_na_tf32": 0, "conv2d_same_fwd": 0, "conv2d_dgrad": 0, "conv2d_wgrad": 0,
         "conv2d_same_fwd_tc": 0, "conv2d_dgrad_tc": 0, "conv2d_wgrad_tc": 0,
         "conv2d_same_fwd_tf32": 0, "conv2d_dgrad_tf32": 0,
         "conv2d_wgrad_tf32": 0, "window_attention": 0, "probe_copy_scale": 0, "probe_dot_t": 0,
@@ -164,6 +164,8 @@ def test_build_command_targets_sm90a_from_repo_sources():
     assert {"conv2d.cu", "conv2d_tc.cu", "conv2d_wgrad_tc.cu", "conv3d.cu",
             "conv3d_tc.cu", "conv3d_wgrad_tc.cu", "conv3d_na_tc.cu",
             "conv3d_wgrad_na_tc.cu", "conv3d_tf32.cu", "conv3d_wgrad_tf32.cu",
+            "conv3d_wgrad_na_tf32.cu", "conv3d_wgrad.cu",
+            "conv3d_wgrad_na.cu",
             "conv2d_tf32.cu", "conv2d_wgrad_tf32.cu", "fused_norm.cu",
             "probes.cu", "window_attention.cu"} <= srcs
     assert all(_build.CSRC in p.parents for p in _build.sources())
@@ -172,7 +174,8 @@ def test_build_command_targets_sm90a_from_repo_sources():
         "conv3d_same_fwd", "conv3d_wgrad", "conv3d_same_na_fwd",
         "conv3d_wgrad_na", "conv3d_same_fwd_tc", "conv3d_wgrad_tc",
         "conv3d_same_na_fwd_tc", "conv3d_wgrad_na_tc", "conv3d_same_fwd_tf32",
-        "conv3d_same_na_fwd_tf32", "conv3d_wgrad_tf32", "conv2d_same_fwd",
+        "conv3d_same_na_fwd_tf32", "conv3d_wgrad_tf32",
+        "conv3d_wgrad_na_tf32", "conv2d_same_fwd",
         "conv2d_wgrad",
         "conv2d_same_fwd_tc",
         "conv2d_wgrad_tc", "conv2d_same_fwd_tf32", "conv2d_wgrad_tf32",
