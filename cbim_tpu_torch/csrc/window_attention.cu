@@ -42,9 +42,12 @@
 //   NaN in hi); each warp splits its q rows in registers once.  S = Q K^T is
 //   three m16n8k8 passes (q_lo k_hi, q_hi k_lo, q_hi k_hi; the dropped
 //   q_lo k_lo is 2^-22 of q k) over K = D, and O += P V three passes with P
-//   split in registers.  smem: 4 Np D 4 bytes (176 KB at N = 343, D = 32);
-//   the wrapper refuses N and D past 227 KB (N = 512 at D = 32) rather than
-//   stream the keys.
+//   split in registers.  smem: 4 Np D 4 bytes (176 KB at N = 343, D = 32).
+//   Where those planes pass 227 KB (N = 512 at D = 32: 264 KB), the
+//   wrapper picks the split-on-load staging: K and V as fp32 values (130
+//   KB there), each fragment split by the lane that loads it, which gives
+//   the same hi and lo, so the same sums; the split then runs once per
+//   m-tile a block walks instead of once per block.
 // - bf16: m16n8k16 with bf16 q, k, v as stored and fp32 sums; P is rounded
 //   to bf16 for P V (a relative error of 2^-9 in each weight: about 1e-3 of
 //   max|o| at the Swin shapes in the CPU model, against the 2^-6 the
@@ -237,9 +240,12 @@ __device__ __forceinline__ void scores(float s[4][4], const float* b0,
 
 // -------------------------------------------------------------- fp32 3xTF32
 
-// smem: K hi, K lo, V hi, V lo (each Np x D fp32), region ids [Np].
+// smem: K hi, K lo, V hi, V lo (each Np x D fp32), region ids [Np]; with
+// SPLIT_ON_LOAD K and V as fp32 values (each Np x D), region ids [Np], and
+// every fragment split into hi and lo by the lane that loads it (split_tf32:
+// the same hi and lo as the planes hold, so the same arithmetic).
 // grid.x = B * H ((window, head), head fastest); blockDim = 32 x warps.
-template <int D, bool MASKED, int WARPS, int MINB>
+template <int D, bool MASKED, bool SPLIT_ON_LOAD, int WARPS, int MINB>
 __global__ void __launch_bounds__(WARPS * 32, MINB)
 window_attention_tf32_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
@@ -251,18 +257,18 @@ window_attention_tf32_kernel(const float* __restrict__ q,
                              long long osb, long long osh, long long osn,
                              float sscale) {
   extern __shared__ __align__(128) uint8_t smem[];
+  constexpr int kPlanes = SPLIT_ON_LOAD ? 1 : 2;  // planes of K, of V
   const unsigned plane = (unsigned)Np * D * 4;
-  const unsigned khi = smem_u32(smem), vhi = khi + 2 * plane;
-  int* rs = reinterpret_cast<int*>(smem + 4 * plane);
+  const unsigned khi = smem_u32(smem), vhi = khi + kPlanes * plane;
+  int* rs = reinterpret_cast<int*>(smem + 2 * kPlanes * plane);
   const int h = blockIdx.x % H;
   const long long b = blockIdx.x / H;
   const long long in_off = b * sb + (long long)h * sh;
-  stage_kv<float, D>(k, v, MASKED ? region : nullptr,
-                                             rs, khi, vhi, in_off, sn, N, Np,
-                                             b % nW);
+  stage_kv<float, D>(k, v, MASKED ? region : nullptr, rs, khi, vhi, in_off,
+                     sn, N, Np, b % nW);
   // the split, once: hi in place, lo one plane on (K's after K hi, V's
   // after V hi)
-  {
+  if constexpr (!SPLIT_ON_LOAD) {
     const int n = (int)(plane / 16);
     for (int e = threadIdx.x; e < 2 * n; e += blockDim.x) {
       const unsigned at = (e < n ? khi : vhi - 16 * n) + 16 * e;
@@ -343,8 +349,16 @@ window_attention_tf32_kernel(const float* __restrict__ q,
 #pragma unroll
         for (int u = 0; u < D / 16; ++u) {
           const unsigned at = khi + f32_off<D>(key, (D / 16) * t + u);
-          lds_v4(at, kh + 4 * u);
-          lds_v4(at + plane, kl + 4 * u);
+          if constexpr (SPLIT_ON_LOAD) {
+            unsigned x[4];
+            lds_v4(at, x);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              split_tf32(x[e], kh[4 * u + e], kl[4 * u + e]);
+          } else {
+            lds_v4(at, kh + 4 * u);
+            lds_v4(at + plane, kl + 4 * u);
+          }
         }
         // the small products first, from zeros, then the large one
 #pragma unroll
@@ -396,11 +410,16 @@ window_attention_tf32_kernel(const float* __restrict__ q,
             const unsigned at =
                 vhi + f32_off<D>(key + r, g >> 1) + 8 * (g & 1);
             lds_v2(at, vh[r]);
-            lds_v2(at + plane, vl[r]);
+            if constexpr (!SPLIT_ON_LOAD) lds_v2(at + plane, vl[r]);
           } else {
             const unsigned at = vhi + f32_off<D>(key + r, g);
             lds_v4(at, vh[r]);
-            lds_v4(at + plane, vl[r]);
+            if constexpr (!SPLIT_ON_LOAD) lds_v4(at + plane, vl[r]);
+          }
+          if constexpr (SPLIT_ON_LOAD) {
+#pragma unroll
+            for (int i = 0; i < KS; ++i)
+              split_tf32(vh[r][i], vh[r][i], vl[r][i]);
           }
         }
         float (*pv)[4] = pvs[j % kPvSets];
@@ -633,7 +652,8 @@ base2_bias_kernel(const float* __restrict__ rel_bias, float* __restrict__ b2,
 // warps per block and blocks per SM the launch bounds ask for: 8 warps, and
 // at D = 16 two blocks an SM in fp32 (92 KB of staged planes each at N =
 // 343) and three in bf16 (SwinUNETR's last stage, 324 blocks, then fits
-// one wave); fp32 at D = 32 takes 176 KB, one block, of 12 warps
+// one wave); fp32 at D = 32 takes 176 KB, one block, of 12 warps (split on
+// load: 130 KB at N = 512, still one block, and the same 12 warps)
 template <typename T, int D>
 struct Shape {
   static constexpr bool kF32 = sizeof(T) == 4;
@@ -643,15 +663,16 @@ struct Shape {
   static constexpr int kParts = kF32 ? 2 : 1;  // hi and lo planes in fp32
 };
 
-// The bytes a block stages: K and V (fp32: hi and lo planes of each) and
-// the region ids, 2 kParts Np D sizeof(T) + 4 Np, at most kMaxSmem (an
-// H100 block's dynamic shared memory after opt-in).  The wrapper's
-// kernel_smem_bytes (ops/kernels/window_attention.py) is this formula and
-// refuses a larger window with an error before any launch; the check in
-// launch only guards it.
+// The bytes a block stages: K and V (fp32: hi and lo planes of each, or,
+// split on load, the values) and the region ids, 2 parts Np D sizeof(T) +
+// 4 Np, at most kMaxSmem (an H100 block's dynamic shared memory after
+// opt-in).  The wrapper's kernel_smem_bytes (ops/kernels/window_attention.py)
+// is this formula, and its tf32_split_on_load chooses the fp32 staging:
+// planes where they fit, else the values (N = 512 at D = 32: 264 KB of
+// planes, 130 KB of values).  The check in launch only guards the wrapper's.
 constexpr size_t kMaxSmem = 227 * 1024;
 
-template <typename T, int D, bool MASKED>
+template <typename T, int D, bool MASKED, bool SPLIT_ON_LOAD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* bias2, const int* region, void* o, int B,
                    int H, int N, int Np, int nW, long long sb, long long sh,
@@ -661,13 +682,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const long long blocks = (long long)B * H;
   const int m_tiles = (N + 15) / 16;
   const int warps = m_tiles < S::kWarps ? m_tiles : S::kWarps;
-  const size_t smem =
-      2 * S::kParts * (size_t)Np * D * sizeof(T) + (size_t)Np * 4;
+  const int parts = SPLIT_ON_LOAD ? 1 : S::kParts;
+  const size_t smem = 2 * parts * (size_t)Np * D * sizeof(T) + (size_t)Np * 4;
   if (blocks >= (1LL << 31) || smem > kMaxSmem) return cudaErrorInvalidValue;
   constexpr int W = S::kWarps, MB = S::kMinBlocks;
   const void* kernel;
   if constexpr (S::kF32)
-    kernel = (const void*)window_attention_tf32_kernel<D, MASKED, W, MB>;
+    kernel = (const void*)
+        window_attention_tf32_kernel<D, MASKED, SPLIT_ON_LOAD, W, MB>;
   else
     kernel = (const void*)window_attention_bf16_kernel<D, MASKED, W, MB>;
   if (smem > 48 * 1024) {
@@ -677,7 +699,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
   const float sscale = kLog2e / sqrtf((float)D);
   if constexpr (S::kF32)
-    window_attention_tf32_kernel<D, MASKED, W, MB>
+    window_attention_tf32_kernel<D, MASKED, SPLIT_ON_LOAD, W, MB>
         <<<(unsigned)blocks, warps * 32, smem, stream>>>(
             static_cast<const float*>(q), static_cast<const float*>(k),
             static_cast<const float*>(v), bias2, region,
@@ -694,31 +716,42 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the mask and the fp32 staging as template arguments (bf16 stages its
+// values and takes no split)
 template <typename T, int D>
-cudaError_t launch_mask(const void* q, const void* k, const void* v,
-                        const float* bias2, const int* region, void* o, int B,
-                        int H, int N, int Np, int nW, long long sb,
-                        long long sh, long long sn, long long osb,
-                        long long osh, long long osn, cudaStream_t stream) {
-  if (region != nullptr)
-    return launch<T, D, true>(q, k, v, bias2, region, o, B, H, N, Np, nW, sb,
-                              sh, sn, osb, osh, osn, stream);
-  return launch<T, D, false>(q, k, v, bias2, region, o, B, H, N, Np, nW, sb,
-                             sh, sn, osb, osh, osn, stream);
+cudaError_t launch_variant(const void* q, const void* k, const void* v,
+                           const float* bias2, const int* region, void* o,
+                           int B, int H, int N, int Np, int nW, bool split,
+                           long long sb, long long sh, long long sn,
+                           long long osb, long long osh, long long osn,
+                           cudaStream_t stream) {
+  const bool m = region != nullptr;
+  if constexpr (sizeof(T) == 4) {
+    if (split)
+      return (m ? launch<T, D, true, true> : launch<T, D, false, true>)(
+          q, k, v, bias2, region, o, B, H, N, Np, nW, sb, sh, sn, osb, osh,
+          osn, stream);
+  } else {
+    if (split) return cudaErrorInvalidValue;
+  }
+  return (m ? launch<T, D, true, false> : launch<T, D, false, false>)(
+      q, k, v, bias2, region, o, B, H, N, Np, nW, sb, sh, sn, osb, osh, osn,
+      stream);
 }
 
 template <typename T>
 cudaError_t launch_dim(const void* q, const void* k, const void* v,
                        const float* bias2, const int* region, void* o, int B,
-                       int H, int N, int Np, int D, int nW, long long sb,
-                       long long sh, long long sn, long long osb,
-                       long long osh, long long osn, cudaStream_t stream) {
+                       int H, int N, int Np, int D, int nW, bool split,
+                       long long sb, long long sh, long long sn,
+                       long long osb, long long osh, long long osn,
+                       cudaStream_t stream) {
   if (D == 16)
-    return launch_mask<T, 16>(q, k, v, bias2, region, o, B, H, N, Np, nW, sb,
-                              sh, sn, osb, osh, osn, stream);
+    return launch_variant<T, 16>(q, k, v, bias2, region, o, B, H, N, Np, nW,
+                                 split, sb, sh, sn, osb, osh, osn, stream);
   if (D == 32)
-    return launch_mask<T, 32>(q, k, v, bias2, region, o, B, H, N, Np, nW, sb,
-                              sh, sn, osb, osh, osn, stream);
+    return launch_variant<T, 32>(q, k, v, bias2, region, o, B, H, N, Np, nW,
+                                 split, sb, sh, sn, osb, osh, osn, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -731,14 +764,17 @@ cudaError_t launch_dim(const void* q, const void* k, const void* v,
 // (rsh, rsi, rsj); bias2: float32 scratch of H * Np * Np values (16-byte
 // aligned), which a first kernel fills with the base-2, padded bias
 // (above), Np = N rounded up to 32; region: int32 [nW, N] or NULL (no
-// shift mask), B a multiple of nW.  D is 16 or 32.
+// shift mask), B a multiple of nW.  D is 16 or 32.  split_on_load (fp32
+// only): stage K and V as values and split each fragment as it is loaded,
+// instead of the TF32 hi and lo planes.
 extern "C" int window_attention(const void* q, const void* k, const void* v,
                                 const void* rel_bias, const void* region,
                                 void* bias2, void* o, int dtype, int B, int H,
-                                int N, int Np, int D, int nW, long long sb,
-                                long long sh, long long sn, long long rsh,
-                                long long rsi, long long rsj, long long osb,
-                                long long osh, long long osn, void* stream) {
+                                int N, int Np, int D, int nW,
+                                int split_on_load, long long sb, long long sh,
+                                long long sn, long long rsh, long long rsi,
+                                long long rsj, long long osb, long long osh,
+                                long long osn, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* bt = static_cast<float*>(bias2);
   const int* reg = static_cast<const int*>(region);
@@ -747,19 +783,20 @@ extern "C" int window_attention(const void* q, const void* k, const void* v,
       (uintptr_t)q % 16 != 0 || (uintptr_t)k % 16 != 0 ||
       (uintptr_t)v % 16 != 0 || (sb * elt) % 16 != 0 ||
       (sh * elt) % 16 != 0 || (sn * elt) % 16 != 0 ||
-      (uintptr_t)bias2 % 16 != 0)
+      (uintptr_t)bias2 % 16 != 0 || (split_on_load != 0 && dtype != 0))
     return (int)cudaErrorInvalidValue;
   if ((long long)H * Np >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   base2_bias_kernel<<<(unsigned)(H * Np), 128, 0, st>>>(
       static_cast<const float*>(rel_bias), bt, N, Np, rsh, rsi, rsj);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  const bool split = split_on_load != 0;
   if (dtype == 0)
-    err = launch_dim<float>(q, k, v, bt, reg, o, B, H, N, Np, D, nW, sb, sh,
-                            sn, osb, osh, osn, st);
+    err = launch_dim<float>(q, k, v, bt, reg, o, B, H, N, Np, D, nW, split,
+                            sb, sh, sn, osb, osh, osn, st);
   else if (dtype == 1)
     err = launch_dim<__nv_bfloat16>(q, k, v, bt, reg, o, B, H, N, Np, D, nW,
-                                    sb, sh, sn, osb, osh, osn, st);
+                                    split, sb, sh, sn, osb, osh, osn, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

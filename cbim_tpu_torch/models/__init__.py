@@ -1,8 +1,8 @@
 """Model factory (counterpart of ``cbim_tpu/models/__init__.py``).
 
-MedFormer-3D, MedFormer-2D and SwinUNETR (serving only) are ported; every
-other (model, dimension) raises ``NotImplementedError`` (the rest of the zoo
-is queued in ROADMAP.md).
+MedFormer-3D, MedFormer-2D, SwinUNETR and VT-UNet are ported, for serving
+and training; every other (model, dimension) raises
+``NotImplementedError`` (the rest of the zoo is queued in ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -36,7 +36,8 @@ def _norm_scales(v, n):
 
 
 #: the (dimension, model) pairs the port builds
-PORTED = (("3d", "medformer"), ("2d", "medformer"), ("3d", "swin_unetr"))
+PORTED = (("3d", "medformer"), ("2d", "medformer"), ("3d", "swin_unetr"),
+          ("3d", "vtunet"))
 
 
 def get_model(cfg, device="cuda", generator: torch.Generator | None = None,
@@ -58,16 +59,13 @@ def get_model(cfg, device="cuda", generator: torch.Generator | None = None,
     if (dim, name) not in PORTED:
         raise NotImplementedError(
             f"model {name!r} ({dim}) is not ported yet; the PyTorch port "
-            f"covers MedFormer-3D, MedFormer-2D and SwinUNETR serving (see "
+            f"covers MedFormer-3D, MedFormer-2D, SwinUNETR and VT-UNet (see "
             f"ROADMAP.md)")
-    if name == "swin_unetr" and train:
-        raise NotImplementedError(
-            "SwinUNETR training is not ported yet (ROADMAP.md, queue A: "
-            "SwinUNETR training; the window-attention kernel has no "
-            "backward)")
     device = get_device(device)
     if name == "swin_unetr":
         model = _swin_unetr(cfg)
+    elif name == "vtunet":
+        model = _vtunet(cfg)
     else:
         model = (_medformer2d if dim == "2d" else _medformer3d)(cfg)
     if generator is not None:
@@ -112,6 +110,19 @@ def _swin_unetr(cfg) -> nn.Module:
     return SwinUNETR(in_chan=cfg.in_chan, num_classes=cfg.classes,
                      img_size=tuple(cfg.window_size or cfg.training_size),
                      feature_size=cfg.base_chan)
+
+
+def _vtunet(cfg) -> nn.Module:
+    """The JAX factory's VTUNet: ``cfg.patch_size``, the model's defaults
+    for the rest (embedding 96, depths (2, 2, 2, 1), windows of 7, drop-path
+    rate 0.1); ``embed_dim`` and ``drop_path_rate`` are optional config
+    overrides (the small CPU and card checks)."""
+    from .vtunet import DROP_PATH_RATE, EMBED_DIM, VTUNet
+    rate = cfg.get("drop_path_rate")
+    return VTUNet(in_chan=cfg.in_chan, num_classes=cfg.classes,
+                  patch_size=tuple(cfg.patch_size),
+                  embed_dim=cfg.get("embed_dim") or EMBED_DIM,
+                  drop_path_rate=DROP_PATH_RATE if rate is None else rate)
 
 
 def _medformer3d(cfg) -> nn.Module:

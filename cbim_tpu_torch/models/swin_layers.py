@@ -7,16 +7,23 @@ memory, a view that copies nothing.  Window partitioning is reshape and
 permute; the relative-position index and the shifted-window region ids are
 numpy, built on the host once per padded shape and cached on the device.
 
-Every window attention goes through ``ops.kernels.window_attention`` (the
-CUDA kernel on the card, its plain version on the CPU).  The kernel takes
-the shift mask as region ids: :func:`compute_attn_mask` (the JAX package's
--100 matrix) is kept for the tests, which hold the two against each other.
+A window attention takes one of two routes, by the module's mode.  In eval
+mode (serving, and validation of the EMA model under ``inference_mode``)
+it goes through ``ops.kernels.window_attention`` (the CUDA kernel on the
+card, its plain version on the CPU), which takes the shift mask as region
+ids.  In training mode it is :func:`window_attention_train`, the JAX
+package's XLA path (einsum, bias, the -100 mask, fp32 softmax, einsum)
+under autograd: the kernel has no backward, nor has the TPU kernel it
+ports, and the JAX package trains every Swin model that way.
+:func:`compute_attn_mask` (the JAX package's -100 matrix) is kept for the
+tests, which hold it against the region ids.
 
 Ported: ``window_partition``/``window_reverse``, ``get_window_size``,
 ``relative_position_index``, ``compute_attn_mask``, ``WindowAttention``,
-``SwinBlock`` and ``PatchMergingLegacy``.  ``PatchMergingV2`` (SwinUnet)
-is not ported yet (ROADMAP.md).  Dropout and stochastic depth are not
-ported: the serving path runs without them.
+``SwinBlock``, ``PatchMergingLegacy`` and ``DropPath`` (stochastic depth,
+drawn from the train state's generator).  ``PatchMergingV2`` (SwinUnet) is
+not ported yet (ROADMAP.md); attention and projection dropout are not
+either: the ported recipes run without them.
 """
 
 from __future__ import annotations
@@ -127,6 +134,60 @@ def compute_attn_mask(spatial, window, shift) -> np.ndarray | None:
     return region_mask(torch.from_numpy(ids)).numpy()
 
 
+def window_attention_train(q, k, v, rel_bias, region=None) -> torch.Tensor:
+    """The training route of the window attention, the JAX package's XLA
+    path (``cbim_tpu/models/swin_layers.py`` ``WindowAttention``):
+    softmax(q k^T D^-1/2 + rel_bias - 100 [region_i != region_j]) v with
+    the scores and the softmax in fp32, the weights cast back to v's dtype
+    for the second einsum, all under autograd.  q, k, v: (B, H, N, D);
+    rel_bias (H, N, N); region int32 (nW, N) or None, window b % nW.  The
+    adds run in place on the fresh scores, so the forward holds one (B, H,
+    N, N) tensor beside the softmax's output, which autograd keeps."""
+    B, H, N, D = q.shape
+    s = torch.einsum("bhnd,bhmd->bhnm", q * D ** -0.5, k).float()
+    s += rel_bias.float()
+    if region is not None:
+        nW = region.shape[0]
+        s.view(B // nW, nW, H, N, N).add_(region_mask(region)[None, :, None])
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhnm,bhmd->bhnd", p, v)
+
+
+class DropPath(nn.Module):
+    """Batch-wise stochastic depth (``cbim_tpu/models/layers/convs.py``
+    ``DropPath``): in training mode with p > 0, ``x / (1 - p) * keep`` with
+    keep = u > p, one u ~ U(0, 1) per sample; the identity at p = 0 and in
+    eval mode.  u comes from ``generator``, a ``torch.Generator`` on the
+    model's device that the train state owns and seeds from the run's seed
+    (``training.train_state.create_train_state``); a training-mode call
+    with p > 0 and none raises."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = float(p)
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.p == 0.0 or not self.training:
+            return x
+        if self.generator is None:
+            raise RuntimeError(
+                "DropPath draws from the train state's generator: build the "
+                "state with training.train_state.create_train_state")
+        u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
+                       generator=self.generator, device=x.device)
+        return drop_path(x, self.p, u > self.p)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
+def drop_path(x: torch.Tensor, p: float, keep: torch.Tensor) -> torch.Tensor:
+    """The JAX package's formula under a given keep mask (bool, one entry a
+    sample, broadcast over the rest)."""
+    return x / (1.0 - p) * keep
+
+
 class WindowAttention(nn.Module):
     """W-MSA with relative position bias (MONAI names ``qkv``, ``proj``,
     ``relative_position_bias_table``).
@@ -152,15 +213,31 @@ class WindowAttention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 region: torch.Tensor | None = None) -> torch.Tensor:
-        """x: (windows, N, C); region: int32 (num_windows, N) or None."""
+        """x: (windows, N, C); region: int32 (num_windows, N) or None.  The
+        kernel in eval mode, :func:`window_attention_train` in training
+        mode."""
+        b, n, c = x.shape
+        q, k, v = self.qkv_views(x)
+        out = self.attend(q, k, v, self.rel_bias(n), region)
+        return self.proj(out.transpose(1, 2).reshape(b, n, c))
+
+    def qkv_views(self, x: torch.Tensor):
+        """(b, n, 3, h, hd) -> three (b, h, n, hd) views of one tensor."""
         b, n, c = x.shape
         h = self.num_heads
-        # (b, n, 3, h, hd) -> three (b, h, n, hd) views of one tensor
-        q, k, v = self.qkv(x).view(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
+        return self.qkv(x).view(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
+
+    def rel_bias(self, n: int) -> torch.Tensor:
+        """The (h, n, n) relative-position bias of an n-token window."""
         idx = self.relative_position_index[:n, :n].reshape(-1)
-        bias = self.relative_position_bias_table[idx].view(n, n, h)
-        out = window_attention(q, k, v, bias.permute(2, 0, 1), region)
-        return self.proj(out.transpose(1, 2).reshape(b, n, c))
+        return self.relative_position_bias_table[idx].view(
+            n, n, self.num_heads).permute(2, 0, 1)
+
+    def attend(self, q, k, v, rel_bias, region):
+        """The route of the module's mode: the kernel in eval mode,
+        :func:`window_attention_train` in training mode."""
+        fn = window_attention_train if self.training else window_attention
+        return fn(q, k, v, rel_bias, region)
 
 
 class Mlp(nn.Module):
@@ -175,22 +252,18 @@ class Mlp(nn.Module):
         return self.linear2(gelu(self.linear1(x)))
 
 
-class SwinBlock(nn.Module):
-    """One (shifted-)window transformer block on (B, *spatial, C):
-    ``norm1``, ``attn``, ``norm2``, ``mlp``.
+class ShiftedWindows(nn.Module):
+    """The window plumbing of the Swin blocks on (B, *spatial, C): zero
+    padding to whole windows (the padded tokens are attended to, not
+    masked, as in the reference), the cyclic shift, the partition and the
+    region ids of the shifted windows (cached per padded shape and device),
+    and the way back.  The window shrinks to the input extent, with no
+    shift along a shrunk axis (:func:`get_window_size`)."""
 
-    Zero padding to whole windows comes after ``norm1``, and the padded
-    tokens are attended to (not masked), as in the reference."""
-
-    def __init__(self, dim: int, num_heads: int, window_size: Sequence[int],
-                 shift_size: Sequence[int]):
+    def __init__(self, window_size: Sequence[int], shift_size: Sequence[int]):
         super().__init__()
         self.window_size = tuple(window_size)
         self.shift_size = tuple(shift_size)
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = WindowAttention(dim, num_heads, self.window_size)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim)
         self._regions: dict = {}
 
     def _region(self, padded, window, shift, device):
@@ -202,13 +275,12 @@ class SwinBlock(nn.Module):
                                   else torch.from_numpy(ids).to(device))
         return self._regions[key]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        nd = x.dim() - 2
-        spatial = tuple(x.shape[1:-1])
+    def partition(self, h: torch.Tensor):
+        """h -> (windows (num_windows * B, N, C), region ids or None, the
+        layout that :meth:`unpartition` undoes)."""
+        spatial = tuple(h.shape[1:-1])
         window, shift = get_window_size(spatial, self.window_size,
                                         self.shift_size)
-        dims = tuple(range(1, 1 + nd))
-        h = self.norm1(x)
         pads = [(-s) % w for s, w in zip(spatial, window)]
         if any(pads):
             # F.pad orders its pairs from the last axis (C) backwards
@@ -216,15 +288,39 @@ class SwinBlock(nn.Module):
                                   for p in (0, pad))])
         padded = tuple(h.shape[1:-1])
         if any(shift):
-            h = torch.roll(h, [-s for s in shift], dims=dims)
-        region = self._region(padded, window, shift, x.device)
-        wins = self.attn(window_partition(h, window), region)
+            h = torch.roll(h, [-s for s in shift],
+                           dims=tuple(range(1, 1 + len(spatial))))
+        region = self._region(padded, window, shift, h.device)
+        return (window_partition(h, window), region,
+                (spatial, padded, window, shift))
+
+    @staticmethod
+    def unpartition(wins: torch.Tensor, layout) -> torch.Tensor:
+        spatial, padded, window, shift = layout
         h = window_reverse(wins, window, padded)
         if any(shift):
-            h = torch.roll(h, list(shift), dims=dims)
-        if any(pads):
+            h = torch.roll(h, list(shift),
+                           dims=tuple(range(1, 1 + len(spatial))))
+        if padded != spatial:
             h = h[(slice(None), *(slice(0, s) for s in spatial))]
-        x = x + h
+        return h
+
+
+class SwinBlock(ShiftedWindows):
+    """One (shifted-)window transformer block on (B, *spatial, C):
+    ``norm1``, ``attn``, ``norm2``, ``mlp``; padding after ``norm1``."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: Sequence[int],
+                 shift_size: Sequence[int]):
+        super().__init__(window_size, shift_size)
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn = WindowAttention(dim, num_heads, self.window_size)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.mlp = Mlp(dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        wins, region, layout = self.partition(self.norm1(x))
+        x = x + self.unpartition(self.attn(wins, region), layout)
         return x + self.mlp(self.norm2(x))
 
 

@@ -8,10 +8,11 @@ them.
 
 The model takes NCDHW in ``channels_last_3d`` memory.  The backbone's token
 stages run on ``x.permute(0, 2, 3, 4, 1)`` of the patch embedding, a view
-in that layout; its five taps go back to the decoder as NCDHW views.  The
-six Swin blocks' window attentions run on the fused window-attention kernel
-(one launch each per forward).  Serving only: the kernel has no backward,
-and training SwinUNETR is not ported yet (ROADMAP.md).
+in that layout; its five taps go back to the decoder as NCDHW views.  In
+eval mode the six Swin blocks' window attentions run on the fused
+window-attention kernel (one launch each per forward); in training mode on
+``swin_layers.window_attention_train`` under autograd (the kernel has no
+backward), as the JAX package trains it.
 """
 
 from __future__ import annotations

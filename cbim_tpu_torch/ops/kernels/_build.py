@@ -101,10 +101,10 @@ SIGNATURES = {
                              _P],
     # the same as conv2d_wgrad_tc (fp32, TF32 tensor cores)
     "conv2d_wgrad_tf32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, rel_bias, region, bias2, o, dtype, B, H, N, Np, D, nW, sb,
-    # sh, sn, rsh, rsi, rsj, osb, osh, osn, stream
+    # q, k, v, rel_bias, region, bias2, o, dtype, B, H, N, Np, D, nW,
+    # split_on_load, sb, sh, sn, rsh, rsi, rsj, osb, osh, osn, stream
     "window_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
+                         _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
                          _P],
     # the probes (csrc/probes.cu, and the ladder in conv3d.cu)
     # x, y, n, vec, block, stream

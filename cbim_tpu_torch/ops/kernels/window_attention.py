@@ -101,14 +101,34 @@ def padded_keys(N: int) -> int:
     return -(-N // KEY_CHUNK) * KEY_CHUNK
 
 
-def kernel_smem_bytes(N: int, D: int, dtype: torch.dtype) -> int:
-    """The kernel's staged K and V (fp32: TF32 hi and lo planes of each;
-    bf16: the values) and region ids at N keys rounded up to the chunk:
-    the formula of ``csrc/window_attention.cu`` (its ``launch`` refuses
-    past ``_MAX_SMEM`` too, only as a guard of the wrapper's check)."""
+def kernel_smem_bytes(N: int, D: int, dtype: torch.dtype,
+                      split_on_load: bool | None = None) -> int:
+    """The kernel's staged K and V and region ids at N keys rounded up to
+    the chunk: in fp32 the TF32 hi and lo planes of each or, split on load,
+    the fp32 values (``split_on_load`` None: the staging
+    :func:`tf32_split_on_load` picks); in bf16 the values.  The formula of
+    ``csrc/window_attention.cu`` (its ``launch`` refuses past
+    ``_MAX_SMEM`` too, only as a guard of the wrapper's check)."""
     Np = padded_keys(N)
-    parts, size = (2, 4) if dtype == torch.float32 else (1, 2)
+    if split_on_load is None:
+        split_on_load = tf32_split_on_load(N, D, dtype)
+    parts, size = ((1 if split_on_load else 2), 4) \
+        if dtype == torch.float32 else (1, 2)
     return 2 * parts * Np * D * size + 4 * Np
+
+
+def tf32_split_on_load(N: int, D: int, dtype: torch.dtype) -> bool:
+    """The fp32 kernel's staging, by shape: the TF32 hi and lo planes of K
+    and V (each value split once per block) where they fit ``_MAX_SMEM``,
+    which keeps every window of N <= 448 at D = 32 (all of SwinUNETR's and
+    VT-UNet's) and of N <= 864 at D = 16 on them; past that, K and V as
+    fp32 values, each fragment split into the same hi and lo by the lane
+    that loads it (N = 512 at D = 32, nnFormer's stage 2: 264 KB of planes,
+    130 KB of values).  A route by shape, not a fallback: both compute
+    :func:`window_attention_tf32x3_plain`'s sums.  bf16 stages its values
+    and never splits."""
+    return (dtype == torch.float32
+            and kernel_smem_bytes(N, D, dtype, False) > _MAX_SMEM)
 
 
 def _check_kernel_view(q, k, v) -> None:
@@ -261,7 +281,8 @@ def window_attention(q, k, v, rel_bias, region=None) -> torch.Tensor:
                          f"got {D}")
     _check_kernel_view(q, k, v)
     Np = padded_keys(N)
-    if kernel_smem_bytes(N, D, q.dtype) > _MAX_SMEM:
+    split_on_load = tf32_split_on_load(N, D, q.dtype)
+    if kernel_smem_bytes(N, D, q.dtype, split_on_load) > _MAX_SMEM:
         raise ValueError(f"a window of N={N}, D={D} in {q.dtype} does not "
                          f"fit the kernel's shared memory "
                          f"({kernel_smem_bytes(N, D, q.dtype)} bytes)")
@@ -276,7 +297,8 @@ def window_attention(q, k, v, rel_bias, region=None) -> torch.Tensor:
                 rel_bias.data_ptr(),
                 None if region is None else region.data_ptr(),
                 bias2.data_ptr(), o.data_ptr(), _backend.dtype_code(q), B, H,
-                N, Np, D, nW, *q.stride()[:3], *rel_bias.stride(),
+                N, Np, D, nW, int(split_on_load), *q.stride()[:3],
+                *rel_bias.stride(),
                 *o.stride()[:3], device=q.device)
     launches["window_attention"] += 1
     return o

@@ -22,30 +22,48 @@ import torch
 from torch import nn
 
 from ..config import compute_dtype
+from ..models.swin_layers import DropPath
 from ..ops.losses import deep_supervision_loss
 from .optim import get_optimizer, set_lr
 
 
 class TrainState:
-    """The live model, its optimizer, the EMA copy (None without EMA) and
-    the number of steps taken."""
+    """The live model, its optimizer, the EMA copy (None without EMA), the
+    number of steps taken, and the generator of the model's stochastic
+    depth (None when it has none)."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
-                 ema: nn.Module | None = None, step: int = 0):
+                 ema: nn.Module | None = None, step: int = 0,
+                 generator: torch.Generator | None = None):
         self.model = model
         self.optimizer = optimizer
         self.ema = ema
         self.step = step
+        self.generator = generator
 
 
-def create_train_state(model: nn.Module, cfg) -> TrainState:
+def create_train_state(model: nn.Module, cfg,
+                       seed: int | None = None) -> TrainState:
     """Optimizer over every parameter, and an EMA copy (eval mode) when
-    ``cfg.ema``."""
+    ``cfg.ema``.  A model with stochastic depth (``DropPath`` with p > 0)
+    draws its keep masks from one ``torch.Generator`` on the model's
+    device, which the state owns, seeded from ``seed`` (default: the run's
+    ``split_seed``, the JAX step's dropout seed) as the input pipeline
+    seeds its own; the EMA copy evaluates in eval mode and draws none."""
     opt = get_optimizer(cfg, model.parameters())
     ema = None
     if cfg.get("ema", False):
         ema = copy.deepcopy(model).requires_grad_(False).eval()
-    return TrainState(model, opt, ema)
+    drops = [m for m in model.modules() if isinstance(m, DropPath) and m.p]
+    generator = None
+    if drops:
+        if seed is None:
+            seed = int(cfg.get("split_seed", 0) or 0)
+        device = next(model.parameters()).device
+        generator = torch.Generator(device=device).manual_seed(seed)
+        for m in drops:
+            m.generator = generator
+    return TrainState(model, opt, ema, generator=generator)
 
 
 def make_train_step(model: nn.Module, opt: torch.optim.Optimizer, cfg):

@@ -63,7 +63,8 @@ def train_net(cfg, fold_idx: int = 0, device="cuda"):
     model = get_model(cfg, device=device, train=True,
                       generator=torch.Generator().manual_seed(
                           cfg.split_seed + 1000 * fold_idx))
-    state = create_train_state(model, cfg)
+    state = create_train_state(model, cfg,
+                               seed=cfg.split_seed + fold_idx)
     n_params = sum(p.numel() for p in model.parameters())
     logging.info("Created Model (%s, %.2fM params)", cfg.model, n_params / 1e6)
     train_step = make_train_step(model, state.optimizer, cfg)

@@ -1,7 +1,9 @@
-"""Flax MedFormer and SwinUNETR variables -> this port's state_dict.
+"""Flax MedFormer, SwinUNETR and VT-UNet variables -> this port's
+state_dict.
 
 The exact inverses of ``cbim_tpu.utils.torch_import.import_medformer3d``,
-``import_medformer2d`` and ``import_swin_unetr``: the same walks over the
+``import_medformer2d``, ``import_swin_unetr`` and ``import_vtunet``: the
+same walks over the
 tree, with each layout transform undone
 
     conv:           (*k, I, O) -> (O, I, *k)
@@ -31,6 +33,7 @@ import torch
 
 from ..models import DEFAULT_CHAN_NUM
 from ..models.swin_unetr import DEPTHS as SWIN_DEPTHS
+from ..models.vtunet import DEPTHS as VTUNET_DEPTHS
 
 
 def _bmha_perm(heads: int, dim_head: int) -> np.ndarray:
@@ -219,6 +222,20 @@ class _Walk:
         self.dense((*path, "Dense_0"), f"{tkey}.mlp.linear1")
         self.dense((*path, "Dense_1"), f"{tkey}.mlp.linear2")
 
+    def swin_block_vt(self, path, tkey):
+        """A VT-UNet SwinBlockVT: norm1, WindowAttentionVT_0 (Dense_0 the
+        qkv, Dense_1 the proj), norm2, mlp_fc1, mlp_fc2 -> ``tkey``.{norm1,
+        attn.*, norm2, mlp.fc1, mlp.fc2}."""
+        attn = (*path, "WindowAttentionVT_0")
+        self.layer_norm((*path, "norm1"), f"{tkey}.norm1")
+        self.dense((*attn, "Dense_0"), f"{tkey}.attn.qkv")
+        self.raw((*attn, "relative_position_bias_table"),
+                 f"{tkey}.attn.relative_position_bias_table")
+        self.dense((*attn, "Dense_1"), f"{tkey}.attn.proj")
+        self.layer_norm((*path, "norm2"), f"{tkey}.norm2")
+        self.dense((*path, "mlp_fc1"), f"{tkey}.mlp.fc1")
+        self.dense((*path, "mlp_fc2"), f"{tkey}.mlp.fc2")
+
     def patch_merging(self, path, tkey):
         self.layer_norm((*path, "LayerNorm_0"), f"{tkey}.norm")
         self.dense((*path, "Dense_0"), f"{tkey}.reduction", bias=False)
@@ -379,4 +396,49 @@ def swin_unetr_state_dict_from_jax(params) -> dict:
         t.unet_res_block((f"UnetResBlock_{i + 5}",), f"{name}.conv_block")
     t.conv(("Conv_0", "kernel"), "out.conv.weight")
     t.raw(("Conv_0", "bias"), "out.conv.bias")
+    return t.state_dict()
+
+
+def vtunet_state_dict_from_jax(params, depths=VTUNET_DEPTHS) -> dict:
+    """Flax VTUNet params (nested dicts of arrays) -> state_dict, with the
+    reference's names (the keys ``import_vtunet`` reads).  Flax numbers the
+    blocks encoder first, then decoder stage by stage; the decoder's stage
+    ``inx`` (1..) decodes encoder stage ``len(depths) - 1 - inx``."""
+    t = _Walk(params)
+    pre = "swin_unet"
+    t.conv(("Conv_0", "kernel"), f"{pre}.patch_embed.proj.weight")
+    t.raw(("Conv_0", "bias"), f"{pre}.patch_embed.proj.bias")
+    t.layer_norm(("LayerNorm_0",), f"{pre}.patch_embed.norm")
+
+    bi = 0
+    for i, depth in enumerate(depths):
+        for b in range(depth):
+            t.swin_block_vt((f"SwinBlockVT_{bi}",),
+                            f"{pre}.layers.{i}.blocks.{b}")
+            bi += 1
+        if i < len(depths) - 1:
+            pm = (f"PatchMergingHW_{i}",)
+            down = f"{pre}.layers.{i}.downsample"
+            t.layer_norm((*pm, "LayerNorm_0"), f"{down}.norm")
+            t.dense((*pm, "Dense_0"), f"{down}.reduction", bias=False)
+    t.layer_norm(("LayerNorm_1",), f"{pre}.norm")
+    t.dense(("PatchExpandHW_0", "Dense_0"), f"{pre}.layers_up.0.expand",
+            bias=False)
+    t.layer_norm(("PatchExpandHW_0", "LayerNorm_0"), f"{pre}.layers_up.0.norm")
+    for inx in range(1, len(depths)):
+        t.dense((f"Dense_{inx - 1}",), f"{pre}.concat_back_dim.{inx}",
+                bias=False)
+        for b in range(depths[len(depths) - 1 - inx]):
+            t.swin_block_vt((f"SwinBlockVT_{bi}",),
+                            f"{pre}.layers_up.{inx}.blocks.{b}")
+            bi += 1
+        if inx < len(depths) - 1:
+            pe = (f"PatchExpandHW_{inx}",)
+            up = f"{pre}.layers_up.{inx}.upsample"
+            t.dense((*pe, "Dense_0"), f"{up}.expand", bias=False)
+            t.layer_norm((*pe, "LayerNorm_0"), f"{up}.norm")
+    t.layer_norm(("LayerNorm_2",), f"{pre}.norm_up")
+    t.dense(("FinalPatchExpand_0", "Dense_0"), f"{pre}.up.expand", bias=False)
+    t.layer_norm(("FinalPatchExpand_0", "LayerNorm_0"), f"{pre}.up.norm")
+    t.conv(("Conv_1", "kernel"), f"{pre}.output.weight")
     return t.state_dict()

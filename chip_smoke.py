@@ -10,7 +10,8 @@ Phases, each printing its result; any failure raises and exits non-zero:
 3. kernels vs their plain PyTorch versions on the card, at the serving and
    training paths' shapes, fp32 and bf16, forward and backward, the 3^3
    and the 3x3 conv families: max error against stated tolerances, and
-   each kernel's time beside its plain version's and the one PyTorch call
+   each kernel's time (the 3^3 backward's at the record's case only) beside
+   its plain version's and the one PyTorch call
    that computes the same function (cuDNN's conv or weight gradient); the
    3^3 conv cases assert their route (``conv3d_route``: at widths of
    multiples of 8 bf16 takes the tensor-core kernels ``conv3d_same_fwd_tc``
@@ -28,11 +29,13 @@ Phases, each printing its result; any failure raises and exits non-zero:
    rest); and
    cuDNN's depthwise 3x3 conv in both memory formats, the layout choice of
    MedFormer-2D's grouped convs; the window-attention kernel (tensor
-   cores: 3xTF32 in fp32, bf16 mma in bf16) at the Swin zoo's seven
-   shapes, with and without a shifted-window mask, beside
-   ``F.scaled_dot_product_attention`` on the same bias, in fp32 its error
-   against an fp64 evaluation at most twice SDPA fp32's, SwinUNETR's three
-   shapes timed; the fused preact conv's kernels at the 3^3 conv shapes,
+   cores: 3xTF32 in fp32, bf16 mma in bf16) at the Swin zoo's shapes
+   (nnFormer's N = 512 at D = 32 on the fp32 split-on-load staging, and
+   VT-UNet's first stage at the BCV recipe among them), with and without
+   a shifted-window mask, beside ``F.scaled_dot_product_attention`` on the
+   same bias, in fp32 its error against an fp64 evaluation at most twice
+   SDPA fp32's, SwinUNETR's three shapes, the split-on-load shape and
+   VT-UNet's timed; the fused preact conv's kernels at the 3^3 conv shapes,
    relu and gelu, on the route of ``conv3d_route`` (at widths of
    multiples of 8 bf16: ``conv3d_same_na_fwd_tc`` and
    ``conv3d_wgrad_na_tc``, fp32: ``conv3d_same_na_fwd_tf32`` and
@@ -69,12 +72,20 @@ Phases, each printing its result; any failure raises and exits non-zero:
    on, as phases 7 and 8 (the 3x3 kernel route is opt-in, as the JAX
    package's ``CBIM_PLCONV2D=1``): fp32 on the 3xTF32 3x3 kernels only;
 4d. a small SwinUNETR (feature size 48, on 2 x 64^3 and 1 x 32^3), card
-   (window-attention kernel) vs CPU (plain version): softmax outputs;
+   (window-attention kernel) vs CPU (plain version): softmax outputs; then
+   one fp32 train step on 2 x 32^3, card vs CPU, the loss and every
+   gradient compared, with no window-attention launch (training mode takes
+   the autograd route);
 4e. ``validate`` (``cbim_tpu_torch.training.validation``) of phase 4's
    small MedFormer-3D, same seeded weights, on one 72 x 64 x 80
    Synthetic3D test volume by 64^3 sliding window, card (fp32: the TF32
    forwards) vs CPU: the label maps agree on at least 99.9 % of voxels and
    each class's Dice within 1e-3;
+4f. a small VT-UNet (embedding 96, head dim 32, on 2 x 32 x 64 x 64),
+   card vs CPU: the eval softmax through the kernel, 19 launches (7
+   encoder blocks, 6 decoder blocks attending to themselves and to the
+   encoder's cache); then one fp32 train step with ``drop_path_rate`` 0,
+   the loss and every gradient compared, no window-attention launch;
 5. serving: the full-width AMOS-CT MedFormer-3D with seeded random weights
    serves two synthetic NIfTI requests through
    ``cbim_tpu_torch.prediction.main``; every forward kernel must have
@@ -82,9 +93,9 @@ Phases, each printing its result; any failure raises and exits non-zero:
    a forward, and no other 3^3 kernel (the CUDA-core fp32 forward launches
    on no full-width path: phase 3 holds it at every conv case and the
    ragged 20 -> 36 takes it, phase 10's ladder is its code);
-5b. the same requests with ``conv_na: true``: every conv of the BasicBlocks
-   is one ``conv3d_same_na_fwd_tf32`` launch, 20 a forward, and no other
-   3^3 kernel launches; the label maps agree with phase 5's;
+5b. the first request again with ``conv_na: true``: every conv of the
+   BasicBlocks is one ``conv3d_same_na_fwd_tf32`` launch, 20 a forward,
+   and no other 3^3 kernel launches; the label map agrees with phase 5's;
 6. training: the flagship recipe (``bench.py``: full-width MedFormer-3D,
    GELU, 128^3 crops, batch 2, bf16 autocast, remat of every stage, AdamW,
    EMA) trains a few steps on the synthetic corpus through
@@ -160,6 +171,18 @@ Phases, each printing its result; any failure raises and exits non-zero:
    ``cbim_tpu_torch.prediction.main --model swin_unetr``; the window-
    attention kernel must have launched once per Swin block of every
    forward, 6 per forward;
+9t. the BCV SwinUNETR recipe as a user trains it
+   (``configs/bcv/swin_unetr_3d.yaml`` as shipped: 128^3 crops, fp32, the
+   BCV augmentation) through ``cbim_tpu_torch.train.main --model
+   swin_unetr`` at batch 2 for 4 steps on 5 HU-like NIfTI cases the
+   script writes; every loss finite, no window-attention launch in a
+   step; sec/step and peak memory;
+9u. the full-width BCV VT-UNet (``configs/bcv/vtunet_3d.yaml``: patch 4,
+   64 x 128 x 128 window, fp32) with seeded random weights serves phase
+   5's two requests; 19 window-attention launches per forward;
+9ut. the BCV VT-UNet recipe as shipped (stochastic depth 0.1) trains 4
+   steps at batch 2 on phase 9t's cases: every loss finite, DropPath drew
+   its masks, no window-attention launch in a step;
 10. the probes (``cbim_tpu_torch.tools``, the port of the JAX package's TPU
    probes in ``tools/``): ``probe_bandwidth``, ``probe_lhst_dot`` and
    ``probe_conv_dissect`` run at their full sizes, each of the four probe
@@ -172,8 +195,8 @@ Phases, each printing its result; any failure raises and exits non-zero:
    timed beside the rungs), with its time, bound, plain and library
    times.
 
-Each of phases 4e and 5-10 (5b, 6b, 6v, 6k, 6kn, 6a, 7b, 8b, 8f and 8v
-included) sets
+Each of phases 4e and 5-10 (5b, 6b, 6v, 6k, 6kn, 6a, 7b, 8b, 8f, 8v, 9t,
+9u and 9ut included) sets
 the launch counters to 0 just before it and reads them just after.  The
 last three
 lines are the card's name and power limit, the kernels' JSON record
@@ -361,9 +384,10 @@ NAN2D_AT = (1, 11, 15)
 #: wgrad each a training step: no remat in 2D)
 ACDC_CONVS = 14
 #: depthwise 3x3 convs of MedFormer-2D's training step (B, H, W, C): the
-#: B-MHA projections and MBConvs of down2/up2, down3/up1 and down4
-DEPTHWISE2D_CASES = [(32, 64, 64, 128), (32, 64, 64, 256), (32, 32, 32, 512),
-                     (32, 16, 16, 1024)]
+#: B-MHA projections and MBConvs of down2/up2 and down4 (the widest and
+#: the narrowest map; down3/up1's two middle shapes were dropped to keep
+#: the script within its time)
+DEPTHWISE2D_CASES = [(32, 64, 64, 128), (32, 16, 16, 1024)]
 
 #: window-attention shapes (B, H, N, D) of the Swin zoo (the JAX kernel's
 #: header, window_attention.py:21-28): SwinUNETR's three stages of one
@@ -376,13 +400,24 @@ WA_CASES = [((1000, 3, 343, 16), (70, 70, 70), (7, 7, 7)),
             ((343, 3, 343, 32), (49, 49, 49), (7, 7, 7)),
             ((64, 6, 343, 32), (28, 28, 28), (7, 7, 7)),
             ((200, 6, 64, 16), (20, 20, 32), (4, 4, 4)),
-            ((16, 24, 512, 16), (16, 16, 32), (8, 8, 8))]
+            ((16, 24, 512, 16), (16, 16, 32), (8, 8, 8)),
+            # nnFormer's stage 2 at D = 32: the fp32 kernel's split-on-load
+            # staging (its TF32 planes would take 264 KB)
+            ((16, 24, 512, 32), (16, 16, 32), (8, 8, 8)),
+            # VT-UNet's first stage at the BCV recipe (64 x 128 x 128,
+            # patch 4: a 16 x 32 x 32 token grid padded to 21 x 35 x 35),
+            # batch 2
+            ((150, 3, 343, 32), (21, 35, 35), (7, 7, 7))]
 #: the case of the JSON record: SwinUNETR's first stage, shifted, fp32
 WA_RECORD = ((1000, 3, 343, 16), True, "float32")
+#: the split-on-load staging's case, kept in the record beside it
+WA_SPLIT_RECORD = ((16, 24, 512, 32), True, "float32")
 #: the shapes whose kernel, SDPA and plain times phase 3 takes: SwinUNETR's
-#: three stages (its only path on the card; the other shapes are checked
-#: and not timed, which keeps the script within its budget)
-WA_TIMED = ((1000, 3, 343, 16), (125, 6, 343, 16), (27, 12, 343, 16))
+#: three stages, the split-on-load shape and VT-UNet's first stage (the
+#: other shapes are checked and not timed, which keeps the script within
+#: its budget)
+WA_TIMED = ((1000, 3, 343, 16), (125, 6, 343, 16), (27, 12, 343, 16),
+            (16, 24, 512, 32), (150, 3, 343, 32))
 #: the exponentials' bound beside the window attention's: the SFU's 16 a
 #: clock on each of the 132 SMs at the H100 SXM's 1.98 GHz boost clock
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
@@ -558,6 +593,16 @@ SMALL_SWIN = dict(dataset="synthetic", model="swin_unetr", dimension="3d",
 #: so the mask's window index wraps at b % nW) and 32^3 (the last stage's
 #: window shrinks to 4^3 and its bias-table index to [:64, :64])
 SMALL_SWIN_SHAPES = [(2, 1, 64, 64, 64), (1, 1, 32, 32, 32)]
+#: its train step's batch (phase 4d): the training route, no kernel
+SMALL_SWIN_STEP = (2, 1, 32, 32, 32)
+#: a VT-UNet at the BCV width (embedding 96: head dim 32 at every stage),
+#: cut in input size, no stochastic depth (phase 4f): 32 x 64 x 64 is an 8
+#: x 16 x 16 token grid, padded windows at stage 0 and windows shrunk to
+#: (7, 4, 4) and (7, 2, 2) below, batch 2 so the region ids wrap
+SMALL_VT = dict(dataset="synthetic", model="vtunet", dimension="3d",
+                classes=14, in_chan=1, patch_size=[4, 4, 4],
+                drop_path_rate=0.0, training_size=[32, 64, 64])
+SMALL_VT_SHAPE = (2, 1, 32, 64, 64)
 
 #: the model and inference keys of configs/bcv/swin_unetr_3d.yaml (phase 9)
 BCV = dict(dataset="bcv", model="swin_unetr", dimension="3d", classes=14,
@@ -566,6 +611,25 @@ BCV = dict(dataset="bcv", model="swin_unetr", dimension="3d", classes=14,
 #: window-attention launches per SwinUNETR forward: one per Swin block,
 #: depths (2, 2, 2, 0)
 SWIN_BLOCKS = 6
+#: the model and inference keys of configs/bcv/vtunet_3d.yaml (phase 9u)
+BCV_VT = dict(dataset="bcv", model="vtunet", dimension="3d", classes=14,
+              in_chan=1, patch_size=[4, 4, 4],
+              training_size=[64, 128, 128], sliding_window=True,
+              window_size=[64, 128, 128])
+#: window-attention launches per VT-UNet forward: 7 encoder blocks, and 6
+#: decoder blocks that attend twice (themselves, the encoder's cache)
+VT_ATTENTIONS = 19
+#: phases 9t and 9ut: the BCV recipes as shipped (SwinUNETR: 128^3 crops;
+#: VT-UNet: 64 x 128 x 128, stochastic depth 0.1), fp32, batch 2, BCV_STEPS
+#: steps on 5 written HU-like cases (abdominal CT resampled to about 1.5
+#: mm: 140-150 slices of 180-190^2), fold 0 of 5; val_freq (50, 10) is
+#: above the one epoch
+BCV_CASES = [((144, 184, 184), (1.5, 1.5, 1.5)),
+             ((140, 190, 180), (1.5, 1.5, 1.5)),
+             ((150, 180, 186), (1.5, 1.5, 1.5)),
+             ((146, 186, 190), (1.5, 1.5, 1.5)),
+             ((142, 182, 184), (1.5, 1.5, 1.5))]
+BCV_STEPS = WARMUP_STEPS + 2
 
 #: the model and inference keys of configs/acdc/medformer_2d.yaml, on the
 #: 3x3 kernel route (``conv2d_kernel``; phases 7 and 8; phase 8b turns it
@@ -958,14 +1022,20 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
                                    wgrad64(x, g), f64_rec)
             flops = 2 * 27 * C * Fo * B * D * H * W
             n = iters_for(flops, 1e10)
+            # timed at the record's case only (its times are the JSON
+            # record's; the rest are checked, which keeps the script
+            # within its time)
+            timed = case == CONV_RECORD
             xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
-            dx_ms = cuda_ms(lambda: conv3d.conv3d_dgrad(g, w), n)
-            dx_plain = cuda_ms(lambda: conv3d.conv3d_same_plain(g, ws), n)
-            dx_lib = cuda_ms(lambda: F.conv3d(gc, ws, padding=1), n)
-            dw_ms = cuda_ms(lambda: conv3d.conv3d_wgrad(x, g), n)
-            dw_plain = cuda_ms(lambda: conv3d.conv3d_wgrad_plain(x, g), n)
-            dw_lib = cuda_ms(lambda: torch.nn.grad.conv3d_weight(
-                xc, w.shape, gc, padding=1), n)
+            if timed:
+                dx_ms = cuda_ms(lambda: conv3d.conv3d_dgrad(g, w), n)
+                dx_plain = cuda_ms(lambda: conv3d.conv3d_same_plain(g, ws), n)
+                dx_lib = cuda_ms(lambda: F.conv3d(gc, ws, padding=1), n)
+                dw_ms = cuda_ms(lambda: conv3d.conv3d_wgrad(x, g), n)
+                dw_plain = cuda_ms(lambda: conv3d.conv3d_wgrad_plain(x, g),
+                                   n)
+                dw_lib = cuda_ms(lambda: torch.nn.grad.conv3d_weight(
+                    xc, w.shape, gc, padding=1), n)
             core_x = core_w = ""
             if route != conv3d.CUDA_CORE:
                 # the CUDA-core dgrad the tensor-core or TF32 one replaces
@@ -974,9 +1044,11 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
                 cex = float((cx.float() - ref_dx.float()).abs().max())
                 assert cex <= CONV_TOL[dt] * sx, f"conv3d_dgrad {dt} {case}"
                 errs["conv3d_same_fwd"] = max(errs["conv3d_same_fwd"], cex)
-                cx_ms = cuda_ms(
-                    lambda: conv3d._launch_fwd(g, ws, "conv3d_dgrad"), n)
-                core_x = f" CUDA-core {cx_ms:.3f} ms ({cx_ms / dx_ms:.2f}x)"
+                if timed:
+                    cx_ms = cuda_ms(
+                        lambda: conv3d._launch_fwd(g, ws, "conv3d_dgrad"), n)
+                    core_x = f" CUDA-core {cx_ms:.3f} ms " \
+                        f"({cx_ms / dx_ms:.2f}x)"
                 del cx
                 # and the CUDA-core wgrad
                 cw = conv3d._launch_wgrad(x, g)
@@ -984,19 +1056,27 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
                 cew = float((cw - ref_dw).abs().max())
                 assert cew <= WGRAD_TOL * sw, f"conv3d_wgrad {dt} {case}"
                 errs["conv3d_wgrad"] = max(errs["conv3d_wgrad"], cew)
-                cw_ms = cuda_ms(lambda: conv3d._launch_wgrad(x, g), n)
-                core_w = f" CUDA-core {cw_ms:.3f} ms ({cw_ms / dw_ms:.2f}x)"
+                if timed:
+                    cw_ms = cuda_ms(lambda: conv3d._launch_wgrad(x, g), n)
+                    core_w = f" CUDA-core {cw_ms:.3f} ms " \
+                        f"({cw_ms / dw_ms:.2f}x)"
                 del cw
+            times_x = times_w = ""
+            if timed:
+                times_x = (f" kernel {dx_ms:.3f} ms "
+                           f"({flops / dx_ms / 1e9:.1f} TFLOP/s) plain "
+                           f"{dx_plain:.3f} ms cuDNN {dx_lib:.3f} ms "
+                           f"({dx_ms / dx_lib:.2f}x){core_x}")
+                times_w = (f" kernel {dw_ms:.3f} ms "
+                           f"({flops / dw_ms / 1e9:.1f} TFLOP/s) plain "
+                           f"{dw_plain:.3f} ms cuDNN {dw_lib:.3f} ms "
+                           f"({dw_ms / dw_lib:.2f}x){core_w}")
             say(f"  {kx:20s} {dt:8s} {case}: max_abs_err {ex:.3e} "
-                f"max_rel_err {ex / sx:.3e} (tol {CONV_TOL[dt]:.1e}){f64} "
-                f"kernel {dx_ms:.3f} ms ({flops / dx_ms / 1e9:.1f} TFLOP/s) "
-                f"plain {dx_plain:.3f} ms cuDNN {dx_lib:.3f} ms "
-                f"({dx_ms / dx_lib:.2f}x){core_x}")
+                f"max_rel_err {ex / sx:.3e} (tol {CONV_TOL[dt]:.1e}){f64}"
+                f"{times_x}")
             say(f"  {kw:20s} {dt:8s} {case}: max_abs_err {ew:.3e} "
                 f"max_rel_err {ew / sw:.3e} of max|dW| {sw:.1f} "
-                f"(tol {WGRAD_TOL:.1e}){f64_w} kernel {dw_ms:.3f} ms "
-                f"({flops / dw_ms / 1e9:.1f} TFLOP/s) plain {dw_plain:.3f} ms "
-                f"cuDNN {dw_lib:.3f} ms ({dw_ms / dw_lib:.2f}x){core_w}")
+                f"(tol {WGRAD_TOL:.1e}){f64_w}{times_w}")
             assert ex <= CONV_TOL[dt] * sx, f"{kx} {dt} {case}: {ex:.3e}"
             assert ew <= WGRAD_TOL * sw, f"{kw} {dt} {case}: {ew:.3e}"
             errs[kf] = max(errs[kf], ex)
@@ -1541,6 +1621,7 @@ def phase_window_attention(device, cases, record: dict) -> None:
     gen = torch.Generator(device=device).manual_seed(5)
     errs = record["errors"]
     errs["window_attention"] = 0.0
+    record["window_attention"] = {}
     for dt in ("float32", "bfloat16"):
         dtype = getattr(torch, dt)
         for (B, H, N, D), spatial, window in cases:
@@ -1565,8 +1646,11 @@ def phase_window_attention(device, cases, record: dict) -> None:
                 torch.cuda.synchronize()
                 scale = float(ref.float().abs().max())
                 err = float((out.float() - ref.float()).abs().max())
+                split = wa.tf32_split_on_load(N, D, dtype)
                 line = (f"  window_attention {dt:8s} {(B, H, N, D)} "
-                        f"mask={str(masked):5s}: max_abs_err {err:.3e} "
+                        f"mask={str(masked):5s}"
+                        f"{' (split on load)' if split else ''}: "
+                        f"max_abs_err {err:.3e} "
                         f"max_rel_err {err / scale:.3e} of max|o| "
                         f"{scale:.3f} (tol {WA_TOL[dt]:.1e})")
                 f64 = {}
@@ -1614,7 +1698,9 @@ def phase_window_attention(device, cases, record: dict) -> None:
                              f"from L2; plain {plain_ms:.3f} ms SDPA "
                              f"{lib_ms:.3f} ms")
                     if ((B, H, N, D), masked, dt) == WA_RECORD:
-                        record["window_attention"] = rec
+                        record["window_attention"].update(rec)
+                    if ((B, H, N, D), masked, dt) == WA_SPLIT_RECORD:
+                        record["window_attention"]["split_on_load"] = rec
                 say(line)
                 del ref, out, bias, lib
             del qkv, q, k, v, rel_bias
@@ -1734,8 +1820,12 @@ def phase_small_train_step(device, cfg_dict, shape, amp: bool = False
     def step(model, dev):
         with torch.autocast("cuda", dtype=torch.bfloat16,
                             enabled=amp and dev.type == "cuda"):
-            loss = deep_supervision_loss(model(img.to(dev)), lab.to(dev),
-                                         [0.5, 0.5], weight)
+            out = model(img.to(dev))
+            # deep supervision's two heads, or one (the Swin family)
+            outs = out if isinstance(out, (list, tuple)) else [out]
+            loss = deep_supervision_loss(
+                outs, lab.to(dev), [0.5, 0.5] if len(outs) > 1 else [1.0],
+                weight)
         loss.backward()
         # a parameter whose output the loss never reads (MedFormer-2D's
         # last semantic-map reductions) gets no grad: zeros, as in JAX
@@ -1833,7 +1923,7 @@ def phase_train_validate(device, cfg_dict, batch: int, name: str) -> dict:
     model_cls = (medformer.MedFormer2D if cfg.dimension == "2d"
                  else medformer.MedFormer3D)
     run = os.path.join(WORK, name)
-    argv = ["--dataset", cfg.dataset, "--model", "medformer", "--dimension",
+    argv = ["--dataset", cfg.dataset, "--model", cfg.model, "--dimension",
             cfg.dimension, "--batch_size", str(batch), "--amp",
             "--cp_path", os.path.join(run, "exp"),
             "--log_path", os.path.join(run, "log"), "--unique_name", name,
@@ -2039,7 +2129,7 @@ def phase_train(device, cfg_dict, batch: int, name: str, required,
     cfg = cfg_dict if isinstance(cfg_dict, Config) else \
         config_from_dict(cfg_dict)
     run = os.path.join(WORK, name)
-    argv = ["--dataset", cfg.dataset, "--model", "medformer", "--dimension",
+    argv = ["--dataset", cfg.dataset, "--model", cfg.model, "--dimension",
             cfg.dimension, "--batch_size", str(batch),
             "--cp_path", os.path.join(run, "exp"),
             "--log_path", os.path.join(run, "log"), "--unique_name", name,
@@ -2107,11 +2197,12 @@ def mean_seconds(res: dict) -> float:
 
 def label_agreement(dir_a: str, dir_b: str) -> float:
     """The share of voxels whose label is the same in the label maps of two
-    serving runs (same request names)."""
+    serving runs, over the second run's requests (by name; the first run
+    served each of them too)."""
     import numpy as np
     from cbim_tpu_torch.data.nifti import read_nifti
     same = total = 0
-    for req in sorted(os.listdir(dir_a)):
+    for req in sorted(os.listdir(dir_b)):
         a = read_nifti(os.path.join(dir_a, req)).data
         b = read_nifti(os.path.join(dir_b, req)).data
         assert a.shape == b.shape, (req, a.shape, b.shape)
@@ -2428,6 +2519,28 @@ def pipeline_recorder():
         pipeline.TrainPipeline.__init__ = init
 
 
+@contextlib.contextmanager
+def drop_path_recorder():
+    """While inside: the stochastic-depth draws of training-mode forwards
+    (calls of ``swin_layers.drop_path``) and the samples they dropped."""
+    from cbim_tpu_torch.models import swin_layers
+    seen = {"calls": 0, "dropped": 0}
+    real = swin_layers.drop_path
+
+    def counted(x, p, keep):
+        seen["calls"] += 1
+        # summed on the device: no sync inside the timed steps
+        seen["dropped"] = seen["dropped"] + (~keep).sum()
+        return real(x, p, keep)
+
+    swin_layers.drop_path = counted
+    try:
+        yield seen
+    finally:
+        swin_layers.drop_path = real
+        seen["dropped"] = int(seen["dropped"])
+
+
 def time_batches(pipe, batch: int) -> list[float]:
     """Seconds of DATA_BATCHES of the pipeline's batches on their own, each
     from the call to the batch on the card (synchronised): the window
@@ -2633,6 +2746,16 @@ def main(argv=None) -> int:
         err = phase_small_model(device, SMALL_SWIN, shape)
         say(f"  {shape} softmax max abs err {err:.3e} "
             f"(tol {MODEL_PROB_ATOL})")
+    reset_launch_counts()
+    loss_err, l2_err, grad_err = phase_small_train_step(
+        device, SMALL_SWIN, SMALL_SWIN_STEP)
+    n_attn = launch_counts()["window_attention"]
+    say(f"  train step, {SMALL_SWIN_STEP} fp32: loss rel err {loss_err:.3e} "
+        f"(tol {STEP_LOSS_RTOL:.0e}); gradient rel L2 err {l2_err:.3e} "
+        f"(tol {STEP_GRAD_L2:.0e}); worst tensor err {grad_err:.3e} of its "
+        f"scale (tol {STEP_GRAD_RTOL:.0e}); {n_attn} window_attention "
+        f"launches (training mode takes the autograd route)")
+    assert n_attn == 0, n_attn
 
     say("[phase 4e] validate of the small MedFormer-3D on a Synthetic3D "
         "test volume, card vs CPU")
@@ -2655,6 +2778,25 @@ def main(argv=None) -> int:
     assert all(counts[k] > 0 for k in FORWARD_KERNELS), counts
     launches["4e"] = counts
 
+    say("[phase 4f] small VT-UNet, card vs CPU")
+    reset_launch_counts()
+    err = phase_small_model(device, SMALL_VT, SMALL_VT_SHAPE)
+    n_attn = launch_counts()["window_attention"]
+    say(f"  eval, {SMALL_VT_SHAPE} softmax max abs err {err:.3e} (tol "
+        f"{MODEL_PROB_ATOL}); {n_attn} window_attention launches (self and "
+        f"cross paths)")
+    assert n_attn == VT_ATTENTIONS, n_attn
+    reset_launch_counts()
+    loss_err, l2_err, grad_err = phase_small_train_step(
+        device, SMALL_VT, SMALL_VT_SHAPE)
+    n_attn = launch_counts()["window_attention"]
+    say(f"  train step, drop_path_rate 0, fp32: loss rel err {loss_err:.3e} "
+        f"(tol {STEP_LOSS_RTOL:.0e}); gradient rel L2 err {l2_err:.3e} "
+        f"(tol {STEP_GRAD_L2:.0e}); worst tensor err {grad_err:.3e} of its "
+        f"scale (tol {STEP_GRAD_RTOL:.0e}); {n_attn} window_attention "
+        f"launches")
+    assert n_attn == 0, n_attn
+
     say("[phase 5] AMOS-CT MedFormer-3D serving 2 NIfTI requests")
     res = phase_slice(device, AMOS, REQUESTS, TARGET_SPACING, "serve3d",
                       FORWARD_KERNELS, profile_dir("serve3d"))
@@ -2669,8 +2811,11 @@ def main(argv=None) -> int:
     say_served_profile(args.profile, "serve3d", res)
     launches["5"] = counts
 
-    say("[phase 5b] the same requests with conv_na: the fused preact conv")
-    res_na = phase_slice(device, dict(AMOS, conv_na=True), REQUESTS,
+    say("[phase 5b] phase 5's first request with conv_na: the fused preact "
+        "conv")
+    # the first request only (the second adds its resampling on the host,
+    # 5-6 s, and no other kernel shape), to keep the script within its time
+    res_na = phase_slice(device, dict(AMOS, conv_na=True), REQUESTS[:1],
                          TARGET_SPACING, "serve3d_na", NA_FORWARD_KERNELS,
                          profile_dir("serve3d_na"))
     say_serving(res_na)
@@ -2683,8 +2828,10 @@ def main(argv=None) -> int:
     say_served_profile(args.profile, "serve3d_na", res_na)
     agree = label_agreement(os.path.join(WORK, "serve3d", "out"),
                             os.path.join(WORK, "serve3d_na", "out"))
-    say(f"  fused vs unfused (phase 5): {mean_seconds(res_na):.3f} vs "
-        f"{mean_seconds(res):.3f} sec/volume, peak "
+    first = sorted(res_na["seconds"])[0]
+    say(f"  fused vs unfused (phase 5), {first}: "
+        f"{res_na['seconds'][first]:.3f} vs {res['seconds'][first]:.3f} "
+        f"sec/volume, peak "
         f"{res_na['peak_bytes'] / 2 ** 30:.2f} vs "
         f"{res['peak_bytes'] / 2 ** 30:.2f} GiB; label maps agree on "
         f"{100 * agree:.4f} % of voxels (min {100 * LABEL_AGREEMENT} %)")
@@ -2968,6 +3115,53 @@ def main(argv=None) -> int:
     assert res["forwards"] > 0 and n_attn == SWIN_BLOCKS * res["forwards"], \
         f"{n_attn} window-attention launches in {res['forwards']} forwards"
     launches["9"] = res["launches"]
+
+    say("[phase 9t] the BCV SwinUNETR recipe as shipped (configs/bcv/"
+        f"swin_unetr_3d.yaml), fp32, batch {TRAIN_BATCH}, on written NIfTI "
+        "cases")
+    t_corpus = time.perf_counter()
+    bcv_root = os.path.join(WORK, "bcv_data")
+    write_corpus(bcv_root, BCV_CASES,
+                 [f"img{i:04d}" for i in range(1, len(BCV_CASES) + 1)],
+                 seed=3, classes=14)
+    say(f"  wrote {len(BCV_CASES)} cases in "
+        f"{time.perf_counter() - t_corpus:.1f} s")
+    bcv_keys = dict(data_root=bcv_root, epochs=1, iter_per_epoch=BCV_STEPS,
+                    print_freq=1)
+    tr = phase_train(device, load_config("bcv", "swin_unetr", "3d",
+                                         **bcv_keys),
+                     TRAIN_BATCH, "bcv_swin", (), amp=False,
+                     min_steps=BCV_STEPS)
+    say_train(tr, "volumes")
+    # the training route: no window-attention launch in a step
+    assert len(tr["step_seconds"]) == BCV_STEPS and \
+        tr["launches"]["window_attention"] == 0, tr["launches"]
+    launches["9t"] = tr["launches"]
+
+    say("[phase 9u] BCV VT-UNet (configs/bcv/vtunet_3d.yaml) serving 2 "
+        "NIfTI requests")
+    res = phase_slice(device, BCV_VT, REQUESTS, TARGET_SPACING, "serve_vt",
+                      ("window_attention",))
+    say_serving(res)
+    n_attn = res["launches"]["window_attention"]
+    assert res["forwards"] > 0 and \
+        n_attn == VT_ATTENTIONS * res["forwards"], \
+        f"{n_attn} window-attention launches in {res['forwards']} forwards"
+    launches["9u"] = res["launches"]
+
+    say("[phase 9ut] the BCV VT-UNet recipe as shipped, fp32, batch "
+        f"{TRAIN_BATCH}, stochastic depth 0.1, on phase 9t's cases")
+    with drop_path_recorder() as drops:
+        tr = phase_train(device, load_config("bcv", "vtunet", "3d",
+                                             **bcv_keys),
+                         TRAIN_BATCH, "bcv_vt", (), amp=False,
+                         min_steps=BCV_STEPS)
+    say_train(tr, "volumes")
+    say(f"  {drops['calls']} DropPath draws, {drops['dropped']} samples "
+        f"dropped")
+    assert drops["calls"] > 0 and len(tr["step_seconds"]) == BCV_STEPS and \
+        tr["launches"]["window_attention"] == 0, (drops, tr["launches"])
+    launches["9ut"] = tr["launches"]
 
     say("[phase 10] the probes: copy-scale, tensor-core dots, the conv's "
         "phase ladder")

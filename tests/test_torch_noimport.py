@@ -35,6 +35,7 @@ MODULES = [
     "cbim_tpu_torch.models.swin_layers",
     "cbim_tpu_torch.models.unetr",
     "cbim_tpu_torch.models.swin_unetr",
+    "cbim_tpu_torch.models.vtunet",
     "cbim_tpu_torch.inference.engines",
     "cbim_tpu_torch.prediction",
     "cbim_tpu_torch.utils.jax_import",

@@ -198,9 +198,20 @@ def test_seeded_weights_draw_the_swin_parameters():
         assert torch.equal(a[key], b[key]) and a[key].std() > 0, key
 
 
-def test_get_model_refuses_to_train_swin_unetr():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(config_from_dict(TINY), device="cpu", train=True)
+def test_get_model_refuses_to_train_swin_unetr(monkeypatch):
+    """What is still refused is the kernel in training: ``get_model(train=
+    True)`` builds SwinUNETR, and its training-mode forward takes the
+    autograd route, never the window-attention kernel's wrapper, which
+    has no backward (it once refused to build the model at all; training
+    is ported now, ``tests/test_torch_swin_train.py``)."""
+    def refuse(*args, **kw):
+        raise AssertionError("the window-attention kernel in training")
+
+    monkeypatch.setattr(swin_layers, "window_attention", refuse)
+    model = get_model(config_from_dict(TINY), device="cpu", train=True)
+    assert model.training
+    out = model(torch.zeros(1, 1, 32, 32, 32))
+    assert out.shape == (1, 3, 32, 32, 32) and out.requires_grad
 
 
 def test_prediction_main_serves_swin_unetr_on_the_cpu(tmp_path):

@@ -194,16 +194,16 @@ def test_packed_qkv_views_launch_with_the_padded_bias(monkeypatch):
     (name, args), = calls
     assert name == "window_attention"
     assert wa.launches["window_attention"] == before + 1
-    # q, k, v, rel_bias, region, bias2, o, dtype, B, H, N, Np, D, nW, sb,
-    # sh, sn, rsh, rsi, rsj, osb, osh, osn
+    # q, k, v, rel_bias, region, bias2, o, dtype, B, H, N, Np, D, nW,
+    # split_on_load, sb, sh, sn, rsh, rsi, rsj, osb, osh, osn
     assert args[:5] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         rel_bias.data_ptr(), region.data_ptr())
     assert args[6] == o.data_ptr()
-    assert args[7:14] == (0, B, H, N, 352, D, 2)
-    assert args[14:17] == q.stride()[:3] == (N * 3 * H * D, D, 3 * H * D)
-    assert args[17:20] == rel_bias.stride()
+    assert args[7:15] == (0, B, H, N, 352, D, 2, 0)
+    assert args[15:18] == q.stride()[:3] == (N * 3 * H * D, D, 3 * H * D)
+    assert args[18:21] == rel_bias.stride()
     assert o.shape == (B, H, N, D) and o.transpose(1, 2).is_contiguous()
-    assert args[20:] == o.stride()[:3]
+    assert args[21:] == o.stride()[:3]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -234,21 +234,55 @@ def test_wrapper_refuses_views_it_cannot_stage(monkeypatch, dtype):
 
 
 def test_wrapper_refuses_windows_past_shared_memory(monkeypatch):
-    """fp32 stages four planes (K, V, hi and lo): N = 512 at D = 32 needs
-    264 KB of the block's 227 KB and raises; bf16 (two planes) and D = 16
-    take it."""
+    """fp32 stages TF32 hi and lo planes of K and V where they fit the
+    block's 227 KB; N = 512 at D = 32 needs 264 KB of them, so the wrapper
+    routes it to the split-on-load staging (fp32 values, 130 KB), and every
+    window that fits today keeps the planes (N <= 448 at D = 32, bf16
+    always).  A window past 227 KB even as values (N = 1000 at D = 32)
+    still raises, and nothing is launched for it."""
     calls = _kernel_path(monkeypatch)
     N = 512
-    assert wa.kernel_smem_bytes(N, 32, torch.float32) > wa._MAX_SMEM
-    assert wa.kernel_smem_bytes(N, 16, torch.float32) <= wa._MAX_SMEM
+    assert wa.kernel_smem_bytes(N, 32, torch.float32, False) > wa._MAX_SMEM
+    assert wa.tf32_split_on_load(N, 32, torch.float32)
+    assert wa.kernel_smem_bytes(N, 32, torch.float32) == 2 * 512 * 32 * 4 \
+        + 4 * 512 <= wa._MAX_SMEM
+    for n, d in ((343, 32), (448, 32), (343, 16), (512, 16)):
+        assert not wa.tf32_split_on_load(n, d, torch.float32), (n, d)
+    for n in (343, 512):
+        assert not wa.tf32_split_on_load(n, 32, torch.bfloat16)
     assert wa.kernel_smem_bytes(N, 32, torch.bfloat16) <= wa._MAX_SMEM
-    assert wa.kernel_smem_bytes(343, 32, torch.float32) <= wa._MAX_SMEM
     bias = torch.zeros(1, N, N)
     with torch.no_grad():
         q = torch.zeros(1, 1, N, 32)
-        with pytest.raises(ValueError, match="shared memory"):
-            wa.window_attention(q, q, q, bias)
-        wa.window_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(), bias)
-        q = torch.zeros(1, 1, N, 16)
         wa.window_attention(q, q, q, bias)
-    assert [c[0] for c in calls] == ["window_attention"] * 2
+        wa.window_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(), bias)
+        q16 = torch.zeros(1, 1, N, 16)
+        wa.window_attention(q16, q16, q16, bias)
+        big = torch.zeros(1, 1, 1000, 32)
+        with pytest.raises(ValueError, match="shared memory"):
+            wa.window_attention(big, big, big, torch.zeros(1, 1000, 1000))
+    assert [c[0] for c in calls] == ["window_attention"] * 3
+    # the split_on_load argument of each launch: fp32 D = 32 only
+    assert [c[1][14] for c in calls] == [1, 0, 0]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_tf32x3_model_at_the_split_on_load_shape(masked):
+    """N = 512 at D = 32 (nnFormer's stage 2, the split-on-load staging):
+    the kernel's arithmetic, ``window_attention_tf32x3_plain``, agrees with
+    fp64, the plain version and the JAX package's reference; the staging
+    changes where hi and lo are made, not their values, so the same model
+    holds."""
+    B, H, N, D = 2, 2, 512, 32
+    q, k, v, rel_bias, region = _inputs(B, H, N, D, seed=11)
+    region = region if masked else None
+    t = [torch.from_numpy(a) for a in (q, k, v, rel_bias)]
+    treg = None if region is None else torch.from_numpy(region)
+    out = wa.window_attention_tf32x3_plain(*t, treg)
+    assert _rel(out.numpy(), _fp64(q, k, v, rel_bias, region)) <= F64_TOL
+    plain = wa.window_attention_plain(*t, treg)
+    assert _rel(out.numpy(), plain.numpy()) <= TOL["float32"]
+    ref = reference_window_attention(
+        *map(jnp.asarray, (q, k, v)),
+        jnp.asarray(_dense_bias(rel_bias, region, B)))
+    assert _rel(out.numpy(), np.asarray(ref)) <= TOL["float32"]
