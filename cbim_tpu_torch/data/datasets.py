@@ -307,17 +307,26 @@ class AMOSMR(AMOSCT):
 # ---------------------------------------------------------------------------
 
 def _synth_case(rng: np.random.Generator, shape, classes: int):
-    """A blobby volume with ellipsoid class regions."""
+    """A blobby volume with ellipsoid class regions.  Each region's
+    distances are evaluated in its bounding box only: the voxels outside
+    lie more than a radius from the centre on some axis, so the labels and
+    values are those of the whole-grid evaluation, at a fraction of its
+    cost (15 regions of a 192^3 volume)."""
     img = rng.normal(0, 0.3, size=shape).astype(np.float32)
     lab = np.zeros(shape, np.uint8)
-    coords = np.meshgrid(*[np.arange(s) for s in shape], indexing="ij")
     for c in range(1, classes):
         center = [rng.uniform(0.25 * s, 0.75 * s) for s in shape]
         radii = [max(2.0, rng.uniform(0.08 * s, 0.2 * s)) for s in shape]
-        dist = sum(((g - c0) / r0) ** 2 for g, c0, r0 in zip(coords, center, radii))
+        box = tuple(slice(max(0, int(np.floor(c0 - r0))),
+                          min(s, int(np.ceil(c0 + r0)) + 1))
+                    for c0, r0, s in zip(center, radii, shape))
+        coords = np.meshgrid(*[np.arange(b.start, b.stop) for b in box],
+                             indexing="ij")
+        dist = sum(((g - c0) / r0) ** 2
+                   for g, c0, r0 in zip(coords, center, radii))
         mask = dist < 1.0
-        lab[mask] = c
-        img[mask] += 0.5 * c
+        lab[box][mask] = c
+        img[box][mask] += 0.5 * c
     return img, lab
 
 

@@ -1,8 +1,9 @@
 """Model factory (counterpart of ``cbim_tpu/models/__init__.py``).
 
-MedFormer-3D, MedFormer-2D, SwinUNETR and VT-UNet are ported, for serving
-and training; every other (model, dimension) raises
-``NotImplementedError`` (the rest of the zoo is queued in ROADMAP.md).
+MedFormer-3D, MedFormer-2D, SwinUNETR, VT-UNet, nnFormer and SwinUnet-2D
+are ported, for serving and training; every other (model, dimension)
+raises ``NotImplementedError`` (the rest of the zoo is queued in
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def _norm_scales(v, n):
 
 #: the (dimension, model) pairs the port builds
 PORTED = (("3d", "medformer"), ("2d", "medformer"), ("3d", "swin_unetr"),
-          ("3d", "vtunet"))
+          ("3d", "vtunet"), ("3d", "nnformer"), ("2d", "swinunet"))
 
 
 def get_model(cfg, device="cuda", generator: torch.Generator | None = None,
@@ -59,13 +60,17 @@ def get_model(cfg, device="cuda", generator: torch.Generator | None = None,
     if (dim, name) not in PORTED:
         raise NotImplementedError(
             f"model {name!r} ({dim}) is not ported yet; the PyTorch port "
-            f"covers MedFormer-3D, MedFormer-2D, SwinUNETR and VT-UNet (see "
-            f"ROADMAP.md)")
+            f"covers MedFormer-3D, MedFormer-2D, SwinUNETR, VT-UNet, nnFormer "
+            f"and SwinUnet-2D (see ROADMAP.md)")
     device = get_device(device)
     if name == "swin_unetr":
         model = _swin_unetr(cfg)
     elif name == "vtunet":
         model = _vtunet(cfg)
+    elif name == "nnformer":
+        model = _nnformer(cfg)
+    elif name == "swinunet":
+        model = _swinunet(cfg)
     else:
         model = (_medformer2d if dim == "2d" else _medformer3d)(cfg)
     if generator is not None:
@@ -123,6 +128,41 @@ def _vtunet(cfg) -> nn.Module:
                   patch_size=tuple(cfg.patch_size),
                   embed_dim=cfg.get("embed_dim") or EMBED_DIM,
                   drop_path_rate=DROP_PATH_RATE if rate is None else rate)
+
+
+def _nnformer(cfg) -> nn.Module:
+    """The JAX factory's NNFormer: crop_size = the window, deep supervision
+    = aux_loss, the model's defaults (embedding 192, heads (6, 12, 24, 48),
+    patch (2, 4, 4), windows (4, 4, 8, 4), drop-path rate 0.2) unless the
+    config sets ``embedding_dim``, ``nnformer_num_heads``, ``patch_size``,
+    ``nnformer_window_size`` or ``drop_path_rate``."""
+    from .nnformer import NNFormer
+    kw = {}
+    for key, arg in (("embedding_dim", "embedding_dim"),
+                     ("patch_size", "patch_size"),
+                     ("drop_path_rate", "drop_path_rate"),
+                     ("nnformer_num_heads", "num_heads"),
+                     ("nnformer_window_size", "window_size")):
+        v = cfg.get(key)
+        if v is not None:
+            kw[arg] = tuple(v) if isinstance(v, list) else v
+    return NNFormer(in_chan=cfg.in_chan, num_classes=cfg.classes,
+                    crop_size=tuple(cfg.window_size or cfg.training_size),
+                    deep_supervision=bool(cfg.aux_loss), **kw)
+
+
+def _swinunet(cfg) -> nn.Module:
+    """The JAX factory's SwinUnet2D: img_size 224, the model's defaults
+    (embedding 96, depths (2, 2, 6, 2), heads (3, 6, 12, 24), windows of
+    7, drop-path rate 0.1); ``embed_dim`` and ``drop_path_rate`` are
+    optional config overrides, as for VT-UNet (the small CPU and card
+    checks)."""
+    from .swin_unet import DROP_PATH_RATE, EMBED_DIM, SwinUnet2D
+    rate = cfg.get("drop_path_rate")
+    return SwinUnet2D(in_chan=cfg.in_chan, num_classes=cfg.classes,
+                      img_size=224,
+                      embed_dim=cfg.get("embed_dim") or EMBED_DIM,
+                      drop_path_rate=DROP_PATH_RATE if rate is None else rate)
 
 
 def _medformer3d(cfg) -> nn.Module:

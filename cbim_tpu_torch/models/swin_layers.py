@@ -20,10 +20,10 @@ tests, which hold it against the region ids.
 
 Ported: ``window_partition``/``window_reverse``, ``get_window_size``,
 ``relative_position_index``, ``compute_attn_mask``, ``WindowAttention``,
-``SwinBlock``, ``PatchMergingLegacy`` and ``DropPath`` (stochastic depth,
-drawn from the train state's generator).  ``PatchMergingV2`` (SwinUnet) is
-not ported yet (ROADMAP.md); attention and projection dropout are not
-either: the ported recipes run without them.
+``SwinBlock``, ``PatchMergingLegacy`` (3D and 2D), ``PatchMergingV2`` (no
+caller, as in the JAX package) and ``DropPath`` (stochastic depth, drawn
+from the train state's generator).  Attention and projection dropout are
+not: the ported recipes run without them.
 """
 
 from __future__ import annotations
@@ -153,6 +153,13 @@ def window_attention_train(q, k, v, rel_bias, region=None) -> torch.Tensor:
     return torch.einsum("bhnm,bhmd->bhnd", p, v)
 
 
+def attend(training: bool, q, k, v, rel_bias, region) -> torch.Tensor:
+    """The window attention of a module in training mode (``training``:
+    :func:`window_attention_train`) or in eval mode (the kernel)."""
+    fn = window_attention_train if training else window_attention
+    return fn(q, k, v, rel_bias, region)
+
+
 class DropPath(nn.Module):
     """Batch-wise stochastic depth (``cbim_tpu/models/layers/convs.py``
     ``DropPath``): in training mode with p > 0, ``x / (1 - p) * keep`` with
@@ -234,10 +241,8 @@ class WindowAttention(nn.Module):
             n, n, self.num_heads).permute(2, 0, 1)
 
     def attend(self, q, k, v, rel_bias, region):
-        """The route of the module's mode: the kernel in eval mode,
-        :func:`window_attention_train` in training mode."""
-        fn = window_attention_train if self.training else window_attention
-        return fn(q, k, v, rel_bias, region)
+        """The route of the module's mode (:func:`attend`)."""
+        return attend(self.training, q, k, v, rel_bias, region)
 
 
 class Mlp(nn.Module):
@@ -252,13 +257,27 @@ class Mlp(nn.Module):
         return self.linear2(gelu(self.linear1(x)))
 
 
+class SwinMlp(nn.Module):
+    """The official Swin's Mlp, 4x wide: ``fc1``, exact GELU, ``fc2``
+    (VT-UNet, nnFormer and SwinUnet name it so)."""
+
+    def __init__(self, dim: int, ratio: float = 4.0):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, int(dim * ratio))
+        self.fc2 = nn.Linear(int(dim * ratio), dim)
+
+    def forward(self, x):
+        return self.fc2(gelu(self.fc1(x)))
+
+
 class ShiftedWindows(nn.Module):
     """The window plumbing of the Swin blocks on (B, *spatial, C): zero
     padding to whole windows (the padded tokens are attended to, not
     masked, as in the reference), the cyclic shift, the partition and the
     region ids of the shifted windows (cached per padded shape and device),
     and the way back.  The window shrinks to the input extent, with no
-    shift along a shrunk axis (:func:`get_window_size`)."""
+    shift along a shrunk axis (:func:`get_window_size`); a subclass may
+    give its own rule (:meth:`window_shift`)."""
 
     def __init__(self, window_size: Sequence[int], shift_size: Sequence[int]):
         super().__init__()
@@ -275,12 +294,15 @@ class ShiftedWindows(nn.Module):
                                   else torch.from_numpy(ids).to(device))
         return self._regions[key]
 
+    def window_shift(self, spatial):
+        """The (window, shift) of a token grid of extent ``spatial``."""
+        return get_window_size(spatial, self.window_size, self.shift_size)
+
     def partition(self, h: torch.Tensor):
         """h -> (windows (num_windows * B, N, C), region ids or None, the
         layout that :meth:`unpartition` undoes)."""
         spatial = tuple(h.shape[1:-1])
-        window, shift = get_window_size(spatial, self.window_size,
-                                        self.shift_size)
+        window, shift = self.window_shift(spatial)
         pads = [(-s) % w for s, w in zip(spatial, window)]
         if any(pads):
             # F.pad orders its pairs from the last axis (C) backwards
@@ -308,40 +330,66 @@ class ShiftedWindows(nn.Module):
 
 class SwinBlock(ShiftedWindows):
     """One (shifted-)window transformer block on (B, *spatial, C):
-    ``norm1``, ``attn``, ``norm2``, ``mlp``; padding after ``norm1``."""
+    ``norm1``, ``attn``, ``norm2``, ``mlp`` (MONAI's :class:`Mlp`, or the
+    official Swin's :class:`SwinMlp`); padding after ``norm1``; one
+    ``DropPath`` (a fresh draw each) on both residuals."""
 
     def __init__(self, dim: int, num_heads: int, window_size: Sequence[int],
-                 shift_size: Sequence[int]):
+                 shift_size: Sequence[int], drop_path: float = 0.0,
+                 mlp: type = Mlp):
         super().__init__(window_size, shift_size)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, num_heads, self.window_size)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim)
+        self.mlp = mlp(dim)
+        self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         wins, region, layout = self.partition(self.norm1(x))
-        x = x + self.unpartition(self.attn(wins, region), layout)
-        return x + self.mlp(self.norm2(x))
+        x = x + self.drop_path(self.unpartition(self.attn(wins, region),
+                                                layout))
+        return x + self.drop_path(self.mlp(self.norm2(x)))
+
+
+def _pad_even(x: torch.Tensor) -> torch.Tensor:
+    """Zero-pad each odd spatial extent of (B, *spatial, C) by one."""
+    pads = [s % 2 for s in x.shape[1:-1]]
+    if any(pads):
+        # F.pad orders its pairs from the last axis (C) backwards
+        x = F.pad(x, [0, 0, *(p for pad in reversed(pads) for p in (0, pad))])
+    return x
 
 
 class PatchMergingLegacy(nn.Module):
-    """MONAI v0.9.0 'merging' on (B, D, H, W, C): ``norm``, ``reduction``,
-    with its duplicate-slice quirk (the 5th and 6th slices repeat the 2nd and
-    3rd; (1, 1, 0) and (0, 1, 1) are skipped).  Odd extents are zero-padded
-    by one."""
+    """MONAI v0.9.0 'merging' on (B, D, H, W, C) or (B, H, W, C): ``norm``,
+    ``reduction`` to twice the width.  In 3D with its duplicate-slice quirk
+    (the 5th and 6th slices repeat the 2nd and 3rd; (1, 1, 0) and (0, 1, 1)
+    are skipped); in 2D the four (h, w) parities in the reference's order
+    (0, 0), (1, 0), (0, 1), (1, 1).  Odd extents are zero-padded by one."""
 
-    OFFSETS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1),
-               (1, 0, 1), (0, 1, 0), (0, 0, 1), (1, 1, 1))
+    OFFSETS = {3: ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1),
+                   (1, 0, 1), (0, 1, 0), (0, 0, 1), (1, 1, 1)),
+               2: ((0, 0), (1, 0), (0, 1), (1, 1))}
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, spatial_dims: int = 3):
         super().__init__()
-        self.norm = nn.LayerNorm(8 * dim, eps=1e-5)
-        self.reduction = nn.Linear(8 * dim, 2 * dim, bias=False)
+        self.offsets = self.OFFSETS[spatial_dims]
+        n = len(self.offsets)
+        self.norm = nn.LayerNorm(n * dim, eps=1e-5)
+        self.reduction = nn.Linear(n * dim, 2 * dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        D, H, W = x.shape[1:4]
-        if D % 2 or H % 2 or W % 2:
-            x = F.pad(x, [0, 0, 0, W % 2, 0, H % 2, 0, D % 2])
-        x = torch.cat([x[:, i::2, j::2, k::2, :] for i, j, k in self.OFFSETS],
-                      dim=-1)
+        x = _pad_even(x)
+        x = torch.cat([x[(slice(None), *(slice(o, None, 2) for o in offs))]
+                       for offs in self.offsets], dim=-1)
         return self.reduction(self.norm(x))
+
+
+class PatchMergingV2(PatchMergingLegacy):
+    """MONAI's corrected merging (every one of the 2^nd parities, in
+    ``itertools.product`` order): ``norm``, ``reduction``.  No model of the
+    port or of the JAX package builds it."""
+
+    def __init__(self, dim: int, spatial_dims: int = 3):
+        super().__init__(dim, spatial_dims)
+        self.offsets = tuple(itertools.product(range(2), repeat=spatial_dims))

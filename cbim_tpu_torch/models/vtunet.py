@@ -37,8 +37,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.activations import gelu
-from .swin_layers import DropPath, ShiftedWindows, WindowAttention
+from .swin_layers import (DropPath, ShiftedWindows, SwinMlp,
+                          WindowAttention)
 
 #: the reference's architecture (model/dim3/vtunet.py)
 EMBED_DIM = 96
@@ -104,18 +104,6 @@ class WindowAttentionVT(WindowAttention):
         return out, x2, (k, v)
 
 
-class Mlp(nn.Module):
-    """The reference's Mlp, 4x wide: ``fc1``, exact GELU, ``fc2``."""
-
-    def __init__(self, dim: int, ratio: float = 4.0):
-        super().__init__()
-        self.fc1 = nn.Linear(dim, int(dim * ratio))
-        self.fc2 = nn.Linear(int(dim * ratio), dim)
-
-    def forward(self, x):
-        return self.fc2(gelu(self.fc1(x)))
-
-
 class SwinBlockVT(ShiftedWindows):
     """SwinTransformerBlock3D (vtunet_utils.py:533-806): ``norm1``,
     ``attn``, ``norm2``, ``mlp``.  ``norm2`` and the MLP serve the self
@@ -129,7 +117,7 @@ class SwinBlockVT(ShiftedWindows):
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttentionVT(dim, num_heads, self.window_size)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim)
+        self.mlp = SwinMlp(dim)
         self.drop_path = DropPath(drop_path)
         self._pe: dict = {}
 

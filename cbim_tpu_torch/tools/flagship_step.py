@@ -11,6 +11,8 @@ checkout at ``--root``, with that checkout's own kernels and code:
 - ``--phase 9``: BCV SwinUNETR serving (the full-width model of
   ``configs/bcv/swin_unetr_3d.yaml``, fp32, seeded weights) of the same
   two requests: 6 window-attention launches a forward;
+- ``--phase 9n``: BCV nnFormer serving (``configs/bcv/nnformer_3d.yaml``,
+  fp32, seeded weights) of the same two requests: 14 launches a forward;
 - ``--phase wa``: the checkout's phase-3 window-attention check at
   SwinUNETR's three stage shapes (its first three ``WA_CASES``), fp32 and
   bf16, masked and not: the kernel held against its plain version and
@@ -77,10 +79,11 @@ def main(argv=None) -> int:
                         help="the checkout whose chip_smoke.py and kernels run "
                              "(default: this one)")
     parser.add_argument("--phase", default="6",
-                        choices=("5", "5b", "9", "wa", "6", "6b", "6k",
-                                 "6kn", "8", "8b", "8f"),
+                        choices=("5", "5b", "9", "9n", "wa", "6", "6b",
+                                 "6k", "6kn", "8", "8b", "8f"),
                         help="5: AMOS-CT serving; 5b: the same with conv_na; "
-                             "9: BCV SwinUNETR serving; wa: the window "
+                             "9: BCV SwinUNETR serving; 9n: BCV nnFormer "
+                             "serving; wa: the window "
                              "attention at SwinUNETR's shapes; "
                              "6: the flagship 3D recipe; 6b: the same with "
                              "conv_na (the fused preact conv); 6k: the KiTS "
@@ -107,7 +110,7 @@ def main(argv=None) -> int:
     _build.library()
     os.makedirs(smoke.WORK, exist_ok=True)
     name = f"step{args.phase}_{os.getpid()}_{int(time.time())}"
-    if args.phase in ("5", "5b", "9"):
+    if args.phase in ("5", "5b", "9", "9n"):
         return serve(smoke, device, args, root, name)
     if args.phase == "wa":
         print(f"{root} phase wa: {smoke.card_line()}", flush=True)
@@ -155,11 +158,11 @@ def main(argv=None) -> int:
 
 
 def serve(smoke, device, args, root: str, name: str) -> int:
-    """Phase 5, 5b or 9 of the checkout's ``chip_smoke``: serve its
-    requests once (timed), and again under the profiler with
+    """Phase 5, 5b, 9 or 9n of the checkout's ``chip_smoke``: serve phase
+    5's requests once (timed), and again under the profiler with
     ``--profile``."""
-    cfg = (dict(smoke.BCV) if args.phase == "9" else
-           dict(smoke.AMOS, conv_na=args.phase == "5b"))
+    cfg = {"9": smoke.BCV, "9n": smoke.BCV_NN}.get(args.phase) or \
+        dict(smoke.AMOS, conv_na=args.phase == "5b")
     prof = os.path.abspath(args.profile) if args.profile else None
     res = smoke.phase_slice(device, cfg, smoke.REQUESTS, smoke.TARGET_SPACING,
                             name, (), prof)

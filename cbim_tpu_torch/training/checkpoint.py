@@ -8,9 +8,12 @@ and renamed, so a reader never sees a torn file.
 
 :func:`load_weights` is the one loader of model weights that the
 prediction CLI and the trainer's ``init_model`` share.  It reads this
-port's ``.ckpt``, the reference trainer's wrapper and bare ``.pth``
-state_dicts.  The JAX package's Flax msgpack ``.ckpt`` files share the
-extension but do not load here yet (ROADMAP.md, A5).
+port's ``.ckpt``, the reference trainer's wrapper, MONAI's
+``{"state_dict": ...}`` and bare ``.pth`` state_dicts, with or without
+DataParallel's ``module.`` prefix (``training.pretrained`` routes the
+backbone files that initialise only part of a model).  The JAX package's
+Flax msgpack ``.ckpt`` files share the extension but do not load here yet
+(ROADMAP.md, A5).
 """
 
 from __future__ import annotations
@@ -25,9 +28,11 @@ from .train_state import TrainState
 
 #: the file extensions :func:`load_weights` reads (``torch.save`` payloads)
 WEIGHT_SUFFIXES = (".pth", ".pt", ".ckpt")
-#: the keys a reference state_dict may carry that the port's models keep as
-#: non-persistent buffers (the Swin family's relative-position index, C8)
-DROPPED_KEY = "relative_position_index"
+#: the keys a reference state_dict may carry that the port's models build
+#: from the geometry instead: the Swin family's relative-position index, a
+#: non-persistent buffer here (C8), and the shifted-window mask that the
+#: vendored SwinUnet keeps as a buffer (region ids here)
+DROPPED_KEYS = ("relative_position_index", "attn_mask")
 
 
 def save_checkpoint(path: str, state: TrainState, epoch: int) -> None:
@@ -57,44 +62,62 @@ def load_checkpoint(path: str, state: TrainState) -> tuple[TrainState, int]:
     return state, int(payload["epoch"])
 
 
-def read_state_dict(path: str, prefer_ema: bool = False) -> dict:
-    """The model state_dict a weights file holds, by its content:
+def read_payload(path: str):
+    """What ``torch.save`` wrote to a weights file.  A suffix the port does
+    not load raises, and so does a ``.ckpt`` that is not a zip archive (the
+    JAX package's Flax msgpack)."""
+    if not str(path).endswith(WEIGHT_SUFFIXES):
+        raise NotImplementedError(
+            f"{path}: the port loads {', '.join(WEIGHT_SUFFIXES)} weights; "
+            f"the .npz loader comes with its model (see ROADMAP.md)")
+    if str(path).endswith(".ckpt") and not zipfile.is_zipfile(path):
+        raise NotImplementedError(
+            f"{path}: a Flax msgpack .ckpt of the JAX package; loading it "
+            f"into the port is ROADMAP.md A5 (checkpoint interop)")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def state_dict_of(payload, prefer_ema: bool = False) -> dict:
+    """The model state_dict a payload holds, by its content:
 
     - this port's ``.ckpt`` ({epoch, step, model, ema, optimizer}): ``ema``
       when ``prefer_ema`` and it is not None, else ``model``;
     - the reference trainer's wrapper ({model_state_dict,
       ema_model_state_dict, ...}): the EMA weights when present, as
       ``cbim_tpu.utils.torch_import.load_torch_state_dict`` takes them;
+    - MONAI's ({state_dict, ...}): ``state_dict``;
     - a bare state_dict: as it is.
 
-    An EMA state_dict carries the trained BatchNorm running statistics (the
-    EMA copies buffers).  ``torch.save`` writes a zip archive; a ``.ckpt``
-    that is not one is the JAX package's Flax msgpack and raises."""
-    if not str(path).endswith(WEIGHT_SUFFIXES):
-        raise NotImplementedError(
-            f"{path}: the port loads {', '.join(WEIGHT_SUFFIXES)} weights; "
-            f"the .npz and swin backbone loaders come with their models "
-            f"(see ROADMAP.md)")
-    if str(path).endswith(".ckpt") and not zipfile.is_zipfile(path):
-        raise NotImplementedError(
-            f"{path}: a Flax msgpack .ckpt of the JAX package; loading it "
-            f"into the port is ROADMAP.md A5 (checkpoint interop)")
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+    A state_dict saved from ``nn.DataParallel`` (every key ``module.*``)
+    loses that prefix.  An EMA state_dict carries the trained BatchNorm
+    running statistics (the EMA copies buffers)."""
+    sd = payload
     if isinstance(payload, dict) and isinstance(payload.get("model"), dict):
         ema = payload.get("ema")
-        return ema if prefer_ema and ema is not None else payload["model"]
-    if isinstance(payload, dict) and "model_state_dict" in payload:
-        return (payload.get("ema_model_state_dict")
-                or payload["model_state_dict"])
-    return payload
+        sd = ema if prefer_ema and ema is not None else payload["model"]
+    elif isinstance(payload, dict) and "model_state_dict" in payload:
+        sd = (payload.get("ema_model_state_dict")
+              or payload["model_state_dict"])
+    elif isinstance(payload, dict) and isinstance(payload.get("state_dict"),
+                                                  dict):
+        sd = payload["state_dict"]
+    if sd and all(str(k).startswith("module.") for k in sd):
+        sd = {k[len("module."):]: v for k, v in sd.items()}
+    return sd
+
+
+def read_state_dict(path: str, prefer_ema: bool = False) -> dict:
+    """The model state_dict of a weights file (:func:`read_payload`,
+    :func:`state_dict_of`)."""
+    return state_dict_of(read_payload(path), prefer_ema)
 
 
 def load_weights(path: str, model: nn.Module, prefer_ema: bool = False
                  ) -> None:
     """Load the state_dict of ``path`` (:func:`read_state_dict`) into
-    ``model``, strictly but for the ``relative_position_index`` buffers of
-    a reference Swin checkpoint, which the port rebuilds: any other unknown
-    or missing key raises."""
+    ``model``, strictly but for the buffers a reference Swin checkpoint
+    carries and the port rebuilds (``DROPPED_KEYS``): any other unknown or
+    missing key raises."""
     sd = read_state_dict(path, prefer_ema)
     model.load_state_dict({k: v for k, v in sd.items()
-                           if k.rsplit(".", 1)[-1] != DROPPED_KEY})
+                           if k.rsplit(".", 1)[-1] not in DROPPED_KEYS})

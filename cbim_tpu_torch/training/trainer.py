@@ -31,7 +31,8 @@ from ..ops._backend import get_device
 from ..utils.logging import (AverageMeter, MetricWriter, ProgressMeter,
                              log_evaluation_result)
 from ..utils.profiling import StepProfiler
-from .checkpoint import load_checkpoint, load_weights, save_checkpoint
+from .checkpoint import load_checkpoint, save_checkpoint
+from .pretrained import load_init_model
 from .schedules import exp_lr_scheduler_with_warmup
 from .train_state import create_train_state, eval_variables, make_train_step
 from .validation import filter_validation_results, validate
@@ -39,11 +40,13 @@ from .validation import filter_validation_results, validate
 
 def load_pretrained(cfg, state) -> None:
     """Initialise the model (and its EMA copy) from ``cfg.init_model``
-    through ``checkpoint.load_weights``, the prediction CLI's loader: a
-    port ``.ckpt`` or a reference wrapper gives its EMA weights (the eval
-    convention of ``cbim_tpu``'s torch import), a ``.pth`` state_dict
-    itself."""
-    load_weights(str(cfg.init_model), state.model, prefer_ema=True)
+    through ``pretrained.load_init_model``: a backbone file the model
+    takes (SwinUNETR's self-supervised swin-vit, SwinUnet's swin-tiny)
+    sets that part, anything else goes through ``checkpoint.load_weights``,
+    the prediction CLI's loader (a port ``.ckpt`` or a reference wrapper
+    gives its EMA weights, the eval convention of ``cbim_tpu``'s torch
+    import; a ``.pth`` state_dict itself)."""
+    load_init_model(str(cfg.init_model), state.model, cfg.model)
     if state.ema is not None:
         state.ema.load_state_dict(state.model.state_dict())
 

@@ -1,9 +1,9 @@
-"""Flax MedFormer, SwinUNETR and VT-UNet variables -> this port's
-state_dict.
+"""Flax MedFormer, SwinUNETR, VT-UNet, nnFormer and SwinUnet variables ->
+this port's state_dict.
 
 The exact inverses of ``cbim_tpu.utils.torch_import.import_medformer3d``,
-``import_medformer2d``, ``import_swin_unetr`` and ``import_vtunet``: the
-same walks over the
+``import_medformer2d``, ``import_swin_unetr``, ``import_vtunet``,
+``import_nnformer3d`` and ``import_swinunet``: the same walks over the
 tree, with each layout transform undone
 
     conv:           (*k, I, O) -> (O, I, *k)
@@ -32,6 +32,8 @@ import numpy as np
 import torch
 
 from ..models import DEFAULT_CHAN_NUM
+from ..models.nnformer import DEPTHS as NNFORMER_DEPTHS
+from ..models.swin_unet import DEPTHS as SWINUNET_DEPTHS
 from ..models.swin_unetr import DEPTHS as SWIN_DEPTHS
 from ..models.vtunet import DEPTHS as VTUNET_DEPTHS
 
@@ -209,18 +211,22 @@ class _Walk:
         if bias:
             self.raw((*path, "bias"), f"{tkey}.bias")
 
-    def swin_block(self, path, tkey):
-        """A SwinBlock: LayerNorm_0, WindowAttention_0, LayerNorm_1 and the
-        MLP's Dense_0/Dense_1 -> ``tkey``.{norm1, attn.*, norm2, mlp.*}."""
-        attn = (*path, "WindowAttention_0")
+    def swin_block(self, path, tkey, attn_name="WindowAttention_0",
+                   qkv="qkv", mlp=("linear1", "linear2")):
+        """A SwinBlock (or nnFormer's block: ``attn_name``
+        _WindowAttentionNF_0, ``qkv`` "kv" in kv mode): LayerNorm_0, the
+        attention, LayerNorm_1 and the MLP's Dense_0/Dense_1 ->
+        ``tkey``.{norm1, attn.*, norm2, mlp.*}, the MLP's two linears named
+        ``mlp`` (MONAI's, or the official Swin's fc1/fc2)."""
+        attn = (*path, attn_name)
         self.layer_norm((*path, "LayerNorm_0"), f"{tkey}.norm1")
-        self.dense((*attn, "Dense_0"), f"{tkey}.attn.qkv")
+        self.dense((*attn, "Dense_0"), f"{tkey}.attn.{qkv}")
         self.raw((*attn, "relative_position_bias_table"),
                  f"{tkey}.attn.relative_position_bias_table")
         self.dense((*attn, "Dense_1"), f"{tkey}.attn.proj")
         self.layer_norm((*path, "LayerNorm_1"), f"{tkey}.norm2")
-        self.dense((*path, "Dense_0"), f"{tkey}.mlp.linear1")
-        self.dense((*path, "Dense_1"), f"{tkey}.mlp.linear2")
+        self.dense((*path, "Dense_0"), f"{tkey}.mlp.{mlp[0]}")
+        self.dense((*path, "Dense_1"), f"{tkey}.mlp.{mlp[1]}")
 
     def swin_block_vt(self, path, tkey):
         """A VT-UNet SwinBlockVT: norm1, WindowAttentionVT_0 (Dense_0 the
@@ -440,5 +446,105 @@ def vtunet_state_dict_from_jax(params, depths=VTUNET_DEPTHS) -> dict:
     t.layer_norm(("LayerNorm_2",), f"{pre}.norm_up")
     t.dense(("FinalPatchExpand_0", "Dense_0"), f"{pre}.up.expand", bias=False)
     t.layer_norm(("FinalPatchExpand_0", "LayerNorm_0"), f"{pre}.up.norm")
+    t.conv(("Conv_1", "kernel"), f"{pre}.output.weight")
+    return t.state_dict()
+
+
+def nnformer_state_dict_from_jax(params, depths=NNFORMER_DEPTHS) -> dict:
+    """Flax NNFormer params (nested dicts of arrays, deep supervision on)
+    -> state_dict, with the reference's names (the keys
+    ``import_nnformer3d`` reads).  Flax numbers the blocks encoder first,
+    then decoder stage by stage, coarsest first; the reference builds
+    ``decoder.layers`` reversed, so decoder stage j is ``decoder.layers.{nu
+    - 1 - j}``, and the heads, created coarsest first, are ``final.{nu - 1
+    - k}``."""
+    t = _Walk(params)
+    pe = "model_down.patch_embed"
+    for pi in (0, 1):
+        proj, tkey = (f"_Project_{pi}",), f"{pe}.proj{pi + 1}"
+        for ci in (0, 1):
+            t.conv((*proj, f"Conv_{ci}", "kernel"),
+                   f"{tkey}.conv{ci + 1}.weight")
+            t.raw((*proj, f"Conv_{ci}", "bias"), f"{tkey}.conv{ci + 1}.bias")
+        t.layer_norm((*proj, "LayerNorm_0"), f"{tkey}.norm1")
+        if t.has((*proj, "LayerNorm_1")):
+            t.layer_norm((*proj, "LayerNorm_1"), f"{tkey}.norm2")
+    t.layer_norm(("LayerNorm_0",), f"{pe}.norm")
+
+    nf = "_WindowAttentionNF_0"
+    fc = ("fc1", "fc2")
+    bi = 0
+    for i, depth in enumerate(depths):
+        for b in range(depth):
+            t.swin_block((f"_NFBlock_{bi}",),
+                         f"model_down.layers.{i}.blocks.{b}", nf, mlp=fc)
+            bi += 1
+        t.layer_norm((f"LayerNorm_{1 + i}",), f"model_down.norm{i}")
+        if i < len(depths) - 1:
+            pm, down = (f"_PatchMergingNF_{i}",), \
+                f"model_down.layers.{i}.downsample"
+            t.layer_norm((*pm, "LayerNorm_0"), f"{down}.norm")
+            t.conv((*pm, "Conv_0", "kernel"), f"{down}.reduction.weight")
+            t.raw((*pm, "Conv_0", "bias"), f"{down}.reduction.bias")
+
+    dec_depths = list(depths[::-1][1:])
+    nu = len(dec_depths)
+    for j, depth in enumerate(dec_depths):
+        tl, up = f"decoder.layers.{nu - 1 - j}", (f"_PatchExpandingNF_{j}",)
+        t.layer_norm((*up, "LayerNorm_0"), f"{tl}.Upsample.norm")
+        t.conv_transpose((*up, "ConvTranspose_0", "kernel"),
+                         f"{tl}.Upsample.up.weight")
+        t.raw((*up, "ConvTranspose_0", "bias"), f"{tl}.Upsample.up.bias")
+        for b in range(depth):
+            t.swin_block((f"_NFBlock_{bi}",), f"{tl}.blocks.{b}", nf,
+                         qkv="kv" if b == 0 else "qkv", mlp=fc)
+            bi += 1
+    for k in range(nu):
+        t.conv_transpose((f"ConvTranspose_{k}", "kernel"),
+                         f"final.{nu - 1 - k}.up.weight")
+        t.raw((f"ConvTranspose_{k}", "bias"), f"final.{nu - 1 - k}.up.bias")
+    return t.state_dict()
+
+
+def swinunet_state_dict_from_jax(params, depths=SWINUNET_DEPTHS) -> dict:
+    """Flax SwinUnet2D params (nested dicts of arrays) -> state_dict, with
+    the reference's names (the keys ``import_swinunet`` reads).  Flax
+    numbers the blocks encoder first, then decoder stage by stage; the
+    decoder's stage ``inx`` (1..) runs encoder stage ``len(depths) - 1 -
+    inx``'s depth."""
+    t = _Walk(params)
+    pre = "swin_unet"
+    fc = ("fc1", "fc2")
+    t.conv(("Conv_0", "kernel"), f"{pre}.patch_embed.proj.weight")
+    t.raw(("Conv_0", "bias"), f"{pre}.patch_embed.proj.bias")
+    t.layer_norm(("LayerNorm_0",), f"{pre}.patch_embed.norm")
+    bi = 0
+    for i, depth in enumerate(depths):
+        for b in range(depth):
+            t.swin_block((f"SwinBlock_{bi}",),
+                         f"{pre}.layers.{i}.blocks.{b}", mlp=fc)
+            bi += 1
+        if i < len(depths) - 1:
+            t.patch_merging((f"PatchMergingLegacy_{i}",),
+                            f"{pre}.layers.{i}.downsample")
+    t.layer_norm(("LayerNorm_1",), f"{pre}.norm")
+    t.dense(("PatchExpand2D_0", "Dense_0"), f"{pre}.layers_up.0.expand",
+            bias=False)
+    t.layer_norm(("PatchExpand2D_0", "LayerNorm_0"), f"{pre}.layers_up.0.norm")
+    for inx in range(1, len(depths)):
+        t.dense((f"Dense_{inx - 1}",), f"{pre}.concat_back_dim.{inx}")
+        for b in range(depths[len(depths) - 1 - inx]):
+            t.swin_block((f"SwinBlock_{bi}",),
+                         f"{pre}.layers_up.{inx}.blocks.{b}", mlp=fc)
+            bi += 1
+        if inx < len(depths) - 1:
+            pe = (f"PatchExpand2D_{inx}",)
+            up = f"{pre}.layers_up.{inx}.upsample"
+            t.dense((*pe, "Dense_0"), f"{up}.expand", bias=False)
+            t.layer_norm((*pe, "LayerNorm_0"), f"{up}.norm")
+    t.layer_norm(("LayerNorm_2",), f"{pre}.norm_up")
+    t.dense(("FinalPatchExpandX4_0", "Dense_0"), f"{pre}.up.expand",
+            bias=False)
+    t.layer_norm(("FinalPatchExpandX4_0", "LayerNorm_0"), f"{pre}.up.norm")
     t.conv(("Conv_1", "kernel"), f"{pre}.output.weight")
     return t.state_dict()

@@ -35,8 +35,10 @@ Phases, each printing its result; any failure raises and exits non-zero:
    a shifted-window mask, beside ``F.scaled_dot_product_attention`` on the
    same bias, in fp32 its error against an fp64 evaluation at most twice
    SDPA fp32's, SwinUNETR's three shapes, the split-on-load shape and
-   VT-UNet's timed; the fused preact conv's kernels at the 3^3 conv shapes,
-   relu and gelu, on the route of ``conv3d_route`` (at widths of
+   VT-UNet's, nnFormer's (N = 64, D = 32) and SwinUnet's (N = 49, D = 32,
+   2D region ids) first stages timed; the fused preact conv's kernels at
+   the 3^3 conv shapes, relu and gelu, on the route of ``conv3d_route``
+   (timed at the JSON records' cases only; at widths of
    multiples of 8 bf16: ``conv3d_same_na_fwd_tc`` and
    ``conv3d_wgrad_na_tc``, fp32: ``conv3d_same_na_fwd_tf32`` and
    ``conv3d_wgrad_na_tf32``, with the CUDA-core fused pair they replace
@@ -71,7 +73,7 @@ Phases, each printing its result; any failure raises and exits non-zero:
    eval-mode softmax, then one train-mode fp32 step; with ``conv2d_kernel``
    on, as phases 7 and 8 (the 3x3 kernel route is opt-in, as the JAX
    package's ``CBIM_PLCONV2D=1``): fp32 on the 3xTF32 3x3 kernels only;
-4d. a small SwinUNETR (feature size 48, on 2 x 64^3 and 1 x 32^3), card
+4d. a small SwinUNETR (feature size 48, on 2 x 32^3), card
    (window-attention kernel) vs CPU (plain version): softmax outputs; then
    one fp32 train step on 2 x 32^3, card vs CPU, the loss and every
    gradient compared, with no window-attention launch (training mode takes
@@ -86,6 +88,15 @@ Phases, each printing its result; any failure raises and exits non-zero:
    encoder blocks, 6 decoder blocks attending to themselves and to the
    encoder's cache); then one fp32 train step with ``drop_path_rate`` 0,
    the loss and every gradient compared, no window-attention launch;
+4g. a small nnFormer (embedding 48, head dim 16, the reference's windows,
+   on 2 x 32 x 64 x 64), card vs CPU: every head's eval softmax through the
+   kernel, 14 launches (8 encoder blocks, 6 decoder blocks, the first of
+   each decoder stage attending from the upsampled path to the skip's k
+   and v); then one fp32 train step with ``drop_path_rate`` 0, the loss
+   and every gradient compared, no window-attention launch;
+4h. the same for a SwinUnet-2D at the reference's width (embedding 96,
+   head dim 32, on 2 x 128^2): 22 launches a forward (12 encoder blocks,
+   10 decoder blocks), 2D region ids;
 5. serving: the full-width AMOS-CT MedFormer-3D with seeded random weights
    serves two synthetic NIfTI requests through
    ``cbim_tpu_torch.prediction.main``; every forward kernel must have
@@ -135,10 +146,10 @@ Phases, each printing its result; any failure raises and exits non-zero:
    launches and no other 3^3 launch (the CUDA-core ``conv3d_wgrad_na``
    none); sec/step beside phase 6k's;
 6a. the ACDC-3D recipe (``configs/acdc/medformer_3d.yaml``: 16 x 192 x 192
-   crops, 4 classes, fp32, batch 2) for 6 steps on 6 written cases of two
+   crops, 4 classes, fp32, batch 2) for 4 steps on 6 written cases of two
    frames: the pipeline took the device cache and its full-volume path (one
    full-volume resample a step), every loss finite; sec/step (median of
-   4) and the batches' time alone;
+   2) and the batches' time alone;
 7. 2D serving: the full-width ACDC MedFormer-2D with seeded random weights
    serves two synthetic cine-MR NIfTI requests through
    ``cbim_tpu_torch.prediction.main --dimension 2d`` (every slice of a
@@ -165,10 +176,18 @@ Phases, each printing its result; any failure raises and exits non-zero:
    slice of a volume the batch, centre-cropped to 256^2, whole image), in
    bf16 on the 3x3 kernel route: 14 ``conv2d_same_fwd_tc`` launches per
    evaluation forward; seconds per volume as in 6v;
+7s. SwinUnet-2D serving: ``configs/acdc/swinunet_2d.yaml`` (224^2, 4
+   classes, fp32) with seeded random weights serves phase 7's two
+   requests through ``prediction.main --model swinunet --dimension 2d``;
+   22 window-attention launches per forward;
+8s. the ACDC SwinUnet recipe as shipped (fp32, stochastic depth 0.1)
+   trains one epoch of 4 batch-32 steps on ``Synthetic2D``: every loss
+   finite, DropPath drew its masks, no window-attention launch in a step;
 9. Swin serving: the full-width BCV SwinUNETR (``configs/bcv/
    swin_unetr_3d.yaml``: 14 classes, feature size 48, 128^3 window, fp32)
-   with seeded random weights serves phase 5's two requests through
-   ``cbim_tpu_torch.prediction.main --model swin_unetr``; the window-
+   with seeded random weights serves phase 5's first request
+   (``SWIN_REQUESTS``) through ``cbim_tpu_torch.prediction.main --model
+   swin_unetr``; the window-
    attention kernel must have launched once per Swin block of every
    forward, 6 per forward;
 9t. the BCV SwinUNETR recipe as a user trains it
@@ -179,10 +198,18 @@ Phases, each printing its result; any failure raises and exits non-zero:
    step; sec/step and peak memory;
 9u. the full-width BCV VT-UNet (``configs/bcv/vtunet_3d.yaml``: patch 4,
    64 x 128 x 128 window, fp32) with seeded random weights serves phase
-   5's two requests; 19 window-attention launches per forward;
+   9's request; 19 window-attention launches per forward;
 9ut. the BCV VT-UNet recipe as shipped (stochastic depth 0.1) trains 4
    steps at batch 2 on phase 9t's cases: every loss finite, DropPath drew
    its masks, no window-attention launch in a step;
+9n. the full-width BCV nnFormer (``configs/bcv/nnformer_3d.yaml``:
+   embedding 192, patch (2, 4, 4), 128^3 window, three heads, fp32) with
+   seeded random weights serves phase 9's request (head 0); 14
+   window-attention launches per forward (N = 512 at stage 2 and its
+   decoder stage, on the fp32 split-on-load staging; N = 64 elsewhere);
+9nt. the BCV nnFormer recipe as shipped (deep supervision, stochastic
+   depth 0.2) trains 4 steps at batch 2 on phase 9t's cases: every loss
+   finite, DropPath drew its masks, no window-attention launch in a step;
 10. the probes (``cbim_tpu_torch.tools``, the port of the JAX package's TPU
    probes in ``tools/``): ``probe_bandwidth``, ``probe_lhst_dot`` and
    ``probe_conv_dissect`` run at their full sizes, each of the four probe
@@ -195,8 +222,8 @@ Phases, each printing its result; any failure raises and exits non-zero:
    timed beside the rungs), with its time, bound, plain and library
    times.
 
-Each of phases 4e and 5-10 (5b, 6b, 6v, 6k, 6kn, 6a, 7b, 8b, 8f, 8v, 9t,
-9u and 9ut included) sets
+Each of phases 4e and 5-10 (5b, 6b, 6v, 6k, 6kn, 6a, 7b, 8b, 8f, 8v, 7s,
+8s, 9t, 9u, 9ut, 9n and 9nt included) sets
 the launch counters to 0 just before it and reads them just after.  The
 last three
 lines are the card's name and power limit, the kernels' JSON record
@@ -207,7 +234,7 @@ Usage: python3 chip_smoke.py [--profile DIR]
 
 ``--profile DIR`` also traces the steady steps of phases 6, 6b, 6k, 6kn,
 6a, 8, 8b and 8f with the trainer's profiler hook (``profile_dir``), and the
-requests of phases 5, 5b and 9 served a second time, after the timed run:
+requests of phases 5, 5b, 9 and 9n served a second time, after the timed run:
 DIR/<phase>/kernels.txt and summary.json, and the top kernels by device
 time are printed; for 5 and 5b also the 3^3 forwards' shapes and counts.
 """
@@ -407,17 +434,25 @@ WA_CASES = [((1000, 3, 343, 16), (70, 70, 70), (7, 7, 7)),
             # VT-UNet's first stage at the BCV recipe (64 x 128 x 128,
             # patch 4: a 16 x 32 x 32 token grid padded to 21 x 35 x 35),
             # batch 2
-            ((150, 3, 343, 32), (21, 35, 35), (7, 7, 7))]
+            ((150, 3, 343, 32), (21, 35, 35), (7, 7, 7)),
+            # nnFormer's first stage at the BCV recipe (128^3, patch
+            # (2, 4, 4): a 64 x 32 x 32 token grid, windows of 4), batch 2
+            ((2048, 6, 64, 32), (64, 32, 32), (4, 4, 4)),
+            # SwinUnet's first stage at the ACDC recipe (224^2, patch 4: a
+            # 56^2 grid, windows of 7, 2D region ids; N = 49 pads to 64
+            # keys), a training batch of 32 slices
+            ((2048, 3, 49, 32), (56, 56), (7, 7))]
 #: the case of the JSON record: SwinUNETR's first stage, shifted, fp32
 WA_RECORD = ((1000, 3, 343, 16), True, "float32")
 #: the split-on-load staging's case, kept in the record beside it
 WA_SPLIT_RECORD = ((16, 24, 512, 32), True, "float32")
 #: the shapes whose kernel, SDPA and plain times phase 3 takes: SwinUNETR's
-#: three stages, the split-on-load shape and VT-UNet's first stage (the
-#: other shapes are checked and not timed, which keeps the script within
-#: its budget)
+#: three stages, the split-on-load shape, VT-UNet's, nnFormer's and
+#: SwinUnet's first stages (the other shapes are checked and not timed,
+#: which keeps the script within its budget)
 WA_TIMED = ((1000, 3, 343, 16), (125, 6, 343, 16), (27, 12, 343, 16),
-            (16, 24, 512, 32), (150, 3, 343, 32))
+            (16, 24, 512, 32), (150, 3, 343, 32), (2048, 6, 64, 32),
+            (2048, 3, 49, 32))
 #: the exponentials' bound beside the window attention's: the SFU's 16 a
 #: clock on each of the 132 SMs at the H100 SXM's 1.98 GHz boost clock
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
@@ -573,6 +608,11 @@ AMOS = dict(
 REQUESTS = [((160, 256, 256), (1.5, 1.5, 1.5)),
             ((96, 200, 200), (2.5, 1.9, 1.9))]
 TARGET_SPACING = "1.5,1.5,1.5"
+#: the Swin serving phases' request (9, 9u, 9n): phase 5's first, the AMOS
+#: evaluation volume.  The second (its host resampling, 3.5-4 s of each
+#: phase, and no other model shape) stays in phase 5 alone, to keep the
+#: script within its time
+SWIN_REQUESTS = REQUESTS[:1]
 
 #: a narrow MedFormer-2D with the ACDC recipe's structure plus the JAX
 #: default's conv blocks in down2/up2 (phase 4c), on the 3x3 kernel route
@@ -589,10 +629,12 @@ SMALL2D = dict(
 SMALL_SWIN = dict(dataset="synthetic", model="swin_unetr", dimension="3d",
                   classes=14, in_chan=1, base_chan=48,
                   training_size=[64, 64, 64])
-#: its inputs: 64^3 (padded windows, shifted masks at every stage, batch 2
-#: so the mask's window index wraps at b % nW) and 32^3 (the last stage's
-#: window shrinks to 4^3 and its bias-table index to [:64, :64])
-SMALL_SWIN_SHAPES = [(2, 1, 64, 64, 64), (1, 1, 32, 32, 32)]
+#: its input: 2 x 32^3 (windows of 7 padded to 21^3 and 14^3 with shifted
+#: masks at the first two stages, batch 2 so the mask's window index wraps
+#: at b % nW; the third stage's window shrinks to 4^3 and its bias-table
+#: index to [:64, :64]); 2 x 64^3, which also shifts the third stage, was
+#: dropped to keep the script within its time
+SMALL_SWIN_SHAPES = [(2, 1, 32, 32, 32)]
 #: its train step's batch (phase 4d): the training route, no kernel
 SMALL_SWIN_STEP = (2, 1, 32, 32, 32)
 #: a VT-UNet at the BCV width (embedding 96: head dim 32 at every stage),
@@ -619,6 +661,40 @@ BCV_VT = dict(dataset="bcv", model="vtunet", dimension="3d", classes=14,
 #: window-attention launches per VT-UNet forward: 7 encoder blocks, and 6
 #: decoder blocks that attend twice (themselves, the encoder's cache)
 VT_ATTENTIONS = 19
+#: an nnFormer at the synthetic recipe's widths (embedding 48, heads 3-24:
+#: head dim 16 at every stage) with the reference's windows (4, 4, 8, 4),
+#: cut in input size, no stochastic depth (phase 4g): 32 x 64 x 64 crops
+#: are a 16^3 token grid, shifted windows of 4 at stages 0 and 1, windows
+#: shrunk to 4 (N = 64) and 2 below; batch 2 so the region ids wrap
+SMALL_NN = dict(dataset="synthetic", model="nnformer", dimension="3d",
+                classes=14, in_chan=1, embedding_dim=48,
+                nnformer_num_heads=[3, 6, 12, 24], drop_path_rate=0.0,
+                aux_loss=True, training_size=[32, 64, 64],
+                window_size=[32, 64, 64])
+SMALL_NN_SHAPE = (2, 1, 32, 64, 64)
+#: the model and inference keys of configs/bcv/nnformer_3d.yaml (phase 9n)
+BCV_NN = dict(dataset="bcv", model="nnformer", dimension="3d", classes=14,
+              in_chan=1, aux_loss=True, training_size=[128, 128, 128],
+              sliding_window=True, window_size=[128, 128, 128])
+#: window-attention launches per nnFormer forward: 8 encoder blocks, 6
+#: decoder blocks (at the BCV crop: N = 512 at stage 2 and its decoder
+#: stage, N = 64 elsewhere, D = 32)
+NN_ATTENTIONS = 14
+#: a SwinUnet at the reference's width (embedding 96: head dim 32 at every
+#: stage), cut in input size (phase 4h): 128^2 is a 32^2 token grid,
+#: shifted windows of 7 padded to 35^2, 21^2 and 14^2, shrunk to 4^2 at
+#: stage 3; batch 2 so the region ids wrap
+SMALL_SU = dict(dataset="synthetic", model="swinunet", dimension="2d",
+                classes=4, in_chan=1, drop_path_rate=0.0,
+                training_size=[128, 128])
+SMALL_SU_SHAPE = (2, 1, 128, 128)
+#: the model and inference keys of configs/acdc/swinunet_2d.yaml (phases 7s
+#: and 8s; validation serves whole images, the CLI a 224^2 window)
+ACDC_SU = dict(dataset="acdc", model="swinunet", dimension="2d", classes=4,
+               in_chan=1, training_size=[224, 224], sliding_window=False)
+#: window-attention launches per SwinUnet forward: 12 encoder blocks and 10
+#: decoder blocks (the decoder reuses the encoder's depths)
+SU_ATTENTIONS = 22
 #: phases 9t and 9ut: the BCV recipes as shipped (SwinUNETR: 128^3 crops;
 #: VT-UNet: 64 x 128 x 128, stochastic depth 0.1), fp32, batch 2, BCV_STEPS
 #: steps on 5 written HU-like cases (abdominal CT resampled to about 1.5
@@ -663,6 +739,12 @@ ACDC_TRAIN = dict(
     gaussian_noise_std=0.02, synthetic_cases=40, k_fold=5, split_seed=0,
     epochs=1, print_freq=1, val_freq=2)
 TRAIN2D_BATCH = 32
+#: phase 8s: configs/acdc/swinunet_2d.yaml as shipped on Synthetic2D
+#: (224^2: 280^2 slices of 6), fold 0 of 5 of SU_TRAIN_CASES cases: 22
+#: training cases, 132 slices, SU_STEPS (4) steps at batch 32; its val_freq
+#: (10) is above the one epoch
+SU_TRAIN_CASES = 27
+SU_STEPS = 6 * 22 // TRAIN2D_BATCH
 #: phase 8v: the ACDC recipe on 10 cases, fold 0 of 5 (48 slices: one step
 #: at batch 32), then the EMA model's evaluation of the 2 test volumes (6
 #: slices each, centre-cropped to 256^2: one whole-image forward a volume)
@@ -703,7 +785,9 @@ ACDC3D_CASES = [((10, 232, 216), (10.0, 1.5625, 1.5625)),
                 ((8, 224, 270), (10.0, 1.5625, 1.5625)),
                 ((11, 216, 200), (10.0, 1.5625, 1.5625)),
                 ((10, 256, 232), (10.0, 1.5625, 1.5625))]
-ACDC3D_STEPS = WARMUP_STEPS + 4
+#: (the median of 2 steps after warm-up, cut from 4 to keep the script
+#: within its time)
+ACDC3D_STEPS = WARMUP_STEPS + 2
 #: phases 6k and 6a: batches timed alone after the run (the data path's
 #: cost a step, beside the step that the trainer overlaps it with)
 DATA_BATCHES = 3
@@ -1155,7 +1239,8 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
     ``conv3d_same_na_fwd`` and ``conv3d_wgrad_na``) against their plain
     versions (``inorm_apply_plain`` then the plain conv or weight gradient),
     on inputs of mean 1.5 so that a padding normalised to act(-mean * rstd)
-    instead of 0 fails.  Each is timed beside the unfused pair of kernels it
+    instead of 0 fails.  At the JSON records' cases (NA_RECORD,
+    NA_TC_RECORD) each is timed beside the unfused pair of kernels it
     replaces (``inorm_apply`` + ``conv3d_same``, ``inorm_apply`` +
     ``conv3d_wgrad``, on the same route); where a case takes the
     tensor-core or TF32 route the CUDA-core fused kernels it replaces (the
@@ -1216,18 +1301,22 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
                     f64_wg = f64_errors(f"{kw} {case} {act}", dw, ref_dw,
                                         wgrad64(xn, g), f64_rec)
                     del xn
-                t_fwd = (
-                    cuda_ms(lambda: conv3d.conv3d_same_na(x, mean, rstd, w,
-                                                          act), n),
-                    cuda_ms(lambda: conv3d.conv3d_same(normed(), w), n),
-                    cuda_ms(lambda: conv3d.conv3d_same_na_plain(
-                        x, mean, rstd, w, act), plain_iters(n)))
-                t_wg = (
-                    cuda_ms(lambda: conv3d.conv3d_wgrad_na(x, mean, rstd, g,
-                                                           act), n),
-                    cuda_ms(lambda: conv3d.conv3d_wgrad(normed(), g), n),
-                    cuda_ms(lambda: conv3d.conv3d_wgrad_na_plain(
-                        x, mean, rstd, g, act), plain_iters(n)))
+                # timed at the JSON records' cases only (the checks run at
+                # every case), to keep the script within its time
+                timed = (case, dt, act) in (NA_RECORD, NA_TC_RECORD)
+                if timed:
+                    t_fwd = (
+                        cuda_ms(lambda: conv3d.conv3d_same_na(
+                            x, mean, rstd, w, act), n),
+                        cuda_ms(lambda: conv3d.conv3d_same(normed(), w), n),
+                        cuda_ms(lambda: conv3d.conv3d_same_na_plain(
+                            x, mean, rstd, w, act), plain_iters(n)))
+                    t_wg = (
+                        cuda_ms(lambda: conv3d.conv3d_wgrad_na(
+                            x, mean, rstd, g, act), n),
+                        cuda_ms(lambda: conv3d.conv3d_wgrad(normed(), g), n),
+                        cuda_ms(lambda: conv3d.conv3d_wgrad_na_plain(
+                            x, mean, rstd, g, act), plain_iters(n)))
                 core = {}
                 if route != conv3d.CUDA_CORE:
                     # the CUDA-core fused forward and wgrad the tensor-core
@@ -1245,33 +1334,41 @@ def phase_na_kernels(device, conv_cases, record: dict) -> None:
                         errs["conv3d_same_na_fwd"], cey)
                     errs["conv3d_wgrad_na"] = max(errs["conv3d_wgrad_na"],
                                                   cew)
-                    core[kf] = cuda_ms(lambda: conv3d._launch_fwd(
-                        x, w, "conv3d_same_na_fwd", na), n)
-                    core[kw] = cuda_ms(lambda: conv3d._launch_wgrad(
-                        x, g, na), n)
+                    if timed:
+                        core[kf] = cuda_ms(lambda: conv3d._launch_fwd(
+                            x, w, "conv3d_same_na_fwd", na), n)
+                        core[kw] = cuda_ms(lambda: conv3d._launch_wgrad(
+                            x, g, na), n)
                     del cy, cw
                 core_pair = ""
-                if route == conv3d.TF32X3:
+                if route == conv3d.TF32X3 and timed:
                     # the unfused pair on the CUDA-core conv, as served
                     # before the TF32 route
                     core["pair"] = cuda_ms(lambda: conv3d._launch_fwd(
                         normed(), w, "conv3d_same_fwd"), n)
                     core_pair = (f" CUDA-core unfused pair "
                                  f"{core['pair']:.3f} ms")
-                for key, (ms, pair_ms, plain_ms), err, scale, tol, ef in (
-                        (kf, t_fwd, ey, sy, CONV_TOL[dt], f64 + core_pair),
-                        (kw, t_wg, ew, sw, WGRAD_TOL, f64_wg)):
-                    extra = (f" CUDA-core {core[key]:.3f} ms "
-                             f"({core[key] / ms:.2f}x)" if key in core else "")
-                    say(f"  {key:23s} {dt:8s} {case} {act}: max_abs_err "
-                        f"{err:.3e} max_rel_err {err / scale:.3e} of max|ref| "
-                        f"{scale:.3f} (tol {tol:.1e}){ef} kernel {ms:.3f} ms "
-                        f"({flops / ms / 1e9:.1f} TFLOP/s) unfused pair "
-                        f"{pair_ms:.3f} ms ({ms / pair_ms:.2f}x) plain "
-                        f"{plain_ms:.3f} ms{extra}")
+                for key, times, err, scale, tol, ef in (
+                        (kf, t_fwd if timed else None, ey, sy, CONV_TOL[dt],
+                         f64 + core_pair),
+                        (kw, t_wg if timed else None, ew, sw, WGRAD_TOL,
+                         f64_wg)):
+                    line = (f"  {key:23s} {dt:8s} {case} {act}: max_abs_err "
+                            f"{err:.3e} max_rel_err {err / scale:.3e} of "
+                            f"max|ref| {scale:.3f} (tol {tol:.1e}){ef}")
+                    if times is not None:
+                        ms, pair_ms, plain_ms = times
+                        extra = (f" CUDA-core {core[key]:.3f} ms "
+                                 f"({core[key] / ms:.2f}x)" if key in core
+                                 else "")
+                        line += (f" kernel {ms:.3f} ms "
+                                 f"({flops / ms / 1e9:.1f} TFLOP/s) unfused "
+                                 f"pair {pair_ms:.3f} ms ({ms / pair_ms:.2f}x)"
+                                 f" plain {plain_ms:.3f} ms{extra}")
+                    say(line)
                     assert err <= tol * scale, f"{key} {dt} {case} {act}"
                     errs[key] = max(errs[key], err)
-                if (case, dt, act) in (NA_RECORD, NA_TC_RECORD):
+                if timed:
                     size, stat_bytes = x.element_size(), 2 * B * C * 4
                     fwd_bytes = (x.numel() + w.numel() + y.numel()) * size \
                         + stat_bytes
@@ -1834,8 +1931,11 @@ def phase_small_train_step(device, cfg_dict, shape, amp: bool = False
             for k, p in model.named_parameters()}
 
     # the CPU's fp32 step runs the plain versions whatever the card's route
-    # or autocast: one per config and shape serves every card step on it
-    key = (json.dumps(cfg_dict, sort_keys=True, default=str), tuple(shape))
+    # or autocast, and conv_na only picks the route (the same weights; the
+    # plain fused conv is the unfused pair's function): one per config but
+    # conv_na and shape serves every card step on it
+    key = (json.dumps({k: v for k, v in cfg_dict.items() if k != "conv_na"},
+                      sort_keys=True, default=str), tuple(shape))
     if key not in CPU_STEPS:
         CPU_STEPS[key] = step(cpu_model, torch.device("cpu"))
     (ref_loss, ref_grads), (loss, grads) = CPU_STEPS[key], step(dev_model,
@@ -2574,8 +2674,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="trace phases 6, 6b, 6k, 6kn, 6a, 8, 8b and 8f's "
-                             "steady steps, and the requests of phases 5, 5b "
-                             "and 9 served again, into DIR")
+                             "steady steps, and the requests of phases 5, 5b, "
+                             "9 and 9n served again, into DIR")
     args = parser.parse_args(argv)
 
     def profile_dir(name):
@@ -2796,6 +2896,27 @@ def main(argv=None) -> int:
         f"scale (tol {STEP_GRAD_RTOL:.0e}); {n_attn} window_attention "
         f"launches")
     assert n_attn == 0, n_attn
+
+    for tag, name, small, shape, per_forward in (
+            ("4g", "nnFormer", SMALL_NN, SMALL_NN_SHAPE, NN_ATTENTIONS),
+            ("4h", "SwinUnet", SMALL_SU, SMALL_SU_SHAPE, SU_ATTENTIONS)):
+        say(f"[phase {tag}] small {name}, card vs CPU")
+        reset_launch_counts()
+        err = phase_small_model(device, small, shape)
+        n_attn = launch_counts()["window_attention"]
+        say(f"  eval, {shape} softmax max abs err {err:.3e} (tol "
+            f"{MODEL_PROB_ATOL}); {n_attn} window_attention launches")
+        assert n_attn == per_forward, n_attn
+        reset_launch_counts()
+        loss_err, l2_err, grad_err = phase_small_train_step(device, small,
+                                                            shape)
+        n_attn = launch_counts()["window_attention"]
+        say(f"  train step, drop_path_rate 0, fp32: loss rel err "
+            f"{loss_err:.3e} (tol {STEP_LOSS_RTOL:.0e}); gradient rel L2 err "
+            f"{l2_err:.3e} (tol {STEP_GRAD_L2:.0e}); worst tensor err "
+            f"{grad_err:.3e} of its scale (tol {STEP_GRAD_RTOL:.0e}); "
+            f"{n_attn} window_attention launches")
+        assert n_attn == 0, n_attn
 
     say("[phase 5] AMOS-CT MedFormer-3D serving 2 NIfTI requests")
     res = phase_slice(device, AMOS, REQUESTS, TARGET_SPACING, "serve3d",
@@ -3105,9 +3226,37 @@ def main(argv=None) -> int:
     assert all(counts[k] == v for k, v in want.items()), (counts, want)
     launches["8v"] = counts
 
-    say("[phase 9] BCV SwinUNETR serving 2 NIfTI requests")
-    res = phase_slice(device, BCV, REQUESTS, TARGET_SPACING, "serve_swin",
-                      ("window_attention",), profile_dir("swin"))
+    say("[phase 7s] ACDC SwinUnet-2D (configs/acdc/swinunet_2d.yaml) serving "
+        "2 NIfTI requests (slice batch)")
+    res = phase_slice(device, ACDC_SU, REQUESTS_2D, TARGET_SPACING_2D,
+                      "serve_su", ("window_attention",))
+    say_serving(res)
+    n_attn = res["launches"]["window_attention"]
+    assert res["forwards"] > 0 and \
+        n_attn == SU_ATTENTIONS * res["forwards"], \
+        f"{n_attn} window-attention launches in {res['forwards']} forwards"
+    launches["7s"] = res["launches"]
+
+    say("[phase 8s] the ACDC SwinUnet-2D recipe as shipped, fp32, batch "
+        f"{TRAIN2D_BATCH}, stochastic depth 0.1, one epoch of Synthetic2D")
+    acdc_su = load_config("acdc", "swinunet", "2d",
+                          synthetic_cases=SU_TRAIN_CASES, k_fold=5, epochs=1,
+                          print_freq=1)
+    acdc_su.dataset = "synthetic"
+    with drop_path_recorder() as drops:
+        tr = phase_train(device, acdc_su, TRAIN2D_BATCH, "acdc_su", (),
+                         amp=False, min_steps=SU_STEPS)
+    say_train(tr, "slices")
+    say(f"  {drops['calls']} DropPath draws, {drops['dropped']} samples "
+        f"dropped")
+    assert drops["calls"] > 0 and len(tr["step_seconds"]) == SU_STEPS and \
+        tr["launches"]["window_attention"] == 0, (drops, tr["launches"])
+    launches["8s"] = tr["launches"]
+
+    say("[phase 9] BCV SwinUNETR serving 1 NIfTI request")
+    res = phase_slice(device, BCV, SWIN_REQUESTS, TARGET_SPACING,
+                      "serve_swin", ("window_attention",),
+                      profile_dir("swin"))
     say_serving(res)
     if args.profile is not None:
         say_profile(profile_dir("swin"), "volume")
@@ -3138,10 +3287,10 @@ def main(argv=None) -> int:
         tr["launches"]["window_attention"] == 0, tr["launches"]
     launches["9t"] = tr["launches"]
 
-    say("[phase 9u] BCV VT-UNet (configs/bcv/vtunet_3d.yaml) serving 2 "
-        "NIfTI requests")
-    res = phase_slice(device, BCV_VT, REQUESTS, TARGET_SPACING, "serve_vt",
-                      ("window_attention",))
+    say("[phase 9u] BCV VT-UNet (configs/bcv/vtunet_3d.yaml) serving 1 "
+        "NIfTI request")
+    res = phase_slice(device, BCV_VT, SWIN_REQUESTS, TARGET_SPACING,
+                      "serve_vt", ("window_attention",))
     say_serving(res)
     n_attn = res["launches"]["window_attention"]
     assert res["forwards"] > 0 and \
@@ -3162,6 +3311,34 @@ def main(argv=None) -> int:
     assert drops["calls"] > 0 and len(tr["step_seconds"]) == BCV_STEPS and \
         tr["launches"]["window_attention"] == 0, (drops, tr["launches"])
     launches["9ut"] = tr["launches"]
+
+    say("[phase 9n] BCV nnFormer (configs/bcv/nnformer_3d.yaml) serving 1 "
+        "NIfTI request")
+    res = phase_slice(device, BCV_NN, SWIN_REQUESTS, TARGET_SPACING,
+                      "serve_nn", ("window_attention",),
+                      profile_dir("nnformer"))
+    say_serving(res)
+    if args.profile is not None:
+        say_profile(profile_dir("nnformer"), "volume")
+    n_attn = res["launches"]["window_attention"]
+    assert res["forwards"] > 0 and \
+        n_attn == NN_ATTENTIONS * res["forwards"], \
+        f"{n_attn} window-attention launches in {res['forwards']} forwards"
+    launches["9n"] = res["launches"]
+
+    say("[phase 9nt] the BCV nnFormer recipe as shipped, fp32, batch "
+        f"{TRAIN_BATCH}, stochastic depth 0.2, on phase 9t's cases")
+    with drop_path_recorder() as drops:
+        tr = phase_train(device, load_config("bcv", "nnformer", "3d",
+                                             **bcv_keys),
+                         TRAIN_BATCH, "bcv_nn", (), amp=False,
+                         min_steps=BCV_STEPS)
+    say_train(tr, "volumes")
+    say(f"  {drops['calls']} DropPath draws, {drops['dropped']} samples "
+        f"dropped")
+    assert drops["calls"] > 0 and len(tr["step_seconds"]) == BCV_STEPS and \
+        tr["launches"]["window_attention"] == 0, (drops, tr["launches"])
+    launches["9nt"] = tr["launches"]
 
     say("[phase 10] the probes: copy-scale, tensor-core dots, the conv's "
         "phase ladder")

@@ -5,7 +5,8 @@ It reads the port trainer's ``.ckpt`` (EMA weights with ``prefer_ema``),
 the reference trainer's {model_state_dict, ema_model_state_dict} wrapper
 (EMA first, as ``cbim_tpu.utils.torch_import.load_torch_state_dict``) and
 bare ``.pth`` state_dicts; it drops a reference Swin checkpoint's
-``relative_position_index`` buffers and nothing else, and refuses the JAX
+``relative_position_index`` (and SwinUnet's ``attn_mask``) buffers and
+nothing else, and refuses the JAX
 package's Flax msgpack ``.ckpt`` with the ROADMAP item that will load it.
 Every comparison is exact: loading copies tensors.
 """

@@ -36,6 +36,8 @@ MODULES = [
     "cbim_tpu_torch.models.unetr",
     "cbim_tpu_torch.models.swin_unetr",
     "cbim_tpu_torch.models.vtunet",
+    "cbim_tpu_torch.models.nnformer",
+    "cbim_tpu_torch.models.swin_unet",
     "cbim_tpu_torch.inference.engines",
     "cbim_tpu_torch.prediction",
     "cbim_tpu_torch.utils.jax_import",
@@ -53,6 +55,7 @@ MODULES = [
     "cbim_tpu_torch.training.train_state",
     "cbim_tpu_torch.training.checkpoint",
     "cbim_tpu_torch.training.trainer",
+    "cbim_tpu_torch.training.pretrained",
     "cbim_tpu_torch.training.validation",
     "cbim_tpu_torch.train",
     "cbim_tpu_torch.utils.logging",

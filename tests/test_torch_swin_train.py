@@ -45,12 +45,12 @@ SWIN_TRAIN = dict(
 TRAJ_SIZE, TRAJ_LR = 32, 1e-3
 
 
-def trajectory_batches(S, classes, seed=0):
-    """Three fixed (image, label) batches of 2 x S^3."""
+def trajectory_batches(S, classes, seed=0, nd=3):
+    """Three fixed (image, label) batches of 2 x S^nd."""
     rng = np.random.default_rng(seed)
-    imgs = [rng.normal(size=(2, S, S, S, 1)).astype(np.float32)
+    imgs = [rng.normal(size=(2, *(S,) * nd, 1)).astype(np.float32)
             for _ in range(3)]
-    labs = [rng.integers(0, classes, size=(2, S, S, S)).astype(np.int32)
+    labs = [rng.integers(0, classes, size=(2, *(S,) * nd)).astype(np.int32)
             for _ in range(3)]
     return imgs, labs
 
@@ -75,15 +75,15 @@ def fast_xla_compile():
         jax.config.update("jax_disable_most_optimizations", old)
 
 
-def jax_trajectory(jm, d, S, params0):
-    """Three fixed batches through ``make_train_step`` (fp32, AdamW + EMA,
-    no deep supervision) from ``params0``, the step's own state otherwise
-    (one compile: the jitted init and a separate gradient program would
-    each cost as much): the batches, the step-0 gradients (from the first
-    step's AdamW moment), the losses, and the params and EMA params after
-    three steps."""
+def jax_trajectory(jm, d, S, params0, nd=3):
+    """Three fixed batches of 2 x S^nd through ``make_train_step`` (fp32,
+    AdamW + EMA, deep supervision as ``d`` says) from ``params0``, the
+    step's own state otherwise (one compile: the jitted init and a separate
+    gradient program would each cost as much): the batches, the step-0
+    gradients (from the first step's AdamW moment), the losses, and the
+    params and EMA params after three steps."""
     assert d["optimizer"] == "adamw"
-    imgs, labs = trajectory_batches(S, d["classes"])
+    imgs, labs = trajectory_batches(S, d["classes"], nd=nd)
     jc = jax_config(d)
     tx = jax_get_optimizer(jc)
     state = JaxTrainState(
@@ -116,8 +116,12 @@ def check_trajectory(model, to_sd, cfg_dict, traj):
     step = make_train_step(model, t_state.optimizer, tc)
 
     out = model(torch.from_numpy(imgs[0]).movedim(-1, 1))
-    losses.deep_supervision_loss([out], torch.from_numpy(labs[0]), [1.0],
-                                 cfg_dict["weight"], 1.0).backward()
+    # deep supervision's heads (nnFormer), or one (the rest of the family)
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    losses.deep_supervision_loss(
+        outs, torch.from_numpy(labs[0]),
+        cfg_dict["aux_weight"] if cfg_dict["aux_loss"] else [1.0],
+        cfg_dict["weight"], 1.0).backward()
     j_grad_sd = to_sd(j_grads)
     for k, p in model.named_parameters():
         # fp32 both sides, sums in another order
