@@ -10,8 +10,12 @@ high side and cropped back.
 
 PyTorch runs eagerly, so the sweep is a Python loop over window groups under
 ``torch.inference_mode()`` instead of a compiled scan; a short last group
-runs as it is (no padded forwards).  The probability accumulator is an fp32
-buffer on the device, updated in place; the count map is pure window
+runs as it is (no padded forwards), but for a model whose eval forward
+normalises with its batch's statistics (VNet's ContBatchNorm,
+``batch_statistics``): there the group is filled up with the first
+window, weighted 0, as the JAX engine pads every group, so that each
+window sees the same batch as in JAX.  The probability accumulator is an
+fp32 buffer on the device, updated in place; the count map is pure window
 geometry, built on the host once per padded shape and cached on the device.
 
 The 2D sweep (``sliding_window_slices``) runs every slice of a volume as
@@ -89,8 +93,10 @@ class InferenceEngine:
     already reduced to head 0 by the caller)."""
 
     def __init__(self, apply_fn, num_classes: int, window_size=None,
-                 window_batch: int | str | None = 1):
+                 window_batch: int | str | None = 1,
+                 pad_groups: bool = False):
         self.apply_fn = apply_fn
+        self.pad_groups = pad_groups
         self.num_classes = num_classes
         self.window_size = tuple(window_size) if window_size else None
         # None/"auto": pick per volume shape
@@ -144,7 +150,10 @@ class InferenceEngine:
                               dtype=torch.float32, device=x.device)
             for g in range(0, len(starts), wb):
                 grp = starts[g:g + wb]
-                wins = torch.cat([x[_window(s, window)] for s in grp])
+                fill = [starts[0]] * (wb - len(grp)) if self.pad_groups \
+                    else []
+                wins = torch.cat([x[_window(s, window)]
+                                  for s in [*grp, *fill]])
                 probs = _softmax_fp32(self.apply_fn(wins))
                 for i, s in enumerate(grp):
                     acc[_window(s, window)] += probs[i] * float(mult[g + i])
@@ -201,4 +210,6 @@ def make_engine(model, cfg, window_batch: int | str | None = None
     wb = window_batch if window_batch is not None \
         else cfg.get("window_batch", "auto")
     return InferenceEngine(apply_fn, cfg.classes,
-                           window_size=cfg.get("window_size"), window_batch=wb)
+                           window_size=cfg.get("window_size"), window_batch=wb,
+                           pad_groups=getattr(model, "batch_statistics",
+                                              False))

@@ -1,9 +1,9 @@
 """Model factory (counterpart of ``cbim_tpu/models/__init__.py``).
 
-MedFormer-3D, MedFormer-2D, SwinUNETR, VT-UNet, nnFormer and SwinUnet-2D
-are ported, for serving and training; every other (model, dimension)
-raises ``NotImplementedError`` (the rest of the zoo is queued in
-ROADMAP.md).
+Ported, for serving and training: in 3D MedFormer, UNet and ResUNet,
+UNet++, AttentionUNet, VNet, UNETR, SwinUNETR, VT-UNet and nnFormer; in 2D
+MedFormer and SwinUnet.  Every other (model, dimension), the rest of the
+2D zoo, raises ``NotImplementedError`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -38,7 +38,9 @@ def _norm_scales(v, n):
 
 #: the (dimension, model) pairs the port builds
 PORTED = (("3d", "medformer"), ("2d", "medformer"), ("3d", "swin_unetr"),
-          ("3d", "vtunet"), ("3d", "nnformer"), ("2d", "swinunet"))
+          ("3d", "vtunet"), ("3d", "nnformer"), ("2d", "swinunet"),
+          ("3d", "unet"), ("3d", "resunet"), ("3d", "unet++"),
+          ("3d", "attention_unet"), ("3d", "vnet"), ("3d", "unetr"))
 
 
 def get_model(cfg, device="cuda", generator: torch.Generator | None = None,
@@ -60,10 +62,12 @@ def get_model(cfg, device="cuda", generator: torch.Generator | None = None,
     if (dim, name) not in PORTED:
         raise NotImplementedError(
             f"model {name!r} ({dim}) is not ported yet; the PyTorch port "
-            f"covers MedFormer-3D, MedFormer-2D, SwinUNETR, VT-UNet, nnFormer "
-            f"and SwinUnet-2D (see ROADMAP.md)")
+            f"covers {', '.join(f'{m} ({d})' for d, m in PORTED)} (see "
+            f"ROADMAP.md)")
     device = get_device(device)
-    if name == "swin_unetr":
+    if name in ZOO_3D:
+        model = ZOO_3D[name](cfg)
+    elif name == "swin_unetr":
         model = _swin_unetr(cfg)
     elif name == "vtunet":
         model = _vtunet(cfg)
@@ -165,6 +169,62 @@ def _swinunet(cfg) -> nn.Module:
                       drop_path_rate=DROP_PATH_RATE if rate is None else rate)
 
 
+def _unet_family_args(cfg) -> dict:
+    """The UNet family's factory arguments: base_chan, the per-level
+    pooling scales and kernels (``_norm_scales``), block and norm."""
+    return dict(in_chan=cfg.in_chan, num_classes=cfg.classes,
+                base_ch=cfg.base_chan,
+                scale=tuple(map(tuple, _norm_scales(cfg.down_scale, 4))),
+                kernel_size=tuple(map(tuple, _norm_scales(cfg.kernel_size,
+                                                          5))),
+                block=cfg.block, norm=cfg.norm)
+
+
+def _unet3d(cfg) -> nn.Module:
+    """The JAX factory's UNet3D (unet and resunet alike: ``cfg.block``
+    picks the block), its act the model's default ReLU."""
+    from .unet import UNet3D
+    return UNet3D(**_unet_family_args(cfg))
+
+
+def _unetpp3d(cfg) -> nn.Module:
+    from .unetpp import UNetPlusPlus3D
+    return UNetPlusPlus3D(**_unet_family_args(cfg))
+
+
+def _attention_unet3d(cfg) -> nn.Module:
+    from .attention_unet import AttentionUNet3D
+    return AttentionUNet3D(**_unet_family_args(cfg))
+
+
+def _vnet(cfg) -> nn.Module:
+    """The JAX factory's VNet: base_chan, the model's defaults (ELU,
+    pooling scales 2)."""
+    from .vnet import VNet
+    return VNet(in_chan=cfg.in_chan, num_classes=cfg.classes,
+                base_ch=cfg.base_chan)
+
+
+def _unetr(cfg) -> nn.Module:
+    """The JAX factory's UNETR: img_size = training_size, feature size 16,
+    hidden 768, MLP 3072, 12 heads; ``feature_size``, ``hidden_size``,
+    ``mlp_dim`` and ``unetr_num_heads`` are optional config overrides (the
+    small CPU and card checks)."""
+    from .unetr import UNETR
+    return UNETR(in_chan=cfg.in_chan, num_classes=cfg.classes,
+                 img_size=tuple(cfg.training_size),
+                 feature_size=cfg.get("feature_size") or 16,
+                 hidden_size=cfg.get("hidden_size") or 768,
+                 mlp_dim=cfg.get("mlp_dim") or 3072,
+                 num_heads=cfg.get("unetr_num_heads") or 12)
+
+
+#: the 3D zoo's factory functions by model name
+ZOO_3D = {"unet": _unet3d, "resunet": _unet3d, "unet++": _unetpp3d,
+               "attention_unet": _attention_unet3d, "vnet": _vnet,
+               "unetr": _unetr}
+
+
 def _medformer3d(cfg) -> nn.Module:
     """The JAX factory's MedFormer3D; remat of every stage unless the
     config says otherwise (its mode strings, 'highres' among them, pass as
@@ -196,10 +256,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     0).  The Swin family's parameters that torch's default leaves constant
     are drawn too, so that seeded weights exercise them: the relative
     position bias tables trunc_normal(std 0.02) as the reference inits
-    them, the affine instance norms' weight U(0.5, 1.5) and bias
-    U(-0.5, 0.5)."""
+    them, and UNETR's position embedding alike; the affine instance norms'
+    and VNet's ContBatchNorms' weight U(0.5, 1.5) and bias U(-0.5, 0.5)."""
+    from .vnet import ContBatchNorm
     for name, p in model.named_parameters():
-        if name.endswith("relative_position_bias_table"):
+        if name.endswith(("relative_position_bias_table",
+                          "position_embeddings")):
             nn.init.trunc_normal_(p, std=0.02, generator=generator)
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d,
@@ -212,6 +274,6 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.fill_(0.0)
-        elif isinstance(m, InstanceNormAffine):
+        elif isinstance(m, (InstanceNormAffine, ContBatchNorm)):
             m.weight.uniform_(0.5, 1.5, generator=generator)
             m.bias.uniform_(-0.5, 0.5, generator=generator)

@@ -17,11 +17,13 @@ Usage:
         --target_spacing 1.5625,1.5625
 
 ``--load`` takes the port trainer's ``.ckpt`` (its EMA weights when the
-config sets ``ema``, else its ``model``), the reference trainer's
-{model_state_dict, ema_model_state_dict} wrapper (EMA first) and bare
-``.pth`` state_dicts, through ``training.checkpoint.load_weights``.
-Loading the JAX package's Flax msgpack ``.ckpt`` is not ported yet
-(ROADMAP.md, A5).
+config sets ``ema``, else its ``model``), the JAX package's Flax msgpack
+``.ckpt`` (``ema_params`` and ``ema_batch_stats`` when the config sets
+``ema`` and the run kept them, else ``params`` and ``batch_stats``: the
+trained BatchNorm statistics, where the JAX CLI serves initial ones), the
+reference trainer's {model_state_dict, ema_model_state_dict} wrapper (EMA
+first) and bare ``.pth`` state_dicts, through
+``training.checkpoint.load_weights``.
 """
 
 from __future__ import annotations
@@ -147,7 +149,8 @@ def main(argv=None, cfg=None) -> dict:
     engines = []
     for ckpt in (args.load or []):
         model = get_model(cfg, device=device)
-        load_weights(ckpt, model, prefer_ema=bool(cfg.get("ema", False)))
+        load_weights(ckpt, model, prefer_ema=bool(cfg.get("ema", False)),
+                     cfg=cfg)
         engines.append(make_engine(model, cfg, window_batch=args.window_batch))
         print(f"Model loaded from {ckpt}")
 

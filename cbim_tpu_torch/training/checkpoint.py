@@ -11,9 +11,16 @@ prediction CLI and the trainer's ``init_model`` share.  It reads this
 port's ``.ckpt``, the reference trainer's wrapper, MONAI's
 ``{"state_dict": ...}`` and bare ``.pth`` state_dicts, with or without
 DataParallel's ``module.`` prefix (``training.pretrained`` routes the
-backbone files that initialise only part of a model).  The JAX package's
-Flax msgpack ``.ckpt`` files share the extension but do not load here yet
-(ROADMAP.md, A5).
+backbone files that initialise only part of a model), and the JAX
+package's Flax msgpack ``.ckpt`` ({epoch, step, params, ema_params,
+batch_stats, ema_batch_stats, opt_state}, ``cbim_tpu/training/
+checkpoint.py``), told apart from ``torch.save``'s zip archive by content,
+read by ``utils.flax_msgpack`` and mapped onto the config's model by
+``utils.jax_import.state_dict_from_jax``: that needs the config.  A Flax
+file's BatchNorm statistics load into the running buffers (the JAX CLI
+serves with initial ones, ROADMAP C10).  Its ``opt_state`` is not read:
+resuming a JAX run's AdamW state is not supported.  Orbax checkpoint
+directories (``<path>.orbax``) need jax and are refused.
 """
 
 from __future__ import annotations
@@ -24,10 +31,15 @@ import zipfile
 import torch
 from torch import nn
 
+from ..utils.flax_msgpack import read_flax_msgpack
+from ..utils.jax_import import state_dict_from_jax
 from .train_state import TrainState
 
-#: the file extensions :func:`load_weights` reads (``torch.save`` payloads)
+#: the file extensions :func:`load_weights` reads (``torch.save`` payloads;
+#: ``.ckpt`` also the JAX package's Flax msgpack)
 WEIGHT_SUFFIXES = (".pth", ".pt", ".ckpt")
+#: the suffix of the JAX package's Orbax checkpoint directories
+ORBAX_SUFFIX = ".orbax"
 #: the keys a reference state_dict may carry that the port's models build
 #: from the geometry instead: the Swin family's relative-position index, a
 #: non-persistent buffer here (C8), and the shifted-window mask that the
@@ -63,21 +75,52 @@ def load_checkpoint(path: str, state: TrainState) -> tuple[TrainState, int]:
 
 
 def read_payload(path: str):
-    """What ``torch.save`` wrote to a weights file.  A suffix the port does
-    not load raises, and so does a ``.ckpt`` that is not a zip archive (the
-    JAX package's Flax msgpack)."""
-    if not str(path).endswith(WEIGHT_SUFFIXES):
+    """What a weights file holds: ``torch.save``'s payload, or for a
+    ``.ckpt`` that is not a zip archive the JAX package's Flax msgpack tree
+    (``is_flax_payload``).  A suffix the port does not load raises, and so
+    does an Orbax directory (it needs jax)."""
+    path = str(path)
+    if path.endswith(ORBAX_SUFFIX) or os.path.isdir(path + ORBAX_SUFFIX):
+        raise NotImplementedError(
+            f"{path}: an Orbax checkpoint directory of the JAX package; "
+            f"reading it needs jax and orbax, which the port does not use. "
+            f"Write the checkpoint with the JAX package's msgpack backend")
+    if not path.endswith(WEIGHT_SUFFIXES):
         raise NotImplementedError(
             f"{path}: the port loads {', '.join(WEIGHT_SUFFIXES)} weights; "
             f"the .npz loader comes with its model (see ROADMAP.md)")
-    if str(path).endswith(".ckpt") and not zipfile.is_zipfile(path):
-        raise NotImplementedError(
-            f"{path}: a Flax msgpack .ckpt of the JAX package; loading it "
-            f"into the port is ROADMAP.md A5 (checkpoint interop)")
+    if path.endswith(".ckpt") and not zipfile.is_zipfile(path):
+        return read_flax_msgpack(path)
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def state_dict_of(payload, prefer_ema: bool = False) -> dict:
+def is_flax_payload(payload) -> bool:
+    """The JAX package's checkpoint tree: ``params`` beside ``step`` (no
+    ``torch.save`` payload the port reads has either)."""
+    return (isinstance(payload, dict) and isinstance(payload.get("params"),
+                                                     dict)
+            and "step" in payload)
+
+
+def flax_state_dict(payload, cfg, prefer_ema: bool = False) -> dict:
+    """The state_dict of a Flax checkpoint tree for the model ``cfg``
+    selects: ``ema_params`` and ``ema_batch_stats`` with ``prefer_ema``
+    where the run kept them (an EMA-less run writes ``{}``), else
+    ``params`` and ``batch_stats``."""
+    if cfg is None:
+        raise ValueError(
+            "a Flax msgpack checkpoint of the JAX package maps onto a model "
+            "only through its config: pass cfg")
+
+    def pick(key):
+        ema = payload.get(f"ema_{key}")
+        return ema if prefer_ema and ema else payload.get(key) or {}
+
+    return state_dict_from_jax(cfg, {"params": pick("params"),
+                                     "batch_stats": pick("batch_stats")})
+
+
+def state_dict_of(payload, prefer_ema: bool = False, cfg=None) -> dict:
     """The model state_dict a payload holds, by its content:
 
     - this port's ``.ckpt`` ({epoch, step, model, ema, optimizer}): ``ema``
@@ -86,11 +129,14 @@ def state_dict_of(payload, prefer_ema: bool = False) -> dict:
       ema_model_state_dict, ...}): the EMA weights when present, as
       ``cbim_tpu.utils.torch_import.load_torch_state_dict`` takes them;
     - MONAI's ({state_dict, ...}): ``state_dict``;
+    - the JAX package's Flax tree: :func:`flax_state_dict` for ``cfg``;
     - a bare state_dict: as it is.
 
     A state_dict saved from ``nn.DataParallel`` (every key ``module.*``)
     loses that prefix.  An EMA state_dict carries the trained BatchNorm
     running statistics (the EMA copies buffers)."""
+    if is_flax_payload(payload):
+        return flax_state_dict(payload, cfg, prefer_ema)
     sd = payload
     if isinstance(payload, dict) and isinstance(payload.get("model"), dict):
         ema = payload.get("ema")
@@ -106,18 +152,19 @@ def state_dict_of(payload, prefer_ema: bool = False) -> dict:
     return sd
 
 
-def read_state_dict(path: str, prefer_ema: bool = False) -> dict:
+def read_state_dict(path: str, prefer_ema: bool = False, cfg=None) -> dict:
     """The model state_dict of a weights file (:func:`read_payload`,
-    :func:`state_dict_of`)."""
-    return state_dict_of(read_payload(path), prefer_ema)
+    :func:`state_dict_of`; a Flax file needs ``cfg``)."""
+    return state_dict_of(read_payload(path), prefer_ema, cfg)
 
 
-def load_weights(path: str, model: nn.Module, prefer_ema: bool = False
-                 ) -> None:
+def load_weights(path: str, model: nn.Module, prefer_ema: bool = False,
+                 cfg=None) -> None:
     """Load the state_dict of ``path`` (:func:`read_state_dict`) into
     ``model``, strictly but for the buffers a reference Swin checkpoint
     carries and the port rebuilds (``DROPPED_KEYS``): any other unknown or
-    missing key raises."""
-    sd = read_state_dict(path, prefer_ema)
+    missing key raises.  ``cfg``, the model's config, maps a Flax
+    checkpoint (and is required for one)."""
+    sd = read_state_dict(path, prefer_ema, cfg)
     model.load_state_dict({k: v for k, v in sd.items()
                            if k.rsplit(".", 1)[-1] not in DROPPED_KEYS})

@@ -23,7 +23,9 @@ A file is routed by its content, for the model it initialises:
   port's ``.ckpt`` has a ``model`` key too, with ``epoch`` and
   ``optimizer`` beside it, and loads as one.
 - Anything else: ``checkpoint.load_weights``, the prediction CLI's loader
-  (a port ``.ckpt`` or a reference wrapper gives its EMA weights).
+  (a port ``.ckpt``, a reference wrapper or a JAX package's Flax ``.ckpt``
+  gives its EMA weights; a ``.pth`` state_dict itself, UNETR's MONAI-layout
+  ``init_model`` among them, strictly).
 """
 
 from __future__ import annotations
@@ -105,9 +107,10 @@ def _load_part(model: nn.Module, sd: dict) -> None:
         raise RuntimeError(f"keys the model does not have: {unexpected}")
 
 
-def load_init_model(path: str, model: nn.Module, name: str) -> None:
-    """Initialise ``model`` (the config's model ``name``) from ``path``, by
-    the file's content (the module docstring's routes)."""
+def load_init_model(path: str, model: nn.Module, cfg) -> None:
+    """Initialise ``model`` (``cfg``'s model) from ``path``, by the file's
+    content (the module docstring's routes)."""
+    name = cfg.model
     payload = read_payload(path)
     inner = (payload.get("state_dict", payload) if isinstance(payload, dict)
              else payload)
@@ -118,4 +121,4 @@ def load_init_model(path: str, model: nn.Module, name: str) -> None:
         _load_part(model, swin_tiny_state_dict(payload["model"],
                                                model.state_dict()))
     else:
-        load_weights(path, model, prefer_ema=True)
+        load_weights(path, model, prefer_ema=True, cfg=cfg)

@@ -23,6 +23,7 @@ from torch import nn
 
 from ..config import compute_dtype
 from ..models.swin_layers import DropPath
+from ..models.vnet import ChannelDropout
 from ..ops.losses import deep_supervision_loss
 from .optim import get_optimizer, set_lr
 
@@ -46,15 +47,17 @@ def create_train_state(model: nn.Module, cfg,
                        seed: int | None = None) -> TrainState:
     """Optimizer over every parameter, and an EMA copy (eval mode) when
     ``cfg.ema``.  A model with stochastic depth (``DropPath`` with p > 0)
-    draws its keep masks from one ``torch.Generator`` on the model's
-    device, which the state owns, seeded from ``seed`` (default: the run's
-    ``split_seed``, the JAX step's dropout seed) as the input pipeline
-    seeds its own; the EMA copy evaluates in eval mode and draws none."""
+    or dropout (VNet's ``ChannelDropout``) draws its keep masks from one
+    ``torch.Generator`` on the model's device, which the state owns, seeded
+    from ``seed`` (default: the run's ``split_seed``, the JAX step's
+    dropout seed) as the input pipeline seeds its own; the EMA copy
+    evaluates in eval mode and draws none."""
     opt = get_optimizer(cfg, model.parameters())
     ema = None
     if cfg.get("ema", False):
         ema = copy.deepcopy(model).requires_grad_(False).eval()
-    drops = [m for m in model.modules() if isinstance(m, DropPath) and m.p]
+    drops = [m for m in model.modules()
+             if isinstance(m, (DropPath, ChannelDropout)) and m.p]
     generator = None
     if drops:
         if seed is None:

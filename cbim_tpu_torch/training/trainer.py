@@ -43,10 +43,10 @@ def load_pretrained(cfg, state) -> None:
     through ``pretrained.load_init_model``: a backbone file the model
     takes (SwinUNETR's self-supervised swin-vit, SwinUnet's swin-tiny)
     sets that part, anything else goes through ``checkpoint.load_weights``,
-    the prediction CLI's loader (a port ``.ckpt`` or a reference wrapper
-    gives its EMA weights, the eval convention of ``cbim_tpu``'s torch
-    import; a ``.pth`` state_dict itself)."""
-    load_init_model(str(cfg.init_model), state.model, cfg.model)
+    the prediction CLI's loader (a port ``.ckpt``, a reference wrapper or a
+    JAX package's Flax ``.ckpt`` gives its EMA weights, the eval convention
+    of ``cbim_tpu``'s torch import; a ``.pth`` state_dict itself)."""
+    load_init_model(str(cfg.init_model), state.model, cfg)
     if state.ema is not None:
         state.ema.load_state_dict(state.model.state_dict())
 

@@ -1,10 +1,14 @@
-"""Flax MedFormer, SwinUNETR, VT-UNet, nnFormer and SwinUnet variables ->
-this port's state_dict.
+"""Flax variables of every ported model -> this port's state_dict, and
+:func:`state_dict_from_jax`, the dispatch by (dimension, model) that loads
+the JAX package's checkpoints (the counterpart of
+``cbim_tpu.utils.torch_import.import_for_model``).
 
 The exact inverses of ``cbim_tpu.utils.torch_import.import_medformer3d``,
 ``import_medformer2d``, ``import_swin_unetr``, ``import_vtunet``,
-``import_nnformer3d`` and ``import_swinunet``: the same walks over the
-tree, with each layout transform undone
+``import_nnformer3d``, ``import_swinunet``, ``import_unet``,
+``import_unetpp``, ``import_attention_unet``, ``import_vnet`` and
+``import_unetr``: the same walks over the tree, with each layout transform
+undone
 
     conv:           (*k, I, O) -> (O, I, *k)
     linear:         (I, O)     -> (O, I)
@@ -20,7 +24,9 @@ carries every BatchNorm's scale/bias and, from ``batch_stats``, its running
 mean and variance (``num_batches_tracked`` is 0), so ``load_state_dict``
 takes the result strictly.  One difference from ``import_medformer3d``: a
 3D decoder conv block gets a shortcut only where the model has one (see
-the decoder loop).
+the decoder loop).  The UNet family's BasicBlock gets a shortcut where the
+Flax tree has one (the model: where the width changes), and the walks carry
+a ``bn`` norm's parameters and statistics where the tree has them.
 
 The input is the Flax tree as nested dicts of numpy arrays; nothing here
 imports jax.
@@ -548,3 +554,233 @@ def swinunet_state_dict_from_jax(params, depths=SWINUNET_DEPTHS) -> dict:
     t.layer_norm(("FinalPatchExpandX4_0", "LayerNorm_0"), f"{pre}.up.norm")
     t.conv(("Conv_1", "kernel"), f"{pre}.output.weight")
     return t.state_dict()
+
+
+def _blocks(t, prefix, tkey, block):
+    """One SingleConv (``conv``) or BasicBlock (``conv1``, ``conv2``, and
+    ``shortcut`` where the tree has one)."""
+    if block == "SingleConv":
+        t.cna((*prefix, "ConvNormAct_0"), f"{tkey}.conv")
+    else:
+        t.basic_block(prefix, tkey, t.has((*prefix, "ConvNormAct_2")))
+
+
+def _block_prefix(cfg) -> str:
+    return "SingleConv_" if cfg.block in ("SingleConv", "ConvNormAct") \
+        else "BasicBlock_"
+
+
+def _unet_encoder(t, cfg):
+    """InConv_0 and the four DownBlocks (``import_unet``'s walk)."""
+    blk = _block_prefix(cfg)
+    t.conv(("InConv_0", "Conv_0", "kernel"), "inc.conv1.weight")
+    _blocks(t, ("InConv_0", f"{blk}0"), "inc.conv2", cfg.block)
+    for i in range(4):
+        for j in range(2):
+            _blocks(t, (f"DownBlock_{i}", f"{blk}{j}"),
+                    f"down{i + 1}.conv.{j + 1}", cfg.block)
+
+
+def unet3d_state_dict_from_jax(variables, cfg) -> dict:
+    """Flax UNet3D variables (UNet or ResUNet by ``cfg.block``) ->
+    state_dict (the keys ``import_unet`` reads)."""
+    t = _Walk(variables["params"], variables.get("batch_stats"))
+    blk = _block_prefix(cfg)
+    _unet_encoder(t, cfg)
+    for i in range(4):
+        for j in range(2):
+            _blocks(t, (f"UpBlock3D_{i}", f"{blk}{j}"), f"up{i + 1}.conv.{j}",
+                    cfg.block)
+    t.conv(("Conv_0", "kernel"), "outc.weight")
+    t.raw(("Conv_0", "bias"), "outc.bias")
+    return t.state_dict()
+
+
+def attention_unet3d_state_dict_from_jax(variables, cfg) -> dict:
+    """Flax AttentionUNet3D variables -> state_dict (the keys
+    ``import_attention_unet`` reads; no ``conv_ch``)."""
+    t = _Walk(variables["params"], variables.get("batch_stats"))
+    blk = _block_prefix(cfg)
+    _unet_encoder(t, cfg)
+    for i in range(4):
+        up = f"AttentionUpBlock_{i}"
+        for c, name in enumerate(("W_g", "W_x", "psi")):
+            t.conv((up, "AttentionGate_0", f"Conv_{c}", "kernel"),
+                   f"up{i + 1}.attn.{name}.0.weight")
+        for j in range(2):
+            _blocks(t, (up, f"{blk}{j}"), f"up{i + 1}.conv.{j}", cfg.block)
+    t.conv(("Conv_0", "kernel"), "outc.weight")
+    t.raw(("Conv_0", "bias"), "outc.bias")
+    return t.state_dict()
+
+
+#: UNet++'s stages in the Flax tree's order (``_Stage_{i}``), by their
+#: reference names
+UNETPP_ORDER = ("conv0_0", "conv1_0", "conv0_1", "conv2_0", "conv1_1",
+                "conv0_2", "conv3_0", "conv2_1", "conv1_2", "conv0_3",
+                "conv4_0", "conv3_1", "conv2_2", "conv1_3", "conv0_4")
+
+
+def unetpp3d_state_dict_from_jax(variables, cfg) -> dict:
+    """Flax UNetPlusPlus3D variables -> state_dict (the keys
+    ``import_unetpp`` reads)."""
+    t = _Walk(variables["params"], variables.get("batch_stats"))
+    blk = _block_prefix(cfg)
+    for si, name in enumerate(UNETPP_ORDER):
+        for j in range(2):
+            _blocks(t, (f"_Stage_{si}", f"{blk}{j}"), f"{name}.{j}",
+                    cfg.block)
+    t.conv(("Conv_0", "kernel"), "output.weight")
+    t.raw(("Conv_0", "bias"), "output.bias")
+    return t.state_dict()
+
+
+#: VNet's transitions in the Flax tree's order, with their LUConv counts
+VNET_DOWNS = (("down_tr32", 1), ("down_tr64", 2), ("down_tr128", 3),
+              ("down_tr256", 2))
+VNET_UPS = (("up_tr256", 2), ("up_tr128", 2), ("up_tr64", 1), ("up_tr32", 1))
+
+
+def vnet_state_dict_from_jax(params) -> dict:
+    """Flax VNet params -> state_dict (the keys ``import_vnet`` reads);
+    the PReLU slopes where the tree has them (elu=False)."""
+    t = _Walk(params)
+
+    def conv(path, tkey, transpose=False):
+        (t.conv_transpose if transpose else t.conv)((*path, "kernel"),
+                                                     f"{tkey}.weight")
+        t.raw((*path, "bias"), f"{tkey}.bias")
+
+    def cbn(node, tkey):
+        t.raw((*node, "ContBatchNorm_0", "scale"), f"{tkey}.weight")
+        t.raw((*node, "ContBatchNorm_0", "bias"), f"{tkey}.bias")
+
+    def act(node, name, tkey):
+        if t.has((*node, name, "prelu")):
+            t.raw((*node, name, "prelu"), f"{tkey}.weight")
+
+    def lu_convs(node, tkey, n):
+        for k in range(n):
+            lu = (*node, f"LUConv_{k}")
+            conv((*lu, "Conv_0"), f"{tkey}.ops.{k}.conv1")
+            cbn(lu, f"{tkey}.ops.{k}.bn1")
+            act(lu, "_Act_0", f"{tkey}.ops.{k}.relu1")
+
+    it = ("InputTransition_0",)
+    conv((*it, "Conv_0"), "in_tr.conv1")
+    cbn(it, "in_tr.bn1")
+    act(it, "_Act_0", "in_tr.relu1")
+    for i, (tkey, n) in enumerate(VNET_DOWNS):
+        node = (f"DownTransition_{i}",)
+        conv((*node, "Conv_0"), f"{tkey}.down_conv")
+        cbn(node, f"{tkey}.bn1")
+        act(node, "_Act_0", f"{tkey}.relu1")
+        act(node, "_Act_1", f"{tkey}.relu2")
+        lu_convs(node, tkey, n)
+    for i, (tkey, n) in enumerate(VNET_UPS):
+        node = (f"UpTransition_{i}",)
+        conv((*node, "ConvTranspose_0"), f"{tkey}.up_conv", transpose=True)
+        cbn(node, f"{tkey}.bn1")
+        act(node, "_Act_0", f"{tkey}.relu1")
+        act(node, "_Act_1", f"{tkey}.relu2")
+        lu_convs(node, tkey, n)
+    conv(("Conv_0",), "out_tr.conv1")
+    cbn((), "out_tr.bn1")
+    act((), "_Act_0", "out_tr.relu1")
+    conv(("Conv_1",), "out_tr.conv2")
+    return t.state_dict()
+
+
+#: UNETR's transposed convs in the Flax tree's order (``_TranspConv_{i}``)
+UNETR_TRANSP_CONVS = (
+    "encoder2.transp_conv_init", "encoder2.blocks.0", "encoder2.blocks.1",
+    "encoder3.transp_conv_init", "encoder3.blocks.0",
+    "encoder4.transp_conv_init", "decoder5.transp_conv",
+    "decoder4.transp_conv", "decoder3.transp_conv", "decoder2.transp_conv")
+
+
+def walk_vit(t: _Walk) -> None:
+    """UNETR's ``ViT_0`` -> ``vit.*``: the patch embedding, each block's
+    norms, qkv (no bias), out_proj and MLP, the final norm."""
+    vit = ("ViT_0",)
+    pe = (*vit, "PatchEmbedding_0")
+    t.dense((*pe, "Dense_0"), "vit.patch_embedding.proj")
+    t.raw((*pe, "position_embeddings"),
+          "vit.patch_embedding.position_embeddings")
+    n = sum(1 for k in t.params["ViT_0"] if k.startswith("Attention_"))
+    for i in range(n):
+        tkey = f"vit.blocks.{i}"
+        t.layer_norm((*vit, f"LayerNorm_{2 * i}"), f"{tkey}.norm1")
+        t.dense((*vit, f"Attention_{i}", "Dense_0"), f"{tkey}.attn.qkv",
+                bias=False)
+        t.dense((*vit, f"Attention_{i}", "Dense_1"), f"{tkey}.attn.out_proj")
+        t.layer_norm((*vit, f"LayerNorm_{2 * i + 1}"), f"{tkey}.norm2")
+        t.dense((*vit, f"Mlp_{i}", "Dense_0"), f"{tkey}.mlp.linear1")
+        t.dense((*vit, f"Mlp_{i}", "Dense_1"), f"{tkey}.mlp.linear2")
+    t.layer_norm((*vit, f"LayerNorm_{2 * n}"), "vit.norm")
+
+
+def unetr_state_dict_from_jax(params) -> dict:
+    """Flax UNETR params -> state_dict (the keys ``import_unetr`` reads)."""
+    t = _Walk(params)
+    walk_vit(t)
+    t.unet_res_block(("UnetResBlock_0",), "encoder1.layer")
+    for i, tkey in enumerate(UNETR_TRANSP_CONVS):
+        t.conv_transpose((f"_TranspConv_{i}", "ConvTranspose_0", "kernel"),
+                         f"{tkey}.weight")
+    for i, dec in enumerate(("decoder5", "decoder4", "decoder3",
+                             "decoder2")):
+        t.unet_res_block((f"UnetResBlock_{i + 1}",), f"{dec}.conv_block")
+    t.conv(("Conv_0", "kernel"), "out.conv.weight")
+    t.raw(("Conv_0", "bias"), "out.conv.bias")
+    return t.state_dict()
+
+
+def _host(tree):
+    """A tree's leaves as numpy arrays (bfloat16 tensors of the msgpack
+    reader widened to float32)."""
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy()
+    return np.asarray(tree)
+
+
+def state_dict_from_jax(cfg, variables) -> dict:
+    """The port's state_dict for Flax ``variables`` ({"params", and
+    "batch_stats" for BatchNorm models}, nested dicts of arrays) of the
+    model ``cfg`` selects: the dispatch of ``import_for_model``, inverted,
+    over every ported (dimension, model).  An unported pair raises
+    NotImplementedError; params that do not fit the model raise
+    ValueError."""
+    variables = _host(variables)
+    params = variables["params"]
+    dim, name = cfg.dimension, cfg.model
+    walks = {
+        ("3d", "medformer"): lambda: medformer3d_state_dict_from_jax(
+            params, cfg),
+        ("2d", "medformer"): lambda: medformer2d_state_dict_from_jax(
+            variables, cfg),
+        ("3d", "swin_unetr"): lambda: swin_unetr_state_dict_from_jax(params),
+        ("3d", "vtunet"): lambda: vtunet_state_dict_from_jax(params),
+        ("3d", "nnformer"): lambda: nnformer_state_dict_from_jax(params),
+        ("2d", "swinunet"): lambda: swinunet_state_dict_from_jax(params),
+        ("3d", "unet"): lambda: unet3d_state_dict_from_jax(variables, cfg),
+        ("3d", "resunet"): lambda: unet3d_state_dict_from_jax(variables, cfg),
+        ("3d", "unet++"): lambda: unetpp3d_state_dict_from_jax(variables,
+                                                               cfg),
+        ("3d", "attention_unet"): lambda: attention_unet3d_state_dict_from_jax(
+            variables, cfg),
+        ("3d", "vnet"): lambda: vnet_state_dict_from_jax(params),
+        ("3d", "unetr"): lambda: unetr_state_dict_from_jax(params),
+    }
+    if (dim, name) not in walks:
+        raise NotImplementedError(
+            f"loading Flax variables of {name!r} ({dim}) is not ported yet "
+            f"(see ROADMAP.md)")
+    try:
+        return walks[dim, name]()
+    except (KeyError, TypeError, IndexError) as e:
+        raise ValueError(
+            f"the Flax variables do not fit the config's model {name!r} "
+            f"({dim}): no {e} where the model's tree has it") from None

@@ -97,16 +97,32 @@ Phases, each printing its result; any failure raises and exits non-zero:
 4h. the same for a SwinUnet-2D at the reference's width (embedding 96,
    head dim 32, on 2 x 128^2): 22 launches a forward (12 encoder blocks,
    10 decoder blocks), 2D region ids;
+4u. the rest of the 3D zoo at small widths (``SMALL_ZOO``: UNet-3D,
+   UNet++-3D, AttentionUNet-3D, VNet and UNETR on 2 x 32^3), card vs CPU:
+   the eval softmax, every routed 3^3 conv one forward of its route
+   (``conv3d_same_fwd_tf32``; UNet++'s two convs of the 1-channel input
+   the CUDA-core ``conv3d_same_fwd``) and every InstanceNorm
+   (AttentionUNet's gate norms included) one ``inorm_stats`` and one
+   ``inorm_apply`` a forward, none for VNet and UNETR (cuDNN convs, batch
+   and affine instance norms); then one fp32
+   train step, the loss and every gradient compared, on the TF32 forward,
+   dgrad and wgrad and the norm backward kernels for the UNet family,
+   VNet's whole-channel dropout masks fixed on both sides;
 5. serving: the full-width AMOS-CT MedFormer-3D with seeded random weights
-   serves two synthetic NIfTI requests through
-   ``cbim_tpu_torch.prediction.main``; every forward kernel must have
+   serves a synthetic NIfTI request (``REQUESTS``: 160 x 256 x 256)
+   through ``cbim_tpu_torch.prediction.main``; every forward kernel must have
    launched, fp32: every 3^3 conv one ``conv3d_same_fwd_tf32`` launch, 20
    a forward, and no other 3^3 kernel (the CUDA-core fp32 forward launches
    on no full-width path: phase 3 holds it at every conv case and the
    ragged 20 -> 36 takes it, phase 10's ladder is its code);
-5b. the first request again with ``conv_na: true``: every conv of the
+5b. the request again with ``conv_na: true``: every conv of the
    BasicBlocks is one ``conv3d_same_na_fwd_tf32`` launch, 20 a forward,
    and no other 3^3 kernel launches; the label map agrees with phase 5's;
+5r. the full-width AMOS-CT ResUNet-3D (``configs/amos_ct/resunet_3d.yaml``:
+   base 32, BasicBlock, InstanceNorm, 3^3, 16 classes, 128^3 window, fp32)
+   with seeded weights serves phase 5's request: per forward 25
+   ``conv3d_same_fwd_tf32`` (RESUNET_CONVS) and 42 ``inorm_stats`` and
+   ``inorm_apply`` (RESUNET_NORMS) launches, no other 3^3 kernel;
 6. training: the flagship recipe (``bench.py``: full-width MedFormer-3D,
    GELU, 128^3 crops, batch 2, bf16 autocast, remat of every stage, AdamW,
    EMA) trains a few steps on the synthetic corpus through
@@ -132,14 +148,14 @@ Phases, each printing its result; any failure raises and exits non-zero:
    as shipped (MedFormer-3D, base 32, 3 classes, 128^3 crops, remat, the
    KiTS augmentation with its 60-voxel affine pad), read by the port's
    ``load_config``, trained through ``cbim_tpu_torch.train.main --dataset
-   kits`` in fp32 (the CLI's default: no ``--amp``) at batch 2 for 6 steps
+   kits`` in fp32 (the CLI's default: no ``--amp``) at batch 2 for 4 steps
    on 5 HU-like int16 NIfTI cases the script writes (about 1.25x the crop,
    fold 0 of 5), fed from host windows in pinned memory
    (``device_cache: false``: a real KiTS corpus is far over the cache's
    4 GB); every loss finite, and per step 32 ``conv3d_same_fwd_tf32``
    (remat incl.), 16 ``conv3d_dgrad_tf32`` and 16 ``conv3d_wgrad_tf32``
    launches, no tensor-core and no CUDA-core 3^3 launch; sec/step (median of
-   the 4 steps after warm-up), peak memory and the batches' time alone;
+   the 2 steps after warm-up), peak memory and the batches' time alone;
 6kn. the same recipe with ``conv_na: true`` for 4 steps: every one of its
    16 kernel convs fused, per step 32 ``conv3d_same_na_fwd_tf32`` (remat
    incl.), 16 ``conv3d_dgrad_tf32`` and 16 ``conv3d_wgrad_na_tf32``
@@ -150,6 +166,12 @@ Phases, each printing its result; any failure raises and exits non-zero:
    frames: the pipeline took the device cache and its full-volume path (one
    full-volume resample a step), every loss finite; sec/step (median of
    2) and the batches' time alone;
+6r. the AMOS-CT ResUNet-3D recipe as shipped (fp32, no remat in the UNet
+   family) trains 4 steps at batch 2 on phase 6's synthetic corpus: every
+   loss finite, per step 25 ``conv3d_same_fwd_tf32``, 25
+   ``conv3d_dgrad_tf32`` and 25 ``conv3d_wgrad_tf32`` launches and 42 of
+   each norm kernel's forward stats and backward pair, no other 3^3
+   launch; sec/step and peak memory;
 7. 2D serving: the full-width ACDC MedFormer-2D with seeded random weights
    serves two synthetic cine-MR NIfTI requests through
    ``cbim_tpu_torch.prediction.main --dimension 2d`` (every slice of a
@@ -185,9 +207,8 @@ Phases, each printing its result; any failure raises and exits non-zero:
    finite, DropPath drew its masks, no window-attention launch in a step;
 9. Swin serving: the full-width BCV SwinUNETR (``configs/bcv/
    swin_unetr_3d.yaml``: 14 classes, feature size 48, 128^3 window, fp32)
-   with seeded random weights serves phase 5's first request
-   (``SWIN_REQUESTS``) through ``cbim_tpu_torch.prediction.main --model
-   swin_unetr``; the window-
+   with seeded random weights serves phase 5's request through
+   ``cbim_tpu_torch.prediction.main --model swin_unetr``; the window-
    attention kernel must have launched once per Swin block of every
    forward, 6 per forward;
 9t. the BCV SwinUNETR recipe as a user trains it
@@ -222,8 +243,8 @@ Phases, each printing its result; any failure raises and exits non-zero:
    timed beside the rungs), with its time, bound, plain and library
    times.
 
-Each of phases 4e and 5-10 (5b, 6b, 6v, 6k, 6kn, 6a, 7b, 8b, 8f, 8v, 7s,
-8s, 9t, 9u, 9ut, 9n and 9nt included) sets
+Each of phases 4e, 4u and 5-10 (5b, 5r, 6b, 6v, 6k, 6kn, 6a, 6r, 7b, 8b,
+8f, 8v, 7s, 8s, 9t, 9u, 9ut, 9n and 9nt included) sets
 the launch counters to 0 just before it and reads them just after.  The
 last three
 lines are the card's name and power limit, the kernels' JSON record
@@ -233,10 +254,12 @@ FLOPs and bytes) and ``{"ok": true, "device": {...}}``.
 Usage: python3 chip_smoke.py [--profile DIR]
 
 ``--profile DIR`` also traces the steady steps of phases 6, 6b, 6k, 6kn,
-6a, 8, 8b and 8f with the trainer's profiler hook (``profile_dir``), and the
-requests of phases 5, 5b, 9 and 9n served a second time, after the timed run:
+6a, 6r, 8, 8b and 8f with the trainer's profiler hook (``profile_dir``),
+and the requests of phases 5, 5b, 5r, 9 and 9n served a second time, after
+the timed run:
 DIR/<phase>/kernels.txt and summary.json, and the top kernels by device
-time are printed; for 5 and 5b also the 3^3 forwards' shapes and counts.
+time are printed; for 5, 5b and 5r also the 3^3 forwards' shapes and
+counts.
 """
 
 from __future__ import annotations
@@ -602,17 +625,49 @@ AMOS = dict(
     chan_num=[64, 128, 256, 320, 256, 128, 64, 32], aux_loss=True,
     training_size=[128, 128, 128], sliding_window=True,
     window_size=[128, 128, 128])
-#: the two requests (z, y, x shape, z, y, x spacing) at target spacing
-#: 1.5 mm: the AMOS evaluation volume of tools/bench_infer.py, and one that
-#: the resample steps bring to 160 x 253 x 253
-REQUESTS = [((160, 256, 256), (1.5, 1.5, 1.5)),
-            ((96, 200, 200), (2.5, 1.9, 1.9))]
+#: the 3D serving phases' request (z, y, x shape, z, y, x spacing) at
+#: target spacing 1.5 mm: the AMOS evaluation volume of
+#: tools/bench_infer.py.  A second request, resampled to 160 x 253 x 253
+#: (its host resampling, 5 s, and no other model shape), left phase 5 to
+#: make room for phases 4u, 5r and 6r within the script's time
+REQUESTS = [((160, 256, 256), (1.5, 1.5, 1.5))]
 TARGET_SPACING = "1.5,1.5,1.5"
-#: the Swin serving phases' request (9, 9u, 9n): phase 5's first, the AMOS
-#: evaluation volume.  The second (its host resampling, 3.5-4 s of each
-#: phase, and no other model shape) stays in phase 5 alone, to keep the
-#: script within its time
-SWIN_REQUESTS = REQUESTS[:1]
+
+#: the model and inference keys of configs/amos_ct/resunet_3d.yaml (phases
+#: 5r and 6r): ResUNet-3D, base 32, BasicBlock, InstanceNorm, 3^3
+#: everywhere, 16 classes, 128^3 (the factory passes no act: ReLU), fp32
+RESUNET = dict(
+    dataset="amos_ct", model="resunet", dimension="3d", classes=16,
+    in_chan=1, base_chan=32, block="BasicBlock", down_scale=[[2, 2, 2]] * 4,
+    kernel_size=[[3, 3, 3]] * 5, norm="in", training_size=[128, 128, 128],
+    sliding_window=True, window_size=[128, 128, 128])
+#: its ConvNormActs on the 3^3 kernel route (C_in <= 192, C_out <= 128,
+#: widths multiples of 8: the TF32 route in fp32): 2 in inc, 5 in down1
+#: and down2, 3 in up2 (the 384-wide concat takes cuDNN), 5 in up3 and up4;
+#: and its InstanceNorms, one per ConvNormAct, all on the norm kernels
+RESUNET_CONVS = 25
+RESUNET_NORMS = 42
+#: phase 6r: the recipe as shipped on phase 6's synthetic corpus (3 x
+#: 192^3, all three training volumes), fp32, batch 2, RESUNET_STEPS steps
+RESUNET_STEPS = WARMUP_STEPS + 2
+#: phase 4u: the rest of the 3D zoo at small widths (base 8: widths 8-80,
+#: multiples of 8, so the UNet family's 3^3 convs take the TF32 route;
+#: UNETR at hidden 96, 3 heads, MLP 192, feature size 16), card vs CPU on
+#: 2 x 32^3: UNet with SingleConv blocks, UNet++ and AttentionUNet with
+#: their recipes' BasicBlocks; VNet's dropout masks fixed on both sides
+ZOO_BASE = dict(dataset="synthetic", dimension="3d", classes=4, in_chan=1,
+                base_chan=8, block="BasicBlock", norm="in",
+                down_scale=[[2, 2, 2]] * 4, kernel_size=[[3, 3, 3]] * 5,
+                training_size=[32, 32, 32])
+SMALL_ZOO = (("UNet-3D", dict(ZOO_BASE, model="unet", block="SingleConv")),
+             ("UNet++-3D", dict(ZOO_BASE, model="unet++")),
+             ("AttentionUNet-3D", dict(ZOO_BASE, model="attention_unet")),
+             ("VNet", dict(ZOO_BASE, model="vnet")),
+             ("UNETR", dict(ZOO_BASE, model="unetr", feature_size=16,
+                            hidden_size=96, mlp_dim=192, unetr_num_heads=3)))
+SMALL_ZOO_SHAPE = (2, 1, 32, 32, 32)
+#: VNet's dropouts a forward (phase 4u's fixed masks cycle through them)
+VNET_DROPOUTS = 8
 
 #: a narrow MedFormer-2D with the ACDC recipe's structure plus the JAX
 #: default's conv blocks in down2/up2 (phase 4c), on the 3x3 kernel route
@@ -764,10 +819,10 @@ KITS_CASES = [((160, 160, 160), (0.78, 0.78, 0.78)),
               ((170, 150, 165), (0.78, 0.78, 0.78)),
               ((160, 165, 150), (0.78, 0.78, 0.78)),
               ((155, 160, 170), (0.78, 0.78, 0.78))]
-KITS_STEPS = WARMUP_STEPS + 4
+KITS_STEPS = WARMUP_STEPS + 2
 #: phase 6kn: the same recipe with ``conv_na: true``, every one of its 16
-#: kernel convs a fused preact conv; fewer steps (the median of the 2
-#: after warm-up) to keep the script within its time
+#: kernel convs a fused preact conv (both the median of the 2 steps after
+#: warm-up: 6k's 4 went to make room for phases 4u, 5r and 6r)
 KITS_NA_STEPS = WARMUP_STEPS + 2
 #: the KiTS MedFormer-3D's 3^3 convs on the kernel route (ConvNormAct 3^3,
 #: C_in <= 192, C_out <= 128): 2 in inc, 4 in down1, 5 in up3, 5 in up4,
@@ -2641,6 +2696,51 @@ def drop_path_recorder():
         seen["dropped"] = int(seen["dropped"])
 
 
+@contextlib.contextmanager
+def fixed_dropout_masks():
+    """While inside: VNet's ``ChannelDropout`` keeps whole channels by masks
+    drawn on the CPU from the call's index within a forward (of
+    VNET_DROPOUTS) and its shape, the same on the card and the CPU."""
+    import torch
+    from cbim_tpu_torch.models import vnet
+    calls = [0]
+    real = vnet.ChannelDropout.keep_mask
+
+    def keep_mask(self, x):
+        gen = torch.Generator().manual_seed(100 + calls[0] % VNET_DROPOUTS)
+        calls[0] += 1
+        u = torch.rand(tuple(x.shape[:2]), generator=gen)
+        return (u < 1.0 - self.p)[:, :, None, None, None].to(x.device)
+
+    vnet.ChannelDropout.keep_mask = keep_mask
+    try:
+        yield calls
+    finally:
+        vnet.ChannelDropout.keep_mask = real
+
+
+def routed_counts(cfg_dict) -> tuple[collections.Counter, int]:
+    """The fp32 forward launches of each 3^3 kernel per forward of the
+    model a config builds (its ConvNormActs on the kernel route, by
+    ``conv3d_route``: the TF32 kernel at widths of multiples of 8, the
+    CUDA-core one else, as UNet++'s first stage on the 1-channel input),
+    and its InstanceNorm modules (on the CPU, no forward)."""
+    import torch
+    from cbim_tpu_torch.config import config_from_dict
+    from cbim_tpu_torch.models import get_model
+    from cbim_tpu_torch.models.layers import convs
+    from cbim_tpu_torch.ops.kernels import conv3d
+    model = get_model(config_from_dict(cfg_dict), device="cpu")
+    fwd = collections.Counter(
+        conv3d.FORWARD_KEYS[conv3d.conv3d_route(
+            torch.float32, m.conv.in_channels, m.conv.out_channels)][0]
+        for m in model.modules()
+        if isinstance(m, convs.ConvNormAct) and m.kernel is not None)
+    n_norm = sum(1 for m in model.modules()
+                 if isinstance(m, convs.Norm) and m.kind == "in")
+    return fwd, n_norm
+
+
 def time_batches(pipe, batch: int) -> list[float]:
     """Seconds of DATA_BATCHES of the pipeline's batches on their own, each
     from the call to the batch on the card (synchronised): the window
@@ -2673,9 +2773,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="trace phases 6, 6b, 6k, 6kn, 6a, 8, 8b and 8f's "
-                             "steady steps, and the requests of phases 5, 5b, "
-                             "9 and 9n served again, into DIR")
+                        help="trace phases 6, 6b, 6k, 6kn, 6a, 6r, 8, 8b and "
+                             "8f's steady steps, and the requests of phases 5, "
+                             "5b, 5r, 9 and 9n served again, into DIR")
     args = parser.parse_args(argv)
 
     def profile_dir(name):
@@ -2918,7 +3018,38 @@ def main(argv=None) -> int:
             f"{n_attn} window_attention launches")
         assert n_attn == 0, n_attn
 
-    say("[phase 5] AMOS-CT MedFormer-3D serving 2 NIfTI requests")
+    for name, small in SMALL_ZOO:
+        say(f"[phase 4u] small {name}, card vs CPU")
+        fwd, n_norm = routed_counts(small)
+        reset_launch_counts()
+        err = phase_small_model(device, small, SMALL_ZOO_SHAPE)
+        counts = launch_counts()
+        say(f"  eval, {SMALL_ZOO_SHAPE} softmax max abs err {err:.3e} (tol "
+            f"{MODEL_PROB_ATOL}); 3^3 launches "
+            f"{ {k: counts[k] for k in CONV3D_KERNELS if counts[k]} }, "
+            f"{counts['inorm_apply']} inorm_apply")
+        # fp32: every routed conv one forward of its route, every
+        # InstanceNorm one stats and one apply; VNet's and UNETR's convs
+        # and norms are cuDNN's and torch's
+        assert all(counts[k] == fwd[k] for k in CONV3D_KERNELS) and \
+            counts["inorm_stats"] == counts["inorm_apply"] == n_norm, \
+            (counts, fwd, n_norm)
+        reset_launch_counts()
+        with fixed_dropout_masks():
+            loss_err, l2_err, grad_err = phase_small_train_step(
+                device, small, SMALL_ZOO_SHAPE)
+        counts = launch_counts()
+        say(f"  train step, fp32: loss rel err {loss_err:.3e} (tol "
+            f"{STEP_LOSS_RTOL:.0e}); gradient rel L2 err {l2_err:.3e} (tol "
+            f"{STEP_GRAD_L2:.0e}); worst tensor err {grad_err:.3e} of its "
+            f"scale (tol {STEP_GRAD_RTOL:.0e}); 3^3 launches "
+            f"{ {k: counts[k] for k in CONV3D_KERNELS if counts[k]} }")
+        used = TF32_CONV_KERNELS + ("inorm_bwd_stats", "inorm_bwd_apply")
+        assert (all(counts[k] > 0 for k in used) if fwd else
+                not any(counts[k] for k in used)), counts
+        launches[f"4u {name}"] = counts
+
+    say("[phase 5] AMOS-CT MedFormer-3D serving 1 NIfTI request")
     res = phase_slice(device, AMOS, REQUESTS, TARGET_SPACING, "serve3d",
                       FORWARD_KERNELS, profile_dir("serve3d"))
     say_serving(res)
@@ -2932,11 +3063,8 @@ def main(argv=None) -> int:
     say_served_profile(args.profile, "serve3d", res)
     launches["5"] = counts
 
-    say("[phase 5b] phase 5's first request with conv_na: the fused preact "
-        "conv")
-    # the first request only (the second adds its resampling on the host,
-    # 5-6 s, and no other kernel shape), to keep the script within its time
-    res_na = phase_slice(device, dict(AMOS, conv_na=True), REQUESTS[:1],
+    say("[phase 5b] phase 5's request with conv_na: the fused preact conv")
+    res_na = phase_slice(device, dict(AMOS, conv_na=True), REQUESTS,
                          TARGET_SPACING, "serve3d_na", NA_FORWARD_KERNELS,
                          profile_dir("serve3d_na"))
     say_serving(res_na)
@@ -2958,6 +3086,26 @@ def main(argv=None) -> int:
         f"{100 * agree:.4f} % of voxels (min {100 * LABEL_AGREEMENT} %)")
     assert agree >= LABEL_AGREEMENT, agree
     launches["5b"] = counts
+
+    say("[phase 5r] AMOS-CT ResUNet-3D (configs/amos_ct/resunet_3d.yaml) "
+        "serving phase 5's request")
+    res = phase_slice(device, RESUNET, REQUESTS, TARGET_SPACING,
+                      "serve_resunet", FORWARD_KERNELS,
+                      profile_dir("serve_resunet"))
+    say_serving(res)
+    counts, fw = res["launches"], res["forwards"]
+    say(f"  per forward: {counts['conv3d_same_fwd_tf32'] / fw:g} "
+        f"conv3d_same_fwd_tf32, {counts['inorm_stats'] / fw:g} inorm_stats, "
+        f"{counts['inorm_apply'] / fw:g} inorm_apply ({fw} forwards)")
+    # fp32 serving: each routed conv one TF32 forward, each norm one stats
+    # and one apply, a forward; no other 3^3 kernel
+    assert fw > 0 and counts["conv3d_same_fwd_tf32"] == RESUNET_CONVS * fw \
+        and counts["inorm_stats"] == counts["inorm_apply"] == \
+        RESUNET_NORMS * fw and not any(
+            counts[k] for k in CONV3D_KERNELS
+            if k != "conv3d_same_fwd_tf32"), f"{counts} in {fw} forwards"
+    say_served_profile(args.profile, "serve_resunet", res)
+    launches["5r"] = counts
 
     say("[phase 6] flagship MedFormer-3D training, bf16, remat all, "
         f"batch {TRAIN_BATCH}, {FLAGSHIP['iter_per_epoch']} steps")
@@ -3122,6 +3270,40 @@ def main(argv=None) -> int:
         say_profile(os.path.join(args.profile, "acdc3d"))
     launches["6a"] = tr["launches"]
 
+    say("[phase 6r] the AMOS-CT ResUNet-3D recipe as shipped, fp32, batch "
+        f"{TRAIN_BATCH}, on phase 6's synthetic corpus")
+    resunet = load_config("amos_ct", "resunet", "3d",
+                          synthetic_cases=FLAGSHIP["synthetic_cases"],
+                          synthetic_shape=FLAGSHIP["synthetic_shape"],
+                          k_fold=5, epochs=1, iter_per_epoch=RESUNET_STEPS,
+                          print_freq=1)
+    resunet.dataset = "synthetic"
+    if args.profile:
+        resunet.profile_dir = profile_dir("resunet")
+    tr = phase_train(device, resunet, TRAIN_BATCH, "resunet",
+                     ("inorm_stats", "inorm_apply", "inorm_bwd_stats",
+                      "inorm_bwd_apply") + TF32_CONV_KERNELS, amp=False,
+                     min_steps=RESUNET_STEPS)
+    say_train(tr, "volumes")
+    counts, steps = tr["launches"], len(tr["step_seconds"])
+    # no remat in the UNet family: per step each routed conv one TF32
+    # forward, dgrad and wgrad, each norm its stats, apply and backward
+    # pair; no tensor-core and no CUDA-core 3^3 launch
+    want = dict(conv3d_same_fwd_tf32=RESUNET_CONVS * steps,
+                conv3d_dgrad_tf32=RESUNET_CONVS * steps,
+                conv3d_wgrad_tf32=RESUNET_CONVS * steps,
+                inorm_stats=RESUNET_NORMS * steps,
+                inorm_bwd_stats=RESUNET_NORMS * steps,
+                inorm_bwd_apply=RESUNET_NORMS * steps,
+                **{k: 0 for k in CONV3D_KERNELS
+                   if k not in TF32_CONV_KERNELS})
+    assert steps == RESUNET_STEPS and all(counts[k] == v
+                                          for k, v in want.items()), \
+        (counts, want)
+    if args.profile:
+        say_profile(os.path.join(args.profile, "resunet"))
+    launches["6r"] = counts
+
     say("[phase 7] ACDC MedFormer-2D serving 2 NIfTI requests (slice batch)")
     res = phase_slice(device, ACDC, REQUESTS_2D, TARGET_SPACING_2D, "serve2d",
                       ("conv2d_same_fwd_tf32",))
@@ -3254,7 +3436,7 @@ def main(argv=None) -> int:
     launches["8s"] = tr["launches"]
 
     say("[phase 9] BCV SwinUNETR serving 1 NIfTI request")
-    res = phase_slice(device, BCV, SWIN_REQUESTS, TARGET_SPACING,
+    res = phase_slice(device, BCV, REQUESTS, TARGET_SPACING,
                       "serve_swin", ("window_attention",),
                       profile_dir("swin"))
     say_serving(res)
@@ -3289,7 +3471,7 @@ def main(argv=None) -> int:
 
     say("[phase 9u] BCV VT-UNet (configs/bcv/vtunet_3d.yaml) serving 1 "
         "NIfTI request")
-    res = phase_slice(device, BCV_VT, SWIN_REQUESTS, TARGET_SPACING,
+    res = phase_slice(device, BCV_VT, REQUESTS, TARGET_SPACING,
                       "serve_vt", ("window_attention",))
     say_serving(res)
     n_attn = res["launches"]["window_attention"]
@@ -3314,7 +3496,7 @@ def main(argv=None) -> int:
 
     say("[phase 9n] BCV nnFormer (configs/bcv/nnformer_3d.yaml) serving 1 "
         "NIfTI request")
-    res = phase_slice(device, BCV_NN, SWIN_REQUESTS, TARGET_SPACING,
+    res = phase_slice(device, BCV_NN, REQUESTS, TARGET_SPACING,
                       "serve_nn", ("window_attention",),
                       profile_dir("nnformer"))
     say_serving(res)

@@ -6,8 +6,8 @@ the reference trainer's {model_state_dict, ema_model_state_dict} wrapper
 (EMA first, as ``cbim_tpu.utils.torch_import.load_torch_state_dict``) and
 bare ``.pth`` state_dicts; it drops a reference Swin checkpoint's
 ``relative_position_index`` (and SwinUnet's ``attn_mask``) buffers and
-nothing else, and refuses the JAX
-package's Flax msgpack ``.ckpt`` with the ROADMAP item that will load it.
+nothing else, and maps the JAX package's Flax msgpack ``.ckpt`` only with
+the model's config (``tests/test_torch_flax_ckpt.py`` loads them).
 Every comparison is exact: loading copies tensors.
 """
 
@@ -187,15 +187,20 @@ def test_any_other_unknown_or_missing_key_still_raises(tmp_path, fault):
 
 def test_flax_msgpack_ckpt_raises_the_a5_error(tmp_path):
     """The JAX package writes its .ckpt as Flax msgpack (not a zip archive,
-    which is what ``torch.save`` writes): told apart by content, refused
-    with the ROADMAP item that ports its loader."""
+    which is what ``torch.save`` writes): told apart by content and read
+    (ROADMAP A5), but mapped onto a model only through its config, and a
+    Flax tree whose params fit no part of the config's model raises the
+    dispatcher's error."""
     path = tmp_path / "fold_0_best.ckpt"
     path.write_bytes(serialization.to_bytes(
         {"epoch": 1, "step": 2, "params": {"w": np.ones((2, 2), np.float32)}}))
     for load in (lambda: read_state_dict(str(path)),
                  lambda: load_weights(str(path), _seeded(CFG2D, 5))):
-        with pytest.raises(NotImplementedError, match="A5"):
+        with pytest.raises(ValueError, match="config"):
             load()
+    with pytest.raises(ValueError, match="do not fit .*medformer"):
+        load_weights(str(path), _seeded(CFG2D, 5),
+                     cfg=config_from_dict(CFG2D))
 
 
 def test_unported_weight_formats_raise(tmp_path):

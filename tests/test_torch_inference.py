@@ -154,8 +154,8 @@ def test_prediction_refuses_what_is_not_ported(tmp_path):
         with pytest.raises(RuntimeError, match="cuda"):
             prediction.main(["--img_path", str(tmp_path), "--device", "cuda"])
     flax_ckpt = tmp_path / "model.ckpt"
-    flax_ckpt.write_bytes(b"\x83\xa5epoch\x01")   # msgpack, not a zip
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    flax_ckpt.write_bytes(b"\x83\xa5epoch\x01")   # msgpack, cut short
+    with pytest.raises(ValueError, match="model.ckpt.*truncated"):
         prediction.main(["--img_path", str(tmp_path), "--load",
                          str(flax_ckpt), "--device", "cpu", "--dataset",
                          "synthetic", "--model", "medformer"],

@@ -204,7 +204,8 @@ def test_get_model_defaults_to_the_card():
 
 def test_get_model_raises_for_unported_models():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(config_from_dict(dict(TINY, model="unet")), device="cpu")
+        get_model(config_from_dict(dict(TINY, model="transunet",
+                                        dimension="2d")), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(config_from_dict(dict(TINY, model="unet", dimension="2d")),
                   device="cpu")

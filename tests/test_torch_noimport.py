@@ -1,6 +1,7 @@
-"""The port runs without JAX: every module imports with ``jax`` and
-``flax`` blocked, and it loads no module of the JAX package ``cbim_tpu``,
-not even one that imports nothing of JAX: the port keeps its own copies."""
+"""The port runs without JAX: every module imports with ``jax``, ``flax``
+and ``msgpack`` blocked, and it loads no module of the JAX package
+``cbim_tpu``, not even one that imports nothing of JAX: the port keeps its
+own copies."""
 
 import os
 import subprocess
@@ -38,9 +39,14 @@ MODULES = [
     "cbim_tpu_torch.models.vtunet",
     "cbim_tpu_torch.models.nnformer",
     "cbim_tpu_torch.models.swin_unet",
+    "cbim_tpu_torch.models.unet",
+    "cbim_tpu_torch.models.attention_unet",
+    "cbim_tpu_torch.models.unetpp",
+    "cbim_tpu_torch.models.vnet",
     "cbim_tpu_torch.inference.engines",
     "cbim_tpu_torch.prediction",
     "cbim_tpu_torch.utils.jax_import",
+    "cbim_tpu_torch.utils.flax_msgpack",
     "cbim_tpu_torch.data.nifti",
     "cbim_tpu_torch.data.conversion",
     "cbim_tpu_torch.data.conversion.utils",
@@ -74,6 +80,7 @@ _PROBE = """
 import importlib, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["msgpack"] = None
 importlib.import_module({mod!r})
 {extra}
 leaked = sorted(m for m in sys.modules

@@ -190,8 +190,10 @@ TRAJ_SIZE, TRAJ_LR = 32, 1e-3
 @functools.lru_cache(maxsize=None)
 def _jax_trajectory():
     """Three fixed batches through ``make_train_step`` (fp32, AdamW + EMA):
-    the batches, the initial params, the step-0 gradients, the losses, and
-    the params and EMA params after three steps."""
+    the batches, the initial params, the step-0 gradients (read back from
+    the first step's AdamW moment, mu = (1 - b1) g from zeros: the step's
+    one compile serves both), the losses, and the params and EMA params
+    after three steps."""
     S = TRAJ_SIZE
     rng = np.random.default_rng(0)
     imgs = [rng.normal(size=(2, S, S, S, 1)).astype(np.float32)
@@ -203,21 +205,18 @@ def _jax_trajectory():
     state, tx = jax_create(jm, jc, jax.random.PRNGKey(0),
                            jnp.zeros((1, S, S, S, 1)))
     params0 = jax.tree.map(np.asarray, state.params)
-
-    def loss_fn(p, img, lab):
-        out = jm.apply({"params": p}, img, train=True)
-        return jax_losses.deep_supervision_loss(
-            out, lab, [0.5, 0.5], jnp.asarray(TRAIN["weight"]), 1.0)
-
-    _, j_grads = jax.jit(jax.value_and_grad(loss_fn))(
-        state.params, imgs[0], labs[0])
     j_step = jax.jit(jax_make_step(jm, tx, jc))
-    j_losses = []
+    j_losses, j_grads = [], None
     for img, lab in zip(imgs, labs):
         state, loss = j_step(state, jnp.asarray(img), jnp.asarray(lab),
                              TRAJ_LR)
+        if j_grads is None:
+            adam, = [s for s in state.opt_state.inner_state
+                     if hasattr(s, "mu")]
+            j_grads = jax.tree.map(
+                lambda m: np.asarray(m) / (1.0 - TRAIN["betas"][0]), adam.mu)
         j_losses.append(float(loss))
-    return (imgs, labs, params0, jax.tree.map(np.asarray, j_grads), j_losses,
+    return (imgs, labs, params0, j_grads, j_losses,
             jax.tree.map(np.asarray, state.params),
             jax.tree.map(np.asarray, state.ema_params))
 

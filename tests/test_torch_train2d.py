@@ -21,6 +21,7 @@ import torch
 from cbim_tpu.config import config_from_dict as jax_config
 from cbim_tpu.data.datasets import Synthetic2D as JaxSynthetic2D
 from cbim_tpu.data.pipeline import TrainPipeline as JaxTrainPipeline
+from cbim_tpu.models import get_model as jax_get_model
 from cbim_tpu.ops import augment as jax_aug
 from cbim_tpu.ops.resample import affine_sample_2d as jax_affine_2d
 from cbim_tpu.training.train_state import create_train_state as jax_create
@@ -114,7 +115,8 @@ def test_three_step_2d_trajectory_matches_make_train_step():
     labs = [rng.integers(0, 4, size=(4, S, S)).astype(np.int32)
             for _ in range(3)]
     jc, tc = jax_config(TRAIN2D), config_from_dict(TRAIN2D)
-    jm, _ = jax_variables(TRAIN2D)
+    # the model alone: jax_create compiles the one init the test needs
+    jm = jax_get_model(config_from_dict(TRAIN2D))
     state, tx = jax_create(jm, jc, jax.random.PRNGKey(0),
                            jnp.zeros((1, S, S, 1)))
     v0 = jax.tree.map(np.asarray, {"params": state.params,
