@@ -73,7 +73,7 @@ YAML_DEFAULTS = dict(
     gamma_range=[1.0, 1.0],
     compute_dtype="float32",   # 'bfloat16' when amp is requested
     conv_na=False,             # MedFormer-3D's fused preact conv (CBIM_CONV_NA)
-    conv2d_kernel=False,       # MedFormer-2D's 3x3 conv kernel (CBIM_PLCONV2D)
+    conv2d_kernel=False,       # the 2D CNNs' 3x3 conv kernel (CBIM_PLCONV2D)
 )
 
 

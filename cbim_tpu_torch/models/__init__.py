@@ -2,8 +2,10 @@
 
 Ported, for serving and training: in 3D MedFormer, UNet and ResUNet,
 UNet++, AttentionUNet, VNet, UNETR, SwinUNETR, VT-UNet and nnFormer; in 2D
-MedFormer and SwinUnet.  Every other (model, dimension), the rest of the
-2D zoo, raises ``NotImplementedError`` (ROADMAP.md).
+MedFormer, SwinUnet, UNet and ResUNet, UNet++, AttentionUNet, DAUNet and
+TransUNet: the JAX factory's whole zoo.  Another (model, dimension) raises
+``NotImplementedError``, and so do the blocks and options the port does
+not carry yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -40,7 +42,9 @@ def _norm_scales(v, n):
 PORTED = (("3d", "medformer"), ("2d", "medformer"), ("3d", "swin_unetr"),
           ("3d", "vtunet"), ("3d", "nnformer"), ("2d", "swinunet"),
           ("3d", "unet"), ("3d", "resunet"), ("3d", "unet++"),
-          ("3d", "attention_unet"), ("3d", "vnet"), ("3d", "unetr"))
+          ("3d", "attention_unet"), ("3d", "vnet"), ("3d", "unetr"),
+          ("2d", "unet"), ("2d", "resunet"), ("2d", "unet++"),
+          ("2d", "attention_unet"), ("2d", "daunet"), ("2d", "transunet"))
 
 
 def get_model(cfg, device="cuda", generator: torch.Generator | None = None,
@@ -65,8 +69,10 @@ def get_model(cfg, device="cuda", generator: torch.Generator | None = None,
             f"covers {', '.join(f'{m} ({d})' for d, m in PORTED)} (see "
             f"ROADMAP.md)")
     device = get_device(device)
-    if name in ZOO_3D:
+    if dim == "3d" and name in ZOO_3D:
         model = ZOO_3D[name](cfg)
+    elif dim == "2d" and name in ZOO_2D:
+        model = ZOO_2D[name](cfg)
     elif name == "swin_unetr":
         model = _swin_unetr(cfg)
     elif name == "vtunet":
@@ -221,8 +227,71 @@ def _unetr(cfg) -> nn.Module:
 
 #: the 3D zoo's factory functions by model name
 ZOO_3D = {"unet": _unet3d, "resunet": _unet3d, "unet++": _unetpp3d,
-               "attention_unet": _attention_unet3d, "vnet": _vnet,
-               "unetr": _unetr}
+          "attention_unet": _attention_unet3d, "vnet": _vnet,
+          "unetr": _unetr}
+
+
+def _cnn2d_args(cfg, block: bool = False) -> dict:
+    """The 2D CNNs' factory arguments: base_chan, and the 3x3 kernel route
+    only with ``conv2d_kernel`` (default off, as JAX's ``CBIM_PLCONV2D``);
+    no norm or act from the config (BatchNorm, ReLU).  ``block``: the
+    config's block too, or the JAX config's default ``ConvNormAct``
+    (SingleConv) where it has none."""
+    args = dict(in_chan=cfg.in_chan, num_classes=cfg.classes,
+                base_ch=cfg.base_chan,
+                conv2d_kernel=cfg.get("conv2d_kernel", False))
+    if block:
+        args["block"] = cfg.get("block") or "ConvNormAct"
+    return args
+
+
+def _unet2d(cfg) -> nn.Module:
+    """The JAX factory's UNet2D: unet and resunet alike, ``cfg.block``
+    picks the block."""
+    from .unet import UNet2D
+    return UNet2D(**_cnn2d_args(cfg, block=True))
+
+
+def _unetpp2d(cfg) -> nn.Module:
+    from .unetpp import UNetPlusPlus2D
+    return UNetPlusPlus2D(**_cnn2d_args(cfg))
+
+
+def _attention_unet2d(cfg) -> nn.Module:
+    from .attention_unet import AttentionUNet2D
+    return AttentionUNet2D(**_cnn2d_args(cfg))
+
+
+def _daunet(cfg) -> nn.Module:
+    from .daunet import DAUNet2D
+    return DAUNet2D(**_cnn2d_args(cfg, block=True))
+
+
+def _transunet(cfg) -> nn.Module:
+    """The JAX factory's TransUNet: grid = training_size / 16 (the
+    factory's img_size, training_size[0], sizes nothing else),
+    R50-ViT-B/16 (hidden 768, MLP 3072, 12 layers, 12 heads, dropout 0.1);
+    ``hidden_size``, ``mlp_dim``, ``num_layers``, ``transunet_num_heads``
+    and ``dropout_rate`` are optional config overrides (the small CPU and
+    card checks)."""
+    from . import transunet as tu
+    ts = cfg.training_size
+    rate = cfg.get("dropout_rate")
+    return tu.TransUNet(
+        in_chan=cfg.in_chan, num_classes=cfg.classes,
+        grid=(int(ts[0] / 16), int(ts[1] / 16)),
+        hidden_size=cfg.get("hidden_size") or tu.HIDDEN_SIZE,
+        mlp_dim=cfg.get("mlp_dim") or tu.MLP_DIM,
+        num_layers=cfg.get("num_layers") or tu.NUM_LAYERS,
+        num_heads=cfg.get("transunet_num_heads") or tu.NUM_HEADS,
+        dropout=tu.DROPOUT if rate is None else rate)
+
+
+#: the 2D zoo's factory functions by model name (MedFormer-2D and SwinUnet
+#: have their own)
+ZOO_2D = {"unet": _unet2d, "resunet": _unet2d, "unet++": _unetpp2d,
+          "attention_unet": _attention_unet2d, "daunet": _daunet,
+          "transunet": _transunet}
 
 
 def _medformer3d(cfg) -> nn.Module:

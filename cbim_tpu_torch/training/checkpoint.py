@@ -88,7 +88,8 @@ def read_payload(path: str):
     if not path.endswith(WEIGHT_SUFFIXES):
         raise NotImplementedError(
             f"{path}: the port loads {', '.join(WEIGHT_SUFFIXES)} weights; "
-            f"the .npz loader comes with its model (see ROADMAP.md)")
+            f"a .npz loads only as TransUNet's --pretrain backbone (the "
+            f"official R50+ViT-B_16 file)")
     if path.endswith(".ckpt") and not zipfile.is_zipfile(path):
         return read_flax_msgpack(path)
     return torch.load(path, map_location="cpu", weights_only=True)

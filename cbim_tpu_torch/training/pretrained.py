@@ -22,6 +22,13 @@ A file is routed by its content, for the model it initialises:
   (:func:`swin_tiny_state_dict`, ``import_swinunet_pth``'s surgery).  This
   port's ``.ckpt`` has a ``model`` key too, with ``epoch`` and
   ``optimizer`` beside it, and loads as one.
+- TransUNet and the official R50+ViT-B_16 ``.npz`` (model/utils.py:52,
+  the reference's ``load_from``; the JAX trainer's ``.npz`` branch,
+  ``cbim_tpu/training/trainer.py:121-124``): the stem and the ViT, the
+  position embedding fitted to the model's token grid, loaded
+  non-strictly: the decoder and the head keep their values
+  (:func:`~cbim_tpu_torch.utils.jax_import.transunet_npz_state_dict`).  A
+  ``.npz`` for any other model raises, as ``read_payload`` does.
 - Anything else: ``checkpoint.load_weights``, the prediction CLI's loader
   (a port ``.ckpt``, a reference wrapper or a JAX package's Flax ``.ckpt``
   gives its EMA weights; a ``.pth`` state_dict itself, UNETR's MONAI-layout
@@ -30,9 +37,11 @@ A file is routed by its content, for the model it initialises:
 
 from __future__ import annotations
 
+import numpy as np
 from torch import nn
 
 from ..models.swin_unetr import DEPTHS as SWIN_DEPTHS
+from ..utils.jax_import import transunet_npz_state_dict
 from .checkpoint import load_weights, read_payload
 
 #: the key that marks the self-supervised swin-vit backbone file
@@ -111,6 +120,12 @@ def load_init_model(path: str, model: nn.Module, cfg) -> None:
     """Initialise ``model`` (``cfg``'s model) from ``path``, by the file's
     content (the module docstring's routes)."""
     name = cfg.model
+    if name == "transunet" and str(path).endswith(".npz"):
+        with np.load(path) as npz:
+            _load_part(model, transunet_npz_state_dict(
+                npz, model.state_dict()[
+                    "transformer.embeddings.position_embeddings"].shape))
+        return
     payload = read_payload(path)
     inner = (payload.get("state_dict", payload) if isinstance(payload, dict)
              else payload)

@@ -23,6 +23,7 @@ from torch import nn
 
 from ..config import compute_dtype
 from ..models.swin_layers import DropPath
+from ..models.transunet import Dropout
 from ..models.vnet import ChannelDropout
 from ..ops.losses import deep_supervision_loss
 from .optim import get_optimizer, set_lr
@@ -47,7 +48,8 @@ def create_train_state(model: nn.Module, cfg,
                        seed: int | None = None) -> TrainState:
     """Optimizer over every parameter, and an EMA copy (eval mode) when
     ``cfg.ema``.  A model with stochastic depth (``DropPath`` with p > 0)
-    or dropout (VNet's ``ChannelDropout``) draws its keep masks from one
+    or dropout (VNet's ``ChannelDropout``, TransUNet's ``Dropout``) draws
+    its keep masks from one
     ``torch.Generator`` on the model's device, which the state owns, seeded
     from ``seed`` (default: the run's ``split_seed``, the JAX step's
     dropout seed) as the input pipeline seeds its own; the EMA copy
@@ -57,7 +59,7 @@ def create_train_state(model: nn.Module, cfg,
     if cfg.get("ema", False):
         ema = copy.deepcopy(model).requires_grad_(False).eval()
     drops = [m for m in model.modules()
-             if isinstance(m, (DropPath, ChannelDropout)) and m.p]
+             if isinstance(m, (DropPath, ChannelDropout, Dropout)) and m.p]
     generator = None
     if drops:
         if seed is None:
@@ -95,6 +97,14 @@ def make_train_step(model: nn.Module, opt: torch.optim.Optimizer, cfg):
             loss = deep_supervision_loss(outs, lab, aux_weight,
                                          class_weights, rlt)
         loss.backward()
+        # a parameter that no output reads (DAUNet's three unused heads,
+        # MedFormer-2D's last semantic-map reductions) has no gradient, and
+        # torch's optimizers skip it; the JAX step gives it a zero gradient,
+        # so optax decays it (AdamW) or adds its L2 term (Adam): a zero
+        # gradient here takes the same update
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         opt.step()
         if state.ema is not None:
             # alpha = min(1 - 1/(step+1), ema_alpha), step before the

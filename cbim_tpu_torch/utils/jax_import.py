@@ -5,10 +5,10 @@ the JAX package's checkpoints (the counterpart of
 
 The exact inverses of ``cbim_tpu.utils.torch_import.import_medformer3d``,
 ``import_medformer2d``, ``import_swin_unetr``, ``import_vtunet``,
-``import_nnformer3d``, ``import_swinunet``, ``import_unet``,
-``import_unetpp``, ``import_attention_unet``, ``import_vnet`` and
-``import_unetr``: the same walks over the tree, with each layout transform
-undone
+``import_nnformer3d``, ``import_swinunet``, ``import_unet`` (3D and 2D),
+``import_unetpp``, ``import_attention_unet``, ``import_vnet``,
+``import_unetr``, ``import_daunet`` and ``import_transunet``: the same
+walks over the tree, with each layout transform undone
 
     conv:           (*k, I, O) -> (O, I, *k)
     linear:         (I, O)     -> (O, I)
@@ -26,7 +26,11 @@ takes the result strictly.  One difference from ``import_medformer3d``: a
 3D decoder conv block gets a shortcut only where the model has one (see
 the decoder loop).  The UNet family's BasicBlock gets a shortcut where the
 Flax tree has one (the model: where the width changes), and the walks carry
-a ``bn`` norm's parameters and statistics where the tree has them.
+a ``bn`` norm's parameters and statistics where the tree has them: the 2D
+zoo's BatchNorms, which ``import_unet`` itself leaves out (ROADMAP C15).
+TransUNet's fused qkv ``Dense_0`` splits back into the reference's
+``query``, ``key`` and ``value``.  :func:`transunet_npz_state_dict` reads
+the official R50+ViT-B_16 ``.npz`` (``import_transunet_npz``'s map).
 
 The input is the Flax tree as nested dicts of numpy arrays; nothing here
 imports jax.
@@ -107,7 +111,10 @@ class _Walk:
 
     def bn(self, path, tkey):
         """``path``/BatchNorm_0 -> ``tkey``.{weight, bias, running_*}."""
-        bn = (*path, "BatchNorm_0")
+        self.batch_norm((*path, "BatchNorm_0"), tkey)
+
+    def batch_norm(self, bn, tkey):
+        """The BatchNorm at ``bn`` -> ``tkey``.{weight, bias, running_*}."""
         self.raw((*bn, "scale"), f"{tkey}.weight")
         self.raw((*bn, "bias"), f"{tkey}.bias")
         stats = self._get(self.batch_stats, bn)
@@ -558,60 +565,96 @@ def swinunet_state_dict_from_jax(params, depths=SWINUNET_DEPTHS) -> dict:
 
 def _blocks(t, prefix, tkey, block):
     """One SingleConv (``conv``) or BasicBlock (``conv1``, ``conv2``, and
-    ``shortcut`` where the tree has one)."""
+    ``shortcut`` where the tree has one); ``block`` as :func:`_block_kind`
+    gives it."""
     if block == "SingleConv":
         t.cna((*prefix, "ConvNormAct_0"), f"{tkey}.conv")
     else:
         t.basic_block(prefix, tkey, t.has((*prefix, "ConvNormAct_2")))
 
 
-def _block_prefix(cfg) -> str:
-    return "SingleConv_" if cfg.block in ("SingleConv", "ConvNormAct") \
-        else "BasicBlock_"
+def _block_kind(block) -> str:
+    """A config's block as the Flax tree names it: SingleConv (its alias
+    ConvNormAct too, the JAX config's default) or BasicBlock; the blocks
+    the port does not build raise."""
+    block = block or "ConvNormAct"
+    if block in ("SingleConv", "ConvNormAct"):
+        return "SingleConv"
+    if block == "BasicBlock":
+        return block
+    raise NotImplementedError(
+        f"block {block!r} is not ported yet (see ROADMAP.md)")
 
 
-def _unet_encoder(t, cfg):
+def _unet_encoder(t, block):
     """InConv_0 and the four DownBlocks (``import_unet``'s walk)."""
-    blk = _block_prefix(cfg)
     t.conv(("InConv_0", "Conv_0", "kernel"), "inc.conv1.weight")
-    _blocks(t, ("InConv_0", f"{blk}0"), "inc.conv2", cfg.block)
+    _blocks(t, ("InConv_0", f"{block}_0"), "inc.conv2", block)
     for i in range(4):
         for j in range(2):
-            _blocks(t, (f"DownBlock_{i}", f"{blk}{j}"),
-                    f"down{i + 1}.conv.{j + 1}", cfg.block)
+            _blocks(t, (f"DownBlock_{i}", f"{block}_{j}"),
+                    f"down{i + 1}.conv.{j + 1}", block)
+
+
+def _unet_decoder(t, block, up_name):
+    """The four up blocks ``{up_name}_{i}``: a 2D one's ``conv_ch``
+    (Conv_0, with bias) where the tree has it, then its blocks; and
+    ``outc``."""
+    for i in range(4):
+        up = f"{up_name}_{i}"
+        if t.has((up, "Conv_0")):
+            t.conv((up, "Conv_0", "kernel"), f"up{i + 1}.conv_ch.weight")
+            t.raw((up, "Conv_0", "bias"), f"up{i + 1}.conv_ch.bias")
+        for j in range(2):
+            _blocks(t, (up, f"{block}_{j}"), f"up{i + 1}.conv.{j}", block)
+    t.conv(("Conv_0", "kernel"), "outc.weight")
+    t.raw(("Conv_0", "bias"), "outc.bias")
 
 
 def unet3d_state_dict_from_jax(variables, cfg) -> dict:
     """Flax UNet3D variables (UNet or ResUNet by ``cfg.block``) ->
     state_dict (the keys ``import_unet`` reads)."""
     t = _Walk(variables["params"], variables.get("batch_stats"))
-    blk = _block_prefix(cfg)
-    _unet_encoder(t, cfg)
+    block = _block_kind(cfg.get("block"))
+    _unet_encoder(t, block)
+    _unet_decoder(t, block, "UpBlock3D")
+    return t.state_dict()
+
+
+def unet2d_state_dict_from_jax(variables, cfg) -> dict:
+    """Flax UNet2D variables (UNet or ResUNet by ``cfg.block``) ->
+    state_dict: ``import_unet(dimension="2d")``'s keys, each up block's
+    ``conv_ch``, and every BatchNorm's scale, bias and statistics (which
+    that importer leaves out, ROADMAP C15)."""
+    t = _Walk(variables["params"], variables.get("batch_stats"))
+    block = _block_kind(cfg.get("block"))
+    _unet_encoder(t, block)
+    _unet_decoder(t, block, "UpBlock2D")
+    return t.state_dict()
+
+
+def _attention_unet(variables, block) -> dict:
+    t = _Walk(variables["params"], variables.get("batch_stats"))
+    _unet_encoder(t, block)
     for i in range(4):
-        for j in range(2):
-            _blocks(t, (f"UpBlock3D_{i}", f"{blk}{j}"), f"up{i + 1}.conv.{j}",
-                    cfg.block)
-    t.conv(("Conv_0", "kernel"), "outc.weight")
-    t.raw(("Conv_0", "bias"), "outc.bias")
+        for c, name in enumerate(("W_g", "W_x", "psi")):
+            t.conv((f"AttentionUpBlock_{i}", "AttentionGate_0", f"Conv_{c}",
+                    "kernel"), f"up{i + 1}.attn.{name}.0.weight")
+    _unet_decoder(t, block, "AttentionUpBlock")
     return t.state_dict()
 
 
 def attention_unet3d_state_dict_from_jax(variables, cfg) -> dict:
     """Flax AttentionUNet3D variables -> state_dict (the keys
     ``import_attention_unet`` reads; no ``conv_ch``)."""
-    t = _Walk(variables["params"], variables.get("batch_stats"))
-    blk = _block_prefix(cfg)
-    _unet_encoder(t, cfg)
-    for i in range(4):
-        up = f"AttentionUpBlock_{i}"
-        for c, name in enumerate(("W_g", "W_x", "psi")):
-            t.conv((up, "AttentionGate_0", f"Conv_{c}", "kernel"),
-                   f"up{i + 1}.attn.{name}.0.weight")
-        for j in range(2):
-            _blocks(t, (up, f"{blk}{j}"), f"up{i + 1}.conv.{j}", cfg.block)
-    t.conv(("Conv_0", "kernel"), "outc.weight")
-    t.raw(("Conv_0", "bias"), "outc.bias")
-    return t.state_dict()
+    return _attention_unet(variables, _block_kind(cfg.get("block")))
+
+
+def attention_unet2d_state_dict_from_jax(variables, cfg=None) -> dict:
+    """Flax AttentionUNet2D variables -> state_dict (the keys
+    ``import_attention_unet(dimension="2d")`` reads; no ``conv_ch``).  The
+    JAX factory builds it with SingleConv blocks whatever the config."""
+    return _attention_unet(variables, "SingleConv")
 
 
 #: UNet++'s stages in the Flax tree's order (``_Stage_{i}``), by their
@@ -621,17 +664,61 @@ UNETPP_ORDER = ("conv0_0", "conv1_0", "conv0_1", "conv2_0", "conv1_1",
                 "conv4_0", "conv3_1", "conv2_2", "conv1_3", "conv0_4")
 
 
+def _unetpp(variables, block) -> dict:
+    t = _Walk(variables["params"], variables.get("batch_stats"))
+    for si, name in enumerate(UNETPP_ORDER):
+        for j in range(2):
+            _blocks(t, (f"_Stage_{si}", f"{block}_{j}"), f"{name}.{j}",
+                    block)
+    t.conv(("Conv_0", "kernel"), "output.weight")
+    t.raw(("Conv_0", "bias"), "output.bias")
+    return t.state_dict()
+
+
 def unetpp3d_state_dict_from_jax(variables, cfg) -> dict:
     """Flax UNetPlusPlus3D variables -> state_dict (the keys
     ``import_unetpp`` reads)."""
+    return _unetpp(variables, _block_kind(cfg.get("block")))
+
+
+def unetpp2d_state_dict_from_jax(variables, cfg=None) -> dict:
+    """Flax UNetPlusPlus2D variables -> state_dict (the keys
+    ``import_unetpp`` reads, BatchNorm included).  The JAX factory builds
+    it with SingleConv blocks whatever the config."""
+    return _unetpp(variables, "SingleConv")
+
+
+#: DAUNet's head in the Flax tree's order: (BatchNorm, conv) pairs
+#: ``Norm_{i}``/``Conv_{i}``, then the three 1x1 heads Conv_4-Conv_6
+DAHEAD_PAIRS = ("conv_a", "conv_a_1", "conv_c", "conv_c_1")
+DAHEAD_HEADS = ("fuse_out", "conv_a_out", "conv_c_out")
+
+
+def daunet_state_dict_from_jax(variables, cfg) -> dict:
+    """Flax DAUNet2D variables -> state_dict (the keys ``import_daunet``
+    reads): the UNet2D body by ``cfg.block``, the head's BatchNorms with
+    their statistics, its convs, PAM's query/key/value convs and both
+    gammas, and the three heads no output reads."""
     t = _Walk(variables["params"], variables.get("batch_stats"))
-    blk = _block_prefix(cfg)
-    for si, name in enumerate(UNETPP_ORDER):
-        for j in range(2):
-            _blocks(t, (f"_Stage_{si}", f"{blk}{j}"), f"{name}.{j}",
-                    cfg.block)
-    t.conv(("Conv_0", "kernel"), "output.weight")
-    t.raw(("Conv_0", "bias"), "output.bias")
+    block = _block_kind(cfg.get("block"))
+    _unet_encoder(t, block)
+    da = "DAHead_0"
+    for i, name in enumerate(DAHEAD_PAIRS):
+        tkey = f"DAModule.{name}"
+        t.bn((da, f"Norm_{i}"), f"{tkey}.0")
+        t.conv((da, f"Conv_{i}", "kernel"), f"{tkey}.2.weight")
+        if t.has((da, f"Conv_{i}", "bias")):
+            t.raw((da, f"Conv_{i}", "bias"), f"{tkey}.2.bias")
+    for c, name in enumerate(("query_conv", "key_conv", "value_conv")):
+        t.conv((da, "PAM_0", f"Conv_{c}", "kernel"),
+               f"DAModule.sa.{name}.weight")
+        t.raw((da, "PAM_0", f"Conv_{c}", "bias"), f"DAModule.sa.{name}.bias")
+    t.raw((da, "PAM_0", "gamma"), "DAModule.sa.gamma")
+    t.raw((da, "CAM_0", "gamma"), "DAModule.sc.gamma")
+    for c, name in enumerate(DAHEAD_HEADS):
+        t.conv((da, f"Conv_{4 + c}", "kernel"), f"DAModule.{name}.1.weight")
+        t.raw((da, f"Conv_{4 + c}", "bias"), f"DAModule.{name}.1.bias")
+    _unet_decoder(t, block, "UpBlock2D")
     return t.state_dict()
 
 
@@ -736,6 +823,146 @@ def unetr_state_dict_from_jax(params) -> dict:
     return t.state_dict()
 
 
+TRANSUNET_UNITS = (3, 4, 9)
+
+
+def _transunet_units():
+    """(reference unit key, its index k in the Flax tree, whether it
+    projects the residual) for the R50's 16 units."""
+    k = 0
+    for bi, units in enumerate(TRANSUNET_UNITS):
+        for u in range(1, units + 1):
+            yield f"block{bi + 1}.unit{u}", k, u == 1
+            k += 1
+
+
+def transunet_state_dict_from_jax(variables) -> dict:
+    """Flax TransUNet variables -> state_dict (the keys
+    ``import_transunet`` reads): the R50 stem's StdConvs and GroupNorms
+    (a projecting unit's ``downsample`` and ``gn_proj`` first in the Flax
+    tree), the patch conv and position embedding, each ViT layer with the
+    fused qkv ``Dense_0`` split back into ``query``, ``key`` and ``value``,
+    the encoder norm, the decoder's convs and BatchNorms (statistics
+    included) and the head."""
+    t = _Walk(variables["params"], variables.get("batch_stats"))
+    hm = "transformer.embeddings.hybrid_model"
+    rn = ("ResNetV2_0",)
+    t.conv((*rn, "StdConv_0", "kernel"), f"{hm}.root.conv.weight")
+    t.layer_norm((*rn, "GN_0"), f"{hm}.root.gn")
+    for tkey, k, proj in _transunet_units():
+        unit, tkey = (*rn, f"PreActBottleneck_{k}"), f"{hm}.body.{tkey}"
+        names = ((("downsample", "gn_proj"),) if proj else ()) + tuple(
+            (f"conv{c}", f"gn{c}") for c in (1, 2, 3))
+        for j, (conv, gn) in enumerate(names):
+            t.conv((*unit, f"StdConv_{j}", "kernel"), f"{tkey}.{conv}.weight")
+            t.layer_norm((*unit, f"GN_{j}"), f"{tkey}.{gn}")
+    emb = "transformer.embeddings"
+    t.conv(("Conv_0", "kernel"), f"{emb}.patch_embeddings.weight")
+    t.raw(("Conv_0", "bias"), f"{emb}.patch_embeddings.bias")
+    t.raw(("position_embeddings",), f"{emb}.position_embeddings")
+    n = sum(1 for k in t.params if k.startswith("Attention_"))
+    for i in range(n):
+        tkey = f"transformer.encoder.layer.{i}"
+        t.layer_norm((f"LayerNorm_{2 * i}",), f"{tkey}.attention_norm")
+        qkv = t._get(t.params, (f"Attention_{i}", "Dense_0"))
+        for w, b, name in zip(np.split(np.asarray(qkv["kernel"]), 3, axis=1),
+                              np.split(np.asarray(qkv["bias"]), 3),
+                              ("query", "key", "value")):
+            t.sd[f"{tkey}.attn.{name}.weight"] = w.T
+            t.sd[f"{tkey}.attn.{name}.bias"] = b
+        t.dense((f"Attention_{i}", "Dense_1"), f"{tkey}.attn.out")
+        t.layer_norm((f"LayerNorm_{2 * i + 1}",), f"{tkey}.ffn_norm")
+        t.dense((f"Mlp_{i}", "Dense_0"), f"{tkey}.ffn.fc1")
+        t.dense((f"Mlp_{i}", "Dense_1"), f"{tkey}.ffn.fc2")
+    t.layer_norm((f"LayerNorm_{2 * n}",), "transformer.encoder.encoder_norm")
+    convs = ["decoder.conv_more"] + [f"decoder.blocks.{i}.conv{c}"
+                                     for i in range(4) for c in (1, 2)]
+    for i, tkey in enumerate(convs):
+        t.conv((f"Conv_{i + 1}", "kernel"), f"{tkey}.0.weight")
+        t.batch_norm((f"BatchNorm_{i}",), f"{tkey}.1")
+    t.conv((f"Conv_{len(convs) + 1}", "kernel"), "segmentation_head.0.weight")
+    t.raw((f"Conv_{len(convs) + 1}", "bias"), "segmentation_head.0.bias")
+    return t.state_dict()
+
+
+def transunet_npz_state_dict(npz, position_shape) -> dict:
+    """The official R50+ViT-B_16 ``.npz`` (``npz``: a mapping of its keys
+    to arrays) as the port's TransUNet keys, the counterpart of
+    ``cbim_tpu.utils.torch_import.import_transunet_npz`` (the reference's
+    ``load_from``): HWIO convs to OIHW, each per-head (hidden, heads,
+    dim_head) query/key/value kernel and (heads, dim_head, hidden) out
+    kernel to a (hidden, hidden) Linear weight, and the position embedding
+    fitted to ``position_shape`` (1, tokens, hidden): the cls token dropped
+    where the file has one token more, else the grid (cls dropped) zoomed
+    bilinearly (``scipy.ndimage.zoom``, order 1).  The hybrid stem where
+    the file has ``conv_root/kernel``.  The decoder and the head are not in
+    the file: they keep their values (load non-strictly)."""
+    w = {k: np.asarray(npz[k]) for k in
+         (npz.files if hasattr(npz, "files") else npz.keys())}
+    sd = {}
+
+    def conv(key):
+        return w[key].transpose(3, 2, 0, 1)
+
+    def vec(key):
+        return w[key].reshape(-1)
+
+    hidden = w["embedding/kernel"].shape[-1]
+    emb = "transformer.embeddings"
+    sd[f"{emb}.patch_embeddings.weight"] = conv("embedding/kernel")
+    sd[f"{emb}.patch_embeddings.bias"] = w["embedding/bias"]
+    sd["transformer.encoder.encoder_norm.weight"] =         vec("Transformer/encoder_norm/scale")
+    sd["transformer.encoder.encoder_norm.bias"] =         vec("Transformer/encoder_norm/bias")
+    posemb = w["Transformer/posembed_input/pos_embedding"]
+    tgt = tuple(position_shape)
+    if posemb.shape != tgt:
+        if posemb.shape[1] - 1 == tgt[1]:
+            posemb = posemb[:, 1:]
+        else:
+            from scipy import ndimage
+            grid = posemb[0, 1:]
+            gs_old, gs_new = int(np.sqrt(grid.shape[0])), int(np.sqrt(tgt[1]))
+            grid = ndimage.zoom(grid.reshape(gs_old, gs_old, -1),
+                                (gs_new / gs_old, gs_new / gs_old, 1),
+                                order=1)
+            posemb = grid.reshape(1, gs_new * gs_new, -1)
+    sd[f"{emb}.position_embeddings"] = posemb
+
+    n_layers = sum(1 for k in w if k.startswith("Transformer/encoderblock_")
+                   and k.endswith("LayerNorm_0/scale"))
+    attn = "MultiHeadDotProductAttention_1"
+    for i in range(n_layers):
+        src = f"Transformer/encoderblock_{i}"
+        tkey = f"transformer.encoder.layer.{i}"
+        for name in ("query", "key", "value", "out"):
+            sd[f"{tkey}.attn.{name}.weight"] =                 w[f"{src}/{attn}/{name}/kernel"].reshape(hidden, hidden).T
+            sd[f"{tkey}.attn.{name}.bias"] = vec(f"{src}/{attn}/{name}/bias")
+        for j, fc in ((0, "fc1"), (1, "fc2")):
+            sd[f"{tkey}.ffn.{fc}.weight"] =                 w[f"{src}/MlpBlock_3/Dense_{j}/kernel"].T
+            sd[f"{tkey}.ffn.{fc}.bias"] =                 vec(f"{src}/MlpBlock_3/Dense_{j}/bias")
+        for j, norm in ((0, "attention_norm"), (2, "ffn_norm")):
+            sd[f"{tkey}.{norm}.weight"] = vec(f"{src}/LayerNorm_{j}/scale")
+            sd[f"{tkey}.{norm}.bias"] = vec(f"{src}/LayerNorm_{j}/bias")
+
+    if "conv_root/kernel" in w:
+        hm = f"{emb}.hybrid_model"
+        sd[f"{hm}.root.conv.weight"] = conv("conv_root/kernel")
+        sd[f"{hm}.root.gn.weight"] = vec("gn_root/scale")
+        sd[f"{hm}.root.gn.bias"] = vec("gn_root/bias")
+        for tkey, _, proj in _transunet_units():
+            src, tkey = tkey.replace(".", "/"), f"{hm}.body.{tkey}"
+            names = [(f"conv{c}", f"gn{c}") for c in (1, 2, 3)]
+            if proj:
+                names.append(("conv_proj", "gn_proj"))
+            for conv_name, gn in names:
+                dst = "downsample" if conv_name == "conv_proj" else conv_name
+                sd[f"{tkey}.{dst}.weight"] = conv(f"{src}/{conv_name}/kernel")
+                sd[f"{tkey}.{gn}.weight"] = vec(f"{src}/{gn}/scale")
+                sd[f"{tkey}.{gn}.bias"] = vec(f"{src}/{gn}/bias")
+    return {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
+            for k, v in sd.items()}
+
+
 def _host(tree):
     """A tree's leaves as numpy arrays (bfloat16 tensors of the msgpack
     reader widened to float32)."""
@@ -773,6 +1000,14 @@ def state_dict_from_jax(cfg, variables) -> dict:
             variables, cfg),
         ("3d", "vnet"): lambda: vnet_state_dict_from_jax(params),
         ("3d", "unetr"): lambda: unetr_state_dict_from_jax(params),
+        ("2d", "unet"): lambda: unet2d_state_dict_from_jax(variables, cfg),
+        ("2d", "resunet"): lambda: unet2d_state_dict_from_jax(variables,
+                                                              cfg),
+        ("2d", "unet++"): lambda: unetpp2d_state_dict_from_jax(variables),
+        ("2d", "attention_unet"): lambda: attention_unet2d_state_dict_from_jax(
+            variables),
+        ("2d", "daunet"): lambda: daunet_state_dict_from_jax(variables, cfg),
+        ("2d", "transunet"): lambda: transunet_state_dict_from_jax(variables),
     }
     if (dim, name) not in walks:
         raise NotImplementedError(

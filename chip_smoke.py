@@ -108,6 +108,16 @@ Phases, each printing its result; any failure raises and exits non-zero:
    train step, the loss and every gradient compared, on the TF32 forward,
    dgrad and wgrad and the norm backward kernels for the UNet family,
    VNet's whole-channel dropout masks fixed on both sides;
+4z. the 2D zoo at small widths (``SMALL_ZOO_2D``: UNet-2D, UNet++-2D,
+   AttentionUNet-2D, DAUNet with its attention gains drawn, and TransUNet
+   at hidden 96 with 2 layers, on 2 x 64^2, ``conv2d_kernel`` on), card vs
+   CPU: the eval softmax, every routed 3x3 conv one forward of its route
+   (``conv2d_same_fwd_tf32``; UNet++'s 1-channel first conv the CUDA-core
+   ``conv2d_same_fwd``) and every gate InstanceNorm one ``inorm_stats`` and
+   ``inorm_apply`` a forward, none for TransUNet; then one fp32 train step,
+   the loss and every gradient compared, each routed conv's forward, dgrad
+   and wgrad (the 1-channel conv's no dgrad) and each gate norm's backward
+   pair exactly once;
 5. serving: the full-width AMOS-CT MedFormer-3D with seeded random weights
    serves a synthetic NIfTI request (``REQUESTS``: 160 x 256 x 256)
    through ``cbim_tpu_torch.prediction.main``; every forward kernel must have
@@ -205,6 +215,19 @@ Phases, each printing its result; any failure raises and exits non-zero:
 8s. the ACDC SwinUnet recipe as shipped (fp32, stochastic depth 0.1)
    trains one epoch of 4 batch-32 steps on ``Synthetic2D``: every loss
    finite, DropPath drew its masks, no window-attention launch in a step;
+7r. the full-width ACDC ResUNet-2D (``configs/acdc/resunet_2d.yaml``: base
+   32, BasicBlock, BatchNorm, 4 classes, 256^2, fp32, ``conv2d_kernel``)
+   with seeded weights serves phase 7's first request: 25
+   ``conv2d_same_fwd_tf32`` launches a forward (ACDC_RESUNET_CONVS) and no
+   other 3x3 kernel;
+8r. the ACDC ResUNet-2D recipe as shipped (fp32, ``conv2d_kernel``)
+   trains one epoch of 4 batch-32 steps on ``Synthetic2D``: every loss
+   finite, per step 25 ``conv2d_same_fwd_tf32``, ``conv2d_dgrad_tf32`` and
+   ``conv2d_wgrad_tf32`` launches and no other 3x3 kernel;
+7t. the full-width ACDC TransUNet (``configs/acdc/transunet_2d.yaml``:
+   R50-ViT-B/16, 256^2, fp32) with seeded weights serves phase 7's first
+   request: no kernel launches (cuDNN's convs, torch's norms and GEMMs, as
+   XLA's in JAX);
 9. Swin serving: the full-width BCV SwinUNETR (``configs/bcv/
    swin_unetr_3d.yaml``: 14 classes, feature size 48, 128^3 window, fp32)
    with seeded random weights serves phase 5's request through
@@ -243,8 +266,14 @@ Phases, each printing its result; any failure raises and exits non-zero:
    timed beside the rungs), with its time, bound, plain and library
    times.
 
-Each of phases 4e, 4u and 5-10 (5b, 5r, 6b, 6v, 6k, 6kn, 6a, 6r, 7b, 8b,
-8f, 8v, 7s, 8s, 9t, 9u, 9ut, 9n and 9nt included) sets
+The CPU references of phases 4-4z (each small model's eval softmax and
+train step on the CPU's plain versions; 4z's TransUNet step also in fp64)
+are computed in a thread beside phases 3 and 3a, where the host's cores
+are idle, and read by those phases; the same thread then writes the
+serving phases' requests and the KiTS, ACDC-3D and BCV corpora, once.
+
+Each of phases 4e, 4u, 4z and 5-10 (5b, 5r, 6b, 6v, 6k, 6kn, 6a, 6r, 7b,
+8b, 8f, 8v, 7s, 8s, 7r, 8r, 7t, 9t, 9u, 9ut, 9n and 9nt included) sets
 the launch counters to 0 just before it and reads them just after.  The
 last three
 lines are the card's name and power limit, the kernels' JSON record
@@ -254,9 +283,9 @@ FLOPs and bytes) and ``{"ok": true, "device": {...}}``.
 Usage: python3 chip_smoke.py [--profile DIR]
 
 ``--profile DIR`` also traces the steady steps of phases 6, 6b, 6k, 6kn,
-6a, 6r, 8, 8b and 8f with the trainer's profiler hook (``profile_dir``),
-and the requests of phases 5, 5b, 5r, 9 and 9n served a second time, after
-the timed run:
+6a, 6r, 8, 8b, 8f and 8r with the trainer's profiler hook
+(``profile_dir``), and the requests of phases 5, 5b, 5r, 9, 9n, 7r and 7t
+served a second time, after the timed run:
 DIR/<phase>/kernels.txt and summary.json, and the top kernels by device
 time are printed; for 5, 5b and 5r also the 3^3 forwards' shapes and
 counts.
@@ -761,6 +790,7 @@ BCV_CASES = [((144, 184, 184), (1.5, 1.5, 1.5)),
              ((146, 186, 190), (1.5, 1.5, 1.5)),
              ((142, 182, 184), (1.5, 1.5, 1.5))]
 BCV_STEPS = WARMUP_STEPS + 2
+BCV_NAMES = [f"img{i:04d}" for i in range(1, len(BCV_CASES) + 1)]
 
 #: the model and inference keys of configs/acdc/medformer_2d.yaml, on the
 #: 3x3 kernel route (``conv2d_kernel``; phases 7 and 8; phase 8b turns it
@@ -805,6 +835,43 @@ SU_STEPS = 6 * 22 // TRAIN2D_BATCH
 #: slices each, centre-cropped to 256^2: one whole-image forward a volume)
 ACDC_VAL = dict(ACDC_TRAIN, synthetic_cases=10, val_freq=1)
 
+#: the model keys of configs/acdc/resunet_2d.yaml (phases 7r and 8r):
+#: ResUNet-2D, base 32, BasicBlock, BatchNorm (the factory passes no norm),
+#: 4 classes, 256^2, whole-image validation; on the 3x3 kernel route
+ACDC_RESUNET = dict(dataset="acdc", model="resunet", dimension="2d",
+                    classes=4, in_chan=1, base_chan=32, block="BasicBlock",
+                    training_size=[256, 256], sliding_window=False,
+                    conv2d_kernel=True)
+#: its ConvNormActs on the 3x3 kernel route (C_in <= 192, C_out <= 192,
+#: widths multiples of 8: the TF32 route in fp32): 2 in inc, 5 in down1 and
+#: down2 (a block's 3x3 shortcut where the width changes), 3 in up2 (its
+#: first block's conv1 and shortcut read the 256-wide concat: cuDNN), 5 in
+#: up3 and up4.  Phase 8r trains the recipe as shipped on Synthetic2D, fold
+#: 0 of 5 of SU_TRAIN_CASES cases: SU_STEPS steps at batch 32
+ACDC_RESUNET_CONVS = 25
+#: the model keys of configs/acdc/transunet_2d.yaml (phase 7t): the
+#: R50-ViT-B/16 at 256^2 (a 16^2 token grid), 4 classes
+ACDC_TRANSUNET = dict(dataset="acdc", model="transunet", dimension="2d",
+                      classes=4, in_chan=1, training_size=[256, 256],
+                      sliding_window=False)
+#: phase 4z: the 2D zoo at small widths, card vs CPU on 2 x 64^2 with
+#: ``conv2d_kernel`` on: base 8 (widths 8-128, multiples of 8: the TF32 3x3
+#: route; UNet++'s 1-channel first conv the CUDA-core one), BatchNorm;
+#: DAUNet with its attention gains drawn (``seeded_model``); TransUNet's R50
+#: at its fixed widths and a ViT at hidden 96, 3 heads, MLP 192, 2 layers,
+#: dropout 0
+ZOO2D_BASE = dict(dataset="synthetic", dimension="2d", classes=4, in_chan=1,
+                  base_chan=8, training_size=[64, 64], conv2d_kernel=True)
+SMALL_ZOO_2D = (
+    ("UNet-2D", dict(ZOO2D_BASE, model="unet", block="SingleConv")),
+    ("UNet++-2D", dict(ZOO2D_BASE, model="unet++")),
+    ("AttentionUNet-2D", dict(ZOO2D_BASE, model="attention_unet")),
+    ("DAUNet", dict(ZOO2D_BASE, model="daunet", block="BasicBlock")),
+    ("TransUNet", dict(ZOO2D_BASE, model="transunet", hidden_size=96,
+                       mlp_dim=192, num_layers=2, transunet_num_heads=3,
+                       dropout_rate=0.0)))
+SMALL_ZOO_2D_SHAPE = (2, 1, 64, 64)
+
 #: phase 6k: configs/kits/medformer_3d.yaml as shipped (MedFormer-3D, base
 #: 32, ReLU, 3 classes, 128^3 crops, remat, the KiTS recipe with its 60-voxel
 #: affine pad), read by the port's ``load_config``, trained in fp32 (the
@@ -843,6 +910,7 @@ ACDC3D_CASES = [((10, 232, 216), (10.0, 1.5625, 1.5625)),
 #: (the median of 2 steps after warm-up, cut from 4 to keep the script
 #: within its time)
 ACDC3D_STEPS = WARMUP_STEPS + 2
+ACDC3D_NAMES = [f"patient{i:03d}" for i in range(1, len(ACDC3D_CASES) + 1)]
 #: phases 6k and 6a: batches timed alone after the run (the data path's
 #: cost a step, beside the step that the trainer overlaps it with)
 DATA_BATCHES = 3
@@ -1079,10 +1147,15 @@ def phase_kernels(device, conv_cases, norm_cases, record: dict) -> None:
             nbytes = x.numel() * x.element_size()
             n = iters_for(nbytes, 1e9)
             st_ms = cuda_ms(lambda: fused_norm.inorm_stats(x, eps), n)
-            st_plain = cuda_ms(lambda: fused_norm.inorm_stats_plain(x, eps), n)
+            # the plain versions (3-8x the kernels' time) at a quarter of
+            # the repeats, as the fused pair's, to keep the script within
+            # its time
+            st_plain = cuda_ms(lambda: fused_norm.inorm_stats_plain(x, eps),
+                               plain_iters(n))
             ap_ms = cuda_ms(lambda: fused_norm.inorm_apply(x, pmean, prstd, act), n)
             ap_plain = cuda_ms(
-                lambda: fused_norm.inorm_apply_plain(x, pmean, prstd, act), n)
+                lambda: fused_norm.inorm_apply_plain(x, pmean, prstd, act),
+                plain_iters(n))
             say(f"  inorm {dt:8s} B={B} S={S} C={C} act={act} eps={eps}: "
                 f"stats err abs {e_stats[0]:.3e} rel {e_stats[1]:.3e} "
                 f"kernel {st_ms:.3f} ms "
@@ -1258,13 +1331,14 @@ def phase_backward_kernels(device, conv_cases, norm_cases, record: dict) -> None
             n = iters_for(nbytes, 1e9)
             st_ms = cuda_ms(
                 lambda: fused_norm.inorm_bwd_stats(x, dy, mean, rstd, act), n)
+            # the plain versions at a quarter of the repeats (as above)
             st_plain = cuda_ms(
                 lambda: fused_norm.inorm_bwd_stats_plain(x, dy, mean, rstd,
-                                                         act), n)
+                                                         act), plain_iters(n))
             ap_ms = cuda_ms(lambda: fused_norm.inorm_bwd_apply(
                 x, dy, mean, rstd, pred, act), n)
             ap_plain = cuda_ms(lambda: fused_norm.inorm_bwd_apply_plain(
-                x, dy, mean, rstd, pred, act), n)
+                x, dy, mean, rstd, pred, act), plain_iters(n))
             say(f"  inorm bwd {dt:8s} B={B} S={S} C={C} act={act}: "
                 f"stats err abs {e_red[0]:.3e} rel {e_red[1]:.3e} "
                 f"kernel {st_ms:.3f} ms ({2 * nbytes / st_ms / 1e6:.0f} GB/s) "
@@ -1868,9 +1942,9 @@ def phase_window_attention(device, cases, record: dict) -> None:
 
 
 def seeded_model(cfg, seed: int, train: bool = False):
-    """A CPU model with seeded weights; BatchNorm running statistics drawn
-    from the seed too (their initial 0 and 1 would leave eval-mode
-    normalisation untested)."""
+    """A CPU model with seeded weights; BatchNorm running statistics and
+    DAUNet's attention gains drawn from the seed too (their initial 0 and 1
+    would leave eval-mode normalisation and the attentions untested)."""
     import torch
     from cbim_tpu_torch.models import get_model
     gen = torch.Generator().manual_seed(seed)
@@ -1881,6 +1955,11 @@ def seeded_model(cfg, seed: int, train: bool = False):
                 buf.normal_(0.0, 0.1, generator=gen)
             elif name.endswith("running_var"):
                 buf.uniform_(0.5, 2.0, generator=gen)
+        for name, p in model.named_parameters():
+            if name.endswith("gamma"):
+                # DAUNet's attention gains: at their initial 0 the
+                # attentions would feed nothing
+                p.uniform_(0.5, 1.5, generator=gen)
     return model
 
 
@@ -1922,6 +2001,201 @@ def head0(out):
     return out[0] if isinstance(out, (tuple, list)) else out
 
 
+def _ref_key(cfg_dict, shape, *extra) -> tuple:
+    """The key of a CPU reference: ``conv_na`` only picks the card's route
+    (the plain fused conv is the unfused pair's function) and ``remat``
+    recomputes the same function, so both are left out, and one reference
+    serves every such variant."""
+    return (json.dumps({k: v for k, v in cfg_dict.items()
+                        if k not in ("conv_na", "remat")},
+                       sort_keys=True, default=str), tuple(shape), *extra)
+
+
+#: the CPU references of phases 4-4z by ``_ref_key``: eval softmax (seeded
+#: weights 1) and train steps (seeded weights 3: loss and fp64 gradients),
+#: computed where first asked for, or ahead by ``prefetch_host_work``;
+#: and the seeded weights themselves (``seeded_state``)
+CPU_EVALS: dict = {}
+CPU_STEPS: dict = {}
+SEEDED: dict = {}
+
+
+def seeded_state(cfg_dict, seed: int) -> dict:
+    """``seeded_model``'s state_dict for a config dict, built once (the
+    card's models of phases 4-4z load it)."""
+    from cbim_tpu_torch.config import config_from_dict
+    key = _ref_key(cfg_dict, (), seed)
+    if key not in SEEDED:
+        SEEDED[key] = seeded_model(config_from_dict(cfg_dict),
+                                   seed).state_dict()
+    return SEEDED[key]
+
+
+def step_batch(cfg, shape):
+    """The train steps' batch of ``shape`` (B, C, *spatial), its labels and
+    class weights (seeded)."""
+    import torch
+    gen = torch.Generator().manual_seed(4)
+    img = torch.randn(*shape, generator=gen)
+    lab = torch.randint(0, cfg.classes, (shape[0], *shape[2:]), generator=gen)
+    return img, lab, [0.5] + [1.0] * (cfg.classes - 1)
+
+
+def run_step(model, dev, img, lab, weight, amp: bool = False):
+    """One train-mode forward and backward of ``model`` on ``dev``: (loss,
+    {name: gradient in fp64 on the CPU})."""
+    import torch
+    from cbim_tpu_torch.ops.losses import deep_supervision_loss
+    dtype = next(model.parameters()).dtype
+    with torch.autocast("cuda", dtype=torch.bfloat16,
+                        enabled=amp and dev.type == "cuda"):
+        out = model(img.to(dev, dtype))
+        # deep supervision's two heads, or one (the Swin family)
+        outs = out if isinstance(out, (list, tuple)) else [out]
+        loss = deep_supervision_loss(
+            outs, lab.to(dev), [0.5, 0.5] if len(outs) > 1 else [1.0],
+            weight)
+    loss.backward()
+    # a parameter whose output the loss never reads (MedFormer-2D's last
+    # semantic-map reductions, DAUNet's heads) gets no grad: zeros, as in JAX
+    return float(loss.detach()), {
+        k: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+        .double() for k, p in model.named_parameters()}
+
+
+def cpu_eval(cfg_dict, shape):
+    """The CPU model's eval softmax (plain versions) on the seeded input of
+    ``shape``, seeded weights 1."""
+    import torch
+    from cbim_tpu_torch.config import config_from_dict
+    key = _ref_key(cfg_dict, shape)
+    if key not in CPU_EVALS:
+        model = seeded_model(config_from_dict(cfg_dict), 1)
+        SEEDED.setdefault(_ref_key(cfg_dict, (), 1), model.state_dict())
+        x = torch.randn(*shape, generator=torch.Generator().manual_seed(2))
+        with torch.inference_mode():
+            CPU_EVALS[key] = torch.softmax(head0(model(x)), dim=1)
+    return CPU_EVALS[key]
+
+
+def cpu_step(cfg_dict, shape, dtype: str = "float32"):
+    """The CPU's train step (plain versions) of seeded weights 3 on
+    ``step_batch``, in fp32 or fp64, without remat (the same function, one
+    forward fewer); VNet's dropout masks fixed (``fixed_dropout_masks``)."""
+    import torch
+    from cbim_tpu_torch.config import config_from_dict
+    key = _ref_key(cfg_dict, shape, dtype)
+    if key not in CPU_STEPS:
+        cfg = config_from_dict(dict(cfg_dict, remat=False))
+        model = seeded_model(cfg, 3, train=True).to(getattr(torch, dtype))
+        if dtype == "float32":
+            # before the step's train-mode forward moves the statistics
+            SEEDED.setdefault(_ref_key(cfg_dict, (), 3), {
+                k: v.clone() for k, v in model.state_dict().items()})
+        masks = (fixed_dropout_masks() if cfg.model == "vnet"
+                 else contextlib.nullcontext())
+        with masks:
+            CPU_STEPS[key] = run_step(model, torch.device("cpu"),
+                                      *step_batch(cfg, shape))
+    return CPU_STEPS[key]
+
+
+def small_references() -> list:
+    """The CPU references phases 4-4z ask for, as (function, args), with
+    the configs and shapes those phases pass."""
+    zoo2d = dict(SMALL_ZOO_2D)
+    refs = [(cpu_eval, (SMALL, (1, 1, 64, 64, 64))),
+            (cpu_step, (dict(SMALL, remat=True), (2, 1, 64, 64, 64))),
+            (cpu_eval, (SMALL2D, (6, 1, 128, 128))),
+            (cpu_step, (SMALL2D, (4, 1, 128, 128)))]
+    refs += [(cpu_eval, (SMALL_SWIN, shape)) for shape in SMALL_SWIN_SHAPES]
+    refs.append((cpu_step, (SMALL_SWIN, SMALL_SWIN_STEP)))
+    for small, shape in ((SMALL_VT, SMALL_VT_SHAPE), (SMALL_NN, SMALL_NN_SHAPE),
+                         (SMALL_SU, SMALL_SU_SHAPE)):
+        refs += [(cpu_eval, (small, shape)), (cpu_step, (small, shape))]
+    for zoo, shape in ((SMALL_ZOO, SMALL_ZOO_SHAPE),
+                       (SMALL_ZOO_2D, SMALL_ZOO_2D_SHAPE)):
+        for _, small in zoo:
+            refs += [(cpu_eval, (small, shape)), (cpu_step, (small, shape))]
+    refs.append((cpu_step, (zoo2d["TransUNet"], SMALL_ZOO_2D_SHAPE,
+                            "float64")))
+    return refs
+
+
+def write_corpora() -> dict:
+    """The NIfTI corpora that phases 6k/6kn (KiTS), 6a (ACDC-3D) and
+    9t-9nt (BCV) train on, written under WORK; returns the seconds of
+    each."""
+    took = {}
+    for name, write in (
+            ("kits", lambda: kits_config(os.path.join(WORK, "kits_data"))),
+            ("acdc3d", lambda: write_corpus(
+                os.path.join(WORK, "acdc3d_data"), ACDC3D_CASES,
+                ACDC3D_NAMES, seed=2, mr=True, classes=4, frames=2)),
+            ("bcv", lambda: write_corpus(os.path.join(WORK, "bcv_data"),
+                                         BCV_CASES, BCV_NAMES, seed=3,
+                                         classes=14))):
+        t0 = time.perf_counter()
+        write()
+        took[name] = round(time.perf_counter() - t0, 1)
+    return took
+
+
+def prefetch_host_work():
+    """Host work that needs no card, in a thread while phases 3 and 3a keep
+    the card busy and the host's cores idle: ``small_references`` (on the
+    CPU, most of phases 4-4z), with one core left to the main thread's
+    launches, then the serving phases' requests (``requests_dir``) and
+    ``write_corpora``.  Returns (wait for the references, restoring the
+    thread count; wait for the rest): each re-raises what failed and
+    returns the seconds taken so far, by part."""
+    import threading
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - 1))
+    refs_done = threading.Event()
+    failed, took = [], {}
+
+    def run():
+        try:
+            t0 = time.perf_counter()
+            for fn, args in small_references():
+                fn(*args)
+            took["references"] = round(time.perf_counter() - t0, 1)
+        except BaseException as e:        # re-raised by the waiters
+            failed.append(e)
+        finally:
+            refs_done.set()
+        if not failed:
+            try:
+                t0 = time.perf_counter()
+                for requests, mr in ((REQUESTS, False), (REQUESTS_2D, True),
+                                     (REQUESTS_2D[:1], True)):
+                    requests_dir(requests, mr)
+                took["requests"] = round(time.perf_counter() - t0, 1)
+                took.update(write_corpora())
+            except BaseException as e:
+                failed.append(e)
+
+    worker = threading.Thread(target=run, name="host-work", daemon=True)
+    worker.start()
+
+    def wait_references() -> dict:
+        refs_done.wait()
+        torch.set_num_threads(threads)
+        if failed:
+            raise failed[0]
+        return took
+
+    def wait_corpora() -> dict:
+        worker.join()
+        if failed:
+            raise failed[0]
+        return took
+
+    return wait_references, wait_corpora
+
+
 def phase_small_model(device, cfg_dict, shape) -> float:
     """Phases 4, 4c and 4d: the small model on ``device`` vs the CPU, same
     weights, on an input of ``shape`` (B, C, *spatial), eval mode."""
@@ -1929,12 +2203,11 @@ def phase_small_model(device, cfg_dict, shape) -> float:
     from cbim_tpu_torch.config import config_from_dict
     from cbim_tpu_torch.models import get_model
     cfg = config_from_dict(cfg_dict)
-    cpu_model = seeded_model(cfg, 1)
+    ref = cpu_eval(cfg_dict, shape)
     dev_model = get_model(cfg, device=device)
-    dev_model.load_state_dict(cpu_model.state_dict())
+    dev_model.load_state_dict(seeded_state(cfg_dict, 1))
     x = torch.randn(*shape, generator=torch.Generator().manual_seed(2))
     with torch.inference_mode():
-        ref = torch.softmax(head0(cpu_model(x)), dim=1)
         out = torch.softmax(head0(dev_model(x.to(device))), dim=1).cpu()
     err = float((out - ref).abs().max())
     assert out.shape == (shape[0], cfg.classes, *shape[2:])
@@ -1942,79 +2215,68 @@ def phase_small_model(device, cfg_dict, shape) -> float:
     return err
 
 
-#: phase_small_train_step's CPU results (loss, grads) by config and shape
-CPU_STEPS: dict = {}
-
-
-def phase_small_train_step(device, cfg_dict, shape, amp: bool = False
-                           ) -> tuple[float, float, float]:
+def phase_small_train_step(device, cfg_dict, shape, amp: bool = False,
+                           f64: bool = False) -> tuple[float, float, float]:
     """Phases 4b and 4c: one train-mode step of the small model on
-    ``device`` and on the CPU, same weights and batch of ``shape`` (B, C,
-    *spatial), fp32 on both or, with ``amp``, under bf16 autocast on the
-    card.  Returns (loss relative error, the gradient's relative L2 error,
-    the worst tensor's error against its tolerance scale, which only fp32
-    asserts)."""
+    ``device`` and on the CPU (``cpu_step``), same weights and batch of
+    ``shape`` (B, C, *spatial), fp32 on both or, with ``amp``, under bf16
+    autocast on the card.  Returns (loss relative error, the gradient's
+    relative L2 error, the worst tensor's error against its tolerance
+    scale, which only fp32 asserts).
+
+    ``f64`` (a network whose fp32 gradient is itself ill-conditioned):
+    the gradients are held instead against an fp64 step on the CPU, the
+    card's fp32 error at most F64_ERR_RATIO times the CPU's fp32 error (or
+    STEP_GRAD_L2 and STEP_GRAD_RTOL where those are larger), in relative
+    L2 and tensor by tensor; the returned errors are then the card's
+    against fp64."""
     import torch
     from cbim_tpu_torch.config import config_from_dict
     from cbim_tpu_torch.models import get_model
-    from cbim_tpu_torch.ops.losses import deep_supervision_loss
     cfg = config_from_dict(cfg_dict)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cpu_model = seeded_model(cfg, 3, train=True)
     dev_model = get_model(cfg, device=device, train=True)
-    dev_model.load_state_dict(cpu_model.state_dict())
-    gen = torch.Generator().manual_seed(4)
-    img = torch.randn(*shape, generator=gen)
-    lab = torch.randint(0, cfg.classes, (shape[0], *shape[2:]), generator=gen)
-    weight = [0.5] + [1.0] * (cfg.classes - 1)
+    dev_model.load_state_dict(seeded_state(cfg_dict, 3))
+    (ref_loss, ref_grads) = cpu_step(cfg_dict, shape)
+    loss, grads = run_step(dev_model, device, *step_batch(cfg, shape), amp=amp)
 
-    def step(model, dev):
-        with torch.autocast("cuda", dtype=torch.bfloat16,
-                            enabled=amp and dev.type == "cuda"):
-            out = model(img.to(dev))
-            # deep supervision's two heads, or one (the Swin family)
-            outs = out if isinstance(out, (list, tuple)) else [out]
-            loss = deep_supervision_loss(
-                outs, lab.to(dev), [0.5, 0.5] if len(outs) > 1 else [1.0],
-                weight)
-        loss.backward()
-        # a parameter whose output the loss never reads (MedFormer-2D's
-        # last semantic-map reductions) gets no grad: zeros, as in JAX
-        return float(loss.detach()), {
-            k: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
-            for k, p in model.named_parameters()}
-
-    # the CPU's fp32 step runs the plain versions whatever the card's route
-    # or autocast, and conv_na only picks the route (the same weights; the
-    # plain fused conv is the unfused pair's function): one per config but
-    # conv_na and shape serves every card step on it
-    key = (json.dumps({k: v for k, v in cfg_dict.items() if k != "conv_na"},
-                      sort_keys=True, default=str), tuple(shape))
-    if key not in CPU_STEPS:
-        CPU_STEPS[key] = step(cpu_model, torch.device("cpu"))
-    (ref_loss, ref_grads), (loss, grads) = CPU_STEPS[key], step(dev_model,
-                                                                device)
     loss_err = abs(loss - ref_loss) / abs(ref_loss)
     loss_tol = STEP_BF16_LOSS_RTOL if amp else STEP_LOSS_RTOL
     assert math.isfinite(loss) and loss_err <= loss_tol, loss_err
-    l2_err = math.sqrt(sum(float((grads[k].float() - r).square().sum())
-                           for k, r in ref_grads.items())
-                       / sum(float(r.square().sum()) for r in ref_grads.values()))
+
+    def errors(got, ref):
+        """(relative L2 error, {tensor: max error / its scale})"""
+        l2 = math.sqrt(sum(float((got[k] - r).square().sum())
+                           for k, r in ref.items())
+                       / sum(float(r.square().sum()) for r in ref.values()))
+        top = max(float(r.abs().max()) for r in ref.values())
+        return l2, {k: float((got[k] - r).abs().max())
+                    / (float(r.abs().max()) + STEP_GRAD_FLOOR * top)
+                    for k, r in ref.items()}
+
     l2_tol = STEP_BF16_GRAD_L2 if amp else STEP_GRAD_L2
+    tensor_tol = {k: STEP_GRAD_RTOL for k in ref_grads}
+    if f64:
+        exact = cpu_step(cfg_dict, shape, "float64")[1]
+        cpu_l2, cpu_worst = errors(ref_grads, exact)
+        l2_tol = max(l2_tol, F64_ERR_RATIO * cpu_l2)
+        tensor_tol = {k: max(STEP_GRAD_RTOL, F64_ERR_RATIO * v)
+                      for k, v in cpu_worst.items()}
+        ref_grads = exact
+        say(f"  the CPU's fp32 gradient against fp64: rel L2 {cpu_l2:.3e}, "
+            f"worst tensor {max(cpu_worst.values()):.3e} of its scale; the "
+            f"card's held to rel L2 {l2_tol:.3e} and each tensor to "
+            f"max({STEP_GRAD_RTOL:.0e}, {F64_ERR_RATIO:g}x the CPU's)")
+    l2_err, worst = errors(grads, ref_grads)
     assert l2_err <= l2_tol, f"gradient relative L2 error {l2_err:.3e}"
-    top = max(float(r.abs().max()) for r in ref_grads.values())
-    worst = 0.0
     for k, ref in ref_grads.items():
         # every parameter gets a finite gradient through the card's graph
         assert torch.isfinite(grads[k]).all(), k
         assert float(grads[k].abs().max()) > 0 or float(ref.abs().max()) == 0, k
-        scale = float(ref.abs().max()) + STEP_GRAD_FLOOR * top
-        err = float((grads[k].float() - ref).abs().max())
-        assert amp or err <= STEP_GRAD_RTOL * scale, \
-            f"{k}: {err:.3e} of {scale:.3e}"
-        worst = max(worst, err / scale)
-    return loss_err, l2_err, worst
+        assert amp or worst[k] <= tensor_tol[k], \
+            f"{k}: {worst[k]:.3e} of its scale (tol {tensor_tol[k]:.3e})"
+    return loss_err, l2_err, max(worst.values())
 
 
 def phase_small_validate(device, cfg_dict) -> dict:
@@ -2167,6 +2429,23 @@ def write_requests(in_dir: str, requests, seed: int = 0,
                     vol.astype(np.int16), spacing=spacing)
 
 
+#: the directories of written requests by (requests, mr)
+REQUEST_DIRS: dict = {}
+
+
+def requests_dir(requests, mr: bool = False) -> str:
+    """A directory under WORK holding ``requests`` as NIfTI files
+    (``write_requests``, seed 0), written once and read by every serving
+    phase that serves them."""
+    import zlib
+    key = json.dumps([requests, mr])
+    if key not in REQUEST_DIRS:
+        in_dir = os.path.join(WORK, f"requests_{zlib.crc32(key.encode()):08x}")
+        write_requests(in_dir, requests, mr=mr)
+        REQUEST_DIRS[key] = in_dir
+    return REQUEST_DIRS[key]
+
+
 def phase_slice(device, cfg_dict, requests, target_spacing, name: str,
                 required, profile_dir: str | None = None) -> dict:
     """Phases 5, 7 and 9: serve ``requests`` with seeded weights through
@@ -2182,7 +2461,7 @@ def phase_slice(device, cfg_dict, requests, target_spacing, name: str,
     from cbim_tpu_torch.models import get_model
     from cbim_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    in_dir = os.path.join(WORK, name, "in")
+    in_dir = requests_dir(requests, mr=cfg_dict["dimension"] == "2d")
     out_dir = os.path.join(WORK, name, "out")
     cfg = config_from_dict(cfg_dict)
     weights = os.path.join(WORK, name, f"{cfg.model}_seed0.pth")
@@ -2192,7 +2471,6 @@ def phase_slice(device, cfg_dict, requests, target_spacing, name: str,
     torch.save(model.state_dict(), weights)
     model_cls = type(model)
     del model
-    write_requests(in_dir, requests, mr=cfg.dimension == "2d")
     argv = ["--dataset", cfg.dataset, "--model", cfg.model,
             "--dimension", cfg.dimension, "--load", weights, "--img_path",
             in_dir, "--save_path", out_dir, "--target_spacing",
@@ -2720,19 +2998,23 @@ def fixed_dropout_masks():
 
 
 def routed_counts(cfg_dict) -> tuple[collections.Counter, int]:
-    """The fp32 forward launches of each 3^3 kernel per forward of the
-    model a config builds (its ConvNormActs on the kernel route, by
-    ``conv3d_route``: the TF32 kernel at widths of multiples of 8, the
-    CUDA-core one else, as UNet++'s first stage on the 1-channel input),
-    and its InstanceNorm modules (on the CPU, no forward)."""
+    """The fp32 forward launches of each 3^3 (3D) or 3x3 (2D) kernel per
+    forward of the model a config builds (its ConvNormActs on the kernel
+    route, by ``conv3d_route``/``conv2d_route``: the TF32 kernel at widths
+    of multiples of 8, the CUDA-core one else, as UNet++'s first stage on
+    the 1-channel input), and its InstanceNorm modules (on the CPU, no
+    forward)."""
     import torch
     from cbim_tpu_torch.config import config_from_dict
     from cbim_tpu_torch.models import get_model
     from cbim_tpu_torch.models.layers import convs
-    from cbim_tpu_torch.ops.kernels import conv3d
-    model = get_model(config_from_dict(cfg_dict), device="cpu")
+    from cbim_tpu_torch.ops.kernels import conv2d, conv3d
+    cfg = config_from_dict(cfg_dict)
+    kernels, route = ((conv2d, conv2d.conv2d_route) if cfg.dimension == "2d"
+                      else (conv3d, conv3d.conv3d_route))
+    model = get_model(cfg, device="cpu")
     fwd = collections.Counter(
-        conv3d.FORWARD_KEYS[conv3d.conv3d_route(
+        kernels.FORWARD_KEYS[route(
             torch.float32, m.conv.in_channels, m.conv.out_channels)][0]
         for m in model.modules()
         if isinstance(m, convs.ConvNormAct) and m.kernel is not None)
@@ -2773,9 +3055,10 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="trace phases 6, 6b, 6k, 6kn, 6a, 6r, 8, 8b and "
-                             "8f's steady steps, and the requests of phases 5, "
-                             "5b, 5r, 9 and 9n served again, into DIR")
+                        help="trace phases 6, 6b, 6k, 6kn, 6a, 6r, 8, 8b, 8f "
+                             "and 8r's steady steps, and the requests of "
+                             "phases 5, 5b, 5r, 9, 9n, 7r and 7t served "
+                             "again, into DIR")
     args = parser.parse_args(argv)
 
     def profile_dir(name):
@@ -2823,6 +3106,7 @@ def main(argv=None) -> int:
                     for k, v in ptxas_report(_build.build_log, key).items()))
 
     record: dict = {}
+    wait_references, wait_corpora = prefetch_host_work()
     say("[phase 3] kernels vs plain versions")
     took = {}
     for part, fn, fn_args in (
@@ -2850,6 +3134,11 @@ def main(argv=None) -> int:
 
     from cbim_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     launches = {}
+    t_wait = time.perf_counter()
+    took = wait_references()
+    say(f"  the CPU references of phases 4-4z, computed beside phases 3 and "
+        f"3a in {took['references']} s, ready after "
+        f"{time.perf_counter() - t_wait:.1f} s more")
     say("[phase 4] small MedFormer-3D, card vs CPU")
     for conv_na in (False, True):
         reset_launch_counts()
@@ -3049,6 +3338,58 @@ def main(argv=None) -> int:
                 not any(counts[k] for k in used)), counts
         launches[f"4u {name}"] = counts
 
+    for name, small in SMALL_ZOO_2D:
+        say(f"[phase 4z] small {name}, card vs CPU")
+        fwd, n_norm = routed_counts(small)
+        reset_launch_counts()
+        err = phase_small_model(device, small, SMALL_ZOO_2D_SHAPE)
+        counts = launch_counts()
+        say(f"  eval, {SMALL_ZOO_2D_SHAPE} softmax max abs err {err:.3e} (tol "
+            f"{MODEL_PROB_ATOL}); 3x3 launches "
+            f"{ {k: counts[k] for k in CONV2D_KERNELS if counts[k]} }, "
+            f"{counts['inorm_apply']} inorm_apply")
+        # fp32: every routed conv one forward of its route, every
+        # InstanceNorm (AttentionUNet's gates) one stats and one apply;
+        # TransUNet's convs and norms are cuDNN's and torch's, as XLA's
+        assert all(counts[k] == fwd[k] for k in CONV2D_KERNELS) and \
+            not any(counts[k] for k in CONV3D_KERNELS) and \
+            counts["inorm_stats"] == counts["inorm_apply"] == n_norm, \
+            (counts, fwd, n_norm)
+        reset_launch_counts()
+        # TransUNet's random R50 (weight standardisation before each
+        # GroupNorm) has an ill-conditioned fp32 gradient: on the CPU it errs
+        # by 2.6e-2 in relative L2 against fp64 at these weights, and one
+        # tensor by 0.12 of its scale (PERF.md), above STEP_GRAD_L2;
+        # its step is held against an fp64 CPU step (``f64``)
+        f64 = small["model"] == "transunet"
+        loss_err, l2_err, grad_err = phase_small_train_step(
+            device, small, SMALL_ZOO_2D_SHAPE, f64=f64)
+        counts = launch_counts()
+        tols = (("", "") if f64 else (f" (tol {STEP_GRAD_L2:.0e})",
+                                      f" (tol {STEP_GRAD_RTOL:.0e})"))
+        say(f"  train step, fp32: loss rel err {loss_err:.3e} (tol "
+            f"{STEP_LOSS_RTOL:.0e}); gradient rel L2 err "
+            f"{'against fp64 ' if f64 else ''}{l2_err:.3e}{tols[0]}; worst "
+            f"tensor err {grad_err:.3e} of its scale{tols[1]}; 3x3 launches "
+            f"{ {k: counts[k] for k in CONV2D_KERNELS if counts[k]} }")
+        # one step: each TF32 conv its forward, dgrad and wgrad; UNet++'s
+        # 1-channel conv the CUDA-core forward and wgrad and no dgrad (its
+        # input is the image); each gate norm its forward and backward pairs
+        tf32, core = fwd["conv2d_same_fwd_tf32"], fwd["conv2d_same_fwd"]
+        want = dict(conv2d_same_fwd_tf32=tf32, conv2d_dgrad_tf32=tf32,
+                    conv2d_wgrad_tf32=tf32, conv2d_same_fwd=core,
+                    conv2d_wgrad=core, conv2d_dgrad=0, inorm_stats=n_norm,
+                    inorm_apply=n_norm, inorm_bwd_stats=n_norm,
+                    inorm_bwd_apply=n_norm,
+                    **{k: 0 for k in TC2D_KERNELS + CONV3D_KERNELS})
+        assert all(counts[k] == v for k, v in want.items()), (counts, want)
+        launches[f"4z {name}"] = counts
+
+    t_wait = time.perf_counter()
+    took = wait_corpora()
+    say(f"  the requests and the KiTS, ACDC-3D and BCV cases written beside "
+        f"the earlier phases (seconds: {took}), ready after "
+        f"{time.perf_counter() - t_wait:.1f} s more")
     say("[phase 5] AMOS-CT MedFormer-3D serving 1 NIfTI request")
     res = phase_slice(device, AMOS, REQUESTS, TARGET_SPACING, "serve3d",
                       FORWARD_KERNELS, profile_dir("serve3d"))
@@ -3176,11 +3517,8 @@ def main(argv=None) -> int:
 
     say("[phase 6k] the KiTS recipe as shipped (configs/kits/"
         "medformer_3d.yaml), fp32, batch 2, on written NIfTI cases")
-    t_corpus = time.perf_counter()
-    kits = kits_config(os.path.join(WORK, "kits_data"),
+    kits = kits_config(os.path.join(WORK, "kits_data"), write=False,
                        profile_dir=profile_dir("kits"))
-    say(f"  wrote {len(KITS_CASES)} cases in "
-        f"{time.perf_counter() - t_corpus:.1f} s")
     tr = phase_train(device, kits, TRAIN_BATCH, "kits",
                      ("inorm_stats", "inorm_apply", "inorm_bwd_stats",
                       "inorm_bwd_apply") + TF32_CONV_KERNELS,
@@ -3244,9 +3582,6 @@ def main(argv=None) -> int:
         "the device cache's full-volume path, fp32, batch 2")
     from cbim_tpu_torch.config import load_config
     acdc_root = os.path.join(WORK, "acdc3d_data")
-    names = [f"patient{i:03d}" for i in range(1, len(ACDC3D_CASES) + 1)]
-    write_corpus(acdc_root, ACDC3D_CASES, names, seed=2, mr=True, classes=4,
-                 frames=2)
     acdc3d = load_config("acdc", "medformer", "3d", data_root=acdc_root,
                          epochs=1, iter_per_epoch=ACDC3D_STEPS, print_freq=1)
     if args.profile:
@@ -3435,6 +3770,62 @@ def main(argv=None) -> int:
         tr["launches"]["window_attention"] == 0, (drops, tr["launches"])
     launches["8s"] = tr["launches"]
 
+    say("[phase 7r] ACDC ResUNet-2D (configs/acdc/resunet_2d.yaml) serving "
+        "phase 7's first request (slice batch)")
+    res = phase_slice(device, ACDC_RESUNET, REQUESTS_2D[:1], TARGET_SPACING_2D,
+                      "serve_resunet2d", ("conv2d_same_fwd_tf32",),
+                      profile_dir("serve_resunet2d"))
+    say_serving(res)
+    if args.profile:
+        say_profile(os.path.join(args.profile, "serve_resunet2d"), "volume")
+    counts, fw = res["launches"], res["forwards"]
+    say(f"  per forward: {counts['conv2d_same_fwd_tf32'] / fw:g} "
+        f"conv2d_same_fwd_tf32 ({fw} forwards)")
+    # fp32 serving: each routed conv one TF32 forward a forward, no other
+    # 3x3 kernel
+    assert fw > 0 and counts["conv2d_same_fwd_tf32"] == \
+        ACDC_RESUNET_CONVS * fw and not any(
+            counts[k] for k in CONV2D_KERNELS
+            if k != "conv2d_same_fwd_tf32"), f"{counts} in {fw} forwards"
+    launches["7r"] = counts
+
+    say("[phase 8r] the ACDC ResUNet-2D recipe as shipped, fp32, batch "
+        f"{TRAIN2D_BATCH}, on the TF32 3x3 kernels, one epoch of Synthetic2D")
+    resunet2d = load_config("acdc", "resunet", "2d",
+                            synthetic_cases=SU_TRAIN_CASES, k_fold=5,
+                            epochs=1, print_freq=1, conv2d_kernel=True)
+    resunet2d.dataset = "synthetic"
+    if args.profile:
+        resunet2d.profile_dir = profile_dir("resunet2d")
+    tr = phase_train(device, resunet2d, TRAIN2D_BATCH, "resunet2d",
+                     TF322D_KERNELS, amp=False, min_steps=SU_STEPS)
+    say_train(tr, "slices")
+    if args.profile:
+        say_profile(os.path.join(args.profile, "resunet2d"))
+    counts, steps = tr["launches"], len(tr["step_seconds"])
+    # per step each routed conv one TF32 forward, dgrad and wgrad; no
+    # tensor-core and no CUDA-core 3x3 launch
+    want = dict({k: ACDC_RESUNET_CONVS * steps for k in TF322D_KERNELS},
+                **{k: 0 for k in TC2D_KERNELS + CORE2D_KERNELS})
+    assert steps == SU_STEPS and all(counts[k] == v
+                                     for k, v in want.items()), \
+        (counts, want)
+    assert all(math.isfinite(v) for v in tr["losses"]), tr["losses"]
+    launches["8r"] = counts
+
+    say("[phase 7t] ACDC TransUNet (configs/acdc/transunet_2d.yaml: "
+        "R50-ViT-B/16) serving phase 7's first request (slice batch)")
+    res = phase_slice(device, ACDC_TRANSUNET, REQUESTS_2D[:1],
+                      TARGET_SPACING_2D, "serve_transunet", (),
+                      profile_dir("serve_transunet"))
+    say_serving(res)
+    if args.profile:
+        say_profile(os.path.join(args.profile, "serve_transunet"), "volume")
+    counts = res["launches"]
+    # cuDNN's convs, torch's norms and GEMMs, as XLA's in JAX: no kernel
+    assert res["forwards"] > 0 and not any(counts.values()), counts
+    launches["7t"] = counts
+
     say("[phase 9] BCV SwinUNETR serving 1 NIfTI request")
     res = phase_slice(device, BCV, REQUESTS, TARGET_SPACING,
                       "serve_swin", ("window_attention",),
@@ -3450,13 +3841,7 @@ def main(argv=None) -> int:
     say("[phase 9t] the BCV SwinUNETR recipe as shipped (configs/bcv/"
         f"swin_unetr_3d.yaml), fp32, batch {TRAIN_BATCH}, on written NIfTI "
         "cases")
-    t_corpus = time.perf_counter()
     bcv_root = os.path.join(WORK, "bcv_data")
-    write_corpus(bcv_root, BCV_CASES,
-                 [f"img{i:04d}" for i in range(1, len(BCV_CASES) + 1)],
-                 seed=3, classes=14)
-    say(f"  wrote {len(BCV_CASES)} cases in "
-        f"{time.perf_counter() - t_corpus:.1f} s")
     bcv_keys = dict(data_root=bcv_root, epochs=1, iter_per_epoch=BCV_STEPS,
                     print_freq=1)
     tr = phase_train(device, load_config("bcv", "swin_unetr", "3d",

@@ -204,8 +204,12 @@ def test_flax_msgpack_ckpt_raises_the_a5_error(tmp_path):
 
 
 def test_unported_weight_formats_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A .npz is TransUNet's --pretrain backbone, not a weights file of
+    the loader; other suffixes raise too."""
+    with pytest.raises(NotImplementedError, match="TransUNet"):
         read_state_dict(str(tmp_path / "backbone.npz"))
+    with pytest.raises(NotImplementedError, match="loads .pth"):
+        read_state_dict(str(tmp_path / "model.safetensors"))
 
 
 @pytest.mark.parametrize("kind", ["ckpt", "wrapper"])

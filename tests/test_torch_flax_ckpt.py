@@ -295,5 +295,5 @@ def test_refusals(tmp_path):
         load_weights(str(path), model)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         read_state_dict(str(path), cfg=config_from_dict(
-            dict(RESUNET, dimension="2d", model="transunet")))
+            dict(RESUNET, dimension="2d", block="Bottleneck")))
     assert os.path.exists(path)

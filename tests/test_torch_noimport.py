@@ -1,9 +1,16 @@
 """The port runs without JAX: every module imports with ``jax``, ``flax``
 and ``msgpack`` blocked, and it loads no module of the JAX package
 ``cbim_tpu``, not even one that imports nothing of JAX: the port keeps its
-own copies."""
+own copies.
 
+Each module is imported in a process of its own, forked from one that has
+blocked the three and imported only numpy and torch (which every module of
+the port imports first), so that a probe costs the module's own imports
+and not an interpreter's start and torch's import each time."""
+
+import json
 import os
+import select
 import subprocess
 import sys
 
@@ -43,6 +50,8 @@ MODULES = [
     "cbim_tpu_torch.models.attention_unet",
     "cbim_tpu_torch.models.unetpp",
     "cbim_tpu_torch.models.vnet",
+    "cbim_tpu_torch.models.daunet",
+    "cbim_tpu_torch.models.transunet",
     "cbim_tpu_torch.inference.engines",
     "cbim_tpu_torch.prediction",
     "cbim_tpu_torch.utils.jax_import",
@@ -97,10 +106,71 @@ def _probe(mod, extra=""):
                           capture_output=True, text=True, timeout=120)
 
 
+#: reads module names, one a line; for each forks a child that imports it
+#: and reports "ok", the leaked cbim_tpu modules or the traceback, as one
+#: JSON line
+_FORK_SERVER = r"""
+import importlib, json, os, sys, traceback
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+sys.modules["msgpack"] = None
+import numpy, torch
+assert not any(m.split(".")[0] in ("cbim_tpu", "cbim_tpu_torch")
+               for m in sys.modules)
+for line in sys.stdin:
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(r)
+        try:
+            importlib.import_module(line.strip())
+            leaked = sorted(m for m in sys.modules
+                            if (m == "cbim_tpu" or m.startswith("cbim_tpu."))
+                            and m not in {allowed!r})
+            msg = "ok" if not leaked else f"loaded {{leaked}}"
+        except BaseException:
+            msg = traceback.format_exc()
+        os.write(w, msg.encode())
+        os._exit(0)
+    os.close(w)
+    out = b""
+    while True:
+        chunk = os.read(r, 65536)
+        if not chunk:
+            break
+        out += chunk
+    os.close(r)
+    os.waitpid(pid, 0)
+    print(json.dumps(out.decode()), flush=True)
+"""
+
+
+@pytest.fixture(scope="module")
+def importer():
+    """``importer(mod)``: the fork server's answer for ``mod`` (120 s at
+    most)."""
+    server = subprocess.Popen(
+        [sys.executable, "-c", _FORK_SERVER.format(allowed=ALLOWED)],
+        cwd=REPO, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+    def ask(mod: str) -> str:
+        server.stdin.write(mod + "\n")
+        server.stdin.flush()
+        ready, _, _ = select.select([server.stdout], [], [], 120)
+        assert ready, f"no answer for {mod} in 120 s"
+        line = server.stdout.readline()
+        assert line, server.stderr.read()
+        return json.loads(line)
+
+    yield ask
+    server.stdin.close()
+    server.wait(timeout=60)
+
+
 @pytest.mark.parametrize("mod", MODULES)
-def test_module_imports_without_jax(mod):
-    proc = _probe(mod)
-    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+def test_module_imports_without_jax(mod, importer):
+    assert importer(mod) == "ok"
 
 
 def test_prediction_main_loads_only_the_allowed_host_modules(tmp_path):
