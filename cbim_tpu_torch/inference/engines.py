@@ -1,12 +1,16 @@
 """Inference engines: whole-image, 3D sliding-window and the 2D slice-batch
 sliding window (counterpart of ``cbim_tpu/inference/engines.py``).
 
-Same window geometry and uniform fusion as ``cbim_tpu`` (and the
-reference's inference3d.py): stride half a window, edge windows clamped
-flush to the border (``split_idx``), repeated starts run once and weighted by their
+Same window geometry and fusion as ``cbim_tpu`` (and the reference's
+inference3d.py): stride half a window, edge windows clamped flush to the
+border (``split_idx``), repeated starts run once and weighted by their
 multiplicity (``_dedup_starts``), softmax probabilities summed and divided
 by the visit count; inputs smaller than the window are zero-padded on the
-high side and cropped back.
+high side and cropped back.  ``fusion`` "uniform" (the reference's) weighs
+every voxel of a window alike; "gaussian" (the config's
+``window_fusion``, the nnU-Net-style centre weighting the JAX package
+offers) weighs each window's probabilities by a separable Gaussian
+importance map and divides by the importance-weighted count map.
 
 PyTorch runs eagerly, so the sweep is a Python loop over window groups under
 ``torch.inference_mode()`` instead of a compiled scan; a short last group
@@ -15,8 +19,9 @@ normalises with its batch's statistics (VNet's ContBatchNorm,
 ``batch_statistics``): there the group is filled up with the first
 window, weighted 0, as the JAX engine pads every group, so that each
 window sees the same batch as in JAX.  The probability accumulator is an
-fp32 buffer on the device, updated in place; the count map is pure window
-geometry, built on the host once per padded shape and cached on the device.
+fp32 buffer on the device, updated in place; the importance map and the
+count map are pure window geometry, built on the host once (the count map
+per padded shape) and cached on the device.
 
 The 2D sweep (``sliding_window_slices``) runs every slice of a volume as
 the batch at each window position, with the same window grid, dedup,
@@ -25,8 +30,8 @@ whole volume is one batch, never split behind the caller's back, so a
 volume too large for the card raises the allocator's out-of-memory error.
 
 The public functions take and return ``cbim_tpu``'s layout (B, *spatial, C);
-``apply_fn`` takes and returns NC(D)HW.  The sharded variants and gaussian
-fusion are not ported yet (ROADMAP.md).
+``apply_fn`` takes and returns NC(D)HW.  The sharded variants are not
+ported yet (ROADMAP.md A7).
 """
 
 from __future__ import annotations
@@ -76,6 +81,33 @@ def _auto_window_batch(n_windows: int, cap: int = 6) -> int:
     return 2
 
 
+#: the fusions, and the Gaussian's sigma as a share of the window side
+#: (fixed, as in ``cbim_tpu``: not a config key)
+FUSIONS = ("uniform", "gaussian")
+GAUSSIAN_SIGMA_SCALE = 0.125
+
+
+def importance_map(window, fusion: str = "uniform") -> np.ndarray:
+    """The weight of each voxel of a window, (*window) fp32, built on the
+    host as ``cbim_tpu``'s ``_importance``: ones for uniform fusion; for
+    gaussian the separable exp(-x^2 / (2 sigma^2)) about the window's centre
+    (sigma = max(side * GAUSSIAN_SIGMA_SCALE, 1e-3)), scaled to a maximum
+    of 1 and floored at 1e-3 of it, so that every count stays positive."""
+    if fusion == "uniform":
+        return np.ones(tuple(window), np.float32)
+    maps = []
+    for w in window:
+        x = np.arange(w, dtype=np.float32) - (w - 1) / 2.0
+        sigma = max(w * GAUSSIAN_SIGMA_SCALE, 1e-3)
+        maps.append(np.exp(-0.5 * (x / sigma) ** 2))
+    imp = maps[0][:, None] * maps[1][None, :] if len(window) == 2 else \
+        maps[0][:, None, None] * maps[1][None, :, None] * \
+        maps[2][None, None, :]
+    imp = imp / imp.max()
+    imp = np.maximum(imp, imp.max() * 1e-3)
+    return imp.astype(np.float32)
+
+
 def _softmax_fp32(logits: torch.Tensor) -> torch.Tensor:
     return torch.softmax(logits.float(), dim=1)
 
@@ -90,11 +122,15 @@ class InferenceEngine:
     """Sliding-window and whole-image inference around ``apply_fn``.
 
     ``apply_fn(x) -> logits``: NCDHW in, NCDHW out (deep-supervision heads
-    already reduced to head 0 by the caller)."""
+    already reduced to head 0 by the caller).  ``fusion``: "uniform" or
+    "gaussian" (:func:`importance_map`)."""
 
     def __init__(self, apply_fn, num_classes: int, window_size=None,
                  window_batch: int | str | None = 1,
-                 pad_groups: bool = False):
+                 pad_groups: bool = False, fusion: str = "uniform"):
+        if fusion not in FUSIONS:
+            raise ValueError(f"unknown window fusion {fusion!r}; the "
+                             f"fusions are {FUSIONS}")
         self.apply_fn = apply_fn
         self.pad_groups = pad_groups
         self.num_classes = num_classes
@@ -102,7 +138,21 @@ class InferenceEngine:
         # None/"auto": pick per volume shape
         self.window_batch = (None if window_batch in (None, "auto")
                              else max(1, int(window_batch)))
+        self.fusion = fusion
         self._cnt_cache = {}
+        self._imp_cache = {}
+
+    def _importance(self, device) -> torch.Tensor | None:
+        """The window's importance map on ``device``, (1, *window) so that
+        it broadcasts over the classes; None for uniform fusion (weight 1
+        everywhere, nothing to multiply)."""
+        if self.fusion == "uniform":
+            return None
+        imp = self._imp_cache.get(device)
+        if imp is None:
+            imp = self._imp_cache[device] = torch.from_numpy(importance_map(
+                self.window_size, self.fusion))[None].to(device)
+        return imp
 
     def _pad_and_grid(self, x: torch.Tensor):
         """x (B, C, *spatial) zero-padded on the high side up to the window
@@ -124,10 +174,12 @@ class InferenceEngine:
 
     def _count_map(self, padded_spatial, starts, mult):
         """The fusion denominator, (1, 1, *padded_spatial): each voxel's
-        window visits, pure geometry, built on the host."""
+        window visits times the window's importance there, pure geometry,
+        built on the host."""
+        imp = importance_map(self.window_size, self.fusion)
         cnt = np.zeros((1, 1, *padded_spatial), np.float32)
         for s, m in zip(starts, mult):
-            cnt[_window(s, self.window_size)] += m
+            cnt[_window(s, self.window_size)] += m * imp
         return cnt
 
     # -- whole image --------------------------------------------------------
@@ -144,6 +196,7 @@ class InferenceEngine:
         spatial = tuple(img.shape[1:1 + len(window)])
         x, padded, starts, mult, cnt = self._pad_and_grid(img.movedim(-1, 1))
         wb = self.window_batch or _auto_window_batch(len(starts))
+        imp = self._importance(x.device)
 
         with torch.inference_mode():
             acc = torch.zeros((1, self.num_classes, *padded),
@@ -155,6 +208,8 @@ class InferenceEngine:
                 wins = torch.cat([x[_window(s, window)]
                                   for s in [*grp, *fill]])
                 probs = _softmax_fp32(self.apply_fn(wins))
+                if imp is not None:
+                    probs *= imp
                 for i, s in enumerate(grp):
                     acc[_window(s, window)] += probs[i] * float(mult[g + i])
             acc /= cnt
@@ -176,12 +231,15 @@ class InferenceEngine:
                              f"got {window}")
         spatial = tuple(img.shape[1:3])
         x, padded, starts, mult, cnt = self._pad_and_grid(img.movedim(-1, 1))
+        imp = self._importance(x.device)
 
         with torch.inference_mode():
             acc = torch.zeros((x.shape[0], self.num_classes, *padded),
                               dtype=torch.float32, device=x.device)
             for s, m in zip(starts, mult):
                 probs = _softmax_fp32(self.apply_fn(x[_window(s, window)]))
+                if imp is not None:
+                    probs *= imp
                 acc[_window(s, window)] += probs * float(m)
             acc /= cnt
         return acc[:, :, :spatial[0], :spatial[1]].movedim(1, -1)
@@ -193,7 +251,9 @@ def make_engine(model, cfg, window_batch: int | str | None = None
     dtype in the model's channels-last memory format, head 0 of
     deep-supervision models (reference inference3d.py:22-24).  A model
     held in fp32 for training whose config computes in bf16 runs under bf16
-    autocast on CUDA, as its train step does (validation's forward)."""
+    autocast on CUDA, as its train step does (validation's forward).  The
+    config's ``window_fusion`` (default uniform) picks the fusion, so the
+    prediction CLI and validation both take it."""
     dtype = next(model.parameters()).dtype
     memory_format = CHANNELS_LAST[2 if cfg.dimension == "2d" else 3]
     amp = dtype == torch.float32 and compute_dtype(cfg) == torch.bfloat16
@@ -204,12 +264,10 @@ def make_engine(model, cfg, window_batch: int | str | None = None
             out = model(x.to(dtype).contiguous(memory_format=memory_format))
         return out[0] if isinstance(out, (tuple, list)) else out
 
-    if cfg.get("window_fusion", "uniform") != "uniform":
-        raise NotImplementedError(
-            "only uniform window fusion is ported yet (see ROADMAP.md)")
     wb = window_batch if window_batch is not None \
         else cfg.get("window_batch", "auto")
     return InferenceEngine(apply_fn, cfg.classes,
                            window_size=cfg.get("window_size"), window_batch=wb,
                            pad_groups=getattr(model, "batch_statistics",
-                                              False))
+                                              False),
+                           fusion=cfg.get("window_fusion", "uniform"))

@@ -6,7 +6,11 @@ Parameter names follow the reference's torch modules (``conv``, ``norm``,
 ``conv1``/``conv2``/``shortcut``, ``depthwise``/``pointwise``,
 ``expand_proj``, ``se.excitation``, and ``se_block.excitation`` in the dim2
 MBConv), so a state_dict maps onto the Flax tree through
-``cbim_tpu.utils.torch_import`` unchanged.
+``cbim_tpu.utils.torch_import`` unchanged.  The blocks that importer does
+not map take names chosen here, each in its class's docstring:
+``Bottleneck`` the reference's ``conv1``/``conv2``/``conv3``/``shortcut``
+(conv_layers.py:97-123), ``FusedMBConv`` and ``ConvNeXtBlock`` their own
+(no reference state_dict of either has been loaded).
 
 Kernel dispatch, one rule per kernel family; each trains through its
 ``torch.autograd.Function`` (backward kernels on CUDA):
@@ -28,8 +32,9 @@ BatchNorm stays ``F.batch_norm`` (``torch.native_batch_norm`` when
 training), as XLA carried Flax's.  The TPU's NDHCW stage layout has no
 counterpart: the one NDHWC kernel computes the same thing.
 
-These blocks carry no dropout or stochastic depth (the MedFormer recipes
-train without them), and every block here is stride 1.
+``DropPath`` (stochastic depth) and ``Dropout`` draw their keep masks from
+the train state's generator (``training.train_state``); every block here
+is stride 1 (the JAX factories build their strided variants nowhere).
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.activations import Act, get_act
+from ...ops.activations import Act, gelu, get_act
 from ...ops.kernels.conv2d import Conv2dSame
 from ...ops.kernels.conv3d import Conv3dSame, ConvInormAct3d
 from ...ops.kernels.fused_norm import InstanceNormAct, supported_act
@@ -95,32 +100,105 @@ def _conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return conv(x)
 
 
+def _no_generator(name: str) -> RuntimeError:
+    return RuntimeError(
+        f"{name} draws from the train state's generator: build the state "
+        f"with training.train_state.create_train_state")
+
+
+class DropPath(nn.Module):
+    """Batch-wise stochastic depth (``cbim_tpu/models/layers/convs.py``
+    ``DropPath``): in training mode with p > 0, ``x / (1 - p) * keep`` with
+    keep = u > p, one u ~ U(0, 1) per sample; the identity at p = 0 and in
+    eval mode.  u comes from ``generator``, a ``torch.Generator`` on the
+    model's device that the train state owns and seeds from the run's seed
+    (``training.train_state.create_train_state``); a training-mode call
+    with p > 0 and none raises."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = float(p)
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.p == 0.0 or not self.training:
+            return x
+        if self.generator is None:
+            raise _no_generator("DropPath")
+        u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
+                       generator=self.generator, device=x.device)
+        return drop_path(x, self.p, u > self.p)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
+def drop_path(x: torch.Tensor, p: float, keep: torch.Tensor) -> torch.Tensor:
+    """The JAX package's formula under a given keep mask (bool, one entry a
+    sample, broadcast over the rest)."""
+    return x / (1.0 - p) * keep
+
+
+class Dropout(nn.Module):
+    """Elementwise dropout (JAX ``nn.Dropout(p)``): in training mode
+    ``where(keep, x / (1 - p), 0)`` with keep = u < 1 - p, u ~ U(0, 1) for
+    every element, drawn from ``generator`` (the train state's; a
+    training-mode call with p > 0 and none raises); the identity in eval
+    mode and at p = 0."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        self.p = float(p)
+        self.generator: torch.Generator | None = None
+
+    def keep_mask(self, x: torch.Tensor) -> torch.Tensor:
+        if self.generator is None:
+            raise _no_generator("Dropout")
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return u < 1.0 - self.p
+
+    def forward(self, x):
+        if self.p == 0.0 or not self.training:
+            return x
+        return torch.where(self.keep_mask(x), x / (1.0 - self.p),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
 class Norm(nn.Module):
-    """Config-selected normalization over x (B, C, *spatial):
+    """Config-selected normalization over x (B, C, *spatial), then ``act``:
 
     - ``"in"``: parameter-free InstanceNorm (torch's default affine=False,
-      biased variance over the spatial axes), fused with ``act``;
+      biased variance over the spatial axes) on the fused norm kernels,
+      with ``act`` fused where they fuse it (none, relu, gelu); any other
+      activation runs after them, plain;
     - ``"bn"``: BatchNorm with affine weight/bias and running statistics
       (the reference's ``nn.BatchNorm*d`` names, so ``load_state_dict``
       takes its state_dicts).  It follows Flax's ``BatchNorm(momentum=0.9)``
       rather than torch's: the running variance takes the *biased* batch
       variance, and the statistics stay fp32 under bf16 autocast;
+    - ``"ln"``: LayerNorm over C alone (the reference's channels-first
+      LayerNorm; Flax's ``LayerNorm`` over the channels-last axis) with
+      affine ``weight``/``bias`` and the caller's eps, computed in fp32
+      under autocast as Flax computes its statistics;
     - ``None``/``False``: identity."""
 
     def __init__(self, kind="in", eps: float = 1e-4, channels: int | None = None):
         super().__init__()
         self.kind = kind
         self.eps = eps
-        if kind == "bn":
+        if kind in ("bn", "ln"):
             self.weight = nn.Parameter(torch.ones(channels))
             self.bias = nn.Parameter(torch.zeros(channels))
+        if kind == "bn":
             self.register_buffer("running_mean", torch.zeros(channels))
             self.register_buffer("running_var", torch.ones(channels))
             self.register_buffer("num_batches_tracked",
                                  torch.tensor(0, dtype=torch.long))
-        elif kind not in ("in", None, False):
-            raise NotImplementedError(
-                f"norm {kind!r} is not ported yet (see ROADMAP.md)")
+        elif kind not in ("in", "ln", None, False):
+            raise ValueError(f"unknown norm {kind!r}")
 
     def _batch_norm(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -137,12 +215,24 @@ class Norm(nn.Module):
             self.num_batches_tracked += 1
         return y
 
+    def _layer_norm(self, x: torch.Tensor) -> torch.Tensor:
+        # channels last: a free view of channels-last memory; at least fp32
+        t = x.movedim(1, -1)
+        dt = torch.promote_types(t.dtype, torch.float32)
+        y = F.layer_norm(t.to(dt), (t.shape[-1],), self.weight.to(dt),
+                         self.bias.to(dt), self.eps)
+        return y.to(x.dtype).movedim(-1, 1)
+
     def forward(self, x, act=None):
         if self.kind == "in":
-            return from_channels_last(
-                InstanceNormAct.apply(to_channels_last(x), self.eps, act))
+            fuse = supported_act(act)
+            x = from_channels_last(InstanceNormAct.apply(
+                to_channels_last(x), self.eps, act if fuse else None))
+            return x if fuse else get_act(act)(x)
         if self.kind == "bn":
             x = self._batch_norm(x)
+        elif self.kind == "ln":
+            x = self._layer_norm(x)
         return get_act(act)(x)
 
 
@@ -260,16 +350,52 @@ class SEBlock(nn.Module):
         return x * torch.sigmoid(self.excitation(s))
 
 
-class MBConv(nn.Module):
-    """conv_layers.py:197-238 — inverted residual, depthwise conv + SE.  The
-    dim2 reference names its SE module ``se_block``, the dim3 one ``se``.
-    ``conv_na`` passes through (none of its convs is a fused one: 1x1,
-    grouped, or without a norm), and so does ``conv2d_kernel`` (the 3x3
-    shortcut may take it)."""
+class Bottleneck(nn.Module):
+    """conv_layers.py:97-123 — preact 1-k-1 bottleneck, expansion 2:
+    ``conv1`` (1^d, to out/2), ``conv2`` (k, out/2), ``conv3`` (1^d, to
+    out), each norm + act + conv, and a k-kernel ``shortcut`` ConvNormAct
+    where the width changes (the reference's names).  ``conv_na`` and
+    ``conv2d_kernel`` pass through as for BasicBlock: ``conv2`` and the
+    shortcut take the 3^3 or 3x3 kernel route where ConvNormAct gives it."""
 
-    def __init__(self, in_ch, out_ch, expansion=4, kernel_size=3, norm="bn",
-                 act="relu", nd: int = 3, conv_na: bool = False,
+    def __init__(self, in_ch, out_ch, kernel_size=3, norm="bn", act="relu",
+                 nd: int = 3, conv_na: bool = False,
                  conv2d_kernel: bool = False):
+        super().__init__()
+        mid = out_ch // 2
+        kw = dict(norm=norm, act=act, preact=True, nd=nd, conv_na=conv_na,
+                  conv2d_kernel=conv2d_kernel)
+        self.conv1 = ConvNormAct(in_ch, mid, 1, **kw)
+        self.conv2 = ConvNormAct(mid, mid, kernel_size, **kw)
+        self.conv3 = ConvNormAct(mid, out_ch, 1, **kw)
+        self.shortcut = (ConvNormAct(in_ch, out_ch, kernel_size, **kw)
+                         if in_ch != out_ch else None)
+
+    def forward(self, x):
+        out = self.conv3(self.conv2(self.conv1(x)))
+        return out + (x if self.shortcut is None else self.shortcut(x))
+
+
+def _se_name(nd: int) -> str:
+    """The SE module's name: the dim2 reference calls it ``se_block``, the
+    dim3 one ``se``."""
+    return "se_block" if nd == 2 else "se"
+
+
+class MBConv(nn.Module):
+    """conv_layers.py:197-238 — inverted residual: 1^d ``expand_proj`` to
+    ``expansion`` x in (where expansion != 1), depthwise k conv
+    (``depthwise``), SE (``se``, ``se_block`` in 2D), 1^d ``pointwise``
+    without act, stochastic depth of rate ``p`` (``drop_path``), and a
+    norm-free k-kernel ``shortcut`` where the width changes.  ``conv_na``
+    passes through (none of its convs is a fused one: 1x1, grouped, or
+    without a norm), and so does ``conv2d_kernel`` (the 3x3 shortcut may
+    take it)."""
+
+    def __init__(self, in_ch, out_ch, kernel_size=3, norm="bn", act="relu",
+                 nd: int = 3, conv_na: bool = False,
+                 conv2d_kernel: bool = False, expansion: int = 4,
+                 p: float = 0.0):
         super().__init__()
         expanded = expansion * in_ch
         kw = dict(norm=norm, nd=nd, conv_na=conv_na,
@@ -280,10 +406,11 @@ class MBConv(nn.Module):
         self.depthwise = ConvNormAct(expanded, expanded, kernel_size,
                                      groups=expanded, act=act, preact=True,
                                      **kw)
-        self.se_name = "se_block" if nd == 2 else "se"
+        self.se_name = _se_name(nd)
         self.add_module(self.se_name, SEBlock(expanded, act=act, nd=nd))
         self.pointwise = ConvNormAct(expanded, out_ch, 1, act=False,
                                      preact=True, **kw)
+        self.drop_path = DropPath(p)
         self.shortcut = (ConvNormAct(in_ch, out_ch, kernel_size, act=False,
                                      **dict(kw, norm=False))
                          if in_ch != out_ch else None)
@@ -293,14 +420,100 @@ class MBConv(nn.Module):
         if self.expand_proj is not None:
             x = self.expand_proj(x)
         se = getattr(self, self.se_name)
-        return self.pointwise(se(self.depthwise(x))) + residual
+        return self.drop_path(self.pointwise(se(self.depthwise(x)))) \
+            + residual
+
+
+class FusedMBConv(nn.Module):
+    """conv_layers.py:241-281 — fused inverted residual: a dense k-kernel
+    expansion to ``expansion`` x in (``conv3x3``, norm + act + conv, the
+    name whatever k is), SE (``se``, ``se_block`` in 2D), a 1^d
+    ``pointwise`` without act, stochastic depth of rate ``p``
+    (``drop_path``), and a norm-free k-kernel ``shortcut`` where the width
+    changes.  The expansion conv is a ConvNormAct like any other: with
+    InstanceNorm at a 3^3 kernel inside the route's widths it takes the 3^3
+    conv kernel (and the fused pair with ``conv_na``)."""
+
+    def __init__(self, in_ch, out_ch, kernel_size=3, norm="bn", act="relu",
+                 nd: int = 3, conv_na: bool = False,
+                 conv2d_kernel: bool = False, expansion: int = 4,
+                 p: float = 0.0):
+        super().__init__()
+        expanded = expansion * in_ch
+        kw = dict(norm=norm, nd=nd, conv_na=conv_na,
+                  conv2d_kernel=conv2d_kernel)
+        self.conv3x3 = ConvNormAct(in_ch, expanded, kernel_size, act=act,
+                                   preact=True, **kw)
+        self.se_name = _se_name(nd)
+        self.add_module(self.se_name, SEBlock(expanded, act=act, nd=nd))
+        self.pointwise = ConvNormAct(expanded, out_ch, 1, act=False,
+                                     preact=True, **kw)
+        self.drop_path = DropPath(p)
+        self.shortcut = (ConvNormAct(in_ch, out_ch, kernel_size, act=False,
+                                     **dict(kw, norm=False))
+                         if in_ch != out_ch else None)
+
+    def forward(self, x):
+        residual = x if self.shortcut is None else self.shortcut(x)
+        se = getattr(self, self.se_name)
+        return self.drop_path(self.pointwise(se(self.conv3x3(x)))) + residual
+
+
+class ConvNeXtBlock(nn.Module):
+    """model/dim2/conv_layers.py:274+ (JAX ``ConvNeXtBlock``): a k^d
+    depthwise conv with bias (``dwconv``; 3D through ``grouped_conv``),
+    LayerNorm over C at eps 1e-6 (``norm``), Linear to 4 x in
+    (``pwconv1``), exact GELU, Linear to out (``pwconv2``), the layer scale
+    (``gamma``, initialised to ``layer_scale_init_value``; none at 0),
+    stochastic depth (``drop_path``), and the residual where in == out.
+    The names are the official ConvNeXt's.
+
+    It takes no norm and no act.  Both JAX factories pass ``norm=`` and
+    ``act=`` to every block and so cannot build it (a TypeError); the
+    port's factories fail on it the same way, with this reason."""
+
+    def __init__(self, in_ch, out_ch, kernel_size=7, drop_path: float = 0.0,
+                 layer_scale_init_value: float = 1e-6, nd: int = 3,
+                 **factory_kw):
+        super().__init__()
+        if factory_kw:
+            raise TypeError(
+                f"ConvNeXtBlock takes no {', '.join(sorted(factory_kw))}: "
+                f"it has its own LayerNorm and GELU, so the model factories, "
+                f"which pass norm= and act= to every block, cannot build it "
+                f"(the JAX package's fail the same way)")
+        k = _tuple(kernel_size, nd)
+        self.dwconv = CONV[nd](in_ch, in_ch, k,
+                               padding=tuple(ki // 2 for ki in k),
+                               groups=in_ch)
+        self.norm = nn.LayerNorm(in_ch, eps=1e-6)
+        self.pwconv1 = nn.Linear(in_ch, 4 * in_ch)
+        self.pwconv2 = nn.Linear(4 * in_ch, out_ch)
+        self.gamma = (nn.Parameter(torch.full((out_ch,),
+                                              float(layer_scale_init_value)))
+                      if layer_scale_init_value > 0 else None)
+        self.drop_path = DropPath(drop_path)
+        self.residual = in_ch == out_ch
+
+    def forward(self, x):
+        # channels last: a free view of channels-last memory
+        t = _conv(self.dwconv, x).movedim(1, -1)
+        t = self.pwconv2(gelu(self.pwconv1(self.norm(t))))
+        if self.gamma is not None:
+            t = t * self.gamma
+        y = self.drop_path(t.movedim(-1, 1))
+        return y + x if self.residual else y
+
+
+#: the reference's get_block (model/dim3/utils.py:7-13) by config string,
+#: with the JAX package's whole table
+BLOCKS = {"SingleConv": SingleConv, "ConvNormAct": SingleConv,
+          "BasicBlock": BasicBlock, "Bottleneck": Bottleneck,
+          "MBConv": MBConv, "FusedMBConv": FusedMBConv,
+          "ConvNeXtBlock": ConvNeXtBlock}
 
 
 def get_block_cls(name: str):
-    """Reference get_block (model/dim3/utils.py:7-13), by config string."""
-    blocks = {"SingleConv": SingleConv, "ConvNormAct": SingleConv,
-              "BasicBlock": BasicBlock, "MBConv": MBConv}
-    if name not in blocks:
-        raise NotImplementedError(
-            f"block {name!r} is not ported yet (see ROADMAP.md)")
-    return blocks[name]
+    """The block class of a config string (KeyError for another, as in
+    JAX)."""
+    return BLOCKS[name]

@@ -1,8 +1,10 @@
 """Transformer primitives (counterpart of
 ``cbim_tpu/models/layers/transformers.py``), with the reference's
 trans_layers.py parameter names.  Attention logits and softmax run in fp32
-under bf16 compute, as in ``cbim_tpu``.  Dropout is not ported:
-:func:`check_no_dropout` refuses a config that asks for it.
+under bf16 compute, as in ``cbim_tpu``.  Dropout sits where the JAX
+package's does (the MLP after its activation and after its second linear,
+the attention map after its softmax, and the output projection), drawn
+from the train state's generator (``layers.convs.Dropout``).
 
 The reference's dim3 attention merges its heads head-major on the way out,
 its dim2 twin dim-head-major (einops ``b heads l dim_head -> b l (dim_head
@@ -16,35 +18,33 @@ import torch
 from torch import nn
 
 from ...ops.activations import get_act
-
-
-def check_no_dropout(attn_drop: float = 0.0, proj_drop: float = 0.0) -> None:
-    """Dropout is not ported; a config that sets it must not train without
-    it unannounced."""
-    if attn_drop or proj_drop:
-        raise NotImplementedError(
-            f"attn_drop={attn_drop}, proj_drop={proj_drop}: dropout is not "
-            f"ported yet (see ROADMAP.md); set both to 0")
+from .convs import Dropout
 
 
 class Mlp(nn.Module):
-    """trans_layers.py:16-33."""
+    """trans_layers.py:16-33 — fc1, act, dropout, fc2, dropout (``drop``,
+    one module drawn twice)."""
 
-    def __init__(self, in_dim, hid_dim=None, out_dim=None, act="gelu"):
+    def __init__(self, in_dim, hid_dim=None, out_dim=None, act="gelu",
+                 drop: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(in_dim, hid_dim or in_dim)
         self.fc2 = nn.Linear(hid_dim or in_dim, out_dim or in_dim)
         self.act = get_act(act)
+        self.drop = Dropout(drop)
 
     def forward(self, x):
-        return self.fc2(self.act(self.fc1(x)))
+        return self.drop(self.fc2(self.drop(self.act(self.fc1(x)))))
 
 
 class Attention(nn.Module):
-    """trans_layers.py:45-98 — multi-head self-attention on (B, L, C)."""
+    """trans_layers.py:45-98 — multi-head self-attention on (B, L, C), with
+    dropout of the attention map (``attn_drop``) and of the output
+    projection (``proj_drop``)."""
 
     def __init__(self, dim, heads, dim_head, qkv_bias=False,
-                 dim_head_major=False):
+                 dim_head_major=False, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         self.heads = heads
         self.dim_head = dim_head
@@ -52,6 +52,8 @@ class Attention(nn.Module):
         inner = heads * dim_head
         self.to_qkv = nn.Linear(dim, inner * 3, bias=qkv_bias)
         self.to_out = nn.Linear(inner, dim)
+        self.attn_drop = Dropout(attn_drop)
+        self.proj_drop = Dropout(proj_drop)
 
     def forward(self, x):
         b, l, _ = x.shape
@@ -59,10 +61,10 @@ class Attention(nn.Module):
                    for t in self.to_qkv(x).chunk(3, dim=-1))
         attn = torch.matmul(q.float(), k.float().transpose(-1, -2))
         attn = (attn * self.dim_head ** -0.5).softmax(dim=-1).to(q.dtype)
-        out = torch.matmul(attn, v)                     # (b, heads, l, d)
+        out = torch.matmul(self.attn_drop(attn), v)     # (b, heads, l, d)
         out = out.permute(0, 2, 3, 1) if self.dim_head_major \
             else out.transpose(1, 2)
-        return self.to_out(out.reshape(b, l, -1))
+        return self.proj_drop(self.to_out(out.reshape(b, l, -1)))
 
 
 class PreNorm(nn.Module):
@@ -76,16 +78,20 @@ class PreNorm(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """trans_layers.py:101-118 — depth x (PreNorm MHSA + PreNorm MLP)."""
+    """trans_layers.py:101-118 — depth x (PreNorm MHSA + PreNorm MLP); the
+    MLP's dropout rate is ``proj_drop``, as in JAX."""
 
     def __init__(self, dim, depth, heads, dim_head, mlp_dim,
-                 dim_head_major=False):
+                 dim_head_major=False, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
             nn.ModuleList([PreNorm(dim, Attention(
                               dim, heads, dim_head,
-                              dim_head_major=dim_head_major)),
-                           PreNorm(dim, Mlp(dim, mlp_dim, dim))])
+                              dim_head_major=dim_head_major,
+                              attn_drop=attn_drop, proj_drop=proj_drop)),
+                           PreNorm(dim, Mlp(dim, mlp_dim, dim,
+                                            drop=proj_drop))])
             for _ in range(depth))
 
     def forward(self, x):

@@ -19,7 +19,19 @@ What differs between the ranks, as in the reference:
 - 2D ``PatchMerging`` orders its space-to-depth channels j-major;
 - ``UpBlockMF2D`` applies norm + 1x1 reduction to the concatenation before
   its stage, and reduces the semantic map in every up block;
-- the 2D map fusion merges its attention heads dim-head-major.
+- the 2D map fusion merges its attention heads dim-head-major;
+- 2D passes ``proj_drop`` on as the MBConv feed-forward's stochastic depth
+  (``ffn_drop_path``), 3D does not.
+
+``proj_type`` "depthwise" (the recipes') or "linear" picks the B-MHA's
+feature projections and ``PatchMerging``'s reduction: depthwise-separable
+k convs, or 1^d convs (``feat_qv``, ``feat_out``, ``reduction`` as plain
+convs); under "linear" the B-MHA block's feed-forward is a
+``FusedMBConv`` with 1^d kernels (no stochastic depth), as in JAX.
+``attn_drop`` drops the map-to-feature attention (the softmax over the
+features) and ``proj_drop`` the feature output after its projection, where
+the JAX package drops them; the map fusion's transformer takes neither (the
+JAX models build it without).  Both draw from the train state's generator.
 """
 
 from __future__ import annotations
@@ -32,10 +44,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.interpolate import resize_linear
-from .layers.convs import (CONV, ConvNormAct, DepthwiseSeparableConv, MBConv,
-                           Norm, _tuple, from_channels_last, get_block_cls,
+from .layers.convs import (CONV, ConvNormAct, DepthwiseSeparableConv,
+                           Dropout, FusedMBConv, MBConv, Norm, _tuple,
+                           from_channels_last, get_block_cls,
                            to_channels_last)
-from .layers.transformers import TransformerBlock, check_no_dropout
+from .layers.transformers import TransformerBlock
 
 #: per-stage remat modes (``cbim_tpu/models/medformer.py:573-603``): which
 #: stages recompute their activations in the backward pass
@@ -52,21 +65,35 @@ def _conv1x1(in_ch, out_ch, bias=False, nd: int = 3):
     return CONV[nd](in_ch, out_ch, 1, bias=bias)
 
 
+def _projection(in_ch, out_ch, kernel_size, proj_type, nd):
+    """A B-MHA or PatchMerging projection: depthwise-separable k conv, or
+    with ``proj_type`` "linear" a 1^d conv."""
+    if proj_type == "linear":
+        return _conv1x1(in_ch, out_ch, nd=nd)
+    if proj_type != "depthwise":
+        raise ValueError(f"unknown proj_type {proj_type!r}")
+    return DepthwiseSeparableConv(in_ch, out_ch, kernel_size, nd=nd)
+
+
 class BidirectionAttention(nn.Module):
     """Feature <-> semantic-map cross attention, both directions."""
 
     def __init__(self, feat_dim, map_dim, out_dim, heads=4, dim_head=64,
-                 kernel_size=3, no_map_out=False, nd: int = 3):
+                 kernel_size=3, no_map_out=False, nd: int = 3,
+                 proj_type: str = "depthwise", attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
         self.dim_head = dim_head
-        self.feat_qv = DepthwiseSeparableConv(feat_dim, inner * 2, kernel_size,
-                                              nd=nd)
+        self.feat_qv = _projection(feat_dim, inner * 2, kernel_size,
+                                   proj_type, nd)
         self.map_qv = _conv1x1(map_dim, inner * 2, nd=nd)
-        self.feat_out = DepthwiseSeparableConv(inner, out_dim, kernel_size,
-                                               nd=nd)
+        self.feat_out = _projection(inner, out_dim, kernel_size, proj_type,
+                                    nd)
         self.map_out = None if no_map_out else _conv1x1(inner, map_dim, nd=nd)
+        self.attn_drop = Dropout(attn_drop)
+        self.proj_drop = Dropout(proj_drop)
 
     def _to_heads(self, t):
         """(B, inner, *spatial), channel d*heads + h -> (B, heads, N, d)."""
@@ -87,33 +114,46 @@ class BidirectionAttention(nn.Module):
         feat_map_attn = attn.softmax(dim=-1).to(fq.dtype)
         map_feat_attn = attn.softmax(dim=-2).to(fq.dtype)
         feat_out = torch.matmul(feat_map_attn, mv)         # (B, h, N, d)
-        feat_out = self.feat_out(self._from_heads(feat_out, feat.shape[2:]))
+        feat_out = self.proj_drop(self.feat_out(
+            self._from_heads(feat_out, feat.shape[2:])))
         if self.map_out is None:
             return feat_out, None
-        map_out = torch.matmul(map_feat_attn.transpose(-1, -2), fv)
+        map_out = torch.matmul(self.attn_drop(map_feat_attn).transpose(-1, -2),
+                               fv)
         return feat_out, self.map_out(
             self._from_heads(map_out, semantic_map.shape[2:]))
 
 
 class BidirectionAttentionBlock(nn.Module):
-    """norm -> B-MHA -> shortcut -> MBConv feedforward; map residual."""
+    """norm -> B-MHA -> shortcut -> feedforward (MBConv, or FusedMBConv
+    with 1^d kernels under ``proj_type`` "linear"); map residual.
+    ``ffn_drop_path``: the MBConv's stochastic depth."""
 
     def __init__(self, feat_dim, map_dim, out_dim, heads, dim_head, norm="in",
                  act="relu", expansion=4, kernel_size=3, no_map_out=False,
-                 nd: int = 3):
+                 nd: int = 3, proj_type: str = "depthwise",
+                 attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 ffn_drop_path: float = 0.0):
         super().__init__()
         # the reference builds these norms with torch's default eps 1e-5
         self.norm1 = Norm(norm, eps=1e-5, channels=feat_dim)
         self.norm2 = Norm(norm, eps=1e-5, channels=map_dim)
         self.attn = BidirectionAttention(feat_dim, map_dim, out_dim, heads,
                                          dim_head, kernel_size, no_map_out,
-                                         nd=nd)
+                                         nd=nd, proj_type=proj_type,
+                                         attn_drop=attn_drop,
+                                         proj_drop=proj_drop)
         self.shortcut = (ConvNormAct(feat_dim, out_dim, 1, norm=norm,
                                      act=act, preact=True, nd=nd)
                          if feat_dim != out_dim else None)
-        self.feedforward = MBConv(out_dim, out_dim, expansion=expansion,
-                                  kernel_size=kernel_size, norm=norm, act=act,
-                                  nd=nd)
+        if proj_type == "linear":
+            self.feedforward = FusedMBConv(out_dim, out_dim, 1, norm=norm,
+                                           act=act, nd=nd,
+                                           expansion=expansion)
+        else:
+            self.feedforward = MBConv(out_dim, out_dim, kernel_size,
+                                      norm=norm, act=act, nd=nd,
+                                      expansion=expansion, p=ffn_drop_path)
 
     def forward(self, x, semantic_map):
         out, map_out = self.attn(self.norm1(x), self.norm2(semantic_map))
@@ -125,17 +165,18 @@ class BidirectionAttentionBlock(nn.Module):
 
 
 class PatchMerging(nn.Module):
-    """Space-to-depth downsample + norm + depthwise-separable reduction."""
+    """Space-to-depth downsample + norm + reduction (depthwise-separable,
+    or a 1^d conv under ``proj_type`` "linear")."""
 
     def __init__(self, in_ch, out_ch, down_scale=2, kernel_size=3, norm="in",
-                 nd: int = 3):
+                 nd: int = 3, proj_type: str = "depthwise"):
         super().__init__()
         self.scale = _tuple(down_scale, nd)
         merged = in_ch * math.prod(self.scale)
         # torch-default eps (reference PatchMerging norm)
         self.norm = Norm(norm, eps=1e-5, channels=merged)
-        self.reduction = DepthwiseSeparableConv(merged, out_ch, kernel_size,
-                                                nd=nd)
+        self.reduction = _projection(merged, out_ch, kernel_size, proj_type,
+                                     nd)
 
     def forward(self, x):
         t = to_channels_last(x)
@@ -159,18 +200,20 @@ class PatchMerging(nn.Module):
 
 
 class BasicLayer(nn.Module):
-    """``num_blocks`` B-MHA blocks of one stage."""
+    """``num_blocks`` B-MHA blocks of one stage (``bmha``: their
+    ``proj_type``, ``attn_drop``, ``proj_drop`` and ``ffn_drop_path``)."""
 
     def __init__(self, feat_dim, map_dim, out_dim, num_blocks, heads=4,
                  dim_head=64, expansion=4, norm="in", act="relu",
-                 kernel_size=3, no_map_out=False, nd: int = 3):
+                 kernel_size=3, no_map_out=False, nd: int = 3, **bmha):
         super().__init__()
         self.blocks = nn.ModuleList(
             BidirectionAttentionBlock(
                 feat_dim if i == 0 else out_dim, map_dim, out_dim, heads,
                 dim_head, norm=norm, act=act, expansion=expansion,
                 kernel_size=kernel_size,
-                no_map_out=no_map_out and i == num_blocks - 1, nd=nd)
+                no_map_out=no_map_out and i == num_blocks - 1, nd=nd,
+                **bmha)
             for i in range(num_blocks))
 
     def forward(self, x, semantic_map):
@@ -244,16 +287,19 @@ class InConvMF(nn.Module):
 
 
 class DownBlockMF(nn.Module):
-    """PatchMerging -> conv blocks -> (map generation) -> B-MHA blocks."""
+    """PatchMerging -> conv blocks -> (map generation) -> B-MHA blocks
+    (``bmha``: :class:`BasicLayer`'s)."""
 
     def __init__(self, in_ch, out_ch, conv_num, trans_num,
                  conv_block="BasicBlock", kernel_size=3, down_scale=2,
                  heads=4, dim_head=64, expansion=4, map_size=(4, 4, 4),
                  norm="in", act="relu", map_generate=False, nd: int = 3,
-                 conv_na: bool = False, conv2d_kernel: bool = False):
+                 conv_na: bool = False, conv2d_kernel: bool = False,
+                 **bmha):
         super().__init__()
-        self.patch_merging = PatchMerging(in_ch, out_ch, down_scale,
-                                          kernel_size, norm, nd=nd)
+        self.patch_merging = PatchMerging(
+            in_ch, out_ch, down_scale, kernel_size, norm, nd=nd,
+            proj_type=bmha.get("proj_type", "depthwise"))
         blk = get_block_cls(conv_block)
         self.conv_blocks = nn.Sequential(*(
             blk(out_ch, out_ch, kernel_size=kernel_size, norm=norm, act=act,
@@ -263,7 +309,7 @@ class DownBlockMF(nn.Module):
                         if map_generate else None)
         self.trans_blocks = (
             BasicLayer(out_ch, out_ch, out_ch, trans_num, heads, dim_head,
-                       expansion, norm, act, kernel_size, nd=nd)
+                       expansion, norm, act, kernel_size, nd=nd, **bmha)
             if trans_num > 0 else None)
 
     def forward(self, x):
@@ -280,7 +326,7 @@ class UpBlockMF3D(nn.Module):
     def __init__(self, in_ch, skip_ch, out_ch, conv_num, trans_num,
                  conv_block="BasicBlock", kernel_size=3, heads=4, dim_head=64,
                  expansion=4, norm="in", act="relu", map_in_dim=None,
-                 no_map_out=False, conv_na: bool = False):
+                 no_map_out=False, conv_na: bool = False, **bmha):
         super().__init__()
         # map_in_dim: channels of the concatenated map shortcut, if any
         self.map_reduction = (_conv1x1(map_in_dim, out_ch)
@@ -289,7 +335,7 @@ class UpBlockMF3D(nn.Module):
         self.trans_blocks = (
             BasicLayer(feat_dim, out_ch, out_ch, trans_num, heads, dim_head,
                        expansion, norm, act, kernel_size,
-                       no_map_out=no_map_out)
+                       no_map_out=no_map_out, **bmha)
             if trans_num > 0 else None)
         blk = get_block_cls(conv_block)
         first = out_ch if trans_num > 0 else feat_dim
@@ -319,7 +365,7 @@ class UpBlockMF2D(nn.Module):
     def __init__(self, in_ch, skip_ch, out_ch, conv_num, trans_num,
                  map_in_dim, conv_block="BasicBlock", heads=4, dim_head=64,
                  expansion=4, norm="bn", act="relu",
-                 conv2d_kernel: bool = False):
+                 conv2d_kernel: bool = False, **bmha):
         super().__init__()
         # reference up_block norm(in_ch + out_ch), torch-default eps
         self.norm = Norm(norm, eps=1e-5, channels=in_ch + skip_ch)
@@ -327,7 +373,7 @@ class UpBlockMF2D(nn.Module):
         self.map_reduction = _conv1x1(map_in_dim, out_ch, nd=2)
         self.trans_blocks = (
             BasicLayer(out_ch, out_ch, out_ch, trans_num, heads, dim_head,
-                       expansion, norm, act, nd=2)
+                       expansion, norm, act, nd=2, **bmha)
             if trans_num > 0 else None)
         blk = get_block_cls(conv_block)
         self.conv_blocks = nn.Sequential(*(
@@ -356,8 +402,8 @@ class MedFormer3D(nn.Module):
     again in the backward pass.  ``conv_na`` computes every preact
     InstanceNorm 3^3 conv of the conv blocks as one fused
     ``ConvInormAct3d`` (the JAX package's opt-in ``CBIM_CONV_NA=1``); the
-    parameters are the same either way.  Dropout is not ported: nonzero
-    ``attn_drop``/``proj_drop`` raise."""
+    parameters are the same either way.  ``proj_type``, ``attn_drop`` and
+    ``proj_drop`` reach every B-MHA block (the module docstring)."""
 
     def __init__(self, in_chan: int, num_classes: int, base_ch: int = 32,
                  map_size: Sequence[int] = (4, 8, 8),
@@ -375,17 +421,17 @@ class MedFormer3D(nn.Module):
                  remat: Any = False, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, conv_na: bool = False):
         super().__init__()
-        check_no_dropout(attn_drop, proj_drop)
         mode = "all" if remat is True else (remat or "none")
         if mode not in REMAT_MODES:
             raise ValueError(f"unknown remat mode {remat!r}")
         self.remat = REMAT_MODES[mode]
-        _check_proj_type(proj_type)
         cn = list(chan_num)
         dim_head = [cn[i] // num_heads[i] for i in range(8)]
         ks = list(kernel_size)
         common = dict(conv_block=conv_block, expansion=expansion,
-                      norm=norm, act=act, conv_na=conv_na)
+                      norm=norm, act=act, conv_na=conv_na,
+                      proj_type=proj_type, attn_drop=attn_drop,
+                      proj_drop=proj_drop)
 
         self.inc = InConvMF(in_chan, base_ch, conv_block, ks[0], norm, act,
                             conv_na=conv_na)
@@ -424,10 +470,32 @@ class MedFormer3D(nn.Module):
 
     def _stage(self, key: str, module: nn.Module, *args):
         """``module(*args)``, recomputed in the backward pass when training
-        with ``key``'s stages under remat."""
-        if self.training and self.remat[key]:
-            return checkpoint(module, *args, use_reentrant=False)
-        return module(*args)
+        with ``key``'s stages under remat.  The recompute draws the same
+        dropout masks as the forward did (as JAX's remat replays its
+        keys): the generators of the stage's stochastic modules are
+        rewound to their state at the forward for it, and put back after."""
+        if not (self.training and self.remat[key]):
+            return module(*args)
+        gens = list({id(m.generator): m.generator for m in module.modules()
+                     if getattr(m, "generator", None) is not None
+                     and getattr(m, "p", 0)}.values())
+        start = [g.get_state() for g in gens]
+        calls = []
+
+        def run(*a):
+            calls.append(1)
+            if len(calls) == 1:
+                return module(*a)
+            now = [g.get_state() for g in gens]
+            for g, state in zip(gens, start):
+                g.set_state(state)
+            try:
+                return module(*a)
+            finally:
+                for g, state in zip(gens, now):
+                    g.set_state(state)
+
+        return checkpoint(run, *args, use_reentrant=False)
 
     def forward(self, x):
         x0 = self._stage("inc", self.inc, x)
@@ -450,12 +518,6 @@ class MedFormer3D(nn.Module):
         return out if aux is None else [out, aux]
 
 
-def _check_proj_type(proj_type: str) -> None:
-    if proj_type != "depthwise":
-        raise NotImplementedError(
-            f"proj_type {proj_type!r} is not ported yet (see ROADMAP.md)")
-
-
 class MedFormer2D(nn.Module):
     """Reference model/dim2/medformer.py:10 (``cbim_tpu``'s MedFormer2D).
     forward: x (B, in_chan, H, W) -> logits (B, classes, H, W) in fp32, or
@@ -466,8 +528,10 @@ class MedFormer2D(nn.Module):
     default, no remat (the JAX model has none).  ``conv2d_kernel`` sends
     the conv blocks' eligible 3x3 convs through ``Conv2dSame`` (the JAX
     package's opt-in ``CBIM_PLCONV2D=1``); off, they are cuDNN's.  The
-    parameters are the same either way.  Dropout is not ported: nonzero
-    ``attn_drop``/``proj_drop`` raise."""
+    parameters are the same either way.  ``proj_type``, ``attn_drop`` and
+    ``proj_drop`` reach every B-MHA block, and ``proj_drop`` is also the
+    stochastic depth of their MBConv feed-forwards (JAX's
+    ``ffn_drop_path``)."""
 
     def __init__(self, in_chan: int, num_classes: int, base_ch: int = 32,
                  map_size: Any = 8, conv_block: str = "BasicBlock",
@@ -480,15 +544,15 @@ class MedFormer2D(nn.Module):
                  aux_loss: bool = False, attn_drop: float = 0.0,
                  proj_drop: float = 0.0, conv2d_kernel: bool = False):
         super().__init__()
-        check_no_dropout(attn_drop, proj_drop)
-        _check_proj_type(proj_type)
         b = base_ch
         cn = [2 * b, 4 * b, 8 * b, 16 * b, 8 * b, 4 * b, 2 * b, b]
         dim_head = [cn[i] // num_heads[i] for i in range(8)]
         map_size = ((map_size,) * 2 if isinstance(map_size, int)
                     else tuple(map_size))
         common = dict(conv_block=conv_block, expansion=expansion, norm=norm,
-                      act=act, conv2d_kernel=conv2d_kernel)
+                      act=act, conv2d_kernel=conv2d_kernel,
+                      proj_type=proj_type, attn_drop=attn_drop,
+                      proj_drop=proj_drop, ffn_drop_path=proj_drop)
 
         self.inc = InConvMF(in_chan, b, conv_block, 3, norm, act, nd=2,
                             conv2d_kernel=conv2d_kernel)

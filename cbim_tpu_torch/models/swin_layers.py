@@ -21,8 +21,9 @@ tests, which hold it against the region ids.
 Ported: ``window_partition``/``window_reverse``, ``get_window_size``,
 ``relative_position_index``, ``compute_attn_mask``, ``WindowAttention``,
 ``SwinBlock``, ``PatchMergingLegacy`` (3D and 2D), ``PatchMergingV2`` (no
-caller, as in the JAX package) and ``DropPath`` (stochastic depth, drawn
-from the train state's generator).  Attention and projection dropout are
+caller, as in the JAX package); ``DropPath`` (stochastic depth, drawn
+from the train state's generator) and ``drop_path`` are
+``layers.convs``'s, re-exported here.  Attention and projection dropout are
 not: the ported recipes run without them.
 """
 
@@ -39,6 +40,7 @@ from torch import nn
 
 from ..ops.activations import gelu
 from ..ops.kernels.window_attention import region_mask, window_attention
+from .layers.convs import DropPath, drop_path  # noqa: F401 (re-exported)
 
 
 def window_partition(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
@@ -158,41 +160,6 @@ def attend(training: bool, q, k, v, rel_bias, region) -> torch.Tensor:
     :func:`window_attention_train`) or in eval mode (the kernel)."""
     fn = window_attention_train if training else window_attention
     return fn(q, k, v, rel_bias, region)
-
-
-class DropPath(nn.Module):
-    """Batch-wise stochastic depth (``cbim_tpu/models/layers/convs.py``
-    ``DropPath``): in training mode with p > 0, ``x / (1 - p) * keep`` with
-    keep = u > p, one u ~ U(0, 1) per sample; the identity at p = 0 and in
-    eval mode.  u comes from ``generator``, a ``torch.Generator`` on the
-    model's device that the train state owns and seeds from the run's seed
-    (``training.train_state.create_train_state``); a training-mode call
-    with p > 0 and none raises."""
-
-    def __init__(self, p: float = 0.0):
-        super().__init__()
-        self.p = float(p)
-        self.generator: torch.Generator | None = None
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.p == 0.0 or not self.training:
-            return x
-        if self.generator is None:
-            raise RuntimeError(
-                "DropPath draws from the train state's generator: build the "
-                "state with training.train_state.create_train_state")
-        u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
-                       generator=self.generator, device=x.device)
-        return drop_path(x, self.p, u > self.p)
-
-    def extra_repr(self) -> str:
-        return f"p={self.p}"
-
-
-def drop_path(x: torch.Tensor, p: float, keep: torch.Tensor) -> torch.Tensor:
-    """The JAX package's formula under a given keep mask (bool, one entry a
-    sample, broadcast over the rest)."""
-    return x / (1.0 - p) * keep
 
 
 class WindowAttention(nn.Module):

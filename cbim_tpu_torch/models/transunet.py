@@ -29,7 +29,8 @@ official ``.npz`` loader (``utils/jax_import.py``
 Every conv here is a plain conv (cuDNN) and the BatchNorms follow Flax
 (``layers.convs.Norm("bn")``, eps 1e-5): the JAX model runs them in XLA,
 with no Pallas kernel.  Dropout draws its masks from the train state's
-generator (``Dropout``), as ``DropPath`` does.
+generator (``layers.convs.Dropout``, re-exported here), as ``DropPath``
+does.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from torch import nn
 
 from ..ops.activations import gelu
 from ..ops.interpolate import resize_linear
-from .layers.convs import Norm
+from .layers.convs import Dropout, Norm
 
 #: the R50's blocks and width, the decoder's widths and skips
 BLOCK_UNITS = (3, 4, 9)
@@ -54,36 +55,6 @@ N_SKIP = 3
 HIDDEN_SIZE, MLP_DIM, NUM_LAYERS, NUM_HEADS, DROPOUT = 768, 3072, 12, 12, 0.1
 #: the feature map's stride at the ViT
 PATCH = 16
-
-
-class Dropout(nn.Module):
-    """Elementwise dropout (JAX ``nn.Dropout(p)``): in training mode
-    ``where(keep, x / (1 - p), 0)`` with keep = u < 1 - p, u ~ U(0, 1) for
-    every element, drawn from ``generator`` (the train state's; a
-    training-mode call with p > 0 and none raises); the identity in eval
-    mode and at p = 0."""
-
-    def __init__(self, p: float = DROPOUT):
-        super().__init__()
-        self.p = float(p)
-        self.generator: torch.Generator | None = None
-
-    def keep_mask(self, x: torch.Tensor) -> torch.Tensor:
-        if self.generator is None:
-            raise RuntimeError(
-                "Dropout draws from the train state's generator: build the "
-                "state with training.train_state.create_train_state")
-        u = torch.rand(x.shape, generator=self.generator, device=x.device)
-        return u < 1.0 - self.p
-
-    def forward(self, x):
-        if self.p == 0.0 or not self.training:
-            return x
-        return torch.where(self.keep_mask(x), x / (1.0 - self.p),
-                           torch.zeros((), dtype=x.dtype, device=x.device))
-
-    def extra_repr(self) -> str:
-        return f"p={self.p}"
 
 
 class StdConv2d(nn.Conv2d):

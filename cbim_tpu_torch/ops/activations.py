@@ -1,4 +1,5 @@
-"""Activations of the port (counterpart of ``cbim_tpu/ops/activations.py``).
+"""Activations of the port (counterpart of ``cbim_tpu/ops/activations.py``
+and of ``get_act`` in ``cbim_tpu/models/layers/convs.py``).
 
 GELU is the exact erf form, like ``torch.nn.GELU`` in the reference and
 ``jax.nn.gelu(approximate=False)`` in ``cbim_tpu``.  The TPU package's bf16
@@ -26,16 +27,25 @@ def gelu_grad(n: torch.Tensor) -> torch.Tensor:
             + n * 0.3989422804014327 * torch.exp(-0.5 * n * n))
 
 
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.leaky_relu(x, 0.01)``, the JAX package's ``lrelu``."""
+    return F.leaky_relu(x, 0.01)
+
+
+#: every activation the JAX package's ``get_act`` names.  ``prelu`` is
+#: ReLU there, a placeholder (PReLU has a parameter, so it is a module:
+#: VNet's), and so it is here.
+ACTS = {"relu": F.relu, "relu6": F.relu6, "gelu": gelu, "silu": F.silu,
+        "swish": F.silu, "lrelu": leaky_relu, "sigmoid": torch.sigmoid,
+        "prelu": F.relu, "elu": F.elu}
+
+
 def get_act(name) -> Callable:
-    """Activation function by config name (None/False: identity)."""
+    """Activation function by config name (None/False/"none": identity);
+    an unknown name raises KeyError, as in JAX."""
     if name in (None, False, "none"):
         return lambda x: x
-    if name == "relu":
-        return F.relu
-    if name == "gelu":
-        return gelu
-    raise NotImplementedError(
-        f"activation {name!r} is not ported yet (see ROADMAP.md)")
+    return ACTS[name]
 
 
 class Act(nn.Module):

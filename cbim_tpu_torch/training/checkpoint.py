@@ -20,7 +20,12 @@ read by ``utils.flax_msgpack`` and mapped onto the config's model by
 file's BatchNorm statistics load into the running buffers (the JAX CLI
 serves with initial ones, ROADMAP C10).  Its ``opt_state`` is not read:
 resuming a JAX run's AdamW state is not supported.  Orbax checkpoint
-directories (``<path>.orbax``) need jax and are refused.
+directories (``<path>.orbax``) need jax and are refused.  The blocks and
+norms the port took last (Bottleneck, FusedMBConv, MBConv in the UNet
+family, ConvNeXtBlock, LayerNorm, MedFormer's linear projections) load
+strictly under the names their modules' docstrings give (Bottleneck's are
+the reference's ``conv1``/``conv2``/``conv3``/``shortcut``); no reference
+``.pth`` of them has been loaded (there is none in the repository).
 """
 
 from __future__ import annotations

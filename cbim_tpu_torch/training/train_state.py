@@ -22,9 +22,6 @@ import torch
 from torch import nn
 
 from ..config import compute_dtype
-from ..models.swin_layers import DropPath
-from ..models.transunet import Dropout
-from ..models.vnet import ChannelDropout
 from ..ops.losses import deep_supervision_loss
 from .optim import get_optimizer, set_lr
 
@@ -47,9 +44,9 @@ class TrainState:
 def create_train_state(model: nn.Module, cfg,
                        seed: int | None = None) -> TrainState:
     """Optimizer over every parameter, and an EMA copy (eval mode) when
-    ``cfg.ema``.  A model with stochastic depth (``DropPath`` with p > 0)
-    or dropout (VNet's ``ChannelDropout``, TransUNet's ``Dropout``) draws
-    its keep masks from one
+    ``cfg.ema``.  Every stochastic module of the model with a nonzero rate
+    (a module with a rate ``p`` and a ``generator`` slot: ``DropPath``,
+    ``Dropout``, VNet's ``ChannelDropout``) draws its keep masks from one
     ``torch.Generator`` on the model's device, which the state owns, seeded
     from ``seed`` (default: the run's ``split_seed``, the JAX step's
     dropout seed) as the input pipeline seeds its own; the EMA copy
@@ -59,7 +56,7 @@ def create_train_state(model: nn.Module, cfg,
     if cfg.get("ema", False):
         ema = copy.deepcopy(model).requires_grad_(False).eval()
     drops = [m for m in model.modules()
-             if isinstance(m, (DropPath, ChannelDropout, Dropout)) and m.p]
+             if hasattr(m, "generator") and getattr(m, "p", 0)]
     generator = None
     if drops:
         if seed is None:

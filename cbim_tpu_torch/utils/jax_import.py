@@ -17,17 +17,21 @@ walks over the tree, with each layout transform undone
 and each channel permutation inverted: the B-MHA's (``_bmha_perm``: Flax
 splits the inner channels head-major, the reference dim-head-major) and,
 in 2D, the map fusion's ``to_out`` columns (the dim2 reference merges its
-heads dim-head-major).  Both assume conv_block=BasicBlock,
-proj_type=depthwise and aux_loss on (``Conv_0`` is the aux head, ``Conv_1``
-outc).  The 3D walk assumes norm='in' (no norm parameters); the 2D walk
-carries every BatchNorm's scale/bias and, from ``batch_stats``, its running
-mean and variance (``num_batches_tracked`` is 0), so ``load_state_dict``
-takes the result strictly.  One difference from ``import_medformer3d``: a
-3D decoder conv block gets a shortcut only where the model has one (see
-the decoder loop).  The UNet family's BasicBlock gets a shortcut where the
-Flax tree has one (the model: where the width changes), and the walks carry
-a ``bn`` norm's parameters and statistics where the tree has them: the 2D
-zoo's BatchNorms, which ``import_unet`` itself leaves out (ROADMAP C15).
+heads dim-head-major).  Both assume aux_loss on (``Conv_0`` is the aux
+head, ``Conv_1`` outc), and take the config's ``conv_block``,
+``proj_type`` (the B-MHA's and PatchMerging's projections; the
+FusedMBConv feed-forward under "linear") and ``expansion``.  Every walk
+carries a norm's parameters where the tree has them: a ``bn`` norm's
+scale, bias and, from ``batch_stats``, running mean and variance
+(``num_batches_tracked`` is 0), an ``ln`` norm's scale and bias; ``in``
+has none.  So ``load_state_dict`` takes the result strictly.  A conv block
+(``_Walk.block``: SingleConv, BasicBlock, Bottleneck, MBConv, FusedMBConv,
+ConvNeXtBlock) gets a shortcut where the Flax tree has one, which is where
+the model has one; so, unlike ``import_medformer3d``, a 3D decoder conv
+block gets a shortcut only where the model has one.  The 2D zoo's
+BatchNorms are carried, which ``import_unet`` itself leaves out (ROADMAP
+C15).  ConvNeXtBlock, which no factory builds, maps alone
+(:func:`block_state_dict_from_jax`).
 TransUNet's fused qkv ``Dense_0`` splits back into the reference's
 ``query``, ``key`` and ``value``.  :func:`transunet_npz_state_dict` reads
 the official R50+ViT-B_16 ``.npz`` (``import_transunet_npz``'s map).
@@ -122,17 +126,63 @@ class _Walk:
         self.sd[f"{tkey}.running_var"] = np.asarray(stats["var"])
         self.sd[f"{tkey}.num_batches_tracked"] = np.zeros((), np.int64)
 
+    def norm(self, path, tkey):
+        """A ``Norm`` at ``path`` with parameters: its BatchNorm_0 (with
+        statistics) or LayerNorm_0 -> ``tkey``.{weight, bias, ...}."""
+        if self.has((*path, "LayerNorm_0")):
+            self.layer_norm((*path, "LayerNorm_0"), tkey)
+        else:
+            self.bn(path, tkey)
+
     def cna(self, path, tkey):
-        """One ConvNormAct: Conv_0 and, where it has parameters, Norm_0."""
+        """One ConvNormAct: Conv_0 and, where it has parameters (bn, ln),
+        Norm_0."""
         self.conv((*path, "Conv_0", "kernel"), f"{tkey}.conv.weight")
         if self.has((*path, "Norm_0")):
-            self.bn((*path, "Norm_0"), f"{tkey}.norm")
+            self.norm((*path, "Norm_0"), f"{tkey}.norm")
 
-    def basic_block(self, prefix, tkey, has_shortcut):
-        self.cna((*prefix, "ConvNormAct_0"), f"{tkey}.conv1")
-        self.cna((*prefix, "ConvNormAct_1"), f"{tkey}.conv2")
-        if has_shortcut:
-            self.cna((*prefix, "ConvNormAct_2"), f"{tkey}.shortcut")
+    def se(self, path, tkey):
+        """SEBlock_0 at ``path`` -> ``tkey``.excitation.{0, 2}."""
+        for i, j in ((0, 0), (1, 2)):
+            self.conv((*path, f"Conv_{i}", "kernel"),
+                      f"{tkey}.excitation.{j}.weight")
+            self.raw((*path, f"Conv_{i}", "bias"),
+                     f"{tkey}.excitation.{j}.bias")
+
+    def convs(self, prefix, tkey, names):
+        """ConvNormAct_0, _1, ... of a block -> ``tkey``.{names}, and the
+        next one, where the tree has it, -> ``tkey``.shortcut."""
+        for i, name in enumerate((*names, "shortcut")):
+            path = (*prefix, f"ConvNormAct_{i}")
+            if name != "shortcut" or self.has(path):
+                self.cna(path, f"{tkey}.{name}")
+
+    def block(self, prefix, tkey, kind, se_name="se", expansion=4):
+        """One conv block of ``kind`` (the Flax class name: SingleConv,
+        BasicBlock, Bottleneck, MBConv, FusedMBConv or ConvNeXtBlock) ->
+        the port's names (``layers/convs.py``), a shortcut where the tree
+        has one; ``se_name`` and ``expansion`` as the module was built."""
+        if kind == "SingleConv":
+            self.cna((*prefix, "ConvNormAct_0"), f"{tkey}.conv")
+        elif kind == "BasicBlock":
+            self.convs(prefix, tkey, ("conv1", "conv2"))
+        elif kind == "Bottleneck":
+            self.convs(prefix, tkey, ("conv1", "conv2", "conv3"))
+        elif kind == "MBConv":
+            self.mbconv(prefix, tkey, se_name, expansion)
+        elif kind == "FusedMBConv":
+            self.convs(prefix, tkey, ("conv3x3", "pointwise"))
+            self.se((*prefix, "SEBlock_0"), f"{tkey}.{se_name}")
+        elif kind == "ConvNeXtBlock":
+            self.conv((*prefix, "Conv_0", "kernel"), f"{tkey}.dwconv.weight")
+            self.raw((*prefix, "Conv_0", "bias"), f"{tkey}.dwconv.bias")
+            self.layer_norm((*prefix, "LayerNorm_0"), f"{tkey}.norm")
+            self.dense((*prefix, "Dense_0"), f"{tkey}.pwconv1")
+            self.dense((*prefix, "Dense_1"), f"{tkey}.pwconv2")
+            if self.has((*prefix, "layer_scale")):
+                self.raw((*prefix, "layer_scale"), f"{tkey}.gamma")
+        else:
+            raise ValueError(f"unknown block {kind!r}")
 
     def dwsep(self, prefix, tkey, out_perm=None, in_perm=None):
         inv_out = None if out_perm is None else np.argsort(out_perm)
@@ -151,42 +201,66 @@ class _Walk:
         self.conv((*prefix, "Conv_1", "kernel"), f"{tkey}.pointwise.weight",
                   pw)
 
-    def mbconv(self, prefix, tkey, se_name):
-        names = ["depthwise", "pointwise"]
-        if self.has((*prefix, "ConvNormAct_2")):     # expansion != 1
-            names.insert(0, "expand_proj")
-        for i, name in enumerate(names):
-            self.cna((*prefix, f"ConvNormAct_{i}"), f"{tkey}.{name}")
-        se = (*prefix, "SEBlock_0")
-        for i, j in ((0, 0), (1, 2)):
-            self.conv((*se, f"Conv_{i}", "kernel"),
-                      f"{tkey}.{se_name}.excitation.{j}.weight")
-            self.raw((*se, f"Conv_{i}", "bias"),
-                     f"{tkey}.{se_name}.excitation.{j}.bias")
+    def mbconv(self, prefix, tkey, se_name, expansion=4):
+        names = ("depthwise", "pointwise")
+        if expansion != 1:
+            names = ("expand_proj", *names)
+        self.convs(prefix, tkey, names)
+        self.se((*prefix, "SEBlock_0"), f"{tkey}.{se_name}")
 
     def bmha_block(self, prefix, tkey, heads, dh, has_shortcut,
-                   no_map_out=False, se_name="se"):
+                   no_map_out=False, se_name="se", proj_type="depthwise",
+                   expansion=4):
+        """A BidirectionAttentionBlock: its norms where they have
+        parameters, the B-MHA's projections (depthwise-separable, or 1^d
+        convs under ``proj_type`` "linear": Flax's Conv_0-Conv_3 in the
+        order feat_qv, map_qv, feat_out, map_out), the shortcut, and the
+        feed-forward (MBConv_0, or under "linear" FusedMBConv_0)."""
         inner = heads * dh
         perm = _bmha_perm(heads, dh)
         qv_perm = np.concatenate([perm, inner + perm])
         inv_qv = np.argsort(qv_perm)
         inv = np.argsort(perm)
         if self.has((*prefix, "Norm_0")):
-            self.bn((*prefix, "Norm_0"), f"{tkey}.norm1")
-            self.bn((*prefix, "Norm_1"), f"{tkey}.norm2")
+            self.norm((*prefix, "Norm_0"), f"{tkey}.norm1")
+            self.norm((*prefix, "Norm_1"), f"{tkey}.norm2")
         attn = (*prefix, "BidirectionAttention_0")
-        self.dwsep((*attn, "DepthwiseSeparableConv_0"), f"{tkey}.attn.feat_qv",
-                   out_perm=qv_perm)
-        self.conv((*attn, "Conv_0", "kernel"), f"{tkey}.attn.map_qv.weight",
+        if proj_type == "linear":
+            self.conv((*attn, "Conv_0", "kernel"),
+                      f"{tkey}.attn.feat_qv.weight", lambda w: w[inv_qv])
+            self.conv((*attn, "Conv_2", "kernel"),
+                      f"{tkey}.attn.feat_out.weight", lambda w: w[:, inv])
+            map_qv, map_out = "Conv_1", "Conv_3"
+        else:
+            self.dwsep((*attn, "DepthwiseSeparableConv_0"),
+                       f"{tkey}.attn.feat_qv", out_perm=qv_perm)
+            self.dwsep((*attn, "DepthwiseSeparableConv_1"),
+                       f"{tkey}.attn.feat_out", in_perm=perm)
+            map_qv, map_out = "Conv_0", "Conv_1"
+        self.conv((*attn, map_qv, "kernel"), f"{tkey}.attn.map_qv.weight",
                   lambda w: w[inv_qv])
-        self.dwsep((*attn, "DepthwiseSeparableConv_1"),
-                   f"{tkey}.attn.feat_out", in_perm=perm)
         if not no_map_out:
-            self.conv((*attn, "Conv_1", "kernel"),
+            self.conv((*attn, map_out, "kernel"),
                       f"{tkey}.attn.map_out.weight", lambda w: w[:, inv])
         if has_shortcut:
             self.cna((*prefix, "ConvNormAct_0"), f"{tkey}.shortcut")
-        self.mbconv((*prefix, "MBConv_0"), f"{tkey}.feedforward", se_name)
+        if proj_type == "linear":
+            self.block((*prefix, "FusedMBConv_0"), f"{tkey}.feedforward",
+                       "FusedMBConv", se_name)
+        else:
+            self.mbconv((*prefix, "MBConv_0"), f"{tkey}.feedforward",
+                        se_name, expansion)
+
+    def patch_merging_mf(self, path, tkey, proj_type):
+        """MedFormer's PatchMerging: its norm where it has parameters, and
+        the reduction (depthwise-separable, or a 1^d conv)."""
+        if self.has((*path, "Norm_0")):
+            self.norm((*path, "Norm_0"), f"{tkey}.norm")
+        if proj_type == "linear":
+            self.conv((*path, "Conv_0", "kernel"), f"{tkey}.reduction.weight")
+        else:
+            self.dwsep((*path, "DepthwiseSeparableConv_0"),
+                       f"{tkey}.reduction")
 
     def map_fusion(self, depth, out_perm=None):
         """SemanticMapFusion_0 -> map_fusion.*; ``out_perm`` permutes the
@@ -280,33 +354,45 @@ class _Walk:
                 for k, v in self.sd.items()}
 
 
-def medformer3d_state_dict_from_jax(params, cfg) -> dict:
-    """Flax MedFormer3D params (nested dicts of arrays) -> state_dict."""
+def _mf_options(cfg):
+    """A MedFormer config's conv block (as the Flax tree names it), its
+    feed-forward expansion and its projection type."""
+    return (_block_kind(cfg.get("conv_block") or "BasicBlock"),
+            cfg.get("expansion") or 4, cfg.get("proj_type") or "depthwise")
+
+
+def medformer3d_state_dict_from_jax(params, cfg, batch_stats=None) -> dict:
+    """Flax MedFormer3D params (nested dicts of arrays; ``batch_stats``
+    where its norm is bn) -> state_dict."""
     chan_num = list(cfg.get("chan_num") or DEFAULT_CHAN_NUM)
     conv_num, trans_num = cfg.conv_num, cfg.trans_num
     num_heads = cfg.num_heads
     dim_head = [chan_num[i] // num_heads[i] for i in range(8)]
-    t = _Walk(params)
+    kind, expansion, proj_type = _mf_options(cfg)
+    t = _Walk(params, batch_stats)
+
+    def bmha(name, stage, j, **kw):
+        t.bmha_block((name, "BasicLayer_0", f"BidirectionAttentionBlock_{j}"),
+                     f"{name}.trans_blocks.blocks.{j}", num_heads[stage],
+                     dim_head[stage], proj_type=proj_type,
+                     expansion=expansion, **kw)
 
     # --- encoder -----------------------------------------------------------
     t.conv(("inc", "Conv_0", "kernel"), "inc.conv1.weight")
-    t.basic_block(("inc", "BasicBlock_0"), "inc.conv2", False)
+    t.block(("inc", f"{kind}_0"), "inc.conv2", kind)
     for i in range(4):
         name = f"down{i + 1}"
-        t.dwsep((name, "PatchMerging_0", "DepthwiseSeparableConv_0"),
-                f"{name}.patch_merging.reduction")
+        t.patch_merging_mf((name, "PatchMerging_0"),
+                           f"{name}.patch_merging", proj_type)
         for j in range(conv_num[i]):
-            t.basic_block((name, f"BasicBlock_{j}"), f"{name}.conv_blocks.{j}",
-                          False)
+            t.block((name, f"{kind}_{j}"), f"{name}.conv_blocks.{j}", kind)
         if i > 0:
             t.conv((name, "SemanticMapGeneration_0", "Conv_0", "kernel"),
                    f"{name}.map_gen.base_proj.weight")
             t.conv((name, "SemanticMapGeneration_0", "Conv_1", "kernel"),
                    f"{name}.map_gen.semantic_proj.weight")
         for j in range(trans_num[i]):
-            t.bmha_block((name, "BasicLayer_0", f"BidirectionAttentionBlock_{j}"),
-                         f"{name}.trans_blocks.blocks.{j}", num_heads[i],
-                         dim_head[i], has_shortcut=False)
+            bmha(name, i, j, has_shortcut=False)
 
     t.map_fusion(cfg.fusion_depth)
 
@@ -318,17 +404,14 @@ def medformer3d_state_dict_from_jax(params, cfg) -> dict:
             t.conv((name, "Conv_0", "kernel"), f"{name}.map_reduction.weight")
         for j in range(trans_num[stage]):
             no_mo = u == 1 and j == trans_num[stage] - 1   # up2 last block
-            t.bmha_block((name, "BasicLayer_0", f"BidirectionAttentionBlock_{j}"),
-                         f"{name}.trans_blocks.blocks.{j}", num_heads[stage],
-                         dim_head[stage], has_shortcut=(j == 0),
-                         no_map_out=no_mo)
+            bmha(name, stage, j, has_shortcut=(j == 0), no_map_out=no_mo)
         for j in range(conv_num[stage]):
             # the first conv block widens the concat only when no B-MHA
-            # block came before it (import_medformer3d assumes it always
-            # does, and raises KeyError for a stage with both, e.g. the
-            # AMOS config's up2)
-            t.basic_block((name, f"BasicBlock_{j}"), f"{name}.conv_blocks.{j}",
-                          has_shortcut=(j == 0 and trans_num[stage] == 0))
+            # block came before it: the walk takes a shortcut where the
+            # tree has one (import_medformer3d assumes one always, and
+            # raises KeyError for a stage with both, e.g. the AMOS config's
+            # up2)
+            t.block((name, f"{kind}_{j}"), f"{name}.conv_blocks.{j}", kind)
     t.heads()
     return t.state_dict()
 
@@ -341,13 +424,13 @@ def medformer2d_state_dict_from_jax(variables, cfg) -> dict:
     conv_num, trans_num = cfg.conv_num, cfg.trans_num
     num_heads = cfg.num_heads
     dim_head = [chan_num[i] // num_heads[i] for i in range(8)]
+    kind, expansion, proj_type = _mf_options(cfg)
     t = _Walk(variables["params"], variables["batch_stats"])
 
     def blocks(prefix, tkey, n):
         for j in range(n):
-            blk = (*prefix, f"BasicBlock_{j}")
-            t.basic_block(blk, f"{tkey}.conv_blocks.{j}",
-                          t.has((*blk, "ConvNormAct_2")))
+            t.block((*prefix, f"{kind}_{j}"), f"{tkey}.conv_blocks.{j}", kind,
+                    se_name="se_block")
 
     def bmha(prefix, tkey, stage):
         for j in range(trans_num[stage]):
@@ -355,17 +438,17 @@ def medformer2d_state_dict_from_jax(variables, cfg) -> dict:
                           f"BidirectionAttentionBlock_{j}"),
                          f"{tkey}.trans_blocks.blocks.{j}", num_heads[stage],
                          dim_head[stage], has_shortcut=False,
-                         se_name="se_block")
+                         se_name="se_block", proj_type=proj_type,
+                         expansion=expansion)
 
     # --- encoder -----------------------------------------------------------
     t.conv(("InConvMF_0", "Conv_0", "kernel"), "inc.conv1.weight")
-    t.basic_block(("InConvMF_0", "BasicBlock_0"), "inc.conv2",
-                  t.has(("InConvMF_0", "BasicBlock_0", "ConvNormAct_2")))
+    t.block(("InConvMF_0", f"{kind}_0"), "inc.conv2", kind,
+            se_name="se_block")
     for i in range(4):
         f, name = f"DownBlockMF_{i}", f"down{i + 1}"
-        t.bn((f, "PatchMerging_0", "Norm_0"), f"{name}.patch_merging.norm")
-        t.dwsep((f, "PatchMerging_0", "DepthwiseSeparableConv_0"),
-                f"{name}.patch_merging.reduction")
+        t.patch_merging_mf((f, "PatchMerging_0"), f"{name}.patch_merging",
+                           proj_type)
         blocks((f,), name, conv_num[i])
         if i > 0:
             t.conv((f, "SemanticMapGeneration_0", "Conv_0", "kernel"),
@@ -381,7 +464,7 @@ def medformer2d_state_dict_from_jax(variables, cfg) -> dict:
     # --- decoder -------------------------------------------------------------
     for u in range(4):
         f, name = f"UpBlockMF2D_{u}", f"up{u + 1}"
-        t.bn((f, "Norm_0"), f"{name}.norm")
+        t.norm((f, "Norm_0"), f"{name}.norm")
         t.conv((f, "Conv_0", "kernel"), f"{name}.reduction.weight")
         t.conv((f, "Conv_1", "kernel"), f"{name}.map_reduction.weight")
         bmha((f,), name, 4 + u)
@@ -563,40 +646,58 @@ def swinunet_state_dict_from_jax(params, depths=SWINUNET_DEPTHS) -> dict:
     return t.state_dict()
 
 
-def _blocks(t, prefix, tkey, block):
-    """One SingleConv (``conv``) or BasicBlock (``conv1``, ``conv2``, and
-    ``shortcut`` where the tree has one); ``block`` as :func:`_block_kind`
-    gives it."""
-    if block == "SingleConv":
-        t.cna((*prefix, "ConvNormAct_0"), f"{tkey}.conv")
-    else:
-        t.basic_block(prefix, tkey, t.has((*prefix, "ConvNormAct_2")))
+def _blocks(t, prefix, tkey, block, nd):
+    """One conv block of the UNet family (``block`` as :func:`_block_kind`
+    gives it; a 2D MBConv names its SE ``se_block``)."""
+    t.block(prefix, tkey, block, se_name="se_block" if nd == 2 else "se")
+
+
+#: the blocks of the JAX package's table by config string, as the Flax tree
+#: names their modules (the alias ConvNormAct is SingleConv)
+BLOCK_KINDS = {"SingleConv": "SingleConv", "ConvNormAct": "SingleConv",
+               "BasicBlock": "BasicBlock", "Bottleneck": "Bottleneck",
+               "MBConv": "MBConv", "FusedMBConv": "FusedMBConv"}
 
 
 def _block_kind(block) -> str:
-    """A config's block as the Flax tree names it: SingleConv (its alias
-    ConvNormAct too, the JAX config's default) or BasicBlock; the blocks
-    the port does not build raise."""
+    """A config's block as the Flax tree names it (None: the JAX config's
+    default ConvNormAct, SingleConv).  ConvNeXtBlock raises: no JAX
+    factory can build a model with it (its blocks take no norm or act), so
+    no Flax tree of one exists; ``block_state_dict_from_jax`` maps the
+    block alone."""
     block = block or "ConvNormAct"
-    if block in ("SingleConv", "ConvNormAct"):
-        return "SingleConv"
-    if block == "BasicBlock":
-        return block
-    raise NotImplementedError(
-        f"block {block!r} is not ported yet (see ROADMAP.md)")
+    if block == "ConvNeXtBlock":
+        raise NotImplementedError(
+            "ConvNeXtBlock: the model factories cannot build it (it takes "
+            "no norm or act), so no Flax model tree holds one")
+    if block not in BLOCK_KINDS:
+        raise ValueError(f"unknown block {block!r}")
+    return BLOCK_KINDS[block]
 
 
-def _unet_encoder(t, block):
+def block_state_dict_from_jax(variables, block: str, nd: int = 3,
+                              expansion: int = 4) -> dict:
+    """The state_dict of one block module (``layers/convs.py``: any of the
+    JAX table, ConvNeXtBlock included) from the Flax variables of the same
+    block applied alone ({"params"}, and "batch_stats" for bn)."""
+    t = _Walk(variables["params"], variables.get("batch_stats"))
+    kind = "ConvNeXtBlock" if block == "ConvNeXtBlock" else _block_kind(block)
+    t.block((), "", kind, se_name="se_block" if nd == 2 else "se",
+            expansion=expansion)
+    return {k.lstrip("."): v for k, v in t.state_dict().items()}
+
+
+def _unet_encoder(t, block, nd):
     """InConv_0 and the four DownBlocks (``import_unet``'s walk)."""
     t.conv(("InConv_0", "Conv_0", "kernel"), "inc.conv1.weight")
-    _blocks(t, ("InConv_0", f"{block}_0"), "inc.conv2", block)
+    _blocks(t, ("InConv_0", f"{block}_0"), "inc.conv2", block, nd)
     for i in range(4):
         for j in range(2):
             _blocks(t, (f"DownBlock_{i}", f"{block}_{j}"),
-                    f"down{i + 1}.conv.{j + 1}", block)
+                    f"down{i + 1}.conv.{j + 1}", block, nd)
 
 
-def _unet_decoder(t, block, up_name):
+def _unet_decoder(t, block, up_name, nd):
     """The four up blocks ``{up_name}_{i}``: a 2D one's ``conv_ch``
     (Conv_0, with bias) where the tree has it, then its blocks; and
     ``outc``."""
@@ -606,7 +707,8 @@ def _unet_decoder(t, block, up_name):
             t.conv((up, "Conv_0", "kernel"), f"up{i + 1}.conv_ch.weight")
             t.raw((up, "Conv_0", "bias"), f"up{i + 1}.conv_ch.bias")
         for j in range(2):
-            _blocks(t, (up, f"{block}_{j}"), f"up{i + 1}.conv.{j}", block)
+            _blocks(t, (up, f"{block}_{j}"), f"up{i + 1}.conv.{j}", block,
+                    nd)
     t.conv(("Conv_0", "kernel"), "outc.weight")
     t.raw(("Conv_0", "bias"), "outc.bias")
 
@@ -616,8 +718,8 @@ def unet3d_state_dict_from_jax(variables, cfg) -> dict:
     state_dict (the keys ``import_unet`` reads)."""
     t = _Walk(variables["params"], variables.get("batch_stats"))
     block = _block_kind(cfg.get("block"))
-    _unet_encoder(t, block)
-    _unet_decoder(t, block, "UpBlock3D")
+    _unet_encoder(t, block, 3)
+    _unet_decoder(t, block, "UpBlock3D", 3)
     return t.state_dict()
 
 
@@ -628,33 +730,33 @@ def unet2d_state_dict_from_jax(variables, cfg) -> dict:
     that importer leaves out, ROADMAP C15)."""
     t = _Walk(variables["params"], variables.get("batch_stats"))
     block = _block_kind(cfg.get("block"))
-    _unet_encoder(t, block)
-    _unet_decoder(t, block, "UpBlock2D")
+    _unet_encoder(t, block, 2)
+    _unet_decoder(t, block, "UpBlock2D", 2)
     return t.state_dict()
 
 
-def _attention_unet(variables, block) -> dict:
+def _attention_unet(variables, block, nd) -> dict:
     t = _Walk(variables["params"], variables.get("batch_stats"))
-    _unet_encoder(t, block)
+    _unet_encoder(t, block, nd)
     for i in range(4):
         for c, name in enumerate(("W_g", "W_x", "psi")):
             t.conv((f"AttentionUpBlock_{i}", "AttentionGate_0", f"Conv_{c}",
                     "kernel"), f"up{i + 1}.attn.{name}.0.weight")
-    _unet_decoder(t, block, "AttentionUpBlock")
+    _unet_decoder(t, block, "AttentionUpBlock", nd)
     return t.state_dict()
 
 
 def attention_unet3d_state_dict_from_jax(variables, cfg) -> dict:
     """Flax AttentionUNet3D variables -> state_dict (the keys
     ``import_attention_unet`` reads; no ``conv_ch``)."""
-    return _attention_unet(variables, _block_kind(cfg.get("block")))
+    return _attention_unet(variables, _block_kind(cfg.get("block")), 3)
 
 
 def attention_unet2d_state_dict_from_jax(variables, cfg=None) -> dict:
     """Flax AttentionUNet2D variables -> state_dict (the keys
     ``import_attention_unet(dimension="2d")`` reads; no ``conv_ch``).  The
     JAX factory builds it with SingleConv blocks whatever the config."""
-    return _attention_unet(variables, "SingleConv")
+    return _attention_unet(variables, "SingleConv", 2)
 
 
 #: UNet++'s stages in the Flax tree's order (``_Stage_{i}``), by their
@@ -664,12 +766,12 @@ UNETPP_ORDER = ("conv0_0", "conv1_0", "conv0_1", "conv2_0", "conv1_1",
                 "conv4_0", "conv3_1", "conv2_2", "conv1_3", "conv0_4")
 
 
-def _unetpp(variables, block) -> dict:
+def _unetpp(variables, block, nd) -> dict:
     t = _Walk(variables["params"], variables.get("batch_stats"))
     for si, name in enumerate(UNETPP_ORDER):
         for j in range(2):
             _blocks(t, (f"_Stage_{si}", f"{block}_{j}"), f"{name}.{j}",
-                    block)
+                    block, nd)
     t.conv(("Conv_0", "kernel"), "output.weight")
     t.raw(("Conv_0", "bias"), "output.bias")
     return t.state_dict()
@@ -678,14 +780,14 @@ def _unetpp(variables, block) -> dict:
 def unetpp3d_state_dict_from_jax(variables, cfg) -> dict:
     """Flax UNetPlusPlus3D variables -> state_dict (the keys
     ``import_unetpp`` reads)."""
-    return _unetpp(variables, _block_kind(cfg.get("block")))
+    return _unetpp(variables, _block_kind(cfg.get("block")), 3)
 
 
 def unetpp2d_state_dict_from_jax(variables, cfg=None) -> dict:
     """Flax UNetPlusPlus2D variables -> state_dict (the keys
     ``import_unetpp`` reads, BatchNorm included).  The JAX factory builds
     it with SingleConv blocks whatever the config."""
-    return _unetpp(variables, "SingleConv")
+    return _unetpp(variables, "SingleConv", 2)
 
 
 #: DAUNet's head in the Flax tree's order: (BatchNorm, conv) pairs
@@ -701,7 +803,7 @@ def daunet_state_dict_from_jax(variables, cfg) -> dict:
     gammas, and the three heads no output reads."""
     t = _Walk(variables["params"], variables.get("batch_stats"))
     block = _block_kind(cfg.get("block"))
-    _unet_encoder(t, block)
+    _unet_encoder(t, block, 2)
     da = "DAHead_0"
     for i, name in enumerate(DAHEAD_PAIRS):
         tkey = f"DAModule.{name}"
@@ -718,7 +820,7 @@ def daunet_state_dict_from_jax(variables, cfg) -> dict:
     for c, name in enumerate(DAHEAD_HEADS):
         t.conv((da, f"Conv_{4 + c}", "kernel"), f"DAModule.{name}.1.weight")
         t.raw((da, f"Conv_{4 + c}", "bias"), f"DAModule.{name}.1.bias")
-    _unet_decoder(t, block, "UpBlock2D")
+    _unet_decoder(t, block, "UpBlock2D", 2)
     return t.state_dict()
 
 
@@ -985,7 +1087,7 @@ def state_dict_from_jax(cfg, variables) -> dict:
     dim, name = cfg.dimension, cfg.model
     walks = {
         ("3d", "medformer"): lambda: medformer3d_state_dict_from_jax(
-            params, cfg),
+            params, cfg, variables.get("batch_stats")),
         ("2d", "medformer"): lambda: medformer2d_state_dict_from_jax(
             variables, cfg),
         ("3d", "swin_unetr"): lambda: swin_unetr_state_dict_from_jax(params),

@@ -118,6 +118,16 @@ Phases, each printing its result; any failure raises and exits non-zero:
    the loss and every gradient compared, each routed conv's forward, dgrad
    and wgrad (the 1-channel conv's no dgrad) and each gate norm's backward
    pair exactly once;
+4x. the blocks and options since A6c at small widths (``SMALL_OPTIONS``):
+   UNet-3D with FusedMBConv blocks and LayerNorm, phase 4's MedFormer-3D
+   with SiLU, ``proj_type: linear`` and dropouts of 0.1 (masks fixed on
+   both sides), UNet-2D with Bottleneck blocks (``conv2d_kernel``), card
+   vs CPU: the eval softmax, every routed conv one forward of its route and
+   every InstanceNorm one stats and one apply (SiLU after, unfused); one
+   fp32 train step, the loss and every gradient compared, each routed conv
+   its forward, dgrad and wgrad and each norm its backward pair; then a
+   ConvNeXtBlock alone (no factory builds it): its output and one step's
+   gradients, card vs CPU, no kernel launch;
 5. serving: the full-width AMOS-CT MedFormer-3D with seeded random weights
    serves a synthetic NIfTI request (``REQUESTS``: 160 x 256 x 256)
    through ``cbim_tpu_torch.prediction.main``; every forward kernel must have
@@ -133,6 +143,12 @@ Phases, each printing its result; any failure raises and exits non-zero:
    with seeded weights serves phase 5's request: per forward 25
    ``conv3d_same_fwd_tf32`` (RESUNET_CONVS) and 42 ``inorm_stats`` and
    ``inorm_apply`` (RESUNET_NORMS) launches, no other 3^3 kernel;
+5p. phase 5's model with ``proj_type: linear`` (1x1 B-MHA and
+   PatchMerging projections, FusedMBConv feed-forwards) served with
+   ``window_fusion: gaussian``: 20 ``conv3d_same_fwd_tf32`` and one
+   ``inorm_stats`` and ``inorm_apply`` per InstanceNorm a forward, no other
+   3^3 kernel; the share of voxels labelled as the same model labels them
+   under uniform fusion (printed, not held);
 6. training: the flagship recipe (``bench.py``: full-width MedFormer-3D,
    GELU, 128^3 crops, batch 2, bf16 autocast, remat of every stage, AdamW,
    EMA) trains a few steps on the synthetic corpus through
@@ -145,6 +161,11 @@ Phases, each printing its result; any failure raises and exits non-zero:
    ``conv3d_same_na_fwd_tc`` (remat incl.), 20 ``conv3d_wgrad_na_tc`` and
    20 ``conv3d_dgrad_tc`` launches, no other 3^3 launch (the CUDA-core
    fused pair none); sec/step and peak memory beside phase 6's;
+6p. the flagship recipe with ``proj_type: linear``, ``attn_drop`` and
+   ``proj_drop`` 0.1 for 3 steps: every loss finite, the dropouts drew
+   (remat's recompute replays the forward's masks), per step the same
+   40 + 20 + 20 tensor-core 3^3 launches as phase 6; sec/step and peak
+   memory beside phase 6's;
 6v. validation: the flagship recipe with ``val_freq`` 1 on five 130^3
    volumes (fold 0 of 5: one test volume) trains two steps, then its
    epoch ends in the EMA model's evaluation by 128^3 sliding window (8
@@ -158,36 +179,42 @@ Phases, each printing its result; any failure raises and exits non-zero:
    as shipped (MedFormer-3D, base 32, 3 classes, 128^3 crops, remat, the
    KiTS augmentation with its 60-voxel affine pad), read by the port's
    ``load_config``, trained through ``cbim_tpu_torch.train.main --dataset
-   kits`` in fp32 (the CLI's default: no ``--amp``) at batch 2 for 4 steps
+   kits`` in fp32 (the CLI's default: no ``--amp``) at batch 2 for 3 steps
    on 5 HU-like int16 NIfTI cases the script writes (about 1.25x the crop,
    fold 0 of 5), fed from host windows in pinned memory
    (``device_cache: false``: a real KiTS corpus is far over the cache's
    4 GB); every loss finite, and per step 32 ``conv3d_same_fwd_tf32``
    (remat incl.), 16 ``conv3d_dgrad_tf32`` and 16 ``conv3d_wgrad_tf32``
-   launches, no tensor-core and no CUDA-core 3^3 launch; sec/step (median of
-   the 2 steps after warm-up), peak memory and the batches' time alone;
-6kn. the same recipe with ``conv_na: true`` for 4 steps: every one of its
+   launches, no tensor-core and no CUDA-core 3^3 launch; sec/step (the
+   step after warm-up), peak memory and the batches' time alone;
+6kn. the same recipe with ``conv_na: true`` for 3 steps: every one of its
    16 kernel convs fused, per step 32 ``conv3d_same_na_fwd_tf32`` (remat
    incl.), 16 ``conv3d_dgrad_tf32`` and 16 ``conv3d_wgrad_na_tf32``
    launches and no other 3^3 launch (the CUDA-core ``conv3d_wgrad_na``
    none); sec/step beside phase 6k's;
 6a. the ACDC-3D recipe (``configs/acdc/medformer_3d.yaml``: 16 x 192 x 192
-   crops, 4 classes, fp32, batch 2) for 4 steps on 6 written cases of two
+   crops, 4 classes, fp32, batch 2) for 3 steps on 6 written cases of two
    frames: the pipeline took the device cache and its full-volume path (one
-   full-volume resample a step), every loss finite; sec/step (median of
-   2) and the batches' time alone;
+   full-volume resample a step), every loss finite; sec/step (the step
+   after warm-up) and the batches' time alone;
 6r. the AMOS-CT ResUNet-3D recipe as shipped (fp32, no remat in the UNet
    family) trains 4 steps at batch 2 on phase 6's synthetic corpus: every
    loss finite, per step 25 ``conv3d_same_fwd_tf32``, 25
    ``conv3d_dgrad_tf32`` and 25 ``conv3d_wgrad_tf32`` launches and 42 of
    each norm kernel's forward stats and backward pair, no other 3^3
    launch; sec/step and peak memory;
+6x. the same recipe with ``block: Bottleneck`` (mid widths 16-160) for 3
+   steps: every loss finite, per step each of its 3^3 convs up to 128 wide
+   one ``conv3d_same_fwd_tf32``, ``conv3d_dgrad_tf32`` and
+   ``conv3d_wgrad_tf32`` launch (the 1-channel stem's and the wider convs
+   on cuDNN), each InstanceNorm its forward and backward kernels, no other
+   3^3 launch; sec/step and peak memory;
 7. 2D serving: the full-width ACDC MedFormer-2D with seeded random weights
-   serves two synthetic cine-MR NIfTI requests through
+   serves a synthetic cine-MR NIfTI request through
    ``cbim_tpu_torch.prediction.main --dimension 2d`` (every slice of a
    volume is the batch at each window position); fp32: every 3x3 kernel
    conv one ``conv2d_same_fwd_tf32`` launch, 14 a forward, and no other
-   3x3 kernel; then the same requests with ``conv2d_kernel`` off (cuDNN
+   3x3 kernel; then the same request with ``conv2d_kernel`` off (cuDNN
    fp32, TF32 off): the label maps agree on at least 99.9 % of pixels;
 8. 2D training: the ACDC recipe (``configs/acdc/medformer_2d.yaml``)
    trains an epoch of batch-32 steps on ``Synthetic2D`` through
@@ -209,15 +236,15 @@ Phases, each printing its result; any failure raises and exits non-zero:
    bf16 on the 3x3 kernel route: 14 ``conv2d_same_fwd_tc`` launches per
    evaluation forward; seconds per volume as in 6v;
 7s. SwinUnet-2D serving: ``configs/acdc/swinunet_2d.yaml`` (224^2, 4
-   classes, fp32) with seeded random weights serves phase 7's two
-   requests through ``prediction.main --model swinunet --dimension 2d``;
+   classes, fp32) with seeded random weights serves phase 7's request
+   through ``prediction.main --model swinunet --dimension 2d``;
    22 window-attention launches per forward;
 8s. the ACDC SwinUnet recipe as shipped (fp32, stochastic depth 0.1)
    trains one epoch of 4 batch-32 steps on ``Synthetic2D``: every loss
    finite, DropPath drew its masks, no window-attention launch in a step;
 7r. the full-width ACDC ResUNet-2D (``configs/acdc/resunet_2d.yaml``: base
    32, BasicBlock, BatchNorm, 4 classes, 256^2, fp32, ``conv2d_kernel``)
-   with seeded weights serves phase 7's first request: 25
+   with seeded weights serves phase 7's request: 25
    ``conv2d_same_fwd_tf32`` launches a forward (ACDC_RESUNET_CONVS) and no
    other 3x3 kernel;
 8r. the ACDC ResUNet-2D recipe as shipped (fp32, ``conv2d_kernel``)
@@ -225,7 +252,7 @@ Phases, each printing its result; any failure raises and exits non-zero:
    finite, per step 25 ``conv2d_same_fwd_tf32``, ``conv2d_dgrad_tf32`` and
    ``conv2d_wgrad_tf32`` launches and no other 3x3 kernel;
 7t. the full-width ACDC TransUNet (``configs/acdc/transunet_2d.yaml``:
-   R50-ViT-B/16, 256^2, fp32) with seeded weights serves phase 7's first
+   R50-ViT-B/16, 256^2, fp32) with seeded weights serves phase 7's
    request: no kernel launches (cuDNN's convs, torch's norms and GEMMs, as
    XLA's in JAX);
 9. Swin serving: the full-width BCV SwinUNETR (``configs/bcv/
@@ -237,13 +264,13 @@ Phases, each printing its result; any failure raises and exits non-zero:
 9t. the BCV SwinUNETR recipe as a user trains it
    (``configs/bcv/swin_unetr_3d.yaml`` as shipped: 128^3 crops, fp32, the
    BCV augmentation) through ``cbim_tpu_torch.train.main --model
-   swin_unetr`` at batch 2 for 4 steps on 5 HU-like NIfTI cases the
+   swin_unetr`` at batch 2 for 2 steps on 5 HU-like NIfTI cases the
    script writes; every loss finite, no window-attention launch in a
    step; sec/step and peak memory;
 9u. the full-width BCV VT-UNet (``configs/bcv/vtunet_3d.yaml``: patch 4,
    64 x 128 x 128 window, fp32) with seeded random weights serves phase
    9's request; 19 window-attention launches per forward;
-9ut. the BCV VT-UNet recipe as shipped (stochastic depth 0.1) trains 4
+9ut. the BCV VT-UNet recipe as shipped (stochastic depth 0.1) trains 2
    steps at batch 2 on phase 9t's cases: every loss finite, DropPath drew
    its masks, no window-attention launch in a step;
 9n. the full-width BCV nnFormer (``configs/bcv/nnformer_3d.yaml``:
@@ -252,7 +279,7 @@ Phases, each printing its result; any failure raises and exits non-zero:
    window-attention launches per forward (N = 512 at stage 2 and its
    decoder stage, on the fp32 split-on-load staging; N = 64 elsewhere);
 9nt. the BCV nnFormer recipe as shipped (deep supervision, stochastic
-   depth 0.2) trains 4 steps at batch 2 on phase 9t's cases: every loss
+   depth 0.2) trains 2 steps at batch 2 on phase 9t's cases: every loss
    finite, DropPath drew its masks, no window-attention launch in a step;
 10. the probes (``cbim_tpu_torch.tools``, the port of the JAX package's TPU
    probes in ``tools/``): ``probe_bandwidth``, ``probe_lhst_dot`` and
@@ -269,11 +296,13 @@ Phases, each printing its result; any failure raises and exits non-zero:
 The CPU references of phases 4-4z (each small model's eval softmax and
 train step on the CPU's plain versions; 4z's TransUNet step also in fp64)
 are computed in a thread beside phases 3 and 3a, where the host's cores
-are idle, and read by those phases; the same thread then writes the
-serving phases' requests and the KiTS, ACDC-3D and BCV corpora, once.
+are idle, and read by those phases; phase 4x's beside phases 4-4z; the
+same thread then writes the serving phases' requests and the KiTS,
+ACDC-3D and BCV corpora, once.
 
-Each of phases 4e, 4u, 4z and 5-10 (5b, 5r, 6b, 6v, 6k, 6kn, 6a, 6r, 7b,
-8b, 8f, 8v, 7s, 8s, 7r, 8r, 7t, 9t, 9u, 9ut, 9n and 9nt included) sets
+Each of phases 4e, 4u, 4z, 4x and 5-10 (5b, 5r, 5p, 6b, 6p, 6v, 6k, 6kn,
+6a, 6r, 6x, 7b, 8b, 8f, 8v, 7s, 8s, 7r, 8r, 7t, 9t, 9u, 9ut, 9n and 9nt
+included) sets
 the launch counters to 0 just before it and reads them just after.  The
 last three
 lines are the card's name and power limit, the kernels' JSON record
@@ -282,12 +311,12 @@ FLOPs and bytes) and ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--profile DIR]
 
-``--profile DIR`` also traces the steady steps of phases 6, 6b, 6k, 6kn,
-6a, 6r, 8, 8b, 8f and 8r with the trainer's profiler hook
-(``profile_dir``), and the requests of phases 5, 5b, 5r, 9, 9n, 7r and 7t
-served a second time, after the timed run:
+``--profile DIR`` also traces the steady steps of phases 6, 6b, 6p, 6k,
+6kn, 6a, 6r, 6x, 8, 8b, 8f and 8r with the trainer's profiler hook
+(``profile_dir``), and the requests of phases 5, 5b, 5r, 5p, 9, 9n, 7r
+and 7t served a second time, after the timed run:
 DIR/<phase>/kernels.txt and summary.json, and the top kernels by device
-time are printed; for 5, 5b and 5r also the 3^3 forwards' shapes and
+time are printed; for 5, 5b, 5r and 5p also the 3^3 forwards' shapes and
 counts.
 """
 
@@ -616,13 +645,16 @@ FLAGSHIP = dict(
     weight=[0.5] + [1.0] * 15, rlt=1, optimizer="adamw", base_lr=1e-3,
     betas=[0.9, 0.999], weight_decay=0.05, ema=True, ema_alpha=0.99,
     remat=True, synthetic_cases=3, synthetic_shape=[192, 192, 192],
-    epochs=1, iter_per_epoch=6, print_freq=1, val_freq=2)
+    epochs=1, iter_per_epoch=4, print_freq=1, val_freq=2)
 TRAIN_BATCH = 2
 #: phase 6v: the flagship recipe on five 130^3 volumes, fold 0 of 5 (one
 #: test volume), two steps, then the EMA model's evaluation by 128^3
 #: sliding window: 8 windows (two a side: starts 0 and 2), 2 forwards at
 #: the auto window batch of 4; the host distances, most of the phase,
-#: scale with the volume (17-24 s of them at 160^3, 10.4 at 136^3)
+#: scale with the volume (17-24 s of them at 160^3, 8-10 at 130^3), and
+#: 130^3 is about the least it can be: a test volume is padded to the crop
+#: plus 2 in y and x (``pad_to_training_size``), 130 x 130 x 130 for a 130
+#: x 64 x 64 one (PR 20, call 1)
 FLAGSHIP_VAL = dict(
     FLAGSHIP, synthetic_cases=5, k_fold=5, synthetic_shape=[130, 130, 130],
     iter_per_epoch=2, epochs=1, val_freq=1, sliding_window=True,
@@ -641,6 +673,11 @@ VAL_DICE_ATOL = 1e-3
 #: steps left out of the step-time median (first use of every kernel and
 #: of cuDNN's algorithm search)
 WARMUP_STEPS = 2
+#: phase 6p: the flagship recipe with ``proj_type: linear`` and dropouts
+#: of 0.1 (the map-to-feature attention and the feature output of every
+#: B-MHA block), 3 steps
+FLAGSHIP_LINEAR = dict(FLAGSHIP, proj_type="linear", attn_drop=0.1,
+                       proj_drop=0.1, iter_per_epoch=WARMUP_STEPS + 1)
 
 #: the model and inference keys of configs/amos_ct/medformer_3d.yaml
 AMOS = dict(
@@ -679,6 +716,14 @@ RESUNET_NORMS = 42
 #: phase 6r: the recipe as shipped on phase 6's synthetic corpus (3 x
 #: 192^3, all three training volumes), fp32, batch 2, RESUNET_STEPS steps
 RESUNET_STEPS = WARMUP_STEPS + 2
+#: phase 6x: the recipe with Bottleneck blocks (mid widths 16-160: the
+#: 3^3 convs up to 128 wide on the TF32 route), 3 steps
+RESUNET_BOTTLENECK = dict(RESUNET, block="Bottleneck")
+BOTTLENECK_STEPS = WARMUP_STEPS + 1
+#: phase 5p: AMOS-CT MedFormer-3D with ``proj_type: linear`` (the B-MHA's
+#: and PatchMerging's 1x1 projections, FusedMBConv feed-forwards) served
+#: with Gaussian window fusion
+LINEAR_GAUSSIAN = dict(AMOS, proj_type="linear", window_fusion="gaussian")
 #: phase 4u: the rest of the 3D zoo at small widths (base 8: widths 8-80,
 #: multiples of 8, so the UNet family's 3^3 convs take the TF32 route;
 #: UNETR at hidden 96, 3 heads, MLP 192, feature size 16), card vs CPU on
@@ -779,9 +824,10 @@ ACDC_SU = dict(dataset="acdc", model="swinunet", dimension="2d", classes=4,
 #: window-attention launches per SwinUnet forward: 12 encoder blocks and 10
 #: decoder blocks (the decoder reuses the encoder's depths)
 SU_ATTENTIONS = 22
-#: phases 9t and 9ut: the BCV recipes as shipped (SwinUNETR: 128^3 crops;
-#: VT-UNet: 64 x 128 x 128, stochastic depth 0.1), fp32, batch 2, BCV_STEPS
-#: steps on 5 written HU-like cases (abdominal CT resampled to about 1.5
+#: phases 9t, 9ut and 9nt: the BCV recipes as shipped (SwinUNETR: 128^3
+#: crops; VT-UNet: 64 x 128 x 128, stochastic depth 0.1; nnFormer), fp32,
+#: batch 2, BCV_STEPS steps (the median is the second's: 4 before PR 20)
+#: on 5 written HU-like cases (abdominal CT resampled to about 1.5
 #: mm: 140-150 slices of 180-190^2), fold 0 of 5; val_freq (50, 10) is
 #: above the one epoch
 BCV_CASES = [((144, 184, 184), (1.5, 1.5, 1.5)),
@@ -789,7 +835,7 @@ BCV_CASES = [((144, 184, 184), (1.5, 1.5, 1.5)),
              ((150, 180, 186), (1.5, 1.5, 1.5)),
              ((146, 186, 190), (1.5, 1.5, 1.5)),
              ((142, 182, 184), (1.5, 1.5, 1.5))]
-BCV_STEPS = WARMUP_STEPS + 2
+BCV_STEPS = 2
 BCV_NAMES = [f"img{i:04d}" for i in range(1, len(BCV_CASES) + 1)]
 
 #: the model and inference keys of configs/acdc/medformer_2d.yaml, on the
@@ -803,12 +849,13 @@ ACDC = dict(
     fusion_dim=512, fusion_heads=16, attn_drop=0.0, proj_drop=0.0,
     proj_type="depthwise", aux_loss=True, training_size=[256, 256],
     conv2d_kernel=True)
-#: two cine-MR requests (z, y, x shape, z, y, x spacing) at the target
-#: in-plane spacing 1.5625 mm: one on it (224 x 240, padded to 258^2: four
-#: overlapping 256^2 windows), one resampled from 1.25 mm to 16 x 304 x 336
-#: (four windows)
-REQUESTS_2D = [((10, 224, 240), (10.0, 1.5625, 1.5625)),
-               ((16, 380, 420), (10.0, 1.25, 1.25))]
+#: the 2D serving phases' cine-MR request (z, y, x shape, z, y, x
+#: spacing) at the target in-plane spacing 1.5625 mm: 224 x 240, padded to
+#: 258^2: four overlapping 256^2 windows.  A second request, resampled
+#: from 1.25 mm to 16 x 304 x 336 (its host resampling, 1.2-1.4 s a phase,
+#: and no other model shape), left phases 7, 7b and 7s in PR 20 to make
+#: room for phases 4x, 5p, 6p and 6x within the script's time
+REQUESTS_2D = [((10, 224, 240), (10.0, 1.5625, 1.5625))]
 TARGET_SPACING_2D = "1.5625,1.5625"
 
 #: the ACDC training recipe (configs/acdc/medformer_2d.yaml: 4 classes,
@@ -871,6 +918,27 @@ SMALL_ZOO_2D = (
                        mlp_dim=192, num_layers=2, transunet_num_heads=3,
                        dropout_rate=0.0)))
 SMALL_ZOO_2D_SHAPE = (2, 1, 64, 64)
+#: phase 4x: the blocks and options the port takes since A6c at small
+#: widths, card vs CPU: UNet-3D with FusedMBConv blocks and LayerNorm (its
+#: 3^3 expansions on the TF32 route, no InstanceNorm), phase 4's
+#: MedFormer-3D with SiLU (the InstanceNorm kernels with act none, SiLU
+#: after), ``proj_type: linear`` and dropouts of 0.1 (masks fixed on both
+#: sides; no remat, so one forward draws them once), and UNet-2D with
+#: Bottleneck blocks on the 3x3 kernel route (their mid width 4 at base 8
+#: takes the CUDA-core route); (name, config, input shape: batch 1, their
+#: CPU references computed beside phase 3 at about 3 s each)
+SMALL_OPTIONS = (
+    ("UNet-3D FusedMBConv LN",
+     dict(ZOO_BASE, model="unet", block="FusedMBConv", norm="ln"),
+     (1, 1, 16, 32, 32)),
+    ("MedFormer-3D linear SiLU dropout",
+     dict(SMALL, act="silu", proj_type="linear", attn_drop=0.1,
+          proj_drop=0.1, remat=False), (1, 1, 32, 32, 32)),
+    ("UNet-2D Bottleneck",
+     dict(ZOO2D_BASE, model="unet", block="Bottleneck"), (1, 1, 64, 64)))
+#: and a ConvNeXtBlock alone (7^3 depthwise, 32 channels: the residual),
+#: which no factory builds: its input (B, C, D, H, W)
+CONVNEXT_SHAPE = (2, 32, 16, 16, 16)
 
 #: phase 6k: configs/kits/medformer_3d.yaml as shipped (MedFormer-3D, base
 #: 32, ReLU, 3 classes, 128^3 crops, remat, the KiTS recipe with its 60-voxel
@@ -886,11 +954,12 @@ KITS_CASES = [((160, 160, 160), (0.78, 0.78, 0.78)),
               ((170, 150, 165), (0.78, 0.78, 0.78)),
               ((160, 165, 150), (0.78, 0.78, 0.78)),
               ((155, 160, 170), (0.78, 0.78, 0.78))]
-KITS_STEPS = WARMUP_STEPS + 2
+KITS_STEPS = WARMUP_STEPS + 1
 #: phase 6kn: the same recipe with ``conv_na: true``, every one of its 16
-#: kernel convs a fused preact conv (both the median of the 2 steps after
-#: warm-up: 6k's 4 went to make room for phases 4u, 5r and 6r)
-KITS_NA_STEPS = WARMUP_STEPS + 2
+#: kernel convs a fused preact conv (both the step after warm-up: 6k's 4
+#: went to make room for phases 4u, 5r and 6r, and the third of 6k's and
+#: 6kn's 4 for phases 4x, 5p, 6p and 6x in PR 20)
+KITS_NA_STEPS = WARMUP_STEPS + 1
 #: the KiTS MedFormer-3D's 3^3 convs on the kernel route (ConvNormAct 3^3,
 #: C_in <= 192, C_out <= 128): 2 in inc, 4 in down1, 5 in up3, 5 in up4,
 #: every width a multiple of 8.  A fp32 step launches, per conv, two
@@ -907,9 +976,9 @@ ACDC3D_CASES = [((10, 232, 216), (10.0, 1.5625, 1.5625)),
                 ((8, 224, 270), (10.0, 1.5625, 1.5625)),
                 ((11, 216, 200), (10.0, 1.5625, 1.5625)),
                 ((10, 256, 232), (10.0, 1.5625, 1.5625))]
-#: (the median of 2 steps after warm-up, cut from 4 to keep the script
-#: within its time)
-ACDC3D_STEPS = WARMUP_STEPS + 2
+#: (the step after warm-up: cut from 6 to 4 and in PR 20 to 3 to keep the
+#: script within its time)
+ACDC3D_STEPS = WARMUP_STEPS + 1
 ACDC3D_NAMES = [f"patient{i:03d}" for i in range(1, len(ACDC3D_CASES) + 1)]
 #: phases 6k and 6a: batches timed alone after the run (the data path's
 #: cost a step, beside the step that the trainer overlaps it with)
@@ -947,8 +1016,10 @@ def say(msg: str) -> None:
 
 
 def iters_for(flops_or_bytes: float, per_ms: float) -> int:
-    """Enough calls for ~50 ms of work, at least 3."""
-    return max(3, min(200, int(50 * per_ms / max(flops_or_bytes, 1.0))))
+    """Enough calls for ~25 ms of work (50 before PR 20, which halved it to
+    make room for its phases; CUDA events time 25 ms to well under 0.1 %),
+    at least 3."""
+    return max(3, min(200, int(25 * per_ms / max(flops_or_bytes, 1.0))))
 
 
 def plain_iters(n: int) -> int:
@@ -2081,7 +2152,7 @@ def cpu_eval(cfg_dict, shape):
 def cpu_step(cfg_dict, shape, dtype: str = "float32"):
     """The CPU's train step (plain versions) of seeded weights 3 on
     ``step_batch``, in fp32 or fp64, without remat (the same function, one
-    forward fewer); VNet's dropout masks fixed (``fixed_dropout_masks``)."""
+    forward fewer); dropout masks fixed (``fixed_dropout_masks``)."""
     import torch
     from cbim_tpu_torch.config import config_from_dict
     key = _ref_key(cfg_dict, shape, dtype)
@@ -2092,12 +2163,69 @@ def cpu_step(cfg_dict, shape, dtype: str = "float32"):
             # before the step's train-mode forward moves the statistics
             SEEDED.setdefault(_ref_key(cfg_dict, (), 3), {
                 k: v.clone() for k, v in model.state_dict().items()})
-        masks = (fixed_dropout_masks() if cfg.model == "vnet"
-                 else contextlib.nullcontext())
-        with masks:
+        with fixed_dropout_masks():
             CPU_STEPS[key] = run_step(model, torch.device("cpu"),
                                       *step_batch(cfg, shape))
     return CPU_STEPS[key]
+
+
+def convnext_case():
+    """Phase 4x's ConvNeXtBlock on the CPU (seeded weights, its layer scale
+    drawn from U(0.5, 1.5) so that the MLP counts beside the residual),
+    its input and the output's cotangent."""
+    import torch
+    from cbim_tpu_torch.models import init_weights
+    from cbim_tpu_torch.models.layers.convs import ConvNeXtBlock
+    gen = torch.Generator().manual_seed(6)
+    block = ConvNeXtBlock(CONVNEXT_SHAPE[1], CONVNEXT_SHAPE[1], nd=3)
+    init_weights(block, gen)
+    with torch.no_grad():
+        block.gamma.uniform_(0.5, 1.5, generator=gen)
+    x = torch.randn(*CONVNEXT_SHAPE, generator=gen)
+    return block, x, torch.randn(*CONVNEXT_SHAPE, generator=gen)
+
+
+def convnext_step(block, x, g):
+    """(output, {name: gradient in fp64 on the CPU}, x's gradient) of
+    ``sum(block(x) * g)``."""
+    x = x.clone().requires_grad_()
+    y = block(x)
+    (y * g).sum().backward()
+    grads = {k: p.grad.cpu().double() for k, p in block.named_parameters()}
+    grads["input"] = x.grad.cpu().double()
+    return y.detach().cpu(), grads
+
+
+def cpu_convnext():
+    """``convnext_step`` of ``convnext_case`` on the CPU, computed once."""
+    if "convnext" not in CPU_STEPS:
+        CPU_STEPS["convnext"] = convnext_step(*convnext_case())
+    return CPU_STEPS["convnext"]
+
+
+def phase_convnext(device) -> tuple[float, float]:
+    """Phase 4x's ConvNeXtBlock, card (in channels_last_3d memory, its
+    depthwise weight contiguous, as ``get_model`` keeps grouped 3D
+    weights) vs CPU: (the output's max error over max|ref|, the gradients'
+    relative L2 error, the input's included)."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    block, x, g = convnext_case()
+    ref_y, ref_grads = cpu_convnext()
+    block = block.to(device, memory_format=torch.channels_last_3d)
+    block.dwconv.weight.data = block.dwconv.weight.data.clone(
+        memory_format=torch.contiguous_format)
+    y, grads = convnext_step(
+        block, x.to(device).contiguous(memory_format=torch.channels_last_3d),
+        g.to(device))
+    err = float((y - ref_y).abs().max() / ref_y.abs().max())
+    l2 = math.sqrt(sum(float((grads[k] - r).square().sum())
+                       for k, r in ref_grads.items())
+                   / sum(float(r.square().sum()) for r in ref_grads.values()))
+    assert torch.isfinite(y).all() and err <= MODEL_PROB_ATOL, err
+    assert l2 <= STEP_GRAD_L2, l2
+    return err, l2
 
 
 def small_references() -> list:
@@ -2122,6 +2250,14 @@ def small_references() -> list:
     return refs
 
 
+def option_references() -> list:
+    """The CPU references phase 4x asks for, as (function, args)."""
+    refs = []
+    for _, small, shape in SMALL_OPTIONS:
+        refs += [(cpu_eval, (small, shape)), (cpu_step, (small, shape))]
+    return refs + [(cpu_convnext, ())]
+
+
 def write_corpora() -> dict:
     """The NIfTI corpora that phases 6k/6kn (KiTS), 6a (ACDC-3D) and
     9t-9nt (BCV) train on, written under WORK; returns the seconds of
@@ -2142,35 +2278,38 @@ def write_corpora() -> dict:
 
 
 def prefetch_host_work():
-    """Host work that needs no card, in a thread while phases 3 and 3a keep
-    the card busy and the host's cores idle: ``small_references`` (on the
-    CPU, most of phases 4-4z), with one core left to the main thread's
-    launches, then the serving phases' requests (``requests_dir``) and
-    ``write_corpora``.  Returns (wait for the references, restoring the
+    """Host work that needs no card, in a thread while the card is busy:
+    ``small_references`` (on the CPU, most of phases 4-4z) beside phases 3
+    and 3a, with one core left to the main thread's launches, then
+    ``option_references`` (phase 4x's) beside phases 4-4z, then the serving
+    phases' requests (``requests_dir``) and ``write_corpora``.  Returns
+    (wait for phases 4-4z's references; wait for phase 4x's, restoring the
     thread count; wait for the rest): each re-raises what failed and
     returns the seconds taken so far, by part."""
     import threading
     import torch
     threads = torch.get_num_threads()
     torch.set_num_threads(max(1, threads - 1))
-    refs_done = threading.Event()
+    done = {name: threading.Event() for name in ("references", "options")}
     failed, took = [], {}
 
     def run():
-        try:
-            t0 = time.perf_counter()
-            for fn, args in small_references():
-                fn(*args)
-            took["references"] = round(time.perf_counter() - t0, 1)
-        except BaseException as e:        # re-raised by the waiters
-            failed.append(e)
-        finally:
-            refs_done.set()
+        for name, refs in (("references", small_references),
+                           ("options", option_references)):
+            try:
+                if not failed:
+                    t0 = time.perf_counter()
+                    for fn, args in refs():
+                        fn(*args)
+                    took[name] = round(time.perf_counter() - t0, 1)
+            except BaseException as e:        # re-raised by the waiters
+                failed.append(e)
+            finally:
+                done[name].set()
         if not failed:
             try:
                 t0 = time.perf_counter()
-                for requests, mr in ((REQUESTS, False), (REQUESTS_2D, True),
-                                     (REQUESTS_2D[:1], True)):
+                for requests, mr in ((REQUESTS, False), (REQUESTS_2D, True)):
                     requests_dir(requests, mr)
                 took["requests"] = round(time.perf_counter() - t0, 1)
                 took.update(write_corpora())
@@ -2180,12 +2319,15 @@ def prefetch_host_work():
     worker = threading.Thread(target=run, name="host-work", daemon=True)
     worker.start()
 
-    def wait_references() -> dict:
-        refs_done.wait()
-        torch.set_num_threads(threads)
-        if failed:
-            raise failed[0]
-        return took
+    def waiter(name, restore=False):
+        def wait() -> dict:
+            done[name].wait()
+            if restore:
+                torch.set_num_threads(threads)
+            if failed:
+                raise failed[0]
+            return took
+        return wait
 
     def wait_corpora() -> dict:
         worker.join()
@@ -2193,7 +2335,8 @@ def prefetch_host_work():
             raise failed[0]
         return took
 
-    return wait_references, wait_corpora
+    return (waiter("references"), waiter("options", restore=True),
+            wait_corpora)
 
 
 def phase_small_model(device, cfg_dict, shape) -> float:
@@ -2446,31 +2589,50 @@ def requests_dir(requests, mr: bool = False) -> str:
     return REQUEST_DIRS[key]
 
 
+#: the config keys that pick kernels or the fusion, not the model's
+#: parameters; and the serving phases' seeded weights by the rest of the
+#: config: (file, model class, its InstanceNorms)
+ROUTE_KEYS = ("conv_na", "conv2d_kernel", "window_fusion")
+SERVED_WEIGHTS: dict = {}
+
+
 def phase_slice(device, cfg_dict, requests, target_spacing, name: str,
                 required, profile_dir: str | None = None) -> dict:
     """Phases 5, 7 and 9: serve ``requests`` with seeded weights through
     prediction; the launch counters and a count of the model's forwards are
     zeroed just before and read just after, and every kernel in
     ``required`` must have launched.  With ``profile_dir``, the requests
-    are served once more under the profiler hook, a volume to a step."""
+    are served once more under the profiler hook, a volume to a step.
+    Returns the seconds by request, the launches, the model's forwards,
+    the peak memory, the profiled 3^3 forwards by shape and the model's
+    InstanceNorms (``norms``)."""
     import numpy as np
     import torch
     from cbim_tpu_torch import prediction
     from cbim_tpu_torch.config import config_from_dict
     from cbim_tpu_torch.data.nifti import read_nifti
     from cbim_tpu_torch.models import get_model
+    from cbim_tpu_torch.models.layers import convs
     from cbim_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
     in_dir = requests_dir(requests, mr=cfg_dict["dimension"] == "2d")
     out_dir = os.path.join(WORK, name, "out")
     cfg = config_from_dict(cfg_dict)
-    weights = os.path.join(WORK, name, f"{cfg.model}_seed0.pth")
-    os.makedirs(os.path.dirname(weights), exist_ok=True)
-    model = get_model(cfg, device="cpu",
-                      generator=torch.Generator().manual_seed(0))
-    torch.save(model.state_dict(), weights)
-    model_cls = type(model)
-    del model
+    key = _ref_key({k: v for k, v in cfg_dict.items()
+                    if k not in ROUTE_KEYS}, ())
+    if key not in SERVED_WEIGHTS:
+        # seeded weights on the CPU, written once per model (a route key
+        # changes the kernels, not the parameters)
+        weights = os.path.join(WORK, name, f"{cfg.model}_seed0.pth")
+        os.makedirs(os.path.dirname(weights), exist_ok=True)
+        model = get_model(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+        torch.save(model.state_dict(), weights)
+        SERVED_WEIGHTS[key] = (weights, type(model), sum(
+            1 for m in model.modules()
+            if isinstance(m, convs.Norm) and m.kind == "in"))
+        del model
+    weights, model_cls, n_norm = SERVED_WEIGHTS[key]
     argv = ["--dataset", cfg.dataset, "--model", cfg.model,
             "--dimension", cfg.dimension, "--load", weights, "--img_path",
             in_dir, "--save_path", out_dir, "--target_spacing",
@@ -2509,7 +2671,7 @@ def phase_slice(device, cfg_dict, requests, target_spacing, name: str,
             prediction.main(argv, cfg=cfg)
             prof.stop(len(requests))
     return {"seconds": seconds, "launches": counts, "forwards": len(forwards),
-            "peak_bytes": peak, "conv_shapes": shapes}
+            "peak_bytes": peak, "conv_shapes": shapes, "norms": n_norm}
 
 
 @contextlib.contextmanager
@@ -2642,6 +2804,40 @@ def label_agreement(dir_a: str, dir_b: str) -> float:
         same += int(np.count_nonzero(a == b))
         total += a.size
     return same / total
+
+
+@contextlib.contextmanager
+def gaussian_sweeps():
+    """While inside: the first 3D sliding window of a Gaussian-fusion
+    engine is recorded (the engine, its input, its argmax labels); yields
+    the list of them.  ``uniform_agreement`` sweeps them again later."""
+    from cbim_tpu_torch.inference import engines
+    real = engines.InferenceEngine.sliding_window
+    seen = []
+
+    def recorded(self, img):
+        probs = real(self, img)
+        if self.fusion == "gaussian" and not seen:
+            seen.append((self, img, probs.argmax(-1)))
+        return probs
+
+    engines.InferenceEngine.sliding_window = recorded
+    try:
+        yield seen
+    finally:
+        engines.InferenceEngine.sliding_window = real
+
+
+def uniform_agreement(sweeps) -> float:
+    """The share of voxels whose label under a recorded Gaussian sweep is
+    the same model's label under uniform fusion (the same windows)."""
+    from cbim_tpu_torch.inference import engines
+    (engine, img, labels), = sweeps
+    uniform = engines.InferenceEngine(
+        engine.apply_fn, engine.num_classes, engine.window_size,
+        window_batch=engine.window_batch, fusion="uniform")
+    same = uniform.sliding_window(img).argmax(-1) == labels
+    return float(same.float().mean())
 
 
 def say_serving(res: dict) -> None:
@@ -2955,10 +3151,11 @@ def pipeline_recorder():
 @contextlib.contextmanager
 def drop_path_recorder():
     """While inside: the stochastic-depth draws of training-mode forwards
-    (calls of ``swin_layers.drop_path``) and the samples they dropped."""
-    from cbim_tpu_torch.models import swin_layers
+    (calls of ``layers.convs.drop_path``, which ``DropPath`` calls) and the
+    samples they dropped."""
+    from cbim_tpu_torch.models.layers import convs
     seen = {"calls": 0, "dropped": 0}
-    real = swin_layers.drop_path
+    real = convs.drop_path
 
     def counted(x, p, keep):
         seen["calls"] += 1
@@ -2966,23 +3163,51 @@ def drop_path_recorder():
         seen["dropped"] = seen["dropped"] + (~keep).sum()
         return real(x, p, keep)
 
-    swin_layers.drop_path = counted
+    convs.drop_path = counted
     try:
         yield seen
     finally:
-        swin_layers.drop_path = real
+        convs.drop_path = real
+        seen["dropped"] = int(seen["dropped"])
+
+
+@contextlib.contextmanager
+def dropout_recorder():
+    """While inside: the elementwise dropout draws of training-mode
+    forwards (``layers.convs.Dropout.keep_mask``) and the elements they
+    dropped, over the elements drawn."""
+    from cbim_tpu_torch.models.layers import convs
+    seen = {"calls": 0, "dropped": 0, "drawn": 0}
+    real = convs.Dropout.keep_mask
+
+    def counted(self, x):
+        keep = real(self, x)
+        seen["calls"] += 1
+        seen["drawn"] += keep.numel()
+        # summed on the device: no sync inside the timed steps
+        seen["dropped"] = seen["dropped"] + (~keep).sum()
+        return keep
+
+    convs.Dropout.keep_mask = counted
+    try:
+        yield seen
+    finally:
+        convs.Dropout.keep_mask = real
         seen["dropped"] = int(seen["dropped"])
 
 
 @contextlib.contextmanager
 def fixed_dropout_masks():
-    """While inside: VNet's ``ChannelDropout`` keeps whole channels by masks
-    drawn on the CPU from the call's index within a forward (of
-    VNET_DROPOUTS) and its shape, the same on the card and the CPU."""
+    """While inside: VNet's ``ChannelDropout`` keeps whole channels, and
+    ``Dropout`` elements, by masks drawn on the CPU from the call's index
+    within a forward (VNet's of VNET_DROPOUTS; a Dropout's from the
+    context's start, so one forward a context: no remat) and its shape, the
+    same on the card and the CPU."""
     import torch
     from cbim_tpu_torch.models import vnet
-    calls = [0]
-    real = vnet.ChannelDropout.keep_mask
+    from cbim_tpu_torch.models.layers import convs
+    calls, drops = [0], [0]
+    real, real_drop = vnet.ChannelDropout.keep_mask, convs.Dropout.keep_mask
 
     def keep_mask(self, x):
         gen = torch.Generator().manual_seed(100 + calls[0] % VNET_DROPOUTS)
@@ -2990,11 +3215,19 @@ def fixed_dropout_masks():
         u = torch.rand(tuple(x.shape[:2]), generator=gen)
         return (u < 1.0 - self.p)[:, :, None, None, None].to(x.device)
 
+    def drop_mask(self, x):
+        gen = torch.Generator().manual_seed(200 + drops[0])
+        drops[0] += 1
+        return (torch.rand(tuple(x.shape), generator=gen)
+                < 1.0 - self.p).to(x.device)
+
     vnet.ChannelDropout.keep_mask = keep_mask
+    convs.Dropout.keep_mask = drop_mask
     try:
         yield calls
     finally:
         vnet.ChannelDropout.keep_mask = real
+        convs.Dropout.keep_mask = real_drop
 
 
 def routed_counts(cfg_dict) -> tuple[collections.Counter, int]:
@@ -3055,10 +3288,10 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="trace phases 6, 6b, 6k, 6kn, 6a, 6r, 8, 8b, 8f "
-                             "and 8r's steady steps, and the requests of "
-                             "phases 5, 5b, 5r, 9, 9n, 7r and 7t served "
-                             "again, into DIR")
+                        help="trace phases 6, 6b, 6p, 6k, 6kn, 6a, 6r, 6x, "
+                             "8, 8b, 8f and 8r's steady steps, and the "
+                             "requests of phases 5, 5b, 5r, 5p, 9, 9n, 7r "
+                             "and 7t served again, into DIR")
     args = parser.parse_args(argv)
 
     def profile_dir(name):
@@ -3106,7 +3339,7 @@ def main(argv=None) -> int:
                     for k, v in ptxas_report(_build.build_log, key).items()))
 
     record: dict = {}
-    wait_references, wait_corpora = prefetch_host_work()
+    wait_references, wait_options, wait_corpora = prefetch_host_work()
     say("[phase 3] kernels vs plain versions")
     took = {}
     for part, fn, fn_args in (
@@ -3386,6 +3619,60 @@ def main(argv=None) -> int:
         launches[f"4z {name}"] = counts
 
     t_wait = time.perf_counter()
+    took = wait_options()
+    say(f"  the CPU references of phase 4x, computed beside phases 4-4z in "
+        f"{took['options']} s, ready after "
+        f"{time.perf_counter() - t_wait:.1f} s more")
+    for name, small, shape in SMALL_OPTIONS:
+        say(f"[phase 4x] small {name}, card vs CPU")
+        fwd, n_norm = routed_counts(small)
+        kernels = CONV2D_KERNELS if small["dimension"] == "2d" \
+            else CONV3D_KERNELS
+        reset_launch_counts()
+        err = phase_small_model(device, small, shape)
+        counts = launch_counts()
+        say(f"  eval, {shape} softmax max abs err {err:.3e} (tol "
+            f"{MODEL_PROB_ATOL}); conv launches "
+            f"{ {k: counts[k] for k in kernels if counts[k]} }, "
+            f"{counts['inorm_stats']} inorm_stats, {counts['inorm_apply']} "
+            f"inorm_apply")
+        # fp32: every routed conv one forward of its route, every
+        # InstanceNorm one stats and one apply (SiLU: act none, SiLU after)
+        assert all(counts[k] == fwd[k] for k in kernels) and \
+            counts["inorm_stats"] == counts["inorm_apply"] == n_norm, \
+            (counts, fwd, n_norm)
+        reset_launch_counts()
+        with fixed_dropout_masks():
+            loss_err, l2_err, grad_err = phase_small_train_step(
+                device, small, shape)
+        counts = launch_counts()
+        say(f"  train step, fp32: loss rel err {loss_err:.3e} (tol "
+            f"{STEP_LOSS_RTOL:.0e}); gradient rel L2 err {l2_err:.3e} (tol "
+            f"{STEP_GRAD_L2:.0e}); worst tensor err {grad_err:.3e} of its "
+            f"scale (tol {STEP_GRAD_RTOL:.0e}); conv launches "
+            f"{ {k: counts[k] for k in kernels if counts[k]} }")
+        # each routed conv its forward, dgrad and wgrad on its route; each
+        # InstanceNorm its backward pair
+        for fk, n in fwd.items():
+            route = (TF322D_KERNELS if fk == "conv2d_same_fwd_tf32" else
+                     CORE2D_KERNELS if fk == "conv2d_same_fwd" else
+                     TF32_CONV_KERNELS if fk == "conv3d_same_fwd_tf32"
+                     else CORE_CONV_KERNELS)
+            assert all(counts[k] == n for k in route), (counts, fwd)
+        assert counts["inorm_bwd_stats"] == counts["inorm_bwd_apply"] == \
+            n_norm, (counts, n_norm)
+        launches[f"4x {name}"] = counts
+    say("[phase 4x] a ConvNeXtBlock alone (7^3 depthwise, 32 channels), card "
+        "vs CPU")
+    reset_launch_counts()
+    err, l2_err = phase_convnext(device)
+    say(f"  {CONVNEXT_SHAPE} fp32: output max err {err:.3e} of max|ref| (tol "
+        f"{MODEL_PROB_ATOL}); one step's gradients (input included) rel L2 "
+        f"err {l2_err:.3e} (tol {STEP_GRAD_L2:.0e}); no kernel launch "
+        f"(cuDNN's depthwise conv, torch's LayerNorm and GEMMs)")
+    assert not any(launch_counts().values()), launch_counts()
+
+    t_wait = time.perf_counter()
     took = wait_corpora()
     say(f"  the requests and the KiTS, ACDC-3D and BCV cases written beside "
         f"the earlier phases (seconds: {took}), ready after "
@@ -3448,12 +3735,39 @@ def main(argv=None) -> int:
     say_served_profile(args.profile, "serve_resunet", res)
     launches["5r"] = counts
 
+    say("[phase 5p] phase 5's request with proj_type: linear and "
+        "window_fusion: gaussian")
+    with gaussian_sweeps() as sweeps:
+        res = phase_slice(device, LINEAR_GAUSSIAN, REQUESTS, TARGET_SPACING,
+                          "serve3d_linear", FORWARD_KERNELS,
+                          profile_dir("serve3d_linear"))
+    say_serving(res)
+    counts, fw = res["launches"], res["forwards"]
+    agreement = uniform_agreement(sweeps)
+    del sweeps
+    # the 1x1 projections and the FusedMBConv feed-forwards take no 3^3
+    # kernel: the BasicBlocks' 20 TF32 forwards a forward, as in phase 5;
+    # every InstanceNorm one stats and one apply a forward
+    n_norm = res["norms"]
+    say(f"  per forward: {counts['conv3d_same_fwd_tf32'] / fw:g} "
+        f"conv3d_same_fwd_tf32, {counts['inorm_stats'] / fw:g} inorm_stats, "
+        f"{counts['inorm_apply'] / fw:g} inorm_apply ({fw} forwards); "
+        f"labels equal to the same model's under uniform fusion on "
+        f"{100 * agreement:.4f} % of the swept voxels (printed, not held)")
+    assert fw > 0 and counts["conv3d_same_fwd_tf32"] == NA_CONVS * fw and \
+        counts["inorm_stats"] == counts["inorm_apply"] == n_norm * fw and \
+        not any(counts[k] for k in CONV3D_KERNELS
+                if k != "conv3d_same_fwd_tf32"), f"{counts} in {fw} forwards"
+    say_served_profile(args.profile, "serve3d_linear", res)
+    launches["5p"] = counts
+
     say("[phase 6] flagship MedFormer-3D training, bf16, remat all, "
         f"batch {TRAIN_BATCH}, {FLAGSHIP['iter_per_epoch']} steps")
     tr = phase_train(device, profiled(FLAGSHIP, "flagship"), TRAIN_BATCH,
                      "flagship",
                      ("inorm_stats", "inorm_apply", "inorm_bwd_stats",
-                      "inorm_bwd_apply") + TC_CONV_KERNELS)
+                      "inorm_bwd_apply") + TC_CONV_KERNELS,
+                     min_steps=FLAGSHIP["iter_per_epoch"])
     say_train(tr, "volumes")
     say("  (the launches include the forward that remat recomputes)")
     # every 3^3 conv of the bf16 step on the tensor-core route: per step
@@ -3475,7 +3789,7 @@ def main(argv=None) -> int:
                         "flagship_na",
                         ("inorm_stats", "inorm_apply", "inorm_bwd_stats",
                          "inorm_bwd_apply", "conv3d_dgrad_tc")
-                        + NA_TC_KERNELS)
+                        + NA_TC_KERNELS, min_steps=FLAGSHIP["iter_per_epoch"])
     say_train(tr_na, "volumes")
     counts, steps = tr_na["launches"], len(tr_na["step_seconds"])
     # every fused conv on the tensor-core pair (40 forwards with remat, 20
@@ -3497,6 +3811,35 @@ def main(argv=None) -> int:
         ms, plain_ms, lib_ms = record[key]
         say(f"  {key} at {CONV_RECORD}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, cuDNN {lib_ms:.3f} ms")
+
+    say("[phase 6p] the flagship recipe with proj_type: linear, attn_drop "
+        "0.1 and proj_drop 0.1, bf16, remat all")
+    with dropout_recorder() as drops:
+        tr_p = phase_train(device, profiled(FLAGSHIP_LINEAR, "flagship_linear"),
+                           TRAIN_BATCH, "flagship_linear",
+                           ("inorm_stats", "inorm_apply", "inorm_bwd_stats",
+                            "inorm_bwd_apply") + TC_CONV_KERNELS,
+                           min_steps=FLAGSHIP_LINEAR["iter_per_epoch"])
+    say_train(tr_p, "volumes")
+    say(f"  {drops['calls']} dropout draws (the forwards and remat's "
+        f"recomputes), {100 * drops['dropped'] / max(drops['drawn'], 1):.2f} "
+        f"% of {drops['drawn']} elements dropped")
+    counts, steps = tr_p["launches"], len(tr_p["step_seconds"])
+    # the same 20 BasicBlock convs as phase 6 on the tensor-core route (the
+    # 1x1 projections and FusedMBConv feed-forwards take none)
+    want = dict(conv3d_same_fwd_tc=2 * NA_CONVS * steps,
+                conv3d_dgrad_tc=NA_CONVS * steps,
+                conv3d_wgrad_tc=NA_CONVS * steps,
+                **{k: 0 for k in CORE_CONV_KERNELS})
+    assert drops["calls"] > 0 and steps == FLAGSHIP_LINEAR["iter_per_epoch"] \
+        and all(counts[k] == v for k, v in want.items()), (counts, want)
+    say(f"  linear with dropout vs depthwise (phase 6): {tr_p['median']:.3f} "
+        f"vs {tr['median']:.3f} s/step, peak "
+        f"{tr_p['peak_bytes'] / 2 ** 30:.2f} vs "
+        f"{tr['peak_bytes'] / 2 ** 30:.2f} GiB")
+    if args.profile:
+        say_profile(os.path.join(args.profile, "flagship_linear"))
+    launches["6p"] = counts
 
     say("[phase 6v] the flagship recipe validating: 2 steps on five 130^3 "
         "volumes, then the EMA model's 128^3 sliding-window evaluation")
@@ -3639,7 +3982,49 @@ def main(argv=None) -> int:
         say_profile(os.path.join(args.profile, "resunet"))
     launches["6r"] = counts
 
-    say("[phase 7] ACDC MedFormer-2D serving 2 NIfTI requests (slice batch)")
+    say("[phase 6x] the AMOS-CT ResUNet-3D recipe with block: Bottleneck, "
+        f"fp32, batch {TRAIN_BATCH}, on phase 6's synthetic corpus")
+    fwd, n_norm = routed_counts(RESUNET_BOTTLENECK)
+    bottleneck = load_config("amos_ct", "resunet", "3d", block="Bottleneck",
+                             synthetic_cases=FLAGSHIP["synthetic_cases"],
+                             synthetic_shape=FLAGSHIP["synthetic_shape"],
+                             k_fold=5, epochs=1,
+                             iter_per_epoch=BOTTLENECK_STEPS, print_freq=1)
+    bottleneck.dataset = "synthetic"
+    if args.profile:
+        bottleneck.profile_dir = profile_dir("resunet_bottleneck")
+    tr = phase_train(device, bottleneck, TRAIN_BATCH, "resunet_bottleneck",
+                     ("inorm_stats", "inorm_apply", "inorm_bwd_stats",
+                      "inorm_bwd_apply") + TF32_CONV_KERNELS, amp=False,
+                     min_steps=BOTTLENECK_STEPS)
+    say_train(tr, "volumes")
+    counts, steps = tr["launches"], len(tr["step_seconds"])
+    n_conv = fwd["conv3d_same_fwd_tf32"]
+    say(f"  per step: {counts['conv3d_same_fwd_tf32'] / steps:g} "
+        f"conv3d_same_fwd_tf32, {counts['conv3d_dgrad_tf32'] / steps:g} "
+        f"conv3d_dgrad_tf32, {counts['conv3d_wgrad_tf32'] / steps:g} "
+        f"conv3d_wgrad_tf32 ({n_conv} routed convs), "
+        f"{counts['inorm_stats'] / steps:g} inorm_stats ({n_norm} norms)")
+    # no remat: per step each routed conv one TF32 forward, dgrad and wgrad
+    # (mid widths 16-128 and the shortcuts up to 128 wide; 160 and the
+    # wide decoder entries on cuDNN), each norm its stats, apply and
+    # backward pair; no tensor-core and no CUDA-core 3^3 launch
+    want = dict(conv3d_same_fwd_tf32=n_conv * steps,
+                conv3d_dgrad_tf32=n_conv * steps,
+                conv3d_wgrad_tf32=n_conv * steps,
+                inorm_stats=n_norm * steps, inorm_bwd_stats=n_norm * steps,
+                inorm_bwd_apply=n_norm * steps,
+                **{k: 0 for k in CONV3D_KERNELS
+                   if k not in TF32_CONV_KERNELS})
+    assert n_conv > 0 and fwd == {"conv3d_same_fwd_tf32": n_conv} and \
+        steps == BOTTLENECK_STEPS and all(counts[k] == v
+                                          for k, v in want.items()), \
+        (counts, want)
+    if args.profile:
+        say_profile(os.path.join(args.profile, "resunet_bottleneck"))
+    launches["6x"] = counts
+
+    say("[phase 7] ACDC MedFormer-2D serving 1 NIfTI request (slice batch)")
     res = phase_slice(device, ACDC, REQUESTS_2D, TARGET_SPACING_2D, "serve2d",
                       ("conv2d_same_fwd_tf32",))
     say_serving(res)
@@ -3653,7 +4038,7 @@ def main(argv=None) -> int:
         f"{counts} in {res['forwards']} forwards"
     launches["7"] = counts
 
-    say("[phase 7b] the same requests with conv2d_kernel off (cuDNN fp32)")
+    say("[phase 7b] the same request with conv2d_kernel off (cuDNN fp32)")
     res_off = phase_slice(device, dict(ACDC, conv2d_kernel=False),
                           REQUESTS_2D, TARGET_SPACING_2D, "serve2d_cudnn", ())
     say_serving(res_off)
@@ -3744,7 +4129,7 @@ def main(argv=None) -> int:
     launches["8v"] = counts
 
     say("[phase 7s] ACDC SwinUnet-2D (configs/acdc/swinunet_2d.yaml) serving "
-        "2 NIfTI requests (slice batch)")
+        "1 NIfTI request (slice batch)")
     res = phase_slice(device, ACDC_SU, REQUESTS_2D, TARGET_SPACING_2D,
                       "serve_su", ("window_attention",))
     say_serving(res)
@@ -3772,7 +4157,7 @@ def main(argv=None) -> int:
 
     say("[phase 7r] ACDC ResUNet-2D (configs/acdc/resunet_2d.yaml) serving "
         "phase 7's first request (slice batch)")
-    res = phase_slice(device, ACDC_RESUNET, REQUESTS_2D[:1], TARGET_SPACING_2D,
+    res = phase_slice(device, ACDC_RESUNET, REQUESTS_2D, TARGET_SPACING_2D,
                       "serve_resunet2d", ("conv2d_same_fwd_tf32",),
                       profile_dir("serve_resunet2d"))
     say_serving(res)
@@ -3815,7 +4200,7 @@ def main(argv=None) -> int:
 
     say("[phase 7t] ACDC TransUNet (configs/acdc/transunet_2d.yaml: "
         "R50-ViT-B/16) serving phase 7's first request (slice batch)")
-    res = phase_slice(device, ACDC_TRANSUNET, REQUESTS_2D[:1],
+    res = phase_slice(device, ACDC_TRANSUNET, REQUESTS_2D,
                       TARGET_SPACING_2D, "serve_transunet", (),
                       profile_dir("serve_transunet"))
     say_serving(res)
@@ -3844,8 +4229,7 @@ def main(argv=None) -> int:
     bcv_root = os.path.join(WORK, "bcv_data")
     bcv_keys = dict(data_root=bcv_root, epochs=1, iter_per_epoch=BCV_STEPS,
                     print_freq=1)
-    tr = phase_train(device, load_config("bcv", "swin_unetr", "3d",
-                                         **bcv_keys),
+    tr = phase_train(device, load_config("bcv", "swin_unetr", "3d", **bcv_keys),
                      TRAIN_BATCH, "bcv_swin", (), amp=False,
                      min_steps=BCV_STEPS)
     say_train(tr, "volumes")
@@ -3875,7 +4259,8 @@ def main(argv=None) -> int:
     say_train(tr, "volumes")
     say(f"  {drops['calls']} DropPath draws, {drops['dropped']} samples "
         f"dropped")
-    assert drops["calls"] > 0 and len(tr["step_seconds"]) == BCV_STEPS and \
+    assert drops["calls"] > 0 and \
+        len(tr["step_seconds"]) == BCV_STEPS and \
         tr["launches"]["window_attention"] == 0, (drops, tr["launches"])
     launches["9ut"] = tr["launches"]
 
@@ -3903,7 +4288,8 @@ def main(argv=None) -> int:
     say_train(tr, "volumes")
     say(f"  {drops['calls']} DropPath draws, {drops['dropped']} samples "
         f"dropped")
-    assert drops["calls"] > 0 and len(tr["step_seconds"]) == BCV_STEPS and \
+    assert drops["calls"] > 0 and \
+        len(tr["step_seconds"]) == BCV_STEPS and \
         tr["launches"]["window_attention"] == 0, (drops, tr["launches"])
     launches["9nt"] = tr["launches"]
 

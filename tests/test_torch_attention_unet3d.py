@@ -21,6 +21,7 @@ from cbim_tpu_torch.utils.jax_import import (
 from test_torch_swin_unetr import jax_params
 from test_torch_unet3d import (ZOO, check_eval_forward, check_round_trip,
                                check_train)
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 D = dict(ZOO, model="attention_unet")
 

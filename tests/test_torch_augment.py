@@ -19,6 +19,7 @@ from cbim_tpu.ops.resample import affine_sample_3d_batch as jax_affine_batch
 from cbim_tpu_torch.data.pipeline import AugRecipe, build_batch_aug
 from cbim_tpu_torch.ops import augment
 from cbim_tpu_torch.ops.resample import affine_sample_3d_batch, axis_coords
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 
 def _thetas(n, seed):

@@ -23,6 +23,7 @@ import torch
 from cbim_tpu.data.pipeline import _apply_op as jax_apply_op
 from cbim_tpu.ops import augment as J
 from cbim_tpu_torch.ops import augment as A
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 KEYS = jax.random.split(jax.random.PRNGKey(7), 3)
 

@@ -28,6 +28,7 @@ from cbim_tpu_torch.training.checkpoint import (load_weights,
 from cbim_tpu_torch.training.train_state import create_train_state
 from cbim_tpu_torch.training.trainer import load_pretrained
 from test_torch_medformer2d import TINY2D
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: the narrow MedFormer-2D (BatchNorm: running statistics ride along) with
 #: an EMA, at 32^2

@@ -21,6 +21,7 @@ from cbim_tpu.ops.pallas.conv2d import conv2d_same as jax_conv2d_same
 from cbim_tpu.ops.pallas.conv2d import conv2d_same_t as jax_conv2d_same_t
 from cbim_tpu.ops.pallas.conv2d import conv2d_wgrad as jax_conv2d_wgrad
 from cbim_tpu_torch.ops.kernels import conv2d, conv3d
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: fp32 error bound, relative to the largest |output|
 REL = 1e-5

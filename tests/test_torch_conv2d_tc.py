@@ -25,6 +25,7 @@ from cbim_tpu_torch.models import get_model
 from cbim_tpu_torch.models.layers.convs import ConvNormAct
 from cbim_tpu_torch.ops.kernels import conv2d
 from cbim_tpu_torch.ops.kernels.conv3d import _WGRAD_MAX_PARTIAL_BYTES
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: (B, H, W) of the Pallas cases: its kernels tile H by 8
 SHAPE = (2, 8, 20)

@@ -30,6 +30,7 @@ from cbim_tpu_torch.ops.kernels import conv2d
 from cbim_tpu_torch.ops.kernels.conv3d import (_WGRAD_MAX_PARTIAL_BYTES,
                                                TF32_WGRAD_TILE, tf32_split,
                                                tf32_tile_n, wgrad_tc_chunking)
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: (B, H, W) of the Pallas cases: its kernels tile H by 8; the TF32 tiles
 #: are (16, 32) and (8, 32) in the forward, (6, 32) in the wgrad, so no

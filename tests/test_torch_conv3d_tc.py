@@ -20,6 +20,7 @@ from cbim_tpu.ops.pallas.conv3d import conv3d_same as jax_conv3d_same
 from cbim_tpu.ops.pallas.conv3d import conv3d_same_t as jax_conv3d_same_t
 from cbim_tpu.ops.pallas.conv3d import conv3d_wgrad as jax_conv3d_wgrad
 from cbim_tpu_torch.ops.kernels import conv3d
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: (B, D, H, W) of the Pallas cases: its kernels tile D by 2 and H by 8
 SHAPE = (2, 4, 8, 10)

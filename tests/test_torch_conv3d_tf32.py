@@ -25,6 +25,7 @@ import torch.nn.functional as nnf
 from cbim_tpu.ops.pallas.conv3d import conv3d_same as jax_conv3d_same
 from cbim_tpu.ops.pallas.conv3d import conv3d_same_cw_na, from_cw, to_cw
 from cbim_tpu_torch.ops.kernels import conv3d
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 EPS = 1e-4
 ACTS = [None, "relu", "gelu"]

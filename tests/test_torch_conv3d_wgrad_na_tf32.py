@@ -23,6 +23,7 @@ import torch
 
 from cbim_tpu.ops.pallas.conv3d import conv3d_wgrad_cw2_na, to_cw
 from cbim_tpu_torch.ops.kernels import conv3d, fused_norm
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: (B, D, H, W): the Pallas kernel tiles D by 2 and H by 8; the TF32
 #: wgrad's (4, 8, 8) voxel tiles do not divide W

@@ -20,6 +20,7 @@ import torch
 
 from cbim_tpu.ops.pallas.conv3d import conv3d_wgrad as jax_conv3d_wgrad
 from cbim_tpu_torch.ops.kernels import conv3d
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: (B, D, H, W): the backward cases' shape (the Pallas wgrad tiles D by 2
 #: and H by 8); the TF32 wgrad's (4, 8, 8) voxel tiles do not divide W

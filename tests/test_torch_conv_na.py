@@ -21,6 +21,7 @@ from cbim_tpu.ops.pallas.conv3d import (_cw_stats, conv3d_same_cw_na,
 from cbim_tpu_torch.models.layers import convs
 from cbim_tpu_torch.models.layers.convs import ConvNormAct
 from cbim_tpu_torch.ops.kernels import conv3d, fused_norm
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: (B, D, H, W, C, F): the JAX kernels tile D by 2 and H by 8
 SHAPE = (2, 4, 8, 16, 8, 8)

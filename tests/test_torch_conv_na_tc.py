@@ -24,6 +24,7 @@ import torch
 from cbim_tpu.ops.pallas.conv3d import (conv3d_same_cw_na,
                                         conv3d_wgrad_cw2_na, from_cw, to_cw)
 from cbim_tpu_torch.ops.kernels import conv3d, fused_norm
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 EPS = 1e-4
 ACTS = [None, "relu", "gelu"]

@@ -11,6 +11,7 @@ import pytest
 from cbim_tpu.config import load_config as jax_load_config
 from cbim_tpu_torch.tools import converge
 from test_torch_validation import TRAIN3D
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

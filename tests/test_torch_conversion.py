@@ -15,6 +15,7 @@ from cbim_tpu.data.conversion import utils as jax_utils
 from cbim_tpu_torch.data.conversion import (CropForeground, convert,
                                             reorient_to_ras)
 from cbim_tpu_torch.data.nifti import read_nifti, write_nifti
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 
 def _case(seed, shape=(7, 30, 26), classes=3):

@@ -11,6 +11,7 @@ import pytest
 from cbim_tpu.data import nifti as jax_nifti
 from cbim_tpu.data.conversion import utils as jax_conversion
 from cbim_tpu_torch.data import conversion, nifti
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 
 def _volume(dtype):

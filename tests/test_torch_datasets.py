@@ -26,6 +26,7 @@ from cbim_tpu_torch.data.nifti import write_nifti
 from cbim_tpu_torch.training.trainer import train_net
 from test_torch_medformer import TINY
 from test_torch_train2d import TRAIN2D
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: the recipe keys every dataset config carries
 RECIPE_KEYS = dict(scale=[0.3, 0.3, 0.3], rotate=[30, 30, 30],

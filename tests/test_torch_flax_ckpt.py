@@ -46,6 +46,7 @@ from test_torch_medformer2d import TINY2D
 from test_torch_swin_train import fast_xla_compile
 from test_torch_swin_unetr import jax_params
 from test_torch_unet3d import ZOO, port_params_in_jax
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: the served recipes: 32^3 windows, EMA weights (the CLIs' prefer_ema)
 SERVE = dict(training_size=[32, 32, 32], ema=True, optimizer="adamw",
@@ -293,7 +294,7 @@ def test_refusals(tmp_path):
     model = get_model(config_from_dict(RESUNET), device="cpu")
     with pytest.raises(ValueError, match="config"):
         load_weights(str(path), model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ConvNeXtBlock"):
         read_state_dict(str(path), cfg=config_from_dict(
-            dict(RESUNET, dimension="2d", block="Bottleneck")))
+            dict(RESUNET, dimension="2d", block="ConvNeXtBlock")))
     assert os.path.exists(path)

@@ -31,6 +31,7 @@ from cbim_tpu_torch.config import config_from_dict
 from cbim_tpu_torch.data import datasets as TD
 from cbim_tpu_torch.data import pipeline as TP
 from cbim_tpu_torch.ops.resample import affine_sample_3d_fullvol_batch
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: volumes of different extents: smaller and larger than the buffer
 SHAPES = [(10, 26, 30), (14, 20, 22), (9, 31, 24), (12, 24, 27),

@@ -23,6 +23,7 @@ from cbim_tpu_torch.inference import engines
 from cbim_tpu_torch.models import get_model
 from cbim_tpu_torch.utils.jax_import import medformer3d_state_dict_from_jax
 from test_torch_medformer import TINY, jax_medformer, jax_params
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -161,6 +162,6 @@ def test_prediction_refuses_what_is_not_ported(tmp_path):
                          "synthetic", "--model", "medformer"],
                         cfg=config_from_dict(dict(TINY,
                                                   training_size=[32] * 3)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="fusion"):
         engines.make_engine(torch.nn.Conv3d(1, 2, 1), config_from_dict(
-            dict(TINY, window_fusion="gaussian")))
+            dict(TINY, window_fusion="max")))

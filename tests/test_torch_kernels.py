@@ -20,6 +20,7 @@ from cbim_tpu.ops.pallas.fused_norm import instance_norm_act as jax_inorm
 from cbim_tpu_torch.ops import _backend
 from cbim_tpu_torch.ops.kernels import (_build, conv2d, conv3d, fused_norm,
                                         launch_counts, reset_launch_counts)
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 
 def _w_to_jax(w):

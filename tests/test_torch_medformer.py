@@ -22,6 +22,7 @@ from cbim_tpu_torch.models import get_model
 from cbim_tpu_torch.models.layers import convs
 from cbim_tpu_torch.ops.kernels.conv3d import ConvInormAct3d
 from cbim_tpu_torch.utils.jax_import import medformer3d_state_dict_from_jax
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: a narrow MedFormer-3D with the AMOS recipe's structure: 3^3 kernels,
 #: 2^3 downsampling, conv blocks in down1/down2/up2/up3/up4, B-MHA from
@@ -203,12 +204,14 @@ def test_get_model_defaults_to_the_card():
 
 
 def test_get_model_raises_for_unported_models():
-    """The whole zoo is ported; what it still refuses are blocks and norms
-    (ROADMAP A6c), in 2D as in 3D."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The whole zoo and every block, norm and option of the JAX factory
+    are ported; what the port still refuses is what the JAX factory cannot
+    build either: ConvNeXtBlock as a model's block (it takes no norm or
+    act), in 2D as in 3D."""
+    with pytest.raises(TypeError, match="ConvNeXtBlock takes no"):
         get_model(config_from_dict(dict(TINY, model="unet", dimension="2d",
-                                        block="Bottleneck")), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                                        block="ConvNeXtBlock")), device="cpu")
+    with pytest.raises(TypeError, match="ConvNeXtBlock takes no"):
         get_model(config_from_dict(dict(TINY, model="resunet",
-                                        block="BasicBlock", norm="ln")),
+                                        block="ConvNeXtBlock", norm="ln")),
                   device="cpu")

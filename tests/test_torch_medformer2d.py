@@ -30,6 +30,7 @@ from cbim_tpu_torch.ops.interpolate import resize_linear
 from cbim_tpu_torch.ops.kernels.conv2d import Conv2dSame
 from cbim_tpu_torch.utils.jax_import import (_bmha_perm, _Walk,
                                              medformer2d_state_dict_from_jax)
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: a narrow MedFormer-2D with the ACDC recipe's structure and the JAX
 #: default's conv blocks in down2/up2 (BatchNorm + ReLU, 3x3 kernels, 2x2

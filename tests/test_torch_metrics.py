@@ -17,6 +17,7 @@ from cbim_tpu.ops import _surfel_tables as jax_tables
 from cbim_tpu.ops import metrics as jax_metrics
 from cbim_tpu_torch.ops import _surfel_tables as tables
 from cbim_tpu_torch.ops import metrics
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: the host metrics: the same numpy/scipy arithmetic on both sides
 HOST_RTOL = 1e-12

@@ -15,6 +15,7 @@ import subprocess
 import sys
 
 import pytest
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

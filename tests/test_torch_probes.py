@@ -31,6 +31,7 @@ from cbim_tpu_torch.tools import bound_ms
 from cbim_tpu_torch.tools import probe_bandwidth as pb
 from cbim_tpu_torch.tools import probe_conv_dissect as pc
 from cbim_tpu_torch.tools import probe_lhst_dot as pd
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

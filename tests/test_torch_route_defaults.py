@@ -19,6 +19,7 @@ from cbim_tpu_torch.ops.kernels import conv2d
 from cbim_tpu_torch.ops.kernels.conv2d import Conv2dSame
 from test_torch_medformer import TINY
 from test_torch_medformer2d import ACDC, TINY2D
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 
 def _eligible(m: ConvNormAct) -> bool:

@@ -32,6 +32,7 @@ from cbim_tpu_torch.utils.jax_import import (swin_unetr_state_dict_from_jax,
                                              swinunet_state_dict_from_jax)
 from test_torch_swin_unet import TINY as SWINUNET
 from test_torch_swin_unetr import jax_params
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: a narrow SwinUNETR with an EMA (relative_position_index buffers at every
 #: block in the reference's files)

@@ -34,6 +34,7 @@ from cbim_tpu_torch.training.train_state import (create_train_state,
                                                  make_train_step)
 from cbim_tpu_torch.utils.jax_import import swin_unetr_state_dict_from_jax
 from test_torch_swin_unetr import jax_params
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: the JAX tests' SwinUNETR size with the BCV recipe's training keys
 SWIN_TRAIN = dict(

@@ -36,6 +36,7 @@ from cbim_tpu_torch.utils.jax_import import (_Walk,
 from test_torch_swin_train import (check_trajectory, fast_xla_compile,
                                    jax_trajectory)
 from test_torch_swin_unetr import jax_params
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -27,6 +27,7 @@ from cbim_tpu_torch.data.nifti import read_nifti, write_nifti
 from cbim_tpu_torch.models import get_model, swin_layers
 from cbim_tpu_torch.utils.jax_import import (_Walk,
                                              swin_unetr_state_dict_from_jax)
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -44,6 +44,7 @@ from cbim_tpu_torch.training.train_state import (create_train_state,
 from cbim_tpu_torch.training.trainer import train_net
 from cbim_tpu_torch.utils.jax_import import medformer3d_state_dict_from_jax
 from test_torch_medformer import TINY, jax_medformer
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: the training keys of the flagship recipe (bench.py:70-89) on TINY
 TRAIN = dict(
@@ -320,11 +321,13 @@ def test_get_model_keeps_fp32_parameters_for_training():
 
 @pytest.mark.parametrize("key", ["attn_drop", "proj_drop"])
 def test_dropout_is_refused(key):
-    """Fault 3: dropout is not ported; a config that asks for it raises
-    instead of training without it."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(config_from_dict(dict(TRAIN, **{key: 0.1})), device="cpu",
-                  train=True)
+    """Fault 3, repaired: dropout is ported, and draws from the train
+    state's generator; a training-mode forward without one is refused
+    instead of running without dropout."""
+    model = get_model(config_from_dict(dict(TRAIN, **{key: 0.1})),
+                      device="cpu", train=True)
+    with pytest.raises(RuntimeError, match="generator"):
+        model(torch.zeros(1, 1, *TRAIN["training_size"]))
 
 
 def _defaults_to_the_card(fn, call):

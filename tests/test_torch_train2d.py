@@ -39,6 +39,7 @@ from cbim_tpu_torch.training.train_state import (create_train_state,
                                                  make_train_step)
 from cbim_tpu_torch.utils.jax_import import medformer2d_state_dict_from_jax
 from test_torch_medformer2d import TINY2D, jax_variables
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: the ACDC recipe's training keys (configs/acdc/medformer_2d.yaml) on the
 #: narrow model, at 32^2 crops

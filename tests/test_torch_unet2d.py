@@ -49,6 +49,7 @@ from cbim_tpu_torch.training.train_state import (create_train_state,
 from cbim_tpu_torch.utils.jax_import import unet2d_state_dict_from_jax
 from test_torch_swin_train import fast_xla_compile
 from test_torch_unet3d import GRAD_FLOOR, GRAD_L2, LATER_LOSS_RTOL
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -65,17 +66,6 @@ ZOO2D = dict(
 SHAPE = (2, 64, 64)
 #: the softmax tolerance of the eval forwards (fp32 both sides)
 PROB_ATOL = 1e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    """Two intra-op threads while a 2D zoo file runs (the files import
-    this fixture): their torch models are small, and the test workers
-    share the host's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _x(shape, seed):
@@ -605,6 +595,6 @@ def test_convnormact_block_walks_as_single_conv(cases):
                             norm="in"), (1, 16, 16, 16))
     assert unet3d_state_dict_from_jax(t3, config_from_dict(d3)).keys() == \
         get_model(config_from_dict(d3), device="cpu").state_dict().keys()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        state_dict_from_jax(config_from_dict(dict(d, block="Bottleneck")),
+    with pytest.raises(NotImplementedError, match="ConvNeXtBlock"):
+        state_dict_from_jax(config_from_dict(dict(d, block="ConvNeXtBlock")),
                             tmpl)

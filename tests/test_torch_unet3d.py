@@ -43,6 +43,7 @@ from cbim_tpu.training.train_state import TrainState as JaxTrainState
 from cbim_tpu.training.train_state import make_train_step as jax_make_step
 from test_torch_swin_train import fast_xla_compile
 from test_torch_swin_unetr import jax_params
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

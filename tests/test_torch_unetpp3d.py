@@ -16,6 +16,7 @@ from cbim_tpu_torch.utils.jax_import import (UNETPP_ORDER,
                                              unetpp3d_state_dict_from_jax)
 from test_torch_unet3d import (ZOO, check_eval_forward, check_round_trip,
                                check_train)
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 D = dict(ZOO, model="unet++")
 

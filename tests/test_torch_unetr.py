@@ -25,6 +25,7 @@ from cbim_tpu_torch.utils.jax_import import (_Walk, unetr_state_dict_from_jax,
 from test_torch_swin_unetr import jax_params
 from test_torch_unet3d import (FWD_SHAPE, ZOO, _x, check_eval_forward,
                                check_round_trip, check_train)
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: a UNETR at a sixteenth of the ViT's width
 D = dict(ZOO, model="unetr", feature_size=8, hidden_size=48, mlp_dim=96,

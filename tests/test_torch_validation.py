@@ -36,6 +36,7 @@ from cbim_tpu_torch.utils.jax_import import (medformer2d_state_dict_from_jax,
                                              medformer3d_state_dict_from_jax)
 from test_torch_medformer import TINY, jax_medformer, jax_params
 from test_torch_medformer2d import TINY2D, jax_variables
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: the least share of voxels labelled alike by the two packages: fp32
 #: forwards that differ in summation order flip only near-tied voxels

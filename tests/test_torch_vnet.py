@@ -30,6 +30,7 @@ from cbim_tpu_torch.utils.jax_import import vnet_state_dict_from_jax
 from test_torch_unet3d import (FWD_SHAPE, PROB_ATOL, TRAJ_STEPS, ZOO, _x,
                                check_eval_forward, check_round_trip,
                                check_train, port_params_in_jax, template)
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: a VNet at a quarter of the reference's width (base 4: widths 4-64)
 D = dict(ZOO, model="vnet")

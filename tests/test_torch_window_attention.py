@@ -22,6 +22,7 @@ from cbim_tpu_torch.models.swin_layers import (compute_attn_mask,
                                                compute_region_ids)
 from cbim_tpu_torch.ops.kernels import (launch_counts, reset_launch_counts,
                                         window_attention as wa)
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: tolerances of tests/test_pallas.py: fp32 sums in another order; bf16
 #: inputs, fp32 math, one rounding of the output

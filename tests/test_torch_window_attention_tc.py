@@ -24,6 +24,7 @@ from cbim_tpu.ops.pallas.window_attention import (fused_window_attention,
                                                   reference_window_attention)
 from cbim_tpu_torch.ops.kernels import conv3d
 from cbim_tpu_torch.ops.kernels import window_attention as wa
+from test_torch_threads import few_torch_threads  # noqa: F401
 
 #: (B, H, N, D): 2D Swin's 7x7 windows, nnFormer's 4^3 and the 3D 7^3
 #: window, each at both head dims (two windows each, nW = 2)
