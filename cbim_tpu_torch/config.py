@@ -41,12 +41,14 @@ CLI_DEFAULTS = dict(
 )
 
 #: defaults for keys that some reference YAMLs omit (``cbim_tpu``'s, less
-#: its TPU mesh block)
+#: the keys of its TPU runtime: ``aug_device``, ``num_workers``,
+#: ``torch_compile``; plus the port's ``conv_na`` and ``conv2d_kernel``)
 YAML_DEFAULTS = dict(
     in_chan=1,
     base_chan=32,
     norm="bn",
     act="relu",
+    block="ConvNormAct",
     aux_loss=False,
     aux_weight=[1.0],
     ema=False,
@@ -71,6 +73,10 @@ YAML_DEFAULTS = dict(
     gaussian_noise_std=0.0,
     additive_brightness_std=0.0,
     gamma_range=[1.0, 1.0],
+    # the data-parallel mesh (parallel/mesh.py): every rank on 'data'
+    mesh_axes=["data"],
+    mesh_shape=None,           # None -> every rank on the 'data' axis
+    spatial_axis=None,         # the H-axis sharding: not ported (A7)
     compute_dtype="float32",   # 'bfloat16' when amp is requested
     conv_na=False,             # MedFormer-3D's fused preact conv (CBIM_CONV_NA)
     conv2d_kernel=False,       # the 2D CNNs' 3x3 conv kernel (CBIM_PLCONV2D)

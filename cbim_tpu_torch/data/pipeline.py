@@ -39,6 +39,15 @@ replacement, as the JAX package does (reference DataLoader semantics); a
 batch that reaches the end of one permutation is filled from the next, so
 the n % batch tail of an epoch's slices opens the next epoch's first batch
 (ROADMAP C3).  3D draws i.i.d.
+
+Under data parallelism (``mesh``) every rank makes the global batch's
+host-side draws with the shared seed (the sample indices, the 2D epoch
+permutations, the window starts, the gates, the affines and every drawn
+scalar), keeps its own rows (``parallel.batch_rows``) and augments only
+those, so the ranks' batches, concatenated, are the one-process batch.
+What is drawn on the device (the per-voxel noise) comes from a generator
+seeded seed + rank.  Each rank's device cache holds the whole corpus, as
+the JAX package replicates it over the mesh.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ import torch
 
 from ..ops import augment as A
 from ..ops._backend import get_device
+from ..parallel.mesh import batch_rows
 from ..ops.resample import (affine_sample_2d_batch, affine_sample_3d_batch,
                             affine_sample_3d_fullvol_batch)
 
@@ -99,17 +109,37 @@ def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+@dataclass(frozen=True)
+class Rows:
+    """A rank's rows [start, stop) of a global batch of ``total``."""
+    start: int
+    stop: int
+    total: int
+
+
+def _whole(rows: Rows | None, n: int) -> tuple[slice, int]:
+    """(the rows of the draws a batch of ``n`` keeps, how many to draw):
+    all n without ``rows``; with them every row of the global batch is
+    drawn and the rank's kept, so that its draws are the one-process
+    batch's rows."""
+    if rows is None:
+        return slice(0, n), n
+    return slice(rows.start, rows.stop), rows.total
+
+
 def _apply_op(name: str, params: dict, imgs: torch.Tensor, labs: torch.Tensor,
               gen_host: torch.Generator, gen_dev: torch.Generator,
-              mask=None, count=None):
+              mask=None, count=None, rows: Rows | None = None):
     """One op over the batch, every sample's scalars drawn from
     ``gen_host`` (per-voxel noise from ``gen_dev``); returns (imgs, labs).
     ``mask``/``count`` (the full-volume path) restrict gamma's statistics to
-    the true volume."""
-    B, dev = imgs.shape[0], imgs.device
+    the true volume.  ``rows``: the batch is these rows of a global batch
+    (``Rows``), whose scalars are all drawn."""
+    dev = imgs.device
+    keep, G = _whole(rows, imgs.shape[0])
 
     def draw(lo, hi):
-        return _to_device(A.draw_uniform(gen_host, B, lo, hi), dev)
+        return _to_device(A.draw_uniform(gen_host, G, lo, hi)[keep], dev)
 
     if name == "gaussian_noise":
         if "std_range" in params:
@@ -119,7 +149,7 @@ def _apply_op(name: str, params: dict, imgs: torch.Tensor, labs: torch.Tensor,
             return A.add_noise(imgs, noise, std), labs
         return A.gaussian_noise(imgs, gen_dev, params["std"]), labs
     if name == "brightness_additive":
-        shift = torch.randn(B, generator=gen_host) * params["std"]
+        shift = torch.randn(G, generator=gen_host)[keep] * params["std"]
         return A.brightness_additive(imgs, _to_device(shift, dev)), labs
     if name == "brightness_multiply":
         return A.brightness_multiply(imgs, draw(*params["range"])), labs
@@ -140,7 +170,8 @@ def _apply_op(name: str, params: dict, imgs: torch.Tensor, labs: torch.Tensor,
         nd = labs.dim() - 1
         grid = tuple(params.get("grid", (4,) * nd))
         magnitude = tuple(params.get("magnitude", (0.05,) * nd))
-        disp = torch.rand((B, nd, *grid), generator=gen_host) * 2.0 - 1.0
+        disp = torch.rand((G, nd, *grid), generator=gen_host)[keep] * 2.0 \
+            - 1.0
         return A.elastic_deform(imgs, labs, _to_device(disp, dev), magnitude)
     raise ValueError(f"unknown aug op {name!r}")
 
@@ -151,16 +182,17 @@ def _draw_gate(gen_host: torch.Generator, n: int, prob: float) -> torch.Tensor:
 
 
 def _gated(name, prob, params, imgs, labs, gen_host, gen_dev, mask=None,
-           count=None):
+           count=None, rows=None):
     """``_apply_op`` behind a per-sample Bernoulli(prob) gate, drawn first:
     samples whose gate is off keep their input, their label too; the label
     changes only where the op changes it (mirror, elastic)."""
     if prob >= 1.0:
         return _apply_op(name, params, imgs, labs, gen_host, gen_dev, mask,
-                         count)
-    take = _draw_gate(gen_host, imgs.shape[0], prob)
+                         count, rows)
+    keep, G = _whole(rows, imgs.shape[0])
+    take = _draw_gate(gen_host, G, prob)[keep]
     out_img, out_lab = _apply_op(name, params, imgs, labs, gen_host, gen_dev,
-                                 mask, count)
+                                 mask, count, rows)
     take = _to_device(take, imgs.device)
     img = torch.where(take.view(-1, *[1] * (imgs.dim() - 1)), out_img, imgs)
     if out_lab is labs:
@@ -169,9 +201,12 @@ def _gated(name, prob, params, imgs, labs, gen_host, gen_dev, mask=None,
                             labs)
 
 
-def _draw_thetas(recipe: AugRecipe, nd: int, gen_host, B: int) -> torch.Tensor:
+def _draw_thetas(recipe: AugRecipe, nd: int, gen_host, B: int,
+                 rows: Rows | None = None) -> torch.Tensor:
     """The batch's affines, identity for the samples whose Bernoulli
-    (affine_prob) branch draw is off (the reference's crop trick)."""
+    (affine_prob) branch draw is off (the reference's crop trick); with
+    ``rows``, those rows of the global batch's."""
+    keep, B = _whole(rows, B)
     if nd == 3:
         thetas = A.random_theta_3d(gen_host, B, recipe.scale, recipe.rotate,
                                    recipe.translate, recipe.shear)
@@ -182,21 +217,23 @@ def _draw_thetas(recipe: AugRecipe, nd: int, gen_host, B: int) -> torch.Tensor:
         take = _draw_gate(gen_host, B, recipe.affine_prob)
         eye = torch.eye(nd, nd + 1).expand(B, nd, nd + 1)
         thetas = torch.where(take.view(B, 1, 1), thetas, eye)
-    return thetas
+    return thetas[keep]
 
 
-def _run_ops(ops, imgs, labs, gen_host, gen_dev, mask=None, count=None):
+def _run_ops(ops, imgs, labs, gen_host, gen_dev, mask=None, count=None,
+             rows=None):
     for name, prob, params in ops:
         imgs, labs = _gated(name, prob, params, imgs, labs, gen_host, gen_dev,
-                            mask, count)
+                            mask, count, rows)
     return imgs, labs
 
 
 def build_batch_aug(recipe: AugRecipe, crop_size):
-    """Batched augmentation ``fn(imgs, labs, gen_host, gen_dev) ->
-    (imgs, labs)``: imgs (B, *buffer, C) float, labs (B, *buffer) int on the
-    device -> (B, *crop_size, C), (B, *crop_size); 3D or 2D by the length
-    of ``crop_size``.  The 2D affine is ``random_theta_2d`` (no shear
+    """Batched augmentation ``fn(imgs, labs, gen_host, gen_dev, rows=None)
+    -> (imgs, labs)``: imgs (B, *buffer, C) float, labs (B, *buffer) int on
+    the device -> (B, *crop_size, C), (B, *crop_size); 3D or 2D by the
+    length of ``crop_size``.  ``rows`` (``Rows``): the batch is those rows
+    of a global batch, every sample's scalars of which are drawn.  The 2D affine is ``random_theta_2d`` (no shear
     ranges of its own: the 2D reference draws shears from the scales).
     An unknown op name raises ``ValueError`` when the batch reaches it, as
     in the JAX package."""
@@ -204,12 +241,14 @@ def build_batch_aug(recipe: AugRecipe, crop_size):
     nd = len(crop_size)
     sample = affine_sample_3d_batch if nd == 3 else affine_sample_2d_batch
 
-    def fn(imgs, labs, gen_host, gen_dev):
-        imgs, labs = _run_ops(recipe.pre_ops, imgs, labs, gen_host, gen_dev)
-        thetas = _draw_thetas(recipe, nd, gen_host, imgs.shape[0])
+    def fn(imgs, labs, gen_host, gen_dev, rows=None):
+        imgs, labs = _run_ops(recipe.pre_ops, imgs, labs, gen_host, gen_dev,
+                              rows=rows)
+        thetas = _draw_thetas(recipe, nd, gen_host, imgs.shape[0], rows)
         imgs, labs = sample(imgs, labs, _to_device(thetas, imgs.device),
                             out_shape=crop_size)
-        return _run_ops(recipe.post_ops, imgs, labs, gen_host, gen_dev)
+        return _run_ops(recipe.post_ops, imgs, labs, gen_host, gen_dev,
+                        rows=rows)
 
     return fn
 
@@ -245,7 +284,8 @@ def build_fullvol_aug(recipe: AugRecipe, crop_size, margin):
     crop_size = tuple(int(t) for t in crop_size)
     margin = [int(m) for m in margin]
 
-    def fn(rows_img, rows_lab, extents, starts, gen_host, gen_dev):
+    def fn(rows_img, rows_lab, extents, starts, gen_host, gen_dev,
+           rows=None):
         dev, cache_dtype = rows_img.device, rows_img.dtype
         B, cache = rows_img.shape[0], rows_img.shape[1:4]
         axm = []
@@ -259,13 +299,14 @@ def build_fullvol_aug(recipe: AugRecipe, crop_size, margin):
         # f32 pre-ops: a single non-finite voxel inside the mask would
         # poison the whole volume through gamma's retain_stats reduction
         imgs, labs = _run_ops(recipe.pre_ops, rows_img.float(), rows_lab,
-                              gen_host, gen_dev, mask, count)
+                              gen_host, gen_dev, mask, count, rows)
         imgs = torch.where(mask, imgs, 0.0)
-        thetas = _draw_thetas(recipe, 3, gen_host, B)
+        thetas = _draw_thetas(recipe, 3, gen_host, B, rows)
         imgs, labs = affine_sample_3d_fullvol_batch(
             imgs.to(cache_dtype), labs, _to_device(thetas, dev), extents,
             starts, margin, crop_size)
-        return _run_ops(recipe.post_ops, imgs, labs, gen_host, gen_dev)
+        return _run_ops(recipe.post_ops, imgs, labs, gen_host, gen_dev,
+                        rows=rows)
 
     return fn
 
@@ -276,9 +317,12 @@ class TrainPipeline:
 
     ``next_batch`` is called after the previous step is queued: the host
     work (the draws, the window copy on the host path) overlaps that step.
-    ``device``: the card unless the caller asks for the CPU."""
+    ``device``: the card unless the caller asks for the CPU.  ``mesh``
+    (``parallel.make_mesh``): each batch is this rank's rows of the global
+    one (module docstring)."""
 
-    def __init__(self, dataset, cfg, seed: int = 0, device="cuda"):
+    def __init__(self, dataset, cfg, seed: int = 0, device="cuda",
+                 mesh=None):
         self.ds = dataset
         self.cfg = cfg
         self.ndim = 3 if cfg.dimension == "3d" else 2
@@ -293,9 +337,11 @@ class TrainPipeline:
         self.buffer_shape = tuple(
             t + p for t, p in zip(self.crop_size, recipe.affine_pad))
         self.device = get_device(device)
+        self.mesh = mesh
         self._rng = np.random.default_rng(seed)
         self._gen_host = torch.Generator().manual_seed(seed)
-        self._gen_dev = torch.Generator(device=self.device).manual_seed(seed)
+        self._gen_dev = torch.Generator(device=self.device).manual_seed(
+            seed + (mesh.rank if mesh is not None else 0))
         self._aug = build_batch_aug(recipe, self.crop_size)
         self._epoch_perm = None
         self._perm_pos = 0
@@ -429,19 +475,31 @@ class TrainPipeline:
             self._perm_pos += take
         return out
 
+    def _rows(self, batch_size: int) -> Rows:
+        """This rank's rows of a global batch of ``batch_size``."""
+        sl = batch_rows(batch_size, self.mesh)
+        return Rows(sl.start, sl.stop, batch_size)
+
     def _host_tensors(self, batch_size: int):
         """(imgs (B, *buffer, 1) float32, labs (B, *buffer) int8) as CPU
-        tensors, pinned when the pipeline feeds a CUDA device."""
+        tensors, pinned when the pipeline feeds a CUDA device: this rank's
+        rows of a global batch of ``batch_size``, whose windows are all
+        drawn."""
+        rows = self._rows(batch_size)
+        B = rows.stop - rows.start
         pin = self.device.type == "cuda"
-        imgs = torch.zeros((batch_size, *self.buffer_shape, 1),
+        imgs = torch.zeros((B, *self.buffer_shape, 1),
                            dtype=torch.float32, pin_memory=pin)
-        labs = torch.zeros((batch_size, *self.buffer_shape), dtype=torch.int8,
+        labs = torch.zeros((B, *self.buffer_shape), dtype=torch.int8,
                            pin_memory=pin)
         np_imgs, np_labs = imgs.numpy(), labs.numpy()
         idxs = self._draw_indices(batch_size)
-        for i, idx in enumerate(idxs):
+        for j, idx in enumerate(idxs):
             img, lab = self.ds.images[idx], self.ds.labels[idx]
             starts, sizes, offs = self._window_coords(img.shape)
+            i = j - rows.start
+            if not 0 <= i < B:
+                continue
             src = tuple(slice(s0, s0 + w) for s0, w in zip(starts, sizes))
             dst = tuple(slice(o, o + w) for o, w in zip(offs, sizes))
             np_imgs[(i, *dst, 0)] = img[src]
@@ -450,17 +508,24 @@ class TrainPipeline:
 
     def host_batch(self, batch_size: int):
         """The precrop windows of the host-window path as numpy arrays:
-        images (B, *buffer, 1) float32, labels (B, *buffer) int8."""
+        images (B, *buffer, 1) float32, labels (B, *buffer) int8 (this
+        rank's rows under a mesh)."""
         imgs, labs = self._host_tensors(batch_size)
         return imgs.numpy(), labs.numpy()
 
     # -- device side ----------------------------------------------------------
 
     def next_batch(self, batch_size: int):
-        """(img (B, *crop, 1) float32, lab (B, *crop) int64) on the device."""
+        """(img (B, *crop, 1) float32, lab (B, *crop) int64) on the device:
+        under a mesh this rank's B = batch_size // W rows of the global
+        batch of ``batch_size``."""
+        rows = self._rows(batch_size) if self.mesh is not None else None
         if self.cache_img is not None:
             idxs = self._draw_indices(batch_size)
             starts = self._cache_starts(idxs)
+            if rows is not None:
+                idxs = idxs[rows.start:rows.stop]
+                starts = starts[rows.start:rows.stop]
             if self.fullvol:
                 sel = _to_device(torch.from_numpy(idxs), self.device)
                 img, lab = self._fullvol_aug(
@@ -468,13 +533,13 @@ class TrainPipeline:
                     self.cache_lab.index_select(0, sel),
                     self._extents.index_select(0, sel),
                     _to_device(torch.from_numpy(starts), self.device),
-                    self._gen_host, self._gen_dev)
+                    self._gen_host, self._gen_dev, rows)
             else:
                 imgs, labs = self._cache_windows(idxs, starts)
                 img, lab = self._aug(imgs, labs, self._gen_host,
-                                     self._gen_dev)
+                                     self._gen_dev, rows)
             return img.float(), lab.long()
         imgs, labs = self._host_tensors(batch_size)
         imgs = imgs.to(self.device, non_blocking=True)
         labs = labs.to(self.device, non_blocking=True).long()
-        return self._aug(imgs, labs, self._gen_host, self._gen_dev)
+        return self._aug(imgs, labs, self._gen_host, self._gen_dev, rows)

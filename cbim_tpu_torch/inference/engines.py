@@ -30,18 +30,32 @@ whole volume is one batch, never split behind the caller's back, so a
 volume too large for the card raises the allocator's out-of-memory error.
 
 The public functions take and return ``cbim_tpu``'s layout (B, *spatial, C);
-``apply_fn`` takes and returns NC(D)HW.  The sharded variants are not
-ported yet (ROADMAP.md A7).
+``apply_fn`` takes and returns NC(D)HW.
+
+The sharded variants (``*_sharded``) split one call's work over the ranks
+of a node under data parallelism (``parallel.make_mesh``; JAX shards over
+a host's 'data' devices): each rank runs its share with no autograd and the
+shares meet in one collective over ``mesh.node_group``.  Every rank returns
+the whole result.  ``whole_image_sharded`` and
+``sliding_window_slices_sharded`` split the rows (slices), padded to a
+multiple of the node's W and all-gathered; ``sliding_window_sharded`` gives
+each rank contiguous window groups (the group count padded to a multiple
+of W, the padding groups empty), sums the ranks' accumulators and divides
+by the count map, as the JAX ``shard_map`` sweep ``psum``s them.  A
+batch-statistics model (VNet) then normalises each rank's rows or group on
+its own, as each JAX device does.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..config import compute_dtype
 from ..models.layers.convs import CHANNELS_LAST
+from ..parallel.collectives import all_gather_rows
 
 
 def split_idx(half_win: int, size: int, i: int):
@@ -189,19 +203,61 @@ class InferenceEngine:
             probs = _softmax_fp32(self.apply_fn(img.movedim(-1, 1)))
         return probs.movedim(1, -1)
 
+    def whole_image_sharded(self, img: torch.Tensor, mesh) -> torch.Tensor:
+        """:meth:`whole_image` with the rows of ``img`` (a 2D test volume's
+        slices) split over the node's ranks: padded with zero rows to a
+        multiple of W, each rank's contiguous share run, the shares
+        all-gathered and the padding dropped."""
+        return self._rows_sharded(self.whole_image, img, mesh)
+
+    def _rows_sharded(self, fn, img: torch.Tensor, mesh) -> torch.Tensor:
+        """``fn`` (rows in, rows out) over this rank's share of ``img``'s
+        rows, the node's shares all-gathered in rank order."""
+        group = mesh.node_group
+        W, r = dist.get_world_size(group), dist.get_rank(group)
+        B = img.shape[0]
+        pad = (-B) % W
+        if pad:
+            img = torch.cat([img, img.new_zeros((pad, *img.shape[1:]))])
+        n = img.shape[0] // W
+        with torch.inference_mode():
+            probs = all_gather_rows(fn(img[r * n:(r + 1) * n]), group)
+        return probs[:B]
+
     # -- sliding window -------------------------------------------------------
     def sliding_window(self, img: torch.Tensor) -> torch.Tensor:
         """img: (1, *spatial, C) -> softmax probs (1, *spatial, classes)."""
+        return self._sliding_window(img)
+
+    def sliding_window_sharded(self, img: torch.Tensor, mesh
+                               ) -> torch.Tensor:
+        """:meth:`sliding_window` with the window groups split over the
+        node's ranks: the groups of ``window_batch`` windows (the
+        unsharded call's) padded with empty groups to a multiple of W, rank
+        r sweeping the r-th contiguous share into its own accumulator, the
+        accumulators summed over the node (one ``all_reduce``) and divided
+        by the host's count map, as ``cbim_tpu``'s shard_map sweep
+        ``psum``s them.  Every rank returns the whole volume's
+        probabilities; they equal :meth:`sliding_window`'s up to the fp32
+        summation order of overlapping windows."""
+        return self._sliding_window(img, mesh.node_group)
+
+    def _sliding_window(self, img: torch.Tensor, group=None) -> torch.Tensor:
         window = self.window_size
         spatial = tuple(img.shape[1:1 + len(window)])
         x, padded, starts, mult, cnt = self._pad_and_grid(img.movedim(-1, 1))
         wb = self.window_batch or _auto_window_batch(len(starts))
         imp = self._importance(x.device)
+        firsts = range(0, len(starts), wb)
+        if group is not None:
+            W, r = dist.get_world_size(group), dist.get_rank(group)
+            per = -(-len(firsts) // W)
+            firsts = firsts[r * per:(r + 1) * per]
 
         with torch.inference_mode():
             acc = torch.zeros((1, self.num_classes, *padded),
                               dtype=torch.float32, device=x.device)
-            for g in range(0, len(starts), wb):
+            for g in firsts:
                 grp = starts[g:g + wb]
                 fill = [starts[0]] * (wb - len(grp)) if self.pad_groups \
                     else []
@@ -212,6 +268,8 @@ class InferenceEngine:
                     probs *= imp
                 for i, s in enumerate(grp):
                     acc[_window(s, window)] += probs[i] * float(mult[g + i])
+            if group is not None:
+                dist.all_reduce(acc, group=group)
             acc /= cnt
         crop = (slice(None), slice(None), *(slice(0, s) for s in spatial))
         return acc[crop].movedim(1, -1)
@@ -243,6 +301,14 @@ class InferenceEngine:
                 acc[_window(s, window)] += probs * float(m)
             acc /= cnt
         return acc[:, :, :spatial[0], :spatial[1]].movedim(1, -1)
+
+    def sliding_window_slices_sharded(self, img: torch.Tensor, mesh
+                                      ) -> torch.Tensor:
+        """:meth:`sliding_window_slices` with the slices split over the
+        node's ranks (padded with zero slices to a multiple of W, each
+        rank's share swept, the shares all-gathered, the padding
+        dropped)."""
+        return self._rows_sharded(self.sliding_window_slices, img, mesh)
 
 
 def make_engine(model, cfg, window_batch: int | str | None = None

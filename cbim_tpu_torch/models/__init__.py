@@ -235,13 +235,12 @@ def _cnn2d_args(cfg, block: bool = False) -> dict:
     """The 2D CNNs' factory arguments: base_chan, and the 3x3 kernel route
     only with ``conv2d_kernel`` (default off, as JAX's ``CBIM_PLCONV2D``);
     no norm or act from the config (BatchNorm, ReLU).  ``block``: the
-    config's block too, or the JAX config's default ``ConvNormAct``
-    (SingleConv) where it has none."""
+    config's block too (``YAML_DEFAULTS``: ConvNormAct, SingleConv)."""
     args = dict(in_chan=cfg.in_chan, num_classes=cfg.classes,
                 base_ch=cfg.base_chan,
                 conv2d_kernel=cfg.get("conv2d_kernel", False))
     if block:
-        args["block"] = cfg.get("block") or "ConvNormAct"
+        args["block"] = cfg.block
     return args
 
 

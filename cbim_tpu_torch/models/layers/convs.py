@@ -29,8 +29,11 @@ Kernel dispatch, one rule per kernel family; each trains through its
   ``ConvInormAct3d`` instead, norm and conv as one: the JAX package's
   opt-in ``CBIM_CONV_NA=1`` route (``_PallasConvCWNA``).
 BatchNorm stays ``F.batch_norm`` (``torch.native_batch_norm`` when
-training), as XLA carried Flax's.  The TPU's NDHCW stage layout has no
-counterpart: the one NDHWC kernel computes the same thing.
+training), as XLA carried Flax's; under data parallelism a training-mode
+BatchNorm marked with the run's process group (``sync_batch_norm``)
+normalises with the global batch's statistics (``global_batch_norm``).
+The TPU's NDHCW stage layout has no counterpart: the one NDHWC kernel
+computes the same thing.
 
 ``DropPath`` (stochastic depth) and ``Dropout`` draw their keep masks from
 the train state's generator (``training.train_state``); every block here
@@ -49,6 +52,7 @@ from ...ops.activations import Act, gelu, get_act
 from ...ops.kernels.conv2d import Conv2dSame
 from ...ops.kernels.conv3d import Conv3dSame, ConvInormAct3d
 from ...ops.kernels.fused_norm import InstanceNormAct, supported_act
+from ...parallel.collectives import all_reduce_sum
 
 KernelArg = Union[int, Sequence[int]]
 
@@ -167,6 +171,48 @@ class Dropout(nn.Module):
         return f"p={self.p}"
 
 
+def global_batch_norm(x: torch.Tensor, weight, bias, eps: float, group):
+    """Training-mode BatchNorm over the global batch of a data-parallel
+    run, x (B, C, *spatial) this rank's rows: the per-channel sum, sum of
+    squares and count cross the ranks in one fp32 ``all_reduce_sum``
+    (differentiable), and the biased variance is E[x^2] - E[x]^2 (at least
+    0), as Flax's BatchNorm computes it on the JAX mesh, where a mean over
+    the sharded batch axis is global.  Returns (y in x's dtype, mean, var),
+    the statistics fp32.  ``torch.nn.SyncBatchNorm`` is not used: it
+    refuses CPU tensors, and its running variance is the unbiased one."""
+    dims = [0, *range(2, x.dim())]
+    xf = x.float()
+    C = x.shape[1]
+    count = torch.full((1,), float(x.numel() // C), device=x.device)
+    stats = all_reduce_sum(torch.cat([xf.sum(dims), xf.square().sum(dims),
+                                      count]), group)
+    mean = stats[:C] / stats[-1]
+    var = (stats[C:2 * C] / stats[-1] - mean.square()).clamp_min(0.0)
+    shape = (1, C) + (1,) * (x.dim() - 2)
+    scale = torch.rsqrt(var + eps)
+    if weight is not None:
+        scale = scale * weight.float()
+    y = (xf - mean.view(shape)) * scale.view(shape)
+    if bias is not None:
+        y = y + bias.float().view(shape)
+    return y.to(x.dtype), mean, var
+
+
+def sync_batch_norm(model: nn.Module, group) -> nn.Module:
+    """Mark every BatchNorm of ``model`` (``Norm("bn")``, VNet's
+    ``ContBatchNorm``: each module with a ``sync_group`` slot) with the
+    process ``group``: in training mode it then normalises with the global
+    batch's statistics, in eval mode as before (running statistics, or
+    ContBatchNorm's own batch).  In the spirit of
+    ``torch.nn.SyncBatchNorm.convert_sync_batchnorm``, in place; returns
+    ``model``.  A marked module does not deep-copy (a process group does
+    not): take copies (the EMA model) before marking."""
+    for m in model.modules():
+        if hasattr(m, "sync_group"):
+            m.sync_group = group
+    return model
+
+
 class Norm(nn.Module):
     """Config-selected normalization over x (B, C, *spatial), then ``act``:
 
@@ -178,7 +224,9 @@ class Norm(nn.Module):
       (the reference's ``nn.BatchNorm*d`` names, so ``load_state_dict``
       takes its state_dicts).  It follows Flax's ``BatchNorm(momentum=0.9)``
       rather than torch's: the running variance takes the *biased* batch
-      variance, and the statistics stay fp32 under bf16 autocast;
+      variance, and the statistics stay fp32 under bf16 autocast.  With a
+      ``sync_group`` (``sync_batch_norm``) training mode takes the global
+      batch's statistics (``global_batch_norm``);
     - ``"ln"``: LayerNorm over C alone (the reference's channels-first
       LayerNorm; Flax's ``LayerNorm`` over the channels-last axis) with
       affine ``weight``/``bias`` and the caller's eps, computed in fp32
@@ -193,6 +241,7 @@ class Norm(nn.Module):
             self.weight = nn.Parameter(torch.ones(channels))
             self.bias = nn.Parameter(torch.zeros(channels))
         if kind == "bn":
+            self.sync_group = None
             self.register_buffer("running_mean", torch.zeros(channels))
             self.register_buffer("running_var", torch.ones(channels))
             self.register_buffer("num_batches_tracked",
@@ -204,11 +253,17 @@ class Norm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, BN_MOMENTUM, self.eps)
-        with torch.no_grad():
+        if self.sync_group is not None:
+            y, mean, var = global_batch_norm(x, self.weight, self.bias,
+                                             self.eps, self.sync_group)
+            mean, var = mean.detach(), var.detach()
+        else:
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, BN_MOMENTUM,
+                self.eps)
             # the biased variance the batch was normalised with, fp32
-            var = invstd.float().pow(-2) - self.eps
+            var = invstd.detach().float().pow(-2) - self.eps
+        with torch.no_grad():
             self.running_mean.mul_(1 - BN_MOMENTUM).add_(
                 mean.float(), alpha=BN_MOMENTUM)
             self.running_var.mul_(1 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)

@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers.convs import global_batch_norm
+
 #: ContBatchNorm's eps and the dropout rate of the reference
 BN_EPS = 1e-5
 DROP_RATE = 0.5
@@ -39,14 +41,21 @@ UNUSED_BN_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
 
 class ContBatchNorm(nn.Module):
     """BatchNorm with batch statistics in every mode and a learned affine
-    (``weight``, ``bias``), biased variance, eps 1e-5."""
+    (``weight``, ``bias``), biased variance, eps 1e-5.  With a
+    ``sync_group`` (``layers.convs.sync_batch_norm``) training mode takes
+    the global batch's statistics; eval mode normalises this rank's batch,
+    as the JAX package's ``shard_map`` sweep does."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
+        self.sync_group = None
 
     def forward(self, x):
+        if self.training and self.sync_group is not None:
+            return global_batch_norm(x, self.weight, self.bias, BN_EPS,
+                                     self.sync_group)[0]
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             BN_EPS)
 

@@ -5,9 +5,18 @@ Usage (the JAX package's flags, with ``--device`` for its ``--platform``):
         --dimension 3d --batch_size 2 --unique_name smoke --amp \\
         [--device cuda|cpu]
 
-One device; data parallelism (the JAX package's mesh) is not ported yet
-(ROADMAP.md).  ``--amp`` selects bf16 compute under ``torch.autocast`` on
-CUDA; on the CPU the port trains in fp32.
+``--amp`` selects bf16 compute under ``torch.autocast`` on CUDA; on the
+CPU the port trains in fp32.
+
+Data parallelism (the JAX package's mesh): launched by ``torchrun``, every
+process trains one rank, on ``cuda:LOCAL_RANK`` over NCCL with ``--device
+cuda``, on the CPU over gloo with ``--device cpu``:
+    torchrun --nproc_per_node N -m cbim_tpu_torch.train ... --batch_size B
+``--batch_size`` is the global batch: each rank takes B // N rows of it
+(N must divide B), and the loss, its gradient and the BatchNorm statistics
+are the global batch's.  Rank 0 alone writes the checkpoints, the scalars,
+the fold logs, config.txt and cross_validation.txt.  A launch of one
+process, or none, trains without a process group.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ import random
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -55,12 +65,25 @@ def main(argv=None, cfg=None) -> list:
     as they override the YAML.  Returns the per-fold (dice, hd, asd)."""
     args = get_parser().parse_args(argv)
 
+    from .parallel import initialize_distributed
+
+    started = initialize_distributed(device=args.device)
+    try:
+        return _run(args, cfg)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(args, cfg) -> list:
+    """``main`` after the process group (if any) is up: a mesh when one
+    is."""
     from .config import config_from_dict, load_config, save_configure
     from .ops._backend import get_device
+    from .parallel import make_mesh
     from .training.trainer import train_net, write_cross_validation
     from .utils.logging import configure_logger
 
-    device = get_device(args.device)
     overrides = dict(
         pretrain=args.pretrain, amp=args.amp, batch_size=args.batch_size,
         resume=args.resume, load=args.load, cp_path=args.cp_path,
@@ -78,6 +101,9 @@ def main(argv=None, cfg=None) -> list:
     if cfg.pretrain and not cfg.get("init_model"):
         logging.warning("--pretrain set but no --init_model/config "
                         "init_model checkpoint given; training from scratch")
+    mesh = make_mesh(cfg) if dist.is_initialized() else None
+    device = mesh.device if mesh is not None else get_device(args.device)
+    lead = mesh is None or mesh.rank == 0
     if cfg.reproduce_seed is not None:
         random.seed(cfg.reproduce_seed)
         np.random.seed(cfg.reproduce_seed)
@@ -87,16 +113,21 @@ def main(argv=None, cfg=None) -> list:
     results = []
     for fold_idx in range(n_folds):
         cp_dir = os.path.join(cfg.cp_path, cfg.dataset, cfg.unique_name)
-        os.makedirs(cp_dir, exist_ok=True)
-        configure_logger(os.path.join(cp_dir, f"fold_{fold_idx}.txt"))
-        save_configure(cfg, cp_dir)
+        if lead:
+            os.makedirs(cp_dir, exist_ok=True)
+            configure_logger(os.path.join(cp_dir, f"fold_{fold_idx}.txt"))
+            save_configure(cfg, cp_dir)
+        else:
+            configure_logger(None)
+            logging.getLogger().setLevel(logging.WARNING)
         logging.info("\nDataset: %s,\nModel: %s,\nDimension: %s",
                      cfg.dataset, cfg.model, cfg.dimension)
-        results.append(train_net(cfg, fold_idx, device=device))
+        results.append(train_net(cfg, fold_idx, device=device, mesh=mesh))
         logging.info("Training on Fold %d is done", fold_idx)
 
-    write_cross_validation(cfg, *zip(*results))
-    print(f"All {n_folds} folds done.")
+    if lead:
+        write_cross_validation(cfg, *zip(*results))
+        print(f"All {n_folds} folds done.")
     return results
 
 

@@ -12,6 +12,14 @@ the mode it is evaluated in.  Parameters,
 gradients and optimizer state stay fp32, as in the JAX package; bf16 needs
 no GradScaler.  Unlike the JAX step, which returns a new state, this one
 updates the model, the optimizer state and the EMA copy in place.
+
+Under data parallelism (``mesh``, ``parallel.make_mesh``) each rank steps
+on its rows of the global batch: the live model trains wrapped in
+``DistributedDataParallel`` (the EMA copy never is), the loss is the global
+batch's (``ops.losses``'s ``group``), every BatchNorm normalises with the
+global batch's statistics (``layers.convs.sync_batch_norm``), and DDP's
+mean over the ranks of W times each rank's gradient is the global loss's
+gradient, as on the JAX mesh.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 from torch import nn
 
 from ..config import compute_dtype
+from ..models.layers.convs import sync_batch_norm
 from ..ops.losses import deep_supervision_loss
 from .optim import get_optimizer, set_lr
 
@@ -41,8 +50,8 @@ class TrainState:
         self.generator = generator
 
 
-def create_train_state(model: nn.Module, cfg,
-                       seed: int | None = None) -> TrainState:
+def create_train_state(model: nn.Module, cfg, seed: int | None = None,
+                       mesh=None) -> TrainState:
     """Optimizer over every parameter, and an EMA copy (eval mode) when
     ``cfg.ema``.  Every stochastic module of the model with a nonzero rate
     (a module with a rate ``p`` and a ``generator`` slot: ``DropPath``,
@@ -50,17 +59,23 @@ def create_train_state(model: nn.Module, cfg,
     ``torch.Generator`` on the model's device, which the state owns, seeded
     from ``seed`` (default: the run's ``split_seed``, the JAX step's
     dropout seed) as the input pipeline seeds its own; the EMA copy
-    evaluates in eval mode and draws none."""
+    evaluates in eval mode and draws none.  With a ``mesh`` the generator
+    is seeded ``seed + rank`` (each rank draws its own rows' masks), and
+    the live model's BatchNorms take the global batch's statistics."""
     opt = get_optimizer(cfg, model.parameters())
     ema = None
     if cfg.get("ema", False):
         ema = copy.deepcopy(model).requires_grad_(False).eval()
+    if mesh is not None:
+        sync_batch_norm(model, mesh.group)    # after the copy: see its doc
     drops = [m for m in model.modules()
              if hasattr(m, "generator") and getattr(m, "p", 0)]
     generator = None
     if drops:
         if seed is None:
             seed = int(cfg.get("split_seed", 0) or 0)
+        if mesh is not None:
+            seed += mesh.rank
         device = next(model.parameters()).device
         generator = torch.Generator(device=device).manual_seed(seed)
         for m in drops:
@@ -68,11 +83,26 @@ def create_train_state(model: nn.Module, cfg,
     return TrainState(model, opt, ema, generator=generator)
 
 
-def make_train_step(model: nn.Module, opt: torch.optim.Optimizer, cfg):
+def make_train_step(model: nn.Module, opt: torch.optim.Optimizer, cfg,
+                    mesh=None):
     """``train_step(state, img, lab, lr) -> loss`` for img (B, *spatial, C)
     float and lab (B, *spatial) int on the model's device.  The returned
-    loss is a detached device scalar: reading it synchronises."""
+    loss is a detached device scalar: reading it synchronises.  With a
+    ``mesh`` img and lab are this rank's rows of the global batch, and the
+    loss is the global batch's, the same on every rank."""
     params = list(model.parameters())
+    net, group = model, None
+    if mesh is not None:
+        group = mesh.group
+        cuda = params[0].is_cuda
+        # static_graph: the set of parameters that take a gradient never
+        # changes, so DDP finds the unused ones (DAUNet's heads) in the
+        # first step alone, where find_unused_parameters would walk the
+        # autograd graph every step; their gradients stay None and are
+        # filled below, after the reduction
+        net = nn.parallel.DistributedDataParallel(
+            model, device_ids=[params[0].device] if cuda else None,
+            process_group=group, static_graph=True)
     class_weights = None
     if cfg.get("weight"):
         # on the device once: building it per step would copy (and sync)
@@ -89,16 +119,17 @@ def make_train_step(model: nn.Module, opt: torch.optim.Optimizer, cfg):
         x = img.movedim(-1, 1)
         with torch.autocast("cuda", dtype=torch.bfloat16,
                             enabled=amp and x.is_cuda):
-            out = model(x)
+            out = net(x)
             outs = out if isinstance(out, (list, tuple)) else [out]
             loss = deep_supervision_loss(outs, lab, aux_weight,
-                                         class_weights, rlt)
+                                         class_weights, rlt, group)
         loss.backward()
         # a parameter that no output reads (DAUNet's three unused heads,
         # MedFormer-2D's last semantic-map reductions) has no gradient, and
         # torch's optimizers skip it; the JAX step gives it a zero gradient,
         # so optax decays it (AdamW) or adds its L2 term (Adam): a zero
-        # gradient here takes the same update
+        # gradient here takes the same update (on every rank alike: no
+        # rank's output reads it)
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)

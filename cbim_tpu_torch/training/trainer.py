@@ -1,5 +1,5 @@
 """The training runtime (counterpart of ``cbim_tpu/training/trainer.py``;
-reference train.py:51-135 train_net / train_epoch), on one device.
+reference train.py:51-135 train_net / train_epoch).
 
 One fold: dataset, input pipeline, model, optimizer; the epoch loop with
 the per-epoch LR, the train step, the next batch prepared while the step
@@ -10,8 +10,18 @@ after its first two (first use of every kernel, cuDNN's algorithm search)
 are traced (``utils.profiling``).  Every ``val_freq`` epochs the EMA model
 (the live one without EMA) is evaluated on the fold's test split
 (``validation.validate``: Dice, ASD, HD95), the scalars logged, and the best
-evaluation by mean Dice kept, with its checkpoint.  Data parallelism is not
-ported yet (ROADMAP.md).
+evaluation by mean Dice kept, with its checkpoint.
+
+Data parallelism (``mesh``, ``parallel.make_mesh``): every rank runs this
+loop on ``cfg.batch_size // W`` rows of the global batch (W must divide it,
+as on the JAX mesh), with the global batch's loss, gradient and BatchNorm
+statistics (``train_state``); an epoch has as many steps as one process
+would take, and ``Perf/volumes_per_sec_per_chip`` divides by W, as JAX
+divides by its device count.  Rank 0 alone writes the checkpoints (the
+unwrapped model's state_dict) and the scalars, each save followed by a
+barrier; every rank evaluates (``validate`` with the mesh: the same
+result on every rank, so they keep the same best) and resumes from the
+same checkpoint.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.factory import get_dataset
 from ..data.pipeline import TrainPipeline
@@ -51,31 +62,55 @@ def load_pretrained(cfg, state) -> None:
         state.ema.load_state_dict(state.model.state_dict())
 
 
-def train_net(cfg, fold_idx: int = 0, device="cuda"):
+class _NoWriter:
+    """The scalar sink of a rank other than 0: writes nothing."""
+
+    def add_scalar(self, tag, value, step):
+        pass
+
+    def close(self):
+        pass
+
+
+def train_net(cfg, fold_idx: int = 0, device="cuda", mesh=None):
     """Train one fold on ``device`` (the card unless the caller asks for the
     CPU); returns (best_dice, best_hd, best_asd): the arrays of the best
     evaluation, or the initial zeros and 1000s when none ran or every one
-    was NaN (an empty test split)."""
+    was NaN (an empty test split).  ``mesh``: this rank's place in a
+    data-parallel run (module docstring)."""
     device = get_device(device)
+    W = mesh.size if mesh is not None else 1
+    if cfg.batch_size % W:
+        raise ValueError(f"batch_size {cfg.batch_size} does not divide over "
+                         f"{W} ranks")
+    lead = mesh is None or mesh.rank == 0
     trainset = get_dataset(cfg, mode="train", fold_idx=fold_idx)
     testset = get_dataset(cfg, mode="test", fold_idx=fold_idx)
     pipeline = TrainPipeline(trainset, cfg, seed=cfg.split_seed + fold_idx,
-                             device=device)
+                             device=device, mesh=mesh)
     logging.info("Created Dataset and Pipeline")
 
     model = get_model(cfg, device=device, train=True,
                       generator=torch.Generator().manual_seed(
                           cfg.split_seed + 1000 * fold_idx))
     state = create_train_state(model, cfg,
-                               seed=cfg.split_seed + fold_idx)
+                               seed=cfg.split_seed + fold_idx, mesh=mesh)
     n_params = sum(p.numel() for p in model.parameters())
     logging.info("Created Model (%s, %.2fM params)", cfg.model, n_params / 1e6)
-    train_step = make_train_step(model, state.optimizer, cfg)
 
     ckpt_dir = os.path.join(cfg.cp_path, cfg.dataset, cfg.unique_name)
-    os.makedirs(ckpt_dir, exist_ok=True)
-    writer = MetricWriter(os.path.join(cfg.log_path, cfg.dataset,
-                                       cfg.unique_name, f"fold_{fold_idx}"))
+    writer = _NoWriter()
+    if lead:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        writer = MetricWriter(os.path.join(cfg.log_path, cfg.dataset,
+                                           cfg.unique_name,
+                                           f"fold_{fold_idx}"))
+
+    def save(name: str, epoch: int) -> None:
+        if lead:
+            save_checkpoint(os.path.join(ckpt_dir, name), state, epoch)
+        if mesh is not None:
+            dist.barrier(group=mesh.group)
 
     start_epoch = cfg.start_epoch
     if cfg.resume and cfg.load:
@@ -84,6 +119,8 @@ def train_net(cfg, fold_idx: int = 0, device="cuda"):
     elif cfg.pretrain and cfg.get("init_model"):
         load_pretrained(cfg, state)
         logging.info("Initialized from checkpoint %s", cfg.init_model)
+    # after the weights are set: DDP takes rank 0's as it wraps the model
+    train_step = make_train_step(model, state.optimizer, cfg, mesh)
 
     if cfg.dimension == "2d":
         # an epoch is the reference DataLoader's: slice count // batch
@@ -112,7 +149,7 @@ def train_net(cfg, fold_idx: int = 0, device="cuda"):
                                  prefix=f"Epoch: [{epoch + 1}]")
 
         profiler = None
-        if cfg.get("profile_dir") and epoch == start_epoch:
+        if cfg.get("profile_dir") and epoch == start_epoch and lead:
             profiler = StepProfiler(cfg.profile_dir, device)
         tic = time.time()
         img, lab = pipeline.next_batch(cfg.batch_size)
@@ -143,28 +180,24 @@ def train_net(cfg, fold_idx: int = 0, device="cuda"):
 
         if batch_time.count:
             writer.add_scalar("Perf/volumes_per_sec_per_chip",
-                              cfg.batch_size / max(batch_time.avg, 1e-9),
+                              cfg.batch_size / W / max(batch_time.avg, 1e-9),
                               epoch + 1)
         writer.add_scalar("Train/Loss", epoch_loss.avg, epoch + 1)
         writer.add_scalar("LR", lr, epoch + 1)
         save_ckpt = cfg.get("save_ckpt", True)
         if save_ckpt:
-            save_checkpoint(os.path.join(ckpt_dir,
-                                         f"fold_{fold_idx}_latest.ckpt"),
-                            state, epoch + 1)
+            save(f"fold_{fold_idx}_latest.ckpt", epoch + 1)
 
         if (epoch + 1) % cfg.val_freq == 0:
             dice, asd, hd = validate(eval_model, testset, cfg,
-                                     engine=eval_engine)
+                                     engine=eval_engine, mesh=mesh)
             dice, asd, hd = filter_validation_results(dice, asd, hd, cfg)
             log_evaluation_result(writer, dice, asd, hd, "test", epoch)
             if np.nanmean(dice) >= best_mean:
                 best_mean = float(np.nanmean(dice))
                 best_dice, best_hd, best_asd = dice, hd, asd
                 if save_ckpt:
-                    save_checkpoint(os.path.join(
-                        ckpt_dir, f"fold_{fold_idx}_best.ckpt"), state,
-                        epoch + 1)
+                    save(f"fold_{fold_idx}_best.ckpt", epoch + 1)
             logging.info("Evaluation Done")
             logging.info("Dice: %.4f / Best Dice: %.4f", np.nanmean(dice),
                          best_mean)

@@ -11,9 +11,15 @@ The forward runs in the recipe's compute dtype, as the JAX package's does:
 ``make_engine`` puts an fp32 (trained) model under bf16 autocast when the
 config asks for bf16.
 
-One process only: the multi-process reduction of the JAX package's
-``validate`` (its ``process_allgather`` of per-class sums) and its
-``*_sharded`` engines come with data parallelism (ROADMAP.md, A7).
+Under data parallelism (``mesh``) JAX's process is the port's node and
+JAX's 'data' devices of a host are the node's ranks: each node takes every
+n-th volume (``cbim_tpu`` validation.py:72-78), the node's ranks sweep each
+of its volumes together with the engine's ``*_sharded`` methods, the
+node's first rank scores it, and the per-class sums and counts are summed
+over every rank in float64 (JAX's ``process_allgather``, :123-135), so
+that every rank returns the same dice, asd and hd.  JAX's case of striding
+volumes over processes while sharding each over a mesh that spans those
+processes has no counterpart.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import logging
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..inference.engines import make_engine
 from ..ops.metrics import calculate_distance
@@ -48,23 +55,36 @@ def filter_validation_results(dice, asd, hd, cfg):
     return dice, asd, hd
 
 
-def predict_labels(engine, img: np.ndarray, cfg, device) -> np.ndarray:
+def predict_labels(engine, img: np.ndarray, cfg, device,
+                   mesh=None) -> np.ndarray:
     """The label map (uint8, img's shape) of one test volume: the volume to
     ``device``, the engine's softmax and its argmax there, the labels to
-    the host."""
+    the host.  With a ``mesh`` of more than one rank on the node the sweep
+    is the engine's sharded one (a 3D whole image stays whole, as in
+    JAX)."""
     x = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(device)
+    sharded = mesh is not None and mesh.local_size > 1
     if cfg.dimension == "2d":
         inputs = x[..., None]                         # (D, H, W, 1): slices
-        probs = (engine.sliding_window_slices(inputs) if cfg.sliding_window
-                 else engine.whole_image(inputs))
+        if sharded:
+            probs = (engine.sliding_window_slices_sharded(inputs, mesh)
+                     if cfg.sliding_window
+                     else engine.whole_image_sharded(inputs, mesh))
+        else:
+            probs = (engine.sliding_window_slices(inputs)
+                     if cfg.sliding_window else engine.whole_image(inputs))
     else:
         inputs = x[None, ..., None]                   # (1, D, H, W, 1)
-        probs = (engine.sliding_window(inputs) if cfg.sliding_window
-                 else engine.whole_image(inputs))[0]
+        if cfg.sliding_window:
+            probs = (engine.sliding_window_sharded(inputs, mesh) if sharded
+                     else engine.sliding_window(inputs))
+        else:
+            probs = engine.whole_image(inputs)
+        probs = probs[0]
     return probs.argmax(-1).to(torch.uint8).cpu().numpy()
 
 
-def validate(model: torch.nn.Module, testset, cfg, engine=None):
+def validate(model: torch.nn.Module, testset, cfg, engine=None, mesh=None):
     """Returns (dice, asd, hd) arrays of length classes-1 (background
     excluded): each class's mean over the test volumes whose ground truth
     holds it, NaN where none does.
@@ -72,7 +92,9 @@ def validate(model: torch.nn.Module, testset, cfg, engine=None):
     ``model`` is evaluated in eval mode (its mode is restored after);
     ``engine`` is an ``InferenceEngine`` around it (``make_engine``), built
     here when not given: the trainer keeps one per fold, and the EMA module
-    it wraps is updated in place between evaluations.
+    it wraps is updated in place between evaluations.  ``mesh``
+    (``parallel.make_mesh``): every rank of the run calls it and gets the
+    same result (module docstring).
     """
     if engine is None:
         engine = make_engine(model, cfg)
@@ -85,10 +107,16 @@ def validate(model: torch.nn.Module, testset, cfg, engine=None):
     logging.info("Evaluating (%d volumes)", len(testset))
     was_training = model.training
     model.eval()
+    # the node's first rank scores what the node's ranks sweep
+    scores = mesh is None or mesh.local_rank == 0
     try:
         for idx in range(len(testset)):
+            if mesh is not None and idx % mesh.nodes != mesh.node:
+                continue
             img, lab, spacing = testset.test_item(idx)
-            pred = predict_labels(engine, img, cfg, device)
+            pred = predict_labels(engine, img, cfg, device, mesh)
+            if not scores:
+                continue
             lab = np.asarray(lab)
             tmp_asd, tmp_hd = calculate_distance(pred, lab, spacing, C)
             # NaN/inf -> 500 clip (validation.py:59-60)
@@ -106,6 +134,18 @@ def validate(model: torch.nn.Module, testset, cfg, engine=None):
                     hd_acc[cls].append(tmp_hd[cls])
     finally:
         model.train(was_training)
+
+    if mesh is not None:
+        def row(acc):
+            return [[float(np.sum(d)), len(d)] for d in acc]
+
+        sums = torch.tensor([row(dice_acc), row(asd_acc), row(hd_acc)],
+                            dtype=torch.float64, device=mesh.device)
+        dist.all_reduce(sums, group=mesh.group)
+        total = sums.cpu().numpy()        # (3, C-1, 2)
+        with np.errstate(invalid="ignore"):
+            out = total[..., 0] / total[..., 1]
+        return out[0], out[1], out[2]
 
     out_dice = np.array([np.mean(d) if d else np.nan for d in dice_acc])
     out_asd = np.array([np.mean(d) if d else np.nan for d in asd_acc])

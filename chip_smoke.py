@@ -157,6 +157,17 @@ Phases, each printing its result; any failure raises and exits non-zero:
    include the forward that remat recomputes in the backward pass: per
    step 40 ``conv3d_same_fwd_tc``, 20 ``conv3d_dgrad_tc`` and 20
    ``conv3d_wgrad_tc``, and no CUDA-core 3^3 launch;
+6d. data parallelism: phase 6's recipe, from its seed, for 2 steps
+   through ``cbim_tpu_torch.train.main`` under a one-process NCCL group
+   (``parallel.initialize_distributed`` as for one rank of ``torchrun``):
+   the live model trains wrapped in ``DistributedDataParallel`` (every
+   step's forward goes through it), the loss and its gradient are the
+   global batch's; the losses within 1e-3 relative of phase 6's first
+   two, each step's launches of every kernel equal to phase 6's per
+   step; sec/step and peak memory beside phase 6's.  Then phase 4e's small
+   MedFormer-3D and test volume in the same group: ``sliding_window_sharded``
+   at W = 1 against ``sliding_window`` (1e-6) and ``validate(mesh=...)``
+   against ``validate`` (Dice 1e-6, distances 1e-9 relative);
 6b. the same recipe with ``conv_na: true``: per step 40
    ``conv3d_same_na_fwd_tc`` (remat incl.), 20 ``conv3d_wgrad_na_tc`` and
    20 ``conv3d_dgrad_tc`` launches, no other 3^3 launch (the CUDA-core
@@ -673,6 +684,18 @@ VAL_DICE_ATOL = 1e-3
 #: steps left out of the step-time median (first use of every kernel and
 #: of cuDNN's algorithm search)
 WARMUP_STEPS = 2
+#: phase 6d: the flagship recipe under a one-process NCCL group, 2 steps
+#: from phase 6's seed (the least that shows a step after an update, for
+#: the script's time budget); its losses against phase 6's (the same
+#: kernels on the same batches; the group's sums of one rank and DDP's mean
+#: over one rank change the loss only by fp32 rounding, bf16's
+#: nondeterminism aside)
+FLAGSHIP_DDP = dict(FLAGSHIP, iter_per_epoch=2)
+DDP_LOSS_RTOL = 1e-3
+#: phase 6d: the sharded sweep at W = 1 against the unsharded one (the
+#: same windows in the same groups and order), validate's Dice and
+#: distances with the group's float64 sums against the one-process means
+DDP_PROB_ATOL, DDP_DICE_ATOL, DDP_DISTANCE_RTOL = 1e-6, 1e-6, 1e-9
 #: phase 6p: the flagship recipe with ``proj_type: linear`` and dropouts
 #: of 0.1 (the map-to-feature attention and the feature output of every
 #: B-MHA block), 3 steps
@@ -2492,11 +2515,11 @@ def phase_train_validate(device, cfg_dict, batch: int, name: str) -> dict:
     predict, calculate = validation.predict_labels, \
         validation.calculate_distance
 
-    def timed_predict(engine, img, cfg, dev):
+    def timed_predict(*args):
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
-        labels = predict(engine, img, cfg, dev)       # ends on the host
+        labels = predict(*args)                       # ends on the host
         sweep.append(time.perf_counter() - t0)
         peaks.append(torch.cuda.max_memory_allocated(device))
         return labels
@@ -3149,6 +3172,92 @@ def pipeline_recorder():
 
 
 @contextlib.contextmanager
+def one_rank_group():
+    """A one-process NCCL group, started by ``initialize_distributed`` from
+    the environment ``torchrun`` gives one rank of one node; the group
+    destroyed and the environment restored after."""
+    import torch.distributed as dist
+    from cbim_tpu_torch.parallel import initialize_distributed
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1", GROUP_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        assert initialize_distributed(device="cuda", group=True)
+        assert dist.get_backend() == "nccl"
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def ddp_recorder():
+    """While inside: the ``DistributedDataParallel`` wrappers built and
+    their forwards."""
+    import torch
+    seen = {"wrappers": 0, "forwards": 0}
+    real = torch.nn.parallel.DistributedDataParallel
+
+    class Counted(real):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            seen["wrappers"] += 1
+
+        def forward(self, *args, **kw):
+            seen["forwards"] += 1
+            return super().forward(*args, **kw)
+
+    torch.nn.parallel.DistributedDataParallel = Counted
+    try:
+        yield seen
+    finally:
+        torch.nn.parallel.DistributedDataParallel = real
+
+
+def phase_small_sharded(device) -> dict:
+    """Phase 6d's second half, inside the one-process group: phase 4e's
+    small model (same seeded weights) on its test volume, the sharded
+    sweep at W = 1 against the unsharded one, and ``validate`` with the
+    mesh against ``validate`` without."""
+    import numpy as np
+    import torch
+    from cbim_tpu_torch.config import config_from_dict
+    from cbim_tpu_torch.data.datasets import Synthetic3D
+    from cbim_tpu_torch.inference.engines import make_engine
+    from cbim_tpu_torch.models import get_model
+    from cbim_tpu_torch.parallel import make_mesh
+    from cbim_tpu_torch.training.validation import validate
+    cfg = config_from_dict(SMALL_VAL)
+    mesh = make_mesh(cfg)
+    assert mesh.size == 1 and mesh.device == device, mesh
+    model = get_model(cfg, device=device)
+    model.load_state_dict(seeded_model(cfg, 5).state_dict())
+    testset = Synthetic3D(cfg, mode="test", k_fold=cfg.k_fold)
+    img = testset.test_item(0)[0]
+    x = torch.from_numpy(np.ascontiguousarray(img, np.float32)).to(
+        device)[None, ..., None]
+    engine = make_engine(model, cfg)
+    ref = engine.sliding_window(x)
+    out = engine.sliding_window_sharded(x, mesh)
+    prob_err = float((out - ref).abs().max())
+    one = validate(model, testset, cfg, engine=engine)
+    got = validate(model, testset, cfg, engine=engine, mesh=mesh)
+    dice_err = float(np.nanmax(np.abs(got[0] - one[0])))
+    dist_err = max(float(np.nanmax(np.abs(g - o) / np.maximum(np.abs(o),
+                                                             1e-30)))
+                   for g, o in zip(got[1:], one[1:]))
+    return {"prob_err": prob_err, "dice_err": dice_err,
+            "dist_err": dist_err, "dice": got[0]}
+
+
+@contextlib.contextmanager
 def drop_path_recorder():
     """While inside: the stochastic-depth draws of training-mode forwards
     (calls of ``layers.convs.drop_path``, which ``DropPath`` calls) and the
@@ -3782,6 +3891,43 @@ def main(argv=None) -> int:
     if args.profile:
         say_profile(os.path.join(args.profile, "flagship"))
     launches["6"] = tr["launches"]
+
+    say("[phase 6d] the flagship recipe under a one-process NCCL group "
+        f"(DDP), {FLAGSHIP_DDP['iter_per_epoch']} steps from phase 6's seed")
+    with one_rank_group(), ddp_recorder() as ddp:
+        tr_d = phase_train(device, FLAGSHIP_DDP, TRAIN_BATCH, "flagship_ddp",
+                           ("inorm_stats", "inorm_apply", "inorm_bwd_stats",
+                            "inorm_bwd_apply") + TC_CONV_KERNELS,
+                           min_steps=FLAGSHIP_DDP["iter_per_epoch"])
+        sharded = phase_small_sharded(device)
+    say_train(tr_d, "volumes")
+    steps_d = len(tr_d["step_seconds"])
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(tr_d["losses"], tr["losses"]))
+    say(f"  {ddp['wrappers']} DDP wrapper, {ddp['forwards']} forwards "
+        f"through it; losses vs phase 6's: max rel diff {loss_err:.3e} (tol "
+        f"{DDP_LOSS_RTOL:.0e}); DDP vs phase 6: {tr_d['median']:.3f} vs "
+        f"{tr['median']:.3f} s/step, peak "
+        f"{tr_d['peak_bytes'] / 2 ** 30:.2f} vs "
+        f"{tr['peak_bytes'] / 2 ** 30:.2f} GiB")
+    assert ddp["wrappers"] == 1 and ddp["forwards"] == steps_d, ddp
+    assert steps_d == FLAGSHIP_DDP["iter_per_epoch"] and \
+        loss_err <= DDP_LOSS_RTOL, (tr_d["losses"], tr["losses"])
+    # the kernels still run under DDP: each step launches what phase 6's
+    # step launches
+    assert all(v % steps == 0 and tr_d["launches"][k] == v // steps * steps_d
+               for k, v in tr["launches"].items()), \
+        (tr_d["launches"], tr["launches"])
+    say(f"  small model at W = 1: sliding_window_sharded vs sliding_window "
+        f"max abs diff {sharded['prob_err']:.2e} (tol {DDP_PROB_ATOL:.0e}); "
+        f"validate(mesh) vs validate: Dice {sharded['dice_err']:.2e} (tol "
+        f"{DDP_DICE_ATOL:.0e}), distances rel {sharded['dist_err']:.2e} "
+        f"(tol {DDP_DISTANCE_RTOL:.0e}); Dice "
+        f"{[round(float(v), 4) for v in sharded['dice']]}")
+    assert sharded["prob_err"] <= DDP_PROB_ATOL and \
+        sharded["dice_err"] <= DDP_DICE_ATOL and \
+        sharded["dist_err"] <= DDP_DISTANCE_RTOL, sharded
+    launches["6d"] = tr_d["launches"]
 
     say("[phase 6b] the flagship recipe with conv_na: the fused preact conv")
     tr_na = phase_train(device, profiled(dict(FLAGSHIP, conv_na=True),

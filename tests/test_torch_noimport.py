@@ -54,6 +54,9 @@ MODULES = [
     "cbim_tpu_torch.models.daunet",
     "cbim_tpu_torch.models.transunet",
     "cbim_tpu_torch.inference.engines",
+    "cbim_tpu_torch.parallel",
+    "cbim_tpu_torch.parallel.collectives",
+    "cbim_tpu_torch.parallel.mesh",
     "cbim_tpu_torch.prediction",
     "cbim_tpu_torch.utils.jax_import",
     "cbim_tpu_torch.utils.flax_msgpack",

@@ -307,7 +307,7 @@ def test_best_rule_matches_the_jax_trainer(tmp_path, monkeypatch, means,
     port_log, jax_log, jax_saves = [], [], []
     monkeypatch.setattr(trainer, "validate", _fake_validate(means, port_log))
     monkeypatch.setattr(trainer, "make_train_step",
-                        lambda model, opt, cfg:
+                        lambda model, opt, cfg, mesh=None:
                         lambda state, img, lab, lr: torch.zeros(()))
     monkeypatch.setattr(jax_trainer, "validate",
                         _fake_validate(means, jax_log))
