@@ -9,9 +9,10 @@ channels-last layout.
 
 The kernels that ``cbim_tpu`` wrote in Pallas for the TPU are CUDA kernels
 written for sm_90a (``csrc/``), built with nvcc on first use and bound with
-ctypes (``ops/kernels``).  A wrapper launches its kernel for a CUDA tensor
-and runs its plain PyTorch version for a CPU tensor; there is no fallback
-from one to the other.
+ctypes (``ops/kernels``), each model-path kernel a ``torch.library``
+custom op (``torch.ops.cbim.*``) that ``torch.export`` traces.  A wrapper
+launches its kernel for a CUDA tensor and runs its plain PyTorch version
+for a CPU tensor; there is no fallback from one to the other.
 
 This package imports ``torch`` and never ``jax``, and nothing of
 ``cbim_tpu``: where it needs a numpy/scipy host module of that package

@@ -10,6 +10,10 @@ Two ways to the device, chosen as the JAX package chooses them
   sends only the window starts, and the windows are sliced on the device;
 - the host windows (otherwise): each step copies the batch's precrop
   windows into pinned host memory and moves them with a non-blocking copy.
+  In 3D the native batch assembler (``data/native.py``, as the JAX package
+  uses ``native/cbim_host.cpp``) writes them straight into the pinned
+  tensors on a pool of threads; ``native = False`` on a pipeline takes the
+  numpy copy instead, which gives the same bytes.
 
 Then, on the device:
 
@@ -347,6 +351,9 @@ class TrainPipeline:
         self._perm_pos = 0
         self.fullvol = False          # set by _init_device_cache when taken
         self.cache_img = None         # the device cache, when taken
+        # the native batch assembler copies the 3D host windows (2D
+        # batches of slices are small)
+        self.native = self.ndim == 3
 
         mode = cfg.get("device_cache", "auto")
         if mode in (True, "auto") and len(dataset.images) > 0:
@@ -488,22 +495,35 @@ class TrainPipeline:
         rows = self._rows(batch_size)
         B = rows.stop - rows.start
         pin = self.device.type == "cuda"
-        imgs = torch.zeros((B, *self.buffer_shape, 1),
-                           dtype=torch.float32, pin_memory=pin)
-        labs = torch.zeros((B, *self.buffer_shape), dtype=torch.int8,
-                           pin_memory=pin)
+        # the assembler writes every byte, zeros included
+        alloc = torch.empty if self.native else torch.zeros
+        imgs = alloc((B, *self.buffer_shape, 1), dtype=torch.float32,
+                     pin_memory=pin)
+        labs = alloc((B, *self.buffer_shape), dtype=torch.int8,
+                     pin_memory=pin)
         np_imgs, np_labs = imgs.numpy(), labs.numpy()
         idxs = self._draw_indices(batch_size)
+        mine, windows = [], []
         for j, idx in enumerate(idxs):
             img, lab = self.ds.images[idx], self.ds.labels[idx]
             starts, sizes, offs = self._window_coords(img.shape)
             i = j - rows.start
             if not 0 <= i < B:
                 continue
+            if self.native:
+                mine.append(idx)
+                windows.append(starts + sizes + offs)
+                continue
             src = tuple(slice(s0, s0 + w) for s0, w in zip(starts, sizes))
             dst = tuple(slice(o, o + w) for o, w in zip(offs, sizes))
             np_imgs[(i, *dst, 0)] = img[src]
             np_labs[(i, *dst)] = lab[src]
+        if self.native:
+            from . import native
+            native.assemble_batch([self.ds.images[k] for k in mine],
+                                  [self.ds.labels[k] for k in mine],
+                                  np.asarray(windows, np.int64),
+                                  np_imgs[..., 0], np_labs)
         return imgs, labs
 
     def host_batch(self, batch_size: int):

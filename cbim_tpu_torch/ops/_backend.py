@@ -47,6 +47,20 @@ def uses_kernels(t: torch.Tensor) -> bool:
     raise RuntimeError(f"no kernel or plain version for device {t.device}")
 
 
+def check_device(t: torch.Tensor) -> None:
+    """Raise unless ``t`` lies where a kernel (an sm_90 card) or a plain
+    version (the CPU) runs: the wrappers' check before they call an op,
+    which would otherwise find no implementation."""
+    uses_kernels(t)
+
+
+def require_kernels(t: torch.Tensor) -> None:
+    """The ops' CUDA implementations: raise unless ``t`` is a tensor the
+    kernels take (:func:`uses_kernels`)."""
+    if not uses_kernels(t):
+        raise ValueError(f"kernel needs a CUDA tensor, got {t.device}")
+
+
 def dtype_code(t: torch.Tensor) -> int:
     """The kernels' dtype argument: 0 float32, 1 bfloat16."""
     if t.dtype == torch.float32:

@@ -1,5 +1,9 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions
-(``probes``: the instruments that port the JAX package's TPU probes)."""
+(``probes``: the instruments that port the JAX package's TPU probes).
+
+Importing this package registers the model-path kernels as the
+``torch.library`` custom ops ``torch.ops.cbim.*`` (``_library``), which is
+all that loading an exported program needs."""
 
 from __future__ import annotations
 

@@ -40,6 +40,12 @@ to [3, 3, C, F] (a copy of 9*C*F values) so the kernel reads rows of output
 channels (the tensor-core entry packs its own), and the wgrad wrappers give
 back torch's [F, C, 3, 3].  CPU tensors take the plain versions:
 ``F.conv2d`` with padding 1 and ``torch.nn.grad.conv2d_weight``.
+
+Each public kernel function (:func:`conv2d_same`, :func:`conv2d_dgrad`,
+:func:`conv2d_wgrad`) checks its arguments and calls the ``torch.library``
+custom op of its name (``torch.ops.cbim.conv2d_same`` ...; ``_library``):
+its CUDA implementation (``conv2d_same_cuda`` ...) picks the route,
+launches and counts; its CPU implementation is the plain version.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _backend
-from . import _build
+from . import _build, _library
 from .conv3d import (CUDA_CORE, TC_CHUNK, TENSOR_CORE, TF32_CHUNK,
                      TF32_PITCH, TF32_WGRAD_TILE, TF32X3, conv3d_route,
                      tc_tile_n, tf32_split, tf32_tile_n, wgrad_chunking,
@@ -289,11 +295,17 @@ def conv2d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     The counterpart of ``cbim_tpu.ops.pallas.conv2d.conv2d_same`` (which
     takes w as [3, 3, C, F]).  CUDA tensors launch the kernel of
-    :func:`conv2d_route`, CPU tensors run the plain version.  No autograd:
-    see :class:`Conv2dSame`."""
+    :func:`conv2d_route`, CPU tensors run the plain version (the op
+    ``cbim::conv2d_same``).  No autograd: see :class:`Conv2dSame`."""
     _check(x, w)
-    if not _backend.uses_kernels(x):
-        return conv2d_same_plain(x, w)
+    _backend.check_device(x)
+    return torch.ops.cbim.conv2d_same(x, w)
+
+
+def conv2d_same_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``cbim::conv2d_same`` on the card: the forward kernel of
+    :func:`conv2d_route`."""
+    _backend.require_kernels(x)
     return _launch_route(conv2d_route(x.dtype, x.shape[-1], w.shape[0]), x,
                          w)
 
@@ -301,12 +313,23 @@ def conv2d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def conv2d_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Input gradient of :func:`conv2d_same`: the forward kernel of the
     same route on the upstream gradient g[B, H, W, F] with
+    ``flip_swap(w)`` (the op ``cbim::conv2d_dgrad``)."""
+    _check(g, flip_swap(w))
+    _backend.check_device(g)
+    return torch.ops.cbim.conv2d_dgrad(g, w)
+
+
+def conv2d_dgrad_plain(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`conv2d_dgrad`: ``conv2d_same_plain`` with
     ``flip_swap(w)``."""
-    ws = flip_swap(w)
-    _check(g, ws)
-    if not _backend.uses_kernels(g):
-        return conv2d_same_plain(g, ws)
-    return _launch_route(conv2d_route(g.dtype, g.shape[-1], ws.shape[0]), g,
+    return conv2d_same_plain(g, flip_swap(w))
+
+
+def conv2d_dgrad_cuda(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``cbim::conv2d_dgrad`` on the card: the forward kernel of the route
+    on g with the flip, counted as the route's dgrad."""
+    _backend.require_kernels(g)
+    return _launch_route(conv2d_route(g.dtype, g.shape[-1], w.shape[1]), g,
                          w, flip=True)
 
 
@@ -437,10 +460,18 @@ def conv2d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
     The counterpart of ``cbim_tpu.ops.pallas.conv2d.conv2d_wgrad`` (which
     returns [3, 3, C, F]).  CUDA tensors launch the kernel of
-    :func:`conv2d_route`, CPU tensors run the plain version."""
+    :func:`conv2d_route`, CPU tensors run the plain version (the op
+    ``cbim::conv2d_wgrad``).  On either device dW is a view of a [3, 3, C,
+    F] tensor, the kernels' output."""
     _check_wgrad(x, g)
-    if not _backend.uses_kernels(x):
-        return conv2d_wgrad_plain(x, g)
+    _backend.check_device(x)
+    return torch.ops.cbim.conv2d_wgrad(x, g)
+
+
+def conv2d_wgrad_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``cbim::conv2d_wgrad`` on the card: the wgrad of
+    :func:`conv2d_route`."""
+    _backend.require_kernels(x)
     route = conv2d_route(x.dtype, x.shape[-1], g.shape[-1])
     if route == TENSOR_CORE:
         return _launch_wgrad_tc(x, g)
@@ -452,7 +483,7 @@ def conv2d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 class Conv2dSame(torch.autograd.Function):
     """Trainable :func:`conv2d_same` (the counterpart of ``conv2d_same_t``).
 
-    Forward: the forward kernel.  Backward: dx by :func:`conv2d_dgrad`, dW
+    Forward: :func:`conv2d_same`.  Backward: dx by :func:`conv2d_dgrad`, dW
     by :func:`conv2d_wgrad` (fp32, cast to w's dtype), each only when
     needed.  Under CUDA autocast, x and w meet in bf16, as in the Flax
     modules' ``dtype=bfloat16``.  On the CPU the same formulas run through
@@ -475,3 +506,33 @@ class Conv2dSame(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = conv2d_wgrad(x, g).to(w.dtype)
         return dx, dw
+
+
+# ------------------------------------------------------------ the custom ops
+
+def _same_fake(x, w):
+    return x.new_empty((*x.shape[:-1], w.shape[0]))
+
+
+def _dgrad_fake(g, w):
+    return g.new_empty((*g.shape[:-1], w.shape[1]))
+
+
+def _wgrad_fake(x, g):
+    """dW[F, C, 3, 3] float32 as the kernels give it on either device: a
+    view of a [3, 3, C, F] tensor."""
+    return x.new_empty((3, 3, x.shape[-1], g.shape[-1]),
+                       dtype=torch.float32).permute(3, 2, 0, 1)
+
+
+def _wgrad_cpu(x, g):
+    """The plain version in the kernels' layout of dW."""
+    return _wgrad_fake(x, g).copy_(conv2d_wgrad_plain(x, g))
+
+
+_library.define("conv2d_same", "(Tensor x, Tensor w) -> Tensor",
+                conv2d_same_plain, conv2d_same_cuda, _same_fake)
+_library.define("conv2d_dgrad", "(Tensor g, Tensor w) -> Tensor",
+                conv2d_dgrad_plain, conv2d_dgrad_cuda, _dgrad_fake)
+_library.define("conv2d_wgrad", "(Tensor x, Tensor g) -> Tensor",
+                _wgrad_cpu, conv2d_wgrad_cuda, _wgrad_fake)

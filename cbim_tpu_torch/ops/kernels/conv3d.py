@@ -64,6 +64,13 @@ wgrad wrappers give back torch's [F, C, 3, 3, 3].
 CPU tensors take the plain versions: ``F.conv3d`` with padding 1 and
 ``torch.nn.grad.conv3d_weight`` (on ``inorm_apply_plain``'s output for the
 fused pair).
+
+Each public kernel function (:func:`conv3d_same`, :func:`conv3d_dgrad`,
+:func:`conv3d_wgrad`, :func:`conv3d_same_na`, :func:`conv3d_wgrad_na`)
+checks its arguments and calls the ``torch.library`` custom op of its name
+(``torch.ops.cbim.conv3d_same`` ...; ``_library``): its CUDA
+implementation (``conv3d_same_cuda`` ...) picks the route, launches and
+counts; its CPU implementation is the plain version.
 """
 
 from __future__ import annotations
@@ -72,7 +79,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _backend
-from . import _build, fused_norm
+from . import _build, _library, fused_norm
 
 #: launches of each kernel since the last reset (plain calls do not count);
 #: ``conv3d_dgrad`` counts the forward kernel's input-gradient launches
@@ -394,11 +401,17 @@ def conv3d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     The counterpart of ``cbim_tpu.ops.pallas.conv3d.conv3d_same`` (which
     takes w as [3, 3, 3, C, F]).  CUDA tensors launch the kernel of
-    :func:`conv3d_route`, CPU tensors run the plain version.  No autograd:
-    see :class:`Conv3dSame`."""
+    :func:`conv3d_route`, CPU tensors run the plain version (the op
+    ``cbim::conv3d_same``).  No autograd: see :class:`Conv3dSame`."""
     _check(x, w)
-    if not _backend.uses_kernels(x):
-        return conv3d_same_plain(x, w)
+    _backend.check_device(x)
+    return torch.ops.cbim.conv3d_same(x, w)
+
+
+def conv3d_same_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``cbim::conv3d_same`` on the card: the forward kernel of
+    :func:`conv3d_route`."""
+    _backend.require_kernels(x)
     route = conv3d_route(x.dtype, x.shape[-1], w.shape[0])
     return _launch_route(route, x, w, FORWARD_KEYS[route][0])
 
@@ -406,12 +419,23 @@ def conv3d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def conv3d_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Input gradient of :func:`conv3d_same`: the forward kernel of the
     same route on the upstream gradient g[B, D, H, W, F] with
+    ``flip_swap(w)`` (the op ``cbim::conv3d_dgrad``)."""
+    _check(g, flip_swap(w))
+    _backend.check_device(g)
+    return torch.ops.cbim.conv3d_dgrad(g, w)
+
+
+def conv3d_dgrad_plain(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`conv3d_dgrad`: ``conv3d_same_plain`` with
     ``flip_swap(w)``."""
-    ws = flip_swap(w)
-    _check(g, ws)
-    if not _backend.uses_kernels(g):
-        return conv3d_same_plain(g, ws)
-    route = conv3d_route(g.dtype, g.shape[-1], ws.shape[0])
+    return conv3d_same_plain(g, flip_swap(w))
+
+
+def conv3d_dgrad_cuda(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``cbim::conv3d_dgrad`` on the card: the forward kernel of the
+    route on g with the flip, counted as the route's dgrad."""
+    _backend.require_kernels(g)
+    route = conv3d_route(g.dtype, g.shape[-1], w.shape[1])
     return _launch_route(route, g, w, FORWARD_KEYS[route][1], flip=True)
 
 
@@ -583,10 +607,18 @@ def conv3d_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     returns [3, 3, 3, C, F]).  CUDA tensors launch the kernel of
     :func:`conv3d_route` (``conv3d_wgrad_tc`` on the bf16 tensor-core
     route, ``conv3d_wgrad_tf32`` on the fp32 TF32 route, ``conv3d_wgrad``
-    on the CUDA-core one), CPU tensors run the plain version."""
+    on the CUDA-core one), CPU tensors run the plain version (the op
+    ``cbim::conv3d_wgrad``).  On either device dW is a view of a [3, 3, 3,
+    C, F] tensor, the kernels' output."""
     _check_wgrad(x, g)
-    if not _backend.uses_kernels(x):
-        return conv3d_wgrad_plain(x, g)
+    _backend.check_device(x)
+    return torch.ops.cbim.conv3d_wgrad(x, g)
+
+
+def conv3d_wgrad_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``cbim::conv3d_wgrad`` on the card: the wgrad of
+    :func:`conv3d_route`."""
+    _backend.require_kernels(x)
     route = conv3d_route(x.dtype, x.shape[-1], g.shape[-1])
     if route == TENSOR_CORE:
         return _launch_wgrad_tc(x, g)
@@ -631,11 +663,21 @@ def conv3d_same_na(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
     (NDHCW, stat [B, 2, C, 1], w [3, 3, 3, C, F]).  CUDA tensors launch
     the kernel of :func:`conv3d_route` (``conv3d_same_na_fwd_tc``,
     ``conv3d_same_na_fwd_tf32`` or ``conv3d_same_na_fwd``), CPU tensors
-    run the plain version."""
+    run the plain version (the op ``cbim::conv3d_same_na``, which takes
+    act as its ``fused_norm.ACT_NAMES`` code)."""
     _check(x, w)
     _check_na(x, mean, rstd, act)
-    if not _backend.uses_kernels(x):
-        return conv3d_same_na_plain(x, mean, rstd, w, act)
+    _backend.check_device(x)
+    return torch.ops.cbim.conv3d_same_na(x, mean, rstd, w,
+                                         fused_norm._act_code(act))
+
+
+def conv3d_same_na_cuda(x: torch.Tensor, mean: torch.Tensor,
+                        rstd: torch.Tensor, w: torch.Tensor,
+                        act=None) -> torch.Tensor:
+    """``cbim::conv3d_same_na`` on the card: the fused forward of
+    :func:`conv3d_route`."""
+    _backend.require_kernels(x)
     route = conv3d_route(x.dtype, x.shape[-1], w.shape[0])
     return _launch_route(route, x, w, FORWARD_KEYS[route][2],
                          na=(mean, rstd, act))
@@ -661,11 +703,21 @@ def conv3d_wgrad_na(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
     CUDA tensors launch the kernel of :func:`conv3d_route`
     (``conv3d_wgrad_na_tc`` on the bf16 tensor-core route,
     ``conv3d_wgrad_na_tf32`` on the fp32 TF32 route, ``conv3d_wgrad_na`` on
-    the CUDA-core one), CPU tensors run the plain version."""
+    the CUDA-core one), CPU tensors run the plain version (the op
+    ``cbim::conv3d_wgrad_na``)."""
     _check_wgrad(x, g)
     _check_na(x, mean, rstd, act)
-    if not _backend.uses_kernels(x):
-        return conv3d_wgrad_na_plain(x, mean, rstd, g, act)
+    _backend.check_device(x)
+    return torch.ops.cbim.conv3d_wgrad_na(x, mean, rstd, g,
+                                          fused_norm._act_code(act))
+
+
+def conv3d_wgrad_na_cuda(x: torch.Tensor, mean: torch.Tensor,
+                         rstd: torch.Tensor, g: torch.Tensor,
+                         act=None) -> torch.Tensor:
+    """``cbim::conv3d_wgrad_na`` on the card: the fused wgrad of
+    :func:`conv3d_route`."""
+    _backend.require_kernels(x)
     route = conv3d_route(x.dtype, x.shape[-1], g.shape[-1])
     if route == TENSOR_CORE:
         return _launch_wgrad_tc(x, g, (mean, rstd, act))
@@ -793,7 +845,7 @@ def conv3d_wgrad_na_tiled_plain(x: torch.Tensor, mean: torch.Tensor,
 class Conv3dSame(torch.autograd.Function):
     """Trainable :func:`conv3d_same` (the counterpart of ``conv3d_same_t``).
 
-    Forward: the forward kernel.  Backward: dx by :func:`conv3d_dgrad`, dW
+    Forward: :func:`conv3d_same`.  Backward: dx by :func:`conv3d_dgrad`, dW
     by :func:`conv3d_wgrad` (fp32, cast to w's dtype), each only when
     needed.  Under CUDA autocast, x and w meet in bf16, as in the Flax
     modules' ``dtype=bfloat16``.  On the CPU the same formulas run through
@@ -858,3 +910,64 @@ class ConvInormAct3d(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = conv3d_wgrad_na(x, mean, rstd, g, ctx.act).to(w.dtype)
         return dx, dw, None, None
+
+
+# ------------------------------------------------------------ the custom ops
+
+def _same_fake(x, w):
+    return x.new_empty((*x.shape[:-1], w.shape[0]))
+
+
+def _dgrad_fake(g, w):
+    return g.new_empty((*g.shape[:-1], w.shape[1]))
+
+
+def _wgrad_fake(x, g):
+    """dW[F, C, 3, 3, 3] float32 as the kernels give it on either device: a
+    view of a [3, 3, 3, C, F] tensor."""
+    return x.new_empty((3, 3, 3, x.shape[-1], g.shape[-1]),
+                       dtype=torch.float32).permute(4, 3, 0, 1, 2)
+
+
+def _wgrad_cpu(x, g):
+    """The plain version in the kernels' layout of dW."""
+    return _wgrad_fake(x, g).copy_(conv3d_wgrad_plain(x, g))
+
+
+def _same_na_cpu(x, mean, rstd, w, act):
+    return conv3d_same_na_plain(x, mean, rstd, w, fused_norm.ACT_NAMES[act])
+
+
+def _same_na_cuda(x, mean, rstd, w, act):
+    return conv3d_same_na_cuda(x, mean, rstd, w, fused_norm.ACT_NAMES[act])
+
+
+def _same_na_fake(x, mean, rstd, w, act):
+    return _same_fake(x, w)
+
+
+def _wgrad_na_cpu(x, mean, rstd, g, act):
+    return _wgrad_fake(x, g).copy_(conv3d_wgrad_na_plain(
+        x, mean, rstd, g, fused_norm.ACT_NAMES[act]))
+
+
+def _wgrad_na_cuda(x, mean, rstd, g, act):
+    return conv3d_wgrad_na_cuda(x, mean, rstd, g, fused_norm.ACT_NAMES[act])
+
+
+def _wgrad_na_fake(x, mean, rstd, g, act):
+    return _wgrad_fake(x, g)
+
+
+_library.define("conv3d_same", "(Tensor x, Tensor w) -> Tensor",
+                conv3d_same_plain, conv3d_same_cuda, _same_fake)
+_library.define("conv3d_dgrad", "(Tensor g, Tensor w) -> Tensor",
+                conv3d_dgrad_plain, conv3d_dgrad_cuda, _dgrad_fake)
+_library.define("conv3d_wgrad", "(Tensor x, Tensor g) -> Tensor",
+                _wgrad_cpu, conv3d_wgrad_cuda, _wgrad_fake)
+_library.define("conv3d_same_na", "(Tensor x, Tensor mean, Tensor rstd, "
+                "Tensor w, int act) -> Tensor",
+                _same_na_cpu, _same_na_cuda, _same_na_fake)
+_library.define("conv3d_wgrad_na", "(Tensor x, Tensor mean, Tensor rstd, "
+                "Tensor g, int act) -> Tensor",
+                _wgrad_na_cpu, _wgrad_na_cuda, _wgrad_na_fake)

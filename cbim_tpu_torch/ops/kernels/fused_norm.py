@@ -15,8 +15,12 @@ Four kernels, ``csrc/fused_norm.cu``:
   reduction as ``inorm_stats``);
 - ``inorm_bwd_apply``: dx = rstd * (dy' - a - x_hat * b) in x.dtype.
 
-All run for CUDA tensors; the plain PyTorch versions beside them (fp32
-math, one cast) run for CPU tensors.  Unlike the TPU gate
+Each is the CUDA implementation of a ``torch.library`` custom op of the
+same name (``torch.ops.cbim.inorm_stats`` ...; ``_library``), whose CPU
+implementation is the plain PyTorch version beside it (fp32 math, one
+cast); :class:`InstanceNormAct` and the fused preact conv call the ops.
+The ops take the activation as its code (:data:`ACT_NAMES`).  Unlike the
+TPU gate
 (``fused_norm.usable``: lane-dense C only), the kernels take every C: the
 C % 128 rule was a TPU lane-padding artifact.
 """
@@ -29,13 +33,15 @@ import torch
 
 from .. import _backend
 from ..activations import gelu_grad, get_act
-from . import _build
+from . import _build, _library
 
 #: launches of each kernel since the last reset (plain calls do not count)
 launches = {"inorm_stats": 0, "inorm_apply": 0, "inorm_bwd_stats": 0,
             "inorm_bwd_apply": 0}
 
 _ACT_CODES = {None: 0, False: 0, "none": 0, "relu": 1, "gelu": 2}
+#: the activation of each code the ops take
+ACT_NAMES = {0: None, 1: "relu", 2: "gelu"}
 
 #: blocks the stats pass aims for (a few waves over 132 SMs)
 _TARGET_BLOCKS = 2048
@@ -64,6 +70,7 @@ def _check_cuda(x3: torch.Tensor) -> None:
     _check_rows(x3)
     if x3.device.type != "cuda":
         raise ValueError(f"kernel needs a CUDA tensor, got {x3.device}")
+    _backend.check_capability(x3.device)
     if not x3.is_contiguous():
         raise ValueError("kernel needs a contiguous x[B, S, C]")
 
@@ -231,22 +238,18 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def _stats(x3: torch.Tensor, eps: float):
-    """(mean, rstd) of x3[B, S, C]: the kernel for a CUDA tensor, the plain
-    version for a CPU one."""
-    if _backend.uses_kernels(x3):
-        return inorm_stats(x3, eps)
-    return inorm_stats_plain(x3, eps)
+    """(mean, rstd) of x3[B, S, C]: the op ``cbim::inorm_stats`` (the
+    kernel for a CUDA tensor, the plain version for a CPU one)."""
+    return torch.ops.cbim.inorm_stats(x3, float(eps))
 
 
 def _backward(x3: torch.Tensor, dy3: torch.Tensor, mean: torch.Tensor,
               rstd: torch.Tensor, act) -> torch.Tensor:
-    """dx of act(instance_norm(x3)) from dy3 (both [B, S, C]): the two
-    backward kernels for CUDA tensors, their plain versions for CPU ones."""
-    if _backend.uses_kernels(x3):
-        red = inorm_bwd_stats(x3, dy3, mean, rstd, act)
-        return inorm_bwd_apply(x3, dy3, mean, rstd, red, act)
-    red = inorm_bwd_stats_plain(x3, dy3, mean, rstd, act)
-    return inorm_bwd_apply_plain(x3, dy3, mean, rstd, red, act)
+    """dx of act(instance_norm(x3)) from dy3 (both [B, S, C]): the ops
+    ``cbim::inorm_bwd_stats`` and ``cbim::inorm_bwd_apply``."""
+    code = _act_code(act)
+    red = torch.ops.cbim.inorm_bwd_stats(x3, dy3, mean, rstd, code)
+    return torch.ops.cbim.inorm_bwd_apply(x3, dy3, mean, rstd, red, code)
 
 
 class InstanceNormAct(torch.autograd.Function):
@@ -254,10 +257,11 @@ class InstanceNormAct(torch.autograd.Function):
     ``_instance_norm_act3``'s custom VJP): ``InstanceNormAct.apply(x, eps,
     act)`` over a channels-last x (B, *spatial, C).
 
-    Forward: ``inorm_stats`` + ``inorm_apply``, saving x, mean and rstd (as
-    ``_inorm_fwd``).  Backward: ``inorm_bwd_stats`` + ``inorm_bwd_apply``;
-    eps and act take no gradient.  Under CUDA autocast, x is cast to bf16.
-    CPU tensors run the plain versions of all four.  Pure, so safe to
+    Forward: the ops ``inorm_stats`` + ``inorm_apply``, saving x, mean and
+    rstd (as ``_inorm_fwd``).  Backward: ``inorm_bwd_stats`` +
+    ``inorm_bwd_apply``; eps and act take no gradient.  Under CUDA
+    autocast, x is cast to bf16.  CPU tensors run the plain versions of
+    all four.  Pure, so safe to
     recompute under activation checkpointing."""
 
     @staticmethod
@@ -266,10 +270,7 @@ class InstanceNormAct(torch.autograd.Function):
         _act_code(act)
         x3 = _rows(x)
         mean, rstd = _stats(x3, eps)
-        if _backend.uses_kernels(x3):
-            y = inorm_apply(x3, mean, rstd, act)
-        else:
-            y = inorm_apply_plain(x3, mean, rstd, act)
+        y = torch.ops.cbim.inorm_apply(x3, mean, rstd, _act_code(act))
         ctx.save_for_backward(x3, mean, rstd)
         ctx.act = act
         return y.view(x.shape)
@@ -292,3 +293,60 @@ def instance_norm_act(x: torch.Tensor, eps: float = 1e-4,
     CUDA tensors go through the kernels, CPU tensors through the plain
     versions; both train through :class:`InstanceNormAct`."""
     return InstanceNormAct.apply(x, eps, act)
+
+
+# ------------------------------------------------------------ the custom ops
+
+def _stats_fake(x3, eps):
+    B, C = x3.shape[0], x3.shape[-1]
+    return (x3.new_empty((B, C), dtype=torch.float32),
+            x3.new_empty((B, C), dtype=torch.float32))
+
+
+def _apply_cpu(x3, mean, rstd, act):
+    return inorm_apply_plain(x3, mean, rstd, ACT_NAMES[act])
+
+
+def _apply_cuda(x3, mean, rstd, act):
+    return inorm_apply(x3, mean, rstd, ACT_NAMES[act])
+
+
+def _apply_fake(x3, mean, rstd, act):
+    return torch.empty_like(x3)
+
+
+def _bwd_stats_cpu(x3, dy3, mean, rstd, act):
+    return inorm_bwd_stats_plain(x3, dy3, mean, rstd, ACT_NAMES[act])
+
+
+def _bwd_stats_cuda(x3, dy3, mean, rstd, act):
+    return inorm_bwd_stats(x3, dy3, mean, rstd, ACT_NAMES[act])
+
+
+def _bwd_stats_fake(x3, dy3, mean, rstd, act):
+    return x3.new_empty((x3.shape[0], 2, x3.shape[-1]), dtype=torch.float32)
+
+
+def _bwd_apply_cpu(x3, dy3, mean, rstd, red, act):
+    return inorm_bwd_apply_plain(x3, dy3, mean, rstd, red, ACT_NAMES[act])
+
+
+def _bwd_apply_cuda(x3, dy3, mean, rstd, red, act):
+    return inorm_bwd_apply(x3, dy3, mean, rstd, red, ACT_NAMES[act])
+
+
+def _bwd_apply_fake(x3, dy3, mean, rstd, red, act):
+    return torch.empty_like(x3)
+
+
+_library.define("inorm_stats", "(Tensor x, float eps) -> (Tensor, Tensor)",
+                inorm_stats_plain, inorm_stats, _stats_fake)
+_library.define("inorm_apply",
+                "(Tensor x, Tensor mean, Tensor rstd, int act) -> Tensor",
+                _apply_cpu, _apply_cuda, _apply_fake)
+_library.define("inorm_bwd_stats", "(Tensor x, Tensor dy, Tensor mean, "
+                "Tensor rstd, int act) -> Tensor",
+                _bwd_stats_cpu, _bwd_stats_cuda, _bwd_stats_fake)
+_library.define("inorm_bwd_apply", "(Tensor x, Tensor dy, Tensor mean, "
+                "Tensor rstd, Tensor red, int act) -> Tensor",
+                _bwd_apply_cpu, _bwd_apply_cuda, _bwd_apply_fake)

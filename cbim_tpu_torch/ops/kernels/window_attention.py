@@ -29,6 +29,13 @@ version (einsum, add, fp32 softmax, einsum), which autograd can trace.
 The kernel writes its (B, H, N, D) output laid out as (B, N, H, D), so
 merging the heads (``o.transpose(1, 2).reshape(B, N, H * D)``) copies
 nothing on its path.
+
+:func:`window_attention` calls the ``torch.library`` custom op
+``cbim::window_attention`` (``_library``): its CUDA implementation
+(:func:`window_attention_cuda`) checks the views it stages and launches;
+its CPU implementation is the plain version, written into the kernel's
+(B, N, H, D) layout.  A CPU call that autograd must trace (the op has no
+backward) runs the plain version itself.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ from __future__ import annotations
 import torch
 
 from .. import _backend
-from . import _build
+from . import _build, _library
 
 #: launches of the kernel since the last reset (plain calls do not count)
 launches = {"window_attention": 0}
@@ -147,6 +154,19 @@ def _check_kernel_view(q, k, v) -> None:
         raise ValueError("kernel needs 16-byte aligned q, k, v with (batch, "
                          "head, row) strides of 16-byte multiples, got "
                          f"strides {q.stride()} of {elt}-byte values")
+
+
+def _check_kernel_shape(q) -> None:
+    """The head widths the kernel is built for, and the windows whose
+    staged K and V fit its shared memory."""
+    N, D = q.shape[2:]
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {KERNEL_HEAD_DIMS}, "
+                         f"got {D}")
+    if kernel_smem_bytes(N, D, q.dtype) > _MAX_SMEM:
+        raise ValueError(f"a window of N={N}, D={D} in {q.dtype} does not "
+                         f"fit the kernel's shared memory "
+                         f"({kernel_smem_bytes(N, D, q.dtype)} bytes)")
 
 
 def base2_bias(rel_bias: torch.Tensor) -> torch.Tensor:
@@ -265,27 +285,34 @@ def window_attention(q, k, v, rel_bias, region=None) -> torch.Tensor:
 
     The counterpart of ``cbim_tpu.ops.pallas.window_attention.
     fused_window_attention`` with its bias split in two.  CUDA tensors
-    launch the kernel (D in 16, 32); CPU tensors run the plain version."""
+    launch the kernel (D in 16, 32); CPU tensors run the plain version
+    (both through the op ``cbim::window_attention``)."""
     _check(q, k, v, rel_bias, region)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v, rel_bias))
     if not _backend.uses_kernels(q):
-        return window_attention_plain(q, k, v, rel_bias, region)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v, rel_bias)):
+        if grad:
+            return window_attention_plain(q, k, v, rel_bias, region)
+        return torch.ops.cbim.window_attention(q, k, v, rel_bias, region)
+    if grad:
         raise RuntimeError(
             "window_attention has no backward kernel (nor has the TPU "
             "kernel it ports); run it under torch.no_grad() or "
             "torch.inference_mode()")
-    B, H, N, D = q.shape
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {KERNEL_HEAD_DIMS}, "
-                         f"got {D}")
+    _check_kernel_shape(q)
+    return torch.ops.cbim.window_attention(q, k, v, rel_bias, region)
+
+
+def window_attention_cuda(q, k, v, rel_bias, region=None) -> torch.Tensor:
+    """``cbim::window_attention`` on the card: the staging checks on the
+    views' memory (:func:`_check_kernel_view`), then the kernel, its output
+    laid out (B, N, H, D)."""
+    _backend.require_kernels(q)
+    _check_kernel_shape(q)
     _check_kernel_view(q, k, v)
+    B, H, N, D = q.shape
     Np = padded_keys(N)
     split_on_load = tf32_split_on_load(N, D, q.dtype)
-    if kernel_smem_bytes(N, D, q.dtype, split_on_load) > _MAX_SMEM:
-        raise ValueError(f"a window of N={N}, D={D} in {q.dtype} does not "
-                         f"fit the kernel's shared memory "
-                         f"({kernel_smem_bytes(N, D, q.dtype)} bytes)")
     rel_bias = rel_bias.float()
     # the kernel's base-2, padded bias (base2_bias), written by the entry
     bias2 = torch.empty((H, Np, Np), dtype=torch.float32, device=q.device)
@@ -302,3 +329,22 @@ def window_attention(q, k, v, rel_bias, region=None) -> torch.Tensor:
                 *o.stride()[:3], device=q.device)
     launches["window_attention"] += 1
     return o
+
+
+# ------------------------------------------------------------- the custom op
+
+def _window_attention_fake(q, k, v, rel_bias, region):
+    B, H, N, D = q.shape
+    return q.new_empty((B, N, H, D)).transpose(1, 2)
+
+
+def _window_attention_cpu(q, k, v, rel_bias, region):
+    """The plain version in the kernel's (B, N, H, D) layout."""
+    o = _window_attention_fake(q, k, v, rel_bias, region)
+    return o.copy_(window_attention_plain(q, k, v, rel_bias, region))
+
+
+_library.define("window_attention", "(Tensor q, Tensor k, Tensor v, "
+                "Tensor rel_bias, Tensor? region) -> Tensor",
+                _window_attention_cpu, window_attention_cuda,
+                _window_attention_fake)

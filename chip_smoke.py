@@ -49,7 +49,11 @@ Phases, each printing its result; any failure raises and exits non-zero:
    TF32 forward, dgrad, fused forward, wgrad and fused wgrad and
    ``inorm_apply``, and
    at one pixel through the 3x3 TF32 forward, dgrad and wgrad: NaN
-   exactly where it enters each output, finite elsewhere;
+   exactly where it enters each output, finite elsewhere; and
+   ``torch.library.opcheck`` of every ``cbim`` custom op (the kernels'
+   entry points: its schema, its fake implementation's shapes, dtypes and
+   strides against the kernel's output, the op under AOT dispatch) at one
+   shape on the card, after the same on CPU tensors beside the build;
 3a. the augmentation ops (``cbim_tpu_torch.ops.augment``, the pipeline's
    device part) on the card against the same ops on the CPU with the same
    drawn scalars, at KiTS's post-crop batch (2 x 128^3) and ACDC-3D's
@@ -143,6 +147,17 @@ Phases, each printing its result; any failure raises and exits non-zero:
    with seeded weights serves phase 5's request: per forward 25
    ``conv3d_same_fwd_tf32`` (RESUNET_CONVS) and 42 ``inorm_stats`` and
    ``inorm_apply`` (RESUNET_NORMS) launches, no other 3^3 kernel;
+5e. phase 5's model frozen with ``torch.export`` by the export CLI
+   (``python -m cbim_tpu_torch.tools.export_model``, in two processes
+   started after the build, tracing on the card without a launch): the
+   window forward at the serving window batch (6) and the sliding-window
+   program of EXPORT_VOLUME (112 x 128 x 192: padded on z, two window
+   groups); each artifact loaded from its bytes and run beside the live
+   engine on the same input: probabilities within EXPORT_ATOL, the
+   launches of every kernel equal (20 ``conv3d_same_fwd_tf32`` and 106
+   each of ``inorm_stats`` and ``inorm_apply`` a forward); the export and
+   load seconds, the bytes, and the loaded program's seconds beside the
+   live engine's;
 5p. phase 5's model with ``proj_type: linear`` (1x1 B-MHA and
    PatchMerging projections, FusedMBConv feed-forwards) served with
    ``window_fusion: gaussian``: 20 ``conv3d_same_fwd_tf32`` and one
@@ -196,8 +211,11 @@ Phases, each printing its result; any failure raises and exits non-zero:
    (``device_cache: false``: a real KiTS corpus is far over the cache's
    4 GB); every loss finite, and per step 32 ``conv3d_same_fwd_tf32``
    (remat incl.), 16 ``conv3d_dgrad_tf32`` and 16 ``conv3d_wgrad_tf32``
-   launches, no tensor-core and no CUDA-core 3^3 launch; sec/step (the
-   step after warm-up), peak memory and the batches' time alone;
+   launches, no tensor-core and no CUDA-core 3^3 launch; every batch's
+   host windows copied by the native batch assembler
+   (``data/native.py``); sec/step (the step after warm-up), peak memory,
+   the batches' time alone and the host copy alone with the assembler and
+   with numpy;
 6kn. the same recipe with ``conv_na: true`` for 3 steps: every one of its
    16 kernel convs fused, per step 32 ``conv3d_same_na_fwd_tf32`` (remat
    incl.), 16 ``conv3d_dgrad_tf32`` and 16 ``conv3d_wgrad_na_tf32``
@@ -311,7 +329,7 @@ are idle, and read by those phases; phase 4x's beside phases 4-4z; the
 same thread then writes the serving phases' requests and the KiTS,
 ACDC-3D and BCV corpora, once.
 
-Each of phases 4e, 4u, 4z, 4x and 5-10 (5b, 5r, 5p, 6b, 6p, 6v, 6k, 6kn,
+Each of phases 4e, 4u, 4z, 4x and 5-10 (5b, 5e, 5r, 5p, 6b, 6p, 6v, 6k, 6kn,
 6a, 6r, 6x, 7b, 8b, 8f, 8v, 7s, 8s, 7r, 8r, 7t, 9t, 9u, 9ut, 9n and 9nt
 included) sets
 the launch counters to 0 just before it and reads them just after.  The
@@ -335,6 +353,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -1003,6 +1022,13 @@ ACDC3D_CASES = [((10, 232, 216), (10.0, 1.5625, 1.5625)),
 #: script within its time)
 ACDC3D_STEPS = WARMUP_STEPS + 1
 ACDC3D_NAMES = [f"patient{i:03d}" for i in range(1, len(ACDC3D_CASES) + 1)]
+#: phase 5e: the sliding-window artifact's raw volume (z, y, x) under the
+#: 128^3 window: padded on z, two unique windows along x, swept one window
+#: a group (two groups), and the artifacts' probabilities against the live
+#: engine's (the same kernels in the same order)
+EXPORT_VOLUME = (112, 128, 192)
+EXPORT_SW_BATCH = 1
+EXPORT_ATOL = 1e-5
 #: phases 6k and 6a: batches timed alone after the run (the data path's
 #: cost a step, beside the step that the trainer overlaps it with)
 DATA_BATCHES = 3
@@ -2619,6 +2645,30 @@ ROUTE_KEYS = ("conv_na", "conv2d_kernel", "window_fusion")
 SERVED_WEIGHTS: dict = {}
 
 
+def served_weights(cfg_dict, name: str) -> tuple:
+    """(file, model class, its InstanceNorms): the serving phases' seeded
+    weights (seed 0, on the CPU) of a config, written under WORK/name once
+    per model (a route key changes the kernels, not the parameters)."""
+    import torch
+    from cbim_tpu_torch.config import config_from_dict
+    from cbim_tpu_torch.models import get_model
+    from cbim_tpu_torch.models.layers import convs
+    key = _ref_key({k: v for k, v in cfg_dict.items()
+                    if k not in ROUTE_KEYS}, ())
+    if key not in SERVED_WEIGHTS:
+        cfg = config_from_dict(cfg_dict)
+        weights = os.path.join(WORK, name, f"{cfg.model}_seed0.pth")
+        os.makedirs(os.path.dirname(weights), exist_ok=True)
+        model = get_model(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+        torch.save(model.state_dict(), weights)
+        SERVED_WEIGHTS[key] = (weights, type(model), sum(
+            1 for m in model.modules()
+            if isinstance(m, convs.Norm) and m.kind == "in"))
+        del model
+    return SERVED_WEIGHTS[key]
+
+
 def phase_slice(device, cfg_dict, requests, target_spacing, name: str,
                 required, profile_dir: str | None = None) -> dict:
     """Phases 5, 7 and 9: serve ``requests`` with seeded weights through
@@ -2634,28 +2684,12 @@ def phase_slice(device, cfg_dict, requests, target_spacing, name: str,
     from cbim_tpu_torch import prediction
     from cbim_tpu_torch.config import config_from_dict
     from cbim_tpu_torch.data.nifti import read_nifti
-    from cbim_tpu_torch.models import get_model
-    from cbim_tpu_torch.models.layers import convs
     from cbim_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
     in_dir = requests_dir(requests, mr=cfg_dict["dimension"] == "2d")
     out_dir = os.path.join(WORK, name, "out")
     cfg = config_from_dict(cfg_dict)
-    key = _ref_key({k: v for k, v in cfg_dict.items()
-                    if k not in ROUTE_KEYS}, ())
-    if key not in SERVED_WEIGHTS:
-        # seeded weights on the CPU, written once per model (a route key
-        # changes the kernels, not the parameters)
-        weights = os.path.join(WORK, name, f"{cfg.model}_seed0.pth")
-        os.makedirs(os.path.dirname(weights), exist_ok=True)
-        model = get_model(cfg, device="cpu",
-                          generator=torch.Generator().manual_seed(0))
-        torch.save(model.state_dict(), weights)
-        SERVED_WEIGHTS[key] = (weights, type(model), sum(
-            1 for m in model.modules()
-            if isinstance(m, convs.Norm) and m.kind == "in"))
-        del model
-    weights, model_cls, n_norm = SERVED_WEIGHTS[key]
+    weights, model_cls, n_norm = served_weights(cfg_dict, name)
     argv = ["--dataset", cfg.dataset, "--model", cfg.model,
             "--dimension", cfg.dimension, "--load", weights, "--img_path",
             in_dir, "--save_path", out_dir, "--target_spacing",
@@ -2695,6 +2729,214 @@ def phase_slice(device, cfg_dict, requests, target_spacing, name: str,
             prof.stop(len(requests))
     return {"seconds": seconds, "launches": counts, "forwards": len(forwards),
             "peak_bytes": peak, "conv_shapes": shapes, "norms": n_norm}
+
+
+def phase_opcheck(device) -> dict:
+    """Phase 3's part "ops": ``torch.library.opcheck`` of every ``cbim``
+    op on fp32 tensors on ``device`` at one shape (``_library.sample_args``:
+    on the card the TF32 routes of C = 8 -> F = 16, the window attention at
+    head dim 16 with region ids): the schema, the fake implementation's
+    shapes, dtypes and strides against the kernel's output (the plain
+    version's on the CPU), and the op under AOT dispatch with dynamic
+    shapes.  Returns the seconds by op."""
+    import torch
+    from cbim_tpu_torch.ops.kernels import _library
+    took = {}
+    for name, op in _library.OPS.items():
+        t0 = time.perf_counter()
+        torch.library.opcheck(op, _library.sample_args(name, torch.float32,
+                                                        device))
+        took[name] = round(time.perf_counter() - t0, 2)
+    return took
+
+
+def _synced(fn):
+    """(fn's result, its seconds to the card's end)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def serving_window_batch(cfg_dict) -> int:
+    """The window batch prediction's ``auto`` takes for phase 5's request
+    (its padded shape's unique windows)."""
+    from cbim_tpu_torch.inference import engines
+    window = tuple(cfg_dict["window_size"])
+    return engines._auto_window_batch(len(engines._dedup_starts(
+        engines._grid_starts(REQUESTS[0][0], window))[0]))
+
+
+def start_exports(device, cfg_dict) -> list:
+    """Phase 5e's first half, started after the build: the export CLI
+    (``python -m cbim_tpu_torch.tools.export_model``, the user's entry
+    point) on phase 5's seeded weights (``served_weights``), in two
+    processes beside phases 3-5, tracing on the card without launching a
+    kernel: the window forward at the serving window batch, and the
+    sliding-window program of EXPORT_VOLUME at EXPORT_SW_BATCH.  Returns
+    [(name, process, artifact, log, start)]; ``finish_exports`` waits for
+    them, and the script's exit stops any still running."""
+    import atexit
+    import subprocess
+    weights = served_weights(cfg_dict, "serve3d")[0]
+    out_dir = os.path.join(WORK, "export")
+    os.makedirs(out_dir, exist_ok=True)
+    base = [sys.executable, "-m", "cbim_tpu_torch.tools.export_model",
+            "--dataset", cfg_dict["dataset"], "--model", cfg_dict["model"],
+            "--dimension", cfg_dict["dimension"], "--load", weights,
+            "--device", str(device)]
+    jobs = []
+    for name, extra in (
+            ("window_forward",
+             ["--batch", str(serving_window_batch(cfg_dict))]),
+            ("sliding_window",
+             ["--volume_shape", ",".join(map(str, EXPORT_VOLUME)),
+              "--window_batch", str(EXPORT_SW_BATCH)])):
+        art = os.path.join(out_dir, f"{name}.pt2")
+        log = os.path.join(out_dir, f"{name}.log")
+        with open(log, "w") as f:
+            proc = subprocess.Popen([*base, "--out", art, *extra], cwd=ROOT,
+                                    stdout=f, stderr=subprocess.STDOUT)
+        jobs.append((name, proc, art, log, time.perf_counter()))
+
+    def stop():
+        for _, proc, *_ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(stop)
+    return jobs
+
+
+def finish_exports(jobs) -> dict:
+    """Waits for :func:`start_exports`'s processes; {name: (artifact,
+    the CLI's line, the process's seconds)}; a failed export raises with
+    its log."""
+    out = {}
+    for name, proc, art, log, t0 in jobs:
+        rc = proc.wait()
+        took = time.perf_counter() - t0
+        with open(log) as f:
+            text = f.read()
+        assert rc == 0, f"export of the {name} failed ({rc}):\n{text[-3000:]}"
+        line = [ln for ln in text.splitlines() if ln.startswith("exported")]
+        out[name] = (art, line[-1] if line else "", took)
+    return out
+
+
+def export_round_trip(name: str, exported: tuple, live, example) -> dict:
+    """One artifact of phase 5e: its bytes loaded; then the loaded program
+    and ``live`` (the engine) on ``example``, the launch counters set to 0
+    just before each run and read just after: the probabilities within
+    EXPORT_ATOL and the launches equal."""
+    from cbim_tpu_torch.inference.export import load_exported
+    from cbim_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    art, cli_line, export_s = exported
+    with open(art, "rb") as f:
+        data = f.read()
+    fn, load_s = _synced(lambda: load_exported(data))
+    _, first_s = _synced(lambda: fn(example))
+    reset_launch_counts()
+    want, live_s = _synced(lambda: live(example))
+    live_counts = launch_counts()
+    reset_launch_counts()
+    got, loaded_s = _synced(lambda: fn(example))
+    counts = launch_counts()
+    err = float((got - want).abs().max())
+    say(f"  {name}: {cli_line} (its process {export_s:.1f} s to here); "
+        f"{len(data)} bytes loaded in {load_s:.2f} s; first call "
+        f"{first_s:.3f} s; loaded {loaded_s:.3f} s vs live {live_s:.3f} s; "
+        f"probabilities {tuple(got.shape)} max err {err:.3e} (tol "
+        f"{EXPORT_ATOL:.0e}); launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    assert got.shape == want.shape and got.dtype == want.dtype, \
+        (got.shape, want.shape)
+    assert bool(got.isfinite().all()) and err <= EXPORT_ATOL, err
+    assert counts == live_counts and any(counts.values()), \
+        (counts, live_counts)
+    return counts
+
+
+def phase_export(device, cfg_dict, jobs) -> collections.Counter:
+    """Phase 5e: phase 5's model (its seeded weights, fp32) frozen by the
+    export CLI (:func:`start_exports`): the window forward at the serving
+    window batch and the sliding-window program of EXPORT_VOLUME (padded
+    on z, two window groups), each loaded from its bytes and run beside
+    the live engine (:func:`export_round_trip`).  Returns the loaded
+    programs' launches."""
+    import torch
+    from cbim_tpu_torch.config import config_from_dict
+    from cbim_tpu_torch.inference import engines
+    from cbim_tpu_torch.models import get_model
+    from cbim_tpu_torch.training.checkpoint import load_weights
+    exported = finish_exports(jobs)
+    cfg = config_from_dict(cfg_dict)
+    model = get_model(cfg, device=device)
+    load_weights(served_weights(cfg_dict, "serve3d")[0], model, cfg=cfg)
+    window = tuple(cfg.window_size)
+    wb = serving_window_batch(cfg_dict)
+    gen = torch.Generator().manual_seed(5)
+    total = collections.Counter()
+
+    engine = engines.make_engine(model, cfg, wb)
+
+    def live_window(x):
+        with torch.inference_mode():
+            return engines._softmax_fp32(
+                engine.apply_fn(x.movedim(-1, 1))).movedim(1, -1)
+
+    total.update(export_round_trip(
+        f"window forward {window} x{wb}", exported["window_forward"],
+        live_window, torch.randn((wb, *window, 1), generator=gen).to(device)))
+
+    sweep = engines.make_engine(model, cfg, EXPORT_SW_BATCH)
+    n = len(engines._dedup_starts(engines._grid_starts(
+        tuple(max(s, w) for s, w in zip(EXPORT_VOLUME, window)), window))[0])
+    assert n // EXPORT_SW_BATCH >= 2 and any(
+        s < w for s, w in zip(EXPORT_VOLUME, window)), n
+    total.update(export_round_trip(
+        f"sliding window {EXPORT_VOLUME}, {n} windows by {EXPORT_SW_BATCH}",
+        exported["sliding_window"], sweep.sliding_window,
+        torch.randn((1, *EXPORT_VOLUME, 1), generator=gen).to(device)))
+    del model, engine, sweep
+    return total
+
+
+@contextlib.contextmanager
+def assembler_calls():
+    """Counts the native batch assembler's calls under it."""
+    from cbim_tpu_torch.data import native
+    calls = {"n": 0}
+    assemble = native.assemble_batch
+
+    def counted(*args, **kw):
+        calls["n"] += 1
+        return assemble(*args, **kw)
+
+    native.assemble_batch = counted
+    try:
+        yield calls
+    finally:
+        native.assemble_batch = assemble
+
+
+def host_batch_ms(pipe, batch: int) -> dict:
+    """ms of DATA_BATCHES host-window copies (``_host_tensors``) each, with
+    the native assembler and with the numpy copy."""
+    out = {}
+    for on in (True, False):
+        pipe.native = on
+        took = []
+        for _ in range(DATA_BATCHES):
+            t0 = time.perf_counter()
+            pipe._host_tensors(batch)
+            took.append(1e3 * (time.perf_counter() - t0))
+        out["assembler" if on else "numpy"] = took
+    pipe.native = True
+    return out
 
 
 @contextlib.contextmanager
@@ -3434,7 +3676,14 @@ def main(argv=None) -> int:
     os.makedirs(WORK)
 
     say("[phase 2] build")
-    _build.library()
+    # beside nvcc: phase 5's seeded weights, and the opcheck of every op on
+    # CPU tensors, which also readies the machinery phase 3's opcheck on the
+    # card runs
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        beside = pool.submit(lambda: (served_weights(AMOS, "serve3d"),
+                                      phase_opcheck("cpu")))
+        _build.library()
+        cpu_opcheck = beside.result()[1]
     with open(os.path.join(WORK, "build.log"), "w") as f:
         f.write(_build.build_log)
     regs = [ln.split(":", 1)[1].strip() for ln in _build.build_log.splitlines()
@@ -3446,6 +3695,11 @@ def main(argv=None) -> int:
     say("  tensor-core kernels (registers, spill stores/loads bytes): "
         + "; ".join(f"{k} {v}" for key in ("_tc_", "_tf32_")
                     for k, v in ptxas_report(_build.build_log, key).items()))
+    say(f"  beside the build: every cbim op passes torch.library.opcheck on "
+        f"CPU tensors (seconds by op: {cpu_opcheck})")
+    # phase 5e's exports trace on the card beside phases 3-5 (CPU work in
+    # processes of their own, no kernel launched)
+    export_jobs = start_exports(device, AMOS)
 
     record: dict = {}
     wait_references, wait_options, wait_corpora = prefetch_host_work()
@@ -3460,11 +3714,13 @@ def main(argv=None) -> int:
             ("conv2d", phase_conv2d_kernels, (CONV2D_CASES, record)),
             ("depthwise", phase_depthwise_layouts, (DEPTHWISE2D_CASES,)),
             ("window attention", phase_window_attention,
-             (WA_CASES, record))):
+             (WA_CASES, record)),
+            ("ops", phase_opcheck, ())):
         t_part = time.perf_counter()
         fn(device, *fn_args)
         took[part] = round(time.perf_counter() - t_part, 1)
-    say(f"  phase 3 took, by part: {took} s")
+    say(f"  phase 3 took, by part: {took} s; every cbim op passes "
+        f"torch.library.opcheck on the card")
 
     say("[phase 3a] augmentation ops on the card vs the CPU, same draws")
     t_aug = time.perf_counter()
@@ -3800,6 +4056,11 @@ def main(argv=None) -> int:
     say_served_profile(args.profile, "serve3d", res)
     launches["5"] = counts
 
+    say("[phase 5e] phase 5's model exported with torch.export: the window "
+        "forward and the sliding-window program, loaded and run beside the "
+        "live engine")
+    launches["5e"] = phase_export(device, AMOS, export_jobs)
+
     say("[phase 5b] phase 5's request with conv_na: the fused preact conv")
     res_na = phase_slice(device, dict(AMOS, conv_na=True), REQUESTS,
                          TARGET_SPACING, "serve3d_na", NA_FORWARD_KERNELS,
@@ -4008,10 +4269,11 @@ def main(argv=None) -> int:
         "medformer_3d.yaml), fp32, batch 2, on written NIfTI cases")
     kits = kits_config(os.path.join(WORK, "kits_data"), write=False,
                        profile_dir=profile_dir("kits"))
-    tr = phase_train(device, kits, TRAIN_BATCH, "kits",
-                     ("inorm_stats", "inorm_apply", "inorm_bwd_stats",
-                      "inorm_bwd_apply") + TF32_CONV_KERNELS,
-                     amp=False, min_steps=KITS_STEPS)
+    with assembler_calls() as assembled:
+        tr = phase_train(device, kits, TRAIN_BATCH, "kits",
+                         ("inorm_stats", "inorm_apply", "inorm_bwd_stats",
+                          "inorm_bwd_apply") + TF32_CONV_KERNELS,
+                         amp=False, min_steps=KITS_STEPS)
     say_train(tr, "volumes")
     counts, steps = tr["launches"], len(tr["step_seconds"])
     # fp32 at widths of multiples of 8: the 3xTF32 kernels, per conv and
@@ -4027,10 +4289,17 @@ def main(argv=None) -> int:
         (counts, want)
     assert tr["path"] == "host windows", tr["path"]
     pipe, = tr["seen"]["pipelines"]
+    # every step's host windows through the native assembler
+    assert pipe.native and assembled["n"] >= steps, (pipe.native, assembled)
     data_s = time_batches(pipe, TRAIN_BATCH)
+    copy_ms = host_batch_ms(pipe, TRAIN_BATCH)
     say(f"  conv3d_wgrad_tf32 launches {counts['conv3d_wgrad_tf32']}, "
-        f"{KITS_CONVS} a step; host-window batches alone "
-        f"{', '.join(f'{1e3 * v:.1f}' for v in data_s)} ms")
+        f"{KITS_CONVS} a step; {assembled['n']} batches assembled "
+        f"natively; host-window batches alone "
+        f"{', '.join(f'{1e3 * v:.1f}' for v in data_s)} ms; the host copy "
+        f"alone, assembler vs numpy: "
+        f"{', '.join(f'{v:.1f}' for v in copy_ms['assembler'])} vs "
+        f"{', '.join(f'{v:.1f}' for v in copy_ms['numpy'])} ms a batch")
     if args.profile:
         say_profile(os.path.join(args.profile, "kits"))
     launches["6k"] = counts

@@ -125,9 +125,9 @@ def test_wrappers_launch_the_kernels_of_their_route(monkeypatch, dtype, C, F):
     x = torch.zeros(1, 5, 6, C, dtype=dtype)
     g = torch.zeros(1, 5, 6, F, dtype=dtype)
     w = torch.zeros(F, C, 3, 3, dtype=dtype)
-    assert conv2d.conv2d_same(x, w).shape == (1, 5, 6, F)
-    assert conv2d.conv2d_dgrad(g, w).shape == (1, 5, 6, C)
-    assert conv2d.conv2d_wgrad(x, g).shape == (F, C, 3, 3)
+    assert conv2d.conv2d_same_cuda(x, w).shape == (1, 5, 6, F)
+    assert conv2d.conv2d_dgrad_cuda(g, w).shape == (1, 5, 6, C)
+    assert conv2d.conv2d_wgrad_cuda(x, g).shape == (F, C, 3, 3)
     assert all(dev == x.device for _, _, dev in calls)
     if conv2d.conv2d_route(dtype, C, F) == conv2d.TENSOR_CORE:
         assert [c[0] for c in calls] == ["conv2d_same_fwd_tc",

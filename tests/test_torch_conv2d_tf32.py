@@ -293,9 +293,9 @@ def test_tf32_wrappers_pass_their_entries(monkeypatch, shape, C, F):
     x = torch.zeros(*shape, C)
     g = torch.zeros(*shape, F)
     w = torch.zeros(F, C, 3, 3)
-    assert conv2d.conv2d_same(x, w).shape == (*shape, F)
-    assert conv2d.conv2d_dgrad(g, w).shape == (*shape, C)
-    dw = conv2d.conv2d_wgrad(x, g)
+    assert conv2d.conv2d_same_cuda(x, w).shape == (*shape, F)
+    assert conv2d.conv2d_dgrad_cuda(g, w).shape == (*shape, C)
+    dw = conv2d.conv2d_wgrad_cuda(x, g)
     assert [c[0] for c in calls] == ["conv2d_same_fwd_tf32"] * 2 + [
         "conv2d_wgrad_tf32"]
     assert all(dev == x.device for _, _, dev in calls)

@@ -117,11 +117,11 @@ def test_wrappers_launch_the_kernels_of_their_route(monkeypatch, dtype, C, F):
     g = torch.zeros(1, 2, 3, 4, F, dtype=dtype)
     w = torch.zeros(F, C, 3, 3, 3, dtype=dtype)
     stats = torch.zeros(1, C), torch.ones(1, C)
-    conv3d.conv3d_same(x, w)
-    conv3d.conv3d_dgrad(g, w)
-    conv3d.conv3d_wgrad(x, g)
-    conv3d.conv3d_same_na(x, *stats, w, "relu")
-    conv3d.conv3d_wgrad_na(x, *stats, g, "relu")
+    conv3d.conv3d_same_cuda(x, w)
+    conv3d.conv3d_dgrad_cuda(g, w)
+    conv3d.conv3d_wgrad_cuda(x, g)
+    conv3d.conv3d_same_na_cuda(x, *stats, w, "relu")
+    conv3d.conv3d_wgrad_na_cuda(x, *stats, g, "relu")
     route = conv3d.conv3d_route(dtype, C, F)
     assert calls[:3] == {
         conv3d.TENSOR_CORE: [("_launch_fwd_tc", "conv3d_same_fwd_tc", False),

@@ -316,9 +316,9 @@ def test_tf32_wrappers_pass_their_entries_the_packing(monkeypatch):
     w = torch.zeros(Fo, C, 3, 3, 3)
     mean, rstd = torch.zeros(1, C), torch.ones(1, C)
     before = dict(conv3d.launches)
-    conv3d.conv3d_same(x, w)
-    conv3d.conv3d_dgrad(g, w)
-    conv3d.conv3d_same_na(x, mean, rstd, w, "relu")
+    conv3d.conv3d_same_cuda(x, w)
+    conv3d.conv3d_dgrad_cuda(g, w)
+    conv3d.conv3d_same_na_cuda(x, mean, rstd, w, "relu")
     assert [c[0] for c in calls] == ["conv3d_same_fwd_tf32"] * 2 + [
         "conv3d_same_na_fwd_tf32"]
     # (x, w, wpk, y, B, D, H, W, C, F, bn, flip)

@@ -167,7 +167,7 @@ def test_wgrad_tf32_launch_passes_its_entry_the_chunking(monkeypatch, shape,
     x = torch.zeros(*shape, C)
     g = torch.zeros(*shape, F)
     before = dict(conv3d.launches)
-    dw = conv3d.conv3d_wgrad(x, g)
+    dw = conv3d.conv3d_wgrad_cuda(x, g)
     (name, args), = calls
     assert name == "conv3d_wgrad_tf32"
     per, n_chunks = conv3d.wgrad_tc_chunking(conv3d.voxel_tiles(*shape),

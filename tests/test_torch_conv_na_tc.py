@@ -131,8 +131,8 @@ def test_fused_pair_wrappers_launch_their_route(monkeypatch, dtype, C, F):
     g = torch.zeros(1, 2, 3, 4, F, dtype=dtype)
     w = torch.zeros(F, C, 3, 3, 3, dtype=dtype)
     mean, rstd = torch.zeros(1, C), torch.ones(1, C)
-    conv3d.conv3d_same_na(x, mean, rstd, w, "gelu")
-    conv3d.conv3d_wgrad_na(x, mean, rstd, g, "gelu")
+    conv3d.conv3d_same_na_cuda(x, mean, rstd, w, "gelu")
+    conv3d.conv3d_wgrad_na_cuda(x, mean, rstd, g, "gelu")
     assert [c[:2] for c in calls] == {
         conv3d.TENSOR_CORE: [("_launch_fwd_tc", "conv3d_same_na_fwd_tc"),
                              ("_launch_wgrad_tc", None)],

@@ -32,6 +32,7 @@ MODULES = [
     "cbim_tpu_torch.ops.metrics",
     "cbim_tpu_torch.ops.kernels",
     "cbim_tpu_torch.ops.kernels._build",
+    "cbim_tpu_torch.ops.kernels._library",
     "cbim_tpu_torch.ops.kernels.conv2d",
     "cbim_tpu_torch.ops.kernels.conv3d",
     "cbim_tpu_torch.ops.kernels.fused_norm",
@@ -54,6 +55,7 @@ MODULES = [
     "cbim_tpu_torch.models.daunet",
     "cbim_tpu_torch.models.transunet",
     "cbim_tpu_torch.inference.engines",
+    "cbim_tpu_torch.inference.export",
     "cbim_tpu_torch.parallel",
     "cbim_tpu_torch.parallel.collectives",
     "cbim_tpu_torch.parallel.mesh",
@@ -68,6 +70,7 @@ MODULES = [
     "cbim_tpu_torch.data.datasets",
     "cbim_tpu_torch.data.factory",
     "cbim_tpu_torch.data.pipeline",
+    "cbim_tpu_torch.data.native",
     "cbim_tpu_torch.training",
     "cbim_tpu_torch.training.schedules",
     "cbim_tpu_torch.training.optim",
@@ -84,6 +87,7 @@ MODULES = [
     "cbim_tpu_torch.tools.probe_lhst_dot",
     "cbim_tpu_torch.tools.probe_conv_dissect",
     "cbim_tpu_torch.tools.converge",
+    "cbim_tpu_torch.tools.export_model",
 ]
 
 #: what the port may load of cbim_tpu: nothing

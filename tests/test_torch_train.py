@@ -114,6 +114,18 @@ def test_lr_schedule_matches_jax():
             jax_schedules.exp_lr_scheduler_with_warmup(1e-3, epoch, 5, 40)
 
 
+@pytest.mark.parametrize("current_lr", [None, 3e-4])
+def test_multistep_lr_schedule_matches_jax(current_lr):
+    """Warmup, the decay epochs and the epochs between them, with the
+    running LR given and not, over epochs 0 to max."""
+    for epoch in range(0, 41):
+        args = (1e-3, epoch, 5, [15, 25, 35], 40)
+        assert schedules.multistep_lr_scheduler_with_warmup(
+            *args, gamma=0.2, current_lr=current_lr) == \
+            jax_schedules.multistep_lr_scheduler_with_warmup(
+                *args, gamma=0.2, current_lr=current_lr)
+
+
 @pytest.mark.parametrize("name", ["sgd", "adam", "adamw"])
 def test_optimizer_steps_match_optax(name):
     """Three steps at a changing LR on one parameter tensor."""

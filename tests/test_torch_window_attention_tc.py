@@ -191,7 +191,7 @@ def test_packed_qkv_views_launch_with_the_padded_bias(monkeypatch):
     rel_bias = torch.zeros(N, N, H).permute(2, 0, 1)
     before = wa.launches["window_attention"]
     with torch.no_grad():
-        o = wa.window_attention(q, k, v, rel_bias, region)
+        o = wa.window_attention_cuda(q, k, v, rel_bias, region)
     (name, args), = calls
     assert name == "window_attention"
     assert wa.launches["window_attention"] == before + 1
@@ -211,7 +211,9 @@ def test_packed_qkv_views_launch_with_the_padded_bias(monkeypatch):
 def test_wrapper_refuses_views_it_cannot_stage(monkeypatch, dtype):
     """The kernel stages rows with 16-byte copies: a row stride that is no
     16-byte multiple, a base off 16 bytes, or q, k, v of different strides
-    raise in the wrapper, and nothing is launched."""
+    raise in the op's CUDA implementation (the checks read the views'
+    memory, so the wrapper, which tracing runs, cannot make them), and
+    nothing is launched."""
     calls = _kernel_path(monkeypatch)
     B, H, N, D = 2, 3, 49, 16
     bias = torch.zeros(H, N, N)
@@ -221,23 +223,23 @@ def test_wrapper_refuses_views_it_cannot_stage(monkeypatch, dtype):
         q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].view(B, N, H, D)
                    .transpose(1, 2) for i in range(3))
         with pytest.raises(ValueError, match="16-byte"):
-            wa.window_attention(q, k, v, bias)
+            wa.window_attention_cuda(q, k, v, bias)
         # a base one value past 16-byte alignment
         flat = torch.zeros(B * H * N * D + 1, dtype=dtype)[1:]
         q = flat.view(B, H, N, D)
         with pytest.raises(ValueError, match="16-byte"):
-            wa.window_attention(q, q, q, bias)
+            wa.window_attention_cuda(q, q, q, bias)
         q = torch.zeros(B, H, N, D, dtype=dtype)
         with pytest.raises(ValueError, match="one set of strides"):
-            wa.window_attention(q, q.transpose(0, 1).contiguous()
+            wa.window_attention_cuda(q, q.transpose(0, 1).contiguous()
                                 .transpose(0, 1), q, bias)
     assert calls == []
 
 
 def test_wrapper_refuses_windows_past_shared_memory(monkeypatch):
     """fp32 stages TF32 hi and lo planes of K and V where they fit the
-    block's 227 KB; N = 512 at D = 32 needs 264 KB of them, so the wrapper
-    routes it to the split-on-load staging (fp32 values, 130 KB), and every
+    block's 227 KB; N = 512 at D = 32 needs 264 KB of them, so the op's
+    CUDA implementation routes it to the split-on-load staging (fp32 values, 130 KB), and every
     window that fits today keeps the planes (N <= 448 at D = 32, bf16
     always).  A window past 227 KB even as values (N = 1000 at D = 32)
     still raises, and nothing is launched for it."""
@@ -255,13 +257,13 @@ def test_wrapper_refuses_windows_past_shared_memory(monkeypatch):
     bias = torch.zeros(1, N, N)
     with torch.no_grad():
         q = torch.zeros(1, 1, N, 32)
-        wa.window_attention(q, q, q, bias)
-        wa.window_attention(q.bfloat16(), q.bfloat16(), q.bfloat16(), bias)
+        wa.window_attention_cuda(q, q, q, bias)
+        wa.window_attention_cuda(q.bfloat16(), q.bfloat16(), q.bfloat16(), bias)
         q16 = torch.zeros(1, 1, N, 16)
-        wa.window_attention(q16, q16, q16, bias)
+        wa.window_attention_cuda(q16, q16, q16, bias)
         big = torch.zeros(1, 1, 1000, 32)
         with pytest.raises(ValueError, match="shared memory"):
-            wa.window_attention(big, big, big, torch.zeros(1, 1000, 1000))
+            wa.window_attention_cuda(big, big, big, torch.zeros(1, 1000, 1000))
     assert [c[0] for c in calls] == ["window_attention"] * 3
     # the split_on_load argument of each launch: fp32 D = 32 only
     assert [c[1][14] for c in calls] == [1, 0, 0]
