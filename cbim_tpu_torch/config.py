@@ -76,7 +76,7 @@ YAML_DEFAULTS = dict(
     # the data-parallel mesh (parallel/mesh.py): every rank on 'data'
     mesh_axes=["data"],
     mesh_shape=None,           # None -> every rank on the 'data' axis
-    spatial_axis=None,         # the H-axis sharding: not ported (A7)
+    spatial_axis=None,         # the H-sharding axis's name (None: 'spatial')
     compute_dtype="float32",   # 'bfloat16' when amp is requested
     conv_na=False,             # MedFormer-3D's fused preact conv (CBIM_CONV_NA)
     conv2d_kernel=False,       # the 2D CNNs' 3x3 conv kernel (CBIM_PLCONV2D)

@@ -50,8 +50,15 @@ permutations, the window starts, the gates, the affines and every drawn
 scalar), keeps its own rows (``parallel.batch_rows``) and augments only
 those, so the ranks' batches, concatenated, are the one-process batch.
 What is drawn on the device (the per-voxel noise) comes from a generator
-seeded seed + rank.  Each rank's device cache holds the whole corpus, as
-the JAX package replicates it over the mesh.
+seeded seed + data index (the rank, without a 'spatial' axis).  Each rank's
+device cache holds the whole corpus, as the JAX package replicates it over
+the mesh.
+
+Under a 'spatial' mesh axis the s peers of a data index make the same
+draws, the device noise included (its generator is seeded by the data
+index), augment the same rows whole and keep their H slab of the result
+(``parallel.spatial.slab``): the peers' slabs, joined along H, are that
+data index's batch.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ import torch
 from ..ops import augment as A
 from ..ops._backend import get_device
 from ..parallel.mesh import batch_rows
+from ..parallel.spatial import slab
 from ..ops.resample import (affine_sample_2d_batch, affine_sample_3d_batch,
                             affine_sample_3d_fullvol_batch)
 
@@ -345,7 +353,7 @@ class TrainPipeline:
         self._rng = np.random.default_rng(seed)
         self._gen_host = torch.Generator().manual_seed(seed)
         self._gen_dev = torch.Generator(device=self.device).manual_seed(
-            seed + (mesh.rank if mesh is not None else 0))
+            seed + (mesh.data_rank if mesh is not None else 0))
         self._aug = build_batch_aug(recipe, self.crop_size)
         self._epoch_perm = None
         self._perm_pos = 0
@@ -537,8 +545,19 @@ class TrainPipeline:
 
     def next_batch(self, batch_size: int):
         """(img (B, *crop, 1) float32, lab (B, *crop) int64) on the device:
-        under a mesh this rank's B = batch_size // W rows of the global
-        batch of ``batch_size``."""
+        under a mesh this rank's B = batch_size // d rows of the global
+        batch of ``batch_size``, and under a 'spatial' axis its H slab of
+        them (module docstring)."""
+        img, lab = self._next_rows(batch_size)
+        mesh = self.mesh
+        if mesh is None or mesh.spatial_size == 1:
+            return img, lab
+        dim = 2 if self.ndim == 3 else 1          # H of (B, *crop, C)
+        return tuple(slab(t, mesh.spatial_rank, mesh.spatial_size,
+                          dim).contiguous() for t in (img, lab))
+
+    def _next_rows(self, batch_size: int):
+        """``next_batch``'s rows, whole."""
         rows = self._rows(batch_size) if self.mesh is not None else None
         if self.cache_img is not None:
             idxs = self._draw_indices(batch_size)

@@ -32,6 +32,14 @@ BatchNorm stays ``F.batch_norm`` (``torch.native_batch_norm`` when
 training), as XLA carried Flax's; under data parallelism a training-mode
 BatchNorm marked with the run's process group (``sync_batch_norm``)
 normalises with the global batch's statistics (``global_batch_norm``).
+Under the 'spatial' mesh axis a model marked with the spatial group
+(``spatial_shard``) trains on H slabs: every conv whose kernel spans more
+than one row of H runs on its slab and the neighbours' halo planes (the
+3^3 kernel route, cuDNN's convs and ``grouped_conv`` alike, through
+``_conv`` and ``parallel.spatial.halo_conv``), InstanceNorm and the fused
+preact conv take the whole volume's statistics on the same kernels
+(``SpatialInstanceNormAct``, ``SpatialConvInormAct3d``), and SE's mean is
+the volume's.
 The TPU's NDHCW stage layout has no counterpart: the one NDHWC kernel
 computes the same thing.
 
@@ -42,16 +50,21 @@ is stride 1 (the JAX factories build their strided variants nowhere).
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ...ops.activations import Act, gelu, get_act
 from ...ops.kernels.conv2d import Conv2dSame
-from ...ops.kernels.conv3d import Conv3dSame, ConvInormAct3d
-from ...ops.kernels.fused_norm import InstanceNormAct, supported_act
+from ...ops.kernels.conv3d import (Conv3dSame, ConvInormAct3d,
+                                   SpatialConvInormAct3d)
+from ...ops.kernels.fused_norm import (InstanceNormAct,
+                                       SpatialInstanceNormAct, supported_act)
+from ...parallel import spatial
 from ...parallel.collectives import all_reduce_sum
 
 KernelArg = Union[int, Sequence[int]]
@@ -98,10 +111,72 @@ def grouped_conv(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
     return y.contiguous(memory_format=torch.channels_last_3d)
 
 
+def spatial_group(module: nn.Module):
+    """The process group over whose ranks ``module``'s input is sharded
+    along H (``spatial_shard``), in training mode; None otherwise."""
+    return getattr(module, "spatial_group", None) if module.training \
+        else None
+
+
 def _conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    if isinstance(conv, nn.Conv3d) and conv.groups > 1:
-        return grouped_conv(conv, x)
-    return conv(x)
+    """``conv`` of x: a grouped 3D conv through ``grouped_conv``; under a
+    spatial group (``spatial_shard``) on the slab and the neighbours'
+    halo planes (``parallel.spatial.halo_conv``)."""
+    grouped = isinstance(conv, nn.Conv3d) and conv.groups > 1
+    group = spatial_group(conv)
+    if group is None:
+        return grouped_conv(conv, x) if grouped else conv(x)
+
+    def fn(t):
+        if grouped:
+            return grouped_conv(conv, t)
+        return conv._conv_forward(t, conv.weight, conv.bias)
+    return spatial.halo_conv(fn, x, conv.kernel_size[-2], group)
+
+
+def _refuse_direct_call(conv: nn.Module, args) -> None:
+    """The forward pre-hook of a marked conv (``spatial_shard``): its
+    callers go through ``_conv``, which adds the halo; a direct call would
+    pad the slab with zeros where its neighbours' rows belong."""
+    if spatial_group(conv) is not None:
+        raise RuntimeError("a conv of an H-sharded model was called "
+                           "directly: call it through layers.convs._conv")
+
+
+def spatial_shard(model: nn.Module, group) -> nn.Module:
+    """Mark ``model`` as trained on H slabs over the process ``group``
+    (the 'spatial' mesh axis, ``parallel.spatial``), in the spirit of
+    ``sync_batch_norm``, in place; returns ``model``.
+
+    Every conv and every module with a ``spatial_group`` slot (``Norm``,
+    ``ConvNormAct``, ``SEBlock``, the decoders' resizes, MedFormer's
+    attention and map generation) takes the group; in training mode they
+    then exchange halos (convs whose kernel spans more than one row of H),
+    merge statistics over space (InstanceNorm, SE's mean) and resize and
+    take softmaxes over the whole H.  A module's ``replicated`` names its
+    children that compute on tensors every peer holds whole (MedFormer's
+    semantic maps): they stay unmarked.  A model holds the mark in eval
+    mode too, where nothing is sharded.  Take copies (the EMA model) before
+    marking: a process group does not deep-copy."""
+    skip = set()
+    for name, m in model.named_modules():
+        if any(name == p or name.startswith(p + ".") for p in skip):
+            continue
+        skip.update(f"{name}.{c}" if name else c
+                    for c in getattr(m, "replicated", ()))
+        if isinstance(m, (nn.Conv2d, nn.Conv3d)):
+            k, st, pad = m.kernel_size[-2], m.stride[-2], m.padding[-2]
+            if st != 1 or pad != k // 2 or k % 2 == 0:
+                raise NotImplementedError(
+                    f"an H-sharded conv of kernel {k}, stride {st} and "
+                    f"padding {pad}: only stride-1 SAME convs exchange a "
+                    "halo (ROADMAP A7)")
+            m.spatial_group = group
+            if k > 1:
+                m.register_forward_pre_hook(_refuse_direct_call)
+        elif hasattr(m, "spatial_group"):
+            m.spatial_group = group
+    return model
 
 
 def _no_generator(name: str) -> RuntimeError:
@@ -227,6 +302,9 @@ class Norm(nn.Module):
       variance, and the statistics stay fp32 under bf16 autocast.  With a
       ``sync_group`` (``sync_batch_norm``) training mode takes the global
       batch's statistics (``global_batch_norm``);
+      under H sharding (``spatial_shard``) InstanceNorm takes the whole
+      volume's statistics (``SpatialInstanceNormAct``), and BatchNorm's
+      group sums cover every slab already;
     - ``"ln"``: LayerNorm over C alone (the reference's channels-first
       LayerNorm; Flax's ``LayerNorm`` over the channels-last axis) with
       affine ``weight``/``bias`` and the caller's eps, computed in fp32
@@ -248,6 +326,9 @@ class Norm(nn.Module):
                                  torch.tensor(0, dtype=torch.long))
         elif kind not in ("in", "ln", None, False):
             raise ValueError(f"unknown norm {kind!r}")
+        #: H-sharded training (``spatial_shard``): InstanceNorm's statistics
+        #: are the whole volume's
+        self.spatial_group = None
 
     def _batch_norm(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -281,8 +362,14 @@ class Norm(nn.Module):
     def forward(self, x, act=None):
         if self.kind == "in":
             fuse = supported_act(act)
-            x = from_channels_last(InstanceNormAct.apply(
-                to_channels_last(x), self.eps, act if fuse else None))
+            fact = act if fuse else None
+            group = spatial_group(self)
+            if group is None:
+                t = InstanceNormAct.apply(to_channels_last(x), self.eps, fact)
+            else:
+                t = SpatialInstanceNormAct.apply(to_channels_last(x),
+                                                 self.eps, fact, group)
+            x = from_channels_last(t)
             return x if fuse else get_act(act)(x)
         if self.kind == "bn":
             x = self._batch_norm(x)
@@ -326,13 +413,24 @@ class ConvNormAct(nn.Module):
                       and self.kernel is Conv3dSame and supported_act(act))
 
     def _conv(self, x):
-        if self.kernel is not None:
+        if self.kernel is None:
+            return _conv(self.conv, x)
+
+        def fn(t):
             return from_channels_last(
-                self.kernel.apply(to_channels_last(x), self.conv.weight))
-        return _conv(self.conv, x)
+                self.kernel.apply(to_channels_last(t), self.conv.weight))
+        group = spatial_group(self.conv)
+        if group is None:
+            return fn(x)
+        return spatial.halo_conv(fn, x, 3, group)
 
     def forward(self, x):
         if self.fused:
+            group = spatial_group(self.conv)
+            if group is not None:
+                return from_channels_last(SpatialConvInormAct3d.apply(
+                    to_channels_last(x), self.conv.weight, self.norm.eps,
+                    self.act, group))
             return from_channels_last(ConvInormAct3d.apply(
                 to_channels_last(x), self.conv.weight, self.norm.eps,
                 self.act))
@@ -399,9 +497,19 @@ class SEBlock(nn.Module):
         self.excitation = nn.Sequential(
             CONV[nd](in_ch, in_ch // 4, 1), Act(act),
             CONV[nd](in_ch // 4, in_ch, 1))
+        #: H-sharded training (``spatial_shard``): the mean is the volume's
+        self.spatial_group = None
 
     def forward(self, x):
-        s = x.mean(dim=tuple(range(2, x.dim())), keepdim=True)
+        dims = tuple(range(2, x.dim()))
+        group = spatial_group(self)
+        if group is None:
+            s = x.mean(dim=dims, keepdim=True)
+        else:
+            total = all_reduce_sum(
+                x.sum(dim=dims, keepdim=True, dtype=torch.float32), group)
+            s = (total / (math.prod(x.shape[2:])
+                          * dist.get_world_size(group))).to(x.dtype)
         return x * torch.sigmoid(self.excitation(s))
 
 

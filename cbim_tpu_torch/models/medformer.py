@@ -44,10 +44,12 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.interpolate import resize_linear
+from ..parallel.collectives import all_reduce_sum
+from ..parallel.spatial import group_softmax
 from .layers.convs import (CONV, ConvNormAct, DepthwiseSeparableConv,
-                           Dropout, FusedMBConv, MBConv, Norm, _tuple,
+                           Dropout, FusedMBConv, MBConv, Norm, _conv, _tuple,
                            from_channels_last, get_block_cls,
-                           to_channels_last)
+                           spatial_group, to_channels_last)
 from .layers.transformers import TransformerBlock
 
 #: per-stage remat modes (``cbim_tpu/models/medformer.py:573-603``): which
@@ -94,6 +96,9 @@ class BidirectionAttention(nn.Module):
         self.map_out = None if no_map_out else _conv1x1(inner, map_dim, nd=nd)
         self.attn_drop = Dropout(attn_drop)
         self.proj_drop = Dropout(proj_drop)
+        #: H-sharded training (``layers.convs.spatial_shard``): the
+        #: map-to-feature softmax and its sum run over every slab's tokens
+        self.spatial_group = None
 
     def _to_heads(self, t):
         """(B, inner, *spatial), channel d*heads + h -> (B, heads, N, d)."""
@@ -112,14 +117,21 @@ class BidirectionAttention(nn.Module):
         attn = torch.matmul(fq.float(), mq.float().transpose(-1, -2))
         attn = attn * self.dim_head ** -0.5                # (B, h, N, M)
         feat_map_attn = attn.softmax(dim=-1).to(fq.dtype)
-        map_feat_attn = attn.softmax(dim=-2).to(fq.dtype)
+        group = spatial_group(self)
         feat_out = torch.matmul(feat_map_attn, mv)         # (B, h, N, d)
         feat_out = self.proj_drop(self.feat_out(
             self._from_heads(feat_out, feat.shape[2:])))
         if self.map_out is None:
             return feat_out, None
+        if group is None:
+            map_feat_attn = attn.softmax(dim=-2).to(fq.dtype)
+        else:       # over the N tokens of every slab
+            map_feat_attn = group_softmax(attn, -2, group).to(fq.dtype)
         map_out = torch.matmul(self.attn_drop(map_feat_attn).transpose(-1, -2),
                                fv)
+        if group is not None:
+            # the sum over every slab's tokens: each peer holds the map
+            map_out = all_reduce_sum(map_out.float(), group).to(map_out.dtype)
         return feat_out, self.map_out(
             self._from_heads(map_out, semantic_map.shape[2:]))
 
@@ -127,7 +139,11 @@ class BidirectionAttention(nn.Module):
 class BidirectionAttentionBlock(nn.Module):
     """norm -> B-MHA -> shortcut -> feedforward (MBConv, or FusedMBConv
     with 1^d kernels under ``proj_type`` "linear"); map residual.
-    ``ffn_drop_path``: the MBConv's stochastic depth."""
+    ``ffn_drop_path``: the MBConv's stochastic depth.  The map's norm
+    (``norm2``) normalises the semantic map, which every spatial peer holds
+    whole."""
+
+    replicated = ("norm2",)
 
     def __init__(self, feat_dim, map_dim, out_dim, heads, dim_head, norm="in",
                  act="relu", expansion=4, kernel_size=3, no_map_out=False,
@@ -233,12 +249,23 @@ class SemanticMapGeneration(nn.Module):
         self.semantic_proj = conv(feat_dim, math.prod(self.map_size), 3,
                                   padding=1, bias=False)
 
+        #: H-sharded training (``layers.convs.spatial_shard``): the softmax
+        #: and the sum run over every slab's voxels, so every peer holds the
+        #: whole map
+        self.spatial_group = None
+
     def forward(self, x):
         b = x.shape[0]
-        feat = self.base_proj(x).reshape(b, -1, math.prod(x.shape[2:]))
-        weight = self.semantic_proj(x).reshape(b, -1, feat.shape[-1])
-        weight = weight.float().softmax(dim=-1).to(feat.dtype)  # over space
-        smap = torch.bmm(feat, weight.transpose(1, 2))          # (B, C, K)
+        feat = _conv(self.base_proj, x).reshape(b, -1, math.prod(x.shape[2:]))
+        weight = _conv(self.semantic_proj, x).reshape(b, -1, feat.shape[-1])
+        group = spatial_group(self)
+        if group is None:
+            weight = weight.float().softmax(dim=-1).to(feat.dtype)  # space
+            smap = torch.bmm(feat, weight.transpose(1, 2))      # (B, C, K)
+        else:       # over every slab's voxels
+            weight = group_softmax(weight.float(), -1, group).to(feat.dtype)
+            smap = all_reduce_sum(torch.bmm(feat, weight.transpose(1, 2))
+                                  .float(), group).to(feat.dtype)
         return smap.reshape(b, -1, *self.map_size)
 
 
@@ -283,7 +310,7 @@ class InConvMF(nn.Module):
                                                conv2d_kernel=conv2d_kernel)
 
     def forward(self, x):
-        return self.conv2(self.conv1(x))
+        return self.conv2(_conv(self.conv1, x))
 
 
 class DownBlockMF(nn.Module):
@@ -343,9 +370,11 @@ class UpBlockMF3D(nn.Module):
             blk(first if j == 0 else out_ch, out_ch, kernel_size=kernel_size,
                 norm=norm, act=act, conv_na=conv_na)
             for j in range(conv_num)))
+        #: H-sharded training (``layers.convs.spatial_shard``)
+        self.spatial_group = None
 
     def forward(self, x_low, x_skip, map1, map2=None):
-        x_low = resize_linear(x_low, x_skip.shape[2:])
+        x_low = resize_linear(x_low, x_skip.shape[2:], spatial_group(self))
         if self.map_reduction is not None and map2 is not None:
             semantic_map = self.map_reduction(torch.cat([map1, map2], dim=1))
         else:
@@ -403,7 +432,11 @@ class MedFormer3D(nn.Module):
     InstanceNorm 3^3 conv of the conv blocks as one fused
     ``ConvInormAct3d`` (the JAX package's opt-in ``CBIM_CONV_NA=1``); the
     parameters are the same either way.  ``proj_type``, ``attn_drop`` and
-    ``proj_drop`` reach every B-MHA block (the module docstring)."""
+    ``proj_drop`` reach every B-MHA block (the module docstring).  Under
+    H sharding (``layers.convs.spatial_shard``) the map fusion runs on the
+    semantic maps every spatial peer holds whole."""
+
+    replicated = ("map_fusion",)
 
     def __init__(self, in_chan: int, num_classes: int, base_ch: int = 32,
                  map_size: Sequence[int] = (4, 8, 8),
@@ -467,6 +500,9 @@ class MedFormer3D(nn.Module):
         self.aux_out = _conv1x1(cn[5], num_classes, bias=True) \
             if aux_loss else None
         self.outc = _conv1x1(cn[7], num_classes, bias=True)
+        #: H-sharded training (``layers.convs.spatial_shard``): the aux
+        #: head's upsample
+        self.spatial_group = None
 
     def _stage(self, key: str, module: nn.Module, *args):
         """``module(*args)``, recomputed in the backward pass when training
@@ -509,7 +545,8 @@ class MedFormer3D(nn.Module):
         out, smap = self._stage("low_u", self.up1, x4, x3, map_list[2],
                                 map_list[1])
         out, smap = self._stage("low_u", self.up2, out, x2, smap, map_list[0])
-        aux = (resize_linear(self.aux_out(out), x.shape[2:]).float()
+        aux = (resize_linear(self.aux_out(out), x.shape[2:],
+                             spatial_group(self)).float()
                if self.aux_out is not None else None)
 
         out, smap = self._stage("up3", self.up3, out, x1, smap, None)

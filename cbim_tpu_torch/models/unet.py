@@ -32,7 +32,7 @@ import torch
 from torch import nn
 
 from ..ops.interpolate import resize_linear
-from .layers.convs import CONV, _tuple, get_block_cls
+from .layers.convs import CONV, _conv, _tuple, get_block_cls, spatial_group
 
 #: the channel multipliers of the 3D and the 2D levels
 CH_MULT_3D = (1, 2, 4, 8, 10)
@@ -64,7 +64,7 @@ class InConv(nn.Module):
                               act, nd, conv2d_kernel)
 
     def forward(self, x):
-        return self.conv2(self.conv1(x))
+        return self.conv2(_conv(self.conv1, x))
 
 
 class DownBlock(nn.Module):
@@ -97,9 +97,11 @@ class UpBlock3D(nn.Module):
         self.conv = nn.Sequential(*_blocks(block, low_ch + skip_ch, out_ch,
                                            num_block, kernel_size, norm, act,
                                            nd, conv2d_kernel))
+        #: H-sharded training (``layers.convs.spatial_shard``)
+        self.spatial_group = None
 
     def forward(self, x_low, x_skip):
-        x_low = resize_linear(x_low, x_skip.shape[2:])
+        x_low = resize_linear(x_low, x_skip.shape[2:], spatial_group(self))
         return self.conv(torch.cat([x_skip, x_low], dim=1))
 
 

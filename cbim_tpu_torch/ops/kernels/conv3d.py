@@ -55,7 +55,9 @@ same in fp32, and ``conv3d_wgrad_na_tf32``.  So the normalised tensor
 never exists in device memory.
 The statistics are ``fused_norm.inorm_stats`` (``_cw_stats`` computes the
 same per-(b, c) mean and rstd in the TPU layout).  :class:`ConvInormAct3d`
-trains through them.
+trains through them, and :class:`SpatialConvInormAct3d` through the same
+kernels on one H slab of a volume sharded over ranks (the 'spatial' mesh
+axis: the slab's halo planes exchanged, the statistics merged).
 
 The weight takes torch's layout; the CUDA-core forward's wrapper packs it
 to [3, 3, 3, C, F] (a copy of 27*C*F values) so the kernel reads rows of
@@ -78,6 +80,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...parallel import spatial
 from .. import _backend
 from . import _build, _library, fused_norm
 
@@ -910,6 +913,58 @@ class ConvInormAct3d(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = conv3d_wgrad_na(x, mean, rstd, g, ctx.act).to(w.dtype)
         return dx, dw, None, None
+
+
+class SpatialConvInormAct3d(torch.autograd.Function):
+    """:class:`ConvInormAct3d` of one H slab of a volume sharded over the
+    process ``group`` (``parallel.spatial``),
+    ``SpatialConvInormAct3d.apply(x, w, eps, act, group)`` over a
+    channels-last slab x[B, D, H, W, C]: the unsharded fused conv's output
+    on the slab's rows, on the same kernels.
+
+    Forward: the slab's ``inorm_stats`` merged over the group
+    (``fused_norm.merge_stats``); the raw slab with one plane of each
+    neighbour (``spatial.exchange``; none at the volume's ends, where the
+    kernel's zero padding of the normalised input is the unsharded one);
+    :func:`conv3d_same_na` of it, the halo rows of its output dropped.
+    Backward: the upstream gradient zero-padded over the halo rows; dW =
+    :func:`conv3d_wgrad_na` on the haloed slab; the normalised input's
+    gradient :func:`conv3d_dgrad` over the haloed rows, its halo rows added
+    into the neighbours' (``spatial.exchange_transpose``); dx by the norm
+    backward with the group's sums (``fused_norm._spatial_backward``).
+    Saves the haloed slab, never the normalised tensor."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, x, w, eps, act, group):
+        _check(x, w)
+        mean, rstd = fused_norm.merge_stats(
+            *fused_norm._stats(fused_norm._rows(x), eps), eps, group)
+        xh, pre, post = spatial.exchange(x, 1, group, 2)
+        ctx.save_for_backward(xh, w, mean, rstd)
+        ctx.act, ctx.group, ctx.pre, ctx.post = act, group, pre, post
+        y = conv3d_same_na(xh, mean, rstd, w, act)
+        return y.narrow(2, pre, x.shape[2]).contiguous()
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g):
+        xh, w, mean, rstd = ctx.saved_tensors
+        pre, post = ctx.pre, ctx.post
+        n = xh.shape[2] - pre - post
+        gh = g.new_zeros((*xh.shape[:-1], g.shape[-1]), dtype=xh.dtype)
+        gh.narrow(2, pre, n).copy_(g)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dxn = spatial.exchange_transpose(conv3d_dgrad(gh, w), pre, post,
+                                             1, ctx.group, 2)
+            x = xh.narrow(2, pre, n).contiguous()
+            dx = fused_norm._spatial_backward(
+                fused_norm._rows(x), fused_norm._rows(dxn.contiguous()),
+                mean, rstd, ctx.act, ctx.group).view(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = conv3d_wgrad_na(xh, mean, rstd, gh, ctx.act).to(w.dtype)
+        return dx, dw, None, None, None
 
 
 # ------------------------------------------------------------ the custom ops

@@ -18,7 +18,10 @@ Four kernels, ``csrc/fused_norm.cu``:
 Each is the CUDA implementation of a ``torch.library`` custom op of the
 same name (``torch.ops.cbim.inorm_stats`` ...; ``_library``), whose CPU
 implementation is the plain PyTorch version beside it (fp32 math, one
-cast); :class:`InstanceNormAct` and the fused preact conv call the ops.
+cast); :class:`InstanceNormAct` and the fused preact conv call the ops,
+and so does :class:`SpatialInstanceNormAct`, the same norm of one H slab
+of a volume sharded over ranks (the 'spatial' mesh axis), its statistics
+merged over the ranks (:func:`merge_stats`).
 The ops take the activation as its code (:data:`ACT_NAMES`).  Unlike the
 TPU gate
 (``fused_norm.usable``: lane-dense C only), the kernels take every C: the
@@ -30,7 +33,9 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
+from ...parallel.spatial import gather_pairs, group_sum
 from .. import _backend
 from ..activations import gelu_grad, get_act
 from . import _build, _library
@@ -282,6 +287,68 @@ class InstanceNormAct(torch.autograd.Function):
         dy3 = dy.to(x3.dtype).contiguous().view(x3.shape)
         dx = _backward(x3, dy3, mean, rstd, ctx.act)
         return dx.view(dy.shape), None, None
+
+
+def merge_stats(mean: torch.Tensor, rstd: torch.Tensor, eps: float, group
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (mean, rstd) of the whole volume from each H slab's (mean, rstd)
+    over its rows, the slabs of ``group`` all of one size (the mesh's
+    divisibility rule): Chan's parallel rule, in fp64, on every slab's
+    (mean, variance) gathered in one collective, each variance recovered
+    as rstd^-2 - eps.  The global mean is the mean of the slab means; the
+    global variance the mean of (slab variance + (slab mean - global
+    mean)^2).  The recovery costs only rstd's fp32 rounding relative to
+    var + eps, the term the output divides by."""
+    m, var = (torch.stack(t) for t in zip(*gather_pairs(
+        mean.double(), rstd.double().pow(-2) - eps, group)))
+    mean_g = m.mean(0)
+    var_g = (var + (m - mean_g).square()).mean(0).clamp_min(0)
+    return mean_g.float(), torch.rsqrt(var_g + eps).float()
+
+
+def _spatial_backward(x3: torch.Tensor, dy3: torch.Tensor, mean: torch.Tensor,
+                      rstd: torch.Tensor, act, group) -> torch.Tensor:
+    """:func:`_backward` of one H slab under the volume's statistics: the
+    slab's ``inorm_bwd_stats`` (means over its rows) averaged over the
+    group's equal slabs, then ``inorm_bwd_apply``."""
+    code = _act_code(act)
+    red = torch.ops.cbim.inorm_bwd_stats(x3, dy3, mean, rstd, code)
+    red = (group_sum(red.double(), group)
+           / dist.get_world_size(group)).float()
+    return torch.ops.cbim.inorm_bwd_apply(x3, dy3, mean, rstd, red, code)
+
+
+class SpatialInstanceNormAct(torch.autograd.Function):
+    """:class:`InstanceNormAct` of one H slab of a volume sharded over the
+    process ``group`` (``parallel.spatial``),
+    ``SpatialInstanceNormAct.apply(x, eps, act, group)`` over a
+    channels-last slab x (B, *spatial, C): the whole volume's statistics,
+    on the same kernels.
+
+    Forward: ``inorm_stats`` on the slab, the (mean, rstd) merged over the
+    group (:func:`merge_stats`), ``inorm_apply`` with them.  Backward:
+    ``inorm_bwd_stats`` on the slab, averaged over the group, then
+    ``inorm_bwd_apply``.  Every peer of the group calls it in the same
+    order, as each collective needs."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, x, eps, act, group):
+        code = _act_code(act)
+        x3 = _rows(x)
+        mean, rstd = merge_stats(*_stats(x3, eps), eps, group)
+        y = torch.ops.cbim.inorm_apply(x3, mean, rstd, code)
+        ctx.save_for_backward(x3, mean, rstd)
+        ctx.act, ctx.group = act, group
+        return y.view(x.shape)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dy):
+        x3, mean, rstd = ctx.saved_tensors
+        dy3 = dy.to(x3.dtype).contiguous().view(x3.shape)
+        dx = _spatial_backward(x3, dy3, mean, rstd, ctx.act, ctx.group)
+        return dx.view(dy.shape), None, None, None
 
 
 def instance_norm_act(x: torch.Tensor, eps: float = 1e-4,

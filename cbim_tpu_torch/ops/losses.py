@@ -17,6 +17,8 @@ over the batch (Dice's tp, fp and fn; the cross entropy's weighted sum and
 weight; the focal loss's sum and count) cross the ranks through
 ``parallel.all_reduce_sum`` before they are combined.  The mean of per-rank
 Dice losses would be another loss.  Without a group nothing changes.
+Under the 'spatial' mesh axis each rank holds an H slab of its rows, and
+the same world-group sums (counts included) cover every slab's voxels.
 """
 
 from __future__ import annotations

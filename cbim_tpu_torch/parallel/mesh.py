@@ -16,9 +16,15 @@ process is the port's node (``GROUP_RANK``), and JAX's 'data' devices of one
 host are that node's ranks: validation strides volumes over nodes and shards
 each volume's sweep over a node's ranks.
 
-The 'spatial' axis (the volume's H axis sharded across devices) is not
-ported: a mesh with one larger than 1 raises ``NotImplementedError``
-(ROADMAP A7).
+A second mesh axis, 'spatial' (``mesh_axes: [data, spatial]``,
+``mesh_shape: [d, s]``), shards the volume's H axis over s ranks, as the
+JAX mesh reshapes its devices to [d, s]: spatial peers are consecutive
+ranks, rank r has data index r // s and slab r % s.  ``cfg.batch_size`` is
+then split over the d data indices alone, and each of the s peers of one
+data index holds the same rows, its slab of H (``parallel.spatial``).  The
+world group still carries the loss's and the BatchNorm statistics' sums
+and DDP's gradient mean; the spatial group carries the halos and the
+statistics over space.
 """
 
 from __future__ import annotations
@@ -41,7 +47,11 @@ class Mesh:
     rank and rank count within the node, the node's index and the node
     count, and the device the collectives' tensors live on.  The host-side
     sharding (:func:`shard_batch`, the pipeline's rows and draws) reads
-    only the rank and the world size."""
+    only the data index and the data size.  Under a 'spatial' axis of s
+    > 1 the spatial group is this rank's s peers (None otherwise), the
+    spatial rank its slab of H, and the data rank and size its place on
+    the 'data' axis (rank // s of W / s); without one, the data rank and
+    size are the rank and the world size."""
     group: object
     node_group: object
     rank: int
@@ -51,6 +61,19 @@ class Mesh:
     node: int
     nodes: int
     device: torch.device
+    spatial_group: object = None
+    spatial_rank: int = 0
+    spatial_size: int = 1
+    data_rank: int | None = None
+    data_size: int | None = None
+
+    def __post_init__(self):
+        if self.data_rank is None:
+            object.__setattr__(self, "data_rank",
+                               self.rank // self.spatial_size)
+        if self.data_size is None:
+            object.__setattr__(self, "data_size",
+                               self.size // self.spatial_size)
 
 
 def _env_int(name: str, default: int) -> int:
@@ -63,12 +86,15 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def initialize_distributed(cfg=None, device="cuda", group: bool = False
-                           ) -> bool:
+def initialize_distributed(cfg=None, device="cuda", group: bool = False,
+                           backend: str | None = None) -> bool:
     """Start the process group of a ``torchrun`` launch (replaces
     ``jax.distributed.initialize``): reads RANK, WORLD_SIZE, LOCAL_RANK,
     LOCAL_WORLD_SIZE and GROUP_RANK; on CUDA sets ``cuda:LOCAL_RANK`` and
-    starts an NCCL group, on the CPU a gloo group.  Without WORLD_SIZE, or
+    starts an NCCL group, on the CPU a gloo group.  ``backend`` "gloo" with
+    a CUDA ``device`` keeps the tensors on the card and moves them over
+    gloo, whose ranks may share a card (rank r takes card r % count; NCCL
+    refuses two ranks on one card).  Without WORLD_SIZE, or
     with a WORLD_SIZE of 1 and ``group`` false, it does nothing, as the JAX
     package's single-process run.  ``group`` true starts a group of one
     when the environment names none (rendezvous on a free localhost port).
@@ -84,9 +110,12 @@ def initialize_distributed(cfg=None, device="cuda", group: bool = False
     kwargs = {}
     if device.type == "cuda":
         local = _env_int("LOCAL_RANK", 0)
-        torch.cuda.set_device(local)
-        backend = "nccl"
-        kwargs["device_id"] = torch.device("cuda", local)
+        backend = backend or "nccl"
+        if backend == "nccl":
+            kwargs["device_id"] = torch.device("cuda", local)
+        torch.cuda.set_device(local % torch.cuda.device_count())
+    elif backend not in (None, "gloo"):
+        raise ValueError(f"backend {backend!r} on the CPU: only gloo")
     else:
         backend = "gloo"
     if "MASTER_ADDR" in os.environ:
@@ -115,12 +144,16 @@ def _axes(cfg, world: int) -> dict:
     return dict(zip(axes, (int(s) for s in shape)))
 
 
-def make_mesh(cfg=None) -> Mesh:
+def make_mesh(cfg=None, device=None) -> Mesh:
     """The :class:`Mesh` of the running group (the JAX ``make_mesh``):
     checks the config's ``mesh_axes``/``mesh_shape`` against the world size,
     and builds the node subgroups (ranks ``node * LOCAL_WORLD_SIZE`` on,
-    as ``torchrun`` numbers them).  The collectives' tensors live on
-    ``cuda:LOCAL_RANK`` under NCCL and on the CPU under gloo."""
+    as ``torchrun`` numbers them) and, under a 'spatial' axis of s > 1,
+    the spatial groups (ranks ``i * s`` to ``i * s + s - 1``).  Every rank
+    makes every group, in the same order.  The collectives' tensors live
+    on ``device``: by default ``cuda:LOCAL_RANK`` under NCCL and the CPU
+    under gloo; a CUDA ``device`` under gloo is card LOCAL_RANK % count
+    (:func:`initialize_distributed`)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call "
                            "initialize_distributed first")
@@ -128,15 +161,19 @@ def make_mesh(cfg=None) -> Mesh:
     sizes = _axes(cfg, world)
     spatial = (cfg.get("spatial_axis") if cfg is not None else None) \
         or "spatial"
-    if sizes.get(spatial, 1) > 1:
-        raise NotImplementedError(
-            f"a '{spatial}' mesh axis of {sizes[spatial]}: sharding the "
-            "volume's H axis is not ported (ROADMAP A7, the spatial axis)")
     if "data" not in sizes:
         raise ValueError(f"mesh_axes {list(sizes)} have no 'data' axis")
-    if sizes["data"] != world or math.prod(sizes.values()) != world:
-        raise ValueError(f"mesh {sizes} does not match the {world} ranks: "
-                         "the 'data' axis takes every rank")
+    s = sizes.get(spatial, 1)
+    if set(sizes) - {"data", spatial}:
+        raise ValueError(f"mesh_axes {list(sizes)}: the port's mesh has the "
+                         f"'data' and '{spatial}' axes only")
+    if math.prod(sizes.values()) != world:
+        raise ValueError(f"mesh {sizes} does not match the {world} ranks")
+    if s > 1 and cfg is not None and cfg.get("training_size"):
+        h = int(cfg.training_size[1 if cfg.dimension == "3d" else 0])
+        if h % s:
+            raise ValueError(f"training_size's H {h} does not divide over the "
+                             f"'{spatial}' axis of {s}")
     local_size = _env_int("LOCAL_WORLD_SIZE", world)
     local_rank = _env_int("LOCAL_RANK", rank)
     node = _env_int("GROUP_RANK", rank // local_size)
@@ -146,30 +183,48 @@ def make_mesh(cfg=None) -> Mesh:
     nodes = world // local_size
     node_group = dist.group.WORLD
     if nodes > 1:
-        # every rank makes every node's group, in the same order
-        for i in range(nodes):
-            g = dist.new_group(list(range(i * local_size,
-                                          (i + 1) * local_size)))
-            if i == node:
-                node_group = g
-    device = torch.device("cuda", local_rank) \
-        if dist.get_backend() == "nccl" else torch.device("cpu")
+        node_group = _subgroup(rank, local_size, nodes)
+    spatial_group = _subgroup(rank, s, world // s) if s > 1 else None
+    nccl = dist.get_backend() == "nccl"
+    if device is None:
+        device = "cuda" if nccl else "cpu"
+    device = get_device(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", local_rank if nccl else
+                              local_rank % torch.cuda.device_count())
+    elif nccl:
+        raise ValueError("an NCCL group needs a CUDA device")
     return Mesh(group=dist.group.WORLD, node_group=node_group, rank=rank,
                 size=world, local_rank=local_rank, local_size=local_size,
-                node=node, nodes=nodes, device=device)
+                node=node, nodes=nodes, device=device,
+                spatial_group=spatial_group, spatial_rank=rank % s,
+                spatial_size=s)
+
+
+def _subgroup(rank: int, size: int, count: int):
+    """This rank's group among ``count`` groups of ``size`` consecutive
+    ranks; every rank makes all of them, in the same order."""
+    mine = None
+    for i in range(count):
+        g = dist.new_group(list(range(i * size, (i + 1) * size)))
+        if i == rank // size:
+            mine = g
+    return mine
 
 
 def batch_rows(batch_size: int, mesh: Mesh | None) -> slice:
     """This rank's rows of a global batch of ``batch_size``: the
-    ``batch_size // W`` contiguous ones of its rank, as the 'data' axis
-    shards axis 0.  Raises unless W divides the batch, as JAX does."""
+    ``batch_size // d`` contiguous ones of its data index, as the 'data'
+    axis shards axis 0 (d = W without a 'spatial' axis; the s spatial peers
+    of one data index hold the same rows).  Raises unless d divides the
+    batch, as JAX does."""
     if mesh is None:
         return slice(0, batch_size)
-    if batch_size % mesh.size:
+    if batch_size % mesh.data_size:
         raise ValueError(f"batch_size {batch_size} does not divide over "
-                         f"{mesh.size} ranks")
-    b = batch_size // mesh.size
-    return slice(mesh.rank * b, (mesh.rank + 1) * b)
+                         f"{mesh.data_size} data ranks")
+    b = batch_size // mesh.data_size
+    return slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
 
 
 def shard_batch(x, mesh: Mesh | None):

@@ -14,7 +14,12 @@ cuda``, on the CPU over gloo with ``--device cpu``:
     torchrun --nproc_per_node N -m cbim_tpu_torch.train ... --batch_size B
 ``--batch_size`` is the global batch: each rank takes B // N rows of it
 (N must divide B), and the loss, its gradient and the BatchNorm statistics
-are the global batch's.  Rank 0 alone writes the checkpoints, the scalars,
+are the global batch's.  A config with ``mesh_axes: [data, spatial]`` and
+``mesh_shape: [d, s]`` (N = d * s) shards the crop's H axis over s ranks
+instead: each data index takes B // d rows, each of its s ranks an H slab
+of them (MedFormer-3D, UNet-3D and ResUNet-3D).  ``--backend gloo`` with
+``--device cuda`` keeps the tensors on the card and lets ranks share one
+(NCCL refuses that).  Rank 0 alone writes the checkpoints, the scalars,
 the fold logs, config.txt and cross_validation.txt.  A launch of one
 process, or none, trains without a process group.
 """
@@ -56,6 +61,11 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (an sm_90 card; an error without one) "
                              "or 'cpu'")
+    parser.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                        help="the process group's backend under torchrun: "
+                             "NCCL on the card and gloo on the CPU by "
+                             "default; gloo on the card lets ranks share a "
+                             "card")
     return parser
 
 
@@ -67,7 +77,8 @@ def main(argv=None, cfg=None) -> list:
 
     from .parallel import initialize_distributed
 
-    started = initialize_distributed(device=args.device)
+    started = initialize_distributed(device=args.device,
+                                     backend=args.backend)
     try:
         return _run(args, cfg)
     finally:
@@ -101,7 +112,8 @@ def _run(args, cfg) -> list:
     if cfg.pretrain and not cfg.get("init_model"):
         logging.warning("--pretrain set but no --init_model/config "
                         "init_model checkpoint given; training from scratch")
-    mesh = make_mesh(cfg) if dist.is_initialized() else None
+    mesh = make_mesh(cfg, device=args.device) if dist.is_initialized() \
+        else None
     device = mesh.device if mesh is not None else get_device(args.device)
     lead = mesh is None or mesh.rank == 0
     if cfg.reproduce_seed is not None:

@@ -20,6 +20,12 @@ batch's (``ops.losses``'s ``group``), every BatchNorm normalises with the
 global batch's statistics (``layers.convs.sync_batch_norm``), and DDP's
 mean over the ranks of W times each rank's gradient is the global loss's
 gradient, as on the JAX mesh.
+
+Under a 'spatial' mesh axis each rank holds an H slab of its data index's
+rows: the live model is marked for it (``layers.convs.spatial_shard``:
+halo exchanges, statistics and softmaxes over the spatial group), and the
+same argument holds over the W = d * s ranks, every collective inside the
+model being differentiated by its transpose.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import torch
 from torch import nn
 
 from ..config import compute_dtype
-from ..models.layers.convs import sync_batch_norm
+from ..models.layers.convs import DropPath, spatial_shard, sync_batch_norm
 from ..ops.losses import deep_supervision_loss
 from .optim import get_optimizer, set_lr
 
@@ -61,25 +67,35 @@ def create_train_state(model: nn.Module, cfg, seed: int | None = None,
     dropout seed) as the input pipeline seeds its own; the EMA copy
     evaluates in eval mode and draws none.  With a ``mesh`` the generator
     is seeded ``seed + rank`` (each rank draws its own rows' masks), and
-    the live model's BatchNorms take the global batch's statistics."""
+    the live model's BatchNorms take the global batch's statistics.  Under
+    a 'spatial' axis the live model is marked for its H slabs
+    (``spatial_shard``), and the ``DropPath`` modules, which draw one
+    number a sample, take a second generator seeded ``seed + data rank``:
+    the spatial peers of a sample keep or drop it alike, while the
+    elementwise masks of each slab stay its own."""
     opt = get_optimizer(cfg, model.parameters())
     ema = None
     if cfg.get("ema", False):
         ema = copy.deepcopy(model).requires_grad_(False).eval()
     if mesh is not None:
         sync_batch_norm(model, mesh.group)    # after the copy: see its doc
+        if mesh.spatial_size > 1:
+            spatial_shard(model, mesh.spatial_group)
     drops = [m for m in model.modules()
              if hasattr(m, "generator") and getattr(m, "p", 0)]
     generator = None
     if drops:
         if seed is None:
             seed = int(cfg.get("split_seed", 0) or 0)
-        if mesh is not None:
-            seed += mesh.rank
         device = next(model.parameters()).device
-        generator = torch.Generator(device=device).manual_seed(seed)
+        generator = torch.Generator(device=device).manual_seed(
+            seed + (mesh.rank if mesh is not None else 0))
+        per_sample = generator
+        if mesh is not None and mesh.spatial_size > 1:
+            per_sample = torch.Generator(device=device).manual_seed(
+                seed + mesh.data_rank)
         for m in drops:
-            m.generator = generator
+            m.generator = per_sample if isinstance(m, DropPath) else generator
     return TrainState(model, opt, ema, generator=generator)
 
 

@@ -22,11 +22,23 @@ unwrapped model's state_dict) and the scalars, each save followed by a
 barrier; every rank evaluates (``validate`` with the mesh: the same
 result on every rank, so they keep the same best) and resumes from the
 same checkpoint.
+
+Under a 'spatial' mesh axis of s > 1 (``mesh_axes: [data, spatial]``) the
+W = d * s ranks step on ``cfg.batch_size // d`` rows each, each of the s
+peers of a data index on its H slab (``parallel.spatial``): the one-process
+step's loss, gradient and statistics, as the JAX mesh's H-sharded step.
+Evaluation is unchanged: the peers take part as sweep ranks.  Refused
+before any step: a model outside :data:`SPATIAL_MODELS` (the ROADMAP item
+that will take it is named), an H that the axis does not divide, and a
+slab that the product of the model's H down-scales does not divide (every
+level's slab must stay whole; JAX's partitioner reshards unevenly
+instead).
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import os
 import time
 
@@ -37,7 +49,7 @@ import torch.distributed as dist
 from ..data.factory import get_dataset
 from ..data.pipeline import TrainPipeline
 from ..inference.engines import make_engine
-from ..models import get_model
+from ..models import _norm_scales, get_model
 from ..ops._backend import get_device
 from ..utils.logging import (AverageMeter, MetricWriter, ProgressMeter,
                              log_evaluation_result)
@@ -62,6 +74,33 @@ def load_pretrained(cfg, state) -> None:
         state.ema.load_state_dict(state.model.state_dict())
 
 
+#: the models that train on H slabs (ROADMAP A7)
+SPATIAL_MODELS = (("3d", "medformer"), ("3d", "unet"), ("3d", "resunet"))
+
+
+def check_spatial(cfg, s: int) -> None:
+    """Refuse what H-sharded training over ``s`` slabs does not carry
+    (module docstring)."""
+    key = (cfg.dimension, cfg.model)
+    if key not in SPATIAL_MODELS:
+        item = ("A7c (the 2D models)" if cfg.dimension == "2d" else
+                "A7d (the token-attention models)"
+                if cfg.model in ("unetr", "swin_unetr", "vtunet", "nnformer")
+                else "A7b (the rest of the 3D UNet family and VNet)")
+        raise NotImplementedError(
+            f"model {cfg.model!r} ({cfg.dimension}) on a 'spatial' mesh axis "
+            f"of {s}: H-sharded training covers "
+            f"{', '.join(f'{m} ({d})' for d, m in SPATIAL_MODELS)}; this one "
+            f"is ROADMAP {item}")
+    h = int(cfg.training_size[1])
+    down = math.prod(sc[1] for sc in _norm_scales(cfg.down_scale, 4))
+    if h % (s * down):
+        raise ValueError(
+            f"training_size's H {h} does not divide into {s} slabs whose "
+            f"rows divide by the product of the model's H down-scales, "
+            f"{down}: every level's slab must be whole (ROADMAP A7)")
+
+
 class _NoWriter:
     """The scalar sink of a rank other than 0: writes nothing."""
 
@@ -80,9 +119,12 @@ def train_net(cfg, fold_idx: int = 0, device="cuda", mesh=None):
     data-parallel run (module docstring)."""
     device = get_device(device)
     W = mesh.size if mesh is not None else 1
-    if cfg.batch_size % W:
+    d = mesh.data_size if mesh is not None else 1
+    if cfg.batch_size % d:
         raise ValueError(f"batch_size {cfg.batch_size} does not divide over "
-                         f"{W} ranks")
+                         f"{d} data ranks")
+    if mesh is not None and mesh.spatial_size > 1:
+        check_spatial(cfg, mesh.spatial_size)
     lead = mesh is None or mesh.rank == 0
     trainset = get_dataset(cfg, mode="train", fold_idx=fold_idx)
     testset = get_dataset(cfg, mode="test", fold_idx=fold_idx)

@@ -183,6 +183,19 @@ Phases, each printing its result; any failure raises and exits non-zero:
    MedFormer-3D and test volume in the same group: ``sliding_window_sharded``
    at W = 1 against ``sliding_window`` (1e-6) and ``validate(mesh=...)``
    against ``validate`` (Dice 1e-6, distances 1e-9 relative);
+6s. the 'spatial' mesh axis: phase 6's recipe, from its seed, for 2
+   steps H-sharded over two ranks at ``mesh_shape`` [1, 2]
+   (``cbim_tpu_torch.tools.spatial_train``: two processes on the one
+   card, gloo over the card's tensors, since NCCL refuses two ranks on one
+   card): each rank trains on its 64-row slab of H with halo-exchanging
+   3^3 conv kernels and InstanceNorm kernels whose statistics are merged
+   over the ranks; the losses within 1e-3 relative of phase 6's first two,
+   every rank's per-step launches of the norm kernels and the tensor-core
+   3^3 forward, dgrad and wgrad printed (each above 0); sec/step and each
+   rank's peak memory beside phase 6's.  The ranks start before phase 5
+   (their processes, imports and contexts come up beside phases 5-6p) and
+   train as phase 6v's host distances start, where the main process leaves
+   the card idle; their results are read after 6v;
 6b. the same recipe with ``conv_na: true``: per step 40
    ``conv3d_same_na_fwd_tc`` (remat incl.), 20 ``conv3d_wgrad_na_tc`` and
    20 ``conv3d_dgrad_tc`` launches, no other 3^3 launch (the CUDA-core
@@ -329,7 +342,8 @@ are idle, and read by those phases; phase 4x's beside phases 4-4z; the
 same thread then writes the serving phases' requests and the KiTS,
 ACDC-3D and BCV corpora, once.
 
-Each of phases 4e, 4u, 4z, 4x and 5-10 (5b, 5e, 5r, 5p, 6b, 6p, 6v, 6k, 6kn,
+Each of phases 4e, 4u, 4z, 4x and 5-10 (5b, 5e, 5r, 5p, 6s (in each
+rank), 6b, 6p, 6v, 6k, 6kn,
 6a, 6r, 6x, 7b, 8b, 8f, 8v, 7s, 8s, 7r, 8r, 7t, 9t, 9u, 9ut, 9n and 9nt
 included) sets
 the launch counters to 0 just before it and reads them just after.  The
@@ -715,6 +729,18 @@ DDP_LOSS_RTOL = 1e-3
 #: same windows in the same groups and order), validate's Dice and
 #: distances with the group's float64 sums against the one-process means
 DDP_PROB_ATOL, DDP_DICE_ATOL, DDP_DISTANCE_RTOL = 1e-6, 1e-6, 1e-9
+#: phase 6s: the flagship recipe H-sharded over two ranks that share the
+#: one card ('spatial' axis of 2, gloo over the card's tensors: NCCL
+#: refuses two ranks on one card), 2 steps from phase 6's seed; its losses
+#: against phase 6's within DDP_LOSS_RTOL (bf16, another order of the
+#: sums over H), and every rank launches each of SPATIAL_KERNELS every step
+FLAGSHIP_SPATIAL = dict(FLAGSHIP_DDP, mesh_axes=["data", "spatial"],
+                        mesh_shape=[1, 2])
+SPATIAL_RANKS = 2
+SPATIAL_KERNELS = ("inorm_stats", "inorm_apply", "inorm_bwd_stats",
+                   "inorm_bwd_apply") + TC_CONV_KERNELS
+#: seconds phase 6s's ranks may take, start-up included
+SPATIAL_TIMEOUT = 300
 #: phase 6p: the flagship recipe with ``proj_type: linear`` and dropouts
 #: of 0.1 (the map-to-feature attention and the feature output of every
 #: B-MHA block), 3 steps
@@ -2512,7 +2538,8 @@ def phase_small_validate(device, cfg_dict) -> dict:
             "launches": counts}
 
 
-def phase_train_validate(device, cfg_dict, batch: int, name: str) -> dict:
+def phase_train_validate(device, cfg_dict, batch: int, name: str,
+                         on_host_distances=None) -> dict:
     """Phases 6v and 8v: train a recipe with ``val_freq`` 1 through
     ``cbim_tpu_torch.train.main`` with bf16 autocast, so that its epoch
     ends in the EMA model's evaluation on the test split.  The launch
@@ -2520,6 +2547,8 @@ def phase_train_validate(device, cfg_dict, batch: int, name: str) -> dict:
     model forwards are counted (the eval-mode calls of the model class),
     and per test volume its window sweep (to the label map on the host)
     and host distances are timed and the sweep's peak device memory read.
+    ``on_host_distances`` is called as the host distances start, where
+    this process leaves the card idle.
     """
     import torch
     from cbim_tpu_torch import train
@@ -2551,6 +2580,8 @@ def phase_train_validate(device, cfg_dict, batch: int, name: str) -> dict:
         return labels
 
     def timed_calculate(*args):
+        if on_host_distances is not None:
+            on_host_distances()
         t0 = time.perf_counter()
         out = calculate(*args)
         distances.append(time.perf_counter() - t0)
@@ -3463,6 +3494,58 @@ def ddp_recorder():
         torch.nn.parallel.DistributedDataParallel = real
 
 
+def start_spatial() -> tuple:
+    """Phase 6s's ranks (``tools.spatial_train.start``), started before
+    phase 5: their processes, imports and contexts come up beside phases
+    5-6p, and they wait to be released (``spatial_train.release``: as
+    phase 6v's host distances start) to train."""
+    from cbim_tpu_torch.tools import spatial_train
+    cfg = FLAGSHIP_SPATIAL
+    run = os.path.join(WORK, "flagship_spatial")
+    return spatial_train.start(
+        cfg, spatial_train.train_argv(cfg, TRAIN_BATCH, run,
+                                      "flagship_spatial"),
+        SPATIAL_RANKS, run, backend="gloo")
+
+
+def phase_spatial(ranks: tuple, tr: dict) -> collections.Counter:
+    """Phase 6s: the ranks of :func:`start_spatial`, released, train
+    FLAGSHIP_SPATIAL (``tools.spatial_train.finish``; each rank's counters
+    set to 0 just before its ``train.main`` and read just after); its
+    losses, sec/step and each rank's peak memory beside phase 6's ``tr``;
+    every kernel of SPATIAL_KERNELS launched by every rank every step.
+    Returns the launches of both ranks, summed."""
+    from cbim_tpu_torch.tools import spatial_train
+    cfg = FLAGSHIP_SPATIAL
+    records = spatial_train.finish(ranks, timeout=SPATIAL_TIMEOUT)
+    res = spatial_train.summary(records, warm=WARMUP_STEPS)
+    steps = cfg["iter_per_epoch"]
+    say(f"  losses {', '.join(f'{v:.4f}' for v in res['losses'])}; step "
+        f"seconds {', '.join(f'{v:.3f}' for v in res['step_seconds'])}")
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(res["losses"], tr["losses"]))
+    peaks = ", ".join(f"{g:.2f}" for g in res["peak_gib"])
+    walls = ", ".join(f"{r['seconds']:.1f}" for r in records)
+    say(f"  losses vs phase 6's: max rel diff {loss_err:.3e} (tol "
+        f"{DDP_LOSS_RTOL:.0e}); H-sharded vs phase 6: {res['median_s']:.3f} "
+        f"vs {tr['median']:.3f} s/step; peak per rank {peaks} vs "
+        f"{tr['peak_bytes'] / 2 ** 30:.2f} GiB; the ranks' train.main "
+        f"{walls} s")
+    for r in records:
+        per_step = {k: r["launches"].get(k, 0) / steps
+                    for k in SPATIAL_KERNELS}
+        say(f"  rank {r['rank']} launches a step: {per_step}")
+        missing = [k for k, v in per_step.items() if v == 0]
+        assert not missing, f"rank {r['rank']} never launched {missing}"
+    assert len(res["losses"]) == steps and all(
+        math.isfinite(v) for v in res["losses"]), res["losses"]
+    assert loss_err <= DDP_LOSS_RTOL, (res["losses"], tr["losses"])
+    total = collections.Counter()
+    for r in records:
+        total.update(r["launches"])
+    return total
+
+
 def phase_small_sharded(device) -> dict:
     """Phase 6d's second half, inside the one-process group: phase 4e's
     small model (same seeded weights) on its test volume, the sharded
@@ -4042,6 +4125,8 @@ def main(argv=None) -> int:
     say(f"  the requests and the KiTS, ACDC-3D and BCV cases written beside "
         f"the earlier phases (seconds: {took}), ready after "
         f"{time.perf_counter() - t_wait:.1f} s more")
+    from cbim_tpu_torch.tools import spatial_train
+    spatial_ranks = start_spatial()
     say("[phase 5] AMOS-CT MedFormer-3D serving 1 NIfTI request")
     res = phase_slice(device, AMOS, REQUESTS, TARGET_SPACING, "serve3d",
                       FORWARD_KERNELS, profile_dir("serve3d"))
@@ -4152,6 +4237,7 @@ def main(argv=None) -> int:
     if args.profile:
         say_profile(os.path.join(args.profile, "flagship"))
     launches["6"] = tr["launches"]
+    tr_6 = tr
 
     say("[phase 6d] the flagship recipe under a one-process NCCL group "
         f"(DDP), {FLAGSHIP_DDP['iter_per_epoch']} steps from phase 6's seed")
@@ -4250,8 +4336,15 @@ def main(argv=None) -> int:
 
     say("[phase 6v] the flagship recipe validating: 2 steps on five 130^3 "
         "volumes, then the EMA model's 128^3 sliding-window evaluation")
+    def release_spatial():
+        torch.cuda.empty_cache()      # the ranks' room on the shared card
+        spatial_train.release(spatial_ranks)
+
+    # phase 6s's ranks train beside the evaluation's host distances, where
+    # this process leaves the card idle
     tv = phase_train_validate(device, FLAGSHIP_VAL, TRAIN_BATCH,
-                              "flagship_val")
+                              "flagship_val",
+                              on_host_distances=release_spatial)
     say_validation(tv)
     counts, steps = tv["launches"], tv["steps"]
     # bf16 evaluation on the tensor-core forward: 20 a forward (no remat
@@ -4264,6 +4357,13 @@ def main(argv=None) -> int:
                 **{k: 0 for k in CORE_CONV_KERNELS + TF32_CONV_KERNELS})
     assert all(counts[k] == v for k, v in want.items()), (counts, want)
     launches["6v"] = counts
+
+    say("[phase 6s] the flagship recipe H-sharded over "
+        f"{SPATIAL_RANKS} ranks on the one card (mesh_shape "
+        f"{FLAGSHIP_SPATIAL['mesh_shape']}, gloo over the card's tensors), "
+        f"{FLAGSHIP_SPATIAL['iter_per_epoch']} steps from phase 6's seed, "
+        "beside phase 6v's host distances")
+    launches["6s"] = phase_spatial(spatial_ranks, tr_6)
 
     say("[phase 6k] the KiTS recipe as shipped (configs/kits/"
         "medformer_3d.yaml), fp32, batch 2, on written NIfTI cases")

@@ -59,6 +59,7 @@ MODULES = [
     "cbim_tpu_torch.parallel",
     "cbim_tpu_torch.parallel.collectives",
     "cbim_tpu_torch.parallel.mesh",
+    "cbim_tpu_torch.parallel.spatial",
     "cbim_tpu_torch.prediction",
     "cbim_tpu_torch.utils.jax_import",
     "cbim_tpu_torch.utils.flax_msgpack",

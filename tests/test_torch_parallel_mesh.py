@@ -8,7 +8,7 @@ pipeline's rows under data parallelism, on the CPU in one process.
   ``YAML_DEFAULTS`` differ only in the keys each package keeps alone.
 - The mesh: ``initialize_distributed`` does nothing without a launch,
   ``make_mesh`` checks ``mesh_axes``/``mesh_shape`` against the world size
-  and refuses a 'spatial' axis above 1 (a one-rank gloo group here), and
+  (a one-rank gloo group here: a 'spatial' axis of 2 does not fit it), and
   ``shard_batch`` gives each rank its rows.
 - The pipeline: two ranks' batches (``local_mesh``: the rows and draws of a
   rank need no process group), concatenated, are the one-process batch
@@ -133,9 +133,9 @@ def test_make_mesh_of_one_rank(one_rank):
     (dict(mesh_axes=["data"], mesh_shape=[1, 1]), ValueError),
     (dict(mesh_axes=["model"]), ValueError),            # no 'data' axis
     (dict(mesh_axes=["data", "spatial"], mesh_shape=[1, 2]),
-     NotImplementedError),
+     ValueError),                                      # 2 ranks != 1
     (dict(mesh_axes=["data", "h"], mesh_shape=[1, 2], spatial_axis="h"),
-     NotImplementedError),
+     ValueError),
 ])
 def test_make_mesh_refuses(one_rank, keys, error):
     with pytest.raises(error):
