@@ -1,8 +1,8 @@
 // Stride-1, zero-pad-1, 3x3x3 convolution for Hopper (sm_90a): the forward
 // (which also computes the input gradient, on flip-swapped weights), also
 // with a fused InstanceNorm+act prologue (conv3d_same_na_fwd: the preact
-// conv(act(IN(x))), see "Norm-act prologue" in conv3d_common.cuh), and its
-// phase ladder.  The weight gradient is conv3d_wgrad.cuh, built by
+// conv(act(IN(x))), see "Norm-act prologue" in conv3d_common.cuh).  The
+// weight gradient is conv3d_wgrad.cuh, built by
 // conv3d_wgrad.cu and conv3d_wgrad_na.cu: separate translation units, so
 // nvcc compiles the kernel families side by side.
 //
@@ -41,21 +41,6 @@
 // value 9x (once in each of the 9 blocks whose (d, h) rows read it), so
 // cutting it to about once takes 3D output tiles (ROADMAP B7).
 //
-// The phase ladder (conv3d_same_fwd_ladder) is the port of the TPU probe
-// tools/probe_cw_dissect.py (build: the cw kernel cut after its DMA,
-// transpose, dot or reduce): the forward kernel cut after a phase, PHASE =
-//   kPhaseLoad:  the shifted input rows and weight slices read, no shared
-//                memory stores (each thread sums what it loads);
-//   kPhaseStage: plus the shared-memory stores and the barriers (each thread
-//                adds one staged value another thread stored);
-//   kPhaseFma:   plus the register-tile FMAs (each thread sums its tile);
-//   kPhaseFull:  plus the epilogue's store of the tile: the real op, the very
-//                instantiation conv3d_same_fwd launches.
-// A cut rung stores one value a thread, which depends on all the work it
-// keeps, so the compiler cannot drop that work; its output is otherwise
-// garbage by design.  The TPU probe's (d_blk, h_blk) sweep becomes the BN
-// = 32/64 tiles.
-//
 // Each extern "C" entry launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError().
 
@@ -68,9 +53,7 @@ constexpr int kBK = 16;        // input channels per staged slice
 constexpr int kThreads = 128;  // 16 row groups x 8 column groups
 constexpr int kTM = kBM / 16;  // voxels per thread
 
-constexpr int kPhaseLoad = 0, kPhaseStage = 1, kPhaseFma = 2, kPhaseFull = 3;
-
-template <typename T, int BN, int VEC, int NA, int PHASE = kPhaseFull>
+template <typename T, int BN, int VEC, int NA>
 __global__ void __launch_bounds__(kThreads)
 conv3d_same_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wp,
                        T* __restrict__ y, const float* __restrict__ mean,
@@ -108,7 +91,6 @@ conv3d_same_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wp,
   for (int i = 0; i < kTM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-  float chk = 0.f;  // a cut rung's one stored value
 
   for (int t = 0; t < 27; ++t) {
     const int sd = d0 + t / 9 - 1;
@@ -133,12 +115,7 @@ conv3d_same_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wp,
           for (int q = 0; q < VEC; ++q) v[q] = 0.f;
         }
 #pragma unroll
-        for (int q = 0; q < VEC; ++q) {
-          if constexpr (PHASE == kPhaseLoad)
-            chk += v[q];
-          else
-            As[j * VEC + q][tid] = v[q];
-        }
+        for (int q = 0; q < VEC; ++q) As[j * VEC + q][tid] = v[q];
       }
 #pragma unroll
       for (int j = 0; j < kBK * BN / kThreads; ++j) {
@@ -147,47 +124,27 @@ conv3d_same_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wp,
         const int k = e / BN;
         const int c = c0 + k;
         const int f = n0 + n;
-        const float wv = (c < C && f < F) ? to_f32(wt[(long long)c * F + f])
-                                          : 0.f;
-        if constexpr (PHASE == kPhaseLoad)
-          chk += wv;
-        else
-          Bs[k][n] = wv;
+        Bs[k][n] = (c < C && f < F) ? to_f32(wt[(long long)c * F + f]) : 0.f;
       }
-      if constexpr (PHASE == kPhaseLoad) continue;
       __syncthreads();
-      if constexpr (PHASE == kPhaseStage)
-        chk += As[c0 / kBK % kBK][(tid + 1) % kBM] + Bs[tid % kBK][tid % BN];
 
-      if constexpr (PHASE >= kPhaseFma) {
 #pragma unroll
-        for (int k = 0; k < kBK; ++k) {
-          float a[kTM], bv[TN];
+      for (int k = 0; k < kBK; ++k) {
+        float a[kTM], bv[TN];
 #pragma unroll
-          for (int i = 0; i < kTM; ++i) a[i] = As[k][ty * kTM + i];
+        for (int i = 0; i < kTM; ++i) a[i] = As[k][ty * kTM + i];
 #pragma unroll
-          for (int j = 0; j < TN; ++j) bv[j] = Bs[k][tx * TN + j];
+        for (int j = 0; j < TN; ++j) bv[j] = Bs[k][tx * TN + j];
 #pragma unroll
-          for (int i = 0; i < kTM; ++i)
+        for (int i = 0; i < kTM; ++i)
 #pragma unroll
-            for (int j = 0; j < TN; ++j)
-              acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-        }
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
       }
       __syncthreads();
     }
   }
 
-  if constexpr (PHASE != kPhaseFull) {
-    if constexpr (PHASE == kPhaseFma) {
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) chk += acc[i][j];
-    }
-    if (m_load < M && n0 < F) y[m_load * F + n0] = from_f32<T>(chk);
-    return;
-  }
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const long long m = m0 + ty * kTM + i;
@@ -249,50 +206,6 @@ bool launch_fwd(int na, const void* x, const void* w, void* y,
   return true;
 }
 
-// The plain forward (no prologue) cut after PHASE at tile width BN, on the
-// 16-byte staging path only; PHASE = kPhaseFull at the production BN is
-// what launch_dtype<T, kNoNorm> launches.
-template <typename T, int BN, int PHASE>
-void launch_ladder(const void* x, const void* w, void* y, int B, int D,
-                   int H, int W, int C, int F, cudaStream_t stream) {
-  const long long M = (long long)B * D * H * W;
-  const dim3 grid((unsigned)((M + kBM - 1) / kBM),
-                  (unsigned)((F + BN - 1) / BN));
-  conv3d_same_fwd_kernel<T, BN, 4, kNoNorm, PHASE>
-      <<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      nullptr, nullptr, D, H, W, C, F, M);
-}
-
-template <typename T, int BN>
-bool ladder_phase(int phase, const void* x, const void* w, void* y, int B,
-                  int D, int H, int W, int C, int F, cudaStream_t stream) {
-  if (phase == kPhaseLoad)
-    launch_ladder<T, BN, kPhaseLoad>(x, w, y, B, D, H, W, C, F, stream);
-  else if (phase == kPhaseStage)
-    launch_ladder<T, BN, kPhaseStage>(x, w, y, B, D, H, W, C, F, stream);
-  else if (phase == kPhaseFma)
-    launch_ladder<T, BN, kPhaseFma>(x, w, y, B, D, H, W, C, F, stream);
-  else if (phase == kPhaseFull)
-    launch_ladder<T, BN, kPhaseFull>(x, w, y, B, D, H, W, C, F, stream);
-  else
-    return false;
-  return true;
-}
-
-template <typename T>
-bool ladder_entry(int phase, int bn, const void* x, const void* w, void* y,
-                  int B, int D, int H, int W, int C, int F,
-                  cudaStream_t stream) {
-  if (C % 4 != 0 || (uintptr_t)x % (4 * sizeof(T)) != 0) return false;
-  if (bn == 32)
-    return ladder_phase<T, 32>(phase, x, w, y, B, D, H, W, C, F, stream);
-  if (bn == 64)
-    return ladder_phase<T, 64>(phase, x, w, y, B, D, H, W, C, F, stream);
-  return false;
-}
-
-
 int fwd_entry(int na, const void* x, const void* w, void* y, const void* mean,
               const void* rstd, int dtype, int B, int D, int H, int W, int C,
               int F, void* stream) {
@@ -315,23 +228,6 @@ extern "C" int conv3d_same_fwd(const void* x, const void* w, void* y,
                                int F, void* stream) {
   return fwd_entry(kNoNorm, x, w, y, nullptr, nullptr, dtype, B, D, H, W, C,
                    F, stream);
-}
-
-// conv3d_same_fwd cut after ``phase`` (0 load, 1 stage, 2 fma, 3 full) at
-// tile width ``bn`` (32 or 64; conv3d_same_fwd takes 32 for F <= 32, else
-// 64); needs C % 4 == 0 and x aligned to 4 elements.
-extern "C" int conv3d_same_fwd_ladder(const void* x, const void* w, void* y,
-                                      int dtype, int B, int D, int H, int W,
-                                      int C, int F, int phase, int bn,
-                                      void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bool ok = false;
-  if (dtype == 0)
-    ok = ladder_entry<float>(phase, bn, x, w, y, B, D, H, W, C, F, st);
-  else if (dtype == 1)
-    ok = ladder_entry<__nv_bfloat16>(phase, bn, x, w, y, B, D, H, W, C, F,
-                                     st);
-  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
 // conv3d_same_fwd of act((x - mean) * rstd): mean, rstd fp32 [B, C]; act 0

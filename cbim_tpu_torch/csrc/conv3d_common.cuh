@@ -1,5 +1,5 @@
 // Shared by the 3x3x3 convolution kernels of conv3d.cu (forward, input
-// gradient, phase ladder) and conv3d_wgrad.cuh (weight gradient): storage
+// gradient) and conv3d_wgrad.cuh (weight gradient): storage
 // type conversions, vector loads, and the norm-act prologue of the fused
 // preact conv.
 

@@ -46,6 +46,26 @@
 // The epilogue rounds to bf16 once and stores bf16 pairs, masked at the
 // ragged edge.  Needs C % 8 == 0 and F % 8 == 0 (TMA's 16-byte strides).
 //
+// The phase ladder (conv3d_same_fwd_ladder, with conv3d_tf32.cu's fp32
+// rungs) is the port of the TPU probe tools/probe_cw_dissect.py (build: the
+// production kernel cut after its DMA, transpose, dot or reduce): this
+// kernel cut after a phase, PHASE =
+//   kPhaseCopy: the halo TMA boxes and the weight bulk copies land, with
+//               the mbarrier waits and the step barriers; nothing is read
+//               from the stages;
+//   kPhaseFrag: plus the ldmatrix A and B fragments (each thread XORs
+//               them into its one value);
+//   kPhaseMma:  plus the mma.sync products (each thread sums its
+//               accumulators);
+//   kPhaseFull: plus the epilogue: the very instantiation
+//               conv3d_same_fwd_tc launches (the default: the cut costs
+//               the production kernel nothing, if constexpr only).
+// A cut rung stores one value a thread, which depends on all the work it
+// keeps, so the compiler drops none of it; its output is otherwise garbage
+// by design.  The entry's weight-packing kernel runs before every rung, as
+// in production; phase 0 runs it alone.  The tile sweep is the production
+// picker's two tiles at BN = 32: MT 4 (512-voxel boxes) and MT 2.
+//
 // Each extern "C" entry launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() (cudaErrorInvalidValue for what it does not
 // take).
@@ -54,7 +74,11 @@
 
 namespace {
 
-template <int BN, int MT>
+// the ladder's rungs (0: the weight packing alone)
+constexpr int kPhasePack = 0, kPhaseCopy = 1, kPhaseFrag = 2, kPhaseMma = 3,
+              kPhaseFull = 4;
+
+template <int BN, int MT, int PHASE = kPhaseFull>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3d_tc_same_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
                           const bf16* __restrict__ wpk, bf16* __restrict__ y,
@@ -128,6 +152,7 @@ conv3d_tc_same_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+  unsigned chk = 0;  // a cut rung's one stored value
 
   for (int s = 0; s < steps; ++s) {
     const int cc = s / 9, kdh = s % 9;
@@ -144,36 +169,67 @@ conv3d_tc_same_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
     const unsigned hs = halo0 + (cc % kHaloStages) * Bx::stage;
     const unsigned ws = wts0 + (s % kWStages) * Wt::bytes;
     const int tap_row = ((kdh / 3) * Bx::HH + kdh % 3) * Bx::HW;
+    if constexpr (PHASE == kPhaseCopy) chk += s;
+    if constexpr (PHASE >= kPhaseFrag) {
 #pragma unroll
-    for (int kw = 0; kw < 3; ++kw) {
+      for (int kw = 0; kw < 3; ++kw) {
 #pragma unroll
-      for (int kk = 0; kk < kCc; kk += 16) {
-        // B fragments of two n8 tiles per ldmatrix: matrices (k 0-7, n j),
-        // (k 8-15, n j), (k 0-7, n j + 1), (k 8-15, n j + 1)
-        unsigned bf[NT][2];
+        for (int kk = 0; kk < kCc; kk += 16) {
+          // B fragments of two n8 tiles per ldmatrix: matrices (k 0-7, n j),
+          // (k 8-15, n j), (k 0-7, n j + 1), (k 8-15, n j + 1)
+          unsigned bf[NT][2];
 #pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          unsigned q[4];
-          ldsm_x4_t(ws + ((kw * kCc + kk + (mat & 1) * 8 + r8) * Wt::pitch +
-                          (j + (mat >> 1)) * 8) * 2,
-                    q);
-          bf[j][0] = q[0];
-          bf[j][1] = q[1];
-          bf[j + 1][0] = q[2];
-          bf[j + 1][1] = q[3];
-        }
+          for (int j = 0; j < NT; j += 2) {
+            unsigned q[4];
+            ldsm_x4_t(ws + ((kw * kCc + kk + (mat & 1) * 8 + r8) * Wt::pitch +
+                            (j + (mat >> 1)) * 8) * 2,
+                      q);
+            bf[j][0] = q[0];
+            bf[j][1] = q[1];
+            bf[j + 1][0] = q[2];
+            bf[j + 1][1] = q[3];
+            if constexpr (PHASE == kPhaseFrag)
+              chk ^= q[0] ^ q[1] ^ q[2] ^ q[3];
+          }
 #pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          // A fragment: matrices (m 0-7, k 0-7), (m 8-15, k 0-7),
-          // (m 0-7, k 8-15), (m 8-15, k 8-15); m is the shifted voxel
-          unsigned a[4];
-          ldsm_x4(hs + swz64(hrow[i] + tap_row + kw, kk / 8 + (mat >> 1)), a);
+          for (int i = 0; i < MT; ++i) {
+            // A fragment: matrices (m 0-7, k 0-7), (m 8-15, k 0-7),
+            // (m 0-7, k 8-15), (m 8-15, k 8-15); m is the shifted voxel
+            unsigned a[4];
+            ldsm_x4(hs + swz64(hrow[i] + tap_row + kw, kk / 8 + (mat >> 1)),
+                    a);
+            if constexpr (PHASE == kPhaseFrag) {
+              chk ^= a[0] ^ a[1] ^ a[2] ^ a[3];
+            } else {
 #pragma unroll
-          for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a, bf[j][0], bf[j][1]);
+              for (int j = 0; j < NT; ++j)
+                mma_bf16(acc[i][j], a, bf[j][0], bf[j][1]);
+            }
+          }
         }
       }
     }
     __syncthreads();
+  }
+
+  if constexpr (PHASE != kPhaseFull) {
+    // a cut rung: one value a thread, at voxel tid of the box, channel n0
+    if constexpr (PHASE == kPhaseMma) {
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) sum += acc[i][j][q];
+      chk = __float_as_uint(sum);
+    }
+    const int gd = z0 + tid / (kTH * Bx::TW), gh = y0 + tid / Bx::TW % kTH,
+              gw = x0 + tid % Bx::TW;
+    if (gd < D && gh < H && gw < W && n0 < F)
+      y[((((long long)b * D + gd) * H + gh) * W + gw) * F + n0] =
+          __float2bfloat16_rn(__uint_as_float(chk));
+    return;
   }
 
   // accumulator (row l / 4 [+ 8], columns 2 (l % 4) + {0, 1}) as bf16 pairs
@@ -199,7 +255,7 @@ conv3d_tc_same_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-template <int BN, int MT>
+template <int BN, int MT, int PHASE = kPhaseFull>
 int launch_fwd_tc(const void* x, const void* wpk, void* y, int B, int D,
                   int H, int W, int C, int F, cudaStream_t st) {
   using Bx = Box<MT>;
@@ -208,7 +264,7 @@ int launch_fwd_tc(const void* x, const void* wpk, void* y, int B, int D,
   const unsigned box[5] = {kCc, Bx::HW, Bx::HH, Bx::HD, 1};
   if (!encode_map(&map, x, 5, n, box)) return (int)cudaErrorInvalidValue;
   constexpr int smem = smem_bytes<BN, MT>();
-  auto kernel = conv3d_tc_same_fwd_kernel<BN, MT>;
+  auto kernel = conv3d_tc_same_fwd_kernel<BN, MT, PHASE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -223,7 +279,26 @@ int launch_fwd_tc(const void* x, const void* wpk, void* y, int B, int D,
   return (int)cudaGetLastError();
 }
 
+// The forward at tile (32, MT) cut after ``phase`` (kPhaseCopy..kPhaseFull)
+template <int MT>
+int launch_ladder(int phase, const void* x, const void* wpk, void* y, int B,
+                  int D, int H, int W, int C, int F, cudaStream_t st) {
+  if (phase == kPhaseCopy)
+    return launch_fwd_tc<32, MT, kPhaseCopy>(x, wpk, y, B, D, H, W, C, F, st);
+  if (phase == kPhaseFrag)
+    return launch_fwd_tc<32, MT, kPhaseFrag>(x, wpk, y, B, D, H, W, C, F, st);
+  if (phase == kPhaseMma)
+    return launch_fwd_tc<32, MT, kPhaseMma>(x, wpk, y, B, D, H, W, C, F, st);
+  return launch_fwd_tc<32, MT>(x, wpk, y, B, D, H, W, C, F, st);
+}
+
 }  // namespace
+
+// the fp32 rungs (conv3d_tf32.cu)
+extern "C" int conv3d_same_fwd_tf32_ladder(const void* x, const void* w,
+                                           void* wpk, void* y, int B, int D,
+                                           int H, int W, int C, int F,
+                                           int phase, int bn, void* stream);
 
 // x [B, D, H, W, C] bf16, y [B, D, H, W, F] bf16; w torch's [F, C, 3, 3, 3]
 // bf16, or with ``flip`` the forward weights [C, F, 3, 3, 3] of which this
@@ -256,4 +331,37 @@ extern "C" int conv3d_same_fwd_tc(const void* x, const void* w, void* wpk,
   if (bn == 64) return launch_fwd_tc<64, 2>(x, wpk, y, B, D, H, W, C, F, st);
   if (bn == 96) return launch_fwd_tc<96, 2>(x, wpk, y, B, D, H, W, C, F, st);
   return launch_fwd_tc<128, 2>(x, wpk, y, B, D, H, W, C, F, st);
+}
+
+// The phase ladder: the production 3^3 forward of ``dtype`` (1 bf16:
+// conv3d_same_fwd_tc's kernel; 0 fp32: conv3d_same_fwd_tf32's unfused
+// kernel) on x with torch weights w (not flipped), packing into wpk as the
+// production entry does, then cut after ``phase`` (0 the packing alone, 1
+// copy, 2 frag, 3 mma, 4 full) at tile (bn, mt): bf16 (32, 4) or (32, 2),
+// fp32 (32, 4) or (64, 2).  ``full`` at the tile the production entry picks
+// is the very launch conv3d_same makes.  The production entries' argument
+// rules.
+extern "C" int conv3d_same_fwd_ladder(const void* x, const void* w,
+                                      void* wpk, void* y, int dtype, int B,
+                                      int D, int H, int W, int C, int F,
+                                      int phase, int bn, int mt,
+                                      void* stream) {
+  if (phase < kPhasePack || phase > kPhaseFull)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if ((bn == 32) != (mt == 4) || (bn != 32 && bn != 64))
+      return (int)cudaErrorInvalidValue;
+    return conv3d_same_fwd_tf32_ladder(x, w, wpk, y, B, D, H, W, C, F, phase,
+                                       bn, stream);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype != 1 || bn != 32 || (mt != 2 && mt != 4) || C % 8 != 0 ||
+      F % 8 != 0 || (uintptr_t)x % 16 != 0 || (uintptr_t)wpk % 16 != 0 ||
+      (uintptr_t)y % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int err = pack_weights(w, wpk, C, F, bn, 0, st);
+  if (err != 0 || phase == kPhasePack) return err;
+  if (mt == 4)
+    return launch_ladder<4>(phase, x, wpk, y, B, D, H, W, C, F, st);
+  return launch_ladder<2>(phase, x, wpk, y, B, D, H, W, C, F, st);
 }

@@ -64,6 +64,23 @@
 // Needs C % 8 == 0 and F % 8 == 0 (the route's width rule; TMA needs 16-
 // byte strides).
 //
+// The phase ladder's fp32 rungs (conv3d_same_fwd_ladder, see conv3d_tc.cu):
+// the unfused kernel (ACT = kNoNorm) cut after a phase, PHASE =
+//   kPhaseCopy: the halo TMA boxes and the weight bulk copies land, with
+//               the mbarrier waits and step barriers; nothing is read from
+//               the stages;
+//   kPhaseFrag: plus the ldmatrix A and B fragments (hi and lo planes of
+//               the weights) and the split of A into TF32 hi and lo
+//               (split_tf32), each thread XORing them into its one value;
+//   kPhaseMma:  plus the three TF32 mma.sync passes and the per-(kd, kh)
+//               fold into the tile's sums (each thread sums them at the
+//               end of each tile);
+//   kPhaseFull: plus the epilogue: the very instantiation
+//               conv3d_same_fwd_tf32 launches (the default; if constexpr
+//               only, so the cut costs production nothing).
+// The fused instantiations are not cut.  The tiles are the production
+// picker's two: (32, MT 4) and (64, MT 2).
+//
 // Each extern "C" entry launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() (cudaErrorInvalidValue for what it does not
 // take).
@@ -159,7 +176,11 @@ conv3d_tf32_pack_kernel(const float* __restrict__ w, float* __restrict__ wpk,
   }
 }
 
-template <int BN, int MT, int ACT>
+// the ladder's rungs (conv3d_tc.cu; 0: the weight packing alone)
+constexpr int kPhasePack = 0, kPhaseCopy = 1, kPhaseFrag = 2, kPhaseMma = 3,
+              kPhaseFull = 4;
+
+template <int BN, int MT, int ACT, int PHASE = kPhaseFull>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3d_tf32_same_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
                             const float* __restrict__ wpk,
@@ -173,6 +194,7 @@ conv3d_tf32_same_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
   using Pl = NaPlan<MT>;
   constexpr int NT = BN / 8;  // n8 tiles
   constexpr bool kNa = ACT != kNoNorm;
+  static_assert(PHASE == kPhaseFull || !kNa, "the ladder cuts kNoNorm only");
   extern __shared__ uint8_t smem_raw[];
   // 1024-byte aligned: the swizzle pattern is read from the address bits
   const unsigned raw = smem_u32(smem_raw);
@@ -286,6 +308,7 @@ conv3d_tf32_same_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
     for (int jn = 0; jn < NT; ++jn)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[i][jn][q] = 0.f;
+  unsigned chk = 0;  // a cut rung's one stored value
 
   for (int s = 0; s < steps; ++s) {
     const int it = s / 9, kdh = s % 9;
@@ -328,11 +351,15 @@ conv3d_tf32_same_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
           bh[jn][1] = q[1];
           bh[jn + 1][0] = q[2];
           bh[jn + 1][1] = q[3];
+          if constexpr (PHASE == kPhaseFrag)
+            chk ^= q[0] ^ q[1] ^ q[2] ^ q[3];
           ldsm_x4(at + Wt::part * 4, q);
           bl[jn][0] = q[0];
           bl[jn][1] = q[1];
           bl[jn + 1][0] = q[2];
           bl[jn + 1][1] = q[3];
+          if constexpr (PHASE == kPhaseFrag)
+            chk ^= q[0] ^ q[1] ^ q[2] ^ q[3];
         }
         // A fragments, split: matrices (m 0-7, k 0-3), (m 8-15, k 0-3),
         // (m 0-7, k 4-7), (m 8-15, k 4-7); m is the shifted voxel
@@ -342,8 +369,12 @@ conv3d_tf32_same_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
           unsigned a[4];
           ldsm_x4(hs + swz64(hrow[i] + tap_row + kw, kk / 4 + (mat >> 1)), a);
 #pragma unroll
-          for (int q = 0; q < 4; ++q) split_tf32(a[q], ah[i][q], al[i][q]);
+          for (int q = 0; q < 4; ++q) {
+            split_tf32(a[q], ah[i][q], al[i][q]);
+            if constexpr (PHASE == kPhaseFrag) chk ^= ah[i][q] ^ al[i][q];
+          }
         }
+        if constexpr (PHASE == kPhaseFrag) continue;
         // the small products first, then the large one
 #pragma unroll
         for (int i = 0; i < MT; ++i)
@@ -377,20 +408,39 @@ conv3d_tf32_same_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
       for (int kw = 0; kw < 3; ++kw) mma_kw(kw);
 #pragma unroll
       for (int u = 0; u < Pl::per_step; ++u) na_store_f32<ACT>(c[u], nm, nr);
+    } else if constexpr (PHASE == kPhaseCopy) {
+      chk += s;
     } else {
 #pragma unroll
       for (int kw = 0; kw < 3; ++kw) mma_kw(kw);
     }
     // the step's sums into the tile's, in fp32
+    if constexpr (PHASE >= kPhaseMma) {
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int jn = 0; jn < NT; ++jn)
+        for (int jn = 0; jn < NT; ++jn)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][jn][q] += part[i][jn][q];
+          for (int q = 0; q < 4; ++q) acc[i][jn][q] += part[i][jn][q];
+    }
     if (kNa && na_next && kdh == 8) fence_proxy_async();
     __syncthreads();
     if (kdh < 8 || it % n_chunks != n_chunks - 1) continue;
+    if constexpr (PHASE == kPhaseMma) {
+      // a cut rung's tile end: its sums into the one value, then zeros
+      float sum = __uint_as_float(chk);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            sum += acc[i][jn][q];
+            acc[i][jn][q] = 0.f;
+          }
+      chk = __float_as_uint(sum);
+    }
+    if constexpr (PHASE != kPhaseFull) continue;
 
     // the tile's last chunk: accumulator (row l / 4 [+ 8], columns
     // 2 (l % 4) + {0, 1}) as fp32 pairs, then zeros for the next tile
@@ -423,6 +473,18 @@ conv3d_tf32_same_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[i][jn][q] = 0.f;
   }
+
+  if constexpr (PHASE != kPhaseFull) {
+    // a cut rung: one value a thread, at voxel tid of the block's first
+    // box, channel n0
+    int b, z0, y0, x0;
+    tile_of(0, b, z0, y0, x0);
+    const int gd = z0 + tid / (kTH * Bx::TW), gh = y0 + tid / Bx::TW % kTH,
+              gw = x0 + tid % Bx::TW;
+    if (gd < D && gh < H && gw < W && n0 < F)
+      y[((((long long)b * D + gd) * H + gh) * W + gw) * F + n0] =
+          __uint_as_float(chk);
+  }
 }
 
 inline int pack_weights(const void* w, void* wpk, int C, int F, int bn,
@@ -438,7 +500,7 @@ inline int pack_weights(const void* w, void* wpk, int C, int F, int bn,
   return (int)cudaGetLastError();
 }
 
-template <int BN, int MT, int ACT>
+template <int BN, int MT, int ACT, int PHASE = kPhaseFull>
 int launch_fwd_tf32(const void* x, const void* wpk, void* y,
                     const float* mean, const float* rstd, int B, int D,
                     int H, int W, int C, int F, cudaStream_t st) {
@@ -449,7 +511,7 @@ int launch_fwd_tf32(const void* x, const void* wpk, void* y,
   if (!encode_map(&map, x, 5, n, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = smem_bytes<BN, MT>();
-  auto kernel = conv3d_tf32_same_fwd_kernel<BN, MT, ACT>;
+  auto kernel = conv3d_tf32_same_fwd_kernel<BN, MT, ACT, PHASE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -489,6 +551,24 @@ int launch_bn(int bn, const void* x, const void* wpk, void* y,
                                      st);
 }
 
+// The unfused forward at tile (BN, MT) cut after ``phase`` (kPhaseCopy..
+// kPhaseFull)
+template <int BN, int MT>
+int launch_ladder(int phase, const void* x, const void* wpk, void* y, int B,
+                  int D, int H, int W, int C, int F, cudaStream_t st) {
+  if (phase == kPhaseCopy)
+    return launch_fwd_tf32<BN, MT, kNoNorm, kPhaseCopy>(
+        x, wpk, y, nullptr, nullptr, B, D, H, W, C, F, st);
+  if (phase == kPhaseFrag)
+    return launch_fwd_tf32<BN, MT, kNoNorm, kPhaseFrag>(
+        x, wpk, y, nullptr, nullptr, B, D, H, W, C, F, st);
+  if (phase == kPhaseMma)
+    return launch_fwd_tf32<BN, MT, kNoNorm, kPhaseMma>(
+        x, wpk, y, nullptr, nullptr, B, D, H, W, C, F, st);
+  return launch_fwd_tf32<BN, MT, kNoNorm>(x, wpk, y, nullptr, nullptr, B, D,
+                                          H, W, C, F, st);
+}
+
 bool takes(int C, int F, int bn, const void* x, const void* wpk,
            const void* y) {
   return C % 8 == 0 && F % 8 == 0 && (uintptr_t)x % 16 == 0 &&
@@ -516,6 +596,24 @@ extern "C" int conv3d_same_fwd_tf32(const void* x, const void* w, void* wpk,
   if (err != 0) return err;
   return launch_bn<kNoNorm>(bn, x, wpk, y, nullptr, nullptr, B, D, H, W, C,
                             F, st);
+}
+
+// conv3d_same_fwd_tf32 (not flipped) cut after ``phase`` (0 the weight
+// packing alone, 1 copy, 2 frag, 3 mma, 4 full) at tile bn (32: MT 4; 64:
+// MT 2): the fp32 rungs of conv3d_same_fwd_ladder (conv3d_tc.cu).
+extern "C" int conv3d_same_fwd_tf32_ladder(const void* x, const void* w,
+                                           void* wpk, void* y, int B, int D,
+                                           int H, int W, int C, int F,
+                                           int phase, int bn, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!takes(C, F, bn, x, wpk, y) || phase < kPhasePack ||
+      phase > kPhaseFull)
+    return (int)cudaErrorInvalidValue;
+  const int err = pack_weights(w, wpk, C, F, bn, 0, st);
+  if (err != 0 || phase == kPhasePack) return err;
+  if (bn == 32)
+    return launch_ladder<32, 4>(phase, x, wpk, y, B, D, H, W, C, F, st);
+  return launch_ladder<64, 2>(phase, x, wpk, y, B, D, H, W, C, F, st);
 }
 
 // conv3d_same_fwd_tf32 of act((x - mean) * rstd): mean and rstd fp32 [B, C]

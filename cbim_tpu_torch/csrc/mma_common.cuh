@@ -1,11 +1,13 @@
-// PTX helpers shared by the tensor-core kernels (probes.cu, conv3d_tc.cu,
-// conv3d_wgrad_tc.cu, conv2d_tc.cu, conv2d_wgrad_tc.cu, conv3d_tf32.cu,
-// conv3d_wgrad_tf32.cuh, conv2d_tf32.cu, conv2d_wgrad_tf32.cu,
-// window_attention.cu): ldmatrix, vector shared-memory loads, mma.sync
-// bf16 and TF32 (with the TF32 hi/lo split), mbarriers, TMA and bulk copies
-// into shared memory, TMA stores out of it, and the host-side encoding of a
-// TMA tensor map (cuTensorMapEncodeTiled, looked up through the CUDA
-// runtime: the library links no libcuda).
+// PTX helpers shared by the tensor-core kernels (probes.cu, gemm_wgmma.cu,
+// conv3d_tc.cu, conv3d_wgrad_tc.cu, conv2d_tc.cu, conv2d_wgrad_tc.cu,
+// conv3d_tf32.cu, conv3d_wgrad_tf32.cuh, conv2d_tf32.cu,
+// conv2d_wgrad_tf32.cu, window_attention.cu): ldmatrix, vector
+// shared-memory loads, mma.sync bf16 and TF32 (with the TF32 hi/lo split),
+// wgmma (its fences, groups and shared-memory matrix descriptors) and
+// setmaxnreg, mbarriers, TMA and bulk copies into shared memory, TMA stores
+// out of it, and the host-side encoding of a TMA tensor map
+// (cuTensorMapEncodeTiled, looked up through the CUDA runtime: the library
+// links no libcuda).
 
 #pragma once
 
@@ -196,6 +198,16 @@ __device__ __forceinline__ void tma_load_5d(unsigned dst, const CUtensorMap* map
       : "memory");
 }
 
+// the same for a 2D map, coordinates (c0, c1)
+__device__ __forceinline__ void tma_load_2d(unsigned dst, const CUtensorMap* map,
+                                            unsigned bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
 // the same for a 4D map, coordinates (c0..c3)
 __device__ __forceinline__ void tma_load_4d(unsigned dst, const CUtensorMap* map,
                                             unsigned bar, int c0, int c1,
@@ -259,6 +271,112 @@ __device__ __forceinline__ unsigned swz64(unsigned r, unsigned j) {
   return r * 64 + ((j ^ ((r >> 1) & 3)) << 4);
 }
 
+// ------------------------------------------------------------------ wgmma
+
+// A warpgroup (4 consecutive, aligned warps) resizes its register file:
+// setmaxnreg.dec in a warpgroup that needs few (a TMA producer), .inc in
+// one that holds large accumulators.  Every thread of the warpgroup runs
+// it, in a branch the warpgroup never leaves.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// order this warpgroup's register and shared-memory accesses before the
+// wgmma that follow (before the first wgmma of a group, and whenever the
+// accumulators were touched by other instructions)
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins each of n accumulator registers at this point of the program, so
+// the compiler reads them after (not before) the wgmma_wait before it.
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The shared-memory matrix descriptor of a wgmma operand in a buffer that
+// TMA filled with CU_TENSOR_MAP_SWIZZLE_128B (1024-byte aligned swizzle
+// atoms of 8 rows x 128 bytes): start address, leading and stride byte
+// offsets (in 16-byte units), layout type 1 (128-byte swizzle).
+// - K-major (K contiguous, 64 bf16 a row): ``lbo`` unused (1), ``sbo``
+//   the 8-row stride along M or N, 1024 bytes; a K step of 16 is +32 bytes
+//   of ``addr``.
+// - MN-major (M or N contiguous, the operand read transposed): ``lbo`` the
+//   stride between atoms along M or N (64 values apart), ``sbo`` the stride
+//   between 8-row groups along K; a K step of 16 is +2048 bytes of
+//   ``addr``.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(unsigned addr,
+                                                     unsigned lbo,
+                                                     unsigned sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+#define WGMMA_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WGMMA_D16(i) \
+  WGMMA_D4(i), WGMMA_D4(i + 4), WGMMA_D4(i + 8), WGMMA_D4(i + 12)
+
+// d (64 x 256, fp32, this warpgroup's registers) = a (64 x 16, K-major) .
+// b (16 x 256, N-major: read transposed, imm-trans-b 1) + (accumulate ? d :
+// 0), bf16 operands from shared memory through their descriptors.
+// Thread t of the warpgroup holds, of each n8 block j, d[4j], d[4j + 1] at
+// row 16 (t / 32) + (t % 32) / 4, columns 8j + 2 (t % 4) + {0, 1}, and
+// d[4j + 2], d[4j + 3] eight rows below.  Asynchronous: commit the group
+// and wait for it before d is read.
+__device__ __forceinline__ void wgmma_m64n256k16_bf16_tn(float (&d)[128],
+                                                         uint64_t da,
+                                                         uint64_t db,
+                                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : WGMMA_D16(0), WGMMA_D16(16), WGMMA_D16(32), WGMMA_D16(48),
+        WGMMA_D16(64), WGMMA_D16(80), WGMMA_D16(96), WGMMA_D16(112)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#undef WGMMA_D16
+#undef WGMMA_D4
+
 // -------------------------------------------------------------- host side
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -285,12 +403,13 @@ inline EncodeTiledFn encode_tiled_fn() {
 // t[n_{rank-1}]..[n1][n0] of bf16 (or, with ``dtype``, fp32) values (n0
 // innermost, every stride a multiple of 16 bytes: n0 % 8 == 0 in bf16,
 // n0 % 4 == 0 in fp32), box (b0, ..), 64-byte swizzle (b0 values of 64
-// bytes: 32 bf16 or 16 fp32), zeros out of bounds.  False if it cannot be
-// encoded.
+// bytes: 32 bf16 or 16 fp32; with ``swizzle`` CU_TENSOR_MAP_SWIZZLE_128B,
+// 128-byte rows), zeros out of bounds.  False if it cannot be encoded.
 inline bool encode_map(
     CUtensorMap* map, const void* base, int rank, const long long* n,
     const unsigned* box,
-    CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+    CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_64B) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr || rank < 1 || rank > 5) return false;
   cuuint64_t dims[5], strides[4];
@@ -306,7 +425,7 @@ inline bool encode_map(
   }
   return fn(map, dtype, (cuuint32_t)rank,
             const_cast<void*>(base), dims, strides, boxd, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

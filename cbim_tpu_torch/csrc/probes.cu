@@ -4,8 +4,8 @@
 //   tools/probe_bandwidth.py main (scale_kernel): a bf16 copy-scale probe of
 //     HBM bandwidth, on (block, 32) vs (block, 128) VMEM blocks;
 //   tools/probe_lhst_dot.py main (batched_kernel, slabloop_kernel): an MXU
-//     dot contracting dim 0 of both operands, out[t] = W^T . A[t];
-//   tools/probe_lhst_dot.py big_square (kern): a 1k^2 calibration dot.
+//     dot contracting dim 0 of both operands, out[t] = W^T . A[t].
+// (big_square's calibration dot, probe_gemm, is gemm_wgmma.cu's.)
 // They lie on no serving or training path.  Each computes what its TPU
 // probe computes; lane density, VMEM blocks and the MXU's 128-wide tiles are
 // TPU concerns, so each sweeps what plays their part on Hopper instead.
@@ -16,26 +16,21 @@
 // vector of 8 bf16 (the TPU's lane-sparse vs lane-dense views), and 2048 vs
 // 8192 elements per block (the TPU probe's small vs big blocks).
 //
-// probe_dot_t / probe_gemm: one hand-written bf16 tensor-core GEMM with
-// fp32 sums, mma.sync.aligned.m16n8k16 (no cuBLAS, no CUTLASS; the PTX
-// helpers are mma_common.cuh's, shared with the tensor-core 3^3 conv).
-// C[t] (M x N) = opA[t] (M x K) . B[t] (K x N), row-major bf16 C, B stored
-// [K][N].
-// - probe_dot_t stores opA as [K][M] (W [96, 288]): both operands contract
-//   their dim 0, so both reach mma in the "wrong" major order.  Both are
-//   staged in shared memory as they lie in device memory and transposed on
-//   the way into registers by ldmatrix.trans (no transpose pass).  Bound by
-//   bytes on the H100 at the TPU probe's shape: A [2048, 96, 2560] (1.0 GB)
-//   in, out [2048, 288, 2560] (3.0 GB) out, 1.20 ms at 3.35 TB/s against
-//   0.29 ms of bf16 tensor-core FLOPs.  A block owns one (t, 96 rows of W,
-//   128-column slab) tile over all of K = 96; "slabs" > 1 makes it
-//   weight-stationary: it keeps its 96 x 96 block of W in shared memory and
-//   loops over that many slabs of its t (the TPU probe's "slabloop"), where
-//   slabs = 1 spreads the 2560-wide dot over blocks that each reload W (its
-//   "batched" form).
-// - probe_gemm stores opA row-major [M][K] (plain ldmatrix) and shares B
-//   across t: the square calibration, 64 x [1024, 1024] . [1024, 1024].
-//   Bound by operations: 137 GFLOP at 989 TFLOP/s, 0.139 ms.
+// probe_dot_t: a hand-written bf16 tensor-core GEMM with fp32 sums,
+// mma.sync.aligned.m16n8k16 (no cuBLAS, no CUTLASS; the PTX helpers are
+// mma_common.cuh's, shared with the tensor-core 3^3 conv).
+// C[t] (M x N) = A^T . B[t], A stored [K][M] (W [96, 288]), B [K][N],
+// row-major bf16 C: both operands contract their dim 0, so both reach mma
+// in the "wrong" major order.  Both are staged in shared memory as they lie
+// in device memory and transposed on the way into registers by
+// ldmatrix.trans (no transpose pass).  Bound by bytes on the H100 at the
+// TPU probe's shape: A [2048, 96, 2560] (1.0 GB) in, out [2048, 288, 2560]
+// (3.0 GB) out, 1.20 ms at 3.35 TB/s against 0.29 ms of bf16 tensor-core
+// FLOPs.  A block owns one (t, 96 rows of W, 128-column slab) tile over all
+// of K = 96; "slabs" > 1 makes it weight-stationary: it keeps its 96 x 96
+// block of W in shared memory and loops over that many slabs of its t (the
+// TPU probe's "slabloop"), where slabs = 1 spreads the 2560-wide dot over
+// blocks that each reload W (its "batched" form).
 // Block tile BM x 128 with 8 warps as 2 (m) x 4 (n), each warp BM/2 x 32 of
 // m16n8 tiles; K staged in BK-deep chunks, rows padded by 8 bf16 so that
 // ldmatrix's eight 16-byte rows fall on distinct banks.  No double
@@ -97,19 +92,19 @@ constexpr int kMmaThreads = 256;  // 8 warps: 2 (m) x 4 (n)
 constexpr int kBN = 128;          // output columns per block tile
 constexpr int kPad = 8;           // bf16 of padding per shared-memory row
 
-// C[t] = opA[t] . B[t]; A_KM: opA stored [K][M], else [M][K].  a_bs, b_bs:
-// batch strides in elements (0: shared by every t).  grid (N / (128 *
-// slabs), M / BM, T); needs M % BM == 0, N % (128 * slabs) == 0, K % BK ==
-// 0 and rows of 16-byte multiples.
-template <bool A_KM, int BM, int BK>
+// C[t] = A^T . B[t], A stored [K][M] and shared by every t; b_bs: B's
+// batch stride in elements.  grid (N / (128 * slabs), M / BM, T); needs
+// M % BM == 0, N % (128 * slabs) == 0, K % BK == 0 and rows of 16-byte
+// multiples.
+template <int BM, int BK>
 __global__ void __launch_bounds__(kMmaThreads)
 mma_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                bf16* __restrict__ C, int M, int N, int K, long long a_bs,
-                long long b_bs, int slabs) {
+                bf16* __restrict__ C, int M, int N, int K, long long b_bs,
+                int slabs) {
   constexpr int WM = BM / 2, WN = kBN / 4;  // warp tile
   constexpr int MT = WM / 16, NT = WN / 8;  // m16 x n8 tiles per warp
-  constexpr int A_ROWS = A_KM ? BK : BM;
-  constexpr int A_COLS = (A_KM ? BM : BK) + kPad;
+  constexpr int A_ROWS = BK;
+  constexpr int A_COLS = BM + kPad;
   constexpr int B_COLS = kBN + kPad;
   // raw 16-bit storage: only 16-byte copies and ldmatrix touch it
   __shared__ __align__(16) uint16_t As[A_ROWS * A_COLS];
@@ -121,7 +116,6 @@ mma_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
   const int mat = lane / 8, r8 = lane % 8;  // ldmatrix: matrix and row
   const int m0 = blockIdx.y * BM;
   const long long t = blockIdx.z;
-  const bf16* At = A + t * a_bs;
   const bf16* Bt = B + t * b_bs;
   bf16* Ct = C + t * M * (long long)N;
   // the whole of K in one chunk: the A tile stays for every slab
@@ -139,13 +133,12 @@ mma_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
 
     for (int k0 = 0; k0 < K; k0 += BK) {
       if (!(a_resident && s > 0)) {
-        constexpr int VPR = (A_KM ? BM : BK) / 8;  // 16-byte vectors a row
+        constexpr int VPR = BM / 8;  // 16-byte vectors a row
         for (int e = tid; e < A_ROWS * VPR; e += kMmaThreads) {
           const int r = e / VPR, cv = (e % VPR) * 8;
-          const long long src = A_KM ? (long long)(k0 + r) * M + m0 + cv
-                                     : (long long)(m0 + r) * K + k0 + cv;
           *reinterpret_cast<uint4*>(&As[r * A_COLS + cv]) =
-              *reinterpret_cast<const uint4*>(At + src);
+              *reinterpret_cast<const uint4*>(A + (long long)(k0 + r) * M +
+                                              m0 + cv);
         }
       }
       for (int e = tid; e < BK * (kBN / 8); e += kMmaThreads) {
@@ -179,10 +172,7 @@ mma_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
           const int mr = wm * WM + i * 16 + (mat & 1) * 8;
           const int kc = kk + (mat >> 1) * 8;
           unsigned a[4];
-          if constexpr (A_KM)
-            ldsm_x4_t(smem_u32(&As[(kc + r8) * A_COLS + mr]), a);
-          else
-            ldsm_x4(smem_u32(&As[(mr + r8) * A_COLS + kc]), a);
+          ldsm_x4_t(smem_u32(&As[(kc + r8) * A_COLS + mr]), a);
 #pragma unroll
           for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], a, b[j][0], b[j][1]);
         }
@@ -209,8 +199,6 @@ mma_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
 
 // probe_dot_t's tile: 96 rows of W by all of K = 96 (a K of any multiple)
 constexpr int kDotBM = 96, kDotBK = 96;
-// probe_gemm's tile: 128 x 128, K in chunks of 32
-constexpr int kGemmBM = 128, kGemmBK = 32;
 
 }  // namespace
 
@@ -246,24 +234,9 @@ extern "C" int probe_dot_t(const void* a, const void* w, void* out, int T,
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)(L / (kBN * slabs)), (unsigned)(N / kDotBM),
                   (unsigned)T);
-  mma_gemm_kernel<true, kDotBM, kDotBK>
+  mma_gemm_kernel<kDotBM, kDotBK>
       <<<grid, kMmaThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const bf16*>(w), static_cast<const bf16*>(a),
-          static_cast<bf16*>(out), N, L, K, 0, (long long)K * L, slabs);
-  return (int)cudaGetLastError();
-}
-
-// out[t] (M x N) = a[t] . b: a [T, M, K], b [K, N], out [T, M, N], bf16,
-// fp32 sums.
-extern "C" int probe_gemm(const void* a, const void* b, void* out, int T,
-                          int M, int N, int K, void* stream) {
-  if (T < 1 || T > 65535 || M % kGemmBM != 0 || N % kBN != 0 ||
-      K % kGemmBK != 0)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)(N / kBN), (unsigned)(M / kGemmBM), (unsigned)T);
-  mma_gemm_kernel<false, kGemmBM, kGemmBK>
-      <<<grid, kMmaThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-          static_cast<bf16*>(out), M, N, K, (long long)M * K, 0, 1);
+          static_cast<bf16*>(out), N, L, K, (long long)K * L, slabs);
   return (int)cudaGetLastError();
 }

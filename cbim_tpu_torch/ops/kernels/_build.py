@@ -106,16 +106,17 @@ SIGNATURES = {
     "window_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
                          _P],
-    # the probes (csrc/probes.cu, and the ladder in conv3d.cu)
+    # the probes (csrc/probes.cu, gemm_wgmma.cu, and the ladder in
+    # conv3d_tc.cu and conv3d_tf32.cu)
     # x, y, n, vec, block, stream
     "probe_copy_scale": [_P, _P, _LL, _I, _I, _P],
     # a, w, out, T, K, N, L, slabs, stream
     "probe_dot_t": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # a, b, out, T, M, N, K, stream
-    "probe_gemm": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # x, w, y, dtype, B, D, H, W, C, F, phase, bn, stream
-    "conv3d_same_fwd_ladder": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _P],
+    # a, b, out, T, M, N, K, store, stream
+    "probe_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, wpk, y, dtype, B, D, H, W, C, F, phase, bn, mt, stream
+    "conv3d_same_fwd_ladder": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _P],
 }
 
 _lib = None

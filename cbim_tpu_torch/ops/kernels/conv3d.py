@@ -29,8 +29,8 @@ the dtype and the channel counts before any launch:
   pair's ``conv3d_wgrad_na_tf32`` (``csrc/conv3d_wgrad_na_tf32.cu``, the
   same kernel normalising each x halo in its split;
   :func:`conv3d_wgrad_na_tf32x3_plain` models it).
-- everything else (other widths, the probes' ladder): the CUDA-core
-  kernels of ``csrc/conv3d.cu``, ``csrc/conv3d_wgrad.cu`` and
+- everything else (other widths): the CUDA-core kernels of
+  ``csrc/conv3d.cu``, ``csrc/conv3d_wgrad.cu`` and
   ``csrc/conv3d_wgrad_na.cu``:
 
 - ``conv3d_same_fwd``: x[B, D, H, W, C] (x) w[F, C, 3, 3, 3] ->
@@ -358,6 +358,16 @@ def _launch_packed(x: torch.Tensor, w: torch.Tensor, key: str, flip, na,
     return y
 
 
+def packed_numel(route: str, C: int, F: int, bn: int) -> int:
+    """Values of the packed-weight scratch a tensor-core (bf16, the layout
+    of :func:`pack_weights_tc`) or TF32 (:func:`pack_weights_tf32`)
+    forward's entry fills, for C in, F out and output tile ``bn``."""
+    n_tiles = -(-F // bn)
+    if route == TENSOR_CORE:
+        return n_tiles * -(-C // TC_CHUNK) * 27 * TC_CHUNK * (bn + 8)
+    return n_tiles * -(-C // TF32_CHUNK) * 9 * 2 * 3 * bn * TF32_PITCH
+
+
 def _launch_fwd_tc(x: torch.Tensor, w: torch.Tensor, key: str,
                    flip: bool = False, na=None) -> torch.Tensor:
     """The tensor-core forward ``conv3d_same_fwd_tc`` on torch weights
@@ -366,11 +376,10 @@ def _launch_fwd_tc(x: torch.Tensor, w: torch.Tensor, key: str,
     ``key``; ``na`` = (mean, rstd, act) selects ``conv3d_same_na_fwd_tc``.
     The entry packs the weights as :func:`pack_weights_tc` does into
     scratch the wrapper allocates."""
-    C = x.shape[-1]
-    bn, n_tiles = tc_tile_n(w.shape[1] if flip else w.shape[0])
+    Fo = w.shape[1] if flip else w.shape[0]
+    bn = tc_tile_n(Fo)[0]
     return _launch_packed(x, w, key, flip, na, "tc", bn,
-                          n_tiles * -(-C // TC_CHUNK) * 27 * TC_CHUNK
-                          * (bn + 8))
+                          packed_numel(TENSOR_CORE, x.shape[-1], Fo, bn))
 
 
 def _launch_fwd_tf32(x: torch.Tensor, w: torch.Tensor, key: str,
@@ -379,11 +388,10 @@ def _launch_fwd_tf32(x: torch.Tensor, w: torch.Tensor, key: str,
     :func:`_launch_fwd_tc`; ``na`` selects ``conv3d_same_na_fwd_tf32``.
     The entry packs and splits the weights as :func:`pack_weights_tf32`
     does."""
-    C = x.shape[-1]
-    bn, n_tiles = tf32_tile_n(w.shape[1] if flip else w.shape[0])
+    Fo = w.shape[1] if flip else w.shape[0]
+    bn = tf32_tile_n(Fo)[0]
     return _launch_packed(x, w, key, flip, na, "tf32", bn,
-                          n_tiles * -(-C // TF32_CHUNK) * 9 * 2 * 3 * bn
-                          * TF32_PITCH)
+                          packed_numel(TF32X3, x.shape[-1], Fo, bn))
 
 
 def _launch_route(route: str, x: torch.Tensor, w: torch.Tensor, key: str,

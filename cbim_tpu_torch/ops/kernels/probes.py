@@ -3,8 +3,9 @@ the card, and their plain versions.
 
 Port of the JAX package's TPU probes (``tools/probe_bandwidth.py``,
 ``tools/probe_lhst_dot.py``, ``tools/probe_cw_dissect.py``), which lie on
-no serving or training path.  Kernels in ``csrc/probes.cu`` and, for the
-ladder, ``csrc/conv3d.cu``:
+no serving or training path.  Kernels in ``csrc/probes.cu``,
+``csrc/gemm_wgmma.cu`` and, for the ladder, ``csrc/conv3d_tc.cu`` and
+``csrc/conv3d_tf32.cu``:
 
 - ``probe_copy_scale``: y = 2 x in bf16, with 16-byte or 2-byte accesses
   and 2048 or 8192 elements a block: the HBM rate an elementwise pass
@@ -14,10 +15,18 @@ ladder, ``csrc/conv3d.cu``:
   transposed by ``ldmatrix.trans``), one block per (t, W rows, 128-column
   slab) or weight-stationary across the slabs of its t (the TPU probe's
   ``slabloop`` and ``batched`` kernels);
-- ``probe_gemm``: out[t] = a[t] b, the same kernel with a row-major left
-  operand: the 1k^2 calibration (``big_square``);
-- ``conv3d_same_fwd_ladder``: ``conv3d_same_fwd`` cut after a phase
-  (load, stage, fma, full); ``full`` is the production kernel itself.
+- ``probe_gemm``: out[t] = a[t] b, the 1k^2 calibration (``big_square``),
+  on ``wgmma`` (m64n256k16, b read transposed from its stored [K][N]), both
+  operands brought by TMA into a four-stage ring, one producer warpgroup
+  and two consumer warpgroups, one persistent block a SM: bound by
+  operations (0.139 ms at 989 TFLOP/s at the full size);
+- ``conv3d_same_fwd_ladder``: the 3^3 forwards the main path launches,
+  cut after a phase (:data:`PHASES`): bf16 the tensor-core kernel of
+  ``conv3d_same_fwd_tc``, fp32 the unfused 3xTF32 kernel of
+  ``conv3d_same_fwd_tf32``, at the tiles their pickers choose between
+  (:data:`LADDER_TILES`); ``full`` at :func:`production_tile` is the very
+  launch ``conv3d.conv3d_same`` makes, so the rungs' deltas say where a
+  production conv spends its time (the card has no ``ncu``).
 
 Each wrapper launches its kernel for a CUDA tensor (and counts the launch
 in :data:`launches`, apart from the production kernels' counters) and runs
@@ -40,14 +49,25 @@ launches = {"probe_copy_scale": 0, "probe_dot_t": 0, "probe_gemm": 0,
 
 #: elements a copy-scale block takes
 COPY_BLOCKS = (2048, 8192)
-#: the tile of ``probe_dot_t`` (rows of W, depth) and of ``probe_gemm``
-#: (rows, depth chunk); both write 128-column slabs
+#: the tile of ``probe_dot_t`` (rows of W, depth), which writes 128-column
+#: slabs
 DOT_TILE = (96, 96)
-GEMM_TILE = (128, 32)
 SLAB = 128
-#: the ladder's rungs, in order, and the tile widths it sweeps
-PHASES = ("load", "stage", "fma", "full")
-LADDER_BN = (32, 64)
+#: ``probe_gemm``'s block tile (rows, columns) and K step: the kernel takes
+#: M, N and K multiples of these
+GEMM_TILE = (128, 256, 64)
+#: the ladder's rungs, in order: the weight packing alone, then the kernel
+#: cut after its copies, its fragment loads (and fp32's TF32 split), its
+#: MMAs (and fp32's per-step fold), and whole
+PHASES = ("pack", "copy", "frag", "mma", "full")
+#: the (BN, MT) tiles the ladder sweeps in each dtype: the production
+#: pickers' choices (bf16 at BN 32: 512- or 256-voxel boxes by the
+#: big-tile rule of ``csrc/conv3d_tc.cu``; fp32: ``conv3d.tf32_tile_n``'s
+#: two)
+LADDER_TILES = {torch.bfloat16: ((32, 4), (32, 2)),
+                torch.float32: ((32, 4), (64, 2))}
+#: SMs of the H100, which the bf16 big-tile rule counts
+_SMS = 132
 
 
 # ---------------------------------------------------------------- copy-scale
@@ -132,26 +152,37 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum("tmk,kn->tmn", a.float(), b.float()).to(torch.bfloat16)
 
 
-def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def check_gemm_shape(M: int, N: int, K: int) -> None:
+    """Raise ValueError unless ``probe_gemm``'s kernel takes a[T, M, K] .
+    b[K, N]: M, N and K positive multiples of :data:`GEMM_TILE`."""
+    bm, bn, bk = GEMM_TILE
+    if min(M, N, K) < 1 or M % bm or N % bn or K % bk:
+        raise ValueError(f"the kernel takes M % {bm}, N % {bn} and K % {bk} "
+                         f"== 0, got M={M} N={N} K={K}")
+
+
+def gemm(a: torch.Tensor, b: torch.Tensor, store: bool = True
+         ) -> torch.Tensor:
     """out[t] = a[t] b: a [T, M, K], b [K, N] -> out [T, M, N] bf16, fp32
     sums (``big_square`` of ``tools/probe_lhst_dot.py``).  The kernel takes
-    M % 128, N % 128 and K % 32 == 0."""
+    the shapes :func:`check_gemm_shape` passes.  ``store=False`` (the card
+    only) skips the kernel's epilogue stores and returns out unwritten: the
+    mainloop's time."""
     _check_bf16(a, b)
     if a.dim() != 3 or b.dim() != 2 or a.shape[2] != b.shape[0]:
         raise ValueError(f"expected a[T, M, K] and b[K, N], got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
     if not _backend.uses_kernels(a):
+        if not store:
+            raise ValueError("store=False times the kernel: the card only")
         return gemm_plain(a, b)
     T, M, K = a.shape
     N = b.shape[1]
-    if M % GEMM_TILE[0] or N % SLAB or K % GEMM_TILE[1]:
-        raise ValueError(f"the kernel takes M % {GEMM_TILE[0]}, N % {SLAB} "
-                         f"and K % {GEMM_TILE[1]} == 0, got M={M} N={N} "
-                         f"K={K}")
+    check_gemm_shape(M, N, K)
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty((T, M, N), dtype=torch.bfloat16, device=a.device)
     _build.call("probe_gemm", a.data_ptr(), b.data_ptr(), out.data_ptr(), T,
-                M, N, K, device=a.device)
+                M, N, K, int(store), device=a.device)
     launches["probe_gemm"] += 1
     return out
 
@@ -165,44 +196,64 @@ def conv3d_same_fwd_ladder_plain(x: torch.Tensor,
     return conv3d.conv3d_same_plain(x.float(), w.float()).to(x.dtype)
 
 
-def production_bn(F: int) -> int:
-    """The tile width ``conv3d_same_fwd`` launches for F output channels."""
-    return 32 if F <= 32 else 64
+def production_tile(dtype: torch.dtype, shape) -> tuple[int, int]:
+    """The (BN, MT) tile ``conv3d.conv3d_same`` launches for x of ``dtype``
+    at ``shape`` = (B, D, H, W, C, F): in bf16 ``conv3d.tc_tile_n``'s BN,
+    with MT 4 (512-voxel boxes) where those boxes give at least two blocks
+    an SM, else MT 2 (``conv3d_same_fwd_tc`` in ``csrc/conv3d_tc.cu``); in
+    fp32 ``conv3d.tf32_tile_n``'s BN, MT 4 at BN 32 and 2 at 64."""
+    B, D, H, W, _, Fo = shape
+    if dtype == torch.float32:
+        bn = conv3d.tf32_tile_n(Fo)[0]
+        return bn, 4 if bn == 32 else 2
+    bn, n_tiles = conv3d.tc_tile_n(Fo)
+    big_tiles = B * -(-D // 4) * -(-H // 8) * -(-W // 16) * n_tiles
+    return bn, 4 if bn <= 64 and big_tiles >= 2 * _SMS else 2
 
 
 def conv3d_same_fwd_ladder(x: torch.Tensor, w: torch.Tensor,
                            phase: str = "full",
-                           bn: int | None = None) -> torch.Tensor:
-    """``conv3d_same_fwd`` on x[B, D, H, W, C] with torch weights w[F, C,
-    3, 3, 3], cut after ``phase`` (:data:`PHASES`) at tile width ``bn``
-    (32 or 64; default the production one).  ``full`` at the production
-    width launches the very kernel ``conv3d.conv3d_same`` does on the
-    CUDA-core route (widths that are not multiples of 8; at multiples of 8
-    bf16 takes the tensor-core kernel and fp32 the TF32 one,
-    ``conv3d.conv3d_route``); a cut rung
-    returns a tensor of which only one value per thread was written.  The
-    16-byte staging path only (C % 4 == 0).  A CPU tensor runs the plain
-    version of ``full`` and refuses a cut rung."""
+                           tile: tuple[int, int] | None = None
+                           ) -> torch.Tensor:
+    """The 3^3 forward that ``conv3d.conv3d_same`` launches for x[B, D, H,
+    W, C] (bf16: the tensor-core kernel; fp32: the unfused 3xTF32 one) with
+    torch weights w[F, C, 3, 3, 3], cut after ``phase`` (:data:`PHASES`)
+    at ``tile`` = (BN, MT) (one of :data:`LADDER_TILES`; default
+    :func:`production_tile`).  Each rung runs the entry's weight-packing
+    kernel first, as production does (``pack`` runs it alone).  ``full`` at
+    the production tile is the very launch ``conv3d_same`` makes, and at
+    the other tile the same arithmetic; a cut rung returns a tensor of
+    which only one value per thread was written.  The card path takes C
+    and F multiples of 8 (the tensor-core routes).  A CPU tensor runs the
+    plain version of ``full`` and refuses a cut rung."""
     conv3d._check(x, w)
     if phase not in PHASES:
         raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
+    if x.dtype not in LADDER_TILES:
+        raise ValueError(f"the ladder takes fp32 or bf16, got {x.dtype}")
+    B, D, H, W, C = x.shape
     Fo = w.shape[0]
-    bn = production_bn(Fo) if bn is None else bn
-    if bn not in LADDER_BN:
-        raise ValueError(f"bn must be one of {LADDER_BN}, got {bn}")
+    tile = (production_tile(x.dtype, (B, D, H, W, C, Fo)) if tile is None
+            else tuple(tile))
+    if tile not in LADDER_TILES[x.dtype]:
+        raise ValueError(f"tile must be one of {LADDER_TILES[x.dtype]} in "
+                         f"{x.dtype}, got {tile}")
     if not _backend.uses_kernels(x):
         if phase != "full":
             raise ValueError(f"the {phase!r} rung computes no conv: it runs "
                              f"on the card only")
         return conv3d_same_fwd_ladder_plain(x, w)
-    B, D, H, W, C = x.shape
-    if not x.is_contiguous() or C % 4 or x.data_ptr() % (4 * x.element_size()):
-        raise ValueError("the ladder takes a contiguous x with C % 4 == 0 "
-                         "(the 16-byte staging path)")
-    wp = w.permute(2, 3, 4, 1, 0).contiguous()
+    route = conv3d.conv3d_route(x.dtype, C, Fo)
+    if route == conv3d.CUDA_CORE or not x.is_contiguous():
+        raise ValueError("the ladder cuts the tensor-core forwards: a "
+                         "contiguous x with C and F multiples of 8")
+    bn, mt = tile
+    w = w.contiguous()
+    wp = torch.empty(conv3d.packed_numel(route, C, Fo, bn), dtype=x.dtype,
+                     device=x.device)
     y = torch.empty((B, D, H, W, Fo), dtype=x.dtype, device=x.device)
-    _build.call("conv3d_same_fwd_ladder", x.data_ptr(), wp.data_ptr(),
-                y.data_ptr(), _backend.dtype_code(x), B, D, H, W, C, Fo,
-                PHASES.index(phase), bn, device=x.device)
+    _build.call("conv3d_same_fwd_ladder", x.data_ptr(), w.data_ptr(),
+                wp.data_ptr(), y.data_ptr(), _backend.dtype_code(x), B, D, H,
+                W, C, Fo, PHASES.index(phase), bn, mt, device=x.device)
     launches["conv3d_same_fwd_ladder"] += 1
     return y

@@ -21,12 +21,17 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
-def cuda_ms(fn, iters: int) -> float:
+def cuda_ms(fn, iters: int, queued: bool = False) -> float:
     """Mean device time of ``fn`` in ms over ``iters`` calls (CUDA events),
-    after one warm-up call."""
+    after one warm-up call.  ``queued``: the card first spins for about a
+    millisecond, so the host has queued every call before the first runs
+    and a call whose kernels take less time than its launch is timed on
+    the card, not at the host's launch rate."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(2_000_000)        # clock cycles, about 1 ms
     start.record()
     for _ in range(iters):
         fn()

@@ -1,5 +1,6 @@
-"""Probe: a hand-written bf16 tensor-core dot on the card, at the 3^3
-conv's GEMM shape and at a square calibration shape (port of
+"""Probe: hand-written bf16 tensor-core dots on the card, at the 3^3
+conv's GEMM shape (``probe_dot_t``, on ``mma.sync``) and at a square
+calibration shape (``probe_gemm``, on ``wgmma`` fed by TMA) (port of
 ``tools/probe_lhst_dot.py``: ``main`` and ``big_square``).
 
 Operands are drawn from a seeded ``torch.Generator`` (the TPU probe timed
@@ -14,8 +15,13 @@ power).  Cases:
     stationary  the same, each block keeping its W block in shared memory
                 while it loops over the 20 slabs of its t (TPU: slabloop)
     cublas      ``torch.matmul(W.T, A)`` on the same operands
-    square1k    ``probe_gemm``: 64 x [1024, 1024] . [1024, 1024]
+    square1k    ``probe_gemm``: 64 x [1024, 1024] . [1024, 1024] on
+                wgmma m64n256k16 (a 128 x 256 tile a block, a four-stage
+                TMA ring, one producer and two consumer warpgroups, one
+                persistent block a SM); bound by operations, 0.139 ms
                                                        (TPU: square1k)
+    mainloop1k  ``probe_gemm`` with its epilogue's stores skipped (the
+                output is not written): the TMA -> wgmma mainloop alone
     cublas1k    ``torch.matmul`` on the same operands  (TPU: xla1k)
 
 Prints ms, TFLOP/s and GB/s (each input read once, the output written
@@ -40,7 +46,7 @@ L = SLABS * SLAB
 #: the square calibration
 SQ_TILES, SQ = 64, 1024
 DOT_CASES = ("slab", "stationary", "cublas")
-SQUARE_CASES = ("square1k", "cublas1k")
+SQUARE_CASES = ("square1k", "mainloop1k", "cublas1k")
 CASES = DOT_CASES + SQUARE_CASES
 
 
@@ -93,6 +99,7 @@ def run(device="cuda", cases=CASES, iters: int = 10) -> dict:
     if set(SQUARE_CASES) & set(cases):
         a, b = square_inputs(device)
         fns = {"square1k": lambda: probes.gemm(a, b),
+               "mainloop1k": lambda: probes.gemm(a, b, store=False),
                "cublas1k": lambda: torch.matmul(a, b)}
         for name in SQUARE_CASES:
             if name in cases:

@@ -138,7 +138,7 @@ Phases, each printing its result; any failure raises and exits non-zero:
    launched, fp32: every 3^3 conv one ``conv3d_same_fwd_tf32`` launch, 20
    a forward, and no other 3^3 kernel (the CUDA-core fp32 forward launches
    on no full-width path: phase 3 holds it at every conv case and the
-   ragged 20 -> 36 takes it, phase 10's ladder is its code);
+   ragged 20 -> 36 takes it);
 5b. the request again with ``conv_na: true``: every conv of the
    BasicBlocks is one ``conv3d_same_na_fwd_tf32`` launch, 20 a forward,
    and no other 3^3 kernel launches; the label map agrees with phase 5's;
@@ -326,14 +326,15 @@ Phases, each printing its result; any failure raises and exits non-zero:
 10. the probes (``cbim_tpu_torch.tools``, the port of the JAX package's TPU
    probes in ``tools/``): ``probe_bandwidth``, ``probe_lhst_dot`` and
    ``probe_conv_dissect`` run at their full sizes, each of the four probe
-   kernels (``probe_copy_scale``, ``probe_dot_t``, ``probe_gemm``, the
-   ``conv3d_same_fwd`` ladder) must have launched; then each is held against
-   its plain version (the copy-scale exactly, the bf16 dots within 2^-7 of
-   max|ref|, the ladder's ``full`` rung within the conv's tolerance and in
-   fp32 equal to the CUDA-core forward it cuts; ``conv3d_same`` of the
-   route, the tensor-core or TF32 kernel, within the conv's tolerance and
-   timed beside the rungs), with its time, bound, plain and library
-   times.
+   kernels (``probe_copy_scale``, ``probe_dot_t``, ``probe_gemm`` on
+   wgmma, the ladder of the production 3^3 forwards) must have launched;
+   then each is held against its plain version (the copy-scale exactly,
+   the bf16 dots within 2^-7 of max|ref|, ``probe_gemm`` also at a
+   non-square shape; ``conv3d_same`` within the conv's tolerance, and the
+   ladder's ``full`` rung equal to it bit for bit at every tile in both
+   dtypes: the tensor-core kernel in bf16, the 3xTF32 one in fp32), with
+   its time, bound, plain and library times; each rung's time and its
+   delta to the rung below, per tile.
 
 The CPU references of phases 4-4z (each small model's eval softmax and
 train step on the CPU's plain versions; 4z's TransUNet step also in fp64)
@@ -378,7 +379,7 @@ import sys
 import time
 
 # the timing and the bound (published H100 peaks) that the probes use too
-from cbim_tpu_torch.tools import HBM_BYTES_PER_S, bound_ms, card_line, cuda_ms
+from cbim_tpu_torch.tools import bound_ms, card_line, cuda_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -449,9 +450,10 @@ KERNELS = {
                          "tools/probe_bandwidth.py:23"),
     "probe_dot_t": ("cbim_tpu_torch/csrc/probes.cu",
                     "tools/probe_lhst_dot.py:28"),
-    "probe_gemm": ("cbim_tpu_torch/csrc/probes.cu",
+    "probe_gemm": ("cbim_tpu_torch/csrc/gemm_wgmma.cu",
                    "tools/probe_lhst_dot.py:96"),
-    "conv3d_same_fwd_ladder": ("cbim_tpu_torch/csrc/conv3d.cu",
+    # the entry; its fp32 rungs are csrc/conv3d_tf32.cu's
+    "conv3d_same_fwd_ladder": ("cbim_tpu_torch/csrc/conv3d_tc.cu",
                                "tools/probe_cw_dissect.py:164"),
 }
 #: the launch counter of each forward kernel's input-gradient launches
@@ -1067,8 +1069,9 @@ AUG_TOL = 1e-5
 
 #: phase 10's JSON records: the copy-scale's 16-byte, 2048-element case
 #: (its library call: ``x * 2`` on the 128-wide view), the weight-stationary
-#: dot (cuBLAS beside it), the square dot, and the ladder's full rung at the
-#: production tile on bf16 (2, 128^3, 96 -> 32) (cuDNN beside it)
+#: dot (cuBLAS beside it), the square dot (cuBLAS beside it), and the
+#: ladder's full rung at the production tile on bf16 (2, 128^3, 96 -> 32)
+#: (cuDNN beside it)
 COPY_RECORD, DOT_RECORD, LADDER_RECORD = "vec2k", "stationary", "bf16_96"
 #: the probe dots' bf16 outputs against their fp32 plain versions cast to
 #: bf16: both sum in fp32 in other orders and round once, so they differ by
@@ -1078,6 +1081,10 @@ COPY_RECORD, DOT_RECORD, LADDER_RECORD = "vec2k", "stationary", "bf16_96"
 #: tiles, the first and last halves (its whole fp32 output is 6 GB)
 PROBE_TOL = 2 ** -7
 DOT_CHECK_TILES = 64
+#: ``probe_gemm`` also at a non-square (T, M, N, K): more tiles than one
+#: pass over the SMs, K not a multiple of 256 (the N-major b descriptor is
+#: where a silently wrong answer would hide)
+GEMM_ODD = (3, 256, 512, 192)
 
 
 #: the script's start (phase headers print the seconds since)
@@ -1131,7 +1138,7 @@ def ptxas_report(log: str, key: str) -> dict:
         if m:
             name = m.group(1)
             # the identifier after its length prefix
-            short = re.search(r"\d(conv\w*?_kernel)", name)
+            short = re.search(r"\d((?:conv|gemm)\w*?_kernel)", name)
             args = [a.replace("n", "-")
                     for a in re.findall(r"Li(n?\d+)E", name)]
             name = (short.group(1) if short else name) + \
@@ -3226,14 +3233,24 @@ def phase_probes(device, record: dict) -> dict:
         f"slab/cuBLAS {dots['slab']['ms'] / dots['cublas']['ms']:.2f}x")
     del a, w, idx, ref
 
-    # the square calibration, whole
+    # the square calibration, whole, and a non-square case
     a, b = pd.square_inputs(device)
     out, ref = probes.gemm(a, b).float(), probes.gemm_plain(a, b).float()
     scale = float(ref.abs().max())
     err = float((out - ref).abs().max())
     assert err <= PROBE_TOL * scale, f"probe_gemm: {err:.3e} of {scale:.3f}"
     plain_ms = cuda_ms(lambda: probes.gemm_plain(a, b), 5)
-    errs["probe_gemm"] = err
+    T, M, N, K = GEMM_ODD
+    gen = torch.Generator(device=device).manual_seed(2)
+    ao = torch.randn(T, M, K, generator=gen, device=device).bfloat16()
+    bo = (torch.randn(K, N, generator=gen, device=device)
+          / math.sqrt(K)).bfloat16()
+    ref_o = probes.gemm_plain(ao, bo).float()
+    scale_o = float(ref_o.abs().max())
+    err_o = float((probes.gemm(ao, bo).float() - ref_o).abs().max())
+    assert err_o <= PROBE_TOL * scale_o, \
+        f"probe_gemm at {GEMM_ODD}: {err_o:.3e} of {scale_o:.3f}"
+    errs["probe_gemm"] = max(err, err_o)
     record["probe_gemm"] = entry(
         dots["square1k"]["ms"], plain_ms, dots["cublas1k"]["ms"],
         *pd.square_work(), "bfloat16", (pd.SQ_TILES, pd.SQ, pd.SQ, pd.SQ))
@@ -3242,64 +3259,58 @@ def phase_probes(device, record: dict) -> dict:
         say(f"  probe_lhst_dot {name:10s} {r['ms']:8.3f} ms "
             f"{r['tflops']:6.1f} TFLOP/s")
     b_ms, b_by = bound_ms(*pd.square_work(), "bfloat16")
-    say(f"  probe_gemm: max_abs_err {err:.3e} max_rel_err {err / scale:.3e} "
-        f"(tol {PROBE_TOL:.1e}); bound {b_ms:.3f} ms ({b_by}); plain "
-        f"{plain_ms:.3f} ms; kernel/cuBLAS "
-        f"{dots['square1k']['ms'] / dots['cublas1k']['ms']:.2f}x")
-    del a, b, out, ref
+    ms = dots["square1k"]["ms"]
+    say(f"  probe_gemm: max_abs_err {err:.3e} max_rel_err {err / scale:.3e}; "
+        f"at (T, M, N, K) {GEMM_ODD} {err_o:.3e}, {err_o / scale_o:.3e} "
+        f"(tol {PROBE_TOL:.1e}); bound {b_ms:.3f} ms ({b_by}), the kernel "
+        f"at {b_ms / ms:.1%} of it; the mainloop alone "
+        f"{dots['mainloop1k']['ms']:.3f} ms; plain {plain_ms:.3f} ms; "
+        f"kernel/cuBLAS {ms / dots['cublas1k']['ms']:.2f}x")
+    del a, b, out, ref, ao, bo, ref_o
 
-    # the ladder: the full rung is the CUDA-core forward, equal to it in
-    # fp32 (``conv3d_same`` at these widths takes the tensor-core route in
-    # bf16 and the TF32 one in fp32: held to the conv's tolerance), and
-    # within the conv's tolerance of F.conv3d in fp32 at both tile widths
+    # the ladder: its full rung is the production forward (the tensor-core
+    # kernel in bf16, the 3xTF32 one in fp32), equal to ``conv3d_same`` bit
+    # for bit at every tile (the tiles sum each output in the same order),
+    # which holds within the conv's tolerance of F.conv3d in fp32
     errs["conv3d_same_fwd_ladder"] = 0.0
     for name, (case, dt) in pc.SHAPES.items():
         x, w = pc.conv_inputs(case, dt, device)
         r = ladder[name]
         ref = probes.conv3d_same_fwd_ladder_plain(x, w).float()
         scale = float(ref.abs().max())
-        full = probes.conv3d_same_fwd_ladder(x, w, "full")
         prod = conv3d.conv3d_same(x, w)
-        if dt == "float32":
-            core = conv3d._launch_fwd(x, w, "conv3d_same_fwd")
-            assert torch.equal(full, core), \
-                f"ladder full rung != the CUDA-core forward at {case} {dt}"
-            del core
-        prod_err = float((prod.float() - ref).abs().max())
-        assert prod_err <= CONV_TOL[dt] * scale, \
-            f"conv3d_same ({r['route']}) at {case} {dt}: {prod_err:.3e}"
-        err = float((full.float() - ref).abs().max())
-        for bn in probes.LADDER_BN:
-            out = probes.conv3d_same_fwd_ladder(x, w, "full", bn).float()
-            err = max(err, float((out - ref).abs().max()))
-            del out
-        assert err <= CONV_TOL[dt] * scale, f"ladder {case} {dt}: {err:.3e}"
+        for tile in probes.LADDER_TILES[x.dtype]:
+            full = probes.conv3d_same_fwd_ladder(x, w, "full", tile)
+            assert torch.equal(full, prod), \
+                f"ladder full rung at {tile} != conv3d_same at {case} {dt}"
+            del full
+        err = float((prod.float() - ref).abs().max())
+        assert err <= CONV_TOL[dt] * scale, \
+            f"conv3d_same ({r['route']}) at {case} {dt}: {err:.3e}"
         errs["conv3d_same_fwd_ladder"] = max(errs["conv3d_same_fwd_ladder"],
                                              err)
         plain_ms = cuda_ms(lambda: probes.conv3d_same_fwd_ladder_plain(x, w),
                            3)
-        B, D, H, W, C, Fo = case
-        flops = 2 * 27 * C * Fo * B * D * H * W
-        nbytes = (x.numel() + w.numel() + full.numel()) * x.element_size()
-        b_ms, b_by = bound_ms(flops, nbytes, dt)
-        load_ms = x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
-        say(f"  ladder {dt} {case}: max_abs_err {err:.3e} max_rel_err "
-            f"{err / scale:.3e} (tol {CONV_TOL[dt]:.1e}); bound {b_ms:.3f} "
-            f"ms ({b_by}); x's bytes once {load_ms:.3f} ms; plain (F.conv3d "
-            f"fp32) {plain_ms:.3f} ms; cuDNN {r['cudnn_ms']:.3f} ms; "
-            f"conv3d_same ({r['route']}) {r['production_ms']:.3f} ms")
-        for bn, rungs in r["rungs"].items():
-            prev, steps = 0.0, []
-            for phase, ms in rungs.items():
-                steps.append(f"{phase} {ms:.3f} (+{ms - prev:.3f})")
-                prev = ms
-            say(f"    BN={bn}: " + ", ".join(steps) + " ms")
+        flops, nbytes, peak = pc.work(name)
+        b_ms, b_by = bound_ms(flops, nbytes, peak)
+        full_ms = r["rungs"][r["production_tile"]]["full"]
+        passes = ", 3 TF32 passes" if peak == "tf32" else ""
+        say(f"  ladder {dt} {case}: full rung = conv3d_same bit for bit at "
+            f"tiles {', '.join(r['rungs'])}; max_abs_err {err:.3e} "
+            f"max_rel_err {err / scale:.3e} (tol {CONV_TOL[dt]:.1e}); bound "
+            f"{b_ms:.3f} ms ({b_by}{passes}), the full rung at "
+            f"{b_ms / full_ms:.1%} of it at the production tile "
+            f"{r['production_tile']}; plain (F.conv3d fp32) {plain_ms:.3f} "
+            f"ms; cuDNN {r['cudnn_ms']:.3f} ms; conv3d_same ({r['route']}) "
+            f"{r['production_ms']:.3f} ms")
+        for tile, rungs in r["rungs"].items():
+            for line in pc.rung_lines(rungs, case):
+                say(f"    {tile} {line}")
         if name == LADDER_RECORD:
             record["conv3d_same_fwd_ladder"] = dict(entry(
-                r["rungs"][r["production_bn"]]["full"], plain_ms,
-                r["cudnn_ms"], flops, nbytes, dt, case),
-                rungs_ms=r["rungs"])
-        del x, w, ref, full, prod
+                full_ms, plain_ms, r["cudnn_ms"], pc.flops(case), nbytes, dt,
+                case, tf32x3=peak == "tf32"), rungs_ms=r["rungs"])
+        del x, w, ref, prod
     torch.cuda.synchronize()
     return counts
 
@@ -3776,8 +3787,12 @@ def main(argv=None) -> int:
         f"{_build.build_seconds_by_source} s); ptxas per kernel: "
         f"{'; '.join(regs)}")
     say("  tensor-core kernels (registers, spill stores/loads bytes): "
-        + "; ".join(f"{k} {v}" for key in ("_tc_", "_tf32_")
+        + "; ".join(f"{k} {v}" for key in ("_tc_", "_tf32_", "gemm_wgmma")
                     for k, v in ptxas_report(_build.build_log, key).items()))
+    # ptxas's warnings on wgmma (serialised) and setmaxnreg (ignored)
+    for ln in _build.build_log.splitlines():
+        if "warning" in ln and ("wgmma" in ln or "setmaxnreg" in ln):
+            say(f"  {ln.strip()}")
     say(f"  beside the build: every cbim op passes torch.library.opcheck on "
         f"CPU tensors (seconds by op: {cpu_opcheck})")
     # phase 5e's exports trace on the card beside phases 3-5 (CPU work in

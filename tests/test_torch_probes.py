@@ -11,7 +11,9 @@ transposes on the test side only), the dots against ``jax.lax.dot_general``
 with ``tools/probe_lhst_dot.py``'s dimension numbers and ``jnp.dot`` (its
 kernels are closures built at full size), the copy-scale against
 ``x * jnp.bfloat16(2.0)``.  Inputs come from numpy with a seed.  The
-kernels themselves run on the card only (``chip_smoke.py`` phase 10).
+shape rules of the card path (the gemm's shape check, the ladder's tiles
+and their scratch) are plain Python, tested here too.  The kernels
+themselves run on the card only (``chip_smoke.py`` phase 10).
 """
 
 import importlib.util
@@ -25,7 +27,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from cbim_tpu_torch.ops.kernels import (launch_counts, probes,
+from cbim_tpu_torch.ops.kernels import (conv3d, launch_counts, probes,
                                         reset_launch_counts)
 from cbim_tpu_torch.tools import bound_ms
 from cbim_tpu_torch.tools import probe_bandwidth as pb
@@ -165,14 +167,69 @@ def test_copy_scale_refuses_what_its_16_byte_path_cannot_take():
 
 def test_ladder_cut_rungs_run_on_the_card_only():
     x, w = torch.randn(1, 2, 3, 4, 8), torch.randn(4, 8, 3, 3, 3)
-    for phase in ("load", "stage", "fma"):
+    for phase in ("pack", "copy", "frag", "mma"):
         with pytest.raises(ValueError, match="card"):
             probes.conv3d_same_fwd_ladder(x, w, phase)
     with pytest.raises(ValueError, match="phase"):
         probes.conv3d_same_fwd_ladder(x, w, "dma")
-    with pytest.raises(ValueError, match="bn"):
-        probes.conv3d_same_fwd_ladder(x, w, "full", bn=48)
-    assert probes.production_bn(32) == 32 and probes.production_bn(40) == 64
+    with pytest.raises(ValueError, match="tile"):
+        probes.conv3d_same_fwd_ladder(x, w, "full", tile=(48, 2))
+    with pytest.raises(ValueError, match="tile"):      # a bf16 tile, fp32 x
+        probes.conv3d_same_fwd_ladder(x, w, "full", tile=(32, 2))
+    assert probes.production_tile(torch.float32, (1, 2, 3, 4, 8, 4)) == \
+        (32, 4)
+    assert probes.production_tile(torch.bfloat16, (1, 2, 3, 4, 8, 4)) == \
+        (32, 2)
+
+
+@pytest.mark.parametrize("dtype,shape,tile", [
+    # 2 x 32 x 16 x 8 512-voxel boxes: 8192 blocks, past two an SM
+    (torch.bfloat16, (2, 128, 128, 128, 32, 32), (32, 4)),
+    # 1 x 1 x 1 x 1 of them: 256-voxel boxes keep more blocks in flight
+    (torch.bfloat16, (1, 4, 8, 16, 8, 32), (32, 2)),
+    (torch.float32, (2, 128, 128, 128, 96, 32), (32, 4)),
+    (torch.float32, (2, 128, 128, 128, 96, 64), (64, 2))])
+def test_production_tile_mirrors_the_pickers(dtype, shape, tile):
+    """The (BN, MT) tile ``conv3d_same`` launches: bf16 by
+    ``conv3d_same_fwd_tc``'s big-tile rule (MT 4 where 512-voxel boxes
+    give at least 2 x 132 blocks), fp32 by ``tf32_tile_n``; every one a
+    tile the ladder sweeps."""
+    assert probes.production_tile(dtype, shape) == tile
+    assert tile in probes.LADDER_TILES[dtype]
+
+
+@pytest.mark.parametrize("M,N,K", [(64, 256, 64), (128, 128, 64),
+                                   (128, 256, 32)])
+def test_gemm_shape_check_refuses_what_the_kernel_cannot_take(M, N, K):
+    """``probe_gemm``'s kernel takes M % 128, N % 256 and K % 64 == 0; the
+    shape check raises on anything else (the wrapper runs it for a CUDA
+    tensor), and passes the square calibration and phase 10's non-square
+    case."""
+    with pytest.raises(ValueError, match="the kernel takes"):
+        probes.check_gemm_shape(M, N, K)
+    probes.check_gemm_shape(pd.SQ, pd.SQ, pd.SQ)
+    probes.check_gemm_shape(256, 512, 192)
+
+
+def test_gemm_without_its_stores_runs_on_the_card_only():
+    """``store=False`` times the kernel's mainloop and leaves the output
+    unwritten: no plain version computes that, so the CPU refuses it."""
+    a, b = torch.randn(1, 8, 16).bfloat16(), torch.randn(16, 4).bfloat16()
+    with pytest.raises(ValueError, match="card"):
+        probes.gemm(a, b, store=False)
+
+
+@pytest.mark.parametrize("route,pack", [
+    (conv3d.TENSOR_CORE, conv3d.pack_weights_tc),
+    (conv3d.TF32X3, conv3d.pack_weights_tf32)])
+def test_packed_numel_is_the_packed_weights_size(route, pack):
+    """The scratch the ladder and the production forwards allocate for the
+    entries' packing kernels holds exactly the plain packing's values."""
+    for C, Fo in ((8, 8), (32, 32), (96, 32), (40, 200)):
+        w = torch.zeros(Fo, C, 3, 3, 3)
+        bn = (conv3d.tc_tile_n(Fo) if route == conv3d.TENSOR_CORE
+              else conv3d.tf32_tile_n(Fo))[0]
+        assert conv3d.packed_numel(route, C, Fo, bn) == pack(w).numel()
 
 
 @pytest.mark.parametrize("mod", [pb, pd, pc])
@@ -194,10 +251,12 @@ def test_probe_entry_points_need_a_card(mod):
     (lambda: (pc.flops(pc.SHAPES["bf16_96"][0]), 0), "bfloat16", 0.703,
      "operations"),
     (lambda: (pc.flops(pc.SHAPES["fp32_96"][0]), 0), "float32", 10.385,
-     "operations")])
+     "operations"),
+    (lambda: pc.work("fp32_96")[:2], "tf32", 4.217, "operations")])
 def test_probe_bounds_from_their_shapes(work, dtype, want_ms, by):
     """The least time the card could take for each probe's work at its
     full size: the larger of bytes over 3.35 TB/s and FLOPs over the
-    dtype's peak (989 TFLOP/s bf16, 67 fp32)."""
+    dtype's peak (989 TFLOP/s bf16, 67 fp32, 495 TF32: the fp32 ladder's
+    kernel makes three TF32 passes)."""
     ms, what = bound_ms(*work(), dtype)
     assert what == by and ms == pytest.approx(want_ms, abs=1e-3)
