@@ -1,12 +1,12 @@
-// PTX helpers shared by the tensor-core kernels (probes.cu, gemm_wgmma.cu,
-// conv3d_tc.cu, conv3d_wgrad_tc.cu, conv2d_tc.cu, conv2d_wgrad_tc.cu,
-// conv3d_tf32.cu, conv3d_wgrad_tf32.cuh, conv2d_tf32.cu,
+// PTX helpers shared by the tensor-core kernels (gemm_wgmma.cu,
+// dot_t_wgmma.cu, conv3d_tc.cu, conv3d_wgrad_tc.cu, conv2d_tc.cu,
+// conv2d_wgrad_tc.cu, conv3d_tf32.cu, conv3d_wgrad_tf32.cuh, conv2d_tf32.cu,
 // conv2d_wgrad_tf32.cu, window_attention.cu): ldmatrix, vector
 // shared-memory loads, mma.sync bf16 and TF32 (with the TF32 hi/lo split),
 // wgmma (its fences, groups and shared-memory matrix descriptors) and
-// setmaxnreg, mbarriers, TMA and bulk copies into shared memory, TMA stores
-// out of it, and the host-side encoding of a TMA tensor map
-// (cuTensorMapEncodeTiled, looked up through the CUDA runtime: the library
+// setmaxnreg, mbarriers, named barriers, TMA and bulk copies into shared
+// memory, TMA stores out of it, and the host-side encoding of a TMA tensor
+// map (cuTensorMapEncodeTiled, looked up through the CUDA runtime: the library
 // links no libcuda).
 
 #pragma once
@@ -208,6 +208,18 @@ __device__ __forceinline__ void tma_load_2d(unsigned dst, const CUtensorMap* map
       : "memory");
 }
 
+// the same for a 3D map, coordinates (c0, c1, c2)
+__device__ __forceinline__ void tma_load_3d(unsigned dst, const CUtensorMap* map,
+                                            unsigned bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
 // the same for a 4D map, coordinates (c0..c3)
 __device__ __forceinline__ void tma_load_4d(unsigned dst, const CUtensorMap* map,
                                             unsigned bar, int c0, int c1,
@@ -238,9 +250,11 @@ __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// this thread's committed bulk stores have read their shared memory
+// this thread's committed bulk stores, all but the newest N groups, have
+// read their shared memory
+template <int N = 0>
 __device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // this thread's committed bulk stores are complete
@@ -269,6 +283,13 @@ __device__ __forceinline__ void bulk_load(unsigned dst, const void* src,
 // read at one chunk fall on eight distinct bank groups.
 __device__ __forceinline__ unsigned swz64(unsigned r, unsigned j) {
   return r * 64 + ((j ^ ((r >> 1) & 3)) << 4);
+}
+
+// Barrier ``id`` (1..15; 0 is __syncthreads') among ``threads`` threads
+// (a multiple of 32): the warps of one warpgroup wait for each other
+// without stopping the rest of the block.
+__device__ __forceinline__ void named_bar_sync(unsigned id, unsigned threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ------------------------------------------------------------------ wgmma
@@ -371,6 +392,35 @@ __device__ __forceinline__ void wgmma_m64n256k16_bf16_tn(float (&d)[128],
       "}\n"
       : WGMMA_D16(0), WGMMA_D16(16), WGMMA_D16(32), WGMMA_D16(48),
         WGMMA_D16(64), WGMMA_D16(80), WGMMA_D16(96), WGMMA_D16(112)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, fp32) = a (64 x 16, M-major: read transposed, imm-trans-a
+// 1) . b (16 x 128, N-major: imm-trans-b 1) + (accumulate ? d : 0), both
+// bf16 operands stored with their M or N contiguous, as a [K][M] and a
+// [K][N] matrix lie.  Thread t holds, of each n8 block j, d[4j],
+// d[4j + 1] at row 16 (t / 32) + (t % 32) / 4, columns 8j + 2 (t % 4) +
+// {0, 1}, and d[4j + 2], d[4j + 3] eight rows below.
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_mn(float (&d)[64],
+                                                         uint64_t da,
+                                                         uint64_t db,
+                                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : WGMMA_D16(0), WGMMA_D16(16), WGMMA_D16(32), WGMMA_D16(48)
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

@@ -106,11 +106,11 @@ SIGNATURES = {
     "window_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
                          _P],
-    # the probes (csrc/probes.cu, gemm_wgmma.cu, and the ladder in
-    # conv3d_tc.cu and conv3d_tf32.cu)
+    # the probes (csrc/probes.cu, dot_t_wgmma.cu, gemm_wgmma.cu, and the
+    # ladder in conv3d_tc.cu and conv3d_tf32.cu)
     # x, y, n, vec, block, stream
     "probe_copy_scale": [_P, _P, _LL, _I, _I, _P],
-    # a, w, out, T, K, N, L, slabs, stream
+    # a, w, out, T, K, N, L, stationary, stream
     "probe_dot_t": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # a, b, out, T, M, N, K, store, stream
     "probe_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -4,17 +4,23 @@ the card, and their plain versions.
 Port of the JAX package's TPU probes (``tools/probe_bandwidth.py``,
 ``tools/probe_lhst_dot.py``, ``tools/probe_cw_dissect.py``), which lie on
 no serving or training path.  Kernels in ``csrc/probes.cu``,
-``csrc/gemm_wgmma.cu`` and, for the ladder, ``csrc/conv3d_tc.cu`` and
-``csrc/conv3d_tf32.cu``:
+``csrc/dot_t_wgmma.cu``, ``csrc/gemm_wgmma.cu`` and, for the ladder,
+``csrc/conv3d_tc.cu`` and ``csrc/conv3d_tf32.cu``:
 
 - ``probe_copy_scale``: y = 2 x in bf16, with 16-byte or 2-byte accesses
   and 2048 or 8192 elements a block: the HBM rate an elementwise pass
   reaches (the TPU probe's ``scale_kernel``);
-- ``probe_dot_t``: out[t] = W^T A[t], contracting dim 0 of both operands,
-  on bf16 tensor cores (``mma.sync`` m16n8k16, fp32 sums, both operands
-  transposed by ``ldmatrix.trans``), one block per (t, W rows, 128-column
-  slab) or weight-stationary across the slabs of its t (the TPU probe's
-  ``slabloop`` and ``batched`` kernels);
+- ``probe_dot_t``: out[t] = W^T A[t], contracting dim 0 of both operands
+  (the TPU probe's ``slabloop`` and ``batched`` kernels), on ``wgmma``
+  m64n128k16: W read as stored through an MN-major (transpose-A)
+  descriptor, A[t] through the transpose-B one, both brought by TMA; N
+  padded to m64 blocks (five at N = 288), one tile a (t, 128 columns of
+  L); one producer warp and two consumer warpgroups on alternate tiles,
+  one persistent block a SM; each m block's sums rounded into a swizzled
+  staging slot and TMA-stored as 256-byte rows while the next block's
+  MMAs run.  Weight-stationary (W loaded once a block) or reloading W
+  with every tile.  Bound by bytes (1.202 ms at the TPU probe's shape,
+  three quarters of them stores);
 - ``probe_gemm``: out[t] = a[t] b, the 1k^2 calibration (``big_square``),
   on ``wgmma`` (m64n256k16, b read transposed from its stored [K][N]), both
   operands brought by TMA into a four-stage ring, one producer warpgroup
@@ -49,10 +55,11 @@ launches = {"probe_copy_scale": 0, "probe_dot_t": 0, "probe_gemm": 0,
 
 #: elements a copy-scale block takes
 COPY_BLOCKS = (2048, 8192)
-#: the tile of ``probe_dot_t`` (rows of W, depth), which writes 128-column
-#: slabs
-DOT_TILE = (96, 96)
-SLAB = 128
+#: ``probe_dot_t``'s shape rule: K up to DOT_MAX_K (the depth its boxes
+#: pad K to), N a multiple of 8 (16-byte rows for TMA) up to DOT_MAX_N
+#: (five m64 blocks), L a multiple of DOT_SLAB (its TMA boxes' width; a
+#: tile is two of them, a ragged last one clipped)
+DOT_MAX_K, DOT_MAX_N, DOT_SLAB = 96, 320, 64
 #: ``probe_gemm``'s block tile (rows, columns) and K step: the kernel takes
 #: M, N and K multiples of these
 GEMM_TILE = (128, 256, 64)
@@ -119,14 +126,32 @@ def dot_t_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("kn,tkl->tnl", w.float(), a.float()).to(torch.bfloat16)
 
 
+def check_dot_t_shape(T: int, K: int, N: int, L: int) -> None:
+    """Raise ValueError unless ``probe_dot_t``'s kernel takes a[T, K, L] and
+    w[K, N]: 1 <= K <= 96, N % 8 == 0 with 8 <= N <= 320, L a positive
+    multiple of 64, T >= 1 and T * L / 64 below 2^31 (the C entry refuses
+    the same).  So K = 192 or N = 384 raise: an m block needs all of K
+    of both operands in shared memory at once, and at K = 192 W alone
+    takes 120 KB, more than the ring and the staging leave; at N = 384
+    the six m64 blocks of a resident W, the ring and the staging pass the
+    227 KB a block may have."""
+    if (T < 1 or K < 1 or K > DOT_MAX_K or N < 8 or N > DOT_MAX_N or N % 8
+            or L < DOT_SLAB or L % DOT_SLAB
+            or T * (L // DOT_SLAB) >= 2 ** 31):
+        raise ValueError(
+            f"the kernel takes 1 <= K <= {DOT_MAX_K}, N % 8 == 0 with 8 <= N "
+            f"<= {DOT_MAX_N}, L % {DOT_SLAB} == 0 and T >= 1, got T={T} "
+            f"K={K} N={N} L={L}")
+
+
 def dot_t(a: torch.Tensor, w: torch.Tensor,
           stationary: bool = True) -> torch.Tensor:
     """out[t] = w^T a[t]: a [T, K, L], w [K, N] -> out [T, N, L] bf16, fp32
     sums; both operands contract their dim 0 (``jax.lax.dot_general`` with
     dimension numbers (((0,), (0,)), ((), ())) of ``tools/probe_lhst_dot.py``).
-    ``stationary``: a block keeps its rows of w in shared memory across
-    every 128-column slab of its t; else it reloads them for each slab.
-    The kernel takes N % 96 == 0, K % 96 == 0, L % 128 == 0."""
+    ``stationary``: a block keeps w in shared memory for all its tiles;
+    else it reloads w with every 128-column tile.  The kernel takes the
+    shapes :func:`check_dot_t_shape` passes, in 16-byte aligned buffers."""
     _check_bf16(a, w)
     if a.dim() != 3 or w.dim() != 2 or a.shape[1] != w.shape[0]:
         raise ValueError(f"expected a[T, K, L] and w[K, N], got "
@@ -135,14 +160,13 @@ def dot_t(a: torch.Tensor, w: torch.Tensor,
         return dot_t_plain(a, w)
     T, K, L = a.shape
     N = w.shape[1]
-    if N % DOT_TILE[0] or K % DOT_TILE[1] or L % SLAB:
-        raise ValueError(f"the kernel takes N % {DOT_TILE[0]}, K % "
-                         f"{DOT_TILE[1]} and L % {SLAB} == 0, got N={N} "
-                         f"K={K} L={L}")
+    check_dot_t_shape(T, K, N, L)
     a, w = a.contiguous(), w.contiguous()
+    if a.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("the kernel's TMA loads need 16-byte aligned a and w")
     out = torch.empty((T, N, L), dtype=torch.bfloat16, device=a.device)
     _build.call("probe_dot_t", a.data_ptr(), w.data_ptr(), out.data_ptr(), T,
-                K, N, L, L // SLAB if stationary else 1, device=a.device)
+                K, N, L, int(stationary), device=a.device)
     launches["probe_dot_t"] += 1
     return out
 

@@ -1,6 +1,6 @@
 """Probe: hand-written bf16 tensor-core dots on the card, at the 3^3
-conv's GEMM shape (``probe_dot_t``, on ``mma.sync``) and at a square
-calibration shape (``probe_gemm``, on ``wgmma`` fed by TMA) (port of
+conv's GEMM shape (``probe_dot_t``) and at a square calibration shape
+(``probe_gemm``), both on ``wgmma`` fed by TMA (port of
 ``tools/probe_lhst_dot.py``: ``main`` and ``big_square``).
 
 Operands are drawn from a seeded ``torch.Generator`` (the TPU probe timed
@@ -9,11 +9,15 @@ power).  Cases:
 
     slab        ``probe_dot_t``: out[t] = W^T A[t], W [96, 288], A [2048,
                 96, 2560] -> out [2048, 288, 2560], contracting dim 0 of
-                both; one block per (t, 96 rows of W, 128-column slab),
-                reloading its W block for every slab: the 2560-wide dot
-                spread over blocks                      (TPU: batched)
-    stationary  the same, each block keeping its W block in shared memory
-                while it loops over the 20 slabs of its t (TPU: slabloop)
+                both, on wgmma m64n128k16 (W through an MN-major A
+                descriptor, padded to five m64 blocks; one tile a (t,
+                128 columns), one persistent block a SM, one producer
+                warp and two consumer warpgroups on alternate tiles, the
+                output TMA-stored from staging slots as 256-byte rows);
+                every tile reloads W from L2 beside its A
+                                                        (TPU: batched)
+    stationary  the same, each block loading W once and keeping it in
+                shared memory for all its tiles         (TPU: slabloop)
     cublas      ``torch.matmul(W.T, A)`` on the same operands
     square1k    ``probe_gemm``: 64 x [1024, 1024] . [1024, 1024] on
                 wgmma m64n256k16 (a 128 x 256 tile a block, a four-stage
@@ -40,9 +44,9 @@ import torch
 
 from . import card, cuda_ms
 
-#: the TPU probe's shape: one conv's worth of tiles at (2, 128^3)
-TILES, K, N, SLABS, SLAB = 2048, 96, 288, 20, 128
-L = SLABS * SLAB
+#: the TPU probe's shape: one conv's worth of tiles at (2, 128^3), each
+#: 20 slabs of its 128 lanes wide
+TILES, K, N, L = 2048, 96, 288, 20 * 128
 #: the square calibration
 SQ_TILES, SQ = 64, 1024
 DOT_CASES = ("slab", "stationary", "cublas")

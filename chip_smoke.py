@@ -326,11 +326,12 @@ Phases, each printing its result; any failure raises and exits non-zero:
 10. the probes (``cbim_tpu_torch.tools``, the port of the JAX package's TPU
    probes in ``tools/``): ``probe_bandwidth``, ``probe_lhst_dot`` and
    ``probe_conv_dissect`` run at their full sizes, each of the four probe
-   kernels (``probe_copy_scale``, ``probe_dot_t``, ``probe_gemm`` on
+   kernels (``probe_copy_scale``, ``probe_dot_t`` and ``probe_gemm`` on
    wgmma, the ladder of the production 3^3 forwards) must have launched;
    then each is held against its plain version (the copy-scale exactly,
-   the bf16 dots within 2^-7 of max|ref|, ``probe_gemm`` also at a
-   non-square shape; ``conv3d_same`` within the conv's tolerance, and the
+   the bf16 dots within 2^-7 of max|ref|, ``probe_dot_t`` in both modes
+   also at two small shapes, ``probe_gemm`` also at a non-square shape;
+   ``conv3d_same`` within the conv's tolerance, and the
    ladder's ``full`` rung equal to it bit for bit at every tile in both
    dtypes: the tensor-core kernel in bf16, the 3xTF32 one in fp32), with
    its time, bound, plain and library times; each rung's time and its
@@ -448,7 +449,7 @@ KERNELS = {
     # the probes, which lie on no path but their own entry points (phase 10)
     "probe_copy_scale": ("cbim_tpu_torch/csrc/probes.cu",
                          "tools/probe_bandwidth.py:23"),
-    "probe_dot_t": ("cbim_tpu_torch/csrc/probes.cu",
+    "probe_dot_t": ("cbim_tpu_torch/csrc/dot_t_wgmma.cu",
                     "tools/probe_lhst_dot.py:28"),
     "probe_gemm": ("cbim_tpu_torch/csrc/gemm_wgmma.cu",
                    "tools/probe_lhst_dot.py:96"),
@@ -1081,6 +1082,10 @@ COPY_RECORD, DOT_RECORD, LADDER_RECORD = "vec2k", "stationary", "bf16_96"
 #: tiles, the first and last halves (its whole fp32 output is 6 GB)
 PROBE_TOL = 2 ** -7
 DOT_CHECK_TILES = 64
+#: ``probe_dot_t`` also at small (T, K, N, L): N = 96 and 40 pad a partial
+#: m64 block (rows the TMA store must clip), 40 under one block, K = 40 a
+#: depth the boxes pad with zeros, fewer tiles than SMs
+DOT_ODD = ((3, 96, 96, 128), (5, 40, 40, 192))
 #: ``probe_gemm`` also at a non-square (T, M, N, K): more tiles than one
 #: pass over the SMs, K not a multiple of 256 (the N-major b descriptor is
 #: where a silently wrong answer would hide)
@@ -3216,7 +3221,23 @@ def phase_probes(device, record: dict) -> dict:
         del out
     assert err <= PROBE_TOL * scale, f"probe_dot_t: {err:.3e} of {scale:.3f}"
     plain_ms = cuda_ms(lambda: probes.dot_t_plain(a, w), 2)
+    del a, w, idx, ref
     errs["probe_dot_t"] = err
+    odd = []
+    gen = torch.Generator(device=device).manual_seed(3)
+    for T, K, N, L in DOT_ODD:
+        ao = torch.randn(T, K, L, generator=gen, device=device).bfloat16()
+        wo = (torch.randn(K, N, generator=gen, device=device)
+              / math.sqrt(K)).bfloat16()
+        ref_o = probes.dot_t_plain(ao, wo).float()
+        scale_o = float(ref_o.abs().max())
+        err_o = max(float((probes.dot_t(ao, wo, stationary).float()
+                           - ref_o).abs().max()) for stationary in (True, False))
+        assert err_o <= PROBE_TOL * scale_o, \
+            f"probe_dot_t at {(T, K, N, L)}: {err_o:.3e} of {scale_o:.3f}"
+        odd.append(f"at (T, K, N, L) {(T, K, N, L)} {err_o:.3e}, "
+                   f"{err_o / scale_o:.3e}")
+        errs["probe_dot_t"] = max(errs["probe_dot_t"], err_o)
     record["probe_dot_t"] = entry(
         dots[DOT_RECORD]["ms"], plain_ms, dots["cublas"]["ms"],
         *pd.dot_work(), "bfloat16", (pd.TILES, pd.K, pd.N, pd.L))
@@ -3225,13 +3246,17 @@ def phase_probes(device, record: dict) -> dict:
         say(f"  probe_lhst_dot {name:10s} {r['ms']:8.3f} ms "
             f"{r['tflops']:6.1f} TFLOP/s {r['gb_s']:6.0f} GB/s")
     b_ms, b_by = bound_ms(*pd.dot_work(), "bfloat16")
-    say(f"  probe_dot_t: max_abs_err {err:.3e} max_rel_err {err / scale:.3e} "
-        f"of max|ref| {scale:.3f} on {DOT_CHECK_TILES} tiles (tol "
-        f"{PROBE_TOL:.1e}); bound {b_ms:.3f} ms ({b_by}); plain "
-        f"{plain_ms:.3f} ms; stationary/cuBLAS "
-        f"{dots['stationary']['ms'] / dots['cublas']['ms']:.2f}x, "
-        f"slab/cuBLAS {dots['slab']['ms'] / dots['cublas']['ms']:.2f}x")
-    del a, w, idx, ref
+    ms = dots["stationary"]["ms"]
+    say(f"  probe_dot_t: max_abs_err {err:.3e} max_rel_err "
+        f"{err / scale:.3e} of max|ref| {scale:.3f} on {DOT_CHECK_TILES} "
+        f"tiles, both modes; {'; '.join(odd)} (tol "
+        f"{PROBE_TOL:.1e}); stationary {ms:.3f} ms, slab "
+        f"{dots['slab']['ms']:.3f} ms against the bound {b_ms:.3f} ms "
+        f"({b_by}), the stationary kernel at {b_ms / ms:.1%} of it; "
+        f"torch.matmul {dots['cublas']['ms']:.3f} ms; plain {plain_ms:.3f} "
+        f"ms; stationary/torch.matmul {ms / dots['cublas']['ms']:.2f}x, "
+        f"slab/torch.matmul {dots['slab']['ms'] / dots['cublas']['ms']:.2f}x")
+    del ao, wo, ref_o
 
     # the square calibration, whole, and a non-square case
     a, b = pd.square_inputs(device)

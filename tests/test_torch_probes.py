@@ -11,7 +11,7 @@ transposes on the test side only), the dots against ``jax.lax.dot_general``
 with ``tools/probe_lhst_dot.py``'s dimension numbers and ``jnp.dot`` (its
 kernels are closures built at full size), the copy-scale against
 ``x * jnp.bfloat16(2.0)``.  Inputs come from numpy with a seed.  The
-shape rules of the card path (the gemm's shape check, the ladder's tiles
+shape rules of the card path (the dots' shape checks, the ladder's tiles
 and their scratch) are plain Python, tested here too.  The kernels
 themselves run on the card only (``chip_smoke.py`` phase 10).
 """
@@ -97,6 +97,29 @@ def test_dot_t_plain_matches_dot_general_dim0_by_dim0():
         preferred_element_type=jnp.float32).astype(jnp.bfloat16)
         for t in range(T)])
     ref = np.asarray(ref.astype(jnp.float32))
+    got = probes.dot_t(ta, tw)
+    assert got.dtype == torch.bfloat16 and got.shape == (T, N, L)
+    assert np.abs(got.float().numpy() - ref).max() <= \
+        2 ** -8 * np.abs(ref).max()
+    assert torch.equal(probes.dot_t(ta, tw, stationary=False), got)
+
+
+@pytest.mark.parametrize("T,K,N,L", [(3, 96, 96, 128), (5, 40, 40, 192)])
+def test_dot_t_plain_matches_dot_general_at_the_card_check_shapes(T, K, N,
+                                                                    L):
+    """``probe_dot_t``'s plain version against ``jax.lax.dot_general``
+    (dimension numbers (((0,), (0,)), ((), ()))) at the small shapes
+    ``chip_smoke.py`` phase 10 holds the kernel to; bf16 outputs within
+    2^-8 of max|ref|, and both modes the same on the CPU."""
+    rng = np.random.default_rng(4)
+    ta, ja = _bf16(rng.normal(size=(T, K, L)).astype(np.float32))
+    tw, jw = _bf16((rng.normal(size=(K, N)) / math.sqrt(K)).astype(
+        np.float32))
+    ref = np.asarray(jnp.stack([jax.lax.dot_general(
+        jw, ja[t], (((0,), (0,)), ((), ())),
+        preferred_element_type=jnp.float32).astype(jnp.bfloat16)
+        for t in range(T)]).astype(jnp.float32))
+    probes.check_dot_t_shape(T, K, N, L)
     got = probes.dot_t(ta, tw)
     assert got.dtype == torch.bfloat16 and got.shape == (T, N, L)
     assert np.abs(got.float().numpy() - ref).max() <= \
@@ -209,6 +232,29 @@ def test_gemm_shape_check_refuses_what_the_kernel_cannot_take(M, N, K):
         probes.check_gemm_shape(M, N, K)
     probes.check_gemm_shape(pd.SQ, pd.SQ, pd.SQ)
     probes.check_gemm_shape(256, 512, 192)
+
+
+@pytest.mark.parametrize("T,K,N,L", [
+    (1, 0, 288, 2560),      # no depth
+    (1, 97, 288, 2560),     # deeper than the boxes' 96 rows
+    (1, 192, 288, 2560),    # two boxes deep
+    (1, 96, 328, 2560),     # more than five m64 blocks
+    (1, 96, 384, 2560),     # six m64 blocks: W, ring and staging pass 227 KB
+    (1, 96, 0, 2560),
+    (1, 96, 100, 2560),     # rows of w not 16-byte multiples
+    (1, 96, 288, 2592),     # not a whole number of 64-column slabs
+    (1, 96, 288, 32),
+    (0, 96, 288, 2560)])
+def test_dot_t_shape_check_refuses_what_the_kernel_cannot_take(T, K, N, L):
+    """``probe_dot_t``'s kernel takes 1 <= K <= 96, N % 8 == 0 with 8 <= N
+    <= 320 and L % 64 == 0; the shape check raises on anything else (the
+    wrapper runs it for a CUDA tensor, and the C entry refuses the same),
+    and passes the TPU probe's shape and phase 10's small ones."""
+    with pytest.raises(ValueError, match="the kernel takes"):
+        probes.check_dot_t_shape(T, K, N, L)
+    for ok in ((pd.TILES, pd.K, pd.N, pd.L), (3, 96, 96, 128),
+               (5, 40, 40, 192), (1, 1, 8, 64), (7, 96, 320, 256)):
+        probes.check_dot_t_shape(*ok)
 
 
 def test_gemm_without_its_stores_runs_on_the_card_only():
