@@ -10,7 +10,9 @@ reference's unused ``conv_ch`` 1x1 conv is left out, as in JAX, in 2D
 too: the 2D decoder resizes the coarser map to the skip's shape like the
 3D one.  The gate's three InstanceNorms take eps 1e-5 (torch's default;
 the blocks' 3D ConvNormAct 1e-4) and run on the fused norm kernels, C = 1
-included.
+included; on H slabs (``layers.convs.spatial_shard``) they take the whole
+volume's statistics (``SpatialInstanceNormAct``), and the decoder's resize
+crosses the slabs.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.interpolate import resize_linear
-from .layers.convs import CONV, Norm
+from .layers.convs import CONV, Norm, spatial_group
 from .unet import UNet2D, UNet3D, _blocks
 
 #: the eps of the gate's InstanceNorms (``Norm("in", eps=1e-5)`` in JAX)
@@ -60,9 +62,11 @@ class AttentionUpBlock(nn.Module):
         self.conv = nn.Sequential(*_blocks(block, low_ch + skip_ch, out_ch,
                                            num_block, kernel_size, norm, act,
                                            nd, conv2d_kernel))
+        #: H-sharded training (``layers.convs.spatial_shard``)
+        self.spatial_group = None
 
     def forward(self, x_low, x_skip):
-        x_low = resize_linear(x_low, x_skip.shape[2:])
+        x_low = resize_linear(x_low, x_skip.shape[2:], spatial_group(self))
         x_skip = self.attn(x_low, x_skip)
         return self.conv(torch.cat([x_skip, x_low], dim=1))
 

@@ -33,13 +33,18 @@ training), as XLA carried Flax's; under data parallelism a training-mode
 BatchNorm marked with the run's process group (``sync_batch_norm``)
 normalises with the global batch's statistics (``global_batch_norm``).
 Under the 'spatial' mesh axis a model marked with the spatial group
-(``spatial_shard``) trains on H slabs: every conv whose kernel spans more
-than one row of H runs on its slab and the neighbours' halo planes (the
-3^3 kernel route, cuDNN's convs and ``grouped_conv`` alike, through
-``_conv`` and ``parallel.spatial.halo_conv``), InstanceNorm and the fused
-preact conv take the whole volume's statistics on the same kernels
-(``SpatialInstanceNormAct``, ``SpatialConvInormAct3d``), and SE's mean is
-the volume's.
+(``spatial_shard``) trains on H slabs: every stride-1 SAME conv whose
+kernel spans more than one row of H runs on its slab and the neighbours'
+(k - 1) / 2 halo planes (the 3^3 and 3x3 kernel routes, cuDNN's convs
+and ``grouped_conv`` alike, through ``_conv``, ``ConvNormAct._conv`` and
+``parallel.spatial.halo_conv``; VNet's 5^3 convs take 2), InstanceNorm
+and the fused preact conv take the whole volume's statistics on the same
+kernels (``SpatialInstanceNormAct``, ``SpatialConvInormAct3d``), and SE's
+mean is the volume's.  A strided conv whose kernel equals its stride on H
+without padding (VNet's ``down_conv``), a transposed conv of the same
+kind (VNet's ``up_conv``) and a max-pool read no neighbour's rows: they
+run on the slab as they are, the strided conv once its rows divide by the
+stride.  Every other conv is refused.
 The TPU's NDHCW stage layout has no counterpart: the one NDHWC kernel
 computes the same thing.
 
@@ -131,16 +136,28 @@ def _conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
         if grouped:
             return grouped_conv(conv, t)
         return conv._conv_forward(t, conv.weight, conv.bias)
-    return spatial.halo_conv(fn, x, conv.kernel_size[-2], group)
+    return spatial.halo_conv(fn, x, conv.kernel_size[-2], group,
+                             conv.spatial_name)
 
 
 def _refuse_direct_call(conv: nn.Module, args) -> None:
-    """The forward pre-hook of a marked conv (``spatial_shard``): its
+    """The forward pre-hook of a marked SAME conv (``spatial_shard``): its
     callers go through ``_conv``, which adds the halo; a direct call would
     pad the slab with zeros where its neighbours' rows belong."""
     if spatial_group(conv) is not None:
-        raise RuntimeError("a conv of an H-sharded model was called "
-                           "directly: call it through layers.convs._conv")
+        raise RuntimeError(f"{conv.spatial_name}: a conv of an H-sharded "
+                           "model was called directly: call it through "
+                           "layers.convs._conv")
+
+
+def _check_strided_rows(conv: nn.Module, args) -> None:
+    """The forward pre-hook of a marked strided conv (``spatial_shard``):
+    each output row reads ``stride`` rows of its own slab only when the
+    slab's rows divide by the stride."""
+    rows, st = args[0].shape[-2], conv.stride[-2]
+    if spatial_group(conv) is not None and rows % st:
+        raise ValueError(f"{conv.spatial_name}: an H slab of {rows} rows "
+                         f"does not divide by the conv's stride {st}")
 
 
 def spatial_shard(model: nn.Module, group) -> nn.Module:
@@ -151,28 +168,48 @@ def spatial_shard(model: nn.Module, group) -> nn.Module:
     Every conv and every module with a ``spatial_group`` slot (``Norm``,
     ``ConvNormAct``, ``SEBlock``, the decoders' resizes, MedFormer's
     attention and map generation) takes the group; in training mode they
-    then exchange halos (convs whose kernel spans more than one row of H),
-    merge statistics over space (InstanceNorm, SE's mean) and resize and
-    take softmaxes over the whole H.  A module's ``replicated`` names its
-    children that compute on tensors every peer holds whole (MedFormer's
-    semantic maps): they stay unmarked.  A model holds the mark in eval
-    mode too, where nothing is sharded.  Take copies (the EMA model) before
-    marking: a process group does not deep-copy."""
+    then exchange halos (stride-1 SAME convs whose kernel spans more than
+    one row of H), merge statistics over space (InstanceNorm, SE's mean)
+    and resize and take softmaxes over the whole H.  A strided conv whose
+    kernel equals its stride on H, without padding, is marked without a
+    halo (its slab's rows must divide by the stride); a transposed conv of
+    that kind needs no mark.  Any other conv raises NotImplementedError.
+    Each marked conv is named ``spatial_name`` (the model's class and the
+    module's path) in the refusals of its slab.  A module's ``replicated``
+    names its children that compute on tensors every peer holds whole
+    (MedFormer's semantic maps): they stay unmarked.  A model holds the
+    mark in eval mode too, where nothing is sharded.  Take copies (the EMA
+    model) before marking: a process group does not deep-copy."""
     skip = set()
     for name, m in model.named_modules():
         if any(name == p or name.startswith(p + ".") for p in skip):
             continue
         skip.update(f"{name}.{c}" if name else c
                     for c in getattr(m, "replicated", ()))
-        if isinstance(m, (nn.Conv2d, nn.Conv3d)):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
+                          nn.ConvTranspose3d)):
             k, st, pad = m.kernel_size[-2], m.stride[-2], m.padding[-2]
-            if st != 1 or pad != k // 2 or k % 2 == 0:
+            where = f"{type(model).__name__} {name}".rstrip()
+            strided = st > 1 and k == st and pad == 0
+            if isinstance(m, (nn.ConvTranspose2d, nn.ConvTranspose3d)):
+                if not strided:
+                    raise NotImplementedError(
+                        f"{where}: an H-sharded transposed conv of kernel "
+                        f"{k}, stride {st} and padding {pad}: only kernel "
+                        "== stride without padding runs on a slab alone "
+                        "(ROADMAP A7)")
+                continue
+            if not strided and (st != 1 or pad != k // 2 or k % 2 == 0):
                 raise NotImplementedError(
-                    f"an H-sharded conv of kernel {k}, stride {st} and "
-                    f"padding {pad}: only stride-1 SAME convs exchange a "
-                    "halo (ROADMAP A7)")
+                    f"{where}: an H-sharded conv of kernel {k}, stride {st} "
+                    f"and padding {pad}: only stride-1 SAME convs exchange "
+                    "a halo, and only kernel == stride without padding runs "
+                    "on a slab alone (ROADMAP A7)")
             m.spatial_group = group
-            if k > 1:
+            m.spatial_name = where
+            if strided:
+                m.register_forward_pre_hook(_check_strided_rows)
+            elif k > 1:
                 m.register_forward_pre_hook(_refuse_direct_call)
         elif hasattr(m, "spatial_group"):
             m.spatial_group = group
@@ -193,6 +230,9 @@ class DropPath(nn.Module):
     model's device that the train state owns and seeds from the run's seed
     (``training.train_state.create_train_state``); a training-mode call
     with p > 0 and none raises."""
+
+    #: one draw a sample, over all of its H (``training.train_state``)
+    draws_per_sample = True
 
     def __init__(self, p: float = 0.0):
         super().__init__()
@@ -225,6 +265,10 @@ class Dropout(nn.Module):
     training-mode call with p > 0 and none raises); the identity in eval
     mode and at p = 0."""
 
+    #: a draw per element: each H slab draws its own (``training.
+    #: train_state``)
+    draws_per_sample = False
+
     def __init__(self, p: float = 0.0):
         super().__init__()
         self.p = float(p)
@@ -246,30 +290,68 @@ class Dropout(nn.Module):
         return f"p={self.p}"
 
 
+class _GlobalMoments(torch.autograd.Function):
+    """``_GlobalMoments.apply(x, group)``: the per-channel (mean, biased
+    variance) of x (B, C, *spatial) over the batch and space of every rank
+    of the process ``group``, each rank holding an equal share (a data
+    rank's rows, an H slab of them: the mesh's divisibility rules).
+
+    Forward, one collective: each rank's two-pass (mean, variance),
+    gathered and merged by Chan's parallel rule in fp64, as
+    ``fused_norm.merge_stats`` merges InstanceNorm's.  (One sum of x^2 and
+    E[x^2] - E[x]^2, as Flax computes it, loses the variance of a channel
+    whose mean is large to fp32 cancellation: the 2D BatchNorm nets'
+    gradients then drift from the fp64 ones by several times the one-
+    process error.)  Backward, one all-reduce of the two upstream
+    gradients, each rank's share of the statistics' gradient summed: dx =
+    (g_mean + 2 g_var (x - mean)) / the global count."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        dims = [0, *range(2, x.dim())]
+        var, mean = torch.var_mean(x, dims, correction=0)
+        m, v = (torch.stack(t) for t in zip(*spatial.gather_pairs(
+            mean.double(), var.double(), group)))
+        mean_g = m.mean(0)
+        var_g = (v + (m - mean_g).square()).mean(0)
+        mean_g, var_g = mean_g.to(x.dtype), var_g.to(x.dtype)
+        ctx.save_for_backward(x, mean_g)
+        ctx.group = group
+        ctx.count = x.numel() // x.shape[1] * dist.get_world_size(group)
+        return mean_g, var_g
+
+    @staticmethod
+    def backward(ctx, g_mean, g_var):
+        x, mean = ctx.saved_tensors
+        zero = torch.zeros_like(mean)
+        g = torch.stack([zero if g_mean is None else g_mean,
+                         zero if g_var is None else g_var])
+        dist.all_reduce(g, group=ctx.group)
+        shape = (1, x.shape[1]) + (1,) * (x.dim() - 2)
+        dx = (g[0].view(shape) + 2.0 * g[1].view(shape)
+              * (x - mean.view(shape))) / ctx.count
+        return dx, None
+
+
 def global_batch_norm(x: torch.Tensor, weight, bias, eps: float, group):
     """Training-mode BatchNorm over the global batch of a data-parallel
-    run, x (B, C, *spatial) this rank's rows: the per-channel sum, sum of
-    squares and count cross the ranks in one fp32 ``all_reduce_sum``
-    (differentiable), and the biased variance is E[x^2] - E[x]^2 (at least
-    0), as Flax's BatchNorm computes it on the JAX mesh, where a mean over
-    the sharded batch axis is global.  Returns (y in x's dtype, mean, var),
-    the statistics fp32.  ``torch.nn.SyncBatchNorm`` is not used: it
-    refuses CPU tensors, and its running variance is the unbiased one."""
-    dims = [0, *range(2, x.dim())]
-    xf = x.float()
+    run, x (B, C, *spatial) this rank's rows (or, under the 'spatial' axis,
+    its H slab of them): the statistics of every rank's share
+    (:class:`_GlobalMoments`, one collective each way, differentiable),
+    those of one process's two-pass BatchNorm.  Returns (y in x's dtype,
+    mean, var), the statistics fp32 (fp64 for an fp64 x).
+    ``torch.nn.SyncBatchNorm`` is not used: it refuses CPU tensors, and
+    its running variance is the unbiased one."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     C = x.shape[1]
-    count = torch.full((1,), float(x.numel() // C), device=x.device)
-    stats = all_reduce_sum(torch.cat([xf.sum(dims), xf.square().sum(dims),
-                                      count]), group)
-    mean = stats[:C] / stats[-1]
-    var = (stats[C:2 * C] / stats[-1] - mean.square()).clamp_min(0.0)
     shape = (1, C) + (1,) * (x.dim() - 2)
+    mean, var = _GlobalMoments.apply(xf, group)
     scale = torch.rsqrt(var + eps)
     if weight is not None:
-        scale = scale * weight.float()
+        scale = scale * weight.to(xf.dtype)
     y = (xf - mean.view(shape)) * scale.view(shape)
     if bias is not None:
-        y = y + bias.float().view(shape)
+        y = y + bias.to(xf.dtype).view(shape)
     return y.to(x.dtype), mean, var
 
 
@@ -422,7 +504,7 @@ class ConvNormAct(nn.Module):
         group = spatial_group(self.conv)
         if group is None:
             return fn(x)
-        return spatial.halo_conv(fn, x, 3, group)
+        return spatial.halo_conv(fn, x, 3, group, self.conv.spatial_name)
 
     def forward(self, x):
         if self.fused:

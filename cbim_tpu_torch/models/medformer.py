@@ -409,9 +409,11 @@ class UpBlockMF2D(nn.Module):
             blk(out_ch, out_ch, norm=norm, act=act, nd=2,
                 conv2d_kernel=conv2d_kernel)
             for _ in range(conv_num)))
+        #: H-sharded training (``layers.convs.spatial_shard``)
+        self.spatial_group = None
 
     def forward(self, x_low, x_skip, map1, map2=None):
-        x_low = resize_linear(x_low, x_skip.shape[2:])
+        x_low = resize_linear(x_low, x_skip.shape[2:], spatial_group(self))
         out = self.reduction(self.norm(torch.cat([x_low, x_skip], dim=1)))
         semantic_map = map1 if map2 is None else torch.cat([map1, map2], 1)
         semantic_map = self.map_reduction(semantic_map)
@@ -568,7 +570,11 @@ class MedFormer2D(nn.Module):
     parameters are the same either way.  ``proj_type``, ``attn_drop`` and
     ``proj_drop`` reach every B-MHA block, and ``proj_drop`` is also the
     stochastic depth of their MBConv feed-forwards (JAX's
-    ``ffn_drop_path``)."""
+    ``ffn_drop_path``).  Under H sharding (``layers.convs.spatial_shard``)
+    the map fusion runs on the semantic maps every spatial peer holds
+    whole, as in MedFormer3D."""
+
+    replicated = ("map_fusion",)
 
     def __init__(self, in_chan: int, num_classes: int, base_ch: int = 32,
                  map_size: Any = 8, conv_block: str = "BasicBlock",
@@ -620,6 +626,9 @@ class MedFormer2D(nn.Module):
         self.aux_out = (_conv1x1(cn[5], num_classes, bias=True, nd=2)
                         if aux_loss else None)
         self.outc = _conv1x1(cn[7], num_classes, bias=True, nd=2)
+        #: H-sharded training (``layers.convs.spatial_shard``): the aux
+        #: head's upsample
+        self.spatial_group = None
 
     def forward(self, x):
         x0 = self.inc(x)
@@ -632,7 +641,8 @@ class MedFormer2D(nn.Module):
 
         out, smap = self.up1(x4, x3, map_list[2], map_list[1])
         out, smap = self.up2(out, x2, smap, map_list[0])
-        aux = (resize_linear(self.aux_out(out), x.shape[2:]).float()
+        aux = (resize_linear(self.aux_out(out), x.shape[2:],
+                             spatial_group(self)).float()
                if self.aux_out is not None else None)
 
         out, smap = self.up3(out, x1, smap)

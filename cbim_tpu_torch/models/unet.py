@@ -118,10 +118,12 @@ class UpBlock2D(nn.Module):
         self.conv = nn.Sequential(*_blocks(block, skip_ch + out_ch, out_ch,
                                            num_block, kernel_size, norm, act,
                                            nd, conv2d_kernel))
+        #: H-sharded training (``layers.convs.spatial_shard``)
+        self.spatial_group = None
 
     def forward(self, x_low, x_skip):
         x_low = self.conv_ch(resize_linear(
-            x_low, [2 * s for s in x_low.shape[2:]]))
+            x_low, [2 * s for s in x_low.shape[2:]], spatial_group(self)))
         return self.conv(torch.cat([x_skip, x_low], dim=1))
 
 

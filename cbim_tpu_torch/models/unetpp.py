@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from ..ops.interpolate import resize_linear
-from .layers.convs import CONV, _tuple
+from .layers.convs import CONV, _tuple, spatial_group
 from .unet import CH_MULT_2D, CH_MULT_3D, MAXPOOL, _blocks
 
 
@@ -54,10 +54,14 @@ class UNetPlusPlus3D(nn.Module):
                     block, in_ch, n[i], 2, kernel_size[i], norm, "relu", nd,
                     conv2d_kernel)))
         self.output = CONV[nd](n[0], num_classes, 1)
+        #: H-sharded training (``layers.convs.spatial_shard``): the
+        #: upsamples of the nested skips cross the slabs
+        self.spatial_group = None
 
     def _up(self, t, level):
         return resize_linear(t, [d * s for d, s in zip(t.shape[2:],
-                                                       self.scale[level])])
+                                                       self.scale[level])],
+                             spatial_group(self))
 
     def forward(self, x):
         rows = [[] for _ in range(5)]

@@ -20,7 +20,13 @@ Parameter names are the reference's (``in_tr``, ``down_tr{32,64,128,256}``,
   generator, as ``DropPath`` does.
 
 VNet reaches no Pallas kernel in JAX; its convs are cuDNN's here, as XLA
-carried them.
+carried them.  On H slabs (``layers.convs.spatial_shard``) the 5^3 convs
+take a halo of 2 planes (``layers.convs._conv``), so every level's slab
+needs at least 2 rows; the strided ``down_conv`` and the transposed
+``up_conv`` (kernel = stride = 2) read only their own slab; ContBatchNorm's
+training statistics are the global batch's over every slab
+(``global_batch_norm`` over the world group); and ``ChannelDropout``, one
+draw a (sample, channel), draws alike on a sample's spatial peers.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers.convs import global_batch_norm
+from .layers.convs import _conv, global_batch_norm
 
 #: ContBatchNorm's eps and the dropout rate of the reference
 BN_EPS = 1e-5
@@ -71,6 +77,10 @@ class ChannelDropout(nn.Module):
     < 1 - p, one u ~ U(0, 1) per (sample, channel), drawn from
     ``generator`` (the train state's; a training-mode call without one
     raises); the identity in eval mode."""
+
+    #: one draw a (sample, channel), over all of its H
+    #: (``training.train_state``)
+    draws_per_sample = True
 
     def __init__(self, p: float = DROP_RATE):
         super().__init__()
@@ -114,7 +124,7 @@ class LUConv(nn.Module):
         self.relu1 = _act(elu, channels)
 
     def forward(self, x):
-        return self.relu1(self.bn1(self.conv1(x)))
+        return self.relu1(self.bn1(_conv(self.conv1, x)))
 
 
 def _n_conv(channels, n, elu):
@@ -132,7 +142,7 @@ class InputTransition(nn.Module):
         self.reps = out_ch // in_ch
 
     def forward(self, x):
-        out = self.bn1(self.conv1(x))
+        out = self.bn1(_conv(self.conv1, x))
         return self.relu1(out + x.repeat(1, self.reps, 1, 1, 1))
 
 
@@ -191,7 +201,7 @@ class OutputTransition(nn.Module):
         self.conv2 = nn.Conv3d(num_classes, num_classes, 1)
 
     def forward(self, x):
-        return self.conv2(self.relu1(self.bn1(self.conv1(x))))
+        return self.conv2(self.relu1(self.bn1(_conv(self.conv1, x))))
 
 
 class VNet(nn.Module):

@@ -38,12 +38,13 @@ def resize_linear(x: torch.Tensor, out_spatial, group=None) -> torch.Tensor:
                          align_corners=True)
 
 
-def _global_rows(n_in: int, n_out: int, group) -> tuple[int, int, torch.Tensor]:
+def _global_rows(n_in: int, n_out: int, group, dtype=torch.float32
+                 ) -> tuple[int, int, torch.Tensor]:
     """(slab index, slab count, this slab's output rows in the whole
-    tensor's coordinates as fp32) for an H axis of ``n_in`` -> ``n_out``
-    rows a slab."""
+    tensor's coordinates as ``dtype``) for an H axis of ``n_in`` ->
+    ``n_out`` rows a slab."""
     j, s = spatial.rank_and_size(group)
-    rows = torch.arange(j * n_out, (j + 1) * n_out, dtype=torch.float32)
+    rows = torch.arange(j * n_out, (j + 1) * n_out, dtype=dtype)
     return j, s, rows
 
 
@@ -51,9 +52,10 @@ def _resize_h_linear(x: torch.Tensor, n_out: int, group) -> torch.Tensor:
     """The align_corners=True linear pass along H of an H slab, in the
     whole tensor's coordinates: position i (in - 1) / (out - 1), its pair
     of rows floor(pos) and the next (clamped as the JAX package clamps),
-    weights in fp32."""
+    positions, weights and the lerp in fp32 (fp64 for an fp64 x)."""
     dim, n_in = x.dim() - 2, x.shape[-2]
-    j, s, rows = _global_rows(n_in, n_out, group)
+    dt = torch.promote_types(x.dtype, torch.float32)
+    j, s, rows = _global_rows(n_in, n_out, group, dt)
     if n_out < n_in:
         raise NotImplementedError(
             f"a linear resize of an H slab from {n_in} to {n_out} rows: only "
@@ -70,8 +72,8 @@ def _resize_h_linear(x: torch.Tensor, n_out: int, group) -> torch.Tensor:
     shape = [1] * x.dim()
     shape[dim] = n_out
     w = w.view(shape)
-    a = xh.index_select(dim, local).float()
-    b = xh.index_select(dim, local + 1).float()
+    a = xh.index_select(dim, local).to(dt)
+    b = xh.index_select(dim, local + 1).to(dt)
     return (a * (1.0 - w) + b * w).to(x.dtype)
 
 

@@ -32,6 +32,15 @@ The H axis is the second-to-last of a (B, C, *spatial) tensor: dim 3 of
 (B, C, D, H, W), dim 2 of (B, C, H, W).  A model's layers find their group
 through the ``spatial_group`` slot that ``layers.convs.spatial_shard``
 marks, in training mode only: evaluation shards windows, never H.
+
+The models that train this way (``training.trainer.SPATIAL_MODELS``):
+MedFormer, UNet, ResUNet, UNet++ and AttentionUNet in 3D and 2D, and
+VNet, whose 5^3 convs take a halo of 2 planes (every level's slab needs 2
+rows) and whose strided and transposed convs (kernel = stride) read only
+their own slab.  The models whose attention spans every token or position
+(UNETR, SwinUNETR, VT-UNet, nnFormer, SwinUnet, DAUNet, TransUNet) need
+attention across slabs and are refused (ROADMAP A7d), as is an H whose
+slabs are not whole at every level (A7e).
 """
 
 from __future__ import annotations
@@ -74,16 +83,21 @@ def gather_pairs(first: torch.Tensor, second: torch.Tensor, group
     return [tuple(p.view(pack.dtype).view(pack.shape)) for p in parts]
 
 
-def exchange(x: torch.Tensor, h: int, group, dim: int
+def exchange(x: torch.Tensor, h: int, group, dim: int, where: str = ""
              ) -> tuple[torch.Tensor, int, int]:
     """``x`` (any layout) with ``h`` rows of ``dim`` of each neighbouring
     slab on either side: (the haloed tensor, contiguous; the rows added
     before; the rows added after).  The first and last slabs get none on
-    their outer side."""
+    their outer side.  ``where`` names the caller (a model and the module
+    path of its conv, ``layers.convs.spatial_shard``) in the refusal of a
+    slab thinner than the halo."""
     j, s = rank_and_size(group)
     n = x.shape[dim]
     if h > n:
-        raise ValueError(f"a halo of {h} rows exceeds the slab's {n}")
+        raise ValueError(
+            f"{where or 'an H slab'}: a halo of {h} rows exceeds the slab's "
+            f"{n} at this level; every level's slab needs at least {h} rows "
+            "(a larger H or fewer slabs)")
     pairs = gather_pairs(x.narrow(dim, 0, h), x.narrow(dim, n - h, h),
                           group)
     parts = [x]
@@ -120,8 +134,8 @@ class _Halo(torch.autograd.Function):
     """:func:`exchange` with :func:`exchange_transpose` as its backward."""
 
     @staticmethod
-    def forward(ctx, x, h, group, dim):
-        xh, pre, post = exchange(x, h, group, dim)
+    def forward(ctx, x, h, group, dim, where):
+        xh, pre, post = exchange(x, h, group, dim, where)
         ctx.args = (pre, post, h, group, dim)
         return xh
 
@@ -129,28 +143,32 @@ class _Halo(torch.autograd.Function):
     def backward(ctx, g):
         pre, post, h, group, dim = ctx.args
         return exchange_transpose(g, pre, post, h, group, dim), None, None, \
-            None
+            None, None
 
 
-def halo(x: torch.Tensor, h: int, group) -> tuple[torch.Tensor, int]:
+def halo(x: torch.Tensor, h: int, group, where: str = ""
+         ) -> tuple[torch.Tensor, int]:
     """(x (B, C, *spatial), an H slab, with ``h`` planes of each neighbour
     on either side; the planes added before), differentiable.  Exchanged
-    in channels-last order, which the result keeps."""
+    in channels-last order, which the result keeps; ``where`` as for
+    :func:`exchange`."""
     j, s = rank_and_size(group)
-    xh = _Halo.apply(x.movedim(1, -1), h, group, h_axis(x) - 1)
+    xh = _Halo.apply(x.movedim(1, -1), h, group, h_axis(x) - 1, where)
     return xh.movedim(-1, 1), (h if j > 0 else 0)
 
 
-def halo_conv(fn, x: torch.Tensor, kernel_h: int, group) -> torch.Tensor:
+def halo_conv(fn, x: torch.Tensor, kernel_h: int, group, where: str = ""
+              ) -> torch.Tensor:
     """A stride-1 SAME conv ``fn`` of an H slab ``x`` (B, C, *spatial) whose
     kernel spans ``kernel_h`` rows of H: ``fn`` of the slab with (kernel_h
-    - 1) / 2 planes of each neighbour, the added rows of its output
-    dropped, which is the unsharded conv's output on the slab's rows.  A
-    kernel of one row needs no neighbour."""
+    - 1) / 2 planes of each neighbour (VNet's 5^3 convs: 2), the added rows
+    of its output dropped, which is the unsharded conv's output on the
+    slab's rows.  A kernel of one row needs no neighbour.  ``where``: the
+    conv's name in a refusal (:func:`exchange`)."""
     h = (kernel_h - 1) // 2
     if h == 0:
         return fn(x)
-    xh, pre = halo(x, h, group)
+    xh, pre = halo(x, h, group, where)
     return fn(xh).narrow(h_axis(x), pre, x.shape[h_axis(x)])
 
 

@@ -22,6 +22,14 @@ Each rank resets the kernels' launch counters just before
 peak device memory.  Rank 0 also reads the run's per-step losses and
 seconds from its ``scalars.jsonl``.  The last line of the output (rank 0
 under torchrun, the launcher otherwise) is one JSON object.
+
+:func:`start_zoo` spawns ranks of another kind, for recipes of other
+models of the spatial axis (``chip_smoke.py`` phase 6s: AttentionUNet-3D,
+VNet, MedFormer-2D): set up while they wait (:func:`prepare_zoo`), they
+take one H-sharded step of each on a seeded batch (:func:`prepare_step`,
+counters set to 0 just before each step and read just after), and then,
+shared out over them, the same steps unsharded from the same seed and
+batch, for the losses to hold them against.
 """
 
 from __future__ import annotations
@@ -66,6 +74,112 @@ def train_argv(cfg: dict, batch: int, run: str, name: str,
         (["--amp"] if device == "cuda" else [])
 
 
+def prepare_step(cfg: dict, batch: int, seed: int, mesh, device):
+    """One ``make_train_step`` of the recipe ``cfg``, set up: the model
+    from weights drawn from ``seed``, its train state and step (DDP under
+    ``mesh``), and a global batch of ``batch`` drawn from ``seed`` (images
+    N(0, 1), labels uniform over the classes) on ``device``: with ``mesh``
+    this rank's rows of it and, under a 'spatial' axis, its H slab of
+    them; without, the whole batch.  Returns ``take()``, which takes the
+    step and returns its record: the loss, the step's seconds (its first
+    step, first uses included; reading the loss synchronises) and the
+    set-up's, the kernels' launches in the step, and on the card the
+    memory allocated before the step (``resident_bytes``) and the step's
+    peak above it (``peak_bytes``: activations, gradients, optimizer
+    state)."""
+    import numpy as np
+    import torch
+    from ..config import config_from_dict
+    from ..models import get_model
+    from ..ops.kernels import launch_counts, reset_launch_counts
+    from ..parallel import shard_batch
+    from ..parallel.spatial import slab
+    from ..training.train_state import create_train_state, make_train_step
+    from ..training.trainer import check_spatial
+    c = config_from_dict(cfg)
+    if mesh is not None and mesh.spatial_size > 1:
+        check_spatial(c, mesh.spatial_size)         # as the trainer does
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    shape = (batch, *c.training_size)
+    img = torch.from_numpy(rng.standard_normal((*shape, 1), np.float32))
+    lab = torch.from_numpy(rng.integers(0, c.classes, shape))
+    if mesh is not None:
+        img, lab = shard_batch(img, mesh), shard_batch(lab, mesh)
+        if mesh.spatial_size > 1:
+            axis = 2 if c.dimension == "3d" else 1
+            img, lab = (slab(t, mesh.spatial_rank, mesh.spatial_size, axis)
+                        for t in (img, lab))
+    model = get_model(c, device=device, train=True,
+                      generator=torch.Generator().manual_seed(seed))
+    state = create_train_state(model, c, seed=seed, mesh=mesh)
+    step = make_train_step(model, state.optimizer, c, mesh)
+    img = img.contiguous().to(device)
+    lab = lab.contiguous().to(device)
+    cuda = torch.device(device).type == "cuda"
+    setup = time.perf_counter() - t0
+
+    def take() -> dict:
+        resident = None
+        if cuda:
+            torch.cuda.synchronize(device)
+            resident = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        loss = float(step(state, img, lab, c.base_lr))
+        return {"loss": loss, "seconds": time.perf_counter() - t1,
+                "setup_seconds": setup, "resident_bytes": resident,
+                "peak_bytes": torch.cuda.max_memory_allocated(device)
+                - resident if cuda else None,
+                "launches": {k: v for k, v in launch_counts().items()
+                             if v}}
+    return take
+
+
+def prepare_zoo(zoo: list, device: str = "cuda") -> tuple:
+    """A zoo rank's steps (the environment names the rank; on the card,
+    card LOCAL_RANK % count), set up (:func:`prepare_step`): each recipe
+    of ``zoo`` ((name, cfg, global batch, seed)) H-sharded on a gloo group
+    of the ranks (over the card's tensors), and this rank's share of the
+    same steps unsharded, for the H-sharded ones to be held against (the
+    i-th recipe's on rank i % W).  Returns (the sharded steps, the
+    unsharded ones, the set-up's seconds), the group left up for
+    :func:`zoo_main`."""
+    import torch
+    from ..config import config_from_dict
+    from ..parallel import initialize_distributed, make_mesh
+    t0 = time.perf_counter()
+    initialize_distributed(device=device, backend="gloo")
+    sharded = {}
+    for name, cfg, batch, seed in zoo:
+        mesh = make_mesh(config_from_dict(cfg), device=device)
+        sharded[name] = prepare_step(cfg, batch, seed, mesh, mesh.device)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    one = (torch.device("cuda", torch.cuda.current_device())
+           if device == "cuda" else torch.device(device))
+    unsharded = {name: prepare_step(cfg, batch, seed, None, one)
+                 for name, cfg, batch, seed in zoo[rank::world]}
+    return sharded, unsharded, time.perf_counter() - t0
+
+
+def zoo_main(job: tuple, out: str) -> dict:
+    """One zoo rank's steps of :func:`prepare_zoo`'s ``job``, the sharded
+    ones first (in the same order on every rank), then its unsharded
+    ones; ends the group, writes and returns its record."""
+    import torch.distributed as dist
+    sharded, unsharded, prepared = job
+    t0 = time.perf_counter()
+    try:
+        rec = {"rank": dist.get_rank(),
+               "zoo": {name: take() for name, take in sharded.items()}}
+    finally:
+        dist.destroy_process_group()
+    rec["unsharded"] = {name: take() for name, take in unsharded.items()}
+    rec.update(zoo_seconds=time.perf_counter() - t0, prepare_seconds=prepared)
+    return _write(out, rec)
+
+
 def rank_main(cfg: dict, argv: list, out: str, backend: str | None) -> dict:
     """One rank (the environment names it): ``train.main`` with ``argv``
     over ``backend`` (None: NCCL on the card, gloo on the CPU); writes and
@@ -100,8 +214,13 @@ def rank_main(cfg: dict, argv: list, out: str, backend: str | None) -> dict:
                          if r["tag"] == "Train/StepLoss"]
         rec["step_seconds"] = [r["value"] for r in rows
                                if r["tag"] == "Perf/StepSeconds"]
+    return _write(out, rec)
+
+
+def _write(out: str, rec: dict) -> dict:
+    """``rec`` as ``out``/rank<r>.json; returns it."""
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+    with open(os.path.join(out, f"rank{rec['rank']}.json"), "w") as f:
         json.dump(rec, f)
     return rec
 
@@ -126,7 +245,8 @@ def _warm_up(cuda: bool) -> None:
 
 
 def _rank_process(rank: int, world: int, port: int, cfg: dict, argv: list,
-                  out: str, backend: str, go) -> None:
+                  out: str, backend: str, go, zoo: list | None,
+                  threads: int | None) -> None:
     import torch
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
@@ -134,10 +254,15 @@ def _rank_process(rank: int, world: int, port: int, cfg: dict, argv: list,
                       MASTER_PORT=str(port))
     # the host's cores shared out: the ranks' model builds and host work
     # would otherwise each take them all
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    _warm_up(argv[argv.index("--device") + 1] != "cpu")
+    torch.set_num_threads(threads or max(1, (os.cpu_count() or 1) // world))
+    device = argv[argv.index("--device") + 1]
+    _warm_up(device != "cpu")
+    job = prepare_zoo(zoo, device) if zoo is not None else None
     go.wait()
-    rank_main(cfg, argv, out, backend)
+    if job is None:
+        rank_main(cfg, argv, out, backend)
+    else:
+        zoo_main(job, out)
 
 
 def _free_port() -> int:
@@ -147,20 +272,35 @@ def _free_port() -> int:
 
 
 def start(cfg: dict, argv: list, world: int, out: str,
-          backend: str = "gloo") -> tuple:
+          backend: str = "gloo", zoo: list | None = None,
+          threads: int | None = None) -> tuple:
     """Spawn ``world`` ranks of :func:`rank_main` on one node (their cards
-    LOCAL_RANK % count).  Each warms up (:func:`_warm_up`) and then waits
-    for :func:`finish`, so a caller can start them while other work runs
-    and time only their runs."""
+    LOCAL_RANK % count), or with ``zoo`` of :func:`zoo_main` (``cfg`` and
+    ``backend`` unused: ``argv`` names only the ``--device``; see
+    :func:`start_zoo`), each on ``threads`` torch threads (default: the
+    host's cores over ``world``).  Each warms up (:func:`_warm_up`; a zoo
+    rank also sets its steps up, :func:`prepare_zoo`) and then waits for
+    :func:`finish`, so a caller can start them while other work runs and
+    time only their runs."""
     ctx = multiprocessing.get_context("spawn")
     go = ctx.Event()
     port = _free_port()
     # daemons: a caller that fails before finish() takes them down with it
     procs = [ctx.Process(target=_rank_process, daemon=True, args=(
-        r, world, port, cfg, argv, out, backend, go)) for r in range(world)]
+        r, world, port, cfg, argv, out, backend, go, zoo, threads))
+        for r in range(world)]
     for p in procs:
         p.start()
     return procs, go, out
+
+
+def start_zoo(zoo: list, world: int, out: str, device: str = "cuda",
+              threads: int | None = None) -> tuple:
+    """:func:`start` of ``world`` ranks that take :func:`prepare_zoo`'s
+    steps of the recipes ``zoo`` on ``device`` (a gloo group of their
+    own)."""
+    return start(None, ["--device", device], world, out, zoo=zoo,
+                 threads=threads)
 
 
 def release(run: tuple) -> None:

@@ -17,7 +17,8 @@ cuda``, on the CPU over gloo with ``--device cpu``:
 are the global batch's.  A config with ``mesh_axes: [data, spatial]`` and
 ``mesh_shape: [d, s]`` (N = d * s) shards the crop's H axis over s ranks
 instead: each data index takes B // d rows, each of its s ranks an H slab
-of them (MedFormer-3D, UNet-3D and ResUNet-3D).  ``--backend gloo`` with
+of them (the CNNs and MedFormer in 3D and 2D, VNet:
+``training.trainer.SPATIAL_MODELS``; the attention models are refused).  ``--backend gloo`` with
 ``--device cuda`` keeps the tensors on the card and lets ranks share one
 (NCCL refuses that).  Rank 0 alone writes the checkpoints, the scalars,
 the fold logs, config.txt and cross_validation.txt.  A launch of one

@@ -36,7 +36,7 @@ import torch
 from torch import nn
 
 from ..config import compute_dtype
-from ..models.layers.convs import DropPath, spatial_shard, sync_batch_norm
+from ..models.layers.convs import spatial_shard, sync_batch_norm
 from ..ops.losses import deep_supervision_loss
 from .optim import get_optimizer, set_lr
 
@@ -69,10 +69,14 @@ def create_train_state(model: nn.Module, cfg, seed: int | None = None,
     is seeded ``seed + rank`` (each rank draws its own rows' masks), and
     the live model's BatchNorms take the global batch's statistics.  Under
     a 'spatial' axis the live model is marked for its H slabs
-    (``spatial_shard``), and the ``DropPath`` modules, which draw one
-    number a sample, take a second generator seeded ``seed + data rank``:
-    the spatial peers of a sample keep or drop it alike, while the
-    elementwise masks of each slab stay its own."""
+    (``spatial_shard``), and the rule is the draw's extent: a module whose
+    draw covers a whole sample's H (one number a sample, as ``DropPath``,
+    or a (sample, channel), as VNet's ``ChannelDropout``: its class says
+    ``draws_per_sample = True``) takes a second generator seeded ``seed +
+    data rank``, so the spatial peers of a sample keep or drop it alike;
+    an elementwise draw (``Dropout``, ``draws_per_sample = False``) keeps
+    the per-rank generator, so each slab draws its own voxels' masks.  A
+    new stochastic module states its extent the same way."""
     opt = get_optimizer(cfg, model.parameters())
     ema = None
     if cfg.get("ema", False):
@@ -95,7 +99,8 @@ def create_train_state(model: nn.Module, cfg, seed: int | None = None,
             per_sample = torch.Generator(device=device).manual_seed(
                 seed + mesh.data_rank)
         for m in drops:
-            m.generator = per_sample if isinstance(m, DropPath) else generator
+            m.generator = (per_sample if getattr(m, "draws_per_sample", False)
+                           else generator)
     return TrainState(model, opt, ema, generator=generator)
 
 

@@ -27,12 +27,14 @@ Under a 'spatial' mesh axis of s > 1 (``mesh_axes: [data, spatial]``) the
 W = d * s ranks step on ``cfg.batch_size // d`` rows each, each of the s
 peers of a data index on its H slab (``parallel.spatial``): the one-process
 step's loss, gradient and statistics, as the JAX mesh's H-sharded step.
-Evaluation is unchanged: the peers take part as sweep ranks.  Refused
-before any step: a model outside :data:`SPATIAL_MODELS` (the ROADMAP item
-that will take it is named), an H that the axis does not divide, and a
-slab that the product of the model's H down-scales does not divide (every
-level's slab must stay whole; JAX's partitioner reshards unevenly
-instead).
+Evaluation is unchanged: the peers take part as sweep ranks.  The
+models: :data:`SPATIAL_MODELS`, the CNNs and MedFormer in 3D and 2D.
+Refused before any step: the attention models (:data:`ATTENTION_MODELS`,
+ROADMAP A7d, named), an H that the axis does not divide, a slab that the
+product of the model's H down-scales does not divide (every level's slab
+must stay whole; JAX's partitioner reshards unevenly instead, ROADMAP
+A7e), and a deepest slab thinner than the model's halo (VNet's 5^3
+convs: 2 rows) (:func:`h_layout`).
 """
 
 from __future__ import annotations
@@ -74,8 +76,30 @@ def load_pretrained(cfg, state) -> None:
         state.ema.load_state_dict(state.model.state_dict())
 
 
-#: the models that train on H slabs (ROADMAP A7)
-SPATIAL_MODELS = (("3d", "medformer"), ("3d", "unet"), ("3d", "resunet"))
+#: the models that train on H slabs (ROADMAP A7, A7b, A7c)
+SPATIAL_MODELS = (("3d", "medformer"), ("3d", "unet"), ("3d", "resunet"),
+                  ("3d", "unet++"), ("3d", "attention_unet"), ("3d", "vnet"),
+                  ("2d", "unet"), ("2d", "resunet"), ("2d", "unet++"),
+                  ("2d", "attention_unet"), ("2d", "medformer"))
+#: the models whose attention spans every token or position of the volume
+#: (windows, patch embeddings, a ViT, DAUNet's position attention): they
+#: need attention across slabs, ROADMAP A7d
+ATTENTION_MODELS = ("unetr", "swin_unetr", "vtunet", "nnformer", "swinunet",
+                    "daunet", "transunet")
+
+
+def h_layout(cfg) -> tuple[int, int, int]:
+    """(H of the crop, the product of the model's H down-scales, the rows
+    of H a slab needs at the deepest level): H is ``training_size[1]`` of
+    a 3D crop and ``[0]`` of a 2D one, as the JAX trainer reads it; the
+    down-scales are the config's for the 3D UNet family and MedFormer-3D,
+    four of 2 for VNet and the 2D models (their pools and merges, whatever
+    the config says); VNet's 5^3 convs take a halo of 2 rows, the others'
+    3-row kernels 1."""
+    h = int(cfg.training_size[1 if cfg.dimension == "3d" else 0])
+    if cfg.dimension == "2d" or cfg.model == "vnet":
+        return h, 16, 2 if cfg.model == "vnet" else 1
+    return h, math.prod(sc[1] for sc in _norm_scales(cfg.down_scale, 4)), 1
 
 
 def check_spatial(cfg, s: int) -> None:
@@ -83,22 +107,25 @@ def check_spatial(cfg, s: int) -> None:
     (module docstring)."""
     key = (cfg.dimension, cfg.model)
     if key not in SPATIAL_MODELS:
-        item = ("A7c (the 2D models)" if cfg.dimension == "2d" else
-                "A7d (the token-attention models)"
-                if cfg.model in ("unetr", "swin_unetr", "vtunet", "nnformer")
-                else "A7b (the rest of the 3D UNet family and VNet)")
+        item = ("A7d (attention across slabs)" if cfg.model
+                in ATTENTION_MODELS else "A7 (not a model of the port)")
         raise NotImplementedError(
             f"model {cfg.model!r} ({cfg.dimension}) on a 'spatial' mesh axis "
             f"of {s}: H-sharded training covers "
             f"{', '.join(f'{m} ({d})' for d, m in SPATIAL_MODELS)}; this one "
             f"is ROADMAP {item}")
-    h = int(cfg.training_size[1])
-    down = math.prod(sc[1] for sc in _norm_scales(cfg.down_scale, 4))
+    h, down, rows = h_layout(cfg)
     if h % (s * down):
         raise ValueError(
             f"training_size's H {h} does not divide into {s} slabs whose "
             f"rows divide by the product of the model's H down-scales, "
-            f"{down}: every level's slab must be whole (ROADMAP A7)")
+            f"{down}: every level's slab must be whole (ROADMAP A7e)")
+    if h // (s * down) < rows:
+        raise ValueError(
+            f"model {cfg.model!r}: its 5^3 convs take a halo of {rows} rows, "
+            f"but at its deepest level (H / {down}) a slab of training_size's "
+            f"H {h} over {s} slabs has {h // (s * down)}: every level's slab "
+            f"needs at least {rows} rows (H of at least {rows * s * down})")
 
 
 class _NoWriter:

@@ -183,19 +183,35 @@ Phases, each printing its result; any failure raises and exits non-zero:
    MedFormer-3D and test volume in the same group: ``sliding_window_sharded``
    at W = 1 against ``sliding_window`` (1e-6) and ``validate(mesh=...)``
    against ``validate`` (Dice 1e-6, distances 1e-9 relative);
-6s. the 'spatial' mesh axis: phase 6's recipe, from its seed, for 2
-   steps H-sharded over two ranks at ``mesh_shape`` [1, 2]
+6s. the 'spatial' mesh axis: phase 6's recipe, from its seed, for 1
+   step (the CPU tests hold the trajectory) H-sharded over two ranks at
+   ``mesh_shape`` [1, 2]
    (``cbim_tpu_torch.tools.spatial_train``: two processes on the one
    card, gloo over the card's tensors, since NCCL refuses two ranks on one
    card): each rank trains on its 64-row slab of H with halo-exchanging
    3^3 conv kernels and InstanceNorm kernels whose statistics are merged
-   over the ranks; the losses within 1e-3 relative of phase 6's first two,
+   over the ranks; the loss within 1e-3 relative of phase 6's first,
    every rank's per-step launches of the norm kernels and the tensor-core
    3^3 forward, dgrad and wgrad printed (each above 0); sec/step and each
-   rank's peak memory beside phase 6's.  The ranks start before phase 5
-   (their processes, imports and contexts come up beside phases 5-6p) and
-   train as phase 6v's host distances start, where the main process leaves
-   the card idle; their results are read after 6v;
+   rank's peak memory beside phase 6's.  Beside them two more ranks, a
+   gloo group of their own, take one H-sharded fp32 step each of the
+   AMOS-CT AttentionUNet-3D recipe as shipped (128^3, batch 2: the
+   3xTF32 3^3 kernels and the norm kernels on slabs, the gates' norms at
+   C = 1 included), ACDC's VNet (16 x 192 x 192, batch 2: 5^3 convs with
+   a 2-plane halo, strided and transposed convs, ContBatchNorm over the
+   ranks; cuDNN, no kernel of the port) and ACDC's MedFormer-2D on
+   ``conv2d_kernel`` (256^2, batch 8, aux loss: the 3xTF32 3x3 kernels on
+   slabs), from seeded weights and batches (``spatial_train.start_zoo``:
+   set up while they wait), then each step unsharded from the same seed
+   and batch, shared out over them: every rank's loss within 1e-3
+   relative of it, every rank's launches printed and those of its route's
+   kernels above 0, each step's seconds (a first step, first uses
+   included) and each rank's peak memory above what is resident before
+   the step, beside the unsharded step's.  All four ranks start before
+   phase 5 (their processes, imports and contexts, and the zoo ranks'
+   models, states and batches, come up beside phases 5-6p) and run as
+   phase 6v's host distances start, where the main process leaves the
+   card idle; their results are read after 6v;
 6b. the same recipe with ``conv_na: true``: per step 40
    ``conv3d_same_na_fwd_tc`` (remat incl.), 20 ``conv3d_wgrad_na_tc`` and
    20 ``conv3d_dgrad_tc`` launches, no other 3^3 launch (the CUDA-core
@@ -734,14 +750,32 @@ DDP_LOSS_RTOL = 1e-3
 DDP_PROB_ATOL, DDP_DICE_ATOL, DDP_DISTANCE_RTOL = 1e-6, 1e-6, 1e-9
 #: phase 6s: the flagship recipe H-sharded over two ranks that share the
 #: one card ('spatial' axis of 2, gloo over the card's tensors: NCCL
-#: refuses two ranks on one card), 2 steps from phase 6's seed; its losses
-#: against phase 6's within DDP_LOSS_RTOL (bf16, another order of the
-#: sums over H), and every rank launches each of SPATIAL_KERNELS every step
-FLAGSHIP_SPATIAL = dict(FLAGSHIP_DDP, mesh_axes=["data", "spatial"],
-                        mesh_shape=[1, 2])
+#: refuses two ranks on one card), 1 step from phase 6's seed (one step,
+#: so that the zoo steps below fit the phase's time); its loss against
+#: phase 6's first within DDP_LOSS_RTOL (bf16, another order of the sums
+#: over H), and every rank launches each of SPATIAL_KERNELS every step
+SPATIAL_MESH = dict(mesh_axes=["data", "spatial"], mesh_shape=[1, 2])
+FLAGSHIP_SPATIAL = dict(FLAGSHIP_DDP, iter_per_epoch=1, **SPATIAL_MESH)
 SPATIAL_RANKS = 2
-SPATIAL_KERNELS = ("inorm_stats", "inorm_apply", "inorm_bwd_stats",
-                   "inorm_bwd_apply") + TC_CONV_KERNELS
+NORM_KERNELS = ("inorm_stats", "inorm_apply", "inorm_bwd_stats",
+                "inorm_bwd_apply")
+SPATIAL_KERNELS = NORM_KERNELS + TC_CONV_KERNELS
+#: the global batch of phase 6s's MedFormer-2D step: 8, not the recipe's
+#: 32 (TRAIN2D_BATCH), for the phase's time (the same kernels on slabs,
+#: about 1.4 s less on two gloo ranks sharing an H100)
+SPATIAL_ZOO_2D_BATCH = 8
+#: phase 6s's zoo steps: (name, the shipped recipe (dataset,
+#: model, dimension, overrides), the global batch, the kernels each rank's
+#: H-sharded step must launch, the kernels it must not), fp32 (no amp) as
+#: 6r and 8f train, on seeded weights and batches (SPATIAL_ZOO_SEED)
+SPATIAL_ZOO = (
+    ("AttentionUNet-3D", ("amos_ct", "attention_unet", "3d", {}),
+     TRAIN_BATCH, NORM_KERNELS + TF32_CONV_KERNELS, ()),
+    ("VNet", ("acdc", "vnet", "3d", {}), TRAIN_BATCH, (), CONV3D_KERNELS),
+    ("MedFormer-2D", ("acdc", "medformer", "2d",
+                      dict(conv2d_kernel=True)),
+     SPATIAL_ZOO_2D_BATCH, TF322D_KERNELS, TC2D_KERNELS + CORE2D_KERNELS))
+SPATIAL_ZOO_SEED = 26
 #: seconds phase 6s's ranks may take, start-up included
 SPATIAL_TIMEOUT = 300
 #: phase 6p: the flagship recipe with ``proj_type: linear`` and dropouts
@@ -3530,18 +3564,45 @@ def ddp_recorder():
         torch.nn.parallel.DistributedDataParallel = real
 
 
+def spatial_zoo() -> list:
+    """Phase 6s's zoo recipes for ``spatial_train.start_zoo``: each of
+    SPATIAL_ZOO's shipped YAMLs read by the port's ``load_config`` with its
+    overrides and the [1, 2] mesh, as a dict; (name, recipe, batch,
+    seed)."""
+    from cbim_tpu_torch.config import load_config
+    zoo = []
+    for name, (dataset, model, dim, keys), batch, _, _ in SPATIAL_ZOO:
+        cfg = load_config(dataset, model, dim, **keys, **SPATIAL_MESH)
+        zoo.append((name, dict(cfg.__dict__), batch, SPATIAL_ZOO_SEED))
+    return zoo
+
+
 def start_spatial() -> tuple:
-    """Phase 6s's ranks (``tools.spatial_train.start``), started before
-    phase 5: their processes, imports and contexts come up beside phases
-    5-6p, and they wait to be released (``spatial_train.release``: as
-    phase 6v's host distances start) to train."""
+    """Phase 6s's ranks, started before phase 5: their processes, imports
+    and contexts come up beside phases 5-6p, and they wait to be released
+    (:func:`release_spatial`: as phase 6v's host distances start).  Two
+    groups of SPATIAL_RANKS, side by side: the flagship's
+    (``tools.spatial_train.start``) and the zoo steps'
+    (``spatial_train.start_zoo``, :func:`spatial_zoo`)."""
     from cbim_tpu_torch.tools import spatial_train
     cfg = FLAGSHIP_SPATIAL
     run = os.path.join(WORK, "flagship_spatial")
-    return spatial_train.start(
+    # four ranks and this process share the host: two threads a rank
+    threads = max(1, (os.cpu_count() or 1) // (2 * SPATIAL_RANKS))
+    flagship = spatial_train.start(
         cfg, spatial_train.train_argv(cfg, TRAIN_BATCH, run,
                                       "flagship_spatial"),
-        SPATIAL_RANKS, run, backend="gloo")
+        SPATIAL_RANKS, run, backend="gloo", threads=threads)
+    return flagship, spatial_train.start_zoo(
+        spatial_zoo(), SPATIAL_RANKS, os.path.join(WORK, "zoo_spatial"),
+        threads=threads)
+
+
+def release_spatial(ranks: tuple) -> None:
+    """Let both groups of :func:`start_spatial` run."""
+    from cbim_tpu_torch.tools import spatial_train
+    for run in ranks:
+        spatial_train.release(run)
 
 
 def phase_spatial(ranks: tuple, tr: dict) -> collections.Counter:
@@ -3550,10 +3611,12 @@ def phase_spatial(ranks: tuple, tr: dict) -> collections.Counter:
     set to 0 just before its ``train.main`` and read just after); its
     losses, sec/step and each rank's peak memory beside phase 6's ``tr``;
     every kernel of SPATIAL_KERNELS launched by every rank every step.
-    Returns the launches of both ranks, summed."""
+    Then the zoo ranks' steps (:func:`say_zoo_step`).  Returns the
+    launches of every rank's H-sharded steps, summed."""
     from cbim_tpu_torch.tools import spatial_train
     cfg = FLAGSHIP_SPATIAL
-    records = spatial_train.finish(ranks, timeout=SPATIAL_TIMEOUT)
+    records = spatial_train.finish(ranks[0], timeout=SPATIAL_TIMEOUT)
+    zoo = spatial_train.finish(ranks[1], timeout=SPATIAL_TIMEOUT)
     res = spatial_train.summary(records, warm=WARMUP_STEPS)
     steps = cfg["iter_per_epoch"]
     say(f"  losses {', '.join(f'{v:.4f}' for v in res['losses'])}; step "
@@ -3579,6 +3642,51 @@ def phase_spatial(ranks: tuple, tr: dict) -> collections.Counter:
     total = collections.Counter()
     for r in records:
         total.update(r["launches"])
+    zoo_s = ", ".join(f"{r['zoo_seconds']:.1f}" for r in zoo)
+    prep_s = ", ".join(f"{r['prepare_seconds']:.1f}" for r in zoo)
+    say(f"  the zoo steps on ranks of their own, beside the flagship's: "
+        f"{zoo_s} s, the unsharded ones shared out over them (set up "
+        f"before the release, beside phases 5-6v: {prep_s} s)")
+    unsharded = {k: v for r in zoo for k, v in r["unsharded"].items()}
+    for name, _, batch, required, absent in SPATIAL_ZOO:
+        total.update(say_zoo_step(name, batch, required, absent,
+                                  [r["zoo"][name] for r in zoo],
+                                  unsharded[name]))
+    return total
+
+
+def say_zoo_step(name: str, batch: int, required, absent, steps: list,
+                 one: dict) -> collections.Counter:
+    """Phase 6s's zoo step of ``name`` (:data:`SPATIAL_ZOO`): the ranks'
+    H-sharded ``steps`` (``spatial_train.prepare_step``'s records, in rank
+    order) against the unsharded step ``one``, the seconds and the peak
+    memory above the resident, every rank's launches; each rank's loss
+    finite and within DDP_LOSS_RTOL of the unsharded one, its launches of
+    ``required`` above 0 and of ``absent`` 0.  Returns the ranks' launches,
+    summed."""
+    errs = [abs(s["loss"] - one["loss"]) / abs(one["loss"]) for s in steps]
+    gib = ", ".join(f"{s['peak_bytes'] / 2 ** 30:.2f}" for s in steps)
+    res = ", ".join(f"{s['resident_bytes'] / 2 ** 30:.2f}" for s in steps)
+    losses = ", ".join(f"{s['loss']:.6f}" for s in steps)
+    secs = ", ".join(f"{s['seconds']:.3f}" for s in steps)
+    setup = ", ".join(f"{s['setup_seconds']:.2f}" for s in steps)
+    say(f"  {name} (global batch {batch}): losses {losses} vs unsharded "
+        f"{one['loss']:.6f}, max rel diff {max(errs):.3e} (tol "
+        f"{DDP_LOSS_RTOL:.0e}); step seconds {secs} vs {one['seconds']:.3f} "
+        f"unsharded (first steps; set-up {setup} vs "
+        f"{one['setup_seconds']:.2f}); the step's peak above the resident "
+        f"per rank {gib} vs {one['peak_bytes'] / 2 ** 30:.2f} GiB (resident "
+        f"{res} vs {one['resident_bytes'] / 2 ** 30:.2f})")
+    total = collections.Counter()
+    for rank, s in enumerate(steps):
+        counts = collections.Counter(s["launches"])
+        say(f"  rank {rank} launches: {dict(sorted(counts.items()))}")
+        missing = [k for k in required if counts[k] == 0]
+        assert not missing, f"{name}: rank {rank} never launched {missing}"
+        assert not any(counts[k] for k in absent), (name, counts)
+        assert math.isfinite(s["loss"]), (name, s)
+        total.update(counts)
+    assert max(errs) <= DDP_LOSS_RTOL, (name, errs)
     return total
 
 
@@ -4165,7 +4273,6 @@ def main(argv=None) -> int:
     say(f"  the requests and the KiTS, ACDC-3D and BCV cases written beside "
         f"the earlier phases (seconds: {took}), ready after "
         f"{time.perf_counter() - t_wait:.1f} s more")
-    from cbim_tpu_torch.tools import spatial_train
     spatial_ranks = start_spatial()
     say("[phase 5] AMOS-CT MedFormer-3D serving 1 NIfTI request")
     res = phase_slice(device, AMOS, REQUESTS, TARGET_SPACING, "serve3d",
@@ -4376,15 +4483,15 @@ def main(argv=None) -> int:
 
     say("[phase 6v] the flagship recipe validating: 2 steps on five 130^3 "
         "volumes, then the EMA model's 128^3 sliding-window evaluation")
-    def release_spatial():
+    def on_host_distances():
         torch.cuda.empty_cache()      # the ranks' room on the shared card
-        spatial_train.release(spatial_ranks)
+        release_spatial(spatial_ranks)
 
     # phase 6s's ranks train beside the evaluation's host distances, where
     # this process leaves the card idle
     tv = phase_train_validate(device, FLAGSHIP_VAL, TRAIN_BATCH,
                               "flagship_val",
-                              on_host_distances=release_spatial)
+                              on_host_distances=on_host_distances)
     say_validation(tv)
     counts, steps = tv["launches"], tv["steps"]
     # bf16 evaluation on the tensor-core forward: 20 a forward (no remat
@@ -4401,8 +4508,10 @@ def main(argv=None) -> int:
     say("[phase 6s] the flagship recipe H-sharded over "
         f"{SPATIAL_RANKS} ranks on the one card (mesh_shape "
         f"{FLAGSHIP_SPATIAL['mesh_shape']}, gloo over the card's tensors), "
-        f"{FLAGSHIP_SPATIAL['iter_per_epoch']} steps from phase 6's seed, "
-        "beside phase 6v's host distances")
+        f"{FLAGSHIP_SPATIAL['iter_per_epoch']} step from phase 6's seed, "
+        "and on two more ranks one fp32 step each of "
+        f"{', '.join(z[0] for z in SPATIAL_ZOO)}, beside phase 6v's host "
+        "distances")
     launches["6s"] = phase_spatial(spatial_ranks, tr_6)
 
     say("[phase 6k] the KiTS recipe as shipped (configs/kits/"

@@ -7,12 +7,16 @@ CPU:
   backward, on the ranks and in one process, ``torch_dist_worker.
   extents_of_a_step``);
 - draw apart what a sample shares: the spatial peers of a sample keep or
-  drop it alike in ``DropPath``, while ``Dropout``'s elementwise masks stay
-  each slab's own; the input pipeline's slabs, joined along H, are the
-  data rank's augmented batch, noise included;
-- take what it does not carry: an H the axis does not divide, a slab the
-  model's H down-scales do not divide, a model outside the slice (named
-  with its ROADMAP item).
+  drop it alike in ``DropPath`` and VNet's ``ChannelDropout`` (each of its
+  channels), while ``Dropout``'s elementwise masks stay each slab's own;
+  the input pipeline's slabs, joined along H, are the data rank's
+  augmented batch, noise included, in 3D and in 2D (the slices of each
+  epoch's permutation, its tail carried into the next: ROADMAP C3);
+- take what it does not carry: an H the axis does not divide (H read by
+  dimension: ``training_size[0]`` of a 2D crop), a slab the model's H
+  down-scales do not divide, a VNet whose deepest slab is thinner than its
+  5^3 convs' halo of 2, an attention model (named with its ROADMAP item,
+  A7d).
 """
 
 import numpy as np
@@ -102,6 +106,25 @@ def test_spatial_peers_draw_a_sample_alike(tmp_path):
     assert not torch.equal(draws[0]["drop_path"], draws[2]["drop_path"])
 
 
+def test_spatial_peers_drop_a_samples_channels_alike(tmp_path):
+    """[2, 2]: VNet's ``ChannelDropout`` keeps or drops each (sample,
+    channel) whole on every slab, alike on a data index's two peers (the
+    per-(sample, channel) draw takes the data index's generator, as
+    DropPath's), and differently on the two data indices."""
+    x = np.ones((8, 6, 2, 4, 2), np.float32)
+    draws = worker.launch("sample_draws", 4, str(tmp_path), dict(
+        x=x, cfg=dict(SPATIAL, mesh_shape=[2, 2])))
+    for r in draws:
+        assert r["channels_whole"]
+        assert 0 < int(r["channel_dropout"].sum()) < \
+            r["channel_dropout"].numel()
+    for a, b in ((0, 1), (2, 3)):
+        assert torch.equal(draws[a]["channel_dropout"],
+                           draws[b]["channel_dropout"])
+    assert not torch.equal(draws[0]["channel_dropout"],
+                           draws[2]["channel_dropout"])
+
+
 #: a pipeline with noise before the affine and a gated brightness after
 PIPE = dict(
     dataset="synthetic", model="unet", dimension="3d", classes=3,
@@ -111,11 +134,14 @@ PIPE = dict(
     gaussian_noise_std=0.3, k_fold=5)
 
 
-def _batch(mesh, batch=4):
-    cfg = config_from_dict(PIPE)
+def _batch(mesh, batch=4, keys=PIPE, steps=1):
+    """The last of ``steps`` batches of the pipeline of ``keys``."""
+    cfg = config_from_dict(keys)
     pipe = TrainPipeline(get_dataset(cfg, mode="train"), cfg, seed=3,
                          device="cpu", mesh=mesh)
-    return pipe.next_batch(batch)
+    for _ in range(steps):
+        out = pipe.next_batch(batch)
+    return out
 
 
 @pytest.mark.parametrize("data", [1, 2])
@@ -133,20 +159,53 @@ def test_slabs_joined_are_the_data_ranks_batch(data):
                 atol=0)
 
 
+#: a 2D pipeline (Synthetic2D: 18 training slices, 3 cases of 6, at fold
+#: 0 of 5) with noise and a random affine; at batch 5 the fourth batch
+#: takes the first epoch's last 3 slices and the next epoch's first 2 (C3)
+PIPE2D = dict(
+    dataset="synthetic", model="unet", dimension="2d", classes=4,
+    training_size=[16, 16], synthetic_cases=3, affine_pad_size=[4, 4],
+    scale=0.3, rotate=180, translate=0, gaussian_noise_std=0.3, k_fold=5,
+    device_cache=False)
+
+
+@pytest.mark.parametrize("steps", [1, 4])
+def test_2d_slabs_joined_are_the_data_ranks_batch(steps):
+    """In 2D, [1, 2]: the two slabs of the ``steps``-th batch (the fourth
+    spans the epoch boundary), joined along H (dim 1 of (B, H, W, C)),
+    equal the batch without a spatial axis: the peers drew the same
+    slices, affines and noise."""
+    whole = _batch(spatial_mesh(0, 1, 1), 5, PIPE2D, steps)
+    slabs = [_batch(spatial_mesh(j, 1, 2), 5, PIPE2D, steps)
+             for j in range(2)]
+    assert slabs[0][0].shape[1] == PIPE2D["training_size"][0] // 2
+    for i in range(2):
+        torch.testing.assert_close(torch.cat([s[i] for s in slabs], 1),
+                                   whole[i], rtol=0, atol=0)
+
+
+#: a 2D crop whose H (training_size[0], 48) the 2D models' four pools by 2
+#: leave in no whole slabs at s = 2 (its W, 64, would)
+UNET2D = dict(UNET, dimension="2d", training_size=[48, 64])
+
+
 @pytest.mark.parametrize("keys, error, match", [
     (dict(UNET, training_size=[8, 31, 16]), ValueError, "does not divide"),
     (dict(UNET, training_size=[8, 16, 16]), ValueError,
      "H down-scales, 16"),
-    (dict(UNET, model="vnet"), NotImplementedError, "ROADMAP A7b"),
-    (dict(UNET, model="unet++"), NotImplementedError, "ROADMAP A7b"),
-    (dict(UNET, dimension="2d", training_size=[32, 32]),
-     NotImplementedError, "ROADMAP A7c"),
+    (dict(UNET2D, model="daunet"), NotImplementedError, "ROADMAP A7d"),
+    (dict(UNET2D, model="transunet"), NotImplementedError, "ROADMAP A7d"),
+    (UNET2D, ValueError, "H 48 does not divide .* H down-scales, 16"),
     (dict(UNET, model="swin_unetr"), NotImplementedError, "ROADMAP A7d"),
+    (dict(UNET, model="vnet", training_size=[16, 32, 16]), ValueError,
+     "'vnet': its 5\\^3 convs take a halo of 2 rows.* has 1"),
 ])
 def test_train_net_refuses(tmp_path, keys, error, match):
     """Before any step or collective: an H the 'spatial' axis of 2 does not
-    divide, a slab of 8 rows under UNet-3D's H down-scales (16), and the
-    models of the later ROADMAP items."""
+    divide, a slab of 8 rows under UNet-3D's H down-scales (16), the
+    attention models of ROADMAP A7d (DAUNet and TransUNet in 2D, SwinUNETR),
+    a 2D H whose slabs are not whole, and a VNet whose deepest slab has one
+    row under its halo of 2."""
     cfg = config_from_dict(dict(keys, batch_size=2, epochs=1,
                                 cp_path=str(tmp_path),
                                 log_path=str(tmp_path)))

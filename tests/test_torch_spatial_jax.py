@@ -38,22 +38,28 @@ MESH = dict(mesh_axes=["data", "spatial"], mesh_shape=[1, 2])
 JAX_LOSS_RTOL = 1e-5
 
 
-def jax_spatial_loss(d, params, img, lab, model=None) -> float:
-    """The JAX package's first step on ``params`` of ``model`` (default:
-    its factory's model of ``d``) with the global batch sharded
-    P('data', None, 'spatial', None, None) over a [1, 2] mesh of two host
-    devices, its Pallas kernels off, as its trainer runs it."""
+def jax_spatial_loss(d, params, img, lab, model=None,
+                     batch_stats=None) -> float:
+    """The JAX package's first step on ``params`` (and ``batch_stats``, the
+    BatchNorm nets') of ``model`` (default: its factory's model of ``d``)
+    with the global batch sharded P('data', None, 'spatial', None, None)
+    in 3D, P('data', 'spatial', None, None) in 2D, over a [1, 2] mesh of
+    two host devices, its Pallas kernels off, as its trainer runs it."""
     jc = jax_config(dict(d, **MESH))
     jm = model if model is not None else jax_get_model(jc)
     tx = jax_get_optimizer(jc)
+    stats = batch_stats or {}
     state = JaxTrainState(
         step=jnp.zeros((), jnp.int32), params=params,
-        opt_state=tx.init(params), batch_stats={},
-        ema_params=jax.tree.map(jnp.array, params), ema_batch_stats={})
+        opt_state=tx.init(params), batch_stats=stats,
+        ema_params=jax.tree.map(jnp.array, params),
+        ema_batch_stats=jax.tree.map(jnp.array, stats))
     mesh = jax_make_mesh(jc, devices=jax.devices()[:2])
     repl = NamedSharding(mesh, P())
-    img_sh = NamedSharding(mesh, P("data", None, "spatial", None, None))
-    lab_sh = NamedSharding(mesh, P("data", None, "spatial", None))
+    spec = ["data", None, "spatial", None, None] if jc.dimension == "3d" \
+        else ["data", "spatial", None, None]
+    img_sh = NamedSharding(mesh, P(*spec))
+    lab_sh = NamedSharding(mesh, P(*spec[:-1]))
     set_pallas_disabled(True)
     try:
         with fast_xla_compile():

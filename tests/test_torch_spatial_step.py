@@ -1,7 +1,8 @@
 """H-sharded training (the 'spatial' mesh axis) of MedFormer-3D, UNet-3D
 and ResUNet-3D on the CPU: gloo ranks at ``mesh_shape`` [1, 2] (this file)
 and [2, 2] (``test_torch_spatial_step22.py``) against one process on the
-same global batch.
+same global batch.  The rest of the 3D UNet family, VNet and the 2D
+models: ``test_torch_spatial_zoo_step.py``.
 
 Each rank steps through ``make_train_step`` on its data index's rows and
 its H slab of them (``torch_dist_worker.rank_batch``); the one-process run
@@ -36,9 +37,6 @@ import torch
 
 from cbim_tpu_torch.config import config_from_dict
 from cbim_tpu_torch.models import get_model
-from cbim_tpu_torch.models.layers import convs
-from cbim_tpu_torch.training.train_state import (create_train_state,
-                                                 make_train_step)
 from test_torch_threads import few_torch_threads  # noqa: F401
 import torch_dist_worker as worker
 
@@ -110,46 +108,13 @@ def batches(d, seed=0):
             for _ in range(STEPS)]
 
 
-def _instance_norm_f64(x, eps, act):
-    """The fused norm's function in plain torch ops, any float dtype (its
-    kernels' plain versions take fp32 and bf16 only)."""
-    dims = tuple(range(1, x.dim() - 1))
-    var, mean = torch.var_mean(x, dim=dims, unbiased=False, keepdim=True)
-    y = (x - mean) / torch.sqrt(var + eps)
-    return {None: y, False: y, "relu": torch.relu(y),
-            "gelu": torch.nn.functional.gelu(y)}[act]
-
-
 def exact_steps(payload) -> dict:
-    """The one-process steps of ``torch_dist_worker.train_steps`` in fp64:
-    the model in fp64 with its convs on cuDNN's route (the kernels' plain
-    versions take fp32 and bf16 only) and its InstanceNorms in plain torch
-    ops; the loss itself in fp32, as the port computes it."""
-    cfg = config_from_dict(payload["cfg"])
-    model = get_model(cfg, device="cpu", train=True)
-    model.load_state_dict(payload["state_dict"])
-    model.double()
-    for m in model.modules():
-        if isinstance(m, convs.ConvNormAct):
-            m.kernel = None
-    real = convs.InstanceNormAct
-    convs.InstanceNormAct = type("InstanceNormF64", (), {
-        "apply": staticmethod(_instance_norm_f64)})
-    try:
-        state = create_train_state(model, cfg)
-        step = make_train_step(model, state.optimizer, cfg)
-        losses, grads = [], None
-        for img, lab in payload["batches"]:
-            losses.append(float(step(state, torch.from_numpy(img).double(),
-                                     torch.from_numpy(lab), cfg.base_lr)))
-            if grads is None:
-                grads = {k: p.grad.clone()
-                         for k, p in model.named_parameters()}
-    finally:
-        convs.InstanceNormAct = real
-    return {"losses": losses, "grads": grads,
-            "params": {k: p.detach().clone()
-                       for k, p in model.named_parameters()}}
+    """The one-process steps of ``torch_dist_worker.train_steps`` in fp64
+    (``f64=True``): the model in fp64 with its convs on cuDNN's route (the
+    kernels' plain versions take fp32 and bf16 only) and its InstanceNorms
+    in plain torch ops; the loss itself in fp32, as the port computes
+    it."""
+    return worker.train_steps(None, payload, f64=True)
 
 
 def spatial_runs(tmp, mesh_shape) -> dict:

@@ -96,42 +96,118 @@ def launch(fn_name: str, world: int, out_dir: str, payload: dict,
 
 # -- what a rank runs (and the one-process run, with mesh None) -------------
 
-def rank_batch(x, mesh):
-    """This rank's part of a global 3D batch (numpy, (B, D, H, W[, C])): its
-    data index's rows, and under a 'spatial' axis its H slab of them."""
+def rank_batch(x, mesh, axis: int = 2):
+    """This rank's part of a global batch (numpy, (B, D, H, W[, C]), or (B,
+    H, W[, C]) with ``axis`` 1): its data index's rows, and under a
+    'spatial' axis its H slab of them (H at ``axis``)."""
     from cbim_tpu_torch.parallel import shard_batch
     x = shard_batch(x, mesh)
     if mesh is not None and mesh.spatial_size > 1:
-        h = x.shape[2] // mesh.spatial_size          # H of (B, D, H, W)
-        x = x[:, :, mesh.spatial_rank * h:(mesh.spatial_rank + 1) * h]
+        h = x.shape[axis] // mesh.spatial_size
+        x = np.take(x, range(mesh.spatial_rank * h,
+                             (mesh.spatial_rank + 1) * h), axis=axis)
     return np.ascontiguousarray(x)
 
 
-def train_steps(mesh, payload) -> dict:
+def _fixed_channel_masks(masks, mesh):
+    """VNet's ``ChannelDropout.keep_mask`` replaced by ``masks`` (numpy
+    (B, C) bools of the global batch, in call order, cycled); a rank takes
+    its data index's rows of each.  Returns the original to put back."""
+    from cbim_tpu_torch.models import vnet
+    from cbim_tpu_torch.parallel import shard_batch
+    real = vnet.ChannelDropout.keep_mask
+    calls = [0]
+
+    def keep_mask(self, x):
+        m = masks[calls[0] % len(masks)]
+        calls[0] += 1
+        rows = torch.from_numpy(np.ascontiguousarray(shard_batch(m, mesh)))
+        return rows[:, :, None, None, None].to(x.device)
+
+    vnet.ChannelDropout.keep_mask = keep_mask
+    return real
+
+
+def _instance_norm_f64(x, eps, act, group=None):
+    """The fused norm's function (over a channels-last x) in plain torch
+    ops, any float dtype (its kernels' plain versions take fp32 and bf16
+    only); with ``group``, the statistics of every H slab of the group,
+    differentiable."""
+    import math
+    import torch.distributed as dist
+    from cbim_tpu_torch.parallel.collectives import all_reduce_sum
+    dims = tuple(range(1, x.dim() - 1))
+    n = math.prod(x.shape[1:-1]) * (dist.get_world_size(group)
+                                    if group is not None else 1)
+    mean = all_reduce_sum(x.sum(dims, keepdim=True), group) / n
+    d = x - mean
+    var = all_reduce_sum(d.square().sum(dims, keepdim=True), group) / n
+    y = d / torch.sqrt(var + eps)
+    return {None: y, False: y, "relu": torch.relu(y),
+            "gelu": torch.nn.functional.gelu(y)}[act]
+
+
+def _in_f64():
+    """Put the fp64 InstanceNorm in the place of both norm Functions of
+    ``layers.convs``; returns the originals."""
+    from cbim_tpu_torch.models.layers import convs
+    real = convs.InstanceNormAct, convs.SpatialInstanceNormAct
+    convs.InstanceNormAct = type("InstanceNormF64", (), {
+        "apply": staticmethod(_instance_norm_f64)})
+    convs.SpatialInstanceNormAct = convs.InstanceNormAct
+    return real
+
+
+def train_steps(mesh, payload, f64: bool = False) -> dict:
     """``payload``: the config dict, the initial state_dict and the global
     batches (numpy).  Builds the model, loads the weights, takes one
     ``make_train_step`` per batch on this rank's part of it
     (:func:`rank_batch`); returns the losses, the parameters' gradients of
     the first step (all-reduced: DDP's mean), the BatchNorm running
-    statistics after it, and the parameters after every step."""
+    statistics after it, and the parameters after every step.  ``f64``:
+    the same in fp64 (the model and the batches; its convs on cuDNN's
+    route and its InstanceNorms in plain torch ops,
+    :func:`_instance_norm_f64`; the loss in fp32, as the port computes
+    it)."""
     from cbim_tpu_torch.config import config_from_dict
     from cbim_tpu_torch.models import get_model
+    from cbim_tpu_torch.models.layers import convs
     from cbim_tpu_torch.training.train_state import (create_train_state,
                                                      make_train_step)
     cfg = config_from_dict(payload["cfg"])
     model = get_model(cfg, device="cpu", train=True)
     model.load_state_dict(payload["state_dict"])
+    if f64:
+        model.double()
+        for m in model.modules():
+            if isinstance(m, convs.ConvNormAct):
+                m.kernel = None
+        real_in = _in_f64()
     state = create_train_state(model, cfg, mesh=mesh)
     step = make_train_step(model, state.optimizer, cfg, mesh)
+    axis = 2 if cfg.dimension == "3d" else 1
     losses, grads, buffers = [], None, None
-    for img, lab in payload["batches"]:
-        img, lab = rank_batch(img, mesh), rank_batch(lab, mesh)
-        losses.append(float(step(state, torch.from_numpy(img),
-                                 torch.from_numpy(lab).long(),
-                                 cfg.base_lr)))
-        if grads is None:
-            grads = {k: p.grad.clone() for k, p in model.named_parameters()}
-            buffers = {k: b.clone() for k, b in model.named_buffers()}
+    masks = payload.get("channel_masks")
+    if masks is not None:
+        from cbim_tpu_torch.models import vnet
+        real = _fixed_channel_masks(masks, mesh)
+    try:
+        for img, lab in payload["batches"]:
+            img, lab = rank_batch(img, mesh, axis), rank_batch(lab, mesh,
+                                                               axis)
+            img = torch.from_numpy(img)
+            losses.append(float(step(state, img.double() if f64 else img,
+                                     torch.from_numpy(lab).long(),
+                                     cfg.base_lr)))
+            if grads is None:
+                grads = {k: p.grad.clone()
+                         for k, p in model.named_parameters()}
+                buffers = {k: b.clone() for k, b in model.named_buffers()}
+    finally:
+        if masks is not None:
+            vnet.ChannelDropout.keep_mask = real
+        if f64:
+            convs.InstanceNormAct, convs.SpatialInstanceNormAct = real_in
     return {"losses": losses, "grads": grads, "buffers": buffers,
             "params": {k: p.detach().clone()
                        for k, p in model.named_parameters()}}
@@ -249,11 +325,51 @@ class _Bmha(torch.nn.Module):
         return self.attn(feat, smap)
 
 
+class _UnetppUp(torch.nn.Module):
+    """UNet++'s upsample of a map by its first level's scale (its ``_up``
+    on a tiny UNet++'s scales and spatial group), in rank ``nd``."""
+
+    def __init__(self, nd: int):
+        super().__init__()
+        from cbim_tpu_torch.models.unetpp import (UNetPlusPlus2D,
+                                                  UNetPlusPlus3D)
+        net = (UNetPlusPlus3D(1, 2, base_ch=1) if nd == 3 else
+               UNetPlusPlus2D(1, 2, base_ch=1))
+        self.scale, self.spatial_group = net.scale, None
+
+    def forward(self, x):
+        from cbim_tpu_torch.models.unetpp import UNetPlusPlus3D
+        return UNetPlusPlus3D._up(self, x, 0)
+
+
+def _vnet_layer(name: str) -> torch.nn.Module:
+    """VNet's transitions at small widths, their dropouts off (the draws
+    are ``sample_draws``'s)."""
+    from cbim_tpu_torch.models import vnet
+    layer = {"vnet_luconv": lambda: vnet.LUConv(4, elu=True),
+             "vnet_down": lambda: vnet.DownTransition(4, 1, elu=True),
+             "vnet_up": lambda: vnet.UpTransition(8, 8, 1, elu=True),
+             "vnet_contbn": lambda: vnet.ContBatchNorm(4)}[name]()
+    for m in layer.modules():
+        if isinstance(m, vnet.ChannelDropout):
+            m.p = 0.0
+        if isinstance(m, vnet.ContBatchNorm):   # away from 1 and 0
+            m.weight.data.uniform_(0.5, 1.5)
+            m.bias.data.uniform_(-0.5, 0.5)
+    return layer
+
+
 def _layer(name: str) -> torch.nn.Module:
     """A layer case of ``spatial_layers``, its weights drawn from a seed."""
+    from cbim_tpu_torch.models.attention_unet import (AttentionGate,
+                                                      AttentionUpBlock)
     from cbim_tpu_torch.models.layers.convs import ConvNormAct, MBConv, Norm
-    from cbim_tpu_torch.models.medformer import SemanticMapGeneration
+    from cbim_tpu_torch.models.medformer import (SemanticMapGeneration,
+                                                 UpBlockMF2D)
+    from cbim_tpu_torch.models.unet import UpBlock2D
     torch.manual_seed(7)
+    if name.startswith("vnet_"):
+        return _vnet_layer(name)
     return {
         "conv3_kernel_in_gelu": lambda: ConvNormAct(
             4, 8, 3, norm="in", act="gelu", preact=True),
@@ -271,6 +387,21 @@ def _layer(name: str) -> torch.nn.Module:
         "nearest_x2": lambda: _Resize(2, nearest=True),
         "map_generation": lambda: SemanticMapGeneration(4, 8, (2, 2, 2)),
         "bmha": _Bmha,
+        "gate_c1": lambda: AttentionGate(4, 4, 1, nd=3),
+        "attention_up3d": lambda: AttentionUpBlock(
+            8, 4, 4, 1, "SingleConv", norm="in"),
+        "attention_up2d": lambda: AttentionUpBlock(
+            8, 4, 4, 1, "SingleConv", norm="bn", nd=2, conv2d_kernel=True),
+        "unetpp_up3d": lambda: _UnetppUp(3),
+        "unetpp_up2d": lambda: _UnetppUp(2),
+        "unet_up2d": lambda: UpBlock2D(8, 8, 8, 1, "BasicBlock", nd=2,
+                                       conv2d_kernel=True),
+        "up_mf2d": lambda: UpBlockMF2D(
+            8, 8, 8, 1, 1, map_in_dim=8, heads=2, dim_head=4,
+            conv2d_kernel=True),
+        "conv2d_kernel_bn": lambda: ConvNormAct(4, 8, 3, norm="bn",
+                                                act="relu", nd=2,
+                                                conv2d_kernel=True),
     }[name]()
 
 
@@ -291,8 +422,37 @@ LAYER_INPUTS = {
     "map_generation": [((2, 4, 4, 8, 6), True)],
     "bmha": [((2, 8, 4, 8, 6), True), ((2, 8, 2, 2, 2), False)],
 }
+#: the layers of the models of ROADMAP A7b and A7c, as ``LAYER_INPUTS``:
+#: VNet's 5^3 conv (a halo of 2 planes: 2 rows a slab at s = 4), its
+#: strided down and transposed up transitions and ContBatchNorm;
+#: AttentionUNet's gate at C = 1 and its up blocks (3D InstanceNorm, 2D
+#: BatchNorm on the 3x3 kernel route); UNet++'s upsample; the 2D UNet's
+#: and MedFormer-2D's up blocks (the latter with a B-MHA block and its
+#: semantic map, which every peer holds whole); a 2D 3x3 ConvNormAct on
+#: the kernel route with BatchNorm
+ZOO_LAYER_INPUTS = {
+    "vnet_luconv": [((2, 4, 4, 8, 6), True)],
+    "vnet_down": [((2, 4, 4, 16, 4), True)],
+    "vnet_up": [((2, 8, 2, 4, 2), True), ((2, 4, 4, 8, 4), True)],
+    "vnet_contbn": [((2, 4, 4, 8, 6), True)],
+    "gate_c1": [((2, 4, 4, 8, 6), True), ((2, 4, 4, 8, 6), True)],
+    "attention_up3d": [((2, 8, 2, 4, 3), True), ((2, 4, 4, 8, 6), True)],
+    "attention_up2d": [((2, 8, 4, 6), True), ((2, 4, 8, 12), True)],
+    "unetpp_up3d": [((2, 3, 3, 4, 5), True)],
+    "unetpp_up2d": [((2, 3, 4, 5), True)],
+    "unet_up2d": [((2, 8, 4, 6), True), ((2, 8, 8, 12), True)],
+    "up_mf2d": [((2, 8, 4, 6), True), ((2, 8, 8, 12), True),
+                ((2, 8, 2, 2), False)],
+    "conv2d_kernel_bn": [((2, 4, 8, 6), True)],
+}
 #: the outputs every peer holds whole, by case
-REPLICATED_OUTPUTS = {"map_generation": (0,), "bmha": (1,)}
+REPLICATED_OUTPUTS = {"map_generation": (0,), "bmha": (1,), "up_mf2d": (1,)}
+
+
+def layer_inputs(name: str) -> list:
+    """A case's inputs: (shape, sharded along H) each."""
+    return (LAYER_INPUTS[name] if name in LAYER_INPUTS else
+            ZOO_LAYER_INPUTS[name])
 
 
 def layer_data(name: str) -> tuple[list, list]:
@@ -300,7 +460,7 @@ def layer_data(name: str) -> tuple[list, list]:
     gradients' shapes come from a forward of the unsharded layer."""
     rng = np.random.RandomState(3)
     xs = [rng.randn(*shape).astype(np.float32)
-          for shape, _ in LAYER_INPUTS[name]]
+          for shape, _ in layer_inputs(name)]
     outs = _outputs(_layer(name), [torch.from_numpy(x) for x in xs], name)
     gys = [rng.randn(*o.shape).astype(np.float32) for o in outs]
     return xs, gys
@@ -315,8 +475,10 @@ def _outputs(module, xs, name):
 
 
 def _h_slab(x, mesh):
-    h = x.shape[3] // mesh.spatial_size
-    return x[:, :, :, mesh.spatial_rank * h:(mesh.spatial_rank + 1) * h]
+    """This rank's slab of x (B, C, *spatial) along H, the second-to-last
+    axis."""
+    from cbim_tpu_torch.parallel.spatial import h_axis, slab
+    return slab(x, mesh.spatial_rank, mesh.spatial_size, h_axis(x))
 
 
 def spatial_layers(mesh, payload) -> dict:
@@ -325,21 +487,26 @@ def spatial_layers(mesh, payload) -> dict:
     rank's slab, or the whole of a replicated one), the inputs' gradients
     from sum(output * upstream) (a replicated output's upstream counted on
     the group's first rank only, as the one-process loss counts it once)
-    and the parameters' gradients summed over the group."""
+    and the parameters' gradients summed over the group.  The layer's
+    BatchNorms take the world group's statistics, as the train state marks
+    them (``sync_batch_norm``)."""
     import torch.distributed as dist
-    from cbim_tpu_torch.models.layers.convs import spatial_shard
+    from cbim_tpu_torch.models.layers.convs import (CHANNELS_LAST,
+                                                    spatial_shard,
+                                                    sync_batch_norm)
     out = {}
     for name in payload["cases"]:
         xs, gys = payload["data"][name]
         module = _layer(name)
         inputs = []
-        for x, (_, sharded) in zip(xs, LAYER_INPUTS[name]):
+        for x, (_, sharded) in zip(xs, layer_inputs(name)):
             t = torch.from_numpy(x)
             if mesh is not None and sharded:
                 t = _h_slab(t, mesh)
-            inputs.append(t.contiguous(memory_format=torch.channels_last_3d)
-                          .requires_grad_(True))
+            inputs.append(t.contiguous(
+                memory_format=CHANNELS_LAST[t.dim() - 2]).requires_grad_(True))
         if mesh is not None:
+            sync_batch_norm(module, mesh.group)
             spatial_shard(module, mesh.spatial_group)
         ys = _outputs(module, inputs, name)
         loss = 0.0
@@ -364,9 +531,14 @@ def spatial_layers(mesh, payload) -> dict:
 
 def train_steps_many(mesh, payload) -> dict:
     """:func:`train_steps` of each of ``payload["runs"]`` (name -> its
-    payload) in turn, on one group."""
-    return {name: train_steps(mesh, run)
-            for name, run in payload["runs"].items()}
+    payload) in turn, on one group; for the names in
+    ``payload["f64"]`` also the fp64 steps, under ``name + ":f64"``."""
+    out = {}
+    for name, run in payload["runs"].items():
+        out[name] = train_steps(mesh, run)
+        if name in payload.get("f64", ()):
+            out[name + ":f64"] = train_steps(mesh, run, f64=True)
+    return out
 
 
 #: the conv and norm ops whose inputs' extents ``extents_of_a_step``
@@ -417,18 +589,51 @@ def extents_of_a_step(mesh, payload) -> dict:
 
 
 def sample_draws(mesh, payload) -> dict:
-    """A ``DropPath`` then a ``Dropout``, both of rate 0.5, through
-    ``create_train_state``'s generators, on this rank's part of
-    ``payload["x"]`` (all ones, (B, C, D, H, W)): each sample's DropPath
-    keep (True where the sample survives) and the Dropout's keep mask."""
+    """A ``DropPath``, a ``Dropout`` and VNet's ``ChannelDropout``, each of
+    rate 0.5, through ``create_train_state``'s generators, on this rank's
+    part of ``payload["x"]`` (all ones, (B, C, D, H, W)): each sample's
+    DropPath keep (True where the sample survives), the Dropout's keep
+    mask and the ChannelDropout's keep of each (sample, channel), and
+    whether the channel dropout kept or dropped each of them whole on the
+    slab."""
     from cbim_tpu_torch.config import config_from_dict
     from cbim_tpu_torch.models.layers.convs import Dropout, DropPath
+    from cbim_tpu_torch.models.vnet import ChannelDropout
     from cbim_tpu_torch.training.train_state import create_train_state
-    model = torch.nn.Sequential(DropPath(0.5), Dropout(0.5))
+    model = torch.nn.Sequential(DropPath(0.5), Dropout(0.5),
+                                ChannelDropout(0.5))
     model.register_parameter("w", torch.nn.Parameter(torch.ones(1)))
     create_train_state(model, config_from_dict(dict(
         optimizer="sgd", base_lr=0.1)), seed=3, mesh=mesh)
     x = torch.from_numpy(rank_batch(payload["x"], mesh))
     kept = model[0](x)
+    channels = model[2](torch.ones_like(x)).ne(0).flatten(2)
     return {"drop_path": kept.flatten(1).ne(0).all(1),
-            "dropout": model[1](torch.ones_like(x)).ne(0)}
+            "dropout": model[1](torch.ones_like(x)).ne(0),
+            "channel_dropout": channels.all(2),
+            "channels_whole": bool((channels.all(2)
+                                    | ~channels.any(2)).all())}
+
+
+def spatial_layers_zoo(mesh, payload) -> dict:
+    """:func:`spatial_layers` of the cases, and (on ranks) the refusal of a
+    VNet whose deepest slab is thinner than its 5^3 convs' halo of 2: the
+    message of each rank's error, or None."""
+    out = spatial_layers(mesh, payload)
+    if mesh is None:
+        return out
+    from cbim_tpu_torch.models import vnet
+    from cbim_tpu_torch.models.layers.convs import spatial_shard
+    torch.manual_seed(7)
+    net = vnet.VNet(1, 2, base_ch=2).train()
+    for m in net.modules():
+        if isinstance(m, vnet.ChannelDropout):
+            m.p = 0.0
+    spatial_shard(net, mesh.spatial_group)
+    x = torch.zeros(payload["thin_vnet_input"])
+    try:
+        net(_h_slab(x, mesh))
+        out["refusal"] = None
+    except ValueError as e:
+        out["refusal"] = str(e)
+    return out
